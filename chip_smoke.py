@@ -1,0 +1,301 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each failing loudly (non-zero exit):
+
+1. device: a CUDA device must exist; prints the card's name and power limit.
+2. build: compiles every kernel from csrc/ (one nvcc per source, in parallel).
+3. kernel check: each kernel against its plain PyTorch version on the card,
+   exact int32 equality, at the main path's shapes (kinase) and at
+   synth4_long's; kernel, plain and bound times.
+4. main path, kinase: the port's CLI entry (--triples off, --device cuda)
+   must reach g = 421546 with a path whose recomputed cost equals g, degapped
+   rows equal to the inputs, and the kernel launch counts above zero.
+5. main path, test / test2 / PF08184: golden g and byte-identical alignment.
+6. the kernels JSON line, then the result line.
+
+Inputs are rebuilt from tests/goldens.json (the degapped golden rows) and
+tests/data/synth4_long.fasta.  Weights are not random: the system runs no
+model, and its data are these real sequences.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
+PEAK_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+K1_OPS_PER_CELL = 12          # int32 adds/compares/selects per DP cell
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of fn() on the current stream (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def rebuild_inputs(tmp: str) -> dict:
+    gold = json.load(open(os.path.join(ROOT, "tests", "goldens.json")))
+    paths = {}
+    for name, g in gold.items():
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            for k, row in enumerate(g["alignment"]):
+                f.write(f">seq{k}\n{row.replace('-', '')}\n")
+        paths[name] = path
+    return gold, paths
+
+
+def check_k1(paths) -> dict:
+    from mpi_pastar_msa_tpu_torch._kernels import launches, load
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.wavefront import (
+        pair_inputs, wavefront_tables, wavefront_tables_plain)
+
+    rows = {}
+    for label, path in (("kinase", paths["kinase.fasta"]),
+                        ("synth4_long", os.path.join(ROOT, "tests", "data",
+                                                     "synth4_long.fasta"))):
+        p = problem_from_fasta(path)
+        args = pair_inputs(p, "cuda")
+        n0 = launches["pair_wavefront"]
+        got = wavefront_tables(**args)
+        torch.cuda.synchronize()
+        if launches["pair_wavefront"] != n0 + 1:
+            fail("pair_wavefront wrapper did not launch its kernel")
+        want = wavefront_tables_plain(**args)
+        err = int((got.long() - want.long()).abs().max())
+        if err != 0:
+            fail(f"K1 {label}: kernel differs from plain version (max |err| {err})")
+        ms = time_ms(lambda: wavefront_tables(**args), reps=20)
+        plain_ms = time_ms(lambda: wavefront_tables_plain(**args), reps=3, warmup=1)
+        P, L1 = got.shape[0], got.shape[1]
+        lens = args["lens"].cpu().tolist()
+        cells = sum((lens[x] + 1) * (lens[y] + 1) for x, y in p.pairs())
+        in_bytes = sum(t.numel() * 4 for k, t in args.items() if k != "lmax") + 128 * 128 * 4
+        out_bytes = P * L1 * L1 * 4
+        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        ops_ms = cells * K1_OPS_PER_CELL / PEAK_OPS_PER_S * 1e3
+        # dependent-diagonal floor: n1+n2 barrier steps of the longest pair,
+        # each at least one measured shared-memory barrier step
+        steps = max(lens[x] + lens[y] for x, y in p.pairs())
+        lib = load("pair_wavefront")
+        fn = lib.barrier_chain
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        probe = torch.empty(256, dtype=torch.int32, device="cuda")
+
+        def chain():
+            if fn(steps, 256, probe.data_ptr(), torch.cuda.current_stream().cuda_stream):
+                fail("barrier_chain probe failed to launch")
+
+        chain_ms = time_ms(chain, reps=20)
+        rows[label] = dict(P=P, Lmax=L1 - 1, ms=ms, plain_ms=plain_ms,
+                           bound_ms=max(bytes_ms, ops_ms),
+                           bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                           chain_floor_ms=chain_ms, out_bytes=out_bytes,
+                           max_abs_err=err)
+        print(f"K1 {label}: P={P} Lmax={L1 - 1} exact; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.5f} ms "
+              f"({rows[label]['bound_by']}), dependent-diagonal floor "
+              f"{chain_ms:.4f} ms ({steps} barrier steps); no library yardstick "
+              f"(no single PyTorch call computes this DP)")
+    return rows
+
+
+def main_path(name: str, path: str, gold: dict, want_identical: bool) -> dict:
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch import cli
+
+    args = cli.make_parser().parse_args(
+        [path, "--device", "cuda", "--triples", "off"])
+    out = io.StringIO()
+    _kernels.reset_counts()
+    with contextlib.redirect_stdout(out):
+        rep = cli.execute(args)
+    counts = dict(_kernels.launches)
+    res = rep.result
+    if res.g != gold["optimal_g"]:
+        fail(f"{name}: g={res.g}, want {gold['optimal_g']}")
+    if "Final Score:" not in out.getvalue():
+        fail(f"{name}: no Final Score line")
+    want_rows = [r.replace("-", "") for r in gold["alignment"]]
+    if [r.replace("-", "") for r in rep.alignment] != want_rows:
+        fail(f"{name}: degapped alignment rows differ from the inputs")
+    # FrontierSearch._finish ran attach_path_g(goal_g=g): the recomputed
+    # path cost equals g, or the run would have raised
+    identical = rep.alignment == gold["alignment"]
+    if want_identical and not identical:
+        fail(f"{name}: alignment differs from the golden")
+    for k, v in counts.items():
+        if v <= 0:
+            fail(f"{name}: kernel {k} was not launched on the main path")
+    eng = rep.engine
+    info = dict(g=res.g, identical=identical, expanded=res.nodes_expanded,
+                reopened=res.nodes_reopened, steps=res.steps,
+                capacity=eng.st.C, batch=eng.st.B, regrown=eng.regrown,
+                walls=rep.walls, nodes_per_s=res.nodes_expanded / rep.walls["phase2"],
+                launches=counts, upper_bound_s=eng.ub_wall,
+                engine_walls=eng.last_phase_walls,
+                acct=eng.last_acct)
+    print(f"{name}: g={res.g} ok, path cost == g, alignment byte-identical to "
+          f"golden: {identical}; Phase 1/2/3 = {rep.walls['phase1']:.3f} / "
+          f"{rep.walls['phase2']:.3f} / {rep.walls['phase3']:.3f} s; expanded "
+          f"{res.nodes_expanded}, reopened {res.nodes_reopened}, steps {res.steps}, "
+          f"{info['nodes_per_s']:.0f} nodes/s, capacity {eng.st.C} "
+          f"(regrown: {eng.regrown}), batch {eng.st.B}; host upper-bound beam "
+          f"{eng.ub_wall:.3f} s of Phase 2; launches {counts}")
+    return info
+
+
+def profile_kinase(path: str, warm_steps: int, steps: int) -> dict:
+    """Where a mid-search kinase step spends its time: run the engine to
+    ``warm_steps``, then trace ``steps`` more with torch.profiler.  Prints
+    the device time by kernel and the device's busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    p = problem_from_fasta(path)
+    eng = E.FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda")
+    tab = eng._init_table()
+    ctr = torch.as_tensor(E.fresh_counters(), device="cuda")
+    ctr = E._run_chunk(eng.st, tab, ctr, warm_steps, eng.ub, eng.fill_target)
+    s0 = ctr.tolist()[2]
+    t0 = time.perf_counter()
+    ctr = E._run_chunk(eng.st, tab, ctr, steps, eng.ub, eng.fill_target)
+    before = ctr.tolist()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / (before[2] - s0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctr = E._run_chunk(eng.st, tab, ctr, steps, eng.ub, eng.fill_target)
+        after = ctr.tolist()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = after[2] - before[2]
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    # aten:: ops report their kernels' device time again: busy time sums
+    # the kernels (and memcpy/memset) alone
+    kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
+                   if not e.key.startswith("aten::")), key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in kern)
+    print(f"profile kinase: steps {s0}..{before[2]} unprofiled {plain_wall_ms:.3f} "
+          f"ms/step; steps {before[2]}..{after[2]} profiled: wall {wall * 1e3 / n:.3f} "
+          f"ms/step, device busy {busy_ms / n:.3f} ms/step "
+          f"({100 * busy_ms / (wall * 1e3):.1f}% of wall; idle "
+          f"{100 - 100 * busy_ms / (wall * 1e3):.1f}%)")
+    for key, ms, cnt in kern[:12]:
+        print(f"  {ms / n:8.4f} ms/step  {cnt / n:7.1f} launches/step  {key[:90]}")
+    ops = sorted(((e.key, e.device_time_total / 1e3) for e in events
+                  if e.key.startswith("aten::")), key=lambda r: -r[1])
+    return dict(steps=n, unprofiled_wall_ms_per_step=plain_wall_ms,
+                wall_ms_per_step=wall * 1e3 / n,
+                busy_ms_per_step=busy_ms / n,
+                kernels=[dict(name=k, ms_per_step=ms / n, launches_per_step=c / n)
+                         for k, ms, c in kern[:25]],
+                aten_ops=[dict(name=k, ms_per_step=ms / n) for k, ms in ops[:25]],
+                launches_per_step=sum(c for _, _, c in kern) / n)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--report", metavar="PATH", default=None,
+                    help="also write the full report (every phase's numbers) "
+                         "as JSON to PATH")
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace 32 mid-search kinase steps with "
+                         "torch.profiler (device time by kernel, idle share)")
+    args = ap.parse_args()
+
+    # 1. device
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is false)")
+    if not os.path.isdir(os.path.join(ROOT, "mpi_pastar_msa_tpu_torch")):
+        fail("the mpi_pastar_msa_tpu_torch package is not beside this script")
+    sys.path.insert(0, ROOT)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    # 2. build
+    t0 = time.perf_counter()
+    logs = _kernels.build_all()
+    print(f"build: {len(logs)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    report = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        gold, paths = rebuild_inputs(tmp)
+        # 3. kernel check
+        report["k1"] = check_k1(paths)
+        # 4. / 5. main path
+        report["kinase"] = main_path("kinase", paths["kinase.fasta"],
+                                     gold["kinase.fasta"], want_identical=False)
+        for name in ("test.fasta", "test2.fasta", "PF08184.fasta"):
+            report[name] = main_path(name, paths[name], gold[name],
+                                     want_identical=True)
+        if args.profile:
+            report["profile"] = profile_kinase(paths["kinase.fasta"], 400, 32)
+
+    if args.report:
+        os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=1, default=str)
+
+    k1 = report["k1"]["kinase"]
+    kernels = [{
+        "name": "pair_wavefront", "route": "cuda",
+        "source": "mpi_pastar_msa_tpu_torch/csrc/pair_wavefront.cu",
+        "replaces": "mpi_pastar_msa_tpu/heuristic/wavefront_pallas.py:35",
+        "launches": report["kinase"]["launches"]["pair_wavefront"],
+        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": None,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(f"card: {smi}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,697 @@
+"""Batched-frontier A* engine, bucketed sig layout, pairwise heuristic.
+
+Port of the JAX package's ``search/engine.py`` sig path with
+``triples="off"``.  Every super-step
+
+  1. selects a batch of lowest-f open states from a device-resident
+     open/closed hash table (grouped argmin under an adaptive f threshold),
+  2. expands all 2^N-1 successor move-masks of every selected state (edge
+     costs and the HPair heuristic as int32 broadcasts and gathers summed
+     over the pairs, exact),
+  3. inserts all successors into the 8-way bucketed sig table with
+     decrease-key / reopen semantics (one scatter-min on the packed word
+     ``((f - f0) << n) | parent_mask``).
+
+Optimality does not require strict best-first order: reopening (keep-min)
+plus the termination bound ``min_f(open) >= g(goal)`` guarantee the returned
+goal cost is optimal for an admissible heuristic (ref: pastar/PAStar.cpp:
+494-519).  Edge-cost algebra (ref: pastar/Node.cpp:129-152): for mask m and
+pair p = (x, y) with advance bits bx, by and parent-mask bit p_s,
+
+  pairCost = GG + (E-GG)(bx+by) + (mm + GG - 2E) bx by
+             + (O-E)(bx(1-by) p_y + (1-bx) by p_x)
+
+so ``cost[b, m] = c0 + c1[m] + sum_p both[m, p] w_p (mm[b, p] + GG - 2E)
++ (O-E) sum_s cmat[m, s] pbit[b, s]``.
+
+Hash and sig quantities are carried in int64 masked to 32 bits (torch has
+thin uint32 support and ``>>`` on int32 is arithmetic).  Sig words fit in 31
+bits (``sig_ok``), so the table stores them as int32 with -1 (the bit
+pattern of the JAX layout's 0xFFFFFFFF) as the empty mark.  The table
+tensors carry a trailing trash region of ``TRASH`` slots: masked-out lanes
+of a scatter are sent there (spread by lane, so they do not all contend for
+one address) instead of being dropped, which keeps every scatter free of
+host synchronisation; nothing ever reads the trash.  The tables are updated
+in place (they are the engine's largest tensors: 3 x 4 B x C).
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.cost import COST_TABLE, GAP_EXTENSION, GAP_GAP, GAP_OPEN
+from ..core.problem import Problem
+from ..heuristic.hpair import HPairHeuristic
+from ..utils.device import resolve_device
+from .backtrace import attach_path_g
+from .bounds import greedy_upper_bound
+
+INF = 2**30
+INFP = 0x7FFFFFFF  # empty/infinite packed (f, par) word
+_EMPTY_WORD = -1   # empty sig way: the int32 bit pattern of 0xFFFFFFFF
+_M32 = 0xFFFFFFFF
+TRASH = 4096  # trash slots after each table tensor (see the module doc)
+MAX_STEPS = 1_000_000  # a search that needs more steps raises
+
+#: Counters vector (int64, one host read per chunk), slot for slot the JAX
+#: engine's legend:
+#: [0] goal_g  [1] fmin  [2] steps  [3] expanded  [4] reopened  [5] n_open
+#: [6] overflow  [7] thr (selection threshold, carried across chunks)
+#: [8] sel_proc  (sum of expand widths — processed SELECTED rows)
+#: [9] lanes_true (sum of valid candidate lanes — the search's true work)
+#: [10] lanes_r0  (sum of insert round-0 widths — processed candidate lanes)
+#: [11] lanes_probe (sum of probe-loop lane-rounds after round 0)
+#: [12] lanes_unmatched (candidates NOT settled by the round-0 row lookup)
+#: [13] lanes_tail (still unsettled after the first two probe calls)
+#: The port compacts each step to its active rows and valid candidates, so
+#: [8] counts expanded rows and [10] equals [9].
+N_COUNTERS = 14
+
+
+def fresh_counters() -> np.ndarray:
+    c = np.zeros(N_COUNTERS, dtype=np.int64)
+    c[0] = INF
+    return c
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(1, (x - 1).bit_length())
+
+
+@dataclass
+class FrontierResult:
+    g: int
+    h: int
+    f: int
+    closed: Dict[Tuple[int, ...], Tuple[int, int]]  # path-only closed dict
+    nodes_expanded: int
+    nodes_reopened: int
+    steps: int
+    shard_stats: List[Tuple[int, int, int, int]]
+
+
+@dataclass
+class SigTable:
+    """The bucketed sig table; each tensor ends in TRASH trash slots.
+
+    t_sig    (C + TRASH,) int32  sig word per way (-1 = empty), bucket-major
+    t_best   (C + TRASH,) int32  min packed word ((f-f0) << n) | parent mask
+    t_closed (C + TRASH,) int32  t_best as it was when the slot was selected;
+                                a slot is open while t_best < t_closed
+    """
+    t_sig: torch.Tensor
+    t_best: torch.Tensor
+    t_closed: torch.Tensor
+
+
+class _Static:
+    """Per-problem constants, on the engine's device (pairwise part of the
+    JAX ``_Static``)."""
+
+    def __init__(self, problem: Problem, heuristic: HPairHeuristic,
+                 batch: int, capacity: int, device, f0: Optional[int] = None):
+        dev = torch.device(device)
+        self.device = dev
+        n = problem.n_seq
+        self.n = n
+        self.M = (1 << n) - 1
+        self.pairs = problem.pairs()
+        P = len(self.pairs)
+        self.P = P
+        self.B = batch
+        self.C = capacity
+        self.lmax = problem.max_length
+        self.S = self.lmax + 2  # table stride with +1 margin for cx+1 gathers
+
+        w_int = heuristic.pair_weights_i().astype(np.int64)  # (P,)
+        bits = np.zeros((self.M, n), dtype=np.int64)
+        for m in range(1, self.M + 1):
+            for i in range(n):
+                bits[m - 1, i] = (m >> i) & 1
+        xs = np.array([x for x, _ in self.pairs])
+        ys = np.array([y for _, y in self.pairs])
+        bx = bits[:, xs]  # (M, P)
+        by = bits[:, ys]
+        E, O, GG = GAP_EXTENSION, GAP_OPEN, GAP_GAP
+        self.c0 = int((GG * w_int).sum())
+        c1 = (E - GG) * (w_int[None, :] * (bx + by)).sum(axis=1)  # (M,)
+        # parent-mask cross matrix: cmat[m, s] = sum_p w_p (bx !by [y_p==s]
+        # + !bx by [x_p==s])
+        cmat = np.zeros((self.M, n), dtype=np.int64)
+        for p, (x, y) in enumerate(self.pairs):
+            cmat[:, y] += w_int[p] * (bx * (1 - by))[:, p]
+            cmat[:, x] += w_int[p] * ((1 - bx) * by)[:, p]
+        self.gap_oe = O - E  # 0 with reference defaults
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64,
+                                   device=dev)
+
+        self.d_bits = t(bits)                # (M, N)
+        self.d_both = t(bx & by)             # (M, P)
+        self.d_cmat = t(cmat)                # (M, N)
+        self.d_c1 = t(c1)                    # (M,)
+        self.d_k = t(2 * bx + by)            # (M, P) T4 cell of each child
+        self.d_w = t(w_int)                  # (P,)
+        self.d_xs = t(xs)
+        self.d_ys = t(ys)
+        self.d_pbase = t(np.arange(P) * self.S * self.S)
+        self.d_final = t(problem.final_coord)
+        self.final_np = problem.final_coord.astype(np.int64)
+
+        # T8 rows: the 4 heuristic cells (i,j),(i,j+1),(i+1,j),(i+1,j+1) plus
+        # the PAM cost of the pair's residues at (i,j) as one 8-word row, so
+        # each (node, pair) costs one row gather (ref: pastar/Node.cpp:221-231)
+        enc = problem.encoded(self.lmax + 1).astype(np.int64)
+        tabs = heuristic.stacked_tables()
+        stacked = np.zeros((P, self.S, self.S), dtype=np.int32)
+        # zero padding: padded cells are only reachable from masked-out
+        # successors
+        stacked[:, : tabs.shape[1], : tabs.shape[2]] = np.where(
+            tabs >= 2**29, 0, tabs)
+        t8 = np.zeros((P, self.S, self.S, 8), dtype=np.int32)
+        t8[:, :-1, :-1, 0] = stacked[:, :-1, :-1]
+        t8[:, :-1, :-1, 1] = stacked[:, :-1, 1:]
+        t8[:, :-1, :-1, 2] = stacked[:, 1:, :-1]
+        t8[:, :-1, :-1, 3] = stacked[:, 1:, 1:]
+        for p, (x, y) in enumerate(self.pairs):
+            t8[p, : self.lmax + 1, : self.lmax + 1, 4] = COST_TABLE[
+                np.ix_(enc[x], enc[y])]
+        self.d_tables4 = torch.as_tensor(t8.reshape(-1, 8), device=dev)
+
+        self.root_parent_mask = problem.root_parent_mask
+        # sig layout: the bucket index carries the low key bits and ONE word
+        # (khi << 6 | bucket probe round) identifies the key exactly
+        self.cbits = self.C.bit_length() - 1
+        self.ways = 8
+        self.nbuck = self.C // self.ways
+        self.bbits = self.cbits - 3
+        self.max_bprobes = 64  # 6-bit r field -> 64 bucket probes
+        self.max_probes = 128  # cap on probe calls per insert
+        # way spreading: a writer takes the (mix32(word) mod n_empty)-th
+        # empty way of its bucket row; for an 8-bit empty mask e these
+        # tables give popcount(e) and the position of its k-th set bit
+        # (0 where there is none, as an argmax over no hits)
+        kth = np.zeros((256, self.ways), dtype=np.int64)
+        for e in range(256):
+            for k, w in enumerate(w for w in range(self.ways) if e >> w & 1):
+                kth[e, k] = w
+        self.d_popcount8 = t([bin(e).count("1") for e in range(256)])
+        self.d_kth_way = t(kth.reshape(-1))
+        self.bitw = [max(1, int(v).bit_length()) for v in problem.final_coord]
+        self.sig_bits = sum(self.bitw)
+        # khi <= 25 bits keeps the stored word below 2^31
+        self.sig_ok = (self.sig_bits <= self.bbits + 25
+                       and self.bbits >= 1 and self.cbits <= 31)
+        self.nb = n
+        # f-rebase origin: tables store f - f0; f0 = pairwise h at the root,
+        # a lower bound on every reachable node's f (consistency)
+        self.f0 = int(f0) if f0 is not None else int(
+            heuristic.calculate_h(np.zeros(n, dtype=np.int32)))
+
+
+# invertible odd multiplier (golden ratio) + its inverse mod 2^32; masking to
+# the bucket bits preserves the inverse property
+_SIG_ODD = 0x9E3779B1
+_SIG_ODD_INV = 0x0E8B2F51
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32), exact: split c in 16-bit
+    halves so no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """Murmur3 finalizer (bijective on u32) on int64 lanes holding u32."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x
+
+
+def _sig_encode(st: _Static, coords: torch.Tensor):
+    """(X, N) coords -> (home bucket, sig base word), both int64 in u32 range.
+
+    The coordinate packs into sig_bits <= bbits + 25 bits, split as klo (low
+    bbits) | khi (the rest).  home = (klo * ODD) ^ (mix32(khi) & Bmask); the
+    stored word is (khi << 6) | r for bucket probe round r.  Given (slot,
+    word) the key is recovered exactly (see _sig_decode): no hash collisions.
+    """
+    Bmask = st.nbuck - 1
+    coords = coords.long()
+    X = coords.shape[0]
+    lo = torch.zeros((X,), dtype=torch.int64, device=coords.device)
+    hi = torch.zeros_like(lo)
+    sh = 0
+    for i in range(st.n):
+        c = coords[:, i]
+        if sh < 32:
+            lo = lo | ((c << sh) & _M32)
+            if sh + st.bitw[i] > 32:
+                hi = hi | (c >> (32 - sh))
+        else:
+            hi = hi | ((c << (sh - 32)) & _M32)
+        sh += st.bitw[i]
+    klo = lo & Bmask
+    khi = lo >> st.bbits
+    if st.sig_bits > 32:
+        khi = (khi | (hi << (32 - st.bbits))) & _M32
+    home = ((klo * _SIG_ODD) & Bmask) ^ (_mix32(khi) & Bmask)
+    return home, (khi << 6) & _M32
+
+
+def _sig_decode(st: _Static, slots: torch.Tensor, sig: torch.Tensor):
+    """Invert _sig_encode: (slot, stored sig word) -> (X, N) int64 coords."""
+    Bmask = st.nbuck - 1
+    sig = sig.long() & _M32
+    r = sig & 63
+    khi = sig >> 6
+    bucket = slots.long() >> 3
+    home = (bucket - r) & Bmask
+    klo = ((home ^ (_mix32(khi) & Bmask)) * _SIG_ODD_INV) & Bmask
+    lo = (klo | (khi << st.bbits)) & _M32
+    hi = khi >> (32 - st.bbits) if st.sig_bits > 32 else torch.zeros_like(khi)
+    out = []
+    sh = 0
+    for i in range(st.n):
+        bw = st.bitw[i]
+        m = (1 << bw) - 1
+        if sh + bw <= 32:
+            v = (lo >> sh) & m
+        elif sh >= 32:
+            v = (hi >> (sh - 32)) & m
+        else:
+            v = ((lo >> sh) | (hi << (32 - sh))) & m
+        out.append(v)
+        sh += bw
+    return torch.stack(out, dim=-1)
+
+
+def _select_sig(st: _Static, tab: SigTable, goal_g, thr):
+    """Grouped-argmin batch selection; closes the selected slots in place.
+
+    The table is viewed as B groups of C/B slots; each group offers its
+    argmin open packed word (first index on ties), the global f-min is the
+    min of the group mins, and a group's pick is taken when its f is within
+    ``fmin + thr``.  Coordinates come from inverting the sig encoding.
+
+    Returns (coords, f, par, active, fmin, n_open, n_selected, reopen_ct):
+    f (not g) in the g position — the layout stores no h, so _expand
+    recovers g as f - h(parent)."""
+    C, B, nb = st.C, st.B, st.nb
+    G = C // B
+    t_best = tab.t_best[:C]
+    t_closed = tab.t_closed[:C]
+    is_open = (t_best < t_closed) & ((t_best >> nb) < goal_g - st.f0)
+    v_open = torch.where(is_open, t_best, INFP)
+    n_open = is_open.sum()
+    v = v_open.view(B, G)
+    j = torch.argmin(v, dim=1)
+    vmin = v.gather(1, j[:, None])[:, 0]
+    fmin_r = vmin.min() >> nb
+    cut = (torch.clamp(fmin_r.long() + thr + 1, max=INFP >> nb) << nb) - 1
+    slots = torch.arange(B, device=st.device) * G + j
+    active = vmin <= cut  # empty groups hold INFP > cut
+    vmin = torch.where(active, vmin, INFP)
+    n_selected = active.sum()
+    coords = _sig_decode(st, slots, tab.t_sig[slots])
+    fmin = fmin_r.long() + st.f0
+    f_sel = (vmin.long() >> nb) + st.f0
+    par = vmin.long() & ((1 << nb) - 1)
+    reopen_ct = (active & (t_closed[slots] < INFP)).sum()
+    tab.t_closed[torch.where(active, slots, C)] = vmin
+    return coords, f_sel, par, active, fmin, n_open, n_selected, reopen_ct
+
+
+def _adapt_thr(thr, n_selected, B: int):
+    """Selection threshold controller: widen when batches under-fill, shrink
+    when full; clamped so repeated widening cannot overflow f + thr."""
+    widen = n_selected < (B // 2)
+    shrink = n_selected >= (B - B // 8)
+    return torch.clamp(torch.where(widen, thr * 2 + 32,
+                                   torch.where(shrink, thr // 2, thr)),
+                       max=1 << 20)
+
+
+def _expand(st: _Static, coords, f, parenti, active):
+    """Expand a batch: (B, N) coords -> all-mask successor candidates.
+
+    ``f`` is the parents' f (the sig table stores no g): g = f - h(parent),
+    where h(parent) is the k=0 cell of the T4 heuristic gather (JAX:
+    ``_expand(..., g_is_f=True)``).
+
+    Returns flat (B*M,) int64 g, f, move mask, valid, is_goal and the
+    (B*M, N) child coordinates."""
+    B, n = coords.shape
+    M, S = st.M, st.S
+    coords = coords.long()
+    cx = coords[:, st.d_xs].clamp(0, S - 2)  # (B, P)
+    cy = coords[:, st.d_ys].clamp(0, S - 2)
+    t8 = st.d_tables4[st.d_pbase[None, :] + cx * S + cy].long()  # (B, P, 8)
+    t4w = t8[:, :, :4] * st.d_w[None, :, None]  # (B, P, 4)
+    mm = t8[:, :, 4]  # PAM cost of the pair's residues at (cx, cy)
+
+    E, GG = GAP_EXTENSION, GAP_GAP
+    wmm = st.d_w[None, :] * (mm + (GG - 2 * E))  # (B, P)
+    cost = st.c0 + st.d_c1[None, :] + (wmm[:, None, :] * st.d_both[None]).sum(-1)
+    if st.gap_oe != 0:
+        pbit = (parenti.long()[:, None] >> torch.arange(n, device=st.device)) & 1
+        cost = cost + st.gap_oe * (pbit[:, None, :] * st.d_cmat[None]).sum(-1)
+
+    child = coords[:, None, :] + st.d_bits[None]  # (B, M, N)
+    valid = (child <= st.d_final).all(-1) & active[:, None]
+    # h for every child: sum_p t4w[b, p, k(m, p)] with k = 2 bx + by
+    pidx = torch.arange(st.P, device=st.device)[None, :]
+    h = t4w[:, pidx, st.d_k].sum(-1)  # (B, M)
+    g = f.long() - t4w[:, :, 0].sum(1)
+    g_child = g[:, None] + cost
+    f_child = g_child + h
+    mask_id = torch.arange(1, M + 1, device=st.device).expand(B, M)
+    is_goal = (child == st.d_final).all(-1) & valid
+    return (g_child.reshape(-1), f_child.reshape(-1), mask_id.reshape(-1),
+            valid.reshape(-1), is_goal.reshape(-1), child.reshape(B * M, n))
+
+
+def _insert_sig(st: _Static, tab: SigTable, home, sigb, packed):
+    """Insert candidates (all valid) into the bucketed sig table, in place.
+
+    Round 0 matches each candidate's word against its home bucket row.  The
+    rest probe linearly over buckets, CLAIMLESS: a call reads the current
+    bucket row, settles a match, or writes the word into the
+    (mix32(word) mod n_empty)-th empty way and re-reads next call; it moves
+    to the next bucket only when the row was seen full, for at most
+    ``max_bprobes`` buckets.  Writers racing for one way: the smallest word
+    wins (scatter amin), so the result is the same on every device.  Every
+    settled candidate then scatter-mins its packed word into t_best.
+
+    Returns (overflow, acct) with acct = [true lanes, round-0 width, probe
+    lane-rounds, round-0 unmatched, unsettled after two calls] (counter
+    slots 9-13; the first two are equal: only valid lanes arrive)."""
+    dev = st.device
+    C, NB, ways = st.C, st.nbuck, st.ways
+    Bmask = NB - 1
+    L = home.shape[0]
+    t_sig = tab.t_sig
+    wrange = torch.arange(ways, device=dev)
+    trash = C + torch.arange(L, device=dev) % TRASH
+
+    row = t_sig[(home * ways)[:, None] + wrange]  # (L, 8) home bucket rows
+    match_w = row == sigb[:, None]  # the r=0 word IS the sig base
+    done = match_w.any(1)
+    slot = home * ways + torch.argmax(match_w.to(torch.uint8), dim=1)
+    un_ct = (~done).sum()
+    cur = home.clone()  # an unsettled lane's current bucket
+    calls = 0
+    tail_ct = torch.zeros((), dtype=torch.int64, device=dev)
+    while calls < st.max_probes and not bool(done.all()):
+        r = (cur - home) & Bmask
+        word = sigb | torch.clamp(r, max=st.max_bprobes - 1)
+        live = ~done & (r < st.max_bprobes)
+        row = t_sig[(cur * ways)[:, None] + wrange]
+        match_w = (row == word[:, None]) & live[:, None]
+        is_match = match_w.any(1)
+        mway = torch.argmax(match_w.to(torch.uint8), dim=1)
+        # 8-bit mask of the empty ways -> their count and the rank-th one
+        emask = ((row == _EMPTY_WORD).long() << wrange).sum(1)
+        n_empty = st.d_popcount8[emask]
+        rank = _mix32(word) % torch.clamp(n_empty, min=1)
+        fway = st.d_kth_way[emask * ways + rank]
+        has_empty = n_empty > 0
+        try_write = live & ~is_match & has_empty
+        dest = torch.where(try_write, cur * ways + fway, trash)
+        t_sig.scatter_reduce_(0, dest, word.to(torch.int32), "amin",
+                              include_self=False)
+        slot = torch.where(~done & is_match, cur * ways + mway, slot)
+        cur = torch.where(live & ~has_empty, (cur + 1) & Bmask, cur)
+        done = done | is_match
+        calls += 1
+        if calls == 2:
+            tail_ct = (~done).sum()
+
+    overflow = (~done).sum()
+    tab.t_best.scatter_reduce_(0, torch.where(done, slot, trash),
+                               packed.to(torch.int32), "amin")
+    acct = torch.stack([torch.tensor(L, device=dev), torch.tensor(L, device=dev),
+                        torch.tensor(calls * L, device=dev), un_ct, tail_ct])
+    return overflow, acct
+
+
+def _expand_insert(st: _Static, tab: SigTable, coords, f, par, active,
+                   goal_g, ub: int):
+    """Expand a selected batch and insert all successors.  Returns
+    (goal_g, overflow, acct) with acct = counter slots 8-13 of this step.
+
+    Only the active rows are expanded and only the valid candidates are
+    inserted (one torch.nonzero each): the selection fills a fraction of
+    the batch and the upper bound prunes many children.  Results do not
+    depend on it: the insert treats its lanes as one unordered set."""
+    dev = st.device
+    sel = torch.nonzero(active)[:, 0]
+    if sel.numel() == 0:  # no open state: the stop test ends the search
+        return goal_g, torch.zeros((), dtype=torch.int64, device=dev), \
+            torch.zeros(6, dtype=torch.int64, device=dev)
+    g_c, f_c, mask_c, valid, is_goal, child = _expand(
+        st, coords[sel], f[sel], par[sel], torch.ones_like(sel, dtype=torch.bool))
+    valid = valid & (f_c <= ub)  # admissible UB pruning
+    goal_g = torch.minimum(goal_g, torch.where(is_goal, g_c, INF).min())
+    keep = torch.nonzero(valid)[:, 0]
+    home, sigb = _sig_encode(st, child[keep])
+    packed = ((f_c[keep] - st.f0) << st.nb) | mask_c[keep]
+    overflow, iacct = _insert_sig(st, tab, home, sigb, packed)
+    acct = torch.cat([torch.tensor([sel.numel()], device=dev), iacct])
+    return goal_g, overflow, acct
+
+
+def _run_chunk(st: _Static, tab: SigTable, counters: torch.Tensor,
+               chunk_steps: int, ub: int, fill: int) -> torch.Tensor:
+    """Up to ``chunk_steps`` super-steps (select -> expand -> insert), as
+    the JAX chunked run loop (a while_loop): stop when fmin >= goal_g, after
+    chunk_steps, or on overflow.  The stop test reads three scalars per
+    step (the insert's probe loop synchronises each call anyway); the
+    caller reads the whole counters vector once per chunk."""
+    goal_g, steps, expanded, reopen, n_open, overflow, thr = (
+        counters[0], counters[2], counters[3], counters[4], counters[5],
+        counters[6], counters[7])
+    acct = counters[8:14].clone()
+    fmin = torch.zeros((), dtype=torch.int64, device=st.device)
+    local = 0
+    while local < chunk_steps:
+        fm, gg, ov = torch.stack([fmin, goal_g, overflow]).tolist()
+        if not (fm < gg and ov == 0):
+            break
+        coords, f_sel, par, active, fmin, n_open, n_sel, reopen_ct = (
+            _select_sig(st, tab, goal_g, thr))
+        goal_g, ovf, sacct = _expand_insert(st, tab, coords, f_sel, par,
+                                            active, goal_g, ub)
+        thr = _adapt_thr(thr, n_sel, fill)
+        steps = steps + 1
+        expanded = expanded + active.sum()
+        reopen = reopen + reopen_ct
+        overflow = overflow + ovf
+        acct = acct + sacct
+        local += 1
+    return torch.cat([torch.stack([goal_g, fmin, steps, expanded, reopen,
+                                   n_open, overflow, thr]), acct])
+
+
+def _walk_sig(st: _Static, tab: SigTable) -> Tuple[np.ndarray, np.ndarray]:
+    """Path walk goal -> origin over the sig table, on the host after one
+    copy of t_sig and t_best.  Returns (parent masks, final coordinate)."""
+    t_sig = tab.t_sig[: st.nbuck * st.ways].cpu()
+    t_best = tab.t_best[: st.C].cpu()
+    ways, Bmask = st.ways, st.nbuck - 1
+    parmask = (1 << st.nb) - 1
+    rs = torch.arange(st.max_bprobes)
+    coord = torch.as_tensor(st.final_np)
+    masks = []
+    for _ in range(int(st.final_np.sum())):
+        if not bool(coord.any()):
+            break
+        home, sigb = _sig_encode(st, coord[None, :])
+        bucks = (home[0] + rs) & Bmask  # (R,)
+        rows = t_sig[(bucks * ways)[:, None] + torch.arange(ways)]
+        hits = (rows == (sigb[0] | rs)[:, None]).reshape(-1)
+        if not bool(hits.any()):
+            break
+        flat = int(torch.argmax(hits.to(torch.uint8)))
+        par = int(t_best[int(bucks[flat // ways]) * ways + flat % ways]) & parmask
+        masks.append(par)
+        coord = coord - torch.tensor([(par >> i) & 1 for i in range(st.n)])
+    return np.array(masks, dtype=np.int64), coord.numpy()
+
+
+class FrontierSearch:
+    """Single-device frontier A* (JAX: ``TpuFrontierSearch``), sig layout,
+    pairwise heuristic only."""
+
+    def __init__(self, problem: Problem,
+                 heuristic: Optional[HPairHeuristic] = None,
+                 device="cuda", batch: Optional[int] = None,
+                 capacity: Optional[int] = None,
+                 chunk_steps: int = 64, triples: str = "off",
+                 fill_target: Optional[int] = None):
+        if triples != "off":
+            raise NotImplementedError(
+                f"triples={triples!r}: the triple-cube heuristic is not "
+                "ported yet (ROADMAP Queue 1 item 4); use triples='off'")
+        self.device = resolve_device(device)
+        self.problem = problem
+        self.heuristic = (heuristic if heuristic is not None
+                          else HPairHeuristic.build(problem, self.device))
+        n = problem.n_seq
+        M = (1 << n) - 1
+        if capacity is None:
+            lattice = 1
+            for L in problem.final_coord:
+                lattice *= int(L) + 1
+                if lattice > (1 << 27):
+                    break
+            # 2^23 keeps the sig layout eligible at kinase-length keys;
+            # searches whose key set outgrows it regrow (see run)
+            capacity = min(1 << 23, max(1 << 16, _next_pow2(min(lattice * 2, 1 << 23))))
+        if batch is None:
+            cap_b = 16384 if capacity >= (1 << 22) else 8192
+            batch = max(64, min(cap_b, (1 << 19) // M))
+        batch = max(16, min(batch, capacity))
+        batch = 1 << (batch.bit_length() - 1)  # grouped selection needs B | C
+        self.chunk_steps = chunk_steps
+        # pairwise-only searches are plateau-heavy: a B/16 fill target keeps
+        # the f-windows shallow (the JAX engine's no-cube default)
+        self.fill_target = int(fill_target) if fill_target else max(64, batch // 16)
+
+        wi = self.heuristic.weight_i
+        self.degenerate = bool((wi[~np.eye(n, dtype=bool)] <= 0).any())
+        t0 = time.perf_counter()
+        if GAP_OPEN == GAP_EXTENSION and not self.degenerate:
+            # wider beams tighten the bound on big searches
+            beam = 1024 if capacity >= (1 << 22) else 32
+            self.ub = greedy_upper_bound(problem, self.heuristic, beam=beam)
+        else:
+            self.ub = INF
+        self.ub_wall = time.perf_counter() - t0  # host beam, seconds
+        # the sig table stores f - f0 above n parent-mask bits of an int32,
+        # so the f spread ub - f0 must fit
+        f0 = int(self.heuristic.calculate_h(np.zeros(n, dtype=np.int32)))
+        self.packed = self.ub < INF and (self.ub - f0 + 64) < (1 << (31 - n))
+        self.st = _Static(problem, self.heuristic, batch, capacity,
+                          self.device, f0=f0)
+        self._check_layout()
+        self.regrown = False
+
+    @property
+    def layout(self) -> str:
+        """Resolved table layout: 'sig' | 'packed' | 'unpacked'."""
+        if self.packed and self.st.sig_ok:
+            return "sig"
+        return "packed" if self.packed else "unpacked"
+
+    def _check_layout(self) -> None:
+        if self.layout != "sig":
+            raise NotImplementedError(
+                f"this input needs the {self.layout} table layout, which is "
+                "not ported yet (ROADMAP Queue 1 item 8: packed and unpacked "
+                "layouts)")
+
+    def _init_table(self) -> SigTable:
+        st = self.st
+        dev = st.device
+        root = torch.zeros((1, st.n), dtype=torch.int64)
+        home, sigb = _sig_encode(st, root)
+        slot = int(home[0]) * st.ways  # way 0 of the home bucket
+        h_root = self.heuristic.calculate_h(np.zeros(st.n, dtype=np.int32))
+        size = (st.C + TRASH,)
+        t_sig = torch.full(size, _EMPTY_WORD, dtype=torch.int32, device=dev)
+        t_best = torch.full(size, INFP, dtype=torch.int32, device=dev)
+        t_closed = torch.full(size, INFP, dtype=torch.int32, device=dev)
+        t_sig[slot] = int(sigb[0])
+        t_best[slot] = ((h_root - st.f0) << st.nb) | st.root_parent_mask
+        return SigTable(t_sig, t_best, t_closed)
+
+    def run(self) -> FrontierResult:
+        """Run to the provably optimal goal; on table overflow the capacity is
+        doubled (up to 2^26) and the search restarts."""
+        attempts = 0
+        while True:
+            try:
+                return self._run_once()
+            except RuntimeError as e:
+                if ("overflow" not in str(e) or attempts >= 2
+                        or self.st.C >= (1 << 26)):
+                    raise
+                attempts += 1
+                self.regrown = True
+                self.st = _Static(self.problem, self.heuristic, self.st.B,
+                                  self.st.C * 2, self.device, f0=self.st.f0)
+                self._check_layout()
+
+    def _run_once(self) -> FrontierResult:
+        st = self.st
+        if self.degenerate:
+            warnings.warn(
+                "non-positive Altschul pair weights detected: edge costs "
+                "can be negative, so A* optimality is undefined for this "
+                "input (the reference has the same limitation)",
+                RuntimeWarning, stacklevel=3)
+        t0 = time.perf_counter()
+        self.last_phase_walls = {}
+        tab = self._init_table()
+        counters = torch.as_tensor(fresh_counters(), device=st.device)
+        self.last_phase_walls["init_table"] = time.perf_counter() - t0
+        while True:
+            counters = _run_chunk(st, tab, counters, self.chunk_steps,
+                                  self.ub, self.fill_target)
+            c = counters.tolist()  # one host read per chunk
+            goal_v, fmin_v, steps, total_expanded, total_reopen, _, overflow = c[:7]
+            self.last_acct = dict(zip(
+                ("sel_proc", "lanes_true", "lanes_r0", "lanes_probe",
+                 "lanes_unmatched", "lanes_tail"), c[8:14]))
+            if fmin_v >= goal_v or overflow > 0 or steps >= MAX_STEPS:
+                break
+        if overflow > 0:
+            raise RuntimeError(f"hash table overflow after {steps} steps "
+                               f"(capacity {st.C}); increase capacity")
+        if steps >= MAX_STEPS and fmin_v < goal_v:
+            raise RuntimeError("max_steps exceeded")
+        if goal_v >= INF:
+            raise RuntimeError("open set exhausted without reaching the goal")
+        return self._finish(tab, goal_v, steps, total_expanded, total_reopen)
+
+    def _finish(self, tab: SigTable, goal_v, steps, total_expanded,
+                total_reopen) -> FrontierResult:
+        st = self.st
+        t0 = time.perf_counter()
+        masks, coord_fin = _walk_sig(st, tab)
+        if np.any(coord_fin != 0):
+            raise RuntimeError("backtrace did not reach the origin")
+        self.last_phase_walls["walk"] = time.perf_counter() - t0
+
+        closed: Dict[Tuple[int, ...], Tuple[int, int]] = {}
+        coord = tuple(int(v) for v in st.final_np)
+        for mv in masks:
+            mv = int(mv)
+            closed[coord] = (0, mv)
+            coord = tuple(coord[i] - ((mv >> i) & 1) for i in range(st.n))
+        # exact g per path node, asserted against the goal g (the table
+        # stores (f << n) | parent, not g); skipped for degenerate weights
+        closed = attach_path_g(self.problem, self.heuristic.weight_i, closed,
+                               goal_g=None if self.degenerate else goal_v)
+
+        h_goal = self.heuristic.calculate_h(st.final_np)
+        t_best, t_closed = tab.t_best[: st.C], tab.t_closed[: st.C]
+        n_open = int((t_best < t_closed).sum())
+        n_closed = int(((t_closed < INFP) & (t_best >= t_closed)).sum())
+        return FrontierResult(
+            g=goal_v, h=h_goal, f=goal_v + h_goal, closed=closed,
+            nodes_expanded=total_expanded, nodes_reopened=total_reopen,
+            steps=steps,
+            shard_stats=[(total_expanded, total_reopen, n_closed, n_open)])
