@@ -8,7 +8,9 @@ Phases, each failing loudly (non-zero exit):
 2. build: compiles every kernel from csrc/ (one nvcc per source, in parallel).
 3. kernel check: each kernel against its plain PyTorch version on the card,
    exact int32 equality, at the main path's shapes (kinase) and at
-   synth4_long's; kernel, plain and bound times.
+   synth4_long's; kernel, plain, bound and dependent-diagonal floor times,
+   also per diagonal (``--k1-baseline SRC`` builds the first version of the
+   K1 source and times it in turns with this one).
 4. main path, kinase: the port's CLI entry (--triples off, --device cuda)
    must reach g = 421546 with a path whose recomputed cost equals g, degapped
    rows equal to the inputs, and the kernel launch counts above zero.
@@ -75,11 +77,44 @@ def rebuild_inputs(tmp: str) -> dict:
     return gold, paths
 
 
-def check_k1(paths) -> dict:
+def build_baseline_k1(src: str, tmp: str):
+    """Build the first version of the K1 source (``git show`` of
+    csrc/pair_wavefront.cu at the commit that added it), to time beside the
+    current kernel.  Its C entry takes (enc, enc_stride, xs, ys, lens, cost,
+    out, P, L1, lmax, O, E, stream)."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.core.cost import GAP_EXTENSION, GAP_OPEN
+    from mpi_pastar_msa_tpu_torch.heuristic.wavefront import _device_cost
+
+    lib_path = os.path.join(tmp, f"libk1_{abs(hash(src))}.so")
+    subprocess.run([_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", lib_path, src], check=True, capture_output=True)
+    fn = ctypes.CDLL(lib_path).pair_wavefront
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def run(enc, xs, ys, lens, lmax):
+        P, L1 = xs.shape[0], lmax + 1
+        out = torch.empty((P, L1, L1), dtype=torch.int32, device="cuda")
+        if fn(enc.data_ptr(), enc.shape[1], xs.data_ptr(), ys.data_ptr(),
+              lens.data_ptr(), _device_cost(enc.device).data_ptr(), out.data_ptr(),
+              P, L1, lmax, GAP_OPEN, GAP_EXTENSION,
+              torch.cuda.current_stream().cuda_stream):
+            fail(f"K1 build of {src} failed to launch")
+        return out
+
+    return run
+
+
+def check_k1(paths, baseline=None) -> dict:
+    """K1 against its plain version at kinase and synth4_long, with times;
+    ``baseline`` is (source, run) of the first version's build, or None."""
     from mpi_pastar_msa_tpu_torch._kernels import launches, load
     from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
     from mpi_pastar_msa_tpu_torch.heuristic.wavefront import (
-        pair_inputs, wavefront_tables, wavefront_tables_plain)
+        k1_launch_shape, pair_inputs, wavefront_tables, wavefront_tables_plain)
 
     rows = {}
     for label, path in (("kinase", paths["kinase.fasta"]),
@@ -99,6 +134,7 @@ def check_k1(paths) -> dict:
         ms = time_ms(lambda: wavefront_tables(**args), reps=20)
         plain_ms = time_ms(lambda: wavefront_tables_plain(**args), reps=3, warmup=1)
         P, L1 = got.shape[0], got.shape[1]
+        threads, rows_per_thread, shared = k1_launch_shape(L1 - 1)
         lens = args["lens"].cpu().tolist()
         cells = sum((lens[x] + 1) * (lens[y] + 1) for x, y in p.pairs())
         in_bytes = sum(t.numel() * 4 for k, t in args.items() if k != "lmax") + 128 * 128 * 4
@@ -106,29 +142,54 @@ def check_k1(paths) -> dict:
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
         ops_ms = cells * K1_OPS_PER_CELL / PEAK_OPS_PER_S * 1e3
         # dependent-diagonal floor: n1+n2 barrier steps of the longest pair,
-        # each at least one measured shared-memory barrier step
+        # each at least one measured shared-memory barrier step of a block
+        # as wide as the kernel's
         steps = max(lens[x] + lens[y] for x, y in p.pairs())
         lib = load("pair_wavefront")
         fn = lib.barrier_chain
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        probe = torch.empty(256, dtype=torch.int32, device="cuda")
+        probe = torch.empty(threads, dtype=torch.int32, device="cuda")
 
         def chain():
-            if fn(steps, 256, probe.data_ptr(), torch.cuda.current_stream().cuda_stream):
+            if fn(steps, threads, probe.data_ptr(), torch.cuda.current_stream().cuda_stream):
                 fail("barrier_chain probe failed to launch")
 
         chain_ms = time_ms(chain, reps=20)
-        rows[label] = dict(P=P, Lmax=L1 - 1, ms=ms, plain_ms=plain_ms,
+        rows[label] = dict(P=P, Lmax=L1 - 1, threads=threads,
+                           rows_per_thread=rows_per_thread, shared_bytes=shared,
+                           ms=ms, plain_ms=plain_ms,
                            bound_ms=max(bytes_ms, ops_ms),
                            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                           chain_floor_ms=chain_ms, out_bytes=out_bytes,
-                           max_abs_err=err)
-        print(f"K1 {label}: P={P} Lmax={L1 - 1} exact; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.5f} ms "
-              f"({rows[label]['bound_by']}), dependent-diagonal floor "
-              f"{chain_ms:.4f} ms ({steps} barrier steps); no library yardstick "
-              f"(no single PyTorch call computes this DP)")
+                           chain_floor_ms=chain_ms, diagonals=steps,
+                           ns_per_diagonal=ms * 1e6 / steps,
+                           floor_ns_per_diagonal=chain_ms * 1e6 / steps,
+                           out_bytes=out_bytes, max_abs_err=err)
+        per = lambda t: f"{t * 1e6 / steps:.1f} ns/diag"
+        print(f"K1 {label}: P={P} Lmax={L1 - 1} threads={threads} rows/thread="
+              f"{rows_per_thread} shared={shared} B exact; kernel {ms:.4f} ms "
+              f"({per(ms)}), plain {plain_ms:.2f} ms ({per(plain_ms)}), bound "
+              f"{max(bytes_ms, ops_ms):.5f} ms ({rows[label]['bound_by']}; "
+              f"{per(max(bytes_ms, ops_ms))}), dependent-diagonal floor "
+              f"{chain_ms:.4f} ms ({per(chain_ms)}, {steps} barrier steps of "
+              f"{threads} threads); no library yardstick (no single PyTorch "
+              f"call computes this DP)")
+        if baseline is not None:
+            # the first version, then in turns: first, current, current, first
+            src, run = baseline
+            first = lambda: run(args["enc"], args["xs"], args["ys"], args["lens"],
+                                L1 - 1)
+            old = first()
+            torch.cuda.synchronize()
+            if not torch.equal(old, got):
+                fail(f"K1 {label}: the build of {src} differs from this one")
+            current = lambda: wavefront_tables(**args)
+            turns = [time_ms(f, reps=20)
+                     for f in (first, current, current, first)]
+            rows[label]["turns"] = dict(source=src, ms=turns)
+            print(f"K1 {label} in turns with {src}: first {turns[0]:.4f} ms, "
+                  f"current {turns[1]:.4f} ms, current {turns[2]:.4f} ms, "
+                  f"first {turns[3]:.4f} ms")
     return rows
 
 
@@ -233,6 +294,10 @@ def main() -> int:
     ap.add_argument("--report", metavar="PATH", default=None,
                     help="also write the full report (every phase's numbers) "
                          "as JSON to PATH")
+    ap.add_argument("--k1-baseline", metavar="SRC", default=None,
+                    help="also build the first version of "
+                         "csrc/pair_wavefront.cu (its C entry without launch "
+                         "shape or scratch) and time it in turns with this one")
     ap.add_argument("--profile", action="store_true",
                     help="also trace 32 mid-search kinase steps with "
                          "torch.profiler (device time by kernel, idle share)")
@@ -264,7 +329,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         gold, paths = rebuild_inputs(tmp)
         # 3. kernel check
-        report["k1"] = check_k1(paths)
+        baseline = None
+        if args.k1_baseline:
+            baseline = (args.k1_baseline,
+                        build_baseline_k1(os.path.abspath(args.k1_baseline), tmp))
+        report["k1"] = check_k1(paths, baseline)
         # 4. / 5. main path
         report["kinase"] = main_path("kinase", paths["kinase.fasta"],
                                      gold["kinase.fasta"], want_identical=False)

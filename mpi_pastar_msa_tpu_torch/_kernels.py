@@ -27,8 +27,10 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES: Dict[str, List] = {
-    # enc, enc_stride, xs, ys, lens, cost, out, P, L1, lmax, O, E, stream
-    "pair_wavefront": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # enc, enc_stride, xs, ys, lens, cost, diag scratch, out, P, L1, lmax,
+    # O, E, threads, rows per thread, shared bytes, stream
+    "pair_wavefront": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _P],
 }
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}

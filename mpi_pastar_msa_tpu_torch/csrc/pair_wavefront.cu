@@ -12,120 +12,196 @@
 //
 // The bottom row and right column are gap runs O + (n-1-k) E, the corner
 // (n1, n2) is 0, and every cell outside a pair's (n1+1) x (n2+1) box is BIG.
+// This kernel takes gap open equal to extension (G = O = E, as in
+// core/cost.py; the C entry refuses anything else).  A gap then costs G
+// whatever move came before it, so v = min(c0, c1, c2) with every gap at G:
+// no cell needs its direction, and the tie order cannot change a value.
 //
 // What bounds it on an H100: the chain of n1+n2 dependent anti-diagonals
-// (2 Lmax, 552 at Lmax=276), each needing the previous two, with one block
-// barrier between them.  The bytes are small: the output is
-// P (Lmax+1)^2 4 B (3.1 MB at kinase, P=10), written once.
+// (549 at kinase, 2212 at synth4_long), each needing the previous two, with
+// at least one block barrier between consecutive diagonals; barrier_chain
+// below measures that floor.  Only P blocks run (10 at kinase), so the card
+// is nearly empty and each diagonal's latency adds up; the bytes
+// (P (Lmax+1)^2 4 B written once) are small.
 //
-// Design: one thread block per pair; threads stride over i along the current
-// diagonal.  The rolling diagonals d+2, d+1 (values) and d+1 (gap direction)
-// live in shared memory as three value rows and two direction rows used in
-// rotation, so one __syncthreads() per diagonal separates every read of a
-// row from its next overwrite.  The block reads the encoded residues and the
-// 128x128 cost table itself (the host builds no diagonal-major cost tensor)
-// and writes the (i, j)-major output directly.  The writes along a diagonal
-// are strided by Lmax, hence uncoalesced: accepted for this first version.
+// Design: one thread block per pair, one __syncthreads() per diagonal, and
+// as little work as possible between two barriers.
+//  - Staged once: the pair's residues and the 128 x 128 cost table go to
+//    shared memory as uint8 (costs are 0..25, core/cost.py), so the diagonal
+//    loop makes no global load.  A cell's substitution cost depends on (i, j)
+//    alone and is fetched one diagonal ahead.
+//  - One thread per row band: thread t owns R contiguous rows t R ..
+//    t R + R - 1 (R = ceil(L1 / 1024), threads = round_up(ceil(L1 / R), 32),
+//    from heuristic/wavefront.py::k1_launch_shape) and keeps in registers
+//    each row's value on diagonal d+1 and the part of its next value that
+//    needs no other thread (borders and cells outside the box are selects).
+//  - One shared word per band and diagonal: only row t R + R, the first row
+//    of the next band, comes from another thread.  Each thread publishes its
+//    first row's value in a row buffer double-buffered by diagonal parity.
+//  - (i, j)-major stores of a diagonal would be strided by L1.  So each band
+//    stores its values of a diagonal coalesced and (d, i)-major into a
+//    scratch table, and diag_to_rows_kernel then writes the (i, j)-major
+//    table in 32 x 32 tiles through shared memory on all SMs, every output
+//    cell once.  The C entry launches both on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace {
 
 constexpr int kBig = 1 << 28;
-constexpr int kNoGap = 0, kGapX = 1, kGapY = 2;
+constexpr int kCostCells = 128 * 128;
+// rows per thread at the largest L1 whose shared bytes fit one block
+// (232,448 B: L1 = 21605, R = 22); k1_launch_shape enforces the same limit
+constexpr int kMaxRows = 22;
 
-__global__ void pair_wavefront_kernel(const int32_t* __restrict__ enc, int enc_stride,
-                                      const int32_t* __restrict__ xs,
-                                      const int32_t* __restrict__ ys,
-                                      const int32_t* __restrict__ lens,
-                                      const int32_t* __restrict__ cost,
-                                      int32_t* __restrict__ out, int L1, int lmax,
-                                      int gap_open, int gap_ext) {
-  extern __shared__ int32_t smem[];
-  // rows have L1 + 1 entries so that i + 1 never leaves the row
-  const int R = L1 + 1;
-  int32_t* vrow[3] = {smem, smem + R, smem + 2 * R};
-  int32_t* arow[2] = {smem + 3 * R, smem + 4 * R};
+// [2][L1 + 1] int32 row buffer, then the uint8 cost table, a and b residues;
+// k1_launch_shape computes the same sum
+size_t shared_bytes(int L1) {
+  return (size_t)8 * (L1 + 1) + kCostCells + (size_t)2 * L1;
+}
 
-  const int p = blockIdx.x;
+// Everything the value of cell (i, j = t - i) on diagonal t needs but the
+// value of row i+1 on diagonal t+1: own is the cell's right neighbour
+// (i, j+1), down is (i+1, j+1), s is cost(a[i], b[j]).  pre is the cell's
+// value at a border or outside the box, else the least of its own-row gap
+// and diagonal candidates; inner says whether the gap from row i+1 competes.
+__device__ __forceinline__ void prepare(int i, int t, int own, int down, int s, int n1,
+                                        int n2, int G, int& pre, bool& inner) {
+  const int j = t - i;
+  const bool ib = i <= n1 && j >= 0 && j <= n2;
+  const bool border = i == n1 || j == n2;
+  inner = ib && !border;
+  pre = !ib ? kBig : (border ? G * (i == n1 ? n2 - j : n1 - i) : min(own + G, down + s));
+}
+
+__device__ __forceinline__ int clamp_col(int j, int L1) { return min(max(j, 0), L1 - 1); }
+
+template <int R>
+__global__ void __launch_bounds__(1024) pair_wavefront_kernel(
+    const int32_t* __restrict__ enc, int enc_stride, const int32_t* __restrict__ xs,
+    const int32_t* __restrict__ ys, const int32_t* __restrict__ lens,
+    const int32_t* __restrict__ cost, int32_t* __restrict__ diag, int L1, int lmax,
+    int G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* edge = reinterpret_cast<int32_t*>(smem);  // [2][L1 + 1]
+  uint8_t* cost_s = smem + (size_t)8 * (L1 + 1);
+  uint8_t* a_s = cost_s + kCostCells;
+  uint8_t* b_s = a_s + L1;
+
+  const int p = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
   const int x = xs[p], y = ys[p];
   const int n1 = lens[x], n2 = lens[y];
   const int32_t* a = enc + (size_t)x * enc_stride;
   const int32_t* b = enc + (size_t)y * enc_stride;
-  int32_t* o = out + (size_t)p * L1 * L1;
-  const int E = gap_ext, O = gap_open;
-  const int clip = lmax > 0 ? lmax - 1 : 0;
+  // scratch rows of W = R blockDim.x words, diagonals 0 .. 2 lmax
+  const int W = R * T;
+  int32_t* g = diag + (size_t)p * (2 * lmax + 1) * W;
 
-  // cells outside the pair's box hold BIG
-  for (int k = threadIdx.x; k < L1 * L1; k += blockDim.x) {
-    int i = k / L1, j = k - i * L1;
-    if (i > n1 || j > n2) o[k] = kBig;
+  // residues are 7-bit ASCII; the mask only keeps a stray byte in the table
+  const int4* cost4 = reinterpret_cast<const int4*>(cost);
+#pragma unroll 4
+  for (int k = tid; k < kCostCells / 4; k += T) {
+    const int4 c = cost4[k];
+    reinterpret_cast<uint32_t*>(cost_s)[k] =
+        (uint32_t)c.x | (uint32_t)c.y << 8 | (uint32_t)c.z << 16 | (uint32_t)c.w << 24;
   }
-  // diagonal D = n1 + n2 holds only the corner; D + 1 is empty
-  for (int i = threadIdx.x; i < R; i += blockDim.x) {
-    vrow[0][i] = kBig;                    // d + 2
-    vrow[1][i] = (i == n1) ? 0 : kBig;    // d + 1
-    vrow[2][i] = kBig;
-    arow[0][i] = kNoGap;
-    arow[1][i] = kNoGap;
+  for (int k = tid; k < L1; k += T) {
+    a_s[k] = k < lmax ? (uint8_t)(a[k] & 127) : 0;
+    b_s[k] = k < lmax ? (uint8_t)(b[k] & 127) : 0;
   }
-  if (threadIdx.x == 0) o[(size_t)n1 * L1 + n2] = 0;
   __syncthreads();
 
-  int v2 = 0, v1 = 1, vn = 2, a1 = 0, an = 1;
-  for (int d = n1 + n2 - 1; d >= 0; --d) {
-    const int32_t* V2 = vrow[v2];
-    const int32_t* V1 = vrow[v1];
-    const int32_t* A1 = arow[a1];
-    int32_t* VN = vrow[vn];
-    int32_t* AN = arow[an];
-    for (int i = threadIdx.x; i <= n1; i += blockDim.x) {
-      const int j = d - i;
-      int mv = kBig, gv = kNoGap;
-      if (j >= 0 && j <= n2) {
-        if (i == n1 || j == n2) {
-          if (i == n1 && j == n2) {
-            mv = 0;
-            gv = kNoGap;
-          } else if (i == n1) {
-            mv = O + (n2 - 1 - j) * E;
-            gv = kGapY;
-          } else {
-            mv = O + (n1 - 1 - i) * E;
-            gv = kGapX;
-          }
-        } else {
-          const int c0 = V1[i + 1] + (A1[i + 1] == kGapX ? E : O);
-          const int c1 = V1[i] + (A1[i] == kGapY ? E : O);
-          const int ai = a[min(i, clip)];
-          const int bj = b[min(max(j, 0), clip)];
-          const int c2 = V2[i + 1] + __ldg(cost + ai * 128 + bj);
-          if (c0 < c1) {
-            mv = c0;
-            gv = kGapX;
-          } else {
-            mv = c1;
-            gv = kGapY;
-          }
-          if (c2 < mv) {
-            mv = c2;
-            gv = kNoGap;
-          }
-        }
-        o[(size_t)i * L1 + j] = mv;
+  const int base = tid * R;
+  const int D = n1 + n2;
+  const bool active = base <= n1;     // the band holds a row of the box
+  const bool has_nb = base + R <= n1;  // so does the next band's first row
+  // per row, for the coming diagonal: its value at d+1 (w1), pre and inner
+  // (see prepare), the substitution cost fetched ahead (sub), a[i] * 128
+  int w1[R], pre[R], sub[R], arow[R];
+  bool inner[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = base + r;
+    arow[r] = (i < L1 ? a_s[i] : 0) * 128;
+    w1[r] = i == n1 ? 0 : kBig;  // diagonal D: the corner
+    const int s = cost_s[arow[r] + b_s[clamp_col(D - 1 - i, L1)]];
+    prepare(i, D - 1, w1[r], kBig, s, n1, n2, G, pre[r], inner[r]);
+    sub[r] = cost_s[arow[r] + b_s[clamp_col(D - 2 - i, L1)]];
+  }
+  if (active) {
+    edge[(D & 1) * (L1 + 1) + base] = w1[0];
+    if (n1 < base + R) g[(size_t)D * W + n1] = 0;
+  }
+  __syncthreads();
+
+  // each row's word of the next band is written on diagonal d+1 into buffer
+  // (d+1) & 1, read on d, and overwritten on d-1, a barrier between each
+  for (int d = D - 1; d >= 0; --d) {
+    if (active) {
+      // the only value from another thread: row base + R at d+1
+      const int nb1 = has_nb ? edge[((d + 1) & 1) * (L1 + 1) + base + R] : kBig;
+      int nw[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int below = r + 1 < R ? w1[r + 1] : nb1;  // (i+1, j) at d+1
+        nw[r] = inner[r] ? min(below + G, pre[r]) : pre[r];
       }
-      VN[i] = mv;
-      AN[i] = gv;
+      edge[(d & 1) * (L1 + 1) + base] = nw[0];
+      int32_t* gd = g + (size_t)d * W + base;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        gd[r] = nw[r];
+        // row i+1 at d+1 is (i+1, j'+1) for the next diagonal's cell j'
+        const int down = r + 1 < R ? w1[r + 1] : nb1;
+        const int s = sub[r];
+        sub[r] = cost_s[arow[r] + b_s[clamp_col(d - 2 - (base + r), L1)]];
+        prepare(base + r, d - 1, nw[r], down, s, n1, n2, G, pre[r], inner[r]);
+        w1[r] = nw[r];
+      }
     }
     __syncthreads();
-    const int t = v2;
-    v2 = v1;
-    v1 = vn;
-    vn = t;
-    a1 ^= 1;
-    an ^= 1;
   }
+}
+
+// out[p, i, j] = diag[p, i + j, i] inside the pair's box, BIG outside; one
+// block per 32 x 32 output tile, the tile's 63 diagonals staged in shared
+// memory so that both the reads and the writes are coalesced.
+__global__ void diag_to_rows_kernel(const int32_t* __restrict__ diag,
+                                    const int32_t* __restrict__ xs,
+                                    const int32_t* __restrict__ ys,
+                                    const int32_t* __restrict__ lens,
+                                    int32_t* __restrict__ out, int L1, int lmax, int W) {
+  __shared__ int32_t tile[63][33];
+  const int p = blockIdx.z, i0 = blockIdx.y * 32, j0 = blockIdx.x * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int n1 = lens[xs[p]], n2 = lens[ys[p]];
+  const int32_t* g = diag + (size_t)p * (2 * lmax + 1) * W;
+  int32_t* o = out + (size_t)p * L1 * L1;
+  if (i0 <= n1 && j0 <= n2) {
+    const int i = i0 + tx;
+    for (int k = ty; k < 63; k += blockDim.y) {
+      const int d = i0 + j0 + k;
+      if (i <= n1 && i <= d && d - i <= n2) tile[k][tx] = g[(size_t)d * W + i];
+    }
+  }
+  __syncthreads();
+  const int j = j0 + tx;
+  for (int r = ty; r < 32; r += blockDim.y) {
+    const int i = i0 + r;
+    if (i < L1 && j < L1) o[(size_t)i * L1 + j] = (i <= n1 && j <= n2) ? tile[r + tx][r] : kBig;
+  }
+}
+
+using KernelFn = void (*)(const int32_t*, int, const int32_t*, const int32_t*,
+                          const int32_t*, const int32_t*, int32_t*, int, int, int);
+
+template <int... Rs>
+KernelFn kernel_for(int rows, std::integer_sequence<int, Rs...>) {
+  const KernelFn fns[] = {pair_wavefront_kernel<Rs + 1>...};
+  return fns[rows - 1];
 }
 
 // Measurement probe, not part of any path: one block runs `steps` dependent
@@ -155,21 +231,29 @@ extern "C" int barrier_chain(int steps, int threads, void* out, void* stream) {
 
 extern "C" int pair_wavefront(const void* enc, int enc_stride, const void* xs,
                               const void* ys, const void* lens, const void* cost,
-                              void* out, int P, int L1, int lmax, int gap_open,
-                              int gap_ext, void* stream) {
-  const int threads = 256;
-  const size_t shmem = (size_t)5 * (L1 + 1) * sizeof(int32_t);
+                              void* diag, void* out, int P, int L1, int lmax, int gap_open,
+                              int gap_ext, int threads, int rows, int shmem,
+                              void* stream) {
+  if (L1 < 1 || gap_open != gap_ext || rows < 1 || rows > kMaxRows || threads < 32 ||
+      threads > 1024 || threads % 32 != 0 || (long long)rows * threads < L1 ||
+      (size_t)shmem != shared_bytes(L1))
+    return (int)cudaErrorInvalidValue;
+  const KernelFn kernel = kernel_for(rows, std::make_integer_sequence<int, kMaxRows>{});
   if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(pair_wavefront_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)shmem);
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
     if (e != cudaSuccess) return (int)e;
   }
   if (P > 0) {
-    pair_wavefront_kernel<<<P, threads, shmem, (cudaStream_t)stream>>>(
+    kernel<<<P, threads, shmem, (cudaStream_t)stream>>>(
         (const int32_t*)enc, enc_stride, (const int32_t*)xs, (const int32_t*)ys,
-        (const int32_t*)lens, (const int32_t*)cost, (int32_t*)out, L1, lmax, gap_open,
-        gap_ext);
+        (const int32_t*)lens, (const int32_t*)cost, (int32_t*)diag, L1, lmax, gap_open);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const int tiles = (L1 + 31) / 32;
+    diag_to_rows_kernel<<<dim3(tiles, tiles, P), dim3(32, 8), 0, (cudaStream_t)stream>>>(
+        (const int32_t*)diag, (const int32_t*)xs, (const int32_t*)ys,
+        (const int32_t*)lens, (int32_t*)out, L1, lmax, threads * rows);
   }
   return (int)cudaGetLastError();
 }

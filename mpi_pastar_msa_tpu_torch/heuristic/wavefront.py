@@ -7,11 +7,14 @@ GapY, the diagonal only on strict ``<``), gap-run borders and ``_BIG`` in
 every cell outside a pair's (n1+1) x (n2+1) box.
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/pair_wavefront.cu``
-(one thread block per pair); on a CPU tensor it runs the plain PyTorch
-version below, a loop over anti-diagonals batched over all pairs.  The CUDA
-path never falls back to the plain version.
+(one thread block per pair, one thread per row band, its shape from
+``k1_launch_shape``); on a CPU tensor it runs the plain PyTorch version
+below, a loop over anti-diagonals batched over all pairs.  The CUDA path
+never falls back to the plain version.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -22,6 +25,28 @@ from ..core.problem import Problem
 
 _BIG = 2**28
 _NOGAP, _GAPX, _GAPY = 0, 1, 2
+#: shared memory one thread block may use on an H100 (232,448 bytes)
+_SHARED_LIMIT = 232_448
+
+
+def k1_launch_shape(lmax: int) -> tuple:
+    """(threads, rows per thread, shared bytes) of the K1 kernel for Lmax.
+
+    Each thread owns R = ceil(L1 / 1024) contiguous rows of the L1 = Lmax+1
+    rows, and the block has ceil(L1 / R) threads rounded up to a warp.
+    Shared memory holds two int32 rows of L1+1 words, the 128 x 128 uint8
+    cost table and both residue rows as uint8 (``shared_bytes`` in the
+    kernel's source).  Raises ValueError when that exceeds one block's
+    limit: the kernel has no other shape."""
+    L1 = lmax + 1
+    rows = -(-L1 // 1024)
+    threads = -(-L1 // rows)
+    threads = -(-threads // 32) * 32
+    shared = 8 * (L1 + 1) + 128 * 128 + 2 * L1
+    if shared > _SHARED_LIMIT:
+        raise ValueError(f"K1: Lmax={lmax} needs {shared} bytes of shared "
+                         f"memory, above the {_SHARED_LIMIT} a block may use")
+    return threads, rows, shared
 
 
 def pair_inputs(problem: Problem, device) -> dict:
@@ -115,10 +140,17 @@ def _check(t: torch.Tensor, name: str, device, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def _device_cost(dev) -> torch.Tensor:
+    """COST_TABLE as int32 on ``dev``, copied once per device (read only)."""
+    return torch.from_numpy(COST_TABLE).to(dev).contiguous()
+
+
 def wavefront_tables(enc, xs, ys, lens, lmax: int) -> torch.Tensor:
     """(P, Lmax+1, Lmax+1) int32 suffix tables on enc's device.
 
-    CUDA tensors launch the K1 kernel (or raise); CPU tensors run the plain
+    CUDA tensors launch the K1 kernel (or raise; it takes gap open equal to
+    extension, as ``core/cost.py`` sets them); CPU tensors run the plain
     version."""
     if enc.device.type != "cuda":
         return wavefront_tables_plain(enc, xs, ys, lens, lmax)
@@ -128,13 +160,22 @@ def wavefront_tables(enc, xs, ys, lens, lmax: int) -> torch.Tensor:
         _check(t, name, dev, 1)
     if xs.shape != ys.shape or enc.shape[0] != lens.shape[0] or enc.shape[1] < lmax:
         raise ValueError("wavefront_tables: inconsistent shapes")
+    if GAP_OPEN != GAP_EXTENSION:
+        raise ValueError(f"K1 kernel: needs gap open == gap extension, got "
+                         f"{GAP_OPEN} and {GAP_EXTENSION}")
+    threads, rows, shared = k1_launch_shape(lmax)
     L1 = lmax + 1
-    cost = torch.from_numpy(COST_TABLE).to(dev).contiguous()
+    cost = _device_cost(dev)
+    # the kernel writes each diagonal (d, i)-major here, rows of threads x
+    # rows-per-thread words, diagonals 0 .. 2 Lmax, then gathers it
+    diag = torch.empty((xs.shape[0], 2 * lmax + 1, threads * rows),
+                       dtype=torch.int32, device=dev)
     out = torch.empty((xs.shape[0], L1, L1), dtype=torch.int32, device=dev)
     _kernels.launch(
         "pair_wavefront", enc.data_ptr(), enc.shape[1], xs.data_ptr(),
-        ys.data_ptr(), lens.data_ptr(), cost.data_ptr(), out.data_ptr(),
-        xs.shape[0], L1, lmax, GAP_OPEN, GAP_EXTENSION,
+        ys.data_ptr(), lens.data_ptr(), cost.data_ptr(), diag.data_ptr(),
+        out.data_ptr(),
+        xs.shape[0], L1, lmax, GAP_OPEN, GAP_EXTENSION, threads, rows, shared,
         torch.cuda.current_stream(dev).cuda_stream)
     return out
 

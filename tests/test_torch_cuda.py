@@ -28,8 +28,14 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("seed,n,lo,hi", [(1, 5, 1, 40), (2, 3, 200, 300),
-                                          (3, 2, 1, 1)])
+@pytest.mark.parametrize("seed,n,lo,hi", [
+    (1, 5, 1, 40), (2, 3, 200, 300), (3, 2, 1, 1),
+    # row-band boundaries: lengths 1023/1023 (L1 = 1024, R = 1), 1023/1024
+    # (L1 = 1025, R = 2) and 2105/2099 (R = 3)
+    (4, 2, 1023, 1023), (4, 2, 1023, 1024), (6, 2, 2095, 2105),
+    # ragged, lengths 1176, 371, 163 and 351: n1 << n2 and n1 >> n2
+    (4, 4, 30, 1400),
+])
 def test_k1_kernel_equals_plain(cuda, seed, n, lo, hi):
     rs = np.random.RandomState(seed)
     seqs = tuple("".join(rs.choice(list(AMINO), size=rs.randint(lo, hi + 1)))
@@ -42,11 +48,33 @@ def test_k1_kernel_equals_plain(cuda, seed, n, lo, hi):
     assert torch.equal(got.cpu(), want.cpu())
 
 
+def test_k1_wrapper_rejects_unequal_gaps(cuda, monkeypatch):
+    # the kernel takes gap open == extension (core/cost.py); anything else
+    # raises before a launch
+    from mpi_pastar_msa_tpu_torch.heuristic import wavefront
+    monkeypatch.setattr(wavefront, "GAP_OPEN", 40)
+    monkeypatch.setattr(wavefront, "GAP_EXTENSION", 7)
+    args = pair_inputs(Problem(("ACDE", "ACF")), cuda)
+    before = _kernels.launches["pair_wavefront"]
+    with pytest.raises(ValueError):
+        wavefront_tables(**args)
+    assert _kernels.launches["pair_wavefront"] == before
+
+
 def test_k1_wrapper_rejects_bad_input(cuda):
     args = pair_inputs(Problem(("ACDE", "ACF")), cuda)
     args["enc"] = args["enc"].long()
     with pytest.raises(ValueError):
         wavefront_tables(**args)
+
+
+def test_k1_wrapper_rejects_oversize(cuda):
+    # Lmax 21605 needs more shared memory than a block may use
+    args = pair_inputs(Problem(("ACDE", "A" * 21605)), cuda)
+    before = _kernels.launches["pair_wavefront"]
+    with pytest.raises(ValueError):
+        wavefront_tables(**args)
+    assert _kernels.launches["pair_wavefront"] == before
 
 
 def test_main_path_on_card(cuda):

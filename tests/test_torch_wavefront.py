@@ -1,6 +1,6 @@
 """Port K1 (pair-wavefront suffix DP): the plain PyTorch version equals the
 JAX scan wavefront, the Pallas kernel in interpret mode and the NumPy oracle,
-cell for cell (int32, zero tolerance).
+cell for cell (int32, zero tolerance); the CUDA kernel's launch shape.
 
 Inputs are rebuilt from tests/goldens.json (degapped golden rows) and
 tests/data/synth4_long.fasta, or drawn from numpy.random.RandomState.
@@ -15,9 +15,11 @@ import torch
 from mpi_pastar_msa_tpu.core.problem import Problem as JProblem
 from mpi_pastar_msa_tpu.heuristic.wavefront import pair_tables_device
 from mpi_pastar_msa_tpu.heuristic.wavefront_pallas import pair_tables_pallas
+from mpi_pastar_msa_tpu_torch.core.cost import COST_TABLE
 from mpi_pastar_msa_tpu_torch.core.problem import Problem, problem_from_fasta
 from mpi_pastar_msa_tpu_torch.heuristic.pairwise import all_pair_tables
-from mpi_pastar_msa_tpu_torch.heuristic.wavefront import pair_tables
+from mpi_pastar_msa_tpu_torch.heuristic.wavefront import (k1_launch_shape,
+                                                          pair_tables)
 
 # one intra-op thread: the test lane runs several workers on a few cores
 torch.set_num_threads(1)
@@ -72,3 +74,28 @@ def test_plain_k1_unequal_lengths_borders():
     seqs = random_seqs(5, 5, 1, 30)
     got = pair_tables(Problem(seqs), "cpu").numpy()
     assert_tables_equal(got, all_pair_tables(seqs))
+
+
+# (L1, threads, rows per thread); None where only the invariants are held
+@pytest.mark.parametrize("L1,threads,rows", [
+    (277, 288, 1),     # kinase, Lmax 276
+    (1108, 576, 2),    # synth4_long, Lmax 1107
+    (1, 32, 1), (1024, 1024, 1), (1025, 544, 2), (2049, 704, 3),
+    (21605, None, 22),  # the largest L1 whose shared bytes fit a block
+])
+def test_k1_launch_shape(L1, threads, rows):
+    T, R, shared = k1_launch_shape(L1 - 1)
+    assert R == rows and threads in (None, T)
+    assert T % 32 == 0 and 32 <= T <= 1024
+    assert R * T >= L1 and (R - 1) * T < L1
+    assert shared == 8 * (L1 + 1) + 128 * 128 + 2 * L1 <= 232_448
+
+
+def test_k1_launch_shape_rejects_oversize():
+    with pytest.raises(ValueError):
+        k1_launch_shape(21605)
+
+
+def test_k1_cost_table_fits_uint8():
+    # the kernel stages the cost table in shared memory as uint8
+    assert COST_TABLE.min() >= 0 and COST_TABLE.max() <= 255
