@@ -7,14 +7,19 @@ Phases, each failing loudly (non-zero exit):
 1. device: a CUDA device must exist; prints the card's name and power limit.
 2. build: compiles every kernel from csrc/ (one nvcc per source, in parallel).
 3. kernel check: each kernel against its plain PyTorch version on the card,
-   exact int32 equality, at the main path's shapes (kinase) and at
-   synth4_long's; kernel, plain, bound and dependent-diagonal floor times,
-   also per diagonal (``--k1-baseline SRC`` builds the first version of the
-   K1 source and times it in turns with this one).
-4. main path, kinase: the port's CLI entry (--triples off, --device cuda)
-   must reach g = 421546 with a path whose recomputed cost equals g, degapped
-   rows equal to the inputs, and the kernel launch counts above zero.
-5. main path, test / test2 / PF08184: golden g and byte-identical alignment.
+   exact int32 equality.  K1 (pair wavefront) at the main path's shapes
+   (kinase) and at synth4_long's: kernel, plain, bound and
+   dependent-diagonal floor times, also per diagonal (``--k1-baseline SRC``
+   builds the first version of the K1 source and times it in turns with this
+   one).  K2 (triple cubes) at kinase's own cover and at one ragged shape:
+   the whole stack and the origins; kernel, plain, bound and dependent-plane
+   floor times.
+4. main path, kinase: the port's CLI entry with its defaults (--triples
+   auto, --device cuda) must build 4 cubes and reach g = 421546 with a path
+   whose recomputed cost equals g, degapped rows equal to the inputs, and
+   both kernels launched; then the same with --triples off (K1 launched).
+5. main path, test / test2 / PF08184, under auto and under off: golden g and
+   byte-identical alignment.
 6. the kernels JSON line, then the result line.
 
 Inputs are rebuilt from tests/goldens.json (the degapped golden rows) and
@@ -41,6 +46,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 PEAK_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 K1_OPS_PER_CELL = 12          # int32 adds/compares/selects per DP cell
+K2_OPS_PER_CELL = 7 * 12      # 7 moves x ~12 int32 ops per in-box cube cell
 
 
 def fail(msg: str) -> None:
@@ -193,17 +199,97 @@ def check_k1(paths, baseline=None) -> dict:
     return rows
 
 
-def main_path(name: str, path: str, gold: dict, want_identical: bool) -> dict:
+def check_k2(paths) -> dict:
+    """K2 against its plain version at kinase's own cover (4 cubes) and at a
+    ragged shape (lengths 1, 40 and 300), whole stack and origins, with
+    kernel, plain, bound and dependent-plane floor times."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch._kernels import launches, load
+    from mpi_pastar_msa_tpu_torch.core.problem import Problem, problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.triples import (
+        K2_THREADS, pick_cover, triple_inputs, triple_tables, triple_tables_plain)
+    from mpi_pastar_msa_tpu_torch.heuristic.weights import altschul_rationale2
+
+    kinase = problem_from_fasta(paths["kinase.fasta"])
+    _, wi = altschul_rationale2(kinase.seqs)
+    cover = pick_cover(wi, kinase.n_seq)
+    rs = np.random.RandomState(0)
+    ragged = Problem(tuple("".join(rs.choice(list("ACDEFGHIKLMNPQRSTVWY"), size=L))
+                           for L in (1, 40, 300)))
+    shapes = {"kinase": (kinase, [t for t, _ in cover], [w for _, w in cover]),
+              "ragged": (ragged, [(0, 1, 2)], [(17, 23, 31)])}
+    fn = load("triple_wavefront").plane_chain
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows = {}
+    for label, (p, tris, tws) in shapes.items():
+        args = triple_inputs(p, tris, tws, "cuda")
+        n0 = launches["triple_wavefront"]
+        got, got_org = triple_tables(**args)
+        torch.cuda.synchronize()
+        if launches["triple_wavefront"] != n0 + 1:
+            fail("triple_wavefront wrapper did not launch its kernel")
+        want, want_org = triple_tables_plain(**args)
+        err = max(int((got.long() - want.long()).abs().max()),
+                  int((got_org.long() - want_org.long()).abs().max()))
+        if err != 0:
+            fail(f"K2 {label}: kernel differs from plain version (max |err| {err})")
+        del got, want, got_org, want_org
+        ms = time_ms(lambda: triple_tables(**args), reps=10)
+        plain_ms = time_ms(lambda: triple_tables_plain(**args), reps=3, warmup=1)
+        T, S = args["cxy"].shape[0], args["cxy"].shape[-1]
+        lens = args["lens"].cpu().long()
+        planes = int(lens.sum(1).max()) + 1
+        cells = int((lens + 1).prod(1).sum())
+        in_bytes = sum(t.numel() * 4 for t in args.values())
+        out_bytes = T * S ** 3 * 4
+        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        ops_ms = cells * K2_OPS_PER_CELL / PEAK_OPS_PER_S * 1e3
+        blocks = -(-T * S * S // K2_THREADS)
+
+        def chain():
+            if fn(planes, blocks, K2_THREADS, torch.cuda.current_stream().cuda_stream):
+                fail("plane_chain probe failed to launch")
+
+        chain_ms = time_ms(chain, reps=10)
+        rows[label] = dict(T=T, S=S, lengths=lens.tolist(), ms=ms, plain_ms=plain_ms,
+                           bound_ms=max(bytes_ms, ops_ms),
+                           bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                           bytes_ms=bytes_ms, ops_ms=ops_ms, chain_floor_ms=chain_ms,
+                           planes=planes, device_launches_per_fill=planes + 1,
+                           blocks_per_plane=blocks, in_box_cells=cells,
+                           out_bytes=out_bytes, max_abs_err=err)
+        print(f"K2 {label}: T={T} S={S} lengths {lens.tolist()} exact (stack and "
+              f"origins); kernel {ms:.4f} ms ({ms * 1e3 / planes:.2f} us/plane), "
+              f"plain {plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.5f} ms "
+              f"(bytes {bytes_ms:.5f}, operations {ops_ms:.5f}), dependent-plane "
+              f"floor {chain_ms:.4f} ms ({planes} empty launches of {blocks} x "
+              f"{K2_THREADS}); {planes + 1} device launches per fill; no library "
+              f"yardstick (no single PyTorch call computes this DP)")
+    return rows
+
+
+def main_path(name: str, path: str, gold: dict, want_identical: bool,
+              triples: str) -> dict:
+    """One run of the CLI entry; ``triples`` "auto" runs it with its
+    defaults (no --triples), "off" pins the pairwise heuristic."""
     from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch import cli
 
-    args = cli.make_parser().parse_args(
-        [path, "--device", "cuda", "--triples", "off"])
+    argv = [path, "--device", "cuda"]
+    if triples != "auto":
+        argv += ["--triples", triples]
+    args = cli.make_parser().parse_args(argv)
+    if args.triples != triples:
+        fail(f"{name}: the CLI default is --triples {args.triples}, not {triples}")
     out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
     _kernels.reset_counts()
     with contextlib.redirect_stdout(out):
         rep = cli.execute(args)
     counts = dict(_kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
     res = rep.result
     if res.g != gold["optimal_g"]:
         fail(f"{name}: g={res.g}, want {gold['optimal_g']}")
@@ -217,31 +303,42 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool) -> dict:
     identical = rep.alignment == gold["alignment"]
     if want_identical and not identical:
         fail(f"{name}: alignment differs from the golden")
-    for k, v in counts.items():
-        if v <= 0:
-            fail(f"{name}: kernel {k} was not launched on the main path")
     eng = rep.engine
-    info = dict(g=res.g, identical=identical, expanded=res.nodes_expanded,
+    cubes = len(getattr(eng.heuristic, "triangles", None) or [])
+    if triples == "auto" and cubes == 0:
+        fail(f"{name}: --triples auto built no cube")
+    # the kernels of this path: K1 always, K2 whenever cubes were built
+    path_kernels = ["pair_wavefront"] + (["triple_wavefront"] if cubes else [])
+    for k in path_kernels:
+        if counts[k] <= 0:
+            fail(f"{name}: kernel {k} was not launched on the main path")
+    info = dict(triples=triples, cubes=cubes, g=res.g, identical=identical,
+                expanded=res.nodes_expanded,
                 reopened=res.nodes_reopened, steps=res.steps,
-                capacity=eng.st.C, batch=eng.st.B, regrown=eng.regrown,
+                capacity=eng.st.C, batch=eng.st.B, fill_target=eng.fill_target,
+                regrown=eng.regrown,
                 walls=rep.walls, nodes_per_s=res.nodes_expanded / rep.walls["phase2"],
-                launches=counts, upper_bound_s=eng.ub_wall,
-                engine_walls=eng.last_phase_walls,
+                launches=counts, upper_bound_s=eng.ub_wall, cubes_s=eng.cubes_wall,
+                engine_walls=eng.last_phase_walls, peak_device_bytes=peak,
                 acct=eng.last_acct)
-    print(f"{name}: g={res.g} ok, path cost == g, alignment byte-identical to "
-          f"golden: {identical}; Phase 1/2/3 = {rep.walls['phase1']:.3f} / "
-          f"{rep.walls['phase2']:.3f} / {rep.walls['phase3']:.3f} s; expanded "
+    print(f"{name} --triples {triples}: {cubes} cubes; g={res.g} ok, path cost == g, "
+          f"alignment byte-identical to golden: {identical}; Phase 1/2/3 = "
+          f"{rep.walls['phase1']:.3f} / {rep.walls['phase2']:.3f} / "
+          f"{rep.walls['phase3']:.3f} s (cube build {eng.cubes_wall:.3f} s and host "
+          f"upper-bound beam {eng.ub_wall:.3f} s of Phase 2); expanded "
           f"{res.nodes_expanded}, reopened {res.nodes_reopened}, steps {res.steps}, "
           f"{info['nodes_per_s']:.0f} nodes/s, capacity {eng.st.C} "
-          f"(regrown: {eng.regrown}), batch {eng.st.B}; host upper-bound beam "
-          f"{eng.ub_wall:.3f} s of Phase 2; launches {counts}")
+          f"(regrown: {eng.regrown}), batch {eng.st.B}, fill target "
+          f"{eng.fill_target}; peak device memory {peak / 2**20:.1f} MiB; "
+          f"launches {counts}")
     return info
 
 
-def profile_kinase(path: str, warm_steps: int, steps: int) -> dict:
-    """Where a mid-search kinase step spends its time: run the engine to
-    ``warm_steps``, then trace ``steps`` more with torch.profiler.  Prints
-    the device time by kernel and the device's busy share of the window."""
+def profile_kinase(path: str, triples: str, warm_steps: int, steps: int) -> dict:
+    """Where a mid-search kinase step spends its time under ``triples``: run
+    the engine to ``warm_steps``, then trace ``steps`` more with
+    torch.profiler.  Prints the device time by kernel and the device's busy
+    share of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
@@ -249,7 +346,8 @@ def profile_kinase(path: str, warm_steps: int, steps: int) -> dict:
     from mpi_pastar_msa_tpu_torch.search import engine as E
 
     p = problem_from_fasta(path)
-    eng = E.FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda")
+    eng = E.FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
+                           triples=triples)
     tab = eng._init_table()
     ctr = torch.as_tensor(E.fresh_counters(), device="cuda")
     ctr = E._run_chunk(eng.st, tab, ctr, warm_steps, eng.ub, eng.fill_target)
@@ -271,7 +369,7 @@ def profile_kinase(path: str, warm_steps: int, steps: int) -> dict:
     kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
                    if not e.key.startswith("aten::")), key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kern)
-    print(f"profile kinase: steps {s0}..{before[2]} unprofiled {plain_wall_ms:.3f} "
+    print(f"profile kinase --triples {triples}: steps {s0}..{before[2]} unprofiled {plain_wall_ms:.3f} "
           f"ms/step; steps {before[2]}..{after[2]} profiled: wall {wall * 1e3 / n:.3f} "
           f"ms/step, device busy {busy_ms / n:.3f} ms/step "
           f"({100 * busy_ms / (wall * 1e3):.1f}% of wall; idle "
@@ -299,8 +397,9 @@ def main() -> int:
                          "csrc/pair_wavefront.cu (its C entry without launch "
                          "shape or scratch) and time it in turns with this one")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 32 mid-search kinase steps with "
-                         "torch.profiler (device time by kernel, idle share)")
+                    help="also trace 32 mid-search kinase steps, under "
+                         "--triples auto and off, with torch.profiler (device "
+                         "time by kernel, idle share)")
     args = ap.parse_args()
 
     # 1. device
@@ -334,29 +433,46 @@ def main() -> int:
             baseline = (args.k1_baseline,
                         build_baseline_k1(os.path.abspath(args.k1_baseline), tmp))
         report["k1"] = check_k1(paths, baseline)
-        # 4. / 5. main path
+        report["k2"] = check_k2(paths)
+        # 4. / 5. main path (CLI defaults: --triples auto), then pairwise
         report["kinase"] = main_path("kinase", paths["kinase.fasta"],
-                                     gold["kinase.fasta"], want_identical=False)
+                                     gold["kinase.fasta"], False, "auto")
+        if report["kinase"]["cubes"] != 4:
+            fail(f"kinase: {report['kinase']['cubes']} cubes, want 4")
+        report["kinase_off"] = main_path("kinase", paths["kinase.fasta"],
+                                         gold["kinase.fasta"], False, "off")
         for name in ("test.fasta", "test2.fasta", "PF08184.fasta"):
-            report[name] = main_path(name, paths[name], gold[name],
-                                     want_identical=True)
+            for triples in ("auto", "off"):
+                report[f"{name}_{triples}"] = main_path(
+                    name, paths[name], gold[name], True, triples)
         if args.profile:
-            report["profile"] = profile_kinase(paths["kinase.fasta"], 400, 32)
+            # mid-search windows: auto takes about 300 steps, off about 970
+            report["profile"] = profile_kinase(paths["kinase.fasta"], "auto", 150, 32)
+            report["profile_off"] = profile_kinase(paths["kinase.fasta"], "off", 400, 32)
 
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1, default=str)
 
-    k1 = report["k1"]["kinase"]
+    k1, k2 = report["k1"]["kinase"], report["k2"]["kinase"]
+    launches = report["kinase"]["launches"]  # the main path's run
     kernels = [{
         "name": "pair_wavefront", "route": "cuda",
         "source": "mpi_pastar_msa_tpu_torch/csrc/pair_wavefront.cu",
         "replaces": "mpi_pastar_msa_tpu/heuristic/wavefront_pallas.py:35",
-        "launches": report["kinase"]["launches"]["pair_wavefront"],
+        "launches": launches["pair_wavefront"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
+    }, {
+        "name": "triple_wavefront", "route": "cuda",
+        "source": "mpi_pastar_msa_tpu_torch/csrc/triple_wavefront.cu",
+        "replaces": "mpi_pastar_msa_tpu/heuristic/triples.py:194",
+        "launches": launches["triple_wavefront"],
+        "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"], "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

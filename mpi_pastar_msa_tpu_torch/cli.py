@@ -1,6 +1,7 @@
 """Command-line interface of the port: FASTA in, optimal alignment out.
 
-Usage: ``python -m mpi_pastar_msa_tpu_torch [--device cuda|cpu] <fasta>``.
+Usage: ``python -m mpi_pastar_msa_tpu_torch [--device cuda|cpu]
+[--triples auto|on|off|fractional] <fasta>``.
 Runs on the card unless ``--device cpu`` is given; without a CUDA device it
 exits non-zero rather than running on the CPU.
 
@@ -45,9 +46,13 @@ def make_parser() -> argparse.ArgumentParser:
                     help="super-steps per counters read")
     ap.add_argument("--fill", type=int, default=None,
                     help="selection-fill target for the threshold "
-                         "controller (default batch/16)")
-    ap.add_argument("--triples", choices=("off",), default="off",
-                    help="triple-wise heuristic cubes (only 'off' is ported)")
+                         "controller (default batch/2 with triple cubes, "
+                         "else batch/16)")
+    ap.add_argument("--triples", choices=("auto", "on", "off", "fractional"),
+                    default="auto",
+                    help="triple-wise heuristic cubes (auto: when applicable;"
+                         " fractional: all-triples cover with (n-2)-scaled"
+                         " costs)")
     return ap
 
 

@@ -1,13 +1,16 @@
-"""Batched-frontier A* engine, bucketed sig layout, pairwise heuristic.
+"""Batched-frontier A* engine, bucketed sig layout, pairwise heuristic plus
+the triple cubes.
 
-Port of the JAX package's ``search/engine.py`` sig path with
-``triples="off"``.  Every super-step
+Port of the JAX package's ``search/engine.py`` sig path.  With
+``triples="auto"`` (the default) it builds the triangle suffix cubes of
+``heuristic/triples.py`` whenever they apply and adds them to h.  Every
+super-step
 
   1. selects a batch of lowest-f open states from a device-resident
      open/closed hash table (grouped argmin under an adaptive f threshold),
   2. expands all 2^N-1 successor move-masks of every selected state (edge
      costs and the HPair heuristic as int32 broadcasts and gathers summed
-     over the pairs, exact),
+     over the pairs, plus one 8-corner gather per triangle cube, exact),
   3. inserts all successors into the 8-way bucketed sig table with
      decrease-key / reopen semantics (one scatter-min on the packed word
      ``((f - f0) << n) | parent_mask``).
@@ -38,7 +41,7 @@ from __future__ import annotations
 
 import time
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -47,6 +50,7 @@ import torch
 from ..core.cost import COST_TABLE, GAP_EXTENSION, GAP_GAP, GAP_OPEN
 from ..core.problem import Problem
 from ..heuristic.hpair import HPairHeuristic
+from ..heuristic.triples import HTriples
 from ..utils.device import resolve_device
 from .backtrace import attach_path_g
 from .bounds import greedy_upper_bound
@@ -110,8 +114,8 @@ class SigTable:
 
 
 class _Static:
-    """Per-problem constants, on the engine's device (pairwise part of the
-    JAX ``_Static``)."""
+    """Per-problem constants, on the engine's device (the JAX ``_Static`` of
+    the sig layout)."""
 
     def __init__(self, problem: Problem, heuristic: HPairHeuristic,
                  batch: int, capacity: int, device, f0: Optional[int] = None):
@@ -184,6 +188,34 @@ class _Static:
                 np.ix_(enc[x], enc[y])]
         self.d_tables4 = torch.as_tensor(t8.reshape(-1, 8), device=dev)
 
+        # triple heuristic (heuristic/triples.py): pairs covered by a
+        # triangle leave the pairwise h (d_w_h zeroes them; edge costs keep
+        # full weights) and are served jointly by the triangle's suffix cube:
+        # the 8 cells H[cx+bx, cy+by, cz+bz] around a node, gathered straight
+        # from a copy of the stack with INF3 zeroed (padded cells are only
+        # reached through masked-out moves); corner c = 4 bx + 2 by + bz
+        tri = getattr(heuristic, "triangles", None)
+        self.T3 = len(tri) if tri else 0
+        self.d_w_h = self.d_w
+        if self.T3:
+            S = self.S
+            cubes = heuristic.tri_tabs
+            if tuple(cubes.shape) != (self.T3, S, S, S):
+                raise ValueError("triangle cube stride mismatch with engine")
+            corner = np.zeros((self.T3, self.M), dtype=np.int64)
+            for ti, (x, y, z) in enumerate(tri):
+                corner[ti] = 4 * bits[:, x] + 2 * bits[:, y] + bits[:, z]
+            self.tri_corner = corner
+            self.d_tri_corner = t(corner)                 # (T, M)
+            self.d_tri_t = t(np.arange(self.T3)[:, None])  # (T, 1)
+            self.d_tri_xyz = t(np.array(tri))             # (T, 3)
+            self.d_tri_off = t(np.arange(self.T3) * S * S * S)
+            self.d_corner_off = t([bx * S * S + by * S + bz for bx in (0, 1)
+                                   for by in (0, 1) for bz in (0, 1)])
+            cubes = cubes.to(dev)
+            self.d_cubes = torch.where(cubes >= 2**29, 0, cubes).reshape(-1)
+            self.d_w_h = t(heuristic.pair_weights_h_i().astype(np.int64))
+
         self.root_parent_mask = problem.root_parent_mask
         # sig layout: the bucket index carries the low key bits and ONE word
         # (khi << 6 | bucket probe round) identifies the key exactly
@@ -209,10 +241,18 @@ class _Static:
         self.sig_ok = (self.sig_bits <= self.bbits + 25
                        and self.bbits >= 1 and self.cbits <= 31)
         self.nb = n
-        # f-rebase origin: tables store f - f0; f0 = pairwise h at the root,
-        # a lower bound on every reachable node's f (consistency)
-        self.f0 = int(f0) if f0 is not None else int(
-            heuristic.calculate_h(np.zeros(n, dtype=np.int32)))
+        # f-rebase origin: tables store f - f0 (see _rebase_origin)
+        self.f0 = int(f0) if f0 is not None else _rebase_origin(heuristic, n)
+
+
+def _rebase_origin(heuristic, n: int) -> int:
+    """f-rebase origin: the pairwise-only h at the root, a lower bound on
+    every reachable node's f (h_pair(root) <= h(root) <= f along any path,
+    by consistency), scaled by cost_scale so it stays a lower bound in the
+    fractional cover's (n-2)-scaled cost units."""
+    base = getattr(heuristic, "base", heuristic)
+    scale = getattr(heuristic, "cost_scale", 1)
+    return int(base.calculate_h(np.zeros(n, dtype=np.int32))) * scale
 
 
 # invertible odd multiplier (golden ratio) + its inverse mod 2^32; masking to
@@ -347,8 +387,8 @@ def _expand(st: _Static, coords, f, parenti, active):
     """Expand a batch: (B, N) coords -> all-mask successor candidates.
 
     ``f`` is the parents' f (the sig table stores no g): g = f - h(parent),
-    where h(parent) is the k=0 cell of the T4 heuristic gather (JAX:
-    ``_expand(..., g_is_f=True)``).
+    where h(parent) is the k=0 cell of the T4 heuristic gather plus each
+    cube's own-coordinate corner (JAX: ``_expand(..., g_is_f=True)``).
 
     Returns flat (B*M,) int64 g, f, move mask, valid, is_goal and the
     (B*M, N) child coordinates."""
@@ -358,7 +398,9 @@ def _expand(st: _Static, coords, f, parenti, active):
     cx = coords[:, st.d_xs].clamp(0, S - 2)  # (B, P)
     cy = coords[:, st.d_ys].clamp(0, S - 2)
     t8 = st.d_tables4[st.d_pbase[None, :] + cx * S + cy].long()  # (B, P, 8)
-    t4w = t8[:, :, :4] * st.d_w[None, :, None]  # (B, P, 4)
+    # d_w_h zeroes the triangle-covered pairs (their h comes from the cubes
+    # below); edge costs keep the full weights d_w
+    t4w = t8[:, :, :4] * st.d_w_h[None, :, None]  # (B, P, 4)
     mm = t8[:, :, 4]  # PAM cost of the pair's residues at (cx, cy)
 
     E, GG = GAP_EXTENSION, GAP_GAP
@@ -373,7 +415,16 @@ def _expand(st: _Static, coords, f, parenti, active):
     # h for every child: sum_p t4w[b, p, k(m, p)] with k = 2 bx + by
     pidx = torch.arange(st.P, device=st.device)[None, :]
     h = t4w[:, pidx, st.d_k].sum(-1)  # (B, M)
-    g = f.long() - t4w[:, :, 0].sum(1)
+    h_par = t4w[:, :, 0].sum(1)
+    if st.T3:
+        # the 8 corners of every (node, cube); child m reads corner
+        # tri_corner[t, m], the parent corner 0
+        c3 = coords[:, st.d_tri_xyz].clamp(0, S - 2)  # (B, T, 3)
+        at = st.d_tri_off + (c3[..., 0] * S + c3[..., 1]) * S + c3[..., 2]
+        rows3 = st.d_cubes[at[:, :, None] + st.d_corner_off].long()  # (B, T, 8)
+        h = h + rows3[:, st.d_tri_t, st.d_tri_corner].sum(1)
+        h_par = h_par + rows3[:, :, 0].sum(1)
+    g = f.long() - h_par
     g_child = g[:, None] + cost
     f_child = g_child + h
     mask_id = torch.arange(1, M + 1, device=st.device).expand(B, M)
@@ -531,19 +582,22 @@ def _walk_sig(st: _Static, tab: SigTable) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class FrontierSearch:
-    """Single-device frontier A* (JAX: ``TpuFrontierSearch``), sig layout,
-    pairwise heuristic only."""
+    """Single-device frontier A* (JAX: ``TpuFrontierSearch``), sig layout.
+
+    ``triples``: "auto" adds the triangle suffix cubes to h whenever they
+    apply (N >= 3, gap open == extension, positive pair weights, cubes in
+    budget); "on" and "fractional" (the all-triples cover with (n-2)-scaled
+    costs) raise ValueError when they do not; "off" keeps the pairwise h."""
 
     def __init__(self, problem: Problem,
                  heuristic: Optional[HPairHeuristic] = None,
                  device="cuda", batch: Optional[int] = None,
                  capacity: Optional[int] = None,
-                 chunk_steps: int = 64, triples: str = "off",
+                 chunk_steps: int = 64, triples: str = "auto",
                  fill_target: Optional[int] = None):
-        if triples != "off":
-            raise NotImplementedError(
-                f"triples={triples!r}: the triple-cube heuristic is not "
-                "ported yet (ROADMAP Queue 1 item 4); use triples='off'")
+        if triples not in ("auto", "on", "off", "fractional"):
+            raise ValueError(f"triples={triples!r}: choose auto, on, off or "
+                             "fractional")
         self.device = resolve_device(device)
         self.problem = problem
         self.heuristic = (heuristic if heuristic is not None
@@ -559,18 +613,45 @@ class FrontierSearch:
             # 2^23 keeps the sig layout eligible at kinase-length keys;
             # searches whose key set outgrows it regrow (see run)
             capacity = min(1 << 23, max(1 << 16, _next_pow2(min(lattice * 2, 1 << 23))))
+        self._batch_auto = batch is None
         if batch is None:
             cap_b = 16384 if capacity >= (1 << 22) else 8192
             batch = max(64, min(cap_b, (1 << 19) // M))
         batch = max(16, min(batch, capacity))
         batch = 1 << (batch.bit_length() - 1)  # grouped selection needs B | C
         self.chunk_steps = chunk_steps
-        # pairwise-only searches are plateau-heavy: a B/16 fill target keeps
-        # the f-windows shallow (the JAX engine's no-cube default)
-        self.fill_target = int(fill_target) if fill_target else max(64, batch // 16)
 
         wi = self.heuristic.weight_i
         self.degenerate = bool((wi[~np.eye(n, dtype=bool)] <= 0).any())
+        # triple cubes (heuristic/triples.py), built in Phase 2 as in JAX;
+        # the fractional cover needs C(n,3) cubes, hence its larger budget
+        self.triples = triples
+        self.cubes_wall = 0.0  # cube build (K2 fill + host copy), seconds
+        if (triples != "off" and not self.degenerate
+                and GAP_OPEN == GAP_EXTENSION
+                and getattr(self.heuristic, "triangles", None) is None):
+            t0 = time.perf_counter()
+            ht = (HTriples.build(self.heuristic, fractional=True,
+                                 budget_bytes=10 << 30, device=self.device)
+                  if triples == "fractional"
+                  else HTriples.build(self.heuristic, device=self.device))
+            self.cubes_wall = time.perf_counter() - t0
+            if ht is not None:
+                self.heuristic = ht
+            elif triples in ("on", "fractional"):
+                raise ValueError(
+                    f"triples='{triples}' but the triple heuristic is not "
+                    "applicable (needs N >= 3, GapOpen == GapExtension, "
+                    "positive pair weights, and an in-budget cube size)")
+        # a tight cube bound keeps each f-band thin: cube-assisted searches
+        # take at most 8192 rows and a B/2 fill target; pairwise-only
+        # searches are plateau-heavy, and a B/16 target keeps their f-windows
+        # shallow (the JAX engine's autos)
+        has_cubes = getattr(self.heuristic, "triangles", None) is not None
+        if self._batch_auto and has_cubes and batch > 8192:
+            batch = 8192
+        self.fill_target = (int(fill_target) if fill_target
+                            else max(64, batch // (2 if has_cubes else 16)))
         t0 = time.perf_counter()
         if GAP_OPEN == GAP_EXTENSION and not self.degenerate:
             # wider beams tighten the bound on big searches
@@ -580,9 +661,13 @@ class FrontierSearch:
             self.ub = INF
         self.ub_wall = time.perf_counter() - t0  # host beam, seconds
         # the sig table stores f - f0 above n parent-mask bits of an int32,
-        # so the f spread ub - f0 must fit
-        f0 = int(self.heuristic.calculate_h(np.zeros(n, dtype=np.int32)))
-        self.packed = self.ub < INF and (self.ub - f0 + 64) < (1 << (31 - n))
+        # so the f spread ub - f0 must fit; when the pairwise f0 leaves too
+        # wide a spread, the cube h(root) is the tighter origin
+        budget = 1 << (31 - n)
+        f0 = _rebase_origin(self.heuristic, n)
+        if self.ub < INF and not (self.ub - f0 + 64) < budget and has_cubes:
+            f0 = int(self.heuristic.calculate_h(np.zeros(n, dtype=np.int32)))
+        self.packed = self.ub < INF and (self.ub - f0 + 64) < budget
         self.st = _Static(problem, self.heuristic, batch, capacity,
                           self.device, f0=f0)
         self._check_layout()
@@ -599,7 +684,7 @@ class FrontierSearch:
         if self.layout != "sig":
             raise NotImplementedError(
                 f"this input needs the {self.layout} table layout, which is "
-                "not ported yet (ROADMAP Queue 1 item 8: packed and unpacked "
+                "not ported yet (ROADMAP Queue 1: packed and unpacked "
                 "layouts)")
 
     def _init_table(self) -> SigTable:
@@ -623,7 +708,16 @@ class FrontierSearch:
         attempts = 0
         while True:
             try:
-                return self._run_once()
+                res = self._run_once()
+                scale = getattr(self.heuristic, "cost_scale", 1)
+                if scale > 1:
+                    # the fractional cover ran the search in (n-2)-scaled
+                    # cost units; every path cost divides by the scale
+                    res = replace(res, g=res.g // scale, h=res.h // scale,
+                                  f=res.f // scale,
+                                  closed={c: (g // scale, m)
+                                          for c, (g, m) in res.closed.items()})
+                return res
             except RuntimeError as e:
                 if ("overflow" not in str(e) or attempts >= 2
                         or self.st.C >= (1 << 26)):
@@ -643,7 +737,7 @@ class FrontierSearch:
                 "input (the reference has the same limitation)",
                 RuntimeWarning, stacklevel=3)
         t0 = time.perf_counter()
-        self.last_phase_walls = {}
+        self.last_phase_walls = {"cubes": self.cubes_wall}
         tab = self._init_table()
         counters = torch.as_tensor(fresh_counters(), device=st.device)
         self.last_phase_walls["init_table"] = time.perf_counter() - t0

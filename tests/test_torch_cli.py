@@ -1,6 +1,7 @@
 """The port's CLI prints the same Final Score, Similarity and alignment block
-as the JAX CLI (--engine tpu --triples off) on PF08184 rebuilt from
-tests/goldens.json; timers and the counters table may differ."""
+as the JAX CLI (--engine tpu, with --triples off and with --triples auto) on
+PF08184 rebuilt from tests/goldens.json; timers and the counters table may
+differ."""
 import contextlib
 import io
 import json
@@ -32,11 +33,16 @@ def run(main, argv):
     return out.getvalue()
 
 
-def test_cli_surface_matches_jax(tmp_path):
+def pf08184_fasta(tmp_path):
     gold = json.load(open(os.path.join(HERE, "goldens.json")))["PF08184.fasta"]
     fasta = tmp_path / "PF08184.fasta"
     fasta.write_text("".join(f">s{k}\n{r.replace('-', '')}\n"
                              for k, r in enumerate(gold["alignment"])))
+    return gold, fasta
+
+
+def test_cli_surface_matches_jax(tmp_path):
+    gold, fasta = pf08184_fasta(tmp_path)
     want = run(jcli.run, [str(fasta), "--engine", "tpu", "--triples", "off"])
     got = run(tcli.run, [str(fasta), "--device", "cpu", "--triples", "off"])
     assert surface(got) == surface(want)
@@ -47,3 +53,15 @@ def test_cli_surface_matches_jax(tmp_path):
     for line in ("Phase 1 - init heuristic: ", "Phase 2: PA-Star running time: ",
                  "Phase 3 - backtrace: ", "total\texpanded ", "throughput: "):
         assert line in got
+
+
+def test_cli_triples_auto_surface_matches_jax(tmp_path):
+    # the default --triples auto builds PF08184's one cube in both packages
+    gold, fasta = pf08184_fasta(tmp_path)
+    want = run(jcli.run, [str(fasta), "--engine", "tpu", "--triples", "auto"])
+    got = run(tcli.run, [str(fasta), "--device", "cpu", "--triples", "auto"])
+    assert surface(got) == surface(want)
+    assert surface(run(tcli.run, [str(fasta), "--device", "cpu"])) == surface(got)
+    score, block = surface(got)
+    assert score == "Final Score: (59 59 59)\tg - 24450 (h - 0 f - 24450)"
+    assert [l for l in block[1:] if l] == gold["alignment"]

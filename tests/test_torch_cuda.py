@@ -1,5 +1,6 @@
 """Tests that need the card (marker ``cuda``): the hand-written CUDA kernels
-against their plain PyTorch versions, and the port's main path on the GPU.
+(K1 pair wavefront, K2 triple cubes) against their plain PyTorch versions,
+and the port's main path on the GPU.
 They skip on a host without a CUDA device.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -13,8 +14,11 @@ import torch
 
 from mpi_pastar_msa_tpu_torch import _kernels
 from mpi_pastar_msa_tpu_torch.core.problem import Problem
+from mpi_pastar_msa_tpu_torch.heuristic.triples import (
+    pick_cover, triple_inputs, triple_tables, triple_tables_plain)
 from mpi_pastar_msa_tpu_torch.heuristic.wavefront import (
     pair_inputs, wavefront_tables, wavefront_tables_plain)
+from mpi_pastar_msa_tpu_torch.heuristic.weights import altschul_rationale2
 
 pytestmark = pytest.mark.cuda
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -85,7 +89,79 @@ def test_main_path_on_card(cuda):
     gold = json.load(open(os.path.join(HERE, "goldens.json")))["PF08184.fasta"]
     p = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
     _kernels.reset_counts()
-    res = FrontierSearch(p, HPairHeuristic.build(p, cuda), device=cuda).run()
+    res = FrontierSearch(p, HPairHeuristic.build(p, cuda), device=cuda,
+                         triples="off").run()
     assert _kernels.launches["pair_wavefront"] == 1
+    assert res.g == gold["optimal_g"]
+    assert build_alignment(p, res.closed) == gold["alignment"]
+
+
+def golden_problem(name):
+    gold = json.load(open(os.path.join(HERE, "goldens.json")))[name]
+    return gold, Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+
+
+def k2_inputs(case, device):
+    """K2 inputs: kinase's own cover (4 cubes, S = 278), or random
+    sequences of given lengths with given triangles and random weights."""
+    if case == "kinase":
+        _, p = golden_problem("kinase.fasta")
+        _, wi = altschul_rationale2(p.seqs)
+        cover = pick_cover(wi, p.n_seq)
+        assert len(cover) == 4
+        return triple_inputs(p, [t for t, _ in cover], [w for _, w in cover],
+                             device)
+    lens, tris = case
+    rs = np.random.RandomState(sum(lens))
+    seqs = tuple("".join(rs.choice(list(AMINO), size=L)) for L in lens)
+    ws = rs.randint(0, 60, size=(len(tris), 3)).tolist()
+    return triple_inputs(Problem(seqs), tris, ws, device)
+
+
+@pytest.mark.parametrize("case", [
+    ((1, 1, 1), [(0, 1, 2)]),
+    ((1, 40, 300, 17), [(0, 1, 2), (1, 2, 3)]),
+    "kinase",
+], ids=["T1-ones", "T2-ragged", "kinase"])
+def test_k2_kernel_equals_plain(cuda, case):
+    args = k2_inputs(case, cuda)
+    before = _kernels.launches["triple_wavefront"]
+    got, got_org = triple_tables(**args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["triple_wavefront"] == before + 1
+    want, want_org = triple_tables_plain(**args)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert torch.equal(got_org.cpu(), want_org.cpu())
+
+
+def test_k2_wrapper_rejects_bad_input(cuda, monkeypatch):
+    from mpi_pastar_msa_tpu_torch.heuristic import triples
+    base = k2_inputs(((3, 4, 5), [(0, 1, 2)]), cuda)
+    bad = [dict(base, cxy=base["cxy"].long()),
+           dict(base, lens=base["lens"][:, :2].contiguous()),
+           dict(base, cxz=base["cxz"][:, :-1].contiguous()),
+           dict(base, cyz=base["cyz"].transpose(1, 2)),
+           dict(base, lens=base["lens"] + 10)]
+    before = _kernels.launches["triple_wavefront"]
+    for args in bad:
+        with pytest.raises(ValueError):
+            triple_tables(**args)
+    monkeypatch.setattr(triples, "GAP_OPEN", 40)
+    with pytest.raises(ValueError):
+        triple_tables(**base)
+    assert _kernels.launches["triple_wavefront"] == before
+
+
+def test_main_path_auto_on_card(cuda):
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+    from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
+
+    gold, p = golden_problem("PF08184.fasta")
+    _kernels.reset_counts()
+    eng = FrontierSearch(p, HPairHeuristic.build(p, cuda), device=cuda)
+    res = eng.run()
+    assert len(eng.heuristic.triangles) == 1
+    assert _kernels.launches == {"pair_wavefront": 1, "triple_wavefront": 1}
     assert res.g == gold["optimal_g"]
     assert build_alignment(p, res.closed) == gold["alignment"]

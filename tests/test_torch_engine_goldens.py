@@ -29,7 +29,8 @@ def golden_problem(name):
 def test_goldens(name):
     gold = GOLD[name]
     p = golden_problem(name)
-    eng = TE.FrontierSearch(p, HPairHeuristic.build(p, "cpu"), device="cpu")
+    eng = TE.FrontierSearch(p, HPairHeuristic.build(p, "cpu"), device="cpu",
+                            triples="off")
     assert eng.layout == "sig"
     res = eng.run()
     assert res.g == gold["optimal_g"]
@@ -45,7 +46,7 @@ def test_goldens(name):
 def test_overflow_autoregrow():
     p = golden_problem("PF08184.fasta")
     eng = TE.FrontierSearch(p, HPairHeuristic.build(p, "cpu"), device="cpu",
-                            batch=64, capacity=1 << 5)
+                            batch=64, capacity=1 << 5, triples="off")
     res = eng.run()
     assert res.g == 24450
     assert eng.regrown and eng.st.C > (1 << 5)
@@ -57,7 +58,8 @@ def test_trajectory_independent_of_chunk_size():
     runs = []
     for chunk in (1, 7, 64):
         eng = TE.FrontierSearch(p, h, device="cpu", batch=256,
-                                capacity=1 << 16, chunk_steps=chunk)
+                                capacity=1 << 16, chunk_steps=chunk,
+                                triples="off")
         res = eng.run()
         runs.append((res.g, res.nodes_expanded, res.nodes_reopened, res.steps,
                      sorted(res.closed.items())))
@@ -68,7 +70,8 @@ def test_trajectory_independent_of_chunk_size():
 def test_insert_settles_each_key_once():
     p = golden_problem("PF08184.fasta")
     h = HPairHeuristic.build(p, "cpu")
-    eng = TE.FrontierSearch(p, h, device="cpu", batch=64, capacity=1 << 12)
+    eng = TE.FrontierSearch(p, h, device="cpu", batch=64, capacity=1 << 12,
+                            triples="off")
     st = eng.st
     tab = eng._init_table()
     rs = np.random.RandomState(0)

@@ -47,7 +47,7 @@ def both(seqs):
 def test_matches_jax_engine(seqs):
     jh, th = both(seqs)
     jres = TpuFrontierSearch(JProblem(seqs), jh, triples="off").run()
-    tres = FrontierSearch(Problem(seqs), th, device="cpu").run()
+    tres = FrontierSearch(Problem(seqs), th, device="cpu", triples="off").run()
     assert tres.g == jres.g
     assert tres.closed == jres.closed  # same path, same g at every node
     assert tres.h == jres.h == 0
@@ -59,5 +59,5 @@ def test_random_matches_serial(seed):
     jh, th = both(seqs)
     want = SerialAStar(JProblem(seqs), jh).run().g
     res = FrontierSearch(Problem(seqs), th, device="cpu", batch=64,
-                         capacity=1 << 14).run()
+                         capacity=1 << 14, triples="off").run()
     assert res.g == want
