@@ -12,8 +12,12 @@ Phases, each failing loudly (non-zero exit):
    dependent-diagonal floor times, also per diagonal (``--k1-baseline SRC``
    builds the first version of the K1 source and times it in turns with this
    one).  K2 (triple cubes) at kinase's own cover and at one ragged shape:
-   the whole stack and the origins; kernel, plain, bound and dependent-plane
-   floor times.
+   the whole stack and the origins; kernel, plain and bound times, the
+   dependent-launch floor of its tile diagonals and, beside it, that of
+   one launch per plane (``--k2-baseline SRC`` builds the plane-per-launch
+   version of the K2 source and times it in turns with this one;
+   ``--k2-variant TILE SRC`` does the same for an edited copy of the
+   current source, e.g. another tile or shared-memory layout).
 4. main path, kinase: the port's CLI entry with its defaults (--triples
    auto, --device cuda) must build 4 cubes and reach g = 421546 with a path
    whose recomputed cost equals g, degapped rows equal to the inputs, and
@@ -199,16 +203,77 @@ def check_k1(paths, baseline=None) -> dict:
     return rows
 
 
-def check_k2(paths) -> dict:
+def build_baseline_k2(src: str, tmp: str):
+    """Build the plane-per-launch version of the K2 source (``git show`` of
+    csrc/triple_wavefront.cu at the commit that added it), to time beside
+    the current kernel.  Its C entry takes (cubes, cxy, cxz, cyz, lens, ws,
+    T, S, Dmax, threads, O, E, GG, stream)."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.core.cost import GAP_EXTENSION, GAP_GAP, GAP_OPEN
+
+    lib_path = os.path.join(tmp, f"libk2_{abs(hash(src))}.so")
+    subprocess.run([_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", lib_path, src], check=True, capture_output=True)
+    fn = ctypes.CDLL(lib_path).triple_wavefront
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(cxy, cxz, cyz, lens, ws):
+        T, S = cxy.shape[0], cxy.shape[-1]
+        cubes = torch.empty((T, S, S, S), dtype=torch.int32, device="cuda")
+        if fn(cubes.data_ptr(), cxy.data_ptr(), cxz.data_ptr(), cyz.data_ptr(),
+              lens.data_ptr(), ws.data_ptr(), T, S, int(lens.sum(1).max()), 256,
+              GAP_OPEN, GAP_EXTENSION, GAP_GAP, torch.cuda.current_stream().cuda_stream):
+            fail(f"K2 build of {src} failed to launch")
+        return cubes
+
+    return run
+
+
+def build_variant_k2(tile, src: str, tmp: str):
+    """Build an edited copy of the current K2 source, compiled for ``tile``
+    (its C entry as the current one's), to time beside the current kernel
+    at kinase."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.core.cost import GAP_EXTENSION, GAP_GAP, GAP_OPEN
+    from mpi_pastar_msa_tpu_torch.heuristic.triples import k2_launch_shape
+
+    lib_path = os.path.join(tmp, f"libk2v_{abs(hash(src))}.so")
+    subprocess.run([_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", lib_path, src], check=True, capture_output=True)
+    fn = ctypes.CDLL(lib_path).triple_wavefront
+    fn.argtypes = _kernels.SIGNATURES["triple_wavefront"]
+    fn.restype = ctypes.c_int
+
+    def run(cxy, cxz, cyz, lens, ws):
+        T, S = cxy.shape[0], cxy.shape[-1]
+        shape = k2_launch_shape(lens.cpu().numpy(), S, tile)
+        cubes = torch.empty((T, S, S, S), dtype=torch.int32, device="cuda")
+        if fn(cubes.data_ptr(), cxy.data_ptr(), cxz.data_ptr(), cyz.data_ptr(),
+              lens.data_ptr(), ws.data_ptr(), T, S, *shape.tile, shape.diagonals,
+              shape.grid.ctypes.data, GAP_OPEN, GAP_EXTENSION, GAP_GAP,
+              torch.cuda.current_stream().cuda_stream):
+            fail(f"K2 build of {src} failed to launch")
+        return cubes
+
+    return run
+
+
+def check_k2(paths, baseline=None, variants=()) -> dict:
     """K2 against its plain version at kinase's own cover (4 cubes) and at a
     ragged shape (lengths 1, 40 and 300), whole stack and origins, with
-    kernel, plain, bound and dependent-plane floor times."""
+    kernel, plain, bound and dependent-launch floor times; ``baseline`` is
+    (source, run) of the plane-per-launch version's build, or None;
+    ``variants`` are (tile, source, run) of edited builds of the current
+    source, each checked and timed at kinase."""
     import numpy as np
 
     from mpi_pastar_msa_tpu_torch._kernels import launches, load
     from mpi_pastar_msa_tpu_torch.core.problem import Problem, problem_from_fasta
     from mpi_pastar_msa_tpu_torch.heuristic.triples import (
-        K2_THREADS, pick_cover, triple_inputs, triple_tables, triple_tables_plain)
+        k2_launch_shape, pick_cover, triple_inputs, triple_tables, triple_tables_plain)
     from mpi_pastar_msa_tpu_torch.heuristic.weights import altschul_rationale2
 
     kinase = problem_from_fasta(paths["kinase.fasta"])
@@ -222,6 +287,13 @@ def check_k2(paths) -> dict:
     fn = load("triple_wavefront").plane_chain
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+
+    def chain_ms(launches_, blocks, threads):
+        def chain():
+            if fn(launches_, blocks, threads, torch.cuda.current_stream().cuda_stream):
+                fail("plane_chain probe failed to launch")
+        return time_ms(chain, reps=10)
+
     rows = {}
     for label, (p, tris, tws) in shapes.items():
         args = triple_inputs(p, tris, tws, "cuda")
@@ -235,38 +307,83 @@ def check_k2(paths) -> dict:
                   int((got_org.long() - want_org.long()).abs().max()))
         if err != 0:
             fail(f"K2 {label}: kernel differs from plain version (max |err| {err})")
-        del got, want, got_org, want_org
+        del want, want_org
         ms = time_ms(lambda: triple_tables(**args), reps=10)
         plain_ms = time_ms(lambda: triple_tables_plain(**args), reps=3, warmup=1)
         T, S = args["cxy"].shape[0], args["cxy"].shape[-1]
         lens = args["lens"].cpu().long()
+        shape = k2_launch_shape(lens.numpy(), S)
         planes = int(lens.sum(1).max()) + 1
         cells = int((lens + 1).prod(1).sum())
         in_bytes = sum(t.numel() * 4 for t in args.values())
         out_bytes = T * S ** 3 * 4
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
         ops_ms = cells * K2_OPS_PER_CELL / PEAK_OPS_PER_S * 1e3
-        blocks = -(-T * S * S // K2_THREADS)
-
-        def chain():
-            if fn(planes, blocks, K2_THREADS, torch.cuda.current_stream().cuda_stream):
-                fail("plane_chain probe failed to launch")
-
-        chain_ms = time_ms(chain, reps=10)
+        # dependent-launch floors: one empty launch per tile diagonal at the
+        # largest launch's grid, and beside it one per plane at a thread
+        # per (t, j, k), the plane-per-launch design's grid
+        floor_ms = chain_ms(shape.diagonals, shape.max_blocks, shape.threads)
+        plane_blocks = -(-T * S * S // 256)
+        plane_floor_ms = chain_ms(planes, plane_blocks, 256)
         rows[label] = dict(T=T, S=S, lengths=lens.tolist(), ms=ms, plain_ms=plain_ms,
                            bound_ms=max(bytes_ms, ops_ms),
                            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                           bytes_ms=bytes_ms, ops_ms=ops_ms, chain_floor_ms=chain_ms,
-                           planes=planes, device_launches_per_fill=planes + 1,
-                           blocks_per_plane=blocks, in_box_cells=cells,
-                           out_bytes=out_bytes, max_abs_err=err)
+                           bytes_ms=bytes_ms, ops_ms=ops_ms, tile=shape.tile,
+                           tiles=shape.tiles.tolist(), diagonals=shape.diagonals,
+                           blocks=shape.blocks, max_blocks=shape.max_blocks,
+                           threads=shape.threads,
+                           chain_floor_ms=floor_ms, plane_floor_ms=plane_floor_ms,
+                           planes=planes, device_launches_per_fill=shape.diagonals + 1,
+                           in_box_cells=cells, out_bytes=out_bytes, max_abs_err=err)
         print(f"K2 {label}: T={T} S={S} lengths {lens.tolist()} exact (stack and "
-              f"origins); kernel {ms:.4f} ms ({ms * 1e3 / planes:.2f} us/plane), "
-              f"plain {plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.5f} ms "
-              f"(bytes {bytes_ms:.5f}, operations {ops_ms:.5f}), dependent-plane "
-              f"floor {chain_ms:.4f} ms ({planes} empty launches of {blocks} x "
-              f"{K2_THREADS}); {planes + 1} device launches per fill; no library "
+              f"origins); tile {shape.tile}, {shape.diagonals} tile diagonals, "
+              f"{shape.blocks} blocks of {shape.threads} threads ({shape.max_blocks} "
+              f"in the largest launch); kernel {ms:.4f} ms "
+              f"({ms * 1e3 / shape.diagonals:.2f} us/tile diagonal), plain "
+              f"{plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.5f} ms (bytes "
+              f"{bytes_ms:.5f}, operations {ops_ms:.5f}), dependent-launch floor "
+              f"{floor_ms:.4f} ms ({shape.diagonals} empty launches of "
+              f"{shape.max_blocks} x {shape.threads}; one per plane: {planes} of "
+              f"{plane_blocks} x 256, {plane_floor_ms:.4f} ms); "
+              f"{shape.diagonals + 1} device launches per fill; no library "
               f"yardstick (no single PyTorch call computes this DP)")
+        if label == "kinase":
+            # each edited build, in turns: current, variant, variant, current
+            for tile, src, run in variants:
+                other = lambda: run(args["cxy"], args["cxz"], args["cyz"],
+                                    args["lens"], args["ws"])
+                alt = other()
+                torch.cuda.synchronize()
+                if not torch.equal(alt, got):
+                    fail(f"K2 kinase: the build of {src} differs from this one")
+                del alt
+                current = lambda: triple_tables(**args)
+                turns = [time_ms(f, reps=10) for f in (current, other, other, current)]
+                alt_shape = k2_launch_shape(lens.numpy(), S, tile)
+                rows[label].setdefault("variants", []).append(dict(
+                    source=src, tile=tile, diagonals=alt_shape.diagonals, ms=turns))
+                print(f"K2 kinase {src} (tile {tile}, {alt_shape.diagonals} tile "
+                      f"diagonals) exact; in turns: current {turns[0]:.4f} ms, "
+                      f"variant {turns[1]:.4f} ms, variant {turns[2]:.4f} ms, "
+                      f"current {turns[3]:.4f} ms")
+        if baseline is not None:
+            # the plane-per-launch version, then in turns: first, current,
+            # current, first
+            src, run = baseline
+            first = lambda: run(args["cxy"], args["cxz"], args["cyz"], args["lens"],
+                                args["ws"])
+            old = first()
+            torch.cuda.synchronize()
+            if not torch.equal(old, got):
+                fail(f"K2 {label}: the build of {src} differs from this one")
+            del old
+            current = lambda: triple_tables(**args)
+            turns = [time_ms(f, reps=10) for f in (first, current, current, first)]
+            rows[label]["turns"] = dict(source=src, ms=turns)
+            print(f"K2 {label} in turns with {src}: first {turns[0]:.4f} ms, "
+                  f"current {turns[1]:.4f} ms, current {turns[2]:.4f} ms, "
+                  f"first {turns[3]:.4f} ms")
+        del got, got_org
     return rows
 
 
@@ -396,6 +513,16 @@ def main() -> int:
                     help="also build the first version of "
                          "csrc/pair_wavefront.cu (its C entry without launch "
                          "shape or scratch) and time it in turns with this one")
+    ap.add_argument("--k2-baseline", metavar="SRC", default=None,
+                    help="also build the plane-per-launch version of "
+                         "csrc/triple_wavefront.cu (its C entry with Dmax and "
+                         "threads) and time it in turns with this one")
+    ap.add_argument("--k2-variant", metavar=("BIxBJxBK", "SRC"), nargs=2,
+                    action="append", default=[],
+                    help="also build SRC, an edited copy of "
+                         "csrc/triple_wavefront.cu compiled for the tile "
+                         "BIxBJxBK, check it at kinase and time it in turns "
+                         "with this one (repeatable)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace 32 mid-search kinase steps, under "
                          "--triples auto and off, with torch.profiler (device "
@@ -419,12 +546,13 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _kernels.build_all()
     print(f"build: {len(logs)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
+             for line in log.splitlines()
+             if "entry function" in line or "registers" in line or "spill" in line]
+    for line in ptxas:
+        print(f"  {line}")
 
-    report = {"card": smi}
+    report = {"card": smi, "ptxas": ptxas}
     with tempfile.TemporaryDirectory() as tmp:
         gold, paths = rebuild_inputs(tmp)
         # 3. kernel check
@@ -433,7 +561,15 @@ def main() -> int:
             baseline = (args.k1_baseline,
                         build_baseline_k1(os.path.abspath(args.k1_baseline), tmp))
         report["k1"] = check_k1(paths, baseline)
-        report["k2"] = check_k2(paths)
+        k2_baseline = None
+        if args.k2_baseline:
+            k2_baseline = (args.k2_baseline,
+                           build_baseline_k2(os.path.abspath(args.k2_baseline), tmp))
+        variants = []
+        for tile, src in args.k2_variant:
+            tile = tuple(int(v) for v in tile.split("x"))
+            variants.append((tile, src, build_variant_k2(tile, os.path.abspath(src), tmp)))
+        report["k2"] = check_k2(paths, k2_baseline, variants)
         # 4. / 5. main path (CLI defaults: --triples auto), then pairwise
         report["kinase"] = main_path("kinase", paths["kinase.fasta"],
                                      gold["kinase.fasta"], False, "auto")

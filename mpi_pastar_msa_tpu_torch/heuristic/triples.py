@@ -20,7 +20,8 @@ sub-mask is one DP transition) and dominates the pairwise sum.
 The cube fill (kernel K2) walks anti-diagonal planes d = i+j+k from
 Lx+Ly+Lz down to 0: plane d depends only on planes d+1..d+3.  On a CUDA
 tensor ``triple_tables`` launches the hand-written kernel
-``csrc/triple_wavefront.cu`` (one launch per plane, one thread per cell); on
+``csrc/triple_wavefront.cu`` (tiles of 32 x 16 x 16 cells, one launch per
+tile diagonal, one block per tile; its shape from ``k2_launch_shape``); on
 a CPU tensor it runs the plain PyTorch version below, a loop over planes
 batched over all T cubes.  The CUDA path never falls back to the plain
 version.  Port of the JAX package's ``heuristic/triples.py``; the covers,
@@ -31,7 +32,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,8 +46,49 @@ from .hpair import HPairHeuristic
 from .wavefront import _check
 
 INF3 = 2**30
-#: threads per block of the K2 plane launches (also plane_chain's shape)
-K2_THREADS = 256
+#: the tile (bi, bj, bk) K2 is compiled for (``kBi, kBj, kBk`` in
+#: ``csrc/triple_wavefront.cu``; its C entry refuses any other), k fastest
+#: as in the stack
+K2_TILE = (32, 16, 16)
+
+
+class K2Shape(NamedTuple):
+    """The launch shape of one K2 fill (see ``k2_launch_shape``)."""
+    tile: Tuple[int, int, int]  # (bi, bj, bk)
+    tiles: np.ndarray  # (T, 3) tiles a side of each cube's box
+    diagonals: int  # tile diagonals, one launch each
+    grid: np.ndarray  # (diagonals, 4) int32: a_lo, b_lo, tile rows, tile columns
+    blocks: int  # blocks over all those launches
+    max_blocks: int  # blocks of the largest launch
+    threads: int  # threads per block, one per (j, k) column of a tile
+
+
+def k2_launch_shape(lens, S: int, tile=K2_TILE) -> K2Shape:
+    """The launch shape of K2 for cube lengths ``lens`` (T, 3) at stride S.
+
+    Each cube's (Lx+1, Ly+1, Lz+1) box is cut into tiles of ``tile`` cells;
+    the fill launches once per tile diagonal D = a+b+c, over the rectangle
+    of tile rows a and columns b that can hold a tile of D in a cube of the
+    largest tile counts of the T cubes, one block of bj * bk threads per
+    (a, b, cube).  ``grid[D]`` is that rectangle as the kernel takes it.  The
+    kernel is compiled for ``K2_TILE``; other tiles serve the CPU emulation
+    of its schedule."""
+    bi, bj, bk = (int(v) for v in tile)
+    L = np.asarray(lens, dtype=np.int64).reshape(-1, 3)
+    if len(L) < 1 or L.min() < 0 or L.max() > S - 2 or min(bi, bj, bk) < 1:
+        raise ValueError(f"K2: need T >= 1, lengths in [0, S-2] (S = {S}) and "
+                         f"tile sides >= 1, got {L.tolist()} and {tile}")
+    tiles = -(-(L + 1) // np.array([bi, bj, bk]))
+    na, nb, nc = (int(v) for v in tiles.max(0))
+    diagonals = int(tiles.sum(1).max()) - 2
+    grid = np.zeros((diagonals, 4), dtype=np.int32)
+    for D in range(diagonals):
+        a_lo, a_hi = max(0, D - (nb - 1) - (nc - 1)), min(na - 1, D)
+        b_lo, b_hi = max(0, D - a_hi - (nc - 1)), min(nb - 1, D - a_lo)
+        grid[D] = (a_lo, b_lo, a_hi - a_lo + 1, b_hi - b_lo + 1)
+    sizes = grid[:, 2].astype(np.int64) * grid[:, 3] * len(L)
+    return K2Shape((bi, bj, bk), tiles, diagonals, grid, int(sizes.sum()),
+                   int(sizes.max()), bj * bk)
 
 
 def pick_triangles(weight_i: np.ndarray, n: int,
@@ -287,16 +329,12 @@ def triple_tables(cxy, cxz, cyz, lens, ws):
     if GAP_OPEN != GAP_EXTENSION:
         raise ValueError(f"K2 kernel: needs gap open == gap extension, got "
                          f"{GAP_OPEN} and {GAP_EXTENSION}")
-    lh = lens.cpu()
-    if T < 1 or S < 2 or int(lh.min()) < 0 or int(lh.max()) > S - 2:
-        raise ValueError(f"K2 kernel: need T >= 1 and lengths in [0, S-2] "
-                         f"(S = {S}), got T = {T}, lengths {lh.tolist()}")
-    dmax = int(lh.sum(1).max())
+    shape = k2_launch_shape(lens.cpu().numpy(), S)
     cubes = torch.empty((T, S, S, S), dtype=torch.int32, device=dev)
     _kernels.launch(
         "triple_wavefront", cubes.data_ptr(), cxy.data_ptr(), cxz.data_ptr(),
-        cyz.data_ptr(), lens.data_ptr(), ws.data_ptr(), T, S, dmax,
-        K2_THREADS, GAP_OPEN, GAP_EXTENSION, GAP_GAP,
+        cyz.data_ptr(), lens.data_ptr(), ws.data_ptr(), T, S, *shape.tile,
+        shape.diagonals, shape.grid.ctypes.data, GAP_OPEN, GAP_EXTENSION, GAP_GAP,
         torch.cuda.current_stream(dev).cuda_stream)
     return cubes, cubes[:, 0, 0, 0]
 

@@ -122,7 +122,19 @@ def k2_inputs(case, device):
     ((1, 1, 1), [(0, 1, 2)]),
     ((1, 40, 300, 17), [(0, 1, 2), (1, 2, 3)]),
     "kinase",
-], ids=["T1-ones", "T2-ragged", "kinase"])
+    # box sides 16, 17 and 18 against 16-cell tiles: at, one above and two
+    # above a tile multiple
+    ((15, 16, 17), [(0, 1, 2)]),
+    # box sides 31, 32 and 33 each once along i (32-cell tiles) and along
+    # j and k (16-cell tiles): one below, at and one above a tile multiple
+    ((30, 31, 32), [(0, 1, 2), (1, 2, 0), (2, 0, 1)]),
+    # a length-1 and a length-0 side: cubes one tile thick
+    ((1, 16, 33), [(0, 1, 2)]),
+    ((0, 17, 5), [(0, 1, 2)]),
+    # a T = 3 cover whose cubes have different tile grids
+    ((15, 16, 17, 1, 40), [(0, 1, 2), (1, 3, 4), (0, 2, 4)]),
+], ids=["T1-ones", "T2-ragged", "kinase", "T1-tile-edges", "T3-tile-edges",
+        "T1-length-1", "T1-length-0", "T3-cover"])
 def test_k2_kernel_equals_plain(cuda, case):
     args = k2_inputs(case, cuda)
     before = _kernels.launches["triple_wavefront"]
@@ -146,6 +158,17 @@ def test_k2_wrapper_rejects_bad_input(cuda, monkeypatch):
     for args in bad:
         with pytest.raises(ValueError):
             triple_tables(**args)
+    # the C entry refuses a tile other than the one it is compiled for
+    T, S = base["cxy"].shape[0], base["cxy"].shape[-1]
+    shape = triples.k2_launch_shape(base["lens"].cpu().numpy(), S, (16, 16, 16))
+    cubes = torch.empty((T, S, S, S), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError):
+        _kernels.launch(
+            "triple_wavefront", cubes.data_ptr(),
+            *(base[k].data_ptr() for k in ("cxy", "cxz", "cyz", "lens", "ws")),
+            T, S, *shape.tile, shape.diagonals, shape.grid.ctypes.data,
+            triples.GAP_OPEN, triples.GAP_EXTENSION, triples.GAP_GAP,
+            torch.cuda.current_stream().cuda_stream)
     monkeypatch.setattr(triples, "GAP_OPEN", 40)
     with pytest.raises(ValueError):
         triple_tables(**base)

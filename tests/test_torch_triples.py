@@ -6,6 +6,10 @@ tolerance):
   symmetric weight matrices;
 - the plain cube fill against JAX's ``triple_tables_device`` cell for cell
   (INF3 included) and the NumPy host oracle inside each box;
+- a NumPy emulation of the K2 kernel's loop nest (tile diagonals over
+  ``k2_launch_shape``'s grid, halo, local planes) at small tiles against the
+  plain fill and JAX, with every child it reads final; ``k2_launch_shape`` at
+  kinase and its grid against every tile;
 - ``HTriples.build`` (cherry and fractional covers, the fallback warning)
   and ``HTriples.from_numpy`` against JAX's ``HTriples``;
 - ``_expand`` with cubes against JAX's ``_expand(..., g_is_f=True)``;
@@ -26,9 +30,11 @@ from mpi_pastar_msa_tpu.core.problem import Problem as JProblem
 from mpi_pastar_msa_tpu.heuristic import triples as JT
 from mpi_pastar_msa_tpu.heuristic.hpair import HPairHeuristic as JHPair
 from mpi_pastar_msa_tpu.search import engine as JE
+from mpi_pastar_msa_tpu_torch.core.cost import GAP_EXTENSION, GAP_GAP
 from mpi_pastar_msa_tpu_torch.core.problem import Problem
 from mpi_pastar_msa_tpu_torch.heuristic import triples as TT
 from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+from mpi_pastar_msa_tpu_torch.heuristic.weights import altschul_rationale2
 from mpi_pastar_msa_tpu_torch.search import engine as TE
 from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
 
@@ -112,6 +118,179 @@ def test_plain_fill_matches_jax_and_oracle(lens, tris):
         box = got.numpy()[t, : lens[x] + 1, : lens[y] + 1, : lens[z] + 1]
         assert np.array_equal(box.astype(np.int64), host)
         assert (got.numpy()[t] == TT.INF3).sum() == S**3 - box.size
+
+
+def emulate_k2(cxy, cxz, cyz, lens, ws, tile):
+    """NumPy emulation of ``csrc/triple_wavefront.cu``'s loop nest with
+    tiles of ``tile`` cells: the INF3 fill, then tile diagonals descending
+    over the rectangles of ``k2_launch_shape(...).grid``, and in each block
+    the halo read from the stack, the costs, the local planes descending
+    over the (v, w) threads and the store.  Asserts that every child it reads
+    is final (a halo cell a finished launch stored, or a cell of the tile an
+    earlier local plane wrote) and that every in-box cell is stored exactly
+    once.  Returns the (T, S, S, S) int32 stack and its origins."""
+    cxy, cxz, cyz, L, W = (np.asarray(x, dtype=np.int64)
+                           for x in (cxy, cxz, cyz, lens, ws))
+    T, S = cxy.shape[0], cxy.shape[-1]
+    shape = TT.k2_launch_shape(L, S, tile)
+    bi, bj, bk = shape.tile
+    E, GG = GAP_EXTENSION, GAP_GAP
+    H = np.full((T, S, S, S), TT.INF3, dtype=np.int64)
+    ii, jj, kk = np.meshgrid(*(np.arange(S),) * 3, indexing="ij")
+    final = np.stack([(ii > lx) | (jj > ly) | (kk > lz) for lx, ly, lz in L])
+    v, w = np.divmod(np.arange(shape.threads), bk)  # thread (v, w)
+    # the halo cells in the kernel's order: face u = bi, v = bj, w = bk
+    fu = [(bi, y, z) for y in range(bj + 1) for z in range(bk + 1)]
+    fv = [(x, bj, z) for x in range(bi) for z in range(bk + 1)]
+    fw = [(x, y, bk) for x in range(bi) for y in range(bj)]
+    hu, hv, hw = np.array(fu + fv + fw).T
+    tu, tv, tw = (x.ravel() for x in np.meshgrid(
+        np.arange(bi), np.arange(bj), np.arange(bk), indexing="ij"))
+    for D in range(shape.diagonals - 1, -1, -1):
+        a_lo, b_lo, rows, cols = (int(x) for x in shape.grid[D])
+        for t in range(T):
+            Lx, Ly, Lz = L[t]
+            for a in range(a_lo, a_lo + rows):
+                for b in range(b_lo, b_lo + cols):
+                    c = D - a - b
+                    i0, j0, k0 = a * bi, b * bj, c * bk
+                    if c < 0 or i0 > Lx or j0 > Ly or k0 > Lz:
+                        continue
+                    sm = np.zeros((bi + 1, bj + 1, bk + 1), dtype=np.int64)
+                    written = np.zeros(sm.shape, dtype=bool)
+                    gi, gj, gk = i0 + hu, j0 + hv, k0 + hw
+                    ok = (gi <= Lx) & (gj <= Ly) & (gk <= Lz)
+                    assert final[t, gi[ok], gj[ok], gk[ok]].all()
+                    sm[hu, hv, hw] = TT.INF3
+                    sm[hu[ok], hv[ok], hw[ok]] = H[t, gi[ok], gj[ok], gk[ok]]
+                    written[hu, hv, hw] = True
+                    sxy = np.zeros((bi, bj), dtype=np.int64)
+                    sxz = np.zeros((bi, bk), dtype=np.int64)
+                    for u in range(bi):
+                        for y in range(bj):
+                            i, j = i0 + u, j0 + y
+                            if i <= Lx and j <= Ly:
+                                sxy[u, y] = cxy[t, i, j]
+                        for z in range(bk):
+                            i, k = i0 + u, k0 + z
+                            if i <= Lx and k <= Lz:
+                                sxz[u, z] = cxz[t, i, k]
+                    j, k = j0 + v, k0 + w
+                    jk_in = (j <= Ly) & (k <= Lz)
+                    cost_yz = np.where(jk_in, cyz[t, np.minimum(j, S - 1),
+                                                  np.minimum(k, S - 1)], 0)
+                    wxy, wxz, wyz = W[t]
+                    for p in range(bi + bj + bk - 3, -1, -1):
+                        u = p - v - w
+                        act = (u >= 0) & (u < bi)
+                        u, vv, ww = u[act], v[act], w[act]
+                        i, jt, kt = i0 + u, j[act], k[act]
+                        assert not written[u, vv, ww].any()
+                        inb = (i <= Lx) & jk_in[act]
+                        goal = (i == Lx) & (jt == Ly) & (kt == Lz)
+                        gxy, gxz = sxy[u, vv], sxz[u, ww]
+                        best = np.full(len(u), TT.INF3, dtype=np.int64)
+                        for m in range(1, 8):
+                            bx, by, bz = m & 1, (m >> 1) & 1, m >> 2
+                            mv = ((i + bx <= Lx) & (jt + by <= Ly)
+                                  & (kt + bz <= Lz) & inb & ~goal)
+                            cu, cv, cw = u + bx, vv + by, ww + bz
+                            assert written[cu[mv], cv[mv], cw[mv]].all()
+                            child = sm[cu, cv, cw]
+                            mc = (wxy * (gxy if bx and by else (E if bx or by else GG))
+                                  + wxz * (gxz if bx and bz else (E if bx or bz else GG))
+                                  + wyz * (cost_yz[act] if by and bz
+                                           else (E if by or bz else GG)))
+                            take = mv & (child < TT.INF3) & (child + mc < best)
+                            best = np.where(take, child + mc, best)
+                        sm[u, vv, ww] = np.where(inb, np.where(goal, 0, best), TT.INF3)
+                        written[u, vv, ww] = True
+                    gi, gj, gk = i0 + tu, j0 + tv, k0 + tw
+                    ok = (gi <= Lx) & (gj <= Ly) & (gk <= Lz)
+                    assert not final[t, gi[ok], gj[ok], gk[ok]].any()
+                    H[t, gi[ok], gj[ok], gk[ok]] = sm[tu[ok], tv[ok], tw[ok]]
+                    final[t, gi[ok], gj[ok], gk[ok]] = True
+    assert final.all()
+    H = H.astype(np.int32)
+    return H, H[:, 0, 0, 0]
+
+
+# tile 2 x 3 x 4: box sides (L + 1) one below, at and one above a multiple of
+# each tile side, a length-0 and length-1 side (a cube one tile thick), and
+# covers of T = 2 and 3 cubes whose tile grids differ
+@pytest.mark.parametrize("lens,tris", [
+    ((1, 1, 1), [(0, 1, 2)]),
+    ((0, 2, 3), [(0, 1, 2)]),
+    ((2, 5, 7), [(0, 1, 2)]),
+    ((3, 4, 8), [(0, 1, 2)]),
+    ((1, 6, 6, 9), [(0, 1, 2), (1, 2, 3)]),
+    ((5, 3, 11, 0, 7), [(0, 1, 2), (2, 3, 4), (0, 1, 4)]),
+], ids=["ones", "zero", "ragged-a", "ragged-b", "T2", "T3-zero"])
+def test_k2_tile_schedule_matches_plain_and_jax(lens, tris):
+    seqs = seqs_of_lengths(11, lens)
+    rs = np.random.RandomState(sum(lens))
+    tws = [tuple(int(v) for v in rs.randint(0, 60, size=3)) for _ in tris]
+    args = TT.triple_inputs(Problem(seqs), tris, tws, "cpu")
+    got, got_org = emulate_k2(**{k: v.numpy() for k, v in args.items()},
+                              tile=(2, 3, 4))
+    want, want_org = TT.triple_tables_plain(**args)
+    assert np.array_equal(got, want.numpy())
+    assert np.array_equal(got_org, want_org.numpy())
+    jwant, jorg = JT.triple_tables_device(JProblem(seqs), tris, None,
+                                          tri_weights=tws)
+    assert np.array_equal(got, np.asarray(jwant))
+    assert np.array_equal(got_org, np.asarray(jorg))
+
+
+def test_k2_launch_shape_at_kinase():
+    gold = json.load(open(os.path.join(HERE, "goldens.json")))["kinase.fasta"]
+    p = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+    _, wi = altschul_rationale2(p.seqs)
+    tris = [t for t, _ in TT.pick_cover(wi, p.n_seq)]
+    lens = [[len(p.seqs[x]) for x in t] for t in tris]
+    S = p.max_length + 2
+    shape = TT.k2_launch_shape(lens, S)
+    assert shape.tile == TT.K2_TILE == (32, 16, 16) and shape.threads == 256
+    assert shape.tiles.tolist() == [[9, 18, 17], [9, 18, 18], [9, 17, 18],
+                                    [9, 17, 18]]
+    assert shape.diagonals == 43  # against 813 planes of one cell each
+    assert shape.grid.shape == (43, 4) and shape.grid.dtype == np.int32
+    sizes = 4 * shape.grid[:, 2] * shape.grid[:, 3]
+    assert shape.blocks == sizes.sum() == 15_888
+    assert shape.max_blocks == sizes.max() == 648
+    with pytest.raises(ValueError):
+        TT.k2_launch_shape(lens, S, (0, 16, 16))
+    with pytest.raises(ValueError):
+        TT.k2_launch_shape([[0, 0, S - 1]], S)
+
+
+# each diagonal's rectangle holds every tile of that diagonal in every cube,
+# and each of its rows and columns holds one in a cube of the largest counts
+@pytest.mark.parametrize("lens,tile", [
+    ([[267, 276, 263], [267, 273, 272], [276, 263, 272], [276, 263, 273]],
+     TT.K2_TILE),
+    ([[1, 40, 300]], TT.K2_TILE),
+    ([[0, 0, 0]], TT.K2_TILE),
+    ([[5, 3, 11], [11, 0, 7], [5, 3, 7]], (2, 3, 4)),
+], ids=["kinase", "ragged", "origin-only", "T3-small-tiles"])
+def test_k2_launch_grid_covers_each_tile(lens, tile):
+    S = max(max(l) for l in lens) + 2
+    shape = TT.k2_launch_shape(lens, S, tile)
+    na, nb, nc = shape.tiles.max(0)
+    assert shape.diagonals == max(sum(t) for t in shape.tiles.tolist()) - 2
+    for D, (a_lo, b_lo, rows, cols) in enumerate(shape.grid.tolist()):
+        assert rows >= 1 and cols >= 1
+        a_of = range(a_lo, a_lo + rows)
+        assert all(any(0 <= D - a - b < nc for b in range(b_lo, b_lo + cols))
+                   for a in a_of)
+        assert all(any(0 <= D - a - b < nc for a in a_of)
+                   for b in range(b_lo, b_lo + cols))
+    for ta, tb, tc in shape.tiles.tolist():
+        for a in range(ta):
+            for b in range(tb):
+                for c in range(tc):
+                    a_lo, b_lo, rows, cols = shape.grid[a + b + c]
+                    assert a_lo <= a < a_lo + rows and b_lo <= b < b_lo + cols
 
 
 def assert_same_htriples(th3, jh3, seqs, n_coords=30):
