@@ -24,10 +24,18 @@ Phases, each failing loudly (non-zero exit):
    both kernels launched; then the same with --triples off (K1 launched).
 5. main path, test / test2 / PF08184, under auto and under off: golden g and
    byte-identical alignment.
-6. the kernels JSON line, then the result line.
+6. layouts: globin6, synth7 and synth10 (tests/data) through the CLI with
+   its defaults must take the packed table layout (their keys do not fit a
+   sig word at C = 2^23), build cubes, launch K1 and K2 and reach their
+   certified optima; kinase with the layout pinned to packed and to unpacked
+   (engine entry, as --profile drives it) must reach g = 421546; test, test2
+   and PF08184 with each pinned must stay byte-identical to the goldens;
+   the degenerate input ("WYWY", "WYY", "YWW") must warn, take the
+   unpacked layout and complete.
+7. the kernels JSON line, then the result line.
 
 Inputs are rebuilt from tests/goldens.json (the degapped golden rows) and
-tests/data/synth4_long.fasta.  Weights are not random: the system runs no
+read from tests/data/*.fasta.  Weights are not random: the system runs no
 model, and its data are these real sequences.
 """
 from __future__ import annotations
@@ -43,6 +51,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import torch
 
@@ -51,6 +60,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 PEAK_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 K1_OPS_PER_CELL = 12          # int32 adds/compares/selects per DP cell
 K2_OPS_PER_CELL = 7 * 12      # 7 moves x ~12 int32 ops per in-box cube cell
+# certified optima of the tests/data inputs beyond the sig layout
+# (tests/test_globin6.py, tests/test_beyond_reference.py)
+LAYOUT_INPUTS = {"globin6": 988171, "synth7": 402469, "synth10": 575615}
 
 
 def fail(msg: str) -> None:
@@ -387,8 +399,33 @@ def check_k2(paths, baseline=None, variants=()) -> dict:
     return rows
 
 
+def data_path(name: str) -> str:
+    return os.path.join(ROOT, "tests", "data", f"{name}.fasta")
+
+
+def data_gold(name: str, g: int) -> dict:
+    """The golden record of a tests/data input: its g and its sequences
+    (no golden alignment exists for it)."""
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+
+    return {"optimal_g": g, "seqs": list(problem_from_fasta(data_path(name)).seqs),
+            "alignment": None}
+
+
+def check_alignment(name: str, alignment, gold: dict, want_identical: bool):
+    """Degapped rows equal to the inputs; byte-identity with the golden
+    alignment where there is one (None where there is none)."""
+    want_rows = gold.get("seqs") or [r.replace("-", "") for r in gold["alignment"]]
+    if [r.replace("-", "") for r in alignment] != want_rows:
+        fail(f"{name}: degapped alignment rows differ from the inputs")
+    identical = None if gold["alignment"] is None else alignment == gold["alignment"]
+    if want_identical and not identical:
+        fail(f"{name}: alignment differs from the golden")
+    return identical
+
+
 def main_path(name: str, path: str, gold: dict, want_identical: bool,
-              triples: str) -> dict:
+              triples: str, want_layout: str = "sig") -> dict:
     """One run of the CLI entry; ``triples`` "auto" runs it with its
     defaults (no --triples), "off" pins the pairwise heuristic."""
     from mpi_pastar_msa_tpu_torch import _kernels
@@ -412,15 +449,12 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
         fail(f"{name}: g={res.g}, want {gold['optimal_g']}")
     if "Final Score:" not in out.getvalue():
         fail(f"{name}: no Final Score line")
-    want_rows = [r.replace("-", "") for r in gold["alignment"]]
-    if [r.replace("-", "") for r in rep.alignment] != want_rows:
-        fail(f"{name}: degapped alignment rows differ from the inputs")
     # FrontierSearch._finish ran attach_path_g(goal_g=g): the recomputed
     # path cost equals g, or the run would have raised
-    identical = rep.alignment == gold["alignment"]
-    if want_identical and not identical:
-        fail(f"{name}: alignment differs from the golden")
+    identical = check_alignment(name, rep.alignment, gold, want_identical)
     eng = rep.engine
+    if eng.layout != want_layout:
+        fail(f"{name}: table layout {eng.layout}, want {want_layout}")
     cubes = len(getattr(eng.heuristic, "triangles", None) or [])
     if triples == "auto" and cubes == 0:
         fail(f"{name}: --triples auto built no cube")
@@ -429,8 +463,8 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
     for k in path_kernels:
         if counts[k] <= 0:
             fail(f"{name}: kernel {k} was not launched on the main path")
-    info = dict(triples=triples, cubes=cubes, g=res.g, identical=identical,
-                expanded=res.nodes_expanded,
+    info = dict(triples=triples, layout=eng.layout, cubes=cubes, g=res.g,
+                identical=identical, expanded=res.nodes_expanded,
                 reopened=res.nodes_reopened, steps=res.steps,
                 capacity=eng.st.C, batch=eng.st.B, fill_target=eng.fill_target,
                 regrown=eng.regrown,
@@ -438,11 +472,12 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
                 launches=counts, upper_bound_s=eng.ub_wall, cubes_s=eng.cubes_wall,
                 engine_walls=eng.last_phase_walls, peak_device_bytes=peak,
                 acct=eng.last_acct)
-    print(f"{name} --triples {triples}: {cubes} cubes; g={res.g} ok, path cost == g, "
-          f"alignment byte-identical to golden: {identical}; Phase 1/2/3 = "
-          f"{rep.walls['phase1']:.3f} / {rep.walls['phase2']:.3f} / "
-          f"{rep.walls['phase3']:.3f} s (cube build {eng.cubes_wall:.3f} s and host "
-          f"upper-bound beam {eng.ub_wall:.3f} s of Phase 2); expanded "
+    print(f"{name} --triples {triples}: layout {eng.layout}, {cubes} cubes; g={res.g} "
+          f"ok, path cost == g, alignment byte-identical to golden: {identical}; "
+          f"Phase 1/2/3 = {rep.walls['phase1']:.3f} / {rep.walls['phase2']:.3f} / "
+          f"{rep.walls['phase3']:.3f} s (cube build {eng.cubes_wall:.3f} s, host "
+          f"upper-bound beam {eng.ub_wall:.3f} s and path walk "
+          f"{eng.last_phase_walls['walk']:.3f} s of Phase 2); expanded "
           f"{res.nodes_expanded}, reopened {res.nodes_reopened}, steps {res.steps}, "
           f"{info['nodes_per_s']:.0f} nodes/s, capacity {eng.st.C} "
           f"(regrown: {eng.regrown}), batch {eng.st.B}, fill target "
@@ -451,11 +486,75 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
     return info
 
 
-def profile_kinase(path: str, triples: str, warm_steps: int, steps: int) -> dict:
-    """Where a mid-search kinase step spends its time under ``triples``: run
-    the engine to ``warm_steps``, then trace ``steps`` more with
-    torch.profiler.  Prints the device time by kernel and the device's busy
-    share of the window."""
+def pinned_layout(name: str, path: str, gold: dict, layout: str,
+                  want_identical: bool) -> dict:
+    """One run of the engine entry (as --profile drives it) with the table
+    layout pinned, under --triples auto, then build_alignment."""
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+    from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
+
+    p = problem_from_fasta(path)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
+                         layout=layout)
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if eng.layout != layout:
+        fail(f"{name}: pinned {layout}, ran {eng.layout}")
+    if res.g != gold["optimal_g"]:
+        fail(f"{name} layout {layout}: g={res.g}, want {gold['optimal_g']}")
+    # attach_path_g(goal_g=g) in _finish: the path cost equals g
+    identical = check_alignment(f"{name} layout {layout}",
+                                build_alignment(p, res.closed), gold, want_identical)
+    info = dict(layout=layout, g=res.g, identical=identical,
+                expanded=res.nodes_expanded, reopened=res.nodes_reopened,
+                steps=res.steps, capacity=eng.st.C, batch=eng.st.B,
+                regrown=eng.regrown, wall_s=wall, upper_bound_s=eng.ub_wall,
+                engine_walls=eng.last_phase_walls, peak_device_bytes=peak,
+                acct=eng.last_acct)
+    print(f"{name} layout {layout} (pinned, --triples auto): g={res.g} ok, path "
+          f"cost == g, alignment byte-identical to golden: {identical}; wall "
+          f"{wall:.3f} s (upper-bound beam {eng.ub_wall:.3f} s, walk "
+          f"{eng.last_phase_walls['walk']:.3f} s); expanded {res.nodes_expanded}, "
+          f"reopened {res.nodes_reopened}, steps {res.steps}, capacity {eng.st.C} "
+          f"(regrown: {eng.regrown}), batch {eng.st.B}; peak device memory "
+          f"{peak / 2**20:.1f} MiB")
+    return info
+
+
+def degenerate_input() -> dict:
+    """Non-positive Altschul weights: no finite upper bound, so the engine
+    must warn, take the unpacked layout and complete."""
+    from mpi_pastar_msa_tpu_torch.core.problem import Problem
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
+
+    p = Problem(("WYWY", "WYY", "YWW"))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng = FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
+                             batch=16, capacity=1 << 12)
+        res = eng.run()
+    if not any("optimality is undefined" in str(w.message) for w in caught):
+        fail("degenerate input: no warning")
+    if eng.layout != "unpacked" or not res.closed:
+        fail(f"degenerate input: layout {eng.layout}, {len(res.closed)} path nodes")
+    print(f"degenerate input (WYWY, WYY, YWW): warned, layout {eng.layout}, "
+          f"completed with g={res.g} after {res.nodes_expanded} expansions")
+    return dict(layout=eng.layout, g=res.g, expanded=res.nodes_expanded)
+
+
+def profile_search(name: str, path: str, triples: str, warm_steps: int,
+                   steps: int) -> dict:
+    """Where a mid-search step spends its time under ``triples`` (in the
+    layout ``auto`` picks): run the engine to ``warm_steps``, then trace
+    ``steps`` more with torch.profiler.  Prints the device time by kernel
+    and the device's busy share of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
@@ -467,26 +566,29 @@ def profile_kinase(path: str, triples: str, warm_steps: int, steps: int) -> dict
                            triples=triples)
     tab = eng._init_table()
     ctr = torch.as_tensor(E.fresh_counters(), device="cuda")
-    ctr = E._run_chunk(eng.st, tab, ctr, warm_steps, eng.ub, eng.fill_target)
+    ctr = E._run_chunk(eng.st, tab, ctr, warm_steps, eng.ub, eng.fill_target,
+                         eng.layout)
     s0 = ctr.tolist()[2]
     t0 = time.perf_counter()
-    ctr = E._run_chunk(eng.st, tab, ctr, steps, eng.ub, eng.fill_target)
+    ctr = E._run_chunk(eng.st, tab, ctr, steps, eng.ub, eng.fill_target, eng.layout)
     before = ctr.tolist()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3 / (before[2] - s0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ctr = E._run_chunk(eng.st, tab, ctr, steps, eng.ub, eng.fill_target)
+        ctr = E._run_chunk(eng.st, tab, ctr, steps, eng.ub, eng.fill_target, eng.layout)
         after = ctr.tolist()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = after[2] - before[2]
     events = [e for e in prof.key_averages() if e.device_time_total > 0]
-    # aten:: ops report their kernels' device time again: busy time sums
-    # the kernels (and memcpy/memset) alone
+    # aten:: ops report their kernels' device time again, and host runtime
+    # calls (cudaLaunchKernel, ...) can carry a device time of their own:
+    # busy time and launches count the kernels (and memcpy/memset) alone
     kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
-                   if not e.key.startswith("aten::")), key=lambda r: -r[1])
+                   if not e.key.startswith(("aten::", "cuda"))), key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kern)
-    print(f"profile kinase --triples {triples}: steps {s0}..{before[2]} unprofiled {plain_wall_ms:.3f} "
+    print(f"profile {name} --triples {triples} (layout {eng.layout}): steps {s0}..{before[2]} "
+          f"unprofiled {plain_wall_ms:.3f} "
           f"ms/step; steps {before[2]}..{after[2]} profiled: wall {wall * 1e3 / n:.3f} "
           f"ms/step, device busy {busy_ms / n:.3f} ms/step "
           f"({100 * busy_ms / (wall * 1e3):.1f}% of wall; idle "
@@ -495,7 +597,7 @@ def profile_kinase(path: str, triples: str, warm_steps: int, steps: int) -> dict
         print(f"  {ms / n:8.4f} ms/step  {cnt / n:7.1f} launches/step  {key[:90]}")
     ops = sorted(((e.key, e.device_time_total / 1e3) for e in events
                   if e.key.startswith("aten::")), key=lambda r: -r[1])
-    return dict(steps=n, unprofiled_wall_ms_per_step=plain_wall_ms,
+    return dict(layout=eng.layout, steps=n, unprofiled_wall_ms_per_step=plain_wall_ms,
                 wall_ms_per_step=wall * 1e3 / n,
                 busy_ms_per_step=busy_ms / n,
                 kernels=[dict(name=k, ms_per_step=ms / n, launches_per_step=c / n)
@@ -525,9 +627,11 @@ def main() -> int:
                          "with this one (repeatable)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace 32 mid-search kinase steps, under "
-                         "--triples auto and off, with torch.profiler (device "
-                         "time by kernel, idle share)")
+                         "--triples auto and off, and 32 globin6 steps (the "
+                         "packed layout) with torch.profiler (device time by "
+                         "kernel, idle share)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -581,10 +685,27 @@ def main() -> int:
             for triples in ("auto", "off"):
                 report[f"{name}_{triples}"] = main_path(
                     name, paths[name], gold[name], True, triples)
+        # 6. layouts beyond sig
+        for name, g in LAYOUT_INPUTS.items():
+            report[f"{name}_auto"] = main_path(name, data_path(name), data_gold(name, g),
+                                               False, "auto", want_layout="packed")
+        for layout in ("packed", "unpacked"):
+            report[f"kinase_{layout}"] = pinned_layout(
+                "kinase", paths["kinase.fasta"], gold["kinase.fasta"], layout, False)
+        for name in ("test.fasta", "test2.fasta", "PF08184.fasta"):
+            for layout in ("packed", "unpacked"):
+                report[f"{name}_{layout}"] = pinned_layout(
+                    name, paths[name], gold[name], layout, True)
+        report["degenerate"] = degenerate_input()
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
-            report["profile"] = profile_kinase(paths["kinase.fasta"], "auto", 150, 32)
-            report["profile_off"] = profile_kinase(paths["kinase.fasta"], "off", 400, 32)
+            report["profile"] = profile_search("kinase", paths["kinase.fasta"],
+                                               "auto", 150, 32)
+            report["profile_off"] = profile_search("kinase", paths["kinase.fasta"],
+                                                   "off", 400, 32)
+            # the packed layout: globin6 takes about 150 steps
+            report["profile_globin6"] = profile_search(
+                "globin6", data_path("globin6"), "auto", 60, 32)
 
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
@@ -610,6 +731,7 @@ def main() -> int:
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,
     }]
+    print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
-"""Batched-frontier A* engine, bucketed sig layout, pairwise heuristic plus
-the triple cubes.
+"""Batched-frontier A* engine with the JAX engine's three table layouts,
+pairwise heuristic plus the triple cubes.
 
-Port of the JAX package's ``search/engine.py`` sig path.  With
-``triples="auto"`` (the default) it builds the triangle suffix cubes of
+Port of the JAX package's ``search/engine.py``.  With ``triples="auto"``
+(the default) it builds the triangle suffix cubes of
 ``heuristic/triples.py`` whenever they apply and adds them to h.  Every
 super-step
 
@@ -11,9 +11,23 @@ super-step
   2. expands all 2^N-1 successor move-masks of every selected state (edge
      costs and the HPair heuristic as int32 broadcasts and gathers summed
      over the pairs, plus one 8-corner gather per triangle cube, exact),
-  3. inserts all successors into the 8-way bucketed sig table with
-     decrease-key / reopen semantics (one scatter-min on the packed word
-     ``((f - f0) << n) | parent_mask``).
+  3. inserts all successors into the table with decrease-key / reopen
+     semantics.
+
+The table has one of three layouts (``FrontierSearch(layout=...)``, the
+JAX semantics; ``auto`` takes the first that is eligible):
+
+  sig       C/8 buckets x 8 ways of one exact signature word per key, plus
+            ``t_best``/``t_closed``; needs a finite upper bound whose f
+            spread fits the packed word and sig_bits <= log2(C) + 22
+            (``_Static.sig_ok``).  One scatter-min on the packed word
+            ``((f - f0) << n) | parent_mask`` places a candidate.
+  packed    key rows ``[W key words, h]`` (two 16-bit coordinates a word)
+            probed triangularly from a hash, plus ``t_best``/``t_closed``
+            as sig; needs the same upper bound.
+  unpacked  key rows ``[W key words]`` plus g, (f, parent) and a state per
+            slot: decrease-key on g, pathmax on f.  Always eligible; the
+            only layout for an infinite upper bound (degenerate weights).
 
 Optimality does not require strict best-first order: reopening (keep-min)
 plus the termination bound ``min_f(open) >= g(goal)`` guarantee the returned
@@ -27,22 +41,22 @@ pair p = (x, y) with advance bits bx, by and parent-mask bit p_s,
 so ``cost[b, m] = c0 + c1[m] + sum_p both[m, p] w_p (mm[b, p] + GG - 2E)
 + (O-E) sum_s cmat[m, s] pbit[b, s]``.
 
-Hash and sig quantities are carried in int64 masked to 32 bits (torch has
-thin uint32 support and ``>>`` on int32 is arithmetic).  Sig words fit in 31
-bits (``sig_ok``), so the table stores them as int32 with -1 (the bit
-pattern of the JAX layout's 0xFFFFFFFF) as the empty mark.  The table
-tensors carry a trailing trash region of ``TRASH`` slots: masked-out lanes
-of a scatter are sent there (spread by lane, so they do not all contend for
-one address) instead of being dropped, which keeps every scatter free of
-host synchronisation; nothing ever reads the trash.  The tables are updated
-in place (they are the engine's largest tensors: 3 x 4 B x C).
+Hash, key and sig quantities are carried in int64 masked to 32 bits (torch
+has thin uint32 support and ``>>`` on int32 is arithmetic).  The tables
+store u32 words as int32 bit patterns with -1 (the bit pattern of the JAX
+layouts' 0xFFFFFFFF) as the empty mark.  The table tensors carry a trailing
+trash region of ``TRASH`` slots: masked-out lanes of a scatter are sent
+there (spread by lane, so they do not all contend for one address) instead
+of being dropped, which keeps every scatter free of host synchronisation;
+nothing ever reads the trash.  The tables are updated in place (they are
+the engine's largest tensors).
 """
 from __future__ import annotations
 
 import time
 import warnings
 from dataclasses import dataclass, replace
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,10 +71,12 @@ from .bounds import greedy_upper_bound
 
 INF = 2**30
 INFP = 0x7FFFFFFF  # empty/infinite packed (f, par) word
-_EMPTY_WORD = -1   # empty sig way: the int32 bit pattern of 0xFFFFFFFF
+_EMPTY_WORD = -1   # empty way / key row: the int32 bit pattern of 0xFFFFFFFF
 _M32 = 0xFFFFFFFF
+_I64_MAX = 2**63 - 1
 TRASH = 4096  # trash slots after each table tensor (see the module doc)
 MAX_STEPS = 1_000_000  # a search that needs more steps raises
+LAYOUTS = ("auto", "sig", "packed", "unpacked")
 
 #: Counters vector (int64, one host read per chunk), slot for slot the JAX
 #: engine's legend:
@@ -73,7 +89,8 @@ MAX_STEPS = 1_000_000  # a search that needs more steps raises
 #: [12] lanes_unmatched (candidates NOT settled by the round-0 row lookup)
 #: [13] lanes_tail (still unsettled after the first two probe calls)
 #: The port compacts each step to its active rows and valid candidates, so
-#: [8] counts expanded rows and [10] equals [9].
+#: [8] counts expanded rows and [10] equals [9].  On the packed and unpacked
+#: layouts round 0 is the first claim round of ``_probe_claim``.
 N_COUNTERS = 14
 
 
@@ -113,9 +130,42 @@ class SigTable:
     t_closed: torch.Tensor
 
 
+@dataclass
+class PackedTable:
+    """The packed table (JAX ``_init_table_packed``); TRASH trash rows.
+
+    t_key    (C + TRASH, W+1) int32  [key words..., h] (-1 = empty), written
+                                     once, by the probe round that claims it
+    t_best, t_closed                 as in SigTable
+    claim    (C + TRASH,) int32      claim tags of the probe rounds (see
+                                     ``_probe_claim``)
+    """
+    t_key: torch.Tensor
+    t_best: torch.Tensor
+    t_closed: torch.Tensor
+    claim: torch.Tensor
+
+
+@dataclass
+class UnpackedTable:
+    """The unpacked table (JAX ``_init_table_unpacked``); TRASH trash rows.
+
+    t_key    (C + TRASH, W) int32  key words (-1 = empty)
+    t_g      (C + TRASH,) int32    best g (INF = none yet)
+    t_fpar   (C + TRASH,) int64    f * 2^n + parent mask of the best-g
+                                   writer (the JAX t_f and t_par in one word)
+    t_state  (C + TRASH,) int32    0 empty, 1 open, 2 closed
+    claim    (C + TRASH,) int32    claim tags of the probe rounds
+    """
+    t_key: torch.Tensor
+    t_g: torch.Tensor
+    t_fpar: torch.Tensor
+    t_state: torch.Tensor
+    claim: torch.Tensor
+
+
 class _Static:
-    """Per-problem constants, on the engine's device (the JAX ``_Static`` of
-    the sig layout)."""
+    """Per-problem constants, on the engine's device (the JAX ``_Static``)."""
 
     def __init__(self, problem: Problem, heuristic: HPairHeuristic,
                  batch: int, capacity: int, device, f0: Optional[int] = None):
@@ -124,6 +174,8 @@ class _Static:
         n = problem.n_seq
         self.n = n
         self.M = (1 << n) - 1
+        self.W = (n + 1) // 2  # key words: two 16-bit coordinates a word
+        self.KW = self.W + 1   # packed key row: the key words and h
         self.pairs = problem.pairs()
         P = len(self.pairs)
         self.P = P
@@ -133,11 +185,9 @@ class _Static:
         self.S = self.lmax + 2  # table stride with +1 margin for cx+1 gathers
 
         w_int = heuristic.pair_weights_i().astype(np.int64)  # (P,)
-        bits = np.zeros((self.M, n), dtype=np.int64)
-        for m in range(1, self.M + 1):
-            for i in range(n):
-                bits[m - 1, i] = (m >> i) & 1
-        xs = np.array([x for x, _ in self.pairs])
+        # row m-1 = the bits of move mask m
+        bits = (np.arange(1, self.M + 1)[:, None] >> np.arange(n)) & 1
+        xs =np.array([x for x, _ in self.pairs])
         ys = np.array([y for _, y in self.pairs])
         bx = bits[:, xs]  # (M, P)
         by = bits[:, ys]
@@ -147,9 +197,10 @@ class _Static:
         # parent-mask cross matrix: cmat[m, s] = sum_p w_p (bx !by [y_p==s]
         # + !bx by [x_p==s])
         cmat = np.zeros((self.M, n), dtype=np.int64)
+        a_y, a_x = bx * (1 - by), (1 - bx) * by
         for p, (x, y) in enumerate(self.pairs):
-            cmat[:, y] += w_int[p] * (bx * (1 - by))[:, p]
-            cmat[:, x] += w_int[p] * ((1 - bx) * by)[:, p]
+            cmat[:, y] += w_int[p] * a_y[:, p]
+            cmat[:, x] += w_int[p] * a_x[:, p]
         self.gap_oe = O - E  # 0 with reference defaults
 
         def t(a):
@@ -217,6 +268,7 @@ class _Static:
             self.d_w_h = t(heuristic.pair_weights_h_i().astype(np.int64))
 
         self.root_parent_mask = problem.root_parent_mask
+        self.max_probes = 128  # probe rounds (packed/unpacked) or calls (sig)
         # sig layout: the bucket index carries the low key bits and ONE word
         # (khi << 6 | bucket probe round) identifies the key exactly
         self.cbits = self.C.bit_length() - 1
@@ -224,7 +276,6 @@ class _Static:
         self.nbuck = self.C // self.ways
         self.bbits = self.cbits - 3
         self.max_bprobes = 64  # 6-bit r field -> 64 bucket probes
-        self.max_probes = 128  # cap on probe calls per insert
         # way spreading: a writer takes the (mix32(word) mod n_empty)-th
         # empty way of its bucket row; for an 8-bit empty mask e these
         # tables give popcount(e) and the position of its k-th set bit
@@ -253,6 +304,41 @@ def _rebase_origin(heuristic, n: int) -> int:
     base = getattr(heuristic, "base", heuristic)
     scale = getattr(heuristic, "cost_scale", 1)
     return int(base.calculate_h(np.zeros(n, dtype=np.int32))) * scale
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 lanes holding u32 -> the int32 bit patterns the tables store."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _pack_keys(coords: torch.Tensor, W: int) -> torch.Tensor:
+    """(..., N) coords -> (..., W) int64 u32 key words, 2 coords a word."""
+    n = coords.shape[-1]
+    c = coords.long()
+    if 2 * W > n:
+        c = torch.cat([c, c.new_zeros(c.shape[:-1] + (2 * W - n,))], dim=-1)
+    return (c[..., 0::2] | (c[..., 1::2] << 16)) & _M32
+
+
+def _unpack_keys(st: "_Static", words: torch.Tensor) -> torch.Tensor:
+    """Invert _pack_keys: (X, >= W) int32 key rows -> (X, N) int64 coords."""
+    w = words.long() & _M32
+    return torch.stack([(w[:, i // 2] >> (16 * (i % 2))) & 0xFFFF
+                        for i in range(st.n)], dim=-1)
+
+
+def _hash_keys(keys: torch.Tensor) -> torch.Tensor:
+    """FNV-1a over the W words + murmur3 finalizer -> int64 u32 hash."""
+    h = torch.full(keys.shape[:-1], 2166136261, dtype=torch.int64,
+                   device=keys.device)
+    for w in range(keys.shape[-1]):
+        h = _mul32(h ^ keys[..., w], 16777619)
+    return _mix32(h)
+
+
+def _probe_slot(h0: torch.Tensor, r, Cmask: int) -> torch.Tensor:
+    """Triangular probing: h0 + r(r+1)/2 visits every slot of a 2^k table."""
+    return (h0 + ((r * (r + 1)) >> 1)) & Cmask
 
 
 # invertible odd multiplier (golden ratio) + its inverse mod 2^32; masking to
@@ -337,23 +423,20 @@ def _sig_decode(st: _Static, slots: torch.Tensor, sig: torch.Tensor):
     return torch.stack(out, dim=-1)
 
 
-def _select_sig(st: _Static, tab: SigTable, goal_g, thr):
-    """Grouped-argmin batch selection; closes the selected slots in place.
+def _select_best(st: _Static, t_best, t_closed, goal_g, thr):
+    """Grouped-argmin selection over the packed words of the sig and packed
+    layouts; closes the selected slots in place.
 
     The table is viewed as B groups of C/B slots; each group offers its
     argmin open packed word (first index on ties), the global f-min is the
     min of the group mins, and a group's pick is taken when its f is within
-    ``fmin + thr``.  Coordinates come from inverting the sig encoding.
-
-    Returns (coords, f, par, active, fmin, n_open, n_selected, reopen_ct):
-    f (not g) in the g position — the layout stores no h, so _expand
-    recovers g as f - h(parent)."""
+    ``fmin + thr``.  Returns (slots, vmin, active, fmin, n_open, n_selected,
+    reopen_ct): a selected slot that was closed before is a reopen."""
     C, B, nb = st.C, st.B, st.nb
     G = C // B
-    t_best = tab.t_best[:C]
-    t_closed = tab.t_closed[:C]
-    is_open = (t_best < t_closed) & ((t_best >> nb) < goal_g - st.f0)
-    v_open = torch.where(is_open, t_best, INFP)
+    best, closed = t_best[:C], t_closed[:C]
+    is_open = (best < closed) & ((best >> nb) < goal_g - st.f0)
+    v_open = torch.where(is_open, best, INFP)
     n_open = is_open.sum()
     v = v_open.view(B, G)
     j = torch.argmin(v, dim=1)
@@ -364,13 +447,69 @@ def _select_sig(st: _Static, tab: SigTable, goal_g, thr):
     active = vmin <= cut  # empty groups hold INFP > cut
     vmin = torch.where(active, vmin, INFP)
     n_selected = active.sum()
-    coords = _sig_decode(st, slots, tab.t_sig[slots])
     fmin = fmin_r.long() + st.f0
-    f_sel = (vmin.long() >> nb) + st.f0
-    par = vmin.long() & ((1 << nb) - 1)
-    reopen_ct = (active & (t_closed[slots] < INFP)).sum()
-    tab.t_closed[torch.where(active, slots, C)] = vmin
-    return coords, f_sel, par, active, fmin, n_open, n_selected, reopen_ct
+    reopen_ct = (active & (closed[slots] < INFP)).sum()
+    t_closed[torch.where(active, slots, C)] = vmin  # C: the first trash slot
+    return slots, vmin.long(), active, fmin, n_open, n_selected, reopen_ct
+
+
+def _select_sig(st: _Static, tab: SigTable, goal_g, thr):
+    """Batch selection, sig layout: coordinates come from inverting the sig
+    encoding.
+
+    Returns (coords, f, par, f_par, active, fmin, n_open, n_selected,
+    reopen_ct): f (not g) in the g position — the layout stores no h, so
+    _expand recovers g as f - h(parent) (``g_is_f``); f_par is None (no
+    pathmax)."""
+    slots, vmin, active, fmin, n_open, n_sel, reopen_ct = _select_best(
+        st, tab.t_best, tab.t_closed, goal_g, thr)
+    coords = _sig_decode(st, slots, tab.t_sig[slots])
+    f_sel = (vmin >> st.nb) + st.f0
+    par = vmin & ((1 << st.nb) - 1)
+    return coords, f_sel, par, None, active, fmin, n_open, n_sel, reopen_ct
+
+
+def _select_packed(st: _Static, tab: PackedTable, goal_g, thr):
+    """Batch selection, packed layout: coordinates from the key row, and
+    g = f - h with h read from the key row's last column.  Returns the
+    tuple of _select_sig with g in the g position."""
+    slots, vmin, active, fmin, n_open, n_sel, reopen_ct = _select_best(
+        st, tab.t_best, tab.t_closed, goal_g, thr)
+    rows = tab.t_key[slots]
+    coords = _unpack_keys(st, rows)
+    g = (vmin >> st.nb) + st.f0 - rows[:, st.W].long()
+    par = vmin & ((1 << st.nb) - 1)
+    return coords, g, par, None, active, fmin, n_open, n_sel, reopen_ct
+
+
+def _select(st: _Static, tab: UnpackedTable, goal_g, thr):
+    """Batch selection, unpacked layout (JAX ``_select``): a slot is open
+    when its state is 1 and its f is below goal_g; each of the B groups
+    offers its argmin f within ``f <= fmin + thr`` (first index on ties).
+    Selected slots get state 2.  Returns the tuple of _select_sig with g
+    from t_g, the parent mask and f_par (the parent's f, for pathmax) from
+    t_fpar, and a zero reopen count (this layout counts reopens in the
+    insert)."""
+    C, B, nb = st.C, st.B, st.nb
+    G = C // B
+    fpar = tab.t_fpar[:C]
+    t_f = fpar >> nb
+    is_open = (tab.t_state[:C] == 1) & (t_f < goal_g)
+    f_open = torch.where(is_open, t_f, INF)
+    fmin = f_open.min()
+    n_open = is_open.sum()
+    v = torch.where(f_open <= fmin + thr, f_open, INF).view(B, G)
+    j = torch.argmin(v, dim=1)
+    vmin = v.gather(1, j[:, None])[:, 0]
+    slots = torch.arange(B, device=st.device) * G + j
+    active = vmin < INF
+    n_selected = active.sum()
+    coords = _unpack_keys(st, tab.t_key[slots])
+    g = tab.t_g[slots].long()
+    fp = fpar[slots]
+    tab.t_state[torch.where(active, slots, C)] = 2
+    return (coords, g, fp & ((1 << nb) - 1), fp >> nb, active, fmin, n_open,
+            n_selected, torch.zeros_like(n_open))
 
 
 def _adapt_thr(thr, n_selected, B: int):
@@ -383,15 +522,19 @@ def _adapt_thr(thr, n_selected, B: int):
                        max=1 << 20)
 
 
-def _expand(st: _Static, coords, f, parenti, active):
+def _expand(st: _Static, coords, g, parenti, active, f_parent=None,
+            g_is_f=False):
     """Expand a batch: (B, N) coords -> all-mask successor candidates.
 
-    ``f`` is the parents' f (the sig table stores no g): g = f - h(parent),
-    where h(parent) is the k=0 cell of the T4 heuristic gather plus each
-    cube's own-coordinate corner (JAX: ``_expand(..., g_is_f=True)``).
+    With ``g_is_f`` the g argument is the parents' f (the sig table stores
+    no g): g = f - h(parent), where h(parent) is the k=0 cell of the T4
+    heuristic gather plus each cube's own-coordinate corner.  With
+    ``f_parent`` (the unpacked layout) each child's f is raised to at least
+    its parent's (pathmax).
 
     Returns flat (B*M,) int64 g, f, move mask, valid, is_goal and the
-    (B*M, N) child coordinates."""
+    (B*M, N) child coordinates; on valid lanes without pathmax, f - g is
+    the child's h."""
     B, n = coords.shape
     M, S = st.M, st.S
     coords = coords.long()
@@ -424,13 +567,34 @@ def _expand(st: _Static, coords, f, parenti, active):
         rows3 = st.d_cubes[at[:, :, None] + st.d_corner_off].long()  # (B, T, 8)
         h = h + rows3[:, st.d_tri_t, st.d_tri_corner].sum(1)
         h_par = h_par + rows3[:, :, 0].sum(1)
-    g = f.long() - h_par
+    g = g.long()
+    if g_is_f:
+        g = g - h_par
     g_child = g[:, None] + cost
     f_child = g_child + h
+    if f_parent is not None:
+        f_child = torch.maximum(f_child, f_parent.long()[:, None])
     mask_id = torch.arange(1, M + 1, device=st.device).expand(B, M)
     is_goal = (child == st.d_final).all(-1) & valid
     return (g_child.reshape(-1), f_child.reshape(-1), mask_id.reshape(-1),
             valid.reshape(-1), is_goal.reshape(-1), child.reshape(B * M, n))
+
+
+def _candidates_sig(st: _Static, child, g, f, mask):
+    """Insert arguments of the sig layout: (home, sig base, packed word)."""
+    home, sigb = _sig_encode(st, child)
+    return home, sigb, ((f - st.f0) << st.nb) | mask
+
+
+def _candidates_packed(st: _Static, child, g, f, mask):
+    """Insert arguments of the packed layout: (key words, h, packed word);
+    h = f - g, as this layout runs no pathmax."""
+    return (_pack_keys(child, st.W), f - g, ((f - st.f0) << st.nb) | mask)
+
+
+def _candidates_unpacked(st: _Static, child, g, f, mask):
+    """Insert arguments of the unpacked layout: (key words, g, f, mask)."""
+    return _pack_keys(child, st.W), g, f, mask
 
 
 def _insert_sig(st: _Static, tab: SigTable, home, sigb, packed):
@@ -445,9 +609,11 @@ def _insert_sig(st: _Static, tab: SigTable, home, sigb, packed):
     wins (scatter amin), so the result is the same on every device.  Every
     settled candidate then scatter-mins its packed word into t_best.
 
-    Returns (overflow, acct) with acct = [true lanes, round-0 width, probe
-    lane-rounds, round-0 unmatched, unsettled after two calls] (counter
-    slots 9-13; the first two are equal: only valid lanes arrive)."""
+    Returns (overflow, reopen_ct, acct) with reopen_ct 0 (the sig layout
+    counts reopens at selection) and acct = [true lanes, round-0 width,
+    probe lane-rounds, round-0 unmatched, unsettled after two calls]
+    (counter slots 9-13; the first two are equal: only valid lanes
+    arrive)."""
     dev = st.device
     C, NB, ways = st.C, st.nbuck, st.ways
     Bmask = NB - 1
@@ -494,13 +660,130 @@ def _insert_sig(st: _Static, tab: SigTable, home, sigb, packed):
                                packed.to(torch.int32), "amin")
     acct = torch.stack([torch.tensor(L, device=dev), torch.tensor(L, device=dev),
                         torch.tensor(calls * L, device=dev), un_ct, tail_ct])
-    return overflow, acct
+    return overflow, torch.zeros_like(overflow), acct
 
 
-def _expand_insert(st: _Static, tab: SigTable, coords, f, par, active,
-                   goal_g, ub: int):
+def _probe_claim(st: _Static, t_key, claim, keys, krow):
+    """Settle each candidate key at a slot of a key-row table, in place
+    (JAX ``_probe_body_factory`` / ``_probe_body_packed_factory``, run to
+    completion).
+
+    Round r probes slot ``_probe_slot(hash, r)`` of every unsettled lane:
+    a row holding the key settles it (match); at an empty row the lane
+    claims the slot (scatter-min of its tag) and the smallest tag wins and
+    writes ``krow`` there; a loser re-reads the row and settles if the
+    winner wrote the same key (match2); the rest go on to round r + 1, for
+    at most ``max_probes`` rounds.  Lanes of one key follow one probe
+    sequence in lock step, so a key is stored once.  Tags are lane indices:
+    they need only be unique within a round, because a claimed slot is
+    written in the same round and never claimed again — a claim word is
+    read only at a slot claimed this round, so no old tag can win (which
+    is why the JAX step_tag arithmetic and per-chunk claim reset are not
+    needed).  The smallest tag winning makes the layout of the table, and
+    so a run, the same on every device.
+
+    Returns (slot, done, acct): a settled lane's slot, an unsettled lane's
+    trash slot, and the counter slots 9-13 (see N_COUNTERS)."""
+    dev = st.device
+    C, W = st.C, st.W
+    L = keys.shape[0]
+    trash = C + torch.arange(L, device=dev) % TRASH
+    kw = _as_i32(keys)
+    h0 = _hash_keys(keys)
+    tag = torch.arange(L, dtype=torch.int32, device=dev)
+    slot_out = trash.clone()
+    done = torch.zeros(L, dtype=torch.bool, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    un_ct = tail_ct = zero
+    r = 0
+    while r < st.max_probes and not bool(done.all()):
+        slot = _probe_slot(h0, r, C - 1)
+        k_at = t_key[slot]
+        occ = k_at[:, 0] != _EMPTY_WORD
+        match = (k_at[:, :W] == kw).all(1) & occ & ~done
+        empty = ~occ & ~done
+        claim.scatter_reduce_(0, torch.where(empty, slot, trash), tag, "amin",
+                              include_self=False)
+        won = empty & (claim[slot] == tag)
+        t_key[torch.where(won, slot, trash)] = krow
+        match2 = (t_key[slot][:, :W] == kw).all(1) & ~done & ~won & ~match
+        settled = match | won | match2
+        slot_out = torch.where(settled, slot, slot_out)
+        done = done | settled
+        r += 1
+        if r == 1:
+            un_ct = (~done).sum()
+        elif r == 2:
+            tail_ct = (~done).sum()
+    acct = torch.stack([torch.tensor(L, device=dev), torch.tensor(L, device=dev),
+                        torch.tensor(max(r - 1, 0) * L, device=dev), un_ct,
+                        tail_ct])
+    return slot_out, done, acct
+
+
+def _insert_core_packed(st: _Static, tab: PackedTable, keys, h, packed):
+    """Insert candidates (all valid) into the packed table, in place: probe
+    (``_probe_claim``; a claim winner writes ``[key words, h]``), then one
+    scatter-min of the packed word into t_best.  Returns (overflow,
+    reopen_ct, acct) with reopen_ct 0 (this layout counts reopens at
+    selection)."""
+    krow = torch.cat([_as_i32(keys), h.to(torch.int32)[:, None]], dim=1)
+    slot, done, acct = _probe_claim(st, tab.t_key, tab.claim, keys, krow)
+    tab.t_best.scatter_reduce_(0, slot, packed.to(torch.int32), "amin")
+    overflow = (~done).sum()
+    return overflow, torch.zeros_like(overflow), acct
+
+
+def _insert_core(st: _Static, tab: UnpackedTable, keys, g, f, mask):
+    """Insert candidates (all valid) into the unpacked table, in place, with
+    decrease-key (JAX ``_insert_core``): probe (``_probe_claim``), then a
+    lane improves its slot when its g is below the slot's g before this
+    call (INF for a slot claimed now); g is scatter-min'd, and among the
+    writers that brought the new minimum the smallest f * 2^n + mask sets
+    (f, parent) (one int64 scatter-min; JAX keeps an unspecified one of
+    them).  Improved slots become open; one that was closed is a reopen.
+
+    Returns (overflow, reopen_ct, acct)."""
+    slot, done, acct = _probe_claim(st, tab.t_key, tab.claim, keys,
+                                    _as_i32(keys))
+    trash = st.C + torch.arange(slot.shape[0], device=st.device) % TRASH
+    g = g.to(torch.int32)
+    # a slot settled by a claim in this call holds g = INF and state 0, as
+    # it has since the table was made (slots are never freed), so no lane
+    # needs to know whether its own claim won
+    g_before = tab.t_g[slot]
+    state_before = tab.t_state[slot]
+    improve = done & (g < g_before)
+    si = torch.where(improve, slot, trash)
+    tab.t_g.scatter_reduce_(0, si, g, "amin")
+    win = improve & (g == tab.t_g[slot])
+    tab.t_fpar[si] = _I64_MAX  # an improved slot drops its old (f, parent)
+    tab.t_fpar.scatter_reduce_(0, torch.where(win, slot, trash),
+                               f.long() * (1 << st.nb) + mask, "amin")
+    tab.t_state[si] = 1
+    reopen_ct = (improve & (state_before == 2)).sum()
+    return (~done).sum(), reopen_ct, acct
+
+
+class _LayoutFns(NamedTuple):
+    """A layout's step functions (JAX ``_make_fns``): select (st, tab,
+    goal_g, thr) -> (coords, g, par, f_par, active, fmin, n_open,
+    n_selected, reopen_ct); candidates (st, child, g, f, mask) -> the
+    insert's arguments; insert (st, tab, *args) -> (overflow, reopen_ct,
+    acct); lookup (st, tab, coord) -> parent mask or None, for the walk;
+    g_is_f: select returns f in the g position."""
+    select: Callable
+    candidates: Callable
+    insert: Callable
+    lookup: Callable
+    g_is_f: bool
+
+
+def _expand_insert(st: _Static, fns: _LayoutFns, tab, coords, g, par, f_par,
+                   active, goal_g, ub: int):
     """Expand a selected batch and insert all successors.  Returns
-    (goal_g, overflow, acct) with acct = counter slots 8-13 of this step.
+    (goal_g, overflow, reopen_ct, acct) with acct = counter slots 8-13 of
+    this step.
 
     Only the active rows are expanded and only the valid candidates are
     inserted (one torch.nonzero each): the selection fills a fraction of
@@ -509,27 +792,28 @@ def _expand_insert(st: _Static, tab: SigTable, coords, f, par, active,
     dev = st.device
     sel = torch.nonzero(active)[:, 0]
     if sel.numel() == 0:  # no open state: the stop test ends the search
-        return goal_g, torch.zeros((), dtype=torch.int64, device=dev), \
-            torch.zeros(6, dtype=torch.int64, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return goal_g, zero, zero, torch.zeros(6, dtype=torch.int64, device=dev)
     g_c, f_c, mask_c, valid, is_goal, child = _expand(
-        st, coords[sel], f[sel], par[sel], torch.ones_like(sel, dtype=torch.bool))
+        st, coords[sel], g[sel], par[sel], torch.ones_like(sel, dtype=torch.bool),
+        f_parent=None if f_par is None else f_par[sel], g_is_f=fns.g_is_f)
     valid = valid & (f_c <= ub)  # admissible UB pruning
     goal_g = torch.minimum(goal_g, torch.where(is_goal, g_c, INF).min())
     keep = torch.nonzero(valid)[:, 0]
-    home, sigb = _sig_encode(st, child[keep])
-    packed = ((f_c[keep] - st.f0) << st.nb) | mask_c[keep]
-    overflow, iacct = _insert_sig(st, tab, home, sigb, packed)
+    overflow, reopen_ct, iacct = fns.insert(st, tab, *fns.candidates(
+        st, child[keep], g_c[keep], f_c[keep], mask_c[keep]))
     acct = torch.cat([torch.tensor([sel.numel()], device=dev), iacct])
-    return goal_g, overflow, acct
+    return goal_g, overflow, reopen_ct, acct
 
 
-def _run_chunk(st: _Static, tab: SigTable, counters: torch.Tensor,
-               chunk_steps: int, ub: int, fill: int) -> torch.Tensor:
-    """Up to ``chunk_steps`` super-steps (select -> expand -> insert), as
-    the JAX chunked run loop (a while_loop): stop when fmin >= goal_g, after
-    chunk_steps, or on overflow.  The stop test reads three scalars per
-    step (the insert's probe loop synchronises each call anyway); the
-    caller reads the whole counters vector once per chunk."""
+def _run_chunk(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
+               ub: int, fill: int, layout: str) -> torch.Tensor:
+    """Up to ``chunk_steps`` super-steps (select -> expand -> insert) of the
+    table ``layout``, as the JAX chunked run loops (a while_loop): stop when
+    fmin >= goal_g, after chunk_steps, or on overflow.  The stop test reads
+    three scalars per step (the insert's probe loop synchronises each round
+    anyway); the caller reads the whole counters vector once per chunk."""
+    fns = _LAYOUT_FNS[layout]
     goal_g, steps, expanded, reopen, n_open, overflow, thr = (
         counters[0], counters[2], counters[3], counters[4], counters[5],
         counters[6], counters[7])
@@ -540,14 +824,14 @@ def _run_chunk(st: _Static, tab: SigTable, counters: torch.Tensor,
         fm, gg, ov = torch.stack([fmin, goal_g, overflow]).tolist()
         if not (fm < gg and ov == 0):
             break
-        coords, f_sel, par, active, fmin, n_open, n_sel, reopen_ct = (
-            _select_sig(st, tab, goal_g, thr))
-        goal_g, ovf, sacct = _expand_insert(st, tab, coords, f_sel, par,
-                                            active, goal_g, ub)
+        (coords, g, par, f_par, active, fmin, n_open, n_sel,
+         sel_reopen) = fns.select(st, tab, goal_g, thr)
+        goal_g, ovf, ins_reopen, sacct = _expand_insert(
+            st, fns, tab, coords, g, par, f_par, active, goal_g, ub)
         thr = _adapt_thr(thr, n_sel, fill)
         steps = steps + 1
         expanded = expanded + active.sum()
-        reopen = reopen + reopen_ct
+        reopen = reopen + sel_reopen + ins_reopen
         overflow = overflow + ovf
         acct = acct + sacct
         local += 1
@@ -555,34 +839,89 @@ def _run_chunk(st: _Static, tab: SigTable, counters: torch.Tensor,
                                    n_open, overflow, thr]), acct])
 
 
-def _walk_sig(st: _Static, tab: SigTable) -> Tuple[np.ndarray, np.ndarray]:
-    """Path walk goal -> origin over the sig table, on the host after one
-    copy of t_sig and t_best.  Returns (parent masks, final coordinate)."""
-    t_sig = tab.t_sig[: st.nbuck * st.ways].cpu()
-    t_best = tab.t_best[: st.C].cpu()
-    ways, Bmask = st.ways, st.nbuck - 1
-    parmask = (1 << st.nb) - 1
+def _lookup_sig(st: _Static, tab: SigTable, coord):
+    """Parent mask of a stored coordinate, or None (JAX
+    ``_make_backtrace_sig``): the 64 bucket rows of its probe walk and
+    their t_best words in one gather."""
+    home, sigb = _sig_encode(st, coord[None, :])
     rs = torch.arange(st.max_bprobes)
+    idx = ((((home[0] + rs) & (st.nbuck - 1)) * st.ways)[:, None]
+           + torch.arange(st.ways)).reshape(-1).to(st.device)
+    rows = torch.stack([tab.t_sig[idx], tab.t_best[idx]]).cpu()
+    hits = rows[0] == (sigb[0] | rs).repeat_interleave(st.ways)
+    return _parent_of(st, hits, rows[1])
+
+
+def _lookup_keyrow(st: _Static, t_key, t_word, coord):
+    """Parent mask of a stored coordinate in a key-row table, or None:
+    the key rows at all max_probes probe positions and their t_word
+    (t_best or t_fpar) in one gather."""
+    key = _pack_keys(coord[None, :], st.W)
+    idx = _probe_slot(_hash_keys(key)[0], torch.arange(st.max_probes),
+                      st.C - 1).to(st.device)
+    rows = torch.cat([t_key[idx, : st.W].long(), t_word[idx, None].long()],
+                     dim=1).cpu()
+    hits = ((rows[:, : st.W] == _as_i32(key).long()).all(1)
+            & (rows[:, 0] != _EMPTY_WORD))
+    return _parent_of(st, hits, rows[:, st.W])
+
+
+def _parent_of(st: _Static, hits, words):
+    """The parent mask in the word of the first hit, or None."""
+    if not bool(hits.any()):
+        return None
+    return int(words[int(torch.argmax(hits.to(torch.uint8)))]) & ((1 << st.nb) - 1)
+
+
+def _lookup_packed(st: _Static, tab: PackedTable, coord):
+    """(JAX ``_make_backtrace_packed``): the parent mask from t_best."""
+    return _lookup_keyrow(st, tab.t_key, tab.t_best, coord)
+
+
+def _lookup_unpacked(st: _Static, tab: UnpackedTable, coord):
+    """(JAX ``_make_backtrace``): the parent mask from t_fpar."""
+    return _lookup_keyrow(st, tab.t_key, tab.t_fpar, coord)
+
+
+_LAYOUT_FNS = {
+    "sig": _LayoutFns(_select_sig, _candidates_sig, _insert_sig, _lookup_sig,
+                      True),
+    "packed": _LayoutFns(_select_packed, _candidates_packed,
+                         _insert_core_packed, _lookup_packed, False),
+    "unpacked": _LayoutFns(_select, _candidates_unpacked, _insert_core,
+                           _lookup_unpacked, False),
+}
+
+
+def _walk(st: _Static, tab, layout: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Path walk goal -> origin: a node's parent mask moves it to its
+    parent, until the origin or a node that is not stored.  The host
+    computes each node's probe positions and reads back only the rows at
+    them, gathered on the table's device (never the whole table).  Returns
+    (parent masks, last coordinate)."""
+    lookup = _LAYOUT_FNS[layout].lookup
     coord = torch.as_tensor(st.final_np)
     masks = []
     for _ in range(int(st.final_np.sum())):
         if not bool(coord.any()):
             break
-        home, sigb = _sig_encode(st, coord[None, :])
-        bucks = (home[0] + rs) & Bmask  # (R,)
-        rows = t_sig[(bucks * ways)[:, None] + torch.arange(ways)]
-        hits = (rows == (sigb[0] | rs)[:, None]).reshape(-1)
-        if not bool(hits.any()):
+        par = lookup(st, tab, coord)
+        if par is None:
             break
-        flat = int(torch.argmax(hits.to(torch.uint8)))
-        par = int(t_best[int(bucks[flat // ways]) * ways + flat % ways]) & parmask
         masks.append(par)
         coord = coord - torch.tensor([(par >> i) & 1 for i in range(st.n)])
     return np.array(masks, dtype=np.int64), coord.numpy()
 
 
 class FrontierSearch:
-    """Single-device frontier A* (JAX: ``TpuFrontierSearch``), sig layout.
+    """Single-device frontier A* (JAX: ``TpuFrontierSearch``).
+
+    ``layout``: "auto" takes sig where it is eligible (a finite upper bound
+    whose f spread fits the packed word, and ``sig_ok``), else packed where
+    the spread fits, else unpacked; "sig", "packed" and "unpacked" pin the
+    layout and raise ValueError where it is not eligible.  A regrow of the
+    table re-resolves "auto" (sig_ok depends on the capacity); a pinned
+    layout stays pinned.
 
     ``triples``: "auto" adds the triangle suffix cubes to h whenever they
     apply (N >= 3, gap open == extension, positive pair weights, cubes in
@@ -594,10 +933,13 @@ class FrontierSearch:
                  device="cuda", batch: Optional[int] = None,
                  capacity: Optional[int] = None,
                  chunk_steps: int = 64, triples: str = "auto",
-                 fill_target: Optional[int] = None):
+                 fill_target: Optional[int] = None, layout: str = "auto"):
         if triples not in ("auto", "on", "off", "fractional"):
             raise ValueError(f"triples={triples!r}: choose auto, on, off or "
                              "fractional")
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout={layout!r}: choose one of {LAYOUTS}")
+        self.layout_pref = layout
         self.device = resolve_device(device)
         self.problem = problem
         self.heuristic = (heuristic if heuristic is not None
@@ -660,9 +1002,9 @@ class FrontierSearch:
         else:
             self.ub = INF
         self.ub_wall = time.perf_counter() - t0  # host beam, seconds
-        # the sig table stores f - f0 above n parent-mask bits of an int32,
-        # so the f spread ub - f0 must fit; when the pairwise f0 leaves too
-        # wide a spread, the cube h(root) is the tighter origin
+        # the sig and packed tables store f - f0 above n parent-mask bits of
+        # an int32, so the f spread ub - f0 must fit; when the pairwise f0
+        # leaves too wide a spread, the cube h(root) is the tighter origin
         budget = 1 << (31 - n)
         f0 = _rebase_origin(self.heuristic, n)
         if self.ub < INF and not (self.ub - f0 + 64) < budget and has_cubes:
@@ -676,31 +1018,80 @@ class FrontierSearch:
     @property
     def layout(self) -> str:
         """Resolved table layout: 'sig' | 'packed' | 'unpacked'."""
+        if self.layout_pref != "auto":
+            return self.layout_pref
         if self.packed and self.st.sig_ok:
             return "sig"
         return "packed" if self.packed else "unpacked"
 
     def _check_layout(self) -> None:
-        if self.layout != "sig":
-            raise NotImplementedError(
-                f"this input needs the {self.layout} table layout, which is "
-                "not ported yet (ROADMAP Queue 1: packed and unpacked "
-                "layouts)")
+        """Refuse a pinned layout this problem and capacity cannot take
+        (the checks of JAX ``_make_fns``)."""
+        if self.layout == "sig" and not (self.packed and self.st.sig_ok):
+            raise ValueError("sig layout requires packed eligibility and "
+                             "sig_bits <= log2(capacity) + 22")
+        if self.layout == "packed" and not self.packed:
+            raise ValueError("packed layout requires a finite upper bound "
+                             "whose f spread ub - f0 + 64 fits 31 - N bits")
 
-    def _init_table(self) -> SigTable:
+    def _init_table(self):
+        return {"sig": self._init_table_sig, "packed": self._init_table_packed,
+                "unpacked": self._init_table_unpacked}[self.layout]()
+
+    def _root(self):
+        """(root coordinate as a (1, N) tensor, h(root))."""
         st = self.st
-        dev = st.device
-        root = torch.zeros((1, st.n), dtype=torch.int64)
+        h_root = self.heuristic.calculate_h(np.zeros(st.n, dtype=np.int32))
+        return torch.zeros((1, st.n), dtype=torch.int64), int(h_root)
+
+    def _init_table_sig(self) -> SigTable:
+        st = self.st
+        root, h_root = self._root()
         home, sigb = _sig_encode(st, root)
         slot = int(home[0]) * st.ways  # way 0 of the home bucket
-        h_root = self.heuristic.calculate_h(np.zeros(st.n, dtype=np.int32))
         size = (st.C + TRASH,)
-        t_sig = torch.full(size, _EMPTY_WORD, dtype=torch.int32, device=dev)
-        t_best = torch.full(size, INFP, dtype=torch.int32, device=dev)
-        t_closed = torch.full(size, INFP, dtype=torch.int32, device=dev)
+        t_sig = torch.full(size, _EMPTY_WORD, dtype=torch.int32, device=st.device)
+        t_best = torch.full(size, INFP, dtype=torch.int32, device=st.device)
+        t_closed = torch.full(size, INFP, dtype=torch.int32, device=st.device)
         t_sig[slot] = int(sigb[0])
         t_best[slot] = ((h_root - st.f0) << st.nb) | st.root_parent_mask
         return SigTable(t_sig, t_best, t_closed)
+
+    def _init_table_packed(self) -> PackedTable:
+        st = self.st
+        root, h_root = self._root()
+        key = _pack_keys(root, st.W)
+        slot = int(_probe_slot(_hash_keys(key), 0, st.C - 1)[0])
+        size = (st.C + TRASH,)
+        t_key = torch.full(size + (st.KW,), _EMPTY_WORD, dtype=torch.int32,
+                           device=st.device)
+        t_best = torch.full(size, INFP, dtype=torch.int32, device=st.device)
+        t_closed = torch.full(size, INFP, dtype=torch.int32, device=st.device)
+        claim = torch.full(size, INFP, dtype=torch.int32, device=st.device)
+        t_key[slot, : st.W] = _as_i32(key[0]).to(st.device)
+        t_key[slot, st.W] = h_root
+        t_best[slot] = ((h_root - st.f0) << st.nb) | st.root_parent_mask
+        return PackedTable(t_key, t_best, t_closed, claim)
+
+    def _init_table_unpacked(self) -> UnpackedTable:
+        st = self.st
+        root, h_root = self._root()
+        key = _pack_keys(root, st.W)
+        slot = int(_probe_slot(_hash_keys(key), 0, st.C - 1)[0])
+        size = (st.C + TRASH,)
+        t_key = torch.full(size + (st.W,), _EMPTY_WORD, dtype=torch.int32,
+                           device=st.device)
+        t_g = torch.full(size, INF, dtype=torch.int32, device=st.device)
+        t_fpar = torch.full(size, INF * (1 << st.nb), dtype=torch.int64,
+                            device=st.device)
+        t_state = torch.zeros(size, dtype=torch.int32, device=st.device)
+        claim = torch.full(size, INFP, dtype=torch.int32, device=st.device)
+        # place the root (ref: pastar/PAStar.cpp:147-155 enqueues node_zero)
+        t_key[slot] = _as_i32(key[0]).to(st.device)
+        t_g[slot] = 0
+        t_fpar[slot] = h_root * (1 << st.nb) + st.root_parent_mask
+        t_state[slot] = 1
+        return UnpackedTable(t_key, t_g, t_fpar, t_state, claim)
 
     def run(self) -> FrontierResult:
         """Run to the provably optimal goal; on table overflow the capacity is
@@ -738,12 +1129,13 @@ class FrontierSearch:
                 RuntimeWarning, stacklevel=3)
         t0 = time.perf_counter()
         self.last_phase_walls = {"cubes": self.cubes_wall}
+        layout = self.layout
         tab = self._init_table()
         counters = torch.as_tensor(fresh_counters(), device=st.device)
         self.last_phase_walls["init_table"] = time.perf_counter() - t0
         while True:
             counters = _run_chunk(st, tab, counters, self.chunk_steps,
-                                  self.ub, self.fill_target)
+                                  self.ub, self.fill_target, layout)
             c = counters.tolist()  # one host read per chunk
             goal_v, fmin_v, steps, total_expanded, total_reopen, _, overflow = c[:7]
             self.last_acct = dict(zip(
@@ -760,30 +1152,42 @@ class FrontierSearch:
             raise RuntimeError("open set exhausted without reaching the goal")
         return self._finish(tab, goal_v, steps, total_expanded, total_reopen)
 
-    def _finish(self, tab: SigTable, goal_v, steps, total_expanded,
+    def _finish(self, tab, goal_v, steps, total_expanded,
                 total_reopen) -> FrontierResult:
         st = self.st
         t0 = time.perf_counter()
-        masks, coord_fin = _walk_sig(st, tab)
+        masks, coord_fin = _walk(st, tab, self.layout)
         if np.any(coord_fin != 0):
             raise RuntimeError("backtrace did not reach the origin")
         self.last_phase_walls["walk"] = time.perf_counter() - t0
 
         closed: Dict[Tuple[int, ...], Tuple[int, int]] = {}
         coord = tuple(int(v) for v in st.final_np)
+        origin = (0,) * st.n
         for mv in masks:
+            if coord == origin:
+                break
             mv = int(mv)
+            if mv == 0:
+                continue
             closed[coord] = (0, mv)
             coord = tuple(coord[i] - ((mv >> i) & 1) for i in range(st.n))
-        # exact g per path node, asserted against the goal g (the table
-        # stores (f << n) | parent, not g); skipped for degenerate weights
+        # exact g per path node, asserted against the goal g (the tables
+        # store (f << n) | parent, not g); skipped for degenerate weights
         closed = attach_path_g(self.problem, self.heuristic.weight_i, closed,
                                goal_g=None if self.degenerate else goal_v)
 
         h_goal = self.heuristic.calculate_h(st.final_np)
-        t_best, t_closed = tab.t_best[: st.C], tab.t_closed[: st.C]
-        n_open = int((t_best < t_closed).sum())
-        n_closed = int(((t_closed < INFP) & (t_best >= t_closed)).sum())
+        # closed = selected and not since reopened, open = waiting to be
+        # selected (ref: pastar/PAStar.cpp:591-619)
+        if isinstance(tab, UnpackedTable):
+            t_state = tab.t_state[: st.C]
+            n_open = int((t_state == 1).sum())
+            n_closed = int((t_state == 2).sum())
+        else:
+            t_best, t_closed = tab.t_best[: st.C], tab.t_closed[: st.C]
+            n_open = int((t_best < t_closed).sum())
+            n_closed = int(((t_closed < INFP) & (t_best >= t_closed)).sum())
         return FrontierResult(
             g=goal_v, h=h_goal, f=goal_v + h_goal, closed=closed,
             nodes_expanded=total_expanded, nodes_reopened=total_reopen,

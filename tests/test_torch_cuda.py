@@ -1,6 +1,6 @@
 """Tests that need the card (marker ``cuda``): the hand-written CUDA kernels
 (K1 pair wavefront, K2 triple cubes) against their plain PyTorch versions,
-and the port's main path on the GPU.
+and the port's main path and its table layouts on the GPU.
 They skip on a host without a CUDA device.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -188,3 +188,51 @@ def test_main_path_auto_on_card(cuda):
     assert _kernels.launches == {"pair_wavefront": 1, "triple_wavefront": 1}
     assert res.g == gold["optimal_g"]
     assert build_alignment(p, res.closed) == gold["alignment"]
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+def test_pinned_layout_on_card(cuda, layout):
+    # the same search on the card and on the CPU: g and the path agree
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
+
+    gold, p = golden_problem("PF08184.fasta")
+    want = FrontierSearch(p, HPairHeuristic.build(p, "cpu"), device="cpu",
+                          layout=layout).run()
+    eng = FrontierSearch(p, HPairHeuristic.build(p, cuda), device=cuda,
+                         layout=layout)
+    res = eng.run()
+    assert eng.layout == layout
+    assert res.g == want.g == gold["optimal_g"]
+    assert res.closed == want.closed
+
+
+def near_identical_family():
+    """5 x 130 residues, 5% substitutions (the generator of
+    tests/test_large_n.py, seed 5): 40 sig bits, over a 2^14 table's 36."""
+    rng = np.random.default_rng(5)
+    aa = "ARNDCQEGHILKMFPSTWYV"
+    anc = "".join(aa[i] for i in rng.integers(0, 20, 130))
+    seqs = []
+    for _ in range(5):
+        out = []
+        for ch in anc:
+            r = rng.random()
+            out.append(aa[rng.integers(0, 20)] if r < 0.05 else ch)
+        seqs.append("".join(out))
+    return Problem(tuple(seqs))
+
+
+def test_near_identical_family_packed_on_card(cuda):
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
+
+    p = near_identical_family()
+    eng = FrontierSearch(p, HPairHeuristic.build(p, cuda), device=cuda,
+                         capacity=1 << 14)
+    assert eng.layout == "packed" and eng.st.sig_bits == 40
+    res = eng.run()
+    # 132508: the JAX engine's g on this input (tests/test_torch_layouts.py
+    # holds the port to it on the CPU)
+    assert res.g == 132508
+    assert res.closed[tuple(int(v) for v in p.final_coord)][0] == res.g

@@ -80,8 +80,8 @@ def test_insert_settles_each_key_once():
     coords = torch.cat([coords, coords[:100]])  # duplicates, same call
     words = torch.from_numpy(rs.randint(0, 1 << 20, size=400)) << st.nb
     home, sigb = TE._sig_encode(st, coords)
-    ovf, acct = TE._insert_sig(st, tab, home, sigb, words | 1)
-    assert int(ovf) == 0 and int(acct[0]) == 400
+    ovf, reopen, acct = TE._insert_sig(st, tab, home, sigb, words | 1)
+    assert int(ovf) == 0 and int(reopen) == 0 and int(acct[0]) == 400
     n_keys = len({tuple(c) for c in coords.tolist()})
     # one way per distinct key (+ the root), and every key decodes back
     occupied = torch.nonzero(tab.t_sig[: st.nbuck * st.ways] != -1)[:, 0]

@@ -98,7 +98,7 @@ def test_expand_matches_jax(name):
         jnp.asarray(active), g_is_f=True)
     tg, tf, tm, tv, tgoal, tchild = TE._expand(
         tst, torch.from_numpy(coords), torch.from_numpy(fpar),
-        torch.from_numpy(par), torch.from_numpy(active))
+        torch.from_numpy(par), torch.from_numpy(active), g_is_f=True)
     assert np.array_equal(tv.numpy(), np.asarray(jv))
     assert tv.numpy().sum() > 0 and tgoal.numpy().sum() == 1
     assert np.array_equal(tgoal.numpy(), np.asarray(jgoal))
@@ -155,10 +155,10 @@ def test_select_matches_jax(thr, goal_off):
                                          np.full(TE.TRASH, -1, np.int32)])),
         torch.from_numpy(np.concatenate([t_best, pad])),
         torch.from_numpy(np.concatenate([t_closed, pad])))
-    tc, tf, tpar, tact, tfmin, tnopen, tnsel, tre = TE._select_sig(
+    tc, tf, tpar, tfpar, tact, tfmin, tnopen, tnsel, tre = TE._select_sig(
         tst, tab, torch.tensor(min(goal_g, 2**30)), torch.tensor(thr))
     act = np.asarray(jact)
-    assert act.sum() > 0
+    assert act.sum() > 0 and tfpar is None
     assert np.array_equal(tact.numpy(), act)
     assert np.array_equal(tc.numpy()[act], np.asarray(jc)[act])
     assert np.array_equal(tf.numpy()[act], np.asarray(jf)[act])

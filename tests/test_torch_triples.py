@@ -381,7 +381,7 @@ def test_expand_with_cubes_matches_jax(seqs, T):
         jnp.asarray(active), g_is_f=True)
     tg, tf, tm, tv, tgoal, tchild = TE._expand(
         tst, torch.from_numpy(coords), torch.from_numpy(fpar),
-        torch.from_numpy(par), torch.from_numpy(active))
+        torch.from_numpy(par), torch.from_numpy(active), g_is_f=True)
     assert np.array_equal(tv.numpy(), np.asarray(jv))
     assert tv.numpy().sum() > 0 and tgoal.numpy().sum() == 1
     assert np.array_equal(tgoal.numpy(), np.asarray(jgoal))
