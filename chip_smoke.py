@@ -18,15 +18,24 @@ Phases, each failing loudly (non-zero exit):
    version of the K2 source and times it in turns with this one;
    ``--k2-variant TILE SRC`` does the same for an edited copy of the
    current source, e.g. another tile or shared-memory layout).
+   Step kernels: K3 (select_best.cu), K4 (sig_expand.cu) and K5
+   (sig_probe.cu) run 1 and 32 steps from mid-search kinase tables (--triples
+   auto from step 150, off from step 400) and the plain step functions run
+   the same steps on copies: t_sig, t_best, t_closed and the 14 counters
+   must be identical (also with K5 on 1 and on 132 blocks); K3 alone
+   against the plain select on globin6's packed table.  Kernel, plain and
+   bound times of K3, K4, K5 and the whole step, K3's library yardstick
+   (``--step-only`` stops after this phase).
 4. main path, kinase: the port's CLI entry with its defaults (--triples
    auto, --device cuda) must build 4 cubes and reach g = 421546 with a path
    whose recomputed cost equals g, degapped rows equal to the inputs, and
-   both kernels launched; then the same with --triples off (K1 launched).
+   K1, K2 and the step kernels K3-K5 launched; then the same with
+   --triples off (K1 and K3-K5 launched).
 5. main path, test / test2 / PF08184, under auto and under off: golden g and
    byte-identical alignment.
 6. layouts: globin6, synth7 and synth10 (tests/data) through the CLI with
    its defaults must take the packed table layout (their keys do not fit a
-   sig word at C = 2^23), build cubes, launch K1 and K2 and reach their
+   sig word at C = 2^23), build cubes, launch K1, K2 and K3 and reach their
    certified optima; kinase with the layout pinned to packed and to unpacked
    (engine entry, as --profile drives it) must reach g = 421546; test, test2
    and PF08184 with each pinned must stay byte-identical to the goldens;
@@ -63,6 +72,7 @@ K2_OPS_PER_CELL = 7 * 12      # 7 moves x ~12 int32 ops per in-box cube cell
 # certified optima of the tests/data inputs beyond the sig layout
 # (tests/test_globin6.py, tests/test_beyond_reference.py)
 LAYOUT_INPUTS = {"globin6": 988171, "synth7": 402469, "synth10": 575615}
+STEP_KERNELS = ["select_best", "sig_expand", "sig_probe"]
 
 
 def fail(msg: str) -> None:
@@ -399,6 +409,233 @@ def check_k2(paths, baseline=None, variants=()) -> dict:
     return rows
 
 
+def clone_table(tab):
+    """A copy of a table (every tensor of its dataclass)."""
+    import dataclasses
+
+    return type(tab)(*(getattr(tab, f.name).clone() for f in dataclasses.fields(tab)))
+
+
+def time_restored(fn, restore, reps: int) -> float:
+    """Median milliseconds of fn() alone (CUDA events), each run after
+    restore() has reset the state fn changes (outside the events)."""
+    times = []
+    for k in range(reps + 1):
+        restore()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        if k:  # the first run warms up
+            times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def warm_engine(path: str, triples: str, warm_steps: int):
+    """An engine on the card run ``warm_steps`` steps into its search;
+    returns (engine, table, counters)."""
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    p = problem_from_fasta(path)
+    eng = E.FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
+                           triples=triples)
+    tab = eng._init_table()
+    ctr = torch.as_tensor(E.fresh_counters(), device="cuda")
+    ctr = E._run_chunk(eng.st, tab, ctr, warm_steps, eng.ub, eng.fill_target, eng.layout)
+    return eng, tab, ctr
+
+
+def step_kernels(paths) -> dict:
+    """The step kernels K3 -> K4 -> K5 against the plain step on the card:
+    kinase under --triples auto (from step 150) and off (from step 400),
+    1 and 32 steps from one table, through run_chunk_sig_cuda and through
+    _run_chunk_plain(plain_select=True); t_sig, t_best, t_closed (the first
+    C slots) and the 14 counters must be identical.  The 1-step case also
+    runs K5 on one block and on 132, which must not change anything.  Then
+    K3 alone against _select_best_plain on globin6's packed table (step
+    60).  Times at kinase: K3, K4, K5 and the whole step, kernel and plain,
+    with their bounds by bytes, and K3's library yardstick."""
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    def same(label, a_tab, a_ctr, b_tab, b_ctr, C):
+        err = 0
+        for name in ("t_sig", "t_best", "t_closed"):
+            x, y = getattr(a_tab, name)[:C].long(), getattr(b_tab, name)[:C].long()
+            err = max(err, int((x - y).abs().max()))
+        err = max(err, int((a_ctr - b_ctr).abs().max()))
+        if err != 0:
+            fail(f"step kernels {label}: kernels differ from the plain step (max |err| "
+                 f"{err}); counters {a_ctr.tolist()} vs {b_ctr.tolist()}")
+        return err
+
+    out = {}
+    for triples, warm in (("auto", 150), ("off", 400)):
+        eng, tab0, ctr0 = warm_engine(paths["kinase.fasta"], triples, warm)
+        st, ub, fill = eng.st, eng.ub, eng.fill_target
+        C = st.C
+        row = dict(layout=eng.layout, batch=st.B, fill_target=fill, warm_steps=warm,
+                   checks=[])
+        if eng.layout != "sig":
+            fail(f"step kernels: kinase {triples} took layout {eng.layout}")
+        for n, blocks in ((1, 0), (1, 1), (1, 132), (32, 0)):
+            ktab = clone_table(tab0)
+            kctr = S.run_chunk_sig_cuda(st, ktab, ctr0, n, ub, fill, blocks=blocks)
+            ptab = clone_table(tab0)
+            pctr = E._run_chunk_plain(st, ptab, ctr0, n, ub, fill, "sig", plain_select=True)
+            torch.cuda.synchronize()
+            err = same(f"kinase {triples} {n} step(s), K5 blocks {blocks}", ktab, kctr,
+                       ptab, pctr, C)
+            row["checks"].append(dict(steps=n, k5_blocks=blocks, max_abs_err=err,
+                                      counters=kctr.tolist()))
+            del ktab, ptab
+        print(f"step kernels kinase --triples {triples} (sig, B={st.B}, from step "
+              f"{int(ctr0[2])}): t_sig, t_best, t_closed and the 14 counters identical "
+              f"to the plain step after 1 step (K5 grid auto, 1 and 132 blocks) and "
+              f"after 32 steps")
+
+        # one step's pieces, timed from the same table (each run restores
+        # what the piece changes)
+        bufs = S._step_buffers(st, torch.device("cuda"))
+        work = clone_table(tab0)
+        ctr = ctr0.clone()
+        ctr[1] = 0
+        bufs.run.fill_(1)
+        stream = torch.cuda.current_stream().cuda_stream
+        snap = clone_table(tab0)
+        goal, thr = ctr[0], ctr[7]
+
+        def restore_tab():
+            for name in ("t_sig", "t_best", "t_closed"):
+                getattr(work, name).copy_(getattr(snap, name))
+            ctr.copy_(ctr0)
+            ctr[1] = 0
+            bufs.run.fill_(1)
+
+        k3 = lambda: S._launch_select(st, work.t_best, work.t_closed, goal, thr,
+                                      bufs.run, bufs, stream)
+        k3_ms = time_restored(k3, restore_tab, 20)
+        best0, closed0 = snap.t_best[:C], snap.t_closed[:C]
+        k3_plain_ms = time_restored(
+            lambda: E._select_best_plain(st, work.t_best, work.t_closed, goal, thr),
+            restore_tab, 5)
+        is_open = (best0 < closed0) & ((best0 >> st.nb) < goal - st.f0)
+        v_open = torch.where(is_open, best0, E.INFP).view(st.B, C // st.B)
+        k3_lib_ms = time_ms(lambda: torch.min(v_open, dim=1), reps=20)
+        # after K3: its state, then K4
+        restore_tab()
+        k3()
+        after3 = bufs.state.clone()
+
+        def restore3():
+            restore_tab()
+            bufs.state.copy_(after3)
+
+        k4 = lambda: S._launch_expand(st, work, bufs, ctr, ub, stream)
+        k4_ms = time_restored(k4, restore3, 20)
+        restore3()
+        k4()
+        after4, best4, goal4 = bufs.state.clone(), work.t_best.clone(), ctr.clone()
+        pend = bufs.pend.clone()
+
+        def restore4():
+            restore3()
+            work.t_best.copy_(best4)
+            ctr.copy_(goal4)
+            bufs.state.copy_(after4)
+            bufs.pend.copy_(pend)
+
+        k5 = lambda: S._launch_probe(st, work, bufs, ctr, fill, 0, stream)
+        k5_ms = time_restored(k5, restore4, 20)
+        restore4()
+        k5()
+        torch.cuda.synchronize()
+        s5 = bufs.state.tolist()
+        n_sel, n_valid, n_pend, calls = (s5[S.STATE_NSEL], s5[S.STATE_NVALID],
+                                         s5[S.STATE_NPEND], s5[S.STATE_CALLS])
+        new_ways = int(((work.t_sig[:C] != -1).sum() - (snap.t_sig[:C] != -1).sum()))
+        step_ms = time_restored(lambda: (k3(), k4(), k5()), restore_tab, 20)
+
+        # the plain pieces on the same table: _expand -> prune ->
+        # _candidates_sig for K4 (after the plain select, not timed),
+        # _insert_sig (its round 0 included) for K5
+        restore_tab()
+        coords, f, par, _, active, _, _, _, _ = E._select_sig(
+            st, work, goal, thr, E._select_best_plain)
+        closed_sel = work.t_closed.clone()
+
+        def plain_k4():
+            sel = torch.nonzero(active)[:, 0]
+            g_c, f_c, m_c, valid, is_goal, child = E._expand(
+                st, coords[sel], f[sel], par[sel], torch.ones_like(sel, dtype=torch.bool),
+                g_is_f=True)
+            keep = torch.nonzero(valid & (f_c <= ub))[:, 0]
+            return E._candidates_sig(st, child[keep], g_c[keep], f_c[keep], m_c[keep])
+
+        k4_plain_ms = time_ms(plain_k4, reps=5)
+        cand = plain_k4()
+
+        def restore_sel():
+            restore_tab()
+            work.t_closed.copy_(closed_sel)
+
+        k5_plain_ms = time_restored(lambda: E._insert_sig(st, work, *cand), restore_sel, 5)
+        step_plain_ms = time_restored(
+            lambda: E._run_chunk_plain(st, work, ctr0, 1, ub, fill, "sig",
+                                       plain_select=True), restore_tab, 5)
+        P, T = st.P, st.T3
+        bytes3 = C * 8 + st.B * 17 + n_sel * 4
+        bytes4 = (st.B + n_sel * (4 + 16 + 32 * P + 32 * T) + n_valid * 32
+                  + (n_valid - n_pend) * 4 + n_pend * 12)
+        # rows read: the lanes unsettled at the start of each call; writes:
+        # one word a new key, one t_best word a lane settled by the probe
+        live = n_pend + sum(s5[S.STATE_CNT + k] for k in range(max(calls - 1, 0)))
+        settled = n_pend - (s5[S.STATE_CNT + calls - 1] if calls else 0)
+        bytes5 = n_pend * 12 + live * 32 + new_ways * 4 + settled * 4
+        ms = lambda b: b / HBM_BYTES_PER_S * 1e3
+        row.update(
+            selected=n_sel, lanes=n_valid, pending=n_pend, probe_calls=calls,
+            new_ways=new_ways,
+            k3=dict(ms=k3_ms, plain_ms=k3_plain_ms, library_ms=k3_lib_ms,
+                    bound_ms=ms(bytes3), bytes=bytes3),
+            k4=dict(ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=ms(bytes4), bytes=bytes4),
+            k5=dict(ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=ms(bytes5), bytes=bytes5),
+            step=dict(ms=step_ms, plain_ms=step_plain_ms,
+                      bound_ms=ms(bytes3 + bytes4 + bytes5)))
+        print(f"  step {int(ctr0[2])}: {n_sel} rows, {n_valid} lanes, {n_pend} pending, "
+              f"{calls} probe calls, {new_ways} new keys; K3 {k3_ms:.4f} ms (plain "
+              f"{k3_plain_ms:.4f}, torch.min over (B, G) alone {k3_lib_ms:.4f}, bound "
+              f"{ms(bytes3):.5f}); K4 {k4_ms:.4f} ms (plain _expand -> prune -> "
+              f"_candidates_sig {k4_plain_ms:.4f}, bound {ms(bytes4):.5f}); K5 "
+              f"{k5_ms:.4f} ms (plain _insert_sig {k5_plain_ms:.4f}, bound "
+              f"{ms(bytes5):.5f}); step {step_ms:.4f} ms (plain {step_plain_ms:.4f}, "
+              f"bound {ms(bytes3 + bytes4 + bytes5):.5f}); all bounds by bytes")
+        out[triples] = row
+        del tab0, work, snap, eng
+
+    # K3 alone on the packed layout: globin6 at step 60
+    eng, tab, ctr = warm_engine(data_path("globin6"), "auto", 60)
+    if eng.layout != "packed":
+        fail(f"step kernels: globin6 took layout {eng.layout}, want packed")
+    st = eng.st
+    a, b = clone_table(tab), clone_table(tab)
+    got = S.select_best_cuda(st, a.t_best, a.t_closed, ctr[0], ctr[7])
+    want = E._select_best_plain(st, b.t_best, b.t_closed, ctr[0], ctr[7])
+    torch.cuda.synchronize()
+    err = max(int((x.long() - y.long()).abs().max()) for x, y in zip(got, want))
+    err = max(err, int((a.t_closed[:st.C] - b.t_closed[:st.C]).abs().max()))
+    if err != 0:
+        fail(f"K3 globin6 (packed): kernel differs from _select_best_plain (max |err| {err})")
+    print(f"K3 globin6 (packed, step {int(ctr[2])}, {int(want[5])} rows selected): "
+          f"outputs and t_closed identical to the plain select")
+    out["globin6_k3"] = dict(selected=int(want[5]), max_abs_err=err)
+    return out
+
+
 def data_path(name: str) -> str:
     return os.path.join(ROOT, "tests", "data", f"{name}.fasta")
 
@@ -458,8 +695,10 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
     cubes = len(getattr(eng.heuristic, "triangles", None) or [])
     if triples == "auto" and cubes == 0:
         fail(f"{name}: --triples auto built no cube")
-    # the kernels of this path: K1 always, K2 whenever cubes were built
-    path_kernels = ["pair_wavefront"] + (["triple_wavefront"] if cubes else [])
+    # the kernels of this path: K1 always, K2 whenever cubes were built, the
+    # step kernels K3-K5 on the sig layout and K3 on the packed one
+    path_kernels = (["pair_wavefront"] + (["triple_wavefront"] if cubes else [])
+                    + {"sig": STEP_KERNELS, "packed": ["select_best"]}.get(eng.layout, []))
     for k in path_kernels:
         if counts[k] <= 0:
             fail(f"{name}: kernel {k} was not launched on the main path")
@@ -550,11 +789,15 @@ def degenerate_input() -> dict:
 
 
 def profile_search(name: str, path: str, triples: str, warm_steps: int,
-                   steps: int) -> dict:
+                   steps: int, plain: bool = False) -> dict:
     """Where a mid-search step spends its time under ``triples`` (in the
     layout ``auto`` picks): run the engine to ``warm_steps``, then trace
-    ``steps`` more with torch.profiler.  Prints the device time by kernel
-    and the device's busy share of the window."""
+    ``steps`` more with torch.profiler, through the engine's own loop or,
+    with ``plain``, through the plain step functions on the card tensors
+    (_run_chunk_plain(plain_select=True): the step before its kernels).
+    Prints the device time by kernel, the launches (kernels, memcpy and
+    memset) and host reads (device-to-host copies) a step, and the
+    device's busy share of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
@@ -567,15 +810,22 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
     tab = eng._init_table()
     ctr = torch.as_tensor(E.fresh_counters(), device="cuda")
     ctr = E._run_chunk(eng.st, tab, ctr, warm_steps, eng.ub, eng.fill_target,
-                         eng.layout)
+                       eng.layout)
+
+    def run(ctr):
+        if plain:
+            return E._run_chunk_plain(eng.st, tab, ctr, steps, eng.ub, eng.fill_target,
+                                      eng.layout, plain_select=True)
+        return E._run_chunk(eng.st, tab, ctr, steps, eng.ub, eng.fill_target, eng.layout)
+
     s0 = ctr.tolist()[2]
     t0 = time.perf_counter()
-    ctr = E._run_chunk(eng.st, tab, ctr, steps, eng.ub, eng.fill_target, eng.layout)
+    ctr = run(ctr)
     before = ctr.tolist()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3 / (before[2] - s0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ctr = E._run_chunk(eng.st, tab, ctr, steps, eng.ub, eng.fill_target, eng.layout)
+        ctr = run(ctr)
         after = ctr.tolist()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -587,23 +837,29 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
     kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
                    if not e.key.startswith(("aten::", "cuda"))), key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kern)
-    print(f"profile {name} --triples {triples} (layout {eng.layout}): steps {s0}..{before[2]} "
-          f"unprofiled {plain_wall_ms:.3f} "
+    reads = sum(c for k, _, c in kern if k.startswith("Memcpy DtoH"))
+    label = "plain step" if plain else "engine"
+    print(f"profile {name} --triples {triples} (layout {eng.layout}, {label}): steps "
+          f"{s0}..{before[2]} unprofiled {plain_wall_ms:.3f} "
           f"ms/step; steps {before[2]}..{after[2]} profiled: wall {wall * 1e3 / n:.3f} "
           f"ms/step, device busy {busy_ms / n:.3f} ms/step "
           f"({100 * busy_ms / (wall * 1e3):.1f}% of wall; idle "
-          f"{100 - 100 * busy_ms / (wall * 1e3):.1f}%)")
+          f"{100 - 100 * busy_ms / (wall * 1e3):.1f}%), "
+          f"{sum(c for _, _, c in kern) / n:.1f} launches and {reads / n:.2f} host "
+          f"reads a step")
     for key, ms, cnt in kern[:12]:
         print(f"  {ms / n:8.4f} ms/step  {cnt / n:7.1f} launches/step  {key[:90]}")
     ops = sorted(((e.key, e.device_time_total / 1e3) for e in events
                   if e.key.startswith("aten::")), key=lambda r: -r[1])
-    return dict(layout=eng.layout, steps=n, unprofiled_wall_ms_per_step=plain_wall_ms,
+    return dict(layout=eng.layout, plain=plain, steps=n,
+                unprofiled_wall_ms_per_step=plain_wall_ms,
                 wall_ms_per_step=wall * 1e3 / n,
                 busy_ms_per_step=busy_ms / n,
                 kernels=[dict(name=k, ms_per_step=ms / n, launches_per_step=c / n)
                          for k, ms, c in kern[:25]],
                 aten_ops=[dict(name=k, ms_per_step=ms / n) for k, ms in ops[:25]],
-                launches_per_step=sum(c for _, _, c in kern) / n)
+                launches_per_step=sum(c for _, _, c in kern) / n,
+                host_reads_per_step=reads / n)
 
 
 def main() -> int:
@@ -625,11 +881,16 @@ def main() -> int:
                          "csrc/triple_wavefront.cu compiled for the tile "
                          "BIxBJxBK, check it at kinase and time it in turns "
                          "with this one (repeatable)")
+    ap.add_argument("--step-only", action="store_true",
+                    help="run the device, build and step-kernel phases only "
+                         "(a quick check of K3-K5; prints no result line)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace 32 mid-search kinase steps, under "
-                         "--triples auto and off, and 32 globin6 steps (the "
-                         "packed layout) with torch.profiler (device time by "
-                         "kernel, idle share)")
+                         "--triples auto and off, each through the engine "
+                         "and through the plain step, and 32 globin6 steps "
+                         "(the packed layout) with torch.profiler (device "
+                         "time by kernel, launches and host reads a step, "
+                         "idle share)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -664,6 +925,10 @@ def main() -> int:
         if args.k1_baseline:
             baseline = (args.k1_baseline,
                         build_baseline_k1(os.path.abspath(args.k1_baseline), tmp))
+        if args.step_only:
+            report["step"] = step_kernels(paths)
+            print(json.dumps({"step": report["step"]}, default=str))
+            return 0  # a partial run: no kernels line and no result line
         report["k1"] = check_k1(paths, baseline)
         k2_baseline = None
         if args.k2_baseline:
@@ -674,6 +939,7 @@ def main() -> int:
             tile = tuple(int(v) for v in tile.split("x"))
             variants.append((tile, src, build_variant_k2(tile, os.path.abspath(src), tmp)))
         report["k2"] = check_k2(paths, k2_baseline, variants)
+        report["step"] = step_kernels(paths)
         # 4. / 5. main path (CLI defaults: --triples auto), then pairwise
         report["kinase"] = main_path("kinase", paths["kinase.fasta"],
                                      gold["kinase.fasta"], False, "auto")
@@ -699,10 +965,15 @@ def main() -> int:
         report["degenerate"] = degenerate_input()
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
+            # and the plain step on the same windows, the step before K3-K5
             report["profile"] = profile_search("kinase", paths["kinase.fasta"],
                                                "auto", 150, 32)
+            report["profile_plain"] = profile_search("kinase", paths["kinase.fasta"],
+                                                     "auto", 150, 32, plain=True)
             report["profile_off"] = profile_search("kinase", paths["kinase.fasta"],
                                                    "off", 400, 32)
+            report["profile_off_plain"] = profile_search(
+                "kinase", paths["kinase.fasta"], "off", 400, 32, plain=True)
             # the packed layout: globin6 takes about 150 steps
             report["profile_globin6"] = profile_search(
                 "globin6", data_path("globin6"), "auto", 60, 32)
@@ -731,6 +1002,23 @@ def main() -> int:
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,
     }]
+    # the step kernels, timed at kinase --triples auto (step 150); their
+    # max |err| is the largest of the step checks (1 and 32 steps, auto and
+    # off, and K3 on globin6's packed table)
+    step = report["step"]
+    step_err = max([c["max_abs_err"] for t in ("auto", "off") for c in step[t]["checks"]]
+                   + [step["globin6_k3"]["max_abs_err"]])
+    for name, key, replaces in (
+            ("select_best", "k3", "mpi_pastar_msa_tpu/search/engine.py:1620"),
+            ("sig_expand", "k4", "mpi_pastar_msa_tpu/search/engine.py:497"),
+            ("sig_probe", "k5", "mpi_pastar_msa_tpu/search/engine.py:1551")):
+        t = step["auto"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mpi_pastar_msa_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": step_err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": t.get("library_ms")})
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

@@ -26,6 +26,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 #: kernel name -> ctypes argtypes of its C entry point (same name as the file)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 SIGNATURES: Dict[str, List] = {
     # enc, enc_stride, xs, ys, lens, cost, diag scratch, out, P, L1, lmax,
     # O, E, threads, rows per thread, shared bytes, stream
@@ -35,6 +36,18 @@ SIGNATURES: Dict[str, List] = {
     # diagonals, launch grid (host int32, diagonals x 4), O, E, GG, stream
     "triple_wavefront": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                          _I, _I, _I, _P],
+    # t_best, t_closed, C, B, n, f0, goal, thr, run (or null), slots, vmin,
+    # active, state, stream
+    "select_best": [_P, _P, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P],
+    # t_sig, t_best, slots, vmin, active, tables4, cubes, params, N, P, T,
+    # S, n, f0, ub, E, GG, O - E, bbits, B, threads, run, counters, state,
+    # pending list, stream
+    "sig_expand": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
+                   _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # t_sig, t_best, pending list, lane_cur, lane_dest, lane_word, bbits,
+    # max bucket probes, max calls, fill target, run, counters, state,
+    # blocks, stream
+    "sig_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
 }
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
@@ -56,8 +69,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    """The library's path, named by the hash of its source and of the
+    headers of csrc/ (which a source may include)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 

@@ -53,6 +53,7 @@ the engine's largest tensors).
 """
 from __future__ import annotations
 
+import functools
 import time
 import warnings
 from dataclasses import dataclass, replace
@@ -425,7 +426,18 @@ def _sig_decode(st: _Static, slots: torch.Tensor, sig: torch.Tensor):
 
 def _select_best(st: _Static, t_best, t_closed, goal_g, thr):
     """Grouped-argmin selection over the packed words of the sig and packed
-    layouts; closes the selected slots in place.
+    layouts; closes the selected slots in place.  A CUDA table runs kernel
+    K3 (``search/step.py::select_best_cuda``), a CPU table the plain
+    version, ``_select_best_plain``."""
+    if t_best.device.type == "cuda":
+        from .step import select_best_cuda
+        return select_best_cuda(st, t_best, t_closed, goal_g, thr)
+    return _select_best_plain(st, t_best, t_closed, goal_g, thr)
+
+
+def _select_best_plain(st: _Static, t_best, t_closed, goal_g, thr):
+    """The plain version of ``_select_best`` (JAX ``_select_sig`` and
+    ``_select_packed``'s argmin).
 
     The table is viewed as B groups of C/B slots; each group offers its
     argmin open packed word (first index on ties), the global f-min is the
@@ -453,15 +465,16 @@ def _select_best(st: _Static, t_best, t_closed, goal_g, thr):
     return slots, vmin.long(), active, fmin, n_open, n_selected, reopen_ct
 
 
-def _select_sig(st: _Static, tab: SigTable, goal_g, thr):
+def _select_sig(st: _Static, tab: SigTable, goal_g, thr, best=None):
     """Batch selection, sig layout: coordinates come from inverting the sig
-    encoding.
+    encoding.  ``best`` is the grouped argmin (default ``_select_best``;
+    ``_select_best_plain`` forces the plain one on the card).
 
     Returns (coords, f, par, f_par, active, fmin, n_open, n_selected,
     reopen_ct): f (not g) in the g position — the layout stores no h, so
     _expand recovers g as f - h(parent) (``g_is_f``); f_par is None (no
     pathmax)."""
-    slots, vmin, active, fmin, n_open, n_sel, reopen_ct = _select_best(
+    slots, vmin, active, fmin, n_open, n_sel, reopen_ct = (best or _select_best)(
         st, tab.t_best, tab.t_closed, goal_g, thr)
     coords = _sig_decode(st, slots, tab.t_sig[slots])
     f_sel = (vmin >> st.nb) + st.f0
@@ -469,11 +482,11 @@ def _select_sig(st: _Static, tab: SigTable, goal_g, thr):
     return coords, f_sel, par, None, active, fmin, n_open, n_sel, reopen_ct
 
 
-def _select_packed(st: _Static, tab: PackedTable, goal_g, thr):
+def _select_packed(st: _Static, tab: PackedTable, goal_g, thr, best=None):
     """Batch selection, packed layout: coordinates from the key row, and
     g = f - h with h read from the key row's last column.  Returns the
     tuple of _select_sig with g in the g position."""
-    slots, vmin, active, fmin, n_open, n_sel, reopen_ct = _select_best(
+    slots, vmin, active, fmin, n_open, n_sel, reopen_ct = (best or _select_best)(
         st, tab.t_best, tab.t_closed, goal_g, thr)
     rows = tab.t_key[slots]
     coords = _unpack_keys(st, rows)
@@ -810,10 +823,29 @@ def _run_chunk(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
                ub: int, fill: int, layout: str) -> torch.Tensor:
     """Up to ``chunk_steps`` super-steps (select -> expand -> insert) of the
     table ``layout``, as the JAX chunked run loops (a while_loop): stop when
-    fmin >= goal_g, after chunk_steps, or on overflow.  The stop test reads
-    three scalars per step (the insert's probe loop synchronises each round
-    anyway); the caller reads the whole counters vector once per chunk."""
+    fmin >= goal_g, after chunk_steps, or on overflow.  A CUDA sig table
+    runs kernels K3 -> K4 -> K5 a step with the stop test on the device
+    (``search/step.py::run_chunk_sig_cuda``); every other table the plain
+    loop, ``_run_chunk_plain``.  The caller reads the whole counters vector
+    once per chunk."""
+    if layout == "sig" and tab.t_sig.device.type == "cuda":
+        from .step import run_chunk_sig_cuda
+        return run_chunk_sig_cuda(st, tab, counters, chunk_steps, ub, fill)
+    return _run_chunk_plain(st, tab, counters, chunk_steps, ub, fill, layout)
+
+
+def _run_chunk_plain(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
+                     ub: int, fill: int, layout: str,
+                     plain_select: bool = False) -> torch.Tensor:
+    """The plain step loop of ``_run_chunk``: the stop test reads three
+    scalars per step (the insert's probe loop synchronises each round
+    anyway).  On a CUDA table the sig and packed selects still run K3
+    unless ``plain_select`` (then every step function is the plain one, the
+    reference the kernels are held to on the card)."""
     fns = _LAYOUT_FNS[layout]
+    select = fns.select
+    if plain_select:
+        select = functools.partial(select, best=_select_best_plain)
     goal_g, steps, expanded, reopen, n_open, overflow, thr = (
         counters[0], counters[2], counters[3], counters[4], counters[5],
         counters[6], counters[7])
@@ -825,7 +857,7 @@ def _run_chunk(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
         if not (fm < gg and ov == 0):
             break
         (coords, g, par, f_par, active, fmin, n_open, n_sel,
-         sel_reopen) = fns.select(st, tab, goal_g, thr)
+         sel_reopen) = select(st, tab, goal_g, thr)
         goal_g, ovf, ins_reopen, sacct = _expand_insert(
             st, fns, tab, coords, g, par, f_par, active, goal_g, ub)
         thr = _adapt_thr(thr, n_sel, fill)

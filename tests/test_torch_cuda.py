@@ -1,6 +1,7 @@
 """Tests that need the card (marker ``cuda``): the hand-written CUDA kernels
-(K1 pair wavefront, K2 triple cubes) against their plain PyTorch versions,
-and the port's main path and its table layouts on the GPU.
+(K1 pair wavefront, K2 triple cubes, the step kernels K3-K5) against their
+plain PyTorch versions, and the port's main path and its table layouts on
+the GPU.
 They skip on a host without a CUDA device.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -185,7 +186,13 @@ def test_main_path_auto_on_card(cuda):
     eng = FrontierSearch(p, HPairHeuristic.build(p, cuda), device=cuda)
     res = eng.run()
     assert len(eng.heuristic.triangles) == 1
-    assert _kernels.launches == {"pair_wavefront": 1, "triple_wavefront": 1}
+    assert _kernels.launches["pair_wavefront"] == 1
+    assert _kernels.launches["triple_wavefront"] == 1
+    # the sig step: K3, K4 and K5 once a step (steps enqueued after the
+    # stop included)
+    n = _kernels.launches["select_best"]
+    assert n >= res.steps
+    assert _kernels.launches["sig_expand"] == _kernels.launches["sig_probe"] == n
     assert res.g == gold["optimal_g"]
     assert build_alignment(p, res.closed) == gold["alignment"]
 
@@ -236,3 +243,153 @@ def test_near_identical_family_packed_on_card(cuda):
     # holds the port to it on the CPU)
     assert res.g == 132508
     assert res.closed[tuple(int(v) for v in p.final_coord)][0] == res.g
+
+
+# ------------------------------------------------ the step kernels K3-K5
+
+def sig_engine(name, device, **kw):
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
+
+    _, p = golden_problem(name)
+    return FrontierSearch(p, HPairHeuristic.build(p, device), device=device, **kw)
+
+
+@pytest.mark.parametrize("thr,goal_off,empty,ties", [
+    (0, 10**9, 0.0, False), (2**20, 10**9, 0.3, False),
+    (40, 900, 0.5, False), (0, 10**9, 0.0, True), (2**20, 10**9, 1.0, False)],
+    ids=["thr0", "thr2^20-empty-groups", "goal-cut", "all-ties", "all-empty"])
+def test_k3_equals_plain(cuda, thr, goal_off, empty, ties):
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    st = sig_engine("PF08184.fasta", "cpu", batch=256, capacity=1 << 16,
+                    triples="off").st
+    st.device = cuda
+    C, B, nb = st.C, st.B, st.nb
+    rs = np.random.RandomState(7)
+    best = np.full(C + E.TRASH, E.INFP, dtype=np.int32)
+    closed = best.copy()
+    used = (rs.rand(C) < 0.5) & np.repeat(rs.rand(B) >= empty, C // B)
+    words = np.full(C, (3 << nb) | 1) if ties else (
+        (rs.randint(0, 30, size=C) << nb) | rs.randint(1, st.M + 1, size=C))
+    best[:C][used] = words[used]
+    u = rs.rand(C)
+    closed[:C][used & (u < 0.3)] = best[:C][used & (u < 0.3)]
+    reo = used & (u >= 0.3) & (u < 0.5)
+    closed[:C][reo] = best[:C][reo] + (5 << nb)
+    goal = st.f0 + goal_off
+    t_best = torch.from_numpy(best).to(cuda)
+    a, b = torch.from_numpy(closed).to(cuda), torch.from_numpy(closed).to(cuda)
+    before = _kernels.launches["select_best"]
+    got = S.select_best_cuda(st, t_best, a, goal, thr)
+    want = E._select_best_plain(st, t_best, b, goal, thr)
+    torch.cuda.synchronize()
+    assert _kernels.launches["select_best"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y.cpu())
+    assert torch.equal(a[:C].cpu(), b[:C].cpu())
+
+
+def clone_sig(tab):
+    from mpi_pastar_msa_tpu_torch.search.engine import SigTable
+
+    return SigTable(tab.t_sig.clone(), tab.t_best.clone(), tab.t_closed.clone())
+
+
+def assert_same_step(st, ka, kc, pa, pc):
+    C = st.C
+    for name in ("t_sig", "t_best", "t_closed"):
+        assert torch.equal(getattr(ka, name)[:C].cpu(), getattr(pa, name)[:C].cpu()), name
+    assert kc.tolist() == pc.tolist()
+
+
+@pytest.mark.parametrize("triples,warm", [("auto", 150), ("off", 400)])
+def test_step_kernels_equal_plain_step_kinase(cuda, triples, warm):
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    eng = sig_engine("kinase.fasta", cuda, triples=triples)
+    st = eng.st
+    assert eng.layout == "sig"
+    tab = eng._init_table()
+    ctr = E._run_chunk(st, tab, torch.as_tensor(E.fresh_counters(), device=cuda), warm,
+                       eng.ub, eng.fill_target, "sig")
+    for n in (1, 32):
+        ka, pa = clone_sig(tab), clone_sig(tab)
+        kc = S.run_chunk_sig_cuda(st, ka, ctr, n, eng.ub, eng.fill_target)
+        pc = E._run_chunk_plain(st, pa, ctr, n, eng.ub, eng.fill_target, "sig",
+                                plain_select=True)
+        assert_same_step(st, ka, kc, pa, pc)
+        assert int(kc[2]) == int(ctr[2]) + n
+
+
+def test_step_kernels_overflow_like_plain(cuda):
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    # a 2^8-slot table under an upper bound 20000 above test2's: the prune
+    # lets through enough keys to fill it, and both loops stop on the same
+    # overflow, with the same table
+    eng = sig_engine("test2.fasta", cuda, batch=16, capacity=1 << 8, triples="off")
+    st, ub = eng.st, eng.ub + 20000
+    ka = eng._init_table()
+    pa = clone_sig(ka)
+    kc = pc = torch.as_tensor(E.fresh_counters(), device=cuda)
+    for _ in range(20):
+        kc = S.run_chunk_sig_cuda(st, ka, kc, 16, ub, eng.fill_target)
+        pc = E._run_chunk_plain(st, pa, pc, 16, ub, eng.fill_target, "sig",
+                                plain_select=True)
+        assert_same_step(st, ka, kc, pa, pc)
+        if int(kc[6]) > 0:
+            break
+    assert int(kc[6]) > 0
+    # with its own bound the engine finds the optimum in that table
+    res = sig_engine("test2.fasta", cuda, batch=16, capacity=1 << 8,
+                     triples="off").run()
+    assert res.g == 45037
+
+
+def test_step_wrappers_reject_bad_input(cuda):
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    eng = sig_engine("PF08184.fasta", cuda, batch=64, capacity=1 << 12, triples="off")
+    st, tab = eng.st, eng._init_table()
+    ctr = torch.as_tensor(E.fresh_counters(), device=cuda)
+    before = dict(_kernels.launches)
+    bad_tables = [E.SigTable(tab.t_sig, tab.t_best, tab.t_closed.cpu()),   # device mix
+                  E.SigTable(tab.t_sig.long(), tab.t_best, tab.t_closed),  # dtype
+                  E.SigTable(tab.t_sig[:100], tab.t_best, tab.t_closed),   # size
+                  E.PackedTable(tab.t_sig[:, None], tab.t_best, tab.t_closed,
+                                tab.t_closed)]                             # layout
+    for bad in bad_tables:
+        with pytest.raises(ValueError):
+            S.run_chunk_sig_cuda(st, bad, ctr, 1, eng.ub, eng.fill_target)
+    for bad_ctr in (ctr.cpu(), ctr.int(), ctr[:8]):
+        with pytest.raises(ValueError):
+            S.run_chunk_sig_cuda(st, tab, bad_ctr, 1, eng.ub, eng.fill_target)
+    with pytest.raises(ValueError):
+        S.select_best_cuda(st, tab.t_best, tab.t_closed.cpu(), 10**6, 0)
+    with pytest.raises(ValueError):
+        S.select_best_cuda(st, tab.t_best.long(), tab.t_closed, 10**6, 0)
+    assert _kernels.launches == before
+
+
+@pytest.mark.parametrize("triples,expanded,reopened,steps", [
+    ("auto", 985050, 346443, 299), ("off", 5137387, None, 966)])
+def test_kinase_end_to_end_counts(cuda, triples, expanded, reopened, steps):
+    from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+
+    gold, p = golden_problem("kinase.fasta")
+    _kernels.reset_counts()
+    eng = sig_engine("kinase.fasta", cuda, triples=triples)
+    res = eng.run()
+    assert res.g == gold["optimal_g"]
+    assert (res.nodes_expanded, res.steps) == (expanded, steps)
+    if reopened is not None:
+        assert res.nodes_reopened == reopened
+    assert all(_kernels.launches[k] > 0 for k in (
+        "pair_wavefront", "select_best", "sig_expand", "sig_probe"))
+    assert (_kernels.launches["triple_wavefront"] > 0) == (triples == "auto")
+    assert [r.replace("-", "") for r in build_alignment(p, res.closed)] == list(p.seqs)
