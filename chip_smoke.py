@@ -24,13 +24,18 @@ Phases, each failing loudly (non-zero exit):
    the same steps on copies: t_sig, t_best, t_closed and the 14 counters
    must be identical (also with K5 on 1 and on 132 blocks); K3 alone
    against the plain select on globin6's packed table.  Kernel, plain and
-   bound times of K3, K4, K5 and the whole step, K3's library yardstick
-   (``--step-only`` stops after this phase).
+   bound times of K3, K4, K5 and the whole step, each kernel's device time
+   (CUPTI, torch.profiler) beside its event-timed wrapper call, the
+   empty-kernel launch floor, K3's library yardstick (torch.min) with its
+   own bound (``--step-baseline SRC`` builds the K3 and K4 sources of
+   another tree, checks them against these and times them in turns on the
+   same tables; ``--step-only`` stops after this phase).
 4. main path, kinase: the port's CLI entry with its defaults (--triples
    auto, --device cuda) must build 4 cubes and reach g = 421546 with a path
    whose recomputed cost equals g, degapped rows equal to the inputs, and
    K1, K2 and the step kernels K3-K5 launched; then the same with
-   --triples off (K1 and K3-K5 launched).
+   --triples off (K1 and K3-K5 launched); then synth6 (tests/data, N = 6,
+   63 masks a row) with the CLI's defaults on the sig layout: g = 272848.
 5. main path, test / test2 / PF08184, under auto and under off: golden g and
    byte-identical alignment.
 6. layouts: globin6, synth7 and synth10 (tests/data) through the CLI with
@@ -72,6 +77,7 @@ K2_OPS_PER_CELL = 7 * 12      # 7 moves x ~12 int32 ops per in-box cube cell
 # certified optima of the tests/data inputs beyond the sig layout
 # (tests/test_globin6.py, tests/test_beyond_reference.py)
 LAYOUT_INPUTS = {"globin6": 988171, "synth7": 402469, "synth10": 575615}
+SYNTH6_G = 272848  # tests/test_synth6.py
 STEP_KERNELS = ["select_best", "sig_expand", "sig_probe"]
 
 
@@ -95,6 +101,73 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def own_event(key: str) -> bool:
+    """A device event of the call under test in a torch.profiler window:
+    kernels and memsets, not the host's runtime calls, PyTorch's ops and
+    kernels, device copies (the restores between calls) or the session's
+    preamble."""
+    return (not key.startswith(("aten::", "cuda", "Memcpy")) and "at::native" not in key
+            and "spin_kernel" not in key)
+
+
+def profiler_preamble() -> None:
+    """What a torch.profiler session runs before the work it measures: 32
+    short spin kernels (torch.cuda._sleep), then 50 ms of host time.  A
+    session can miss the device events of its first moments (seen on the
+    card: the first 4 of 32 steps of a window); these take their place.
+    Their events are named spin_kernel and every count leaves them out."""
+    for _ in range(32):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
+def device_ms(fn, reps: int, restore=None, keep=own_event) -> float:
+    """Device milliseconds of one call of fn(): from torch.profiler's CUPTI
+    durations of the device events that ``keep`` takes, over ``reps``
+    calls (each after ``restore()``, whose copies and fills are left out),
+    the sum over event names of the mean duration times the launches a
+    call makes (the count over ``reps``, rounded), so that an event missed
+    or added at the session's edge does not move it.  A session that
+    recorded none is run again, at most twice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler_preamble()
+            for _ in range(reps):
+                if restore:
+                    restore()
+                fn()
+            torch.cuda.synchronize()
+        own = [e for e in prof.key_averages() if keep(e.key) and e.count]
+        per_call = sum(e.device_time_total / e.count * round(e.count / reps) for e in own)
+        if per_call > 0:
+            return per_call / 1e3
+        print(f"  (torch.profiler session {attempt + 1} recorded no device time for the "
+              f"call under test; run again)")
+    fail("torch.profiler recorded no device time for the call under test")
+
+
+def launch_floor(launches: int = 1, blocks: int = 132, threads: int = 512) -> dict:
+    """The empty-kernel launch floor: ``launches`` back-to-back launches of
+    an empty kernel of blocks x threads (plane_chain, csrc/triple_wavefront.cu)
+    from one ctypes call, as a wrapper call is timed (CUDA events, median of
+    20), and their device time (CUPTI)."""
+    from mpi_pastar_msa_tpu_torch._kernels import load
+
+    fn = load("triple_wavefront").plane_chain
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def go():
+        if fn(launches, blocks, threads, torch.cuda.current_stream().cuda_stream):
+            fail("plane_chain probe failed to launch")
+
+    return dict(launches=launches, blocks=blocks, threads=threads,
+                ms=time_ms(go, reps=20), device_ms=device_ms(go, 20))
 
 
 def rebuild_inputs(tmp: str) -> dict:
@@ -164,6 +237,7 @@ def check_k1(paths, baseline=None) -> dict:
         if err != 0:
             fail(f"K1 {label}: kernel differs from plain version (max |err| {err})")
         ms = time_ms(lambda: wavefront_tables(**args), reps=20)
+        dev_ms = device_ms(lambda: wavefront_tables(**args), 20)
         plain_ms = time_ms(lambda: wavefront_tables_plain(**args), reps=3, warmup=1)
         P, L1 = got.shape[0], got.shape[1]
         threads, rows_per_thread, shared = k1_launch_shape(L1 - 1)
@@ -190,7 +264,7 @@ def check_k1(paths, baseline=None) -> dict:
         chain_ms = time_ms(chain, reps=20)
         rows[label] = dict(P=P, Lmax=L1 - 1, threads=threads,
                            rows_per_thread=rows_per_thread, shared_bytes=shared,
-                           ms=ms, plain_ms=plain_ms,
+                           ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                            bound_ms=max(bytes_ms, ops_ms),
                            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                            chain_floor_ms=chain_ms, diagonals=steps,
@@ -200,7 +274,8 @@ def check_k1(paths, baseline=None) -> dict:
         per = lambda t: f"{t * 1e6 / steps:.1f} ns/diag"
         print(f"K1 {label}: P={P} Lmax={L1 - 1} threads={threads} rows/thread="
               f"{rows_per_thread} shared={shared} B exact; kernel {ms:.4f} ms "
-              f"({per(ms)}), plain {plain_ms:.2f} ms ({per(plain_ms)}), bound "
+              f"({per(ms)}; device {dev_ms:.4f} ms), plain {plain_ms:.2f} ms "
+              f"({per(plain_ms)}), bound "
               f"{max(bytes_ms, ops_ms):.5f} ms ({rows[label]['bound_by']}; "
               f"{per(max(bytes_ms, ops_ms))}), dependent-diagonal floor "
               f"{chain_ms:.4f} ms ({per(chain_ms)}, {steps} barrier steps of "
@@ -331,6 +406,7 @@ def check_k2(paths, baseline=None, variants=()) -> dict:
             fail(f"K2 {label}: kernel differs from plain version (max |err| {err})")
         del want, want_org
         ms = time_ms(lambda: triple_tables(**args), reps=10)
+        dev_ms = device_ms(lambda: triple_tables(**args), 10)
         plain_ms = time_ms(lambda: triple_tables_plain(**args), reps=3, warmup=1)
         T, S = args["cxy"].shape[0], args["cxy"].shape[-1]
         lens = args["lens"].cpu().long()
@@ -347,7 +423,8 @@ def check_k2(paths, baseline=None, variants=()) -> dict:
         floor_ms = chain_ms(shape.diagonals, shape.max_blocks, shape.threads)
         plane_blocks = -(-T * S * S // 256)
         plane_floor_ms = chain_ms(planes, plane_blocks, 256)
-        rows[label] = dict(T=T, S=S, lengths=lens.tolist(), ms=ms, plain_ms=plain_ms,
+        rows[label] = dict(T=T, S=S, lengths=lens.tolist(), ms=ms, device_ms=dev_ms,
+                           plain_ms=plain_ms,
                            bound_ms=max(bytes_ms, ops_ms),
                            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                            bytes_ms=bytes_ms, ops_ms=ops_ms, tile=shape.tile,
@@ -361,7 +438,8 @@ def check_k2(paths, baseline=None, variants=()) -> dict:
               f"origins); tile {shape.tile}, {shape.diagonals} tile diagonals, "
               f"{shape.blocks} blocks of {shape.threads} threads ({shape.max_blocks} "
               f"in the largest launch); kernel {ms:.4f} ms "
-              f"({ms * 1e3 / shape.diagonals:.2f} us/tile diagonal), plain "
+              f"({ms * 1e3 / shape.diagonals:.2f} us/tile diagonal; device "
+              f"{dev_ms:.4f} ms), plain "
               f"{plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.5f} ms (bytes "
               f"{bytes_ms:.5f}, operations {ops_ms:.5f}), dependent-launch floor "
               f"{floor_ms:.4f} ms ({shape.diagonals} empty launches of "
@@ -449,7 +527,181 @@ def warm_engine(path: str, triples: str, warm_steps: int):
     return eng, tab, ctr
 
 
-def step_kernels(paths) -> dict:
+def build_step_baseline(src: str, tmp: str):
+    """Build the K3 and K4 sources of another tree (``src``: a checkout's
+    root or its csrc/ directory; select_best.cu, sig_expand.cu and
+    step_state.cuh of the version with a memset and one block a group)
+    into their own directory, both nvcc at once.  Returns their C entries,
+    that version's: select_best(best, closed, C, B, n, f0, goal,
+    thr, run, slots, vmin, active, state, stream), a memset of the state
+    and two launches; sig_expand(t_sig, t_best, slots, vmin, active,
+    tables4, cubes, params, N, P, T, S, n, f0, ub, E, GG, O - E, bbits, B,
+    threads, run, counters, state, pend, stream), one block a group."""
+    import shutil
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    csrc = src if os.path.isfile(os.path.join(src, "select_best.cu")) else os.path.join(
+        src, "mpi_pastar_msa_tpu_torch", "csrc")
+    out = os.path.join(tmp, "step_baseline")
+    os.makedirs(out, exist_ok=True)
+    for f in ("select_best.cu", "sig_expand.cu", "step_state.cuh"):
+        shutil.copy(os.path.join(csrc, f), out)
+    jobs = {}
+    for name in ("select_best", "sig_expand"):
+        lib = os.path.join(out, f"lib{name}.so")
+        jobs[name] = (lib, subprocess.Popen(
+            [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib,
+             os.path.join(out, f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    argtypes = {"select_best": [P, P, I, I, I, L, P, P, P, P, P, P, P, P],
+                "sig_expand": [P] * 8 + [I] * 5 + [L, L] + [I] * 6 + [P] * 5}
+    fns = {}
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"step baseline: nvcc failed for {name}.cu of {src}:\n{log}")
+        fn = getattr(ctypes.CDLL(lib), name)
+        fn.argtypes = argtypes[name]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns["select_best"], fns["sig_expand"]
+
+
+def start_k3_phases_build(tmp: str):
+    """Start nvcc on csrc/select_best.cu with -DK3_PHASES (its measurement
+    build: three %globaltimer readings in the partials when a launch
+    ends) into ``tmp``; returns (proc, lib)."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    lib = os.path.join(tmp, "libselect_best_phases.so")
+    proc = subprocess.Popen(
+        [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-DK3_PHASES", "-o", lib,
+         os.path.join(_kernels.CSRC, "select_best.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def load_k3_phases(job):
+    """The K3_PHASES build's C entry (the same signature as select_best)."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    proc, lib = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc failed for the K3_PHASES build of select_best.cu:\n{log}")
+    fn = ctypes.CDLL(lib).select_best
+    fn.argtypes = _kernels.SIGNATURES["select_best"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def k3_phases(fn, args, partial, restore, reps: int = 20) -> dict:
+    """K3's two phases on this card: the K3_PHASES build run ``reps`` times
+    on the restored table; medians of the read pass (block 0's start to the
+    last block's start of the finish) and of the last block's finish, in
+    microseconds of %globaltimer."""
+    read, finish = [], []
+    for _ in range(reps):
+        restore()
+        if fn(*args):
+            fail("the K3_PHASES build failed to launch")
+        torch.cuda.synchronize()
+        t0, t1, t2 = partial.reshape(-1)[:3].tolist()
+        read.append((t1 - t0) / 1e3)
+        finish.append((t2 - t1) / 1e3)
+    return dict(read_pass_us=statistics.median(read), finish_us=statistics.median(finish))
+
+
+def step_baseline_turns(src, fns, st, ub, work, ctr, bufs, restore_tab, restore3, k3,
+                        k4) -> dict:
+    """Another tree's K3 and K4 (``fns``, build_step_baseline) on the
+    tables of this step: checked against this tree's kernels (K3's outputs,
+    t_closed and its state slots; K4's t_best, goal, surviving and pending
+    counts and its pending set), then timed in turns, old, new, new, old
+    (CUDA events around each wrapper call, median of 20), and by device
+    time (CUPTI)."""
+    from mpi_pastar_msa_tpu_torch.core.cost import GAP_EXTENSION, GAP_GAP
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    old_select, old_expand = fns
+    stream = torch.cuda.current_stream().cuda_stream
+    o_slots, o_vmin, o_active, o_state = (torch.empty_like(t) for t in (
+        bufs.slots, bufs.vmin, bufs.active, bufs.state))
+    o_pend = torch.empty_like(bufs.pend)
+    goal, thr = ctr[0], ctr[7]
+    threads = min(256, 32 * ((st.M + 31) // 32))
+
+    def old3():
+        if old_select(work.t_best.data_ptr(), work.t_closed.data_ptr(), st.C, st.B, st.nb,
+                      st.f0, goal.data_ptr(), thr.data_ptr(), bufs.run.data_ptr(),
+                      o_slots.data_ptr(), o_vmin.data_ptr(), o_active.data_ptr(),
+                      o_state.data_ptr(), stream):
+            fail(f"step baseline: K3 of {src} failed to launch")
+
+    def old4():
+        if old_expand(work.t_sig.data_ptr(), work.t_best.data_ptr(), o_slots.data_ptr(),
+                      o_vmin.data_ptr(), o_active.data_ptr(), st.d_tables4.data_ptr(),
+                      st.d_cubes.data_ptr() if st.T3 else None, bufs.params.data_ptr(),
+                      st.n, st.P, st.T3, st.S, st.nb, st.f0, int(ub), GAP_EXTENSION,
+                      GAP_GAP, st.gap_oe, st.bbits, st.B, threads, bufs.run.data_ptr(),
+                      ctr.data_ptr(), o_state.data_ptr(), o_pend.data_ptr(), stream):
+            fail(f"step baseline: K4 of {src} failed to launch")
+
+    restore_tab()
+    k3()
+    torch.cuda.synchronize()
+    new3 = [t.clone() for t in (bufs.slots, bufs.vmin, bufs.active, work.t_closed,
+                                bufs.state[:S.STATE_NVALID])]
+    restore_tab()
+    old3()
+    torch.cuda.synchronize()
+    old3_out = (o_slots, o_vmin, o_active, work.t_closed, o_state[:S.STATE_NVALID])
+    if not all(torch.equal(a, b) for a, b in zip(new3, old3_out)):
+        fail(f"step baseline: K3 of {src} differs from this one")
+    after_old3 = o_state.clone()
+
+    def restore_old3():
+        restore_tab()
+        o_state.copy_(after_old3)
+
+    def k4_result(state, pend):
+        n = int(state[S.STATE_NPEND])
+        return (work.t_best.clone(), ctr.clone(),
+                state[S.STATE_NVALID:S.STATE_NPEND + 1].clone(),
+                sorted(map(tuple, pend[:n].tolist())))
+
+    restore3()
+    k4()
+    torch.cuda.synchronize()
+    new4 = k4_result(bufs.state, bufs.pend)
+    restore_old3()
+    old4()
+    torch.cuda.synchronize()
+    got4 = k4_result(o_state, o_pend)
+    if not (all(torch.equal(a, b) for a, b in zip(new4[:3], got4[:3]))
+            and new4[3] == got4[3]):
+        fail(f"step baseline: K4 of {src} differs from this one")
+    k3_turns = [time_restored(f, restore_tab, 20) for f in (old3, k3, k3, old3)]
+    k4_turns = [time_restored(f, r, 20) for f, r in (
+        (old4, restore_old3), (k4, restore3), (k4, restore3), (old4, restore_old3))]
+    out = dict(source=src, k3_turns_ms=k3_turns, k4_turns_ms=k4_turns,
+               k3_old_device_ms=device_ms(old3, 20, restore_tab),
+               k3_new_device_ms=device_ms(k3, 20, restore_tab),
+               k4_old_device_ms=device_ms(old4, 20, restore_old3),
+               k4_new_device_ms=device_ms(k4, 20, restore3))
+    print(f"  baseline {src}: its K3 and K4 give the same outputs; in turns (old, new, "
+          f"new, old) K3 {' / '.join(f'{t:.4f}' for t in k3_turns)} ms, K4 "
+          f"{' / '.join(f'{t:.4f}' for t in k4_turns)} ms; device: K3 old "
+          f"{out['k3_old_device_ms']:.4f} new {out['k3_new_device_ms']:.4f} ms, K4 old "
+          f"{out['k4_old_device_ms']:.4f} new {out['k4_new_device_ms']:.4f} ms")
+    return out
+
+
+def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
     """The step kernels K3 -> K4 -> K5 against the plain step on the card:
     kinase under --triples auto (from step 150) and off (from step 400),
     1 and 32 steps from one table, through run_chunk_sig_cuda and through
@@ -457,8 +709,16 @@ def step_kernels(paths) -> dict:
     C slots) and the 14 counters must be identical.  The 1-step case also
     runs K5 on one block and on 132, which must not change anything.  Then
     K3 alone against _select_best_plain on globin6's packed table (step
-    60).  Times at kinase: K3, K4, K5 and the whole step, kernel and plain,
-    with their bounds by bytes, and K3's library yardstick."""
+    60).  Times at kinase: K3, K4, K5 and the whole step, kernel (CUDA
+    events around the wrapper call, and the device time from CUPTI) and
+    plain, with their bounds by bytes, and K3's library yardstick with its
+    own bound.  ``baseline`` is (source, (select, expand)) of another
+    tree's K3 and K4 (build_step_baseline): checked against these on the
+    same tables and timed in turns with them; ``floor`` the empty-kernel
+    launch floor, printed beside the kernels; ``phases`` the C entry of
+    K3's measurement build (load_k3_phases), which splits K3's time into
+    its read pass and its last block's finish."""
+    from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch.search import engine as E
     from mpi_pastar_msa_tpu_torch.search import step as S
 
@@ -516,8 +776,9 @@ def step_kernels(paths) -> dict:
             ctr[1] = 0
             bufs.run.fill_(1)
 
-        k3 = lambda: S._launch_select(st, work.t_best, work.t_closed, goal, thr,
-                                      bufs.run, bufs, stream)
+        # each kernel as the step loop launches it: its arguments bound once
+        k3 = _kernels.bind(*S._select_args(st, work.t_best, work.t_closed, goal, thr,
+                                           bufs.run, bufs, stream))
         k3_ms = time_restored(k3, restore_tab, 20)
         best0, closed0 = snap.t_best[:C], snap.t_closed[:C]
         k3_plain_ms = time_restored(
@@ -526,6 +787,10 @@ def step_kernels(paths) -> dict:
         is_open = (best0 < closed0) & ((best0 >> st.nb) < goal - st.f0)
         v_open = torch.where(is_open, best0, E.INFP).view(st.B, C // st.B)
         k3_lib_ms = time_ms(lambda: torch.min(v_open, dim=1), reps=20)
+        k3_lib_dev = device_ms(  # PyTorch's own kernels are the call under test here
+            lambda: torch.min(v_open, dim=1), 20,
+            keep=lambda k: (not k.startswith(("aten::", "cuda", "Memcpy"))
+                            and "spin_kernel" not in k))
         # after K3: its state, then K4
         restore_tab()
         k3()
@@ -535,7 +800,7 @@ def step_kernels(paths) -> dict:
             restore_tab()
             bufs.state.copy_(after3)
 
-        k4 = lambda: S._launch_expand(st, work, bufs, ctr, ub, stream)
+        k4 = _kernels.bind(*S._expand_args(st, work, bufs, ctr, ub, stream))
         k4_ms = time_restored(k4, restore3, 20)
         restore3()
         k4()
@@ -549,7 +814,7 @@ def step_kernels(paths) -> dict:
             bufs.state.copy_(after4)
             bufs.pend.copy_(pend)
 
-        k5 = lambda: S._launch_probe(st, work, bufs, ctr, fill, 0, stream)
+        k5 = _kernels.bind(*S._probe_args(st, work, bufs, ctr, fill, 0, stream))
         k5_ms = time_restored(k5, restore4, 20)
         restore4()
         k5()
@@ -559,6 +824,18 @@ def step_kernels(paths) -> dict:
                                          s5[S.STATE_NPEND], s5[S.STATE_CALLS])
         new_ways = int(((work.t_sig[:C] != -1).sum() - (snap.t_sig[:C] != -1).sum()))
         step_ms = time_restored(lambda: (k3(), k4(), k5()), restore_tab, 20)
+        # the device's own time of each (CUPTI), the same calls
+        if phases is not None:
+            row["k3_phases"] = k3_phases(phases, S._select_args(
+                st, work.t_best, work.t_closed, goal, thr, bufs.run, bufs, stream)[1:],
+                bufs.partial, restore_tab)
+        k3_dev = device_ms(k3, 20, restore_tab)
+        k4_dev = device_ms(k4, 20, restore3)
+        k5_dev = device_ms(k5, 20, restore4)
+        step_dev = device_ms(lambda: (k3(), k4(), k5()), 20, restore_tab)
+        if baseline is not None:
+            row["baseline"] = step_baseline_turns(*baseline, st, ub, work, ctr, bufs,
+                                                  restore_tab, restore3, k3, k4)
 
         # the plain pieces on the same table: _expand -> prune ->
         # _candidates_sig for K4 (after the plain select, not timed),
@@ -588,9 +865,16 @@ def step_kernels(paths) -> dict:
             lambda: E._run_chunk_plain(st, work, ctr0, 1, ub, fill, "sig",
                                        plain_select=True), restore_tab, 5)
         P, T = st.P, st.T3
-        bytes3 = C * 8 + st.B * 17 + n_sel * 4
-        bytes4 = (st.B + n_sel * (4 + 16 + 32 * P + 32 * T) + n_valid * 32
+        # K3: both tables read, slots/vmin/active written, the active slots
+        # closed and listed; K4: a list entry, a sig word, P T8 rows and 8T
+        # corners a row, a bucket row a surviving lane, then a t_best word
+        # or a pending entry
+        bytes3 = C * 8 + st.B * 17 + n_sel * (4 + 8)
+        bytes4 = (n_sel * (8 + 4 + 32 * P + 32 * T) + n_valid * 32
                   + (n_valid - n_pend) * 4 + n_pend * 12)
+        # the yardstick reads one int32 (B, G) array and writes B values and
+        # B int64 indices
+        lib_bytes = C * 4 + st.B * (4 + 8)
         # rows read: the lanes unsettled at the start of each call; writes:
         # one word a new key, one t_best word a lane settled by the probe
         live = n_pend + sum(s5[S.STATE_CNT + k] for k in range(max(calls - 1, 0)))
@@ -600,20 +884,37 @@ def step_kernels(paths) -> dict:
         row.update(
             selected=n_sel, lanes=n_valid, pending=n_pend, probe_calls=calls,
             new_ways=new_ways,
-            k3=dict(ms=k3_ms, plain_ms=k3_plain_ms, library_ms=k3_lib_ms,
+            k3=dict(ms=k3_ms, device_ms=k3_dev, plain_ms=k3_plain_ms, library_ms=k3_lib_ms,
+                    library_device_ms=k3_lib_dev, library_bytes=lib_bytes,
+                    library_bound_ms=ms(lib_bytes),
                     bound_ms=ms(bytes3), bytes=bytes3),
-            k4=dict(ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=ms(bytes4), bytes=bytes4),
-            k5=dict(ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=ms(bytes5), bytes=bytes5),
-            step=dict(ms=step_ms, plain_ms=step_plain_ms,
+            k4=dict(ms=k4_ms, device_ms=k4_dev, plain_ms=k4_plain_ms, bound_ms=ms(bytes4),
+                    bytes=bytes4),
+            k5=dict(ms=k5_ms, device_ms=k5_dev, plain_ms=k5_plain_ms, bound_ms=ms(bytes5),
+                    bytes=bytes5),
+            step=dict(ms=step_ms, device_ms=step_dev, plain_ms=step_plain_ms,
                       bound_ms=ms(bytes3 + bytes4 + bytes5)))
         print(f"  step {int(ctr0[2])}: {n_sel} rows, {n_valid} lanes, {n_pend} pending, "
-              f"{calls} probe calls, {new_ways} new keys; K3 {k3_ms:.4f} ms (plain "
-              f"{k3_plain_ms:.4f}, torch.min over (B, G) alone {k3_lib_ms:.4f}, bound "
-              f"{ms(bytes3):.5f}); K4 {k4_ms:.4f} ms (plain _expand -> prune -> "
-              f"_candidates_sig {k4_plain_ms:.4f}, bound {ms(bytes4):.5f}); K5 "
-              f"{k5_ms:.4f} ms (plain _insert_sig {k5_plain_ms:.4f}, bound "
-              f"{ms(bytes5):.5f}); step {step_ms:.4f} ms (plain {step_plain_ms:.4f}, "
-              f"bound {ms(bytes3 + bytes4 + bytes5):.5f}); all bounds by bytes")
+              f"{calls} probe calls, {new_ways} new keys; wrapper call (CUDA events) / "
+              f"device (CUPTI): K3 {k3_ms:.4f} / {k3_dev:.4f} ms (plain "
+              f"{k3_plain_ms:.4f}, bound {ms(bytes3):.5f}; torch.min over (B, G) "
+              f"alone {k3_lib_ms:.4f} / {k3_lib_dev:.4f} ms, {lib_bytes / 1e6:.1f} MB, "
+              f"its bound {ms(lib_bytes):.5f} ms = {100 * ms(lib_bytes) / k3_lib_dev:.1f}% "
+              f"of its device time); K4 "
+              f"{k4_ms:.4f} / {k4_dev:.4f} ms (plain _expand -> prune -> _candidates_sig "
+              f"{k4_plain_ms:.4f}, bound {ms(bytes4):.5f}); K5 {k5_ms:.4f} / "
+              f"{k5_dev:.4f} ms (plain _insert_sig {k5_plain_ms:.4f}, bound "
+              f"{ms(bytes5):.5f}); step {step_ms:.4f} / {step_dev:.4f} ms (plain "
+              f"{step_plain_ms:.4f}, bound {ms(bytes3 + bytes4 + bytes5):.5f}); all "
+              f"bounds by bytes")
+        if floor is not None:
+            print(f"  empty-kernel launch floor: {floor['ms']:.4f} ms (CUDA events around "
+                  f"one ctypes call), device {floor['device_ms']:.4f} ms")
+        if "k3_phases" in row:
+            ph = row["k3_phases"]
+            print(f"  K3 phases (K3_PHASES build, %globaltimer, median of 20): read pass "
+                  f"{ph['read_pass_us']:.3f} us ({C * 8 / ph['read_pass_us'] / 1e6:.3f} TB/s), "
+                  f"last block's finish {ph['finish_us']:.3f} us")
         out[triples] = row
         del tab0, work, snap, eng
 
@@ -703,6 +1004,7 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
         if counts[k] <= 0:
             fail(f"{name}: kernel {k} was not launched on the main path")
     info = dict(triples=triples, layout=eng.layout, cubes=cubes, g=res.g,
+                path_nodes=len(res.closed), pairs=eng.st.P, key_words=eng.st.KW,
                 identical=identical, expanded=res.nodes_expanded,
                 reopened=res.nodes_reopened, steps=res.steps,
                 capacity=eng.st.C, batch=eng.st.B, fill_target=eng.fill_target,
@@ -788,6 +1090,44 @@ def degenerate_input() -> dict:
     return dict(layout=eng.layout, g=res.g, expanded=res.nodes_expanded)
 
 
+def off_path_bounds(report: dict, kinase_path: str) -> dict:
+    """Bounds by bytes (each input read once, each output written once,
+    over HBM_BYTES_PER_S) of the device work not yet ported, from this
+    run's shapes and counts:
+    - K7, the walk (``_walk`` / ``_lookup_sig``) of kinase --triples auto:
+      per path node the 64 bucket rows of its probe walk, t_sig and t_best
+      (8 ways x 4 B each);
+    - the packed step at globin6, per step of its run: the select's two
+      tables and its outputs (C x 8 B + B x 17 B), per selected row its
+      key row, P T8 rows and T x 8 cube corners, per surviving lane its
+      home key row and one t_best word;
+    - K8, the Gotoh fill at kinase: for each pair, three (n+1)(m+1) int32
+      matrices written (the sequences read are negligible)."""
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+
+    ms = lambda b: b / HBM_BYTES_PER_S * 1e3
+    k = report["kinase"]
+    walk = k["path_nodes"] * 64 * 8 * (4 + 4)
+    g6 = report["globin6_auto"]
+    steps, P, T, KW = g6["steps"], g6["pairs"], g6["cubes"], g6["key_words"]
+    lanes = int(g6["acct"]["lanes_true"])
+    packed = (steps * (g6["capacity"] * 8 + g6["batch"] * 17)
+              + g6["expanded"] * (KW * 4 + 32 * P + 32 * T) + lanes * (KW * 4 + 4)) / steps
+    lens = [len(q) for q in problem_from_fasta(kinase_path).seqs]
+    gotoh = sum(3 * 4 * (lens[x] + 1) * (lens[y] + 1)
+                for x in range(len(lens)) for y in range(x + 1, len(lens)))
+    out = dict(k7_walk=dict(path_nodes=k["path_nodes"], bytes=walk, bound_ms=ms(walk)),
+               packed_step=dict(steps=steps, lanes=lanes, bytes_per_step=packed,
+                                bound_ms=ms(packed)),
+               k8_gotoh=dict(lengths=lens, bytes=gotoh, bound_ms=ms(gotoh)))
+    print(f"bounds by bytes of the work not yet ported: K7 walk at kinase "
+          f"{k['path_nodes']} path nodes, {walk / 1e6:.2f} MB, {ms(walk):.5f} ms; "
+          f"packed step at globin6 {packed / 1e6:.2f} MB a step ({steps} steps, "
+          f"{lanes} lanes), {ms(packed):.5f} ms; K8 Gotoh fill at kinase "
+          f"{gotoh / 1e6:.2f} MB, {ms(gotoh):.5f} ms")
+    return out
+
+
 def profile_search(name: str, path: str, triples: str, warm_steps: int,
                    steps: int, plain: bool = False) -> dict:
     """Where a mid-search step spends its time under ``triples`` (in the
@@ -824,6 +1164,7 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
     before = ctr.tolist()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3 / (before[2] - s0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_preamble()
         t0 = time.perf_counter()
         ctr = run(ctr)
         after = ctr.tolist()
@@ -835,9 +1176,12 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
     # calls (cudaLaunchKernel, ...) can carry a device time of their own:
     # busy time and launches count the kernels (and memcpy/memset) alone
     kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
-                   if not e.key.startswith(("aten::", "cuda"))), key=lambda r: -r[1])
+                   if not e.key.startswith(("aten::", "cuda")) and "spin_kernel" not in e.key),
+                  key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kern)
     reads = sum(c for k, _, c in kern if k.startswith("Memcpy DtoH"))
+    memsets = sum(c for k, _, c in kern if k.startswith("Memset"))
+    selects = sum(c for k, _, c in kern if "select_kernel" in k)
     label = "plain step" if plain else "engine"
     print(f"profile {name} --triples {triples} (layout {eng.layout}, {label}): steps "
           f"{s0}..{before[2]} unprofiled {plain_wall_ms:.3f} "
@@ -845,8 +1189,8 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
           f"ms/step, device busy {busy_ms / n:.3f} ms/step "
           f"({100 * busy_ms / (wall * 1e3):.1f}% of wall; idle "
           f"{100 - 100 * busy_ms / (wall * 1e3):.1f}%), "
-          f"{sum(c for _, _, c in kern) / n:.1f} launches and {reads / n:.2f} host "
-          f"reads a step")
+          f"{sum(c for _, _, c in kern) / n:.1f} launches ({selects / n:.2f} K3 kernels, "
+          f"{memsets / n:.2f} memsets) and {reads / n:.2f} host reads a step")
     for key, ms, cnt in kern[:12]:
         print(f"  {ms / n:8.4f} ms/step  {cnt / n:7.1f} launches/step  {key[:90]}")
     ops = sorted(((e.key, e.device_time_total / 1e3) for e in events
@@ -859,6 +1203,7 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
                          for k, ms, c in kern[:25]],
                 aten_ops=[dict(name=k, ms_per_step=ms / n) for k, ms in ops[:25]],
                 launches_per_step=sum(c for _, _, c in kern) / n,
+                k3_kernels_per_step=selects / n, memsets_per_step=memsets / n,
                 host_reads_per_step=reads / n)
 
 
@@ -881,6 +1226,13 @@ def main() -> int:
                          "csrc/triple_wavefront.cu compiled for the tile "
                          "BIxBJxBK, check it at kinase and time it in turns "
                          "with this one (repeatable)")
+    ap.add_argument("--step-baseline", metavar="SRC", default=None,
+                    help="also build the K3 and K4 sources (select_best.cu, "
+                         "sig_expand.cu, step_state.cuh; the C entries of the "
+                         "version with a memset and one block a group) of "
+                         "the tree SRC (a checkout's root or its csrc/), check "
+                         "them against these on the kinase step tables and "
+                         "time them in turns with these")
     ap.add_argument("--step-only", action="store_true",
                     help="run the device, build and step-kernel phases only "
                          "(a quick check of K3-K5; prints no result line)")
@@ -907,10 +1259,16 @@ def main() -> int:
 
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    # 2. build
+    # 2. build: the kernels and, beside them, K3's measurement build
     t0 = time.perf_counter()
-    logs = _kernels.build_all()
-    print(f"build: {len(logs)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
+    phases_tmp = tempfile.TemporaryDirectory()
+    phases_job = start_k3_phases_build(phases_tmp.name)
+    try:
+        logs = _kernels.build_all()
+    finally:
+        phases = load_k3_phases(phases_job)
+    print(f"build: {len(logs)} kernel source(s) and K3's K3_PHASES build in "
+          f"{time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
              for line in log.splitlines()
              if "entry function" in line or "registers" in line or "spill" in line]
@@ -925,8 +1283,13 @@ def main() -> int:
         if args.k1_baseline:
             baseline = (args.k1_baseline,
                         build_baseline_k1(os.path.abspath(args.k1_baseline), tmp))
+        step_baseline = None
+        if args.step_baseline:
+            src = os.path.abspath(args.step_baseline)
+            step_baseline = (args.step_baseline, build_step_baseline(src, tmp))
+        report["launch_floor"] = floor = launch_floor()
         if args.step_only:
-            report["step"] = step_kernels(paths)
+            report["step"] = step_kernels(paths, step_baseline, floor, phases)
             print(json.dumps({"step": report["step"]}, default=str))
             return 0  # a partial run: no kernels line and no result line
         report["k1"] = check_k1(paths, baseline)
@@ -939,7 +1302,7 @@ def main() -> int:
             tile = tuple(int(v) for v in tile.split("x"))
             variants.append((tile, src, build_variant_k2(tile, os.path.abspath(src), tmp)))
         report["k2"] = check_k2(paths, k2_baseline, variants)
-        report["step"] = step_kernels(paths)
+        report["step"] = step_kernels(paths, step_baseline, floor, phases)
         # 4. / 5. main path (CLI defaults: --triples auto), then pairwise
         report["kinase"] = main_path("kinase", paths["kinase.fasta"],
                                      gold["kinase.fasta"], False, "auto")
@@ -947,6 +1310,9 @@ def main() -> int:
             fail(f"kinase: {report['kinase']['cubes']} cubes, want 4")
         report["kinase_off"] = main_path("kinase", paths["kinase.fasta"],
                                          gold["kinase.fasta"], False, "off")
+        # N = 6 on the sig layout: 63 masks a row, two passes of a warp in K4
+        report["synth6"] = main_path("synth6", data_path("synth6"),
+                                     data_gold("synth6", SYNTH6_G), False, "auto")
         for name in ("test.fasta", "test2.fasta", "PF08184.fasta"):
             for triples in ("auto", "off"):
                 report[f"{name}_{triples}"] = main_path(
@@ -963,6 +1329,7 @@ def main() -> int:
                 report[f"{name}_{layout}"] = pinned_layout(
                     name, paths[name], gold[name], layout, True)
         report["degenerate"] = degenerate_input()
+        report["off_path_bounds"] = off_path_bounds(report, paths["kinase.fasta"])
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
             # and the plain step on the same windows, the step before K3-K5
@@ -978,6 +1345,7 @@ def main() -> int:
             report["profile_globin6"] = profile_search(
                 "globin6", data_path("globin6"), "auto", 60, 32)
 
+    phases_tmp.cleanup()
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
@@ -985,12 +1353,16 @@ def main() -> int:
 
     k1, k2 = report["k1"]["kinase"], report["k2"]["kinase"]
     launches = report["kinase"]["launches"]  # the main path's run
+    # launch floors: K1's call is two launches, K2's its tile diagonals'
+    # dependent launches, K3-K5 one each
+    k1_floor = launch_floor(2)["ms"]
     kernels = [{
         "name": "pair_wavefront", "route": "cuda",
         "source": "mpi_pastar_msa_tpu_torch/csrc/pair_wavefront.cu",
         "replaces": "mpi_pastar_msa_tpu/heuristic/wavefront_pallas.py:35",
         "launches": launches["pair_wavefront"],
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "device_ms": k1["device_ms"],
+        "launch_floor_ms": k1_floor,
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
     }, {
@@ -998,7 +1370,8 @@ def main() -> int:
         "source": "mpi_pastar_msa_tpu_torch/csrc/triple_wavefront.cu",
         "replaces": "mpi_pastar_msa_tpu/heuristic/triples.py:194",
         "launches": launches["triple_wavefront"],
-        "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+        "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "device_ms": k2["device_ms"],
+        "launch_floor_ms": k2["chain_floor_ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,
     }]
@@ -1017,6 +1390,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"mpi_pastar_msa_tpu_torch/csrc/{name}.cu", "replaces": replaces,
             "launches": launches[name], "max_abs_err": step_err, "ms": t["ms"],
+            "device_ms": t["device_ms"], "launch_floor_ms": floor["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": t.get("library_ms")})
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")

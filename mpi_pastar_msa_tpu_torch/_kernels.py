@@ -37,13 +37,13 @@ SIGNATURES: Dict[str, List] = {
     "triple_wavefront": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                          _I, _I, _I, _P],
     # t_best, t_closed, C, B, n, f0, goal, thr, run (or null), slots, vmin,
-    # active, state, stream
-    "select_best": [_P, _P, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P],
-    # t_sig, t_best, slots, vmin, active, tables4, cubes, params, N, P, T,
-    # S, n, f0, ub, E, GG, O - E, bbits, B, threads, run, counters, state,
-    # pending list, stream
-    "sig_expand": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
-                   _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # active, compact list, partials, their capacity, ticket, state, stream
+    "select_best": [_P, _P, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                    _P, _P, _P],
+    # t_sig, t_best, compact list, tables4, cubes, params, N, P, T, S, n, f0,
+    # ub, E, GG, O - E, bbits, B, run, counters, state, pending list, stream
+    "sig_expand": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I,
+                   _I, _I, _I, _P, _P, _P, _P, _P],
     # t_sig, t_best, pending list, lane_cur, lane_dest, lane_word, bbits,
     # max bucket probes, max calls, fill target, run, counters, state,
     # blocks, stream
@@ -127,11 +127,25 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def bind(name: str, *args):
+    """A launcher of one kernel with its arguments fixed: the C entry point
+    is resolved and the arguments converted to their ctypes once, so a loop
+    that launches the same kernel on the same buffers pays that once.  Each
+    call of the launcher is a ``launch``."""
+    fn = getattr(load(name), name)
+    cargs = tuple(t(a) for t, a in zip(SIGNATURES[name], args, strict=True))
+
+    def go() -> None:
+        status = fn(*cargs)
+        if status != 0:
+            raise RuntimeError(f"CUDA kernel {name} failed to launch: error {status}")
+        launches[name] += 1
+
+    return go
+
+
 def launch(name: str, *args) -> None:
     """Call a kernel's C entry point and count the launch; raises on a
     non-zero CUDA status (a refused launch never runs, and a later
     synchronize would not report it)."""
-    status = getattr(load(name), name)(*args)
-    if status != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {status}")
-    launches[name] += 1
+    bind(name, *args)()

@@ -15,120 +15,350 @@
 //
 // What bounds it on an H100: bytes.  It must read t_best and t_closed once,
 // 2 x 4 B x 2^23 = 67.1 MB at kinase, 20.0 us at 3.35 TB/s; the outputs
-// are B x 17 B.
+// are B x 17 B and the compact list 8 B an active row.
 //
-// Design: two launches from one C call, after a memset of the step's state
-// vector (step_state.cuh).
-//  - group_argmin: one block of 256 threads per group; neighbouring threads
-//    read neighbouring words (coalesced).  Each thread keeps the 64-bit key
-//    (word << 32) | index, so a plain min of keys is the argmin with the
-//    first index on ties; warp shuffles and one shared word per warp reduce
-//    the block.  The block writes its slot and word, adds its open count,
-//    and folds its min into the global one with one atomicMax of INFP - min
-//    (the state is zeroed, so no group means INFP).
-//  - select_finish: blocks run in no order, so the cut needs the global min
-//    of every group: a second launch, one thread per group, applies the
-//    cut, closes the active slots (read before the write, for the reopen
-//    count) and adds its block's counts.
+// Design: ONE launch a step, no memset, no atomic on a shared word but the
+// ticket.
+//  - Read pass: a fixed grid (one 512-thread block a multiprocessor, or as
+//    many as fit) whose warps stride over the groups.  For G a multiple of
+//    128 a warp takes a group and each lane issues all its 128-bit loads of
+//    t_best and t_closed (G / 128 of each, up to kVec) before it reduces
+//    them; other G take L = min(32, pow2 <= G) lanes a group and 32 / L
+//    groups a warp, with scalar loads.  A lane keeps its min word and, on
+//    ties, its first index (it visits its slots in index order); a warp
+//    merges the 64-bit keys (word << 32) | index with shuffles, so a plain
+//    min is the first-index argmin.  The warp writes its groups' slot and
+//    min; the block writes one partial (min, open count) to scratch.
+//  - Finish, in the same launch: the last block to take a ticket
+//    (__threadfence, then atomicAdd; it resets the ticket to 0) reduces the
+//    partials, forms the cut, flags every group, scans the flags (group
+//    order, so the same list every run), closes the active slots (read
+//    before the write, for the reopen count) and writes the compact list of
+//    active rows (slot, word) that K4 walks, the step's state slots and 0
+//    in every slot of K4 and K5.
 // A null `run` flag runs the selection; a flag that reads 0 (the search
-// step loop of search/step.py has stopped) makes both launches return at
-// once.
+// step loop of search/step.py has stopped) returns every block before it
+// touches the ticket.
+//
+// Built with -DK3_PHASES (a measurement build of chip_smoke.py, never the
+// one the port loads), the kernel also leaves three %globaltimer readings
+// in partial[0..2] when it ends: block 0's start, the last block's start of
+// the finish, and its end.
+
+#include <stdint.h>
 
 #include "step_state.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kVec = 8;    // int4 loads of each table a lane keeps in flight
+constexpr int kItems = 16; // groups a thread of the last block flags a round
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ unsigned long long umin64(unsigned long long a,
-                                                     unsigned long long b) {
-  return a < b ? a : b;
+__device__ __forceinline__ long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
 }
 
-__global__ void __launch_bounds__(kThreads) group_argmin(
-    const int32_t* __restrict__ best, const int32_t* __restrict__ closed, int G, int nb,
-    long long f0, const long long* __restrict__ goal, const int32_t* __restrict__ run,
-    long long* __restrict__ slots, long long* __restrict__ vmin,
-    long long* __restrict__ state) {
-  __shared__ unsigned long long skey[kThreads / 32];
-  __shared__ long long red[32];
-  if (run != nullptr && *run == 0) return;
-  const int b = blockIdx.x;
-  const long long lim = *goal - f0;
-  const size_t base = (size_t)b * G;
-  unsigned long long key = ~0ull;
-  long long n_open = 0;
-  for (int j = threadIdx.x; j < G; j += kThreads) {
-    const int32_t w = best[base + j];
-    const bool open = w < closed[base + j] && (long long)(w >> nb) < lim;
-    n_open += open;
-    key = umin64(key, ((unsigned long long)(open ? w : step::kInfp) << 32) | (unsigned)j);
+// min of 64-bit keys over segments of `width` lanes (a power of two <= 32)
+__device__ __forceinline__ unsigned long long seg_min(unsigned long long k, int width) {
+  for (int o = width >> 1; o > 0; o >>= 1) {
+    const unsigned long long x = __shfl_xor_sync(kFull, k, o, width);
+    k = x < k ? x : k;
   }
-  for (int o = 16; o > 0; o >>= 1) key = umin64(key, __shfl_down_sync(0xffffffffu, key, o));
-  if ((threadIdx.x & 31) == 0) skey[threadIdx.x >> 5] = key;
-  const long long opened = step::block_sum(n_open, red);  // syncs the block
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) key = umin64(key, skey[w]);
-    const long long v = (long long)(key >> 32);
-    slots[b] = (long long)base + (long long)(key & 0xffffffffu);
-    vmin[b] = v;
-    atomicMax((unsigned long long*)&state[step::kGmax], (unsigned long long)(step::kInfp - v));
-    atomicAdd((unsigned long long*)&state[step::kNOpen], (unsigned long long)opened);
+  return k;
+}
+
+// one slot into a lane's running (min word, its first index) and open count
+__device__ __forceinline__ void visit(int32_t w, int32_t c, int nb, long long lim, int idx,
+                                      uint32_t& bv, uint32_t& bi, uint32_t& n) {
+  const bool open = w < c && (long long)(w >> nb) < lim;
+  const uint32_t v = open ? (uint32_t)w : (uint32_t)step::kInfp;
+  n += open;
+  if (v < bv) {
+    bv = v;
+    bi = (uint32_t)idx;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) select_finish(
-    int32_t* __restrict__ closed, int B, int nb, long long f0,
-    const long long* __restrict__ thr, const int32_t* __restrict__ run,
-    const long long* __restrict__ slots, long long* __restrict__ vmin,
-    uint8_t* __restrict__ active, long long* __restrict__ state) {
-  __shared__ long long red[32];
-  if (run != nullptr && *run == 0) return;
-  const long long fmin_r = (step::kInfp - state[step::kGmax]) >> nb;
-  long long lim = fmin_r + *thr + 1;
-  if (lim > (step::kInfp >> nb)) lim = step::kInfp >> nb;
-  const long long cut = (lim << nb) - 1;
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b == 0) state[step::kFmin] = fmin_r + f0;
-  bool act = false, reopen = false;
-  if (b < B) {
-    const long long v = vmin[b];
-    act = v <= cut;  // an empty group holds INFP > cut
-    if (act) {
-      const long long s = slots[b];
-      reopen = closed[s] < step::kInfp;
-      closed[s] = (int32_t)v;
+// exclusive scan of one int a thread over the block; returns the prefix,
+// `total` gets the sum.  Syncs the block.
+__device__ __forceinline__ int block_scan(int x, int* wsum, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = x;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) wsum[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int s = lane < kWarps ? wsum[lane] : 0;
+    int si = s;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, si, o);
+      if (lane >= o) si += y;
     }
-    vmin[b] = act ? v : step::kInfp;
-    active[b] = act;
+    if (lane < kWarps) wsum[lane] = si - s;
+    if (lane == 31) *total = si;
   }
-  const long long n_sel = step::block_sum(act, red);
-  const long long n_re = step::block_sum(reopen, red);
+  __syncthreads();
+  return wsum[warp] + inc - x;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) select_kernel(
+    const int32_t* __restrict__ best, int32_t* __restrict__ closed, int B, int G, int vec,
+    int nb, long long f0, const long long* __restrict__ goal,
+    const long long* __restrict__ thr, const int32_t* __restrict__ run,
+    long long* __restrict__ slots, long long* __restrict__ vmin, uint8_t* __restrict__ active,
+    int32_t* __restrict__ sel, long long* __restrict__ partial, unsigned* __restrict__ ticket,
+    long long* __restrict__ state) {
+  __shared__ uint32_t s_min[kWarps];
+  __shared__ uint32_t s_cnt[kWarps];
+  __shared__ int s_off[kItems * kWarps];
+  __shared__ int s_wsum[32];
+  __shared__ int s_total;
+  __shared__ int s_last;
+  if (run != nullptr && *run == 0) return;
+#ifdef K3_PHASES
+  const long long t_start = globaltimer();
+#endif
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long lim = *goal - f0;
+  const int gw = blockIdx.x * kWarps + warp, nw = gridDim.x * kWarps;
+  uint32_t wmin = (uint32_t)step::kInfp, wopen = 0;
+
+  // 1. read pass
+  if (vec) {
+    // a warp a group: all G / 128 int4 of each table a lane (up to kVec at
+    // a time) in flight before the reduction
+    const int nq = G >> 2;
+    for (int b = gw; b < B; b += nw) {
+      const int4* pb = reinterpret_cast<const int4*>(best + (size_t)b * G);
+      const int4* pc = reinterpret_cast<const int4*>(closed + (size_t)b * G);
+      uint32_t bv = (uint32_t)step::kInfp, bi = 0, n = 0;
+      for (int q0 = 0; q0 < nq; q0 += 32 * kVec) {
+        int4 wb[kVec], wc[kVec];
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          const int q = q0 + lane + 32 * i;
+          if (q < nq) {
+            wb[i] = pb[q];
+            wc[i] = pc[q];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          const int q = q0 + lane + 32 * i;
+          if (q < nq) {
+            visit(wb[i].x, wc[i].x, nb, lim, 4 * q, bv, bi, n);
+            visit(wb[i].y, wc[i].y, nb, lim, 4 * q + 1, bv, bi, n);
+            visit(wb[i].z, wc[i].z, nb, lim, 4 * q + 2, bv, bi, n);
+            visit(wb[i].w, wc[i].w, nb, lim, 4 * q + 3, bv, bi, n);
+          }
+        }
+      }
+      const unsigned long long key = seg_min(((unsigned long long)bv << 32) | bi, 32);
+      wopen += n;
+      if (lane == 0) {
+        slots[b] = (long long)b * G + (long long)(key & 0xffffffffu);
+        vmin[b] = (long long)(key >> 32);
+      }
+      wmin = min(wmin, (uint32_t)(key >> 32));
+    }
+  } else {
+    // L lanes a group, 32 / L groups a warp
+    const int L = G >= 32 ? 32 : 1 << (31 - __clz(G));
+    const int gpw = 32 / L, seg = lane / L, sl = lane % L;
+    for (long long t = gw; t * gpw < B; t += nw) {
+      const long long b = t * gpw + seg;
+      uint32_t bv = (uint32_t)step::kInfp, bi = 0, n = 0;
+      if (b < B) {
+        const int32_t* pb = best + b * G;
+        const int32_t* pc = closed + b * G;
+        for (int j = sl; j < G; j += L) visit(pb[j], pc[j], nb, lim, j, bv, bi, n);
+      }
+      const unsigned long long key = seg_min(((unsigned long long)bv << 32) | bi, L);
+      wopen += n;
+      if (b < B) {
+        if (sl == 0) {
+          slots[b] = b * G + (long long)(key & 0xffffffffu);
+          vmin[b] = (long long)(key >> 32);
+        }
+        wmin = min(wmin, (uint32_t)(key >> 32));
+      }
+    }
+  }
+  wmin = __reduce_min_sync(kFull, wmin);
+  wopen = __reduce_add_sync(kFull, wopen);
+  if (lane == 0) {
+    s_min[warp] = wmin;
+    s_cnt[warp] = wopen;
+  }
+  __threadfence();  // this block's slots and mins before its ticket
+  __syncthreads();
   if (threadIdx.x == 0) {
-    atomicAdd((unsigned long long*)&state[step::kNSel], (unsigned long long)n_sel);
-    atomicAdd((unsigned long long*)&state[step::kReopen], (unsigned long long)n_re);
+    uint32_t m = (uint32_t)step::kInfp;
+    long long c = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      m = min(m, s_min[w]);
+      c += s_cnt[w];
+    }
+    partial[2 * blockIdx.x] = m;
+    partial[2 * blockIdx.x + 1] = c;
+#ifdef K3_PHASES
+    if (blockIdx.x == 0) partial[2 * gridDim.x] = t_start;
+#endif
+    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
+  __syncthreads();
+  if (!s_last) return;
+
+  // 2. finish: the last block.  Reads of what other blocks wrote in this
+  // launch go to L2 (__ldcg).
+  __threadfence();
+#ifdef K3_PHASES
+  const long long t_finish = globaltimer();
+  const long long t_first = __ldcg(&partial[2 * gridDim.x]);
+#endif
+  uint32_t m = (uint32_t)step::kInfp;
+  long long c = 0;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kThreads) {
+    m = min(m, (uint32_t)__ldcg(&partial[2 * i]));
+    c += __ldcg(&partial[2 * i + 1]);
+  }
+  m = __reduce_min_sync(kFull, m);
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(kFull, c, o);
+  __syncthreads();
+  if (lane == 0) {
+    s_min[warp] = m;
+    s_cnt[warp] = (uint32_t)c;  // open words <= C <= 2^31
+  }
+  __syncthreads();
+  long long n_open = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    m = min(m, s_min[w]);
+    n_open += s_cnt[w];
+  }
+  const long long fmin_r = (long long)m >> nb;
+  long long lim_f = fmin_r + *thr + 1;
+  if (lim_f > (step::kInfp >> nb)) lim_f = step::kInfp >> nb;
+  const long long cut = (lim_f << nb) - 1;
+
+  // rounds of kItems groups a thread: b = r0 + k * kThreads + thread
+  const int32_t* vmin32 = reinterpret_cast<const int32_t*>(vmin);  // low words
+  const int32_t* slots32 = reinterpret_cast<const int32_t*>(slots);  // slots < 2^31
+  int base = 0;
+  uint32_t n_re = 0;
+  for (int r0 = 0; r0 < B; r0 += kItems * kThreads) {
+    int32_t v[kItems], s[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int b = r0 + k * kThreads + threadIdx.x;
+      v[k] = b < B ? __ldcg(&vmin32[2 * b]) : (int32_t)step::kInfp;
+      s[k] = b < B ? __ldcg(&slots32[2 * b]) : 0;
+    }
+    uint32_t bits = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int b = r0 + k * kThreads + threadIdx.x;
+      const bool act = v[k] <= cut;  // an empty group holds INFP > cut
+      if (b < B) {
+        active[b] = act;
+        if (!act) vmin[b] = step::kInfp;
+      }
+      bits |= (uint32_t)act << k;
+      const unsigned bal = __ballot_sync(kFull, act);
+      if (lane == 0) s_off[k * kWarps + warp] = __popc(bal);
+    }
+    __syncthreads();
+    // the list position of each (k, warp) run, in group order
+    const int e = threadIdx.x;
+    const int cnt = e < kItems * kWarps ? s_off[e] : 0;
+    const int pre = block_scan(cnt, s_wsum, &s_total);
+    if (e < kItems * kWarps) s_off[e] = base + pre;
+    __syncthreads();
+    base += s_total;
+    int32_t old[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) old[k] = (bits >> k & 1) ? closed[s[k]] : 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const bool act = bits >> k & 1;
+      const unsigned bal = __ballot_sync(kFull, act);
+      if (act) {
+        const int at = s_off[k * kWarps + warp] + __popc(bal & ((1u << lane) - 1u));
+        n_re += old[k] < step::kInfp;
+        closed[s[k]] = v[k];
+        reinterpret_cast<int2*>(sel)[at] = make_int2(s[k], v[k]);
+      }
+    }
+    __syncthreads();  // s_off and s_total are rewritten by the next round
+  }
+  n_re = __reduce_add_sync(kFull, n_re);
+  if (lane == 0) s_cnt[warp] = n_re;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long re = 0;
+    for (int w = 0; w < kWarps; ++w) re += s_cnt[w];
+    state[step::kGmax] = step::kInfp - (long long)m;
+    state[step::kNOpen] = n_open;
+    state[step::kNSel] = base;
+    state[step::kReopen] = re;
+    state[step::kFmin] = fmin_r + f0;
+    *ticket = 0;
+#ifdef K3_PHASES
+    partial[0] = t_first;
+    partial[1] = t_finish;
+    partial[2] = globaltimer();
+#endif
+  }
+  for (int k = step::kNValid + threadIdx.x; k < step::kWords; k += kThreads) state[k] = 0;
 }
 
 }  // namespace
 
 // best, closed: (>= C,) int32 tables; goal, thr: int64 device scalars;
 // run: int32 device flag or null; slots, vmin: (B,) int64 and active: (B,)
-// uint8 outputs; state: (step::kWords,) int64, zeroed here.
+// uint8 outputs; sel: (B, 2) int32 compact list of the active rows (slot,
+// word), its length in state[kNSel]; partial: (max_blocks, 2) int64
+// scratch; ticket: one uint32, 0 before the launch and after it; state:
+// (step::kWords,) int64, every slot written here.
 extern "C" int select_best(const void* best, void* closed, int C, int B, int nb, long long f0,
                            const void* goal, const void* thr, const void* run, void* slots,
-                           void* vmin, void* active, void* state, void* stream) {
-  if (B < 1 || C < B || C % B != 0 || nb < 1 || nb > 30) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(state, 0, step::kWords * sizeof(long long), s);
-  if (e != cudaSuccess) return (int)e;
-  group_argmin<<<B, kThreads, 0, s>>>(
-      (const int32_t*)best, (const int32_t*)closed, C / B, nb, f0, (const long long*)goal,
-      (const int32_t*)run, (long long*)slots, (long long*)vmin, (long long*)state);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  select_finish<<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      (int32_t*)closed, B, nb, f0, (const long long*)thr, (const int32_t*)run,
-      (const long long*)slots, (long long*)vmin, (uint8_t*)active, (long long*)state);
+                           void* vmin, void* active, void* sel, void* partial, int max_blocks,
+                           void* ticket, void* state, void* stream) {
+  if (B < 1 || C < B || C % B != 0 || nb < 1 || nb > 30 || max_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  static int most = 0;  // co-resident blocks on the card (one card a process)
+  if (most == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, select_kernel, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    most = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int G = C / B;
+  const int vec = G % 128 == 0 && (((uintptr_t)best | (uintptr_t)closed) & 15) == 0;
+  const int L = G >= 32 ? 32 : 1 << (31 - __builtin_clz((unsigned)G));
+  const long long tasks = vec ? B : (B + 32 / L - 1) / (32 / L);
+  long long blocks = (tasks + kWarps - 1) / kWarps;
+  if (blocks > most) blocks = most;
+#ifdef K3_PHASES
+  if (blocks > max_blocks - 1) blocks = max_blocks - 1;  // room for block 0's start
+#else
+  if (blocks > max_blocks) blocks = max_blocks;
+#endif
+  select_kernel<<<(int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)best, (int32_t*)closed, B, G, vec, nb, f0, (const long long*)goal,
+      (const long long*)thr, (const int32_t*)run, (long long*)slots, (long long*)vmin,
+      (uint8_t*)active, (int32_t*)sel, (long long*)partial, (unsigned*)ticket,
+      (long long*)state);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 // between them, and the helpers they share.  search/step.py names the same
 // slots (STATE_*); the two lists must agree.
 //
-// The select's C entry zeroes the whole vector at the start of every step,
-// so every slot below is a count or a min/max accumulator of this step.
+// The select (K3) writes every slot once a step: its own five when it has
+// reduced the table, 0 in the rest (from kNValid on), which K4 and K5 then
+// accumulate.  So every slot below is a count or a min of this step.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,9 +14,9 @@
 namespace step {
 
 constexpr long long kInfp = 0x7FFFFFFF;  // empty / infinite packed word
-constexpr int kGmax = 0;    // max over groups of INFP - group min (K3)
+constexpr int kGmax = 0;    // INFP - the min over groups of the group min (K3)
 constexpr int kNOpen = 1;   // open words in the table (K3)
-constexpr int kNSel = 2;    // selected (active) rows (K3)
+constexpr int kNSel = 2;    // selected (active) rows: the compact list's length (K3)
 constexpr int kReopen = 3;  // active rows whose slot was closed before (K3)
 constexpr int kFmin = 4;    // f-min of this step, f0 added (K3)
 constexpr int kNValid = 5;  // candidate lanes that survive the prune (K4)

@@ -8,15 +8,17 @@ The JAX engine runs its whole search loop as one compiled program
 step as three hand-written kernels, launched back to back on the current
 stream with no host read between them:
 
-  K3 ``csrc/select_best.cu``  grouped argmin, cut and close (one memset and
-                              two launches; ``select_best_cuda``, also the
-                              packed layout's select on the card)
-  K4 ``csrc/sig_expand.cu``   decode, expand, prune, sig-encode and the
-                              round-0 row match of the insert; unmatched
-                              lanes go to a pending list (``_launch_expand``)
+  K3 ``csrc/select_best.cu``  grouped argmin, cut and close in one launch,
+                              and the compact list of the active rows
+                              (``select_best_cuda``, also the packed
+                              layout's select on the card)
+  K4 ``csrc/sig_expand.cu``   over that list: decode, expand, prune,
+                              sig-encode and the round-0 row match of the
+                              insert; unmatched lanes go to a pending list
+                              (``_expand_args``)
   K5 ``csrc/sig_probe.cu``    the claimless bucket probe of the pending
                               lanes, then the step's 14 counters and the
-                              run flag (``_launch_probe``)
+                              run flag (``_probe_args``)
 
 The step loop (``run_chunk_sig_cuda``, K6 of the JAX loop) keeps the 14
 counters in a device int64 vector, as the JAX ``while_loop`` does, and the
@@ -30,8 +32,9 @@ bit: ``chip_smoke.py`` holds them to each other on the card.
 
 The wrappers (``select_best_cuda``, ``run_chunk_sig_cuda``) check devices,
 dtypes and sizes and raise ValueError on anything the kernels do not take;
-nothing falls back to the plain code.  The ``_launch_*`` functions launch
-one kernel each on checked buffers.
+nothing falls back to the plain code.  The ``_*_args`` functions give one
+kernel's C arguments on checked buffers; a chunk binds them once
+(``_kernels.bind``) and launches each kernel ``chunk_steps`` times.
 """
 from __future__ import annotations
 
@@ -48,6 +51,10 @@ STATE_GMAX, STATE_NOPEN, STATE_NSEL, STATE_REOPEN, STATE_FMIN = 0, 1, 2, 3, 4
 STATE_NVALID, STATE_NPEND, STATE_CALLS, STATE_CNT = 5, 6, 7, 8
 MAX_CALLS = 128
 STATE_WORDS = STATE_CNT + MAX_CALLS
+# K3's block partials: room for more blocks than the card holds at once
+K3_MAX_BLOCKS = 1024
+# K4's C entry takes N <= 24 (2^24 - 1 masks a row)
+K4_MAX_N = 24
 
 
 def _stream(dev) -> int:
@@ -95,18 +102,18 @@ def select_best_cuda(st: _Static, t_best, t_closed, goal_g, thr, run=None,
         _check(run, "run", dev, torch.int32)
     if bufs is None:
         bufs = StepBuffers.select_only(st, dev)
-    _launch_select(st, t_best, t_closed, goal, thr, run, bufs, _stream(dev))
+    _kernels.launch(*_select_args(st, t_best, t_closed, goal, thr, run, bufs, _stream(dev)))
     s = bufs.state
     return (bufs.slots, bufs.vmin, bufs.active, s[STATE_FMIN], s[STATE_NOPEN],
             s[STATE_NSEL], s[STATE_REOPEN])
 
 
-def _launch_select(st, t_best, t_closed, goal, thr, run, bufs, stream) -> None:
-    _kernels.launch("select_best", t_best.data_ptr(), t_closed.data_ptr(), st.C, st.B,
-                    st.nb, st.f0, goal.data_ptr(), thr.data_ptr(),
-                    None if run is None else run.data_ptr(), bufs.slots.data_ptr(),
-                    bufs.vmin.data_ptr(), bufs.active.data_ptr(), bufs.state.data_ptr(),
-                    stream)
+def _select_args(st, t_best, t_closed, goal, thr, run, bufs, stream) -> tuple:
+    return ("select_best", t_best.data_ptr(), t_closed.data_ptr(), st.C, st.B, st.nb,
+            st.f0, goal.data_ptr(), thr.data_ptr(), None if run is None else run.data_ptr(),
+            bufs.slots.data_ptr(), bufs.vmin.data_ptr(), bufs.active.data_ptr(),
+            bufs.sel.data_ptr(), bufs.partial.data_ptr(), bufs.partial.shape[0],
+            bufs.ticket.data_ptr(), bufs.state.data_ptr(), stream)
 
 
 @dataclass
@@ -115,6 +122,10 @@ class StepBuffers:
 
     slots, vmin (B,) int64, active (B,) bool: K3's outputs
     state (STATE_WORDS,) int64: the step's counts (csrc/step_state.cuh)
+    sel (B, 2) int32: K3's compact list of active rows (slot, packed word),
+        its length in state[STATE_NSEL]; K4 walks it
+    partial (K3_MAX_BLOCKS, 2) int64, ticket (1,) int32: K3's block
+        partials and the ticket of its last block (0 between launches)
     run (1,) int32: the step loop's run flag
     pend (B * M, 3) int32: K4's pending lanes (home, sig base, packed)
     lane_cur, lane_dest, lane_word (B * M,) int32: K5's lane state
@@ -124,6 +135,9 @@ class StepBuffers:
     vmin: torch.Tensor
     active: torch.Tensor
     state: torch.Tensor
+    sel: torch.Tensor
+    partial: torch.Tensor
+    ticket: torch.Tensor
     run: torch.Tensor = None
     pend: torch.Tensor = None
     lane_cur: torch.Tensor = None
@@ -133,11 +147,19 @@ class StepBuffers:
 
     @classmethod
     def select_only(cls, st: _Static, dev) -> "StepBuffers":
+        """New outputs; the scratch (sel, partial, ticket) is made once a
+        table (``st``) and shared by every select on it."""
         B = st.B
+        scratch = getattr(st, "_select_scratch", None)
+        if scratch is None or scratch[2].device != dev:
+            scratch = (torch.empty((B, 2), dtype=torch.int32, device=dev),
+                       torch.empty((K3_MAX_BLOCKS, 2), dtype=torch.int64, device=dev),
+                       torch.zeros(1, dtype=torch.int32, device=dev))
+            st._select_scratch = scratch
         return cls(torch.empty(B, dtype=torch.int64, device=dev),
                    torch.empty(B, dtype=torch.int64, device=dev),
                    torch.empty(B, dtype=torch.bool, device=dev),
-                   torch.empty(STATE_WORDS, dtype=torch.int64, device=dev))
+                   torch.empty(STATE_WORDS, dtype=torch.int64, device=dev), *scratch)
 
     @classmethod
     def for_step(cls, st: _Static, dev) -> "StepBuffers":
@@ -188,26 +210,24 @@ def _check_step(st: _Static, tab, counters):
         _check(st.d_cubes, "cubes", dev, torch.int32, st.T3 * st.S ** 3)
     if not st.sig_ok:
         raise ValueError("the sig step kernels need a sig-eligible table (sig_ok)")
+    if st.n > K4_MAX_N:
+        raise ValueError(f"K4 takes at most {K4_MAX_N} sequences, got {st.n}")
     return dev
 
 
-def _launch_expand(st, tab, bufs, counters, ub, stream) -> None:
-    threads = min(256, 32 * ((st.M + 31) // 32))
-    _kernels.launch(
-        "sig_expand", tab.t_sig.data_ptr(), tab.t_best.data_ptr(), bufs.slots.data_ptr(),
-        bufs.vmin.data_ptr(), bufs.active.data_ptr(), st.d_tables4.data_ptr(),
-        st.d_cubes.data_ptr() if st.T3 else None, bufs.params.data_ptr(), st.n, st.P,
-        st.T3, st.S, st.nb, st.f0, int(ub), GAP_EXTENSION, GAP_GAP, st.gap_oe, st.bbits,
-        st.B, threads, bufs.run.data_ptr(), counters.data_ptr(), bufs.state.data_ptr(),
-        bufs.pend.data_ptr(), stream)
+def _expand_args(st, tab, bufs, counters, ub, stream) -> tuple:
+    return ("sig_expand", tab.t_sig.data_ptr(), tab.t_best.data_ptr(), bufs.sel.data_ptr(),
+            st.d_tables4.data_ptr(), st.d_cubes.data_ptr() if st.T3 else None,
+            bufs.params.data_ptr(), st.n, st.P, st.T3, st.S, st.nb, st.f0, int(ub),
+            GAP_EXTENSION, GAP_GAP, st.gap_oe, st.bbits, st.B, bufs.run.data_ptr(),
+            counters.data_ptr(), bufs.state.data_ptr(), bufs.pend.data_ptr(), stream)
 
 
-def _launch_probe(st, tab, bufs, counters, fill, blocks, stream) -> None:
-    _kernels.launch(
-        "sig_probe", tab.t_sig.data_ptr(), tab.t_best.data_ptr(), bufs.pend.data_ptr(),
-        bufs.lane_cur.data_ptr(), bufs.lane_dest.data_ptr(), bufs.lane_word.data_ptr(),
-        st.bbits, st.max_bprobes, st.max_probes, int(fill), bufs.run.data_ptr(),
-        counters.data_ptr(), bufs.state.data_ptr(), int(blocks), stream)
+def _probe_args(st, tab, bufs, counters, fill, blocks, stream) -> tuple:
+    return ("sig_probe", tab.t_sig.data_ptr(), tab.t_best.data_ptr(), bufs.pend.data_ptr(),
+            bufs.lane_cur.data_ptr(), bufs.lane_dest.data_ptr(), bufs.lane_word.data_ptr(),
+            st.bbits, st.max_bprobes, st.max_probes, int(fill), bufs.run.data_ptr(),
+            counters.data_ptr(), bufs.state.data_ptr(), int(blocks), stream)
 
 
 def run_chunk_sig_cuda(st: _Static, tab: SigTable, counters: torch.Tensor,
@@ -225,8 +245,13 @@ def run_chunk_sig_cuda(st: _Static, tab: SigTable, counters: torch.Tensor,
     counters[1] = 0
     bufs.run.copy_(((counters[0] > 0) & (counters[6] == 0)).view(1))
     goal, thr, stream = counters[0], counters[7], _stream(dev)
+    # the same pointers every step: bind each kernel's arguments once
+    select = _kernels.bind(*_select_args(st, tab.t_best, tab.t_closed, goal, thr, bufs.run,
+                                         bufs, stream))
+    expand = _kernels.bind(*_expand_args(st, tab, bufs, counters, ub, stream))
+    probe = _kernels.bind(*_probe_args(st, tab, bufs, counters, fill, blocks, stream))
     for _ in range(chunk_steps):
-        _launch_select(st, tab.t_best, tab.t_closed, goal, thr, bufs.run, bufs, stream)
-        _launch_expand(st, tab, bufs, counters, ub, stream)
-        _launch_probe(st, tab, bufs, counters, fill, blocks, stream)
+        select()
+        expand()
+        probe()
     return counters

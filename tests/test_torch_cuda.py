@@ -255,19 +255,14 @@ def sig_engine(name, device, **kw):
     return FrontierSearch(p, HPairHeuristic.build(p, device), device=device, **kw)
 
 
-@pytest.mark.parametrize("thr,goal_off,empty,ties", [
-    (0, 10**9, 0.0, False), (2**20, 10**9, 0.3, False),
-    (40, 900, 0.5, False), (0, 10**9, 0.0, True), (2**20, 10**9, 1.0, False)],
-    ids=["thr0", "thr2^20-empty-groups", "goal-cut", "all-ties", "all-empty"])
-def test_k3_equals_plain(cuda, thr, goal_off, empty, ties):
+def k3_tables(st, device, empty=0.0, ties=False, seed=7):
+    """t_best and t_closed (C + TRASH,) on ``device`` for a select: half the
+    slots used, whole groups empty with probability ``empty``, some closed,
+    some reopened; ``ties`` gives every used slot one word."""
     from mpi_pastar_msa_tpu_torch.search import engine as E
-    from mpi_pastar_msa_tpu_torch.search import step as S
 
-    st = sig_engine("PF08184.fasta", "cpu", batch=256, capacity=1 << 16,
-                    triples="off").st
-    st.device = cuda
     C, B, nb = st.C, st.B, st.nb
-    rs = np.random.RandomState(7)
+    rs = np.random.RandomState(seed)
     best = np.full(C + E.TRASH, E.INFP, dtype=np.int32)
     closed = best.copy()
     used = (rs.rand(C) < 0.5) & np.repeat(rs.rand(B) >= empty, C // B)
@@ -278,9 +273,23 @@ def test_k3_equals_plain(cuda, thr, goal_off, empty, ties):
     closed[:C][used & (u < 0.3)] = best[:C][used & (u < 0.3)]
     reo = used & (u >= 0.3) & (u < 0.5)
     closed[:C][reo] = best[:C][reo] + (5 << nb)
-    goal = st.f0 + goal_off
-    t_best = torch.from_numpy(best).to(cuda)
-    a, b = torch.from_numpy(closed).to(cuda), torch.from_numpy(closed).to(cuda)
+    return torch.from_numpy(best).to(device), torch.from_numpy(closed).to(device)
+
+
+def k3_statics(device, G=256):
+    """PF08184's statics at 2^16 slots, B = 2^16 / G groups, on ``device``."""
+    st = sig_engine("PF08184.fasta", "cpu", batch=(1 << 16) // G, capacity=1 << 16,
+                    triples="off").st
+    assert st.C // st.B == G
+    st.device = device
+    return st
+
+
+def assert_k3_equals_plain(st, t_best, closed, goal, thr):
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    a, b = closed.clone(), closed.clone()
     before = _kernels.launches["select_best"]
     got = S.select_best_cuda(st, t_best, a, goal, thr)
     want = E._select_best_plain(st, t_best, b, goal, thr)
@@ -288,7 +297,57 @@ def test_k3_equals_plain(cuda, thr, goal_off, empty, ties):
     assert _kernels.launches["select_best"] == before + 1
     for x, y in zip(got, want):
         assert torch.equal(x.cpu(), y.cpu())
-    assert torch.equal(a[:C].cpu(), b[:C].cpu())
+    assert torch.equal(a[:st.C].cpu(), b[:st.C].cpu())
+    # the compact list: the active rows (slot, word) in group order
+    bufs = S.StepBuffers.select_only(st, t_best.device)
+    rows = torch.nonzero(want[2])[:, 0]
+    n = int(want[5])
+    assert torch.equal(bufs.sel[:n].long().cpu(),
+                       torch.stack([want[0][rows], want[1][rows]], 1).cpu())
+    assert int(bufs.ticket) == 0
+
+
+@pytest.mark.parametrize("thr,goal_off,empty,ties", [
+    (0, 10**9, 0.0, False), (2**20, 10**9, 0.3, False),
+    (40, 900, 0.5, False), (0, 10**9, 0.0, True), (2**20, 10**9, 1.0, False)],
+    ids=["thr0", "thr2^20-empty-groups", "goal-cut", "all-ties", "all-empty"])
+def test_k3_equals_plain(cuda, thr, goal_off, empty, ties):
+    st = k3_statics(cuda)
+    t_best, closed = k3_tables(st, cuda, empty, ties)
+    assert_k3_equals_plain(st, t_best, closed, st.f0 + goal_off, thr)
+
+
+@pytest.mark.parametrize("G", [1, 2, 1024])
+def test_k3_group_sizes_equal_plain(cuda, G):
+    # G = 1: 65536 groups, eight rounds of the last block; G = 2: 16 groups
+    # a warp; G = 1024: a warp a group, 8 int4 loads of each table a lane
+    st = k3_statics(cuda, G)
+    t_best, closed = k3_tables(st, cuda, 0.2, seed=G)
+    assert_k3_equals_plain(st, t_best, closed, st.f0 + 10**9, 40)
+
+
+def test_k3_run_flag_zero_touches_nothing(cuda):
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    st = k3_statics(cuda)
+    t_best, closed = k3_tables(st, cuda, 0.2)
+    bufs = S.StepBuffers.select_only(st, cuda)
+    for t in (bufs.slots, bufs.vmin, bufs.state):
+        t.fill_(-3)
+    bufs.active.fill_(True)
+    run = torch.zeros(1, dtype=torch.int32, device=cuda)
+    seen = [t.clone() for t in (t_best, closed, bufs.slots, bufs.vmin, bufs.active,
+                                bufs.state)]
+    S.select_best_cuda(st, t_best, closed, st.f0 + 10**9, 40, run=run, bufs=bufs)
+    torch.cuda.synchronize()
+    after = (t_best, closed, bufs.slots, bufs.vmin, bufs.active, bufs.state)
+    assert all(torch.equal(x, y) for x, y in zip(seen, after))
+    assert int(bufs.ticket) == 0
+    # the same buffers with the flag at 1: the plain select's outputs
+    run.fill_(1)
+    got = S.select_best_cuda(st, t_best, closed, st.f0 + 10**9, 40, run=run, bufs=bufs)
+    torch.cuda.synchronize()
+    assert int(got[5]) > 0 and int(bufs.ticket) == 0
 
 
 def clone_sig(tab):
@@ -322,6 +381,29 @@ def test_step_kernels_equal_plain_step_kinase(cuda, triples, warm):
                                 plain_select=True)
         assert_same_step(st, ka, kc, pa, pc)
         assert int(kc[2]) == int(ctr[2]) + n
+
+
+@pytest.mark.parametrize("steps", [1, 32])
+def test_step_kernels_equal_plain_step_synth6(cuda, steps):
+    # N = 6: 63 masks a row, two passes of a warp in K4
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    p = problem_from_fasta(os.path.join(HERE, "data", "synth6.fasta"))
+    eng = E.FrontierSearch(p, HPairHeuristic.build(p, cuda), device=cuda)
+    st = eng.st
+    assert eng.layout == "sig" and st.M == 63
+    tab = eng._init_table()
+    ctr = E._run_chunk(st, tab, torch.as_tensor(E.fresh_counters(), device=cuda), 40,
+                       eng.ub, eng.fill_target, "sig")
+    ka, pa = clone_sig(tab), clone_sig(tab)
+    kc = S.run_chunk_sig_cuda(st, ka, ctr, steps, eng.ub, eng.fill_target)
+    pc = E._run_chunk_plain(st, pa, ctr, steps, eng.ub, eng.fill_target, "sig",
+                            plain_select=True)
+    assert_same_step(st, ka, kc, pa, pc)
+    assert int(kc[2]) == int(ctr[2]) + steps
 
 
 def test_step_kernels_overflow_like_plain(cuda):

@@ -12,11 +12,14 @@ against the plain step (all values exact integers: zero tolerance).
 - K5's schedule: every call's reads, then its writes, lanes visited in a
   random order within each phase, unsigned min on the words, gives the
   plain insert's table and counters, also on an overflowing table;
-- K4's lane -> (row, mask) mapping with its per-pair cost, the goal found
-  before the prune and the round-0 row match, against the plain
+- K4's schedule (warps over K3's compact list in a random order, masks in
+  passes of 32 lanes) with its per-pair cost, the goal found before the
+  prune and the round-0 row match, against the plain
   _expand -> prune -> _candidates_sig -> round 0 and against JAX
-  _expand / _sig_encode;
-- K3's 64-bit (word, index) keys against _select_best_plain;
+  _expand / _sig_encode, at N = 3 to 6;
+- K3's schedule (lanes, warps and blocks of the read pass, per-block
+  partials, the last block's cut and compact list) against
+  _select_best_plain and JAX _select_sig, at G = 1 to 1024 slots a group;
 - the step loop with its run flag on the device (K6) against
   _run_chunk_plain, chunk by chunk to the goal;
 - every word _sig_encode can store at kinase's and PF08184's widths is
@@ -37,7 +40,7 @@ from mpi_pastar_msa_tpu.heuristic import triples as JT
 from mpi_pastar_msa_tpu.heuristic.hpair import HPairHeuristic as JHPair
 from mpi_pastar_msa_tpu.search import engine as JE
 from mpi_pastar_msa_tpu_torch.core.cost import GAP_EXTENSION, GAP_GAP
-from mpi_pastar_msa_tpu_torch.core.problem import Problem
+from mpi_pastar_msa_tpu_torch.core.problem import Problem, problem_from_fasta
 from mpi_pastar_msa_tpu_torch.heuristic import triples as TT
 from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
 from mpi_pastar_msa_tpu_torch.search import engine as TE
@@ -207,29 +210,85 @@ def mix32(x):
     return x ^ (x >> 16)
 
 
-def emu_select(st, sig, best, closed, goal, thr):
-    """csrc/select_best.cu: the (word << 32 | index) key of every open slot,
-    min per group, the global min as INFP - max(INFP - group min), then
-    the cut; closes the active slots in ``closed`` (a NumPy int32 array).
-    Returns (slots, vmin, active, fmin, n_open, n_sel, reopen)."""
+# csrc/select_best.cu's kThreads, kVec and kItems, and the read pass's
+# lanes a group (test_k3_constants_match_source checks them)
+K3_THREADS, K3_VEC, K3_ITEMS = 512, 8, 16
+K3_WARPS = K3_THREADS // 32
+
+
+def k3_lanes(G, aligned=True):
+    """(vec, L): the vector path (a warp a group, int4 loads) or L lanes a
+    group and 32 / L groups a warp, as select_best's C entry picks them."""
+    vec = G % 128 == 0 and aligned
+    return vec, 32 if G >= 32 else 1 << (G.bit_length() - 1)
+
+
+def emu_select(st, sig, best, closed, goal, thr, blocks=132, aligned=True, rng=None):
+    """csrc/select_best.cu's schedule, warp by warp and block by block.
+    Read pass: each lane's (min word, first index) over its slots (a warp a
+    group with 4 slots a lane per int4, or L lanes a group), merged as
+    (word << 32 | index) keys, the warp's groups strided over ``blocks``
+    blocks of K3_WARPS warps, one (min, open count) partial a block.
+    Finish: a random block is last; it reduces the partials, forms the cut
+    and flags the groups in rounds of K3_ITEMS a thread, scans the (item,
+    warp) counts into list positions and closes the active slots in
+    ``closed`` (a NumPy int32 array).  Returns (slots, vmin, active, fmin,
+    n_open, n_sel, reopen, sel), sel the compact list (n_sel, 2) of (slot,
+    word) in list order."""
+    rng = rng or np.random.default_rng(0)
     C, B, nb = st.C, st.B, st.nb
     G = C // B
     w = best[:C].astype(np.int64)
     is_open = (w < closed[:C]) & ((w >> nb) < goal - st.f0)
-    key = ((np.where(is_open, w, INFP).astype(np.uint64) << np.uint64(32))
-           | np.tile(np.arange(G, dtype=np.uint64), B))
-    kmin = key.reshape(B, G).min(axis=1)
+    v = np.where(is_open, w, INFP).reshape(B, G)
+    vec, L = k3_lanes(G, aligned)
+    j = np.arange(G)
+    lane = (j // 4) % 32 if vec else j % L
+    # a lane starts from (INFP, 0) and takes a slot on a strictly smaller
+    # word, visiting its slots in index order
+    key = np.where(v < INFP, (v.astype(np.uint64) << np.uint64(32)) | j.astype(np.uint64),
+                   np.uint64(INFP) << np.uint64(32))
+    lanes = 32 if vec else L
+    lane_key = np.stack([key[:, lane == k].min(axis=1) for k in range(lanes)], 1)
+    kmin = lane_key.min(axis=1)  # the shuffle merge of the lanes' keys
     vmin = (kmin >> np.uint64(32)).astype(np.int64)
     slots = np.arange(B, dtype=np.int64) * G + (kmin & np.uint64(M32)).astype(np.int64)
-    gmin = INFP - (INFP - vmin).max()
+    opens = is_open.reshape(B, G).sum(axis=1)
+    # groups -> warps -> blocks: warp gw takes tasks gw, gw + nw, ...
+    gpw = 1 if vec else 32 // L
+    nw = blocks * K3_WARPS
+    block_of = (np.arange(B) // gpw % nw) // K3_WARPS
+    p_min = np.full(blocks, INFP, dtype=np.int64)
+    p_cnt = np.zeros(blocks, dtype=np.int64)
+    np.minimum.at(p_min, block_of, vmin)
+    np.add.at(p_cnt, block_of, opens)
+    # the finish, by whichever block takes the last ticket
+    order = rng.permutation(blocks)
+    gmin, n_open = int(p_min[order].min()), int(p_cnt[order].sum())
     fmin_r = gmin >> nb
     cut = (min(fmin_r + thr + 1, INFP >> nb) << nb) - 1
-    active = vmin <= cut
-    reopen = int((active & (closed[slots] < INFP)).sum())
-    closed[slots[active]] = vmin[active]
+    active = np.zeros(B, dtype=bool)
+    sel = np.zeros((B, 2), dtype=np.int64)
+    base = reopen = 0
+    t = np.arange(K3_THREADS)
+    for r0 in range(0, B, K3_ITEMS * K3_THREADS):
+        b = r0 + np.arange(K3_ITEMS)[:, None] * K3_THREADS + t  # (item, thread)
+        inside = b < B
+        act = inside & (np.where(inside, vmin[np.minimum(b, B - 1)], INFP) <= cut)
+        by_warp = act.reshape(K3_ITEMS, K3_WARPS, 32)
+        counts = by_warp.sum(axis=2).reshape(-1)  # (item, warp) runs, item-major
+        off = base + np.cumsum(counts) - counts
+        below = np.cumsum(by_warp, axis=2) - by_warp  # active lanes below
+        pos = off.reshape(K3_ITEMS, K3_WARPS, 1) + below
+        for bb, at in zip(b[act], pos.reshape(K3_ITEMS, K3_THREADS)[act]):
+            active[bb] = True
+            s_ = slots[bb]
+            reopen += int(closed[s_] < INFP)
+            closed[s_] = vmin[bb]
+            sel[at] = (s_, vmin[bb])
+        base += int(counts.sum())
     vmin = np.where(active, vmin, INFP)
-    return (slots, vmin, active, fmin_r + st.f0, int(is_open.sum()),
-            int(active.sum()), reopen)
+    return (slots, vmin, active, fmin_r + st.f0, n_open, base, reopen, sel[:base])
 
 
 class KernelStatics:
@@ -248,27 +307,30 @@ class KernelStatics:
         self.cubes = st.d_cubes.numpy() if st.T3 else None
 
 
-def emu_expand(ks, sig, best, slots, vmin, active, goal, ub, rng):
-    """csrc/sig_expand.cu, block by block and mask by mask in a random
-    order: decode, stage, cost per pair, goal before the prune, sig
-    encoding, round-0 match (min into ``best``).  Returns (goal, pending
-    lanes [(home, sig base, packed)], lanes that survive the prune,
-    per-lane records {(row, m): (f, valid, home, sig base)})."""
+def emu_expand(ks, sig, best, sel, goal, ub, rng):
+    """csrc/sig_expand.cu: warps over K3's compact list ``sel`` of (slot,
+    word) rows, visited in a random order; a warp decodes its row, stages
+    its T8 rows and cube corners, then runs the masks in passes of 32 lanes
+    (lanes in a random order within a pass): cost per pair, goal before the
+    prune, sig encoding, round-0 match (min into ``best``); a pass's
+    unmatched lanes take consecutive places of the pending list, in lane
+    order, at one atomic.  Returns (goal, pending lanes [(home, sig base,
+    packed)], lanes that survive the prune, per-lane records {(group,
+    m): (f, valid, home, sig base)})."""
     st = ks.st
     S, N, nb, f0 = st.S, st.n, st.nb, st.f0
     E, GG, gap_oe = GAP_EXTENSION, GAP_GAP, st.gap_oe
+    G = st.C // st.B
     bmask = st.nbuck - 1
     pend, n_valid, lanes = [], 0, {}
-    for b in rng.permutation(st.B):
-        if not active[b]:
-            continue
-        slot = int(slots[b])
+    for i in rng.permutation(len(sel)):
+        slot, v = int(sel[i][0]), int(sel[i][1])
         word = int(sig[slot]) & M32
         r, khi = word & 63, word >> 6
         home = ((slot >> 3) - r) & bmask
         klo = (((home ^ (mix32(khi) & bmask)) * 0x0E8B2F51) & M32) & bmask
         key = klo | (khi << st.bbits)
-        coord = [(key >> ks.shift[i]) & ((1 << st.bitw[i]) - 1) for i in range(N)]
+        coord = [(key >> ks.shift[k]) & ((1 << st.bitw[k]) - 1) for k in range(N)]
         t8 = []
         for p in range(st.P):
             cx = min(max(coord[ks.xs[p]], 0), S - 2)
@@ -281,43 +343,49 @@ def emu_expand(ks, sig, best, slots, vmin, active, goal, ub, rng):
                                                      + cy + (q >> 1 & 1)) * S
                                        + cz + (q & 1)]) for q in range(8)])
         h_par = sum(t8[p][0] * ks.wh[p] for p in range(st.P)) + sum(c[0] for c in cube)
-        v = int(vmin[b])
         par = v & ((1 << nb) - 1)
         g = (v >> nb) + f0 - h_par
-        for m in rng.permutation(np.arange(1, st.M + 1)).tolist():
-            cost = h = 0
-            for p in range(st.P):
-                bx, by = m >> ks.xs[p] & 1, m >> ks.ys[p] & 1
-                w = ks.w[p]
-                cost += w * (GG + (E - GG) * (bx + by) + (bx & by) * (t8[p][4] + GG - 2 * E))
-                cost += gap_oe * w * (bx * (1 - by) * (par >> ks.ys[p] & 1)
-                                      + (1 - bx) * by * (par >> ks.xs[p] & 1))
-                h += t8[p][2 * bx + by] * ks.wh[p]
-            for t, (x, y, z) in enumerate(ks.tri):
-                h += cube[t][4 * (m >> x & 1) + 2 * (m >> y & 1) + (m >> z & 1)]
-            child = [coord[i] + (m >> i & 1) for i in range(N)]
-            valid = all(c <= f for c, f in zip(child, ks.final))
-            is_goal = child == ks.final
-            gc = g + cost
-            fc = gc + h
-            if is_goal:
-                goal = min(goal, gc)  # before the prune
-            valid = valid and fc <= ub
-            hm = sb = None
-            if valid:
-                n_valid += 1
-                ck = sum(c << s for c, s in zip(child, ks.shift))
-                clo, chi = ck & bmask, (ck >> st.bbits) & M32
-                hm = ((clo * 0x9E3779B1) & bmask) ^ (mix32(chi) & bmask)
-                sb = (chi << 6) & M32
-                packed = ((fc - f0) << nb) | m
-                row = [int(x) & M32 for x in sig[hm * 8: hm * 8 + 8]]
-                if sb in row:
-                    at = hm * 8 + row.index(sb)
-                    best[at] = min(int(best[at]), packed)
-                else:
-                    pend.append((hm, sb, packed))
-            lanes[(int(b), m)] = (fc, valid, hm, sb)
+        for m0 in range(1, st.M + 1, 32):
+            pass_pend = {}
+            for lane in rng.permutation(32).tolist():
+                m = m0 + lane
+                if m > st.M:
+                    continue
+                cost = h = 0
+                for p in range(st.P):
+                    bx, by = m >> ks.xs[p] & 1, m >> ks.ys[p] & 1
+                    w = ks.w[p]
+                    cost += w * (GG + (E - GG) * (bx + by)
+                                 + (bx & by) * (t8[p][4] + GG - 2 * E))
+                    cost += gap_oe * w * (bx * (1 - by) * (par >> ks.ys[p] & 1)
+                                          + (1 - bx) * by * (par >> ks.xs[p] & 1))
+                    h += t8[p][2 * bx + by] * ks.wh[p]
+                for t, (x, y, z) in enumerate(ks.tri):
+                    h += cube[t][4 * (m >> x & 1) + 2 * (m >> y & 1) + (m >> z & 1)]
+                child = [coord[k] + (m >> k & 1) for k in range(N)]
+                valid = all(c <= f for c, f in zip(child, ks.final))
+                is_goal = child == ks.final
+                gc = g + cost
+                fc = gc + h
+                if is_goal:
+                    goal = min(goal, gc)  # before the prune
+                valid = valid and fc <= ub
+                hm = sb = None
+                if valid:
+                    n_valid += 1
+                    ck = sum(c << s for c, s in zip(child, ks.shift))
+                    clo, chi = ck & bmask, (ck >> st.bbits) & M32
+                    hm = ((clo * 0x9E3779B1) & bmask) ^ (mix32(chi) & bmask)
+                    sb = (chi << 6) & M32
+                    packed = ((fc - f0) << nb) | m
+                    row = [int(x) & M32 for x in sig[hm * 8: hm * 8 + 8]]
+                    if sb in row:
+                        at = hm * 8 + row.index(sb)
+                        best[at] = min(int(best[at]), packed)
+                    else:
+                        pass_pend[lane] = (hm, sb, packed)
+                lanes[(slot // G, m)] = (fc, valid, hm, sb)
+            pend += [pass_pend[k] for k in sorted(pass_pend)]
     return goal, pend, n_valid, lanes
 
 
@@ -424,13 +492,31 @@ def mid_search(seqs, triples, batch, capacity, steps, rs_seed=0):
     return eng, tab, ctr
 
 
+def family(name):
+    """A golden input by name, a tests/data input ("synth6": N = 6, 63
+    masks, two passes of a warp), or "randN": N random sequences of 14-22
+    residues (N = 4: 15 masks, half a warp)."""
+    if name in GOLD:
+        return golden_seqs(name)
+    if name.startswith("rand"):
+        n = int(name[4:])
+        rs = np.random.RandomState(n)
+        return tuple("".join(rs.choice(list("ACDEFGHIKLMNPQRSTVWY"), size=rs.randint(14, 23)))
+                     for _ in range(n))
+    return problem_from_fasta(os.path.join(HERE, "data", f"{name}.fasta")).seqs
+
+
 @pytest.mark.parametrize("name,triples,gap_oe", [
     ("PF08184.fasta", "auto", 0), ("test2.fasta", "off", 0),
     # the gap-open term, 0 with the reference's costs, computed all the same
-    ("test2.fasta", "off", 7)])
+    ("test2.fasta", "off", 7),
+    # N = 4 (15 masks) and N = 6 (63 masks: two passes of a warp)
+    ("rand4", "auto", 0), ("rand6", "auto", 0), ("synth6", "off", 0)])
 def test_k4_lanes_equal_plain_and_jax(name, triples, gap_oe):
-    seqs = golden_seqs(name)
-    eng, tab, ctr = mid_search(seqs, triples, 64, 1 << 14, 6)
+    seqs = family(name)
+    # synth6's 42 key bits need 2^20 slots for the sig layout
+    capacity = 1 << 20 if name == "synth6" else 1 << 14
+    eng, tab, ctr = mid_search(seqs, triples, 64, capacity, 6)
     st = eng.st
     st.gap_oe = gap_oe
     goal, thr = int(ctr[0]), int(ctr[7])
@@ -447,14 +533,13 @@ def test_k4_lanes_equal_plain_and_jax(name, triples, gap_oe):
     # the kernels' view: K3 then K4 on a copy
     etab = clone(tab)
     closed = etab.t_closed.numpy()
-    slots, vmin, eact, *_ = emu_select(st, etab.t_sig.numpy(), etab.t_best.numpy(),
-                                       closed, goal, thr)
+    k3 = emu_select(st, etab.t_sig.numpy(), etab.t_best.numpy(), closed, goal, thr)
+    eact, sel = k3[2], k3[7]
     assert np.array_equal(eact, active.numpy())
     sig = etab.t_sig.numpy().view(np.uint32)
     best = etab.t_best.numpy()
     egoal, pend, n_valid, lanes = emu_expand(
-        KernelStatics(st), sig, best, slots, vmin, eact, goal, eng.ub,
-        np.random.default_rng(1))
+        KernelStatics(st), sig, best, sel, goal, eng.ub, np.random.default_rng(1))
     assert egoal == want_goal and n_valid == int(keep.sum()) > 0
     # lane (row b, mask m) of the kernel is lane b * M + m - 1 of _expand
     B, M = st.B, st.M
@@ -476,7 +561,7 @@ def test_k4_lanes_equal_plain_and_jax(name, triples, gap_oe):
     assert torch.equal(torch.from_numpy(best)[: st.C], r0.t_best[: st.C])
     # and JAX: _expand on the decoded rows, _sig_encode on the children
     if gap_oe == 0:
-        jst, _ = statics(seqs, 64, 1 << 14, triples)
+        jst, _ = statics(seqs, 64, capacity, triples)
         _, jg, jf, jm, jv, jgoal, jchild, _ = JE._expand(
             jst, jnp.asarray(coords.numpy().astype(np.int32)),
             jnp.asarray(f.numpy().astype(np.int32)), jnp.asarray(par.numpy().astype(np.int32)),
@@ -493,36 +578,89 @@ def test_k4_lanes_equal_plain_and_jax(name, triples, gap_oe):
                 assert (hm, sb) == (int(np.asarray(jh)[n]), int(np.asarray(js)[n]))
 
 
-@pytest.mark.parametrize("thr,goal_off,empty", [(0, 10**9, 0.0), (2**20, 10**9, 0.3),
-                                                (40, 900, 0.5)])
-def test_k3_keys_equal_plain_select(thr, goal_off, empty):
-    _, st = statics(golden_seqs("PF08184.fasta"), 64, 1 << 12)
-    rs = np.random.RandomState(int(thr) % 97)
+def k3_table(st, rs, empty):
+    """best, closed (C + TRASH,) int32 for a select: half the slots used,
+    whole groups empty with probability ``empty``, few distinct words (ties
+    inside groups: the first index wins), some closed, some reopened."""
     C = st.C
     best = np.full(C + TE.TRASH, INFP, dtype=np.int32)
     closed = np.full(C + TE.TRASH, INFP, dtype=np.int32)
     used = rs.rand(C) < 0.5
     used &= np.repeat(rs.rand(st.B) >= empty, C // st.B)  # whole groups empty
-    # few distinct words: ties inside groups, first index wins
     words = (rs.randint(0, 30, size=C) << st.nb) | rs.randint(1, st.M + 1, size=C)
     best[:C][used] = words[used]
     u = rs.rand(C)
     closed[:C][used & (u < 0.3)] = best[:C][used & (u < 0.3)]
     reo = used & (u >= 0.3) & (u < 0.5)
     closed[:C][reo] = best[:C][reo] + (5 << st.nb)
-    goal = st.f0 + goal_off
+    return best, closed
+
+
+def check_k3(jst, st, best, closed, goal, thr, **schedule):
+    """K3's schedule against _select_best_plain (every output and the
+    closed table) and JAX _select_sig; its compact list is the active rows
+    in group order.  Returns the emulation's outputs."""
+    C, nb = st.C, st.nb
     a_closed = closed.copy()
-    got = emu_select(st, None, best, a_closed, goal, thr)
+    got = emu_select(st, None, best, a_closed, goal, thr, **schedule)
     t_closed = torch.from_numpy(closed.copy())
     want = TE._select_best_plain(st, torch.from_numpy(best), t_closed, goal, thr)
     for x, y in zip(got, want):
         assert np.array_equal(np.asarray(x), y.numpy())
     assert np.array_equal(a_closed[:C], t_closed[:C].numpy())
+    rows = np.nonzero(got[2])[0]
+    assert np.array_equal(got[7], np.stack([got[0][rows], got[1][rows]], 1))
+    jtab = (jnp.zeros((C // 8, 8), jnp.uint32), jnp.asarray(best[:C]),
+            jnp.asarray(closed[:C]))
+    (_, _, jclosed), _, jf, jpar, jact, jfmin, jopen, jsel, jre = JE._select_sig(
+        jst, jtab, goal, thr)
+    assert np.array_equal(np.asarray(jact), got[2])
+    assert np.array_equal(np.asarray(jf), (got[1] >> nb) + st.f0)
+    assert np.array_equal(np.asarray(jpar), got[1] & ((1 << nb) - 1))
+    assert (int(jfmin), int(jopen), int(jsel), int(jre)) == tuple(got[3:7])
+    assert np.array_equal(np.asarray(jclosed), a_closed[:C])
+    return got
+
+
+@pytest.mark.parametrize("thr,goal_off,empty", [(0, 10**9, 0.0), (2**20, 10**9, 0.3),
+                                                (40, 900, 0.5)])
+def test_k3_keys_equal_plain_select(thr, goal_off, empty):
+    jst, st = statics(golden_seqs("PF08184.fasta"), 64, 1 << 12)
+    rs = np.random.RandomState(int(thr) % 97)
+    best, closed = k3_table(st, rs, empty)
+    goal = st.f0 + goal_off
+    got = check_k3(jst, st, best, closed, goal, thr)
     assert got[5] > 0 and (empty == 0 or (got[1] == INFP).any())
     # the dispatch on a CPU table is the plain select
+    t_closed = torch.from_numpy(closed.copy())
+    want = TE._select_best_plain(st, torch.from_numpy(best), t_closed, goal, thr)
     t2 = torch.from_numpy(closed.copy())
     again = TE._select_best(st, torch.from_numpy(best), t2, goal, thr)
     assert all(torch.equal(x, y) for x, y in zip(again, want))
+
+
+@pytest.mark.parametrize("G,aligned,blocks", [
+    (1, True, 132), (2, True, 3), (32, True, 132), (128, True, 3), (512, True, 132),
+    (1024, True, 1),
+    # G a multiple of 128 on unaligned tables: the scalar path
+    (128, False, 132)])
+def test_k3_schedule_any_group_size(G, aligned, blocks):
+    # 2^14 slots: G = 1 is B = 16384 groups, two rounds of the last block
+    C = 1 << 14
+    jst, st = statics(golden_seqs("PF08184.fasta"), C // G, C)
+    assert st.C // st.B == G
+    rs = np.random.RandomState(G)
+    best, closed = k3_table(st, rs, 0.2)
+    got = check_k3(jst, st, best, closed, st.f0 + 10**9, 40, blocks=blocks,
+                   aligned=aligned, rng=np.random.default_rng(G))
+    assert 0 < got[5] < st.B
+
+
+def test_k3_constants_match_source():
+    src = open(os.path.join(HERE, "..", "mpi_pastar_msa_tpu_torch", "csrc",
+                            "select_best.cu")).read()
+    for name, value in (("kThreads", K3_THREADS), ("kVec", K3_VEC), ("kItems", K3_ITEMS)):
+        assert f"constexpr int {name} = {value};" in src
 
 
 def emu_chunk(st, tab, counters, chunk_steps, ub, fill, rng):
@@ -538,10 +676,9 @@ def emu_chunk(st, tab, counters, chunk_steps, ub, fill, rng):
     for _ in range(chunk_steps):
         if not run:
             continue
-        slots, vmin, active, fmin, n_open, n_sel, reopen = emu_select(
-            st, sig, best, closed, c[0], c[7])
-        c[0], pend, n_valid, _ = emu_expand(ks, sig, best, slots, vmin, active, c[0],
-                                            ub, rng)
+        _, _, _, fmin, n_open, n_sel, reopen, sel = emu_select(
+            st, sig, best, closed, c[0], c[7], rng=rng)
+        c[0], pend, n_valid, _ = emu_expand(ks, sig, best, sel, c[0], ub, rng)
         calls, counts = emu_probe(st, sig, best, pend, rng)
         c[1] = fmin
         c[2] += 1
