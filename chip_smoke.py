@@ -5,7 +5,11 @@
 Phases, each failing loudly (non-zero exit):
 
 1. device: a CUDA device must exist; prints the card's name and power limit.
-2. build: compiles every kernel from csrc/ (one nvcc per source, in parallel).
+2. build: compiles every kernel from csrc/ (one nvcc per source, in
+   parallel) and, beside them, K3's and K5's measurement builds.
+   Capture: a chunk of the sig step (K3, K4 and the cooperative K5, on
+   each of K5's paths) captured as a CUDA graph, replayed, must equal the
+   eager chunk.
 3. kernel check: each kernel against its plain PyTorch version on the card,
    exact int32 equality.  K1 (pair wavefront) at the main path's shapes
    (kinase) and at synth4_long's: kernel, plain, bound and
@@ -20,22 +24,28 @@ Phases, each failing loudly (non-zero exit):
    current source, e.g. another tile or shared-memory layout).
    Step kernels: K3 (select_best.cu), K4 (sig_expand.cu) and K5
    (sig_probe.cu) run 1 and 32 steps from mid-search kinase tables (--triples
-   auto from step 150, off from step 400) and the plain step functions run
-   the same steps on copies: t_sig, t_best, t_closed and the 14 counters
-   must be identical (also with K5 on 1 and on 132 blocks); K3 alone
-   against the plain select on globin6's packed table.  Kernel, plain and
-   bound times of K3, K4, K5 and the whole step, each kernel's device time
-   (CUPTI, torch.profiler) beside its event-timed wrapper call, the
-   empty-kernel launch floor, K3's library yardstick (torch.min) with its
-   own bound (``--step-baseline SRC`` builds the K3 and K4 sources of
-   another tree, checks them against these and times them in turns on the
-   same tables; ``--step-only`` stops after this phase).
+   auto from step 150, off from step 400) as a chunk graph, and the plain
+   step functions run the same steps on copies: t_sig, t_best, t_closed
+   and the 14 counters must be identical (also with K5 on 1 and on 132
+   blocks, at its cap and on its grid path); the chunk graph against the
+   eager chunk (K6); K3 alone against the plain select on globin6's packed
+   table.  Kernel, plain and bound times of K3, K4, K5 and the whole step,
+   each kernel's device time (CUPTI, torch.profiler) beside its
+   event-timed wrapper call, K3's and K5's phase splits, the chunk's time
+   as a graph and eager and its capture, the empty-kernel launch floor,
+   K3's library yardstick (torch.min) with its own bound
+   (``--step-baseline SRC`` builds another tree's K3, K4 and K5, checks
+   them against these and times them in turns on the same tables;
+   ``--k5-sweep`` times K5 on both its paths, and the other tree's, at
+   every step of three searches; ``--step-only`` stops after this phase).
 4. main path, kinase: the port's CLI entry with its defaults (--triples
    auto, --device cuda) must build 4 cubes and reach g = 421546 with a path
    whose recomputed cost equals g, degapped rows equal to the inputs, and
-   K1, K2 and the step kernels K3-K5 launched; then the same with
-   --triples off (K1 and K3-K5 launched); then synth6 (tests/data, N = 6,
-   63 masks a row) with the CLI's defaults on the sig layout: g = 272848.
+   K1, K2 and the step kernels K3-K5 launched (one chunk graph, each step
+   kernel launched once a step of every chunk and once before the
+   capture); then the same with --triples off (K1 and K3-K5 launched);
+   then synth6 (tests/data, N = 6, 63 masks a row) with the CLI's defaults
+   on the sig layout: g = 272848.
 5. main path, test / test2 / PF08184, under auto and under off: golden g and
    byte-identical alignment.
 6. layouts: globin6, synth7 and synth10 (tests/data) through the CLI with
@@ -46,6 +56,8 @@ Phases, each failing loudly (non-zero exit):
    and PF08184 with each pinned must stay byte-identical to the goldens;
    the degenerate input ("WYWY", "WYY", "YWW") must warn, take the
    unpacked layout and complete.
+   Bounds of the work not yet ported (K7, the packed step, K8 and the
+   multi-device step of parallel/sharded.py) from this run's shapes.
 7. the kernels JSON line, then the result line.
 
 Inputs are rebuilt from tests/goldens.json (the degapped golden rows) and
@@ -72,6 +84,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 PEAK_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+NVLINK_BYTES_PER_S = 450e9    # H100 SXM NVLink, each way (data sheet)
 K1_OPS_PER_CELL = 12          # int32 adds/compares/selects per DP cell
 K2_OPS_PER_CELL = 7 * 12      # 7 moves x ~12 int32 ops per in-box cube cell
 # certified optima of the tests/data inputs beyond the sig layout
@@ -112,13 +125,18 @@ def own_event(key: str) -> bool:
             and "spin_kernel" not in key)
 
 
+PREAMBLE_SPINS = 32
+
+
 def profiler_preamble() -> None:
-    """What a torch.profiler session runs before the work it measures: 32
-    short spin kernels (torch.cuda._sleep), then 50 ms of host time.  A
-    session can miss the device events of its first moments (seen on the
-    card: the first 4 of 32 steps of a window); these take their place.
-    Their events are named spin_kernel and every count leaves them out."""
-    for _ in range(32):
+    """What a torch.profiler session runs before the work it measures:
+    PREAMBLE_SPINS short spin kernels (torch.cuda._sleep), then 50 ms of
+    host time.  A session can miss the device events of its first moments
+    (seen on the card: the first 4 of 32 steps of a window); these take
+    their place.  Their device events are named spin_kernel and every count
+    leaves them out; their launch calls on the host (cudaLaunchKernel) are
+    taken off the host's count."""
+    for _ in range(PREAMBLE_SPINS):
         torch.cuda._sleep(1000)
     torch.cuda.synchronize()
     time.sleep(0.05)
@@ -527,16 +545,20 @@ def warm_engine(path: str, triples: str, warm_steps: int):
     return eng, tab, ctr
 
 
+# The C entry of K5's grid-only version (a cooperative launch with no block
+# path and no cap argument): t_sig, t_best, pending list, lane_cur,
+# lane_dest, lane_word, bbits, max bucket probes, max calls, fill target,
+# run, counters, state, blocks, stream
+_P, _I = ctypes.c_void_p, ctypes.c_int
+K5_GRID_ONLY_SIGNATURE = [_P] * 6 + [_I] * 4 + [_P] * 3 + [_I, _P]
+
+
 def build_step_baseline(src: str, tmp: str):
-    """Build the K3 and K4 sources of another tree (``src``: a checkout's
-    root or its csrc/ directory; select_best.cu, sig_expand.cu and
-    step_state.cuh of the version with a memset and one block a group)
-    into their own directory, both nvcc at once.  Returns their C entries,
-    that version's: select_best(best, closed, C, B, n, f0, goal,
-    thr, run, slots, vmin, active, state, stream), a memset of the state
-    and two launches; sig_expand(t_sig, t_best, slots, vmin, active,
-    tables4, cubes, params, N, P, T, S, n, f0, ub, E, GG, O - E, bbits, B,
-    threads, run, counters, state, pend, stream), one block a group."""
+    """Build the step kernels of another tree (``src``: a checkout's root or
+    its csrc/ directory, whose K3 and K4 take this tree's C entries and K5
+    K5_GRID_ONLY_SIGNATURE's) into their own directory, the three
+    nvcc at once.  Returns their C entries (select_best, sig_expand,
+    sig_probe)."""
     import shutil
 
     from mpi_pastar_msa_tpu_torch import _kernels
@@ -545,20 +567,20 @@ def build_step_baseline(src: str, tmp: str):
         src, "mpi_pastar_msa_tpu_torch", "csrc")
     out = os.path.join(tmp, "step_baseline")
     os.makedirs(out, exist_ok=True)
-    for f in ("select_best.cu", "sig_expand.cu", "step_state.cuh"):
+    for f in ("select_best.cu", "sig_expand.cu", "sig_probe.cu", "step_state.cuh"):
         shutil.copy(os.path.join(csrc, f), out)
     jobs = {}
-    for name in ("select_best", "sig_expand"):
+    for name in STEP_KERNELS:
         lib = os.path.join(out, f"lib{name}.so")
         jobs[name] = (lib, subprocess.Popen(
             [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib,
              os.path.join(out, f"{name}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    argtypes = {"select_best": [P, P, I, I, I, L, P, P, P, P, P, P, P, P],
-                "sig_expand": [P] * 8 + [I] * 5 + [L, L] + [I] * 6 + [P] * 5}
-    fns = {}
+    argtypes = {"select_best": _kernels.SIGNATURES["select_best"],
+                "sig_expand": _kernels.SIGNATURES["sig_expand"],
+                "sig_probe": K5_GRID_ONLY_SIGNATURE}
+    fns = []
     for name, (lib, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -566,35 +588,37 @@ def build_step_baseline(src: str, tmp: str):
         fn = getattr(ctypes.CDLL(lib), name)
         fn.argtypes = argtypes[name]
         fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns["select_best"], fns["sig_expand"]
+        fns.append(fn)
+    return tuple(fns)
 
 
-def start_k3_phases_build(tmp: str):
-    """Start nvcc on csrc/select_best.cu with -DK3_PHASES (its measurement
-    build: three %globaltimer readings in the partials when a launch
-    ends) into ``tmp``; returns (proc, lib)."""
+def start_phases_build(name: str, tmp: str):
+    """Start nvcc on csrc/<name>.cu with its measurement macro (K3_PHASES
+    for select_best: three %globaltimer readings in the partials when a
+    launch ends; K5_PHASES for sig_probe: five in lane_word) into ``tmp``;
+    returns (name, proc, lib)."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    lib = os.path.join(tmp, "libselect_best_phases.so")
+    macro = {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES"}[name]
+    lib = os.path.join(tmp, f"lib{name}_phases.so")
     proc = subprocess.Popen(
         [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-DK3_PHASES", "-o", lib,
-         os.path.join(_kernels.CSRC, "select_best.cu")], stdout=subprocess.PIPE,
+         "-shared", "-Xcompiler", "-fPIC", f"-D{macro}", "-o", lib,
+         os.path.join(_kernels.CSRC, f"{name}.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
-    return proc, lib
+    return name, proc, lib
 
 
-def load_k3_phases(job):
-    """The K3_PHASES build's C entry (the same signature as select_best)."""
+def load_phases(job):
+    """A measurement build's C entry (the same signature as the kernel's)."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    proc, lib = job
+    name, proc, lib = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        fail(f"nvcc failed for the K3_PHASES build of select_best.cu:\n{log}")
-    fn = ctypes.CDLL(lib).select_best
-    fn.argtypes = _kernels.SIGNATURES["select_best"]
+        fail(f"nvcc failed for the measurement build of {name}.cu:\n{log}")
+    fn = getattr(ctypes.CDLL(lib), name)
+    fn.argtypes = _kernels.SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -616,108 +640,208 @@ def k3_phases(fn, args, partial, restore, reps: int = 20) -> dict:
     return dict(read_pass_us=statistics.median(read), finish_us=statistics.median(finish))
 
 
-def step_baseline_turns(src, fns, st, ub, work, ctr, bufs, restore_tab, restore3, k3,
-                        k4) -> dict:
-    """Another tree's K3 and K4 (``fns``, build_step_baseline) on the
-    tables of this step: checked against this tree's kernels (K3's outputs,
-    t_closed and its state slots; K4's t_best, goal, surviving and pending
-    counts and its pending set), then timed in turns, old, new, new, old
-    (CUDA events around each wrapper call, median of 20), and by device
-    time (CUPTI)."""
-    from mpi_pastar_msa_tpu_torch.core.cost import GAP_EXTENSION, GAP_GAP
+def k5_phases(fn, args, lane_word, restore, reps: int = 20) -> dict:
+    """K5's phases on this card: the K5_PHASES build run ``reps`` times on
+    the state K4 left (``restore``); medians, in microseconds of block 0's
+    %globaltimer, of its read phases and of its write phases (each summed
+    over the calls, up to the barrier that ends it), of the finish (the
+    counters) and of the whole kernel from block 0's start."""
+    got = {k: [] for k in ("read_us", "write_us", "finish_us", "total_us")}
+    words = lane_word[:10].view(torch.int64)
+    for _ in range(reps):
+        restore()
+        if fn(*args):
+            fail("the K5_PHASES build failed to launch")
+        torch.cuda.synchronize()
+        t0, t_read, t_write, t_loop, t_end = words.tolist()
+        got["read_us"].append(t_read / 1e3)
+        got["write_us"].append(t_write / 1e3)
+        got["finish_us"].append((t_end - t_loop) / 1e3)
+        got["total_us"].append((t_end - t0) / 1e3)
+    return {k: statistics.median(v) for k, v in got.items()}
+
+
+def step_baseline_turns(src, fns, st, ub, fill, work, ctr, bufs, restores, news) -> dict:
+    """Another tree's K3, K4 and K5 (``fns``, build_step_baseline) on the
+    tables of this step, each from the state the step had before it
+    (``restores``: the table, after K3, after K4): checked against this
+    tree's kernels (``news``; K3: its outputs, t_closed, its state slots
+    and compact list; K4: t_best, the goal, the surviving and pending
+    counts and the pending set; K5: t_sig, t_best, the counters and its
+    state slots), then timed in turns, old, new, new, old (CUDA events
+    around each wrapper call, median of 20), and by device time (CUPTI).
+    The other tree's kernels write the buffers these write."""
     from mpi_pastar_msa_tpu_torch.search import step as S
 
-    old_select, old_expand = fns
     stream = torch.cuda.current_stream().cuda_stream
-    o_slots, o_vmin, o_active, o_state = (torch.empty_like(t) for t in (
-        bufs.slots, bufs.vmin, bufs.active, bufs.state))
-    o_pend = torch.empty_like(bufs.pend)
-    goal, thr = ctr[0], ctr[7]
-    threads = min(256, 32 * ((st.M + 31) // 32))
+    args3 = S._select_args(st, work.t_best, work.t_closed, ctr[0], ctr[7], bufs.run, bufs,
+                           stream)[1:]
+    args4 = S._expand_args(st, work, bufs, ctr, ub, stream)[1:]
+    args5 = S._probe_args(st, work, bufs, ctr, fill, 0, S.K5_CAP, stream)[1:]
+    args5 = args5[:10] + args5[11:]  # that entry takes no cap
+    olds = []
+    for k, (fn, args) in enumerate(zip(fns, (args3, args4, args5))):
+        def old(fn=fn, args=args, k=k):
+            if fn(*args):
+                fail(f"step baseline: K{3 + k} of {src} failed to launch")
+        olds.append(old)
 
-    def old3():
-        if old_select(work.t_best.data_ptr(), work.t_closed.data_ptr(), st.C, st.B, st.nb,
-                      st.f0, goal.data_ptr(), thr.data_ptr(), bufs.run.data_ptr(),
-                      o_slots.data_ptr(), o_vmin.data_ptr(), o_active.data_ptr(),
-                      o_state.data_ptr(), stream):
-            fail(f"step baseline: K3 of {src} failed to launch")
+    def outputs(k):
+        st_ = bufs.state
+        if k == 0:
+            n = int(st_[S.STATE_NSEL])
+            return [bufs.slots, bufs.vmin, bufs.active, work.t_closed,
+                    st_[:S.STATE_NVALID], bufs.sel[:n]]
+        if k == 1:
+            n = int(st_[S.STATE_NPEND])
+            return [work.t_best, ctr, st_[S.STATE_NVALID:S.STATE_NPEND + 1],
+                    torch.tensor(sorted(map(tuple, bufs.pend[:n].tolist())))]
+        calls = int(st_[S.STATE_CALLS])
+        return [work.t_sig, work.t_best, ctr, st_[S.STATE_CALLS:S.STATE_CNT + calls]]
 
-    def old4():
-        if old_expand(work.t_sig.data_ptr(), work.t_best.data_ptr(), o_slots.data_ptr(),
-                      o_vmin.data_ptr(), o_active.data_ptr(), st.d_tables4.data_ptr(),
-                      st.d_cubes.data_ptr() if st.T3 else None, bufs.params.data_ptr(),
-                      st.n, st.P, st.T3, st.S, st.nb, st.f0, int(ub), GAP_EXTENSION,
-                      GAP_GAP, st.gap_oe, st.bbits, st.B, threads, bufs.run.data_ptr(),
-                      ctr.data_ptr(), o_state.data_ptr(), o_pend.data_ptr(), stream):
-            fail(f"step baseline: K4 of {src} failed to launch")
+    out = dict(source=src)
+    for k, (restore, new, old) in enumerate(zip(restores, news, olds)):
+        restore()
+        new()
+        torch.cuda.synchronize()
+        want = [t.clone() for t in outputs(k)]
+        restore()
+        old()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(want, outputs(k))):
+            fail(f"step baseline: K{3 + k} of {src} differs from this one")
+        name = f"k{3 + k}"
+        out[f"{name}_turns_ms"] = [time_restored(f, restore, 20) for f in (old, new, new, old)]
+        out[f"{name}_old_device_ms"] = device_ms(old, 20, restore)
+        out[f"{name}_new_device_ms"] = device_ms(new, 20, restore)
+    print(f"  baseline {src}: its K3, K4 and K5 give the same outputs; in turns (old, new, "
+          f"new, old) " + "; ".join(
+              f"K{k} {' / '.join(f'{t:.4f}' for t in out[f'k{k}_turns_ms'])} ms, device old "
+              f"{out[f'k{k}_old_device_ms']:.4f} new {out[f'k{k}_new_device_ms']:.4f} ms"
+              for k in (3, 4, 5)))
+    return out
 
-    restore_tab()
-    k3()
+
+def wall_restored(fn, restore, reps: int) -> float:
+    """Median host milliseconds of fn() and a synchronize (what a caller
+    that then reads the result waits), each run after restore()."""
+    times = []
+    for k in range(reps + 1):
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if k:  # the first run warms up
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def graph_vs_eager(st, tab0, ctr0, ub, fill, same, steps: int = 32) -> dict:
+    """The chunk graph (K6) against the eager chunk from one mid-search
+    table: 1 and 4 chunks of 16 steps, tables and counters identical; then
+    a ``steps``-step chunk timed both ways (host wall with a synchronize,
+    and the CUDA-event span; median of 10, each from the restored table)
+    and the graph's capture (warm-up, capture and instantiation, host
+    seconds)."""
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    for chunks in (1, 4):
+        g_tab, e_tab = clone_table(tab0), clone_table(tab0)
+        g_ctr = e_ctr = ctr0
+        for _ in range(chunks):
+            g_ctr = S.run_chunk_sig_cuda(st, g_tab, g_ctr, 16, ub, fill)
+            e_ctr = S.run_chunk_sig_cuda(st, e_tab, e_ctr, 16, ub, fill, graph=False)
+        torch.cuda.synchronize()
+        same(f"graph vs eager, {chunks} chunk(s) of 16", g_tab, g_ctr, e_tab, e_ctr, st.C)
+        del g_tab, e_tab
+    work = clone_table(tab0)
+
+    def restore():
+        for name in ("t_sig", "t_best", "t_closed"):
+            getattr(work, name).copy_(getattr(tab0, name))
+
+    n0, s0 = S.capture_stats(st)
+    restore()
+    S.run_chunk_sig_cuda(st, work, ctr0, steps, ub, fill)  # captures
     torch.cuda.synchronize()
-    new3 = [t.clone() for t in (bufs.slots, bufs.vmin, bufs.active, work.t_closed,
-                                bufs.state[:S.STATE_NVALID])]
-    restore_tab()
-    old3()
-    torch.cuda.synchronize()
-    old3_out = (o_slots, o_vmin, o_active, work.t_closed, o_state[:S.STATE_NVALID])
-    if not all(torch.equal(a, b) for a, b in zip(new3, old3_out)):
-        fail(f"step baseline: K3 of {src} differs from this one")
-    after_old3 = o_state.clone()
+    n1, s1 = S.capture_stats(st)
+    if n1 != n0 + 1:
+        fail(f"graph vs eager: {n1 - n0} captures for one new table")
+    graph = lambda: S.run_chunk_sig_cuda(st, work, ctr0, steps, ub, fill)
+    eager = lambda: S.run_chunk_sig_cuda(st, work, ctr0, steps, ub, fill, graph=False)
+    out = dict(steps=steps, capture_s=s1 - s0,
+               graph_wall_ms=wall_restored(graph, restore, 10),
+               eager_wall_ms=wall_restored(eager, restore, 10),
+               graph_event_ms=time_restored(graph, restore, 10),
+               eager_event_ms=time_restored(eager, restore, 10))
+    if S.capture_stats(st)[0] != n1:
+        fail("graph vs eager: a replay on the same table captured again")
+    print(f"  chunk graph vs eager chunk: identical after 1 and 4 chunks of 16 steps; a "
+          f"{steps}-step chunk takes {out['graph_wall_ms']:.4f} ms (graph) vs "
+          f"{out['eager_wall_ms']:.4f} ms (eager) host wall, {out['graph_event_ms']:.4f} "
+          f"vs {out['eager_event_ms']:.4f} ms between CUDA events; capture "
+          f"{out['capture_s'] * 1e3:.2f} ms")
+    return out
 
-    def restore_old3():
-        restore_tab()
-        o_state.copy_(after_old3)
 
-    def k4_result(state, pend):
-        n = int(state[S.STATE_NPEND])
-        return (work.t_best.clone(), ctr.clone(),
-                state[S.STATE_NVALID:S.STATE_NPEND + 1].clone(),
-                sorted(map(tuple, pend[:n].tolist())))
+def capture_check(paths) -> dict:
+    """The chunk graph's capture on its own, before the rest: PF08184's sig
+    table, 8 steps in, then 8 steps as a chunk graph and as the eager chunk
+    from copies of it, with K5 at its cap (one block) and at cap 0 (its
+    grid path: a cooperative launch with grid syncs, captured); tables and
+    counters identical, one capture each."""
+    from mpi_pastar_msa_tpu_torch.search import step as S
 
-    restore3()
-    k4()
-    torch.cuda.synchronize()
-    new4 = k4_result(bufs.state, bufs.pend)
-    restore_old3()
-    old4()
-    torch.cuda.synchronize()
-    got4 = k4_result(o_state, o_pend)
-    if not (all(torch.equal(a, b) for a, b in zip(new4[:3], got4[:3]))
-            and new4[3] == got4[3]):
-        fail(f"step baseline: K4 of {src} differs from this one")
-    k3_turns = [time_restored(f, restore_tab, 20) for f in (old3, k3, k3, old3)]
-    k4_turns = [time_restored(f, r, 20) for f, r in (
-        (old4, restore_old3), (k4, restore3), (k4, restore3), (old4, restore_old3))]
-    out = dict(source=src, k3_turns_ms=k3_turns, k4_turns_ms=k4_turns,
-               k3_old_device_ms=device_ms(old3, 20, restore_tab),
-               k3_new_device_ms=device_ms(k3, 20, restore_tab),
-               k4_old_device_ms=device_ms(old4, 20, restore_old3),
-               k4_new_device_ms=device_ms(k4, 20, restore3))
-    print(f"  baseline {src}: its K3 and K4 give the same outputs; in turns (old, new, "
-          f"new, old) K3 {' / '.join(f'{t:.4f}' for t in k3_turns)} ms, K4 "
-          f"{' / '.join(f'{t:.4f}' for t in k4_turns)} ms; device: K3 old "
-          f"{out['k3_old_device_ms']:.4f} new {out['k3_new_device_ms']:.4f} ms, K4 old "
-          f"{out['k4_old_device_ms']:.4f} new {out['k4_new_device_ms']:.4f} ms")
+    eng, tab0, ctr0 = warm_engine(paths["PF08184.fasta"], "auto", 8)
+    st = eng.st
+    if eng.layout != "sig":
+        fail(f"capture check: PF08184 took layout {eng.layout}")
+    out = {}
+    for cap in (S.K5_CAP, 0):
+        g_tab, e_tab = clone_table(tab0), clone_table(tab0)
+        n0 = S.capture_stats(st)[0]
+        g_ctr = S.run_chunk_sig_cuda(st, g_tab, ctr0, 8, eng.ub, eng.fill_target, cap=cap)
+        e_ctr = S.run_chunk_sig_cuda(st, e_tab, ctr0, 8, eng.ub, eng.fill_target, cap=cap,
+                                     graph=False)
+        torch.cuda.synchronize()
+        if S.capture_stats(st)[0] != n0 + 1:
+            fail(f"capture check: no capture at K5 cap {cap}")
+        for name in ("t_sig", "t_best", "t_closed"):
+            if not torch.equal(getattr(g_tab, name)[:st.C], getattr(e_tab, name)[:st.C]):
+                fail(f"capture check: graph and eager chunks differ in {name} (cap {cap})")
+        if not torch.equal(g_ctr, e_ctr) or int(g_ctr[2]) <= int(ctr0[2]):
+            fail(f"capture check: counters {g_ctr.tolist()} vs {e_ctr.tolist()}")
+        out[cap] = dict(steps=int(g_ctr[2]) - int(ctr0[2]))
+    print(f"capture: a chunk of 8 steps (K3, K4 and K5, whose launch is cooperative: "
+          f"cudaLaunchKernelEx with cudaLaunchAttributeCooperative) captured in a CUDA "
+          f"graph and replayed on PF08184 equals the eager chunk, with K5 at cap "
+          f"{S.K5_CAP} (one block) and at cap 0 (its grid path, grid syncs)")
     return out
 
 
 def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
     """The step kernels K3 -> K4 -> K5 against the plain step on the card:
     kinase under --triples auto (from step 150) and off (from step 400),
-    1 and 32 steps from one table, through run_chunk_sig_cuda and through
-    _run_chunk_plain(plain_select=True); t_sig, t_best, t_closed (the first
-    C slots) and the 14 counters must be identical.  The 1-step case also
-    runs K5 on one block and on 132, which must not change anything.  Then
-    K3 alone against _select_best_plain on globin6's packed table (step
-    60).  Times at kinase: K3, K4, K5 and the whole step, kernel (CUDA
-    events around the wrapper call, and the device time from CUPTI) and
-    plain, with their bounds by bytes, and K3's library yardstick with its
-    own bound.  ``baseline`` is (source, (select, expand)) of another
-    tree's K3 and K4 (build_step_baseline): checked against these on the
-    same tables and timed in turns with them; ``floor`` the empty-kernel
-    launch floor, printed beside the kernels; ``phases`` the C entry of
-    K3's measurement build (load_k3_phases), which splits K3's time into
-    its read pass and its last block's finish."""
+    1 and 32 steps from one table, through run_chunk_sig_cuda (a chunk
+    graph) and through _run_chunk_plain(plain_select=True); t_sig, t_best,
+    t_closed (the first C slots) and the 14 counters must be identical.
+    The 1-step case also runs K5 on one block and on 132, and each case
+    with K5's cap and with cap 0 (its grid path whatever the pending
+    count), which must not change anything.  The chunk graph against the
+    eager chunk (graph=False): 1 and 4 chunks of 16 steps, identical; a
+    32-step chunk timed both ways, and the graph's capture.  Then K3 alone
+    against _select_best_plain on globin6's packed table (step 60).  Times
+    at kinase: K3, K4, K5 (at its cap and on its grid path) and the whole
+    step, kernel (CUDA events around the wrapper call, and the device time
+    from CUPTI) and plain, with their bounds by bytes, and K3's library
+    yardstick with its own bound.  ``baseline`` is (source, (select,
+    expand, probe)) of another tree's K3, K4 and K5 (build_step_baseline):
+    checked against these on the same tables and timed in turns with them;
+    ``floor`` the empty-kernel launch floor, printed beside the kernels;
+    ``phases`` the C entries of the measurement builds (load_phases) of K3
+    (its read pass and its last block's finish) and of K5 (its read and
+    write phases and its finish)."""
     from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch.search import engine as E
     from mpi_pastar_msa_tpu_torch.search import step as S
@@ -742,22 +866,23 @@ def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
                    checks=[])
         if eng.layout != "sig":
             fail(f"step kernels: kinase {triples} took layout {eng.layout}")
-        for n, blocks in ((1, 0), (1, 1), (1, 132), (32, 0)):
+        for n, blocks, cap in ((1, 0, S.K5_CAP), (1, 1, S.K5_CAP), (1, 132, S.K5_CAP),
+                               (1, 0, 0), (1, 1, 0), (32, 0, S.K5_CAP), (32, 0, 0)):
             ktab = clone_table(tab0)
-            kctr = S.run_chunk_sig_cuda(st, ktab, ctr0, n, ub, fill, blocks=blocks)
+            kctr = S.run_chunk_sig_cuda(st, ktab, ctr0, n, ub, fill, blocks=blocks, cap=cap)
             ptab = clone_table(tab0)
             pctr = E._run_chunk_plain(st, ptab, ctr0, n, ub, fill, "sig", plain_select=True)
             torch.cuda.synchronize()
-            err = same(f"kinase {triples} {n} step(s), K5 blocks {blocks}", ktab, kctr,
-                       ptab, pctr, C)
-            row["checks"].append(dict(steps=n, k5_blocks=blocks, max_abs_err=err,
+            err = same(f"kinase {triples} {n} step(s), K5 blocks {blocks} cap {cap}", ktab,
+                       kctr, ptab, pctr, C)
+            row["checks"].append(dict(steps=n, k5_blocks=blocks, k5_cap=cap, max_abs_err=err,
                                       counters=kctr.tolist()))
             del ktab, ptab
         print(f"step kernels kinase --triples {triples} (sig, B={st.B}, from step "
               f"{int(ctr0[2])}): t_sig, t_best, t_closed and the 14 counters identical "
-              f"to the plain step after 1 step (K5 grid auto, 1 and 132 blocks) and "
-              f"after 32 steps")
-
+              f"to the plain step after 1 step (K5 grid auto, 1 and 132 blocks; cap "
+              f"{S.K5_CAP} and 0) and after 32 steps (cap {S.K5_CAP} and 0)")
+        row["graph"] = graph_vs_eager(st, tab0, ctr0, ub, fill, same)
         # one step's pieces, timed from the same table (each run restores
         # what the piece changes)
         bufs = S._step_buffers(st, torch.device("cuda"))
@@ -814,8 +939,10 @@ def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
             bufs.state.copy_(after4)
             bufs.pend.copy_(pend)
 
-        k5 = _kernels.bind(*S._probe_args(st, work, bufs, ctr, fill, 0, stream))
+        k5 = _kernels.bind(*S._probe_args(st, work, bufs, ctr, fill, 0, S.K5_CAP, stream))
+        k5_grid = _kernels.bind(*S._probe_args(st, work, bufs, ctr, fill, 0, 0, stream))
         k5_ms = time_restored(k5, restore4, 20)
+        k5_grid_ms = time_restored(k5_grid, restore4, 20)
         restore4()
         k5()
         torch.cuda.synchronize()
@@ -826,16 +953,23 @@ def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
         step_ms = time_restored(lambda: (k3(), k4(), k5()), restore_tab, 20)
         # the device's own time of each (CUPTI), the same calls
         if phases is not None:
-            row["k3_phases"] = k3_phases(phases, S._select_args(
+            k3_build, k5_build = phases
+            row["k3_phases"] = k3_phases(k3_build, S._select_args(
                 st, work.t_best, work.t_closed, goal, thr, bufs.run, bufs, stream)[1:],
                 bufs.partial, restore_tab)
+            # K5 at its cap (the block path when n <= cap) and on its grid path
+            row["k5_phases"] = {cap: k5_phases(k5_build, S._probe_args(
+                st, work, bufs, ctr, fill, 0, cap, stream)[1:], bufs.lane_word, restore4)
+                for cap in (S.K5_CAP, 0)}
         k3_dev = device_ms(k3, 20, restore_tab)
         k4_dev = device_ms(k4, 20, restore3)
         k5_dev = device_ms(k5, 20, restore4)
+        k5_grid_dev = device_ms(k5_grid, 20, restore4)
         step_dev = device_ms(lambda: (k3(), k4(), k5()), 20, restore_tab)
         if baseline is not None:
-            row["baseline"] = step_baseline_turns(*baseline, st, ub, work, ctr, bufs,
-                                                  restore_tab, restore3, k3, k4)
+            row["baseline"] = step_baseline_turns(
+                *baseline, st, ub, fill, work, ctr, bufs, (restore_tab, restore3, restore4),
+                (k3, k4, k5))
 
         # the plain pieces on the same table: _expand -> prune ->
         # _candidates_sig for K4 (after the plain select, not timed),
@@ -890,8 +1024,9 @@ def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
                     bound_ms=ms(bytes3), bytes=bytes3),
             k4=dict(ms=k4_ms, device_ms=k4_dev, plain_ms=k4_plain_ms, bound_ms=ms(bytes4),
                     bytes=bytes4),
-            k5=dict(ms=k5_ms, device_ms=k5_dev, plain_ms=k5_plain_ms, bound_ms=ms(bytes5),
-                    bytes=bytes5),
+            k5=dict(ms=k5_ms, device_ms=k5_dev, path="block" if n_pend <= S.K5_CAP else "grid",
+                    grid_ms=k5_grid_ms, grid_device_ms=k5_grid_dev, plain_ms=k5_plain_ms,
+                    bound_ms=ms(bytes5), bytes=bytes5),
             step=dict(ms=step_ms, device_ms=step_dev, plain_ms=step_plain_ms,
                       bound_ms=ms(bytes3 + bytes4 + bytes5)))
         print(f"  step {int(ctr0[2])}: {n_sel} rows, {n_valid} lanes, {n_pend} pending, "
@@ -903,7 +1038,9 @@ def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
               f"of its device time); K4 "
               f"{k4_ms:.4f} / {k4_dev:.4f} ms (plain _expand -> prune -> _candidates_sig "
               f"{k4_plain_ms:.4f}, bound {ms(bytes4):.5f}); K5 {k5_ms:.4f} / "
-              f"{k5_dev:.4f} ms (plain _insert_sig {k5_plain_ms:.4f}, bound "
+              f"{k5_dev:.4f} ms ({row['k5']['path']} path at cap {S.K5_CAP}; grid path "
+              f"{k5_grid_ms:.4f} / {k5_grid_dev:.4f} ms; plain _insert_sig "
+              f"{k5_plain_ms:.4f}, bound "
               f"{ms(bytes5):.5f}); step {step_ms:.4f} / {step_dev:.4f} ms (plain "
               f"{step_plain_ms:.4f}, bound {ms(bytes3 + bytes4 + bytes5):.5f}); all "
               f"bounds by bytes")
@@ -915,6 +1052,11 @@ def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
             print(f"  K3 phases (K3_PHASES build, %globaltimer, median of 20): read pass "
                   f"{ph['read_pass_us']:.3f} us ({C * 8 / ph['read_pass_us'] / 1e6:.3f} TB/s), "
                   f"last block's finish {ph['finish_us']:.3f} us")
+        for cap, ph in row.get("k5_phases", {}).items():
+            print(f"  K5 phases at cap {cap} (K5_PHASES build, block 0's %globaltimer, "
+                  f"median of 20): read phases {ph['read_us']:.3f} us, write phases "
+                  f"{ph['write_us']:.3f} us, finish {ph['finish_us']:.3f} us, start to end "
+                  f"{ph['total_us']:.3f} us")
         out[triples] = row
         del tab0, work, snap, eng
 
@@ -1003,6 +1145,14 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
     for k in path_kernels:
         if counts[k] <= 0:
             fail(f"{name}: kernel {k} was not launched on the main path")
+    if eng.layout == "sig" and not eng.regrown:
+        # one chunk graph a run, replayed once a chunk: each step kernel ran
+        # once as the capture's warm-up and chunk_steps times a replay
+        replays = -(-res.steps // eng.chunk_steps)
+        want = eng.graph_captures + eng.chunk_steps * replays
+        if eng.graph_captures != 1 or any(counts[k] != want for k in STEP_KERNELS):
+            fail(f"{name}: {eng.graph_captures} chunk graph captures and launches "
+                 f"{counts} for {res.steps} steps in {replays} chunks (want {want} each)")
     info = dict(triples=triples, layout=eng.layout, cubes=cubes, g=res.g,
                 path_nodes=len(res.closed), pairs=eng.st.P, key_words=eng.st.KW,
                 identical=identical, expanded=res.nodes_expanded,
@@ -1010,7 +1160,8 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
                 capacity=eng.st.C, batch=eng.st.B, fill_target=eng.fill_target,
                 regrown=eng.regrown,
                 walls=rep.walls, nodes_per_s=res.nodes_expanded / rep.walls["phase2"],
-                launches=counts, upper_bound_s=eng.ub_wall, cubes_s=eng.cubes_wall,
+                launches=counts, graph_captures=eng.graph_captures,
+                upper_bound_s=eng.ub_wall, cubes_s=eng.cubes_wall,
                 engine_walls=eng.last_phase_walls, peak_device_bytes=peak,
                 acct=eng.last_acct)
     print(f"{name} --triples {triples}: layout {eng.layout}, {cubes} cubes; g={res.g} "
@@ -1023,7 +1174,8 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
           f"{info['nodes_per_s']:.0f} nodes/s, capacity {eng.st.C} "
           f"(regrown: {eng.regrown}), batch {eng.st.B}, fill target "
           f"{eng.fill_target}; peak device memory {peak / 2**20:.1f} MiB; "
-          f"launches {counts}")
+          f"launches {counts}; chunk graphs captured {eng.graph_captures} in "
+          f"{eng.last_phase_walls.get('graph_capture', 0.0) * 1e3:.2f} ms")
     return info
 
 
@@ -1102,7 +1254,9 @@ def off_path_bounds(report: dict, kinase_path: str) -> dict:
       key row, P T8 rows and T x 8 cube corners, per surviving lane its
       home key row and one t_best word;
     - K8, the Gotoh fill at kinase: for each pair, three (n+1)(m+1) int32
-      matrices written (the sequences read are negligible)."""
+      matrices written (the sequences read are negligible);
+    - the multi-device step of parallel/sharded.py at kinase --triples
+      auto on a 4-card mesh, per step and card (sharded_step_bounds)."""
     from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
 
     ms = lambda b: b / HBM_BYTES_PER_S * 1e3
@@ -1119,7 +1273,9 @@ def off_path_bounds(report: dict, kinase_path: str) -> dict:
     out = dict(k7_walk=dict(path_nodes=k["path_nodes"], bytes=walk, bound_ms=ms(walk)),
                packed_step=dict(steps=steps, lanes=lanes, bytes_per_step=packed,
                                 bound_ms=ms(packed)),
-               k8_gotoh=dict(lengths=lens, bytes=gotoh, bound_ms=ms(gotoh)))
+               k8_gotoh=dict(lengths=lens, bytes=gotoh, bound_ms=ms(gotoh)),
+               sharded=sharded_step_bounds(k["batch"], len(lens), k["cubes"],
+                                           k["path_nodes"]))
     print(f"bounds by bytes of the work not yet ported: K7 walk at kinase "
           f"{k['path_nodes']} path nodes, {walk / 1e6:.2f} MB, {ms(walk):.5f} ms; "
           f"packed step at globin6 {packed / 1e6:.2f} MB a step ({steps} steps, "
@@ -1128,21 +1284,173 @@ def off_path_bounds(report: dict, kinase_path: str) -> dict:
     return out
 
 
-def profile_search(name: str, path: str, triples: str, warm_steps: int,
-                   steps: int, plain: bool = False) -> dict:
-    """Where a mid-search step spends its time under ``triples`` (in the
-    layout ``auto`` picks): run the engine to ``warm_steps``, then trace
-    ``steps`` more with torch.profiler, through the engine's own loop or,
-    with ``plain``, through the plain step functions on the card tensors
-    (_run_chunk_plain(plain_select=True): the step before its kernels).
-    Prints the device time by kernel, the launches (kernels, memcpy and
-    memset) and host reads (device-to-host copies) a step, and the
-    device's busy share of the window."""
+def sharded_step_bounds(B: int, N: int, T: int, path_nodes: int, ndev: int = 4) -> dict:
+    """Bounds of parallel/sharded.py's device functions at one card of an
+    ``ndev``-card mesh, from the shapes the JAX code gives them (B rows
+    selected a card, M = 2^N - 1 masks, T cubes): device memory bytes over
+    HBM_BYTES_PER_S, NVLink bytes (what a card sends) over NVLINK_BYTES_PER_S,
+    the larger named.
+    - _route_cap :87 / _route_ragged :169, a step: L = B M candidates of
+      4 words (dest, f, 2 wire fields) and a carry ring of L rows of 4
+      words read; ndev x cap rows of 3 words received and the ring
+      rewritten, cap = min(L, max(256, 2L / ndev)) (the JAX default);
+      ndev - 1 of ndev wire blocks sent;
+    - _make_tri_partial :250 with _sharded_h3 :302, a step: B x N
+      coordinates read, ndev B x N gathered, ndev B x ceil(T / ndev) cube
+      corner rows of 8 words read, (B, M + 1) int32 written; the
+      reduce-scatter sends ndev - 1 of ndev (ndev B, M + 1) blocks;
+    - _consensus :312, a step: a 4-word all_gather;
+    - _make_batched_walk :482, once a run: the path nodes' probe rows (as
+      K7) and one psum of K = 8 masks a round."""
+    M = (1 << N) - 1
+    L = B * M
+    cap = min(L, max(256, 2 * L // ndev))
+    route_mem = 4 * (L * 4 + L * 4 + ndev * cap * 3 + L * 4)
+    route_link = 4 * (ndev - 1) * cap * 3
+    t_loc = -(-T // ndev)
+    h3_mem = 4 * (B * N + ndev * B * N + ndev * B * t_loc * 8 + B * (M + 1))
+    h3_link = 4 * ((ndev - 1) * B * N + (ndev - 1) * B * (M + 1))
+    cons_link = 4 * 4 * (ndev - 1)
+    walk_mem = path_nodes * 64 * 8 * (4 + 4)
+    walk_link = 4 * 8 * -(-path_nodes // 8)
+    out = {}
+    for name, mem, link in (("route", route_mem, route_link), ("sharded_h3", h3_mem, h3_link),
+                            ("consensus", 0, cons_link), ("walk", walk_mem, walk_link)):
+        mem_ms, link_ms = mem / HBM_BYTES_PER_S * 1e3, link / NVLINK_BYTES_PER_S * 1e3
+        out[name] = dict(mem_bytes=mem, link_bytes=link, mem_ms=mem_ms, link_ms=link_ms,
+                         bound_ms=max(mem_ms, link_ms),
+                         bound_by="bytes" if mem_ms >= link_ms else "link bytes")
+    step = ("route", "sharded_h3", "consensus")
+    out["step_bound_ms"] = sum(out[k]["bound_ms"] for k in step)
+    out.update(ndev=ndev, B=B, M=M, cap=cap)
+    print(f"  parallel/sharded.py at kinase on {ndev} cards, a card: route (L = {L}, cap "
+          f"{cap}) {route_mem / 1e6:.2f} MB memory, {route_link / 1e6:.2f} MB sent, "
+          f"{out['route']['bound_ms']:.5f} ms; sharded h3 {h3_mem / 1e6:.2f} MB, "
+          f"{h3_link / 1e6:.2f} MB sent, {out['sharded_h3']['bound_ms']:.5f} ms; consensus "
+          f"{cons_link} B sent; a step {out['step_bound_ms']:.5f} ms; batched walk "
+          f"{walk_mem / 1e6:.2f} MB, {out['walk']['bound_ms']:.5f} ms a run")
+    return out
+
+
+def baseline_step(st, tab, ctr, ub, fill, probe):
+    """One step of the sig search as run_chunk_sig_cuda(graph=False) runs
+    it, with ``probe`` (another tree's K5 C entry, K5_GRID_ONLY_SIGNATURE) in
+    place of K5; returns new counters."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    bufs = S._step_buffers(st, torch.device("cuda"))
+    c = bufs.counters
+    c.copy_(ctr)
+    c[1].fill_(0)
+    bufs.run.copy_(((c[0] > 0) & (c[6] == 0)).view(1))
+    stream = torch.cuda.current_stream().cuda_stream
+    _kernels.launch(*S._select_args(st, tab.t_best, tab.t_closed, c[0], c[7], bufs.run, bufs,
+                                    stream))
+    _kernels.launch(*S._expand_args(st, tab, bufs, c, ub, stream))
+    args = S._probe_args(st, tab, bufs, c, fill, 0, 0, stream)[1:]
+    if probe(*(args[:10] + args[11:])):  # that entry takes no cap
+        fail("K5 sweep: the baseline's K5 failed to launch")
+    return c.clone()
+
+
+def k5_sweep(paths, baseline=None) -> dict:
+    """K5's device time against its pending count n, on each of its paths,
+    over whole searches: kinase under --triples auto and off and synth6,
+    each run from a new table with K5's cap (the block path when n <=
+    cap), with cap 0 (the grid path every step) and, given ``baseline``
+    (build_step_baseline's entries), with the other tree's K5 in its place,
+    one eager step a chunk under torch.profiler, the counters read after
+    each step (n is lanes_unmatched's step).  Each step's K5 kernel (CUPTI
+    duration) is paired with its n; the mean device time is printed by bin
+    of n, beside the steps in each bin.  The runs make the same steps (the
+    path does not change the result)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
     from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
     from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    bins = [0, 1024, 2048, 4096, 8192, 16384, 32768, 1 << 40]
+    out = {}
+    for label, path, triples in (("kinase_auto", paths["kinase.fasta"], "auto"),
+                                 ("kinase_off", paths["kinase.fasta"], "off"),
+                                 ("synth6", data_path("synth6"), "auto")):
+        p = problem_from_fasta(path)
+        eng = E.FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
+                               triples=triples)
+        st, ub, fill = eng.st, eng.ub, eng.fill_target
+        kinds = [S.K5_CAP, 0] + (["baseline"] if baseline else [])
+        runs = {}
+        for cap in kinds:
+            tab = eng._init_table()
+            ctr = torch.as_tensor(E.fresh_counters(), device="cuda")
+            ns = []
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                profiler_preamble()
+                while True:
+                    before = int(ctr[12])
+                    if cap == "baseline":
+                        ctr = baseline_step(st, tab, ctr, ub, fill, baseline[2])
+                    else:
+                        ctr = S.run_chunk_sig_cuda(st, tab, ctr, 1, ub, fill, cap=cap,
+                                                   graph=False)
+                    c = ctr.tolist()
+                    ns.append(c[12] - before)
+                    if c[1] >= c[0] or c[6] > 0:
+                        break
+                torch.cuda.synchronize()
+            k5 = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and "sig_probe_kernel" in e.name)
+            if len(k5) != len(ns):
+                fail(f"K5 sweep {label} cap {cap}: {len(k5)} K5 kernels traced for "
+                     f"{len(ns)} steps")
+            runs[cap] = (ns, [us for _, us in k5], c)
+            del tab
+        if any(runs[k][2] != runs[0][2] or runs[k][0] != runs[0][0] for k in kinds):
+            fail(f"K5 sweep {label}: the paths gave different searches")
+        ns = runs[0][0]
+        rows = []
+        for lo, hi in zip(bins, bins[1:]):
+            idx = [i for i, n in enumerate(ns) if lo < n <= hi or (lo == 0 and n == 0)]
+            if idx:
+                rows.append(dict(n_lo=lo, n_hi=hi, steps=len(idx), us={
+                    str(k): statistics.mean(runs[k][1][i] for i in idx) for k in kinds}))
+        totals = {str(k): sum(runs[k][1]) / 1e3 for k in kinds}
+        out[label] = dict(steps=len(ns), bins=rows, total_ms=totals)
+        names = {str(S.K5_CAP): f"at cap {S.K5_CAP}", "0": "on the grid path",
+                 "baseline": "for the baseline's K5"}
+        print(f"K5 sweep {label} ({len(ns)} steps; K5 device time summed over the search: "
+              + ", ".join(f"{t:.3f} ms {names[k]}" for k, t in totals.items()) + "):")
+        for r in rows:
+            print(f"  n in ({r['n_lo']}, {r['n_hi']}]: {r['steps']} steps, K5 "
+                  + ", ".join(f"{t:.2f} us {names[k]}" for k, t in r["us"].items()))
+        del eng
+    return out
+
+
+def profile_search(name: str, path: str, triples: str, warm_steps: int,
+                   steps: int, mode: str = "engine") -> dict:
+    """Where a mid-search step spends its time under ``triples`` (in the
+    layout ``auto`` picks): run the engine to ``warm_steps``, then trace
+    ``steps`` more with torch.profiler, through the engine's own loop
+    (``mode`` "engine": on the sig table a chunk graph, captured before the
+    timed windows by a chunk whose run flag is 0), through the eager chunk
+    ("eager": run_chunk_sig_cuda(graph=False), kernel by kernel) or through
+    the plain step functions on the card tensors ("plain":
+    _run_chunk_plain(plain_select=True), the step before its kernels).
+    Prints the device time by kernel, the launches on the device (kernels,
+    memcpy and memset) and the host's launch calls (kernel and graph
+    launches, copies and fills) a step, the host reads (device-to-host
+    copies) a step, and the device's busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
 
     p = problem_from_fasta(path)
     eng = E.FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
@@ -1153,11 +1461,21 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
                        eng.layout)
 
     def run(ctr):
-        if plain:
+        if mode == "plain":
             return E._run_chunk_plain(eng.st, tab, ctr, steps, eng.ub, eng.fill_target,
                                       eng.layout, plain_select=True)
+        if mode == "eager":
+            return S.run_chunk_sig_cuda(eng.st, tab, ctr, steps, eng.ub, eng.fill_target,
+                                        graph=False)
         return E._run_chunk(eng.st, tab, ctr, steps, eng.ub, eng.fill_target, eng.layout)
 
+    captures = S.capture_stats(eng.st)[0]
+    if mode == "engine":
+        idle = ctr.clone()
+        idle[0] = 0  # goal 0: the run flag is 0, every kernel returns at once
+        run(idle)
+        torch.cuda.synchronize()
+    captures = S.capture_stats(eng.st)[0] - captures
     s0 = ctr.tolist()[2]
     t0 = time.perf_counter()
     ctr = run(ctr)
@@ -1179,10 +1497,19 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
                    if not e.key.startswith(("aten::", "cuda")) and "spin_kernel" not in e.key),
                   key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kern)
+    # the host's launch calls: kernels (cudaLaunchKernel, cudaLaunchKernelExC,
+    # ...), graphs, copies and fills
+    host = {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith("cuda") and any(w in e.key for w in ("Launch", "Memcpy",
+                                                                     "Memset"))}
+    host["cudaLaunchKernel"] = host.get("cudaLaunchKernel", 0) - PREAMBLE_SPINS
+    host = {k: c for k, c in host.items() if c}
     reads = sum(c for k, _, c in kern if k.startswith("Memcpy DtoH"))
     memsets = sum(c for k, _, c in kern if k.startswith("Memset"))
     selects = sum(c for k, _, c in kern if "select_kernel" in k)
-    label = "plain step" if plain else "engine"
+    label = {"plain": "plain step", "eager": "eager chunk"}.get(mode, "engine")
+    if mode == "engine" and eng.layout == "sig":
+        label += f", chunk graph; {captures} capture before the windows"
     print(f"profile {name} --triples {triples} (layout {eng.layout}, {label}): steps "
           f"{s0}..{before[2]} unprofiled {plain_wall_ms:.3f} "
           f"ms/step; steps {before[2]}..{after[2]} profiled: wall {wall * 1e3 / n:.3f} "
@@ -1190,12 +1517,16 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
           f"({100 * busy_ms / (wall * 1e3):.1f}% of wall; idle "
           f"{100 - 100 * busy_ms / (wall * 1e3):.1f}%), "
           f"{sum(c for _, _, c in kern) / n:.1f} launches ({selects / n:.2f} K3 kernels, "
-          f"{memsets / n:.2f} memsets) and {reads / n:.2f} host reads a step")
+          f"{memsets / n:.2f} memsets) and {reads / n:.2f} host reads a step; host "
+          f"launch calls a step: {sum(host.values()) / n:.3f} ("
+          + ", ".join(f"{k} {c / n:.3f}" for k, c in sorted(host.items())) + ")")
     for key, ms, cnt in kern[:12]:
         print(f"  {ms / n:8.4f} ms/step  {cnt / n:7.1f} launches/step  {key[:90]}")
     ops = sorted(((e.key, e.device_time_total / 1e3) for e in events
                   if e.key.startswith("aten::")), key=lambda r: -r[1])
-    return dict(layout=eng.layout, plain=plain, steps=n,
+    return dict(layout=eng.layout, mode=mode, steps=n, captures=captures,
+                host_calls_per_step={k: c / n for k, c in host.items()},
+                host_launch_calls_per_step=sum(host.values()) / n,
                 unprofiled_wall_ms_per_step=plain_wall_ms,
                 wall_ms_per_step=wall * 1e3 / n,
                 busy_ms_per_step=busy_ms / n,
@@ -1205,6 +1536,14 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
                 launches_per_step=sum(c for _, _, c in kern) / n,
                 k3_kernels_per_step=selects / n, memsets_per_step=memsets / n,
                 host_reads_per_step=reads / n)
+
+
+def write_report(path, report: dict) -> None:
+    """The full report as JSON at ``path`` (nothing when None)."""
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(report, f, indent=1, default=str)
 
 
 def main() -> int:
@@ -1233,6 +1572,10 @@ def main() -> int:
                          "the tree SRC (a checkout's root or its csrc/), check "
                          "them against these on the kinase step tables and "
                          "time them in turns with these")
+    ap.add_argument("--k5-sweep", action="store_true",
+                    help="also time K5 on its block path and on its grid path at "
+                         "every step of kinase (auto, off) and synth6 searches, by "
+                         "pending count")
     ap.add_argument("--step-only", action="store_true",
                     help="run the device, build and step-kernel phases only "
                          "(a quick check of K3-K5; prints no result line)")
@@ -1259,16 +1602,18 @@ def main() -> int:
 
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    # 2. build: the kernels and, beside them, K3's measurement build
+    # 2. build: the kernels and, beside them, K3's and K5's measurement
+    # builds
     t0 = time.perf_counter()
     phases_tmp = tempfile.TemporaryDirectory()
-    phases_job = start_k3_phases_build(phases_tmp.name)
+    phases_jobs = [start_phases_build(name, phases_tmp.name)
+                   for name in ("select_best", "sig_probe")]
     try:
         logs = _kernels.build_all()
     finally:
-        phases = load_k3_phases(phases_job)
-    print(f"build: {len(logs)} kernel source(s) and K3's K3_PHASES build in "
-          f"{time.perf_counter() - t0:.1f} s")
+        phases = tuple(load_phases(job) for job in phases_jobs)
+    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES and K5_PHASES builds "
+          f"in {time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
              for line in log.splitlines()
              if "entry function" in line or "registers" in line or "spill" in line]
@@ -1288,9 +1633,12 @@ def main() -> int:
             src = os.path.abspath(args.step_baseline)
             step_baseline = (args.step_baseline, build_step_baseline(src, tmp))
         report["launch_floor"] = floor = launch_floor()
+        report["capture"] = capture_check(paths)
+        if args.k5_sweep:
+            report["k5_sweep"] = k5_sweep(paths, step_baseline and step_baseline[1])
         if args.step_only:
             report["step"] = step_kernels(paths, step_baseline, floor, phases)
-            print(json.dumps({"step": report["step"]}, default=str))
+            write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["k1"] = check_k1(paths, baseline)
         k2_baseline = None
@@ -1333,23 +1681,16 @@ def main() -> int:
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
             # and the plain step on the same windows, the step before K3-K5
-            report["profile"] = profile_search("kinase", paths["kinase.fasta"],
-                                               "auto", 150, 32)
-            report["profile_plain"] = profile_search("kinase", paths["kinase.fasta"],
-                                                     "auto", 150, 32, plain=True)
-            report["profile_off"] = profile_search("kinase", paths["kinase.fasta"],
-                                                   "off", 400, 32)
-            report["profile_off_plain"] = profile_search(
-                "kinase", paths["kinase.fasta"], "off", 400, 32, plain=True)
+            for triples, warm in (("auto", 150), ("off", 400)):
+                for mode in ("engine", "eager", "plain"):
+                    report[f"profile_{triples}_{mode}"] = profile_search(
+                        "kinase", paths["kinase.fasta"], triples, warm, 32, mode)
             # the packed layout: globin6 takes about 150 steps
             report["profile_globin6"] = profile_search(
                 "globin6", data_path("globin6"), "auto", 60, 32)
 
     phases_tmp.cleanup()
-    if args.report:
-        os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
-        with open(args.report, "w") as f:
-            json.dump(report, f, indent=1, default=str)
+    write_report(args.report, report)
 
     k1, k2 = report["k1"]["kinase"], report["k2"]["kinase"]
     launches = report["kinase"]["launches"]  # the main path's run

@@ -8,16 +8,20 @@ an edited source is never served from a stale library, and loaded with
 
 ``launches`` counts, per kernel, the launches its wrapper made; a run resets
 the counts with ``reset_counts()`` and reads them after, which shows that a
-path really went through the kernels.
+path really went through the kernels.  A launch made while a CUDA graph is
+captured runs nothing: under ``capturing(tally)`` it counts into ``tally``,
+and each replay of the graph adds ``tally`` to ``launches``
+(``replayed``), so the counts are the kernels that really ran.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -45,18 +49,38 @@ SIGNATURES: Dict[str, List] = {
     "sig_expand": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I,
                    _I, _I, _I, _P, _P, _P, _P, _P],
     # t_sig, t_best, pending list, lane_cur, lane_dest, lane_word, bbits,
-    # max bucket probes, max calls, fill target, run, counters, state,
-    # blocks, stream
-    "sig_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # max bucket probes, max calls, fill target, block-path cap, run,
+    # counters, state, blocks, stream
+    "sig_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I,
+                  _P],
 }
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _libs: Dict[str, ctypes.CDLL] = {}
+_tally: Optional[Dict[str, int]] = None  # set while a graph is captured
 
 
 def reset_counts() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def capturing(tally: Dict[str, int]):
+    """Count the launches made inside into ``tally``, not ``launches``: under
+    a CUDA graph capture they record kernels and run nothing."""
+    global _tally
+    prev, _tally = _tally, tally
+    try:
+        yield tally
+    finally:
+        _tally = prev
+
+
+def replayed(tally: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture counted ``tally``."""
+    for name, k in tally.items():
+        launches[name] += k
 
 
 def _nvcc() -> str:
@@ -139,7 +163,8 @@ def bind(name: str, *args):
         status = fn(*cargs)
         if status != 0:
             raise RuntimeError(f"CUDA kernel {name} failed to launch: error {status}")
-        launches[name] += 1
+        counts = launches if _tally is None else _tally
+        counts[name] = counts.get(name, 0) + 1
 
     return go
 

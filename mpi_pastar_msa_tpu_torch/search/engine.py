@@ -827,7 +827,9 @@ def _run_chunk(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
     runs kernels K3 -> K4 -> K5 a step with the stop test on the device
     (``search/step.py::run_chunk_sig_cuda``); every other table the plain
     loop, ``_run_chunk_plain``.  The caller reads the whole counters vector
-    once per chunk."""
+    once per chunk; on a CUDA sig table a chunk is one CUDA graph, captured
+    at the first chunk of a table (so again after a regrow, whose new table
+    and statics have new buffers) and replayed for the others."""
     if layout == "sig" and tab.t_sig.device.type == "cuda":
         from .step import run_chunk_sig_cuda
         return run_chunk_sig_cuda(st, tab, counters, chunk_steps, ub, fill)
@@ -1046,6 +1048,7 @@ class FrontierSearch:
                           self.device, f0=f0)
         self._check_layout()
         self.regrown = False
+        self.graph_captures = 0  # chunk graphs the last run captured
 
     @property
     def layout(self) -> str:
@@ -1165,6 +1168,8 @@ class FrontierSearch:
         tab = self._init_table()
         counters = torch.as_tensor(fresh_counters(), device=st.device)
         self.last_phase_walls["init_table"] = time.perf_counter() - t0
+        from .step import capture_stats
+        captures0, capture_s0 = capture_stats(st)
         while True:
             counters = _run_chunk(st, tab, counters, self.chunk_steps,
                                   self.ub, self.fill_target, layout)
@@ -1175,6 +1180,10 @@ class FrontierSearch:
                  "lanes_unmatched", "lanes_tail"), c[8:14]))
             if fmin_v >= goal_v or overflow > 0 or steps >= MAX_STEPS:
                 break
+        # the chunk graphs this run captured (sig on the card: one a table)
+        captures, capture_s = capture_stats(st)
+        self.graph_captures = captures - captures0
+        self.last_phase_walls["graph_capture"] = capture_s - capture_s0
         if overflow > 0:
             raise RuntimeError(f"hash table overflow after {steps} steps "
                                f"(capacity {st.C}); increase capacity")

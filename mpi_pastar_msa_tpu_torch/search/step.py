@@ -1,4 +1,5 @@
-"""The sig layout's search step on the card: kernels K3, K4 and K5.
+"""The sig layout's search step on the card: kernels K3, K4 and K5, and the
+chunk of steps as one CUDA graph (K6).
 
 The JAX engine runs its whole search loop as one compiled program
 (``_make_run_loop_sig``, mpi_pastar_msa_tpu/search/engine.py:1882, through
@@ -17,28 +18,41 @@ stream with no host read between them:
                               insert; unmatched lanes go to a pending list
                               (``_expand_args``)
   K5 ``csrc/sig_probe.cu``    the claimless bucket probe of the pending
-                              lanes, then the step's 14 counters and the
-                              run flag (``_probe_args``)
+                              lanes (one block when they are at most
+                              ``K5_CAP``, else the whole cooperative grid),
+                              then the step's 14 counters and the run flag
+                              (``_probe_args``)
 
 The step loop (``run_chunk_sig_cuda``, K6 of the JAX loop) keeps the 14
 counters in a device int64 vector, as the JAX ``while_loop`` does, and the
 stop test on the device: K5 ends each step by writing a run flag (f-min <
 goal_g and no overflow), and every kernel of the next step returns at once
-when it reads 0.  So a chunk is ``chunk_steps`` steps enqueued with no host
-read, and the host reads the counters once a chunk (``FrontierSearch``).
-Steps enqueued after the stop do nothing.  The plain step
+when it reads 0.  A chunk is its set-up (``counters[1] = 0`` and the run
+flag) and ``chunk_steps`` steps, with no host read; the host reads the
+counters once a chunk (``FrontierSearch``).  Steps after the stop do
+nothing.  By default a chunk is one CUDA graph, captured once a table,
+chunk length, bound and fill (again after a regrow: a new table) and
+replayed every chunk: the host makes one graph launch a chunk, not three
+kernel launches a step.  Every pointer the graph holds is a buffer of the
+table or of ``StepBuffers``, the counters included: a chunk copies the
+caller's counters into ``StepBuffers.counters``, replays, and returns a
+copy.  ``graph=False`` enqueues the same chunk kernel by kernel (the
+eager chunk, the reference the graph is held to).  The plain step
 (``engine._run_chunk_plain``) gives the same tables and counters bit for
 bit: ``chip_smoke.py`` holds them to each other on the card.
 
 The wrappers (``select_best_cuda``, ``run_chunk_sig_cuda``) check devices,
 dtypes and sizes and raise ValueError on anything the kernels do not take;
-nothing falls back to the plain code.  The ``_*_args`` functions give one
-kernel's C arguments on checked buffers; a chunk binds them once
-(``_kernels.bind``) and launches each kernel ``chunk_steps`` times.
+nothing falls back to the plain code, and a failed launch or capture
+raises.  The ``_*_args`` functions give one kernel's C arguments on
+checked buffers; a chunk binds them once (``_kernels.bind``) and launches
+each kernel ``chunk_steps`` times.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional
 
 import torch
 
@@ -55,6 +69,13 @@ STATE_WORDS = STATE_CNT + MAX_CALLS
 K3_MAX_BLOCKS = 1024
 # K4's C entry takes N <= 24 (2^24 - 1 masks a row)
 K4_MAX_N = 24
+# K5's block path takes at most kThreads x kLanes = 2048 pending lanes (its
+# lanes live in registers), and the engine gives it all it takes: on the
+# H100 one block is faster up to about 2,048 lanes and the grid above,
+# where one multiprocessor's load/store unit serialises the rows' scattered
+# sectors (chip_smoke.py --k5-sweep); the main path's steps are on both
+# sides (kinase `auto`: median 5,984, `off`: 1,402)
+K5_CAP = 2048
 
 
 def _stream(dev) -> int:
@@ -130,7 +151,12 @@ class StepBuffers:
     pend (B * M, 3) int32: K4's pending lanes (home, sig base, packed)
     lane_cur, lane_dest, lane_word (B * M,) int32: K5's lane state
     params int32: pairs, weights, triangles, final coordinate and key bit
-    widths for K4 (``_kernel_params``)"""
+    widths for K4 (``_kernel_params``)
+    counters (N_COUNTERS,) int64: the chunk's counters, the same buffer
+        every chunk (the graph holds its pointer)
+    graph: the chunk's ``ChunkGraph`` (None before the first capture);
+    captures, capture_s: graphs captured on these buffers, and the host
+        seconds they took (warm-up, capture and instantiation)"""
     slots: torch.Tensor
     vmin: torch.Tensor
     active: torch.Tensor
@@ -144,6 +170,10 @@ class StepBuffers:
     lane_dest: torch.Tensor = None
     lane_word: torch.Tensor = None
     params: torch.Tensor = None
+    counters: torch.Tensor = None
+    graph: Optional["ChunkGraph"] = None
+    captures: int = 0
+    capture_s: float = 0.0
 
     @classmethod
     def select_only(cls, st: _Static, dev) -> "StepBuffers":
@@ -170,6 +200,7 @@ class StepBuffers:
         bufs.lane_cur, bufs.lane_dest, bufs.lane_word = (
             torch.empty(cap, dtype=torch.int32, device=dev) for _ in range(3))
         bufs.params = _kernel_params(st, dev)
+        bufs.counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
         return bufs
 
 
@@ -223,35 +254,123 @@ def _expand_args(st, tab, bufs, counters, ub, stream) -> tuple:
             counters.data_ptr(), bufs.state.data_ptr(), bufs.pend.data_ptr(), stream)
 
 
-def _probe_args(st, tab, bufs, counters, fill, blocks, stream) -> tuple:
+def _probe_args(st, tab, bufs, counters, fill, blocks, cap, stream) -> tuple:
     return ("sig_probe", tab.t_sig.data_ptr(), tab.t_best.data_ptr(), bufs.pend.data_ptr(),
             bufs.lane_cur.data_ptr(), bufs.lane_dest.data_ptr(), bufs.lane_word.data_ptr(),
-            st.bbits, st.max_bprobes, st.max_probes, int(fill), bufs.run.data_ptr(),
+            st.bbits, st.max_bprobes, st.max_probes, int(fill), int(cap), bufs.run.data_ptr(),
             counters.data_ptr(), bufs.state.data_ptr(), int(blocks), stream)
 
 
+@dataclass
+class ChunkGraph:
+    """A captured chunk: what it was captured for (``key``: the table's
+    pointers, chunk length, bound, fill, K5's grid and cap), the graph, and
+    the launches of each kernel that one replay runs."""
+    key: tuple
+    graph: object
+    tally: Dict[str, int] = field(default_factory=dict)
+
+
 def run_chunk_sig_cuda(st: _Static, tab: SigTable, counters: torch.Tensor,
-                       chunk_steps: int, ub: int, fill: int,
-                       blocks: int = 0) -> torch.Tensor:
+                       chunk_steps: int, ub: int, fill: int, blocks: int = 0,
+                       cap: int = K5_CAP, graph: bool = True) -> torch.Tensor:
     """Up to ``chunk_steps`` steps of a CUDA sig table (``engine._run_chunk``
     on the card), each K3 -> K4 -> K5 with no host read: the plain loop's
     stop test runs on the device.  Like the plain loop, a chunk starts from
     f-min 0, so its first step runs unless goal_g <= 0 or the table
-    overflowed.  ``blocks`` sizes K5's grid (0: its own choice).  Returns
-    new counters; the table is updated in place."""
+    overflowed.  ``blocks`` sizes K5's grid (0: one block a
+    multiprocessor), ``cap`` is the largest pending count K5's block path
+    takes (0 .. K5_CAP; 0: the grid path every step); ``graph`` replays the
+    chunk as one CUDA graph (captured at the first chunk of this table and
+    these arguments), else enqueues it kernel by kernel.  Returns new
+    counters; the table is updated in place."""
     dev = _check_step(st, tab, counters)
-    bufs = _step_buffers(st, dev)
-    counters = counters.clone()
-    counters[1] = 0
-    bufs.run.copy_(((counters[0] > 0) & (counters[6] == 0)).view(1))
-    goal, thr, stream = counters[0], counters[7], _stream(dev)
-    # the same pointers every step: bind each kernel's arguments once
-    select = _kernels.bind(*_select_args(st, tab.t_best, tab.t_closed, goal, thr, bufs.run,
+    if not 0 <= cap <= K5_CAP:
+        raise ValueError(f"K5 cap {cap}: need 0 .. {K5_CAP}")
+    return _drive_chunk(st, tab, _step_buffers(st, dev), counters, chunk_steps, ub, fill,
+                      blocks, cap, graph)
+
+
+def _drive_chunk(st, tab, bufs, counters, chunk_steps, ub, fill, blocks, cap, graph):
+    """``run_chunk_sig_cuda`` on checked arguments: the caller's counters
+    in and out of ``bufs.counters``, the chunk replayed or enqueued."""
+    bufs.counters.copy_(counters)
+    if graph:
+        g = _chunk_graph(st, tab, bufs, chunk_steps, ub, fill, blocks, cap)
+        g.graph.replay()
+        _kernels.replayed(g.tally)
+    else:
+        _chunk(st, tab, bufs, chunk_steps, ub, fill, blocks, cap, _stream(bufs.counters.device))
+    return bufs.counters.clone()
+
+
+def _chunk(st, tab, bufs, chunk_steps, ub, fill, blocks, cap, stream) -> None:
+    """One chunk on ``bufs.counters``: its set-up, then ``chunk_steps`` x
+    (K3, K4, K5), every kernel's arguments bound once."""
+    ctr = bufs.counters
+    ctr[1].fill_(0)  # a kernel: a graph captures no copy from the host
+    bufs.run.copy_(((ctr[0] > 0) & (ctr[6] == 0)).view(1))
+    select = _kernels.bind(*_select_args(st, tab.t_best, tab.t_closed, ctr[0], ctr[7], bufs.run,
                                          bufs, stream))
-    expand = _kernels.bind(*_expand_args(st, tab, bufs, counters, ub, stream))
-    probe = _kernels.bind(*_probe_args(st, tab, bufs, counters, fill, blocks, stream))
+    expand = _kernels.bind(*_expand_args(st, tab, bufs, ctr, ub, stream))
+    probe = _kernels.bind(*_probe_args(st, tab, bufs, ctr, fill, blocks, cap, stream))
     for _ in range(chunk_steps):
         select()
         expand()
         probe()
-    return counters
+
+
+def _capture(fn):
+    """A CUDA graph of what ``fn`` enqueues on the current stream, which
+    is a side stream during the capture (a graph is not captured on the
+    default stream), so ``fn`` reads the stream inside.  A failed capture
+    or instantiation raises.  (``torch.cuda.graph`` would also collect
+    garbage and empty the allocator's cache first, up to 0.2 s a capture
+    on the card; the capture needs neither.)"""
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        g.capture_begin()
+        try:
+            fn()
+        finally:
+            g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return g
+
+
+def _chunk_graph(st, tab, bufs, chunk_steps, ub, fill, blocks, cap) -> ChunkGraph:
+    """The chunk's graph for this table and these arguments: the one
+    captured last on ``bufs`` if it was captured for them, else a new one.
+    Before a capture every kernel is launched once with the run flag at 0
+    (it returns at once): each C entry's first call queries the card and
+    loads its kernel, which a capture must not do."""
+    key = (tab.t_sig.data_ptr(), tab.t_best.data_ptr(), tab.t_closed.data_ptr(),
+           int(chunk_steps), int(ub), int(fill), int(blocks), int(cap))
+    if bufs.graph is not None and bufs.graph.key == key:
+        return bufs.graph
+    bufs.graph = None  # release the old graph first
+    t0 = time.perf_counter()
+    dev = bufs.counters.device
+    bufs.run.zero_()
+    stream = _stream(dev)
+    for args in (_select_args(st, tab.t_best, tab.t_closed, bufs.counters[0],
+                              bufs.counters[7], bufs.run, bufs, stream),
+                 _expand_args(st, tab, bufs, bufs.counters, ub, stream),
+                 _probe_args(st, tab, bufs, bufs.counters, fill, blocks, cap, stream)):
+        _kernels.launch(*args)
+    tally: Dict[str, int] = {}
+    with _kernels.capturing(tally):
+        graph = _capture(lambda: _chunk(st, tab, bufs, chunk_steps, ub, fill, blocks, cap,
+                                        _stream(dev)))
+    bufs.graph = ChunkGraph(key, graph, tally)
+    bufs.captures += 1
+    bufs.capture_s += time.perf_counter() - t0
+    return bufs.graph
+
+
+def capture_stats(st: _Static):
+    """(graphs captured, host seconds they took) on the statics ``st``."""
+    bufs = getattr(st, "_step_buffers", None)
+    return (bufs.captures, bufs.capture_s) if bufs is not None else (0, 0.0)

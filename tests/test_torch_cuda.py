@@ -1,7 +1,7 @@
 """Tests that need the card (marker ``cuda``): the hand-written CUDA kernels
 (K1 pair wavefront, K2 triple cubes, the step kernels K3-K5) against their
-plain PyTorch versions, and the port's main path and its table layouts on
-the GPU.
+plain PyTorch versions, the chunk graph (K6) against the eager chunk, and
+the port's main path and its table layouts on the GPU.
 They skip on a host without a CUDA device.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -189,10 +189,13 @@ def test_main_path_auto_on_card(cuda):
     assert _kernels.launches["pair_wavefront"] == 1
     assert _kernels.launches["triple_wavefront"] == 1
     # the sig step: K3, K4 and K5 once a step (steps enqueued after the
-    # stop included)
+    # stop included): one chunk graph, each kernel launched once as its
+    # warm-up, then chunk_steps times a replay, one replay a chunk
     n = _kernels.launches["select_best"]
     assert n >= res.steps
     assert _kernels.launches["sig_expand"] == _kernels.launches["sig_probe"] == n
+    chunks = -(-res.steps // eng.chunk_steps)
+    assert eng.graph_captures == 1 and n == 1 + eng.chunk_steps * chunks
     assert res.g == gold["optimal_g"]
     assert build_alignment(p, res.closed) == gold["alignment"]
 
@@ -475,3 +478,96 @@ def test_kinase_end_to_end_counts(cuda, triples, expanded, reopened, steps):
         "pair_wavefront", "select_best", "sig_expand", "sig_probe"))
     assert (_kernels.launches["triple_wavefront"] > 0) == (triples == "auto")
     assert [r.replace("-", "") for r in build_alignment(p, res.closed)] == list(p.seqs)
+
+
+# ------------------------------------------- K5's two paths, the chunk graph
+
+def warm_sig(name, device, triples, warm, **kw):
+    """A sig engine on the card ``warm`` steps into its search: (engine,
+    table, counters); ``name`` a golden input or a tests/data one."""
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    if name.endswith(".fasta"):
+        eng = sig_engine(name, device, triples=triples, **kw)
+    else:
+        p = problem_from_fasta(os.path.join(HERE, "data", f"{name}.fasta"))
+        eng = E.FrontierSearch(p, HPairHeuristic.build(p, device), device=device,
+                               triples=triples, **kw)
+    assert eng.layout == "sig"
+    tab = eng._init_table()
+    ctr = E._run_chunk(eng.st, tab, torch.as_tensor(E.fresh_counters(), device=device),
+                       warm, eng.ub, eng.fill_target, "sig")
+    return eng, tab, ctr
+
+
+@pytest.mark.parametrize("name,triples,warm", [
+    ("kinase.fasta", "auto", 150), ("kinase.fasta", "off", 400), ("synth6", "auto", 40)])
+def test_k5_both_paths_equal_plain_insert(cuda, name, triples, warm):
+    # one step from a mid-search table with K5's cap just below the step's
+    # pending count n (the grid path), at n (the block path), at 0 and at
+    # K5_CAP, on its own grid and on one block: the plain step's tables
+    # and counters every time
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    eng, tab, ctr = warm_sig(name, cuda, triples, warm)
+    st, ub, fill = eng.st, eng.ub, eng.fill_target
+    pa = clone_sig(tab)
+    pc = E._run_chunk_plain(st, pa, ctr, 1, ub, fill, "sig", plain_select=True)
+    n = int(pc[12]) - int(ctr[12])
+    assert n > 0
+    caps = sorted({c for c in (n - 1, n, 0, S.K5_CAP) if 0 <= c <= S.K5_CAP})
+    for cap in caps:
+        for blocks in (0, 1):
+            ka = clone_sig(tab)
+            kc = S.run_chunk_sig_cuda(st, ka, ctr, 1, ub, fill, blocks=blocks, cap=cap)
+            assert_same_step(st, ka, kc, pa, pc)
+
+
+@pytest.mark.parametrize("name,triples,warm", [
+    ("kinase.fasta", "auto", 150), ("kinase.fasta", "off", 400), ("synth6", "auto", 40)])
+def test_graph_chunk_equals_eager_chunk(cuda, name, triples, warm):
+    # the chunk graph against the eager chunk, bit for bit, after 1 chunk
+    # and after 3, from one mid-search table; one capture a table
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    eng, tab, ctr = warm_sig(name, cuda, triples, warm)
+    st, ub, fill = eng.st, eng.ub, eng.fill_target
+    for chunks in (1, 3):
+        ga, ea = clone_sig(tab), clone_sig(tab)
+        gc = ec = ctr
+        n0 = S.capture_stats(st)[0]
+        before = dict(_kernels.launches)
+        for _ in range(chunks):
+            gc = S.run_chunk_sig_cuda(st, ga, gc, 16, ub, fill)
+            ec = S.run_chunk_sig_cuda(st, ea, ec, 16, ub, fill, graph=False)
+        assert_same_step(st, ga, gc, ea, ec)
+        assert S.capture_stats(st)[0] == n0 + 1
+        # each kernel: a warm-up, then 16 a chunk from each loop
+        for k in ("select_best", "sig_expand", "sig_probe"):
+            assert _kernels.launches[k] - before[k] == 1 + 2 * 16 * chunks
+        assert int(gc[2]) > int(ctr[2])
+
+
+def test_regrow_recaptures_and_reaches_the_optimum(cuda):
+    # synth6 in a 2^20-slot table (the least that keeps its 42 key bits in
+    # a sig word) outgrows it: the engine doubles the capacity, starts
+    # again on new statics and a new table, captures a new chunk graph,
+    # and still reaches the certified optimum
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    p = problem_from_fasta(os.path.join(HERE, "data", "synth6.fasta"))
+    eng = E.FrontierSearch(p, HPairHeuristic.build(p, cuda), device=cuda, capacity=1 << 20)
+    assert eng.layout == "sig"
+    first = eng.st
+    _kernels.reset_counts()
+    res = eng.run()
+    assert eng.regrown and eng.st is not first and eng.st.C > first.C
+    assert eng.layout == "sig" and eng.graph_captures == 1
+    assert res.g == 272848  # tests/test_synth6.py
+    assert _kernels.launches["sig_expand"] == _kernels.launches["sig_probe"] == (
+        _kernels.launches["select_best"])

@@ -26,6 +26,7 @@ against the plain step (all values exact integers: zero tolerance).
   below 2^31;
 - the wrappers refuse CPU tensors and non-sig tables.
 """
+import ctypes
 import functools
 import json
 import os
@@ -39,6 +40,7 @@ from mpi_pastar_msa_tpu.core.problem import Problem as JProblem
 from mpi_pastar_msa_tpu.heuristic import triples as JT
 from mpi_pastar_msa_tpu.heuristic.hpair import HPairHeuristic as JHPair
 from mpi_pastar_msa_tpu.search import engine as JE
+from mpi_pastar_msa_tpu_torch import _kernels
 from mpi_pastar_msa_tpu_torch.core.cost import GAP_EXTENSION, GAP_GAP
 from mpi_pastar_msa_tpu_torch.core.problem import Problem, problem_from_fasta
 from mpi_pastar_msa_tpu_torch.heuristic import triples as TT
@@ -389,50 +391,106 @@ def emu_expand(ks, sig, best, sel, goal, ub, rng):
     return goal, pend, n_valid, lanes
 
 
-def emu_probe(st, sig, best, pend, rng, max_calls=128):
-    """csrc/sig_probe.cu: each call's read phase over the lanes in a random
-    order (matches min into ``best`` at once), then its write phase in
-    another random order, unsigned min on ``sig`` (a NumPy uint32 array).
-    Returns (calls, unsettled after each call)."""
-    bmask = st.nbuck - 1
+K5_THREADS, K5_LANES = 512, 4  # csrc/sig_probe.cu: kThreads, kLanes
+
+
+def emu_read_row(st, sig, best, lane, cur):
+    """sig_probe.cu's read_row: one read of a live lane's bucket row.
+    Returns (unsettled, cur, way, word); way is None when the lane writes
+    nothing this call, cur -1 once it settled."""
+    home, sigb, packed = lane
+    r = (cur - home) & (st.nbuck - 1)
+    if r >= st.max_bprobes:
+        return 1, cur, None, None  # stuck
+    word = sigb | r
+    row = sig[cur * 8: cur * 8 + 8].tolist()
+    if word in row:
+        at = cur * 8 + row.index(word)
+        best[at] = min(int(best[at]), packed)
+        return 0, -1, None, None
+    empty = [w for w in range(8) if row[w] == M32]
+    if not empty:
+        return 1, (cur + 1) & (st.nbuck - 1), None, None
+    return 1, cur, empty[mix32(word) % len(empty)], word
+
+
+def emu_probe(st, sig, best, pend, rng, cap=TS.K5_CAP, blocks=132, max_calls=128,
+              scratch=None):
+    """csrc/sig_probe.cu on the pending list ``pend`` [(home, sig base,
+    packed)], ``sig`` a NumPy uint32 array.  n <= cap: the block path
+    (block 0 alone; thread t holds lanes t + k kThreads in registers and
+    rebuilds a writing lane's word from the list).  Else the grid path:
+    ``blocks`` blocks whose threads stride over the lanes, call 0 taking
+    each home from the list, lane state in ``scratch`` = (lane_cur,
+    lane_dest, lane_word) arrays that hold a previous step's values.  Each
+    call's read phase visits the threads (of every block) in a random
+    order, matches min into ``best`` at once, and ends the loop when
+    nothing is left unsettled; its write phase then visits them in another
+    random order, unsigned min on ``sig``.  Returns (calls, unsettled
+    after each call)."""
     n = len(pend)
-    home = [h for h, _, _ in pend]
-    cur = list(home)  # -1 once settled
     counts, calls, undone = [], 0, n
+    if n <= cap:
+        T = K5_THREADS
+        cur = [[pend[t + k * T][0] if t + k * T < n else -1 for k in range(K5_LANES)]
+               for t in range(T)]
+        while undone > 0 and calls < max_calls:
+            ways, left = {}, 0
+            for t in rng.permutation(T).tolist():
+                for k in range(K5_LANES):
+                    if cur[t][k] >= 0:
+                        u, cur[t][k], way, _ = emu_read_row(st, sig, best, pend[t + k * T],
+                                                            cur[t][k])
+                        left += u
+                        if way is not None:
+                            ways[(t, k)] = way
+            counts.append(left)
+            calls += 1
+            undone = left
+            if undone == 0:
+                break
+            items = list(ways.items())
+            for j in rng.permutation(len(items)).tolist():
+                (t, k), way = items[j]
+                home, sigb, _ = pend[t + k * T]
+                word = sigb | ((cur[t][k] - home) & (st.nbuck - 1))
+                d = cur[t][k] * 8 + way
+                sig[d] = min(int(sig[d]), word)
+        return calls, counts
+    lane_cur, lane_dest, lane_word = scratch if scratch is not None else (
+        [rng.integers(-1, 99) for _ in range(n)] for _ in range(3))
+    stride = blocks * K5_THREADS
+    owners = range(min(n, stride))
     while undone > 0 and calls < max_calls:
-        writes, left = [], 0
-        for i in rng.permutation(n).tolist():
-            if cur[i] < 0:
-                continue
-            left += 1
-            r = (cur[i] - home[i]) & bmask
-            if r >= st.max_bprobes:
-                continue
-            word = pend[i][1] | r
-            row = sig[cur[i] * 8: cur[i] * 8 + 8].tolist()
-            if word in row:
-                at = cur[i] * 8 + row.index(word)
-                best[at] = min(int(best[at]), pend[i][2])
-                cur[i] = -1
-                left -= 1
-                continue
-            empty = [w for w in range(8) if row[w] == M32]
-            if not empty:
-                cur[i] = (cur[i] + 1) & bmask
-                continue
-            writes.append((cur[i] * 8 + empty[mix32(word) % len(empty)], word))
+        left = 0
+        for g in rng.permutation(len(owners)).tolist():
+            for i in range(g, n, stride):
+                cur = pend[i][0] if calls == 0 else lane_cur[i]
+                if cur < 0:
+                    continue  # settled in an earlier call: its dest is -1
+                u, cur, way, word = emu_read_row(st, sig, best, pend[i], cur)
+                left += u
+                lane_cur[i] = cur
+                lane_dest[i] = -1 if way is None else cur * 8 + way
+                if way is not None:
+                    lane_word[i] = word
         counts.append(left)
-        undone = left
-        for k in rng.permutation(len(writes)).tolist():
-            d, word = writes[k]
-            sig[d] = min(int(sig[d]), word)
         calls += 1
+        undone = left
+        if undone == 0:
+            break
+        for g in rng.permutation(len(owners)).tolist():
+            for i in range(g, n, stride):
+                d = lane_dest[i]
+                if d >= 0:
+                    sig[d] = min(int(sig[d]), lane_word[i])
     return calls, counts
 
 
-def emu_insert(st, tab, home, sigb, packed, rng):
-    """K4's round 0 and K5 on given lanes (the plain _insert_sig's
-    arguments); returns the plain insert's (overflow, acct)."""
+def emu_insert(st, tab, home, sigb, packed, rng, **k5):
+    """K4's round 0 and K5 (``k5``: emu_probe's cap and blocks) on given
+    lanes (the plain _insert_sig's arguments); returns the plain insert's
+    (overflow, acct)."""
     sig = tab.t_sig.numpy().view(np.uint32)
     best = tab.t_best.numpy()
     pend = []
@@ -443,7 +501,7 @@ def emu_insert(st, tab, home, sigb, packed, rng):
             best[h * 8 + row.index(s)] = min(int(best[h * 8 + row.index(s)]), p)
         else:
             pend.append((h, s, p))
-    calls, counts = emu_probe(st, sig, best, pend, rng)
+    calls, counts = emu_probe(st, sig, best, pend, rng, **k5)
     L = len(home)
     tail = counts[1] if calls >= 2 else 0
     return counts[-1] if calls else 0, [L, L, calls * L, len(pend), tail]
@@ -477,6 +535,78 @@ def test_k5_schedule_equals_plain_insert_on_overflow():
     assert same_table(a, b, st.C)
     assert int(ovf) == eovf == len(coords) - st.C
     assert acct.tolist() == eacct and eacct[2] == 128 * len(coords)
+
+
+def pending_lanes(st, rs, old, n):
+    """Coordinates of n lanes of new keys (none stored, so none settles in
+    round 0: all n are K5's pending lanes), about a third of them
+    duplicates, in a random order."""
+    stored = {tuple(c) for c in old.tolist()}
+    pool = np.unique(random_coords(rs, st.final_np, 2 * n + 100), axis=0)
+    pool = pool[[tuple(c) not in stored for c in pool.tolist()]]
+    distinct = pool[rs.choice(len(pool), (2 * n + 2) // 3, replace=False)]
+    return distinct[rs.randint(0, len(distinct), size=n)]
+
+
+def jax_insert(jst, tab, C, home, sigb, packed):
+    """JAX _insert_sig on a copy of a port table: (key map, overflow, acct)."""
+    L = len(home)
+    jtab = (jnp.asarray(tab.t_sig[:C].numpy().view(np.uint32).reshape(-1, 8)),
+            jnp.asarray(tab.t_best[:C].numpy()), jnp.asarray(tab.t_closed[:C].numpy()))
+    (jsig, jbest, _), jovf, _, jacct = JE._insert_sig(
+        jst, jtab, jnp.asarray(home.numpy().astype(np.uint32)),
+        jnp.asarray(sigb.numpy().astype(np.uint32)), jnp.zeros(L, jnp.int32),
+        jnp.asarray(packed.numpy().astype(np.int32)), jnp.ones(L, dtype=bool))
+    jt = TE.SigTable(torch.from_numpy(np.array(jsig).reshape(-1).view(np.int32)),
+                     torch.from_numpy(np.array(jbest)), tab.t_closed[:C])
+    return jt, int(jovf), [int(v) for v in np.array(jacct)]
+
+
+@pytest.mark.parametrize("n,blocks", [
+    (0, 132), (1, 132), (TS.K5_CAP - 1, 132), (TS.K5_CAP, 132), (TS.K5_CAP + 1, 132),
+    # the grid path on 3 blocks: up to 14 lanes a thread, in every block
+    (20000, 3)])
+def test_k5_paths_equal_plain_and_jax(n, blocks):
+    # n pending lanes into a 2^15-slot table about 40% full: K5 with its
+    # cap (the block path up to K5_CAP lanes, the grid path above) and with
+    # cap 0 (the grid path at every n) against the plain insert, and the
+    # plain insert against JAX
+    jst, st = statics(golden_seqs("test2.fasta"), 64, 1 << 15)
+    rs = np.random.RandomState(50)
+    tab, old = prefilled(st, rs, 13500)
+    home, sigb, packed = lanes_for(st, pending_lanes(st, rs, old, n), rs)
+    want = clone(tab)
+    ovf, _, acct = TE._insert_sig(st, want, home, sigb, packed)
+    assert int(ovf) == 0 and int(acct[3]) == n
+    assert n == 0 or int(acct[2]) >= 2 * n  # two calls at least
+    for cap in (TS.K5_CAP, 0):
+        got = clone(tab)
+        eovf, eacct = emu_insert(st, got, home, sigb, packed,
+                                 np.random.default_rng(n + cap), cap=cap, blocks=blocks)
+        assert same_table(got, want, st.C), cap
+        assert eovf == int(ovf) and eacct == acct.tolist(), cap
+    if n == 0:
+        assert same_table(want, tab, st.C) and acct.tolist() == [0] * 5
+        return
+    jt, jovf, jacct = jax_insert(jst, tab, st.C, home, sigb, packed)
+    assert jovf == int(ovf)
+    assert key_map(st, jt) == key_map(st, want)
+    # the key -> t_best map, the overflow and the lane counts agree; the
+    # calls (slot 2, calls x L on JAX's full-width path, wideA, JAX
+    # engine.py:1431) need not: XLA keeps an unspecified one of the writers
+    # racing for a way, the port the smallest, so a chain can take another
+    # call; JAX counts the tail (slot 4) on its 3L/8 tier alone, 0 here
+    a = acct.tolist()
+    assert [jacct[k] for k in (0, 1, 3)] == [a[k] for k in (0, 1, 3)] and jacct[4] == 0
+    assert jacct[2] % n == 0 and jacct[2] >= 2 * n
+
+
+def test_k5_constants_match_source():
+    src = open(os.path.join(HERE, "..", "mpi_pastar_msa_tpu_torch", "csrc",
+                            "sig_probe.cu")).read()
+    assert f"constexpr int kThreads = {K5_THREADS};" in src
+    assert f"constexpr int kLanes = {K5_LANES};" in src
+    assert TS.K5_CAP == K5_THREADS * K5_LANES
 
 
 def mid_search(seqs, triples, batch, capacity, steps, rs_seed=0):
@@ -663,10 +793,13 @@ def test_k3_constants_match_source():
         assert f"constexpr int {name} = {value};" in src
 
 
-def emu_chunk(st, tab, counters, chunk_steps, ub, fill, rng):
+def emu_chunk(st, tab, counters, chunk_steps, ub, fill, rng, cap=TS.K5_CAP, blocks=132,
+              scratch=None):
     """search/step.py::run_chunk_sig_cuda with the kernels emulated: the run
     flag of a chunk starts from f-min 0, K5's last thread writes the
-    counters and the flag, every kernel skips while it reads 0."""
+    counters and the flag, every kernel skips while it reads 0.  K5 runs
+    with ``cap`` and ``blocks`` and keeps its lane arrays ``scratch`` from
+    step to step."""
     c = counters.tolist()
     c[1] = 0
     run = c[0] > 0 and c[6] == 0
@@ -679,7 +812,8 @@ def emu_chunk(st, tab, counters, chunk_steps, ub, fill, rng):
         _, _, _, fmin, n_open, n_sel, reopen, sel = emu_select(
             st, sig, best, closed, c[0], c[7], rng=rng)
         c[0], pend, n_valid, _ = emu_expand(ks, sig, best, sel, c[0], ub, rng)
-        calls, counts = emu_probe(st, sig, best, pend, rng)
+        calls, counts = emu_probe(st, sig, best, pend, rng, cap=cap, blocks=blocks,
+                                  scratch=scratch)
         c[1] = fmin
         c[2] += 1
         c[3] += n_sel
@@ -729,6 +863,171 @@ def test_k6_chunks_equal_plain_loop(name, triples, batch, chunk, capacity, loose
     else:
         assert int(ca[0]) == GOLD[name]["optimal_g"] and ca[1] >= ca[0]
     assert int(ca[11]) > 0  # the probe ran
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_k6_chunks_with_k5_grid_path_equal_plain_loop(blocks):
+    # K5 on its grid path every step (cap 0), its lane arrays carried from
+    # step to step: chunk by chunk to the goal, as the plain loop
+    seqs = golden_seqs("PF08184.fasta")
+    p = Problem(seqs)
+    eng = TE.FrontierSearch(p, both_cubes(seqs)[1], device="cpu", batch=64,
+                            capacity=1 << 14, triples="auto")
+    st, ub = eng.st, eng.ub
+    a = eng._init_table()
+    b = clone(a)
+    ca = cb = torch.as_tensor(TE.fresh_counters())
+    rng = np.random.default_rng(11)
+    cap_lanes = st.B * st.M
+    scratch = tuple([int(v) for v in rng.integers(-1, 1 << 20, cap_lanes)] for _ in range(3))
+    for _ in range(40):
+        ca = TE._run_chunk_plain(st, a, ca, 16, ub, eng.fill_target, "sig")
+        cb = emu_chunk(st, b, cb, 16, ub, eng.fill_target, rng, cap=0, blocks=blocks,
+                       scratch=scratch)
+        assert ca.tolist() == cb.tolist()
+        assert same_table(a, b, st.C)
+        if ca[1] >= ca[0]:
+            break
+    assert int(ca[0]) == GOLD["PF08184.fasta"]["optimal_g"]
+
+
+# ------------------------------- the chunk graph's host logic (K6), stubbed
+
+STEP_KERNELS = ("select_best", "sig_expand", "sig_probe")
+
+
+class StubKernels:
+    """The step kernels' C entries as Python functions on CPU memory (the
+    pointers of CPU tensors are host addresses).  Each records its
+    arguments; while ``run_kernels`` is False (a capture) that is all, else
+    K5 stands in for a search whose f-min is 10 a step: steps += 1, f-min =
+    10 x steps, run = f-min < goal."""
+
+    def __init__(self):
+        self.calls = {name: [] for name in STEP_KERNELS}
+        self.run_kernels = True
+
+    def lib(self, name):
+        def entry(*cargs):
+            vals = tuple(a.value for a in cargs)
+            self.calls[name].append(vals)
+            if self.run_kernels and name == "sig_probe":
+                run = ctypes.c_int32.from_address(vals[11])
+                if run.value:
+                    ctr = (ctypes.c_longlong * TE.N_COUNTERS).from_address(vals[12])
+                    ctr[2] += 1
+                    ctr[1] = 10 * ctr[2]
+                    run.value = int(ctr[1] < ctr[0])
+            return 0
+        return type("Lib", (), {name: staticmethod(entry)})
+
+
+class FakeGraph:
+    """torch.cuda.CUDAGraph on the CPU.  The capture runs the chunk's host
+    code once, the stubs recording its launches and running none.  A replay
+    runs the host code again (its set-up ops on the static buffers, then
+    its launches, which the stubs run), with the launches counted nowhere
+    (the chunk loop counts the replay), and checks that each kernel got the
+    arguments of the capture: a real graph replays those."""
+
+    def __init__(self, fn, stubs):
+        self.fn, self.stubs = fn, stubs
+        n0 = {k: len(v) for k, v in stubs.calls.items()}
+        stubs.run_kernels = False
+        try:
+            fn()
+        finally:
+            stubs.run_kernels = True
+        self.recorded = {k: v[n0[k]:] for k, v in stubs.calls.items()}
+
+    def replay(self):
+        n0 = {k: len(v) for k, v in self.stubs.calls.items()}
+        with _kernels.capturing({}):
+            self.fn()
+        for k, v in self.stubs.calls.items():
+            assert v[n0[k]:] == self.recorded[k], k
+
+
+@pytest.fixture
+def stubbed(monkeypatch):
+    """The chunk loop on the CPU: stub C entries, fake graphs, stream 0."""
+    stubs, graphs = StubKernels(), []
+
+    def capture(fn):
+        graphs.append(FakeGraph(fn, stubs))
+        return graphs[-1]
+
+    monkeypatch.setattr(_kernels, "load", stubs.lib)
+    monkeypatch.setattr(TS, "_stream", lambda dev: 0)
+    monkeypatch.setattr(TS, "_capture", capture)
+    saved = dict(_kernels.launches)
+    _kernels.reset_counts()
+    yield stubs, graphs
+    _kernels.launches.update(saved)
+
+
+def test_k6_chunk_graph_binds_static_buffers_and_counts_replays(stubbed):
+    stubs, graphs = stubbed
+    _, st = statics(golden_seqs("PF08184.fasta"), 64, 1 << 12)
+    tab = empty_table(st)
+    bufs = TS.StepBuffers.for_step(st, torch.device("cpu"))
+    ctr = torch.as_tensor(TE.fresh_counters())
+    ctr[0] = 95  # the stub search stops at step 10 (f-min 100)
+    outs = []
+    for _ in range(4):
+        ctr = TS._drive_chunk(st, tab, bufs, ctr, 4, 10**6, 32, 0, TS.K5_CAP, True)
+        outs.append(ctr.tolist())
+    # one capture, four replays; the counters went through the static
+    # buffer: 4, 8, then 10 steps (the stop at f-min 100; the chunk's last
+    # two steps no-ops); a chunk starts from f-min 0, so the fourth runs one
+    # step more, as the plain loop's would
+    assert len(graphs) == 1 and bufs.captures == 1
+    assert [o[2] for o in outs] == [4, 8, 10, 11] and [o[1] for o in outs] == [40, 80, 100, 110]
+    assert outs[-1][0] == 95
+    # every pointer the kernels got is a static buffer: the counters of K4
+    # and K5 (and K3's goal and threshold, views of them) are
+    # bufs.counters, never the caller's tensor
+    ptr = bufs.counters.data_ptr()
+    k5 = stubs.calls["sig_probe"]
+    assert {c[12] for c in k5} == {ptr}
+    assert {c[19] for c in stubs.calls["sig_expand"]} == {ptr}
+    assert {(c[6], c[7]) for c in stubs.calls["select_best"]} == {(ptr, ptr + 8 * 7)}
+    assert all(c[0] == tab.t_sig.data_ptr() for c in k5)
+    # launches: the warm-up (each kernel once, run flag 0) and the
+    # captured kernels times the replays; the capture itself ran nothing
+    assert len(k5) == 1 + 4 + 4 * 4 and graphs[0].recorded["sig_probe"] == k5[1:5]
+    assert bufs.graph.tally == {name: 4 for name in STEP_KERNELS}
+    for name in STEP_KERNELS:
+        assert _kernels.launches[name] == 1 + 4 * 4
+
+
+def test_k6_chunk_graph_recaptures_for_a_new_table_or_statics(stubbed):
+    _, graphs = stubbed
+    seqs = golden_seqs("PF08184.fasta")
+    _, st = statics(seqs, 64, 1 << 12)
+    bufs = TS.StepBuffers.for_step(st, torch.device("cpu"))
+    ctr = torch.as_tensor(TE.fresh_counters())
+    a, b = empty_table(st), empty_table(st)
+    TS._drive_chunk(st, a, bufs, ctr, 2, 10**6, 32, 0, TS.K5_CAP, True)
+    TS._drive_chunk(st, a, bufs, ctr, 2, 10**6, 32, 0, TS.K5_CAP, True)
+    assert bufs.captures == 1
+    # another table (new pointers), another chunk length, K5 grid or cap:
+    # each a new capture, the old graph released
+    TS._drive_chunk(st, b, bufs, ctr, 2, 10**6, 32, 0, TS.K5_CAP, True)
+    TS._drive_chunk(st, b, bufs, ctr, 3, 10**6, 32, 0, TS.K5_CAP, True)
+    TS._drive_chunk(st, b, bufs, ctr, 3, 10**6, 32, 1, TS.K5_CAP, True)
+    TS._drive_chunk(st, b, bufs, ctr, 3, 10**6, 32, 1, 0, True)
+    assert bufs.captures == 5 and len(graphs) == 5 and bufs.graph.graph is graphs[-1]
+    # a regrow: new statics at twice the capacity, so new buffers and a new
+    # table, and a capture on them
+    _, st2 = statics(seqs, 64, 1 << 13)
+    bufs2 = TS.StepBuffers.for_step(st2, torch.device("cpu"))
+    TS._drive_chunk(st2, empty_table(st2), bufs2, ctr, 3, 10**6, 32, 0, TS.K5_CAP, True)
+    assert bufs2.captures == 1 and len(graphs) == 6
+    # the eager chunk captures nothing and counts each launch
+    n = _kernels.launches["sig_probe"]
+    TS._drive_chunk(st2, empty_table(st2), bufs2, ctr, 3, 10**6, 32, 0, TS.K5_CAP, False)
+    assert bufs2.captures == 1 and _kernels.launches["sig_probe"] == n + 3
 
 
 @pytest.mark.parametrize("name,capacity", [("kinase.fasta", 1 << 23),
