@@ -29,7 +29,14 @@ Phases, each failing loudly (non-zero exit):
    and the 14 counters must be identical (also with K5 on 1 and on 132
    blocks, at its cap and on its grid path); the chunk graph against the
    eager chunk (K6); K3 alone against the plain select on globin6's packed
-   table.  Kernel, plain and bound times of K3, K4, K5 and the whole step,
+   table.  The packed and unpacked step kernels K3 (select_best.cu, both
+   instantiations), K9 (keyrow_expand.cu) and K10 (keyrow_insert.cu) run 1
+   and 32 steps from globin6's table (packed, step 60) and from kinase's
+   pinned to unpacked (step 150) as a chunk graph and as the eager chunk
+   (1 step also with K10 on one block), against the plain step on copies:
+   every table tensor (claim included) and the 14 counters identical; their
+   kernel, plain and bound times, and K3's torch.min yardstick.  Kernel,
+   plain and bound times of K3, K4, K5 and the whole step,
    each kernel's device time (CUPTI, torch.profiler) beside its
    event-timed wrapper call, K3's and K5's phase splits, the chunk's time
    as a graph and eager and its capture, the empty-kernel launch floor,
@@ -50,14 +57,19 @@ Phases, each failing loudly (non-zero exit):
    byte-identical alignment.
 6. layouts: globin6, synth7 and synth10 (tests/data) through the CLI with
    its defaults must take the packed table layout (their keys do not fit a
-   sig word at C = 2^23), build cubes, launch K1, K2 and K3 and reach their
-   certified optima; kinase with the layout pinned to packed and to unpacked
-   (engine entry, as --profile drives it) must reach g = 421546; test, test2
-   and PF08184 with each pinned must stay byte-identical to the goldens;
-   the degenerate input ("WYWY", "WYY", "YWW") must warn, take the
-   unpacked layout and complete.
-   Bounds of the work not yet ported (K7, the packed step, K8 and the
-   multi-device step of parallel/sharded.py) from this run's shapes.
+   sig word at C = 2^23), build cubes, launch K1, K2, K3, K9 and K10 and
+   reach their certified optima; kinase with the layout pinned to packed
+   and to unpacked (engine entry, as --profile drives it) must reach g =
+   421546; test, test2 and PF08184 with each pinned must stay
+   byte-identical to the goldens; the degenerate input ("WYWY", "WYY",
+   "YWW") must warn, take the unpacked layout and complete.  Every run on
+   the card (phases 4-6) must launch its layout's three step kernels (K3,
+   K4, K5 on sig; K3, K9, K10 on packed; K3's unpacked instantiation, K9,
+   K10 on unpacked), one chunk graph a run, and no plain step function.
+   synth10's step (N = 10, 1023 masks) from step 20 of its main-path
+   engine against the plain step, as in phase 3.
+   Bounds of the work not yet ported (K7, K8 and the multi-device step of
+   parallel/sharded.py) from this run's shapes.
 7. the kernels JSON line, then the result line.
 
 Inputs are rebuilt from tests/goldens.json (the degapped golden rows) and
@@ -90,8 +102,22 @@ K2_OPS_PER_CELL = 7 * 12      # 7 moves x ~12 int32 ops per in-box cube cell
 # certified optima of the tests/data inputs beyond the sig layout
 # (tests/test_globin6.py, tests/test_beyond_reference.py)
 LAYOUT_INPUTS = {"globin6": 988171, "synth7": 402469, "synth10": 575615}
+# (expansions, reopens, steps) of the main path's searches, which the
+# kernels must not move (they equal the plain step): PERF.md section 5
+MAIN_PATH_COUNTS = {("globin6", "auto"): (170120, 52953, 154),
+                    ("synth7", "auto"): (28604, 3045, 122),
+                    ("synth10", "auto"): (14185, 723, 79),
+                    ("kinase", "auto"): (985050, 346443, 299),
+                    ("kinase", "off"): (5137387, 593519, 966)}
 SYNTH6_G = 272848  # tests/test_synth6.py
 STEP_KERNELS = ["select_best", "sig_expand", "sig_probe"]
+# the step kernels of each table layout (K3, then K4 and K5 or K9 and K10)
+LAYOUT_KERNELS = {"sig": STEP_KERNELS,
+                  "packed": ["select_best", "keyrow_expand", "keyrow_insert"],
+                  "unpacked": ["select_best_unpacked", "keyrow_expand", "keyrow_insert"]}
+# the plain step functions that no run on the card may call (the plain
+# loop and the expand and insert it alone calls)
+PLAIN_STEP = ("_run_chunk_plain", "_expand_insert", "_expand", "_probe_claim")
 
 
 def fail(msg: str) -> None:
@@ -529,16 +555,18 @@ def time_restored(fn, restore, reps: int) -> float:
     return statistics.median(times)
 
 
-def warm_engine(path: str, triples: str, warm_steps: int):
-    """An engine on the card run ``warm_steps`` steps into its search;
-    returns (engine, table, counters)."""
+def warm_engine(path: str, triples: str, warm_steps: int, layout: str = "auto", eng=None):
+    """An engine on the card (``eng``, or a new one of ``layout``) run
+    ``warm_steps`` steps into its search from a new table; returns (engine,
+    table, counters)."""
     from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
     from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
     from mpi_pastar_msa_tpu_torch.search import engine as E
 
-    p = problem_from_fasta(path)
-    eng = E.FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
-                           triples=triples)
+    if eng is None:
+        p = problem_from_fasta(path)
+        eng = E.FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
+                               triples=triples, layout=layout)
     tab = eng._init_table()
     ctr = torch.as_tensor(E.fresh_counters(), device="cuda")
     ctr = E._run_chunk(eng.st, tab, ctr, warm_steps, eng.ub, eng.fill_target, eng.layout)
@@ -1076,7 +1104,257 @@ def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
     print(f"K3 globin6 (packed, step {int(ctr[2])}, {int(want[5])} rows selected): "
           f"outputs and t_closed identical to the plain select")
     out["globin6_k3"] = dict(selected=int(want[5]), max_abs_err=err)
+    del a, b
+    # the packed and unpacked step (K3, K9, K10): globin6 (packed) from the
+    # same table, kinase pinned to unpacked from step 150
+    out["globin6_keyrow"] = keyrow_step("globin6", eng, tab, ctr)
+    del eng, tab, ctr
+    eng, tab, ctr = warm_engine(paths["kinase.fasta"], "auto", 150, layout="unpacked")
+    out["kinase_unpacked_keyrow"] = keyrow_step("kinase unpacked", eng, tab, ctr)
     return out
+
+
+@contextlib.contextmanager
+def plain_step_guard():
+    """Count the calls of the plain step functions (PLAIN_STEP) made
+    inside: a run on the card must make none."""
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    calls = dict.fromkeys(PLAIN_STEP, 0)
+    saved = {name: getattr(E, name) for name in PLAIN_STEP}
+
+    def counted(name, fn):
+        def wrapper(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    for name, fn in saved.items():
+        setattr(E, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(E, name, fn)
+
+
+def check_path_kernels(label: str, eng, res, counts: dict, plain: dict) -> None:
+    """The step kernels of the engine's layout ran on this path and no
+    plain step function did; without a regrow, one chunk graph a run,
+    replayed once a chunk: each step kernel once as the capture's warm-up
+    and chunk_steps times a replay."""
+    kernels = LAYOUT_KERNELS[eng.layout]
+    for k in kernels:
+        if counts[k] <= 0:
+            fail(f"{label}: kernel {k} was not launched on the main path")
+    if any(plain.values()):
+        fail(f"{label}: plain step functions ran on the card: {plain}")
+    if not eng.regrown:
+        replays = -(-res.steps // eng.chunk_steps)
+        want = eng.graph_captures + eng.chunk_steps * replays
+        if eng.graph_captures != 1 or any(counts[k] != want for k in kernels):
+            fail(f"{label}: {eng.graph_captures} chunk graph captures and launches "
+                 f"{counts} for {res.steps} steps in {replays} chunks (want {want} each)")
+
+
+def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True) -> dict:
+    """The packed or unpacked step kernels K3 -> K9 -> K10 against the
+    plain step on the card, from one mid-search table of ``eng``: 1 and 32
+    steps through run_chunk_keyrow_cuda as a chunk graph and as the eager
+    chunk (and 1 step with K10 on one block), and through
+    _run_chunk_plain(plain_select=True) on copies; every table tensor
+    (claim included, the first C slots) and the 14 counters must be
+    identical.  With ``timing``: one step's K3, K9 and K10 (CUDA events
+    around the wrapper call, and the device time from CUPTI) beside their
+    plain versions (the plain select; _expand -> prune -> candidates;
+    the plain insert with its content tags) and their bounds by bytes, and
+    K3's library yardstick (torch.min over the same (B, G) view)."""
+    import dataclasses
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    st, ub, fill, layout = eng.st, eng.ub, eng.fill_target, eng.layout
+    C, W = st.C, st.W
+    fields = [f.name for f in dataclasses.fields(tab0)]
+
+    def diff(a_tab, a_ctr, b_tab, b_ctr) -> int:
+        err = max(int((getattr(a_tab, k)[:C].long() - getattr(b_tab, k)[:C].long()).abs().max())
+                  for k in fields)
+        return max(err, int((a_ctr - b_ctr).abs().max()))
+
+    row = dict(layout=layout, batch=st.B, groups=C // st.B, masks=st.M, key_words=W,
+               warm_steps=int(ctr0[2]), checks=[])
+    captures0 = S.capture_stats(st)[0]
+    for n in (1, 32):
+        ptab = clone_table(tab0)
+        pctr = E._run_chunk_plain(st, ptab, ctr0, n, ub, fill, layout, plain_select=True)
+        for mode, graph, blocks in (("graph", True, 0), ("eager", False, 0),
+                                    ("graph, K10 on one block", True, 1)):
+            if n == 32 and blocks:
+                continue
+            ktab = clone_table(tab0)
+            kctr = S.run_chunk_keyrow_cuda(st, ktab, ctr0, n, ub, fill, blocks=blocks, graph=graph)
+            torch.cuda.synchronize()
+            err = diff(ktab, kctr, ptab, pctr)
+            if err != 0:
+                fail(f"key-row step {label}, {n} step(s), {mode}: kernels differ from the "
+                     f"plain step (max |err| {err}); counters {kctr.tolist()} vs {pctr.tolist()}")
+            row["checks"].append(dict(steps=n, mode=mode, max_abs_err=err,
+                                      counters=kctr.tolist()))
+            del ktab
+        del ptab
+    row["captures"] = S.capture_stats(st)[0] - captures0
+    print(f"key-row step {label} ({layout}, B={st.B}, G={C // st.B}, M={st.M}, from step "
+          f"{int(ctr0[2])}): every table tensor (claim included) and the 14 counters "
+          f"identical to the plain step after 1 step (chunk graph, eager chunk, K10 on one "
+          f"block) and after 32 steps (graph, eager); {row['captures']} graph captures")
+    if not timing:
+        return row
+
+    bufs = S._step_buffers(st, tab0.t_key.device, layout)
+    stream = torch.cuda.current_stream().cuda_stream
+    work, snap = clone_table(tab0), clone_table(tab0)
+    ctr = ctr0.clone()
+    ctr[1] = 0
+    goal, thr = ctr[0], ctr[7]
+
+    def copy_tab(dst, src):
+        for k in fields:
+            getattr(dst, k).copy_(getattr(src, k))
+
+    def restore_tab():
+        copy_tab(work, snap)
+        ctr.copy_(ctr0)
+        ctr[1] = 0
+        bufs.run.fill_(1)
+
+    bufs.run.fill_(1)
+    k3, k9, k10 = (_kernels.bind(*a)
+                   for a in S._step_args(st, work, bufs, ctr, ub, fill, 0, 0, stream))
+    unpacked = layout == "unpacked"
+    if unpacked:
+        plain3 = lambda: E._select_open_plain(st, work.t_state, work.t_fpar, goal, thr)
+        t_f = snap.t_fpar[:C] >> st.nb
+        v_open = torch.where((snap.t_state[:C] == 1) & (t_f < goal), t_f, E.INF)
+        lib_bytes = C * 8 + st.B * 16  # int64 f read, B values and indices written
+    else:
+        plain3 = lambda: E._select_best_plain(st, work.t_best, work.t_closed, goal, thr)
+        best0, closed0 = snap.t_best[:C], snap.t_closed[:C]
+        v_open = torch.where((best0 < closed0) & ((best0 >> st.nb) < goal - st.f0), best0,
+                             E.INFP)
+        lib_bytes = C * 4 + st.B * 12
+    v_open = v_open.view(st.B, C // st.B)
+    k3_ms = time_restored(k3, restore_tab, 20)
+    k3_plain_ms = time_restored(plain3, restore_tab, 5)
+    k3_lib_ms = time_ms(lambda: torch.min(v_open, dim=1), reps=20)
+    k3_lib_dev = device_ms(lambda: torch.min(v_open, dim=1), 20,
+                           keep=lambda k: (not k.startswith(("aten::", "cuda", "Memcpy"))
+                                           and "spin_kernel" not in k))
+    # after K3: its table, state and list, then K9
+    restore_tab()
+    k3()
+    after3, state3 = clone_table(work), bufs.state.clone()
+
+    def restore3():
+        restore_tab()
+        copy_tab(work, after3)
+        bufs.state.copy_(state3)
+
+    k9_ms = time_restored(k9, restore3, 20)
+    restore3()
+    k9()
+    state9, ctr9 = bufs.state.clone(), ctr.clone()
+    n_lanes = int(state9[S.STATE_NVALID])
+    pend9 = bufs.pend[:n_lanes].clone()
+
+    def restore9():
+        restore3()
+        ctr.copy_(ctr9)
+        bufs.state.copy_(state9)
+        bufs.pend[:n_lanes].copy_(pend9)
+
+    k10_ms = time_restored(k10, restore9, 20)
+    restore9()
+    k10()
+    torch.cuda.synchronize()
+    s10 = bufs.state.tolist()
+    n_sel, rounds = s10[S.STATE_NSEL], s10[S.STATE_CALLS]
+    counts = [s10[S.STATE_CNT + k] for k in range(rounds)]
+    new_keys = int((work.t_key[:C, 0] != -1).sum() - (after3.t_key[:C, 0] != -1).sum())
+    improved = int((work.t_g[:C] != after3.t_g[:C]).sum()) if unpacked else 0
+    step_ms = time_restored(lambda: (k3(), k9(), k10()), restore_tab, 20)
+    k3_dev = device_ms(k3, 20, restore_tab)
+    k9_dev = device_ms(k9, 20, restore3)
+    k10_dev = device_ms(k10, 20, restore9)
+    step_dev = device_ms(lambda: (k3(), k9(), k10()), 20, restore_tab)
+    # the plain pieces on the same table: the plain select (not timed),
+    # then _expand -> prune -> candidates for K9 and the insert for K10
+    restore_tab()
+    fns = E._LAYOUT_FNS[layout]
+    coords, g, par, f_par, active, *_ = fns.select(st, work, goal, thr,
+                                                  best=E._PLAIN_ARGMIN[layout])
+    selected = clone_table(work)
+
+    def plain9():
+        sel = torch.nonzero(active)[:, 0]
+        g_c, f_c, m_c, valid, _, child = E._expand(
+            st, coords[sel], g[sel], par[sel], torch.ones_like(sel, dtype=torch.bool),
+            f_parent=None if f_par is None else f_par[sel])
+        keep = torch.nonzero(valid & (f_c <= ub))[:, 0]
+        return fns.candidates(st, child[keep], g_c[keep], f_c[keep], m_c[keep], keep)
+
+    k9_plain_ms = time_ms(plain9, reps=5)
+    cand = plain9()
+    k10_plain_ms = time_restored(lambda: fns.insert(st, work, *cand),
+                                 lambda: copy_tab(work, selected), 5)
+    step_plain_ms = time_restored(
+        lambda: E._run_chunk_plain(st, work, ctr0, 1, ub, fill, layout, plain_select=True),
+        restore_tab, 5)
+    P, T, PW = st.P, st.T3, bufs.pend.shape[1]
+    # K3: both tables read (packed: t_best and t_closed, 8 B a slot;
+    # unpacked: t_state and t_fpar, 12 B), slots/vmin/active written, the
+    # active slots closed and listed.  K9: a list entry, the row (packed: its
+    # KW words; unpacked: W words, t_g and t_fpar), P T8 rows and 8T corners
+    # a row, then a pending entry a surviving lane.  K10: the pending list,
+    # a key row a live lane a round, a key row and a claim word a new key,
+    # then packed a t_best word a settled lane, unpacked t_g and t_state
+    # read a settled lane and t_g, t_fpar and t_state written an improved
+    # slot.
+    bytes3 = C * (12 if unpacked else 8) + st.B * 17 + n_sel * (4 + 8)
+    row_bytes = (W * 4 + 4 + 8) if unpacked else st.KW * 4
+    bytes9 = n_sel * (8 + row_bytes + 32 * P + 32 * T) + n_lanes * PW * 4
+    live = n_lanes + sum(counts[:-1])
+    settled = n_lanes - (counts[-1] if rounds else 0)
+    bytes10 = (n_lanes * PW * 4 + live * W * 4 + new_keys * (st.KW * 4 + 4)
+               + (settled * 8 + improved * 16 if unpacked else settled * 4))
+    ms = lambda b: b / HBM_BYTES_PER_S * 1e3
+    row.update(
+        selected=n_sel, lanes=n_lanes, rounds=rounds, unsettled=counts, new_keys=new_keys,
+        improved_slots=improved,
+        k3=dict(ms=k3_ms, device_ms=k3_dev, plain_ms=k3_plain_ms, library_ms=k3_lib_ms,
+                library_device_ms=k3_lib_dev, library_bytes=lib_bytes,
+                library_bound_ms=ms(lib_bytes), bound_ms=ms(bytes3), bytes=bytes3),
+        k9=dict(ms=k9_ms, device_ms=k9_dev, plain_ms=k9_plain_ms, bound_ms=ms(bytes9),
+                bytes=bytes9),
+        k10=dict(ms=k10_ms, device_ms=k10_dev, plain_ms=k10_plain_ms, bound_ms=ms(bytes10),
+                 bytes=bytes10),
+        step=dict(ms=step_ms, device_ms=step_dev, plain_ms=step_plain_ms,
+                  bound_ms=ms(bytes3 + bytes9 + bytes10), bytes=bytes3 + bytes9 + bytes10))
+    k3_name = "K3 (unpacked)" if unpacked else "K3"
+    print(f"  step {int(ctr0[2])}: {n_sel} rows, {n_lanes} lanes, {rounds} claim rounds "
+          f"(unsettled after each: {counts}), {new_keys} new keys; wrapper call (CUDA "
+          f"events) / device (CUPTI): {k3_name} {k3_ms:.4f} / {k3_dev:.4f} ms (plain "
+          f"{k3_plain_ms:.4f}, bound {ms(bytes3):.5f}; torch.min over (B, G) alone "
+          f"{k3_lib_ms:.4f} / {k3_lib_dev:.4f} ms, its bound {ms(lib_bytes):.5f}); K9 "
+          f"{k9_ms:.4f} / {k9_dev:.4f} ms (plain _expand -> prune -> candidates "
+          f"{k9_plain_ms:.4f}, bound {ms(bytes9):.5f}); K10 {k10_ms:.4f} / {k10_dev:.4f} ms "
+          f"(plain insert {k10_plain_ms:.4f}, bound {ms(bytes10):.5f}); step {step_ms:.4f} / "
+          f"{step_dev:.4f} ms (plain {step_plain_ms:.4f}, bound "
+          f"{ms(bytes3 + bytes9 + bytes10):.5f}); all bounds by bytes")
+    del work, snap, after3, selected
+    return row
 
 
 def data_path(name: str) -> str:
@@ -1105,9 +1383,11 @@ def check_alignment(name: str, alignment, gold: dict, want_identical: bool):
 
 
 def main_path(name: str, path: str, gold: dict, want_identical: bool,
-              triples: str, want_layout: str = "sig") -> dict:
+              triples: str, want_layout: str = "sig", engines: dict = None) -> dict:
     """One run of the CLI entry; ``triples`` "auto" runs it with its
-    defaults (no --triples), "off" pins the pairwise heuristic."""
+    defaults (no --triples), "off" pins the pairwise heuristic.  The step
+    kernels of the layout must run, and no plain step function;
+    ``engines`` keeps the run's engine under ``name``."""
     from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch import cli
 
@@ -1120,7 +1400,7 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
     out = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_counts()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), plain_step_guard() as plain:
         rep = cli.execute(args)
     counts = dict(_kernels.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -1138,21 +1418,18 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
     cubes = len(getattr(eng.heuristic, "triangles", None) or [])
     if triples == "auto" and cubes == 0:
         fail(f"{name}: --triples auto built no cube")
-    # the kernels of this path: K1 always, K2 whenever cubes were built, the
-    # step kernels K3-K5 on the sig layout and K3 on the packed one
-    path_kernels = (["pair_wavefront"] + (["triple_wavefront"] if cubes else [])
-                    + {"sig": STEP_KERNELS, "packed": ["select_best"]}.get(eng.layout, []))
-    for k in path_kernels:
+    # the kernels of this path: K1 always, K2 whenever cubes were built, and
+    # the layout's step kernels
+    for k in ["pair_wavefront"] + (["triple_wavefront"] if cubes else []):
         if counts[k] <= 0:
             fail(f"{name}: kernel {k} was not launched on the main path")
-    if eng.layout == "sig" and not eng.regrown:
-        # one chunk graph a run, replayed once a chunk: each step kernel ran
-        # once as the capture's warm-up and chunk_steps times a replay
-        replays = -(-res.steps // eng.chunk_steps)
-        want = eng.graph_captures + eng.chunk_steps * replays
-        if eng.graph_captures != 1 or any(counts[k] != want for k in STEP_KERNELS):
-            fail(f"{name}: {eng.graph_captures} chunk graph captures and launches "
-                 f"{counts} for {res.steps} steps in {replays} chunks (want {want} each)")
+    check_path_kernels(name, eng, res, counts, plain)
+    want = MAIN_PATH_COUNTS.get((name, triples))
+    if want and (res.nodes_expanded, res.nodes_reopened, res.steps) != want:
+        fail(f"{name} --triples {triples}: expanded, reopened, steps "
+             f"{(res.nodes_expanded, res.nodes_reopened, res.steps)}, want {want}")
+    if engines is not None:
+        engines[name] = eng
     info = dict(triples=triples, layout=eng.layout, cubes=cubes, g=res.g,
                 path_nodes=len(res.closed), pairs=eng.st.P, key_words=eng.st.KW,
                 identical=identical, expanded=res.nodes_expanded,
@@ -1188,14 +1465,19 @@ def pinned_layout(name: str, path: str, gold: dict, layout: str,
     from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
     from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
 
+    from mpi_pastar_msa_tpu_torch import _kernels
+
     p = problem_from_fasta(path)
     torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
     t0 = time.perf_counter()
-    eng = FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
-                         layout=layout)
-    res = eng.run()
+    with plain_step_guard() as plain:
+        eng = FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
+                             layout=layout)
+        res = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    counts = dict(_kernels.launches)
     peak = torch.cuda.max_memory_allocated()
     if eng.layout != layout:
         fail(f"{name}: pinned {layout}, ran {eng.layout}")
@@ -1204,7 +1486,9 @@ def pinned_layout(name: str, path: str, gold: dict, layout: str,
     # attach_path_g(goal_g=g) in _finish: the path cost equals g
     identical = check_alignment(f"{name} layout {layout}",
                                 build_alignment(p, res.closed), gold, want_identical)
-    info = dict(layout=layout, g=res.g, identical=identical,
+    check_path_kernels(f"{name} layout {layout}", eng, res, counts, plain)
+    info = dict(layout=layout, g=res.g, identical=identical, launches=counts,
+                graph_captures=eng.graph_captures,
                 expanded=res.nodes_expanded, reopened=res.nodes_reopened,
                 steps=res.steps, capacity=eng.st.C, batch=eng.st.B,
                 regrown=eng.regrown, wall_s=wall, upper_bound_s=eng.ub_wall,
@@ -1216,7 +1500,7 @@ def pinned_layout(name: str, path: str, gold: dict, layout: str,
           f"{eng.last_phase_walls['walk']:.3f} s); expanded {res.nodes_expanded}, "
           f"reopened {res.nodes_reopened}, steps {res.steps}, capacity {eng.st.C} "
           f"(regrown: {eng.regrown}), batch {eng.st.B}; peak device memory "
-          f"{peak / 2**20:.1f} MiB")
+          f"{peak / 2**20:.1f} MiB; launches {counts}")
     return info
 
 
@@ -1227,19 +1511,26 @@ def degenerate_input() -> dict:
     from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
     from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
 
+    from mpi_pastar_msa_tpu_torch import _kernels
+
     p = Problem(("WYWY", "WYY", "YWW"))
-    with warnings.catch_warnings(record=True) as caught:
+    _kernels.reset_counts()
+    with warnings.catch_warnings(record=True) as caught, plain_step_guard() as plain:
         warnings.simplefilter("always")
         eng = FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
                              batch=16, capacity=1 << 12)
         res = eng.run()
+    counts = dict(_kernels.launches)
     if not any("optimality is undefined" in str(w.message) for w in caught):
         fail("degenerate input: no warning")
     if eng.layout != "unpacked" or not res.closed:
         fail(f"degenerate input: layout {eng.layout}, {len(res.closed)} path nodes")
+    check_path_kernels("degenerate input", eng, res, counts, plain)
     print(f"degenerate input (WYWY, WYY, YWW): warned, layout {eng.layout}, "
-          f"completed with g={res.g} after {res.nodes_expanded} expansions")
-    return dict(layout=eng.layout, g=res.g, expanded=res.nodes_expanded)
+          f"completed with g={res.g} after {res.nodes_expanded} expansions and "
+          f"{res.steps} steps; launches {counts}")
+    return dict(layout=eng.layout, g=res.g, expanded=res.nodes_expanded, steps=res.steps,
+                launches=counts)
 
 
 def off_path_bounds(report: dict, kinase_path: str) -> dict:
@@ -1249,10 +1540,6 @@ def off_path_bounds(report: dict, kinase_path: str) -> dict:
     - K7, the walk (``_walk`` / ``_lookup_sig``) of kinase --triples auto:
       per path node the 64 bucket rows of its probe walk, t_sig and t_best
       (8 ways x 4 B each);
-    - the packed step at globin6, per step of its run: the select's two
-      tables and its outputs (C x 8 B + B x 17 B), per selected row its
-      key row, P T8 rows and T x 8 cube corners, per surviving lane its
-      home key row and one t_best word;
     - K8, the Gotoh fill at kinase: for each pair, three (n+1)(m+1) int32
       matrices written (the sequences read are negligible);
     - the multi-device step of parallel/sharded.py at kinase --triples
@@ -1262,25 +1549,16 @@ def off_path_bounds(report: dict, kinase_path: str) -> dict:
     ms = lambda b: b / HBM_BYTES_PER_S * 1e3
     k = report["kinase"]
     walk = k["path_nodes"] * 64 * 8 * (4 + 4)
-    g6 = report["globin6_auto"]
-    steps, P, T, KW = g6["steps"], g6["pairs"], g6["cubes"], g6["key_words"]
-    lanes = int(g6["acct"]["lanes_true"])
-    packed = (steps * (g6["capacity"] * 8 + g6["batch"] * 17)
-              + g6["expanded"] * (KW * 4 + 32 * P + 32 * T) + lanes * (KW * 4 + 4)) / steps
     lens = [len(q) for q in problem_from_fasta(kinase_path).seqs]
     gotoh = sum(3 * 4 * (lens[x] + 1) * (lens[y] + 1)
                 for x in range(len(lens)) for y in range(x + 1, len(lens)))
     out = dict(k7_walk=dict(path_nodes=k["path_nodes"], bytes=walk, bound_ms=ms(walk)),
-               packed_step=dict(steps=steps, lanes=lanes, bytes_per_step=packed,
-                                bound_ms=ms(packed)),
                k8_gotoh=dict(lengths=lens, bytes=gotoh, bound_ms=ms(gotoh)),
                sharded=sharded_step_bounds(k["batch"], len(lens), k["cubes"],
                                            k["path_nodes"]))
     print(f"bounds by bytes of the work not yet ported: K7 walk at kinase "
-          f"{k['path_nodes']} path nodes, {walk / 1e6:.2f} MB, {ms(walk):.5f} ms; "
-          f"packed step at globin6 {packed / 1e6:.2f} MB a step ({steps} steps, "
-          f"{lanes} lanes), {ms(packed):.5f} ms; K8 Gotoh fill at kinase "
-          f"{gotoh / 1e6:.2f} MB, {ms(gotoh):.5f} ms")
+          f"{k['path_nodes']} path nodes, {walk / 1e6:.2f} MB, {ms(walk):.5f} ms; K8 Gotoh "
+          f"fill at kinase {gotoh / 1e6:.2f} MB, {ms(gotoh):.5f} ms")
     return out
 
 
@@ -1432,13 +1710,13 @@ def k5_sweep(paths, baseline=None) -> dict:
 
 
 def profile_search(name: str, path: str, triples: str, warm_steps: int,
-                   steps: int, mode: str = "engine") -> dict:
-    """Where a mid-search step spends its time under ``triples`` (in the
-    layout ``auto`` picks): run the engine to ``warm_steps``, then trace
-    ``steps`` more with torch.profiler, through the engine's own loop
-    (``mode`` "engine": on the sig table a chunk graph, captured before the
-    timed windows by a chunk whose run flag is 0), through the eager chunk
-    ("eager": run_chunk_sig_cuda(graph=False), kernel by kernel) or through
+                   steps: int, mode: str = "engine", layout: str = "auto") -> dict:
+    """Where a mid-search step spends its time under ``triples`` in
+    ``layout``: run the engine to ``warm_steps``, then trace ``steps`` more
+    with torch.profiler, through the engine's own loop (``mode`` "engine":
+    a chunk graph, captured before the timed windows by a chunk whose run
+    flag is 0), through the eager chunk ("eager": run_chunk_sig_cuda or
+    run_chunk_keyrow_cuda with graph=False, kernel by kernel) or through
     the plain step functions on the card tensors ("plain":
     _run_chunk_plain(plain_select=True), the step before its kernels).
     Prints the device time by kernel, the launches on the device (kernels,
@@ -1454,19 +1732,19 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
 
     p = problem_from_fasta(path)
     eng = E.FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
-                           triples=triples)
+                           triples=triples, layout=layout)
     tab = eng._init_table()
     ctr = torch.as_tensor(E.fresh_counters(), device="cuda")
     ctr = E._run_chunk(eng.st, tab, ctr, warm_steps, eng.ub, eng.fill_target,
                        eng.layout)
+    eager = S.run_chunk_sig_cuda if eng.layout == "sig" else S.run_chunk_keyrow_cuda
 
     def run(ctr):
         if mode == "plain":
             return E._run_chunk_plain(eng.st, tab, ctr, steps, eng.ub, eng.fill_target,
                                       eng.layout, plain_select=True)
         if mode == "eager":
-            return S.run_chunk_sig_cuda(eng.st, tab, ctr, steps, eng.ub, eng.fill_target,
-                                        graph=False)
+            return eager(eng.st, tab, ctr, steps, eng.ub, eng.fill_target, graph=False)
         return E._run_chunk(eng.st, tab, ctr, steps, eng.ub, eng.fill_target, eng.layout)
 
     captures = S.capture_stats(eng.st)[0]
@@ -1508,7 +1786,7 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
     memsets = sum(c for k, _, c in kern if k.startswith("Memset"))
     selects = sum(c for k, _, c in kern if "select_kernel" in k)
     label = {"plain": "plain step", "eager": "eager chunk"}.get(mode, "engine")
-    if mode == "engine" and eng.layout == "sig":
+    if mode == "engine":
         label += f", chunk graph; {captures} capture before the windows"
     print(f"profile {name} --triples {triples} (layout {eng.layout}, {label}): steps "
           f"{s0}..{before[2]} unprofiled {plain_wall_ms:.3f} "
@@ -1580,12 +1858,12 @@ def main() -> int:
                     help="run the device, build and step-kernel phases only "
                          "(a quick check of K3-K5; prints no result line)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 32 mid-search kinase steps, under "
-                         "--triples auto and off, each through the engine "
-                         "and through the plain step, and 32 globin6 steps "
-                         "(the packed layout) with torch.profiler (device "
-                         "time by kernel, launches and host reads a step, "
-                         "idle share)")
+                    help="also trace 32 mid-search steps with torch.profiler "
+                         "(device time by kernel, launches and host reads a "
+                         "step, idle share), each through the chunk graph, "
+                         "the eager chunk and the plain step: kinase under "
+                         "--triples auto and off (sig), globin6 (packed) "
+                         "and kinase pinned to unpacked")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1665,10 +1943,17 @@ def main() -> int:
             for triples in ("auto", "off"):
                 report[f"{name}_{triples}"] = main_path(
                     name, paths[name], gold[name], True, triples)
-        # 6. layouts beyond sig
+        # 6. layouts beyond sig, through K3, K9 and K10; synth10's step
+        # checked against the plain step on its main-path engine (its host
+        # upper-bound beam alone takes ~100 s)
+        engines = {}
         for name, g in LAYOUT_INPUTS.items():
             report[f"{name}_auto"] = main_path(name, data_path(name), data_gold(name, g),
-                                               False, "auto", want_layout="packed")
+                                               False, "auto", want_layout="packed",
+                                               engines=engines)
+        eng, tab, ctr = warm_engine(None, "auto", 20, eng=engines.pop("synth10"))
+        report["step"]["synth10_keyrow"] = keyrow_step("synth10", eng, tab, ctr, timing=False)
+        del eng, tab, ctr, engines
         for layout in ("packed", "unpacked"):
             report[f"kinase_{layout}"] = pinned_layout(
                 "kinase", paths["kinase.fasta"], gold["kinase.fasta"], layout, False)
@@ -1685,9 +1970,13 @@ def main() -> int:
                 for mode in ("engine", "eager", "plain"):
                     report[f"profile_{triples}_{mode}"] = profile_search(
                         "kinase", paths["kinase.fasta"], triples, warm, 32, mode)
-            # the packed layout: globin6 takes about 150 steps
-            report["profile_globin6"] = profile_search(
-                "globin6", data_path("globin6"), "auto", 60, 32)
+            # the packed layout: globin6 takes about 150 steps; kinase pinned
+            # to unpacked
+            for mode in ("engine", "eager", "plain"):
+                report[f"profile_globin6_{mode}"] = profile_search(
+                    "globin6", data_path("globin6"), "auto", 60, 32, mode)
+                report[f"profile_kinase_unpacked_{mode}"] = profile_search(
+                    "kinase", paths["kinase.fasta"], "auto", 150, 32, mode, layout="unpacked")
 
     phases_tmp.cleanup()
     write_report(args.report, report)
@@ -1734,6 +2023,32 @@ def main() -> int:
             "device_ms": t["device_ms"], "launch_floor_ms": floor["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": t.get("library_ms")})
+    # the packed and unpacked step kernels, timed at globin6 step 60
+    # (packed) and kinase pinned to unpacked (step 150); launches from the
+    # packed main path (globin6 through the CLI) and the unpacked one
+    # (kinase pinned); max |err| the largest of their step checks
+    kr = [step[k] for k in ("globin6_keyrow", "kinase_unpacked_keyrow", "synth10_keyrow")]
+    kr_err = max(c["max_abs_err"] for r in kr for c in r["checks"])
+    g6, ku = step["globin6_keyrow"], step["kinase_unpacked_keyrow"]
+    for name, t, run, replaces, extra in (
+            ("select_best_unpacked", ku["k3"], "kinase_unpacked",
+             "mpi_pastar_msa_tpu/search/engine.py:858", {}),
+            ("keyrow_expand", g6["k9"], "globin6_auto",
+             "mpi_pastar_msa_tpu/search/engine.py:1720", {"unpacked": ku["k9"]}),
+            ("keyrow_insert", g6["k10"], "globin6_auto",
+             "mpi_pastar_msa_tpu/search/engine.py:1262", {"unpacked": ku["k10"]})):
+        src = "select_best" if name == "select_best_unpacked" else name
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mpi_pastar_msa_tpu_torch/csrc/{src}.cu", "replaces": replaces,
+            "launches": report[run]["launches"][name], "launches_run": run,
+            "max_abs_err": kr_err, "ms": t["ms"], "device_ms": t["device_ms"],
+            "launch_floor_ms": floor["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": t.get("library_ms"), **{k: dict(ms=v["ms"], device_ms=v["device_ms"],
+                                                          plain_ms=v["plain_ms"],
+                                                          bound_ms=v["bound_ms"])
+                                                   for k, v in extra.items()}})
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

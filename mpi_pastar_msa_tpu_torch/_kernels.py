@@ -1,10 +1,12 @@
 """Build, load and count the hand-written CUDA kernels of the port.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point.  It is
-compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library under
-``_build/`` (listed in ``.gitignore``), named by the source's content hash so
-an edited source is never served from a stale library, and loaded with
-``ctypes``.  A failed build raises: there is no fallback.
+Each kernel is a plain C entry point of one ``csrc/<source>.cu`` file: its
+own name, or the file ``SOURCES`` names (a second instantiation of a
+kernel, such as K3's unpacked select in ``select_best.cu``).  A source is
+compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library
+under ``_build/`` (listed in ``.gitignore``), named by the source's content
+hash so an edited source is never served from a stale library, and loaded
+with ``ctypes``.  A failed build raises: there is no fallback.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a run resets
 the counts with ``reset_counts()`` and reads them after, which shows that a
@@ -44,6 +46,9 @@ SIGNATURES: Dict[str, List] = {
     # active, compact list, partials, their capacity, ticket, state, stream
     "select_best": [_P, _P, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                     _P, _P, _P],
+    # t_state, t_fpar, then select_best's without f0
+    "select_best_unpacked": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _P, _P, _P],
     # t_sig, t_best, compact list, tables4, cubes, params, N, P, T, S, n, f0,
     # ub, E, GG, O - E, bbits, B, run, counters, state, pending list, stream
     "sig_expand": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I,
@@ -53,7 +58,19 @@ SIGNATURES: Dict[str, List] = {
     # counters, state, blocks, stream
     "sig_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                   _P],
+    # t_key, its row stride, t_g, t_fpar, unpacked, compact list, tables4,
+    # cubes, params, N, P, T, S, n, f0, ub, E, GG, O - E, B, run, counters,
+    # state, pending list, stream
+    "keyrow_expand": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
+                      _L, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # t_key, its row stride, N, C, claim, t_best, t_g, t_fpar, t_state,
+    # unpacked, pending list, lane_slot, lane_flag, max probe rounds, fill
+    # target, run, counters, state, blocks, stream
+    "keyrow_insert": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                      _P, _P, _P, _I, _P],
 }
+#: kernel name -> its source file's stem, where that is not its own name
+SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best"}
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -92,38 +109,39 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
-    """The library's path, named by the hash of its source and of the
-    headers of csrc/ (which a source may include)."""
+def _lib_path(src: str) -> str:
+    """The library's path of one source, named by the hash of the source
+    and of the headers of csrc/ (which a source may include)."""
     h = hashlib.sha256()
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for fname in [f"{name}.cu"] + headers:
+    for fname in [f"{src}.cu"] + headers:
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{src}_{digest}.so")
 
 
-def _start_build(name: str):
-    """Start nvcc for one kernel; returns (proc, tmp, lib) or None if built."""
-    lib = _lib_path(name)
+def _start_build(src: str):
+    """Start nvcc for one source; returns (proc, tmp, lib) or None if built."""
+    lib = _lib_path(src)
     if os.path.exists(lib):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+           "-o", tmp, os.path.join(CSRC, f"{src}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib
 
 
 def build_all(names=None) -> Dict[str, str]:
-    """Compile every kernel not yet built, one nvcc per source, all started
-    together.  Returns name -> nvcc output (empty when already built)."""
-    names = list(names or SIGNATURES)
-    started = {n: _start_build(n) for n in names}
+    """Compile the sources of every kernel (or of ``names``) not yet
+    built, one nvcc per source, all started together.  Returns source ->
+    nvcc output (empty when already built)."""
+    srcs = dict.fromkeys(SOURCES.get(n, n) for n in (names or SIGNATURES))
+    started = {n: _start_build(n) for n in srcs}
     logs = {}
     for n, job in started.items():
         if job is None:
@@ -143,7 +161,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(_lib_path(name))
+        lib = ctypes.CDLL(_lib_path(SOURCES.get(name, name)))
         fn = getattr(lib, name)
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int

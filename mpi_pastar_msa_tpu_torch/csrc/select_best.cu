@@ -1,9 +1,12 @@
-// Grouped-argmin selection of the sig and packed layouts: kernel K3.
+// Grouped-argmin selection of the three layouts: kernel K3.
 //
 // Replaces mpi_pastar_msa_tpu/search/engine.py:1620 _select_sig and :1668
 // _select_packed (the grouped argmin they share, XLA inside the run loop);
 // in the port it is search/engine.py::_select_best, whose plain version
-// (_select_best_plain) computes the same thing.  The table (C,) of packed
+// (_select_best_plain) computes the same thing.  A second instantiation
+// (C entry select_best_unpacked) replaces :858 _select, the unpacked
+// layout's: search/engine.py::_select_open, plain _select_open_plain; see
+// "The unpacked layout" below.  The table (C,) of packed
 // words ((f - f0) << n) | parent mask is viewed as B groups of G = C / B
 // slots.  A word is open when t_best < t_closed and (t_best >> n) <
 // goal_g - f0.  Each group offers its argmin open word, the FIRST index on
@@ -39,6 +42,21 @@
 // A null `run` flag runs the selection; a flag that reads 0 (the search
 // step loop of search/step.py has stopped) returns every block before it
 // touches the ticket.
+//
+// The unpacked layout (kUnpacked): a slot is open when t_state == 1 and its
+// f = t_fpar >> n (arithmetic: f may be negative on degenerate weights) is
+// below goal_g.  The read pass keys an open slot by f biased to u32
+// ((u32)(int32)f ^ 2^31, which orders negative f first; open f lies in
+// int32, below goal_g <= INF = 2^30) and a slot that is not open by INF's
+// bias, so the same 64-bit (key << 32) | index min is the first-index
+// argmin.  The finish takes fmin = the min of the group mins (INF when
+// nothing is open); a group is active when its min f <= fmin + thr; its
+// slot gets t_state = 2.  A group that is not active reports index 0 and
+// f INF, as the plain argmin over its all-INF row does.  The reopen count
+// is 0 (this layout counts reopens in the insert, keyrow_insert.cu), and
+// the list entry is (slot, f): K9 reads the row's g and t_fpar itself.  It
+// reads 12 B a slot (int32 state, int64 (f, parent)) where the sig select
+// reads 8: 100.7 MB at C = 2^23, 30.0 us at 3.35 TB/s.
 //
 // Built with -DK3_PHASES (a measurement build of chip_smoke.py, never the
 // one the port loads), the kernel also leaves three %globaltimer readings
@@ -84,6 +102,22 @@ __device__ __forceinline__ void visit(int32_t w, int32_t c, int nb, long long li
   }
 }
 
+// the unpacked layout: one slot (state, f * 2^n + parent) into the same
+// running min, keyed by f's u32 bias (kNoneOpen where it is not open)
+constexpr uint32_t kBias = 0x80000000u;
+constexpr uint32_t kNoneOpen = (uint32_t)step::kInf ^ kBias;
+__device__ __forceinline__ void visit_open(int32_t s, long long fp, int nb, long long goal,
+                                           int idx, uint32_t& bv, uint32_t& bi, uint32_t& n) {
+  const long long f = fp >> nb;
+  const bool open = s == 1 && f < goal;
+  const uint32_t v = open ? (uint32_t)(int32_t)f ^ kBias : kNoneOpen;
+  n += open;
+  if (v < bv) {
+    bv = v;
+    bi = (uint32_t)idx;
+  }
+}
+
 // exclusive scan of one int a thread over the block; returns the prefix,
 // `total` gets the sum.  Syncs the block.
 __device__ __forceinline__ int block_scan(int x, int* wsum, int* total) {
@@ -109,13 +143,17 @@ __device__ __forceinline__ int block_scan(int x, int* wsum, int* total) {
   return wsum[warp] + inc - x;
 }
 
+// best, closed: the sig and packed tables (null when kUnpacked); tstate,
+// fpar: the unpacked table's t_state and t_fpar (null otherwise)
+template <bool kUnpacked>
 __global__ void __launch_bounds__(kThreads, 1) select_kernel(
-    const int32_t* __restrict__ best, int32_t* __restrict__ closed, int B, int G, int vec,
-    int nb, long long f0, const long long* __restrict__ goal,
-    const long long* __restrict__ thr, const int32_t* __restrict__ run,
-    long long* __restrict__ slots, long long* __restrict__ vmin, uint8_t* __restrict__ active,
-    int32_t* __restrict__ sel, long long* __restrict__ partial, unsigned* __restrict__ ticket,
-    long long* __restrict__ state) {
+    const int32_t* __restrict__ best, int32_t* __restrict__ closed, int32_t* __restrict__ tstate,
+    const long long* __restrict__ fpar, int B, int G, int vec, int nb, long long f0,
+    const long long* __restrict__ goal, const long long* __restrict__ thr,
+    const int32_t* __restrict__ run, long long* __restrict__ slots, long long* __restrict__ vmin,
+    uint8_t* __restrict__ active, int32_t* __restrict__ sel, long long* __restrict__ partial,
+    unsigned* __restrict__ ticket, long long* __restrict__ state) {
+  constexpr uint32_t kNone = kUnpacked ? kNoneOpen : (uint32_t)step::kInfp;
   __shared__ uint32_t s_min[kWarps];
   __shared__ uint32_t s_cnt[kWarps];
   __shared__ int s_off[kItems * kWarps];
@@ -127,37 +165,67 @@ __global__ void __launch_bounds__(kThreads, 1) select_kernel(
   const long long t_start = globaltimer();
 #endif
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long lim = *goal - f0;
+  const long long lim = kUnpacked ? *goal : *goal - f0;
   const int gw = blockIdx.x * kWarps + warp, nw = gridDim.x * kWarps;
-  uint32_t wmin = (uint32_t)step::kInfp, wopen = 0;
+  uint32_t wmin = kNone, wopen = 0;
 
   // 1. read pass
   if (vec) {
     // a warp a group: all G / 128 int4 of each table a lane (up to kVec at
-    // a time) in flight before the reduction
+    // a time; the unpacked t_fpar is two int4 for 4 slots) in flight before
+    // the reduction
     const int nq = G >> 2;
     for (int b = gw; b < B; b += nw) {
-      const int4* pb = reinterpret_cast<const int4*>(best + (size_t)b * G);
-      const int4* pc = reinterpret_cast<const int4*>(closed + (size_t)b * G);
-      uint32_t bv = (uint32_t)step::kInfp, bi = 0, n = 0;
-      for (int q0 = 0; q0 < nq; q0 += 32 * kVec) {
-        int4 wb[kVec], wc[kVec];
+      uint32_t bv = kNone, bi = 0, n = 0;
+      if constexpr (kUnpacked) {
+        const int4* ps = reinterpret_cast<const int4*>(tstate + (size_t)b * G);
+        const longlong2* pf = reinterpret_cast<const longlong2*>(fpar + (size_t)b * G);
+        constexpr int kV = kVec / 2;
+        for (int q0 = 0; q0 < nq; q0 += 32 * kV) {
+          int4 ws[kV];
+          longlong2 f0v[kV], f1v[kV];
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) {
-          const int q = q0 + lane + 32 * i;
-          if (q < nq) {
-            wb[i] = pb[q];
-            wc[i] = pc[q];
+          for (int i = 0; i < kV; ++i) {
+            const int q = q0 + lane + 32 * i;
+            if (q < nq) {
+              ws[i] = ps[q];
+              f0v[i] = pf[2 * q];
+              f1v[i] = pf[2 * q + 1];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kV; ++i) {
+            const int q = q0 + lane + 32 * i;
+            if (q < nq) {
+              visit_open(ws[i].x, f0v[i].x, nb, lim, 4 * q, bv, bi, n);
+              visit_open(ws[i].y, f0v[i].y, nb, lim, 4 * q + 1, bv, bi, n);
+              visit_open(ws[i].z, f1v[i].x, nb, lim, 4 * q + 2, bv, bi, n);
+              visit_open(ws[i].w, f1v[i].y, nb, lim, 4 * q + 3, bv, bi, n);
+            }
           }
         }
+      } else {
+        const int4* pb = reinterpret_cast<const int4*>(best + (size_t)b * G);
+        const int4* pc = reinterpret_cast<const int4*>(closed + (size_t)b * G);
+        for (int q0 = 0; q0 < nq; q0 += 32 * kVec) {
+          int4 wb[kVec], wc[kVec];
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) {
-          const int q = q0 + lane + 32 * i;
-          if (q < nq) {
-            visit(wb[i].x, wc[i].x, nb, lim, 4 * q, bv, bi, n);
-            visit(wb[i].y, wc[i].y, nb, lim, 4 * q + 1, bv, bi, n);
-            visit(wb[i].z, wc[i].z, nb, lim, 4 * q + 2, bv, bi, n);
-            visit(wb[i].w, wc[i].w, nb, lim, 4 * q + 3, bv, bi, n);
+          for (int i = 0; i < kVec; ++i) {
+            const int q = q0 + lane + 32 * i;
+            if (q < nq) {
+              wb[i] = pb[q];
+              wc[i] = pc[q];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) {
+            const int q = q0 + lane + 32 * i;
+            if (q < nq) {
+              visit(wb[i].x, wc[i].x, nb, lim, 4 * q, bv, bi, n);
+              visit(wb[i].y, wc[i].y, nb, lim, 4 * q + 1, bv, bi, n);
+              visit(wb[i].z, wc[i].z, nb, lim, 4 * q + 2, bv, bi, n);
+              visit(wb[i].w, wc[i].w, nb, lim, 4 * q + 3, bv, bi, n);
+            }
           }
         }
       }
@@ -175,11 +243,17 @@ __global__ void __launch_bounds__(kThreads, 1) select_kernel(
     const int gpw = 32 / L, seg = lane / L, sl = lane % L;
     for (long long t = gw; t * gpw < B; t += nw) {
       const long long b = t * gpw + seg;
-      uint32_t bv = (uint32_t)step::kInfp, bi = 0, n = 0;
+      uint32_t bv = kNone, bi = 0, n = 0;
       if (b < B) {
-        const int32_t* pb = best + b * G;
-        const int32_t* pc = closed + b * G;
-        for (int j = sl; j < G; j += L) visit(pb[j], pc[j], nb, lim, j, bv, bi, n);
+        if constexpr (kUnpacked) {
+          const int32_t* ps = tstate + b * G;
+          const long long* pf = fpar + b * G;
+          for (int j = sl; j < G; j += L) visit_open(ps[j], pf[j], nb, lim, j, bv, bi, n);
+        } else {
+          const int32_t* pb = best + b * G;
+          const int32_t* pc = closed + b * G;
+          for (int j = sl; j < G; j += L) visit(pb[j], pc[j], nb, lim, j, bv, bi, n);
+        }
       }
       const unsigned long long key = seg_min(((unsigned long long)bv << 32) | bi, L);
       wopen += n;
@@ -201,7 +275,7 @@ __global__ void __launch_bounds__(kThreads, 1) select_kernel(
   __threadfence();  // this block's slots and mins before its ticket
   __syncthreads();
   if (threadIdx.x == 0) {
-    uint32_t m = (uint32_t)step::kInfp;
+    uint32_t m = kNone;
     long long c = 0;
     for (int w = 0; w < kWarps; ++w) {
       m = min(m, s_min[w]);
@@ -225,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, 1) select_kernel(
   const long long t_finish = globaltimer();
   const long long t_first = __ldcg(&partial[2 * gridDim.x]);
 #endif
-  uint32_t m = (uint32_t)step::kInfp;
+  uint32_t m = kNone;
   long long c = 0;
   for (int i = threadIdx.x; i < (int)gridDim.x; i += kThreads) {
     m = min(m, (uint32_t)__ldcg(&partial[2 * i]));
@@ -244,10 +318,17 @@ __global__ void __launch_bounds__(kThreads, 1) select_kernel(
     m = min(m, s_min[w]);
     n_open += s_cnt[w];
   }
-  const long long fmin_r = (long long)m >> nb;
-  long long lim_f = fmin_r + *thr + 1;
-  if (lim_f > (step::kInfp >> nb)) lim_f = step::kInfp >> nb;
-  const long long cut = (lim_f << nb) - 1;
+  // sig and packed: the cut on packed words; unpacked: fmin (INF when
+  // nothing is open) and the cut on f
+  const long long fmin_r = kUnpacked ? (long long)(int32_t)(m ^ kBias) : (long long)m >> nb;
+  long long cut;
+  if constexpr (kUnpacked) {
+    cut = fmin_r + *thr;
+  } else {
+    long long lim_f = fmin_r + *thr + 1;
+    if (lim_f > (step::kInfp >> nb)) lim_f = step::kInfp >> nb;
+    cut = (lim_f << nb) - 1;
+  }
 
   // rounds of kItems groups a thread: b = r0 + k * kThreads + thread
   const int32_t* vmin32 = reinterpret_cast<const int32_t*>(vmin);  // low words
@@ -259,17 +340,29 @@ __global__ void __launch_bounds__(kThreads, 1) select_kernel(
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const int b = r0 + k * kThreads + threadIdx.x;
-      v[k] = b < B ? __ldcg(&vmin32[2 * b]) : (int32_t)step::kInfp;
+      v[k] = b < B ? __ldcg(&vmin32[2 * b]) : (int32_t)kNone;
       s[k] = b < B ? __ldcg(&slots32[2 * b]) : 0;
     }
     uint32_t bits = 0;
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const int b = r0 + k * kThreads + threadIdx.x;
-      const bool act = v[k] <= cut;  // an empty group holds INFP > cut
+      bool act;
+      if constexpr (kUnpacked) {
+        // the key back to f; a group with nothing open holds kNoneOpen
+        v[k] = (int32_t)((uint32_t)v[k] ^ kBias);
+        act = (uint32_t)v[k] != (uint32_t)step::kInf && (long long)v[k] <= cut;
+      } else {
+        act = v[k] <= cut;  // an empty group holds INFP > cut
+      }
       if (b < B) {
         active[b] = act;
-        if (!act) vmin[b] = step::kInfp;
+        if constexpr (kUnpacked) {
+          vmin[b] = act ? (long long)v[k] : step::kInf;
+          if (!act) slots[b] = (long long)b * G;
+        } else if (!act) {
+          vmin[b] = step::kInfp;
+        }
       }
       bits |= (uint32_t)act << k;
       const unsigned bal = __ballot_sync(kFull, act);
@@ -285,7 +378,8 @@ __global__ void __launch_bounds__(kThreads, 1) select_kernel(
     base += s_total;
     int32_t old[kItems];
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) old[k] = (bits >> k & 1) ? closed[s[k]] : 0;
+    for (int k = 0; k < kItems; ++k)
+      old[k] = (!kUnpacked && (bits >> k & 1)) ? closed[s[k]] : (int32_t)step::kInfp;
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const bool act = bits >> k & 1;
@@ -293,7 +387,10 @@ __global__ void __launch_bounds__(kThreads, 1) select_kernel(
       if (act) {
         const int at = s_off[k * kWarps + warp] + __popc(bal & ((1u << lane) - 1u));
         n_re += old[k] < step::kInfp;
-        closed[s[k]] = v[k];
+        if constexpr (kUnpacked)
+          tstate[s[k]] = 2;
+        else
+          closed[s[k]] = v[k];
         reinterpret_cast<int2*>(sel)[at] = make_int2(s[k], v[k]);
       }
     }
@@ -305,7 +402,7 @@ __global__ void __launch_bounds__(kThreads, 1) select_kernel(
   if (threadIdx.x == 0) {
     long long re = 0;
     for (int w = 0; w < kWarps; ++w) re += s_cnt[w];
-    state[step::kGmax] = step::kInfp - (long long)m;
+    state[step::kGmax] = kNone - (long long)m;
     state[step::kNOpen] = n_open;
     state[step::kNSel] = base;
     state[step::kReopen] = re;
@@ -320,6 +417,52 @@ __global__ void __launch_bounds__(kThreads, 1) select_kernel(
   for (int k = step::kNValid + threadIdx.x; k < step::kWords; k += kThreads) state[k] = 0;
 }
 
+// co-resident blocks of an instantiation on the card (one card a process)
+template <bool kUnpacked>
+cudaError_t resident_blocks(int* most) {
+  if (*most != 0) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, select_kernel<kUnpacked>,
+                                                      kThreads, 0);
+  if (e != cudaSuccess) return e;
+  *most = sms * (per_sm > 0 ? per_sm : 1);
+  return cudaSuccess;
+}
+
+// The launch shared by both C entries: a and b are best and closed, or
+// t_state and t_fpar.
+template <bool kUnpacked>
+int launch(const void* a, void* b, int C, int B, int nb, long long f0, const void* goal,
+           const void* thr, const void* run, void* slots, void* vmin, void* active, void* sel,
+           void* partial, int max_blocks, void* ticket, void* state, void* stream) {
+  if (B < 1 || C < B || C % B != 0 || nb < 1 || nb > 30 || max_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  static int most = 0;
+  const cudaError_t e = resident_blocks<kUnpacked>(&most);
+  if (e != cudaSuccess) return (int)e;
+  const int G = C / B;
+  const int vec = G % 128 == 0 && (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
+  const int L = G >= 32 ? 32 : 1 << (31 - __builtin_clz((unsigned)G));
+  const long long tasks = vec ? B : (B + 32 / L - 1) / (32 / L);
+  long long blocks = (tasks + kWarps - 1) / kWarps;
+  if (blocks > most) blocks = most;
+#ifdef K3_PHASES
+  if (blocks > max_blocks - 1) blocks = max_blocks - 1;  // room for block 0's start
+#else
+  if (blocks > max_blocks) blocks = max_blocks;
+#endif
+  select_kernel<kUnpacked><<<(int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      kUnpacked ? nullptr : (const int32_t*)a, kUnpacked ? nullptr : (int32_t*)b,
+      kUnpacked ? (int32_t*)a : nullptr, kUnpacked ? (const long long*)b : nullptr, B, G, vec,
+      nb, f0, (const long long*)goal, (const long long*)thr, (const int32_t*)run,
+      (long long*)slots, (long long*)vmin, (uint8_t*)active, (int32_t*)sel, (long long*)partial,
+      (unsigned*)ticket, (long long*)state);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // best, closed: (>= C,) int32 tables; goal, thr: int64 device scalars;
@@ -332,33 +475,18 @@ extern "C" int select_best(const void* best, void* closed, int C, int B, int nb,
                            const void* goal, const void* thr, const void* run, void* slots,
                            void* vmin, void* active, void* sel, void* partial, int max_blocks,
                            void* ticket, void* state, void* stream) {
-  if (B < 1 || C < B || C % B != 0 || nb < 1 || nb > 30 || max_blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  static int most = 0;  // co-resident blocks on the card (one card a process)
-  if (most == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, select_kernel, kThreads, 0);
-    if (e != cudaSuccess) return (int)e;
-    most = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  const int G = C / B;
-  const int vec = G % 128 == 0 && (((uintptr_t)best | (uintptr_t)closed) & 15) == 0;
-  const int L = G >= 32 ? 32 : 1 << (31 - __builtin_clz((unsigned)G));
-  const long long tasks = vec ? B : (B + 32 / L - 1) / (32 / L);
-  long long blocks = (tasks + kWarps - 1) / kWarps;
-  if (blocks > most) blocks = most;
-#ifdef K3_PHASES
-  if (blocks > max_blocks - 1) blocks = max_blocks - 1;  // room for block 0's start
-#else
-  if (blocks > max_blocks) blocks = max_blocks;
-#endif
-  select_kernel<<<(int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)best, (int32_t*)closed, B, G, vec, nb, f0, (const long long*)goal,
-      (const long long*)thr, (const int32_t*)run, (long long*)slots, (long long*)vmin,
-      (uint8_t*)active, (int32_t*)sel, (long long*)partial, (unsigned*)ticket,
-      (long long*)state);
-  return (int)cudaGetLastError();
+  return launch<false>(best, closed, C, B, nb, f0, goal, thr, run, slots, vmin, active, sel,
+                       partial, max_blocks, ticket, state, stream);
+}
+
+// The unpacked layout: t_state (>= C,) int32, closed in place; t_fpar (>=
+// C,) int64; vmin gets the picked f (INF where inactive); sel (B, 2) int32
+// (slot, f); the rest as select_best.
+extern "C" int select_best_unpacked(void* t_state, const void* t_fpar, int C, int B, int nb,
+                                    const void* goal, const void* thr, const void* run,
+                                    void* slots, void* vmin, void* active, void* sel,
+                                    void* partial, int max_blocks, void* ticket, void* state,
+                                    void* stream) {
+  return launch<true>(t_state, const_cast<void*>(t_fpar), C, B, nb, 0, goal, thr, run, slots,
+                      vmin, active, sel, partial, max_blocks, ticket, state, stream);
 }

@@ -6,14 +6,10 @@
 // lookup of :1441 _insert_core_sig (XLA inside the run loop).  The port's
 // plain versions are search/engine.py::_sig_decode, _expand (g_is_f),
 // _candidates_sig, _sig_encode and the round 0 of _insert_sig.  For each
-// active row b of the selection and each move mask m = 1 .. 2^N - 1:
-//   cost = sum_p w_p (GG + (E - GG)(bx + by) + bx by (mm_p + GG - 2E))
-//          + (O - E) sum_p w_p (bx (1 - by) par_y + (1 - bx) by par_x)
-//   h    = sum_p wh_p T8[p][2 bx + by] + sum_t cube_t[corner(t, m)]
-//   g    = f(row) - h(row) + cost,  f = g + h,  child = coord + bits(m),
-// summed in 64 bits as the plain version does (.long()).  This is the
-// plain version's c0 + c1[m] + sum_p both w (mm + GG - 2E) written per pair:
-// the same integers.  valid = child <= final; the goal is found BEFORE the
+// active row b of the selection and each move mask m = 1 .. 2^N - 1, the
+// edge cost and h of expand_row.cuh (shared with keyrow_expand.cu, K9) and
+//   g    = f(row) - h(row) + cost,  f = g + h,  child = coord + bits(m).
+// valid = child <= final; the goal is found BEFORE the
 // upper-bound prune (goal_g = min g over goal lanes, by atomicMin on the
 // counters' slot 0), then valid &= f <= ub.  A surviving lane encodes
 // (home, sig base) from its child's key, forms packed = ((f - f0) << n) | m
@@ -47,6 +43,7 @@
 // because the sig layout is taken only where sig_bits - bbits <= 25
 // (engine.py::_Static.sig_ok).  kNValid takes one atomicAdd a block.
 
+#include "expand_row.cuh"
 #include "step_state.cuh"
 
 namespace {
@@ -67,23 +64,19 @@ __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kerne
   extern __shared__ int32_t sm[];
   __shared__ unsigned long long s_valid;
   if (*run == 0) return;
-  const int n_const = 4 * P + 3 * T + 2 * N;
-  const int32_t* s_xs = sm;
-  const int32_t* s_ys = s_xs + P;
-  const int32_t* s_w = s_ys + P;
-  const int32_t* s_wh = s_w + P;
-  const int32_t* s_tri = s_wh + P;
-  const int32_t* s_final = s_tri + 3 * T;
+  const int n_const = expand::const_words(N, P, T) + N;  // and the bit widths
+  const expand::Consts k = expand::consts_at(sm, N, P, T, S);
+  const int32_t* s_final = k.final_c;
   const int32_t* s_bitw = s_final + N;
   int32_t* s_shift = sm + n_const;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // the warp's own staging: T8 rows (5 words a pair), cube corners, coordinate
-  int32_t* s_t8 = s_shift + N + warp * (5 * P + 8 * T + N);
+  // the warp's own staging: T8 rows, cube corners, coordinate
+  int32_t* s_t8 = s_shift + N + warp * expand::warp_words(N, P, T);
   int32_t* s_cube = s_t8 + 5 * P;
   int32_t* s_coord = s_cube + 8 * T;
 
   // 1. the constants, once a block
-  for (int k = tid; k < n_const; k += blockDim.x) sm[k] = params[k];
+  for (int q = tid; q < n_const; q += blockDim.x) sm[q] = params[q];
   if (tid == 0) {
     s_valid = 0;
     int sh = 0;
@@ -96,7 +89,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kerne
 
   const uint32_t Bmask = (1u << bbits) - 1u;
   const int M = (1 << N) - 1;
-  const size_t SS = (size_t)S * S;
   const long long n_rows = state[step::kNSel];
   const int nw = gridDim.x * (blockDim.x >> 5);
   uint32_t n_valid = 0;
@@ -112,62 +104,26 @@ __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kerne
     const unsigned long long key = (unsigned long long)klo | ((unsigned long long)khi << bbits);
     if (lane < N) s_coord[lane] = (int32_t)((key >> s_shift[lane]) & ((1ull << s_bitw[lane]) - 1));
     __syncwarp();
-    // 3. the row's T8 rows (4 pair-table cells and the residue cost) and
-    //    the 8 corners of each cube around it, lanes in parallel
-    for (int p = lane; p < P; p += 32) {
-      const int cx = min(max(s_coord[s_xs[p]], 0), S - 2);
-      const int cy = min(max(s_coord[s_ys[p]], 0), S - 2);
-      const int4* row = reinterpret_cast<const int4*>(
-          tables4 + ((size_t)p * SS + (size_t)cx * S + cy) * 8);
-      const int4 a = row[0], c = row[1];
-      s_t8[5 * p] = a.x;
-      s_t8[5 * p + 1] = a.y;
-      s_t8[5 * p + 2] = a.z;
-      s_t8[5 * p + 3] = a.w;
-      s_t8[5 * p + 4] = c.x;
-    }
-    for (int q = lane; q < 8 * T; q += 32) {
-      const int t = q >> 3;
-      const int cx = min(max(s_coord[s_tri[3 * t]], 0), S - 2) + ((q >> 2) & 1);
-      const int cy = min(max(s_coord[s_tri[3 * t + 1]], 0), S - 2) + ((q >> 1) & 1);
-      const int cz = min(max(s_coord[s_tri[3 * t + 2]], 0), S - 2) + (q & 1);
-      s_cube[q] = cubes[(size_t)t * SS * S + ((size_t)cx * S + cy) * S + cz];
-    }
+    // 3. the row's T8 rows and cube corners, lanes in parallel
+    expand::stage_row(k, tables4, cubes, s_coord, s_t8, s_cube, lane);
     __syncwarp();
 
     // 4. the parent: h from the k = 0 cells and corner 0; the table holds f
-    long long h_par = 0;
-    for (int p = 0; p < P; ++p) h_par += (long long)s_t8[5 * p] * s_wh[p];
-    for (int t = 0; t < T; ++t) h_par += s_cube[8 * t];
     const int par = v & ((1 << nb) - 1);
-    const long long g = (long long)(v >> nb) + f0 - h_par;
+    const long long g = (long long)(v >> nb) + f0 - expand::parent_h(k, s_t8, s_cube);
 
     // 5. a lane a mask, 32 masks a pass
     for (int m0 = 1; m0 <= M; m0 += 32) {
       const int m = m0 + lane;
-      long long cost = 0, h = 0;
-      for (int p = 0; p < P; ++p) {
-        const int bx = (m >> s_xs[p]) & 1, by = (m >> s_ys[p]) & 1;
-        const long long w = s_w[p];
-        cost += w * (GG + (long long)(E - GG) * (bx + by) +
-                     (long long)(bx & by) * ((long long)s_t8[5 * p + 4] + GG - 2 * E));
-        if (gap_oe != 0)
-          cost += (long long)gap_oe * w *
-                  (bx * (1 - by) * ((par >> s_ys[p]) & 1) + (1 - bx) * by * ((par >> s_xs[p]) & 1));
-        h += (long long)s_t8[5 * p + 2 * bx + by] * s_wh[p];
-      }
-      for (int t = 0; t < T; ++t) {
-        const int corner = 4 * ((m >> s_tri[3 * t]) & 1) + 2 * ((m >> s_tri[3 * t + 1]) & 1) +
-                           ((m >> s_tri[3 * t + 2]) & 1);
-        h += s_cube[8 * t + corner];
-      }
+      long long cost, h;
+      expand::child_cost_h(k, m, par, E, GG, gap_oe, s_t8, s_cube, cost, h);
       bool valid = m <= M, goal = m <= M;
       unsigned long long ckey = 0;
-      for (int k = 0; k < N; ++k) {
-        const int c = s_coord[k] + ((m >> k) & 1);
-        valid &= c <= s_final[k];
-        goal &= c == s_final[k];
-        ckey |= (unsigned long long)c << s_shift[k];
+      for (int d = 0; d < N; ++d) {
+        const int c = s_coord[d] + ((m >> d) & 1);
+        valid &= c <= s_final[d];
+        goal &= c == s_final[d];
+        ckey |= (unsigned long long)c << s_shift[d];
       }
       const long long gc = g + cost, fc = gc + h;
       if (goal) atomicMin(&counters[step::cGoal], gc);  // before the prune
@@ -234,8 +190,8 @@ extern "C" int sig_expand(const void* t_sig, void* t_best, const void* sel, cons
     return (int)cudaErrorInvalidValue;
   // shared words: the constants, then each warp's staging; as many warps
   // (up to kMaxWarps) as 48 KB hold
-  const size_t shared_const = 4 * (size_t)P + 3 * (size_t)T + 3 * (size_t)N;
-  const size_t per_warp = 5 * (size_t)P + 8 * (size_t)T + (size_t)N;
+  const size_t shared_const = (size_t)expand::const_words(N, P, T) + 2 * (size_t)N;
+  const size_t per_warp = (size_t)expand::warp_words(N, P, T);
   const size_t words = (48 * 1024) / sizeof(int32_t);
   if (shared_const + per_warp > words) return (int)cudaErrorInvalidValue;
   size_t warps = (words - shared_const) / per_warp;

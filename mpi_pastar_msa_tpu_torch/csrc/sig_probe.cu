@@ -137,28 +137,15 @@ __device__ __forceinline__ int settle_or_place(const int4 a, const int4 c, int32
   return 1;
 }
 
-// The step's counters and the run flag (one thread, after the calls).
+// The step's counters and the run flag (one thread, after the calls): probe
+// lane-rounds are calls x lanes, the unmatched lanes the pending ones, the
+// tail the lanes unsettled after call 2 (0 when fewer ran).
 __device__ void finish(long long* c, long long* state, int32_t* run, long long n, int calls,
                        long long undone, int fill) {
-  const long long n_sel = state[step::kNSel], lanes = state[step::kNValid];
-  c[step::cFmin] = state[step::kFmin];
-  c[step::cSteps] += 1;
-  c[step::cExpanded] += n_sel;
-  c[step::cReopened] += state[step::kReopen];
-  c[step::cNOpen] = state[step::kNOpen];
-  c[step::cOverflow] += undone;
-  // _adapt_thr: widen when the batch under-fills, shrink when full
-  const long long thr = c[step::cThr];
-  long long nt = n_sel < fill / 2 ? thr * 2 + 32 : (n_sel >= fill - fill / 8 ? thr / 2 : thr);
-  c[step::cThr] = nt < (1ll << 20) ? nt : (1ll << 20);
-  c[step::cSelProc] += n_sel;
-  c[step::cLanesTrue] += lanes;
-  c[step::cLanesR0] += lanes;
-  c[step::cLanesProbe] += (long long)calls * lanes;
-  c[step::cLanesUnmatched] += n;
-  c[step::cLanesTail] += calls >= 2 ? state[step::kCnt + 1] : 0;
+  const long long lanes = state[step::kNValid];
+  step::finish_step(c, state, run, fill, lanes, undone, (long long)calls * lanes, n,
+                    calls >= 2 ? state[step::kCnt + 1] : 0);
   state[step::kCalls] = calls;
-  *run = c[step::cFmin] < c[step::cGoal] && c[step::cOverflow] == 0;
 }
 
 __global__ void __launch_bounds__(kThreads, 1) sig_probe_kernel(

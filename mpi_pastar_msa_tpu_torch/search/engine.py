@@ -495,19 +495,30 @@ def _select_packed(st: _Static, tab: PackedTable, goal_g, thr, best=None):
     return coords, g, par, None, active, fmin, n_open, n_sel, reopen_ct
 
 
-def _select(st: _Static, tab: UnpackedTable, goal_g, thr):
-    """Batch selection, unpacked layout (JAX ``_select``): a slot is open
-    when its state is 1 and its f is below goal_g; each of the B groups
-    offers its argmin f within ``f <= fmin + thr`` (first index on ties).
-    Selected slots get state 2.  Returns the tuple of _select_sig with g
-    from t_g, the parent mask and f_par (the parent's f, for pathmax) from
-    t_fpar, and a zero reopen count (this layout counts reopens in the
+def _select_open(st: _Static, t_state, t_fpar, goal_g, thr):
+    """Grouped-argmin selection over the open f values of the unpacked
+    layout; closes the selected slots in place.  A CUDA table runs kernel
+    K3's unpacked instantiation (``search/step.py::select_open_cuda``), a
+    CPU table the plain version, ``_select_open_plain``."""
+    if t_state.device.type == "cuda":
+        from .step import select_open_cuda
+        return select_open_cuda(st, t_state, t_fpar, goal_g, thr)
+    return _select_open_plain(st, t_state, t_fpar, goal_g, thr)
+
+
+def _select_open_plain(st: _Static, t_state, t_fpar, goal_g, thr):
+    """The plain version of ``_select_open`` (JAX ``_select``'s argmin): a
+    slot is open when its state is 1 and its f (t_fpar >> n) is below
+    goal_g; each of the B groups offers its argmin f within ``f <= fmin +
+    thr`` (first index on ties; index 0 of a group with none); selected
+    slots get state 2.  Returns (slots, vmin, active, fmin, n_open,
+    n_selected, reopen_ct) as ``_select_best_plain``, vmin the picked f
+    (INF where inactive) and reopen_ct 0 (this layout counts reopens in the
     insert)."""
     C, B, nb = st.C, st.B, st.nb
     G = C // B
-    fpar = tab.t_fpar[:C]
-    t_f = fpar >> nb
-    is_open = (tab.t_state[:C] == 1) & (t_f < goal_g)
+    t_f = t_fpar[:C] >> nb
+    is_open = (t_state[:C] == 1) & (t_f < goal_g)
     f_open = torch.where(is_open, t_f, INF)
     fmin = f_open.min()
     n_open = is_open.sum()
@@ -516,13 +527,24 @@ def _select(st: _Static, tab: UnpackedTable, goal_g, thr):
     vmin = v.gather(1, j[:, None])[:, 0]
     slots = torch.arange(B, device=st.device) * G + j
     active = vmin < INF
-    n_selected = active.sum()
+    t_state[torch.where(active, slots, C)] = 2
+    return slots, vmin, active, fmin, n_open, active.sum(), torch.zeros_like(n_open)
+
+
+def _select(st: _Static, tab: UnpackedTable, goal_g, thr, best=None):
+    """Batch selection, unpacked layout (JAX ``_select``): ``best`` is the
+    grouped argmin (default ``_select_open``; ``_select_open_plain`` forces
+    the plain one on the card).  Returns the tuple of _select_sig with g
+    from t_g, the parent mask and f_par (the parent's f, for pathmax) from
+    t_fpar, and a zero reopen count (this layout counts reopens in the
+    insert)."""
+    slots, _, active, fmin, n_open, n_sel, reopen_ct = (best or _select_open)(
+        st, tab.t_state, tab.t_fpar, goal_g, thr)
     coords = _unpack_keys(st, tab.t_key[slots])
     g = tab.t_g[slots].long()
-    fp = fpar[slots]
-    tab.t_state[torch.where(active, slots, C)] = 2
-    return (coords, g, fp & ((1 << nb) - 1), fp >> nb, active, fmin, n_open,
-            n_selected, torch.zeros_like(n_open))
+    fp = tab.t_fpar[slots]
+    return (coords, g, fp & ((1 << st.nb) - 1), fp >> st.nb, active, fmin, n_open,
+            n_sel, reopen_ct)
 
 
 def _adapt_thr(thr, n_selected, B: int):
@@ -593,21 +615,23 @@ def _expand(st: _Static, coords, g, parenti, active, f_parent=None,
             valid.reshape(-1), is_goal.reshape(-1), child.reshape(B * M, n))
 
 
-def _candidates_sig(st: _Static, child, g, f, mask):
-    """Insert arguments of the sig layout: (home, sig base, packed word)."""
+def _candidates_sig(st: _Static, child, g, f, mask, tag=None):
+    """Insert arguments of the sig layout: (home, sig base, packed word);
+    the sig probe is claimless, so it takes no tag."""
     home, sigb = _sig_encode(st, child)
     return home, sigb, ((f - st.f0) << st.nb) | mask
 
 
-def _candidates_packed(st: _Static, child, g, f, mask):
-    """Insert arguments of the packed layout: (key words, h, packed word);
-    h = f - g, as this layout runs no pathmax."""
-    return (_pack_keys(child, st.W), f - g, ((f - st.f0) << st.nb) | mask)
+def _candidates_packed(st: _Static, child, g, f, mask, tag=None):
+    """Insert arguments of the packed layout: (key words, h, packed word,
+    claim tag); h = f - g, as this layout runs no pathmax."""
+    return (_pack_keys(child, st.W), f - g, ((f - st.f0) << st.nb) | mask, tag)
 
 
-def _candidates_unpacked(st: _Static, child, g, f, mask):
-    """Insert arguments of the unpacked layout: (key words, g, f, mask)."""
-    return _pack_keys(child, st.W), g, f, mask
+def _candidates_unpacked(st: _Static, child, g, f, mask, tag=None):
+    """Insert arguments of the unpacked layout: (key words, g, f, mask,
+    claim tag)."""
+    return _pack_keys(child, st.W), g, f, mask, tag
 
 
 def _insert_sig(st: _Static, tab: SigTable, home, sigb, packed):
@@ -676,7 +700,7 @@ def _insert_sig(st: _Static, tab: SigTable, home, sigb, packed):
     return overflow, torch.zeros_like(overflow), acct
 
 
-def _probe_claim(st: _Static, t_key, claim, keys, krow):
+def _probe_claim(st: _Static, t_key, claim, keys, krow, tag=None):
     """Settle each candidate key at a slot of a key-row table, in place
     (JAX ``_probe_body_factory`` / ``_probe_body_packed_factory``, run to
     completion).
@@ -687,13 +711,17 @@ def _probe_claim(st: _Static, t_key, claim, keys, krow):
     writes ``krow`` there; a loser re-reads the row and settles if the
     winner wrote the same key (match2); the rest go on to round r + 1, for
     at most ``max_probes`` rounds.  Lanes of one key follow one probe
-    sequence in lock step, so a key is stored once.  Tags are lane indices:
-    they need only be unique within a round, because a claimed slot is
-    written in the same round and never claimed again — a claim word is
-    read only at a slot claimed this round, so no old tag can win (which
-    is why the JAX step_tag arithmetic and per-chunk claim reset are not
-    needed).  The smallest tag winning makes the layout of the table, and
-    so a run, the same on every device.
+    sequence in lock step, so a key is stored once.  ``tag`` is each lane's
+    claim tag (default: its index); the step passes the content tag
+    ``row_rank * M + mask - 1`` (``_expand_insert``), which orders the
+    lanes as their indices do and which a kernel computes whatever order
+    its lanes arrive in.  Tags need only be unique within a round, because
+    a claimed slot is written in the same round and never claimed again —
+    a claim word is read only at a slot claimed this round, so no old tag
+    can win (which is why the JAX step_tag arithmetic and per-chunk claim
+    reset are not needed, and why a kernel's atomicMin over the old word
+    gives the same word).  The smallest tag winning makes the layout of
+    the table, and so a run, the same on every device.
 
     Returns (slot, done, acct): a settled lane's slot, an unsettled lane's
     trash slot, and the counter slots 9-13 (see N_COUNTERS)."""
@@ -703,7 +731,8 @@ def _probe_claim(st: _Static, t_key, claim, keys, krow):
     trash = C + torch.arange(L, device=dev) % TRASH
     kw = _as_i32(keys)
     h0 = _hash_keys(keys)
-    tag = torch.arange(L, dtype=torch.int32, device=dev)
+    tag = (torch.arange(L, dtype=torch.int32, device=dev) if tag is None
+           else tag.to(torch.int32))
     slot_out = trash.clone()
     done = torch.zeros(L, dtype=torch.bool, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -734,20 +763,20 @@ def _probe_claim(st: _Static, t_key, claim, keys, krow):
     return slot_out, done, acct
 
 
-def _insert_core_packed(st: _Static, tab: PackedTable, keys, h, packed):
+def _insert_core_packed(st: _Static, tab: PackedTable, keys, h, packed, tag=None):
     """Insert candidates (all valid) into the packed table, in place: probe
     (``_probe_claim``; a claim winner writes ``[key words, h]``), then one
     scatter-min of the packed word into t_best.  Returns (overflow,
     reopen_ct, acct) with reopen_ct 0 (this layout counts reopens at
-    selection)."""
+    selection); ``tag`` as in ``_probe_claim``."""
     krow = torch.cat([_as_i32(keys), h.to(torch.int32)[:, None]], dim=1)
-    slot, done, acct = _probe_claim(st, tab.t_key, tab.claim, keys, krow)
+    slot, done, acct = _probe_claim(st, tab.t_key, tab.claim, keys, krow, tag)
     tab.t_best.scatter_reduce_(0, slot, packed.to(torch.int32), "amin")
     overflow = (~done).sum()
     return overflow, torch.zeros_like(overflow), acct
 
 
-def _insert_core(st: _Static, tab: UnpackedTable, keys, g, f, mask):
+def _insert_core(st: _Static, tab: UnpackedTable, keys, g, f, mask, tag=None):
     """Insert candidates (all valid) into the unpacked table, in place, with
     decrease-key (JAX ``_insert_core``): probe (``_probe_claim``), then a
     lane improves its slot when its g is below the slot's g before this
@@ -755,10 +784,11 @@ def _insert_core(st: _Static, tab: UnpackedTable, keys, g, f, mask):
     writers that brought the new minimum the smallest f * 2^n + mask sets
     (f, parent) (one int64 scatter-min; JAX keeps an unspecified one of
     them).  Improved slots become open; one that was closed is a reopen.
+    ``tag`` as in ``_probe_claim``.
 
     Returns (overflow, reopen_ct, acct)."""
     slot, done, acct = _probe_claim(st, tab.t_key, tab.claim, keys,
-                                    _as_i32(keys))
+                                    _as_i32(keys), tag)
     trash = st.C + torch.arange(slot.shape[0], device=st.device) % TRASH
     g = g.to(torch.int32)
     # a slot settled by a claim in this call holds g = INF and state 0, as
@@ -781,7 +811,7 @@ def _insert_core(st: _Static, tab: UnpackedTable, keys, g, f, mask):
 class _LayoutFns(NamedTuple):
     """A layout's step functions (JAX ``_make_fns``): select (st, tab,
     goal_g, thr) -> (coords, g, par, f_par, active, fmin, n_open,
-    n_selected, reopen_ct); candidates (st, child, g, f, mask) -> the
+    n_selected, reopen_ct); candidates (st, child, g, f, mask, tag) -> the
     insert's arguments; insert (st, tab, *args) -> (overflow, reopen_ct,
     acct); lookup (st, tab, coord) -> parent mask or None, for the walk;
     g_is_f: select returns f in the g position."""
@@ -801,7 +831,11 @@ def _expand_insert(st: _Static, fns: _LayoutFns, tab, coords, g, par, f_par,
     Only the active rows are expanded and only the valid candidates are
     inserted (one torch.nonzero each): the selection fills a fraction of
     the batch and the upper bound prunes many children.  Results do not
-    depend on it: the insert treats its lanes as one unordered set."""
+    depend on it: the insert treats its lanes as one unordered set, and a
+    key-row insert's claim tag is the lane's content tag, its index
+    ``row_rank * M + mask - 1`` in the (rows, masks) expansion (row_rank:
+    its place among the active rows, in group order), whatever lanes the
+    prune kept."""
     dev = st.device
     sel = torch.nonzero(active)[:, 0]
     if sel.numel() == 0:  # no open state: the stop test ends the search
@@ -814,7 +848,7 @@ def _expand_insert(st: _Static, fns: _LayoutFns, tab, coords, g, par, f_par,
     goal_g = torch.minimum(goal_g, torch.where(is_goal, g_c, INF).min())
     keep = torch.nonzero(valid)[:, 0]
     overflow, reopen_ct, iacct = fns.insert(st, tab, *fns.candidates(
-        st, child[keep], g_c[keep], f_c[keep], mask_c[keep]))
+        st, child[keep], g_c[keep], f_c[keep], mask_c[keep], keep))
     acct = torch.cat([torch.tensor([sel.numel()], device=dev), iacct])
     return goal_g, overflow, reopen_ct, acct
 
@@ -823,16 +857,19 @@ def _run_chunk(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
                ub: int, fill: int, layout: str) -> torch.Tensor:
     """Up to ``chunk_steps`` super-steps (select -> expand -> insert) of the
     table ``layout``, as the JAX chunked run loops (a while_loop): stop when
-    fmin >= goal_g, after chunk_steps, or on overflow.  A CUDA sig table
-    runs kernels K3 -> K4 -> K5 a step with the stop test on the device
-    (``search/step.py::run_chunk_sig_cuda``); every other table the plain
-    loop, ``_run_chunk_plain``.  The caller reads the whole counters vector
-    once per chunk; on a CUDA sig table a chunk is one CUDA graph, captured
-    at the first chunk of a table (so again after a regrow, whose new table
-    and statics have new buffers) and replayed for the others."""
-    if layout == "sig" and tab.t_sig.device.type == "cuda":
-        from .step import run_chunk_sig_cuda
-        return run_chunk_sig_cuda(st, tab, counters, chunk_steps, ub, fill)
+    fmin >= goal_g, after chunk_steps, or on overflow.  A CUDA table runs
+    three kernels a step with the stop test on the device: K3 -> K4 -> K5
+    on the sig layout (``search/step.py::run_chunk_sig_cuda``), K3 -> K9 ->
+    K10 on the packed and unpacked ones (``run_chunk_keyrow_cuda``); a CPU
+    table the plain loop, ``_run_chunk_plain``.  The caller reads the whole
+    counters vector once per chunk; on a CUDA table a chunk is one CUDA
+    graph, captured at the first chunk of a table (so again after a
+    regrow, whose new table and statics have new buffers) and replayed for
+    the others."""
+    if counters.device.type == "cuda":
+        from .step import run_chunk_keyrow_cuda, run_chunk_sig_cuda
+        run = run_chunk_sig_cuda if layout == "sig" else run_chunk_keyrow_cuda
+        return run(st, tab, counters, chunk_steps, ub, fill)
     return _run_chunk_plain(st, tab, counters, chunk_steps, ub, fill, layout)
 
 
@@ -841,13 +878,13 @@ def _run_chunk_plain(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
                      plain_select: bool = False) -> torch.Tensor:
     """The plain step loop of ``_run_chunk``: the stop test reads three
     scalars per step (the insert's probe loop synchronises each round
-    anyway).  On a CUDA table the sig and packed selects still run K3
-    unless ``plain_select`` (then every step function is the plain one, the
+    anyway).  On a CUDA table the selects still run K3 unless
+    ``plain_select`` (then every step function is the plain one, the
     reference the kernels are held to on the card)."""
     fns = _LAYOUT_FNS[layout]
     select = fns.select
     if plain_select:
-        select = functools.partial(select, best=_select_best_plain)
+        select = functools.partial(select, best=_PLAIN_ARGMIN[layout])
     goal_g, steps, expanded, reopen, n_open, overflow, thr = (
         counters[0], counters[2], counters[3], counters[4], counters[5],
         counters[6], counters[7])
@@ -916,6 +953,10 @@ def _lookup_unpacked(st: _Static, tab: UnpackedTable, coord):
     """(JAX ``_make_backtrace``): the parent mask from t_fpar."""
     return _lookup_keyrow(st, tab.t_key, tab.t_fpar, coord)
 
+
+# the plain grouped argmin of each layout's select (``plain_select``)
+_PLAIN_ARGMIN = {"sig": _select_best_plain, "packed": _select_best_plain,
+                 "unpacked": _select_open_plain}
 
 _LAYOUT_FNS = {
     "sig": _LayoutFns(_select_sig, _candidates_sig, _insert_sig, _lookup_sig,
@@ -1180,7 +1221,7 @@ class FrontierSearch:
                  "lanes_unmatched", "lanes_tail"), c[8:14]))
             if fmin_v >= goal_v or overflow > 0 or steps >= MAX_STEPS:
                 break
-        # the chunk graphs this run captured (sig on the card: one a table)
+        # the chunk graphs this run captured (on the card: one a table)
         captures, capture_s = capture_stats(st)
         self.graph_captures = captures - captures0
         self.last_phase_walls["graph_capture"] = capture_s - capture_s0

@@ -1,48 +1,64 @@
-"""The sig layout's search step on the card: kernels K3, K4 and K5, and the
-chunk of steps as one CUDA graph (K6).
+"""The search step on the card: kernels K3, K4 and K5 (the sig layout), K3,
+K9 and K10 (the packed and unpacked layouts), and a chunk of steps as one
+CUDA graph (K6).
 
 The JAX engine runs its whole search loop as one compiled program
 (``_make_run_loop_sig``, mpi_pastar_msa_tpu/search/engine.py:1882, through
-``_make_run_loop_packed`` at :1819); each step is ``_select_sig`` (:1620),
-``_expand`` (:497) with ``_candidates_sig`` -> ``_sig_encode`` (:1724,
-:400) and ``_insert_sig`` (:1551).  On a CUDA sig table the port runs each
-step as three hand-written kernels, launched back to back on the current
-stream with no host read between them:
+``_make_run_loop_packed`` at :1819, and ``_make_run_loop`` at :1999 for
+the unpacked layout).  A sig step is ``_select_sig`` (:1620), ``_expand``
+(:497) with ``_candidates_sig`` -> ``_sig_encode`` (:1724, :400) and
+``_insert_sig`` (:1551); a packed step ``_select_packed`` (:1668),
+``_expand`` and ``_insert_packed`` (:1489); an unpacked one ``_select``
+(:858), ``_expand`` with pathmax and ``_insert`` (:799).  On a CUDA table
+the port runs each step as three hand-written kernels, launched back to
+back on the current stream with no host read between them:
 
-  K3 ``csrc/select_best.cu``  grouped argmin, cut and close in one launch,
-                              and the compact list of the active rows
-                              (``select_best_cuda``, also the packed
-                              layout's select on the card)
-  K4 ``csrc/sig_expand.cu``   over that list: decode, expand, prune,
-                              sig-encode and the round-0 row match of the
-                              insert; unmatched lanes go to a pending list
-                              (``_expand_args``)
-  K5 ``csrc/sig_probe.cu``    the claimless bucket probe of the pending
-                              lanes (one block when they are at most
-                              ``K5_CAP``, else the whole cooperative grid),
-                              then the step's 14 counters and the run flag
-                              (``_probe_args``)
+  K3 ``csrc/select_best.cu``   grouped argmin, cut and close in one launch,
+                               and the compact list of the active rows
+                               (``select_best_cuda``: sig and packed;
+                               ``select_open_cuda``: unpacked)
+  K4 ``csrc/sig_expand.cu``    sig: over that list, decode, expand, prune,
+                               sig-encode and the round-0 row match of the
+                               insert; unmatched lanes go to a pending list
+                               (``_expand_args``)
+  K5 ``csrc/sig_probe.cu``     sig: the claimless bucket probe of the
+                               pending lanes (one block when they are at
+                               most ``K5_CAP``, else the whole cooperative
+                               grid), then the step's 14 counters and the
+                               run flag (``_probe_args``)
+  K9 ``csrc/keyrow_expand.cu`` packed and unpacked: over K3's list, the
+                               row's key words, expand, prune, the
+                               children's key words, hash and content tag;
+                               every surviving lane goes to the pending
+                               list (``_keyrow_expand_args``)
+  K10 ``csrc/keyrow_insert.cu`` packed and unpacked: the claim rounds of
+                               the pending lanes on the cooperative grid,
+                               the placement (t_best, or decrease-key on
+                               t_g and t_fpar), then the counters and the
+                               run flag (``_keyrow_insert_args``)
 
-The step loop (``run_chunk_sig_cuda``, K6 of the JAX loop) keeps the 14
-counters in a device int64 vector, as the JAX ``while_loop`` does, and the
-stop test on the device: K5 ends each step by writing a run flag (f-min <
-goal_g and no overflow), and every kernel of the next step returns at once
-when it reads 0.  A chunk is its set-up (``counters[1] = 0`` and the run
-flag) and ``chunk_steps`` steps, with no host read; the host reads the
-counters once a chunk (``FrontierSearch``).  Steps after the stop do
-nothing.  By default a chunk is one CUDA graph, captured once a table,
-chunk length, bound and fill (again after a regrow: a new table) and
-replayed every chunk: the host makes one graph launch a chunk, not three
-kernel launches a step.  Every pointer the graph holds is a buffer of the
-table or of ``StepBuffers``, the counters included: a chunk copies the
-caller's counters into ``StepBuffers.counters``, replays, and returns a
-copy.  ``graph=False`` enqueues the same chunk kernel by kernel (the
-eager chunk, the reference the graph is held to).  The plain step
+The step loop (``run_chunk_sig_cuda``, ``run_chunk_keyrow_cuda``: K6 of
+the JAX loop) keeps the 14 counters in a device int64 vector, as the JAX
+``while_loop`` does, and the stop test on the device: the insert ends
+each step by writing a run flag (f-min < goal_g and no overflow), and
+every kernel of the next step returns at once when it reads 0.  A chunk
+is its set-up (``counters[1] = 0`` and the run flag) and ``chunk_steps``
+steps, with no host read; the host reads the counters once a chunk
+(``FrontierSearch``).  Steps after the stop do nothing.  By default a
+chunk is one CUDA graph, captured once a table, chunk length, bound and
+fill (again after a regrow: a new table) and replayed every chunk: the
+host makes one graph launch a chunk, not three kernel launches a step.
+Every pointer the graph holds is a buffer of the table or of
+``StepBuffers``, the counters included: a chunk copies the caller's
+counters into ``StepBuffers.counters``, replays, and returns a copy.
+``graph=False`` enqueues the same chunk kernel by kernel (the eager
+chunk, the reference the graph is held to).  The plain step
 (``engine._run_chunk_plain``) gives the same tables and counters bit for
 bit: ``chip_smoke.py`` holds them to each other on the card.
 
-The wrappers (``select_best_cuda``, ``run_chunk_sig_cuda``) check devices,
-dtypes and sizes and raise ValueError on anything the kernels do not take;
+The wrappers (``select_best_cuda``, ``select_open_cuda``,
+``run_chunk_sig_cuda``, ``run_chunk_keyrow_cuda``) check devices, dtypes
+and sizes and raise ValueError on anything the kernels do not take;
 nothing falls back to the plain code, and a failed launch or capture
 raises.  The ``_*_args`` functions give one kernel's C arguments on
 checked buffers; a chunk binds them once (``_kernels.bind``) and launches
@@ -51,14 +67,14 @@ each kernel ``chunk_steps`` times.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from typing import Dict, Optional
 
 import torch
 
 from .. import _kernels
 from ..core.cost import GAP_EXTENSION, GAP_GAP
-from .engine import N_COUNTERS, SigTable, _Static
+from .engine import N_COUNTERS, PackedTable, SigTable, UnpackedTable, _Static
 
 # the slots of the step's state vector (csrc/step_state.cuh)
 STATE_GMAX, STATE_NOPEN, STATE_NSEL, STATE_REOPEN, STATE_FMIN = 0, 1, 2, 3, 4
@@ -69,6 +85,8 @@ STATE_WORDS = STATE_CNT + MAX_CALLS
 K3_MAX_BLOCKS = 1024
 # K4's C entry takes N <= 24 (2^24 - 1 masks a row)
 K4_MAX_N = 24
+# K9's and K10's take N <= 16 (8 key words of two 16-bit coordinates)
+K9_MAX_N = 16
 # K5's block path takes at most kThreads x kLanes = 2048 pending lanes (its
 # lanes live in registers), and the engine gives it all it takes: on the
 # H100 one block is faster up to about 2,048 lanes and the grid above,
@@ -117,13 +135,30 @@ def select_best_cuda(st: _Static, t_best, t_closed, goal_g, thr, run=None,
     dev = _cuda_device(t_best, "t_best")
     _check(t_best, "t_best", dev, torch.int32, st.C)
     _check(t_closed, "t_closed", dev, torch.int32, st.C)
+    return _launch_select(st, dev, _select_args, t_best, t_closed, goal_g, thr, run, bufs)
+
+
+def select_open_cuda(st: _Static, t_state, t_fpar, goal_g, thr, run=None,
+                     bufs: "StepBuffers" = None):
+    """K3's unpacked instantiation (``select_best_unpacked``):
+    ``engine._select_open_plain`` on the card, the same outputs, t_state
+    updated in place; the rest as ``select_best_cuda``."""
+    dev = _cuda_device(t_state, "t_state")
+    _check(t_state, "t_state", dev, torch.int32, st.C)
+    _check(t_fpar, "t_fpar", dev, torch.int64, st.C)
+    return _launch_select(st, dev, _select_open_args, t_state, t_fpar, goal_g, thr, run, bufs)
+
+
+def _launch_select(st, dev, args, a, b, goal_g, thr, run, bufs):
+    """One select launch on checked tables ``a``, ``b`` (``args`` gives
+    the C arguments); the outputs as ``select_best_cuda``."""
     goal = _scalar(goal_g, "goal_g", dev)
     thr = _scalar(thr, "thr", dev)
     if run is not None:
         _check(run, "run", dev, torch.int32)
     if bufs is None:
         bufs = StepBuffers.select_only(st, dev)
-    _kernels.launch(*_select_args(st, t_best, t_closed, goal, thr, run, bufs, _stream(dev)))
+    _kernels.launch(*args(st, a, b, goal, thr, run, bufs, _stream(dev)))
     s = bufs.state
     return (bufs.slots, bufs.vmin, bufs.active, s[STATE_FMIN], s[STATE_NOPEN],
             s[STATE_NSEL], s[STATE_REOPEN])
@@ -137,21 +172,36 @@ def _select_args(st, t_best, t_closed, goal, thr, run, bufs, stream) -> tuple:
             bufs.ticket.data_ptr(), bufs.state.data_ptr(), stream)
 
 
+def _select_open_args(st, t_state, t_fpar, goal, thr, run, bufs, stream) -> tuple:
+    return ("select_best_unpacked", t_state.data_ptr(), t_fpar.data_ptr(), st.C, st.B, st.nb,
+            goal.data_ptr(), thr.data_ptr(), None if run is None else run.data_ptr(),
+            bufs.slots.data_ptr(), bufs.vmin.data_ptr(), bufs.active.data_ptr(),
+            bufs.sel.data_ptr(), bufs.partial.data_ptr(), bufs.partial.shape[0],
+            bufs.ticket.data_ptr(), bufs.state.data_ptr(), stream)
+
+
 @dataclass
 class StepBuffers:
-    """Device buffers of the sig step, made once a table size.
+    """Device buffers of the step of one layout, made once a table size.
 
     slots, vmin (B,) int64, active (B,) bool: K3's outputs
     state (STATE_WORDS,) int64: the step's counts (csrc/step_state.cuh)
-    sel (B, 2) int32: K3's compact list of active rows (slot, packed word),
-        its length in state[STATE_NSEL]; K4 walks it
+    sel (B, 2) int32: K3's compact list of active rows (slot, packed word;
+        unpacked: slot, f), its length in state[STATE_NSEL]; K4 or K9
+        walks it
     partial (K3_MAX_BLOCKS, 2) int64, ticket (1,) int32: K3's block
         partials and the ticket of its last block (0 between launches)
     run (1,) int32: the step loop's run flag
-    pend (B * M, 3) int32: K4's pending lanes (home, sig base, packed)
-    lane_cur, lane_dest, lane_word (B * M,) int32: K5's lane state
+    pend int32: the pending lanes, K4's (B * M, 3): (home, sig base,
+        packed), or K9's (B * M, W + 4): (key words, hash, tag, h, packed)
+        on the packed layout, (B * M, W + 5): (key words, hash, tag, g, f *
+        2^n + mask as two words) on the unpacked one
+    lane_cur, lane_dest, lane_word (B * M,) int32: K5's lane state; on a
+        key-row layout lane_cur and lane_dest are K10's lane_slot and
+        lane_flag (lane_word None)
     params int32: pairs, weights, triangles, final coordinate and key bit
-    widths for K4 (``_kernel_params``)
+    widths for K4 and K9 (``_kernel_params``)
+    layout: "sig", "packed" or "unpacked", the layout these serve
     counters (N_COUNTERS,) int64: the chunk's counters, the same buffer
         every chunk (the graph holds its pointer)
     graph: the chunk's ``ChunkGraph`` (None before the first capture);
@@ -171,6 +221,7 @@ class StepBuffers:
     lane_word: torch.Tensor = None
     params: torch.Tensor = None
     counters: torch.Tensor = None
+    layout: str = "sig"
     graph: Optional["ChunkGraph"] = None
     captures: int = 0
     capture_s: float = 0.0
@@ -192,37 +243,55 @@ class StepBuffers:
                    torch.empty(STATE_WORDS, dtype=torch.int64, device=dev), *scratch)
 
     @classmethod
-    def for_step(cls, st: _Static, dev) -> "StepBuffers":
+    def for_step(cls, st: _Static, dev, layout: str = "sig") -> "StepBuffers":
         bufs = cls.select_only(st, dev)
         cap = st.B * st.M
+        bufs.layout = layout
         bufs.run = torch.zeros(1, dtype=torch.int32, device=dev)
-        bufs.pend = torch.empty((cap, 3), dtype=torch.int32, device=dev)
-        bufs.lane_cur, bufs.lane_dest, bufs.lane_word = (
-            torch.empty(cap, dtype=torch.int32, device=dev) for _ in range(3))
+        words = {"sig": 3, "packed": st.W + 4, "unpacked": st.W + 5}[layout]
+        bufs.pend = torch.empty((cap, words), dtype=torch.int32, device=dev)
+        bufs.lane_cur, bufs.lane_dest = (
+            torch.empty(cap, dtype=torch.int32, device=dev) for _ in range(2))
+        if layout == "sig":
+            bufs.lane_word = torch.empty(cap, dtype=torch.int32, device=dev)
         bufs.params = _kernel_params(st, dev)
         bufs.counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
         return bufs
 
 
 def _kernel_params(st: _Static, dev) -> torch.Tensor:
-    """K4's constants as one int32 vector: xs, ys, w, w_h (P each), the
-    triangles (3T), the final coordinate and the key bit widths (N each)."""
+    """K4's and K9's constants as one int32 vector: xs, ys, w, w_h (P
+    each), the triangles (3T), the final coordinate and the key bit widths
+    (N each; K9 reads no bit width)."""
     parts = [st.d_xs, st.d_ys, st.d_w, st.d_w_h]
     if st.T3:
         parts.append(st.d_tri_xyz.reshape(-1))
     parts += [st.d_final, torch.tensor(st.bitw, device=st.device)]
     v = torch.cat([p.to(st.device, torch.int64) for p in parts])
     if int(v.abs().max()) >= 2**31:
-        raise ValueError("K4: a pair weight does not fit 32 bits")
+        raise ValueError("K4/K9: a pair weight does not fit 32 bits")
     return v.to(dev, torch.int32)
 
 
-def _step_buffers(st: _Static, dev) -> StepBuffers:
+def _step_buffers(st: _Static, dev, layout: str = "sig") -> StepBuffers:
+    """The statics' step buffers for ``layout`` (made anew, the old ones
+    released, when the device or the layout changes)."""
     bufs = getattr(st, "_step_buffers", None)
-    if bufs is None or bufs.slots.device != dev:
-        bufs = StepBuffers.for_step(st, dev)
+    if bufs is None or bufs.slots.device != dev or bufs.layout != layout:
+        st._step_buffers = None
+        bufs = StepBuffers.for_step(st, dev, layout)
         st._step_buffers = bufs
     return bufs
+
+
+def _check_common(st: _Static, dev, counters) -> None:
+    """The counters and the heuristic's tables of a step on ``dev``."""
+    _check(counters, "counters", dev, torch.int64)
+    if counters.numel() != N_COUNTERS:
+        raise ValueError(f"counters: {counters.numel()} elements, need {N_COUNTERS}")
+    _check(st.d_tables4, "tables4", dev, torch.int32, st.P * st.S * st.S * 8)
+    if st.T3:
+        _check(st.d_cubes, "cubes", dev, torch.int32, st.T3 * st.S ** 3)
 
 
 def _check_step(st: _Static, tab, counters):
@@ -233,12 +302,7 @@ def _check_step(st: _Static, tab, counters):
     dev = _cuda_device(tab.t_sig, "t_sig")
     for name in ("t_sig", "t_best", "t_closed"):
         _check(getattr(tab, name), name, dev, torch.int32, st.C)
-    _check(counters, "counters", dev, torch.int64)
-    if counters.numel() != N_COUNTERS:
-        raise ValueError(f"counters: {counters.numel()} elements, need {N_COUNTERS}")
-    _check(st.d_tables4, "tables4", dev, torch.int32, st.P * st.S * st.S * 8)
-    if st.T3:
-        _check(st.d_cubes, "cubes", dev, torch.int32, st.T3 * st.S ** 3)
+    _check_common(st, dev, counters)
     if not st.sig_ok:
         raise ValueError("the sig step kernels need a sig-eligible table (sig_ok)")
     if st.n > K4_MAX_N:
@@ -261,11 +325,79 @@ def _probe_args(st, tab, bufs, counters, fill, blocks, cap, stream) -> tuple:
             counters.data_ptr(), bufs.state.data_ptr(), int(blocks), stream)
 
 
+def _check_keyrow(st: _Static, tab, counters):
+    """The device and layout of a packed or unpacked step, after checking
+    the table, the statics and the counters."""
+    if isinstance(tab, PackedTable):
+        layout, cols = "packed", st.KW
+        tensors = (("t_best", torch.int32), ("t_closed", torch.int32), ("claim", torch.int32))
+    elif isinstance(tab, UnpackedTable):
+        layout, cols = "unpacked", st.W
+        tensors = (("t_g", torch.int32), ("t_fpar", torch.int64), ("t_state", torch.int32),
+                   ("claim", torch.int32))
+    else:
+        raise ValueError("the key-row step kernels need a PackedTable or an UnpackedTable, "
+                         f"got {type(tab).__name__}")
+    if st.n > K9_MAX_N:
+        raise ValueError(f"K9 and K10 take at most {K9_MAX_N} sequences, got {st.n}")
+    if st.B * st.M >= 2**31 or st.C & (st.C - 1):
+        raise ValueError(f"key-row step: B x M = {st.B * st.M} must be below 2^31 (the claim "
+                         f"tags) and C = {st.C} a power of two")
+    dev = _cuda_device(tab.t_key, "t_key")
+    _check(tab.t_key, "t_key", dev, torch.int32, st.C * cols)
+    if tab.t_key.dim() != 2 or tab.t_key.shape[1] != cols:
+        raise ValueError(f"t_key: shape {tuple(tab.t_key.shape)}, need (>= {st.C}, {cols})")
+    for name, dtype in tensors:
+        _check(getattr(tab, name), name, dev, dtype, st.C)
+    _check_common(st, dev, counters)
+    return dev, layout
+
+
+def _keyrow_expand_args(st, tab, bufs, counters, ub, stream) -> tuple:
+    unpacked = isinstance(tab, UnpackedTable)
+    return ("keyrow_expand", tab.t_key.data_ptr(), tab.t_key.shape[1],
+            tab.t_g.data_ptr() if unpacked else None, tab.t_fpar.data_ptr() if unpacked else None,
+            int(unpacked), bufs.sel.data_ptr(), st.d_tables4.data_ptr(),
+            st.d_cubes.data_ptr() if st.T3 else None, bufs.params.data_ptr(), st.n, st.P,
+            st.T3, st.S, st.nb, st.f0, int(ub), GAP_EXTENSION, GAP_GAP, st.gap_oe, st.B,
+            bufs.run.data_ptr(), counters.data_ptr(), bufs.state.data_ptr(),
+            bufs.pend.data_ptr(), stream)
+
+
+def _keyrow_insert_args(st, tab, bufs, counters, fill, blocks, stream) -> tuple:
+    unpacked = isinstance(tab, UnpackedTable)
+    ptr = lambda name: getattr(tab, name).data_ptr() if hasattr(tab, name) else None
+    return ("keyrow_insert", tab.t_key.data_ptr(), tab.t_key.shape[1], st.n, st.C,
+            tab.claim.data_ptr(), ptr("t_best"), ptr("t_g"), ptr("t_fpar"), ptr("t_state"),
+            int(unpacked), bufs.pend.data_ptr(), bufs.lane_cur.data_ptr(),
+            bufs.lane_dest.data_ptr(), st.max_probes, int(fill), bufs.run.data_ptr(),
+            counters.data_ptr(), bufs.state.data_ptr(), int(blocks), stream)
+
+
+def _step_args(st, tab, bufs, ctr, ub, fill, blocks, cap, stream) -> list:
+    """The C arguments of one step's three kernels on ``tab``'s layout:
+    K3, K4, K5 (sig) or K3, K9, K10 (packed, unpacked); ``ctr`` the
+    counters buffer (K3's goal and threshold are views of it)."""
+    if isinstance(tab, SigTable):
+        return [_select_args(st, tab.t_best, tab.t_closed, ctr[0], ctr[7], bufs.run, bufs,
+                             stream),
+                _expand_args(st, tab, bufs, ctr, ub, stream),
+                _probe_args(st, tab, bufs, ctr, fill, blocks, cap, stream)]
+    if isinstance(tab, PackedTable):
+        select = _select_args(st, tab.t_best, tab.t_closed, ctr[0], ctr[7], bufs.run, bufs,
+                              stream)
+    else:
+        select = _select_open_args(st, tab.t_state, tab.t_fpar, ctr[0], ctr[7], bufs.run, bufs,
+                                   stream)
+    return [select, _keyrow_expand_args(st, tab, bufs, ctr, ub, stream),
+            _keyrow_insert_args(st, tab, bufs, ctr, fill, blocks, stream)]
+
+
 @dataclass
 class ChunkGraph:
     """A captured chunk: what it was captured for (``key``: the table's
-    pointers, chunk length, bound, fill, K5's grid and cap), the graph, and
-    the launches of each kernel that one replay runs."""
+    pointers, chunk length, bound, fill, the insert's grid and K5's cap),
+    the graph, and the launches of each kernel that one replay runs."""
     key: tuple
     graph: object
     tally: Dict[str, int] = field(default_factory=dict)
@@ -291,9 +423,23 @@ def run_chunk_sig_cuda(st: _Static, tab: SigTable, counters: torch.Tensor,
                       blocks, cap, graph)
 
 
+def run_chunk_keyrow_cuda(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
+                          ub: int, fill: int, blocks: int = 0,
+                          graph: bool = True) -> torch.Tensor:
+    """Up to ``chunk_steps`` steps of a CUDA packed or unpacked table
+    (``engine._run_chunk`` on the card), each K3 -> K9 -> K10 with no host
+    read, as ``run_chunk_sig_cuda``; ``blocks`` sizes K10's cooperative
+    grid (0: one block a multiprocessor).  Returns new counters; the table
+    is updated in place."""
+    dev, layout = _check_keyrow(st, tab, counters)
+    return _drive_chunk(st, tab, _step_buffers(st, dev, layout), counters, chunk_steps, ub,
+                        fill, blocks, 0, graph)
+
+
 def _drive_chunk(st, tab, bufs, counters, chunk_steps, ub, fill, blocks, cap, graph):
-    """``run_chunk_sig_cuda`` on checked arguments: the caller's counters
-    in and out of ``bufs.counters``, the chunk replayed or enqueued."""
+    """A chunk on checked arguments (``run_chunk_sig_cuda``,
+    ``run_chunk_keyrow_cuda``): the caller's counters in and out of
+    ``bufs.counters``, the chunk replayed or enqueued."""
     bufs.counters.copy_(counters)
     if graph:
         g = _chunk_graph(st, tab, bufs, chunk_steps, ub, fill, blocks, cap)
@@ -306,18 +452,15 @@ def _drive_chunk(st, tab, bufs, counters, chunk_steps, ub, fill, blocks, cap, gr
 
 def _chunk(st, tab, bufs, chunk_steps, ub, fill, blocks, cap, stream) -> None:
     """One chunk on ``bufs.counters``: its set-up, then ``chunk_steps`` x
-    (K3, K4, K5), every kernel's arguments bound once."""
+    (select, expand, insert), every kernel's arguments bound once."""
     ctr = bufs.counters
     ctr[1].fill_(0)  # a kernel: a graph captures no copy from the host
     bufs.run.copy_(((ctr[0] > 0) & (ctr[6] == 0)).view(1))
-    select = _kernels.bind(*_select_args(st, tab.t_best, tab.t_closed, ctr[0], ctr[7], bufs.run,
-                                         bufs, stream))
-    expand = _kernels.bind(*_expand_args(st, tab, bufs, ctr, ub, stream))
-    probe = _kernels.bind(*_probe_args(st, tab, bufs, ctr, fill, blocks, cap, stream))
+    kernels = [_kernels.bind(*args)
+               for args in _step_args(st, tab, bufs, ctr, ub, fill, blocks, cap, stream)]
     for _ in range(chunk_steps):
-        select()
-        expand()
-        probe()
+        for k in kernels:
+            k()
 
 
 def _capture(fn):
@@ -346,8 +489,8 @@ def _chunk_graph(st, tab, bufs, chunk_steps, ub, fill, blocks, cap) -> ChunkGrap
     Before a capture every kernel is launched once with the run flag at 0
     (it returns at once): each C entry's first call queries the card and
     loads its kernel, which a capture must not do."""
-    key = (tab.t_sig.data_ptr(), tab.t_best.data_ptr(), tab.t_closed.data_ptr(),
-           int(chunk_steps), int(ub), int(fill), int(blocks), int(cap))
+    key = tuple(getattr(tab, f.name).data_ptr() for f in fields(tab)) + (
+        int(chunk_steps), int(ub), int(fill), int(blocks), int(cap))
     if bufs.graph is not None and bufs.graph.key == key:
         return bufs.graph
     bufs.graph = None  # release the old graph first
@@ -355,10 +498,7 @@ def _chunk_graph(st, tab, bufs, chunk_steps, ub, fill, blocks, cap) -> ChunkGrap
     dev = bufs.counters.device
     bufs.run.zero_()
     stream = _stream(dev)
-    for args in (_select_args(st, tab.t_best, tab.t_closed, bufs.counters[0],
-                              bufs.counters[7], bufs.run, bufs, stream),
-                 _expand_args(st, tab, bufs, bufs.counters, ub, stream),
-                 _probe_args(st, tab, bufs, bufs.counters, fill, blocks, cap, stream)):
+    for args in _step_args(st, tab, bufs, bufs.counters, ub, fill, blocks, cap, stream):
         _kernels.launch(*args)
     tally: Dict[str, int] = {}
     with _kernels.capturing(tally):

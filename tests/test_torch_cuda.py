@@ -1,7 +1,8 @@
 """Tests that need the card (marker ``cuda``): the hand-written CUDA kernels
-(K1 pair wavefront, K2 triple cubes, the step kernels K3-K5) against their
-plain PyTorch versions, the chunk graph (K6) against the eager chunk, and
-the port's main path and its table layouts on the GPU.
+(K1 pair wavefront, K2 triple cubes, the sig step kernels K3-K5, the
+packed and unpacked step kernels K3, K9 and K10) against their plain
+PyTorch versions, the chunk graph (K6) against the eager chunk, and the
+port's main path and its table layouts on the GPU.
 They skip on a host without a CUDA device.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -571,3 +572,226 @@ def test_regrow_recaptures_and_reaches_the_optimum(cuda):
     assert res.g == 272848  # tests/test_synth6.py
     assert _kernels.launches["sig_expand"] == _kernels.launches["sig_probe"] == (
         _kernels.launches["select_best"])
+
+
+# ------------------------------- the packed and unpacked step: K3, K9, K10
+
+def open_tables(st, device, negative=False, seed=5):
+    """t_state and t_fpar (C + TRASH,) on ``device`` for the unpacked
+    select: a third of the slots used, open or closed, f in a narrow band
+    (ties: the first index wins), some f at INF; ``negative`` puts f below
+    0."""
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    C, nb = st.C, st.nb
+    rs = np.random.RandomState(seed)
+    size = C + E.TRASH
+    used = rs.rand(C) < 0.35
+    f = rs.randint(0, 40, size=C) + (-500 if negative else st.f0)
+    f[rs.rand(C) < 0.02] = E.INF
+    fpar = np.full(size, E.INF << nb, dtype=np.int64)
+    fpar[:C][used] = (f[used].astype(np.int64) << nb) + rs.randint(1, st.M + 1, size=used.sum())
+    state = np.zeros(size, dtype=np.int32)
+    state[:C][used] = np.where(rs.rand(used.sum()) < 0.7, 1, 2)
+    return torch.from_numpy(state).to(device), torch.from_numpy(fpar).to(device)
+
+
+@pytest.mark.parametrize("G,negative,goal_off", [(1, False, 30), (2, True, None),
+                                                 (1024, False, None), (256, True, None),
+                                                 (256, False, 30)])
+def test_k3_unpacked_equals_plain(cuda, G, negative, goal_off):
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    st = k3_statics(cuda, G)
+    t_state, fpar = open_tables(st, cuda, negative, seed=G)
+    goal = E.INF if goal_off is None else st.f0 + goal_off
+    a, b = t_state.clone(), t_state.clone()
+    before = _kernels.launches["select_best_unpacked"]
+    got = S.select_open_cuda(st, a, fpar, goal, 5)
+    want = E._select_open_plain(st, b, fpar, torch.tensor(goal, device=cuda),
+                                torch.tensor(5, device=cuda))
+    torch.cuda.synchronize()
+    assert _kernels.launches["select_best_unpacked"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y.cpu())
+    assert torch.equal(a[:st.C].cpu(), b[:st.C].cpu())
+    bufs = S.StepBuffers.select_only(st, fpar.device)  # the scratch K3 wrote
+    rows = torch.nonzero(want[2])[:, 0]
+    n = int(want[5])
+    assert n > 0 and (int(want[3]) < 0) == negative
+    assert torch.equal(bufs.sel[:n].long().cpu(),
+                       torch.stack([want[0][rows], want[1][rows]], 1).cpu())
+    assert int(bufs.ticket) == 0
+
+
+def keyrow_engine(seqs_or_name, device, layout, **kw):
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
+
+    if isinstance(seqs_or_name, tuple):
+        p = Problem(seqs_or_name)
+    elif seqs_or_name.endswith(".fasta"):
+        p = golden_problem(seqs_or_name)[1]
+    else:
+        p = problem_from_fasta(os.path.join(HERE, "data", f"{seqs_or_name}.fasta"))
+    return FrontierSearch(p, HPairHeuristic.build(p, device), device=device, layout=layout,
+                          **kw)
+
+
+def warm_keyrow(eng, warm):
+    """A table ``warm`` kernel steps into the engine's search, and its
+    counters."""
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    tab = eng._init_table()
+    ctr = torch.as_tensor(E.fresh_counters(), device=eng.st.device)
+    if warm:
+        ctr = E._run_chunk(eng.st, tab, ctr, warm, eng.ub, eng.fill_target, eng.layout)
+    return tab, ctr
+
+
+def clone_tab(tab):
+    return type(tab)(*(t.clone() for t in vars(tab).values()))
+
+
+def assert_same_tables(st, ka, kc, pa, pc):
+    for name, x in vars(ka).items():
+        assert torch.equal(x[:st.C].cpu(), getattr(pa, name)[:st.C].cpu()), name
+    assert kc.tolist() == pc.tolist()
+
+
+def family(seed, n, L, sub):
+    rng = np.random.default_rng(seed)
+    aa = "ARNDCQEGHILKMFPSTWYV"
+    anc = "".join(aa[i] for i in rng.integers(0, 20, L))
+    return tuple("".join(aa[rng.integers(0, 20)] if rng.random() < sub else ch for ch in anc)
+                 for _ in range(n))
+
+
+@pytest.mark.parametrize("name,layout,warm,kw", [
+    ("PF08184.fasta", "packed", 6, {}), ("PF08184.fasta", "unpacked", 6, {}),
+    ("test.fasta", "packed", 2, {}), ("test2.fasta", "unpacked", 8, {}),
+    ("kinase.fasta", "unpacked", 40, {}), ("synth6", "packed", 20, {}),
+    # N = 10: 1023 masks a row, 32 passes of a warp in K9
+    ("synth10", "packed", 5, dict(capacity=1 << 20))])
+def test_keyrow_step_kernels_equal_plain_step(cuda, name, layout, warm, kw):
+    # 1 and 8 steps from a mid-search table through the kernels (a chunk
+    # graph) and through the plain step: every table tensor (claim
+    # included) and the 14 counters identical; K10 on its own grid and on
+    # one block
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    eng = keyrow_engine(name, cuda, layout, **kw)
+    st, ub, fill = eng.st, eng.ub, eng.fill_target
+    tab, ctr = warm_keyrow(eng, warm)
+    for n, blocks in ((1, 0), (1, 1), (8, 0)):
+        ka, pa = clone_tab(tab), clone_tab(tab)
+        kc = S.run_chunk_keyrow_cuda(st, ka, ctr, n, ub, fill, blocks=blocks)
+        pc = E._run_chunk_plain(st, pa, ctr, n, ub, fill, layout, plain_select=True)
+        assert_same_tables(st, ka, kc, pa, pc)
+        # n steps, or fewer when the search ended inside them
+        assert int(kc[2]) == int(ctr[2]) + n or int(kc[1]) >= int(kc[0]) > 0
+
+
+def test_keyrow_n16_packed_and_degenerate_equal_plain(cuda, monkeypatch):
+    # N = 16 (tests/test_torch_layouts.py::test_n16_packed_eligibility's
+    # family, a beam-1 bound): 65535 masks a row; and the degenerate input
+    # on the unpacked layout, negative costs, from its first step to its end
+    from mpi_pastar_msa_tpu_torch.search import bounds
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    ub = bounds.greedy_upper_bound
+    monkeypatch.setattr(E, "greedy_upper_bound", lambda p, h, beam, ub=ub: ub(p, h, beam=1))
+    eng = keyrow_engine(family(163, 16, 5, 0.25), cuda, "packed", capacity=1 << 14, batch=16)
+    assert eng.st.n == 16 and eng.layout == "packed"
+    tab, ctr = warm_keyrow(eng, 0)
+    for n in (1, 4):
+        ka, pa = clone_tab(tab), clone_tab(tab)
+        kc = S.run_chunk_keyrow_cuda(eng.st, ka, ctr, n, eng.ub, eng.fill_target)
+        pc = E._run_chunk_plain(eng.st, pa, ctr, n, eng.ub, eng.fill_target, "packed",
+                                plain_select=True)
+        assert_same_tables(eng.st, ka, kc, pa, pc)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eng = keyrow_engine(("WYWY", "WYY", "YWW"), cuda, "auto", batch=16, capacity=1 << 12)
+    assert eng.layout == "unpacked"
+    st = eng.st
+    ka, kc = warm_keyrow(eng, 0)
+    pa, pc = clone_tab(ka), kc
+    for _ in range(20):
+        kc = S.run_chunk_keyrow_cuda(st, ka, kc, 4, eng.ub, eng.fill_target)
+        pc = E._run_chunk_plain(st, pa, pc, 4, eng.ub, eng.fill_target, "unpacked",
+                                plain_select=True)
+        assert_same_tables(st, ka, kc, pa, pc)
+        if int(kc[1]) >= int(kc[0]):
+            break
+    assert int(kc[1]) >= int(kc[0]) and int(kc[0]) < 0 and int(kc[4]) > 0
+
+
+@pytest.mark.parametrize("name,layout,warm", [("PF08184.fasta", "packed", 4),
+                                              ("kinase.fasta", "unpacked", 40),
+                                              ("synth7", "packed", 20)])
+def test_keyrow_graph_chunk_equals_eager_chunk(cuda, name, layout, warm):
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    eng = keyrow_engine(name, cuda, layout)
+    st, ub, fill = eng.st, eng.ub, eng.fill_target
+    tab, ctr = warm_keyrow(eng, warm)
+    select = "select_best" if layout == "packed" else "select_best_unpacked"
+    for chunks in (1, 3):
+        ga, ea = clone_tab(tab), clone_tab(tab)
+        gc = ec = ctr
+        n0 = S.capture_stats(st)[0]
+        before = dict(_kernels.launches)
+        for _ in range(chunks):
+            gc = S.run_chunk_keyrow_cuda(st, ga, gc, 16, ub, fill)
+            ec = S.run_chunk_keyrow_cuda(st, ea, ec, 16, ub, fill, graph=False)
+        assert_same_tables(st, ga, gc, ea, ec)
+        assert S.capture_stats(st)[0] == n0 + 1
+        for k in (select, "keyrow_expand", "keyrow_insert"):
+            assert _kernels.launches[k] - before[k] == 1 + 2 * 16 * chunks
+        assert int(gc[2]) > int(ctr[2])
+
+
+def test_keyrow_wrappers_reject_bad_input(cuda):
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    eng = keyrow_engine("PF08184.fasta", cuda, "packed", batch=64, capacity=1 << 12)
+    st, tab = eng.st, eng._init_table()
+    ctr = torch.as_tensor(E.fresh_counters(), device=cuda)
+    before = dict(_kernels.launches)
+    bad = [E.PackedTable(tab.t_key.cpu(), tab.t_best, tab.t_closed, tab.claim),
+           E.PackedTable(tab.t_key[:, :2].contiguous(), tab.t_best, tab.t_closed, tab.claim),
+           E.PackedTable(tab.t_key, tab.t_best.long(), tab.t_closed, tab.claim),
+           E.PackedTable(tab.t_key, tab.t_best, tab.t_closed, tab.claim[:100]),
+           E.SigTable(tab.t_best, tab.t_best, tab.t_closed)]
+    for t in bad:
+        with pytest.raises(ValueError):
+            S.run_chunk_keyrow_cuda(st, t, ctr, 1, eng.ub, eng.fill_target)
+    with pytest.raises(ValueError):
+        S.run_chunk_keyrow_cuda(st, tab, ctr.cpu(), 1, eng.ub, eng.fill_target)
+    with pytest.raises(ValueError):
+        S.select_open_cuda(st, tab.t_best, tab.t_best, 10, 0)  # t_fpar not int64
+    assert _kernels.launches == before
+
+
+@pytest.mark.parametrize("name,layout,expanded,reopened,steps", [
+    ("globin6", "auto", 170120, 52953, 154), ("synth7", "auto", 28604, 3045, 122)])
+def test_keyrow_end_to_end_counts(cuda, name, layout, expanded, reopened, steps):
+    # the packed main path through K3, K9 and K10 under the chunk graph:
+    # the plain step's counts (PR 9's), the certified optimum
+    _kernels.reset_counts()
+    eng = keyrow_engine(name, cuda, layout)
+    res = eng.run()
+    assert eng.layout == "packed"
+    assert res.g == {"globin6": 988171, "synth7": 402469}[name]
+    assert (res.nodes_expanded, res.nodes_reopened, res.steps) == (expanded, reopened, steps)
+    n = _kernels.launches["keyrow_insert"]
+    assert n == _kernels.launches["keyrow_expand"] == _kernels.launches["select_best"] > 0
+    assert eng.graph_captures == 1

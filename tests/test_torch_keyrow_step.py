@@ -1,0 +1,1001 @@
+"""The packed and unpacked search step of the port on the CPU: NumPy
+emulations of the step kernels K3 (csrc/select_best.cu, its unpacked
+instantiation), K9 (csrc/keyrow_expand.cu) and K10 (csrc/keyrow_insert.cu)
+against the plain step and the JAX engine (all values exact integers: zero
+tolerance).
+
+- K3's unpacked schedule (lanes, warps and blocks of the read pass, block
+  partials, the last block's cut, close and compact list) against
+  _select_open_plain / _select and JAX _select, at G = 1 to 1024, on an
+  empty table and with negative f;
+- K9's schedule (warps over K3's list in a random order, masks in passes of
+  32 lanes, pending places by one atomic a warp) against the plain
+  _expand -> prune -> _candidates_packed / _candidates_unpacked with its
+  content tags, and against JAX _expand, at N = 4, 6 and 10, with cubes and
+  without;
+- K10's rounds (threads and blocks in random orders, the lanes shuffled)
+  against _insert_core_packed / _insert_core exactly (claim included), and
+  the plain inserts against JAX _insert_packed / _insert on the key map,
+  with duplicate keys, colliding homes, the 128-round overflow and 0 lanes;
+- the step loop of K3 -> K9 -> K10 with its run flag against
+  _run_chunk_plain, chunk by chunk, on test, test2, a 5 x 130 family
+  (packed) and the degenerate input (unpacked);
+- the content tag leaves the plain step's tables as lane indices did;
+- the kernels' constants, the wrappers' refusals and the chunk graph's host
+  logic on key-row tables (stub C entries, a fake graph).
+"""
+import ctypes
+import functools
+import json
+import os
+import types
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpi_pastar_msa_tpu.core.problem import Problem as JProblem
+from mpi_pastar_msa_tpu.heuristic import triples as JT
+from mpi_pastar_msa_tpu.heuristic.hpair import HPairHeuristic as JHPair
+from mpi_pastar_msa_tpu.search import engine as JE
+from mpi_pastar_msa_tpu_torch import _kernels
+from mpi_pastar_msa_tpu_torch.core.cost import GAP_EXTENSION, GAP_GAP
+from mpi_pastar_msa_tpu_torch.core.problem import Problem
+from mpi_pastar_msa_tpu_torch.heuristic import triples as TT
+from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+from mpi_pastar_msa_tpu_torch.search import engine as TE
+from mpi_pastar_msa_tpu_torch.search import step as TS
+
+# one intra-op thread: the test lane runs several workers on a few cores
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(HERE, "..", "mpi_pastar_msa_tpu_torch", "csrc")
+GOLD = json.load(open(os.path.join(HERE, "goldens.json")))
+M32 = 0xFFFFFFFF
+INF, INFP = TE.INF, TE.INFP
+# csrc/select_best.cu: kThreads, kItems; csrc/keyrow_insert.cu: kThreads
+K3_THREADS, K3_ITEMS, K10_THREADS = 512, 16, 512
+K3_WARPS = K3_THREADS // 32
+BIAS = 0x80000000
+NONE_OPEN = INF ^ BIAS  # K3's key of a slot that is not open (unpacked)
+
+
+def golden_seqs(name):
+    return tuple(r.replace("-", "") for r in GOLD[name]["alignment"])
+
+
+def random_seqs(seed, n, lo, hi):
+    rs = np.random.RandomState(seed)
+    return tuple("".join(rs.choice(list("ACDEFGHIKLMNPQRSTVWY"), size=rs.randint(lo, hi + 1)))
+                 for _ in range(n))
+
+
+def near_identical(n=5, L=130, seed=5):
+    """n x L residues, 5% substitutions (tests/test_large_n.py's family)."""
+    rng = np.random.default_rng(seed)
+    aa = "ARNDCQEGHILKMFPSTWYV"
+    anc = "".join(aa[i] for i in rng.integers(0, 20, L))
+    return tuple("".join(aa[rng.integers(0, 20)] if rng.random() < 0.05 else ch for ch in anc)
+                 for _ in range(n))
+
+
+@functools.lru_cache(maxsize=None)
+def both_hpair(seqs):
+    jh = JHPair.build(JProblem(seqs), backend="host")
+    th = HPairHeuristic.from_numpy(Problem(seqs), jh.tables, jh.weight_f, jh.weight_i)
+    return jh, th
+
+
+@functools.lru_cache(maxsize=None)
+def both_cubes(seqs):
+    jh, th = both_hpair(seqs)
+    jh3 = JT.HTriples.build(jh)
+    th3 = TT.HTriples.from_numpy(th, jh3.triangles, jh3.tri_weights, np.asarray(jh3.tri_tabs),
+                                 jh3.cost_scale)
+    return jh3, th3
+
+
+def statics(seqs, batch, capacity, triples="off"):
+    jh, th = both_cubes(seqs) if triples == "auto" else both_hpair(seqs)
+    return (JE._Static(JProblem(seqs), jh, batch, capacity),
+            TE._Static(Problem(seqs), th, batch, capacity, "cpu"))
+
+
+def clone(tab):
+    return type(tab)(*(t.clone() for t in vars(tab).values()))
+
+
+def same_table(a, b, C):
+    return all(torch.equal(x[:C], y[:C]) for x, y in zip(vars(a).values(), vars(b).values()))
+
+
+def mix32(x):
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & M32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & M32
+    return x ^ (x >> 16)
+
+
+def hash_words(words):
+    h = 2166136261
+    for w in words:
+        h = ((h ^ (w & M32)) * 16777619) & M32
+    return mix32(h)
+
+
+def i32(x):
+    x &= M32
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+# ----------------------------------------------------- K3, both instantiations
+
+def emu_k3(st, tab, goal, thr, blocks=132, aligned=True, rng=None):
+    """csrc/select_best.cu's schedule on a packed table (words) or an
+    unpacked one (f biased to u32), in place: each lane's (min key, first
+    index) over its slots (a warp a group with 4 slots a lane per int4, or
+    L lanes a group), merged as (key << 32 | index), the groups strided
+    over ``blocks`` blocks of K3_WARPS warps, one (min, open count) partial
+    a block; then a random last block reduces the partials, forms the cut,
+    flags the groups in rounds of K3_ITEMS a thread, scans the (item, warp)
+    counts into list positions and closes the active slots.  Returns
+    (slots, vmin, active, fmin, n_open, n_sel, reopen, sel)."""
+    rng = rng or np.random.default_rng(0)
+    C, B, nb = st.C, st.B, st.nb
+    G = C // B
+    unpacked = isinstance(tab, TE.UnpackedTable)
+    if unpacked:
+        f = tab.t_fpar[:C].numpy() >> nb
+        is_open = (tab.t_state[:C].numpy() == 1) & (f < goal)
+        key = np.where(is_open, (f.astype(np.int64) & M32) ^ BIAS, NONE_OPEN)
+        none = NONE_OPEN
+    else:
+        w = tab.t_best[:C].numpy().astype(np.int64)
+        is_open = (w < tab.t_closed[:C].numpy()) & ((w >> nb) < goal - st.f0)
+        key = np.where(is_open, w, INFP)
+        none = INFP
+    key = key.reshape(B, G).astype(np.uint64)
+    vec = G % 128 == 0 and aligned
+    L = 32 if G >= 32 else 1 << (G.bit_length() - 1)
+    j = np.arange(G)
+    lane = (j // 4) % 32 if vec else j % L
+    full = (key << np.uint64(32)) | j.astype(np.uint64)
+    start = np.uint64(none) << np.uint64(32)  # a lane starts at (none, 0)
+    lane_key = np.stack([np.minimum(full[:, lane == k].min(axis=1), start)
+                         for k in range(32 if vec else L)], 1)
+    kmin = lane_key.min(axis=1)
+    vmin = (kmin >> np.uint64(32)).astype(np.int64)
+    slots = np.arange(B, dtype=np.int64) * G + (kmin & np.uint64(M32)).astype(np.int64)
+    opens = is_open.reshape(B, G).sum(axis=1)
+    gpw = 1 if vec else 32 // L
+    block_of = (np.arange(B) // gpw % (blocks * K3_WARPS)) // K3_WARPS
+    p_min = np.full(blocks, none, dtype=np.int64)
+    p_cnt = np.zeros(blocks, dtype=np.int64)
+    np.minimum.at(p_min, block_of, vmin)
+    np.add.at(p_cnt, block_of, opens)
+    order = rng.permutation(blocks)
+    m, n_open = int(p_min[order].min()), int(p_cnt[order].sum())
+    if unpacked:
+        fmin = i32(m ^ BIAS)
+        val = np.where(vmin == NONE_OPEN, INF, (vmin ^ BIAS) - ((vmin ^ BIAS) >= BIAS) * 2**32)
+        act_all = (vmin != NONE_OPEN) & (val <= fmin + thr)
+    else:
+        fmin_r = m >> nb
+        cut = (min(fmin_r + thr + 1, INFP >> nb) << nb) - 1
+        val = vmin
+        act_all = vmin <= cut
+        fmin = fmin_r + st.f0
+    active = np.zeros(B, dtype=bool)
+    sel = np.zeros((B, 2), dtype=np.int64)
+    base = reopen = 0
+    t = np.arange(K3_THREADS)
+    for r0 in range(0, B, K3_ITEMS * K3_THREADS):
+        b = r0 + np.arange(K3_ITEMS)[:, None] * K3_THREADS + t  # (item, thread)
+        inside = b < B
+        act = inside & act_all[np.minimum(b, B - 1)]
+        by_warp = act.reshape(K3_ITEMS, K3_WARPS, 32)
+        counts = by_warp.sum(axis=2).reshape(-1)
+        off = base + np.cumsum(counts) - counts
+        pos = off.reshape(K3_ITEMS, K3_WARPS, 1) + np.cumsum(by_warp, axis=2) - by_warp
+        for bb, at in zip(b[act], pos.reshape(K3_ITEMS, K3_THREADS)[act]):
+            active[bb] = True
+            s_ = int(slots[bb])
+            if unpacked:
+                tab.t_state[s_] = 2
+            else:
+                reopen += int(tab.t_closed[s_]) < INFP
+                tab.t_closed[s_] = int(val[bb])
+            sel[at] = (s_, val[bb])
+        base += int(counts.sum())
+    if unpacked:
+        vmin = np.where(active, val, INF)
+        slots = np.where(active, slots, np.arange(B) * G)
+    else:
+        vmin = np.where(active, vmin, INFP)
+    return slots, vmin, active, fmin, n_open, base, reopen, sel[:base]
+
+
+def open_table(st, rs, empty=0.0, negative=False):
+    """An unpacked table for a select: keys at a third of the slots, states
+    open and closed, f in a narrow band (ties: the first index wins), whole
+    groups empty with probability ``empty``; ``negative`` shifts f below 0;
+    f of some open slots at INF."""
+    C, nb = st.C, st.nb
+    size = C + TE.TRASH
+    used = (rs.rand(C) < 0.35) & np.repeat(rs.rand(st.B) >= empty, C // st.B)
+    f = rs.randint(0, 40, size=C) + (-500 if negative else st.f0)
+    f[rs.rand(C) < 0.02] = INF
+    fpar = np.full(size, INF << nb, dtype=np.int64)
+    fpar[:C][used] = (f[used].astype(np.int64) << nb) + rs.randint(1, st.M + 1, size=used.sum())
+    state = np.zeros(size, dtype=np.int32)
+    state[:C][used] = np.where(rs.rand(used.sum()) < 0.7, 1, 2)
+    t_key = np.full((size, st.W), -1, dtype=np.int32)
+    t_key[:C][used] = rs.randint(0, 1 << 20, size=(used.sum(), st.W))
+    t_g = np.full(size, INF, dtype=np.int32)
+    t_g[:C][used] = rs.randint(0, 1000, size=used.sum())
+    return TE.UnpackedTable(torch.from_numpy(t_key), torch.from_numpy(t_g),
+                            torch.from_numpy(fpar), torch.from_numpy(state),
+                            torch.full((size,), INFP, dtype=torch.int32))
+
+
+def check_k3_open(jst, st, tab, goal, thr, **schedule):
+    """K3's unpacked schedule against _select_open_plain (every output and
+    t_state), its list against the active rows in group order, and the
+    plain _select against JAX _select."""
+    C, nb = st.C, st.nb
+    a = clone(tab)
+    got = emu_k3(st, a, goal, thr, **schedule)
+    b = clone(tab)
+    want = TE._select_open_plain(st, b.t_state, b.t_fpar, torch.tensor(goal), torch.tensor(thr))
+    for x, y in zip(got[:7], want):
+        assert np.array_equal(np.asarray(x), y.numpy())
+    assert torch.equal(a.t_state[:C], b.t_state[:C])
+    rows = np.nonzero(got[2])[0]
+    assert np.array_equal(got[7], np.stack([got[0][rows], got[1][rows]], 1))
+    # the plain _select against JAX _select on the same table
+    c = clone(tab)
+    coords, g, par, fpar, act, fmin, n_open, n_sel, re = TE._select(
+        st, c, torch.tensor(goal), torch.tensor(thr))
+    fp = tab.t_fpar[:C].numpy()
+    jtab = (jnp.asarray(tab.t_key[:C].numpy().view(np.uint32)), jnp.asarray(tab.t_g[:C].numpy()),
+            jnp.asarray((fp >> nb).astype(np.int32)),
+            jnp.asarray((fp & ((1 << nb) - 1)).astype(np.int32)),
+            jnp.asarray(tab.t_state[:C].numpy()))
+    jt, jc, jg, jpar, jfpar, jact, jfmin, jnopen, jnsel = JE._select(
+        jst, jtab, jnp.int32(goal), jnp.int32(thr))
+    assert np.array_equal(np.asarray(jact), act.numpy())
+    for x, y in ((coords, jc), (g, jg), (par, jpar), (fpar, jfpar)):
+        assert np.array_equal(x.numpy()[rows], np.asarray(y).astype(np.int64)[rows])
+    assert (int(fmin), int(n_open), int(n_sel)) == (int(jfmin), int(jnopen), int(jnsel))
+    assert np.array_equal(c.t_state[:C].numpy(), np.asarray(jt[4])) and int(re) == 0
+    return got
+
+
+@pytest.mark.parametrize("G,aligned,blocks,empty,negative", [
+    (1, True, 132, 0.2, False), (2, True, 3, 0.2, False), (32, True, 132, 0.2, True),
+    (128, True, 3, 0.3, False), (1024, True, 1, 0.0, True),
+    # G a multiple of 128 on an unaligned table: the scalar path
+    (128, False, 132, 0.2, True)])
+def test_k3_open_schedule_equals_plain_and_jax(G, aligned, blocks, empty, negative):
+    C = 1 << 14
+    jst, st = statics(golden_seqs("PF08184.fasta"), C // G, C)
+    rs = np.random.RandomState(G + negative)
+    tab = open_table(st, rs, empty, negative)
+    goal = INF if negative else st.f0 + 30
+    got = check_k3_open(jst, st, tab, goal, 5, blocks=blocks, aligned=aligned,
+                        rng=np.random.default_rng(G))
+    assert 0 < got[5] <= st.B and (got[3] < 0) == negative
+    assert (got[1][got[2]] < 0).all() == negative
+
+
+def test_k3_open_schedule_on_an_empty_table():
+    jst, st = statics(golden_seqs("PF08184.fasta"), 64, 1 << 12)
+    tab = open_table(st, np.random.RandomState(1), empty=1.0)
+    got = check_k3_open(jst, st, tab, INF, 40)
+    assert got[3] == INF and got[4] == got[5] == 0 and not got[2].any()
+
+
+# ------------------------------------------------------------------------ K9
+
+class KernelStatics:
+    """The constants csrc/keyrow_expand.cu stages, as NumPy arrays."""
+
+    def __init__(self, st):
+        self.st = st
+        self.xs = np.array([x for x, _ in st.pairs])
+        self.ys = np.array([y for _, y in st.pairs])
+        self.w = st.d_w.numpy()
+        self.wh = st.d_w_h.numpy()
+        self.tri = st.d_tri_xyz.numpy() if st.T3 else np.zeros((0, 3), dtype=np.int64)
+        self.final = st.final_np
+        self.t4 = st.d_tables4.numpy()
+        self.cubes = st.d_cubes.numpy() if st.T3 else None
+
+
+def emu_k9(ks, tab, sel, goal, ub, rng):
+    """csrc/keyrow_expand.cu: warps over K3's list ``sel`` of (slot, word)
+    rows in a random order; a warp reads its row (coordinate from the key
+    words; packed g = f - h(column W), unpacked g, parent mask and parent
+    f from t_g and t_fpar), stages its T8 rows and cube corners and runs
+    the masks in passes of 32 lanes: cost and h per pair, pathmax
+    (unpacked), the goal before the prune, then each pass's surviving
+    lanes take consecutive places of the pending list at one atomic, in
+    lane order.  Returns (goal, pending entries in list order)."""
+    st = ks.st
+    S, N, nb, f0, W, M = st.S, st.n, st.nb, st.f0, st.W, st.M
+    E, GG, gap_oe = GAP_EXTENSION, GAP_GAP, st.gap_oe
+    unpacked = isinstance(tab, TE.UnpackedTable)
+    key = tab.t_key.numpy()
+    passes = []
+    for i in rng.permutation(len(sel)).tolist():
+        slot, v = int(sel[i][0]), int(sel[i][1])
+        row = key[slot]
+        coord = np.array([(int(row[d // 2]) & M32) >> (16 * (d % 2)) & 0xFFFF
+                          for d in range(N)])
+        cx = np.clip(coord[ks.xs], 0, S - 2)
+        cy = np.clip(coord[ks.ys], 0, S - 2)
+        t8 = ks.t4[np.arange(st.P) * S * S + cx * S + cy, :5].astype(np.int64)
+        cube = np.zeros((st.T3, 8), dtype=np.int64)
+        for t, (x, y, z) in enumerate(ks.tri):
+            c3 = np.clip(coord[[x, y, z]], 0, S - 2)
+            for q in range(8):
+                cube[t, q] = ks.cubes[t * S ** 3 + ((c3[0] + (q >> 2 & 1)) * S + c3[1]
+                                                    + (q >> 1 & 1)) * S + c3[2] + (q & 1)]
+        if unpacked:
+            fp = int(tab.t_fpar[slot])
+            g, par, f_par = int(tab.t_g[slot]), fp & ((1 << nb) - 1), fp >> nb
+        else:
+            g, par = (v >> nb) + f0 - int(row[W]), v & ((1 << nb) - 1)
+        for m0 in range(1, M + 1, 32):
+            lanes = {}
+            for lane in rng.permutation(32).tolist():
+                m = m0 + lane
+                if m > M:
+                    continue
+                bx, by = m >> ks.xs & 1, m >> ks.ys & 1
+                cost = int((ks.w * (GG + (E - GG) * (bx + by)
+                                    + (bx & by) * (t8[:, 4] + GG - 2 * E))).sum())
+                cost += gap_oe * int((ks.w * (bx * (1 - by) * (par >> ks.ys & 1)
+                                              + (1 - bx) * by * (par >> ks.xs & 1))).sum())
+                h = int((t8[np.arange(st.P), 2 * bx + by] * ks.wh).sum())
+                for t, (x, y, z) in enumerate(ks.tri):
+                    h += int(cube[t, 4 * (m >> x & 1) + 2 * (m >> y & 1) + (m >> z & 1)])
+                child = coord + (m >> np.arange(N) & 1)
+                gc, fc = g + cost, g + cost + h
+                if unpacked:
+                    fc = max(fc, f_par)
+                if (child == ks.final).all():
+                    goal = min(goal, gc)  # before the prune
+                if not ((child <= ks.final).all() and fc <= ub):
+                    continue
+                words = [int(child[2 * k]) | (int(child[2 * k + 1]) << 16 if 2 * k + 1 < N else 0)
+                         for k in range(W)]
+                entry = [i32(w) for w in words] + [i32(hash_words(words)), i * M + m - 1]
+                if unpacked:
+                    fpar = fc * (1 << nb) + m
+                    entry += [gc, i32(fpar), fpar >> 32]
+                else:
+                    entry += [h, ((fc - f0) << nb) | m]
+                lanes[lane] = tuple(entry)
+            passes.append([lanes[k] for k in sorted(lanes)])
+    # a warp's atomic takes the next places: passes land in the order of
+    # their atomics, here a random one
+    pend = []
+    for k in rng.permutation(len(passes)).tolist():
+        pend += passes[k]
+    return goal, pend
+
+
+def plain_pending(st, tab, coords, g, par, f_par, active, ub):
+    """The plain step's insert lanes: _expand -> prune -> candidates, as
+    K9's pending entries, and the goal."""
+    sel = torch.nonzero(active)[:, 0]
+    g_c, f_c, m_c, valid, is_goal, child = TE._expand(
+        st, coords[sel], g[sel], par[sel], torch.ones_like(sel, dtype=torch.bool),
+        f_parent=None if f_par is None else f_par[sel])
+    goal = int(torch.where(is_goal, g_c, INF).min())
+    keep = torch.nonzero(valid & (f_c <= ub))[:, 0]
+    keys = TE._pack_keys(child[keep], st.W)
+    cols = [TE._as_i32(keys), TE._as_i32(TE._hash_keys(keys))[:, None], keep[:, None]]
+    if f_par is None:
+        _, h, packed, _ = TE._candidates_packed(st, child[keep], g_c[keep], f_c[keep],
+                                                m_c[keep], keep)
+        cols += [h[:, None], packed[:, None]]
+    else:
+        fpar = f_c[keep] * (1 << st.nb) + m_c[keep]
+        cols += [g_c[keep][:, None], TE._as_i32(fpar & M32)[:, None], (fpar >> 32)[:, None]]
+    return goal, sorted(map(tuple, torch.cat([c.long() for c in cols], 1).tolist()))
+
+
+def mid_search(seqs, layout, triples, batch, capacity, steps):
+    """A port engine on the CPU ``steps`` steps into its search, the layout
+    pinned."""
+    th = (both_cubes(seqs) if triples == "auto" else both_hpair(seqs))[1]
+    eng = TE.FrontierSearch(Problem(seqs), th, device="cpu", batch=batch, capacity=capacity,
+                            triples=triples, layout=layout)
+    tab = eng._init_table()
+    ctr = TE._run_chunk(eng.st, tab, torch.as_tensor(TE.fresh_counters()), steps, eng.ub,
+                        eng.fill_target, layout)
+    return eng, tab, ctr
+
+
+@pytest.mark.parametrize("name,triples,steps", [
+    ("rand4", "auto", 5), ("rand4", "off", 5), ("rand6", "auto", 4), ("test2", "off", 6),
+    # N = 10: 1023 masks, 32 passes of a warp
+    ("rand10", "off", 2)])
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_k9_lanes_equal_plain_and_jax(name, triples, steps, layout):
+    seqs = (golden_seqs(f"{name}.fasta") if name == "test2"
+            else random_seqs(int(name[4:]), int(name[4:]), 8, 14))
+    eng, tab, ctr = mid_search(seqs, layout, triples, 16, 1 << 14, steps)
+    st, ub = eng.st, eng.ub
+    goal, thr = int(ctr[0]), int(ctr[7])
+    # the plain select and the plain expand on its rows
+    ptab = clone(tab)
+    coords, g, par, f_par, active, *_ = TE._LAYOUT_FNS[layout].select(
+        st, ptab, torch.tensor(goal), torch.tensor(thr))
+    assert int(active.sum()) > 0
+    want_goal, want = plain_pending(st, tab, coords, g, par, f_par, active, ub)
+    # the kernels' view: K3 then K9 on a copy
+    etab = clone(tab)
+    sel = emu_k3(st, etab, goal, thr)[7]
+    egoal, pend = emu_k9(KernelStatics(st), etab, sel, goal, ub, np.random.default_rng(2))
+    assert egoal == min(goal, want_goal)
+    assert sorted(pend) == want and len(pend) > 0
+    assert len({e[st.W + 1] for e in pend}) == len(pend)  # unique tags
+    # and JAX's _expand on the same rows: g, f, validity and key words
+    jst = statics(seqs, 16, 1 << 14, triples)[0]
+    rows = torch.nonzero(active)[:, 0]
+    jargs = [jnp.asarray(coords[rows].numpy().astype(np.int32)),
+             jnp.asarray(g[rows].numpy().astype(np.int32)),
+             jnp.asarray(par[rows].numpy().astype(np.int32)), jnp.ones(len(rows), dtype=bool)]
+    if layout == "packed":
+        jkeys, jg, jf, jm, jv, _, _, _ = JE._expand(jst, *jargs, None, jst.d_tables4, jst.d_enc)
+    else:
+        jkeys, jg, jf, jm, jv, _, _, _ = JE._expand(
+            jst, *jargs, jnp.asarray(f_par[rows].numpy().astype(np.int32)))
+    keep = np.nonzero(np.asarray(jv) & (np.asarray(jf) <= ub))[0]
+    jkw = np.asarray(jkeys).reshape(-1, st.W)[keep].view(np.int32)
+    by_tag = {e[st.W + 1]: e for e in pend}
+    assert sorted(by_tag) == keep.tolist()
+    for k, kw in zip(keep.tolist(), jkw):
+        e = by_tag[k]
+        assert list(e[: st.W]) == kw.tolist()
+        if layout == "packed":
+            assert e[st.W + 3] == ((int(np.asarray(jf)[k]) - st.f0) << st.nb) | int(
+                np.asarray(jm)[k])
+        else:
+            assert e[st.W + 2] == int(np.asarray(jg)[k])
+
+
+# ----------------------------------------------------------------------- K10
+
+def emu_k10(st, tab, pend, rng, blocks=132):
+    """csrc/keyrow_insert.cu on the pending list ``pend`` (K9's entries),
+    in place: ``blocks`` blocks whose threads stride over the lanes; round
+    0's reads, then per round the claim winners' writes (grid sync) and
+    the losers' re-reads merged with the next round's reads (grid sync,
+    the unsettled count), each phase visiting the threads of every block in
+    a random order; then (unpacked) the g min, the (f, parent) reset and
+    state, (grid sync) the (f, parent) min of the winners.  Returns
+    (rounds, unsettled after each round, reopens)."""
+    C, W = st.C, st.W
+    unpacked = isinstance(tab, TE.UnpackedTable)
+    key, claim = tab.t_key.numpy(), tab.claim.numpy()
+    n = len(pend)
+    stride = blocks * K10_THREADS
+    lane_slot, lane_flag = [0] * n, [0] * n
+
+    def phase(fn):
+        for t in rng.permutation(min(n, stride)).tolist():
+            for i in range(t, n, stride):
+                fn(i)
+
+    def holds(slot, e):
+        return key[slot, :W].tolist() == list(e[:W])
+
+    def settle(i, slot):
+        e = pend[i]
+        lane_slot[i] = slot
+        flag = 0
+        if unpacked:
+            if e[W + 2] < int(tab.t_g[slot]):
+                flag = 2 | (4 if int(tab.t_state[slot]) == 2 else 0)
+        else:
+            tab.t_best[slot] = min(int(tab.t_best[slot]), e[W + 3])
+        lane_flag[i] = flag
+
+    def probe(i, r):
+        e = pend[i]
+        slot = (e[W] & M32) + (r * (r + 1) >> 1) & (C - 1)
+        if key[slot, 0] != -1:
+            if holds(slot, e):
+                return settle(i, slot)
+            lane_flag[i] = 0
+        else:
+            claim[slot] = min(int(claim[slot]), e[W + 1])
+            lane_flag[i] = 1
+        lane_slot[i] = -1
+
+    rounds, counts = 0, []
+    if n:
+        phase(lambda i: probe(i, 0))
+        r = 0
+        while True:
+            def write(i, r=r):
+                e = pend[i]
+                if lane_flag[i] != 1:
+                    return
+                slot = (e[W] & M32) + (r * (r + 1) >> 1) & (C - 1)
+                if claim[slot] == e[W + 1]:
+                    key[slot, :W] = e[:W]
+                    if not unpacked:
+                        key[slot, W] = e[W + 2]
+                    settle(i, slot)
+            phase(write)
+            left = [0]
+
+            def reread(i, r=r):
+                if lane_slot[i] >= 0:
+                    return
+                e = pend[i]
+                if lane_flag[i] == 1:
+                    slot = (e[W] & M32) + (r * (r + 1) >> 1) & (C - 1)
+                    if holds(slot, e):
+                        return settle(i, slot)
+                left[0] += 1
+                if r + 1 < st.max_probes:
+                    probe(i, r + 1)
+            phase(reread)
+            counts.append(left[0])
+            rounds = r + 1
+            if left[0] == 0 or rounds >= st.max_probes:
+                break
+            r += 1
+    reopen = 0
+    if unpacked and n:
+        improved = [i for i in range(n) if lane_slot[i] >= 0 and lane_flag[i] & 2]
+        for i in rng.permutation(improved).tolist():
+            s_ = lane_slot[i]
+            tab.t_g[s_] = min(int(tab.t_g[s_]), pend[i][W + 2])
+            tab.t_fpar[s_] = 2**63 - 1
+            tab.t_state[s_] = 1
+            reopen += bool(lane_flag[i] & 4)
+        for i in rng.permutation(improved).tolist():
+            s_, e = lane_slot[i], pend[i]
+            if int(tab.t_g[s_]) == e[W + 2]:
+                fpar = (e[W + 4] << 32) | (e[W + 3] & M32)
+                tab.t_fpar[s_] = min(int(tab.t_fpar[s_]), fpar)
+    return rounds, counts, reopen
+
+
+def k10_acct(n, rounds, counts):
+    """Counter slots 9-13 of an insert as K10's finish forms them."""
+    return [n, n, max(rounds - 1, 0) * n, counts[0] if rounds >= 1 else 0,
+            counts[1] if rounds >= 2 else 0]
+
+
+def key_lanes(st, rs, stored, n_new, layout):
+    """Insert lanes as K9's pending entries: stored keys, new keys (among
+    them keys that share a home slot), duplicates of both; unique tags in
+    random order; packed h and word, or unpacked g and f * 2^n + mask (g
+    in a narrow band: improvements, ties)."""
+    final = st.final_np
+    pool = np.unique(np.stack([rs.randint(0, int(v) + 1, size=4 * n_new + 50) for v in final],
+                              1), axis=0)
+    home = TE._hash_keys(TE._pack_keys(torch.from_numpy(pool), st.W)).numpy() & (st.C - 1)
+    homes, cnt = np.unique(home, return_counts=True)
+    shared = np.concatenate([pool[home == h][:3] for h in homes[cnt >= 2][:10]]
+                            or [pool[:0]])
+    fresh = pool[rs.choice(len(pool), n_new, replace=False)]
+    distinct = np.concatenate([stored, shared, fresh]) if len(stored) else np.concatenate(
+        [shared, fresh])
+    coords = np.repeat(distinct, rs.randint(1, 4, size=len(distinct)), axis=0)
+    L = len(coords)
+    keys = TE._pack_keys(torch.from_numpy(coords), st.W)
+    tag = torch.from_numpy(rs.permutation(4 * L)[:L])
+    if layout == "packed":
+        a = torch.from_numpy(coords.sum(1) * 7)  # h, a function of the key
+        b = torch.from_numpy((rs.randint(0, 4000, size=L) << st.nb) | rs.randint(1, st.M + 1,
+                                                                                size=L))
+        args = (keys, a, b)
+    else:
+        g = torch.from_numpy(rs.randint(1000, 1100, size=L))
+        f = g + 1000 + torch.from_numpy(rs.randint(0, 3, size=L))
+        args = (keys, g, f, torch.from_numpy(rs.randint(1, st.M + 1, size=L)))
+    return args, tag
+
+
+def entries(st, args, tag, layout):
+    """The K9 pending entries of insert arguments."""
+    keys = args[0]
+    cols = [TE._as_i32(keys), TE._as_i32(TE._hash_keys(keys))[:, None], tag[:, None]]
+    if layout == "packed":
+        cols += [args[1][:, None], args[2][:, None]]
+    else:
+        fpar = args[2] * (1 << st.nb) + args[3]
+        cols += [args[1][:, None], TE._as_i32(fpar & M32)[:, None], (fpar >> 32)[:, None]]
+    return [tuple(r) for r in torch.cat([c.long() for c in cols], 1).tolist()]
+
+
+def keyrow_table(jst, st, rs, layout, n_keys):
+    """A key-row table about n_keys / C full (plain inserts of random keys
+    with tags from 0), and the coordinates it holds."""
+    C, size = st.C, st.C + TE.TRASH
+    if layout == "packed":
+        tab = TE.PackedTable(torch.full((size, st.KW), -1, dtype=torch.int32),
+                             torch.full((size,), INFP, dtype=torch.int32),
+                             torch.full((size,), INFP, dtype=torch.int32),
+                             torch.full((size,), INFP, dtype=torch.int32))
+    else:
+        tab = TE.UnpackedTable(torch.full((size, st.W), -1, dtype=torch.int32),
+                               torch.full((size,), INF, dtype=torch.int32),
+                               torch.full((size,), INF << st.nb, dtype=torch.int64),
+                               torch.zeros(size, dtype=torch.int32),
+                               torch.full((size,), INFP, dtype=torch.int32))
+    if not n_keys:
+        return tab, np.zeros((0, st.n), dtype=np.int64)
+    coords = np.unique(np.stack([rs.randint(0, int(v) + 1, size=n_keys) for v in jst.final_np],
+                                1), axis=0)
+    keys = TE._pack_keys(torch.from_numpy(coords), st.W)
+    L = len(coords)
+    if layout == "packed":
+        ovf, _, _ = TE._insert_core_packed(st, tab, keys, torch.from_numpy(coords.sum(1) * 7),
+                                           torch.from_numpy(rs.randint(0, 4000, size=L) << st.nb
+                                                            | 1))
+    else:
+        g = torch.from_numpy(rs.randint(1000, 1100, size=L))
+        ovf, _, _ = TE._insert_core(st, tab, keys, g, g + 500, torch.ones(L, dtype=torch.int64))
+        # a third of the stored keys closed: their improvements are reopens
+        tab.t_state[:C][(tab.t_state[:C] == 1) & (torch.rand(C) < 0.33)] = 2
+    assert int(ovf) == 0
+    return tab, coords
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+@pytest.mark.parametrize("case", ["mid", "empty-table", "no-lanes", "overflow"])
+def test_k10_rounds_equal_plain_insert(layout, case):
+    jst, st = statics(golden_seqs("kinase.fasta"), 64, 1 << 8 if case == "overflow" else 1 << 10)
+    rs = np.random.RandomState({"mid": 1, "empty-table": 2, "no-lanes": 3, "overflow": 4}[case])
+    torch.manual_seed(0)
+    tab, stored = keyrow_table(jst, st, rs, layout, 0 if case == "empty-table" else
+                               {"overflow": 120}.get(case, 410))
+    args, tag = key_lanes(st, rs, stored[rs.choice(len(stored), min(150, len(stored)),
+                                                   replace=False)] if len(stored) else stored,
+                          {"overflow": 400}.get(case, 100), layout)
+    if case == "no-lanes":
+        args, tag = tuple(a[:0] for a in args), tag[:0]
+    want = clone(tab)
+    insert = TE._insert_core_packed if layout == "packed" else TE._insert_core
+    ovf, reopen, acct = insert(st, want, *args, tag)
+    pend = entries(st, args, tag, layout)
+    for seed, blocks in ((0, 132), (1, 3)):
+        rng = np.random.default_rng(seed)
+        got = clone(tab)
+        order = rng.permutation(len(pend)).tolist()
+        rounds, counts, ereopen = emu_k10(st, got, [pend[k] for k in order], rng, blocks)
+        assert same_table(got, want, st.C)  # claim included
+        assert (counts[-1] if rounds else 0) == int(ovf)
+        assert k10_acct(len(pend), rounds, counts) == acct.tolist()
+        assert ereopen == int(reopen)
+    if case == "no-lanes":
+        assert acct.tolist() == [0] * 5 and same_table(want, tab, st.C)
+    elif case == "overflow":
+        assert int(ovf) > 0 and int(acct[2]) == 127 * len(pend)
+    else:
+        assert int(ovf) == 0 and int(acct[3]) > 0
+        assert int(reopen) > 0 if layout == "unpacked" and case == "mid" else int(reopen) == 0
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_plain_insert_with_content_tags_matches_jax(layout):
+    # the plain insert given tags in random order (as the content tags of a
+    # step are to a shuffled lane list) against JAX's insert on the key
+    # map: keys, h and t_best (packed), or keys, g and state (unpacked);
+    # XLA keeps an unspecified racing writer, so slots may differ
+    jst, st = statics(golden_seqs("kinase.fasta"), 64, 1 << 10)
+    C, W, nb = st.C, st.W, st.nb
+    rs = np.random.RandomState(7)
+    torch.manual_seed(1)
+    tab, stored = keyrow_table(jst, st, rs, layout, 410)
+    args, tag = key_lanes(st, rs, stored[rs.choice(len(stored), 150, replace=False)], 100,
+                          layout)
+    L = len(tag)
+    key = tab.t_key[:C].numpy().view(np.uint32)
+    jkeys = jnp.asarray(args[0].numpy().astype(np.uint32))
+    if layout == "packed":
+        jtab, jovf, _, _ = JE._insert_packed(
+            jst, (jnp.asarray(key), jnp.asarray(tab.t_best[:C].numpy()),
+                  jnp.asarray(tab.t_closed[:C].numpy())), jkeys,
+            jnp.asarray(args[1].numpy().astype(np.int32)),
+            jnp.asarray(args[2].numpy().astype(np.int32)), jnp.ones(L, dtype=bool))
+        want = {tuple(r[:W]): (r[W], b) for r, b in zip(
+            np.asarray(jtab[0]).view(np.int32).tolist(), np.asarray(jtab[1]).tolist())
+            if r[0] != -1}
+    else:
+        fp = tab.t_fpar[:C].numpy()
+        jtab, _, jovf, _ = JE._insert(
+            jst, (jnp.asarray(key), jnp.asarray(tab.t_g[:C].numpy()),
+                  jnp.asarray((fp >> nb).astype(np.int32)),
+                  jnp.asarray((fp & ((1 << nb) - 1)).astype(np.int32)),
+                  jnp.asarray(tab.t_state[:C].numpy())), jkeys,
+            jnp.asarray(args[1].numpy().astype(np.int32)),
+            jnp.asarray(args[2].numpy().astype(np.int32)),
+            jnp.asarray(args[3].numpy().astype(np.int32)), jnp.ones(L, dtype=bool))
+        want = {tuple(r): (g, s) for r, g, s in zip(
+            np.asarray(jtab[0]).view(np.int32).tolist(), np.asarray(jtab[1]).tolist(),
+            np.asarray(jtab[4]).tolist()) if r[0] != -1}
+    insert = TE._insert_core_packed if layout == "packed" else TE._insert_core
+    ovf, _, _ = insert(st, tab, *args, tag)
+    assert int(ovf) == int(jovf) == 0
+    k = tab.t_key[:C].numpy()
+    occ = np.nonzero(k[:, 0] != -1)[0]
+    if layout == "packed":
+        got = {tuple(k[s, :W].tolist()): (int(k[s, W]), int(tab.t_best[s])) for s in occ}
+    else:
+        got = {tuple(k[s].tolist()): (int(tab.t_g[s]), int(tab.t_state[s])) for s in occ}
+    assert got == want
+
+
+# ---------------------------------------------------------------- the step loop
+
+def emu_chunk(st, tab, counters, chunk_steps, ub, fill, rng):
+    """search/step.py::run_chunk_keyrow_cuda with K3, K9 and K10 emulated:
+    the run flag of a chunk starts from f-min 0, K10's last thread writes
+    the counters (step::finish_step) and the flag, every kernel skips
+    while it reads 0."""
+    c = counters.tolist()
+    c[1] = 0
+    run = c[0] > 0 and c[6] == 0
+    ks = KernelStatics(st)
+    for _ in range(chunk_steps):
+        if not run:
+            continue
+        _, _, _, fmin, n_open, n_sel, reopen, sel = emu_k3(st, tab, c[0], c[7], rng=rng)
+        c[0], pend = emu_k9(ks, tab, sel, c[0], ub, rng)
+        rounds, counts, ins_reopen = emu_k10(st, tab, pend, rng)
+        n = len(pend)
+        c[1] = fmin
+        c[2] += 1
+        c[3] += n_sel
+        c[4] += reopen + ins_reopen
+        c[5] = n_open
+        c[6] += counts[-1] if rounds else 0
+        thr = c[7]
+        nt = thr * 2 + 32 if n_sel < fill // 2 else (thr // 2 if n_sel >= fill - fill // 8
+                                                     else thr)
+        c[7] = min(nt, 1 << 20)
+        c[8] += n_sel
+        for k, v in zip(range(9, 14), k10_acct(n, rounds, counts)):
+            c[k] += v
+        run = c[1] < c[0] and c[6] == 0
+    return torch.tensor(c, dtype=torch.int64)
+
+
+# each search widened by an upper bound ``loose`` above the engine's (still
+# admissible) and kept in a table small enough for collisions: multi-round
+# probes, claim races, reopens
+@pytest.mark.parametrize("name,layout,batch,chunk,capacity,loose", [
+    ("test.fasta", "packed", 16, 3, 1 << 12, 100000),  # N = 8: 8 passes of a warp
+    ("test2.fasta", "packed", 32, 7, 1 << 11, 8000),
+    ("test2.fasta", "unpacked", 32, 16, 1 << 11, 12000),
+    ("near5x130", "packed", 64, 16, 1 << 12, 3000),
+    ("degenerate", "unpacked", 16, 16, 1 << 10, 0)])
+def test_chunks_equal_plain_loop(name, layout, batch, chunk, capacity, loose):
+    seqs = {"near5x130": near_identical(), "degenerate": ("WYWY", "WYY", "YWW")}.get(
+        name) or golden_seqs(name)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eng = TE.FrontierSearch(Problem(seqs), both_hpair(seqs)[1], device="cpu", batch=batch,
+                                capacity=capacity, triples="off",
+                                layout="auto" if name == "degenerate" else layout)
+    st, ub = eng.st, eng.ub + loose
+    assert eng.layout == layout
+    a = eng._init_table()
+    b = clone(a)
+    ca = cb = torch.as_tensor(TE.fresh_counters())
+    rng = np.random.default_rng(3)
+    for _ in range(60):
+        ca = TE._run_chunk_plain(st, a, ca, chunk, ub, eng.fill_target, layout)
+        cb = emu_chunk(st, b, cb, chunk, ub, eng.fill_target, rng)
+        assert ca.tolist() == cb.tolist()
+        assert same_table(a, b, st.C)
+        if ca[1] >= ca[0] or ca[6] > 0:
+            break
+    assert ca[1] >= ca[0] and int(ca[6]) == 0
+    assert int(ca[11]) > 0 and int(ca[12]) > 0  # lanes probed past round 1
+    if name in GOLD:
+        assert int(ca[0]) == GOLD[name]["optimal_g"]
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_content_tags_leave_the_plain_tables_as_lane_indices(layout, monkeypatch):
+    # the plain loop with the content tag and with lane-index tags (the
+    # tag argument dropped): the same tables and counters, and claim words
+    # at the same slots
+    seqs = golden_seqs("test2.fasta")
+    eng = TE.FrontierSearch(Problem(seqs), both_hpair(seqs)[1], device="cpu", batch=32,
+                            capacity=1 << 11, triples="off", layout=layout)
+    st, ub = eng.st, eng.ub + 12000
+
+    def run():
+        tab = eng._init_table()
+        ctr = TE._run_chunk_plain(st, tab, torch.as_tensor(TE.fresh_counters()), 400, ub,
+                                  eng.fill_target, layout)
+        return tab, ctr
+
+    a, ca = run()
+    fns = TE._LAYOUT_FNS[layout]
+    monkeypatch.setitem(TE._LAYOUT_FNS, layout, fns._replace(
+        candidates=lambda *args: fns.candidates(*args[:5])))
+    b, cb = run()
+    assert ca.tolist() == cb.tolist() and int(ca[11]) > 0 and int(ca[0]) == 45037
+    for name, x in vars(a).items():
+        y = getattr(b, name)
+        if name == "claim":
+            assert torch.equal(x[:st.C] == INFP, y[:st.C] == INFP)
+            assert not torch.equal(x[:st.C], y[:st.C])
+        else:
+            assert torch.equal(x[:st.C], y[:st.C]), name
+
+
+# ----------------------------------------- constants, refusals, the graph
+
+def test_keyrow_constants_match_source():
+    k3 = open(os.path.join(CSRC, "select_best.cu")).read()
+    for name, value in (("kThreads", K3_THREADS), ("kItems", K3_ITEMS)):
+        assert f"constexpr int {name} = {value};" in k3
+    assert "constexpr uint32_t kBias = 0x80000000u;" in k3
+    assert "constexpr long long kInf = 1 << 30;" in open(os.path.join(CSRC, "step_state.cuh")).read()
+    assert INF == 1 << 30
+    k9 = open(os.path.join(CSRC, "keyrow_expand.cu")).read()
+    assert "constexpr int kMaxW = 8;" in k9 and TS.K9_MAX_N == 16
+    assert "const int PW = W + (kUnpacked ? 5 : 4);" in k9
+    k10 = open(os.path.join(CSRC, "keyrow_insert.cu")).read()
+    assert f"constexpr int kThreads = {K10_THREADS};" in k10
+    assert "launch<true>(t, pend, W + 5," in k10 and "launch<false>(t, pend, W + 4," in k10
+    st = statics(golden_seqs("PF08184.fasta"), 64, 1 << 12)[1]
+    for layout, words in (("packed", st.W + 4), ("unpacked", st.W + 5)):
+        bufs = TS.StepBuffers.for_step(st, torch.device("cpu"), layout)
+        assert bufs.pend.shape == (st.B * st.M, words) and bufs.lane_word is None
+
+
+def test_keyrow_wrappers_refuse():
+    seqs = golden_seqs("PF08184.fasta")
+    jst, st = statics(seqs, 64, 1 << 12)
+    ctr = torch.as_tensor(TE.fresh_counters())
+    for layout in ("packed", "unpacked"):
+        tab = keyrow_table(jst, st, np.random.RandomState(0), layout, 0)[0]
+        with pytest.raises(ValueError):  # CPU tensors
+            TS.run_chunk_keyrow_cuda(st, tab, ctr, 1, 10**6, 32)
+    with pytest.raises(ValueError, match="PackedTable or an UnpackedTable"):
+        sig = TE.SigTable(*(torch.full((st.C + TE.TRASH,), -1, dtype=torch.int32)
+                            for _ in range(3)))
+        TS.run_chunk_keyrow_cuda(st, sig, ctr, 1, 10**6, 32)
+    with pytest.raises(ValueError):
+        TS.run_chunk_sig_cuda(st, tab, ctr, 1, 10**6, 32)
+    with pytest.raises(ValueError):
+        TS.select_open_cuda(st, tab.t_state, tab.t_fpar, 10, 0)
+    # statics the kernels do not take (checked before any tensor): N = 17,
+    # more sequences than K9's key words hold; B x M at 2^31 (the tags)
+    for n, B, match in ((17, 16, "at most 16 sequences"), (16, 1 << 16, "below 2")):
+        odd = types.SimpleNamespace(n=n, B=B, M=(1 << n) - 1, C=1 << 20, W=(n + 1) // 2,
+                                    KW=(n + 3) // 2)
+        with pytest.raises(ValueError, match=match):
+            TS.run_chunk_keyrow_cuda(odd, tab, ctr, 1, 10**6, 32)
+    # the dispatch: a CPU table runs the plain select
+    tab = open_table(st, np.random.RandomState(4))
+    a, b = clone(tab), clone(tab)
+    got = TE._select_open(st, a.t_state, a.t_fpar, torch.tensor(INF), torch.tensor(40))
+    want = TE._select_open_plain(st, b.t_state, b.t_fpar, torch.tensor(INF), torch.tensor(40))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+KEYROW_KERNELS = ("select_best", "select_best_unpacked", "keyrow_expand", "keyrow_insert")
+
+
+class StubKernels:
+    """The step kernels' C entries as Python functions on CPU memory (the
+    pointers of CPU tensors are host addresses).  Each records its
+    arguments; while ``run_kernels`` is False (a capture) that is all, else
+    K10 stands in for a search whose f-min is 10 a step: steps += 1, f-min
+    = 10 x steps, run = f-min < goal."""
+
+    def __init__(self):
+        self.calls = {name: [] for name in KEYROW_KERNELS}
+        self.run_kernels = True
+
+    def lib(self, name):
+        def entry(*cargs):
+            vals = tuple(a.value for a in cargs)
+            self.calls[name].append(vals)
+            if self.run_kernels and name == "keyrow_insert":
+                run = ctypes.c_int32.from_address(vals[15])
+                if run.value:
+                    ctr = (ctypes.c_longlong * TE.N_COUNTERS).from_address(vals[16])
+                    ctr[2] += 1
+                    ctr[1] = 10 * ctr[2]
+                    run.value = int(ctr[1] < ctr[0])
+            return 0
+        return type("Lib", (), {name: staticmethod(entry)})
+
+
+class FakeGraph:
+    """torch.cuda.CUDAGraph on the CPU (as in tests/test_torch_step.py): the
+    capture runs the chunk's host code once with the stubs recording only;
+    a replay runs it again, its launches counted nowhere, and checks that
+    each kernel got the arguments of the capture."""
+
+    def __init__(self, fn, stubs):
+        self.fn, self.stubs = fn, stubs
+        n0 = {k: len(v) for k, v in stubs.calls.items()}
+        stubs.run_kernels = False
+        try:
+            fn()
+        finally:
+            stubs.run_kernels = True
+        self.recorded = {k: v[n0[k]:] for k, v in stubs.calls.items()}
+
+    def replay(self):
+        n0 = {k: len(v) for k, v in self.stubs.calls.items()}
+        with _kernels.capturing({}):
+            self.fn()
+        for k, v in self.stubs.calls.items():
+            assert v[n0[k]:] == self.recorded[k], k
+
+
+@pytest.fixture
+def stubbed(monkeypatch):
+    stubs, graphs = StubKernels(), []
+
+    def capture(fn):
+        graphs.append(FakeGraph(fn, stubs))
+        return graphs[-1]
+
+    monkeypatch.setattr(_kernels, "load", stubs.lib)
+    monkeypatch.setattr(TS, "_stream", lambda dev: 0)
+    monkeypatch.setattr(TS, "_capture", capture)
+    saved = dict(_kernels.launches)
+    _kernels.reset_counts()
+    yield stubs, graphs
+    _kernels.launches.update(saved)
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_keyrow_chunk_graph_binds_static_buffers(stubbed, layout):
+    stubs, graphs = stubbed
+    jst, st = statics(golden_seqs("PF08184.fasta"), 64, 1 << 12)
+    tab = keyrow_table(jst, st, np.random.RandomState(0), layout, 0)[0]
+    bufs = TS.StepBuffers.for_step(st, torch.device("cpu"), layout)
+    ctr = torch.as_tensor(TE.fresh_counters())
+    ctr[0] = 95  # the stub search stops at step 10 (f-min 100)
+    outs = []
+    for _ in range(4):
+        ctr = TS._drive_chunk(st, tab, bufs, ctr, 4, 10**6, 32, 0, 0, True)
+        outs.append(ctr.tolist())
+    assert len(graphs) == 1 and bufs.captures == 1
+    assert [o[2] for o in outs] == [4, 8, 10, 11] and outs[-1][0] == 95
+    select = "select_best" if layout == "packed" else "select_best_unpacked"
+    names = (select, "keyrow_expand", "keyrow_insert")
+    ptr = bufs.counters.data_ptr()
+    k10 = stubs.calls["keyrow_insert"]
+    assert {c[16] for c in k10} == {ptr} and {c[21] for c in stubs.calls["keyrow_expand"]} == {ptr}
+    goal_at = 6 if layout == "packed" else 5  # K3's goal and threshold: views of the counters
+    assert {(c[goal_at], c[goal_at + 1]) for c in stubs.calls[select]} == {(ptr, ptr + 56)}
+    assert all(c[0] == tab.t_key.data_ptr() and c[4] == tab.claim.data_ptr() for c in k10)
+    assert {c[9] for c in k10} == {int(layout == "unpacked")}
+    assert bufs.graph.tally == {name: 4 for name in names}
+    for name in KEYROW_KERNELS:
+        assert _kernels.launches[name] == (1 + 4 * 4 if name in names else 0)
+    # a new table of the layout: a new capture; the eager chunk captures
+    # nothing and counts each launch
+    other = clone(tab)
+    TS._drive_chunk(st, other, bufs, ctr, 4, 10**6, 32, 0, 0, True)
+    assert bufs.captures == 2 and len(graphs) == 2
+    n = _kernels.launches["keyrow_insert"]
+    TS._drive_chunk(st, other, bufs, ctr, 3, 10**6, 32, 0, 0, False)
+    assert bufs.captures == 2 and _kernels.launches["keyrow_insert"] == n + 3
