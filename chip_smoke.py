@@ -33,9 +33,17 @@ Phases, each failing loudly (non-zero exit):
    instantiations), K9 (keyrow_expand.cu) and K10 (keyrow_insert.cu) run 1
    and 32 steps from globin6's table (packed, step 60) and from kinase's
    pinned to unpacked (step 150) as a chunk graph and as the eager chunk
-   (1 step also with K10 on one block), against the plain step on copies:
-   every table tensor (claim included) and the 14 counters identical; their
-   kernel, plain and bound times, and K3's torch.min yardstick.  Kernel,
+   (1 step also with K10 on one block), each with K10's block path for the
+   lanes left after round 0 (cap K10_CAP) and with every round on the grid
+   (cap 0), against the plain step on copies: every table tensor (claim
+   included) and the 14 counters identical; their kernel, plain and bound
+   times, K10 on both paths with its grid syncs a step, and K3's torch.min
+   yardstick (``--k10-baseline SRC`` builds another tree's K10, the
+   grid-only one of PR 10, checks it against this one on the same tables
+   and times them in turns).  The cost of one grid sync (an empty
+   cooperative kernel of 132 x 512 threads with 1, 4 and 16), and K10's
+   tail (lanes left after round 0) and improving lanes a step over the
+   globin6, kinase-unpacked and synth10 searches.  Kernel,
    plain and bound times of K3, K4, K5 and the whole step,
    each kernel's device time (CUPTI, torch.profiler) beside its
    event-timed wrapper call, K3's and K5's phase splits, the chunk's time
@@ -68,7 +76,15 @@ Phases, each failing loudly (non-zero exit):
    K10 on unpacked), one chunk graph a run, and no plain step function.
    synth10's step (N = 10, 1023 masks) from step 20 of its main-path
    engine against the plain step, as in phase 3.
-   Bounds of the work not yet ported (K7, K8 and the multi-device step of
+   The walk (phases 4-6): every run on the card walks its path with K7
+   (csrc/path_walk.cu), once, and never with the plain _walk (a counting
+   wrapper); on each run's finished table K7's masks and final coordinate
+   must equal _walk's on the card; the walk's wall is printed for every
+   run, and K7's wrapper, device and plain times, its bound by bytes and
+   its latency floor (path nodes x one dependent load from L2, and beside
+   it from device memory, each timed by a pointer chase through 256 MiB) at
+   kinase, globin6 and kinase pinned to unpacked.
+   Bounds of the work not yet ported (K8 and the multi-device step of
    parallel/sharded.py) from this run's shapes.
 7. the kernels JSON line, then the result line.
 
@@ -115,9 +131,14 @@ STEP_KERNELS = ["select_best", "sig_expand", "sig_probe"]
 LAYOUT_KERNELS = {"sig": STEP_KERNELS,
                   "packed": ["select_best", "keyrow_expand", "keyrow_insert"],
                   "unpacked": ["select_best_unpacked", "keyrow_expand", "keyrow_insert"]}
-# the plain step functions that no run on the card may call (the plain
-# loop and the expand and insert it alone calls)
-PLAIN_STEP = ("_run_chunk_plain", "_expand_insert", "_expand", "_probe_claim")
+# the plain functions that no run on the card may call (the plain loop,
+# the expand and insert it alone calls, and the plain walk)
+PLAIN_STEP = ("_run_chunk_plain", "_expand_insert", "_expand", "_probe_claim", "_walk")
+# the C entry of K10 before its block path (PR 10's keyrow_insert.cu):
+# this one's arguments without the tail list and the cap
+K10_GRID_ONLY_SIGNATURE = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [
+    ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def fail(msg: str) -> None:
@@ -848,7 +869,8 @@ def capture_check(paths) -> dict:
     return out
 
 
-def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
+def step_kernels(paths, baseline=None, floor=None, phases=None, k10_baseline=None,
+                 k10_sweep: bool = False) -> dict:
     """The step kernels K3 -> K4 -> K5 against the plain step on the card:
     kinase under --triples auto (from step 150) and off (from step 400),
     1 and 32 steps from one table, through run_chunk_sig_cuda (a chunk
@@ -869,7 +891,11 @@ def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
     ``floor`` the empty-kernel launch floor, printed beside the kernels;
     ``phases`` the C entries of the measurement builds (load_phases) of K3
     (its read pass and its last block's finish) and of K5 (its read and
-    write phases and its finish)."""
+    write phases and its finish); ``k10_baseline`` another tree's K10
+    (load_k10_baseline), timed in turns with this one in keyrow_step.
+    Then the grid sync's cost and K10's tail a step over the globin6 and
+    kinase-unpacked searches (k10_tail_sweep; ``k10_sweep`` also times
+    K10 on both its paths at every step)."""
     from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch.search import engine as E
     from mpi_pastar_msa_tpu_torch.search import step as S
@@ -1107,10 +1133,16 @@ def step_kernels(paths, baseline=None, floor=None, phases=None) -> dict:
     del a, b
     # the packed and unpacked step (K3, K9, K10): globin6 (packed) from the
     # same table, kinase pinned to unpacked from step 150
-    out["globin6_keyrow"] = keyrow_step("globin6", eng, tab, ctr)
-    del eng, tab, ctr
+    out["grid_sync"] = grid_sync_cost()
+    out["globin6_keyrow"] = keyrow_step("globin6", eng, tab, ctr, baseline=k10_baseline)
+    del tab, ctr
+    out["globin6_tail"] = k10_tail_sweep("globin6", eng, k10_sweep)
+    del eng
     eng, tab, ctr = warm_engine(paths["kinase.fasta"], "auto", 150, layout="unpacked")
-    out["kinase_unpacked_keyrow"] = keyrow_step("kinase unpacked", eng, tab, ctr)
+    out["kinase_unpacked_keyrow"] = keyrow_step("kinase unpacked", eng, tab, ctr,
+                                                baseline=k10_baseline)
+    del tab, ctr
+    out["kinase_unpacked_tail"] = k10_tail_sweep("kinase unpacked", eng, k10_sweep)
     return out
 
 
@@ -1139,16 +1171,18 @@ def plain_step_guard():
 
 
 def check_path_kernels(label: str, eng, res, counts: dict, plain: dict) -> None:
-    """The step kernels of the engine's layout ran on this path and no
-    plain step function did; without a regrow, one chunk graph a run,
-    replayed once a chunk: each step kernel once as the capture's warm-up
-    and chunk_steps times a replay."""
+    """The step kernels of the engine's layout ran on this path, K7 walked
+    it once, and no plain step function nor the plain walk ran; without a
+    regrow, one chunk graph a run, replayed once a chunk: each step kernel
+    once as the capture's warm-up and chunk_steps times a replay."""
     kernels = LAYOUT_KERNELS[eng.layout]
     for k in kernels:
         if counts[k] <= 0:
             fail(f"{label}: kernel {k} was not launched on the main path")
+    if counts["path_walk"] != 1:
+        fail(f"{label}: K7 (path_walk) launched {counts['path_walk']} times, want 1")
     if any(plain.values()):
-        fail(f"{label}: plain step functions ran on the card: {plain}")
+        fail(f"{label}: plain step functions or the plain walk ran on the card: {plain}")
     if not eng.regrown:
         replays = -(-res.steps // eng.chunk_steps)
         want = eng.graph_captures + eng.chunk_steps * replays
@@ -1157,18 +1191,267 @@ def check_path_kernels(label: str, eng, res, counts: dict, plain: dict) -> None:
                  f"{counts} for {res.steps} steps in {replays} chunks (want {want} each)")
 
 
-def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True) -> dict:
+def start_k10_baseline(src: str, tmp: str):
+    """Start nvcc on another tree's K10 (``src``: a checkout's root or its
+    csrc/ directory; its keyrow_insert.cu with the headers beside it, the C
+    entry of K10_GRID_ONLY_SIGNATURE) in its own directory; returns (src,
+    proc, lib)."""
+    import glob
+    import shutil
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    csrc = src if os.path.isfile(os.path.join(src, "keyrow_insert.cu")) else os.path.join(
+        src, "mpi_pastar_msa_tpu_torch", "csrc")
+    out = os.path.join(tmp, "k10_baseline")
+    os.makedirs(out, exist_ok=True)
+    for f in [os.path.join(csrc, "keyrow_insert.cu")] + glob.glob(os.path.join(csrc, "*.cuh")):
+        shutil.copy(f, out)
+    lib = os.path.join(out, "libkeyrow_insert.so")
+    proc = subprocess.Popen(
+        [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-o", lib, os.path.join(out, "keyrow_insert.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return src, proc, lib
+
+
+def load_k10_baseline(job):
+    """The other tree's K10 C entry (start_k10_baseline)."""
+    src, proc, lib = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"K10 baseline: nvcc failed for keyrow_insert.cu of {src}:\n{log}")
+    fn = ctypes.CDLL(lib).keyrow_insert
+    fn.argtypes = K10_GRID_ONLY_SIGNATURE
+    fn.restype = ctypes.c_int
+    return src, fn
+
+
+def grid_sync_cost() -> dict:
+    """One grid sync of K10's cooperative grid (132 blocks of 512 threads):
+    an otherwise empty cooperative kernel (grid_sync_chain,
+    csrc/keyrow_insert.cu) with k = 0, 1, 4 and 16 syncs, its device time
+    (CUPTI, 20 calls) and its wrapper call (CUDA events, median of 20); a
+    sync's cost is the device time's slope from 1 to 16."""
+    from mpi_pastar_msa_tpu_torch._kernels import load
+
+    fn = load("keyrow_insert").grid_sync_chain
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for k in (0, 1, 4, 16):
+        def go(k=k):
+            if fn(k, 0, torch.cuda.current_stream().cuda_stream):
+                fail("grid_sync_chain failed to launch")
+        out[k] = dict(ms=time_ms(go, reps=20), device_ms=device_ms(go, 20))
+    per_sync_us = (out[16]["device_ms"] - out[1]["device_ms"]) / 15 * 1e3
+    print(f"grid sync (cooperative grid of 132 x 512 threads, empty kernel): device "
+          + ", ".join(f"{k} syncs {v['device_ms'] * 1e3:.2f} us" for k, v in out.items())
+          + f" (wrapper call " + ", ".join(f"{v['ms'] * 1e3:.1f}" for v in out.values())
+          + f" us); one grid sync {per_sync_us:.3f} us")
+    return dict(by_syncs={str(k): v for k, v in out.items()}, per_sync_us=per_sync_us)
+
+
+def dependent_load_ns(mib: int = 256, hops: int = 20000) -> dict:
+    """One dependent load: a pointer chase (one thread, ``hops`` links of a
+    random cyclic permutation of int32 over ``mib`` MiB, five times the
+    L2; pointer_chase of csrc/path_walk.cu), CUDA events, median of 5,
+    nanoseconds a hop: from L2 (the same chain again: its hops' sectors,
+    about 0.6 MB, stay in L2) and from device memory (each run after
+    writing 256 MiB elsewhere, which evicts them)."""
+    from mpi_pastar_msa_tpu_torch._kernels import load
+
+    fn = load("path_walk").pointer_chase
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = mib << 18
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    perm = torch.randperm(n, device="cuda", generator=gen)
+    nxt = torch.empty(n, dtype=torch.int32, device="cuda")
+    nxt[perm] = perm.roll(-1).int()
+    del perm
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    evict = torch.empty(n, dtype=torch.int32, device="cuda")
+
+    def go():
+        if fn(nxt.data_ptr(), hops, out.data_ptr(), torch.cuda.current_stream().cuda_stream):
+            fail("pointer_chase failed to launch")
+
+    l2_ns = time_ms(go, reps=5, warmup=1) * 1e6 / hops
+    dram_ns = time_restored(go, evict.zero_, 5) * 1e6 / hops
+    del nxt, evict
+    print(f"dependent load (pointer chase, {hops} hops over {mib} MiB): {l2_ns:.1f} ns a hop "
+          f"from L2, {dram_ns:.1f} ns from device memory")
+    return dict(mib=mib, hops=hops, l2_ns=l2_ns, dram_ns=dram_ns)
+
+
+@contextlib.contextmanager
+def walk_capture():
+    """Keep the statics, table and layout that a run's walk
+    (engine.walk) is given, for the K7 check after the run."""
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    seen = {}
+    real = E.walk
+
+    def spy(st, tab, layout):
+        seen.update(st=st, tab=tab, layout=layout)
+        return real(st, tab, layout)
+
+    E.walk = spy
+    try:
+        yield seen
+    finally:
+        E.walk = real
+
+
+def walk_bytes(st, layout: str, nodes: int) -> int:
+    """K7's bytes: each path node's probe positions read once, with their
+    parent words: sig 64 rows x 8 ways of t_sig and t_best; the key-row
+    layouts 128 rows of (W + 1 or W) words and their t_best or t_fpar."""
+    if layout == "sig":
+        return nodes * 64 * 8 * (4 + 4)
+    row = st.KW * 4 + 4 if layout == "packed" else st.W * 4 + 8
+    return nodes * 128 * row
+
+
+def check_k7(label: str, seen: dict, timing: bool = False) -> dict:
+    """K7 (walk_cuda) on the finished table of a run (walk_capture) against
+    the plain _walk on the same card tensors: masks and final coordinate
+    identical; the bound by bytes; with ``timing`` its wrapper call (CUDA
+    events, median of 10, its one host read included), device time
+    (CUPTI) and the plain walk's time.  Releases the table."""
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    if "tab" not in seen:
+        fail(f"{label}: the run gave its walk no table")
+    st, tab, layout = seen.pop("st"), seen.pop("tab"), seen.pop("layout")
+    got, coord = S.walk_cuda(st, tab, layout)
+    want, want_coord = E._walk(st, tab, layout)
+    if not (len(got) == len(want) and (got == want).all() and (coord == want_coord).all()):
+        fail(f"{label}: K7's walk ({len(got)} masks, final {coord.tolist()}) differs from "
+             f"_walk's ({len(want)} masks, final {want_coord.tolist()})")
+    nodes = len(got)
+    b = walk_bytes(st, layout, nodes)
+    out = dict(layout=layout, path_nodes=nodes, max_abs_err=0, bytes=b,
+               bound_ms=b / HBM_BYTES_PER_S * 1e3)
+    msg = ""
+    if timing:
+        go = lambda: S.walk_cuda(st, tab, layout)
+        out.update(ms=time_ms(go, reps=10), device_ms=device_ms(go, 10),
+                   plain_ms=time_ms(lambda: E._walk(st, tab, layout), reps=3, warmup=1))
+        msg = (f"; wrapper call {out['ms']:.4f} ms (CUDA events, its one read included), "
+               f"device {out['device_ms']:.4f} ms (CUPTI), plain _walk {out['plain_ms']:.2f} ms")
+    print(f"  K7 {label} ({layout}): {nodes} path nodes, masks and final coordinate identical "
+          f"to _walk's on the card; bound {out['bound_ms']:.5f} ms by bytes "
+          f"({b / 1e6:.2f} MB){msg}")
+    del tab
+    return out
+
+
+def k10_tail_sweep(label: str, eng, timed: bool = False) -> dict:
+    """K10's tail (the lanes round 0 leaves, state[kCnt]) and, unpacked,
+    its improving lanes, a step, over ``eng``'s whole search from a new
+    table: eager steps of the kernels (cap K10_CAP), the state read after
+    each; medians and maxima, and the steps whose tail takes the block
+    path.  With ``timed`` the search runs again with cap 0 (every round on
+    the grid), both under torch.profiler: each step's K10 device time
+    (CUPTI) on each path, by bin of the tail (the runs make the same
+    steps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    st, layout = eng.st, eng.layout
+    bufs = S._step_buffers(st, torch.device("cuda"), layout)
+    runs = {}
+    for cap in (S.K10_CAP, 0) if timed else (S.K10_CAP,):
+        tab = eng._init_table()
+        ctr = torch.as_tensor(E.fresh_counters(), device="cuda")
+        rows = []
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if timed
+              else contextlib.nullcontext()) as prof:
+            if timed:
+                profiler_preamble()
+            while True:
+                ctr = S.run_chunk_keyrow_cuda(st, tab, ctr, 1, eng.ub, eng.fill_target,
+                                              cap=cap, graph=False)
+                s_ = bufs.state.tolist()
+                n, rounds = s_[S.STATE_NVALID], s_[S.STATE_CALLS]
+                tail = s_[S.STATE_CNT] if rounds else 0
+                improve = (int(((bufs.lane_dest[:n] & 2) != 0).sum())
+                           if layout == "unpacked" and n and cap else 0)
+                rows.append((n, rounds, tail, improve))
+                c = ctr.tolist()
+                if c[1] >= c[0] or c[6] > 0:
+                    break
+            torch.cuda.synchronize()
+        us = []
+        if timed:
+            us = [e.time_range.elapsed_us() for e in sorted(
+                (e for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and "keyrow_insert_kernel" in e.name), key=lambda e: e.time_range.start)]
+            if len(us) != len(rows):
+                fail(f"K10 sweep {label} cap {cap}: {len(us)} K10 kernels traced for "
+                     f"{len(rows)} steps")
+        runs[cap] = (rows, us)
+        del tab
+    rows = runs[S.K10_CAP][0]
+    if timed and [r[:3] for r in runs[0][0]] != [r[:3] for r in rows]:
+        fail(f"K10 sweep {label}: the two paths gave different searches")
+    col = lambda k: [r[k] for r in rows]
+    med = lambda v: statistics.median(v) if v else 0
+    block = sum(1 for n, rounds, tail, _ in rows if rounds >= 2 and tail <= S.K10_CAP)
+    out = dict(steps=len(rows), lanes_median=med(col(0)), lanes_max=max(col(0)),
+               rounds_max=max(col(1)), tail_median=med(col(2)), tail_max=max(col(2)),
+               improve_median=med(col(3)), improve_max=max(col(3)), block_path_steps=block,
+               multi_round_steps=sum(1 for r in rows if r[1] >= 2))
+    print(f"K10 tail {label} ({layout}, {len(rows)} steps): lanes a step median "
+          f"{out['lanes_median']} max {out['lanes_max']}; left after round 0 (the tail) "
+          f"median {out['tail_median']} max {out['tail_max']}; claim rounds max "
+          f"{out['rounds_max']}; {out['multi_round_steps']} steps with a round after round 0, "
+          f"{block} of them on the block path (tail <= {S.K10_CAP})"
+          + (f"; improving lanes a step median {out['improve_median']} max "
+             f"{out['improve_max']}" if layout == "unpacked" else ""))
+    if timed:
+        edges = [0, 1, 65, 129, 257, 513, 1025, 2049, 1 << 40]
+        bins = []
+        for lo, hi in zip(edges, edges[1:]):
+            idx = [k for k, r in enumerate(rows) if lo <= r[2] < hi]
+            if idx:
+                bins.append(dict(tail_lo=lo, tail_hi=hi - 1, steps=len(idx), **{
+                    f"cap_{cap}_us": statistics.mean(runs[cap][1][k] for k in idx)
+                    for cap in runs}))
+        out["bins"] = bins
+        out["total_ms"] = {f"cap_{cap}": sum(us) / 1e3 for cap, (_, us) in runs.items()}
+        print(f"  K10 device time summed over the search: " + ", ".join(
+            f"{t:.3f} ms at {k.replace('_', ' ')}" for k, t in out["total_ms"].items()))
+        for r in bins:
+            print(f"  tail in [{r['tail_lo']}, {r['tail_hi']}]: {r['steps']} steps, K10 "
+                  + ", ".join(f"{r[f'cap_{cap}_us']:.2f} us at cap {cap}" for cap in runs))
+    return out
+
+
+def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
+                baseline=None) -> dict:
     """The packed or unpacked step kernels K3 -> K9 -> K10 against the
     plain step on the card, from one mid-search table of ``eng``: 1 and 32
     steps through run_chunk_keyrow_cuda as a chunk graph and as the eager
-    chunk (and 1 step with K10 on one block), and through
-    _run_chunk_plain(plain_select=True) on copies; every table tensor
-    (claim included, the first C slots) and the 14 counters must be
-    identical.  With ``timing``: one step's K3, K9 and K10 (CUDA events
-    around the wrapper call, and the device time from CUPTI) beside their
-    plain versions (the plain select; _expand -> prune -> candidates;
-    the plain insert with its content tags) and their bounds by bytes, and
-    K3's library yardstick (torch.min over the same (B, G) view)."""
+    chunk (and 1 step with K10 on one block), each with K10 at its cap
+    (the block path for the lanes left after round 0) and at cap 0 (every
+    round on the grid), and through _run_chunk_plain(plain_select=True) on
+    copies; every table tensor (claim included, the first C slots) and the
+    14 counters must be identical.  With ``timing``: one step's K3, K9 and
+    K10 (CUDA events around the wrapper call, and the device time from
+    CUPTI; K10 on both its paths, with its grid syncs) beside their plain
+    versions (the plain select; _expand -> prune -> candidates; the plain
+    insert with its content tags) and their bounds by bytes, and K3's
+    library yardstick (torch.min over the same (B, G) view); ``baseline``
+    (load_k10_baseline) is another tree's K10, checked against this one on
+    the same tables and timed in turns with it (old, new, new, old)."""
     import dataclasses
 
     from mpi_pastar_msa_tpu_torch import _kernels
@@ -1190,26 +1473,30 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True) -> dict:
     for n in (1, 32):
         ptab = clone_table(tab0)
         pctr = E._run_chunk_plain(st, ptab, ctr0, n, ub, fill, layout, plain_select=True)
-        for mode, graph, blocks in (("graph", True, 0), ("eager", False, 0),
-                                    ("graph, K10 on one block", True, 1)):
-            if n == 32 and blocks:
-                continue
-            ktab = clone_table(tab0)
-            kctr = S.run_chunk_keyrow_cuda(st, ktab, ctr0, n, ub, fill, blocks=blocks, graph=graph)
-            torch.cuda.synchronize()
-            err = diff(ktab, kctr, ptab, pctr)
-            if err != 0:
-                fail(f"key-row step {label}, {n} step(s), {mode}: kernels differ from the "
-                     f"plain step (max |err| {err}); counters {kctr.tolist()} vs {pctr.tolist()}")
-            row["checks"].append(dict(steps=n, mode=mode, max_abs_err=err,
-                                      counters=kctr.tolist()))
-            del ktab
+        for cap in (S.K10_CAP, 0):
+            for mode, graph, blocks in (("graph", True, 0), ("eager", False, 0),
+                                        ("graph, K10 on one block", True, 1)):
+                if n == 32 and blocks:
+                    continue
+                ktab = clone_table(tab0)
+                kctr = S.run_chunk_keyrow_cuda(st, ktab, ctr0, n, ub, fill, blocks=blocks,
+                                               cap=cap, graph=graph)
+                torch.cuda.synchronize()
+                err = diff(ktab, kctr, ptab, pctr)
+                if err != 0:
+                    fail(f"key-row step {label}, {n} step(s), {mode}, K10 cap {cap}: kernels "
+                         f"differ from the plain step (max |err| {err}); counters "
+                         f"{kctr.tolist()} vs {pctr.tolist()}")
+                row["checks"].append(dict(steps=n, mode=mode, k10_cap=cap, max_abs_err=err,
+                                          counters=kctr.tolist()))
+                del ktab
         del ptab
     row["captures"] = S.capture_stats(st)[0] - captures0
     print(f"key-row step {label} ({layout}, B={st.B}, G={C // st.B}, M={st.M}, from step "
           f"{int(ctr0[2])}): every table tensor (claim included) and the 14 counters "
           f"identical to the plain step after 1 step (chunk graph, eager chunk, K10 on one "
-          f"block) and after 32 steps (graph, eager); {row['captures']} graph captures")
+          f"block) and after 32 steps (graph, eager), K10 at cap {S.K10_CAP} and at cap 0; "
+          f"{row['captures']} graph captures")
     if not timing:
         return row
 
@@ -1232,7 +1519,8 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True) -> dict:
 
     bufs.run.fill_(1)
     k3, k9, k10 = (_kernels.bind(*a)
-                   for a in S._step_args(st, work, bufs, ctr, ub, fill, 0, 0, stream))
+                   for a in S._step_args(st, work, bufs, ctr, ub, fill, 0, S.K10_CAP, stream))
+    k10_grid = _kernels.bind(*S._keyrow_insert_args(st, work, bufs, ctr, fill, 0, 0, stream))
     unpacked = layout == "unpacked"
     if unpacked:
         plain3 = lambda: E._select_open_plain(st, work.t_state, work.t_fpar, goal, thr)
@@ -1276,19 +1564,52 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True) -> dict:
         bufs.pend[:n_lanes].copy_(pend9)
 
     k10_ms = time_restored(k10, restore9, 20)
+    k10_grid_ms = time_restored(k10_grid, restore9, 20)
+    k10_outputs = lambda: ([getattr(work, k)[:C].clone() for k in fields]
+                           + [ctr.clone(), bufs.state[S.STATE_CALLS:].clone()])
+    restore9()
+    k10_grid()
+    torch.cuda.synchronize()
+    grid_out = k10_outputs()
     restore9()
     k10()
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grid_out, k10_outputs())):
+        fail(f"key-row step {label}: K10's block path and its grid path differ")
     s10 = bufs.state.tolist()
     n_sel, rounds = s10[S.STATE_NSEL], s10[S.STATE_CALLS]
     counts = [s10[S.STATE_CNT + k] for k in range(rounds)]
+    tail = counts[0] if rounds else 0
+    syncs = S.k10_grid_syncs(rounds, tail, S.K10_CAP, unpacked)
+    syncs_grid = S.k10_grid_syncs(rounds, tail, 0, unpacked)
     new_keys = int((work.t_key[:C, 0] != -1).sum() - (after3.t_key[:C, 0] != -1).sum())
     improved = int((work.t_g[:C] != after3.t_g[:C]).sum()) if unpacked else 0
     step_ms = time_restored(lambda: (k3(), k9(), k10()), restore_tab, 20)
     k3_dev = device_ms(k3, 20, restore_tab)
     k9_dev = device_ms(k9, 20, restore3)
     k10_dev = device_ms(k10, 20, restore9)
+    k10_grid_dev = device_ms(k10_grid, 20, restore9)
     step_dev = device_ms(lambda: (k3(), k9(), k10()), 20, restore_tab)
+    base = None
+    if baseline is not None:
+        src, old_fn = baseline
+        old_args = S._keyrow_insert_args(st, work, bufs, ctr, fill, 0, 0, stream)[1:]
+        old_args = old_args[:19] + old_args[21:]  # that entry takes no tail list and cap
+
+        def old():
+            if old_fn(*old_args):
+                fail(f"K10 baseline of {src} failed to launch")
+
+        restore9()
+        old()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grid_out, k10_outputs())):
+            fail(f"key-row step {label}: the K10 of {src} differs from this one")
+        base = dict(source=src, turns_ms=[time_restored(f, restore9, 20)
+                                          for f in (old, k10, k10, old)],
+                    old_device_ms=device_ms(old, 20, restore9),
+                    new_device_ms=device_ms(k10, 20, restore9),
+                    old_grid_syncs=syncs_grid)
     # the plain pieces on the same table: the plain select (not timed),
     # then _expand -> prune -> candidates for K9 and the insert for K10
     restore_tab()
@@ -1339,7 +1660,10 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True) -> dict:
         k9=dict(ms=k9_ms, device_ms=k9_dev, plain_ms=k9_plain_ms, bound_ms=ms(bytes9),
                 bytes=bytes9),
         k10=dict(ms=k10_ms, device_ms=k10_dev, plain_ms=k10_plain_ms, bound_ms=ms(bytes10),
-                 bytes=bytes10),
+                 bytes=bytes10, tail=tail, grid_syncs=syncs,
+                 path="block" if rounds >= 2 and tail <= S.K10_CAP else "grid",
+                 grid_ms=k10_grid_ms, grid_device_ms=k10_grid_dev, grid_path_syncs=syncs_grid,
+                 baseline=base),
         step=dict(ms=step_ms, device_ms=step_dev, plain_ms=step_plain_ms,
                   bound_ms=ms(bytes3 + bytes9 + bytes10), bytes=bytes3 + bytes9 + bytes10))
     k3_name = "K3 (unpacked)" if unpacked else "K3"
@@ -1350,9 +1674,17 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True) -> dict:
           f"{k3_lib_ms:.4f} / {k3_lib_dev:.4f} ms, its bound {ms(lib_bytes):.5f}); K9 "
           f"{k9_ms:.4f} / {k9_dev:.4f} ms (plain _expand -> prune -> candidates "
           f"{k9_plain_ms:.4f}, bound {ms(bytes9):.5f}); K10 {k10_ms:.4f} / {k10_dev:.4f} ms "
-          f"(plain insert {k10_plain_ms:.4f}, bound {ms(bytes10):.5f}); step {step_ms:.4f} / "
+          f"({row['k10']['path']} path after round 0, tail {tail} lanes, {syncs} grid syncs; "
+          f"at cap 0 every round on the grid {k10_grid_ms:.4f} / {k10_grid_dev:.4f} ms, "
+          f"{syncs_grid} grid syncs; plain insert {k10_plain_ms:.4f}, bound "
+          f"{ms(bytes10):.5f}); step {step_ms:.4f} / "
           f"{step_dev:.4f} ms (plain {step_plain_ms:.4f}, bound "
           f"{ms(bytes3 + bytes9 + bytes10):.5f}); all bounds by bytes")
+    if base is not None:
+        print(f"  K10 baseline {base['source']} (every round on the grid, {syncs_grid} grid "
+              f"syncs): the same tables, counters and state; in turns (old, new, new, old) "
+              + " / ".join(f"{t:.4f}" for t in base["turns_ms"])
+              + f" ms; device old {base['old_device_ms']:.4f} new {base['new_device_ms']:.4f} ms")
     del work, snap, after3, selected
     return row
 
@@ -1383,11 +1715,14 @@ def check_alignment(name: str, alignment, gold: dict, want_identical: bool):
 
 
 def main_path(name: str, path: str, gold: dict, want_identical: bool,
-              triples: str, want_layout: str = "sig", engines: dict = None) -> dict:
+              triples: str, want_layout: str = "sig", engines: dict = None,
+              k7_timing: bool = False) -> dict:
     """One run of the CLI entry; ``triples`` "auto" runs it with its
     defaults (no --triples), "off" pins the pairwise heuristic.  The step
-    kernels of the layout must run, and no plain step function;
-    ``engines`` keeps the run's engine under ``name``."""
+    kernels of the layout must run, and K7 once, and no plain step
+    function nor the plain walk; then K7 against _walk on the run's
+    finished table (check_k7, timed with ``k7_timing``); ``engines`` keeps
+    the run's engine under ``name``."""
     from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch import cli
 
@@ -1400,7 +1735,8 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
     out = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_counts()
-    with contextlib.redirect_stdout(out), plain_step_guard() as plain:
+    with contextlib.redirect_stdout(out), plain_step_guard() as plain, \
+            walk_capture() as seen:
         rep = cli.execute(args)
     counts = dict(_kernels.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -1440,7 +1776,7 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
                 launches=counts, graph_captures=eng.graph_captures,
                 upper_bound_s=eng.ub_wall, cubes_s=eng.cubes_wall,
                 engine_walls=eng.last_phase_walls, peak_device_bytes=peak,
-                acct=eng.last_acct)
+                acct=eng.last_acct, open_size=res.open_size)
     print(f"{name} --triples {triples}: layout {eng.layout}, {cubes} cubes; g={res.g} "
           f"ok, path cost == g, alignment byte-identical to golden: {identical}; "
           f"Phase 1/2/3 = {rep.walls['phase1']:.3f} / {rep.walls['phase2']:.3f} / "
@@ -1452,14 +1788,17 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
           f"(regrown: {eng.regrown}), batch {eng.st.B}, fill target "
           f"{eng.fill_target}; peak device memory {peak / 2**20:.1f} MiB; "
           f"launches {counts}; chunk graphs captured {eng.graph_captures} in "
-          f"{eng.last_phase_walls.get('graph_capture', 0.0) * 1e3:.2f} ms")
+          f"{eng.last_phase_walls.get('graph_capture', 0.0) * 1e3:.2f} ms; open size "
+          f"{res.open_size}")
+    info["k7"] = check_k7(f"{name} --triples {triples}", seen, k7_timing)
     return info
 
 
 def pinned_layout(name: str, path: str, gold: dict, layout: str,
-                  want_identical: bool) -> dict:
+                  want_identical: bool, k7_timing: bool = False) -> dict:
     """One run of the engine entry (as --profile drives it) with the table
-    layout pinned, under --triples auto, then build_alignment."""
+    layout pinned, under --triples auto, then build_alignment; K7 as in
+    main_path."""
     from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
     from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
     from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
@@ -1471,7 +1810,7 @@ def pinned_layout(name: str, path: str, gold: dict, layout: str,
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_counts()
     t0 = time.perf_counter()
-    with plain_step_guard() as plain:
+    with plain_step_guard() as plain, walk_capture() as seen:
         eng = FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
                              layout=layout)
         res = eng.run()
@@ -1493,7 +1832,7 @@ def pinned_layout(name: str, path: str, gold: dict, layout: str,
                 steps=res.steps, capacity=eng.st.C, batch=eng.st.B,
                 regrown=eng.regrown, wall_s=wall, upper_bound_s=eng.ub_wall,
                 engine_walls=eng.last_phase_walls, peak_device_bytes=peak,
-                acct=eng.last_acct)
+                acct=eng.last_acct, open_size=res.open_size)
     print(f"{name} layout {layout} (pinned, --triples auto): g={res.g} ok, path "
           f"cost == g, alignment byte-identical to golden: {identical}; wall "
           f"{wall:.3f} s (upper-bound beam {eng.ub_wall:.3f} s, walk "
@@ -1501,6 +1840,7 @@ def pinned_layout(name: str, path: str, gold: dict, layout: str,
           f"reopened {res.nodes_reopened}, steps {res.steps}, capacity {eng.st.C} "
           f"(regrown: {eng.regrown}), batch {eng.st.B}; peak device memory "
           f"{peak / 2**20:.1f} MiB; launches {counts}")
+    info["k7"] = check_k7(f"{name} layout {layout}", seen, k7_timing)
     return info
 
 
@@ -1515,7 +1855,8 @@ def degenerate_input() -> dict:
 
     p = Problem(("WYWY", "WYY", "YWW"))
     _kernels.reset_counts()
-    with warnings.catch_warnings(record=True) as caught, plain_step_guard() as plain:
+    with warnings.catch_warnings(record=True) as caught, plain_step_guard() as plain, \
+            walk_capture() as seen:
         warnings.simplefilter("always")
         eng = FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
                              batch=16, capacity=1 << 12)
@@ -1528,18 +1869,16 @@ def degenerate_input() -> dict:
     check_path_kernels("degenerate input", eng, res, counts, plain)
     print(f"degenerate input (WYWY, WYY, YWW): warned, layout {eng.layout}, "
           f"completed with g={res.g} after {res.nodes_expanded} expansions and "
-          f"{res.steps} steps; launches {counts}")
+          f"{res.steps} steps; walk {eng.last_phase_walls['walk']:.4f} s; launches {counts}")
     return dict(layout=eng.layout, g=res.g, expanded=res.nodes_expanded, steps=res.steps,
-                launches=counts)
+                launches=counts, engine_walls=eng.last_phase_walls,
+                k7=check_k7("degenerate input", seen))
 
 
 def off_path_bounds(report: dict, kinase_path: str) -> dict:
     """Bounds by bytes (each input read once, each output written once,
     over HBM_BYTES_PER_S) of the device work not yet ported, from this
     run's shapes and counts:
-    - K7, the walk (``_walk`` / ``_lookup_sig``) of kinase --triples auto:
-      per path node the 64 bucket rows of its probe walk, t_sig and t_best
-      (8 ways x 4 B each);
     - K8, the Gotoh fill at kinase: for each pair, three (n+1)(m+1) int32
       matrices written (the sequences read are negligible);
     - the multi-device step of parallel/sharded.py at kinase --triples
@@ -1548,17 +1887,14 @@ def off_path_bounds(report: dict, kinase_path: str) -> dict:
 
     ms = lambda b: b / HBM_BYTES_PER_S * 1e3
     k = report["kinase"]
-    walk = k["path_nodes"] * 64 * 8 * (4 + 4)
     lens = [len(q) for q in problem_from_fasta(kinase_path).seqs]
     gotoh = sum(3 * 4 * (lens[x] + 1) * (lens[y] + 1)
                 for x in range(len(lens)) for y in range(x + 1, len(lens)))
-    out = dict(k7_walk=dict(path_nodes=k["path_nodes"], bytes=walk, bound_ms=ms(walk)),
-               k8_gotoh=dict(lengths=lens, bytes=gotoh, bound_ms=ms(gotoh)),
+    out = dict(k8_gotoh=dict(lengths=lens, bytes=gotoh, bound_ms=ms(gotoh)),
                sharded=sharded_step_bounds(k["batch"], len(lens), k["cubes"],
                                            k["path_nodes"]))
-    print(f"bounds by bytes of the work not yet ported: K7 walk at kinase "
-          f"{k['path_nodes']} path nodes, {walk / 1e6:.2f} MB, {ms(walk):.5f} ms; K8 Gotoh "
-          f"fill at kinase {gotoh / 1e6:.2f} MB, {ms(gotoh):.5f} ms")
+    print(f"bounds by bytes of the work not yet ported: K8 Gotoh fill at kinase "
+          f"{gotoh / 1e6:.2f} MB, {ms(gotoh):.5f} ms")
     return out
 
 
@@ -1850,6 +2186,17 @@ def main() -> int:
                          "the tree SRC (a checkout's root or its csrc/), check "
                          "them against these on the kinase step tables and "
                          "time them in turns with these")
+    ap.add_argument("--k10-baseline", metavar="SRC", default=None,
+                    help="also build the K10 source (keyrow_insert.cu and its "
+                         "headers; the C entry without tail list and cap, every "
+                         "claim round on the grid) of the tree SRC (a checkout's "
+                         "root or its csrc/), check it against this one on the "
+                         "globin6, kinase-unpacked and synth10 step tables and "
+                         "time them in turns")
+    ap.add_argument("--k10-sweep", action="store_true",
+                    help="also time K10 on its block path and on its grid path at "
+                         "every step of the globin6, kinase-unpacked and synth10 "
+                         "searches, by the lanes left after round 0")
     ap.add_argument("--k5-sweep", action="store_true",
                     help="also time K5 on its block path and on its grid path at "
                          "every step of kinase (auto, off) and synth6 searches, by "
@@ -1886,10 +2233,13 @@ def main() -> int:
     phases_tmp = tempfile.TemporaryDirectory()
     phases_jobs = [start_phases_build(name, phases_tmp.name)
                    for name in ("select_best", "sig_probe")]
+    k10_job = (start_k10_baseline(os.path.abspath(args.k10_baseline), phases_tmp.name)
+               if args.k10_baseline else None)
     try:
         logs = _kernels.build_all()
     finally:
         phases = tuple(load_phases(job) for job in phases_jobs)
+        k10_baseline = load_k10_baseline(k10_job) if k10_job else None
     print(f"build: {len(logs)} kernel source(s) and the K3_PHASES and K5_PHASES builds "
           f"in {time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
@@ -1914,8 +2264,10 @@ def main() -> int:
         report["capture"] = capture_check(paths)
         if args.k5_sweep:
             report["k5_sweep"] = k5_sweep(paths, step_baseline and step_baseline[1])
+        report["dependent_load"] = chase = dependent_load_ns()
         if args.step_only:
-            report["step"] = step_kernels(paths, step_baseline, floor, phases)
+            report["step"] = step_kernels(paths, step_baseline, floor, phases, k10_baseline,
+                                          args.k10_sweep)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["k1"] = check_k1(paths, baseline)
@@ -1928,10 +2280,11 @@ def main() -> int:
             tile = tuple(int(v) for v in tile.split("x"))
             variants.append((tile, src, build_variant_k2(tile, os.path.abspath(src), tmp)))
         report["k2"] = check_k2(paths, k2_baseline, variants)
-        report["step"] = step_kernels(paths, step_baseline, floor, phases)
+        report["step"] = step_kernels(paths, step_baseline, floor, phases, k10_baseline,
+                                      args.k10_sweep)
         # 4. / 5. main path (CLI defaults: --triples auto), then pairwise
         report["kinase"] = main_path("kinase", paths["kinase.fasta"],
-                                     gold["kinase.fasta"], False, "auto")
+                                     gold["kinase.fasta"], False, "auto", k7_timing=True)
         if report["kinase"]["cubes"] != 4:
             fail(f"kinase: {report['kinase']['cubes']} cubes, want 4")
         report["kinase_off"] = main_path("kinase", paths["kinase.fasta"],
@@ -1950,13 +2303,17 @@ def main() -> int:
         for name, g in LAYOUT_INPUTS.items():
             report[f"{name}_auto"] = main_path(name, data_path(name), data_gold(name, g),
                                                False, "auto", want_layout="packed",
-                                               engines=engines)
+                                               engines=engines, k7_timing=name == "globin6")
         eng, tab, ctr = warm_engine(None, "auto", 20, eng=engines.pop("synth10"))
-        report["step"]["synth10_keyrow"] = keyrow_step("synth10", eng, tab, ctr, timing=False)
-        del eng, tab, ctr, engines
+        report["step"]["synth10_keyrow"] = keyrow_step("synth10", eng, tab, ctr,
+                                                       baseline=k10_baseline)
+        del tab, ctr
+        report["step"]["synth10_tail"] = k10_tail_sweep("synth10", eng, args.k10_sweep)
+        del eng, engines
         for layout in ("packed", "unpacked"):
             report[f"kinase_{layout}"] = pinned_layout(
-                "kinase", paths["kinase.fasta"], gold["kinase.fasta"], layout, False)
+                "kinase", paths["kinase.fasta"], gold["kinase.fasta"], layout, False,
+                k7_timing=layout == "unpacked")
         for name in ("test.fasta", "test2.fasta", "PF08184.fasta"):
             for layout in ("packed", "unpacked"):
                 report[f"{name}_{layout}"] = pinned_layout(
@@ -2049,6 +2406,40 @@ def main() -> int:
                                                           plain_ms=v["plain_ms"],
                                                           bound_ms=v["bound_ms"])
                                                    for k, v in extra.items()}})
+    # K10 on both paths and the other tree's, at each window
+    kernels[-1].update({f"{w}_k10_paths": dict(
+        path=t["path"], tail=t["tail"], grid_syncs=t["grid_syncs"], device_ms=t["device_ms"],
+        grid_path_device_ms=t["grid_device_ms"], grid_path_syncs=t["grid_path_syncs"],
+        baseline_device_ms=t["baseline"] and t["baseline"]["old_device_ms"])
+        for w, t in (("globin6", g6["k10"]), ("kinase_unpacked", ku["k10"]),
+                     ("synth10", step["synth10_keyrow"]["k10"]))})
+    # K7, the walk: timed on the main path's kinase table (sig), checked on
+    # every run's; the latency floor is path nodes x one dependent load
+    # from L2 (and, beside it, from device memory)
+    runs = [v for v in report.values() if isinstance(v, dict) and "k7" in v]
+    k7 = report["kinase"]["k7"]
+    kernels.append({
+        "name": "path_walk", "route": "cuda",
+        "source": "mpi_pastar_msa_tpu_torch/csrc/path_walk.cu",
+        "replaces": "mpi_pastar_msa_tpu/search/engine.py:1936",
+        "launches": launches["path_walk"], "checked_runs": len(runs),
+        "max_abs_err": max(r["k7"]["max_abs_err"] for r in runs),
+        "ms": k7["ms"], "device_ms": k7["device_ms"], "plain_ms": k7["plain_ms"],
+        "bound_ms": k7["bound_ms"], "bound_by": "bytes",
+        "latency_floor_ms": k7["path_nodes"] * chase["l2_ns"] / 1e6,
+        "latency_floor_dram_ms": k7["path_nodes"] * chase["dram_ns"] / 1e6,
+        "path_nodes": k7["path_nodes"], "library_ms": None,
+        **{run: dict(ms=report[run]["k7"]["ms"], device_ms=report[run]["k7"]["device_ms"],
+                     plain_ms=report[run]["k7"]["plain_ms"],
+                     bound_ms=report[run]["k7"]["bound_ms"],
+                     path_nodes=report[run]["k7"]["path_nodes"],
+                     latency_floor_ms=report[run]["k7"]["path_nodes"] * chase["l2_ns"] / 1e6,
+                     latency_floor_dram_ms=report[run]["k7"]["path_nodes"]
+                     * chase["dram_ns"] / 1e6)
+           for run in ("globin6_auto", "kinase_unpacked")}})
+    walls = {k: v["engine_walls"]["walk"] for k, v in report.items()
+             if isinstance(v, dict) and "engine_walls" in v}
+    print("walk walls (s): " + ", ".join(f"{k} {w:.4f}" for k, w in walls.items()))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

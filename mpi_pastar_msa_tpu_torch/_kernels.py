@@ -65,9 +65,13 @@ SIGNATURES: Dict[str, List] = {
                       _L, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # t_key, its row stride, N, C, claim, t_best, t_g, t_fpar, t_state,
     # unpacked, pending list, lane_slot, lane_flag, max probe rounds, fill
-    # target, run, counters, state, blocks, stream
+    # target, run, counters, state, blocks, tail list, block-path cap, stream
     "keyrow_insert": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                      _P, _P, _P, _I, _P],
+                      _P, _P, _P, _I, _P, _I, _P],
+    # layout (0 sig, 1 packed, 2 unpacked), t_sig or t_key, its row
+    # stride, t_best, t_fpar, N, C, bbits, probes, params (final
+    # coordinate, key bit widths), tmax, out, stream
+    "path_walk": [_I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
 }
 #: kernel name -> its source file's stem, where that is not its own name
 SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best"}

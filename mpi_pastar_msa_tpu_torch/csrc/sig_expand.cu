@@ -42,14 +42,14 @@
 // bbits, khi the next 32 bits.  Stored words are (khi << 6) | r < 2^31,
 // because the sig layout is taken only where sig_bits - bbits <= 25
 // (engine.py::_Static.sig_ok).  kNValid takes one atomicAdd a block.
+// The encoding and its inverse are sig_key.cuh's (shared with K7).
 
 #include "expand_row.cuh"
+#include "sig_key.cuh"
 #include "step_state.cuh"
 
 namespace {
 
-constexpr uint32_t kSigOdd = 0x9E3779B1u;     // engine.py::_SIG_ODD
-constexpr uint32_t kSigOddInv = 0x0E8B2F51u;  // its inverse mod 2^32
 constexpr int kMaxWarps = 8;
 constexpr int kBlocksPerSm = 4;
 constexpr unsigned kFull = 0xffffffffu;
@@ -87,7 +87,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kerne
   }
   __syncthreads();
 
-  const uint32_t Bmask = (1u << bbits) - 1u;
   const int M = (1 << N) - 1;
   const long long n_rows = state[step::kNSel];
   const int nw = gridDim.x * (blockDim.x >> 5);
@@ -97,11 +96,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kerne
     const int2 e = reinterpret_cast<const int2*>(sel)[i];
     const uint32_t slot = (uint32_t)e.x;
     const int32_t v = e.y;
-    const uint32_t sig = (uint32_t)t_sig[slot];
-    const uint32_t r = sig & 63u, khi = sig >> 6;
-    const uint32_t home0 = ((slot >> 3) - r) & Bmask;
-    const uint32_t klo = ((home0 ^ (step::mix32(khi) & Bmask)) * kSigOddInv) & Bmask;
-    const unsigned long long key = (unsigned long long)klo | ((unsigned long long)khi << bbits);
+    const unsigned long long key = sigkey::decode(slot, (uint32_t)t_sig[slot], bbits);
     if (lane < N) s_coord[lane] = (int32_t)((key >> s_shift[lane]) & ((1ull << s_bitw[lane]) - 1));
     __syncwarp();
     // 3. the row's T8 rows and cube corners, lanes in parallel
@@ -133,9 +128,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kerne
       uint32_t home = 0, sigb = 0;
       int32_t packed = 0;
       if (valid) {
-        const uint32_t clo = (uint32_t)ckey & Bmask, chi = (uint32_t)(ckey >> bbits);
-        home = ((clo * kSigOdd) & Bmask) ^ (step::mix32(chi) & Bmask);
-        sigb = chi << 6;
+        sigkey::encode(ckey, bbits, home, sigb);
         packed = (int32_t)(((fc - f0) << nb) | m);
         // round 0: the home bucket row, 8 ways in 32 bytes
         const int4* row4 = reinterpret_cast<const int4*>(t_sig + (size_t)home * 8);

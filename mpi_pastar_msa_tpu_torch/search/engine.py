@@ -113,6 +113,7 @@ class FrontierResult:
     closed: Dict[Tuple[int, ...], Tuple[int, int]]  # path-only closed dict
     nodes_expanded: int
     nodes_reopened: int
+    open_size: int  # open slots of the table when the search ended
     steps: int
     shard_stats: List[Tuple[int, int, int, int]]
 
@@ -968,8 +969,24 @@ _LAYOUT_FNS = {
 }
 
 
+def walk(st: _Static, tab, layout: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Path walk goal -> origin on a finished table (JAX
+    ``_make_backtrace_sig``, ``_make_backtrace_packed``,
+    ``_make_backtrace``).  A CUDA table runs kernel K7
+    (``search/step.py::walk_cuda``: one launch, one host read), a CPU table
+    the plain version, ``_walk``.  Returns (parent masks, last
+    coordinate)."""
+    dev = (tab.t_sig if isinstance(tab, SigTable) else tab.t_key).device
+    if dev.type == "cuda":
+        from .step import walk_cuda
+        return walk_cuda(st, tab, layout)
+    if dev.type != "cpu":
+        raise ValueError(f"the walk runs on a CUDA or a CPU table, not on {dev}")
+    return _walk(st, tab, layout)
+
+
 def _walk(st: _Static, tab, layout: str) -> Tuple[np.ndarray, np.ndarray]:
-    """Path walk goal -> origin: a node's parent mask moves it to its
+    """The plain version of ``walk``: a node's parent mask moves it to its
     parent, until the origin or a node that is not stored.  The host
     computes each node's probe positions and reads back only the rows at
     them, gathered on the table's device (never the whole table).  Returns
@@ -1238,7 +1255,7 @@ class FrontierSearch:
                 total_reopen) -> FrontierResult:
         st = self.st
         t0 = time.perf_counter()
-        masks, coord_fin = _walk(st, tab, self.layout)
+        masks, coord_fin = walk(st, tab, self.layout)
         if np.any(coord_fin != 0):
             raise RuntimeError("backtrace did not reach the origin")
         self.last_phase_walls["walk"] = time.perf_counter() - t0
@@ -1273,5 +1290,5 @@ class FrontierSearch:
         return FrontierResult(
             g=goal_v, h=h_goal, f=goal_v + h_goal, closed=closed,
             nodes_expanded=total_expanded, nodes_reopened=total_reopen,
-            steps=steps,
+            open_size=n_open, steps=steps,
             shard_stats=[(total_expanded, total_reopen, n_closed, n_open)])

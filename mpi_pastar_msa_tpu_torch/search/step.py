@@ -1,6 +1,6 @@
 """The search step on the card: kernels K3, K4 and K5 (the sig layout), K3,
-K9 and K10 (the packed and unpacked layouts), and a chunk of steps as one
-CUDA graph (K6).
+K9 and K10 (the packed and unpacked layouts), a chunk of steps as one
+CUDA graph (K6), and the path walk that follows the search (K7).
 
 The JAX engine runs its whole search loop as one compiled program
 (``_make_run_loop_sig``, mpi_pastar_msa_tpu/search/engine.py:1882, through
@@ -32,10 +32,18 @@ back on the current stream with no host read between them:
                                every surviving lane goes to the pending
                                list (``_keyrow_expand_args``)
   K10 ``csrc/keyrow_insert.cu`` packed and unpacked: the claim rounds of
-                               the pending lanes on the cooperative grid,
-                               the placement (t_best, or decrease-key on
-                               t_g and t_fpar), then the counters and the
-                               run flag (``_keyrow_insert_args``)
+                               the pending lanes, round 0 on the
+                               cooperative grid and the rest in one block
+                               when at most ``K10_CAP`` lanes are left
+                               (else on the grid), the placement (t_best,
+                               or decrease-key on t_g and t_fpar), then
+                               the counters and the run flag
+                               (``_keyrow_insert_args``)
+
+After the search, ``walk_cuda`` walks the path back on the finished table
+of any layout: K7 ``csrc/path_walk.cu``, one launch and one host read a
+run (JAX ``_make_backtrace_sig`` :1936, ``_make_backtrace_packed`` :1888,
+``_make_backtrace`` :2061; the plain version is ``engine._walk``).
 
 The step loop (``run_chunk_sig_cuda``, ``run_chunk_keyrow_cuda``: K6 of
 the JAX loop) keeps the 14 counters in a device int64 vector, as the JAX
@@ -57,7 +65,7 @@ chunk, the reference the graph is held to).  The plain step
 bit: ``chip_smoke.py`` holds them to each other on the card.
 
 The wrappers (``select_best_cuda``, ``select_open_cuda``,
-``run_chunk_sig_cuda``, ``run_chunk_keyrow_cuda``) check devices, dtypes
+``run_chunk_sig_cuda``, ``run_chunk_keyrow_cuda``, ``walk_cuda``) check devices, dtypes
 and sizes and raise ValueError on anything the kernels do not take;
 nothing falls back to the plain code, and a failed launch or capture
 raises.  The ``_*_args`` functions give one kernel's C arguments on
@@ -68,8 +76,9 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field, fields
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -94,6 +103,15 @@ K9_MAX_N = 16
 # sectors (chip_smoke.py --k5-sweep); the main path's steps are on both
 # sides (kinase `auto`: median 5,984, `off`: 1,402)
 K5_CAP = 2048
+# K10's block path takes the claim rounds after round 0 when at most
+# kThreads x kLanes = 1024 lanes are left (its lanes live in registers),
+# as K5's does: on the H100 one block is faster than the grid's two syncs
+# a round up to about 1,024 lanes left and no faster above
+# (chip_smoke.py --k10-sweep, kinase pinned to unpacked: its tail median
+# is 604 lanes, globin6's 67, synth10's 0)
+K10_CAP = 1024
+# K7's C entry: the layout codes
+WALK_LAYOUTS = {"sig": 0, "packed": 1, "unpacked": 2}
 
 
 def _stream(dev) -> int:
@@ -199,6 +217,8 @@ class StepBuffers:
     lane_cur, lane_dest, lane_word (B * M,) int32: K5's lane state; on a
         key-row layout lane_cur and lane_dest are K10's lane_slot and
         lane_flag (lane_word None)
+    tail (K10_CAP,) int32: K10's tail list, the lanes round 0 left
+        unsettled (key-row layouts; None on sig)
     params int32: pairs, weights, triangles, final coordinate and key bit
     widths for K4 and K9 (``_kernel_params``)
     layout: "sig", "packed" or "unpacked", the layout these serve
@@ -219,6 +239,7 @@ class StepBuffers:
     lane_cur: torch.Tensor = None
     lane_dest: torch.Tensor = None
     lane_word: torch.Tensor = None
+    tail: torch.Tensor = None
     params: torch.Tensor = None
     counters: torch.Tensor = None
     layout: str = "sig"
@@ -254,6 +275,8 @@ class StepBuffers:
             torch.empty(cap, dtype=torch.int32, device=dev) for _ in range(2))
         if layout == "sig":
             bufs.lane_word = torch.empty(cap, dtype=torch.int32, device=dev)
+        else:
+            bufs.tail = torch.empty(K10_CAP, dtype=torch.int32, device=dev)
         bufs.params = _kernel_params(st, dev)
         bufs.counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
         return bufs
@@ -364,20 +387,37 @@ def _keyrow_expand_args(st, tab, bufs, counters, ub, stream) -> tuple:
             bufs.pend.data_ptr(), stream)
 
 
-def _keyrow_insert_args(st, tab, bufs, counters, fill, blocks, stream) -> tuple:
+def _keyrow_insert_args(st, tab, bufs, counters, fill, blocks, cap, stream) -> tuple:
     unpacked = isinstance(tab, UnpackedTable)
     ptr = lambda name: getattr(tab, name).data_ptr() if hasattr(tab, name) else None
     return ("keyrow_insert", tab.t_key.data_ptr(), tab.t_key.shape[1], st.n, st.C,
             tab.claim.data_ptr(), ptr("t_best"), ptr("t_g"), ptr("t_fpar"), ptr("t_state"),
             int(unpacked), bufs.pend.data_ptr(), bufs.lane_cur.data_ptr(),
             bufs.lane_dest.data_ptr(), st.max_probes, int(fill), bufs.run.data_ptr(),
-            counters.data_ptr(), bufs.state.data_ptr(), int(blocks), stream)
+            counters.data_ptr(), bufs.state.data_ptr(), int(blocks), bufs.tail.data_ptr(),
+            int(cap), stream)
+
+
+def k10_grid_syncs(rounds: int, tail: int, cap: int, unpacked: bool) -> int:
+    """The grid barriers of one K10 launch, as csrc/keyrow_insert.cu
+    places them, from its claim rounds, the lanes round 0 left (``tail``,
+    state[kCnt]) and its cap: one after round 0's reads, two a round on
+    the grid (after the winners' writes, after the re-reads), none for the
+    rounds of the block path (tail <= cap: rounds 1, 2, ... in block 0
+    alone), then on the unpacked layout one inside the decrease-key and,
+    after the block path, one before it.  No lane: none."""
+    if rounds == 0:
+        return 0
+    block = rounds >= 2 and tail <= cap
+    syncs = 1 + 2 * (1 if block else rounds)
+    return syncs + (2 if block else 1) if unpacked else syncs
 
 
 def _step_args(st, tab, bufs, ctr, ub, fill, blocks, cap, stream) -> list:
     """The C arguments of one step's three kernels on ``tab``'s layout:
     K3, K4, K5 (sig) or K3, K9, K10 (packed, unpacked); ``ctr`` the
-    counters buffer (K3's goal and threshold are views of it)."""
+    counters buffer (K3's goal and threshold are views of it); ``cap`` is
+    K5's or K10's block-path cap."""
     if isinstance(tab, SigTable):
         return [_select_args(st, tab.t_best, tab.t_closed, ctr[0], ctr[7], bufs.run, bufs,
                              stream),
@@ -390,7 +430,7 @@ def _step_args(st, tab, bufs, ctr, ub, fill, blocks, cap, stream) -> list:
         select = _select_open_args(st, tab.t_state, tab.t_fpar, ctr[0], ctr[7], bufs.run, bufs,
                                    stream)
     return [select, _keyrow_expand_args(st, tab, bufs, ctr, ub, stream),
-            _keyrow_insert_args(st, tab, bufs, ctr, fill, blocks, stream)]
+            _keyrow_insert_args(st, tab, bufs, ctr, fill, blocks, cap, stream)]
 
 
 @dataclass
@@ -424,16 +464,20 @@ def run_chunk_sig_cuda(st: _Static, tab: SigTable, counters: torch.Tensor,
 
 
 def run_chunk_keyrow_cuda(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
-                          ub: int, fill: int, blocks: int = 0,
+                          ub: int, fill: int, blocks: int = 0, cap: int = K10_CAP,
                           graph: bool = True) -> torch.Tensor:
     """Up to ``chunk_steps`` steps of a CUDA packed or unpacked table
     (``engine._run_chunk`` on the card), each K3 -> K9 -> K10 with no host
     read, as ``run_chunk_sig_cuda``; ``blocks`` sizes K10's cooperative
-    grid (0: one block a multiprocessor).  Returns new counters; the table
-    is updated in place."""
+    grid (0: one block a multiprocessor), ``cap`` is the largest count of
+    lanes left after round 0 that K10's block path takes (0 .. K10_CAP;
+    0: every round on the grid).  Returns new counters; the table is
+    updated in place."""
     dev, layout = _check_keyrow(st, tab, counters)
+    if not 0 <= cap <= K10_CAP:
+        raise ValueError(f"K10 cap {cap}: need 0 .. {K10_CAP}")
     return _drive_chunk(st, tab, _step_buffers(st, dev, layout), counters, chunk_steps, ub,
-                        fill, blocks, 0, graph)
+                        fill, blocks, cap, graph)
 
 
 def _drive_chunk(st, tab, bufs, counters, chunk_steps, ub, fill, blocks, cap, graph):
@@ -514,3 +558,49 @@ def capture_stats(st: _Static):
     """(graphs captured, host seconds they took) on the statics ``st``."""
     bufs = getattr(st, "_step_buffers", None)
     return (bufs.captures, bufs.capture_s) if bufs is not None else (0, 0.0)
+
+
+def walk_cuda(st: _Static, tab, layout: str) -> Tuple[np.ndarray, np.ndarray]:
+    """K7 (``csrc/path_walk.cu``): ``engine._walk`` on the card, the same
+    outputs, (parent masks, last coordinate) as int64 arrays, from one
+    launch on the table's device's current stream and one host read.
+    Raises ValueError on a table that is not ``layout``'s, not on a CUDA
+    device or not of the statics' size, and RuntimeError when the launch
+    fails."""
+    want = {"sig": SigTable, "packed": PackedTable, "unpacked": UnpackedTable}.get(layout)
+    if want is None or not isinstance(tab, want):
+        raise ValueError(f"the walk of layout {layout!r} needs its table, got "
+                         f"{type(tab).__name__}")
+    if layout == "sig":
+        dev = _cuda_device(tab.t_sig, "t_sig")
+        _check(tab.t_sig, "t_sig", dev, torch.int32, st.C)
+        _check(tab.t_best, "t_best", dev, torch.int32, st.C)
+        if not st.sig_ok or st.n > K4_MAX_N:
+            raise ValueError("the sig walk needs a sig-eligible table of at most "
+                             f"{K4_MAX_N} sequences")
+        keys, stride, best, fpar, probes = tab.t_sig, 1, tab.t_best, None, st.max_bprobes
+    else:
+        dev = _cuda_device(tab.t_key, "t_key")
+        stride = st.KW if layout == "packed" else st.W
+        _check(tab.t_key, "t_key", dev, torch.int32, st.C * stride)
+        if tab.t_key.dim() != 2 or tab.t_key.shape[1] != stride:
+            raise ValueError(f"t_key: shape {tuple(tab.t_key.shape)}, need (>= {st.C}, "
+                             f"{stride})")
+        if st.n > K9_MAX_N:
+            raise ValueError(f"the key-row walk takes at most {K9_MAX_N} sequences")
+        if layout == "packed":
+            _check(tab.t_best, "t_best", dev, torch.int32, st.C)
+            best, fpar = tab.t_best, None
+        else:
+            _check(tab.t_fpar, "t_fpar", dev, torch.int64, st.C)
+            best, fpar = None, tab.t_fpar
+        keys, probes = tab.t_key, st.max_probes
+    n, tmax = st.n, int(st.final_np.sum())
+    params = torch.tensor(list(st.final_np) + list(st.bitw), dtype=torch.int32).to(dev)
+    out = torch.empty(tmax + n + 1, dtype=torch.int32, device=dev)
+    _kernels.launch("path_walk", WALK_LAYOUTS[layout], keys.data_ptr(), stride,
+                    None if best is None else best.data_ptr(),
+                    None if fpar is None else fpar.data_ptr(), n, st.C, st.bbits, probes,
+                    params.data_ptr(), tmax, out.data_ptr(), _stream(dev))
+    res = out.cpu().numpy().astype(np.int64)  # the run's one read
+    return res[:int(res[tmax + n])], res[tmax:tmax + n]

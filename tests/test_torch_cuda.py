@@ -1,12 +1,14 @@
 """Tests that need the card (marker ``cuda``): the hand-written CUDA kernels
 (K1 pair wavefront, K2 triple cubes, the sig step kernels K3-K5, the
-packed and unpacked step kernels K3, K9 and K10) against their plain
-PyTorch versions, the chunk graph (K6) against the eager chunk, and the
-port's main path and its table layouts on the GPU.
+packed and unpacked step kernels K3, K9 and K10 on both of K10's paths,
+the path walk K7) against their plain PyTorch versions, the chunk graph
+(K6) against the eager chunk, and the port's main path and its table
+layouts on the GPU.
 They skip on a host without a CUDA device.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import itertools
 import json
 import os
 
@@ -680,16 +682,17 @@ def test_keyrow_step_kernels_equal_plain_step(cuda, name, layout, warm, kw):
     # 1 and 8 steps from a mid-search table through the kernels (a chunk
     # graph) and through the plain step: every table tensor (claim
     # included) and the 14 counters identical; K10 on its own grid and on
-    # one block
+    # one block, each with the block path of its tail (cap K10_CAP) and
+    # with every round on the grid (cap 0)
     from mpi_pastar_msa_tpu_torch.search import engine as E
     from mpi_pastar_msa_tpu_torch.search import step as S
 
     eng = keyrow_engine(name, cuda, layout, **kw)
     st, ub, fill = eng.st, eng.ub, eng.fill_target
     tab, ctr = warm_keyrow(eng, warm)
-    for n, blocks in ((1, 0), (1, 1), (8, 0)):
+    for (n, blocks), cap in itertools.product(((1, 0), (1, 1), (8, 0)), (S.K10_CAP, 0)):
         ka, pa = clone_tab(tab), clone_tab(tab)
-        kc = S.run_chunk_keyrow_cuda(st, ka, ctr, n, ub, fill, blocks=blocks)
+        kc = S.run_chunk_keyrow_cuda(st, ka, ctr, n, ub, fill, blocks=blocks, cap=cap)
         pc = E._run_chunk_plain(st, pa, ctr, n, ub, fill, layout, plain_select=True)
         assert_same_tables(st, ka, kc, pa, pc)
         # n steps, or fewer when the search ended inside them
@@ -795,3 +798,155 @@ def test_keyrow_end_to_end_counts(cuda, name, layout, expanded, reopened, steps)
     n = _kernels.launches["keyrow_insert"]
     assert n == _kernels.launches["keyrow_expand"] == _kernels.launches["select_best"] > 0
     assert eng.graph_captures == 1
+    assert _kernels.launches["path_walk"] == 1  # the walk: K7, once a run
+
+
+# ------------------------------------------------------------ K7, the walk
+
+def planted_walk(n, layout, seed, device):
+    """Statics of a random n-sequence problem on ``device`` and a table of
+    its layout holding a planted path from the goal to the origin (random
+    nonzero parent masks), each node at its first free probe position from
+    a random one in 0 .. 3, behind other keys (sig: other words of its
+    rows; key rows: other coordinates), and random other entries: (statics,
+    CPU table, the path's masks)."""
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    rs = np.random.RandomState(seed)
+    seqs = tuple("".join(rs.choice(list(AMINO), size=rs.randint(3, 9))) for _ in range(n))
+    p = Problem(seqs)
+    st = E._Static(p, HPairHeuristic.build(p, device), 16, 1 << 16, device)
+    size, nb = st.C + E.TRASH, st.nb
+    full = lambda v, *shape, dtype=torch.int32: torch.full((size,) + shape, v, dtype=dtype)
+    tab = {"sig": lambda: E.SigTable(full(-1), full(E.INFP), full(E.INFP)),
+           "packed": lambda: E.PackedTable(full(-1, st.KW), full(E.INFP), full(E.INFP),
+                                           full(E.INFP)),
+           "unpacked": lambda: E.UnpackedTable(full(-1, st.W), full(E.INF),
+                                               full(E.INF << nb, dtype=torch.int64),
+                                               torch.zeros(size, dtype=torch.int32),
+                                               full(E.INFP))}[layout]()
+    word = (tab.t_fpar if layout == "unpacked" else tab.t_best)
+    coord, masks = st.final_np.astype(np.int64).copy(), []
+    while coord.any():
+        live = np.flatnonzero(coord)
+        pick = live[rs.rand(len(live)) < 0.5]
+        mask = int(sum(1 << int(d) for d in (pick if len(pick) else live[:1])))
+        c = torch.as_tensor(coord)[None, :]
+        r = rs.randint(0, 4)
+        if layout == "sig":
+            home, sigb = (int(v[0]) for v in E._sig_encode(st, c))
+            for q in range(r):  # other keys' words in the rows before
+                row = ((home + q) & (st.nbuck - 1)) * 8
+                ways = [w for w in range(8) if int(tab.t_sig[row + w]) == -1]
+                if ways:
+                    tab.t_sig[row + ways[0]] = (rs.randint(1, 1 << 20) << 6) | q
+            while True:
+                row = ((home + r) & (st.nbuck - 1)) * 8
+                ways = [w for w in range(8) if int(tab.t_sig[row + w]) == -1]
+                if ways:
+                    slot = row + ways[rs.randint(len(ways))]
+                    tab.t_sig[slot] = sigb | r
+                    break
+                r += 1
+        else:
+            key = E._pack_keys(c, st.W)
+            h0 = int(E._hash_keys(key)[0])
+            for q in range(r):  # other coordinates' rows before
+                s_ = int(E._probe_slot(h0, q, st.C - 1))
+                if int(tab.t_key[s_, 0]) == -1:
+                    tab.t_key[s_, :st.W] = E._as_i32(E._pack_keys(c + 70000, st.W)[0])
+            while int(tab.t_key[int(E._probe_slot(h0, r, st.C - 1)), 0]) != -1:
+                r += 1
+            slot = int(E._probe_slot(h0, r, st.C - 1))
+            tab.t_key[slot, :st.W] = E._as_i32(key[0])
+        word[slot] = (rs.randint(0, 1000) << nb) | mask
+        masks.append(mask)
+        coord = coord - ((mask >> np.arange(n)) & 1)
+    return st, tab, np.array(masks, dtype=np.int64)
+
+
+@pytest.mark.parametrize("layout,n", [("sig", 3), ("sig", 5), ("sig", 8),
+                                      ("packed", 3), ("packed", 8), ("packed", 12),
+                                      ("packed", 16), ("unpacked", 4), ("unpacked", 9),
+                                      ("unpacked", 16)])
+def test_k7_walk_equals_plain(cuda, layout, n):
+    # K7 on planted tables against _walk on the same card tensors: the
+    # same masks and final coordinate; then with one node's entry made
+    # another key's, where both end there
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    st, tab, want = planted_walk(n, layout, 100 + n, cuda)
+    assert layout != "sig" or st.sig_ok
+    ctab = type(tab)(*(t.to(cuda) for t in vars(tab).values()))
+    before = _kernels.launches["path_walk"]
+    got, coord = S.walk_cuda(st, ctab, layout)
+    assert _kernels.launches["path_walk"] == before + 1
+    ref, ref_coord = E._walk(st, ctab, layout)
+    assert np.array_equal(got, want) and np.array_equal(ref, want)
+    assert not coord.any() and not ref_coord.any()
+    # break the path at its middle node
+    k = len(want) // 2
+    node = st.final_np.astype(np.int64).copy()
+    for m in want[:k]:
+        node -= (int(m) >> np.arange(n)) & 1
+    if layout == "sig":
+        home, sigb = (int(v[0]) for v in E._sig_encode(st, torch.as_tensor(node)[None, :]))
+        rows = ((home + np.arange(64)) & (st.nbuck - 1)) * 8
+        sl = torch.as_tensor((rows[:, None] + np.arange(8)).reshape(-1), device=cuda)
+        hit = ctab.t_sig[sl] == torch.as_tensor(np.repeat(sigb | np.arange(64), 8), device=cuda,
+                                                 dtype=torch.int32)
+        ctab.t_sig[sl[hit]] ^= 1 << 6
+    else:
+        key = E._pack_keys(torch.as_tensor(node)[None, :], st.W)
+        sl = E._probe_slot(E._hash_keys(key)[0], torch.arange(128), st.C - 1).to(cuda)
+        hit = (ctab.t_key[sl, :st.W] == E._as_i32(key).to(cuda)).all(1)
+        ctab.t_key[sl[hit], 0] ^= 1
+    got, coord = S.walk_cuda(st, ctab, layout)
+    ref, ref_coord = E._walk(st, ctab, layout)
+    assert np.array_equal(got, want[:k]) and np.array_equal(ref, got)
+    assert np.array_equal(coord, node) and np.array_equal(ref_coord, node)
+
+
+@pytest.mark.parametrize("name,layout", [("PF08184.fasta", "sig"), ("test2.fasta", "packed"),
+                                         ("test.fasta", "unpacked")])
+def test_k7_runs_on_the_main_path(cuda, name, layout, monkeypatch):
+    # a run on the card walks with K7, once, and never with _walk
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    plain = []
+    real = E._walk
+    monkeypatch.setattr(E, "_walk", lambda *a: plain.append(a) or real(*a))
+    _kernels.reset_counts()
+    eng = keyrow_engine(name, cuda, layout)
+    res = eng.run()
+    assert res.g == golden_problem(name)[0]["optimal_g"]
+    assert _kernels.launches["path_walk"] == 1 and not plain
+    (exp, _, n_closed, n_open), = res.shard_stats
+    assert n_open == res.open_size and len(res.closed) <= n_closed <= exp
+
+
+def test_walk_cuda_rejects_bad_input(cuda):
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    st, tab, _ = planted_walk(5, "packed", 7, cuda)
+    ctab = type(tab)(*(t.to(cuda) for t in vars(tab).values()))
+    ust, utab, _ = planted_walk(5, "unpacked", 7, cuda)
+    cutab = type(utab)(*(t.to(cuda) for t in vars(utab).values()))
+    before = dict(_kernels.launches)
+    bad = [(st, tab, "packed"),  # CPU tensors
+           (st, ctab, "sig"), (st, ctab, "unpacked"), (st, ctab, "bucketed"),
+           (st, E.PackedTable(ctab.t_key[:, :2].contiguous(), ctab.t_best, ctab.t_closed,
+                              ctab.claim), "packed"),
+           (st, E.PackedTable(ctab.t_key, ctab.t_best.long(), ctab.t_closed, ctab.claim),
+            "packed"),
+           (st, E.PackedTable(ctab.t_key, ctab.t_best[:100], ctab.t_closed, ctab.claim),
+            "packed"),
+           (ust, E.UnpackedTable(cutab.t_key, cutab.t_g, cutab.t_fpar.int(), cutab.t_state,
+                                 cutab.claim), "unpacked")]
+    for s_, t, lay in bad:
+        with pytest.raises(ValueError):
+            S.walk_cuda(s_, t, lay)
+    assert _kernels.launches == before

@@ -13,10 +13,13 @@ tolerance).
   _expand -> prune -> _candidates_packed / _candidates_unpacked with its
   content tags, and against JAX _expand, at N = 4, 6 and 10, with cubes and
   without;
-- K10's rounds (threads and blocks in random orders, the lanes shuffled)
-  against _insert_core_packed / _insert_core exactly (claim included), and
-  the plain inserts against JAX _insert_packed / _insert on the key map,
-  with duplicate keys, colliding homes, the 128-round overflow and 0 lanes;
+- K10's rounds (threads and blocks in random orders, the lanes shuffled;
+  round 0 on the grid, then the tail in one block or every round on the
+  grid, cap K10_CAP and 0) against _insert_core_packed / _insert_core
+  exactly (claim included), with its grid syncs against
+  step.k10_grid_syncs, and the plain inserts against JAX _insert_packed /
+  _insert on the key map, with duplicate keys, colliding homes, the
+  128-round overflow and 0 lanes;
 - the step loop of K3 -> K9 -> K10 with its run flag against
   _run_chunk_plain, chunk by chunk, on test, test2, a 5 x 130 family
   (packed) and the degenerate input (unpacked);
@@ -56,8 +59,9 @@ CSRC = os.path.join(HERE, "..", "mpi_pastar_msa_tpu_torch", "csrc")
 GOLD = json.load(open(os.path.join(HERE, "goldens.json")))
 M32 = 0xFFFFFFFF
 INF, INFP = TE.INF, TE.INFP
-# csrc/select_best.cu: kThreads, kItems; csrc/keyrow_insert.cu: kThreads
-K3_THREADS, K3_ITEMS, K10_THREADS = 512, 16, 512
+# csrc/select_best.cu: kThreads, kItems; csrc/keyrow_insert.cu: kThreads,
+# kLanes
+K3_THREADS, K3_ITEMS, K10_THREADS, K10_LANES = 512, 16, 512, 2
 K3_WARPS = K3_THREADS // 32
 BIAS = 0x80000000
 NONE_OPEN = INF ^ BIAS  # K3's key of a slot that is not open (unpacked)
@@ -474,15 +478,20 @@ def test_k9_lanes_equal_plain_and_jax(name, triples, steps, layout):
 
 # ----------------------------------------------------------------------- K10
 
-def emu_k10(st, tab, pend, rng, blocks=132):
+def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP):
     """csrc/keyrow_insert.cu on the pending list ``pend`` (K9's entries),
     in place: ``blocks`` blocks whose threads stride over the lanes; round
-    0's reads, then per round the claim winners' writes (grid sync) and
-    the losers' re-reads merged with the next round's reads (grid sync,
-    the unsettled count), each phase visiting the threads of every block in
-    a random order; then (unpacked) the g min, the (f, parent) reset and
-    state, (grid sync) the (f, parent) min of the winners.  Returns
-    (rounds, unsettled after each round, reopens)."""
+    0's reads (grid sync), its claim winners' writes (grid sync), its
+    losers' re-reads merged with round 1's reads, each lane left appending
+    itself to the tail list (grid sync); then, when the tail holds at most
+    ``cap`` lanes, block 0 alone runs rounds 1, 2, ... over it, a thread
+    holding lanes tid + k x 512 of the list (each phase visits the threads
+    in a random order), else every round on the grid as round 0, two grid
+    syncs a round; then (unpacked; after the block path a grid sync first)
+    the g min, the (f, parent) reset and state, (grid sync) the (f, parent)
+    min of the winners.  Each grid phase visits the threads of every block
+    in a random order.  Returns (rounds, unsettled after each round,
+    reopens, grid syncs)."""
     C, W = st.C, st.W
     unpacked = isinstance(tab, TE.UnpackedTable)
     key, claim = tab.t_key.numpy(), tab.claim.numpy()
@@ -498,6 +507,9 @@ def emu_k10(st, tab, pend, rng, blocks=132):
     def holds(slot, e):
         return key[slot, :W].tolist() == list(e[:W])
 
+    def slot_of(e, r):
+        return (e[W] & M32) + (r * (r + 1) >> 1) & (C - 1)
+
     def settle(i, slot):
         e = pend[i]
         lane_slot[i] = slot
@@ -511,7 +523,7 @@ def emu_k10(st, tab, pend, rng, blocks=132):
 
     def probe(i, r):
         e = pend[i]
-        slot = (e[W] & M32) + (r * (r + 1) >> 1) & (C - 1)
+        slot = slot_of(e, r)
         if key[slot, 0] != -1:
             if holds(slot, e):
                 return settle(i, slot)
@@ -521,41 +533,68 @@ def emu_k10(st, tab, pend, rng, blocks=132):
             lane_flag[i] = 1
         lane_slot[i] = -1
 
-    rounds, counts = 0, []
+    def write(i, r):
+        e = pend[i]
+        if lane_flag[i] != 1:
+            return
+        slot = slot_of(e, r)
+        if claim[slot] == e[W + 1]:
+            key[slot, :W] = e[:W]
+            if not unpacked:
+                key[slot, W] = e[W + 2]
+            settle(i, slot)
+
+    def reread(i, r, left, tail):
+        if lane_slot[i] >= 0:
+            return
+        e = pend[i]
+        if lane_flag[i] == 1 and holds(slot_of(e, r), e):
+            return settle(i, slot_of(e, r))
+        left[0] += 1
+        if tail is not None:
+            tail.append(i)  # its place: the order of the appends
+        if r + 1 < st.max_probes:
+            probe(i, r + 1)
+
+    rounds, counts, syncs, block = 0, [], 0, False
     if n:
         phase(lambda i: probe(i, 0))
-        r = 0
+        syncs += 1
+        tail, r = [], 0
         while True:
-            def write(i, r=r):
-                e = pend[i]
-                if lane_flag[i] != 1:
-                    return
-                slot = (e[W] & M32) + (r * (r + 1) >> 1) & (C - 1)
-                if claim[slot] == e[W + 1]:
-                    key[slot, :W] = e[:W]
-                    if not unpacked:
-                        key[slot, W] = e[W + 2]
-                    settle(i, slot)
-            phase(write)
+            phase(lambda i: write(i, r))
             left = [0]
-
-            def reread(i, r=r):
-                if lane_slot[i] >= 0:
-                    return
-                e = pend[i]
-                if lane_flag[i] == 1:
-                    slot = (e[W] & M32) + (r * (r + 1) >> 1) & (C - 1)
-                    if holds(slot, e):
-                        return settle(i, slot)
-                left[0] += 1
-                if r + 1 < st.max_probes:
-                    probe(i, r + 1)
-            phase(reread)
+            phase(lambda i: reread(i, r, left, tail if r == 0 else None))
+            syncs += 2
             counts.append(left[0])
             rounds = r + 1
             if left[0] == 0 or rounds >= st.max_probes:
                 break
+            if r == 0 and left[0] <= cap:
+                block = True
+                break
             r += 1
+        if block:
+            # block 0: thread t holds list places t + k * 512, k < kLanes
+            assert len(tail) <= K10_THREADS * K10_LANES
+            held = [[i for i in tail[t::K10_THREADS]] for t in range(K10_THREADS)]
+
+            def block_phase(fn):
+                for t in rng.permutation(K10_THREADS).tolist():
+                    for i in held[t]:
+                        fn(i)
+
+            r = 1
+            while True:
+                block_phase(lambda i: write(i, r))
+                left = [0]
+                block_phase(lambda i: reread(i, r, left, None))
+                counts.append(left[0])
+                rounds = r + 1
+                if left[0] == 0 or rounds >= st.max_probes:
+                    break
+                r += 1
+            syncs += unpacked  # the decrease-key waits for block 0
     reopen = 0
     if unpacked and n:
         improved = [i for i in range(n) if lane_slot[i] >= 0 and lane_flag[i] & 2]
@@ -565,12 +604,13 @@ def emu_k10(st, tab, pend, rng, blocks=132):
             tab.t_fpar[s_] = 2**63 - 1
             tab.t_state[s_] = 1
             reopen += bool(lane_flag[i] & 4)
+        syncs += 1
         for i in rng.permutation(improved).tolist():
             s_, e = lane_slot[i], pend[i]
             if int(tab.t_g[s_]) == e[W + 2]:
                 fpar = (e[W + 4] << 32) | (e[W + 3] & M32)
                 tab.t_fpar[s_] = min(int(tab.t_fpar[s_]), fpar)
-    return rounds, counts, reopen
+    return rounds, counts, reopen, syncs
 
 
 def k10_acct(n, rounds, counts):
@@ -656,9 +696,10 @@ def keyrow_table(jst, st, rs, layout, n_keys):
     return tab, coords
 
 
+@pytest.mark.parametrize("cap", [0, TS.K10_CAP])
 @pytest.mark.parametrize("layout", ["packed", "unpacked"])
 @pytest.mark.parametrize("case", ["mid", "empty-table", "no-lanes", "overflow"])
-def test_k10_rounds_equal_plain_insert(layout, case):
+def test_k10_rounds_equal_plain_insert(layout, case, cap):
     jst, st = statics(golden_seqs("kinase.fasta"), 64, 1 << 8 if case == "overflow" else 1 << 10)
     rs = np.random.RandomState({"mid": 1, "empty-table": 2, "no-lanes": 3, "overflow": 4}[case])
     torch.manual_seed(0)
@@ -677,11 +718,16 @@ def test_k10_rounds_equal_plain_insert(layout, case):
         rng = np.random.default_rng(seed)
         got = clone(tab)
         order = rng.permutation(len(pend)).tolist()
-        rounds, counts, ereopen = emu_k10(st, got, [pend[k] for k in order], rng, blocks)
+        rounds, counts, ereopen, syncs = emu_k10(st, got, [pend[k] for k in order], rng,
+                                                 blocks, cap)
         assert same_table(got, want, st.C)  # claim included
         assert (counts[-1] if rounds else 0) == int(ovf)
         assert k10_acct(len(pend), rounds, counts) == acct.tolist()
         assert ereopen == int(reopen)
+        unpacked = layout == "unpacked"
+        assert syncs == TS.k10_grid_syncs(rounds, counts[0] if rounds else 0, cap, unpacked)
+        if cap and rounds >= 2:  # the block path: 3 grid syncs (unpacked 5)
+            assert syncs == (5 if unpacked else 3)
     if case == "no-lanes":
         assert acct.tolist() == [0] * 5 and same_table(want, tab, st.C)
     elif case == "overflow":
@@ -757,7 +803,7 @@ def emu_chunk(st, tab, counters, chunk_steps, ub, fill, rng):
             continue
         _, _, _, fmin, n_open, n_sel, reopen, sel = emu_k3(st, tab, c[0], c[7], rng=rng)
         c[0], pend = emu_k9(ks, tab, sel, c[0], ub, rng)
-        rounds, counts, ins_reopen = emu_k10(st, tab, pend, rng)
+        rounds, counts, ins_reopen, _ = emu_k10(st, tab, pend, rng)
         n = len(pend)
         c[1] = fmin
         c[2] += 1
@@ -857,11 +903,15 @@ def test_keyrow_constants_match_source():
     assert "const int PW = W + (kUnpacked ? 5 : 4);" in k9
     k10 = open(os.path.join(CSRC, "keyrow_insert.cu")).read()
     assert f"constexpr int kThreads = {K10_THREADS};" in k10
+    assert f"constexpr int kLanes = {K10_LANES};" in k10
+    assert "constexpr int kCap = kThreads * kLanes;" in k10
+    assert TS.K10_CAP == K10_THREADS * K10_LANES
     assert "launch<true>(t, pend, W + 5," in k10 and "launch<false>(t, pend, W + 4," in k10
     st = statics(golden_seqs("PF08184.fasta"), 64, 1 << 12)[1]
     for layout, words in (("packed", st.W + 4), ("unpacked", st.W + 5)):
         bufs = TS.StepBuffers.for_step(st, torch.device("cpu"), layout)
         assert bufs.pend.shape == (st.B * st.M, words) and bufs.lane_word is None
+        assert bufs.tail.shape == (TS.K10_CAP,)
 
 
 def test_keyrow_wrappers_refuse():
