@@ -6,7 +6,7 @@ Phases, each failing loudly (non-zero exit):
 
 1. device: a CUDA device must exist; prints the card's name and power limit.
 2. build: compiles every kernel from csrc/ (one nvcc per source, in
-   parallel) and, beside them, K3's and K5's measurement builds.
+   parallel) and, beside them, K3's, K5's and K7's measurement builds.
    Capture: a chunk of the sig step (K3, K4 and the cooperative K5, on
    each of K5's paths) captured as a CUDA graph, replayed, must equal the
    eager chunk.
@@ -37,10 +37,14 @@ Phases, each failing loudly (non-zero exit):
    lanes left after round 0 (cap K10_CAP) and with every round on the grid
    (cap 0), against the plain step on copies: every table tensor (claim
    included) and the 14 counters identical; their kernel, plain and bound
-   times, K10 on both paths with its grid syncs a step, and K3's torch.min
-   yardstick (``--k10-baseline SRC`` builds another tree's K10, the
-   grid-only one of PR 10, checks it against this one on the same tables
-   and times them in turns).  The cost of one grid sync (an empty
+   times, K9's launch shape (a block a row), its surviving lanes and the
+   ones it leaves pending after its round-0 match (globin6: fewer, or the
+   run fails), its bounds by bytes and by operations, K10 on both paths
+   with its grid syncs a step, and K3's torch.min yardstick
+   (``--keyrow-baseline SRC`` builds another tree's K9, K10 and K7, those
+   of cedea92 with K9 a warp a row, checks its K9 -> K10 pair against this
+   one on the same tables and times the pairs in turns, and its K7 on the
+   timed walks).  The cost of one grid sync (an empty
    cooperative kernel of 132 x 512 threads with 1, 4 and 16), and K10's
    tail (lanes left after round 0) and improving lanes a step over the
    globin6, kinase-unpacked and synth10 searches.  Kernel,
@@ -80,10 +84,13 @@ Phases, each failing loudly (non-zero exit):
    (csrc/path_walk.cu), once, and never with the plain _walk (a counting
    wrapper); on each run's finished table K7's masks and final coordinate
    must equal _walk's on the card; the walk's wall is printed for every
-   run, and K7's wrapper, device and plain times, its bound by bytes and
-   its latency floor (path nodes x one dependent load from L2, and beside
-   it from device memory, each timed by a pointer chase through 256 MiB) at
-   kinase, globin6 and kinase pinned to unpacked.
+   run, and K7's wrapper, device and plain times (device with the table
+   in L2 and after an eviction), its bound by bytes and its latency floor
+   (path nodes x one dependent load from L2, and beside it from device
+   memory, each timed by a pointer chase through 256 MiB) at kinase,
+   globin6 and kinase pinned to unpacked, with the K7_NO_PREFETCH and
+   K7_ALL_ROWS builds (and another tree's K7) checked against K7 and timed
+   in turns with it.
    Bounds of the work not yet ported (K8 and the multi-device step of
    parallel/sharded.py) from this run's shapes.
 7. the kernels JSON line, then the result line.
@@ -134,11 +141,18 @@ LAYOUT_KERNELS = {"sig": STEP_KERNELS,
 # the plain functions that no run on the card may call (the plain loop,
 # the expand and insert it alone calls, and the plain walk)
 PLAIN_STEP = ("_run_chunk_plain", "_expand_insert", "_expand", "_probe_claim", "_walk")
-# the C entry of K10 before its block path (PR 10's keyrow_insert.cu):
-# this one's arguments without the tail list and the cap
-K10_GRID_ONLY_SIGNATURE = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [
-    ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-    ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+# the C entry of K9 before its block a row and its round-0 match (the
+# keyrow_expand.cu of cedea92): this one's arguments without t_best, C,
+# blocks and threads
+K9_WARP_ROW_SIGNATURE = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                         + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p] * 5)
+# K7's measurement builds beside the engine's path_walk.cu (same C entry):
+# "no_prefetch" (-DK7_NO_PREFETCH), "all_rows" (-DK7_ALL_ROWS) and another
+# tree's K7 ("baseline"), set in main() and timed in turns with K7 by
+# check_k7
+K7_VARIANTS = {}
 
 
 def fail(msg: str) -> None:
@@ -641,15 +655,18 @@ def build_step_baseline(src: str, tmp: str):
     return tuple(fns)
 
 
-def start_phases_build(name: str, tmp: str):
-    """Start nvcc on csrc/<name>.cu with its measurement macro (K3_PHASES
-    for select_best: three %globaltimer readings in the partials when a
-    launch ends; K5_PHASES for sig_probe: five in lane_word) into ``tmp``;
+def start_phases_build(name: str, tmp: str, macro: str = None):
+    """Start nvcc on csrc/<name>.cu with a measurement macro (by default
+    K3_PHASES for select_best: three %globaltimer readings in the partials
+    when a launch ends; K5_PHASES for sig_probe: five in lane_word; for
+    path_walk K7_NO_PREFETCH, without the L2 prefetch of the candidate
+    parents' home rows, or K7_ALL_ROWS, every row of a node read at once)
+    into ``tmp``;
     returns (name, proc, lib)."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    macro = {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES"}[name]
-    lib = os.path.join(tmp, f"lib{name}_phases.so")
+    macro = macro or {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES"}[name]
+    lib = os.path.join(tmp, f"lib{name}_{macro}.so")
     proc = subprocess.Popen(
         [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", f"-D{macro}", "-o", lib,
@@ -869,7 +886,7 @@ def capture_check(paths) -> dict:
     return out
 
 
-def step_kernels(paths, baseline=None, floor=None, phases=None, k10_baseline=None,
+def step_kernels(paths, baseline=None, floor=None, phases=None, keyrow_baseline=None,
                  k10_sweep: bool = False) -> dict:
     """The step kernels K3 -> K4 -> K5 against the plain step on the card:
     kinase under --triples auto (from step 150) and off (from step 400),
@@ -891,8 +908,9 @@ def step_kernels(paths, baseline=None, floor=None, phases=None, k10_baseline=Non
     ``floor`` the empty-kernel launch floor, printed beside the kernels;
     ``phases`` the C entries of the measurement builds (load_phases) of K3
     (its read pass and its last block's finish) and of K5 (its read and
-    write phases and its finish); ``k10_baseline`` another tree's K10
-    (load_k10_baseline), timed in turns with this one in keyrow_step.
+    write phases and its finish); ``keyrow_baseline`` another tree's K9
+    and K10 (load_keyrow_baseline), timed in turns with these in
+    keyrow_step.
     Then the grid sync's cost and K10's tail a step over the globin6 and
     kinase-unpacked searches (k10_tail_sweep; ``k10_sweep`` also times
     K10 on both its paths at every step)."""
@@ -1134,13 +1152,17 @@ def step_kernels(paths, baseline=None, floor=None, phases=None, k10_baseline=Non
     # the packed and unpacked step (K3, K9, K10): globin6 (packed) from the
     # same table, kinase pinned to unpacked from step 150
     out["grid_sync"] = grid_sync_cost()
-    out["globin6_keyrow"] = keyrow_step("globin6", eng, tab, ctr, baseline=k10_baseline)
+    out["globin6_keyrow"] = g6 = keyrow_step("globin6", eng, tab, ctr,
+                                             baseline=keyrow_baseline)
+    if not 0 < g6["k9"]["pending"] < g6["k9"]["lanes"]:
+        fail(f"globin6 step {int(ctr[2])}: K9 left {g6['k9']['pending']} of "
+             f"{g6['k9']['lanes']} lanes pending: it settles no home-row match")
     del tab, ctr
     out["globin6_tail"] = k10_tail_sweep("globin6", eng, k10_sweep)
     del eng
     eng, tab, ctr = warm_engine(paths["kinase.fasta"], "auto", 150, layout="unpacked")
     out["kinase_unpacked_keyrow"] = keyrow_step("kinase unpacked", eng, tab, ctr,
-                                                baseline=k10_baseline)
+                                                baseline=keyrow_baseline)
     del tab, ctr
     out["kinase_unpacked_tail"] = k10_tail_sweep("kinase unpacked", eng, k10_sweep)
     return out
@@ -1191,40 +1213,52 @@ def check_path_kernels(label: str, eng, res, counts: dict, plain: dict) -> None:
                  f"{counts} for {res.steps} steps in {replays} chunks (want {want} each)")
 
 
-def start_k10_baseline(src: str, tmp: str):
-    """Start nvcc on another tree's K10 (``src``: a checkout's root or its
-    csrc/ directory; its keyrow_insert.cu with the headers beside it, the C
-    entry of K10_GRID_ONLY_SIGNATURE) in its own directory; returns (src,
-    proc, lib)."""
+def start_keyrow_baseline(src: str, tmp: str):
+    """Start nvcc on another tree's K9, K10 and K7 (``src``: a checkout's
+    root or its csrc/ directory; keyrow_expand.cu with the C entry of
+    K9_WARP_ROW_SIGNATURE, keyrow_insert.cu and path_walk.cu with this
+    tree's, and the headers beside them) in their own directory, the three
+    nvcc at once; returns (src, {name: (proc, lib)})."""
     import glob
     import shutil
 
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    csrc = src if os.path.isfile(os.path.join(src, "keyrow_insert.cu")) else os.path.join(
+    csrc = src if os.path.isfile(os.path.join(src, "keyrow_expand.cu")) else os.path.join(
         src, "mpi_pastar_msa_tpu_torch", "csrc")
-    out = os.path.join(tmp, "k10_baseline")
+    out = os.path.join(tmp, "keyrow_baseline")
     os.makedirs(out, exist_ok=True)
-    for f in [os.path.join(csrc, "keyrow_insert.cu")] + glob.glob(os.path.join(csrc, "*.cuh")):
+    names = ("keyrow_expand", "keyrow_insert", "path_walk")
+    for f in [os.path.join(csrc, f"{n}.cu") for n in names] + glob.glob(
+            os.path.join(csrc, "*.cuh")):
         shutil.copy(f, out)
-    lib = os.path.join(out, "libkeyrow_insert.so")
-    proc = subprocess.Popen(
-        [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-o", lib, os.path.join(out, "keyrow_insert.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return src, proc, lib
+    jobs = {}
+    for name in names:
+        lib = os.path.join(out, f"lib{name}.so")
+        jobs[name] = (subprocess.Popen(
+            [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-shared", "-Xcompiler", "-fPIC", "-o", lib, os.path.join(out, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return src, jobs
 
 
-def load_k10_baseline(job):
-    """The other tree's K10 C entry (start_k10_baseline)."""
-    src, proc, lib = job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        fail(f"K10 baseline: nvcc failed for keyrow_insert.cu of {src}:\n{log}")
-    fn = ctypes.CDLL(lib).keyrow_insert
-    fn.argtypes = K10_GRID_ONLY_SIGNATURE
-    fn.restype = ctypes.c_int
-    return src, fn
+def load_keyrow_baseline(job) -> dict:
+    """The other tree's K9, K10 and K7 C entries (start_keyrow_baseline):
+    {"source": src, "keyrow_expand": fn, "keyrow_insert": fn, "path_walk": fn}."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    src, jobs = job
+    out = dict(source=src)
+    for name, (proc, lib) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"keyrow baseline: nvcc failed for {name}.cu of {src}:\n{log}")
+        fn = getattr(ctypes.CDLL(lib), name)
+        fn.argtypes = (K9_WARP_ROW_SIGNATURE if name == "keyrow_expand"
+                       else _kernels.SIGNATURES[name])
+        fn.restype = ctypes.c_int
+        out[name] = fn
+    return out
 
 
 def grid_sync_cost() -> dict:
@@ -1320,7 +1354,14 @@ def check_k7(label: str, seen: dict, timing: bool = False) -> dict:
     the plain _walk on the same card tensors: masks and final coordinate
     identical; the bound by bytes; with ``timing`` its wrapper call (CUDA
     events, median of 10, its one host read included), device time
-    (CUPTI) and the plain walk's time.  Releases the table."""
+    (CUPTI) with the table's rows left in L2 by the call before ("warm")
+    and after writing 256 MiB elsewhere ("cold", as the engine's one walk
+    after a search finds them), the plain walk's time, and each of
+    K7_VARIANTS (the K7_NO_PREFETCH and K7_ALL_ROWS builds, another tree's
+    K7) checked against
+    K7 on the same table (the same output buffer) and timed in turns with
+    it (old, new, new, old), cold and warm.  Releases the table."""
+    from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch.search import engine as E
     from mpi_pastar_msa_tpu_torch.search import step as S
 
@@ -1341,8 +1382,39 @@ def check_k7(label: str, seen: dict, timing: bool = False) -> dict:
         go = lambda: S.walk_cuda(st, tab, layout)
         out.update(ms=time_ms(go, reps=10), device_ms=device_ms(go, 10),
                    plain_ms=time_ms(lambda: E._walk(st, tab, layout), reps=3, warmup=1))
+        # the C entries themselves on K7's arguments for this table
+        args, (_, buf) = S.walk_cuda(st, tab, layout, args_only=True)
+        evict = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MiB
+
+        def entry(fn, name):
+            def call():
+                if fn(*args[1:]):
+                    fail(f"{label}: the {name} K7 failed to launch")
+            return call
+
+        new = entry(_kernels.load("path_walk").path_walk, "engine's")
+        out["cold_device_ms"] = device_ms(new, 10, evict.zero_)
+        new()
+        torch.cuda.synchronize()
+        ref = buf.clone()
         msg = (f"; wrapper call {out['ms']:.4f} ms (CUDA events, its one read included), "
-               f"device {out['device_ms']:.4f} ms (CUPTI), plain _walk {out['plain_ms']:.2f} ms")
+               f"device {out['device_ms']:.4f} ms warm, {out['cold_device_ms']:.4f} ms cold "
+               f"(CUPTI), plain _walk {out['plain_ms']:.2f} ms")
+        for name, fn in K7_VARIANTS.items():
+            old = entry(fn, name)
+            buf.fill_(-7)
+            old()
+            torch.cuda.synchronize()
+            if not torch.equal(buf, ref):
+                fail(f"{label}: the {name} K7's walk differs from this one's")
+            v = dict(cold_turns_device_ms=[device_ms(f, 10, evict.zero_)
+                                           for f in (old, new, new, old)],
+                     warm_turns_device_ms=[device_ms(f, 10) for f in (old, new, new, old)])
+            out[f"{name}_k7"] = v
+            msg += (f"; {name} K7 identical, in turns ({name}, K7, K7, {name}) device cold "
+                    + " / ".join(f"{t:.4f}" for t in v["cold_turns_device_ms"]) + " ms, warm "
+                    + " / ".join(f"{t:.4f}" for t in v["warm_turns_device_ms"]) + " ms")
+        del evict
     print(f"  K7 {label} ({layout}): {nodes} path nodes, masks and final coordinate identical "
           f"to _walk's on the card; bound {out['bound_ms']:.5f} ms by bytes "
           f"({b / 1e6:.2f} MB){msg}")
@@ -1382,8 +1454,9 @@ def k10_tail_sweep(label: str, eng, timed: bool = False) -> dict:
                 s_ = bufs.state.tolist()
                 n, rounds = s_[S.STATE_NVALID], s_[S.STATE_CALLS]
                 tail = s_[S.STATE_CNT] if rounds else 0
-                improve = (int(((bufs.lane_dest[:n] & 2) != 0).sum())
-                           if layout == "unpacked" and n and cap else 0)
+                n_list = s_[S.STATE_NPEND]  # K10's list (unpacked: every lane)
+                improve = (int(((bufs.lane_dest[:n_list] & 2) != 0).sum())
+                           if layout == "unpacked" and n_list and cap else 0)
                 rows.append((n, rounds, tail, improve))
                 c = ctr.tolist()
                 if c[1] >= c[0] or c[6] > 0:
@@ -1449,9 +1522,12 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
     CUPTI; K10 on both its paths, with its grid syncs) beside their plain
     versions (the plain select; _expand -> prune -> candidates; the plain
     insert with its content tags) and their bounds by bytes, and K3's
-    library yardstick (torch.min over the same (B, G) view); ``baseline``
-    (load_k10_baseline) is another tree's K10, checked against this one on
-    the same tables and timed in turns with it (old, new, new, old)."""
+    library yardstick (torch.min over the same (B, G) view); K9's launch
+    shape, its surviving and pending lanes and its bounds by bytes and by
+    operations; ``baseline`` (load_keyrow_baseline) is another tree's K9
+    and K10, run as a pair from K3's state, checked against this pair
+    (tables, counters, state) and timed in turns with it (old, new, new,
+    old), and its K9 alone."""
     import dataclasses
 
     from mpi_pastar_msa_tpu_torch import _kernels
@@ -1553,15 +1629,20 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
     k9_ms = time_restored(k9, restore3, 20)
     restore3()
     k9()
-    state9, ctr9 = bufs.state.clone(), ctr.clone()
-    n_lanes = int(state9[S.STATE_NVALID])
-    pend9 = bufs.pend[:n_lanes].clone()
+    # after K9: its table (packed: t_best, where its round-0 matches
+    # settled), the goal, its state and pending list, then K10
+    state9, ctr9, after9 = bufs.state.clone(), ctr.clone(), clone_table(work)
+    n_lanes = int(state9[S.STATE_NVALID])  # surviving lanes
+    n_pend = int(state9[S.STATE_NPEND])    # of them, K10's list
+    pend9 = bufs.pend[:n_pend].clone()
+    blocks9, threads9, passes9 = S.k9_launch_shape(st.B, st.M, S._sms(tab0.t_key.device))
 
     def restore9():
-        restore3()
+        restore_tab()
+        copy_tab(work, after9)
         ctr.copy_(ctr9)
         bufs.state.copy_(state9)
-        bufs.pend[:n_lanes].copy_(pend9)
+        bufs.pend[:n_pend].copy_(pend9)
 
     k10_ms = time_restored(k10, restore9, 20)
     k10_grid_ms = time_restored(k10_grid, restore9, 20)
@@ -1592,24 +1673,44 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
     step_dev = device_ms(lambda: (k3(), k9(), k10()), 20, restore_tab)
     base = None
     if baseline is not None:
-        src, old_fn = baseline
-        old_args = S._keyrow_insert_args(st, work, bufs, ctr, fill, 0, 0, stream)[1:]
-        old_args = old_args[:19] + old_args[21:]  # that entry takes no tail list and cap
+        # the other tree's K9 -> K10 (cedea92's: a warp a row, every
+        # surviving lane pending, K10 over all of them) from K3's state, as
+        # a pair: the same table, counters and claim rounds as this pair
+        src = baseline["source"]
+        a9 = S._keyrow_expand_args(st, work, bufs, ctr, ub, stream)[1:]
+        a9 = a9[:4] + a9[6:22] + a9[24:]  # no t_best, C, blocks, threads
+        a10 = S._keyrow_insert_args(st, work, bufs, ctr, fill, 0, S.K10_CAP, stream)[1:]
 
-        def old():
-            if old_fn(*old_args):
+        def old9():
+            if baseline["keyrow_expand"](*a9):
+                fail(f"K9 baseline of {src} failed to launch")
+
+        def old_pair():
+            old9()
+            if baseline["keyrow_insert"](*a10):
                 fail(f"K10 baseline of {src} failed to launch")
 
-        restore9()
-        old()
+        pair = lambda: (k9(), k10())
+        pair_outputs = lambda: ([getattr(work, k)[:C].clone() for k in fields]
+                                + [ctr.clone(), bufs.state[:S.STATE_NPEND].clone(),
+                                   bufs.state[S.STATE_CALLS:].clone()])
+        restore3()
+        pair()
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(grid_out, k10_outputs())):
-            fail(f"key-row step {label}: the K10 of {src} differs from this one")
-        base = dict(source=src, turns_ms=[time_restored(f, restore9, 20)
-                                          for f in (old, k10, k10, old)],
-                    old_device_ms=device_ms(old, 20, restore9),
-                    new_device_ms=device_ms(k10, 20, restore9),
-                    old_grid_syncs=syncs_grid)
+        want_pair = pair_outputs()
+        restore3()
+        old_pair()
+        torch.cuda.synchronize()
+        old_lanes = int(bufs.state[S.STATE_NVALID])
+        if not all(torch.equal(a, b) for a, b in zip(want_pair, pair_outputs())):
+            fail(f"key-row step {label}: the K9 -> K10 of {src} differs from this one")
+        base = dict(source=src, old_pending=old_lanes,
+                    pair_turns_ms=[time_restored(f, restore3, 20)
+                                   for f in (old_pair, pair, pair, old_pair)],
+                    pair_turns_device_ms=[device_ms(f, 20, restore3)
+                                          for f in (old_pair, pair, pair, old_pair)],
+                    k9_turns_device_ms=[device_ms(f, 20, restore3)
+                                        for f in (old9, k9, k9, old9)])
     # the plain pieces on the same table: the plain select (not timed),
     # then _expand -> prune -> candidates for K9 and the insert for K10
     restore_tab()
@@ -1645,47 +1746,67 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
     # slot.
     bytes3 = C * (12 if unpacked else 8) + st.B * 17 + n_sel * (4 + 8)
     row_bytes = (W * 4 + 4 + 8) if unpacked else st.KW * 4
-    bytes9 = n_sel * (8 + row_bytes + 32 * P + 32 * T) + n_lanes * PW * 4
-    live = n_lanes + sum(counts[:-1])
-    settled = n_lanes - (counts[-1] if rounds else 0)
-    bytes10 = (n_lanes * PW * 4 + live * W * 4 + new_keys * (st.KW * 4 + 4)
+    # K9 (packed) also reads each surviving lane's home row and writes
+    # t_best for the ones it settles
+    matched = n_lanes - n_pend
+    bytes9 = (n_sel * (8 + row_bytes + 32 * P + 32 * T) + n_pend * PW * 4
+              + (0 if unpacked else n_lanes * W * 4 + matched * 4))
+    # K9's operations: P + T lookup-adds a mask of every listed row
+    ops9 = n_sel * st.M * (P + T)
+    live = n_pend + sum(counts[:-1])
+    settled = n_pend - (counts[-1] if rounds else 0)
+    bytes10 = (n_pend * PW * 4 + live * W * 4 + new_keys * (st.KW * 4 + 4)
                + (settled * 8 + improved * 16 if unpacked else settled * 4))
     ms = lambda b: b / HBM_BYTES_PER_S * 1e3
+    k9_bytes_ms, k9_ops_ms = ms(bytes9), ops9 / PEAK_OPS_PER_S * 1e3
     row.update(
         selected=n_sel, lanes=n_lanes, rounds=rounds, unsettled=counts, new_keys=new_keys,
         improved_slots=improved,
         k3=dict(ms=k3_ms, device_ms=k3_dev, plain_ms=k3_plain_ms, library_ms=k3_lib_ms,
                 library_device_ms=k3_lib_dev, library_bytes=lib_bytes,
                 library_bound_ms=ms(lib_bytes), bound_ms=ms(bytes3), bytes=bytes3),
-        k9=dict(ms=k9_ms, device_ms=k9_dev, plain_ms=k9_plain_ms, bound_ms=ms(bytes9),
-                bytes=bytes9),
+        k9=dict(ms=k9_ms, device_ms=k9_dev, plain_ms=k9_plain_ms,
+                bound_ms=max(k9_bytes_ms, k9_ops_ms),
+                bound_by="bytes" if k9_bytes_ms >= k9_ops_ms else "operations",
+                bytes=bytes9, bytes_bound_ms=k9_bytes_ms, ops=ops9, ops_bound_ms=k9_ops_ms,
+                blocks=blocks9, threads=threads9, passes=passes9, rows=n_sel, lanes=n_lanes,
+                pending=n_pend, settled_in_k9=matched, baseline=base),
         k10=dict(ms=k10_ms, device_ms=k10_dev, plain_ms=k10_plain_ms, bound_ms=ms(bytes10),
                  bytes=bytes10, tail=tail, grid_syncs=syncs,
                  path="block" if rounds >= 2 and tail <= S.K10_CAP else "grid",
-                 grid_ms=k10_grid_ms, grid_device_ms=k10_grid_dev, grid_path_syncs=syncs_grid,
-                 baseline=base),
+                 grid_ms=k10_grid_ms, grid_device_ms=k10_grid_dev, grid_path_syncs=syncs_grid),
         step=dict(ms=step_ms, device_ms=step_dev, plain_ms=step_plain_ms,
                   bound_ms=ms(bytes3 + bytes9 + bytes10), bytes=bytes3 + bytes9 + bytes10))
     k3_name = "K3 (unpacked)" if unpacked else "K3"
+    print(f"  K9 launch: {blocks9} blocks of {threads9} threads, a block a row, {passes9} "
+          f"pass(es) a row over {st.M} masks; {n_sel} rows listed; {n_lanes} surviving lanes "
+          f"(kNValid), {n_pend} pending for K10 (kNPend), {matched} settled in K9 by the "
+          f"round-0 match; K9's bound: bytes {k9_bytes_ms:.5f} ms ({bytes9} B), operations "
+          f"{k9_ops_ms:.5f} ms ({ops9} lookup-adds at {PEAK_OPS_PER_S / 1e12:.0f} TOP/s): "
+          f"{row['k9']['bound_by']}")
     print(f"  step {int(ctr0[2])}: {n_sel} rows, {n_lanes} lanes, {rounds} claim rounds "
           f"(unsettled after each: {counts}), {new_keys} new keys; wrapper call (CUDA "
           f"events) / device (CUPTI): {k3_name} {k3_ms:.4f} / {k3_dev:.4f} ms (plain "
           f"{k3_plain_ms:.4f}, bound {ms(bytes3):.5f}; torch.min over (B, G) alone "
           f"{k3_lib_ms:.4f} / {k3_lib_dev:.4f} ms, its bound {ms(lib_bytes):.5f}); K9 "
           f"{k9_ms:.4f} / {k9_dev:.4f} ms (plain _expand -> prune -> candidates "
-          f"{k9_plain_ms:.4f}, bound {ms(bytes9):.5f}); K10 {k10_ms:.4f} / {k10_dev:.4f} ms "
+          f"{k9_plain_ms:.4f}, bound {row['k9']['bound_ms']:.5f} by "
+          f"{row['k9']['bound_by']}); K10 {k10_ms:.4f} / {k10_dev:.4f} ms "
           f"({row['k10']['path']} path after round 0, tail {tail} lanes, {syncs} grid syncs; "
           f"at cap 0 every round on the grid {k10_grid_ms:.4f} / {k10_grid_dev:.4f} ms, "
           f"{syncs_grid} grid syncs; plain insert {k10_plain_ms:.4f}, bound "
           f"{ms(bytes10):.5f}); step {step_ms:.4f} / "
           f"{step_dev:.4f} ms (plain {step_plain_ms:.4f}, bound "
-          f"{ms(bytes3 + bytes9 + bytes10):.5f}); all bounds by bytes")
+          f"{ms(bytes3 + bytes9 + bytes10):.5f} by bytes)")
     if base is not None:
-        print(f"  K10 baseline {base['source']} (every round on the grid, {syncs_grid} grid "
-              f"syncs): the same tables, counters and state; in turns (old, new, new, old) "
-              + " / ".join(f"{t:.4f}" for t in base["turns_ms"])
-              + f" ms; device old {base['old_device_ms']:.4f} new {base['new_device_ms']:.4f} ms")
-    del work, snap, after3, selected
+        print(f"  K9 -> K10 baseline {base['source']} ({base['old_pending']} lanes pending in "
+              f"its K10, {n_pend} in this one): the same tables, counters and state; the pair "
+              f"in turns (old, new, new, old) "
+              + " / ".join(f"{t:.4f}" for t in base["pair_turns_ms"]) + " ms, device "
+              + " / ".join(f"{t:.4f}" for t in base["pair_turns_device_ms"])
+              + " ms; K9 alone, device " + " / ".join(f"{t:.4f}" for t in
+                                                      base["k9_turns_device_ms"]) + " ms")
+    del work, snap, after3, after9, selected
     return row
 
 
@@ -2186,13 +2307,14 @@ def main() -> int:
                          "the tree SRC (a checkout's root or its csrc/), check "
                          "them against these on the kinase step tables and "
                          "time them in turns with these")
-    ap.add_argument("--k10-baseline", metavar="SRC", default=None,
-                    help="also build the K10 source (keyrow_insert.cu and its "
-                         "headers; the C entry without tail list and cap, every "
-                         "claim round on the grid) of the tree SRC (a checkout's "
-                         "root or its csrc/), check it against this one on the "
-                         "globin6, kinase-unpacked and synth10 step tables and "
-                         "time them in turns")
+    ap.add_argument("--keyrow-baseline", metavar="SRC", default=None,
+                    help="also build the K9, K10 and K7 sources (keyrow_expand.cu "
+                         "with the C entry of a warp a row, keyrow_insert.cu, "
+                         "path_walk.cu and their headers) of the tree SRC (a "
+                         "checkout's root or its csrc/), check its K9 -> K10 "
+                         "pair against this one on the globin6, kinase-unpacked "
+                         "and synth10 step tables and its K7 on the timed walks, "
+                         "and time them in turns")
     ap.add_argument("--k10-sweep", action="store_true",
                     help="also time K10 on its block path and on its grid path at "
                          "every step of the globin6, kinase-unpacked and synth10 "
@@ -2227,21 +2349,26 @@ def main() -> int:
 
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    # 2. build: the kernels and, beside them, K3's and K5's measurement
-    # builds
+    # 2. build: the kernels and, beside them, K3's, K5's and K7's
+    # measurement builds (and another tree's K9, K10 and K7)
     t0 = time.perf_counter()
     phases_tmp = tempfile.TemporaryDirectory()
     phases_jobs = [start_phases_build(name, phases_tmp.name)
                    for name in ("select_best", "sig_probe")]
-    k10_job = (start_k10_baseline(os.path.abspath(args.k10_baseline), phases_tmp.name)
-               if args.k10_baseline else None)
+    k7_jobs = {v: start_phases_build("path_walk", phases_tmp.name, f"K7_{v.upper()}")
+               for v in ("no_prefetch", "all_rows")}
+    keyrow_job = (start_keyrow_baseline(os.path.abspath(args.keyrow_baseline),
+                                        phases_tmp.name) if args.keyrow_baseline else None)
     try:
         logs = _kernels.build_all()
     finally:
         phases = tuple(load_phases(job) for job in phases_jobs)
-        k10_baseline = load_k10_baseline(k10_job) if k10_job else None
-    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES and K5_PHASES builds "
-          f"in {time.perf_counter() - t0:.1f} s")
+        K7_VARIANTS.update({v: load_phases(job) for v, job in k7_jobs.items()})
+        keyrow_baseline = load_keyrow_baseline(keyrow_job) if keyrow_job else None
+    if keyrow_baseline:
+        K7_VARIANTS["baseline"] = keyrow_baseline["path_walk"]
+    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES, "
+          f"K7_NO_PREFETCH and K7_ALL_ROWS builds in {time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
              for line in log.splitlines()
              if "entry function" in line or "registers" in line or "spill" in line]
@@ -2266,7 +2393,7 @@ def main() -> int:
             report["k5_sweep"] = k5_sweep(paths, step_baseline and step_baseline[1])
         report["dependent_load"] = chase = dependent_load_ns()
         if args.step_only:
-            report["step"] = step_kernels(paths, step_baseline, floor, phases, k10_baseline,
+            report["step"] = step_kernels(paths, step_baseline, floor, phases, keyrow_baseline,
                                           args.k10_sweep)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
@@ -2280,7 +2407,7 @@ def main() -> int:
             tile = tuple(int(v) for v in tile.split("x"))
             variants.append((tile, src, build_variant_k2(tile, os.path.abspath(src), tmp)))
         report["k2"] = check_k2(paths, k2_baseline, variants)
-        report["step"] = step_kernels(paths, step_baseline, floor, phases, k10_baseline,
+        report["step"] = step_kernels(paths, step_baseline, floor, phases, keyrow_baseline,
                                       args.k10_sweep)
         # 4. / 5. main path (CLI defaults: --triples auto), then pairwise
         report["kinase"] = main_path("kinase", paths["kinase.fasta"],
@@ -2306,7 +2433,7 @@ def main() -> int:
                                                engines=engines, k7_timing=name == "globin6")
         eng, tab, ctr = warm_engine(None, "auto", 20, eng=engines.pop("synth10"))
         report["step"]["synth10_keyrow"] = keyrow_step("synth10", eng, tab, ctr,
-                                                       baseline=k10_baseline)
+                                                       baseline=keyrow_baseline)
         del tab, ctr
         report["step"]["synth10_tail"] = k10_tail_sweep("synth10", eng, args.k10_sweep)
         del eng, engines
@@ -2401,16 +2528,23 @@ def main() -> int:
             "launches": report[run]["launches"][name], "launches_run": run,
             "max_abs_err": kr_err, "ms": t["ms"], "device_ms": t["device_ms"],
             "launch_floor_ms": floor["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"),
             "library_ms": t.get("library_ms"), **{k: dict(ms=v["ms"], device_ms=v["device_ms"],
                                                           plain_ms=v["plain_ms"],
-                                                          bound_ms=v["bound_ms"])
+                                                          bound_ms=v["bound_ms"],
+                                                          bound_by=v.get("bound_by", "bytes"))
                                                    for k, v in extra.items()}})
+    # K9 at each window: its launch shape, lanes, bounds and the other
+    # tree's K9 -> K10 in turns
+    kernels[-2].update({f"{w}_k9": {k: t[k] for k in (
+        "device_ms", "blocks", "threads", "passes", "rows", "lanes", "pending",
+        "settled_in_k9", "bytes_bound_ms", "ops_bound_ms", "bound_by", "baseline")}
+        for w, t in (("globin6", g6["k9"]), ("kinase_unpacked", ku["k9"]),
+                     ("synth10", step["synth10_keyrow"]["k9"]))})
     # K10 on both paths and the other tree's, at each window
     kernels[-1].update({f"{w}_k10_paths": dict(
         path=t["path"], tail=t["tail"], grid_syncs=t["grid_syncs"], device_ms=t["device_ms"],
-        grid_path_device_ms=t["grid_device_ms"], grid_path_syncs=t["grid_path_syncs"],
-        baseline_device_ms=t["baseline"] and t["baseline"]["old_device_ms"])
+        grid_path_device_ms=t["grid_device_ms"], grid_path_syncs=t["grid_path_syncs"])
         for w, t in (("globin6", g6["k10"]), ("kinase_unpacked", ku["k10"]),
                      ("synth10", step["synth10_keyrow"]["k10"]))})
     # K7, the walk: timed on the main path's kinase table (sig), checked on
@@ -2429,7 +2563,11 @@ def main() -> int:
         "latency_floor_ms": k7["path_nodes"] * chase["l2_ns"] / 1e6,
         "latency_floor_dram_ms": k7["path_nodes"] * chase["dram_ns"] / 1e6,
         "path_nodes": k7["path_nodes"], "library_ms": None,
+        "cold_device_ms": k7["cold_device_ms"],
+        **{f"{v}_k7": k7[f"{v}_k7"] for v in K7_VARIANTS},
         **{run: dict(ms=report[run]["k7"]["ms"], device_ms=report[run]["k7"]["device_ms"],
+                     cold_device_ms=report[run]["k7"]["cold_device_ms"],
+                     **{f"{v}_k7": report[run]["k7"][f"{v}_k7"] for v in K7_VARIANTS},
                      plain_ms=report[run]["k7"]["plain_ms"],
                      bound_ms=report[run]["k7"]["bound_ms"],
                      path_nodes=report[run]["k7"]["path_nodes"],

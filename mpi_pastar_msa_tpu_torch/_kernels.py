@@ -58,11 +58,11 @@ SIGNATURES: Dict[str, List] = {
     # counters, state, blocks, stream
     "sig_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                   _P],
-    # t_key, its row stride, t_g, t_fpar, unpacked, compact list, tables4,
-    # cubes, params, N, P, T, S, n, f0, ub, E, GG, O - E, B, run, counters,
-    # state, pending list, stream
-    "keyrow_expand": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
-                      _L, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # t_key, its row stride, t_g, t_fpar, t_best, C, unpacked, compact
+    # list, tables4, cubes, params, N, P, T, S, n, f0, ub, E, GG, O - E, B,
+    # blocks, threads, run, counters, state, pending list, stream
+    "keyrow_expand": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _L, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # t_key, its row stride, N, C, claim, t_best, t_g, t_fpar, t_state,
     # unpacked, pending list, lane_slot, lane_flag, max probe rounds, fill
     # target, run, counters, state, blocks, tail list, block-path cap, stream

@@ -7,9 +7,13 @@
 // :799 _insert (unpacked), less their width ladders and compaction (XLA
 // inside the run loops :1819 and :1999).  The port's plain versions are
 // search/engine.py::_probe_claim, _insert_core_packed and _insert_core.
-// Its lanes are the pending list that keyrow_expand.cu (K9) leaves: every
-// candidate that survived the prune, with its key words, hash h0 and claim
-// tag.  Round r = 0, 1, ... of every unsettled lane:
+// Its lanes are the pending list that keyrow_expand.cu (K9) leaves, with
+// their key words, hash h0 and claim tag: on the unpacked layout every
+// candidate that survived the prune, on the packed one those that did not
+// match in their home row (K9 settles the matches, round 0's first case,
+// itself).  Its length is state[kNPend]; state[kNValid] counts every
+// surviving lane, which the counters count as lanes.  Round r = 0, 1, ...
+// of every unsettled lane:
 //   - reads the key row at probe_slot(h0, r) AS IT STOOD BEFORE ANY WRITE
 //     OF ROUND r: a row that holds the key settles the lane (match); at an
 //     empty row the lane claims the slot (atomicMin of its tag into claim);
@@ -285,14 +289,15 @@ __global__ void __launch_bounds__(kThreads, 1) keyrow_insert_kernel(
   // read it by the first grid sync, and without, a block that reads the
   // new flag has nothing to do
   if (*run == 0) return;
-  const long long n = state[step::kNValid];
+  const long long lanes = state[step::kNValid];  // K9's survivors: the counters' lanes
+  const long long n = state[step::kNPend];       // the pending list's length
   const int tid = threadIdx.x, lane = tid & 31;
   const long long first = (long long)blockIdx.x * kThreads + tid;
   const long long stride = (long long)gridDim.x * kThreads;
   cg::grid_group grid = cg::this_grid();
   int rounds = 0;
-  long long undone = n;
-  if (n > 0) {
+  long long undone = 0;
+  if (lanes > 0) {  // round 0 runs, over the list (empty if K9 settled all)
     for (long long i = first; i < n; i += stride) {
       const int32_t* e = pend + i * PW;
       const uint32_t at = step::probe_slot((uint32_t)e[t.W], 0, t.Cmask);
@@ -386,8 +391,8 @@ __global__ void __launch_bounds__(kThreads, 1) keyrow_insert_kernel(
   if (blockIdx.x == 0 && tid == 0) {
     const long long un = rounds >= 1 ? *(volatile long long*)&state[step::kCnt] : 0;
     const long long tail_n = rounds >= 2 ? *(volatile long long*)&state[step::kCnt + 1] : 0;
-    step::finish_step(counters, state, run, fill, n, undone,
-                      (long long)(rounds > 1 ? rounds - 1 : 0) * n, un, tail_n);
+    step::finish_step(counters, state, run, fill, lanes, undone,
+                      (long long)(rounds > 1 ? rounds - 1 : 0) * lanes, un, tail_n);
     state[step::kCalls] = rounds;
   }
 }
@@ -450,8 +455,9 @@ int launch(const Table& t, const void* pend, int PW, void* lane_slot, void* lane
 // int32 (t_g, t_fpar, t_state null); unpacked: t_g int32, t_fpar int64,
 // t_state int32, each (>= C,) (t_best null); C a power of two; pend: K9's
 // pending list, (lanes, W + 4 or W + 5) int32, its length in
-// state[kNValid]; lane_slot, lane_flag: (lanes,) int32 scratch; run: int32
-// device flag; counters: the 14 int64 counters; state: step_state.cuh.
+// state[kNPend] (state[kNValid]: every surviving lane); lane_slot,
+// lane_flag: (lanes,) int32 scratch; run: int32 device flag; counters: the
+// 14 int64 counters; state: step_state.cuh.
 // blocks: the cooperative grid, 0 for one block a multiprocessor; a grid
 // larger than can be co-resident is refused.  tail: (>= cap,) int32, the
 // tail list; cap: 0 .. kCap, the most lanes left after round 0 that the

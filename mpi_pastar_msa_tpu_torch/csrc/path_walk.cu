@@ -28,29 +28,46 @@
 // chip_smoke.py measures that round trip with pointer_chase (below) and
 // gives path nodes x round trip as the walk's latency floor.
 //
-// Design: one launch a run, one block walking the path serially.  Every
-// thread keeps the coordinate in registers and computes the node's
-// encoding itself (a few dozen integer operations: no broadcast, no
-// barrier for it), then loads its one probe position with the parent word
-// beside it, so a node's loads are all in flight at once: on sig 512
-// threads, one (r, way) word each; on the key-row layouts 128 threads, one
-// probe row each.  The first hit is the smallest flat index (r * 8 + way,
-// or r = the thread) among the hits: a warp ballot, each warp's first hit
-// and its parent mask into shared memory (two buffers, by the parity of
-// the iteration, so one barrier a node suffices), one __syncthreads, and
-// every thread takes the min over the warps and moves to the parent.
-// Slots are masked to the table (below C): the TRASH tail is never read.
+// Design: one launch a run, one warp walking the path serially: no shared
+// memory and no block barrier.  Every lane keeps the coordinate in
+// registers and encodes the node itself (32 copies of the same integer
+// work, in parallel).  A node is looked up in two stages:
+//   1. its home row alone (sig: lanes 0-7 one way each of home bucket row
+//      0, t_sig and t_best; key rows: every lane the same probe row 0, its
+//      W key words and its t_best or t_fpar word, one broadcast): in a
+//      finished table nearly every node is stored there, so a node costs
+//      one round trip of one or two sectors;
+//   2. on a miss there, every row, each lane issuing all its loads before
+//      any compare so that they are all in flight at once:
+//        sig:      lane l owns bucket rows l and l + 32: two int4 of t_sig
+//                  and two of t_best each; the first hit in (r, way) order
+//                  is a ballot over rows 0-31, then (if none) over rows
+//                  32-63, the way found inside the winning lane;
+//        key rows: lane l owns probe rows l, l + 32, l + 64 and l + 96:
+//                  their W key words and t_best (t_fpar) words; the first
+//                  hit in r order is a ballot over each quarter in turn.
+// The parent mask moves from the winning lane by one __shfl_sync.  Slots
+// are masked to the table (below C): the TRASH tail is never read.
+//
+// Where the node has at most 32 moves (N <= 5), lane m - 1 also encodes
+// the candidate parent coord - bits(m) and prefetches its home row into L2
+// while stage 1's loads are in flight: the next node's stage 1 then reads
+// L2, not device memory.
+//
+// Measurement builds (chip_smoke.py): -DK7_NO_PREFETCH leaves the
+// prefetch out; -DK7_ALL_ROWS skips stage 1 (every node reads every row
+// at once, with no prefetch).
 
 #include "sig_key.cuh"
 #include "step_state.cuh"
 
 namespace {
 
-constexpr int kSigThreads = 512;  // 64 bucket rows x 8 ways
-constexpr int kRowThreads = 128;  // 128 probe rows
-constexpr int kMaxN = 24;         // sig: K4's N <= 24; the key rows take N <= 16
-constexpr int kMaxW = 8;          // key words of N <= 16
-constexpr long long kNoHit = 0x7FFFFFFFFFFFFFFFll;
+constexpr int kThreads = 32;  // one warp
+constexpr int kMaxN = 24;     // sig: K4's N <= 24; the key rows take N <= 16
+constexpr int kMaxW = 8;      // key words of N <= 16
+constexpr int kSigRows = 2;   // bucket rows a lane (64 rows)
+constexpr int kKeyRows = 4;   // probe rows a lane (128 rows)
 constexpr unsigned kFull = 0xffffffffu;
 
 enum { kSig = 0, kPacked = 1, kUnpacked = 2 };
@@ -64,50 +81,190 @@ struct Table {
   uint32_t Cmask;
 };
 
-// This thread's probe position of the node at `coord`: whether it holds the
-// node, and the parent mask stored there.
-template <int kLayout>
-__device__ __forceinline__ bool probe(const Table& t, const int32_t* coord, const int* shift,
-                                      int parmask, int& par) {
-  if constexpr (kLayout == kSig) {
-    unsigned long long ckey = 0;
+// The sig encoding of the node at `coord` (home bucket, sig base word).
+__device__ __forceinline__ void sig_encode(const Table& t, const int32_t* coord,
+                                           const int* shift, uint32_t& home, uint32_t& sigb) {
+  unsigned long long ckey = 0;
 #pragma unroll
-    for (int d = 0; d < kMaxN; ++d)
-      if (d < t.N) ckey |= (unsigned long long)(uint32_t)coord[d] << shift[d];
+  for (int d = 0; d < kMaxN; ++d)
+    if (d < t.N) ckey |= (unsigned long long)(uint32_t)coord[d] << shift[d];
+  sigkey::encode(ckey, t.bbits, home, sigb);
+}
+
+// The key words and home hash of the node at `coord`.
+__device__ __forceinline__ uint32_t key_hash(const Table& t, const int32_t* coord,
+                                             uint32_t* kw) {
+#pragma unroll
+  for (int i = 0; i < kMaxW; ++i) kw[i] = i < t.W ? step::key_word(coord, i, t.N) : 0u;
+  return step::hash_keys(kw, t.W);
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Prefetch the home row of the candidate parent coord - bits(m) of this
+// lane (m = lane + 1 <= M).
+template <int kLayout>
+__device__ __forceinline__ void prefetch_parent(const Table& t, const int32_t* coord,
+                                                const int* shift) {
+  const int m = (int)threadIdx.x + 1;
+  if (t.N > 5 || m >= (1 << t.N)) return;
+  int32_t c[kMaxN];
+  bool ok = true;
+#pragma unroll
+  for (int d = 0; d < kMaxN; ++d) {
+    c[d] = coord[d] - ((m >> d) & 1);
+    ok &= c[d] >= 0;
+  }
+  if (!ok) return;
+  if constexpr (kLayout == kSig) {
     uint32_t home, sigb;
-    sigkey::encode(ckey, t.bbits, home, sigb);
-    const int r = threadIdx.x >> 3, way = threadIdx.x & 7;
-    if (r >= t.probes) return false;
-    const uint32_t slot = (((home + (uint32_t)r) & (t.Cmask >> 3)) << 3) | (uint32_t)way;
-    const int32_t s = t.keys[slot];
-    par = t.best[slot] & parmask;
-    return s == (int32_t)(sigb | (uint32_t)r);
+    sig_encode(t, c, shift, home, sigb);
+    const size_t at = (size_t)(home & (t.Cmask >> 3)) << 3;
+    prefetch_l2(t.keys + at);
+    prefetch_l2(t.best + at);
   } else {
     uint32_t kw[kMaxW];
-#pragma unroll
-    for (int i = 0; i < kMaxW; ++i) kw[i] = i < t.W ? step::key_word(coord, i, t.N) : 0u;
-    const int r = threadIdx.x;
-    if (r >= t.probes) return false;
-    const uint32_t slot = step::probe_slot(step::hash_keys(kw, t.W), r, t.Cmask);
-    const int32_t* row = t.keys + (size_t)slot * t.KWs;
+    const uint32_t at = step::probe_slot(key_hash(t, c, kw), 0, t.Cmask);
+    prefetch_l2(t.keys + (size_t)at * t.KWs);
     if constexpr (kLayout == kPacked)
-      par = t.best[slot] & parmask;
+      prefetch_l2(t.best + at);
     else
-      par = (int)(t.fpar[slot] & (long long)parmask);
-    bool eq = row[0] != -1;
-#pragma unroll
-    for (int i = 0; i < kMaxW; ++i)
-      if (i < t.W) eq &= row[i] == (int32_t)kw[i];
-    return eq;
+      prefetch_l2(t.fpar + at);
   }
 }
 
-template <int kLayout, int kThreads>
+// The first hit of the node at `coord` over the warp, in JAX's argmax
+// order, and its parent mask (every lane gets both): false if the node is
+// not stored.
+template <int kLayout>
+__device__ __forceinline__ bool lookup(const Table& t, const int32_t* coord, const int* shift,
+                                       int parmask, int& par) {
+  const int lane = threadIdx.x;
+  if constexpr (kLayout == kSig) {
+    uint32_t home, sigb;
+    sig_encode(t, coord, shift, home, sigb);
+    const uint32_t bmask = t.Cmask >> 3;
+#ifndef K7_ALL_ROWS
+    {  // 1. the home row: lane l < 8 its way l (lanes 8-31 repeat them)
+      const size_t at = ((size_t)(home & bmask) << 3) | (size_t)(lane & 7);
+      const int32_t s0 = t.keys[at], b0 = t.best[at];
+#ifndef K7_NO_PREFETCH
+      prefetch_parent<kLayout>(t, coord, shift);
+#endif
+      const unsigned ballot = __ballot_sync(kFull, lane < 8 && s0 == (int32_t)sigb);
+      if (ballot) {
+        par = __shfl_sync(kFull, b0, __ffs(ballot) - 1) & parmask;
+        return true;
+      }
+    }
+#endif
+    // 2. every row
+    int4 s[kSigRows][2], b[kSigRows][2];
+#pragma unroll
+    for (int k = 0; k < kSigRows; ++k) {  // every load first
+      const int r = lane + 32 * k;
+      const size_t at = (size_t)((home + (uint32_t)r) & bmask) << 3;
+      if (r < t.probes) {
+        const int4* sk = reinterpret_cast<const int4*>(t.keys + at);
+        const int4* bk = reinterpret_cast<const int4*>(t.best + at);
+        s[k][0] = sk[0];
+        s[k][1] = sk[1];
+        b[k][0] = bk[0];
+        b[k][1] = bk[1];
+      } else {
+        s[k][0] = s[k][1] = make_int4(-1, -1, -1, -1);  // never a sig word
+        b[k][0] = b[k][1] = make_int4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSigRows; ++k) {
+      const int32_t want = (int32_t)(sigb | (uint32_t)(lane + 32 * k));
+      const int32_t w8[8] = {s[k][0].x, s[k][0].y, s[k][0].z, s[k][0].w,
+                             s[k][1].x, s[k][1].y, s[k][1].z, s[k][1].w};
+      const int32_t p8[8] = {b[k][0].x, b[k][0].y, b[k][0].z, b[k][0].w,
+                             b[k][1].x, b[k][1].y, b[k][1].z, b[k][1].w};
+      int mine = 0, way = -1;
+#pragma unroll
+      for (int w = 7; w >= 0; --w)
+        if (w8[w] == want) {
+          way = w;  // the first matching way
+          mine = p8[w];
+        }
+      const unsigned ballot = __ballot_sync(kFull, way >= 0);
+      if (ballot) {
+        par = __shfl_sync(kFull, mine, __ffs(ballot) - 1) & parmask;
+        return true;
+      }
+    }
+    return false;
+  } else {
+    uint32_t kw[kMaxW];
+    const uint32_t h0 = key_hash(t, coord, kw);
+#ifndef K7_ALL_ROWS
+    {  // 1. the home row, read by every lane (one broadcast)
+      const uint32_t at = step::probe_slot(h0, 0, t.Cmask);
+      const int32_t* row = t.keys + (size_t)at * t.KWs;
+      int32_t key0[kMaxW];
+#pragma unroll
+      for (int i = 0; i < kMaxW; ++i) key0[i] = i < t.W ? row[i] : -1;
+      long long word0;
+      if constexpr (kLayout == kPacked)
+        word0 = t.best[at];
+      else
+        word0 = t.fpar[at];
+#ifndef K7_NO_PREFETCH
+      prefetch_parent<kLayout>(t, coord, shift);
+#endif
+      bool eq = key0[0] != -1;
+#pragma unroll
+      for (int i = 0; i < kMaxW; ++i)
+        if (i < t.W) eq &= key0[i] == (int32_t)kw[i];
+      if (eq) {  // the same in every lane
+        par = (int)(word0 & (long long)parmask);
+        return true;
+      }
+    }
+#endif
+    // 2. every row
+    int32_t key[kKeyRows][kMaxW];
+    long long word[kKeyRows];
+#pragma unroll
+    for (int k = 0; k < kKeyRows; ++k) {  // every load first
+      const int r = lane + 32 * k;
+      const uint32_t at = step::probe_slot(h0, r, t.Cmask);
+      const int32_t* row = t.keys + (size_t)at * t.KWs;
+      const bool live = r < t.probes;
+#pragma unroll
+      for (int i = 0; i < kMaxW; ++i) key[k][i] = live && i < t.W ? row[i] : -1;
+      if constexpr (kLayout == kPacked)
+        word[k] = live ? t.best[at] : 0;
+      else
+        word[k] = live ? t.fpar[at] : 0;
+      if (!live) key[k][0] = -1;  // an empty row never hits
+    }
+#pragma unroll
+    for (int k = 0; k < kKeyRows; ++k) {
+      bool eq = key[k][0] != -1;
+#pragma unroll
+      for (int i = 0; i < kMaxW; ++i)
+        if (i < t.W) eq &= key[k][i] == (int32_t)kw[i];
+      const unsigned ballot = __ballot_sync(kFull, eq);
+      if (ballot) {
+        par = (int)(__shfl_sync(kFull, word[k], __ffs(ballot) - 1) & (long long)parmask);
+        return true;
+      }
+    }
+    return false;
+  }
+}
+
+template <int kLayout>
 __global__ void __launch_bounds__(kThreads, 1)
     path_walk_kernel(Table t, const int32_t* __restrict__ params, int tmax,
                      int32_t* __restrict__ out) {
-  __shared__ long long s_hit[2][kThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x;
   const int N = t.N, parmask = (1 << N) - 1;
   int32_t coord[kMaxN];
   int shift[kMaxN];  // the sig key's field offsets
@@ -124,28 +281,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int d = 0; d < kMaxN; ++d) origin &= coord[d] == 0;
     if (origin) break;
-    int par = 0;
-    const bool hit = probe<kLayout>(t, coord, shift, parmask, par);
-    // the warp's first hit, then the block's
-    const unsigned ballot = __ballot_sync(kFull, hit);
-    const int first = ballot ? __ffs(ballot) - 1 : 0;
-    const int first_par = __shfl_sync(kFull, par, first);
-    const int p = it & 1;
-    if (lane == 0)
-      s_hit[p][warp] = ballot ? ((long long)(warp * 32 + first) << 32) | (uint32_t)first_par
-                              : kNoHit;
-    __syncthreads();
-    long long best = kNoHit;
-#pragma unroll
-    for (int k = 0; k < kThreads / 32; ++k) best = min(best, s_hit[p][k]);
-    if (best == kNoHit) break;  // not stored: the walk ends here
-    const int mask = (int)(uint32_t)best;
-    if (tid == 0) out[it] = mask;
+    int mask = 0;
+    if (!lookup<kLayout>(t, coord, shift, parmask, mask)) break;  // not stored: the walk ends
+    if (lane == 0) out[it] = mask;
 #pragma unroll
     for (int d = 0; d < kMaxN; ++d) coord[d] -= (mask >> d) & 1;
   }
-  for (int k = it + tid; k < tmax; k += kThreads) out[k] = 0;
-  if (tid == 0) {
+  for (int k = it + lane; k < tmax; k += kThreads) out[k] = 0;
+  if (lane == 0) {
 #pragma unroll
     for (int d = 0; d < kMaxN; ++d)
       if (d < N) out[tmax + d] = coord[d];
@@ -176,7 +319,7 @@ extern "C" int path_walk(int layout, const void* keys, int KWs, const void* best
   const bool sig = layout == kSig;
   if (layout < kSig || layout > kUnpacked || keys == nullptr || params == nullptr ||
       out == nullptr || N < 2 || N > (sig ? kMaxN : 2 * kMaxW) || C < 8 || (C & (C - 1)) != 0 ||
-      probes < 1 || probes > (sig ? kSigThreads / 8 : kRowThreads) || tmax < 0 ||
+      probes < 1 || probes > 32 * (sig ? kSigRows : kKeyRows) || tmax < 0 ||
       (layout == kUnpacked ? fpar == nullptr : best == nullptr))
     return (int)cudaErrorInvalidValue;
   if (sig ? (1 << (bbits + 3)) != C : KWs != W + (layout == kPacked ? 1 : 0))
@@ -187,11 +330,11 @@ extern "C" int path_walk(int layout, const void* keys, int KWs, const void* best
   const int32_t* p = (const int32_t*)params;
   int32_t* o = (int32_t*)out;
   if (sig)
-    path_walk_kernel<kSig, kSigThreads><<<1, kSigThreads, 0, s>>>(t, p, tmax, o);
+    path_walk_kernel<kSig><<<1, kThreads, 0, s>>>(t, p, tmax, o);
   else if (layout == kPacked)
-    path_walk_kernel<kPacked, kRowThreads><<<1, kRowThreads, 0, s>>>(t, p, tmax, o);
+    path_walk_kernel<kPacked><<<1, kThreads, 0, s>>>(t, p, tmax, o);
   else
-    path_walk_kernel<kUnpacked, kRowThreads><<<1, kRowThreads, 0, s>>>(t, p, tmax, o);
+    path_walk_kernel<kUnpacked><<<1, kThreads, 0, s>>>(t, p, tmax, o);
   return (int)cudaGetLastError();
 }
 

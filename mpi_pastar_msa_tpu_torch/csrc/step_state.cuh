@@ -23,7 +23,8 @@ constexpr int kReopen = 3;  // active rows whose slot was closed before (K3;
                             // unpacked: 0 from K3, the insert's reopens, K10)
 constexpr int kFmin = 4;    // f-min of this step, f0 added (K3)
 constexpr int kNValid = 5;  // candidate lanes that survive the prune (K4, K9)
-constexpr int kNPend = 6;   // of them, unmatched in their home row (K4)
+constexpr int kNPend = 6;   // of them, pending: unmatched in their home row (K4, K9
+                            // packed; K9 unpacked: all of them)
 constexpr int kCalls = 7;   // probe calls (K5) or claim rounds (K10) run
 constexpr int kCnt = 8;     // kCnt + k: lanes unsettled after call or round k
 constexpr int kMaxCalls = 128;

@@ -76,7 +76,6 @@ _EMPTY_WORD = -1   # empty way / key row: the int32 bit pattern of 0xFFFFFFFF
 _M32 = 0xFFFFFFFF
 _I64_MAX = 2**63 - 1
 TRASH = 4096  # trash slots after each table tensor (see the module doc)
-MAX_STEPS = 1_000_000  # a search that needs more steps raises
 LAYOUTS = ("auto", "sig", "packed", "unpacked")
 
 #: Counters vector (int64, one host read per chunk), slot for slot the JAX
@@ -1018,14 +1017,19 @@ class FrontierSearch:
     ``triples``: "auto" adds the triangle suffix cubes to h whenever they
     apply (N >= 3, gap open == extension, positive pair weights, cubes in
     budget); "on" and "fractional" (the all-triples cover with (n-2)-scaled
-    costs) raise ValueError when they do not; "off" keeps the pairwise h."""
+    costs) raise ValueError when they do not; "off" keeps the pairwise h.
+
+    ``max_steps``: a search still short of the goal after that many steps
+    (counted at the end of a chunk) raises RuntimeError("max_steps
+    exceeded"), as JAX's does."""
 
     def __init__(self, problem: Problem,
                  heuristic: Optional[HPairHeuristic] = None,
                  device="cuda", batch: Optional[int] = None,
                  capacity: Optional[int] = None,
                  chunk_steps: int = 64, triples: str = "auto",
-                 fill_target: Optional[int] = None, layout: str = "auto"):
+                 fill_target: Optional[int] = None, layout: str = "auto",
+                 max_steps: int = 1_000_000):
         if triples not in ("auto", "on", "off", "fractional"):
             raise ValueError(f"triples={triples!r}: choose auto, on, off or "
                              "fractional")
@@ -1053,6 +1057,7 @@ class FrontierSearch:
             batch = max(64, min(cap_b, (1 << 19) // M))
         batch = max(16, min(batch, capacity))
         batch = 1 << (batch.bit_length() - 1)  # grouped selection needs B | C
+        self.max_steps = max_steps  # a search that needs more steps raises
         self.chunk_steps = chunk_steps
 
         wi = self.heuristic.weight_i
@@ -1236,7 +1241,7 @@ class FrontierSearch:
             self.last_acct = dict(zip(
                 ("sel_proc", "lanes_true", "lanes_r0", "lanes_probe",
                  "lanes_unmatched", "lanes_tail"), c[8:14]))
-            if fmin_v >= goal_v or overflow > 0 or steps >= MAX_STEPS:
+            if fmin_v >= goal_v or overflow > 0 or steps >= self.max_steps:
                 break
         # the chunk graphs this run captured (on the card: one a table)
         captures, capture_s = capture_stats(st)
@@ -1245,7 +1250,8 @@ class FrontierSearch:
         if overflow > 0:
             raise RuntimeError(f"hash table overflow after {steps} steps "
                                f"(capacity {st.C}); increase capacity")
-        if steps >= MAX_STEPS and fmin_v < goal_v:
+        if steps >= self.max_steps and fmin_v < goal_v:
+            # JAX saves a checkpoint here first (ROADMAP Queue 1, item 4)
             raise RuntimeError("max_steps exceeded")
         if goal_v >= INF:
             raise RuntimeError("open set exhausted without reaching the goal")

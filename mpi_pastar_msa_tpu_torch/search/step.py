@@ -26,11 +26,15 @@ back on the current stream with no host read between them:
                                most ``K5_CAP``, else the whole cooperative
                                grid), then the step's 14 counters and the
                                run flag (``_probe_args``)
-  K9 ``csrc/keyrow_expand.cu`` packed and unpacked: over K3's list, the
-                               row's key words, expand, prune, the
-                               children's key words, hash and content tag;
-                               every surviving lane goes to the pending
-                               list (``_keyrow_expand_args``)
+  K9 ``csrc/keyrow_expand.cu`` packed and unpacked: over K3's list, a
+                               block a row (``k9_launch_shape``): the
+                               row's key words and term tables, expand,
+                               prune, the children's key words, hash and
+                               content tag; on the packed layout the
+                               round-0 match of the insert (a lane whose
+                               home row holds its key settles there);
+                               the other surviving lanes go to the
+                               pending list (``_keyrow_expand_args``)
   K10 ``csrc/keyrow_insert.cu`` packed and unpacked: the claim rounds of
                                the pending lanes, round 0 on the
                                cooperative grid and the rest in one block
@@ -110,6 +114,13 @@ K5_CAP = 2048
 # (chip_smoke.py --k10-sweep, kinase pinned to unpacked: its tail median
 # is 604 lanes, globin6's 67, synth10's 0)
 K10_CAP = 1024
+# K9's block: a row's masks over at most this many threads (kMaxThreads
+# of csrc/keyrow_expand.cu)
+K9_MAX_THREADS = 256
+# K9's grid: at most this many blocks a multiprocessor, and 1024 threads
+# (the kernel's 64 registers a thread of the H100's 65,536 a
+# multiprocessor), so that the grid is resident at once
+K9_BLOCKS_AN_SM = 16
 # K7's C entry: the layout codes
 WALK_LAYOUTS = {"sig": 0, "packed": 1, "unpacked": 2}
 
@@ -376,14 +387,40 @@ def _check_keyrow(st: _Static, tab, counters):
     return dev, layout
 
 
+def k9_launch_shape(B: int, M: int, sms: int = 132) -> Tuple[int, int, int]:
+    """(blocks, threads a block, passes a row) of K9 (csrc/keyrow_expand.cu)
+    for a batch of ``B`` rows of ``M`` masks on a card of ``sms``
+    multiprocessors.  A block takes a row: its threads are the row's masks
+    rounded up to a warp, at most ``K9_MAX_THREADS`` (one warp at M <= 31:
+    a warp a row), so a row takes ceil(M / threads) passes (synth10: 1023
+    masks, 256 threads, 4 passes).  The grid is a block a row, up to
+    ``K9_BLOCKS_AN_SM`` blocks and 1024 threads a multiprocessor (what it
+    holds at once at the kernel's 64 registers a thread); its blocks
+    stride over K3's list, whose length (at most B) only the card knows,
+    so the listed rows spread over every multiprocessor."""
+    threads = min(K9_MAX_THREADS, -(-M // 32) * 32)
+    per_sm = min(K9_BLOCKS_AN_SM, 1024 // threads)
+    return min(B, sms * per_sm), threads, -(-M // threads)
+
+
+def _sms(dev) -> int:
+    """The multiprocessors of ``dev``: the card's, or the H100's 132 for a
+    CPU device (the stub tests' tables)."""
+    if dev.type != "cuda":
+        return 132
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _keyrow_expand_args(st, tab, bufs, counters, ub, stream) -> tuple:
     unpacked = isinstance(tab, UnpackedTable)
+    blocks, threads, _ = k9_launch_shape(st.B, st.M, _sms(tab.t_key.device))
     return ("keyrow_expand", tab.t_key.data_ptr(), tab.t_key.shape[1],
             tab.t_g.data_ptr() if unpacked else None, tab.t_fpar.data_ptr() if unpacked else None,
-            int(unpacked), bufs.sel.data_ptr(), st.d_tables4.data_ptr(),
+            None if unpacked else tab.t_best.data_ptr(), st.C, int(unpacked),
+            bufs.sel.data_ptr(), st.d_tables4.data_ptr(),
             st.d_cubes.data_ptr() if st.T3 else None, bufs.params.data_ptr(), st.n, st.P,
             st.T3, st.S, st.nb, st.f0, int(ub), GAP_EXTENSION, GAP_GAP, st.gap_oe, st.B,
-            bufs.run.data_ptr(), counters.data_ptr(), bufs.state.data_ptr(),
+            blocks, threads, bufs.run.data_ptr(), counters.data_ptr(), bufs.state.data_ptr(),
             bufs.pend.data_ptr(), stream)
 
 
@@ -560,13 +597,15 @@ def capture_stats(st: _Static):
     return (bufs.captures, bufs.capture_s) if bufs is not None else (0, 0.0)
 
 
-def walk_cuda(st: _Static, tab, layout: str) -> Tuple[np.ndarray, np.ndarray]:
+def walk_cuda(st: _Static, tab, layout: str, args_only: bool = False):
     """K7 (``csrc/path_walk.cu``): ``engine._walk`` on the card, the same
     outputs, (parent masks, last coordinate) as int64 arrays, from one
     launch on the table's device's current stream and one host read.
     Raises ValueError on a table that is not ``layout``'s, not on a CUDA
     device or not of the statics' size, and RuntimeError when the launch
-    fails."""
+    fails.  ``args_only`` launches nothing and returns K7's C arguments on
+    the checked table (name first) and the (params, out) buffers they
+    point to, for a caller that times the C entry itself."""
     want = {"sig": SigTable, "packed": PackedTable, "unpacked": UnpackedTable}.get(layout)
     if want is None or not isinstance(tab, want):
         raise ValueError(f"the walk of layout {layout!r} needs its table, got "
@@ -598,9 +637,12 @@ def walk_cuda(st: _Static, tab, layout: str) -> Tuple[np.ndarray, np.ndarray]:
     n, tmax = st.n, int(st.final_np.sum())
     params = torch.tensor(list(st.final_np) + list(st.bitw), dtype=torch.int32).to(dev)
     out = torch.empty(tmax + n + 1, dtype=torch.int32, device=dev)
-    _kernels.launch("path_walk", WALK_LAYOUTS[layout], keys.data_ptr(), stride,
-                    None if best is None else best.data_ptr(),
-                    None if fpar is None else fpar.data_ptr(), n, st.C, st.bbits, probes,
-                    params.data_ptr(), tmax, out.data_ptr(), _stream(dev))
+    args = ("path_walk", WALK_LAYOUTS[layout], keys.data_ptr(), stride,
+            None if best is None else best.data_ptr(),
+            None if fpar is None else fpar.data_ptr(), n, st.C, st.bbits, probes,
+            params.data_ptr(), tmax, out.data_ptr(), _stream(dev))
+    if args_only:
+        return args, (params, out)
+    _kernels.launch(*args)
     res = out.cpu().numpy().astype(np.int64)  # the run's one read
     return res[:int(res[tmax + n])], res[tmax:tmax + n]

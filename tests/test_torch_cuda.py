@@ -676,7 +676,7 @@ def family(seed, n, L, sub):
     ("PF08184.fasta", "packed", 6, {}), ("PF08184.fasta", "unpacked", 6, {}),
     ("test.fasta", "packed", 2, {}), ("test2.fasta", "unpacked", 8, {}),
     ("kinase.fasta", "unpacked", 40, {}), ("synth6", "packed", 20, {}),
-    # N = 10: 1023 masks a row, 32 passes of a warp in K9
+    # N = 10: 1023 masks a row, 4 passes of a block of 256 threads in K9
     ("synth10", "packed", 5, dict(capacity=1 << 20))])
 def test_keyrow_step_kernels_equal_plain_step(cuda, name, layout, warm, kw):
     # 1 and 8 steps from a mid-search table through the kernels (a chunk
@@ -697,6 +697,39 @@ def test_keyrow_step_kernels_equal_plain_step(cuda, name, layout, warm, kw):
         assert_same_tables(st, ka, kc, pa, pc)
         # n steps, or fewer when the search ended inside them
         assert int(kc[2]) == int(ctr[2]) + n or int(kc[1]) >= int(kc[0]) > 0
+
+
+@pytest.mark.parametrize("name,layout,warm,kw", [
+    ("globin6", "packed", 60, {}), ("kinase.fasta", "unpacked", 150, {}),
+    ("synth10", "packed", 20, dict(capacity=1 << 20))])
+def test_k9_settles_home_matches_and_k10_equals_plain(cuda, name, layout, warm, kw):
+    # the smoke's step windows: one step of K9 -> K10 (eager and graph, K10
+    # at its cap and at 0) against the plain step; on the packed layout K9
+    # settles the lanes whose home row holds their key, so K10's list
+    # (state[kNPend]) is shorter than the surviving lanes (state[kNValid],
+    # the counters' lanes); on the unpacked layout every lane is pending
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    eng = keyrow_engine(name, cuda, layout, **kw)
+    st, ub, fill = eng.st, eng.ub, eng.fill_target
+    assert eng.layout == layout
+    tab, ctr = warm_keyrow(eng, warm)
+    pa = clone_tab(tab)
+    pc = E._run_chunk_plain(st, pa, ctr, 1, ub, fill, layout, plain_select=True)
+    for graph, cap in itertools.product((False, True), (S.K10_CAP, 0)):
+        ka = clone_tab(tab)
+        kc = S.run_chunk_keyrow_cuda(st, ka, ctr, 1, ub, fill, cap=cap, graph=graph)
+        assert_same_tables(st, ka, kc, pa, pc)
+        s_ = S._step_buffers(st, ka.t_key.device, layout).state.tolist()
+        n_valid, n_pend = s_[S.STATE_NVALID], s_[S.STATE_NPEND]
+        assert n_valid == int(kc[9]) - int(ctr[9]) > 0
+        if layout == "unpacked":
+            assert n_pend == n_valid
+        elif name == "globin6":
+            assert 0 < n_pend < n_valid
+        else:
+            assert n_pend <= n_valid
 
 
 def test_keyrow_n16_packed_and_degenerate_equal_plain(cuda, monkeypatch):
@@ -803,13 +836,14 @@ def test_keyrow_end_to_end_counts(cuda, name, layout, expanded, reopened, steps)
 
 # ------------------------------------------------------------ K7, the walk
 
-def planted_walk(n, layout, seed, device):
+def planted_walk(n, layout, seed, device, far=False):
     """Statics of a random n-sequence problem on ``device`` and a table of
     its layout holding a planted path from the goal to the origin (random
     nonzero parent masks), each node at its first free probe position from
-    a random one in 0 .. 3, behind other keys (sig: other words of its
-    rows; key rows: other coordinates), and random other entries: (statics,
-    CPU table, the path's masks)."""
+    a random one in 0 .. 3 (``far``: in 32 .. 39, the second half of K7's
+    rows), behind other keys (sig: other words of its rows; key rows: other
+    coordinates), and random other entries: (statics, CPU table, the
+    path's masks)."""
     from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
     from mpi_pastar_msa_tpu_torch.search import engine as E
 
@@ -833,7 +867,7 @@ def planted_walk(n, layout, seed, device):
         pick = live[rs.rand(len(live)) < 0.5]
         mask = int(sum(1 << int(d) for d in (pick if len(pick) else live[:1])))
         c = torch.as_tensor(coord)[None, :]
-        r = rs.randint(0, 4)
+        r = rs.randint(32, 40) if far else rs.randint(0, 4)
         if layout == "sig":
             home, sigb = (int(v[0]) for v in E._sig_encode(st, c))
             for q in range(r):  # other keys' words in the rows before
@@ -866,18 +900,20 @@ def planted_walk(n, layout, seed, device):
     return st, tab, np.array(masks, dtype=np.int64)
 
 
-@pytest.mark.parametrize("layout,n", [("sig", 3), ("sig", 5), ("sig", 8),
-                                      ("packed", 3), ("packed", 8), ("packed", 12),
-                                      ("packed", 16), ("unpacked", 4), ("unpacked", 9),
-                                      ("unpacked", 16)])
-def test_k7_walk_equals_plain(cuda, layout, n):
+@pytest.mark.parametrize("layout,n,far", [
+    ("sig", 3, False), ("sig", 5, False), ("sig", 8, False), ("packed", 3, False),
+    ("packed", 8, False), ("packed", 12, False), ("packed", 16, False),
+    ("unpacked", 4, False), ("unpacked", 9, False), ("unpacked", 16, False),
+    # every first hit in the second half of the warp's rows
+    ("sig", 5, True), ("packed", 8, True), ("unpacked", 16, True)])
+def test_k7_walk_equals_plain(cuda, layout, n, far):
     # K7 on planted tables against _walk on the same card tensors: the
     # same masks and final coordinate; then with one node's entry made
     # another key's, where both end there
     from mpi_pastar_msa_tpu_torch.search import engine as E
     from mpi_pastar_msa_tpu_torch.search import step as S
 
-    st, tab, want = planted_walk(n, layout, 100 + n, cuda)
+    st, tab, want = planted_walk(n, layout, 100 + n, cuda, far)
     assert layout != "sig" or st.sig_ok
     ctab = type(tab)(*(t.to(cuda) for t in vars(tab).values()))
     before = _kernels.launches["path_walk"]

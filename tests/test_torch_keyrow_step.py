@@ -320,22 +320,71 @@ class KernelStatics:
         self.cubes = st.d_cubes.numpy() if st.T3 else None
 
 
+def pair_terms(ks, t8, par, gap_oe):
+    """expand_row.cuh pair_terms: (P, 4) cost and h terms of a row, entry
+    [p, 2 bx + by], from its T8 rows ``t8`` (P, 5) and parent mask."""
+    E, GG = GAP_EXTENSION, GAP_GAP
+    bx, by = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1])
+    w, wh = ks.w.astype(np.int64)[:, None], ks.wh.astype(np.int64)[:, None]
+    mm = t8[:, 4:5].astype(np.int64)
+    cost = w * (GG + (E - GG) * (bx + by) + (bx & by) * (mm + GG - 2 * E))
+    cost += gap_oe * w * (bx * (1 - by) * (par >> ks.ys[:, None] & 1)
+                          + (1 - bx) * by * (par >> ks.xs[:, None] & 1))
+    return cost, t8[:, :4].astype(np.int64) * wh
+
+
+def term_sums(ks, cost_t, h_t, cube, ms):
+    """expand_row.cuh child_cost_h_terms for the masks ``ms``: P lookups of
+    the term tables and T cube corners each."""
+    idx = ((ms[:, None] >> ks.xs) & 1) * 2 + ((ms[:, None] >> ks.ys) & 1)
+    p = np.arange(len(ks.xs))
+    h = h_t[p, idx].sum(1)
+    for t, (x, y, z) in enumerate(ks.tri):
+        h = h + cube[t, 4 * (ms >> x & 1) + 2 * (ms >> y & 1) + (ms >> z & 1)]
+    return cost_t[p, idx].sum(1), h
+
+
+def k9_home_match(st, tab, entries):
+    """K9's round-0 match on the packed layout: a lane whose home probe row
+    holds its key settles there (t_best min of its packed word).  Returns
+    (the lanes that stay pending, the settled ones); the unpacked layout
+    keeps every lane pending."""
+    if isinstance(tab, TE.UnpackedTable):
+        return list(entries), []
+    W, key = st.W, tab.t_key.numpy()
+    left, settled = [], []
+    for e in entries:
+        at = (e[W] & M32) & (st.C - 1)
+        if key[at, 0] != -1 and key[at, :W].tolist() == list(e[:W]):
+            tab.t_best[at] = min(int(tab.t_best[at]), e[W + 3])
+            settled.append(e)
+        else:
+            left.append(e)
+    return left, settled
+
+
 def emu_k9(ks, tab, sel, goal, ub, rng):
-    """csrc/keyrow_expand.cu: warps over K3's list ``sel`` of (slot, word)
-    rows in a random order; a warp reads its row (coordinate from the key
-    words; packed g = f - h(column W), unpacked g, parent mask and parent
-    f from t_g and t_fpar), stages its T8 rows and cube corners and runs
-    the masks in passes of 32 lanes: cost and h per pair, pathmax
-    (unpacked), the goal before the prune, then each pass's surviving
-    lanes take consecutive places of the pending list at one atomic, in
-    lane order.  Returns (goal, pending entries in list order)."""
+    """csrc/keyrow_expand.cu: a block a row of K3's list ``sel`` of (slot,
+    word) rows, the block's threads and passes and the grid from
+    step.k9_launch_shape, blocks striding over the list and running in a
+    random interleaving.  A block reads its row (coordinate from the key
+    words; packed g = f - h(column W), unpacked g, parent mask and parent f
+    from t_g and t_fpar), builds its term tables (pair_terms) and cube
+    corners, and takes the masks in passes of its threads: cost and h as
+    term sums, validity and the goal as the row's two masks, pathmax
+    (unpacked), the goal before the prune; on the packed layout each
+    surviving lane then reads its home row (k9_home_match: the table as K3
+    left it); each pass's pending lanes take consecutive places at the
+    block's one atomic, in thread order.  Returns (goal, pending entries in
+    list order, surviving lanes, entries settled by the home-row match)."""
     st = ks.st
     S, N, nb, f0, W, M = st.S, st.n, st.nb, st.f0, st.W, st.M
-    E, GG, gap_oe = GAP_EXTENSION, GAP_GAP, st.gap_oe
     unpacked = isinstance(tab, TE.UnpackedTable)
     key = tab.t_key.numpy()
-    passes = []
-    for i in rng.permutation(len(sel)).tolist():
+    blocks, threads, passes = TS.k9_launch_shape(st.B, M)
+    by_block = {}
+    n_valid = 0
+    for i in range(len(sel)):
         slot, v = int(sel[i][0]), int(sel[i][1])
         row = key[slot]
         coord = np.array([(int(row[d // 2]) & M32) >> (16 * (d % 2)) & 0xFFFF
@@ -354,44 +403,51 @@ def emu_k9(ks, tab, sel, goal, ub, rng):
             g, par, f_par = int(tab.t_g[slot]), fp & ((1 << nb) - 1), fp >> nb
         else:
             g, par = (v >> nb) + f0 - int(row[W]), v & ((1 << nb) - 1)
-        for m0 in range(1, M + 1, 32):
-            lanes = {}
-            for lane in rng.permutation(32).tolist():
-                m = m0 + lane
-                if m > M:
-                    continue
-                bx, by = m >> ks.xs & 1, m >> ks.ys & 1
-                cost = int((ks.w * (GG + (E - GG) * (bx + by)
-                                    + (bx & by) * (t8[:, 4] + GG - 2 * E))).sum())
-                cost += gap_oe * int((ks.w * (bx * (1 - by) * (par >> ks.ys & 1)
-                                              + (1 - bx) * by * (par >> ks.xs & 1))).sum())
-                h = int((t8[np.arange(st.P), 2 * bx + by] * ks.wh).sum())
-                for t, (x, y, z) in enumerate(ks.tri):
-                    h += int(cube[t, 4 * (m >> x & 1) + 2 * (m >> y & 1) + (m >> z & 1)])
+        cost_t, h_t = pair_terms(ks, t8, par, st.gap_oe)
+        final = ks.final
+        room = int(sum(int(c < f) << d for d, (c, f) in enumerate(zip(coord, final))))
+        near = bool(((coord == final) | (coord + 1 == final)).all())
+        goal_m = int(sum(int(c + 1 == f) << d for d, (c, f) in enumerate(zip(coord, final)))
+                     ) if near else -1
+        fits = bool((coord <= final).all())
+        for ps in range(passes):
+            ms = 1 + ps * threads + np.arange(threads)
+            valid = (ms <= M) & fits & ((ms & ~room) == 0)
+            cost, h = term_sums(ks, cost_t, h_t, cube, np.minimum(ms, M))
+            gc, fc = g + cost, g + cost + h
+            if unpacked:
+                fc = np.maximum(fc, f_par)
+            if valid[ms == goal_m].any():
+                goal = min(goal, int(gc[ms == goal_m][0]))  # before the prune
+            valid &= fc <= ub
+            n_valid += int(valid.sum())
+            lanes = []
+            for k in np.flatnonzero(valid).tolist():  # thread order
+                m = int(ms[k])
                 child = coord + (m >> np.arange(N) & 1)
-                gc, fc = g + cost, g + cost + h
-                if unpacked:
-                    fc = max(fc, f_par)
-                if (child == ks.final).all():
-                    goal = min(goal, gc)  # before the prune
-                if not ((child <= ks.final).all() and fc <= ub):
-                    continue
-                words = [int(child[2 * k]) | (int(child[2 * k + 1]) << 16 if 2 * k + 1 < N else 0)
-                         for k in range(W)]
+                words = [int(child[2 * j]) | (int(child[2 * j + 1]) << 16
+                                              if 2 * j + 1 < N else 0) for j in range(W)]
                 entry = [i32(w) for w in words] + [i32(hash_words(words)), i * M + m - 1]
                 if unpacked:
-                    fpar = fc * (1 << nb) + m
-                    entry += [gc, i32(fpar), fpar >> 32]
+                    fpar = int(fc[k]) * (1 << nb) + m
+                    entry += [int(gc[k]), i32(fpar), fpar >> 32]
                 else:
-                    entry += [h, ((fc - f0) << nb) | m]
-                lanes[lane] = tuple(entry)
-            passes.append([lanes[k] for k in sorted(lanes)])
-    # a warp's atomic takes the next places: passes land in the order of
-    # their atomics, here a random one
-    pend = []
-    for k in rng.permutation(len(passes)).tolist():
-        pend += passes[k]
-    return goal, pend
+                    entry += [int(h[k]), ((int(fc[k]) - f0) << nb) | m]
+                lanes.append(tuple(entry))
+            by_block.setdefault(i % blocks, []).append(lanes)
+    # blocks run at once: their passes' atomics interleave in a random
+    # order, each block's in its own order; the home-row reads see the
+    # table as K3 left it (K9 writes no key row)
+    queues = list(by_block.values())
+    pend, matched = [], []
+    while queues:
+        q = queues[int(rng.integers(len(queues)))]
+        left, settled = k9_home_match(st, tab, q.pop(0))
+        if not q:
+            queues.remove(q)
+        pend += left
+        matched += settled
+    return goal, pend, n_valid, matched
 
 
 def plain_pending(st, tab, coords, g, par, f_par, active, ub):
@@ -429,7 +485,7 @@ def mid_search(seqs, layout, triples, batch, capacity, steps):
 
 @pytest.mark.parametrize("name,triples,steps", [
     ("rand4", "auto", 5), ("rand4", "off", 5), ("rand6", "auto", 4), ("test2", "off", 6),
-    # N = 10: 1023 masks, 32 passes of a warp
+    # N = 10: 1023 masks, 4 passes of a block of 256 threads
     ("rand10", "off", 2)])
 @pytest.mark.parametrize("layout", ["packed", "unpacked"])
 def test_k9_lanes_equal_plain_and_jax(name, triples, steps, layout):
@@ -444,13 +500,25 @@ def test_k9_lanes_equal_plain_and_jax(name, triples, steps, layout):
         st, ptab, torch.tensor(goal), torch.tensor(thr))
     assert int(active.sum()) > 0
     want_goal, want = plain_pending(st, tab, coords, g, par, f_par, active, ub)
-    # the kernels' view: K3 then K9 on a copy
+    # the kernels' view: K3 then K9 on a copy; on the packed layout the
+    # lanes whose home row holds their key settle in K9 (t_best as the
+    # plain insert's round 0 leaves it), the rest stay pending
     etab = clone(tab)
     sel = emu_k3(st, etab, goal, thr)[7]
-    egoal, pend = emu_k9(KernelStatics(st), etab, sel, goal, ub, np.random.default_rng(2))
+    before = clone(etab)
+    egoal, pend, n_valid, matched = emu_k9(KernelStatics(st), etab, sel, goal, ub,
+                                           np.random.default_rng(2))
     assert egoal == min(goal, want_goal)
-    assert sorted(pend) == want and len(pend) > 0
-    assert len({e[st.W + 1] for e in pend}) == len(pend)  # unique tags
+    assert sorted(pend + matched) == want and len(pend) > 0 and n_valid == len(want)
+    assert len({e[st.W + 1] for e in pend + matched}) == n_valid  # unique tags
+    left, settled = k9_home_match(st, before, sorted(pend + matched))
+    assert sorted(left) == sorted(pend) and sorted(settled) == sorted(matched)
+    assert same_table(before, etab, st.C)
+    if layout == "unpacked":
+        assert matched == []
+    elif name.startswith("rand") and triples == "off":
+        assert matched  # children already stored at their home rows
+    pend = pend + matched
     # and JAX's _expand on the same rows: g, f, validity and key words
     jst = statics(seqs, 16, 1 << 14, triples)[0]
     rows = torch.nonzero(active)[:, 0]
@@ -476,11 +544,123 @@ def test_k9_lanes_equal_plain_and_jax(name, triples, steps, layout):
             assert e[st.W + 2] == int(np.asarray(jg)[k])
 
 
+@pytest.mark.parametrize("N", range(3, 17))
+def test_k9_term_tables_equal_child_cost_h(N):
+    # expand_row.cuh: a mask's cost and h as sums of the row's term tables
+    # (pair_terms) against child_cost_h's per-pair products, for every mask
+    # of N sequences, with O - E != 0 (the parent-mask gap terms) and cubes
+    rs = np.random.RandomState(N)
+    E, GG, gap_oe = GAP_EXTENSION, GAP_GAP, 7
+    pairs = [(x, y) for x in range(N) for y in range(x + 1, N)]
+    tri = np.array([t for t in [(0, 1, 2), (N - 3, N - 2, N - 1), (0, N // 2, N - 1)]
+                    if len(set(t)) == 3])
+    ks = types.SimpleNamespace(xs=np.array([x for x, _ in pairs]),
+                               ys=np.array([y for _, y in pairs]),
+                               w=rs.randint(1, 1 << 20, size=len(pairs)),
+                               wh=rs.randint(1, 1 << 12, size=len(pairs)), tri=tri)
+    t8 = rs.randint(-(1 << 20), 1 << 20, size=(len(pairs), 5)).astype(np.int64)
+    cube = rs.randint(-(1 << 24), 1 << 24, size=(len(tri), 8)).astype(np.int64)
+    par = int(rs.randint(1, 1 << N))
+    cost_t, h_t = pair_terms(ks, t8, par, gap_oe)
+    w, wh = ks.w.astype(np.int64), ks.wh.astype(np.int64)
+    for m0 in range(1, 1 << N, 8192):
+        ms = np.arange(m0, min(m0 + 8192, 1 << N))
+        bx, by = (ms[:, None] >> ks.xs) & 1, (ms[:, None] >> ks.ys) & 1
+        # child_cost_h, pair by pair
+        cost = (w * (GG + (E - GG) * (bx + by) + (bx & by) * (t8[:, 4] + GG - 2 * E))).sum(1)
+        cost += (gap_oe * w * (bx * (1 - by) * (par >> ks.ys & 1)
+                               + (1 - bx) * by * (par >> ks.xs & 1))).sum(1)
+        h = (t8[np.arange(len(pairs)), 2 * bx + by] * wh).sum(1)
+        for t, (x, y, z) in enumerate(tri):
+            h += cube[t, 4 * (ms >> x & 1) + 2 * (ms >> y & 1) + (ms >> z & 1)]
+        got_cost, got_h = term_sums(ks, cost_t, h_t, cube, ms)
+        assert np.array_equal(got_cost, cost) and np.array_equal(got_h, h)
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_k9_match_and_k10_claims_on_planted_keys(layout):
+    # one step's lanes on a planted table: two lanes of a key stored at
+    # its home row (packed: K9 settles both, t_best their min); two lanes of
+    # other rows with one new key that both claim its empty home row in
+    # K10's round 0 (the smaller tag writes, the other matches on the
+    # re-read); a new key whose home row holds the stored key, so it goes
+    # on to K10 and a later round; a new key alone.  Then K10 on what K9
+    # left: every table tensor (claim included) and the counters the plain
+    # insert's
+    jst, st = statics(golden_seqs("kinase.fasta"), 64, 1 << 10)
+    rs = np.random.RandomState(11)
+    tab, _ = keyrow_table(jst, st, rs, layout, 0)
+    pool = np.unique(np.stack([rs.randint(0, int(v) + 1, size=20000) for v in st.final_np],
+                              1), axis=0)
+    home = TE._hash_keys(TE._pack_keys(torch.from_numpy(pool), st.W)).numpy() & (st.C - 1)
+    k1 = 0
+    k3 = int(np.flatnonzero(home == home[k1])[1])  # another key, the same home row
+    k2, k4 = (int(k) for k in np.flatnonzero((home != home[k1])
+                                               & (home != home[k3]))[:2])
+    assert home[k2] != home[k4]
+    stored = torch.from_numpy(pool[[k1]])
+    if layout == "packed":
+        TE._insert_core_packed(st, tab, TE._pack_keys(stored, st.W),
+                               torch.tensor([77]), torch.tensor([(900 << st.nb) | 1]))
+    else:
+        TE._insert_core(st, tab, TE._pack_keys(stored, st.W), torch.tensor([1500]),
+                        torch.tensor([2500]), torch.tensor([1]))
+    assert int(tab.t_key[home[k1], 0]) != -1
+    coords = torch.from_numpy(pool[[k1, k1, k2, k2, k3, k4]])
+    tag = torch.tensor([5, 9, 3, 7, 1, 2])
+    L = len(tag)
+    keys = TE._pack_keys(coords, st.W)
+    if layout == "packed":
+        args = (keys, coords.sum(1) * 7, torch.tensor([800, 700, 600, 500, 400, 300]) << st.nb
+                | torch.tensor([1, 2, 3, 4, 5, 6]))
+    else:
+        args = (keys, torch.tensor([1400, 1450, 1000, 1001, 1002, 1003]),
+                torch.tensor([2400, 2450, 2000, 2001, 2002, 2003]), torch.arange(1, L + 1))
+    want = clone(tab)
+    insert = TE._insert_core_packed if layout == "packed" else TE._insert_core
+    ovf, reopen, acct = insert(st, want, *args, tag)
+    pend = entries(st, args, tag, layout)
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        got = clone(tab)
+        left, settled = k9_home_match(st, got, [pend[k] for k in rng.permutation(L)])
+        if layout == "packed":  # K9 settles the stored key's lanes: 4 of 6 pending
+            assert sorted(settled) == sorted(pend[:2]) and len(left) == L - 2
+            assert int(got.t_best[home[k1]]) == min(pend[0][st.W + 3], pend[1][st.W + 3],
+                                                    int(tab.t_best[home[k1]]))
+        else:
+            assert settled == [] and len(left) == L
+        rounds, counts, ereopen, _ = emu_k10(st, got, left, rng, lanes=L)
+        assert same_table(got, want, st.C)  # claim included
+        assert k10_acct(L, rounds, counts) == acct.tolist() and int(ovf) == 0
+        assert ereopen == int(reopen)
+        # after round 0 only the key behind the stored one is open
+        assert counts[0] == 1 and rounds >= 2
+    assert int(want.claim[home[k2]]) == 3 and int(want.claim[home[k4]]) == 2
+    assert want.t_key[home[k2], :st.W].tolist() == TE._as_i32(keys[2]).tolist()
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_n10_steps_equal_plain_step(layout):
+    # N = 10, 1023 masks a row: K3 -> K9 -> K10 emulated for two steps
+    # from a mid-search table against the plain step (tables and counters)
+    seqs = random_seqs(10, 10, 8, 14)
+    eng, tab, ctr = mid_search(seqs, layout, "off", 16, 1 << 14, 2)
+    st = eng.st
+    a, b = clone(tab), clone(tab)
+    ca = TE._run_chunk_plain(st, a, ctr, 2, eng.ub, eng.fill_target, layout)
+    cb = emu_chunk(st, b, ctr, 2, eng.ub, eng.fill_target, np.random.default_rng(4))
+    assert ca.tolist() == cb.tolist() and same_table(a, b, st.C)
+    assert int(ca[2]) == int(ctr[2]) + 2 and int(ca[9]) - int(ctr[9]) > 1023
+
+
 # ----------------------------------------------------------------------- K10
 
-def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP):
-    """csrc/keyrow_insert.cu on the pending list ``pend`` (K9's entries),
-    in place: ``blocks`` blocks whose threads stride over the lanes; round
+def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP, lanes=None):
+    """csrc/keyrow_insert.cu on the pending list ``pend`` (K9's entries; of
+    ``lanes`` surviving lanes, default all of them: round 0 runs when there
+    is one, over the list), in place: ``blocks`` blocks whose threads
+    stride over the list; round
     0's reads (grid sync), its claim winners' writes (grid sync), its
     losers' re-reads merged with round 1's reads, each lane left appending
     itself to the tail list (grid sync); then, when the tail holds at most
@@ -557,7 +737,7 @@ def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP):
             probe(i, r + 1)
 
     rounds, counts, syncs, block = 0, [], 0, False
-    if n:
+    if n if lanes is None else lanes:
         phase(lambda i: probe(i, 0))
         syncs += 1
         tail, r = [], 0
@@ -596,7 +776,7 @@ def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP):
                 r += 1
             syncs += unpacked  # the decrease-key waits for block 0
     reopen = 0
-    if unpacked and n:
+    if unpacked and rounds:
         improved = [i for i in range(n) if lane_slot[i] >= 0 and lane_flag[i] & 2]
         for i in rng.permutation(improved).tolist():
             s_ = lane_slot[i]
@@ -718,8 +898,10 @@ def test_k10_rounds_equal_plain_insert(layout, case, cap):
         rng = np.random.default_rng(seed)
         got = clone(tab)
         order = rng.permutation(len(pend)).tolist()
-        rounds, counts, ereopen, syncs = emu_k10(st, got, [pend[k] for k in order], rng,
-                                                 blocks, cap)
+        # K9's round-0 match first (packed), then K10 on the lanes it left
+        left, _ = k9_home_match(st, got, [pend[k] for k in order])
+        rounds, counts, ereopen, syncs = emu_k10(st, got, left, rng, blocks, cap,
+                                                 lanes=len(pend))
         assert same_table(got, want, st.C)  # claim included
         assert (counts[-1] if rounds else 0) == int(ovf)
         assert k10_acct(len(pend), rounds, counts) == acct.tolist()
@@ -802,9 +984,9 @@ def emu_chunk(st, tab, counters, chunk_steps, ub, fill, rng):
         if not run:
             continue
         _, _, _, fmin, n_open, n_sel, reopen, sel = emu_k3(st, tab, c[0], c[7], rng=rng)
-        c[0], pend = emu_k9(ks, tab, sel, c[0], ub, rng)
-        rounds, counts, ins_reopen, _ = emu_k10(st, tab, pend, rng)
-        n = len(pend)
+        c[0], pend, n_valid, _ = emu_k9(ks, tab, sel, c[0], ub, rng)
+        rounds, counts, ins_reopen, _ = emu_k10(st, tab, pend, rng, lanes=n_valid)
+        n = n_valid
         c[1] = fmin
         c[2] += 1
         c[3] += n_sel
@@ -901,6 +1083,7 @@ def test_keyrow_constants_match_source():
     k9 = open(os.path.join(CSRC, "keyrow_expand.cu")).read()
     assert "constexpr int kMaxW = 8;" in k9 and TS.K9_MAX_N == 16
     assert "const int PW = W + (kUnpacked ? 5 : 4);" in k9
+    assert f"constexpr int kMaxThreads = {TS.K9_MAX_THREADS};" in k9
     k10 = open(os.path.join(CSRC, "keyrow_insert.cu")).read()
     assert f"constexpr int kThreads = {K10_THREADS};" in k10
     assert f"constexpr int kLanes = {K10_LANES};" in k10
@@ -912,6 +1095,25 @@ def test_keyrow_constants_match_source():
         bufs = TS.StepBuffers.for_step(st, torch.device("cpu"), layout)
         assert bufs.pend.shape == (st.B * st.M, words) and bufs.lane_word is None
         assert bufs.tail.shape == (TS.K10_CAP,)
+
+
+@pytest.mark.parametrize("B,M,blocks,threads,passes", [
+    (8192, 31, 132 * 16, 32, 1),     # kinase unpacked: a warp a row
+    (1024, 63, 1024, 64, 1),         # globin6: two warps a row
+    (4096, 127, 132 * 8, 128, 1),    # synth7
+    (512, 1023, 512, 256, 4),        # synth10: 4 passes of 256 threads
+    (1024, 1023, 132 * 4, 256, 4),
+    (16, 65535, 16, 256, 256),       # N = 16
+    (16, 3, 16, 32, 1)])
+def test_k9_launch_shape(B, M, blocks, threads, passes):
+    assert TS.k9_launch_shape(B, M) == (blocks, threads, passes)
+    # every mask has a thread, and no pass is idle
+    assert threads * (passes - 1) < M <= threads * passes
+    assert threads % 32 == 0 and threads <= TS.K9_MAX_THREADS
+    # the grid is resident at once: 1024 threads (64 registers each) and
+    # at most 16 blocks a multiprocessor
+    assert blocks * threads <= 132 * 1024 and blocks <= 132 * TS.K9_BLOCKS_AN_SM
+    assert TS.k9_launch_shape(B, M, sms=114)[0] == min(B, 114 * min(16, 1024 // threads))
 
 
 def test_keyrow_wrappers_refuse():
@@ -1033,7 +1235,12 @@ def test_keyrow_chunk_graph_binds_static_buffers(stubbed, layout):
     names = (select, "keyrow_expand", "keyrow_insert")
     ptr = bufs.counters.data_ptr()
     k10 = stubs.calls["keyrow_insert"]
-    assert {c[16] for c in k10} == {ptr} and {c[21] for c in stubs.calls["keyrow_expand"]} == {ptr}
+    k9 = stubs.calls["keyrow_expand"]
+    assert {c[16] for c in k10} == {ptr} and {c[25] for c in k9} == {ptr}
+    # K9's launch shape (k9_launch_shape on 132 multiprocessors) and, on
+    # the packed layout, the t_best its round-0 match writes
+    assert {(c[22], c[23]) for c in k9} == {TS.k9_launch_shape(st.B, st.M)[:2]}
+    assert {c[4] for c in k9} == {None if layout == "unpacked" else tab.t_best.data_ptr()}
     goal_at = 6 if layout == "packed" else 5  # K3's goal and threshold: views of the counters
     assert {(c[goal_at], c[goal_at + 1]) for c in stubs.calls[select]} == {(ptr, ptr + 56)}
     assert all(c[0] == tab.t_key.data_ptr() and c[4] == tab.claim.data_ptr() for c in k10)

@@ -6,13 +6,17 @@ values exact integers: zero tolerance).
   _make_backtrace, on the finished tables of the port's searches of test,
   test2 and PF08184 in each layout and of the degenerate input (unpacked),
   handed to the JAX walk as their first C entries;
-- a NumPy emulation of K7's schedule (every thread's probe position, its
-  encoding computed as sig_key.cuh and step_state.cuh compute it, a warp's
-  first hit by ballot, the block's by the min over the warps) against
-  _walk on those tables and on planted ones: a node whose first hit lies
-  beyond r = 0, behind colliding keys and before a later copy of itself
-  with another parent mask; a node that is not stored, where the walk ends
-  and the engine raises "backtrace did not reach the origin";
+- a NumPy emulation of K7's schedule (one warp a node: every probe
+  position of the node, its encoding computed as sig_key.cuh and
+  step_state.cuh compute it; the home row first, then, on a miss there,
+  lane l owning rows l + 32k, the first hit by a ballot over each group of
+  32 rows in turn, the way inside the winning lane) against _walk on
+  those tables and on planted ones: a node whose
+  first hit lies beyond r = 0, in the first or the second half of the rows
+  or at their edge, behind colliding keys in both halves and before a
+  later copy of itself with another parent mask; a node that is not
+  stored, where the walk ends and the engine raises "backtrace did not
+  reach the origin";
 - the walk's dispatch (a CPU table runs _walk; walk_cuda refuses what K7
   does not take) and FrontierResult.open_size against the table's counts
   in each layout (tests/test_tpu_engine.py's checks of the JAX result).
@@ -44,8 +48,9 @@ LAYOUTS = ("sig", "packed", "unpacked")
 NAMES = ("test.fasta", "test2.fasta", "PF08184.fasta")
 DEGENERATE = ("WYWY", "WYY", "YWW")
 M32 = 0xFFFFFFFF
-# csrc/path_walk.cu: the block of each layout; csrc/sig_key.cuh: kSigOdd
-K7_SIG_THREADS, K7_ROW_THREADS, SIG_ODD = 512, 128, 0x9E3779B1
+# csrc/path_walk.cu: one warp, rows a lane (sig bucket rows, probe rows);
+# csrc/sig_key.cuh: kSigOdd
+K7_LANES, K7_SIG_ROWS, K7_KEY_ROWS, SIG_ODD = 32, 2, 4, 0x9E3779B1
 
 
 def golden_seqs(name):
@@ -127,8 +132,9 @@ def i32(x):
 
 
 def k7_probe(st, tab, layout, coord):
-    """Every thread's probe position of the node at ``coord``, as
-    path_walk.cu's probe(): (slot, hit, parent mask) a thread."""
+    """Every probe position of the node at ``coord`` that path_walk.cu's
+    lookup() loads, in JAX's flat order (sig: r x 8 + way over 64 bucket
+    rows; key rows: r over 128): (slot, hit, parent mask) a position."""
     parmask = (1 << st.n) - 1
     c = [int(v) for v in coord]
     if layout == "sig":
@@ -141,7 +147,7 @@ def k7_probe(st, tab, layout, coord):
         clo, chi = ckey & bm, (ckey >> st.bbits) & M32
         home = ((clo * SIG_ODD) & bm) ^ (mix32(chi) & bm)
         sigb = (chi << 6) & M32
-        t = np.arange(K7_SIG_THREADS)
+        t = np.arange(K7_LANES * K7_SIG_ROWS * 8)
         r, way = t >> 3, t & 7
         slot = (((home + r) & bm) << 3) | way
         word = np.array([i32(sigb | int(k)) for k in r])
@@ -155,7 +161,7 @@ def k7_probe(st, tab, layout, coord):
     for w in kw:
         h = ((h ^ w) * 16777619) & M32
     h0 = mix32(h)
-    t = np.arange(K7_ROW_THREADS)
+    t = np.arange(K7_LANES * K7_KEY_ROWS)
     slot = (h0 + ((t * (t + 1)) >> 1)) & (st.C - 1)
     rows = tab.t_key.numpy()[slot, :st.W]
     hit = ((t < st.max_probes) & (rows[:, 0] != -1)
@@ -164,23 +170,42 @@ def k7_probe(st, tab, layout, coord):
     return slot, hit, (words & parmask).astype(np.int64)
 
 
+def warp_first_hit(hit, layout, home_first=True):
+    """K7's first hit from one warp's loads.  Stage 1 (``home_first``):
+    the home row alone, a ballot of lanes 0-7 over its ways (sig) or one
+    compare of the row every lane read (key rows).  Stage 2, on a miss
+    there: lane l holds rows l + 32k (k < 2 on sig, 4 on key rows); for
+    each k in turn, a ballot of the lanes whose row hits (sig: the first
+    matching way inside the lane), and the lowest lane of the first
+    nonzero ballot.  The flat position, or None."""
+    rows = hit.reshape(-1, 8) if layout == "sig" else hit[:, None]
+    if home_first and rows[0].any():
+        return int(np.argmax(rows[0]))
+    for k in range(len(rows) // K7_LANES):
+        lanes = rows[K7_LANES * k:K7_LANES * (k + 1)]
+        ballot = lanes.any(1)
+        if ballot.any():
+            lane = int(np.argmax(ballot))
+            r = K7_LANES * k + lane
+            return r * 8 + int(np.argmax(lanes[lane])) if layout == "sig" else r
+    return None
+
+
 def emu_k7(st, tab, layout):
-    """csrc/path_walk.cu on the CPU: from the goal, per node every thread's
-    probe, each warp's first hit (its ballot), the smallest over the warps
-    (the shared-memory min), then the parent; (emitted masks, final
-    coordinate)."""
-    threads = K7_SIG_THREADS if layout == "sig" else K7_ROW_THREADS
+    """csrc/path_walk.cu on the CPU: from the goal, per node the warp's
+    loads of every probe position, the first hit (warp_first_hit) and its
+    parent mask by a shuffle from that lane, then the parent; (emitted
+    masks, final coordinate)."""
     coord = st.final_np.astype(np.int64).copy()
     masks = []
     for _ in range(int(st.final_np.sum())):
         if not coord.any():
             break
         _, hit, par = k7_probe(st, tab, layout, coord)
-        firsts = [w * 32 + int(np.argmax(hit[w * 32:(w + 1) * 32]))
-                  for w in range(threads // 32) if hit[w * 32:(w + 1) * 32].any()]
-        if not firsts:
+        first = warp_first_hit(hit, layout)
+        if first is None:
             break
-        mask = int(par[min(firsts)])
+        mask = int(par[first])
         masks.append(mask)
         coord -= (mask >> np.arange(st.n)) & 1
     return np.array(masks, dtype=np.int64), coord
@@ -326,6 +351,41 @@ def test_k7_schedule_first_hit_beyond_round_zero(layout, n, seed):
     assert len(flat) == 2 and (flat[0] >> 3 if layout == "sig" else flat[0]) == 3
 
 
+@pytest.mark.parametrize("where,lo,hi,goal_at", [
+    # every node's first hit at rows 28-31 and its later copy in the second
+    # half; every first hit in the second half (rows 32 on: the second
+    # ballot on sig, the second quarter's on key rows), behind colliding
+    # keys in both halves
+    ("edge", 28, 32, 31), ("second", 32, 40, 37)])
+@pytest.mark.parametrize("n,seed", [(3, 4), (5, 5)])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_k7_schedule_first_hit_in_either_half(layout, n, seed, where, lo, hi, goal_at):
+    st = planted_statics(n, seed)
+    rs = np.random.RandomState(seed)
+    path = planted_path(st.final_np, rs)
+    tab = empty_table(st, layout)
+    ats = rs.randint(lo, hi, size=len(path))
+    ats[0] = goal_at
+    plant(st, tab, layout, path, ats, rs)
+    want = np.array([m for _, m in path], dtype=np.int64)
+    masks, coord = TE._walk(st, tab, layout)
+    assert np.array_equal(masks, want) and not coord.any()
+    em, ec = emu_k7(st, tab, layout)
+    assert np.array_equal(em, want) and not ec.any()
+    # the goal: colliders in every row before its first hit, that hit at
+    # goal_at (the ballot of its half) and its later copy behind it
+    slot, hit, _ = k7_probe(st, tab, layout, st.final_np)
+    rows = np.flatnonzero(hit) >> 3 if layout == "sig" else np.flatnonzero(hit)
+    assert len(rows) == 2 and rows[0] == goal_at and rows[1] >= goal_at + 4
+    first = np.flatnonzero(hit)[0]
+    assert warp_first_hit(hit, layout) == warp_first_hit(hit, layout, False) == first
+    if layout == "sig":
+        words = tab.t_sig.numpy()[slot].reshape(64, 8)
+        assert ((words != -1).sum(1)[:goal_at] > 0).all()
+    else:
+        assert (tab.t_key.numpy()[slot[:goal_at], 0] != -1).all()
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_node_not_stored_ends_the_walk_and_the_engine_raises(layout):
     eng, res, tab = finished("PF08184.fasta", layout)
@@ -347,6 +407,19 @@ def test_node_not_stored_ends_the_walk_and_the_engine_raises(layout):
     assert np.array_equal(em, got) and np.array_equal(ec, end)
     with pytest.raises(RuntimeError, match="backtrace did not reach the origin"):
         eng._finish(broken, res.g, res.steps, res.nodes_expanded, res.nodes_reopened)
+
+
+def test_k7_constants_match_source():
+    # the emulation's warp against csrc/path_walk.cu and csrc/sig_key.cuh;
+    # the warp's rows cover JAX's probe counts (64 bucket rows, 128 rounds)
+    csrc = os.path.join(HERE, "..", "mpi_pastar_msa_tpu_torch", "csrc")
+    src = open(os.path.join(csrc, "path_walk.cu")).read()
+    for name, value in (("kThreads", K7_LANES), ("kSigRows", K7_SIG_ROWS),
+                        ("kKeyRows", K7_KEY_ROWS)):
+        assert f"constexpr int {name} = {value};" in src
+    assert f"kSigOdd = 0x{SIG_ODD:08X}u;" in open(os.path.join(csrc, "sig_key.cuh")).read()
+    st = planted_statics(5, 2)
+    assert (K7_LANES * K7_SIG_ROWS, K7_LANES * K7_KEY_ROWS) == (st.max_bprobes, st.max_probes)
 
 
 # ------------------------------------------------ dispatch and open_size
