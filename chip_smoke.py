@@ -88,9 +88,11 @@ Phases, each failing loudly (non-zero exit):
    in L2 and after an eviction), its bound by bytes and its latency floor
    (path nodes x one dependent load from L2, and beside it from device
    memory, each timed by a pointer chase through 256 MiB) at kinase,
-   globin6 and kinase pinned to unpacked, with the K7_NO_PREFETCH and
-   K7_ALL_ROWS builds (and another tree's K7) checked against K7 and timed
-   in turns with it.
+   globin6 and kinase pinned to unpacked, with the K7_NO_PREFETCH build
+   (and another tree's K7) checked against K7 and timed in turns with it;
+   then K7's device time on the engine's own walk, right after a search
+   (engine_walk: kinase pinned to each layout, and globin6), in turns with
+   the same builds.
    Bounds of the work not yet ported (K8 and the multi-device step of
    parallel/sharded.py) from this run's shapes.
 7. the kernels JSON line, then the result line.
@@ -118,7 +120,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
-PEAK_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# H100 SXM: 132 multiprocessors at the 1.98 GHz boost clock (the clock of
+# the data sheet's 67 TFLOP/s in float32), 64 int32 lanes each (half the
+# float32 lanes), and one shared-memory wavefront a clock each
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SHARED_WAVEFRONTS_PER_S = 132 * 1.98e9
 NVLINK_BYTES_PER_S = 450e9    # H100 SXM NVLink, each way (data sheet)
 K1_OPS_PER_CELL = 12          # int32 adds/compares/selects per DP cell
 K2_OPS_PER_CELL = 7 * 12      # 7 moves x ~12 int32 ops per in-box cube cell
@@ -148,11 +154,13 @@ K9_WARP_ROW_SIGNATURE = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes
                           ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                          + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
                          + [ctypes.c_void_p] * 5)
-# K7's measurement builds beside the engine's path_walk.cu (same C entry):
-# "no_prefetch" (-DK7_NO_PREFETCH), "all_rows" (-DK7_ALL_ROWS) and another
-# tree's K7 ("baseline"), set in main() and timed in turns with K7 by
-# check_k7
+# K7's measurement build beside the engine's path_walk.cu (same C entry):
+# "no_prefetch" (-DK7_NO_PREFETCH), and another tree's K7 ("baseline"), set
+# in main() and timed in turns with K7 by check_k7 and engine_walk
 K7_VARIANTS = {}
+# the searches whose own walk engine_walk times: (label, input, layout)
+ENGINE_WALKS = (("kinase", "kinase.fasta", "sig"), ("kinase", "kinase.fasta", "packed"),
+                ("kinase", "kinase.fasta", "unpacked"), ("globin6", "globin6", "packed"))
 
 
 def fail(msg: str) -> None:
@@ -325,7 +333,7 @@ def check_k1(paths, baseline=None) -> dict:
         in_bytes = sum(t.numel() * 4 for k, t in args.items() if k != "lmax") + 128 * 128 * 4
         out_bytes = P * L1 * L1 * 4
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        ops_ms = cells * K1_OPS_PER_CELL / PEAK_OPS_PER_S * 1e3
+        ops_ms = cells * K1_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
         # dependent-diagonal floor: n1+n2 barrier steps of the longest pair,
         # each at least one measured shared-memory barrier step of a block
         # as wide as the kernel's
@@ -495,7 +503,7 @@ def check_k2(paths, baseline=None, variants=()) -> dict:
         in_bytes = sum(t.numel() * 4 for t in args.values())
         out_bytes = T * S ** 3 * 4
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        ops_ms = cells * K2_OPS_PER_CELL / PEAK_OPS_PER_S * 1e3
+        ops_ms = cells * K2_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
         # dependent-launch floors: one empty launch per tile diagonal at the
         # largest launch's grid, and beside it one per plane at a thread
         # per (t, j, k), the plane-per-launch design's grid
@@ -660,9 +668,7 @@ def start_phases_build(name: str, tmp: str, macro: str = None):
     K3_PHASES for select_best: three %globaltimer readings in the partials
     when a launch ends; K5_PHASES for sig_probe: five in lane_word; for
     path_walk K7_NO_PREFETCH, without the L2 prefetch of the candidate
-    parents' home rows, or K7_ALL_ROWS, every row of a node read at once)
-    into ``tmp``;
-    returns (name, proc, lib)."""
+    parents' home rows) into ``tmp``; returns (name, proc, lib)."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
     macro = macro or {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES"}[name]
@@ -1357,8 +1363,8 @@ def check_k7(label: str, seen: dict, timing: bool = False) -> dict:
     (CUPTI) with the table's rows left in L2 by the call before ("warm")
     and after writing 256 MiB elsewhere ("cold", as the engine's one walk
     after a search finds them), the plain walk's time, and each of
-    K7_VARIANTS (the K7_NO_PREFETCH and K7_ALL_ROWS builds, another tree's
-    K7) checked against
+    K7_VARIANTS (the K7_NO_PREFETCH build, another tree's K7) checked
+    against
     K7 on the same table (the same output buffer) and timed in turns with
     it (old, new, new, old), cold and warm.  Releases the table."""
     from mpi_pastar_msa_tpu_torch import _kernels
@@ -1383,7 +1389,7 @@ def check_k7(label: str, seen: dict, timing: bool = False) -> dict:
         out.update(ms=time_ms(go, reps=10), device_ms=device_ms(go, 10),
                    plain_ms=time_ms(lambda: E._walk(st, tab, layout), reps=3, warmup=1))
         # the C entries themselves on K7's arguments for this table
-        args, (_, buf) = S.walk_cuda(st, tab, layout, args_only=True)
+        args, (_, buf) = S._walk_args(st, tab, layout)
         evict = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MiB
 
         def entry(fn, name):
@@ -1419,6 +1425,61 @@ def check_k7(label: str, seen: dict, timing: bool = False) -> dict:
           f"to _walk's on the card; bound {out['bound_ms']:.5f} ms by bytes "
           f"({b / 1e6:.2f} MB){msg}")
     del tab
+    return out
+
+
+def engine_walk(label: str, path: str, layout: str, order) -> dict:
+    """K7's device time on the engine's own walk: the one launch that
+    FrontierSearch._finish makes right after the search, with the table and
+    the L2 as the search left them (no eviction, no launch before it).  For
+    each name in ``order`` ("K7", or one of K7_VARIANTS) one whole search of
+    ``path`` with ``layout`` pinned (engine entry, --triples auto); its walk
+    launches that build's C entry once on the finished table under
+    torch.profiler (CUPTI), checks its masks and final coordinate against
+    the engine's walk, which then runs as usual (not timed).  Returns the
+    device ms a run, in ``order``."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    builds = {"K7": _kernels.load("path_walk").path_walk, **K7_VARIANTS}
+    p = problem_from_fasta(path)
+    real = E.walk
+    times = []
+    for name in order:
+        def spy(st, tab, layout_, fn=builds[name], name=name):
+            args, (_, out) = S._walk_args(st, tab, layout_)
+
+            def call():
+                if fn(*args[1:]):
+                    fail(f"K7 engine walk {label} {layout_}: the {name} build failed to launch")
+
+            times.append(device_ms(call, 1))
+            masks, coord = real(st, tab, layout_)
+            res = out.cpu().numpy()
+            tmax = len(res) - st.n - 1
+            cnt = int(res[tmax + st.n])
+            if not (len(masks) == cnt and (res[:cnt] == masks).all()
+                    and (res[tmax:tmax + st.n] == coord).all()):
+                fail(f"K7 engine walk {label} {layout_}: the {name} build's walk differs "
+                     f"from the engine's")
+            return masks, coord
+
+        n0 = len(times)
+        E.walk = spy
+        try:
+            E.FrontierSearch(p, HPairHeuristic.build(p, "cuda"), device="cuda",
+                             layout=layout).run()
+        finally:
+            E.walk = real
+        if len(times) != n0 + 1:
+            fail(f"K7 engine walk {label} {layout}: the search walked {len(times) - n0} times")
+    out = dict(layout=layout, order=list(order), device_ms=times)
+    print(f"  K7 on the engine's own walk, {label} pinned {layout} (the launch right after "
+          f"the search, CUPTI, a search a run), in turns ({', '.join(order)}): "
+          + " / ".join(f"{t:.4f}" for t in times) + " ms")
     return out
 
 
@@ -1725,10 +1786,11 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
             st, coords[sel], g[sel], par[sel], torch.ones_like(sel, dtype=torch.bool),
             f_parent=None if f_par is None else f_par[sel])
         keep = torch.nonzero(valid & (f_c <= ub))[:, 0]
-        return fns.candidates(st, child[keep], g_c[keep], f_c[keep], m_c[keep], keep)
+        return fns.candidates(st, child[keep], g_c[keep], f_c[keep], m_c[keep], keep), valid
 
     k9_plain_ms = time_ms(plain9, reps=5)
-    cand = plain9()
+    cand, valid9 = plain9()
+    masks9 = int(valid9.sum())  # child <= final: the masks whose lookups K9 runs
     k10_plain_ms = time_restored(lambda: fns.insert(st, work, *cand),
                                  lambda: copy_tab(work, selected), 5)
     step_plain_ms = time_restored(
@@ -1751,14 +1813,18 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
     matched = n_lanes - n_pend
     bytes9 = (n_sel * (8 + row_bytes + 32 * P + 32 * T) + n_pend * PW * 4
               + (0 if unpacked else n_lanes * W * 4 + matched * 4))
-    # K9's operations: P + T lookup-adds a mask of every listed row
-    ops9 = n_sel * st.M * (P + T)
+    # K9's operations, on the masks that pass the validity test (the others
+    # skip the lookups): P term lookups with two int64 adds each (4 int32
+    # operations) and T corners with one int64 add (2) over the int32 rate;
+    # and, beside it, one shared-memory wavefront a warp's lookup (32 masks)
+    ops9 = masks9 * (4 * P + 2 * T)
+    k9_shared_ms = masks9 / 32 * (P + T) / SHARED_WAVEFRONTS_PER_S * 1e3
     live = n_pend + sum(counts[:-1])
     settled = n_pend - (counts[-1] if rounds else 0)
     bytes10 = (n_pend * PW * 4 + live * W * 4 + new_keys * (st.KW * 4 + 4)
                + (settled * 8 + improved * 16 if unpacked else settled * 4))
     ms = lambda b: b / HBM_BYTES_PER_S * 1e3
-    k9_bytes_ms, k9_ops_ms = ms(bytes9), ops9 / PEAK_OPS_PER_S * 1e3
+    k9_bytes_ms, k9_ops_ms = ms(bytes9), max(ops9 / INT32_OPS_PER_S * 1e3, k9_shared_ms)
     row.update(
         selected=n_sel, lanes=n_lanes, rounds=rounds, unsettled=counts, new_keys=new_keys,
         improved_slots=improved,
@@ -1769,6 +1835,8 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
                 bound_ms=max(k9_bytes_ms, k9_ops_ms),
                 bound_by="bytes" if k9_bytes_ms >= k9_ops_ms else "operations",
                 bytes=bytes9, bytes_bound_ms=k9_bytes_ms, ops=ops9, ops_bound_ms=k9_ops_ms,
+                int32_bound_ms=ops9 / INT32_OPS_PER_S * 1e3, shared_bound_ms=k9_shared_ms,
+                masks=masks9,
                 blocks=blocks9, threads=threads9, passes=passes9, rows=n_sel, lanes=n_lanes,
                 pending=n_pend, settled_in_k9=matched, baseline=base),
         k10=dict(ms=k10_ms, device_ms=k10_dev, plain_ms=k10_plain_ms, bound_ms=ms(bytes10),
@@ -1782,8 +1850,10 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
           f"pass(es) a row over {st.M} masks; {n_sel} rows listed; {n_lanes} surviving lanes "
           f"(kNValid), {n_pend} pending for K10 (kNPend), {matched} settled in K9 by the "
           f"round-0 match; K9's bound: bytes {k9_bytes_ms:.5f} ms ({bytes9} B), operations "
-          f"{k9_ops_ms:.5f} ms ({ops9} lookup-adds at {PEAK_OPS_PER_S / 1e12:.0f} TOP/s): "
-          f"{row['k9']['bound_by']}")
+          f"{k9_ops_ms:.5f} ms (of {masks9} valid masks of {n_sel * st.M}: {ops9} int32 "
+          f"operations at {INT32_OPS_PER_S / 1e12:.2f} TOP/s "
+          f"{ops9 / INT32_OPS_PER_S * 1e3:.5f} ms, {masks9 * (P + T) // 32} shared-memory "
+          f"wavefronts {k9_shared_ms:.5f} ms): {row['k9']['bound_by']}")
     print(f"  step {int(ctr0[2])}: {n_sel} rows, {n_lanes} lanes, {rounds} claim rounds "
           f"(unsettled after each: {counts}), {new_keys} new keys; wrapper call (CUDA "
           f"events) / device (CUPTI): {k3_name} {k3_ms:.4f} / {k3_dev:.4f} ms (plain "
@@ -2356,7 +2426,7 @@ def main() -> int:
     phases_jobs = [start_phases_build(name, phases_tmp.name)
                    for name in ("select_best", "sig_probe")]
     k7_jobs = {v: start_phases_build("path_walk", phases_tmp.name, f"K7_{v.upper()}")
-               for v in ("no_prefetch", "all_rows")}
+               for v in ("no_prefetch",)}
     keyrow_job = (start_keyrow_baseline(os.path.abspath(args.keyrow_baseline),
                                         phases_tmp.name) if args.keyrow_baseline else None)
     try:
@@ -2367,8 +2437,8 @@ def main() -> int:
         keyrow_baseline = load_keyrow_baseline(keyrow_job) if keyrow_job else None
     if keyrow_baseline:
         K7_VARIANTS["baseline"] = keyrow_baseline["path_walk"]
-    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES, "
-          f"K7_NO_PREFETCH and K7_ALL_ROWS builds in {time.perf_counter() - t0:.1f} s")
+    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES and "
+          f"K7_NO_PREFETCH builds in {time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
              for line in log.splitlines()
              if "entry function" in line or "registers" in line or "spill" in line]
@@ -2445,6 +2515,13 @@ def main() -> int:
             for layout in ("packed", "unpacked"):
                 report[f"{name}_{layout}"] = pinned_layout(
                     name, paths[name], gold[name], layout, True)
+        # K7 on the engine's own walk, K7 alone or in turns with each of its
+        # measurement builds (variant, K7, K7, variant)
+        order = [n for v in K7_VARIANTS for n in (v, "K7", "K7", v)] or ["K7"]
+        report["k7_engine_walk"] = {
+            f"{label}_{layout}": engine_walk(label, paths.get(name) or data_path(name),
+                                             layout, order)
+            for label, name, layout in ENGINE_WALKS}
         report["degenerate"] = degenerate_input()
         report["off_path_bounds"] = off_path_bounds(report, paths["kinase.fasta"])
         if args.profile:
@@ -2538,7 +2615,8 @@ def main() -> int:
     # tree's K9 -> K10 in turns
     kernels[-2].update({f"{w}_k9": {k: t[k] for k in (
         "device_ms", "blocks", "threads", "passes", "rows", "lanes", "pending",
-        "settled_in_k9", "bytes_bound_ms", "ops_bound_ms", "bound_by", "baseline")}
+        "settled_in_k9", "masks", "bytes_bound_ms", "ops_bound_ms", "int32_bound_ms",
+        "shared_bound_ms", "bound_by", "baseline")}
         for w, t in (("globin6", g6["k9"]), ("kinase_unpacked", ku["k9"]),
                      ("synth10", step["synth10_keyrow"]["k9"]))})
     # K10 on both paths and the other tree's, at each window
@@ -2564,6 +2642,7 @@ def main() -> int:
         "latency_floor_dram_ms": k7["path_nodes"] * chase["dram_ns"] / 1e6,
         "path_nodes": k7["path_nodes"], "library_ms": None,
         "cold_device_ms": k7["cold_device_ms"],
+        "engine_walk": report["k7_engine_walk"],
         **{f"{v}_k7": k7[f"{v}_k7"] for v in K7_VARIANTS},
         **{run: dict(ms=report[run]["k7"]["ms"], device_ms=report[run]["k7"]["device_ms"],
                      cold_device_ms=report[run]["k7"]["cold_device_ms"],

@@ -54,9 +54,8 @@
 // while stage 1's loads are in flight: the next node's stage 1 then reads
 // L2, not device memory.
 //
-// Measurement builds (chip_smoke.py): -DK7_NO_PREFETCH leaves the
-// prefetch out; -DK7_ALL_ROWS skips stage 1 (every node reads every row
-// at once, with no prefetch).
+// Measurement build (chip_smoke.py): -DK7_NO_PREFETCH leaves the prefetch
+// out.
 
 #include "sig_key.cuh"
 #include "step_state.cuh"
@@ -146,7 +145,6 @@ __device__ __forceinline__ bool lookup(const Table& t, const int32_t* coord, con
     uint32_t home, sigb;
     sig_encode(t, coord, shift, home, sigb);
     const uint32_t bmask = t.Cmask >> 3;
-#ifndef K7_ALL_ROWS
     {  // 1. the home row: lane l < 8 its way l (lanes 8-31 repeat them)
       const size_t at = ((size_t)(home & bmask) << 3) | (size_t)(lane & 7);
       const int32_t s0 = t.keys[at], b0 = t.best[at];
@@ -159,7 +157,6 @@ __device__ __forceinline__ bool lookup(const Table& t, const int32_t* coord, con
         return true;
       }
     }
-#endif
     // 2. every row
     int4 s[kSigRows][2], b[kSigRows][2];
 #pragma unroll
@@ -202,7 +199,6 @@ __device__ __forceinline__ bool lookup(const Table& t, const int32_t* coord, con
   } else {
     uint32_t kw[kMaxW];
     const uint32_t h0 = key_hash(t, coord, kw);
-#ifndef K7_ALL_ROWS
     {  // 1. the home row, read by every lane (one broadcast)
       const uint32_t at = step::probe_slot(h0, 0, t.Cmask);
       const int32_t* row = t.keys + (size_t)at * t.KWs;
@@ -226,7 +222,6 @@ __device__ __forceinline__ bool lookup(const Table& t, const int32_t* coord, con
         return true;
       }
     }
-#endif
     // 2. every row
     int32_t key[kKeyRows][kMaxW];
     long long word[kKeyRows];

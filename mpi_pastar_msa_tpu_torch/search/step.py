@@ -597,15 +597,24 @@ def capture_stats(st: _Static):
     return (bufs.captures, bufs.capture_s) if bufs is not None else (0, 0.0)
 
 
-def walk_cuda(st: _Static, tab, layout: str, args_only: bool = False):
+def walk_cuda(st: _Static, tab, layout: str):
     """K7 (``csrc/path_walk.cu``): ``engine._walk`` on the card, the same
     outputs, (parent masks, last coordinate) as int64 arrays, from one
     launch on the table's device's current stream and one host read.
     Raises ValueError on a table that is not ``layout``'s, not on a CUDA
     device or not of the statics' size, and RuntimeError when the launch
-    fails.  ``args_only`` launches nothing and returns K7's C arguments on
-    the checked table (name first) and the (params, out) buffers they
-    point to, for a caller that times the C entry itself."""
+    fails."""
+    args, bufs = _walk_args(st, tab, layout)
+    _kernels.launch(*args)
+    res = bufs[1].cpu().numpy().astype(np.int64)  # the run's one read
+    n, tmax = st.n, len(res) - st.n - 1
+    return res[:int(res[tmax + n])], res[tmax:tmax + n]
+
+
+def _walk_args(st: _Static, tab, layout: str):
+    """K7's C arguments (kernel name first) on the checked table, and the
+    buffers they point to, (params, out), which the caller keeps until the
+    launch has run (``walk_cuda``'s checks and errors)."""
     want = {"sig": SigTable, "packed": PackedTable, "unpacked": UnpackedTable}.get(layout)
     if want is None or not isinstance(tab, want):
         raise ValueError(f"the walk of layout {layout!r} needs its table, got "
@@ -641,8 +650,4 @@ def walk_cuda(st: _Static, tab, layout: str, args_only: bool = False):
             None if best is None else best.data_ptr(),
             None if fpar is None else fpar.data_ptr(), n, st.C, st.bbits, probes,
             params.data_ptr(), tmax, out.data_ptr(), _stream(dev))
-    if args_only:
-        return args, (params, out)
-    _kernels.launch(*args)
-    res = out.cpu().numpy().astype(np.int64)  # the run's one read
-    return res[:int(res[tmax + n])], res[tmax:tmax + n]
+    return args, (params, out)
