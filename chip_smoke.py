@@ -88,11 +88,10 @@ Phases, each failing loudly (non-zero exit):
    in L2 and after an eviction), its bound by bytes and its latency floor
    (path nodes x one dependent load from L2, and beside it from device
    memory, each timed by a pointer chase through 256 MiB) at kinase,
-   globin6 and kinase pinned to unpacked, with the K7_NO_PREFETCH build
-   (and another tree's K7) checked against K7 and timed in turns with it;
-   then K7's device time on the engine's own walk, right after a search
-   (engine_walk: kinase pinned to each layout, and globin6), in turns with
-   the same builds.
+   globin6 and kinase pinned to unpacked (with another tree's K7 checked
+   against K7 and timed in turns with it); then K7's device time on the
+   engine's own walk, right after a search (engine_walk: kinase pinned to
+   each layout, and globin6), in turns with the other tree's K7.
    Bounds of the work not yet ported (K8 and the multi-device step of
    parallel/sharded.py) from this run's shapes.
 7. the kernels JSON line, then the result line.
@@ -154,8 +153,7 @@ K9_WARP_ROW_SIGNATURE = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes
                           ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                          + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
                          + [ctypes.c_void_p] * 5)
-# K7's measurement build beside the engine's path_walk.cu (same C entry):
-# "no_prefetch" (-DK7_NO_PREFETCH), and another tree's K7 ("baseline"), set
+# another tree's K7 ("baseline", --keyrow-baseline; the same C entry), set
 # in main() and timed in turns with K7 by check_k7 and engine_walk
 K7_VARIANTS = {}
 # the searches whose own walk engine_walk times: (label, input, layout)
@@ -663,16 +661,15 @@ def build_step_baseline(src: str, tmp: str):
     return tuple(fns)
 
 
-def start_phases_build(name: str, tmp: str, macro: str = None):
-    """Start nvcc on csrc/<name>.cu with a measurement macro (by default
-    K3_PHASES for select_best: three %globaltimer readings in the partials
-    when a launch ends; K5_PHASES for sig_probe: five in lane_word; for
-    path_walk K7_NO_PREFETCH, without the L2 prefetch of the candidate
-    parents' home rows) into ``tmp``; returns (name, proc, lib)."""
+def start_phases_build(name: str, tmp: str):
+    """Start nvcc on csrc/<name>.cu with its measurement macro (K3_PHASES
+    for select_best: three %globaltimer readings in the partials when a
+    launch ends; K5_PHASES for sig_probe: five in lane_word) into ``tmp``;
+    returns (name, proc, lib)."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    macro = macro or {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES"}[name]
-    lib = os.path.join(tmp, f"lib{name}_{macro}.so")
+    macro = {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES"}[name]
+    lib = os.path.join(tmp, f"lib{name}_phases.so")
     proc = subprocess.Popen(
         [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", f"-D{macro}", "-o", lib,
@@ -1361,12 +1358,11 @@ def check_k7(label: str, seen: dict, timing: bool = False) -> dict:
     identical; the bound by bytes; with ``timing`` its wrapper call (CUDA
     events, median of 10, its one host read included), device time
     (CUPTI) with the table's rows left in L2 by the call before ("warm")
-    and after writing 256 MiB elsewhere ("cold", as the engine's one walk
-    after a search finds them), the plain walk's time, and each of
-    K7_VARIANTS (the K7_NO_PREFETCH build, another tree's K7) checked
-    against
-    K7 on the same table (the same output buffer) and timed in turns with
-    it (old, new, new, old), cold and warm.  Releases the table."""
+    and after writing 256 MiB elsewhere ("cold"; engine_walk times the
+    engine's own walk), the plain walk's time, and each of K7_VARIANTS
+    (another tree's K7) checked against K7 on the same table (the same
+    output buffer) and timed in turns with it (old, new, new, old), cold
+    and warm.  Releases the table."""
     from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch.search import engine as E
     from mpi_pastar_msa_tpu_torch.search import step as S
@@ -1432,7 +1428,7 @@ def engine_walk(label: str, path: str, layout: str, order) -> dict:
     """K7's device time on the engine's own walk: the one launch that
     FrontierSearch._finish makes right after the search, with the table and
     the L2 as the search left them (no eviction, no launch before it).  For
-    each name in ``order`` ("K7", or one of K7_VARIANTS) one whole search of
+    each name in ``order`` ("K7", or a key of K7_VARIANTS) one whole search of
     ``path`` with ``layout`` pinned (engine entry, --triples auto); its walk
     launches that build's C entry once on the finished table under
     torch.profiler (CUPTI), checks its masks and final coordinate against
@@ -2419,26 +2415,23 @@ def main() -> int:
 
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    # 2. build: the kernels and, beside them, K3's, K5's and K7's
-    # measurement builds (and another tree's K9, K10 and K7)
+    # 2. build: the kernels and, beside them, K3's and K5's measurement
+    # builds (and another tree's K9, K10 and K7)
     t0 = time.perf_counter()
     phases_tmp = tempfile.TemporaryDirectory()
     phases_jobs = [start_phases_build(name, phases_tmp.name)
                    for name in ("select_best", "sig_probe")]
-    k7_jobs = {v: start_phases_build("path_walk", phases_tmp.name, f"K7_{v.upper()}")
-               for v in ("no_prefetch",)}
     keyrow_job = (start_keyrow_baseline(os.path.abspath(args.keyrow_baseline),
                                         phases_tmp.name) if args.keyrow_baseline else None)
     try:
         logs = _kernels.build_all()
     finally:
         phases = tuple(load_phases(job) for job in phases_jobs)
-        K7_VARIANTS.update({v: load_phases(job) for v, job in k7_jobs.items()})
         keyrow_baseline = load_keyrow_baseline(keyrow_job) if keyrow_job else None
     if keyrow_baseline:
         K7_VARIANTS["baseline"] = keyrow_baseline["path_walk"]
-    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES and "
-          f"K7_NO_PREFETCH builds in {time.perf_counter() - t0:.1f} s")
+    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES and K5_PHASES builds "
+          f"in {time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
              for line in log.splitlines()
              if "entry function" in line or "registers" in line or "spill" in line]
@@ -2515,8 +2508,8 @@ def main() -> int:
             for layout in ("packed", "unpacked"):
                 report[f"{name}_{layout}"] = pinned_layout(
                     name, paths[name], gold[name], layout, True)
-        # K7 on the engine's own walk, K7 alone or in turns with each of its
-        # measurement builds (variant, K7, K7, variant)
+        # K7 on the engine's own walk, alone or in turns with another tree's
+        # (baseline, K7, K7, baseline)
         order = [n for v in K7_VARIANTS for n in (v, "K7", "K7", v)] or ["K7"]
         report["k7_engine_walk"] = {
             f"{label}_{layout}": engine_walk(label, paths.get(name) or data_path(name),

@@ -49,13 +49,14 @@
 // The parent mask moves from the winning lane by one __shfl_sync.  Slots
 // are masked to the table (below C): the TRASH tail is never read.
 //
-// Where the node has at most 32 moves (N <= 5), lane m - 1 also encodes
-// the candidate parent coord - bits(m) and prefetches its home row into L2
-// while stage 1's loads are in flight: the next node's stage 1 then reads
-// L2, not device memory.
-//
-// Measurement build (chip_smoke.py): -DK7_NO_PREFETCH leaves the prefetch
-// out.
+// On the sig layout, where the node has at most 32 moves (N <= 5), lane
+// m - 1 also encodes the candidate parent coord - bits(m) and prefetches
+// its home bucket row into L2 while stage 1's loads are in flight: the next
+// node's stage 1 then reads L2, not device memory.  On the engine's own
+// walk right after a kinase search (chip_smoke.py engine_walk, NVIDIA H100
+// 80GB HBM3 at 700 W) it took the sig walk from 0.25 to 0.19 ms; the same
+// prefetch of the home probe row lost 4% on the packed walk and changed
+// nothing on the unpacked one, so the key-row layouts do not prefetch.
 
 #include "sig_key.cuh"
 #include "step_state.cuh"
@@ -102,9 +103,8 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
-// Prefetch the home row of the candidate parent coord - bits(m) of this
-// lane (m = lane + 1 <= M).
-template <int kLayout>
+// Prefetch the home bucket row of the candidate parent coord - bits(m) of
+// this lane (m = lane + 1 <= M), sig.
 __device__ __forceinline__ void prefetch_parent(const Table& t, const int32_t* coord,
                                                 const int* shift) {
   const int m = (int)threadIdx.x + 1;
@@ -117,21 +117,11 @@ __device__ __forceinline__ void prefetch_parent(const Table& t, const int32_t* c
     ok &= c[d] >= 0;
   }
   if (!ok) return;
-  if constexpr (kLayout == kSig) {
-    uint32_t home, sigb;
-    sig_encode(t, c, shift, home, sigb);
-    const size_t at = (size_t)(home & (t.Cmask >> 3)) << 3;
-    prefetch_l2(t.keys + at);
-    prefetch_l2(t.best + at);
-  } else {
-    uint32_t kw[kMaxW];
-    const uint32_t at = step::probe_slot(key_hash(t, c, kw), 0, t.Cmask);
-    prefetch_l2(t.keys + (size_t)at * t.KWs);
-    if constexpr (kLayout == kPacked)
-      prefetch_l2(t.best + at);
-    else
-      prefetch_l2(t.fpar + at);
-  }
+  uint32_t home, sigb;
+  sig_encode(t, c, shift, home, sigb);
+  const size_t at = (size_t)(home & (t.Cmask >> 3)) << 3;
+  prefetch_l2(t.keys + at);
+  prefetch_l2(t.best + at);
 }
 
 // The first hit of the node at `coord` over the warp, in JAX's argmax
@@ -148,9 +138,7 @@ __device__ __forceinline__ bool lookup(const Table& t, const int32_t* coord, con
     {  // 1. the home row: lane l < 8 its way l (lanes 8-31 repeat them)
       const size_t at = ((size_t)(home & bmask) << 3) | (size_t)(lane & 7);
       const int32_t s0 = t.keys[at], b0 = t.best[at];
-#ifndef K7_NO_PREFETCH
-      prefetch_parent<kLayout>(t, coord, shift);
-#endif
+      prefetch_parent(t, coord, shift);
       const unsigned ballot = __ballot_sync(kFull, lane < 8 && s0 == (int32_t)sigb);
       if (ballot) {
         par = __shfl_sync(kFull, b0, __ffs(ballot) - 1) & parmask;
@@ -210,9 +198,6 @@ __device__ __forceinline__ bool lookup(const Table& t, const int32_t* coord, con
         word0 = t.best[at];
       else
         word0 = t.fpar[at];
-#ifndef K7_NO_PREFETCH
-      prefetch_parent<kLayout>(t, coord, shift);
-#endif
       bool eq = key0[0] != -1;
 #pragma unroll
       for (int i = 0; i < kMaxW; ++i)
