@@ -11,7 +11,14 @@ Phases, each failing loudly (non-zero exit):
    each of K5's paths) captured as a CUDA graph, replayed, must equal the
    eager chunk.
 3. kernel check: each kernel against its plain PyTorch version on the card,
-   exact int32 equality.  K1 (pair wavefront) at the main path's shapes
+   exact int32 equality.  K8 (the Gotoh fill of Phase 1's weights,
+   csrc/gotoh_wavefront.cu) at kinase, globin6, synth4_long, synth10 and
+   random pairs of very unequal lengths, also against the host fill over
+   every pair's box: wrapper, device, plain, host-fill and crop-and-copy
+   times, bounds by bytes and operations, the dependent-diagonal floor;
+   then Phase 1's wall with K8 and with the host fill, in turns, at the
+   first four (their distances and weights equal).
+   K1 (pair wavefront) at the main path's shapes
    (kinase) and at synth4_long's: kernel, plain, bound and
    dependent-diagonal floor times, also per diagonal (``--k1-baseline SRC``
    builds the first version of the K1 source and times it in turns with this
@@ -57,8 +64,8 @@ Phases, each failing loudly (non-zero exit):
    them against these and times them in turns on the same tables;
    ``--k5-sweep`` times K5 on both its paths, and the other tree's, at
    every step of three searches; ``--step-only`` stops after this phase).
-4. main path, kinase: the port's CLI entry with its defaults (--triples
-   auto, --device cuda) must build 4 cubes and reach g = 421546 with a path
+4. main path, kinase: the port's CLI entry with --engine frontier and its
+   other defaults (--triples auto, --device cuda) must build 4 cubes and reach g = 421546 with a path
    whose recomputed cost equals g, degapped rows equal to the inputs, and
    K1, K2 and the step kernels K3-K5 launched (one chunk graph, each step
    kernel launched once a step of every chunk and once before the
@@ -66,7 +73,13 @@ Phases, each failing loudly (non-zero exit):
    then synth6 (tests/data, N = 6, 63 masks a row) with the CLI's defaults
    on the sig layout: g = 272848.
 5. main path, test / test2 / PF08184, under auto and under off: golden g and
-   byte-identical alignment.
+   byte-identical alignment.  Every CLI run on the card (phases 4-6 pin
+   --engine frontier, whose step kernels they check) launches K1 and K8
+   once in Phase 1 and has the host fill's weights.  The CLI's other
+   engines, Phase 1 on the card: --engine auto on test2 (it must print
+   "engine auto -> native"), --engine serial and --engine native -t 4 on
+   PF08184: the golden g, path cost g, degapped rows, the golden
+   similarity; whether each alignment is byte-identical to the golden.
 6. layouts: globin6, synth7 and synth10 (tests/data) through the CLI with
    its defaults must take the packed table layout (their keys do not fit a
    sig word at C = 2^23), build cubes, launch K1, K2, K3, K9 and K10 and
@@ -92,7 +105,12 @@ Phases, each failing loudly (non-zero exit):
    against K7 and timed in turns with it); then K7's device time on the
    engine's own walk, right after a search (engine_walk: kinase pinned to
    each layout, and globin6), in turns with the other tree's K7.
-   Bounds of the work not yet ported (K8 and the multi-device step of
+   Checkpoint/resume: kinase (sig) and globin6 (packed) stopped by
+   max_steps at 128 steps with a checkpoint, then resumed by a new engine:
+   the optimum, the uninterrupted search's counts, kinase's golden
+   alignment, one chunk graph the resumed run captured, K7 once; the
+   save and load walls and the file's size.
+   Bounds of the work not yet ported (the multi-device step of
    parallel/sharded.py) from this run's shapes.
 7. the kernels JSON line, then the result line.
 
@@ -127,6 +145,7 @@ SHARED_WAVEFRONTS_PER_S = 132 * 1.98e9
 NVLINK_BYTES_PER_S = 450e9    # H100 SXM NVLink, each way (data sheet)
 K1_OPS_PER_CELL = 12          # int32 adds/compares/selects per DP cell
 K2_OPS_PER_CELL = 7 * 12      # 7 moves x ~12 int32 ops per in-box cube cell
+K8_OPS_PER_CELL = 16          # int32 adds/compares/selects per Gotoh cell (dd, hh, vv)
 # certified optima of the tests/data inputs beyond the sig layout
 # (tests/test_globin6.py, tests/test_beyond_reference.py)
 LAYOUT_INPUTS = {"globin6": 988171, "synth7": 402469, "synth10": 575615}
@@ -156,6 +175,8 @@ K9_WARP_ROW_SIGNATURE = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes
 # another tree's K7 ("baseline", --keyrow-baseline; the same C entry), set
 # in main() and timed in turns with K7 by check_k7 and engine_walk
 K7_VARIANTS = {}
+# the host fill's Altschul weights of each input (check_weights), by sequences
+HOST_WEIGHTS = {}
 # the searches whose own walk engine_walk times: (label, input, layout)
 ENGINE_WALKS = (("kinase", "kinase.fasta", "sig"), ("kinase", "kinase.fasta", "packed"),
                 ("kinase", "kinase.fasta", "unpacked"), ("globin6", "globin6", "packed"))
@@ -1904,16 +1925,19 @@ def check_alignment(name: str, alignment, gold: dict, want_identical: bool):
 def main_path(name: str, path: str, gold: dict, want_identical: bool,
               triples: str, want_layout: str = "sig", engines: dict = None,
               k7_timing: bool = False) -> dict:
-    """One run of the CLI entry; ``triples`` "auto" runs it with its
-    defaults (no --triples), "off" pins the pairwise heuristic.  The step
-    kernels of the layout must run, and K7 once, and no plain step
+    """One run of the CLI entry with the frontier engine (--engine
+    frontier: the CLI's default, auto, takes the native engine for the
+    small inputs); ``triples`` "auto" runs it with its defaults (no
+    --triples), "off" pins the pairwise heuristic.  Phase 1 must launch K1
+    and K8 once each and give the host fill's weights; the step kernels
+    of the layout must run, and K7 once, and no plain step
     function nor the plain walk; then K7 against _walk on the run's
     finished table (check_k7, timed with ``k7_timing``); ``engines`` keeps
     the run's engine under ``name``."""
     from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch import cli
 
-    argv = [path, "--device", "cuda"]
+    argv = [path, "--device", "cuda", "--engine", "frontier"]
     if triples != "auto":
         argv += ["--triples", triples]
     args = cli.make_parser().parse_args(argv)
@@ -1927,6 +1951,7 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
         rep = cli.execute(args)
     counts = dict(_kernels.launches)
     peak = torch.cuda.max_memory_allocated()
+    check_weights(name, rep.heuristic, rep.problem.seqs, counts)
     res = rep.result
     if res.g != gold["optimal_g"]:
         fail(f"{name}: g={res.g}, want {gold['optimal_g']}")
@@ -2005,6 +2030,7 @@ def pinned_layout(name: str, path: str, gold: dict, layout: str,
     wall = time.perf_counter() - t0
     counts = dict(_kernels.launches)
     peak = torch.cuda.max_memory_allocated()
+    check_weights(f"{name} layout {layout}", eng.heuristic, p.seqs, counts)
     if eng.layout != layout:
         fail(f"{name}: pinned {layout}, ran {eng.layout}")
     if res.g != gold["optimal_g"]:
@@ -2063,26 +2089,16 @@ def degenerate_input() -> dict:
 
 
 def off_path_bounds(report: dict, kinase_path: str) -> dict:
-    """Bounds by bytes (each input read once, each output written once,
-    over HBM_BYTES_PER_S) of the device work not yet ported, from this
-    run's shapes and counts:
-    - K8, the Gotoh fill at kinase: for each pair, three (n+1)(m+1) int32
-      matrices written (the sequences read are negligible);
-    - the multi-device step of parallel/sharded.py at kinase --triples
-      auto on a 4-card mesh, per step and card (sharded_step_bounds)."""
+    """Bounds of the device work not yet ported, from this run's shapes and
+    counts: the multi-device step of parallel/sharded.py at kinase
+    --triples auto on a 4-card mesh, per step and card
+    (sharded_step_bounds)."""
     from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
 
-    ms = lambda b: b / HBM_BYTES_PER_S * 1e3
     k = report["kinase"]
-    lens = [len(q) for q in problem_from_fasta(kinase_path).seqs]
-    gotoh = sum(3 * 4 * (lens[x] + 1) * (lens[y] + 1)
-                for x in range(len(lens)) for y in range(x + 1, len(lens)))
-    out = dict(k8_gotoh=dict(lengths=lens, bytes=gotoh, bound_ms=ms(gotoh)),
-               sharded=sharded_step_bounds(k["batch"], len(lens), k["cubes"],
-                                           k["path_nodes"]))
-    print(f"bounds by bytes of the work not yet ported: K8 Gotoh fill at kinase "
-          f"{gotoh / 1e6:.2f} MB, {ms(gotoh):.5f} ms")
-    return out
+    n = problem_from_fasta(kinase_path).n_seq
+    print("bounds of the work not yet ported:")
+    return dict(sharded=sharded_step_bounds(k["batch"], n, k["cubes"], k["path_nodes"]))
 
 
 def sharded_step_bounds(B: int, N: int, T: int, path_nodes: int, ndev: int = 4) -> dict:
@@ -2339,6 +2355,279 @@ def profile_search(name: str, path: str, triples: str, warm_steps: int,
                 host_reads_per_step=reads / n)
 
 
+def gotoh_pairs(seqs):
+    """The dash-prefixed pairs of Phase 1's Gotoh fill, all C(N,2) of them,
+    and their (n, m) lengths (weights.gotoh_distances builds the same)."""
+    import numpy as np
+
+    enc = [np.frombuffer(("-" + s).encode("latin-1"), dtype=np.uint8).astype(np.int32)
+           for s in seqs]
+    ij = [(i, j) for i in range(len(seqs) - 1) for j in range(i + 1, len(seqs))]
+    return [(enc[i], enc[j]) for i, j in ij], [(len(seqs[i]), len(seqs[j])) for i, j in ij]
+
+
+def k8_inputs(paths) -> dict:
+    """The K8 checks' sequence sets: Phase 1's at kinase (P = 10), globin6
+    (15), synth4_long (6, Lmax = 1107) and synth10 (45), and random
+    sequences of very unequal lengths (1 against 40, 3 and 200)."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+
+    sets = {label: problem_from_fasta(path).seqs for label, path in (
+        ("kinase", paths["kinase.fasta"]), ("globin6", data_path("globin6")),
+        ("synth4_long", data_path("synth4_long")), ("synth10", data_path("synth10")))}
+    rs = np.random.RandomState(13)
+    amino = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
+    sets["unequal"] = tuple(rs.choice(amino, size=L).tobytes().decode() for L in (1, 40, 3, 200))
+    return sets
+
+
+def check_k8(paths) -> dict:
+    """K8 (gotoh_wavefront) against its plain version on the card and
+    against the host fill (weights._gotoh_pair_matrices) over every pair's
+    box, exact, at the K8 inputs; the wrapper (CUDA events) and device
+    (CUPTI) times, the plain version's, the host fill's and the host
+    function's (gotoh_matrices_device: the kernel, the crop on the device
+    and the one copy back), the bounds by bytes and by int32 operations
+    and the dependent-diagonal floor (n + m + 1 barrier steps of the
+    longest pair, at K8's block width: pair_wavefront.cu's barrier_chain)."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch._kernels import launches, load
+    from mpi_pastar_msa_tpu_torch.heuristic.gotoh_wavefront import (
+        gotoh_inputs, gotoh_matrices, gotoh_matrices_device, gotoh_matrices_plain,
+        k8_launch_shape)
+    from mpi_pastar_msa_tpu_torch.heuristic.weights import _gotoh_pair_matrices
+
+    chain_fn = load("pair_wavefront").barrier_chain
+    chain_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    chain_fn.restype = ctypes.c_int
+    rows = {}
+    for label, seqs in k8_inputs(paths).items():
+        pairs, lens = gotoh_pairs(seqs)
+        args = gotoh_inputs(pairs, lens, "cuda")
+        n0 = launches["gotoh_wavefront"]
+        got = gotoh_matrices(**args)
+        torch.cuda.synchronize()
+        if launches["gotoh_wavefront"] != n0 + 1:
+            fail("gotoh_wavefront wrapper did not launch its kernel")
+        err = int((got.long() - gotoh_matrices_plain(**args).long()).abs().max())
+        if err != 0:
+            fail(f"K8 {label}: kernel differs from plain version (max |err| {err})")
+        t0 = time.perf_counter()
+        host = [_gotoh_pair_matrices(a, b) for a, b in pairs]
+        host_ms = (time.perf_counter() - t0) * 1e3
+        dev = gotoh_matrices_device(pairs, lens, "cuda")
+        if not all(np.array_equal(x, y) for h, d in zip(host, dev) for x, y in zip(h, d)):
+            fail(f"K8 {label}: the cropped matrices differ from the host fill")
+        ms = time_ms(lambda: gotoh_matrices(**args), reps=20)
+        dev_ms = device_ms(lambda: gotoh_matrices(**args), 20)
+        plain_ms = time_ms(lambda: gotoh_matrices_plain(**args), reps=2, warmup=1)
+        fetch_ms = time_ms(lambda: gotoh_matrices_device(pairs, lens, "cuda"), reps=5)
+        P, l1 = len(pairs), args["l1"]
+        threads, rows_per_thread, shared = k8_launch_shape(l1)
+        cells = sum((n + 1) * (m + 1) for n, m in lens)
+        in_bytes = 2 * P * l1 * 4 + 2 * P * 4 + 128 * 128 * 4
+        out_bytes = 3 * P * l1 * l1 * 4
+        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        box_ms = 3 * 4 * cells / HBM_BYTES_PER_S * 1e3
+        ops_ms = cells * K8_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+        steps = max(n + m + 1 for n, m in lens)
+        probe = torch.empty(threads, dtype=torch.int32, device="cuda")
+
+        def chain():
+            if chain_fn(steps, threads, probe.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream):
+                fail("barrier_chain probe failed to launch")
+
+        chain_ms = time_ms(chain, reps=20)
+        rows[label] = dict(P=P, l1=l1, threads=threads, rows_per_thread=rows_per_thread,
+                           shared_bytes=shared, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           host_fill_ms=host_ms, fetch_ms=fetch_ms,
+                           bound_ms=max(bytes_ms, ops_ms),
+                           bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                           bytes_bound_ms=bytes_ms, box_bytes_bound_ms=box_ms,
+                           ops_bound_ms=ops_ms, chain_floor_ms=chain_ms, diagonals=steps,
+                           out_bytes=out_bytes, box_bytes=3 * 4 * cells, max_abs_err=err)
+        print(f"K8 {label}: P={P} l1={l1} threads={threads} rows/thread={rows_per_thread} "
+              f"shared={shared} B; exact against plain and host fill; kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f} ms), plain {plain_ms:.2f} ms, host fill "
+              f"{host_ms:.2f} ms, kernel + crop + copy back {fetch_ms:.3f} ms; bound "
+              f"{max(bytes_ms, ops_ms):.5f} ms ({rows[label]['bound_by']}: bytes "
+              f"{bytes_ms:.5f}, boxes alone {box_ms:.5f}, int32 operations {ops_ms:.5f}), "
+              f"dependent-diagonal floor {chain_ms:.4f} ms ({steps} barrier steps of "
+              f"{threads} threads); no library yardstick (no single PyTorch call "
+              f"computes this DP)")
+    return rows
+
+
+def phase1_walls(paths) -> dict:
+    """Phase 1 on the card with K8 (HPairHeuristic.build: K1, K8, the host
+    traceback and tree) and with the host fill (K1, then the host
+    Altschul pipeline, as before K8), in turns (K8, host, host, K8) at
+    kinase, globin6, synth4_long and synth10; the Gotoh distances and the
+    weights of both must be equal.  An observation, not a claim."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.heuristic.wavefront import pair_tables
+    from mpi_pastar_msa_tpu_torch.heuristic.weights import (
+        altschul_rationale2, gotoh_distances)
+
+    out = {}
+    for label, path in (("kinase", paths["kinase.fasta"]), ("globin6", data_path("globin6")),
+                        ("synth4_long", data_path("synth4_long")),
+                        ("synth10", data_path("synth10"))):
+        p = problem_from_fasta(path)
+        if not np.array_equal(gotoh_distances(p.seqs, torch.device("cuda")),
+                              gotoh_distances(p.seqs)):
+            fail(f"{label}: Gotoh distances on the card differ from the host's")
+
+        def with_k8():
+            h = HPairHeuristic.build(p, "cuda")
+            torch.cuda.synchronize()
+            return h.weight_f, h.weight_i
+
+        def with_host():
+            pair_tables(p, "cuda").cpu().numpy()
+            return altschul_rationale2(p.seqs)
+
+        walls, weights = [], []
+        for fn in (with_k8, with_host, with_host, with_k8):
+            t0 = time.perf_counter()
+            weights.append(fn())
+            walls.append(time.perf_counter() - t0)
+        if not all(np.array_equal(w[k], weights[0][k]) for w in weights for k in (0, 1)):
+            fail(f"{label}: Phase 1 weights with K8 differ from the host fill's")
+        out[label] = dict(k8_s=[walls[0], walls[3]], host_s=[walls[1], walls[2]])
+        print(f"Phase 1 {label} (N={p.n_seq}, Lmax={p.max_length}) in turns: K8 "
+              f"{walls[0]:.4f} s, host fill {walls[1]:.4f} s, host fill {walls[2]:.4f} s, "
+              f"K8 {walls[3]:.4f} s; distances and weights identical")
+    return out
+
+
+def check_weights(label: str, heuristic, seqs, counts: dict) -> None:
+    """K8 launched once in the run's Phase 1, next to K1, and the run's
+    weights equal the host fill's (HOST_WEIGHTS caches them by input)."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch.heuristic.weights import altschul_rationale2
+
+    if counts["gotoh_wavefront"] != 1 or counts["pair_wavefront"] != 1:
+        fail(f"{label}: Phase 1 launched K1 {counts['pair_wavefront']} and K8 "
+             f"{counts['gotoh_wavefront']} times, want 1 each")
+    key = tuple(seqs)
+    if key not in HOST_WEIGHTS:
+        HOST_WEIGHTS[key] = altschul_rationale2(key)
+    base = getattr(heuristic, "base", heuristic)
+    if not all(np.array_equal(a, b) for a, b in zip((base.weight_f, base.weight_i),
+                                                   HOST_WEIGHTS[key])):
+        fail(f"{label}: the weights of Phase 1 on the card differ from the host fill's")
+
+
+def cli_engine(name: str, path: str, gold: dict, flags, want_line=None) -> dict:
+    """One run of the CLI entry with ``flags`` (the serial or native
+    engine), Phase 1 on the card: the golden g, a path whose recomputed
+    cost is g, degapped rows equal to the inputs, the golden similarity,
+    K1 and K8 once each and the host fill's weights; ``want_line`` must be
+    printed.  Prints whether the alignment is byte-identical to the golden."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch import cli
+    from mpi_pastar_msa_tpu_torch.search.backtrace import attach_path_g, similarity
+
+    args = cli.make_parser().parse_args([path, "--device", "cuda"] + list(flags))
+    label = f"{name} {' '.join(flags) or '(CLI defaults: --engine auto)'}"
+    _kernels.reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rep = cli.execute(args)
+    counts = dict(_kernels.launches)
+    text = out.getvalue()
+    if want_line and want_line not in text.splitlines():
+        fail(f"{label}: no line {want_line!r}")
+    res = rep.result
+    if res.g != gold["optimal_g"]:
+        fail(f"{label}: g={res.g}, want {gold['optimal_g']}")
+    attach_path_g(rep.problem, rep.heuristic.weight_i, res.closed, goal_g=res.g)
+    identical = check_alignment(label, rep.alignment, gold, False)
+    sim = round(similarity(rep.alignment), 2)
+    if sim != gold["similarity_pct"]:
+        fail(f"{label}: similarity {sim}, want {gold['similarity_pct']}")
+    check_weights(label, rep.heuristic, rep.problem.seqs, counts)
+    print(f"{label} (CLI, Phase 1 on the card): engine {rep.engine_name}, g={res.g} ok, "
+          f"path cost == g, similarity {sim:.2f}%, alignment byte-identical to golden: "
+          f"{identical}; Phase 1/2/3 = {rep.walls['phase1']:.3f} / "
+          f"{rep.walls['phase2']:.3f} / {rep.walls['phase3']:.3f} s; expanded "
+          f"{res.nodes_expanded}; launches K1 {counts['pair_wavefront']}, K8 "
+          f"{counts['gotoh_wavefront']}")
+    return dict(engine=rep.engine_name, g=res.g, identical=identical, similarity=sim,
+                walls=rep.walls, expanded=res.nodes_expanded, launches=counts)
+
+
+def checkpoint_resume(name: str, path: str, gold: dict, layout: str, tmp: str,
+                      interrupt_at: int = 128) -> dict:
+    """A search of the engine entry (its defaults, as the CLI's) stopped by
+    max_steps with a checkpoint, then resumed by a new engine: the golden
+    g, more steps than the interrupted run, the main path's expansions,
+    reopens and steps (MAIN_PATH_COUNTS: the resumed search is the
+    uninterrupted one), the layout's step kernels under one chunk graph
+    the resumed run captured itself, K7 once (checked against _walk), no
+    plain step function; on a golden input the golden alignment.  Prints
+    the save and load walls and the file's size."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+    from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
+
+    p = problem_from_fasta(path)
+    h = HPairHeuristic.build(p, "cuda")
+    ckpt = os.path.join(tmp, f"{name}.ckpt.npz")
+    first = FrontierSearch(p, h, device="cuda", max_steps=interrupt_at, checkpoint_path=ckpt)
+    try:
+        first.run()
+        fail(f"{name}: the search ended before max_steps={interrupt_at}")
+    except RuntimeError as e:
+        if "max_steps" not in str(e):
+            raise
+    size = os.path.getsize(ckpt)
+    save_s = first.last_phase_walls["checkpoint_save"]
+    _kernels.reset_counts()
+    with plain_step_guard() as plain, walk_capture() as seen:
+        eng = FrontierSearch(p, h, device="cuda", checkpoint_path=ckpt)
+        res = eng.run()
+    counts = dict(_kernels.launches)
+    label = f"{name} resumed"
+    if eng.layout != layout or eng.resumed_steps is None:
+        fail(f"{label}: layout {eng.layout}, resumed from {eng.resumed_steps}")
+    if res.g != gold["optimal_g"] or not res.steps > eng.resumed_steps >= interrupt_at:
+        fail(f"{label}: g={res.g} after {res.steps} steps from {eng.resumed_steps}")
+    want = MAIN_PATH_COUNTS[(name, "auto")]
+    if (res.nodes_expanded, res.nodes_reopened, res.steps) != want:
+        fail(f"{label}: expanded, reopened, steps "
+             f"{(res.nodes_expanded, res.nodes_reopened, res.steps)}, want {want}")
+    identical = check_alignment(label, build_alignment(p, res.closed), gold,
+                                gold["alignment"] is not None)
+    replays = -(-(res.steps - eng.resumed_steps) // eng.chunk_steps)
+    per = 1 + eng.chunk_steps * replays
+    if (eng.graph_captures != 1 or counts["path_walk"] != 1 or any(plain.values())
+            or any(counts[k] != per for k in LAYOUT_KERNELS[layout])):
+        fail(f"{label}: {eng.graph_captures} graph captures, launches {counts} "
+             f"(want {per} a step kernel, K7 once), plain calls {plain}")
+    load_s = eng.last_phase_walls["checkpoint_load"]
+    print(f"{label} ({layout}): interrupted at {eng.resumed_steps} steps, checkpoint "
+          f"{size / 2**20:.1f} MiB saved in {save_s:.3f} s, loaded in {load_s:.3f} s; "
+          f"g={res.g} ok after {res.steps} steps, counts of the uninterrupted search, "
+          f"alignment byte-identical to golden: {identical}; its own chunk graph "
+          f"({eng.graph_captures} capture), K7 once")
+    return dict(layout=layout, g=res.g, interrupted_steps=eng.resumed_steps,
+                steps=res.steps, bytes=size, save_s=save_s, load_s=load_s,
+                identical=identical, launches=counts,
+                k7=check_k7(label, seen))
+
+
 def write_report(path, report: dict) -> None:
     """The full report as JSON at ``path`` (nothing when None)."""
     if path:
@@ -2461,6 +2750,8 @@ def main() -> int:
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["k1"] = check_k1(paths, baseline)
+        report["k8"] = check_k8(paths)
+        report["phase1"] = phase1_walls(paths)
         k2_baseline = None
         if args.k2_baseline:
             k2_baseline = (args.k2_baseline,
@@ -2486,6 +2777,15 @@ def main() -> int:
             for triples in ("auto", "off"):
                 report[f"{name}_{triples}"] = main_path(
                     name, paths[name], gold[name], True, triples)
+        # the CLI's other engines, Phase 1 on the card
+        report["engines"] = {
+            "test2_auto": cli_engine("test2.fasta", paths["test2.fasta"], gold["test2.fasta"],
+                                     [], want_line="engine auto -> native"),
+            "PF08184_serial": cli_engine("PF08184.fasta", paths["PF08184.fasta"],
+                                         gold["PF08184.fasta"], ["--engine", "serial"]),
+            "PF08184_native_t4": cli_engine("PF08184.fasta", paths["PF08184.fasta"],
+                                            gold["PF08184.fasta"],
+                                            ["--engine", "native", "-t", "4"])}
         # 6. layouts beyond sig, through K3, K9 and K10; synth10's step
         # checked against the plain step on its main-path engine (its host
         # upper-bound beam alone takes ~100 s)
@@ -2516,6 +2816,13 @@ def main() -> int:
                                              layout, order)
             for label, name, layout in ENGINE_WALKS}
         report["degenerate"] = degenerate_input()
+        # checkpoint/resume: interrupted by max_steps, resumed by a new engine
+        report["checkpoint"] = {
+            "kinase": checkpoint_resume("kinase", paths["kinase.fasta"],
+                                        gold["kinase.fasta"], "sig", tmp),
+            "globin6": checkpoint_resume("globin6", data_path("globin6"),
+                                         data_gold("globin6", LAYOUT_INPUTS["globin6"]),
+                                         "packed", tmp)}
         report["off_path_bounds"] = off_path_bounds(report, paths["kinase.fasta"])
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
@@ -2535,7 +2842,7 @@ def main() -> int:
     phases_tmp.cleanup()
     write_report(args.report, report)
 
-    k1, k2 = report["k1"]["kinase"], report["k2"]["kinase"]
+    k1, k2, k8 = report["k1"]["kinase"], report["k2"]["kinase"], report["k8"]["kinase"]
     launches = report["kinase"]["launches"]  # the main path's run
     # launch floors: K1's call is two launches, K2's its tile diagonals'
     # dependent launches, K3-K5 one each
@@ -2549,6 +2856,19 @@ def main() -> int:
         "launch_floor_ms": k1_floor,
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
+    }, {
+        "name": "gotoh_wavefront", "route": "cuda",
+        "source": "mpi_pastar_msa_tpu_torch/csrc/gotoh_wavefront.cu",
+        "replaces": "mpi_pastar_msa_tpu/heuristic/gotoh_wavefront.py:38",
+        "launches": launches["gotoh_wavefront"],
+        "max_abs_err": max(r["max_abs_err"] for r in report["k8"].values()),
+        "ms": k8["ms"], "device_ms": k8["device_ms"], "launch_floor_ms": floor["ms"],
+        "plain_ms": k8["plain_ms"], "host_fill_ms": k8["host_fill_ms"],
+        "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
+        "chain_floor_ms": k8["chain_floor_ms"], "library_ms": None,
+        **{label: {k: r[k] for k in ("ms", "device_ms", "plain_ms", "host_fill_ms",
+                                     "bound_ms", "bound_by", "chain_floor_ms")}
+           for label, r in report["k8"].items() if label != "kinase"},
     }, {
         "name": "triple_wavefront", "route": "cuda",
         "source": "mpi_pastar_msa_tpu_torch/csrc/triple_wavefront.cu",

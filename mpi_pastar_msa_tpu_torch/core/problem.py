@@ -38,6 +38,10 @@ class Problem:
         return max(len(s) for s in self.seqs)
 
     @property
+    def initial_coord(self) -> np.ndarray:
+        return np.zeros(self.n_seq, dtype=np.int32)
+
+    @property
     def final_coord(self) -> np.ndarray:
         """Goal coordinate = sequence lengths (ref: pastar/Sequences.cpp:53-60)."""
         return np.array([len(s) for s in self.seqs], dtype=np.int32)

@@ -6,7 +6,9 @@ lower-bounds that pair's remaining cost, and the WSP objective is the weighted
 sum of pair costs.
 
 The tables come from the pair-wavefront kernel (K1) on the card, or from its
-plain version on the CPU; the weights from the host NumPy pipeline.
+plain version on the CPU; the weights from the Altschul pipeline, whose Gotoh
+fill runs on the same device (kernel K8 on the card, its plain version on the
+CPU) and whose tree work stays on the host.
 """
 from __future__ import annotations
 
@@ -31,13 +33,15 @@ class HPairHeuristic:
 
     @classmethod
     def build(cls, problem: Problem, device="cuda") -> "HPairHeuristic":
-        """All pair tables (K1 on ``device``) plus the Altschul weights."""
-        stacked = pair_tables(problem, resolve_device(device)).cpu().numpy()
+        """All pair tables (K1 on ``device``) plus the Altschul weights
+        (their Gotoh fill, K8, on ``device``)."""
+        dev = resolve_device(device)
+        stacked = pair_tables(problem, dev).cpu().numpy()
         tables = tuple(
             stacked[k, : len(problem.seqs[x]) + 1, : len(problem.seqs[y]) + 1]
             for k, (x, y) in enumerate(problem.pairs())
         )
-        wf, wi = altschul_rationale2(problem.seqs)
+        wf, wi = altschul_rationale2(problem.seqs, dev)
         return cls(problem, tables, wf, wi)
 
     @classmethod

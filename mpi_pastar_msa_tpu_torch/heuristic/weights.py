@@ -1,6 +1,6 @@
 """Weighted sum-of-pairs weights: Gotoh distances + NJ tree + Altschul rationale-2.
 
-Host-side precompute, replicating the reference pipeline semantics
+Precompute replicating the reference pipeline semantics
 (ref: pastar/WeightedSP.cpp) bit-for-bit so that optimal WSP scores match:
 
   1. ``gotoh_distances`` — per pair, a 3-matrix (diag/horiz/vert) global
@@ -18,7 +18,8 @@ All floating arithmetic that the reference performs in C ``float`` is emulated
 with explicit ``np.float32`` operations (SSE single-precision rounding); the
 O(N^3..N^4) tree work on N <= 64 leaves is negligible, so clarity and exact
 parity beat vectorisation here.  The per-pair DP is O(L^2) ints and is the only
-heavy part; it is NumPy-vectorised by anti-diagonal.
+heavy part: on the host it is NumPy-vectorised by anti-diagonal, on a torch
+device all pairs are filled at once (``gotoh_wavefront.py``, kernel K8).
 
 The runtime weight used by both g and h is the float truncated to int
 (ref: pastar/Node.cpp:226, pastar/HeuristicHPair.cpp:82).
@@ -31,6 +32,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..core.cost import COST_TABLE, DASH, PRIMER_EFFECTIVE_GAP_COST, PRIMER_GAP_COST
+from .gotoh_wavefront import gotoh_matrices_device
 
 _BIG = 999999  # ref: WeightedSP.hpp:12
 _DIAG, _VERT, _HORZ = 0, 1, 2
@@ -121,13 +123,16 @@ def _traceback_distance(a: np.ndarray, b: np.ndarray, dd, hh, vv) -> int:
     return int(0.5 + 1000.0 * (N_ - match + M_ - match) / (N_ + M_))
 
 
-def gotoh_distances(seqs: Tuple[str, ...]) -> np.ndarray:
+def gotoh_distances(seqs: Tuple[str, ...], device=None) -> np.ndarray:
     """(N, N) float32 symmetric per-mille distance matrix, min-clamped to 1.
 
-    The O(L^2) Gotoh matrices are filled on the host (no length cap; the
-    reference caps this phase at ``MAX_SEQ_SIZE=1000``,
-    ref: pastar/include/WeightedSP.hpp:10).  A device fill is still to be
-    ported (ROADMAP Queue 1, device Gotoh weights)."""
+    ``device=None`` fills the O(L^2) Gotoh matrices on the host, the JAX
+    package's default; a ``torch.device`` fills all pairs at once through
+    ``gotoh_wavefront.gotoh_matrices_device`` (kernel K8 on the card, its
+    plain version on the CPU), bit-identical int arithmetic.  Neither has a
+    length cap (the reference caps this phase at ``MAX_SEQ_SIZE=1000``,
+    ref: pastar/include/WeightedSP.hpp:10).  The per-mille traceback is
+    host-side either way."""
     enc = []
     for s in seqs:
         # dash-prefix workaround (ref: WeightedSP.cpp:445-447)
@@ -135,7 +140,12 @@ def gotoh_distances(seqs: Tuple[str, ...]) -> np.ndarray:
     n = len(seqs)
     D = np.zeros((n, n), dtype=np.float32)
     ij = [(I, J) for I in range(n - 1) for J in range(I + 1, n)]
-    mats = [_gotoh_pair_matrices(enc[I], enc[J]) for I, J in ij]
+    if device is not None:
+        mats = gotoh_matrices_device(
+            [(enc[I], enc[J]) for I, J in ij],
+            [(len(enc[I]) - 1, len(enc[J]) - 1) for I, J in ij], device)
+    else:
+        mats = [_gotoh_pair_matrices(enc[I], enc[J]) for I, J in ij]
     for (I, J), (dd, hh, vv) in zip(ij, mats):
         dist = _traceback_distance(enc[I], enc[J], dd, hh, vv)
         if dist <= 0:
@@ -347,15 +357,19 @@ def rationale2_weights(n_seq: int, nodes_list: List[TreeNode]) -> np.ndarray:
     return out
 
 
-def altschul_rationale2(seqs: Tuple[str, ...]) -> Tuple[np.ndarray, np.ndarray]:
+def altschul_rationale2(seqs: Tuple[str, ...],
+                        device=None) -> Tuple[np.ndarray, np.ndarray]:
     """Full pipeline: sequences -> (float weight matrix, int runtime weights).
+
+    ``device`` is where the Gotoh matrices are filled (``gotoh_distances``):
+    None on the host, else a ``torch.device``.
 
     The int weights are the float weights truncated toward zero, exactly as the
     reference casts at every use site (pastar/Node.cpp:226,242;
     pastar/HeuristicHPair.cpp:82).
     """
     n = len(seqs)
-    D = gotoh_distances(seqs)
+    D = gotoh_distances(seqs, device)
     _, nodes_list = neighbor_joining(n, D)
     wf = rationale2_weights(n, nodes_list)
     wi = wf.astype(np.int32)  # C-style float->int truncation

@@ -54,9 +54,11 @@ the engine's largest tensors).
 from __future__ import annotations
 
 import functools
+import hashlib
+import os
 import time
 import warnings
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -854,7 +856,7 @@ def _expand_insert(st: _Static, fns: _LayoutFns, tab, coords, g, par, f_par,
 
 
 def _run_chunk(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
-               ub: int, fill: int, layout: str) -> torch.Tensor:
+               ub: int, fill: int, layout: str, graph: bool = True) -> torch.Tensor:
     """Up to ``chunk_steps`` super-steps (select -> expand -> insert) of the
     table ``layout``, as the JAX chunked run loops (a while_loop): stop when
     fmin >= goal_g, after chunk_steps, or on overflow.  A CUDA table runs
@@ -864,12 +866,13 @@ def _run_chunk(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
     table the plain loop, ``_run_chunk_plain``.  The caller reads the whole
     counters vector once per chunk; on a CUDA table a chunk is one CUDA
     graph, captured at the first chunk of a table (so again after a
-    regrow, whose new table and statics have new buffers) and replayed for
-    the others."""
+    regrow, whose new table and statics have new buffers, or a table
+    loaded from a checkpoint) and replayed for the others; ``graph=False``
+    enqueues the chunk kernel by kernel instead."""
     if counters.device.type == "cuda":
         from .step import run_chunk_keyrow_cuda, run_chunk_sig_cuda
         run = run_chunk_sig_cuda if layout == "sig" else run_chunk_keyrow_cuda
-        return run(st, tab, counters, chunk_steps, ub, fill)
+        return run(st, tab, counters, chunk_steps, ub, fill, graph=graph)
     return _run_chunk_plain(st, tab, counters, chunk_steps, ub, fill, layout)
 
 
@@ -954,6 +957,9 @@ def _lookup_unpacked(st: _Static, tab: UnpackedTable, coord):
     return _lookup_keyrow(st, tab.t_key, tab.t_fpar, coord)
 
 
+# the table type of each layout
+_TABLES = {"sig": SigTable, "packed": PackedTable, "unpacked": UnpackedTable}
+
 # the plain grouped argmin of each layout's select (``plain_select``)
 _PLAIN_ARGMIN = {"sig": _select_best_plain, "packed": _select_best_plain,
                  "unpacked": _select_open_plain}
@@ -1021,7 +1027,19 @@ class FrontierSearch:
 
     ``max_steps``: a search still short of the goal after that many steps
     (counted at the end of a chunk) raises RuntimeError("max_steps
-    exceeded"), as JAX's does."""
+    exceeded"), as JAX's does.
+
+    ``checkpoint_path``: the search state (the table's tensors and the
+    counters) is saved there between chunks, every ``checkpoint_every``
+    chunks, and once more when ``max_steps`` is exceeded; a run whose
+    checkpoint matches its problem and configuration (``_ckpt_meta``)
+    resumes from it.  The port's checkpoints are not the JAX engine's: each
+    package ignores the other's file.
+
+    ``driver``: "chunked" runs ``chunk_steps`` steps a dispatch (on the
+    card one CUDA graph a chunk), "host" one step a dispatch through the
+    same kernels, enqueued one by one, with one host read a step (JAX
+    ``_run_host_driver``)."""
 
     def __init__(self, problem: Problem,
                  heuristic: Optional[HPairHeuristic] = None,
@@ -1029,13 +1047,19 @@ class FrontierSearch:
                  capacity: Optional[int] = None,
                  chunk_steps: int = 64, triples: str = "auto",
                  fill_target: Optional[int] = None, layout: str = "auto",
-                 max_steps: int = 1_000_000):
+                 max_steps: int = 1_000_000, checkpoint_path: Optional[str] = None,
+                 checkpoint_every: int = 8, driver: str = "chunked"):
         if triples not in ("auto", "on", "off", "fractional"):
             raise ValueError(f"triples={triples!r}: choose auto, on, off or "
                              "fractional")
         if layout not in LAYOUTS:
             raise ValueError(f"layout={layout!r}: choose one of {LAYOUTS}")
+        if driver not in ("chunked", "host"):
+            raise ValueError(f"driver={driver!r}: choose chunked or host")
         self.layout_pref = layout
+        self.driver = driver
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = checkpoint_every
         self.device = resolve_device(device)
         self.problem = problem
         self.heuristic = (heuristic if heuristic is not None
@@ -1112,6 +1136,7 @@ class FrontierSearch:
         self._check_layout()
         self.regrown = False
         self.graph_captures = 0  # chunk graphs the last run captured
+        self.resumed_steps = None  # steps of the checkpoint the run resumed
 
     @property
     def layout(self) -> str:
@@ -1225,18 +1250,28 @@ class FrontierSearch:
                 "can be negative, so A* optimality is undefined for this "
                 "input (the reference has the same limitation)",
                 RuntimeWarning, stacklevel=3)
-        t0 = time.perf_counter()
         self.last_phase_walls = {"cubes": self.cubes_wall}
         layout = self.layout
-        tab = self._init_table()
-        counters = torch.as_tensor(fresh_counters(), device=st.device)
+        tab, counters = self._load_checkpoint()
+        t0 = time.perf_counter()
+        self.resumed_steps = None if tab is None else int(counters[2])
+        if tab is None:
+            tab = self._init_table()
+            counters = torch.as_tensor(fresh_counters(), device=st.device)
         self.last_phase_walls["init_table"] = time.perf_counter() - t0
         from .step import capture_stats
         captures0, capture_s0 = capture_stats(st)
+        host = self.driver == "host"
+        chunks = 0
         while True:
-            counters = _run_chunk(st, tab, counters, self.chunk_steps,
-                                  self.ub, self.fill_target, layout)
-            c = counters.tolist()  # one host read per chunk
+            if (self.checkpoint_path and chunks
+                    and chunks % self.checkpoint_every == 0):
+                self._save_checkpoint(tab, counters)
+            counters = _run_chunk(st, tab, counters,
+                                  1 if host else self.chunk_steps, self.ub,
+                                  self.fill_target, layout, graph=not host)
+            chunks += 1
+            c = counters.tolist()  # one host read per chunk (a step: host)
             goal_v, fmin_v, steps, total_expanded, total_reopen, _, overflow = c[:7]
             self.last_acct = dict(zip(
                 ("sel_proc", "lanes_true", "lanes_r0", "lanes_probe",
@@ -1251,11 +1286,69 @@ class FrontierSearch:
             raise RuntimeError(f"hash table overflow after {steps} steps "
                                f"(capacity {st.C}); increase capacity")
         if steps >= self.max_steps and fmin_v < goal_v:
-            # JAX saves a checkpoint here first (ROADMAP Queue 1, item 4)
+            if self.checkpoint_path:
+                self._save_checkpoint(tab, counters)
             raise RuntimeError("max_steps exceeded")
         if goal_v >= INF:
             raise RuntimeError("open set exhausted without reaching the goal")
         return self._finish(tab, goal_v, steps, total_expanded, total_reopen)
+
+    def _ckpt_meta(self) -> str:
+        """What a checkpoint must match to be resumed (JAX ``_ckpt_meta``):
+        the problem, B, C, W and the layout, the cube set and the f-rebase
+        origin (stored f values depend on both), the sig table's ways; and,
+        beside JAX's fields, the port's format tag, the counters' slots and
+        the table's tensor names, so that neither package reads the other's
+        file."""
+        st = self.st
+        h = hashlib.sha256(b"mpi_pastar_msa_tpu_torch checkpoint v1")
+        for s in self.problem.seqs:
+            h.update(s.encode())
+        h.update(f"{st.B}:{st.C}:{st.W}:{self.layout}".encode())
+        h.update(f":tri{getattr(self.heuristic, 'triangles', None)}"
+                 f":{getattr(self.heuristic, 'tri_weights', None)}"
+                 f":f0{st.f0}".encode())
+        if self.layout == "sig":
+            h.update(f":w{st.ways}".encode())
+        names = [f.name for f in fields(_TABLES[self.layout])]
+        h.update(f":ctr{N_COUNTERS}:{','.join(names)}".encode())
+        return h.hexdigest()[:16]
+
+    def _save_checkpoint(self, tab, counters: torch.Tensor) -> None:
+        """Write the table's tensors and the counters to checkpoint_path,
+        atomically (a rename); the seconds go to last_phase_walls."""
+        t0 = time.perf_counter()
+        tmp = self.checkpoint_path + ".tmp"
+        arrays = {f"tab_{f.name}": getattr(tab, f.name).cpu().numpy()
+                  for f in fields(tab)}
+        with open(tmp, "wb") as f:
+            np.savez_compressed(
+                f, meta=np.frombuffer(self._ckpt_meta().encode(), dtype=np.uint8),
+                counters=counters.cpu().numpy(), **arrays)
+        os.replace(tmp, self.checkpoint_path)
+        walls = self.last_phase_walls
+        walls["checkpoint_save"] = walls.get("checkpoint_save", 0.0) + time.perf_counter() - t0
+
+    def _load_checkpoint(self):
+        """(table, counters) on the engine's device from checkpoint_path,
+        or (None, None) when there is none or it was written for another
+        problem, configuration or format (then the run starts afresh).  The
+        tensors are new, so a chunk graph captured before is never
+        replayed on them."""
+        if not self.checkpoint_path or not os.path.exists(self.checkpoint_path):
+            return None, None
+        t0 = time.perf_counter()
+        cls = _TABLES[self.layout]
+        with np.load(self.checkpoint_path) as z:
+            names = [f"tab_{f.name}" for f in fields(cls)]
+            if ("meta" not in z.files or bytes(z["meta"]).decode() != self._ckpt_meta()
+                    or any(k not in z.files for k in names + ["counters"])):
+                return None, None
+            dev = self.st.device
+            tab = cls(*(torch.from_numpy(z[k]).to(dev) for k in names))
+            counters = torch.from_numpy(z["counters"]).to(dev)
+        self.last_phase_walls["checkpoint_load"] = time.perf_counter() - t0
+        return tab, counters
 
     def _finish(self, tab, goal_v, steps, total_expanded,
                 total_reopen) -> FrontierResult:

@@ -58,7 +58,9 @@ is its set-up (``counters[1] = 0`` and the run flag) and ``chunk_steps``
 steps, with no host read; the host reads the counters once a chunk
 (``FrontierSearch``).  Steps after the stop do nothing.  By default a
 chunk is one CUDA graph, captured once a table, chunk length, bound and
-fill (again after a regrow: a new table) and replayed every chunk: the
+fill (again after a regrow, or for a table loaded from a checkpoint: a new
+table, whose tensors are not those a graph holds) and replayed every
+chunk: the
 host makes one graph launch a chunk, not three kernel launches a step.
 Every pointer the graph holds is a buffer of the table or of
 ``StepBuffers``, the counters included: a chunk copies the caller's

@@ -1,7 +1,7 @@
 """The port's CLI prints the same Final Score, Similarity and alignment block
-as the JAX CLI (--engine tpu, with --triples off and with --triples auto) on
-PF08184 rebuilt from tests/goldens.json; timers and the counters table may
-differ."""
+as the JAX CLI (--engine tpu against the port's --engine frontier, with
+--triples off and with --triples auto) on PF08184 rebuilt from
+tests/goldens.json; timers and the counters table may differ."""
 import contextlib
 import io
 import json
@@ -44,7 +44,8 @@ def pf08184_fasta(tmp_path):
 def test_cli_surface_matches_jax(tmp_path):
     gold, fasta = pf08184_fasta(tmp_path)
     want = run(jcli.run, [str(fasta), "--engine", "tpu", "--triples", "off"])
-    got = run(tcli.run, [str(fasta), "--device", "cpu", "--triples", "off"])
+    got = run(tcli.run, [str(fasta), "--device", "cpu", "--engine", "frontier",
+                         "--triples", "off"])
     assert surface(got) == surface(want)
     score, block = surface(got)
     assert score == "Final Score: (59 59 59)\tg - 24450 (h - 0 f - 24450)"
@@ -59,9 +60,11 @@ def test_cli_triples_auto_surface_matches_jax(tmp_path):
     # the default --triples auto builds PF08184's one cube in both packages
     gold, fasta = pf08184_fasta(tmp_path)
     want = run(jcli.run, [str(fasta), "--engine", "tpu", "--triples", "auto"])
-    got = run(tcli.run, [str(fasta), "--device", "cpu", "--triples", "auto"])
+    got = run(tcli.run, [str(fasta), "--device", "cpu", "--engine", "frontier",
+                         "--triples", "auto"])
     assert surface(got) == surface(want)
-    assert surface(run(tcli.run, [str(fasta), "--device", "cpu"])) == surface(got)
+    assert surface(run(tcli.run, [str(fasta), "--device", "cpu", "--engine",
+                                  "frontier"])) == surface(got)
     score, block = surface(got)
     assert score == "Final Score: (59 59 59)\tg - 24450 (h - 0 f - 24450)"
     assert [l for l in block[1:] if l] == gold["alignment"]

@@ -1,5 +1,5 @@
 """Tests that need the card (marker ``cuda``): the hand-written CUDA kernels
-(K1 pair wavefront, K2 triple cubes, the sig step kernels K3-K5, the
+(K1 pair wavefront, K8 Gotoh fill, K2 triple cubes, the sig step kernels K3-K5, the
 packed and unpacked step kernels K3, K9 and K10 on both of K10's paths,
 the path walk K7) against their plain PyTorch versions, the chunk graph
 (K6) against the eager chunk, and the port's main path and its table
@@ -96,6 +96,7 @@ def test_main_path_on_card(cuda):
     res = FrontierSearch(p, HPairHeuristic.build(p, cuda), device=cuda,
                          triples="off").run()
     assert _kernels.launches["pair_wavefront"] == 1
+    assert _kernels.launches["gotoh_wavefront"] == 1
     assert res.g == gold["optimal_g"]
     assert build_alignment(p, res.closed) == gold["alignment"]
 
@@ -986,3 +987,103 @@ def test_walk_cuda_rejects_bad_input(cuda):
         with pytest.raises(ValueError):
             S.walk_cuda(s_, t, lay)
     assert _kernels.launches == before
+
+
+def gotoh_pairs(lengths, seed):
+    """Dash-prefixed random pairs of the given lengths, with their (n, m)."""
+    rs = np.random.RandomState(seed)
+    enc = [np.concatenate([[ord("-")], rs.choice(np.frombuffer(AMINO.encode(), np.uint8),
+                                                 size=L)]).astype(np.int32)
+           for L in lengths]
+    pairs = [(enc[i], enc[j]) for i in range(len(enc)) for j in range(len(enc)) if i != j]
+    return pairs, [(len(a) - 1, len(b) - 1) for a, b in pairs]
+
+
+@pytest.mark.parametrize("lengths,seed", [
+    ((4, 23, 9, 17), 1), ((1, 40), 2), ((1, 1), 3), ((60, 60, 60), 4),
+    # row-band boundaries: l1 = 1024 (R = 1), 1025 (R = 2), 2101 (R = 3)
+    ((1023, 700), 5), ((1024, 1), 6), ((2100, 30), 7),
+])
+def test_k8_kernel_equals_plain_and_host(cuda, lengths, seed):
+    from mpi_pastar_msa_tpu_torch.heuristic.gotoh_wavefront import (
+        gotoh_inputs, gotoh_matrices, gotoh_matrices_device, gotoh_matrices_plain)
+    from mpi_pastar_msa_tpu_torch.heuristic.weights import _gotoh_pair_matrices
+
+    pairs, lens = gotoh_pairs(lengths, seed)
+    args = gotoh_inputs(pairs, lens, cuda)
+    before = _kernels.launches["gotoh_wavefront"]
+    got = gotoh_matrices(**args)
+    assert _kernels.launches["gotoh_wavefront"] == before + 1
+    assert torch.equal(got.cpu(), gotoh_matrices_plain(**args).cpu())
+    for (a, b), mats in zip(pairs, gotoh_matrices_device(pairs, lens, cuda)):
+        if len(a) * len(b) <= 200_000:  # the host fill is slow beyond
+            assert all(np.array_equal(x, y) for x, y in
+                       zip(mats, _gotoh_pair_matrices(a, b)))
+
+
+def test_k8_wrapper_rejects_bad_input(cuda):
+    from mpi_pastar_msa_tpu_torch.heuristic.gotoh_wavefront import (
+        gotoh_inputs, gotoh_matrices)
+
+    pairs, lens = gotoh_pairs((5, 7), 8)
+    good = gotoh_inputs(pairs, lens, cuda)
+    before = _kernels.launches["gotoh_wavefront"]
+    for bad in (dict(good, seq_a=good["seq_a"].long()),
+                dict(good, n1s=good["n1s"].cpu()),
+                dict(good, l1=good["l1"] + 1),
+                dict(good, n2s=good["n2s"] + good["l1"]),
+                dict(good, seq_b=good["seq_b"][:1].contiguous())):
+        with pytest.raises(ValueError):
+            gotoh_matrices(**bad)
+    assert _kernels.launches["gotoh_wavefront"] == before
+
+
+@pytest.mark.parametrize("name", ["PF08184.fasta", "kinase.fasta"])
+def test_hpair_weights_on_card_equal_host(cuda, name):
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+
+    gold, p = golden_problem(name)
+    _kernels.reset_counts()
+    h = HPairHeuristic.build(p, cuda)
+    assert _kernels.launches["gotoh_wavefront"] == 1
+    wf, wi = altschul_rationale2(p.seqs)
+    assert np.array_equal(h.weight_f, wf) and np.array_equal(h.weight_i, wi)
+    assert np.array_equal(h.weight_i, np.array(gold["weights_int"]))
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+def test_host_driver_and_checkpoint_on_card(cuda, tmp_path, layout):
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+    from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
+
+    gold, p = golden_problem("PF08184.fasta")
+    h = HPairHeuristic.build(p, cuda)
+    args = dict(device=cuda, batch=64, capacity=1 << 12, chunk_steps=4, triples="off",
+                layout=layout)
+    whole = FrontierSearch(p, h, **args).run()
+    # the host driver: one step a dispatch, the same kernels enqueued
+    # eagerly (no chunk graph), the same search
+    _kernels.reset_counts()
+    eng = FrontierSearch(p, h, driver="host", **args)
+    res = eng.run()
+    assert (res.g, res.steps, res.nodes_expanded, res.closed) == (
+        gold["optimal_g"], whole.steps, whole.nodes_expanded, whole.closed)
+    assert eng.graph_captures == 0
+    k3 = "select_best_unpacked" if layout == "unpacked" else "select_best"
+    assert _kernels.launches[k3] == res.steps
+    # interrupted at 12 steps, then resumed by a new engine: its own chunk
+    # graph, K7 once, the uninterrupted search
+    ckpt = str(tmp_path / "search.ckpt.npz")
+    first = FrontierSearch(p, h, max_steps=10, checkpoint_path=ckpt, checkpoint_every=1,
+                           **args)
+    with pytest.raises(RuntimeError, match="max_steps"):
+        first.run()
+    _kernels.reset_counts()
+    eng = FrontierSearch(p, h, checkpoint_path=ckpt, **args)
+    res = eng.run()
+    assert eng.resumed_steps == 12 and eng.graph_captures == 1
+    assert _kernels.launches["path_walk"] == 1
+    assert (res.g, res.steps, res.nodes_expanded, res.closed) == (
+        whole.g, whole.steps, whole.nodes_expanded, whole.closed)
+    assert build_alignment(p, res.closed) == gold["alignment"]

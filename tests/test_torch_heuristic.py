@@ -81,9 +81,13 @@ def test_port_imports_no_jax():
         "       or k == 'mpi_pastar_msa_tpu' or k.startswith('mpi_pastar_msa_tpu.')]\n"
         "n = sum(1 for k in sys.modules if k.startswith('mpi_pastar_msa_tpu_torch.'))\n"
         "need = ['mpi_pastar_msa_tpu_torch.heuristic.triples',\n"
-        "        'mpi_pastar_msa_tpu_torch.search.engine']\n"
+        "        'mpi_pastar_msa_tpu_torch.search.engine',\n"
+        "        'mpi_pastar_msa_tpu_torch.heuristic.gotoh_wavefront',\n"
+        "        'mpi_pastar_msa_tpu_torch.search.serial',\n"
+        "        'mpi_pastar_msa_tpu_torch.search.native',\n"
+        "        'mpi_pastar_msa_tpu_torch.search.bruteforce']\n"
         "print(n, bad, [k for k in need if k not in sys.modules])\n"
-        "sys.exit(1 if bad or n < 16 or not all(k in sys.modules for k in need) else 0)\n"
+        "sys.exit(1 if bad or n < 20 or not all(k in sys.modules for k in need) else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
