@@ -14,10 +14,13 @@ Phases, each failing loudly (non-zero exit):
    exact int32 equality.  K8 (the Gotoh fill of Phase 1's weights,
    csrc/gotoh_wavefront.cu) at kinase, globin6, synth4_long, synth10 and
    random pairs of very unequal lengths, also against the host fill over
-   every pair's box: wrapper, device, plain, host-fill and crop-and-copy
-   times, bounds by bytes and operations, the dependent-diagonal floor;
-   then Phase 1's wall with K8 and with the host fill, in turns, at the
-   first four (their distances and weights equal).
+   every pair's box: wrapper, device (and its fill and tiled transpose
+   apart), plain, host-fill and crop-and-copy times, the scratch's bytes,
+   bounds by bytes and operations, the dependent-diagonal floor
+   (``--k8-baseline SRC`` builds another tree's K8, one with no scratch,
+   checks it against this one and times the two in turns); then
+   Phase 1's wall with K8 and with the host fill, in turns, at the first
+   four (their distances and weights equal).
    K1 (pair wavefront) at the main path's shapes
    (kinase) and at synth4_long's: kernel, plain, bound and
    dependent-diagonal floor times, also per diagonal (``--k1-baseline SRC``
@@ -685,11 +688,13 @@ def build_step_baseline(src: str, tmp: str):
 def start_phases_build(name: str, tmp: str):
     """Start nvcc on csrc/<name>.cu with its measurement macro (K3_PHASES
     for select_best: three %globaltimer readings in the partials when a
-    launch ends; K5_PHASES for sig_probe: five in lane_word) into ``tmp``;
-    returns (name, proc, lib)."""
+    launch ends; K5_PHASES for sig_probe: five in lane_word; K8_NO_STORE
+    for gotoh_wavefront: the fill without its scratch stores) into
+    ``tmp``; returns (name, proc, lib)."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    macro = {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES"}[name]
+    macro = {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES",
+             "gotoh_wavefront": "K8_NO_STORE"}[name]
     lib = os.path.join(tmp, f"lib{name}_phases.so")
     proc = subprocess.Popen(
         [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -2383,21 +2388,91 @@ def k8_inputs(paths) -> dict:
     return sets
 
 
-def check_k8(paths) -> dict:
+def start_k8_baseline(src: str, tmp: str):
+    """Start nvcc on another tree's K8 (``src``: its gotoh_wavefront.cu, or a
+    checkout's root or csrc/ directory; the C entry without the scratch,
+    of the kernel that stored each cell straight into the output) in its
+    own directory; returns (src, proc, lib)."""
+    import shutil
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    cu = src if os.path.isfile(src) else next(
+        p for p in (os.path.join(src, "gotoh_wavefront.cu"),
+                    os.path.join(src, "mpi_pastar_msa_tpu_torch", "csrc", "gotoh_wavefront.cu"))
+        if os.path.isfile(p))
+    out = os.path.join(tmp, "k8_baseline")
+    os.makedirs(out, exist_ok=True)
+    shutil.copy(cu, out)
+    lib = os.path.join(out, "libgotoh_wavefront.so")
+    proc = subprocess.Popen(
+        [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-o", lib, os.path.join(out, "gotoh_wavefront.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return src, proc, lib
+
+
+def load_k8_baseline(job):
+    """(src, run) of the other tree's K8 (start_k8_baseline): run(args) fills
+    the (3, P, l1, l1) output from gotoh_inputs' args, with this tree's
+    launch shape (k8_launch_shape: the same threads, rows and shared
+    bytes)."""
+    from mpi_pastar_msa_tpu_torch.core.cost import (
+        PRIMER_EFFECTIVE_GAP_COST, PRIMER_GAP_COST)
+    from mpi_pastar_msa_tpu_torch.heuristic.gotoh_wavefront import k8_launch_shape
+    from mpi_pastar_msa_tpu_torch.heuristic.wavefront import _device_cost
+
+    src, proc, lib = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"K8 baseline: nvcc failed for gotoh_wavefront.cu of {src}:\n{log}")
+    fn = ctypes.CDLL(lib).gotoh_wavefront
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(seq_a, seq_b, n1s, n2s, l1):
+        threads, rows, shared = k8_launch_shape(l1)
+        P = seq_a.shape[0]
+        out = torch.empty((3, P, l1, l1), dtype=torch.int32, device="cuda")
+        if fn(seq_a.data_ptr(), seq_b.data_ptr(), n1s.data_ptr(), n2s.data_ptr(),
+              _device_cost(seq_a.device).data_ptr(), out.data_ptr(), P, l1,
+              PRIMER_GAP_COST, PRIMER_EFFECTIVE_GAP_COST, threads, rows, shared,
+              torch.cuda.current_stream().cuda_stream):
+            fail(f"K8 build of {src} failed to launch")
+        return out
+
+    return src, run
+
+
+def check_k8(paths, baseline=None, no_store=None) -> dict:
     """K8 (gotoh_wavefront) against its plain version on the card and
     against the host fill (weights._gotoh_pair_matrices) over every pair's
     box, exact, at the K8 inputs; the wrapper (CUDA events) and device
-    (CUPTI) times, the plain version's, the host fill's and the host
-    function's (gotoh_matrices_device: the kernel, the crop on the device
-    and the one copy back), the bounds by bytes and by int32 operations
-    and the dependent-diagonal floor (n + m + 1 barrier steps of the
-    longest pair, at K8's block width: pair_wavefront.cu's barrier_chain)."""
+    (CUPTI) times, the device times of its two launches (the fill into the
+    diagonal-major scratch, the tiled transpose) and the scratch's bytes,
+    the plain version's, the host fill's and the host function's
+    (gotoh_matrices_device: the kernel, the crop on the device and the one
+    copy back into pinned memory) and the crop and copy alone, the bounds
+    by bytes and by int32 operations and the dependent-diagonal floor (n +
+    m + 1 barrier steps of the longest pair, at K8's block width:
+    pair_wavefront.cu's barrier_chain).  The crop and copy back in turns
+    with the former one (a boolean mask of the boxes on the device, then a
+    copy into pageable memory), and ``no_store`` (the C entry of the K8_NO_STORE
+    build) gives the fill's device time without its scratch stores.
+    ``baseline`` is (source, run) of another tree's K8 (``--k8-baseline``):
+    its output must equal this one's, and the two are timed in turns
+    (baseline, K8, K8, baseline), wrapper and device, K8 through the launch
+    that ``gotoh_matrices_device`` takes (no guard, no read of the device),
+    as the baseline's run."""
     import numpy as np
 
     from mpi_pastar_msa_tpu_torch._kernels import launches, load
+    from mpi_pastar_msa_tpu_torch.core.cost import (
+        PRIMER_EFFECTIVE_GAP_COST, PRIMER_GAP_COST)
     from mpi_pastar_msa_tpu_torch.heuristic.gotoh_wavefront import (
-        gotoh_inputs, gotoh_matrices, gotoh_matrices_device, gotoh_matrices_plain,
-        k8_launch_shape)
+        _gotoh_cuda, crop_boxes, gotoh_inputs, gotoh_matrices, gotoh_matrices_device,
+        gotoh_matrices_plain, k8_launch_shape, k8_scratch_shape)
+    from mpi_pastar_msa_tpu_torch.heuristic.wavefront import _device_cost
     from mpi_pastar_msa_tpu_torch.heuristic.weights import _gotoh_pair_matrices
 
     chain_fn = load("pair_wavefront").barrier_chain
@@ -2423,10 +2498,41 @@ def check_k8(paths) -> dict:
             fail(f"K8 {label}: the cropped matrices differ from the host fill")
         ms = time_ms(lambda: gotoh_matrices(**args), reps=20)
         dev_ms = device_ms(lambda: gotoh_matrices(**args), 20)
+        fill_ms, transpose_ms = (
+            device_ms(lambda: gotoh_matrices(**args), 20,
+                      keep=lambda k, name=name: own_event(k) and name in k)
+            for name in ("gotoh_wavefront_kernel", "gotoh_diag_to_rows_kernel"))
         plain_ms = time_ms(lambda: gotoh_matrices_plain(**args), reps=2, warmup=1)
         fetch_ms = time_ms(lambda: gotoh_matrices_device(pairs, lens, "cuda"), reps=5)
         P, l1 = len(pairs), args["l1"]
+        idx = torch.arange(l1, device="cuda")
+        box = ((idx[None, :, None] <= args["n1s"].long()[:, None, None])
+               & (idx[None, None, :] <= args["n2s"].long()[:, None, None]))
+        if not np.array_equal(got[:, box].cpu().numpy(), crop_boxes(got, lens)):
+            fail(f"K8 {label}: the crop from host offsets differs from the boolean mask's")
+        crop_turns = [time_ms(f, reps=5) for f in (
+            lambda: got[:, box].cpu().numpy(), lambda: crop_boxes(got, lens),
+            lambda: crop_boxes(got, lens), lambda: got[:, box].cpu().numpy())]
+        crop_ms = crop_turns[1]
         threads, rows_per_thread, shared = k8_launch_shape(l1)
+        scratch_bytes = 4 * int(np.prod(k8_scratch_shape(P, l1)))
+        no_store_ms = None
+        if no_store is not None:
+            scratch = torch.empty(k8_scratch_shape(P, l1), dtype=torch.int32, device="cuda")
+            junk = torch.empty_like(got)  # the build's transpose reads a scratch never written
+
+            def fill_only():
+                if no_store(args["seq_a"].data_ptr(), args["seq_b"].data_ptr(),
+                            args["n1s"].data_ptr(), args["n2s"].data_ptr(),
+                            _device_cost(got.device).data_ptr(), scratch.data_ptr(),
+                            junk.data_ptr(), P, l1, PRIMER_GAP_COST,
+                            PRIMER_EFFECTIVE_GAP_COST, threads, rows_per_thread, shared,
+                            torch.cuda.current_stream().cuda_stream):
+                    fail("the K8_NO_STORE build failed to launch")
+
+            no_store_ms = device_ms(fill_only, 20, keep=lambda k: own_event(k)
+                                    and "gotoh_wavefront_kernel" in k)
+            del scratch, junk
         cells = sum((n + 1) * (m + 1) for n, m in lens)
         in_bytes = 2 * P * l1 * 4 + 2 * P * 4 + 128 * 128 * 4
         out_bytes = 3 * P * l1 * l1 * 4
@@ -2443,22 +2549,46 @@ def check_k8(paths) -> dict:
 
         chain_ms = time_ms(chain, reps=20)
         rows[label] = dict(P=P, l1=l1, threads=threads, rows_per_thread=rows_per_thread,
-                           shared_bytes=shared, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                           host_fill_ms=host_ms, fetch_ms=fetch_ms,
+                           shared_bytes=shared, ms=ms, device_ms=dev_ms,
+                           fill_device_ms=fill_ms, transpose_device_ms=transpose_ms,
+                           scratch_bytes=scratch_bytes, plain_ms=plain_ms,
+                           fill_no_store_device_ms=no_store_ms, host_fill_ms=host_ms,
+                           fetch_ms=fetch_ms, crop_copy_ms=crop_ms,
+                           crop_copy_turns=dict(order="mask, offsets, offsets, mask",
+                                                ms=crop_turns),
                            bound_ms=max(bytes_ms, ops_ms),
                            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                            bytes_bound_ms=bytes_ms, box_bytes_bound_ms=box_ms,
                            ops_bound_ms=ops_ms, chain_floor_ms=chain_ms, diagonals=steps,
                            out_bytes=out_bytes, box_bytes=3 * 4 * cells, max_abs_err=err)
         print(f"K8 {label}: P={P} l1={l1} threads={threads} rows/thread={rows_per_thread} "
-              f"shared={shared} B; exact against plain and host fill; kernel {ms:.4f} ms "
-              f"(device {dev_ms:.4f} ms), plain {plain_ms:.2f} ms, host fill "
-              f"{host_ms:.2f} ms, kernel + crop + copy back {fetch_ms:.3f} ms; bound "
+              f"shared={shared} B, scratch {scratch_bytes} B; exact against plain and host "
+              f"fill; kernel {ms:.4f} ms (device {dev_ms:.4f} ms: fill {fill_ms:.4f}, "
+              f"transpose {transpose_ms:.4f}; the fill without its stores "
+              f"{no_store_ms if no_store_ms is None else round(no_store_ms, 4)}), plain "
+              f"{plain_ms:.2f} ms, host fill {host_ms:.2f} ms, kernel + crop + copy back "
+              f"{fetch_ms:.3f} ms; the crop and copy alone in turns with a boolean "
+              f"mask and a pageable copy: mask {crop_turns[0]:.3f}, offsets "
+              f"{crop_turns[1]:.3f}, offsets {crop_turns[2]:.3f}, mask "
+              f"{crop_turns[3]:.3f} ms; bound "
               f"{max(bytes_ms, ops_ms):.5f} ms ({rows[label]['bound_by']}: bytes "
               f"{bytes_ms:.5f}, boxes alone {box_ms:.5f}, int32 operations {ops_ms:.5f}), "
               f"dependent-diagonal floor {chain_ms:.4f} ms ({steps} barrier steps of "
               f"{threads} threads); no library yardstick (no single PyTorch call "
               f"computes this DP)")
+        if baseline is not None:
+            src, run = baseline
+            old = lambda: run(args["seq_a"], args["seq_b"], args["n1s"], args["n2s"], l1)
+            if not torch.equal(old(), got):
+                fail(f"K8 {label}: the build of {src} differs from this one")
+            cur = lambda: _gotoh_cuda(**args)
+            order = (old, cur, cur, old)
+            turns = [time_ms(f, reps=20) for f in order]
+            dev_turns = [device_ms(f, 20) for f in order]
+            rows[label]["turns"] = dict(source=src, ms=turns, device_ms=dev_turns)
+            print(f"K8 {label} in turns with {src} (baseline, K8, K8, baseline): wrapper "
+                  + ", ".join(f"{t:.4f}" for t in turns) + " ms; device "
+                  + ", ".join(f"{t:.4f}" for t in dev_turns) + " ms")
     return rows
 
 
@@ -2645,6 +2775,11 @@ def main() -> int:
                     help="also build the first version of "
                          "csrc/pair_wavefront.cu (its C entry without launch "
                          "shape or scratch) and time it in turns with this one")
+    ap.add_argument("--k8-baseline", metavar="SRC", default=None,
+                    help="also build another tree's csrc/gotoh_wavefront.cu (SRC: "
+                         "the file, or a checkout's root or csrc/; its C entry "
+                         "without the scratch), check it against this K8 and time "
+                         "the two in turns")
     ap.add_argument("--k2-baseline", metavar="SRC", default=None,
                     help="also build the plane-per-launch version of "
                          "csrc/triple_wavefront.cu (its C entry with Dmax and "
@@ -2710,16 +2845,22 @@ def main() -> int:
     phases_tmp = tempfile.TemporaryDirectory()
     phases_jobs = [start_phases_build(name, phases_tmp.name)
                    for name in ("select_best", "sig_probe")]
+    k8_no_store_job = start_phases_build("gotoh_wavefront", phases_tmp.name)
     keyrow_job = (start_keyrow_baseline(os.path.abspath(args.keyrow_baseline),
                                         phases_tmp.name) if args.keyrow_baseline else None)
+    k8_job = (start_k8_baseline(os.path.abspath(args.k8_baseline), phases_tmp.name)
+              if args.k8_baseline else None)
     try:
         logs = _kernels.build_all()
     finally:
         phases = tuple(load_phases(job) for job in phases_jobs)
+        k8_no_store = load_phases(k8_no_store_job)
         keyrow_baseline = load_keyrow_baseline(keyrow_job) if keyrow_job else None
+        k8_baseline = load_k8_baseline(k8_job) if k8_job else None
     if keyrow_baseline:
         K7_VARIANTS["baseline"] = keyrow_baseline["path_walk"]
-    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES and K5_PHASES builds "
+    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES and "
+          f"K8_NO_STORE builds "
           f"in {time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
              for line in log.splitlines()
@@ -2750,7 +2891,7 @@ def main() -> int:
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["k1"] = check_k1(paths, baseline)
-        report["k8"] = check_k8(paths)
+        report["k8"] = check_k8(paths, k8_baseline, k8_no_store)
         report["phase1"] = phase1_walls(paths)
         k2_baseline = None
         if args.k2_baseline:
@@ -2863,11 +3004,18 @@ def main() -> int:
         "launches": launches["gotoh_wavefront"],
         "max_abs_err": max(r["max_abs_err"] for r in report["k8"].values()),
         "ms": k8["ms"], "device_ms": k8["device_ms"], "launch_floor_ms": floor["ms"],
+        "fill_device_ms": k8["fill_device_ms"],
+        "fill_no_store_device_ms": k8["fill_no_store_device_ms"],
+        "transpose_device_ms": k8["transpose_device_ms"], "scratch_bytes": k8["scratch_bytes"],
         "plain_ms": k8["plain_ms"], "host_fill_ms": k8["host_fill_ms"],
         "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
         "chain_floor_ms": k8["chain_floor_ms"], "library_ms": None,
-        **{label: {k: r[k] for k in ("ms", "device_ms", "plain_ms", "host_fill_ms",
-                                     "bound_ms", "bound_by", "chain_floor_ms")}
+        **({"turns": k8["turns"]} if "turns" in k8 else {}),
+        **{label: {k: r[k] for k in ("ms", "device_ms", "fill_device_ms",
+                                     "fill_no_store_device_ms", "transpose_device_ms",
+                                     "scratch_bytes", "plain_ms",
+                                     "host_fill_ms", "bound_ms", "bound_by", "chain_floor_ms",
+                                     "turns") if k in r}
            for label, r in report["k8"].items() if label != "kinase"},
     }, {
         "name": "triple_wavefront", "route": "cuda",

@@ -38,9 +38,9 @@ SIGNATURES: Dict[str, List] = {
     # O, E, threads, rows per thread, shared bytes, stream
     "pair_wavefront": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _I, _P],
-    # seq_a, seq_b, n1s, n2s, cost, out, P, L1, gap, effective gap,
-    # threads, rows per thread, shared bytes, stream
-    "gotoh_wavefront": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # seq_a, seq_b, n1s, n2s, cost, diagonal-major scratch, out, P, L1,
+    # gap, effective gap, threads, rows per thread, shared bytes, stream
+    "gotoh_wavefront": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # cubes, cxy, cxz, cyz, lens, ws, T, S, tile sides bi, bj, bk, tile
     # diagonals, launch grid (host int32, diagonals x 4), O, E, GG, stream
     "triple_wavefront": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,

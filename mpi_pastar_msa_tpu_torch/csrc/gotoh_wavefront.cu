@@ -21,9 +21,9 @@
 // (551 at kinase), each needing the previous two, with a block barrier
 // between consecutive diagonals (pair_wavefront.cu's barrier_chain measures
 // that floor); only P blocks run (10 at kinase).  The bytes, 3 P L1^2 int32
-// written once, are small.
+// written once, are small, as long as each store moves whole sectors.
 //
-// Design (a first, simple kernel, after K1's):
+// Design (after K1's):
 //  - one thread block a pair; the pair's residues and the 128 x 128 cost
 //    table staged once in shared memory as uint8 (costs are 0..25,
 //    core/cost.py), so the diagonal loop makes no global load;
@@ -37,15 +37,27 @@
 //    each diagonal in an edge buffer double-buffered by diagonal parity,
 //    and the reader keeps their min for the diagonal after; one
 //    __syncthreads() a diagonal;
-//  - cells are written straight into the (i, j)-major output (strided by L1
-//    along a diagonal; a later design can stage them as K1 does), and the
-//    cells outside the pair's (n+1) x (m+1) box are filled with BIG after the
-//    loop, row-major and coalesced.
+//  - (i, j)-major stores of a diagonal would be L1 words apart, a 32-byte
+//    sector a cell and matrix.  So each band stores its cells of diagonal d
+//    coalesced into a (d, i)-major scratch, one plane each for dd, hh and
+//    vv (row d of pair p at d * W + i, W = R x threads; only the cells of
+//    the pair's (n+1) x (m+1) box, so the scratch needs no initialisation),
+//    and gotoh_diag_to_rows_kernel then writes the (3, P, L1, L1) output in
+//    32 x 32 tiles through shared memory on all SMs, BIG outside each box
+//    (diag_to_rows.cuh, shared with K1).  The C entry launches both on the
+//    caller's stream.
+//
+// Built with -DK8_NO_STORE (a measurement build of chip_smoke.py, never the
+// one the port loads), the fill stores nothing: its time against the real
+// fill's is what the scratch stores cost.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <utility>
+
+#include "diag_to_rows.cuh"
 
 namespace {
 
@@ -66,7 +78,7 @@ template <int R>
 __global__ void __launch_bounds__(1024) gotoh_wavefront_kernel(
     const int32_t* __restrict__ seq_a, const int32_t* __restrict__ seq_b,
     const int32_t* __restrict__ n1s, const int32_t* __restrict__ n2s,
-    const int32_t* __restrict__ cost, int32_t* __restrict__ out, int P, int L1, int gap,
+    const int32_t* __restrict__ cost, int32_t* __restrict__ scratch, int P, int L1, int gap,
     int egap) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = blockDim.x, tid = threadIdx.x, p = blockIdx.x;
@@ -78,10 +90,13 @@ __global__ void __launch_bounds__(1024) gotoh_wavefront_kernel(
   const int n = n1s[p], m = n2s[p];
   const int32_t* a = seq_a + (size_t)p * L1;
   const int32_t* b = seq_b + (size_t)p * L1;
-  const size_t plane = (size_t)P * L1 * L1;
-  int32_t* dd_o = out + (size_t)p * L1 * L1;
-  int32_t* hh_o = dd_o + plane;
-  int32_t* vv_o = hh_o + plane;
+  // scratch rows of W = R T words, diagonals 0 .. 2 (L1 - 1), a plane each
+  // for dd, hh and vv
+  const size_t W = (size_t)R * T, diags = 2 * (size_t)L1 - 1;
+  const size_t plane = (size_t)P * diags * W;
+  int32_t* dd_g = scratch + (size_t)p * diags * W;
+  int32_t* hh_g = dd_g + plane;
+  int32_t* vv_g = hh_g + plane;
 
   // residues are 7-bit ASCII; the mask only keeps a stray byte in the table
   const int4* cost4 = reinterpret_cast<const int4*>(cost);
@@ -146,10 +161,12 @@ __global__ void __launch_bounds__(1024) gotoh_wavefront_kernel(
             nh = min(min(dd1[r], vv1[r]) + Gi, hh1[r]) + cost_s[kDash * 128 + bj];
             nv = min(udh + Gj, uv) + gv[r];
           }
-          const size_t at = (size_t)i * L1 + j;
-          dd_o[at] = nd;
-          hh_o[at] = nh;
-          vv_o[at] = nv;
+#ifndef K8_NO_STORE
+          const size_t at = (size_t)d * W + i;
+          dd_g[at] = nd;
+          hh_g[at] = nh;
+          vv_g[at] = nv;
+#endif
         }
         m2[r] = min(min(dd1[r], hh1[r]), vv1[r]);
         dd1[r] = nd;
@@ -161,18 +178,19 @@ __global__ void __launch_bounds__(1024) gotoh_wavefront_kernel(
     }
     __syncthreads();
   }
+}
 
-  // the cells outside the box: rows 0..n right of column m, then every row
-  // below n
-  const int w = L1 - 1 - m;
-  if (w > 0) {
-    for (int k = tid; k < (n + 1) * w; k += T) {
-      const size_t at = (size_t)(k / w) * L1 + m + 1 + k % w;
-      dd_o[at] = hh_o[at] = vv_o[at] = kBig;
-    }
-  }
-  for (size_t at = (size_t)(n + 1) * L1 + tid; at < (size_t)L1 * L1; at += T)
-    dd_o[at] = hh_o[at] = vv_o[at] = kBig;
+// out[c, p, i, j] = scratch[c, p, i + j, i] inside pair p's box, BIG outside;
+// one block per 32 x 32 output tile of one of the 3 P planes (blockIdx.x =
+// plane * tiles + the tile's column, blockIdx.y its row)
+__global__ void __launch_bounds__(256) gotoh_diag_to_rows_kernel(
+    const int32_t* __restrict__ scratch, const int32_t* __restrict__ n1s,
+    const int32_t* __restrict__ n2s, int32_t* __restrict__ out, int P, int L1, int W,
+    int tiles) {
+  const int plane = blockIdx.x / tiles, p = plane % P;
+  const size_t diags = 2 * (size_t)L1 - 1;
+  diag_tile_to_rows(scratch + (size_t)plane * diags * W, out + (size_t)plane * L1 * L1, L1, W,
+                    n1s[p], n2s[p], blockIdx.y * 32, (blockIdx.x % tiles) * 32, kBig);
 }
 
 using KernelFn = void (*)(const int32_t*, const int32_t*, const int32_t*, const int32_t*,
@@ -187,12 +205,13 @@ KernelFn kernel_for(int rows, std::integer_sequence<int, Rs...>) {
 }  // namespace
 
 extern "C" int gotoh_wavefront(const void* seq_a, const void* seq_b, const void* n1s,
-                               const void* n2s, const void* cost, void* out, int P, int L1,
-                               int gap, int egap, int threads, int rows, int shmem,
-                               void* stream) {
-  if (L1 < 1 || rows < 1 || rows > kMaxRows || threads < 32 || threads > 1024 ||
+                               const void* n2s, const void* cost, void* scratch, void* out,
+                               int P, int L1, int gap, int egap, int threads, int rows,
+                               int shmem, void* stream) {
+  const int tiles = (L1 + 31) / 32;
+  if (L1 < 1 || P < 0 || rows < 1 || rows > kMaxRows || threads < 32 || threads > 1024 ||
       threads % 32 != 0 || (long long)rows * threads < L1 ||
-      (size_t)shmem != shared_bytes(L1, threads))
+      (size_t)shmem != shared_bytes(L1, threads) || (long long)3 * P * tiles > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const KernelFn kernel = kernel_for(rows, std::make_integer_sequence<int, kMaxRows>{});
   if (shmem > 48 * 1024) {
@@ -200,9 +219,16 @@ extern "C" int gotoh_wavefront(const void* seq_a, const void* seq_b, const void*
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
     if (e != cudaSuccess) return (int)e;
   }
-  if (P > 0)
+  if (P > 0) {
     kernel<<<P, threads, shmem, (cudaStream_t)stream>>>(
         (const int32_t*)seq_a, (const int32_t*)seq_b, (const int32_t*)n1s,
-        (const int32_t*)n2s, (const int32_t*)cost, (int32_t*)out, P, L1, gap, egap);
+        (const int32_t*)n2s, (const int32_t*)cost, (int32_t*)scratch, P, L1, gap, egap);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    gotoh_diag_to_rows_kernel<<<dim3(3 * P * tiles, tiles), dim3(32, 8), 0,
+                                (cudaStream_t)stream>>>(
+        (const int32_t*)scratch, (const int32_t*)n1s, (const int32_t*)n2s, (int32_t*)out, P,
+        L1, threads * rows, tiles);
+  }
   return (int)cudaGetLastError();
 }

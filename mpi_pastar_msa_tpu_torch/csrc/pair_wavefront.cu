@@ -42,12 +42,15 @@
 //    stores its values of a diagonal coalesced and (d, i)-major into a
 //    scratch table, and diag_to_rows_kernel then writes the (i, j)-major
 //    table in 32 x 32 tiles through shared memory on all SMs, every output
-//    cell once.  The C entry launches both on the caller's stream.
+//    cell once (diag_to_rows.cuh, shared with K8).  The C entry launches
+//    both on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <utility>
+
+#include "diag_to_rows.cuh"
 
 namespace {
 
@@ -167,32 +170,15 @@ __global__ void __launch_bounds__(1024) pair_wavefront_kernel(
 }
 
 // out[p, i, j] = diag[p, i + j, i] inside the pair's box, BIG outside; one
-// block per 32 x 32 output tile, the tile's 63 diagonals staged in shared
-// memory so that both the reads and the writes are coalesced.
+// block per 32 x 32 output tile (diag_to_rows.cuh).
 __global__ void diag_to_rows_kernel(const int32_t* __restrict__ diag,
                                     const int32_t* __restrict__ xs,
                                     const int32_t* __restrict__ ys,
                                     const int32_t* __restrict__ lens,
                                     int32_t* __restrict__ out, int L1, int lmax, int W) {
-  __shared__ int32_t tile[63][33];
-  const int p = blockIdx.z, i0 = blockIdx.y * 32, j0 = blockIdx.x * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int n1 = lens[xs[p]], n2 = lens[ys[p]];
-  const int32_t* g = diag + (size_t)p * (2 * lmax + 1) * W;
-  int32_t* o = out + (size_t)p * L1 * L1;
-  if (i0 <= n1 && j0 <= n2) {
-    const int i = i0 + tx;
-    for (int k = ty; k < 63; k += blockDim.y) {
-      const int d = i0 + j0 + k;
-      if (i <= n1 && i <= d && d - i <= n2) tile[k][tx] = g[(size_t)d * W + i];
-    }
-  }
-  __syncthreads();
-  const int j = j0 + tx;
-  for (int r = ty; r < 32; r += blockDim.y) {
-    const int i = i0 + r;
-    if (i < L1 && j < L1) o[(size_t)i * L1 + j] = (i <= n1 && j <= n2) ? tile[r + tx][r] : kBig;
-  }
+  const int p = blockIdx.z;
+  diag_tile_to_rows(diag + (size_t)p * (2 * lmax + 1) * W, out + (size_t)p * L1 * L1, L1, W,
+                    lens[xs[p]], lens[ys[p]], blockIdx.y * 32, blockIdx.x * 32, kBig);
 }
 
 using KernelFn = void (*)(const int32_t*, int, const int32_t*, const int32_t*,

@@ -5,7 +5,9 @@ The Altschul rationale-2 weights (``weights.py``) start from a per-pair
 (ref: pastar/WeightedSP.cpp:144-220).  ``gotoh_matrices`` fills dd, hh and
 vv of all C(N,2) pairs at once: on a CUDA tensor it launches the
 hand-written kernel ``csrc/gotoh_wavefront.cu`` (one thread block a pair,
-one thread a band of rows, its shape from ``k8_launch_shape``); on a CPU
+one thread a band of rows, its shape from ``k8_launch_shape``, each
+diagonal stored coalesced into a diagonal-major scratch of
+``k8_scratch_shape``, then a tiled transpose into the output); on a CPU
 tensor it runs the plain PyTorch version below, a loop over anti-diagonals
 batched over the pairs, written from the JAX scan
 (mpi_pastar_msa_tpu/heuristic/gotoh_wavefront.py::_gotoh_wavefront).  The
@@ -27,7 +29,9 @@ inside the pair's (l1, l1) square or outside its box, is ``_BIG`` = 999999
 (not K1's 2^28).  All arithmetic is int32, bit-identical to the host fill
 ``weights._gotoh_pair_matrices`` (int64 there; every value stays far below
 2^31).  The per-mille traceback stays on the host: ``gotoh_matrices_device``
-crops each pair's box on the device and copies them back in one transfer.
+crops each pair's box on the device, at offsets built on the host from the
+lengths it already knows, and copies them back in one transfer into pinned
+memory.
 """
 from __future__ import annotations
 
@@ -66,6 +70,16 @@ def k8_launch_shape(l1: int) -> tuple:
     threads = -(-l1 // rows)
     threads = -(-threads // 32) * 32
     return threads, rows, 16 * threads + 128 * 128 + 2 * l1
+
+
+def k8_scratch_shape(P: int, l1: int) -> tuple:
+    """Shape of K8's int32 scratch: (dd, hh, vv) x P pairs x the 2 l1 - 1
+    anti-diagonals x W = rows x threads lanes.  The fill stores cell (i, j)
+    of pair p at [c, p, i + j, i], a diagonal's cells side by side, and the
+    transpose reads them back into the (3, P, l1, l1) output; about twice
+    the output's bytes."""
+    threads, rows, _ = k8_launch_shape(l1)
+    return 3, P, 2 * l1 - 1, threads * rows
 
 
 def gotoh_inputs(enc_pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
@@ -158,20 +172,65 @@ def gotoh_matrices(seq_a, seq_b, n1s, n2s, l1: int) -> torch.Tensor:
     if (seq_b.shape != seq_a.shape or seq_a.shape[1] != l1 or n1s.shape[0] != P
             or n2s.shape[0] != P):
         raise ValueError("gotoh_matrices: inconsistent shapes")
+    if P:
+        lo, hi = torch.stack([torch.cat([n1s, n2s]).min(),
+                              torch.cat([n1s, n2s]).max()]).tolist()
+        if lo < 0 or hi >= l1:
+            raise ValueError(f"gotoh_matrices: lengths {lo}..{hi}, need 0..{l1 - 1}")
+    return _gotoh_cuda(seq_a, seq_b, n1s, n2s, l1)
+
+
+def _gotoh_cuda(seq_a, seq_b, n1s, n2s, l1: int) -> torch.Tensor:
+    """Launch K8 on inputs already checked, with no read of the device: the
+    fill into a scratch of ``k8_scratch_shape``, released on return, and the
+    transpose into the output."""
+    dev = seq_a.device
     threads, rows, shared = k8_launch_shape(l1)
+    P = seq_a.shape[0]
     out = torch.empty((3, P, l1, l1), dtype=torch.int32, device=dev)
     if P == 0:
         return out
-    lo, hi = torch.stack([torch.cat([n1s, n2s]).min(),
-                          torch.cat([n1s, n2s]).max()]).tolist()
-    if lo < 0 or hi >= l1:
-        raise ValueError(f"gotoh_matrices: lengths {lo}..{hi}, need 0..{l1 - 1}")
+    scratch = torch.empty(k8_scratch_shape(P, l1), dtype=torch.int32, device=dev)
     _kernels.launch(
         "gotoh_wavefront", seq_a.data_ptr(), seq_b.data_ptr(), n1s.data_ptr(),
-        n2s.data_ptr(), _device_cost(dev).data_ptr(), out.data_ptr(), P, l1,
-        PRIMER_GAP_COST, PRIMER_EFFECTIVE_GAP_COST, threads, rows, shared,
+        n2s.data_ptr(), _device_cost(dev).data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        P, l1, PRIMER_GAP_COST, PRIMER_EFFECTIVE_GAP_COST, threads, rows, shared,
         torch.cuda.current_stream(dev).cuda_stream)
     return out
+
+
+def box_offsets(lens: Sequence[Tuple[int, int]], l1: int) -> tuple:
+    """Where each pair's (n+1) x (m+1) box lies in the flat (P, l1, l1)
+    matrices, built on the host: one entry a box row, its length (m + 1)
+    and the shift from its place in the packed boxes to its place in the
+    matrices.  Flat cell k of the packed boxes is cell k + shift of its
+    row; the boxes follow one another, pair by pair, row by row."""
+    n = np.array([a for a, _ in lens], dtype=np.int64)
+    m = np.array([b for _, b in lens], dtype=np.int64)
+    pair = np.repeat(np.arange(len(lens)), n + 1)
+    first_row = np.cumsum(n + 1) - (n + 1)
+    i = np.arange(len(pair)) - first_row[pair]
+    row_len = m[pair] + 1
+    packed_at = np.cumsum(row_len) - row_len
+    return row_len, (pair * l1 + i) * l1 - packed_at
+
+
+def crop_boxes(mats: torch.Tensor, lens: Sequence[Tuple[int, int]]) -> np.ndarray:
+    """(3, sum of boxes) int32 NumPy array of every pair's box of the (3, P,
+    l1, l1) ``mats``, packed as ``box_offsets`` lays them out: one gather on
+    the matrices' device from host-built offsets (no read of the device to
+    size it), then, from the card, one copy into pinned host memory."""
+    dev, l1 = mats.device, mats.shape[-1]
+    row_len, shift = box_offsets(lens, l1)
+    total = int(row_len.sum())
+    idx = torch.arange(total, device=dev) + torch.repeat_interleave(
+        torch.from_numpy(shift).to(dev), torch.from_numpy(row_len).to(dev),
+        output_size=total)
+    flat = mats.view(3, -1).index_select(1, idx)
+    if dev.type == "cuda":
+        host = torch.empty((3, total), dtype=torch.int32, pin_memory=True)
+        flat = host.copy_(flat)
+    return flat.numpy()
 
 
 def gotoh_matrices_device(enc_pairs, lens, device) -> List[tuple]:
@@ -181,16 +240,15 @@ def gotoh_matrices_device(enc_pairs, lens, device) -> List[tuple]:
     lens:      list of (n, m) original lengths
     Returns the list of (dd, hh, vv) int32 NumPy triples of shape (n+1, m+1)
     each, equal in value to ``weights._gotoh_pair_matrices`` (int64 there;
-    the traceback needs no wider type).  Each pair's box is cropped on the
-    device and all of them come back in one copy."""
+    the traceback needs no wider type).  The lengths are checked here, on
+    the host, so the launch skips the wrapper's read of them from the
+    device; the boxes come back through ``crop_boxes``."""
     args = gotoh_inputs(enc_pairs, lens, device)
-    mats = gotoh_matrices(**args)
     l1 = args["l1"]
-    dev = mats.device
-    idx = torch.arange(l1, device=dev)
-    box = ((idx[None, :, None] <= args["n1s"].long()[:, None, None])
-           & (idx[None, None, :] <= args["n2s"].long()[:, None, None]))
-    flat = mats[:, box].cpu().numpy()  # (3, sum of boxes)
+    if any(not (0 <= n < l1 and 0 <= m < l1) for n, m in lens):
+        raise ValueError(f"gotoh_matrices_device: lengths outside 0..{l1 - 1}")
+    fill = _gotoh_cuda if args["seq_a"].device.type == "cuda" else gotoh_matrices_plain
+    flat = crop_boxes(fill(**args), lens)
     out, off = [], 0
     for n, m in lens:
         k = (n + 1) * (m + 1)

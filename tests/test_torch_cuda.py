@@ -1003,6 +1003,10 @@ def gotoh_pairs(lengths, seed):
     ((4, 23, 9, 17), 1), ((1, 40), 2), ((1, 1), 3), ((60, 60, 60), 4),
     # row-band boundaries: l1 = 1024 (R = 1), 1025 (R = 2), 2101 (R = 3)
     ((1023, 700), 5), ((1024, 1), 6), ((2100, 30), 7),
+    # transpose tiles: l1 = 33 (a second, one-row tile), equal lengths at
+    # l1 = 1024 and 1025, two rows a thread on pairs of every shape
+    ((32, 32, 7), 8), ((1023, 1023), 9), ((1024, 1024, 500), 10),
+    ((1500, 1499, 3), 11),
 ])
 def test_k8_kernel_equals_plain_and_host(cuda, lengths, seed):
     from mpi_pastar_msa_tpu_torch.heuristic.gotoh_wavefront import (
@@ -1014,8 +1018,13 @@ def test_k8_kernel_equals_plain_and_host(cuda, lengths, seed):
     before = _kernels.launches["gotoh_wavefront"]
     got = gotoh_matrices(**args)
     assert _kernels.launches["gotoh_wavefront"] == before + 1
-    assert torch.equal(got.cpu(), gotoh_matrices_plain(**args).cpu())
-    for (a, b), mats in zip(pairs, gotoh_matrices_device(pairs, lens, cuda)):
+    want = gotoh_matrices_plain(**args).cpu()
+    assert torch.equal(got.cpu(), want)
+    boxes = gotoh_matrices_device(pairs, lens, cuda)
+    assert _kernels.launches["gotoh_wavefront"] == before + 2
+    for k, ((a, b), (n, m), mats) in enumerate(zip(pairs, lens, boxes)):
+        assert all(np.array_equal(x, want[c, k, : n + 1, : m + 1].numpy())
+                   for c, x in enumerate(mats))
         if len(a) * len(b) <= 200_000:  # the host fill is slow beyond
             assert all(np.array_equal(x, y) for x, y in
                        zip(mats, _gotoh_pair_matrices(a, b)))

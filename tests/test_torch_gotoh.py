@@ -8,8 +8,11 @@ and the golden inputs; ``gotoh_distances`` and ``altschul_rationale2`` on a
 CPU device against JAX's host and device paths (mirrors
 tests/test_heuristic.py:135-170 without the reference files); a NumPy
 emulation of K8's schedule (bands of rows a thread, the parity edge
-buffers, where each cell is written) against the host fill; and
-``k8_launch_shape``.  Every comparison is exact.
+buffers, each cell of a box stored once into the diagonal-major scratch)
+and of its tiled transpose (each output cell written once) against the
+host fill; the crop of ``gotoh_matrices_device`` (offsets built on the host)
+against JAX and the host fill; ``k8_launch_shape`` and
+``k8_scratch_shape``.  Every comparison is exact.
 """
 import json
 import os
@@ -26,8 +29,8 @@ from mpi_pastar_msa_tpu_torch.core.cost import (
     COST_TABLE, DASH, PRIMER_EFFECTIVE_GAP_COST, PRIMER_GAP_COST)
 from mpi_pastar_msa_tpu_torch.heuristic import weights as tw
 from mpi_pastar_msa_tpu_torch.heuristic.gotoh_wavefront import (
-    _BIG, K8_MAX_ROWS, gotoh_inputs, gotoh_matrices, gotoh_matrices_device,
-    gotoh_matrices_plain, k8_launch_shape)
+    _BIG, K8_MAX_ROWS, box_offsets, crop_boxes, gotoh_inputs, gotoh_matrices,
+    gotoh_matrices_device, gotoh_matrices_plain, k8_launch_shape, k8_scratch_shape)
 
 # one intra-op thread: the test lane runs several workers on a few cores
 torch.set_num_threads(1)
@@ -115,24 +118,66 @@ def test_cpu_wrapper_runs_the_plain_version():
     assert _kernels.launches == before
 
 
+# a scratch cell no kernel wrote (the wrapper allocates it with torch.empty)
+UNSET = -(1 << 40)
+
+
+def diag_to_rows_emulate(g, n, m, l1, big):
+    """NumPy emulation of csrc/diag_to_rows.cuh (K8's gotoh_diag_to_rows_kernel)
+    for one pair's planes g, (C, 2 l1 - 1, W) in (d, i)-major order: one
+    block a 32 x 32 output tile (i0, j0); lane tx stages row i0 + tx of the
+    tile's 63 diagonals i0 + j0 + k (the warps of the block take every k
+    once), only the cells of the (n+1) x (m+1) box; then output row i0 + r,
+    column j0 + tx takes staged [r + tx][r] inside the box and ``big``
+    outside, within the (l1, l1) square.  Asserts that no read touches a
+    scratch cell the fill left unwritten, nor a tile entry left unstaged.
+    Returns the (C, l1, l1) output and the writes of each output cell."""
+    C = g.shape[0]
+    out = np.full((C, l1, l1), UNSET, np.int64)
+    writes = np.zeros((l1, l1), np.int64)
+    tx = np.arange(32)[None, :]
+    r = np.arange(32)[:, None]
+    k = np.arange(63)[:, None]
+    for i0 in range(0, l1, 32):
+        for j0 in range(0, l1, 32):
+            tile = np.full((C, 63, 32), UNSET, np.int64)
+            if i0 <= n and j0 <= m:
+                i, d = i0 + tx, i0 + j0 + k                  # (1, 32), (63, 1)
+                kk, tt = np.nonzero((i <= n) & (i <= d) & (d - i <= m))
+                staged = g[:, kk + i0 + j0, tt + i0]
+                assert bool((staged != UNSET).all())
+                tile[:, kk, tt] = staged
+            i, j = i0 + r, j0 + tx                           # (32, 1), (1, 32)
+            rr, cc = np.nonzero((i < l1) & (j < l1))
+            inbox = (rr + i0 <= n) & (cc + j0 <= m)
+            val = tile[:, rr + cc, rr]
+            assert bool((val[:, inbox] != UNSET).all())
+            out[:, rr + i0, cc + j0] = np.where(inbox, val, big)
+            np.add.at(writes, (rr + i0, cc + j0), 1)
+    return out, writes
+
+
 def k8_emulate(a, b, n, m, l1, T, R):
-    """NumPy emulation of csrc/gotoh_wavefront.cu for one pair (one block):
-    thread t owns rows t R .. t R + R - 1 (the lanes of each array below),
-    each row's dd, hh, vv on the last diagonal and min(dd, hh, vv) on the
-    one before in registers, rows run from the last to the first, the
-    previous band's last row through the parity edge buffers (read at d
-    from buffer (d - 1) & 1, written to d & 1, one barrier a diagonal),
-    cells written where the kernel writes them; then the fill of the cells
-    outside the box.  Returns (dd, hh, vv) over the (l1, l1) square and the
-    number of writes of each cell."""
+    """NumPy emulation of csrc/gotoh_wavefront.cu for one pair: the fill
+    (one block), thread t owning rows t R .. t R + R - 1 (the lanes of each
+    array below), each row's dd, hh, vv on the last diagonal and min(dd, hh,
+    vv) on the one before in registers, rows run from the last to the
+    first, the previous band's last row through the parity edge buffers
+    (read at d from buffer (d - 1) & 1, written to d & 1, one barrier a
+    diagonal), each cell of the box stored where the kernel stores it, at
+    [c, d, i] of the (3, 2 l1 - 1, W = T R) diagonal-major scratch; then the
+    tiled transpose (``diag_to_rows_emulate``).  Returns (dd, hh, vv) over
+    the (l1, l1) square, the writes of each output cell and the writes of
+    each scratch cell."""
     big = _BIG
     cost = (COST_TABLE & 0xFF).astype(np.int64)  # staged as uint8
     a_s = np.zeros(l1, np.int64)
     b_s = np.zeros(l1, np.int64)
     a_s[: len(a)] = np.asarray(a) & 127
     b_s[: len(b)] = np.asarray(b) & 127
-    out = np.zeros((3, l1, l1), np.int64)
-    writes = np.zeros((l1, l1), np.int64)
+    W = T * R
+    scratch = np.full((3, 2 * l1 - 1, W), UNSET, np.int64)
+    scratch_writes = np.zeros((2 * l1 - 1, W), np.int64)
     t = np.arange(T)
     base = t * R
     active = base <= n
@@ -170,8 +215,8 @@ def k8_emulate(a, b, n, m, l1, T, R):
                 interior, np.minimum(udh + Gj, uv) + gv[:, r], big)))
             nd, nh, nv = (np.where(inbox, x, big) for x in (nd, nh, nv))
             for c, x in enumerate((nd, nh, nv)):
-                out[c, i[inbox], j[inbox]] = x[inbox]
-            np.add.at(writes, (i[inbox], j[inbox]), 1)
+                scratch[c, d, i[inbox]] = x[inbox]
+            np.add.at(scratch_writes, (d, i[inbox]), 1)
             m2[:, r] = np.where(active, np.minimum(np.minimum(dd1[:, r], hh1[:, r]),
                                                    vv1[:, r]), m2[:, r])
             for reg, x in ((dd1, nd), (hh1, nh), (vv1, nv)):
@@ -179,17 +224,16 @@ def k8_emulate(a, b, n, m, l1, T, R):
         up_m2 = np.where(active, np.minimum(up_dh, up_v), up_m2)
         edge[d & 1] = np.where(active[:, None], np.stack(
             [np.minimum(dd1[:, R - 1], hh1[:, R - 1]), vv1[:, R - 1]], axis=1), edge[d & 1])
-    # outside the box: rows 0..n right of column m, then the rows below n,
-    # k strided over the threads (every k once)
-    w = l1 - 1 - m
-    if w > 0:
-        k = np.arange((n + 1) * w)
-        out[:, k // w, m + 1 + k % w] = big
-        np.add.at(writes, (k // w, m + 1 + k % w), 1)
-    at = np.arange((n + 1) * l1, l1 * l1)
-    out[:, at // l1, at % l1] = big
-    np.add.at(writes, (at // l1, at % l1), 1)
-    return out, writes
+    out, writes = diag_to_rows_emulate(scratch, n, m, l1, big)
+    return out, writes, scratch_writes
+
+
+def box_scratch_cells(n, m, l1, W):
+    """1 at each scratch cell [i + j, i] of the (n+1) x (m+1) box, else 0."""
+    want = np.zeros((2 * l1 - 1, W), np.int64)
+    i, j = np.meshgrid(np.arange(n + 1), np.arange(m + 1), indexing="ij")
+    want[(i + j).ravel(), i.ravel()] = 1
+    return want
 
 
 @pytest.mark.parametrize("case,shape", [
@@ -198,16 +242,22 @@ def k8_emulate(a, b, n, m, l1, T, R):
     ("PF08184", None), ("PF08184", (32, 4)), ("test2", (64, 1)),
     # K8's own shape at l1 = 1025 (two rows a thread) on lopsided pairs
     ("long", None),
+    # several transpose tiles at l1 = 66 (not a multiple of 32), one to
+    # four rows a thread
+    ("tiles", None), ("tiles", (32, 3)), ("tiles", (64, 4)),
 ])
 def test_k8_schedule_emulation_equals_host(case, shape):
-    seqs = (random_seqs(9, (1024, 5, 2)) if case == "long" else CASES[case])
+    seqs = {"long": lambda: random_seqs(9, (1024, 5, 2)),
+            "tiles": lambda: random_seqs(10, (65, 33, 1, 64))}.get(case, lambda: CASES[case])()
     pairs, lens = all_pairs(seqs)
     l1 = max(max(len(a), len(b)) for a, b in pairs)
     T, R = shape or k8_launch_shape(l1)[:2]
     assert T * R >= l1 and T % 32 == 0
     for (a, b), (n, m) in zip(pairs, lens):
-        out, writes = k8_emulate(a, b, n, m, l1, T, R)
-        assert bool((writes == 1).all())  # every cell of the square once
+        out, writes, scratch_writes = k8_emulate(a, b, n, m, l1, T, R)
+        assert bool((writes == 1).all())  # the transpose: every cell of the square once
+        # the fill: every scratch cell of the box once, no other
+        assert np.array_equal(scratch_writes, box_scratch_cells(n, m, l1, T * R))
         host = tw._gotoh_pair_matrices(a, b)
         for c in range(3):
             assert np.array_equal(out[c, : n + 1, : m + 1], host[c])
@@ -217,6 +267,70 @@ def test_k8_schedule_emulation_equals_host(case, shape):
         plain = gotoh_matrices_plain(**args).numpy()
         for k, ((a, b), (n, m)) in enumerate(zip(pairs, lens)):
             assert np.array_equal(k8_emulate(a, b, n, m, l1, T, R)[0], plain[:, k])
+
+
+@pytest.mark.parametrize("l1,n,m", [
+    (1, 0, 0), (32, 31, 31), (33, 32, 0), (33, 0, 32), (33, 32, 32),
+    (65, 64, 20), (100, 37, 99), (100, 99, 0),
+])
+def test_transpose_emulation_tiles(l1, n, m):
+    # the transpose alone, on a scratch written only over the box (random
+    # values): each output cell once, the box's cell (i, j) from [i + j, i]
+    rs = np.random.RandomState(l1 + n + m)
+    W = k8_launch_shape(l1)[0] * k8_launch_shape(l1)[1]
+    box = box_scratch_cells(n, m, l1, W).astype(bool)
+    g = np.full((3, 2 * l1 - 1, W), UNSET, np.int64)
+    g[:, box] = rs.randint(0, 1 << 20, size=(3, int(box.sum())))
+    out, writes = diag_to_rows_emulate(g, n, m, l1, _BIG)
+    assert bool((writes == 1).all())
+    i, j = np.meshgrid(np.arange(n + 1), np.arange(m + 1), indexing="ij")
+    assert np.array_equal(out[:, : n + 1, : m + 1], g[:, i + j, i])
+    assert bool((out[:, n + 1:] == _BIG).all() and (out[:, :, m + 1:] == _BIG).all())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_crop_from_host_offsets_equals_jax_and_host(case):
+    # gotoh_matrices_device's crop: offsets built on the host from the
+    # lengths, one gather (on the CPU the copy is the gather itself), the
+    # boxes packed pair by pair, row by row
+    pairs, lens = all_pairs(CASES[case])
+    args = gotoh_inputs(pairs, lens, CPU)
+    l1 = args["l1"]
+    mats = gotoh_matrices_plain(**args)
+    flat = crop_boxes(mats, lens)
+    assert flat.dtype == np.int32
+    assert flat.shape == (3, sum((n + 1) * (m + 1) for n, m in lens))
+    want = np.concatenate([mats[:, k, : n + 1, : m + 1].reshape(3, -1).numpy()
+                           for k, (n, m) in enumerate(lens)], axis=1)
+    assert np.array_equal(flat, want)
+    row_len, shift = box_offsets(lens, l1)
+    assert len(row_len) == sum(n + 1 for n, _ in lens) and row_len.sum() == flat.shape[1]
+    got = gotoh_matrices_device(pairs, lens, CPU)
+    jax = jax_gotoh_matrices_device(pairs, lens)
+    for (a, b), g, w in zip(pairs, got, jax):
+        host = tw._gotoh_pair_matrices(a, b)
+        for c in range(3):
+            assert g[c].dtype == np.int32
+            assert np.array_equal(g[c], w[c]) and np.array_equal(g[c], host[c])
+
+
+def test_device_fill_rejects_lengths_outside_the_square():
+    pairs, lens = all_pairs(CASES["random4"])
+    with pytest.raises(ValueError):
+        gotoh_matrices_device(pairs, [(n, m + 40) for n, m in lens], CPU)
+
+
+def test_k8_scratch_shape():
+    # kinase: P = 10, l1 = 277, 288 lanes a diagonal; synth4_long: P = 6,
+    # l1 = 1108, two rows a thread of 576 threads
+    assert k8_scratch_shape(10, 277) == (3, 10, 553, 288)
+    assert k8_scratch_shape(6, 1108) == (3, 6, 2215, 1152)
+    assert 4 * np.prod(k8_scratch_shape(6, 1108)) == 183_720_960
+    for l1 in (1, 33, 1025, 22528):
+        T, R, _ = k8_launch_shape(l1)
+        assert k8_scratch_shape(2, l1) == (3, 2, 2 * l1 - 1, T * R)
+    with pytest.raises(ValueError):
+        k8_scratch_shape(1, 22529)
 
 
 def test_k8_launch_shape():
