@@ -113,9 +113,22 @@ Phases, each failing loudly (non-zero exit):
    the optimum, the uninterrupted search's counts, kinase's golden
    alignment, one chunk graph the resumed run captured, K7 once; the
    save and load walls and the file's size.
-   Bounds of the work not yet ported (the multi-device step of
-   parallel/sharded.py) from this run's shapes.
-7. the kernels JSON line, then the result line.
+7. sharded (parallel/sharded.py, a LocalMesh of [cuda:0] * 4 through
+   ShardedFrontierSearch.run): kinase --triples auto (sig, sharded cubes)
+   with the ragged exchange and with the dense one (traced: device time a
+   step) must reach g = 421546 with the golden alignment and migrated rows,
+   launching K3, sig_coords, K12 (tri_partial.cu), K4's sharded
+   instantiation, K11's two passes (route_pack.cu), K5 and K7's hop mode
+   and no plain version; one shard of kinase; PF08184 with
+   exchange_cap=1; a random 4-sequence input whose one-row wire must spill
+   into the carry ring (its brute-force optimum); test2 under FZORDER,
+   PZORDER, FSUM and PSUM.  On kinase's step 200 each new kernel against
+   its plain version bit for bit (K11 under both allowances; K7's hop mode
+   on every shard's table from every path node), their wrapper, device and
+   plain times and byte bounds, and sharded_step_bounds at the run's B and
+   cap.  Several cards, when there are, run kinase across them; else it
+   says so (``--sharded-only`` runs this phase alone).
+8. the kernels JSON line, then the result line.
 
 Inputs are rebuilt from tests/goldens.json (the degapped golden rows) and
 read from tests/data/*.fasta.  Weights are not random: the system runs no
@@ -1368,14 +1381,58 @@ def walk_capture():
         E.walk = real
 
 
-def walk_bytes(st, layout: str, nodes: int) -> int:
-    """K7's bytes: each path node's probe positions read once, with their
-    parent words: sig 64 rows x 8 ways of t_sig and t_best; the key-row
-    layouts 128 rows of (W + 1 or W) words and their t_best or t_fpar."""
+def first_hit_row(st, tab, layout: str, coord):
+    """The probe row at which a lookup of ``coord`` (engine._lookup_sig,
+    _lookup_keyrow) takes its first hit, or None on a miss: the same
+    gather, on the table's card."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    c = torch.as_tensor(np.asarray(coord, dtype=np.int64))[None, :]
     if layout == "sig":
-        return nodes * 64 * 8 * (4 + 4)
-    row = st.KW * 4 + 4 if layout == "packed" else st.W * 4 + 8
-    return nodes * 128 * row
+        home, sigb = E._sig_encode(st, c)
+        rs = torch.arange(st.max_bprobes)
+        idx = ((((home[0] + rs) & (st.nbuck - 1)) * st.ways)[:, None]
+               + torch.arange(st.ways)).reshape(-1).to(st.device)
+        hits = (tab.t_sig[idx].cpu() == (sigb[0] | rs).repeat_interleave(st.ways)
+                ).view(st.max_bprobes, st.ways).any(1)
+    else:
+        key = E._pack_keys(c, st.W)
+        idx = E._probe_slot(E._hash_keys(key)[0], torch.arange(st.max_probes),
+                            st.C - 1).to(st.device)
+        rows = tab.t_key[idx, : st.W].long().cpu()
+        hits = (rows == E._as_i32(key).long()).all(1) & (rows[:, 0] != E._EMPTY_WORD)
+    return int(torch.argmax(hits.to(torch.uint8))) if bool(hits.any()) else None
+
+
+def walk_bytes(st, tab, layout: str, coord, hops: int, out_words: int) -> dict:
+    """The bytes a walk from ``coord`` of at most ``hops`` lookups must
+    move (K7, K7's hop mode), from this table's data: each lookup reads
+    the key words of its probe rows up to its first hit (sig: 8 ways of 4
+    B a bucket row; the key rows: W words) and the hit's parent word
+    (t_best, 4 B; unpacked t_fpar, 8 B); the lookup that misses reads the
+    key words of every probe row; the coordinate read and ``out_words``
+    int32 written once.  Returns bytes, lookups and the probe rows read."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    row = st.ways * 4 if layout == "sig" else st.W * 4
+    word = 8 if layout == "unpacked" else 4
+    probes = st.max_bprobes if layout == "sig" else st.max_probes
+    c = np.asarray(coord, dtype=np.int64)
+    nbytes, lookups, rows = st.n * 4 + out_words * 4, 0, 0
+    while lookups < hops and c.any():
+        r = first_hit_row(st, tab, layout, c)
+        lookups += 1
+        if r is None:
+            nbytes, rows = nbytes + probes * row, rows + probes
+            break
+        nbytes, rows = nbytes + (r + 1) * row + word, rows + r + 1
+        par = E._LAYOUT_FNS[layout].lookup(st, tab, torch.as_tensor(c))
+        c = c - np.array([(par >> i) & 1 for i in range(st.n)])
+    return dict(bytes=nbytes, lookups=lookups, probe_rows=rows)
 
 
 def check_k7(label: str, seen: dict, timing: bool = False) -> dict:
@@ -1402,9 +1459,11 @@ def check_k7(label: str, seen: dict, timing: bool = False) -> dict:
         fail(f"{label}: K7's walk ({len(got)} masks, final {coord.tolist()}) differs from "
              f"_walk's ({len(want)} masks, final {want_coord.tolist()})")
     nodes = len(got)
-    b = walk_bytes(st, layout, nodes)
+    tmax = int(st.final_np.sum())
+    wb = walk_bytes(st, tab, layout, st.final_np, tmax, tmax + st.n + 1)
+    b = wb["bytes"]
     out = dict(layout=layout, path_nodes=nodes, max_abs_err=0, bytes=b,
-               bound_ms=b / HBM_BYTES_PER_S * 1e3)
+               probe_rows=wb["probe_rows"], bound_ms=b / HBM_BYTES_PER_S * 1e3)
     msg = ""
     if timing:
         go = lambda: S.walk_cuda(st, tab, layout)
@@ -1444,8 +1503,8 @@ def check_k7(label: str, seen: dict, timing: bool = False) -> dict:
                     + " / ".join(f"{t:.4f}" for t in v["warm_turns_device_ms"]) + " ms")
         del evict
     print(f"  K7 {label} ({layout}): {nodes} path nodes, masks and final coordinate identical "
-          f"to _walk's on the card; bound {out['bound_ms']:.5f} ms by bytes "
-          f"({b / 1e6:.2f} MB){msg}")
+          f"to _walk's on the card; bound {out['bound_ms']:.6f} ms by bytes "
+          f"({b} B: {wb['probe_rows']} probe rows to the first hits){msg}")
     del tab
     return out
 
@@ -2093,25 +2152,14 @@ def degenerate_input() -> dict:
                 k7=check_k7("degenerate input", seen))
 
 
-def off_path_bounds(report: dict, kinase_path: str) -> dict:
-    """Bounds of the device work not yet ported, from this run's shapes and
-    counts: the multi-device step of parallel/sharded.py at kinase
-    --triples auto on a 4-card mesh, per step and card
-    (sharded_step_bounds)."""
-    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
-
-    k = report["kinase"]
-    n = problem_from_fasta(kinase_path).n_seq
-    print("bounds of the work not yet ported:")
-    return dict(sharded=sharded_step_bounds(k["batch"], n, k["cubes"], k["path_nodes"]))
-
-
-def sharded_step_bounds(B: int, N: int, T: int, path_nodes: int, ndev: int = 4) -> dict:
-    """Bounds of parallel/sharded.py's device functions at one card of an
-    ``ndev``-card mesh, from the shapes the JAX code gives them (B rows
-    selected a card, M = 2^N - 1 masks, T cubes): device memory bytes over
-    HBM_BYTES_PER_S, NVLink bytes (what a card sends) over NVLINK_BYTES_PER_S,
-    the larger named.
+def sharded_step_bounds(B: int, N: int, T: int, walk: dict, ndev: int = 4,
+                        cap: int = None) -> dict:
+    """Bounds of the sharded step's device functions (parallel/sharded.py)
+    at one card of an ``ndev``-card mesh, from the sharded engine's shapes
+    (B rows selected a shard, M = 2^N - 1 masks, T cubes, the exchange cap
+    ``cap``, by default the engine's own, min(L, max(256, 2L / ndev))):
+    device memory bytes over HBM_BYTES_PER_S, NVLink bytes (what a card
+    sends) over NVLINK_BYTES_PER_S, the larger named.
     - _route_cap :87 / _route_ragged :169, a step: L = B M candidates of
       4 words (dest, f, 2 wire fields) and a carry ring of L rows of 4
       words read; ndev x cap rows of 3 words received and the ring
@@ -2122,19 +2170,22 @@ def sharded_step_bounds(B: int, N: int, T: int, path_nodes: int, ndev: int = 4) 
       corner rows of 8 words read, (B, M + 1) int32 written; the
       reduce-scatter sends ndev - 1 of ndev (ndev B, M + 1) blocks;
     - _consensus :312, a step: a 4-word all_gather;
-    - _make_batched_walk :482, once a run: the path nodes' probe rows (as
-      K7) and one psum of K = 8 masks a round."""
+    - _make_batched_walk :482, once a run: ``walk`` (sharded_walk_bytes,
+      from the run's tables): the probe rows every shard's lookups read to
+      their first hit or their miss, and one psum of K = 8 masks a
+      round."""
     M = (1 << N) - 1
     L = B * M
-    cap = min(L, max(256, 2 * L // ndev))
+    if cap is None:
+        cap = min(L, max(256, 2 * L // ndev))
     route_mem = 4 * (L * 4 + L * 4 + ndev * cap * 3 + L * 4)
     route_link = 4 * (ndev - 1) * cap * 3
     t_loc = -(-T // ndev)
     h3_mem = 4 * (B * N + ndev * B * N + ndev * B * t_loc * 8 + B * (M + 1))
     h3_link = 4 * ((ndev - 1) * B * N + (ndev - 1) * B * (M + 1))
     cons_link = 4 * 4 * (ndev - 1)
-    walk_mem = path_nodes * 64 * 8 * (4 + 4)
-    walk_link = 4 * 8 * -(-path_nodes // 8)
+    walk_mem = walk["bytes"]
+    walk_link = 4 * 8 * walk["rounds"]
     out = {}
     for name, mem, link in (("route", route_mem, route_link), ("sharded_h3", h3_mem, h3_link),
                             ("consensus", 0, cons_link), ("walk", walk_mem, walk_link)):
@@ -2145,12 +2196,567 @@ def sharded_step_bounds(B: int, N: int, T: int, path_nodes: int, ndev: int = 4) 
     step = ("route", "sharded_h3", "consensus")
     out["step_bound_ms"] = sum(out[k]["bound_ms"] for k in step)
     out.update(ndev=ndev, B=B, M=M, cap=cap)
-    print(f"  parallel/sharded.py at kinase on {ndev} cards, a card: route (L = {L}, cap "
+    print(f"  sharded step at kinase on {ndev} shards, a shard: route (L = {L}, cap "
           f"{cap}) {route_mem / 1e6:.2f} MB memory, {route_link / 1e6:.2f} MB sent, "
           f"{out['route']['bound_ms']:.5f} ms; sharded h3 {h3_mem / 1e6:.2f} MB, "
           f"{h3_link / 1e6:.2f} MB sent, {out['sharded_h3']['bound_ms']:.5f} ms; consensus "
           f"{cons_link} B sent; a step {out['step_bound_ms']:.5f} ms; batched walk "
-          f"{walk_mem / 1e6:.2f} MB, {out['walk']['bound_ms']:.5f} ms a run")
+          f"{walk_mem} B ({walk['rounds']} rounds, {walk['lookups']} lookups), "
+          f"{out['walk']['bound_ms']:.6f} ms a run")
+    return out
+
+
+# the sharded step's kernels (parallel/sharded.py on a card): K3, the
+# coordinates K12 gathers, K12, K4's sharded instantiation, K11's two
+# passes, K5; K7's hop-limited mode for the walk
+SHARDED_KERNELS = ["select_best", "sig_coords", "tri_partial", "sig_expand_sharded",
+                   "route_count", "route_pack", "sig_probe", "path_walk_hops"]
+# the plain versions a CUDA shard must never call (names in
+# parallel/sharded.py's namespace)
+PLAIN_SHARDED = ("route_plain", "tri_partial_plain", "sig_coords_plain",
+                 "expand_sharded_plain", "walk_hops_plain", "_insert_sig",
+                 "_select_best_plain", "_expand")
+
+
+@contextlib.contextmanager
+def sharded_guard(capture_step: int = 0, target: int = 1):
+    """Count the calls of the sharded engine's plain functions
+    (PLAIN_SHARDED) made inside, keep every shard the run makes, and at
+    step ``capture_step`` (> 0) copy shard ``target``'s inputs and outputs
+    of each kernel of its step (sig_coords, K12, K4 sharded, K11) into
+    ``cap``."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    calls = dict.fromkeys(PLAIN_SHARDED, 0)
+    saved = {name: getattr(SH, name) for name in PLAIN_SHARDED}
+    methods = {name: getattr(SH._Shard, name)
+               for name in ("select", "coords", "partial", "expand", "count", "pack")}
+    cap = {"shards": [], "step": 0, "at": capture_step}
+
+    def counted(name, fn):
+        def wrapper(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    def on(sh):
+        return capture_step and cap["step"] == capture_step and sh.me == target
+
+    def select(sh):
+        if sh.me == 0:
+            cap["step"] += 1
+        if not any(x is sh for x in cap["shards"]):
+            cap["shards"].append(sh)
+        return methods["select"](sh)
+
+    def coords(sh):
+        out = methods["coords"](sh)
+        if on(sh):
+            cap.update(shard=sh, coords=out.clone(), t_sig=sh.tab.t_sig.clone(),
+                       sel=sh.bufs.sel.clone(), state_sel=sh.bufs.state.clone())
+        return out
+
+    def partial(sh, coords_g):
+        out = methods["partial"](sh, coords_g)
+        if on(sh):
+            cap.update(coords_g=coords_g.clone(), part=out.clone())
+        return out
+
+    def expand(sh, eng, h3):
+        if on(sh):
+            cap.update(shard=sh, eng=eng, h3=None if h3 is None else h3.clone(),
+                       t_sig=sh.tab.t_sig.clone(), t_best0=sh.tab.t_best.clone(),
+                       sel=sh.bufs.sel.clone(), state0=sh.bufs.state.clone(),
+                       ctr0=sh.ctr.clone())
+        out = methods["expand"](sh, eng, h3)
+        if on(sh):
+            torch.cuda.synchronize()
+            n_pend = int(sh.bufs.state[6])
+            cap.update(cand=sh.cand.clone(), t_best1=sh.tab.t_best.clone(),
+                       pend=sh.bufs.pend[sh.R:sh.R + n_pend].clone(),
+                       state1=sh.bufs.state.clone(), ctr1=sh.ctr.clone())
+        return out
+
+    def count(sh, eng):
+        if on(sh):
+            cap.update(ring=sh.ring.clone(), cand_route=sh.cand.clone(),
+                       nsel=int(sh.bufs.state[2]))
+        return methods["count"](sh, eng)
+
+    def pack(sh, eng, S_all):
+        out = methods["pack"](sh, eng, S_all)
+        if on(sh):
+            torch.cuda.synchronize()
+            cap.update(S=None if S_all is None else S_all.clone(), wire=sh.wire.clone(),
+                       ring1=sh.ring.clone(), route_out=sh.route_out.clone())
+        return out
+
+    for name, fn in saved.items():
+        setattr(SH, name, counted(name, fn))
+    for name, fn in (("select", select), ("coords", coords), ("partial", partial),
+                     ("expand", expand), ("count", count), ("pack", pack)):
+        setattr(SH._Shard, name, fn)
+    try:
+        yield calls, cap
+    finally:
+        for name, fn in saved.items():
+            setattr(SH, name, fn)
+        for name, fn in methods.items():
+            setattr(SH._Shard, name, fn)
+
+
+def shard_bytes(sh) -> int:
+    """Device bytes a shard holds: its table, counters, rings, cubes and
+    step buffers."""
+    seen, total = set(), 0
+
+    def add(t):
+        nonlocal total
+        if isinstance(t, torch.Tensor) and t.is_cuda and t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            total += t.numel() * t.element_size()
+
+    for t in (sh.tab.t_sig, sh.tab.t_best, sh.tab.t_closed, sh.ctr, *sh.rings, sh.cubes,
+              sh.tri, getattr(sh, "cand", None), getattr(sh, "keys", None),
+              getattr(sh, "wire", None), getattr(sh, "route_out", None)):
+        add(t)
+    for f in ("slots", "vmin", "active", "state", "sel", "partial", "ticket", "run", "pend",
+              "lane_cur", "lane_dest", "lane_word", "params"):
+        add(getattr(sh.bufs, f, None))
+    return total
+
+
+def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool,
+                capture_step: int = 0, profile: bool = False, **kw) -> dict:
+    """One ShardedFrontierSearch run (the engine entry) on ``devices``: the
+    golden g, path cost g (attach_path_g), degapped rows; every sharded
+    step kernel launched (K3, sig_coords and K12 where the cubes are
+    sharded, K4 sharded, K11's passes, K5, K7's hop mode) and no plain
+    version; the step's wall, host reads, wire and migrated rows, peak
+    carry, walk rounds and wall, peak memory per shard and in total."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.parallel.sharded import ShardedFrontierSearch
+    from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+
+    problem = problem_from_fasta(path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    with sharded_guard(capture_step) as (plain, cap):
+        eng = ShardedFrontierSearch(problem, devices=devices, **kw)
+        build_s = time.perf_counter() - t0
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+            with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                res = eng.run()
+                torch.cuda.synchronize()
+        else:
+            res = eng.run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if res.g != gold["optimal_g"]:
+        fail(f"{label}: g={res.g}, want {gold['optimal_g']}")
+    alignment = build_alignment(problem, res.closed)
+    identical = check_alignment(label, alignment, gold, want_identical)
+    if any(plain.values()):
+        fail(f"{label}: plain versions ran on the card: {plain}")
+    st = eng.last_stats
+    wire_path = not (eng.ndev == 1 and eng.exchange == "dense")
+    want = (SHARDED_KERNELS if eng.shard_cubes
+            else [k for k in SHARDED_KERNELS if k not in ("sig_coords", "tri_partial")])
+    if wire_path:
+        for k in want:
+            if counts.get(k, 0) <= 0:
+                fail(f"{label}: kernel {k} was not launched on the sharded path")
+        if counts["path_walk_hops"] != st["walk_rounds"] * eng.ndev:
+            fail(f"{label}: K7 hop mode launched {counts['path_walk_hops']} times for "
+                 f"{st['walk_rounds']} rounds on {eng.ndev} shards")
+    if any(d.type != "cuda" for d in eng.local_devices):
+        fail(f"{label}: a shard is not on a card: {eng.local_devices}")
+    shards = cap["shards"]
+    cap["path"] = list(res.closed)
+    steps = max(st["steps"], 1)
+    info = dict(g=res.g, identical=identical, ndev=eng.ndev, devices=[str(d) for d in devices],
+                exchange=eng.exchange, exchange_cap=eng.exchange_cap, hash=eng.hash_type,
+                shard_cubes=eng.shard_cubes, capacity=eng.st.C, batch=eng.st.B,
+                steps=res.steps, expanded=res.nodes_expanded, reopened=res.nodes_reopened,
+                migrated=res.nodes_migrated, shard_stats=res.shard_stats,
+                host_reads_a_step=st["host_reads"] / steps,
+                wire_rows_a_step=st["wire_rows"] / steps,
+                migrated_a_step=st["migrated"] / steps, peak_carry=st["peak_carry"],
+                walk_rounds=st["walk_rounds"], walk_s=st["walk_s"],
+                search_s=st["search_s"], step_wall_ms=st["search_s"] / steps * 1e3,
+                engine_build_s=build_s, wall_s=wall, launches=counts,
+                peak_device_bytes=peak,
+                shard_bytes=[shard_bytes(sh) for sh in shards] if wire_path else None,
+                path_nodes=len(res.closed))
+    if profile:
+        dev_us = sum(e.device_time_total for e in prof.key_averages()
+                     if own_event(e.key) and e.count)
+        info["step_device_ms"] = dev_us / 1e3 / steps
+    print(f"{label}: {eng.ndev} shard(s) on {info['devices']}, exchange {eng.exchange} (cap "
+          f"{eng.exchange_cap}), hash {eng.hash_type}, shard cubes {eng.shard_cubes}, "
+          f"capacity {eng.st.C} a shard, batch {eng.st.B}; g={res.g} ok, path cost == g, "
+          f"alignment byte-identical to golden: {identical}; steps {res.steps}, expanded "
+          f"{res.nodes_expanded}, migrated {res.nodes_migrated}; a step: wall "
+          f"{info['step_wall_ms']:.3f} ms"
+          + (f", device {info['step_device_ms']:.3f} ms" if profile else "")
+          + f", host reads {info['host_reads_a_step']:.2f}, wire rows "
+          f"{info['wire_rows_a_step']:.1f}, migrated {info['migrated_a_step']:.1f}; peak carry "
+          f"{st['peak_carry']}; walk {st['walk_rounds']} rounds in {st['walk_s'] * 1e3:.2f} ms; "
+          f"peak memory {peak / 2**20:.1f} MiB"
+          + (f" (shards {[round(b / 2**20, 1) for b in info['shard_bytes']]} MiB)"
+             if info["shard_bytes"] else "")
+          + f"; launches { {k: counts[k] for k in SHARDED_KERNELS + ['path_walk']} }")
+    return info, eng, cap
+
+
+def sharded_walk_bytes(st, shards, final) -> dict:
+    """The bytes the sharded walk (_make_batched_walk) must move on this
+    run's tables: each round every shard walks at most WALK_HOPS hops from
+    the round's coordinate (walk_bytes: the shard that holds it reads its
+    hits' rows and the stopping miss, every other shard one miss), and the
+    summed run advances the coordinate, until the origin."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    K, c = SH.WALK_HOPS, np.asarray(final, dtype=np.int64)
+    nbytes = lookups = rounds = 0
+    while c.any():
+        rounds += 1
+        moved = None
+        for shd in shards:
+            wb = walk_bytes(st, shd.tab, "sig", c, K, K + st.n + 1)
+            nbytes, lookups = nbytes + wb["bytes"], lookups + wb["lookups"]
+            run = SH.walk_hops_plain(st, shd.tab, c, K)
+            if int(run[-1]):
+                moved = run[K: K + st.n].numpy().astype(np.int64)
+        if moved is None:
+            fail(f"sharded walk: no shard holds {c.tolist()}")
+        c = moved
+    return dict(bytes=nbytes, lookups=lookups, rounds=rounds)
+
+
+def sharded_kernel_checks(cap: dict, shards) -> dict:
+    """Each new kernel of the sharded step against its plain version on
+    the card, bit for bit, on shard ``target``'s inputs of the captured
+    step: sig_coords and K12 (tri_partial), K4 sharded (its candidate
+    rows, t_best after its round-0 match, its pending lanes as a multiset,
+    the surviving and pending counts, the goal), K11 under the dense and
+    the ragged allowance (counts, migrants, carry overflow, ring min, the
+    new ring, the rows sent); then K7's hop mode against its plain version
+    on every shard's finished table from every path node.  Wrapper (CUDA
+    events), device (CUPTI) and plain times, and each bound by bytes."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import step as S
+    from mpi_pastar_msa_tpu_torch.search.engine import SigTable
+
+    sh, eng = cap["shard"], cap["eng"]
+    st, ndev, me = sh.st, eng.ndev, sh.me
+    M, B = st.M, st.B
+    out = {}
+    n_sel = int(cap["state0"][2])
+
+    def report(name, err, fn, plain_fn, nbytes, restore=None):
+        ms = time_restored(fn, restore, 20) if restore else time_ms(fn, 20)
+        dev = device_ms(fn, 20, restore)
+        pms = time_restored(plain_fn, restore, 5) if restore else time_ms(plain_fn, 5, 1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=pms, bytes=nbytes,
+                         bound_ms=bound, bound_by="bytes", library_ms=None)
+        print(f"  {name}: max |err| {err}; wrapper {ms:.4f} ms, device {dev:.4f} ms, plain "
+              f"{pms:.3f} ms, bound {bound:.6f} ms ({nbytes} B)")
+
+    print(f"sharded kernel checks (shard {me} of {ndev}, step {cap['at']}, {n_sel} rows):")
+    # sig_coords
+    if "coords" in cap:
+        state = cap["state_sel"]
+        want = SH.sig_coords_plain(st, cap["t_sig"], cap["sel"], int(state[2]), B)
+        err = int((want.long() - cap["coords"].long()).abs().max())
+        if err:
+            fail(f"sig_coords differs from its plain version by {err}")
+        co = torch.empty_like(cap["coords"])
+        bitw = torch.tensor(st.bitw, dtype=torch.int32, device=sh.dev)
+        nsel_t = state[2:3].clone()
+
+        def run_coords():
+            _kernels.launch("sig_coords", cap["t_sig"].data_ptr(), cap["sel"].data_ptr(),
+                            nsel_t.data_ptr(), bitw.data_ptr(), st.n, st.bbits, B,
+                            co.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+        report("sig_coords", err, run_coords,
+               lambda: SH.sig_coords_plain(st, cap["t_sig"], cap["sel"], int(state[2]), B),
+               int(state[2]) * 12 + B * st.n * 4)
+        # K12
+        tri = sh.tri if sh.tri.numel() else None
+        want = SH.tri_partial_plain(cap["coords_g"], sh.cubes, sh.tri, M, st.S)
+        err = int((want.long() - cap["part"].long()).abs().max())
+        if err:
+            fail(f"K12 (tri_partial) differs from its plain version by {err}")
+        rows, Tl = cap["coords_g"].shape[0], sh.tri.shape[0]
+        report("tri_partial", err,
+               lambda: SH._tri_partial_cuda(cap["coords_g"], sh.cubes, tri, st.n, st.S),
+               lambda: SH.tri_partial_plain(cap["coords_g"], sh.cubes, sh.tri, M, st.S),
+               rows * (st.n * 4 + Tl * 8 * 4 + (M + 1) * 4))
+    # K4 sharded
+    tab = SigTable(cap["t_sig"].clone(), cap["t_best0"].clone(), cap["t_sig"].clone())
+    goal, cand, pending, n_valid = SH.expand_sharded_plain(
+        st, tab, cap["sel"], n_sel, eng.ub, cap["h3"], eng.own, ndev, me)
+    L = n_sel * M
+    bad = []
+    if not torch.equal(cand[:L], cap["cand"][:L]):
+        bad.append("candidate rows")
+    if not torch.equal(tab.t_best[:st.C], cap["t_best1"][:st.C]):  # the plain one writes trash
+        bad.append("t_best after round 0")
+    srt = lambda t: sorted(map(tuple, t.tolist()))
+    if srt(pending) != srt(cap["pend"]):
+        bad.append("pending lanes")
+    if n_valid != int(cap["state1"][5]) or pending.shape[0] != int(cap["state1"][6]):
+        bad.append("surviving or pending counts")
+    if min(goal, int(cap["ctr0"][0])) != int(cap["ctr1"][0]):
+        bad.append("goal g")
+    if bad:
+        fail(f"K4 sharded differs from its plain version: {bad}")
+    tb, stt, ctr = cap["t_best0"].clone(), cap["state0"].clone(), cap["ctr0"].clone()
+    bufs = S.StepBuffers.select_only(st, sh.dev)
+    bufs.sel, bufs.state, bufs.run = cap["sel"], stt, torch.ones(1, dtype=torch.int32,
+                                                                    device=sh.dev)
+    bufs.pend = torch.empty_like(sh.bufs.pend)
+    bufs.params = sh.bufs.params
+    tab_k = SigTable(cap["t_sig"], tb, cap["t_sig"])
+    cand_k = torch.empty_like(sh.cand)
+
+    def restore4():
+        tb.copy_(cap["t_best0"])
+        stt.copy_(cap["state0"])
+        ctr.copy_(cap["ctr0"])
+
+    def plain4():
+        t = SigTable(cap["t_sig"], cap["t_best0"].clone(), cap["t_sig"])
+        SH.expand_sharded_plain(st, t, cap["sel"], n_sel, eng.ub, cap["h3"], eng.own, ndev, me)
+
+    report("sig_expand_sharded", 0,
+           lambda: S.expand_sharded_cuda(st, tab_k, bufs, ctr, eng.ub, cap["h3"], cand_k, sh.R,
+                                         eng.hash_params, ndev, me),
+           plain4, n_sel * (8 + 4 + st.P * 20 + (M + 1) * 4 + M * 16)
+           + int(cap["state1"][5]) * 32 + pending.shape[0] * 12, restore=restore4)
+    out["sig_expand_sharded"].update(rows=n_sel, lanes_valid=n_valid,
+                                     pending=int(pending.shape[0]))
+    # K11, both allowances
+    nsel_t = torch.tensor(cap["nsel"], dtype=torch.int64, device=sh.dev)
+    ccar = sh.ccar
+    S_all = cap["S"]
+    if S_all is None:
+        counts = cap["route_out"][:ndev].long()
+        S_all = counts.repeat(ndev, 1).to(torch.int32)  # ragged check: as if all sent alike
+    for mode, Smat in (("dense", None), ("ragged", S_all)):
+        w_ring, w_wire, w_out = (torch.empty_like(sh.rings[0]), torch.zeros_like(sh.wire),
+                                 torch.empty_like(sh.route_out))
+        keys = torch.empty_like(sh.keys)
+
+        def run_count(o=w_out, keys=keys):
+            _kernels.launch("route_count", cap["cand_route"].data_ptr(), cap["ring"].data_ptr(),
+                            nsel_t.data_ptr(), M, cap["cand_route"].shape[0], ccar, ndev,
+                            sh.seg, o.data_ptr(), keys.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+
+        # pass 2 alone reads pass 1's counts and keys and leaves them as
+        # they were, so it may run again after one pass 1
+        def run_pack(ring_out=w_ring, wire=w_wire, o=w_out, keys=keys, Smat=Smat):
+            _kernels.launch("route_pack", cap["cand_route"].data_ptr(), cap["ring"].data_ptr(),
+                            nsel_t.data_ptr(), M, ccar, ndev, me, eng.exchange_cap,
+                            None if Smat is None else Smat.data_ptr(), sh.seg, o.data_ptr(),
+                            keys.data_ptr(), wire.data_ptr(), ring_out.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+
+        def run_route(run_count=run_count, run_pack=run_pack):
+            run_count()
+            run_pack()
+
+        run_route()
+        torch.cuda.synchronize()
+        p_wire, p_ring, p_out = SH.route_plain(cap["cand_route"], cap["nsel"] * M, cap["ring"],
+                                               ndev, me, eng.exchange_cap, Smat)
+        A = SH.route_sizes((S_all if Smat is not None else
+                            p_out[:ndev].long().repeat(ndev, 1)).cpu().numpy(), ndev,
+                           eng.exchange_cap, Smat is not None)[me]
+        base = (np.cumsum(A) - A) if Smat is not None else np.arange(ndev) * eng.exchange_cap
+        sent = torch.cat([torch.arange(int(b), int(b) + int(a)) for a, b in zip(A, base)]
+                         ).long().to(sh.dev)
+        bad = []
+        if not torch.equal(w_out, p_out):
+            bad.append(f"out {w_out.tolist()} vs {p_out.tolist()}")
+        if not torch.equal(w_ring, p_ring):
+            bad.append("new ring")
+        if not torch.equal(w_wire[sent], p_wire[sent]):
+            bad.append("wire rows")
+        if bad:
+            fail(f"K11 ({mode}) differs from its plain version: {bad}")
+        # inputs read once, outputs written once: every row's dest, the
+        # remote rows' other three words, the send counts (ragged) and the
+        # row count; the wire rows sent, the new ring and out
+        remote = int(p_out[:ndev].sum())
+        nbytes = ((cap["nsel"] * M + ccar) * 4 + remote * 12
+                  + (0 if Smat is None else ndev * ndev * 4) + 8
+                  + int(A.sum()) * 12 + ccar * 16 + (ndev + 3) * 4)
+        report(f"route_{mode}", 0, run_route,
+               lambda Smat=Smat: SH.route_plain(cap["cand_route"], cap["nsel"] * M, cap["ring"],
+                                                ndev, me, eng.exchange_cap, Smat), nbytes)
+        run_count()
+        passes = {"route_count": dict(ms=time_ms(run_count, 20), device_ms=device_ms(run_count, 20)),
+                  "route_pack": dict(ms=time_ms(run_pack, 20), device_ms=device_ms(run_pack, 20))}
+        print("    passes alone: " + ", ".join(
+            f"{k} wrapper {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms"
+            for k, v in passes.items()))
+        out[f"route_{mode}"].update(rows=cap["nsel"] * M + ccar, remote=remote,
+                                    sent=int(A.sum()), spilled=remote - int(A.sum()),
+                                    passes=passes)
+    # K7's hop mode on every shard's table from every path node
+    checked, err = 0, 0
+    for shd in shards:
+        for coord in cap["path"]:
+            k = S.walk_hops_cuda(st, shd.tab, coord, SH.WALK_HOPS).cpu()
+            p = SH.walk_hops_plain(st, shd.tab, coord, SH.WALK_HOPS)
+            err = max(err, int((k.long() - p.long()).abs().max()))
+            checked += 1
+    if err:
+        fail(f"K7 hop mode differs from its plain version by {err}")
+    final = [int(v) for v in eng.problem.final_coord]
+    owner = next(x for x in shards if int(SH.walk_hops_plain(st, x.tab, final, 1)[-1]))
+    out["walk"] = sharded_walk_bytes(st, shards, final)
+    wb = walk_bytes(st, owner.tab, "sig", final, SH.WALK_HOPS, SH.WALK_HOPS + st.n + 1)
+    report("path_walk_hops", err, lambda: S.walk_hops_cuda(st, owner.tab, final, SH.WALK_HOPS),
+           lambda: SH.walk_hops_plain(st, owner.tab, final, SH.WALK_HOPS), wb["bytes"])
+    out["path_walk_hops"].update(checked_calls=checked, lookups=wb["lookups"],
+                                 probe_rows=wb["probe_rows"])
+    return out
+
+
+def process_mesh_run(path: str, gold: dict, ranks: int, timeout: int = 300) -> dict:
+    """The CLI as ``ranks`` processes of one torch.distributed group (NCCL
+    for the shards' tensors, gloo for the problem's broadcast), a card
+    each: every rank must print the golden Final Score.  Every process is
+    stopped at ``timeout`` seconds."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(ranks):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(ranks), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "mpi_pastar_msa_tpu_torch", "--engine", "frontier",
+             "--devices", str(ranks), path], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"ProcessMesh run of {ranks} ranks exceeded {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    want = f"g - {gold['optimal_g']} "
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or want not in text:
+            fail(f"ProcessMesh rank {rank}: exit {p.returncode}\n{text[-3000:]}")
+    line = next((l for l in outs[0].splitlines() if l.startswith("sharded:")), "")
+    print(f"kinase on a ProcessMesh of {ranks} ranks (NCCL, a card each): every rank "
+          f"{want.strip()} in {wall:.1f} s; rank 0: {line}")
+    return dict(ranks=ranks, wall_s=wall, rank0=line)
+
+
+def sharded_phase(paths, gold) -> dict:
+    """The sharded engine on one card (parallel/sharded.py, a LocalMesh of
+    [cuda:0] * 4): kinase --triples auto (sig, sharded cubes) with the
+    ragged exchange (auto), the dense one (traced: device time a step),
+    one shard against FrontierSearch's golden result, PF08184 with a one-row
+    wire (exchange_cap=1), test2 under each owner hash; each new kernel
+    against its plain version on kinase's inputs; the sharded step's
+    bounds at this run's B and cap; and several cards when there are."""
+    card = torch.device("cuda", 0)
+    out = {}
+    k = gold["kinase.fasta"]
+    out["kinase_ragged"], eng, cap = sharded_run("kinase sharded 4, ragged", paths["kinase.fasta"],
+                                                 k, [card] * 4, True, capture_step=200)
+    if eng.exchange != "ragged" or not eng.shard_cubes or out["kinase_ragged"]["migrated"] <= 0:
+        fail(f"kinase sharded: exchange {eng.exchange}, shard cubes {eng.shard_cubes}, "
+             f"migrated {out['kinase_ragged']['migrated']}")
+    if "cand" not in cap:
+        fail("kinase sharded: the search ended before the captured step")
+    out["checks"] = sharded_kernel_checks(cap, cap["shards"])
+    r = out["kinase_ragged"]
+    if out["checks"]["walk"]["rounds"] != r["walk_rounds"]:
+        fail(f"kinase sharded: the walk took {r['walk_rounds']} rounds, its byte count "
+             f"{out['checks']['walk']['rounds']}")
+    out["bounds"] = sharded_step_bounds(r["batch"], 5, 4, out["checks"]["walk"], 4,
+                                        r["exchange_cap"])
+    del eng, cap
+    out["kinase_dense"], eng, _ = sharded_run("kinase sharded 4, dense", paths["kinase.fasta"],
+                                              k, [card] * 4, True, profile=True,
+                                              exchange="dense")
+    del eng
+    out["kinase_one_shard"], eng, _ = sharded_run("kinase sharded 1", paths["kinase.fasta"], k,
+                                                  [card], True)
+    del eng
+    out["PF08184_cap1"], eng, _ = sharded_run("PF08184 sharded 4, exchange_cap 1",
+                                              paths["PF08184.fasta"], gold["PF08184.fasta"],
+                                              [card] * 4, True, exchange_cap=1,
+                                              exchange="dense")
+    # a random input whose frontier is wide (tests/test_torch_sharded.py's
+    # spill case): a one-row wire spills into the carry ring, and the
+    # brute-force optimum holds
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch.core.problem import Problem
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.bruteforce import optimal_cost
+
+    rs = np.random.RandomState(31)
+    seqs = tuple("".join(rs.choice(list("ACDEFGHIKLMNPQRSTVWY"), size=rs.randint(12, 17)))
+                 for _ in range(4))
+    want = optimal_cost(Problem(seqs), HPairHeuristic.build(Problem(seqs), "cpu"))
+    with tempfile.NamedTemporaryFile("w", suffix=".fasta", delete=False) as f:
+        f.write("".join(f">s{i}\n{q}\n" for i, q in enumerate(seqs)))
+    out["random_spill"], eng, _ = sharded_run(
+        "random 4 x 12-16 sharded 4, exchange_cap 1", f.name,
+        {"optimal_g": want, "seqs": list(seqs), "alignment": None}, [card] * 4, False,
+        exchange_cap=1, exchange="dense", hash_type="FZORDER", hash_shift=0, batch=16)
+    os.unlink(f.name)
+    if out["random_spill"]["peak_carry"] <= 0:
+        fail("random sharded run with a one-row wire: the carry ring never held a row")
+    for ht in ("FZORDER", "PZORDER", "FSUM", "PSUM"):
+        out[f"test2_{ht}"], eng, _ = sharded_run(f"test2 sharded 4, {ht}", paths["test2.fasta"],
+                                                 gold["test2.fasta"], [card] * 4, True,
+                                                 hash_type=ht)
+    del eng
+    if torch.cuda.device_count() >= 2:
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        out["multi_card"], eng, _ = sharded_run(
+            f"kinase sharded on {len(cards)} cards", paths["kinase.fasta"], k, cards, True)
+        del eng
+        out["multi_process"] = process_mesh_run(paths["kinase.fasta"], k, len(cards))
+    else:
+        print("sharded multi-card: not run (1 card); ProcessMesh on NCCL not run either "
+              "(NCCL takes one rank a card)")
+        out["multi_card"] = "not run (1 card)"
     return out
 
 
@@ -2816,6 +3422,10 @@ def main() -> int:
     ap.add_argument("--step-only", action="store_true",
                     help="run the device, build and step-kernel phases only "
                          "(a quick check of K3-K5; prints no result line)")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="run the device, build and sharded-engine phases only "
+                         "(a quick check of the multi-device step; prints no "
+                         "result line)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace 32 mid-search steps with torch.profiler "
                          "(device time by kernel, launches and host reads a "
@@ -2881,6 +3491,10 @@ def main() -> int:
             src = os.path.abspath(args.step_baseline)
             step_baseline = (args.step_baseline, build_step_baseline(src, tmp))
         report["launch_floor"] = floor = launch_floor()
+        if args.sharded_only:
+            report["sharded"] = sharded_phase(paths, gold)
+            write_report(args.report, report)
+            return 0  # a partial run: no kernels line and no result line
         report["capture"] = capture_check(paths)
         if args.k5_sweep:
             report["k5_sweep"] = k5_sweep(paths, step_baseline and step_baseline[1])
@@ -2964,7 +3578,8 @@ def main() -> int:
             "globin6": checkpoint_resume("globin6", data_path("globin6"),
                                          data_gold("globin6", LAYOUT_INPUTS["globin6"]),
                                          "packed", tmp)}
-        report["off_path_bounds"] = off_path_bounds(report, paths["kinase.fasta"])
+        # 7. the sharded engine (parallel/sharded.py) on [cuda:0] * 4
+        report["sharded"] = sharded_phase(paths, gold)
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
             # and the plain step on the same windows, the step before K3-K5
@@ -3115,6 +3730,43 @@ def main() -> int:
                      latency_floor_dram_ms=report[run]["k7"]["path_nodes"]
                      * chase["dram_ns"] / 1e6)
            for run in ("globin6_auto", "kinase_unpacked")}})
+    # the sharded step's kernels: launches from kinase on 4 shards (ragged),
+    # checks and times on its captured step (K11 under both allowances)
+    sh = report["sharded"]
+    sl = sh["kinase_ragged"]["launches"]
+    for name, key, src, replaces in (
+            ("sig_coords", "sig_coords", "tri_partial",
+             "mpi_pastar_msa_tpu/search/engine.py:1620"),
+            ("tri_partial", "tri_partial", "tri_partial",
+             "mpi_pastar_msa_tpu/parallel/sharded.py:250"),
+            ("sig_expand_sharded", "sig_expand_sharded", "sig_expand",
+             "mpi_pastar_msa_tpu/search/engine.py:497"),
+            ("route_pack", "route_ragged", "route_pack",
+             "mpi_pastar_msa_tpu/parallel/sharded.py:169"),
+            ("path_walk_hops", "path_walk_hops", "path_walk",
+             "mpi_pastar_msa_tpu/parallel/sharded.py:482")):
+        t = sh["checks"][key]
+        entry = {"name": name, "route": "cuda",
+                 "source": f"mpi_pastar_msa_tpu_torch/csrc/{src}.cu", "replaces": replaces,
+                 "launches": sl[name], "launches_run": "kinase sharded 4, ragged",
+                 "max_abs_err": t["max_abs_err"], "ms": t["ms"], "device_ms": t["device_ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": None}
+        if name == "route_pack":
+            # K11 is one call of two passes, a launch each a step: the
+            # entry's times are the call's, each pass's alone beside them
+            entry.update(name="route", launches=sl["route_pack"], note=(
+                "K11, one entry: route_count then route_pack; launches a pass, and each "
+                "pass timed alone, in passes"), passes={
+                p: dict(launches=sl[p], **t["passes"][p]) for p in ("route_count", "route_pack")},
+                replaces_dense="mpi_pastar_msa_tpu/parallel/sharded.py:87")
+            entry["dense"] = {k: sh["checks"]["route_dense"][k]
+                              for k in ("ms", "device_ms", "plain_ms", "bound_ms", "passes")}
+        if name == "path_walk_hops":
+            entry.update(latency_floor_ms=t["lookups"] * chase["l2_ns"] / 1e6,
+                         latency_floor_dram_ms=t["lookups"] * chase["dram_ns"] / 1e6,
+                         lookups=t["lookups"])
+        kernels.append(entry)
     walls = {k: v["engine_walls"]["walk"] for k, v in report.items()
              if isinstance(v, dict) and "engine_walls" in v}
     print("walk walls (s): " + ", ".join(f"{k} {w:.4f}" for k, w in walls.items()))

@@ -75,9 +75,29 @@ SIGNATURES: Dict[str, List] = {
     # stride, t_best, t_fpar, N, C, bbits, probes, params (final
     # coordinate, key bit widths), tmax, out, stream
     "path_walk": [_I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
+    # the sharded step (parallel/sharded.py): K4's sharded instantiation,
+    # sig_expand's arguments then h3, cand, the owner hash (kind, size,
+    # shift, Z-order bits), ndev, me, stream
+    "sig_expand_sharded": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I,
+                           _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # K11's passes: cand, carry, nsel, M, lanes cap, ring rows, ndev,
+    # segment, out, keys, stream; then cand, carry, nsel, M, ring rows,
+    # ndev, me, cap, S (or null), segment, out, keys, wire, new ring, stream
+    "route_count": [_P, _P, _P, _I, _I, _I, _I, _L, _P, _P, _P],
+    "route_pack": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P],
+    # K12 and the coordinates it gathers: coords, cubes, triangles, N, S,
+    # local cubes, rows, out, stream; t_sig, compact list, nsel, bit
+    # widths, N, bbits, B, coords, stream
+    "tri_partial": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "sig_coords": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # K7's hop-limited mode: t_sig, t_best, N, C, bbits, probes, params
+    # (start coordinate, key bit widths), hops, out, stream
+    "path_walk_hops": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
 }
 #: kernel name -> its source file's stem, where that is not its own name
-SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best"}
+SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
+                           "sig_expand_sharded": "sig_expand", "route_count": "route_pack",
+                           "sig_coords": "tri_partial", "path_walk_hops": "path_walk"}
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -2,8 +2,8 @@
 
 Usage: ``python -m mpi_pastar_msa_tpu_torch [--device cuda|cpu]
 [--engine auto|serial|native|frontier] [--triples auto|on|off|fractional]
-[-t THREADS] [-s SHIFT] [-y HASH] [--checkpoint PATH] [--profile DIR]
-[--memory_debug] <fasta>``.
+[-t THREADS] [--devices N] [--exchange auto|ragged|dense] [-s SHIFT]
+[-y HASH] [--checkpoint PATH] [--profile DIR] [--memory_debug] <fasta>``.
 Phase 1 (the pair tables, K1, and the Gotoh fill of the weights, K8) runs
 on the card unless ``--device cpu`` is given; without a CUDA device it
 exits non-zero rather than running on the CPU.  The engines are the JAX
@@ -11,7 +11,13 @@ CLI's (ref: pastar/msa_options.cpp:30-69 for -t, -s, -y and
 --memory_debug): ``serial`` (the Python oracle), ``native`` (the C engine;
 ``-t`` > 1 its shared-memory HDA* engine), ``frontier`` (the batched
 frontier A* on ``--device``, JAX's ``tpu``) and ``auto``, JAX's rule:
-native for a lattice of at most 10^8 states, else frontier.
+native for a lattice of at most 10^8 states, else frontier.  The frontier
+engine runs ``--devices`` shards (default ``-t`` when it is above 1, else
+one): above one, the sharded engine (parallel/sharded.py), its shards
+round-robin over the visible cards (``--devices 4`` on one card is four
+shards on it), or one shard a rank when the run is a torch.distributed
+group (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``), where
+rank 0 reads the FASTA and broadcasts the sequences.
 
 Output follows the JAX CLI and the reference's printed surface: the
 "Final Score:" line (ref: pastar/backtrace.cpp:53), "Similarity: x.xx%"
@@ -29,9 +35,11 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from .core.problem import Problem, problem_from_fasta
 from .heuristic.hpair import HPairHeuristic
+from .parallel.multihost import broadcast_problem, init_distributed
 from .search.backtrace import build_alignment, format_alignment, similarity
 from .search.engine import FrontierSearch
 from .search.native import NativeAStar
@@ -55,7 +63,14 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("fasta", help="input FASTA file")
     ap.add_argument("-t", "--threads", type=int, default=0,
                     help="worker threads of the native engine (>1: its HDA* "
-                         "engine); the frontier engine runs on one device")
+                         "engine); with the frontier engine, the shard count "
+                         "when --devices is not given")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="shards of the frontier engine (>1: the sharded "
+                         "engine; default -t if above 1, else 1)")
+    ap.add_argument("--exchange", choices=("auto", "ragged", "dense"), default="auto",
+                    help="the sharded engine's exchange (auto: ragged when every "
+                         "shard is on a card, else dense)")
     ap.add_argument("-s", "--hash_shift", type=int, default=4,
                     help="owner-hash shift (default 4, as the JAX CLI; the "
                          "reference defaults to 12)")
@@ -144,10 +159,21 @@ def _profiled(trace_dir: Optional[str], device: torch.device):
     print(f"profile trace written to {path}")
 
 
-def execute(args) -> Report:
-    """Run the three phases for parsed ``args`` and print the output."""
+def shard_devices(device: torch.device, n_dev: int) -> list:
+    """The shards' devices: round-robin over the visible cards, or every
+    shard on the CPU."""
+    if device.type != "cuda":
+        return [torch.device("cpu")] * n_dev
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % cards) for i in range(n_dev)]
+
+
+def execute(args, problem: Optional[Problem] = None) -> Report:
+    """Run the three phases for parsed ``args`` (on ``problem``, else the
+    FASTA's) and print the output."""
     device = resolve_device(args.device)
-    problem = problem_from_fasta(args.fasta)
+    if problem is None:
+        problem = problem_from_fasta(args.fasta)
     print(f"Aligning {problem.n_seq} sequences (max length {problem.max_length}) "
           f"with engine={args.engine} hash={args.hash_type} shift={args.hash_shift} "
           f"device={device.type}")
@@ -157,10 +183,16 @@ def execute(args) -> Report:
             torch.cuda.synchronize(device)
 
     engine = auto_engine(problem) if args.engine == "auto" else args.engine
-    if engine == "frontier" and args.threads > 1:
-        raise UsageError("the frontier engine runs on one device (the "
-                         "multi-device engine is not ported yet); -t applies "
-                         "to the native engine")
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    n_dev = args.devices or (args.threads if args.threads > 1 else 1)
+    if world > 1 and engine == "frontier":
+        if n_dev not in (1, world):
+            raise UsageError(f"--devices {n_dev}: a run of {world} processes holds one "
+                             "shard a process")
+        n_dev = world
+    if engine == "frontier" and n_dev > 1 and args.checkpoint:
+        raise UsageError("the sharded engine (-t or --devices above 1) keeps no "
+                         "checkpoint; --checkpoint applies to one shard")
 
     with TimeCounter("Phase 1 - init heuristic: ") as t1:
         heuristic = HPairHeuristic.build(problem, device)
@@ -183,6 +215,50 @@ def execute(args) -> Report:
             # res.closed is the path-only dict for the backtrace renderer; the
             # closed-list size (per thread) comes from the engine counters
             stats = res.thread_stats
+        elif n_dev > 1:
+            from .parallel.mesh import ProcessMesh
+            from .parallel.sharded import ShardedFrontierSearch
+
+            if world > 1:
+                rank = dist.get_rank()
+                devs = [shard_devices(device, world)[rank]]
+                mesh = ProcessMesh(devs[0])
+                print(f"shards: {world}, one a process; rank {rank} on {devs[0]}")
+            else:
+                mesh = devs = shard_devices(device, n_dev)
+                print(f"shards: {n_dev} on " + ", ".join(str(d) for d in devs))
+            # the triple cubes as the JAX CLI passes them (mpi_pastar_msa_tpu/
+            # cli.py:165-187); the engine builds them itself whenever the
+            # heuristic it is given has none
+            if args.triples == "off":
+                heuristic = getattr(heuristic, "base", heuristic)
+            elif args.triples in ("on", "fractional") and not getattr(heuristic, "triangles",
+                                                                         None):
+                from .heuristic.triples import HTriples
+
+                frac = args.triples == "fractional"
+                ht = HTriples.build(heuristic, device=devs[0], fractional=frac,
+                                    **({"budget_bytes": 10 << 30} if frac else {}))
+                if ht is None:
+                    raise UsageError(f"--triples {args.triples}: the triple heuristic is "
+                                     "not applicable to this input")
+                heuristic = ht
+            with TimeCounter("Phase 2: PA-Star running time: ") as t2:
+                eng = ShardedFrontierSearch(problem, heuristic, devices=mesh,
+                                            hash_type=args.hash_type,
+                                            hash_shift=args.hash_shift, batch=args.batch,
+                                            capacity=args.capacity, chunk_steps=args.chunk,
+                                            exchange=args.exchange, fill_target=args.fill)
+                res = eng.run()
+                sync()
+            st = eng.last_stats
+            print(f"sharded: layout {eng.layout}, exchange {eng.exchange} (cap "
+                  f"{eng.exchange_cap}), shard cubes {eng.shard_cubes}, capacity "
+                  f"{eng.st.C} a shard, batch {eng.st.B} a shard; {st['steps']} steps, "
+                  f"{st['host_reads'] / max(st['steps'], 1):.2f} host reads a step, "
+                  f"{st['wire_rows']} wire rows, peak carry {st['peak_carry']}, walk "
+                  f"{st['walk_rounds']} rounds")
+            stats = res.shard_stats
         else:
             with TimeCounter("Phase 2: PA-Star running time: ") as t2:
                 eng = FrontierSearch(problem, heuristic, device=device,
@@ -202,9 +278,11 @@ def execute(args) -> Report:
     print(format_alignment(al, args.width))
 
     print("Total nodes counters")
-    for tid, (exp, reopen, closed_n, open_n) in enumerate(stats):
+    for tid, row in enumerate(stats):
+        exp, reopen, closed_n, open_n = row[:4]
+        migr = f"\tmigrated {row[4]}" if len(row) > 4 else ""
         print(f"tid {tid}\texpanded {exp}\treopened {reopen}"
-              f"\tclosed {closed_n}\topen {open_n}")
+              f"\tclosed {closed_n}\topen {open_n}{migr}")
     total_exp = sum(s[0] for s in stats)
     print(f"total\texpanded {total_exp}"
           f"\treopened {sum(s[1] for s in stats)}"
@@ -233,7 +311,14 @@ def memory_debug() -> None:
 
 def run(argv=None) -> int:
     args = make_parser().parse_args(argv)
-    if not os.path.isfile(args.fasta):
+    # the multi-process bootstrap (nothing in a single process): rank 0
+    # reads the FASTA and broadcasts it, as the reference's MPI rank 0
+    # (ref: pastar/msa_pastar_main.cpp:97-179)
+    rank = init_distributed()
+    if (dist.is_initialized() and dist.get_world_size() > 1 and args.device == "cuda"
+            and torch.cuda.is_available()):
+        torch.cuda.set_device(rank % torch.cuda.device_count())  # the rank's card
+    if rank == 0 and not os.path.isfile(args.fasta):
         print(f"Option parse error: File {args.fasta} does not exist "
               f"or isn't a regular file", file=sys.stderr)
         return 1
@@ -242,8 +327,9 @@ def run(argv=None) -> int:
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    problem = broadcast_problem(problem_from_fasta(args.fasta) if rank == 0 else None)
     try:
-        report = execute(args)
+        report = execute(args, problem)
     except UsageError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

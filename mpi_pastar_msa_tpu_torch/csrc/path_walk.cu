@@ -23,8 +23,10 @@
 // What bounds it on an H100: the chain of dependent lookups, not bytes.  A
 // node's probe positions follow from its coordinate, which is the last
 // node's coordinate less the last node's parent mask: one dependent round
-// trip to memory a path node (kinase: 276 nodes), against about 4 KB of
-// rows read a node (0.00034 ms at 3.35 TB/s for the whole kinase walk).
+// trip to memory a path node (kinase: 276 nodes), against the 36 B that a
+// lookup found in its home row must read, the row's 8 sig words and the
+// hit's t_best word (about 10 KB, 0.000003 ms at 3.35 TB/s, for the whole
+// kinase walk).
 // chip_smoke.py measures that round trip with pointer_chase (below) and
 // gives path nodes x round trip as the walk's latency floor.
 //
@@ -316,6 +318,22 @@ extern "C" int path_walk(int layout, const void* keys, int KWs, const void* best
   else
     path_walk_kernel<kUnpacked><<<1, kThreads, 0, s>>>(t, p, tmax, o);
   return (int)cudaGetLastError();
+}
+
+// The hop-limited mode (the sharded walk, parallel/sharded.py: JAX
+// _make_batched_walk :482 and _make_sharded_walk_sig :559): the same
+// kernel on one shard's sig table from the coordinate in params (not the
+// goal), at most `hops` (K = 8) iterations.  It stops at the origin or at
+// a node this table does not hold (another shard owns it); out holds the
+// run of masks (hops,), the coordinate it stopped at and the run's length,
+// as path_walk's.  The caller's mesh sums the runs of every shard and
+// moves the coordinate on.
+extern "C" int path_walk_hops(const void* t_sig, const void* best, int N, int C, int bbits,
+                              int probes, const void* params, int hops, void* out,
+                              void* stream) {
+  if (hops < 1 || hops > 64) return (int)cudaErrorInvalidValue;
+  return path_walk(kSig, t_sig, 1, best, nullptr, N, C, bbits, probes, params, hops, out,
+                   stream);
 }
 
 // A measurement probe, not part of the engine: one thread follows `hops`

@@ -43,8 +43,26 @@
 // because the sig layout is taken only where sig_bits - bbits <= 25
 // (engine.py::_Static.sig_ok).  kNValid takes one atomicAdd a block.
 // The encoding and its inverse are sig_key.cuh's (shared with K7).
+//
+// The sharded instantiation (C entry sig_expand_sharded: the multi-device
+// step of parallel/sharded.py, JAX :386-426 in _make_sharded_run_sig) is
+// the same kernel with three changes:
+//   - with sharded cubes, h3 (B, M + 1) int32 from tri_partial.cu (K12)
+//     after the mesh's reduce-scatter, row i of the compact list, stands
+//     in for the row's cube reads: child m adds h3[i][m - 1], the parent
+//     h3[i][M] (JAX _expand(..., h3=h3));
+//   - each surviving lane's owner shard comes from its child coordinate
+//     (owner.cuh, parallel/partition.py); only a self-owned lane reads its
+//     home row and goes to the pending list (given at the caller's offset:
+//     the received rows go in front of it);
+//   - every lane of a listed row writes its candidate row (dest, packed,
+//     home, sig base) at i M + m - 1 of `cand` for route_pack.cu (K11):
+//     dest the owner for a lane owned elsewhere, else the empty row (ndev,
+//     INFP, 0, -1).
+// The unsharded instantiation compiles none of it.
 
 #include "expand_row.cuh"
+#include "owner.cuh"
 #include "sig_key.cuh"
 #include "step_state.cuh"
 
@@ -54,18 +72,31 @@ constexpr int kMaxWarps = 8;
 constexpr int kBlocksPerSm = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
+constexpr int kMaxN = 24;
+
+// What the sharded instantiation adds (null h3: the shard reads its cubes).
+struct Sharded {
+  const int32_t* h3;
+  int32_t* cand;
+  owner::Hash hash;
+  int ndev, me;
+};
+
+template <bool kSharded>
 __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kernel(
     const int32_t* __restrict__ t_sig, int32_t* __restrict__ t_best,
     const int32_t* __restrict__ sel, const int32_t* __restrict__ tables4,
     const int32_t* __restrict__ cubes, const int32_t* __restrict__ params, int N, int P, int T,
     int S, int nb, long long f0, long long ub, int E, int GG, int gap_oe, int bbits,
     const int32_t* __restrict__ run, long long* __restrict__ counters,
-    long long* __restrict__ state, int32_t* __restrict__ pend) {
+    long long* __restrict__ state, int32_t* __restrict__ pend, Sharded sh) {
   extern __shared__ int32_t sm[];
   __shared__ unsigned long long s_valid;
   if (*run == 0) return;
   const int n_const = expand::const_words(N, P, T) + N;  // and the bit widths
-  const expand::Consts k = expand::consts_at(sm, N, P, T, S);
+  expand::Consts k = expand::consts_at(sm, N, P, T, S);
+  if constexpr (kSharded)
+    if (sh.h3 != nullptr) k.T = 0;  // h3 stands in for the cube reads
   const int32_t* s_final = k.final_c;
   const int32_t* s_bitw = s_final + N;
   int32_t* s_shift = sm + n_const;
@@ -105,20 +136,31 @@ __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kerne
 
     // 4. the parent: h from the k = 0 cells and corner 0; the table holds f
     const int par = v & ((1 << nb) - 1);
-    const long long g = (long long)(v >> nb) + f0 - expand::parent_h(k, s_t8, s_cube);
+    long long h_row = expand::parent_h(k, s_t8, s_cube);
+    const int32_t* h3_row = nullptr;
+    if constexpr (kSharded)
+      if (sh.h3 != nullptr) {
+        h3_row = sh.h3 + i * (M + 1);
+        h_row += h3_row[M];
+      }
+    const long long g = (long long)(v >> nb) + f0 - h_row;
 
     // 5. a lane a mask, 32 masks a pass
     for (int m0 = 1; m0 <= M; m0 += 32) {
       const int m = m0 + lane;
       long long cost, h;
       expand::child_cost_h(k, m, par, E, GG, gap_oe, s_t8, s_cube, cost, h);
+      if constexpr (kSharded)
+        if (h3_row != nullptr && m <= M) h += h3_row[m - 1];
       bool valid = m <= M, goal = m <= M;
       unsigned long long ckey = 0;
+      int32_t child[kSharded ? kMaxN : 1];
       for (int d = 0; d < N; ++d) {
         const int c = s_coord[d] + ((m >> d) & 1);
         valid &= c <= s_final[d];
         goal &= c == s_final[d];
         ckey |= (unsigned long long)c << s_shift[d];
+        if constexpr (kSharded) child[d] = c;
       }
       const long long gc = g + cost, fc = gc + h;
       if (goal) atomicMin(&counters[step::cGoal], gc);  // before the prune
@@ -127,9 +169,24 @@ __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kerne
       bool pending = false;
       uint32_t home = 0, sigb = 0;
       int32_t packed = 0;
+      int dest = 0;
+      if constexpr (kSharded) dest = sh.ndev;
       if (valid) {
         sigkey::encode(ckey, bbits, home, sigb);
         packed = (int32_t)(((fc - f0) << nb) | m);
+        if constexpr (kSharded) {
+          const int o = owner::of(sh.hash, child, N);
+          if (o != sh.me) dest = o;
+        }
+      }
+      if constexpr (kSharded)
+        if (m <= M)
+          reinterpret_cast<int4*>(sh.cand)[i * M + (m - 1)] =
+              dest < sh.ndev ? make_int4(dest, packed, (int)home, (int)sigb)
+                             : make_int4(sh.ndev, (int)step::kInfp, 0, -1);
+      bool stays = true;  // self-owned: the round-0 match here
+      if constexpr (kSharded) stays = dest >= sh.ndev;
+      if (valid && stays) {
         // round 0: the home bucket row, 8 ways in 32 bytes
         const int4* row4 = reinterpret_cast<const int4*>(t_sig + (size_t)home * 8);
         const int4 a = row4[0], c = row4[1];
@@ -165,20 +222,19 @@ __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kerne
     atomicAdd((unsigned long long*)&state[step::kNValid], s_valid);
 }
 
-}  // namespace
-
 // t_sig, t_best: the sig table; sel: K3's compact list of active rows
 // (slot, packed word) as (>= B, 2) int32, its length in state[kNSel];
 // params: int32 [xs P, ys P, w P, w_h P, triangles 3T, final N, bit widths
 // N] (search/step.py::_kernel_params); run: int32 device flag; counters:
 // the 14 int64 counters; state: step_state.cuh; pend: (B * (2^N - 1), 3)
 // int32 pending list.  B sizes the grid (at most B rows are active).
-extern "C" int sig_expand(const void* t_sig, void* t_best, const void* sel, const void* tables4,
-                          const void* cubes, const void* params, int N, int P, int T, int S,
-                          int nb, long long f0, long long ub, int E, int GG, int gap_oe,
-                          int bbits, int B, const void* run, void* counters, void* state,
-                          void* pend, void* stream) {
-  if (N < 2 || N > 24 || P != N * (N - 1) / 2 || T < 0 || (T > 0 && cubes == nullptr) ||
+template <bool kSharded>
+int launch(const void* t_sig, void* t_best, const void* sel, const void* tables4,
+           const void* cubes, const void* params, int N, int P, int T, int S, int nb,
+           long long f0, long long ub, int E, int GG, int gap_oe, int bbits, int B,
+           const void* run, void* counters, void* state, void* pend, Sharded sh, void* stream) {
+  const bool h3 = kSharded && sh.h3 != nullptr;
+  if (N < 2 || N > kMaxN || P != N * (N - 1) / 2 || T < 0 || (T > 0 && cubes == nullptr && !h3) ||
       S < 2 || nb != N || bbits < 1 || bbits > 28 || B < 1)
     return (int)cudaErrorInvalidValue;
   // shared words: the constants, then each warp's staging; as many warps
@@ -202,9 +258,42 @@ extern "C" int sig_expand(const void* t_sig, void* t_best, const void* sel, cons
   long long blocks = ((long long)B + (long long)warps - 1) / (long long)warps;
   if (blocks > (long long)sms * kBlocksPerSm) blocks = (long long)sms * kBlocksPerSm;
   const size_t shared = sizeof(int32_t) * (shared_const + warps * per_warp);
-  sig_expand_kernel<<<(int)blocks, 32 * (int)warps, shared, (cudaStream_t)stream>>>(
+  sig_expand_kernel<kSharded><<<(int)blocks, 32 * (int)warps, shared, (cudaStream_t)stream>>>(
       (const int32_t*)t_sig, (int32_t*)t_best, (const int32_t*)sel, (const int32_t*)tables4,
       (const int32_t*)cubes, (const int32_t*)params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
-      bbits, (const int32_t*)run, (long long*)counters, (long long*)state, (int32_t*)pend);
+      bbits, (const int32_t*)run, (long long*)counters, (long long*)state, (int32_t*)pend, sh);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sig_expand(const void* t_sig, void* t_best, const void* sel, const void* tables4,
+                          const void* cubes, const void* params, int N, int P, int T, int S,
+                          int nb, long long f0, long long ub, int E, int GG, int gap_oe,
+                          int bbits, int B, const void* run, void* counters, void* state,
+                          void* pend, void* stream) {
+  return launch<false>(t_sig, t_best, sel, tables4, cubes, params, N, P, T, S, nb, f0, ub, E,
+                       GG, gap_oe, bbits, B, run, counters, state, pend, Sharded{}, stream);
+}
+
+// The sharded instantiation: sig_expand's arguments, then h3 ((B, M + 1)
+// int32, or null: the shard reads its own cubes, cubes then non-null when
+// T > 0), cand ((B M, 4) int32), the owner hash (kind, size, shift, zbits:
+// parallel/partition.py::owner_params), ndev (= the hash's size) and this
+// shard's index me; pend points where the self-owned pending lanes go.
+extern "C" int sig_expand_sharded(const void* t_sig, void* t_best, const void* sel,
+                                  const void* tables4, const void* cubes, const void* params,
+                                  int N, int P, int T, int S, int nb, long long f0,
+                                  long long ub, int E, int GG, int gap_oe, int bbits, int B,
+                                  const void* run, void* counters, void* state, void* pend,
+                                  const void* h3, void* cand, int hash_kind, int hash_size,
+                                  int hash_shift, int zbits, int ndev, int me, void* stream) {
+  if (cand == nullptr || ndev < 1 || me < 0 || me >= ndev || hash_size != ndev ||
+      hash_kind < 0 || hash_kind > 3 || hash_shift < 0 || hash_shift > 31 || zbits < 1 ||
+      zbits > 32)
+    return (int)cudaErrorInvalidValue;
+  const Sharded sh{(const int32_t*)h3, (int32_t*)cand,
+                   owner::Hash{hash_kind, hash_size, hash_shift, zbits}, ndev, me};
+  return launch<true>(t_sig, t_best, sel, tables4, cubes, params, N, P, T, S, nb, f0, ub, E,
+                      GG, gap_oe, bbits, B, run, counters, state, pend, sh, stream);
 }

@@ -560,14 +560,17 @@ def _adapt_thr(thr, n_selected, B: int):
 
 
 def _expand(st: _Static, coords, g, parenti, active, f_parent=None,
-            g_is_f=False):
+            g_is_f=False, h3=None):
     """Expand a batch: (B, N) coords -> all-mask successor candidates.
 
     With ``g_is_f`` the g argument is the parents' f (the sig table stores
     no g): g = f - h(parent), where h(parent) is the k=0 cell of the T4
     heuristic gather plus each cube's own-coordinate corner.  With
     ``f_parent`` (the unpacked layout) each child's f is raised to at least
-    its parent's (pathmax).
+    its parent's (pathmax).  ``h3`` (B, M + 1), the sharded engine's cube
+    h from every shard's cubes (parallel/sharded.py), stands in for the
+    cube reads: column m - 1 is child m's, column M the row's own (JAX
+    ``_expand(..., h3=h3)``).
 
     Returns flat (B*M,) int64 g, f, move mask, valid, is_goal and the
     (B*M, N) child coordinates; on valid lanes without pathmax, f - g is
@@ -596,7 +599,10 @@ def _expand(st: _Static, coords, g, parenti, active, f_parent=None,
     pidx = torch.arange(st.P, device=st.device)[None, :]
     h = t4w[:, pidx, st.d_k].sum(-1)  # (B, M)
     h_par = t4w[:, :, 0].sum(1)
-    if st.T3:
+    if h3 is not None:
+        h = h + h3[:, :M].long()
+        h_par = h_par + h3[:, M].long()
+    elif st.T3:
         # the 8 corners of every (node, cube); child m reads corner
         # tri_corner[t, m], the parent corner 0
         c3 = coords[:, st.d_tri_xyz].clamp(0, S - 2)  # (B, T, 3)

@@ -320,25 +320,27 @@ def _step_buffers(st: _Static, dev, layout: str = "sig") -> StepBuffers:
     return bufs
 
 
-def _check_common(st: _Static, dev, counters) -> None:
-    """The counters and the heuristic's tables of a step on ``dev``."""
+def _check_common(st: _Static, dev, counters, cubes: bool = True) -> None:
+    """The counters and the heuristic's tables of a step on ``dev`` (the
+    cubes unless ``cubes`` is False: a shard of the sharded step that holds
+    only its own)."""
     _check(counters, "counters", dev, torch.int64)
     if counters.numel() != N_COUNTERS:
         raise ValueError(f"counters: {counters.numel()} elements, need {N_COUNTERS}")
     _check(st.d_tables4, "tables4", dev, torch.int32, st.P * st.S * st.S * 8)
-    if st.T3:
+    if st.T3 and cubes:
         _check(st.d_cubes, "cubes", dev, torch.int32, st.T3 * st.S ** 3)
 
 
-def _check_step(st: _Static, tab, counters):
+def _check_step(st: _Static, tab, counters, cubes: bool = True):
     """The device of a sig step, after checking the table, the statics and
-    the counters."""
+    the counters (the cubes as ``_check_common``)."""
     if not isinstance(tab, SigTable):
         raise ValueError(f"the sig step kernels need a SigTable, got {type(tab).__name__}")
     dev = _cuda_device(tab.t_sig, "t_sig")
     for name in ("t_sig", "t_best", "t_closed"):
         _check(getattr(tab, name), name, dev, torch.int32, st.C)
-    _check_common(st, dev, counters)
+    _check_common(st, dev, counters, cubes)
     if not st.sig_ok:
         raise ValueError("the sig step kernels need a sig-eligible table (sig_ok)")
     if st.n > K4_MAX_N:
@@ -346,12 +348,18 @@ def _check_step(st: _Static, tab, counters):
     return dev
 
 
-def _expand_args(st, tab, bufs, counters, ub, stream) -> tuple:
-    return ("sig_expand", tab.t_sig.data_ptr(), tab.t_best.data_ptr(), bufs.sel.data_ptr(),
-            st.d_tables4.data_ptr(), st.d_cubes.data_ptr() if st.T3 else None,
+def _expand_args(st, tab, bufs, counters, ub, stream, *, entry: str = "sig_expand",
+                 cubes: bool = True, pend_at: int = 0, sharded: tuple = ()) -> tuple:
+    """K4's launch: ``entry`` the unsharded or the sharded instantiation,
+    ``cubes`` False where h3 stands in for the cube reads, the pending
+    lanes appended from row ``pend_at`` of ``bufs.pend``, and ``sharded``
+    the sharded instantiation's arguments before the stream."""
+    return (entry, tab.t_sig.data_ptr(), tab.t_best.data_ptr(), bufs.sel.data_ptr(),
+            st.d_tables4.data_ptr(), st.d_cubes.data_ptr() if cubes and st.T3 else None,
             bufs.params.data_ptr(), st.n, st.P, st.T3, st.S, st.nb, st.f0, int(ub),
             GAP_EXTENSION, GAP_GAP, st.gap_oe, st.bbits, st.B, bufs.run.data_ptr(),
-            counters.data_ptr(), bufs.state.data_ptr(), bufs.pend.data_ptr(), stream)
+            counters.data_ptr(), bufs.state.data_ptr(),
+            bufs.pend.data_ptr() + 4 * 3 * pend_at, *sharded, stream)
 
 
 def _probe_args(st, tab, bufs, counters, fill, blocks, cap, stream) -> tuple:
@@ -653,3 +661,68 @@ def _walk_args(st: _Static, tab, layout: str):
             None if fpar is None else fpar.data_ptr(), n, st.C, st.bbits, probes,
             params.data_ptr(), tmax, out.data_ptr(), _stream(dev))
     return args, (params, out)
+
+
+# --- the sharded sig step (parallel/sharded.py): K4's sharded
+# instantiation, K5 on the received rows and the self-owned lanes, and K7's
+# hop-limited mode
+
+
+def expand_sharded_cuda(st: _Static, tab: SigTable, bufs: StepBuffers, counters, ub: int,
+                        h3, cand, pend_at: int, hash_params: tuple, ndev: int, me: int) -> None:
+    """K4's sharded instantiation (``sig_expand_sharded``) over K3's compact
+    list in ``bufs``: as the unsharded K4, with h3 ((B, M + 1) int32 from
+    K12 after the reduce-scatter, or None: the shard reads its own cubes)
+    in place of the cube reads, every lane's candidate row written to
+    ``cand`` ((B M, 4) int32) and only self-owned lanes matched in their
+    home row, the unmatched appended to ``bufs.pend`` from row
+    ``pend_at``.  ``hash_params``: partition.owner_params."""
+    dev = _check_step(st, tab, counters, cubes=False)
+    L = st.B * st.M
+    _check(cand, "cand", dev, torch.int32, 4 * L)
+    _check(bufs.pend, "pend", dev, torch.int32, 3 * (pend_at + L))
+    if h3 is not None:
+        _check(h3, "h3", dev, torch.int32, st.B * (st.M + 1))
+    elif st.T3:
+        _check(st.d_cubes, "cubes", dev, torch.int32, st.T3 * st.S ** 3)
+    _kernels.launch(*_expand_args(
+        st, tab, bufs, counters, ub, _stream(dev), entry="sig_expand_sharded",
+        cubes=h3 is None, pend_at=pend_at,
+        sharded=(None if h3 is None else h3.data_ptr(), cand.data_ptr(), *hash_params, ndev,
+                 me)))
+
+
+def probe_pending_cuda(st: _Static, tab: SigTable, bufs: StepBuffers, counters, fill: int,
+                       pend_at: int, blocks: int = 0, cap: int = K5_CAP) -> None:
+    """K5 (``sig_probe``) over the pending lanes from row ``pend_at`` of
+    ``bufs.pend``, ``state[STATE_NPEND]`` of them: in the sharded step the
+    received rows followed by K4's self-owned unmatched lanes."""
+    dev = _check_step(st, tab, counters, cubes=False)
+    n_rows = bufs.pend.shape[0]
+    if not 0 <= pend_at <= n_rows or bufs.lane_cur.numel() < n_rows - pend_at:
+        raise ValueError(f"K5: pending rows from {pend_at} of {n_rows}")
+    args = list(_probe_args(st, tab, bufs, counters, fill, blocks, cap, _stream(dev)))
+    args[3] = bufs.pend.data_ptr() + 4 * 3 * pend_at
+    _kernels.launch(*args)
+
+
+def walk_hops_cuda(st: _Static, tab: SigTable, coord, hops: int) -> torch.Tensor:
+    """K7's hop-limited mode (``path_walk_hops``): at most ``hops`` steps
+    of the walk from ``coord`` on this shard's sig table, stopping at the
+    origin or at a node the table does not hold.  Returns the device
+    buffer (hops + N + 1,) int32: the run of masks (0 past its end), the
+    coordinate it stopped at, the run's length (no host read)."""
+    dev = _cuda_device(tab.t_sig, "t_sig")
+    _check(tab.t_sig, "t_sig", dev, torch.int32, st.C)
+    _check(tab.t_best, "t_best", dev, torch.int32, st.C)
+    if not st.sig_ok or st.n > K4_MAX_N:
+        raise ValueError(f"the sig walk needs a sig-eligible table of at most {K4_MAX_N} "
+                         "sequences")
+    params = torch.tensor([int(v) for v in coord] + list(st.bitw),
+                          dtype=torch.int32).to(dev)
+    out = torch.empty(hops + st.n + 1, dtype=torch.int32, device=dev)
+    _kernels.launch("path_walk_hops", tab.t_sig.data_ptr(), tab.t_best.data_ptr(), st.n, st.C,
+                    st.bbits, st.max_bprobes, params.data_ptr(), hops, out.data_ptr(),
+                    _stream(dev))
+    out._params = params  # kept alive until the launch has run
+    return out

@@ -133,6 +133,9 @@ def test_version(capsys):
 
 
 def test_frontier_refuses_threads(tmp_path, capsys):
+    # -t above 1 is the frontier engine's shard count (the sharded engine,
+    # tests/test_torch_cli_sharded.py), which keeps no checkpoint
     path = fasta(tmp_path, "PF08184.fasta")
-    assert tcli.run([path, "--device", "cpu", "--engine", "frontier", "-t", "2"]) == 2
-    assert "multi-device engine" in capsys.readouterr().err
+    assert tcli.run([path, "--device", "cpu", "--engine", "frontier", "-t", "2",
+                     "--checkpoint", str(tmp_path / "ckpt.npz")]) == 2
+    assert "keeps no checkpoint" in capsys.readouterr().err

@@ -1,9 +1,10 @@
 """Tests that need the card (marker ``cuda``): the hand-written CUDA kernels
 (K1 pair wavefront, K8 Gotoh fill, K2 triple cubes, the sig step kernels K3-K5, the
 packed and unpacked step kernels K3, K9 and K10 on both of K10's paths,
-the path walk K7) against their plain PyTorch versions, the chunk graph
-(K6) against the eager chunk, and the port's main path and its table
-layouts on the GPU.
+the path walk K7, and the sharded step's K4 sharded, K11, K12 and K7's hop
+mode) against their plain PyTorch versions, the chunk graph (K6) against
+the eager chunk, and the port's main path, its table layouts and the
+sharded engine on four shards of one card on the GPU.
 They skip on a host without a CUDA device.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1096,3 +1097,161 @@ def test_host_driver_and_checkpoint_on_card(cuda, tmp_path, layout):
     assert (res.g, res.steps, res.nodes_expanded, res.closed) == (
         whole.g, whole.steps, whole.nodes_expanded, whole.closed)
     assert build_alignment(p, res.closed) == gold["alignment"]
+
+
+# --- the sharded engine (parallel/sharded.py) on one card: a LocalMesh of
+# [cuda:0] * 4, its kernels against their plain versions
+
+
+def _sharded_capture(cuda, name="kinase.fasta", at=60, **kw):
+    """A sharded search on [cuda] * 4 through ShardedFrontierSearch.run,
+    with shard 1's inputs and outputs of each kernel at step ``at``."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    gold = json.load(open(os.path.join(HERE, "goldens.json")))[name]
+    problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+    cap, shards = {}, []
+    methods = {m: getattr(SH._Shard, m) for m in ("select", "expand", "count", "pack")}
+    step = [0]
+
+    def select(sh):
+        step[0] += sh.me == 0
+        if sh not in shards:
+            shards.append(sh)
+        return methods["select"](sh)
+
+    def expand(sh, eng, h3):
+        on = step[0] == at and sh.me == 1
+        if on:
+            cap.update(sh=sh, eng=eng, h3=None if h3 is None else h3.clone(),
+                       t_sig=sh.tab.t_sig.clone(), t_best0=sh.tab.t_best.clone(),
+                       sel=sh.bufs.sel.clone(), state0=sh.bufs.state.clone(),
+                       ctr0=sh.ctr.clone())
+        methods["expand"](sh, eng, h3)
+        if on:
+            n_pend = int(sh.bufs.state[6])
+            cap.update(cand=sh.cand.clone(), t_best1=sh.tab.t_best.clone(),
+                       pend=sh.bufs.pend[sh.R:sh.R + n_pend].clone(),
+                       state1=sh.bufs.state.clone(), ctr1=sh.ctr.clone())
+
+    def count(sh, eng):
+        if step[0] == at and sh.me == 1:
+            cap.update(ring=sh.ring.clone(), cand_route=sh.cand.clone(),
+                       nsel=int(sh.bufs.state[2]))
+        return methods["count"](sh, eng)
+
+    def pack(sh, eng, S_all):
+        methods["pack"](sh, eng, S_all)
+        if step[0] == at and sh.me == 1:
+            cap.update(S=None if S_all is None else S_all.clone(), wire=sh.wire.clone(),
+                       ring1=sh.ring.clone(), route_out=sh.route_out.clone())
+
+    try:
+        for m, fn in (("select", select), ("expand", expand), ("count", count), ("pack", pack)):
+            setattr(SH._Shard, m, fn)
+        _kernels.reset_counts()
+        eng = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, **kw)
+        res = eng.run()
+    finally:
+        for m, fn in methods.items():
+            setattr(SH._Shard, m, fn)
+    return gold, problem, eng, res, cap, shards
+
+
+def test_sharded_kinase_on_one_card(cuda):
+    from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+
+    gold, problem, eng, res, cap, shards = _sharded_capture(cuda)
+    assert res.g == gold["optimal_g"]
+    assert build_alignment(problem, res.closed) == gold["alignment"]
+    assert eng.layout == "sig" and eng.exchange == "ragged" and eng.shard_cubes
+    assert res.nodes_migrated > 0
+    for k in ("select_best", "sig_coords", "tri_partial", "sig_expand_sharded", "route_count",
+              "route_pack", "sig_probe", "path_walk_hops"):
+        assert _kernels.launches[k] > 0, k
+
+
+def test_k4_sharded_and_k11_equal_plain(cuda):
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search.engine import SigTable
+
+    _, _, eng, _, cap, _ = _sharded_capture(cuda)
+    sh, st, me, M = cap["sh"], cap["sh"].st, 1, cap["sh"].st.M
+    n_sel = int(cap["state0"][2])
+    assert n_sel > 0
+    tab = SigTable(cap["t_sig"].clone(), cap["t_best0"].clone(), cap["t_sig"].clone())
+    goal, cand, pending, n_valid = SH.expand_sharded_plain(st, tab, cap["sel"], n_sel, eng.ub,
+                                                           cap["h3"], eng.own, 4, me)
+    assert torch.equal(cand[:n_sel * M], cap["cand"][:n_sel * M])
+    assert torch.equal(tab.t_best[:st.C], cap["t_best1"][:st.C])
+    assert sorted(map(tuple, pending.tolist())) == sorted(map(tuple, cap["pend"].tolist()))
+    assert n_valid == int(cap["state1"][5])
+    assert min(goal, int(cap["ctr0"][0])) == int(cap["ctr1"][0])
+    # K11 as the run launched it (ragged), then dense, on the same inputs
+    w, r, o = SH.route_plain(cap["cand_route"], cap["nsel"] * M, cap["ring"], 4, me,
+                             eng.exchange_cap, cap["S"])
+    assert torch.equal(cap["route_out"], o) and torch.equal(cap["ring1"], r)
+    A = SH.route_sizes(cap["S"].cpu().numpy(), 4, eng.exchange_cap, True)[me]
+    sent = int(A.sum())
+    assert torch.equal(cap["wire"][:sent], w[:sent])
+    nsel = torch.tensor(cap["nsel"], dtype=torch.int64, device=cuda)
+    ring, wire, out = (torch.empty_like(sh.rings[0]), torch.zeros_like(sh.wire),
+                       torch.empty_like(sh.route_out))
+    keys = torch.empty_like(sh.keys)
+    stream = torch.cuda.current_stream().cuda_stream
+    _kernels.launch("route_count", cap["cand_route"].data_ptr(), cap["ring"].data_ptr(),
+                    nsel.data_ptr(), M, cap["cand_route"].shape[0], sh.ccar, 4, sh.seg,
+                    out.data_ptr(), keys.data_ptr(), stream)
+    _kernels.launch("route_pack", cap["cand_route"].data_ptr(), cap["ring"].data_ptr(),
+                    nsel.data_ptr(), M, sh.ccar, 4, me, eng.exchange_cap, None, sh.seg,
+                    out.data_ptr(), keys.data_ptr(), wire.data_ptr(), ring.data_ptr(), stream)
+    w, r, o = SH.route_plain(cap["cand_route"], cap["nsel"] * M, cap["ring"], 4, me,
+                             eng.exchange_cap)
+    assert torch.equal(out, o) and torch.equal(ring, r)
+    for d in range(4):
+        n = min(int(o[d]), eng.exchange_cap)
+        lo = d * eng.exchange_cap
+        assert torch.equal(wire[lo:lo + n], w[lo:lo + n])
+
+
+def test_k12_and_coords_equal_plain(cuda):
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    rng = np.random.default_rng(5)
+    S, n, T = 30, 5, 3
+    cubes = torch.from_numpy(rng.integers(0, 1000, (T, S, S, S)).astype(np.int32)).to(cuda)
+    tri = torch.tensor([[0, 1, 2], [1, 3, 4], [0, 2, 4]], dtype=torch.int32, device=cuda)
+    coords = torch.from_numpy(rng.integers(-2, S + 3, (777, n)).astype(np.int32)).to(cuda)
+    for Tl in (0, 1, 3):
+        got = SH._tri_partial_cuda(coords, cubes[:Tl], tri[:Tl] if Tl else None, n, S)
+        want = SH.tri_partial_plain(coords, cubes[:Tl], tri[:Tl], 31, S)
+        assert torch.equal(got, want)
+    _, _, eng, _, _, shards = _sharded_capture(cuda, "test2.fasta", at=5)
+    for sh in shards:  # the finished tables: decode a list of open slots
+        st = sh.st
+        slots = torch.nonzero(sh.tab.t_sig[:st.C] != -1)[:, 0][:st.B].to(torch.int32)
+        sel = torch.zeros((st.B, 2), dtype=torch.int32, device=cuda)
+        sel[:slots.numel(), 0] = slots
+        state = torch.zeros(16, dtype=torch.int64, device=cuda)
+        state[2] = slots.numel()
+        out = torch.empty((st.B, st.n), dtype=torch.int32, device=cuda)
+        bitw = torch.tensor(st.bitw, dtype=torch.int32, device=cuda)
+        _kernels.launch("sig_coords", sh.tab.t_sig.data_ptr(), sel.data_ptr(),
+                        state[2:3].data_ptr(), bitw.data_ptr(), st.n, st.bbits, st.B,
+                        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        assert torch.equal(out, SH.sig_coords_plain(st, sh.tab.t_sig, sel, slots.numel(), st.B))
+
+
+def test_k7_hop_mode_equals_plain(cuda):
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    _, problem, eng, res, _, shards = _sharded_capture(cuda, "PF08184.fasta", at=5)
+    path = list(res.closed) + [(0, 0, 0), (1, 1, 0)]
+    before = _kernels.launches["path_walk_hops"]
+    for sh in shards:
+        for coord in path:
+            for hops in (1, 8):
+                got = S.walk_hops_cuda(sh.st, sh.tab, coord, hops).cpu()
+                assert torch.equal(got, SH.walk_hops_plain(sh.st, sh.tab, coord, hops))
+    assert _kernels.launches["path_walk_hops"] == before + 2 * len(path) * len(shards)

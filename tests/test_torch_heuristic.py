@@ -85,7 +85,11 @@ def test_port_imports_no_jax():
         "        'mpi_pastar_msa_tpu_torch.heuristic.gotoh_wavefront',\n"
         "        'mpi_pastar_msa_tpu_torch.search.serial',\n"
         "        'mpi_pastar_msa_tpu_torch.search.native',\n"
-        "        'mpi_pastar_msa_tpu_torch.search.bruteforce']\n"
+        "        'mpi_pastar_msa_tpu_torch.search.bruteforce',\n"
+        "        'mpi_pastar_msa_tpu_torch.parallel.partition',\n"
+        "        'mpi_pastar_msa_tpu_torch.parallel.mesh',\n"
+        "        'mpi_pastar_msa_tpu_torch.parallel.multihost',\n"
+        "        'mpi_pastar_msa_tpu_torch.parallel.sharded']\n"
         "print(n, bad, [k for k in need if k not in sys.modules])\n"
         "sys.exit(1 if bad or n < 20 or not all(k in sys.modules for k in need) else 0)\n"
     )

@@ -1,0 +1,497 @@
+"""The port's sharded engine (mpi_pastar_msa_tpu_torch/parallel/sharded.py)
+on the CPU: the plain route (K11's plain version) against JAX's
+``_route_cap`` under ``jax.shard_map`` on 4 of conftest's 8 CPU devices and
+its ragged allowance against a NumPy transcription of ``_route_ragged``
+(XLA:CPU has no ragged all-to-all); the plain tri-partial (K12's) against
+JAX's ``_make_tri_partial`` on the same cubes; NumPy emulations of K11's
+two passes and of K7's hop-limited mode against their plain versions; the
+engine on 2 and 4 CPU shards (golden g and alignment on PF08184 and test2,
+the brute-force optimum on random inputs, the four owner hashes, a one-row
+wire, sharded cubes on and off, one shard against FrontierSearch, the
+fractional cover) and its refusals."""
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh, PartitionSpec as P
+
+from mpi_pastar_msa_tpu.core.problem import Problem as JProblem
+from mpi_pastar_msa_tpu.heuristic.hpair import HPairHeuristic as JHPair
+from mpi_pastar_msa_tpu.heuristic.triples import HTriples as JTriples
+from mpi_pastar_msa_tpu.parallel import sharded as JS
+from mpi_pastar_msa_tpu.search.engine import _Static as JStatic
+from mpi_pastar_msa_tpu_torch.core.problem import Problem
+from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+from mpi_pastar_msa_tpu_torch.heuristic.triples import HTriples
+from mpi_pastar_msa_tpu_torch.parallel import sharded as S
+from mpi_pastar_msa_tpu_torch.parallel.mesh import LocalMesh
+from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+from mpi_pastar_msa_tpu_torch.search.bruteforce import optimal_cost
+from mpi_pastar_msa_tpu_torch.search.engine import INFP, FrontierSearch, _sig_encode
+
+# one intra-op thread: the test lane runs several workers on a few cores
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLD = json.load(open(os.path.join(HERE, "goldens.json")))
+AMINO = "ACDEFGHIKLMNPQRSTVWY"
+
+
+def golden(name):
+    return Problem(tuple(r.replace("-", "") for r in GOLD[name]["alignment"]))
+
+
+# --- K11: the plain route against JAX's
+
+
+def route_inputs(seed, ndev, L, ccar, f_range, remote_p=0.7):
+    """Per shard: candidate rows (dest, fsort, home, sig) with dest = ndev
+    for a lane that stays, and a carry ring whose first rows are live."""
+    rng = np.random.default_rng(seed)
+    cand = np.zeros((ndev, L, 4), np.int32)
+    carry = np.zeros((ndev, ccar, 4), np.int32)
+    for me in range(ndev):
+        dest = rng.integers(0, ndev, L)
+        dest[(dest == me) | (rng.random(L) > remote_p)] = ndev
+        cand[me, :, 0] = dest
+        cand[me, :, 1] = rng.integers(0, f_range, L)
+        cand[me, :, 2] = rng.integers(0, 1 << 20, L)
+        cand[me, :, 3] = rng.integers(0, 1 << 30, L)
+        live = rng.integers(0, ccar // 2)
+        carry[me] = [ndev, INFP, 0, -1]
+        carry[me, :live, 0] = rng.integers(0, ndev, live)
+        carry[me, :live, 1] = rng.integers(0, f_range, live)
+        carry[me, :live, 2] = rng.integers(0, 1 << 20, live)
+        carry[me, :live, 3] = rng.integers(0, 1 << 30, live)
+    return cand, carry
+
+
+def jax_route(ndev, cap, cand, carry):
+    """JAX _route_cap under shard_map over ndev CPU devices: per shard
+    (received (ndev cap, 3) [fsort, home, sig], new carry, overflow, carried
+    min)."""
+    mesh = Mesh(np.array(jax.devices("cpu")[:ndev]), (JS.AXIS,))
+
+    def body(c, car):
+        c, car = c[0], car[0]
+        recv, nc, covf, cfm = JS._route_cap(ndev, cap, c[:, 0], c[:, 1], (c[:, 2], c[:, 3]),
+                                            car, fills=(INFP, 0, -1))
+        return jnp.stack(recv, 1)[None], nc[None], covf[None], cfm[None]
+
+    fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(P(JS.AXIS), P(JS.AXIS)),
+                               out_specs=(P(JS.AXIS),) * 4, check_vma=False))
+    return [np.asarray(x) for x in fn(jnp.asarray(cand), jnp.asarray(carry))]
+
+
+def port_route(ndev, cap, cand, carry, ragged=False):
+    """route_plain on every shard, then the dense exchange as the engine
+    runs it: shard j's rows from shard i are i's wire rows j cap ..
+    j cap + A[i][j] (ragged: the A[i][j] rows at i's offset for j)."""
+    outs = [S.route_plain(torch.from_numpy(cand[i]), cand.shape[1],
+                          torch.from_numpy(carry[i]), ndev, i, cap) for i in range(ndev)]
+    counts = np.stack([o[2][:ndev].numpy() for o in outs])
+    if ragged:
+        Sm = torch.from_numpy(counts.astype(np.int32))
+        outs = [S.route_plain(torch.from_numpy(cand[i]), cand.shape[1],
+                              torch.from_numpy(carry[i]), ndev, i, cap, Sm)
+                for i in range(ndev)]
+    A = S.route_sizes(counts, ndev, cap, ragged)
+    off = np.cumsum(A, axis=1) - A if ragged else np.tile(np.arange(ndev) * cap, (ndev, 1))
+    recv = [[outs[i][0][off[i][j]:off[i][j] + A[i][j]].numpy() for i in range(ndev)]
+            for j in range(ndev)]
+    return outs, A, recv
+
+
+@pytest.mark.parametrize("seed,cap", [(1, 3), (2, 40), (3, 1000)])
+def test_route_equals_jax_route_cap(seed, cap):
+    ndev, L, ccar = 4, 160, 160
+    # distinct f values: no tie anywhere, so the order is JAX's exactly
+    cand, carry = route_inputs(seed, ndev, L, ccar, 1 << 20)
+    rng = np.random.default_rng(seed + 50)
+    f = rng.permutation(1 << 20)[: ndev * (L + ccar)].reshape(ndev, L + ccar)
+    cand[:, :, 1] = f[:, :L]
+    live = carry[:, :, 0] < ndev
+    carry[:, :, 1] = np.where(live, f[:, L:], INFP)
+    j_recv, j_carry, j_ovf, j_min = jax_route(ndev, cap, cand, carry)
+    outs, A, recv = port_route(ndev, cap, cand, carry)
+    for j in range(ndev):
+        for i in range(ndev):
+            blk = j_recv[j][i * cap:(i + 1) * cap]
+            n = int((blk[:, 2] != -1).sum())
+            assert n == A[i][j]
+            assert np.array_equal(blk[:n], recv[j][i][:, [2, 0, 1]])  # port rows: home, sig, f
+        wire, ring, out = outs[j]
+        assert np.array_equal(ring.numpy(), j_carry[j])
+        assert int(out[ndev + 1]) == int(j_ovf[j])
+        assert int(out[ndev + 2]) == int(j_min[j])
+        assert int(out[ndev]) == int((cand[j, :, 0] < ndev).sum())
+
+
+def test_route_ties_equal_jax_as_multisets():
+    ndev, L, ccar, cap = 4, 200, 200, 6
+    cand, carry = route_inputs(7, ndev, L, ccar, 5)  # f in 0..4: ties at every cap
+    j_recv, j_carry, j_ovf, j_min = jax_route(ndev, cap, cand, carry)
+    outs, A, recv = port_route(ndev, cap, cand, carry)
+    for j in range(ndev):
+        for i in range(ndev):
+            blk = j_recv[j][i * cap:(i + 1) * cap]
+            n = int((blk[:, 2] != -1).sum())
+            assert n == A[i][j]
+            # equal f: which rows ride is unspecified in JAX, their f is not
+            assert sorted(blk[:n, 0]) == sorted(recv[j][i][:, 2])
+        ring = outs[j][1].numpy()
+        for d in range(ndev + 1):
+            assert sorted(ring[ring[:, 0] == d, 1]) == sorted(j_carry[j][j_carry[j][:, 0] == d, 1])
+        assert int(outs[j][2][ndev + 1]) == int(j_ovf[j])
+        assert int(outs[j][2][ndev + 2]) == int(j_min[j])
+
+
+def test_route_carry_overflow_and_empty():
+    ndev, L, ccar, cap = 2, 64, 8, 1
+    cand, carry = route_inputs(9, ndev, L, ccar, 1 << 10, remote_p=1.0)
+    j_recv, j_carry, j_ovf, j_min = jax_route(ndev, cap, cand, carry)
+    outs, _, _ = port_route(ndev, cap, cand, carry)
+    for j in range(ndev):
+        assert int(outs[j][2][ndev + 1]) == int(j_ovf[j]) > 0
+    empty = np.zeros((1, 16, 4), np.int32)
+    empty[0, :, 0] = 1
+    ring = np.tile(np.array([1, INFP, 0, -1], np.int32), (1, 4, 1))
+    wire, new, out = S.route_plain(torch.from_numpy(empty[0]), 16, torch.from_numpy(ring[0]),
+                                   1, 0, 8)
+    assert out.tolist() == [0, 0, 0, INFP] and torch.equal(new, torch.from_numpy(ring[0]))
+
+
+@pytest.mark.parametrize("seed,cap", [(11, 2), (12, 30), (13, 500)])
+def test_route_ragged_allowance_equals_numpy(seed, cap):
+    """_route_ragged :213-224 in NumPy: S[i, j] rows i -> j, before =
+    exclusive prefix over senders, A = clip(ndev cap - before, 0, S); a
+    sender's segment for j starts at the exclusive prefix of its row of A,
+    a receiver's rows from i at the exclusive prefix of its column."""
+    ndev, L, ccar = 4, 300, 100
+    cand, carry = route_inputs(seed, ndev, L, ccar, 1 << 20)
+    outs, A, recv = port_route(ndev, cap, cand, carry, ragged=True)
+    Sm = np.stack([o[2][:ndev].numpy() for o in outs]).astype(np.int64)
+    before = np.cumsum(Sm, axis=0) - Sm
+    want = np.clip(ndev * cap - before, 0, Sm)
+    assert np.array_equal(A, want)
+    for me in range(ndev):
+        send_t = want[me]
+        recv_sizes = want[:, me]
+        assert sum(len(r) for r in recv[me]) == recv_sizes.sum() <= ndev * cap
+        # the rows sent to each j are the best send_t[j] of me's remote rows to j
+        rows = np.concatenate([cand[me], carry[me]])
+        for j in range(ndev):
+            mine = rows[rows[:, 0] == j]
+            best = sorted(mine[:, 1])[: send_t[j]]
+            assert sorted(recv[j][me][:, 2]) == best
+        wire, ring, out = outs[me]
+        spilled = (Sm[me] - send_t).sum()
+        assert int(out[ndev + 1]) == max(spilled - ccar, 0)
+        assert int((ring[:, 0] < ndev).sum()) == min(spilled, ccar)
+
+
+def emulate_route(cand, n_lanes, carry, ndev, me, cap, Sm, seed):
+    """csrc/route_pack.cu's two passes in NumPy: pass 1 appends each remote
+    row's key (fsort << 32 | position) to its destination's segment in a
+    shuffled order (the kernel's atomics), pass 2's block d computes every
+    destination's allowance and spill offset, sorts its segment, and
+    writes its wire and ring rows; every block fills the ring's tail."""
+    rows = np.concatenate([cand[:n_lanes], carry]).astype(np.int64)
+    ccar = carry.shape[0]
+    order = np.random.default_rng(seed).permutation(len(rows))
+    out = np.zeros(ndev + 3, np.int64)
+    out[ndev + 2] = INFP
+    seg = [[] for _ in range(ndev)]
+    for r in order:
+        d = rows[r, 0]
+        if 0 <= d < ndev:
+            seg[d].append((int(rows[r, 1]) << 32) | int(r))
+            out[d] += 1
+            out[ndev] += r < n_lanes
+    wire = np.zeros((max(ndev * cap, len(cand) + ccar), 3), np.int64)
+    ring = np.zeros((ccar, 4), np.int64)
+    spilled_all = 0
+    for d in range(ndev + 1):  # block d (one more block: the tail only)
+        spilled = spill_before = base = base_d = allow_d = 0
+        for q in range(ndev):
+            allow = cap
+            if Sm is not None:
+                a = ndev * cap - int(Sm[:me, q].sum())
+                allow = min(max(a, 0), int(out[q]))
+            if q == d:
+                spill_before, allow_d = spilled, allow
+                base_d = base if Sm is not None else q * cap
+            spilled += max(int(out[q]) - allow, 0)
+            base += allow
+        spilled_all = spilled
+        ring[spilled:] = [ndev, INFP, 0, -1]
+        if d == ndev:
+            continue
+        for i, key in enumerate(sorted(seg[d])):
+            v = rows[key & 0xFFFFFFFF]
+            if i < allow_d:
+                wire[base_d + i] = v[[2, 3, 1]]
+            elif spill_before + i - allow_d < ccar:
+                ring[spill_before + i - allow_d] = [d, v[1], v[2], v[3]]
+                out[ndev + 2] = min(out[ndev + 2], v[1])
+    out[ndev + 1] = max(spilled_all - ccar, 0)
+    return wire, ring, out
+
+
+@pytest.mark.parametrize("seed,cap,ragged,f_range", [
+    (21, 3, False, 1 << 20), (22, 50, False, 8), (23, 3, True, 1 << 20),
+    (24, 20, True, 4), (25, 1, False, 2)])
+def test_k11_emulation_equals_plain(seed, cap, ragged, f_range):
+    ndev, L, ccar = 3, 240, 120
+    cand, carry = route_inputs(seed, ndev, L, ccar, f_range)
+    n_lanes = L - 17  # the lanes of the listed rows only
+    Sm = None
+    if ragged:
+        Sm = np.stack([S.route_plain(torch.from_numpy(cand[i]), n_lanes,
+                                     torch.from_numpy(carry[i]), ndev, i, cap)[2][:ndev].numpy()
+                       for i in range(ndev)])
+    for me in range(ndev):
+        w, r, o = S.route_plain(torch.from_numpy(cand[me]), n_lanes, torch.from_numpy(carry[me]),
+                                ndev, me, cap, None if Sm is None else torch.from_numpy(Sm))
+        ew, er, eo = emulate_route(cand[me], n_lanes, carry[me], ndev, me, cap, Sm, seed + me)
+        A = S.route_sizes(Sm if ragged else np.tile(o[:ndev].numpy(), (ndev, 1)), ndev, cap,
+                          ragged)[me]
+        base = np.cumsum(A) - A if ragged else np.arange(ndev) * cap
+        sent = np.concatenate([np.arange(b, b + a) for a, b in zip(A, base)]).astype(int)
+        assert np.array_equal(o.numpy(), eo)
+        assert np.array_equal(r.numpy(), er)
+        assert np.array_equal(w.numpy()[sent], ew[sent])
+
+
+# --- K12: the plain tri-partial against JAX's
+
+
+@pytest.mark.parametrize("ndev", [2, 4])
+def test_tri_partial_equals_jax(ndev):
+    seqs = ("ACDEFGHIKLMW", "ACDFGHKLMW", "ACEFGIKLW", "ADEFGHIKMW")
+    jh = JTriples.build(JHPair.build(JProblem(seqs), backend="host"), fractional=True)
+    st_j = JStatic(JProblem(seqs), jh, 16, 1 << 10)
+    th = HTriples.build(HPairHeuristic.build(Problem(seqs), "cpu"), fractional=True,
+                        device="cpu")
+    assert list(th.triangles) == [tuple(t) for t in jh.triangles]
+    T, Sz, M, n = st_j.T3, st_j.S, st_j.M, len(seqs)
+    cubes = torch.where(th.tri_tabs >= 2**29, 0, th.tri_tabs)
+    assert tuple(cubes.shape) == (T, Sz, Sz, Sz)
+    tri = torch.tensor(th.triangles, dtype=torch.int32)
+    fn, T_loc, T_pad = JS._make_tri_partial(st_j, ndev)
+    tri8 = np.zeros((T_pad * Sz ** 3, 8), np.int32)
+    tri8[: T * Sz ** 3] = np.asarray(st_j.d_tri8)
+    rng = np.random.default_rng(ndev)
+    coords = rng.integers(0, 14, size=(ndev * 16, n)).astype(np.int32)
+    coords[0] = 0
+    coords[1] = [len(s) for s in seqs]
+    for me in range(ndev):
+        want = np.asarray(fn(jnp.asarray(coords),
+                             jnp.asarray(tri8[me * T_loc * Sz ** 3:(me + 1) * T_loc * Sz ** 3]),
+                             me))
+        lo, hi = min(me * T_loc, T), min((me + 1) * T_loc, T)
+        got = S.tri_partial_plain(torch.from_numpy(coords), cubes[lo:hi], tri[lo:hi], M, Sz)
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+
+
+# --- K7's hop mode: a NumPy emulation of path_walk.cu against the plain one
+
+
+def emulate_hops(st, tab, coord, hops):
+    """path_walk_kernel with tmax = hops from ``coord``: each iteration
+    stops at the origin, else looks the node up (the first hit in (bucket
+    probe r, way) order of the 64 rows from its home bucket) and emits its
+    parent mask, or stops when no row holds it."""
+    t_sig, t_best = tab.t_sig.numpy(), tab.t_best.numpy()
+    c = np.array(coord, np.int64)
+    out, it = [0] * hops, 0
+    while it < hops and c.any():
+        home, sigb = (int(v[0]) for v in _sig_encode(st, torch.from_numpy(c[None])))
+        par = None
+        for r in range(st.max_bprobes):
+            b = (home + r) & (st.nbuck - 1)
+            for w in range(st.ways):
+                if t_sig[b * st.ways + w] == (sigb | r):
+                    par = int(t_best[b * st.ways + w]) & ((1 << st.n) - 1)
+                    break
+            if par is not None:
+                break
+        if par is None:
+            break
+        out[it] = par
+        c = c - [(par >> i) & 1 for i in range(st.n)]
+        it += 1
+    return out + c.tolist() + [it]
+
+
+def test_k7_hop_emulation_equals_plain(monkeypatch):
+    tables = []
+    shards = S.ShardedFrontierSearch._shards
+
+    def keep(self):
+        tables[:] = shards(self)
+        return tables
+
+    monkeypatch.setattr(S.ShardedFrontierSearch, "_shards", keep)
+    eng = S.ShardedFrontierSearch(golden("test2.fasta"), devices=["cpu"] * 2)
+    res = eng.run()
+    path = list(res.closed) + [(0,) * 5, (1, 0, 0, 0, 0)]
+    st, hits = eng.st, 0
+    for sh in tables:
+        for coord in path:
+            for hops in (1, 3, 8):
+                got = S.walk_hops_plain(st, sh.tab, coord, hops).tolist()
+                assert got == emulate_hops(st, sh.tab, coord, hops)
+                hits += got[-1] > 0
+    assert hits > 0
+
+
+def test_k4_launch_arguments_match_both_signatures():
+    """K4's two instantiations share ``_expand_args``: each launch has its
+    entry's arity, and the sharded one differs from the unsharded only in
+    the entry, the cubes (none where h3 stands in), the pending rows'
+    offset and its own arguments before the stream."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.search import step
+
+    eng = S.ShardedFrontierSearch(golden("test2.fasta"), devices=["cpu"] * 2)
+    st = eng.st
+    assert st.T3 > 0
+    tab = S._sig_table(st, eng.h_root, True)
+    bufs = step.StepBuffers.for_step(st, torch.device("cpu"))
+    base = step._expand_args(st, tab, bufs, bufs.counters, eng.ub, "stream")
+    extra = (11, 12, *eng.hash_params, eng.ndev, 1)
+    shd = step._expand_args(st, tab, bufs, bufs.counters, eng.ub, "stream",
+                            entry="sig_expand_sharded", cubes=False, pend_at=5, sharded=extra)
+    assert len(base) - 1 == len(_kernels.SIGNATURES["sig_expand"])
+    assert len(shd) - 1 == len(_kernels.SIGNATURES["sig_expand_sharded"])
+    assert base[0] == "sig_expand" and shd[0] == "sig_expand_sharded"
+    assert base[5] == st.d_cubes.data_ptr() and shd[5] is None
+    assert shd[22] == bufs.pend.data_ptr() + 4 * 3 * 5 == base[22] + 60
+    assert shd[-1] == base[-1] == "stream" and shd[23:-1] == extra
+    assert shd[1:5] == base[1:5] and shd[6:22] == base[6:22]
+
+
+# --- the engine on CPU shards
+
+
+def run_sharded(problem, ndev, **kw):
+    eng = S.ShardedFrontierSearch(problem, devices=["cpu"] * ndev, **kw)
+    res = eng.run()
+    return eng, res, build_alignment(problem, res.closed)
+
+
+@pytest.mark.parametrize("hash_type,cap", [("FZORDER", None), ("PZORDER", None),
+                                           ("FSUM", None), ("PSUM", None), ("FSUM", 1)])
+@pytest.mark.parametrize("ndev", [2, 4])
+@pytest.mark.parametrize("name", ["PF08184.fasta", "test2.fasta"])
+def test_engine_reaches_golden(name, ndev, hash_type, cap):
+    p = golden(name)
+    # a small table keeps the plain select's scan short (the default
+    # capacity runs in the tests below)
+    eng, res, al = run_sharded(p, ndev, hash_type=hash_type, exchange_cap=cap,
+                               capacity=1 << 16)
+    assert eng.layout == "sig" and eng.exchange == "dense" and eng.shard_cubes
+    assert res.g == GOLD[name]["optimal_g"]
+    assert al == GOLD[name]["alignment"]
+    assert len(res.shard_stats) == ndev and all(len(r) == 5 for r in res.shard_stats)
+    assert res.nodes_migrated == sum(r[4] for r in res.shard_stats) > 0
+    assert eng.last_stats["host_reads"] == res.steps
+
+
+def test_engine_test_fasta_on_four_shards():
+    eng, res, al = run_sharded(golden("test.fasta"), 4)
+    assert res.g == GOLD["test.fasta"]["optimal_g"] and al == GOLD["test.fasta"]["alignment"]
+
+
+def random_problem(seed, n, lo, hi):
+    rs = np.random.RandomState(seed)
+    return Problem(tuple("".join(rs.choice(list(AMINO), size=rs.randint(lo, hi + 1)))
+                         for _ in range(n)))
+
+
+@pytest.mark.parametrize("seed,n,ndev,kw", [
+    (1, 3, 2, {}), (2, 4, 4, {}), (3, 4, 2, {"exchange": "ragged"}),
+    (4, 3, 4, {"hash_type": "PZORDER", "hash_shift": 0}),
+    (5, 4, 3, {"exchange_cap": 1, "hash_shift": 0}),
+    (6, 4, 4, {"exchange_cap": 2, "exchange": "ragged", "hash_shift": 0})])
+def test_engine_random_equals_bruteforce(seed, n, ndev, kw):
+    p = random_problem(seed, n, 5, 9)
+    eng, res, al = run_sharded(p, ndev, **kw)
+    assert res.g == optimal_cost(p, HPairHeuristic.build(p, "cpu"))
+    assert [r.replace("-", "") for r in al] == list(p.seqs)
+
+
+def test_exchange_cap_one_spills_and_stays_optimal():
+    # a one-row wire on a random input whose frontier is wide: migrants
+    # wait in the carry ring, whose min f stays in the bound, and the
+    # optimum holds
+    p = random_problem(31, 4, 12, 16)
+    want = optimal_cost(p, HPairHeuristic.build(p, "cpu"))
+    eng, res, al = run_sharded(p, 4, exchange_cap=1, hash_type="FZORDER", hash_shift=0,
+                               batch=16)
+    assert eng.last_stats["peak_carry"] > 0
+    assert res.g == want
+
+
+def test_shard_cubes_on_equals_off():
+    p = golden("test2.fasta")
+    on = run_sharded(p, 4, shard_cubes=True)
+    off = run_sharded(p, 4, shard_cubes=False)
+    assert on[0].shard_cubes and not off[0].shard_cubes
+    assert on[1].g == off[1].g and on[2] == off[2]
+    assert (on[1].steps, on[1].nodes_expanded) == (off[1].steps, off[1].nodes_expanded)
+
+
+@pytest.mark.parametrize("exchange", ["dense", "ragged"])
+def test_one_shard_equals_frontier_search(exchange):
+    p = golden("PF08184.fasta")
+    eng, res, al = run_sharded(p, 1, exchange=exchange)
+    ref = FrontierSearch(p, device="cpu").run()
+    assert res.g == ref.g == GOLD["PF08184.fasta"]["optimal_g"]
+    assert al == build_alignment(p, ref.closed) == GOLD["PF08184.fasta"]["alignment"]
+    assert res.nodes_migrated == 0
+    assert eng.last_stats["exchange"] == ("none" if exchange == "dense" else "ragged")
+
+
+def test_fractional_cover_descales():
+    p = golden("test2.fasta")
+    h = HTriples.build(HPairHeuristic.build(p, "cpu"), fractional=True, device="cpu")
+    assert h.cost_scale > 1
+    eng, res, al = run_sharded(p, 4, heuristic=h)
+    assert res.g == GOLD["test2.fasta"]["optimal_g"] and al == GOLD["test2.fasta"]["alignment"]
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_packed_and_unpacked_not_ported(layout):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        S.ShardedFrontierSearch(golden("PF08184.fasta"), devices=["cpu"] * 2, layout=layout)
+
+
+def test_degenerate_auto_layout_not_ported():
+    with pytest.raises(NotImplementedError, match="unpacked"):
+        S.ShardedFrontierSearch(Problem(("WYWY", "WYY", "YWW")), devices=["cpu"] * 2)
+
+
+def test_refusals_and_mesh():
+    p = golden("PF08184.fasta")
+    with pytest.raises(ValueError):
+        S.ShardedFrontierSearch(p, devices=["cpu"] * 2, exchange_cap=0)
+    with pytest.raises(ValueError):
+        S.ShardedFrontierSearch(p, devices=["cpu"] * 2, exchange="sparse")
+    mesh = LocalMesh(["cpu"] * 3)
+    xs = [torch.arange(12, dtype=torch.int32).view(3, 2, 2) + 100 * i for i in range(3)]
+    out = mesh.all_to_all(xs)
+    for i in range(3):
+        for j in range(3):
+            assert torch.equal(out[j][i], xs[i][j])
+    parts = [torch.full((6, 2), i + 1, dtype=torch.int32) for i in range(3)]
+    assert all(torch.equal(r, torch.full((2, 2), 6, dtype=torch.int32))
+               for r in mesh.reduce_scatter(parts))
+    g = mesh.all_gather([torch.tensor([i, 2 * i]) for i in range(3)])
+    assert torch.equal(g[2], torch.tensor([[0, 0], [1, 2], [2, 4]]))
+    assert mesh.all_sum([torch.tensor([1, 2])] * 3)[1].tolist() == [3, 6]
