@@ -123,11 +123,16 @@ Phases, each failing loudly (non-zero exit):
    exchange_cap=1; a random 4-sequence input whose one-row wire must spill
    into the carry ring (its brute-force optimum); test2 under FZORDER,
    PZORDER, FSUM and PSUM.  On kinase's step 200 each new kernel against
-   its plain version bit for bit (K11 under both allowances; K7's hop mode
-   on every shard's table from every path node), their wrapper, device and
-   plain times and byte bounds, and sharded_step_bounds at the run's B and
-   cap.  Several cards, when there are, run kinase across them; else it
-   says so (``--sharded-only`` runs this phase alone).
+   its plain version bit for bit (K11 under both allowances, with each
+   destination's sort barriers; K7's hop mode on every shard's table from
+   every path node), their wrapper, device and plain times and byte
+   bounds, and sharded_step_bounds at the run's B and cap
+   (``--k11-baseline SRC`` builds another tree's K11, checks it on the
+   same inputs and times the two in turns, each pass alone;
+   ``--k11-sweep`` checks and times K11 on synthetic kinase-shaped inputs
+   of 64 to 31,744 rows a destination).  Several cards, when there are,
+   run kinase across them; else it says so (``--sharded-only`` runs this
+   phase alone).
 8. the kernels JSON line, then the result line.
 
 Inputs are rebuilt from tests/goldens.json (the degapped golden rows) and
@@ -2443,16 +2448,260 @@ def sharded_walk_bytes(st, shards, final) -> dict:
     return dict(bytes=nbytes, lookups=lookups, rounds=rounds)
 
 
-def sharded_kernel_checks(cap: dict, shards) -> dict:
+def k11_bitonic_stages(n: int) -> int:
+    """The barrier stages of PR 15's block bitonic (route_pack.cu of
+    c408a21) for a segment of n keys: log2(np2)(log2(np2) + 1) / 2, np2
+    the power of two at or above n (besides a barrier after its load and
+    one before its reduction)."""
+    lg = max(n - 1, 0).bit_length()
+    return lg * (lg + 1) // 2
+
+
+class k11_runner:
+    """One build of K11 on fixed inputs (``inp``: cand, carry, n_lanes, M,
+    ndev, me, cap, S or None, seg), with outputs of its own: count() and
+    pack() each call one C entry, call() both.  ``fns`` is another tree's
+    C entries (load_k11_baseline); by default this tree's, through
+    _kernels.launch."""
+
+    def __init__(self, inp: dict, fns=None):
+        from mpi_pastar_msa_tpu_torch import _kernels
+
+        cand, carry, ndev, cap = inp["cand"], inp["carry"], inp["ndev"], inp["cap"]
+        dev = cand.device
+        lanes_cap, ccar, M = cand.shape[0], carry.shape[0], inp["M"]
+        self.nsel = torch.tensor(inp["n_lanes"] // M, dtype=torch.int64, device=dev)
+        self.out = torch.empty(ndev + 3, dtype=torch.int32, device=dev)
+        self.keys = torch.empty(ndev * inp["seg"], dtype=torch.int64, device=dev)
+        self.wire = torch.zeros((max(ndev * cap, lanes_cap + ccar), 3), dtype=torch.int32,
+                                device=dev)
+        self.ring = torch.empty_like(carry)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        S = inp["S"]
+        self.args = {
+            "route_count": (cand.data_ptr(), carry.data_ptr(), self.nsel.data_ptr(), M,
+                            lanes_cap, ccar, ndev, inp["seg"], self.out.data_ptr(),
+                            self.keys.data_ptr(), stream),
+            "route_pack": (cand.data_ptr(), carry.data_ptr(), self.nsel.data_ptr(), M, ccar,
+                           ndev, inp["me"], cap, None if S is None else S.data_ptr(),
+                           inp["seg"], self.out.data_ptr(), self.keys.data_ptr(),
+                           self.wire.data_ptr(), self.ring.data_ptr(), stream)}
+        self.fns = fns
+        self.launch = _kernels.launch
+
+    def _go(self, name):
+        if self.fns is None:
+            self.launch(name, *self.args[name])
+        elif self.fns[name](*self.args[name]):
+            fail(f"{name} of {self.fns['src']} failed to launch")
+
+    def count(self):
+        self._go("route_count")
+
+    def pack(self):
+        self._go("route_pack")
+
+    def call(self):
+        self.count()
+        self.pack()
+
+
+def k11_sent_sizes(inp: dict, p_out):
+    """The rows this shard sends each destination (route_sizes), from the
+    plain version's counts."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    ndev = inp["ndev"]
+    S = (inp["S"].cpu().numpy() if inp["S"] is not None
+         else p_out[:ndev].long().repeat(ndev, 1).cpu().numpy())
+    return SH.route_sizes(S, ndev, inp["cap"], inp["S"] is not None)[inp["me"]]
+
+
+def k11_check(label: str, inp: dict, run: "k11_runner"):
+    """One call of ``run`` against route_plain on the same inputs, bit for
+    bit: out (counts, migrants, carry overflow, ring min), the new ring and
+    the wire rows sent.  Returns the plain version's out."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    run.call()
+    torch.cuda.synchronize()
+    ndev = inp["ndev"]
+    p_wire, p_ring, p_out = SH.route_plain(inp["cand"], inp["n_lanes"], inp["carry"], ndev,
+                                           inp["me"], inp["cap"], inp["S"])
+    A = k11_sent_sizes(inp, p_out)
+    base = np.cumsum(A) - A if inp["S"] is not None else np.arange(ndev) * inp["cap"]
+    sent = torch.cat([torch.arange(int(b), int(b) + int(a)) for a, b in zip(A, base)]
+                     ).long().to(run.out.device)
+    bad = []
+    if not torch.equal(run.out, p_out):
+        bad.append(f"out {run.out.tolist()} vs {p_out.tolist()}")
+    if not torch.equal(run.ring, p_ring):
+        bad.append("new ring")
+    if not torch.equal(run.wire[sent], p_wire[sent]):
+        bad.append("wire rows")
+    if bad:
+        fail(f"{label} differs from its plain version: {bad}")
+    return p_out
+
+
+def k11_turns(inp: dict, baseline: dict, label: str, reps: int = 20) -> dict:
+    """Device ms (CUPTI) of each pass alone and of the call, and the call's
+    wrapper ms (CUDA events), another tree's K11 (``baseline``) and this
+    one in turns on ``inp``: old, new, new, old; both through a plain
+    ctypes call of their C entries."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    this = {"src": "this tree", **{n: getattr(_kernels.load(n), n)
+                                   for n in ("route_count", "route_pack")}}
+    who = {"old": k11_runner(inp, baseline), "new": k11_runner(inp, this)}
+    res = {k: {"old": [], "new": []} for k in ("route_count", "route_pack", "call",
+                                                "call_wrapper")}
+    for w in ("old", "new", "new", "old"):
+        r = who[w]
+        res["route_count"][w].append(device_ms(r.count, reps))
+        r.count()  # pass 2 alone reads pass 1's counts and keys
+        res["route_pack"][w].append(device_ms(r.pack, reps))
+        res["call"][w].append(device_ms(r.call, reps))
+        res["call_wrapper"][w].append(time_ms(r.call, reps))
+    print(f"    K11 in turns with {baseline['src']} ({label}; old, new, new, old): " + "; ".join(
+        f"{k} {res[k]['old'][0]:.4f} / {res[k]['new'][0]:.4f} / {res[k]['new'][1]:.4f} / "
+        f"{res[k]['old'][1]:.4f} ms" for k in res))
+    return res
+
+
+def start_k11_baseline(src: str, tmp: str):
+    """Start nvcc on another tree's K11 (``src``: its route_pack.cu, or a
+    checkout's root or csrc/ directory; the C entries route_count and
+    route_pack of this tree's signatures) in its own directory; returns
+    (src, proc, lib)."""
+    import shutil
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    cu = src if os.path.isfile(src) else next(
+        p for p in (os.path.join(src, "route_pack.cu"),
+                    os.path.join(src, "mpi_pastar_msa_tpu_torch", "csrc", "route_pack.cu"))
+        if os.path.isfile(p))
+    out = os.path.join(tmp, "k11_baseline")
+    os.makedirs(out, exist_ok=True)
+    shutil.copy(cu, out)
+    lib = os.path.join(out, "libroute_pack.so")
+    proc = subprocess.Popen(
+        [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-o", lib, os.path.join(out, "route_pack.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return src, proc, lib
+
+
+def load_k11_baseline(job) -> dict:
+    """The other tree's K11 (start_k11_baseline): its two C entries, with
+    this tree's argtypes, and its source's name under ``src``."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    src, proc, lib = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"K11 baseline: nvcc failed for route_pack.cu of {src}:\n{log}")
+    dll = ctypes.CDLL(lib)
+    fns = {"src": src}
+    for name in ("route_count", "route_pack"):
+        fn = getattr(dll, name)
+        fn.argtypes = _kernels.SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+# the segment sizes of --k11-sweep, rows a destination: kinase's step 200
+# (636) and up to a whole shard's rows (lanes_cap + ccar = 31,744)
+K11_SWEEP = (64, 636, 4096, 8192, 16384, 31744)
+
+
+def k11_synthetic(n: int, ndev: int = 4, cap: int = 7936, ccar: int = 15872, M: int = 31,
+                  seed: int = 0) -> dict:
+    """K11's inputs at kinase's shapes on 4 shards (shard 0, cap 7,936, a
+    ring of 15,872 rows, M = 31) with n rows for each other destination:
+    a quarter of them (at most half the ring) live in the carry ring, the
+    rest among the lanes with n / 2 lanes that stay; f, home and sig
+    random from ``seed`` on the card; the ragged send counts as if every
+    shard sent alike."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dest = torch.arange(1, ndev, device=dev).repeat_interleave(n).int()
+    dest = dest[torch.randperm(dest.numel(), generator=g, device=dev)]
+    in_ring = min(ccar // 2, dest.numel() // 4)
+    lanes = torch.cat([dest[in_ring:], torch.full((n // 2,), ndev, dtype=torch.int32,
+                                                  device=dev)])
+    lanes = lanes[torch.randperm(lanes.numel(), generator=g, device=dev)]
+    n_lanes = -(-lanes.numel() // M) * M
+    cand = torch.empty((n_lanes, 4), dtype=torch.int32, device=dev)
+    cand[:, 0] = ndev
+    cand[:lanes.numel(), 0] = lanes
+    carry = torch.tensor([ndev, 0x7FFFFFFF, 0, -1], dtype=torch.int32,
+                         device=dev).repeat(ccar, 1)
+    carry[:in_ring, 0] = dest[:in_ring]
+    for t, rows in ((cand, n_lanes), (carry, in_ring)):
+        t[:rows, 1] = torch.randint(0, 1 << 20, (rows,), generator=g, device=dev).int()
+        t[:rows, 2] = torch.randint(0, 1 << 20, (rows,), generator=g, device=dev).int()
+        t[:rows, 3] = torch.randint(0, 1 << 30, (rows,), generator=g, device=dev).int()
+    counts = torch.bincount(dest.long(), minlength=ndev)[:ndev].int()
+    return dict(cand=cand, carry=carry, n_lanes=n_lanes, M=M, ndev=ndev, me=0, cap=cap,
+                S=counts.repeat(ndev, 1).contiguous(),
+                seg=1 << (n_lanes + ccar - 1).bit_length())
+
+
+def k11_sweep(baseline=None) -> dict:
+    """K11 at each segment size of K11_SWEEP (k11_synthetic, ragged):
+    checked against route_plain, then the device ms of each pass alone and
+    of the call, in turns with another tree's K11 (checked too) when there
+    is one; a destination's sort barriers (k11_sort_shape) and PR 15's
+    bitonic stages."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    out = {}
+    print("K11 sweep (kinase's shapes, 4 shards, ragged; n rows a destination):")
+    for n in K11_SWEEP:
+        inp = k11_synthetic(n)
+        run = k11_runner(inp)
+        k11_check(f"K11 (sweep, n = {n})", inp, run)
+        shape = SH.k11_sort_shape(n)
+        row = dict(n=n, rows=inp["n_lanes"] + inp["carry"].shape[0], barriers=shape["barriers"],
+                   threads=shape["threads"], shared=shape["shared"],
+                   stages_pr15=k11_bitonic_stages(n))
+        if baseline is not None:
+            old = k11_runner(inp, baseline)
+            k11_check(f"K11 of {baseline['src']} (sweep, n = {n})", inp, old)
+            row["turns"] = k11_turns(inp, baseline, f"n = {n}")
+        else:
+            run.count()
+            row.update(route_count_device_ms=device_ms(run.count, 20),
+                       route_pack_device_ms=device_ms(run.pack, 20),
+                       call_device_ms=device_ms(run.call, 20))
+            print(f"    n = {n}: route_count {row['route_count_device_ms']:.4f}, route_pack "
+                  f"{row['route_pack_device_ms']:.4f}, call {row['call_device_ms']:.4f} ms")
+        print(f"  n = {n}: {shape['barriers']} barriers on {shape['threads']} threads "
+              f"({'shared' if shape['shared'] else 'device'} memory); PR 15's bitonic "
+              f"{row['stages_pr15']} stages")
+        out[str(n)] = row
+        del inp, run
+    return out
+
+
+def sharded_kernel_checks(cap: dict, shards, k11_baseline=None) -> dict:
     """Each new kernel of the sharded step against its plain version on
     the card, bit for bit, on shard ``target``'s inputs of the captured
     step: sig_coords and K12 (tri_partial), K4 sharded (its candidate
     rows, t_best after its round-0 match, its pending lanes as a multiset,
     the surviving and pending counts, the goal), K11 under the dense and
     the ragged allowance (counts, migrants, carry overflow, ring min, the
-    new ring, the rows sent); then K7's hop mode against its plain version
-    on every shard's finished table from every path node.  Wrapper (CUDA
-    events), device (CUPTI) and plain times, and each bound by bytes."""
+    new ring, the rows sent; each destination's sort barriers, and PR 15's
+    bitonic stages beside them; with ``k11_baseline``, another tree's K11
+    checked too and timed in turns); then K7's hop mode against its plain
+    version on every shard's finished table from every path node.  Wrapper
+    (CUDA events), device (CUPTI) and plain times, and each bound by
+    bytes."""
     import numpy as np
 
     from mpi_pastar_msa_tpu_torch import _kernels
@@ -2551,75 +2800,50 @@ def sharded_kernel_checks(cap: dict, shards) -> dict:
            + int(cap["state1"][5]) * 32 + pending.shape[0] * 12, restore=restore4)
     out["sig_expand_sharded"].update(rows=n_sel, lanes_valid=n_valid,
                                      pending=int(pending.shape[0]))
-    # K11, both allowances
-    nsel_t = torch.tensor(cap["nsel"], dtype=torch.int64, device=sh.dev)
-    ccar = sh.ccar
+    # K11, both allowances (the ragged one from the run's send counts, or
+    # as if every shard sent alike)
     S_all = cap["S"]
     if S_all is None:
-        counts = cap["route_out"][:ndev].long()
-        S_all = counts.repeat(ndev, 1).to(torch.int32)  # ragged check: as if all sent alike
+        S_all = cap["route_out"][:ndev].repeat(ndev, 1).to(torch.int32)
     for mode, Smat in (("dense", None), ("ragged", S_all)):
-        w_ring, w_wire, w_out = (torch.empty_like(sh.rings[0]), torch.zeros_like(sh.wire),
-                                 torch.empty_like(sh.route_out))
-        keys = torch.empty_like(sh.keys)
-
-        def run_count(o=w_out, keys=keys):
-            _kernels.launch("route_count", cap["cand_route"].data_ptr(), cap["ring"].data_ptr(),
-                            nsel_t.data_ptr(), M, cap["cand_route"].shape[0], ccar, ndev,
-                            sh.seg, o.data_ptr(), keys.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
-
-        # pass 2 alone reads pass 1's counts and keys and leaves them as
-        # they were, so it may run again after one pass 1
-        def run_pack(ring_out=w_ring, wire=w_wire, o=w_out, keys=keys, Smat=Smat):
-            _kernels.launch("route_pack", cap["cand_route"].data_ptr(), cap["ring"].data_ptr(),
-                            nsel_t.data_ptr(), M, ccar, ndev, me, eng.exchange_cap,
-                            None if Smat is None else Smat.data_ptr(), sh.seg, o.data_ptr(),
-                            keys.data_ptr(), wire.data_ptr(), ring_out.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
-
-        def run_route(run_count=run_count, run_pack=run_pack):
-            run_count()
-            run_pack()
-
-        run_route()
-        torch.cuda.synchronize()
-        p_wire, p_ring, p_out = SH.route_plain(cap["cand_route"], cap["nsel"] * M, cap["ring"],
-                                               ndev, me, eng.exchange_cap, Smat)
-        A = SH.route_sizes((S_all if Smat is not None else
-                            p_out[:ndev].long().repeat(ndev, 1)).cpu().numpy(), ndev,
-                           eng.exchange_cap, Smat is not None)[me]
-        base = (np.cumsum(A) - A) if Smat is not None else np.arange(ndev) * eng.exchange_cap
-        sent = torch.cat([torch.arange(int(b), int(b) + int(a)) for a, b in zip(A, base)]
-                         ).long().to(sh.dev)
-        bad = []
-        if not torch.equal(w_out, p_out):
-            bad.append(f"out {w_out.tolist()} vs {p_out.tolist()}")
-        if not torch.equal(w_ring, p_ring):
-            bad.append("new ring")
-        if not torch.equal(w_wire[sent], p_wire[sent]):
-            bad.append("wire rows")
-        if bad:
-            fail(f"K11 ({mode}) differs from its plain version: {bad}")
+        inp = dict(cand=cap["cand_route"], carry=cap["ring"], n_lanes=cap["nsel"] * M, M=M,
+                   ndev=ndev, me=me, cap=eng.exchange_cap, S=Smat, seg=sh.seg)
+        run = k11_runner(inp)
+        p_out = k11_check(f"K11 ({mode})", inp, run)
+        A = k11_sent_sizes(inp, p_out)
         # inputs read once, outputs written once: every row's dest, the
         # remote rows' other three words, the send counts (ragged) and the
         # row count; the wire rows sent, the new ring and out
         remote = int(p_out[:ndev].sum())
-        nbytes = ((cap["nsel"] * M + ccar) * 4 + remote * 12
+        ccar = inp["carry"].shape[0]
+        nbytes = ((inp["n_lanes"] + ccar) * 4 + remote * 12
                   + (0 if Smat is None else ndev * ndev * 4) + 8
                   + int(A.sum()) * 12 + ccar * 16 + (ndev + 3) * 4)
-        report(f"route_{mode}", 0, run_route,
-               lambda Smat=Smat: SH.route_plain(cap["cand_route"], cap["nsel"] * M, cap["ring"],
-                                                ndev, me, eng.exchange_cap, Smat), nbytes)
-        run_count()
-        passes = {"route_count": dict(ms=time_ms(run_count, 20), device_ms=device_ms(run_count, 20)),
-                  "route_pack": dict(ms=time_ms(run_pack, 20), device_ms=device_ms(run_pack, 20))}
+        report(f"route_{mode}", 0, run.call,
+               lambda inp=inp: SH.route_plain(inp["cand"], inp["n_lanes"], inp["carry"], ndev,
+                                              me, inp["cap"], inp["S"]), nbytes)
+        run.count()
+        passes = {"route_count": dict(ms=time_ms(run.count, 20),
+                                      device_ms=device_ms(run.count, 20)),
+                  "route_pack": dict(ms=time_ms(run.pack, 20), device_ms=device_ms(run.pack, 20))}
         print("    passes alone: " + ", ".join(
             f"{k} wrapper {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms"
             for k, v in passes.items()))
-        out[f"route_{mode}"].update(rows=cap["nsel"] * M + ccar, remote=remote,
-                                    sent=int(A.sum()), spilled=remote - int(A.sum()),
-                                    passes=passes)
+        sorts = [SH.k11_sort_shape(int(c)) for c in p_out[:ndev]]
+        out[f"route_{mode}"].update(
+            rows=inp["n_lanes"] + ccar, remote=remote, sent=int(A.sum()),
+            spilled=remote - int(A.sum()), passes=passes, segments=p_out[:ndev].tolist(),
+            barriers=max(x["barriers"] for x in sorts),
+            sort_threads=[x["threads"] for x in sorts],
+            barriers_pr15=max(k11_bitonic_stages(int(c)) for c in p_out[:ndev]))
+        print(f"    segments {p_out[:ndev].tolist()}: sort barriers {[x['barriers'] for x in sorts]}"
+              f" on {[x['threads'] for x in sorts]} threads (PR 15's bitonic: "
+              f"{[k11_bitonic_stages(int(c)) for c in p_out[:ndev]]} stages)")
+        if k11_baseline is not None:
+            old = k11_runner(inp, k11_baseline)
+            k11_check(f"K11 of {k11_baseline['src']} ({mode})", inp, old)
+            out[f"route_{mode}"]["turns"] = k11_turns(inp, k11_baseline,
+                                                      f"step {cap['at']}, {mode}")
     # K7's hop mode on every shard's table from every path node
     checked, err = 0, 0
     for shd in shards:
@@ -2683,14 +2907,16 @@ def process_mesh_run(path: str, gold: dict, ranks: int, timeout: int = 300) -> d
     return dict(ranks=ranks, wall_s=wall, rank0=line)
 
 
-def sharded_phase(paths, gold) -> dict:
+def sharded_phase(paths, gold, k11_baseline=None, sweep=False) -> dict:
     """The sharded engine on one card (parallel/sharded.py, a LocalMesh of
     [cuda:0] * 4): kinase --triples auto (sig, sharded cubes) with the
     ragged exchange (auto), the dense one (traced: device time a step),
     one shard against FrontierSearch's golden result, PF08184 with a one-row
     wire (exchange_cap=1), test2 under each owner hash; each new kernel
-    against its plain version on kinase's inputs; the sharded step's
-    bounds at this run's B and cap; and several cards when there are."""
+    against its plain version on kinase's inputs (``k11_baseline``: another
+    tree's K11 too, timed in turns with K11); the sharded step's bounds at
+    this run's B and cap; K11 at each size of K11_SWEEP (``sweep``); and
+    several cards when there are."""
     card = torch.device("cuda", 0)
     out = {}
     k = gold["kinase.fasta"]
@@ -2701,7 +2927,9 @@ def sharded_phase(paths, gold) -> dict:
              f"migrated {out['kinase_ragged']['migrated']}")
     if "cand" not in cap:
         fail("kinase sharded: the search ended before the captured step")
-    out["checks"] = sharded_kernel_checks(cap, cap["shards"])
+    out["checks"] = sharded_kernel_checks(cap, cap["shards"], k11_baseline)
+    if sweep:
+        out["k11_sweep"] = k11_sweep(k11_baseline)
     r = out["kinase_ragged"]
     if out["checks"]["walk"]["rounds"] != r["walk_rounds"]:
         fail(f"kinase sharded: the walk took {r['walk_rounds']} rounds, its byte count "
@@ -3386,6 +3614,17 @@ def main() -> int:
                          "the file, or a checkout's root or csrc/; its C entry "
                          "without the scratch), check it against this K8 and time "
                          "the two in turns")
+    ap.add_argument("--k11-baseline", metavar="SRC", default=None,
+                    help="also build another tree's csrc/route_pack.cu (SRC: the "
+                         "file, or a checkout's root or csrc/; the C entries "
+                         "route_count and route_pack of this tree's signatures), "
+                         "check it against route_plain on K11's inputs and time "
+                         "the two K11s in turns (device, each pass alone)")
+    ap.add_argument("--k11-sweep", action="store_true",
+                    help="also check and time K11 on synthetic inputs at kinase's "
+                         "shapes with 64, 636, 4096, 8192, 16384 and 31744 rows a "
+                         "destination (in turns with --k11-baseline's), with each "
+                         "sort's barriers and PR 15's bitonic stages")
     ap.add_argument("--k2-baseline", metavar="SRC", default=None,
                     help="also build the plane-per-launch version of "
                          "csrc/triple_wavefront.cu (its C entry with Dmax and "
@@ -3460,6 +3699,8 @@ def main() -> int:
                                         phases_tmp.name) if args.keyrow_baseline else None)
     k8_job = (start_k8_baseline(os.path.abspath(args.k8_baseline), phases_tmp.name)
               if args.k8_baseline else None)
+    k11_job = (start_k11_baseline(os.path.abspath(args.k11_baseline), phases_tmp.name)
+               if args.k11_baseline else None)
     try:
         logs = _kernels.build_all()
     finally:
@@ -3467,6 +3708,7 @@ def main() -> int:
         k8_no_store = load_phases(k8_no_store_job)
         keyrow_baseline = load_keyrow_baseline(keyrow_job) if keyrow_job else None
         k8_baseline = load_k8_baseline(k8_job) if k8_job else None
+        k11_baseline = load_k11_baseline(k11_job) if k11_job else None
     if keyrow_baseline:
         K7_VARIANTS["baseline"] = keyrow_baseline["path_walk"]
     print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES and "
@@ -3492,7 +3734,7 @@ def main() -> int:
             step_baseline = (args.step_baseline, build_step_baseline(src, tmp))
         report["launch_floor"] = floor = launch_floor()
         if args.sharded_only:
-            report["sharded"] = sharded_phase(paths, gold)
+            report["sharded"] = sharded_phase(paths, gold, k11_baseline, args.k11_sweep)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["capture"] = capture_check(paths)
@@ -3579,7 +3821,7 @@ def main() -> int:
                                          data_gold("globin6", LAYOUT_INPUTS["globin6"]),
                                          "packed", tmp)}
         # 7. the sharded engine (parallel/sharded.py) on [cuda:0] * 4
-        report["sharded"] = sharded_phase(paths, gold)
+        report["sharded"] = sharded_phase(paths, gold, k11_baseline, args.k11_sweep)
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
             # and the plain step on the same windows, the step before K3-K5
@@ -3762,6 +4004,21 @@ def main() -> int:
                 replaces_dense="mpi_pastar_msa_tpu/parallel/sharded.py:87")
             entry["dense"] = {k: sh["checks"]["route_dense"][k]
                               for k in ("ms", "device_ms", "plain_ms", "bound_ms", "passes")}
+            # two launches, then the dependent chain: a row's read and its
+            # atomic; the counts, the keys, the row gathered by position,
+            # the store
+            entry.update(
+                latency_floor_ms=2 * floor["device_ms"] + 6 * chase["l2_ns"] / 1e6,
+                latency_floor_dram_ms=2 * floor["device_ms"] + 6 * chase["dram_ns"] / 1e6,
+                **{k: t[k] for k in ("segments", "barriers", "sort_threads", "barriers_pr15")},
+                **({"turns": {m: sh["checks"][f"route_{m}"]["turns"]
+                              for m in ("ragged", "dense")}} if "turns" in t else {}),
+                **({"sweep": sh["k11_sweep"]} if "k11_sweep" in sh else {}))
+        if name in ("sig_coords", "tri_partial"):
+            # a launch, then two dependent loads: the listed slot (or the
+            # coordinates), then its sig word (or the cube's corners)
+            entry.update(latency_floor_ms=floor["device_ms"] + 2 * chase["l2_ns"] / 1e6,
+                         latency_floor_dram_ms=floor["device_ms"] + 2 * chase["dram_ns"] / 1e6)
         if name == "path_walk_hops":
             entry.update(latency_floor_ms=t["lookups"] * chase["l2_ns"] / 1e6,
                          latency_floor_dram_ms=t["lookups"] * chase["dram_ns"] / 1e6,

@@ -228,8 +228,9 @@ def execute(args, problem: Optional[Problem] = None) -> Report:
                 mesh = devs = shard_devices(device, n_dev)
                 print(f"shards: {n_dev} on " + ", ".join(str(d) for d in devs))
             # the triple cubes as the JAX CLI passes them (mpi_pastar_msa_tpu/
-            # cli.py:165-187); the engine builds them itself whenever the
-            # heuristic it is given has none
+            # cli.py:165-187): `fractional` is refused where it does not
+            # apply, `on` keeps the pair heuristic there; the engine builds
+            # the cubes itself whenever the heuristic it is given has none
             if args.triples == "off":
                 heuristic = getattr(heuristic, "base", heuristic)
             elif args.triples in ("on", "fractional") and not getattr(heuristic, "triangles",
@@ -239,10 +240,10 @@ def execute(args, problem: Optional[Problem] = None) -> Report:
                 frac = args.triples == "fractional"
                 ht = HTriples.build(heuristic, device=devs[0], fractional=frac,
                                     **({"budget_bytes": 10 << 30} if frac else {}))
-                if ht is None:
-                    raise UsageError(f"--triples {args.triples}: the triple heuristic is "
-                                     "not applicable to this input")
-                heuristic = ht
+                if ht is None and frac:
+                    raise UsageError("--triples fractional: the triple heuristic is not "
+                                     "applicable to this input")
+                heuristic = ht if ht is not None else heuristic
             with TimeCounter("Phase 2: PA-Star running time: ") as t2:
                 eng = ShardedFrontierSearch(problem, heuristic, devices=mesh,
                                             hash_type=args.hash_type,

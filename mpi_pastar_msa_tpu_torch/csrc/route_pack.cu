@@ -3,22 +3,22 @@
 // Replaces, in mpi_pastar_msa_tpu/parallel/sharded.py, :87 _route_cap and
 // :169 _route_ragged (XLA inside the sharded run loop) less their
 // collective, which the mesh runs (parallel/mesh.py).  The port's plain
-// versions are parallel/sharded.py::route_count_plain and
-// route_pack_plain.  The rows are the step's candidate lanes, `cand`
-// (lanes, 4) int32 (dest, fsort, home, sig) as sig_expand.cu's sharded
-// instantiation writes them (dest = ndev for a lane that stays), followed
-// by the carry ring (Ccar, 4) of the rows spilled before; row r's position
-// is r in [lanes; carry].  A row is remote when dest < ndev.  Per
-// destination d its remote rows are ordered by (fsort, position): the
-// first allow[d] ride the wire, to rows base[d] .. base[d] + allow[d] of
-// `wire` (home, sig, fsort: sig_probe.cu's pending row) in that order; the rest spill, in (d, fsort,
-// position) order, into the new carry ring, whose tail is filled with the
-// empty row (ndev, INFP, 0, -1).  carry_ovf = max(spilled - Ccar, 0) and
-// the min fsort of the new ring's rows (INFP when it is empty) close the
-// step's route.  JAX sorts with jax.lax.sort(num_keys=2), which is not
-// stable, so which of two rows with equal (dest, fsort) rides the wire is
-// unspecified there; the position fixes it here, and the plain version
-// gives the same wire and ring bit for bit.
+// version is parallel/sharded.py::route_plain.  The rows are the step's
+// candidate lanes, `cand` (lanes, 4) int32 (dest, fsort, home, sig) as
+// sig_expand.cu's sharded instantiation writes them (dest = ndev for a lane
+// that stays), followed by the carry ring (Ccar, 4) of the rows spilled
+// before; row r's position is r in [lanes; carry].  A row is remote when
+// dest < ndev.  Per destination d its remote rows are ordered by (fsort,
+// position): the first allow[d] ride the wire, to rows base[d] .. base[d] +
+// allow[d] of `wire` (home, sig, fsort: sig_probe.cu's pending row) in that
+// order; the rest spill, in (d, fsort, position) order, into the new carry
+// ring, whose tail is filled with the empty row (ndev, INFP, 0, -1).
+// carry_ovf = max(spilled - Ccar, 0) and the min fsort of the new ring's
+// rows (INFP when it is empty) close the step's route.  JAX sorts with
+// jax.lax.sort(num_keys=2), which is not stable, so which of two rows with
+// equal (dest, fsort) rides the wire is unspecified there; the position
+// fixes it here, and the plain version gives the same wire and ring bit for
+// bit.
 //
 // The allowance: dense (the JAX _route_cap), allow[d] = cap and base[d] =
 // d cap; ragged (_route_ragged), from the all-gathered send counts S
@@ -31,26 +31,53 @@
 //   1. route_count: the remote rows of each destination (out[d], d <
 //      ndev), the remote rows among the lanes (out[ndev], the step's
 //      migrants), and each remote row's sort key (fsort << 32 | position)
-//      appended to its destination's segment of `keys` (atomics: the
-//      order of a segment is not fixed; pass 2 sorts it).
-//   2. route_pack: a block a destination sorts its segment (bitonic, in
-//      shared memory when it fits, else in place in `keys`) and writes its
-//      wire rows and its spilled rows; every block fills the ring's tail;
-//      out[ndev + 1] = carry_ovf, out[ndev + 2] = the ring's min fsort
-//      (an atomicMin of each block's, set to INFP by pass 1).
+//      appended to its destination's segment of `keys`.  The lanes of a
+//      warp with the same destination (__match_any_sync) take one atomicAdd
+//      for the group and rank themselves by their lane; the migrants are a
+//      block's sum and one atomic a block.  The order of a segment is not
+//      fixed: pass 2 sorts it.
+//   2. route_pack: block d < ndev sorts destination d's segment, then
+//      copies its rows by position into the wire and the ring (the sort and
+//      the copy are apart: a copy of other rows is another Emit); the
+//      blocks after them fill the ring's tail; out[ndev + 1] = carry_ovf,
+//      out[ndev + 2] = the ring's min fsort (set to INFP by pass 1; each
+//      destination's first spilled row, the smallest of its spill, takes an
+//      atomicMin).
 //
-// What bounds it on an H100: launches and the sort's barriers, not bytes.
-// At kinase on 4 shards a step reads at most 2 x 15,872 rows of 16 B and
-// writes as many (about 1 MB, 0.3 us at 3.35 TB/s); the bitonic sort of a
-// destination's n rows is log2(n)(log2(n) + 1)/2 block barriers.
+// The sort (a bitonic network over the segment padded to np2 = a power of
+// two, at least a warp's kWarpKeys keys): each thread holds kKeys
+// consecutive keys in registers.  Stages whose partner lies in the same
+// thread run in registers, stages within a warp's span with
+// __shfl_xor_sync, and only strides of a warp's span or more pass through
+// shared memory (the device-memory segment in place when np2 exceeds
+// kShKeys), one barrier each.  Merges up to kWarpKeys keys run in each
+// warp's chunk with no barrier; a segment of one chunk needs none at all.
+// The block is sized to the segment: np2 / kKeys threads, at most kThreads
+// (more chunks than warps loop), and the other warps leave at once; the
+// barrier is a named one over the threads that sort.  At 1,024 keys: 128
+// threads and 5 barriers, where PR 15's block bitonic took 55 (and 57
+// with its load and its reduction).  parallel/sharded.py::k11_sort_shape
+// gives the threads and barriers of a segment.
+//
+// What bounds it on an H100: launches and the chain of dependent accesses
+// (a row's read and its atomic; the counts, the keys, the row gathered by
+// position, the store), not bytes.  At kinase on 4 shards a step reads
+// 31,744 rows' dest words and writes a 254 KB ring (0.43 MB in all,
+// 0.13 us at 3.35 TB/s).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kShKeys = 8192;  // keys a block sorts in shared memory (64 KB)
+typedef unsigned long long u64;
+
+constexpr int kThreads = 1024;              // a block of either pass
+constexpr int kKeys = 8;                    // keys a thread holds in registers
+constexpr int kWarpKeys = 32 * kKeys;       // a warp's chunk
+constexpr int kShKeys = 16384;              // keys a block sorts in shared memory (128 KB)
+constexpr int kMaxDevices = 64;             // cards whose shared-memory attribute is cached
 constexpr int32_t kInfp = 0x7FFFFFFF;
+constexpr u64 kPad = ~0ull;                 // the padding key, after every real one
 
 __device__ __forceinline__ int4 row_at(const int4* cand, const int4* carry, long long n_lanes,
                                        long long pos) {
@@ -59,116 +86,279 @@ __device__ __forceinline__ int4 row_at(const int4* cand, const int4* carry, long
 
 __global__ void __launch_bounds__(kThreads) route_count_kernel(
     const int4* __restrict__ cand, const int4* __restrict__ carry, const long long* nsel, int M,
-    int ccar, int ndev, long long seg, int32_t* __restrict__ out,
-    unsigned long long* __restrict__ keys) {
+    int ccar, int ndev, long long seg, int32_t* __restrict__ out, u64* __restrict__ keys) {
+  __shared__ int s_migr[kThreads / 32];
   const long long n_lanes = *nsel * M;
   const long long n = n_lanes + ccar;
+  const int lane = threadIdx.x & 31;
   if (blockIdx.x == 0 && threadIdx.x == 0) out[ndev + 2] = kInfp;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += (long long)gridDim.x * blockDim.x) {
-    const int4 v = row_at(cand, carry, n_lanes, r);
-    if (v.x < 0 || v.x >= ndev) continue;
-    const int at = atomicAdd(&out[v.x], 1);
-    keys[(long long)v.x * seg + at] = ((unsigned long long)(uint32_t)v.y << 32) | (uint64_t)r;
-    if (r < n_lanes) atomicAdd(&out[ndev], 1);
+  int migr = 0;
+  // a warp takes 32 consecutive rows a trip, all its lanes the same trips,
+  // so its votes name every lane
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long r0 = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31); r0 < n;
+       r0 += stride) {
+    const long long r = r0 + lane;
+    int d = -1, f = 0;
+    if (r < n) {
+      const int4 v = row_at(cand, carry, n_lanes, r);
+      if (v.x >= 0 && v.x < ndev) {
+        d = v.x;
+        f = v.y;
+      }
+    }
+    const unsigned remote = __ballot_sync(0xffffffffu, d >= 0);
+    migr += __popc(__ballot_sync(0xffffffffu, d >= 0 && r < n_lanes));
+    if (d >= 0) {
+      const unsigned peers = __match_any_sync(remote, d);
+      const int leader = __ffs(peers) - 1;
+      int at = 0;
+      if (lane == leader) at = atomicAdd(&out[d], __popc(peers));
+      at = __shfl_sync(remote, at, leader) + __popc(peers & ((1u << lane) - 1u));
+      keys[(long long)d * seg + at] = ((u64)(uint32_t)f << 32) | (u64)r;
+    }
+  }
+  if (lane == 0) s_migr[threadIdx.x >> 5] = migr;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int m = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m += s_migr[w];
+    if (m) atomicAdd(&out[ndev], m);
   }
 }
 
-// Sort s[0 .. np2) ascending (np2 a power of two), the whole block.
-__device__ void bitonic(unsigned long long* s, int np2) {
-  for (int k = 2; k <= np2; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < np2; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long a = s[i], b = s[ixj];
-          if ((a > b) == ((i & k) == 0)) {
-            s[i] = b;
-            s[ixj] = a;
-          }
+// Destination d's allowance, its first wire row and the rows spilled
+// before it (the destinations before d), and the rows spilled in all.
+struct Allowance {
+  long long spill_before, base, spilled;
+  int allow;
+};
+
+// One warp, every lane the same result: the lanes take the destinations
+// 32 at a time, with a warp scan of the spills and the allowances.  d
+// outside [0, ndev) gives the total spilled only.
+__device__ Allowance allowance(const int32_t* out, const int32_t* S, int ndev, int me, int cap,
+                               int d) {
+  const int lane = threadIdx.x & 31;
+  long long spilled = 0, base = 0, d_spill = 0, d_base = 0, d_allow = 0;
+  for (int q0 = 0; q0 < ndev; q0 += 32) {
+    const int q = q0 + lane;
+    long long cnt = 0, allow = 0;
+    if (q < ndev) {
+      cnt = out[q];
+      allow = cap;
+      if (S != nullptr) {
+        long long before = 0;
+        for (int i = 0; i < me; ++i) before += S[i * ndev + q];
+        const long long a = (long long)ndev * cap - before;
+        allow = a < 0 ? 0 : (a > cnt ? cnt : a);
+      }
+    }
+    const long long over = cnt > allow ? cnt - allow : 0;
+    long long so = over, sa = allow;  // inclusive scans
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long xo = __shfl_up_sync(0xffffffffu, so, o);
+      const long long xa = __shfl_up_sync(0xffffffffu, sa, o);
+      if (lane >= o) {
+        so += xo;
+        sa += xa;
+      }
+    }
+    if (q == d) {
+      d_spill = spilled + so - over;
+      d_base = base + sa - allow;
+      d_allow = allow;
+    }
+    spilled += __shfl_sync(0xffffffffu, so, 31);
+    base += __shfl_sync(0xffffffffu, sa, 31);
+  }
+  Allowance a{0, 0, spilled, 0};
+  if (d >= 0 && d < ndev) {
+    const int src = d & 31;
+    a.spill_before = __shfl_sync(0xffffffffu, d_spill, src);
+    a.base = S != nullptr ? __shfl_sync(0xffffffffu, d_base, src) : (long long)d * cap;
+    a.allow = (int)__shfl_sync(0xffffffffu, d_allow, src);
+  }
+  return a;
+}
+
+// The barrier of a sorting block's nt threads (the other warps have left).
+__device__ __forceinline__ void sort_sync(int nt) {
+  if (nt > 32)
+    asm volatile("bar.sync 1, %0;" ::"r"(nt) : "memory");
+  else
+    __syncwarp();
+}
+
+// Stages j = jtop .. 1 of the merge of size k on one warp's chunk at index
+// `base` (a multiple of kWarpKeys): lane l holds keys base + l kKeys + r,
+// r < kKeys.  A pair's lower index keeps the smaller key where bit k of
+// the index is clear (an ascending run), the larger where it is set.
+__device__ __forceinline__ void warp_stages(u64 (&v)[kKeys], int base, int k, int jtop) {
+  const int lane = threadIdx.x & 31;
+  const int i0 = base + lane * kKeys;
+  for (int j = jtop; j >= kKeys; j >>= 1) {  // the partner in lane ^ (j / kKeys)
+    const int m = j / kKeys;
+    const bool lower = (lane & m) == 0;
+#pragma unroll
+    for (int r = 0; r < kKeys; ++r) {
+      const u64 o = __shfl_xor_sync(0xffffffffu, v[r], m);
+      const bool up = ((i0 + r) & k) == 0;
+      v[r] = (lower == up) ? (v[r] < o ? v[r] : o) : (v[r] > o ? v[r] : o);
+    }
+  }
+#pragma unroll
+  for (int j = kKeys / 2; j > 0; j >>= 1) {  // the partner in the same thread
+    if (j > jtop) continue;
+#pragma unroll
+    for (int r = 0; r < kKeys; ++r) {
+      if (r & j) continue;
+      const bool up = ((i0 + r) & k) == 0;
+      const u64 a = v[r], b = v[r | j];
+      if ((a > b) == up) {
+        v[r] = b;
+        v[r | j] = a;
+      }
+    }
+  }
+}
+
+// Sort the n keys of src ascending and call emit(i, key) for each sorted
+// index i < n, from the registers of the last merge.  s: the working keys,
+// np2 of them (shared memory, or src itself in device memory); nt threads
+// (a multiple of 32) take part, and warp w takes chunks w, w + nt / 32, ...
+template <class Emit>
+__device__ void sort_segment(u64* s, const u64* src, int n, int np2, int nt, const Emit& emit) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = nt >> 5;
+  const int chunks = np2 / kWarpKeys;
+  u64 v[kKeys];
+  // merges up to a chunk: in each warp, no barrier
+  for (int c = warp; c < chunks; c += warps) {
+    const int base = c * kWarpKeys;
+#pragma unroll
+    for (int r = 0; r < kKeys; ++r) {
+      const int i = base + lane * kKeys + r;
+      v[r] = i < n ? src[i] : kPad;
+    }
+    for (int k = 2; k <= kWarpKeys; k <<= 1) warp_stages(v, base, k, k >> 1);
+    if (chunks == 1) {
+#pragma unroll
+      for (int r = 0; r < kKeys; ++r) {
+        const int i = lane * kKeys + r;
+        if (i < n) emit(i, v[r]);
+      }
+      return;
+    }
+#pragma unroll
+    for (int r = 0; r < kKeys; ++r) s[base + lane * kKeys + r] = v[r];
+  }
+  sort_sync(nt);
+  for (int k = 2 * kWarpKeys; k <= np2; k <<= 1) {
+    // strides of a chunk or more: pairs of the working keys, a barrier each
+    for (int j = k >> 1; j >= kWarpKeys; j >>= 1) {
+      for (int p = threadIdx.x; p < (np2 >> 1); p += nt) {
+        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+        const u64 a = s[i], b = s[i + j];
+        if ((a > b) == ((i & k) == 0)) {
+          s[i] = b;
+          s[i + j] = a;
         }
       }
-      __syncthreads();
+      sort_sync(nt);
     }
+    // the strides within a chunk: in registers and shuffles
+    for (int c = warp; c < chunks; c += warps) {
+      const int base = c * kWarpKeys;
+#pragma unroll
+      for (int r = 0; r < kKeys; ++r) v[r] = s[base + lane * kKeys + r];
+      warp_stages(v, base, k, kWarpKeys >> 1);
+#pragma unroll
+      for (int r = 0; r < kKeys; ++r) {
+        const int i = base + lane * kKeys + r;
+        if (k < np2)
+          s[i] = v[r];
+        else if (i < n)
+          emit(i, v[r]);
+      }
+    }
+    if (k < np2) sort_sync(nt);
+  }
 }
+
+// The copy of destination d's sorted rows: the first allow to the wire
+// (home, sig, fsort), the rest to the ring from its spill offset, the first
+// of them taking the ring's min.
+struct WireRingCopy {
+  const int4* cand;
+  const int4* carry;
+  long long n_lanes;
+  int ccar, ndev, d;
+  Allowance a;
+  int32_t* out;
+  int32_t* wire;
+  int4* carry_out;
+
+  __device__ void operator()(int i, u64 key) const {
+    const int4 v = row_at(cand, carry, n_lanes, (long long)(key & 0xffffffffull));
+    if (i < a.allow) {
+      int32_t* w = wire + 3 * (a.base + i);
+      w[0] = v.z;
+      w[1] = v.w;
+      w[2] = v.y;
+      return;
+    }
+    const long long slot = a.spill_before + (i - a.allow);
+    if (slot < ccar) {
+      carry_out[slot] = make_int4(d, v.y, v.z, v.w);
+      if (i == a.allow) atomicMin(&out[ndev + 2], v.y);
+    }
+  }
+};
 
 __global__ void __launch_bounds__(kThreads) route_pack_kernel(
     const int4* __restrict__ cand, const int4* __restrict__ carry, const long long* nsel, int M,
     int ccar, int ndev, int me, int cap, const int32_t* __restrict__ S, long long seg,
-    int32_t* __restrict__ out, unsigned long long* __restrict__ keys, int32_t* __restrict__ wire,
+    int32_t* __restrict__ out, u64* __restrict__ keys, int32_t* __restrict__ wire,
     int4* __restrict__ carry_out) {
-  extern __shared__ unsigned long long sh[];
-  __shared__ int s_min[32];
-  const long long n_lanes = *nsel * M;
-  // the allowance and the spill offsets of every destination (each block)
-  long long spilled = 0, spill_before = 0, base = 0, base_d = 0;
-  int allow_d = 0;
+  extern __shared__ u64 sh[];
   const int d = blockIdx.x;
-  for (int q = 0; q < ndev; ++q) {
-    const int cnt = out[q];
-    int allow = cap;
-    if (S != nullptr) {
-      long long before = 0;
-      for (int i = 0; i < me; ++i) before += S[i * ndev + q];
-      const long long a = (long long)ndev * cap - before;
-      allow = (int)(a < 0 ? 0 : (a > cnt ? cnt : a));
-    }
-    const long long over = cnt > allow ? cnt - allow : 0;
-    if (q == d) {
-      spill_before = spilled;
-      base_d = S != nullptr ? base : (long long)q * cap;
-      allow_d = allow;
-    }
-    spilled += over;
-    base += allow;
+  if (d >= ndev) {  // the ring's tail: the empty row
+    const Allowance a = allowance(out, S, ndev, me, cap, -1);
+    const long long t = (long long)(blockIdx.x - ndev) * blockDim.x + threadIdx.x;
+    if (t == 0) out[ndev + 1] = (int32_t)(a.spilled > ccar ? a.spilled - ccar : 0);
+    for (long long s = a.spilled + t; s < ccar; s += (long long)(gridDim.x - ndev) * blockDim.x)
+      carry_out[s] = make_int4(ndev, kInfp, 0, -1);
+    return;
   }
-  // the ring's tail: the empty row
-  for (long long s = spilled + (long long)blockIdx.x * blockDim.x + threadIdx.x; s < ccar;
-       s += (long long)gridDim.x * blockDim.x)
-    carry_out[s] = make_int4(ndev, kInfp, 0, -1);
-  if (blockIdx.x == 0 && threadIdx.x == 0)
-    out[ndev + 1] = (int32_t)(spilled > ccar ? spilled - ccar : 0);
-  if (d >= ndev) return;
   const int n = out[d];
-  int np2 = 1;
+  if (n == 0) return;
+  int np2 = kWarpKeys;
   while (np2 < n) np2 <<= 1;
-  unsigned long long* k = keys + (long long)d * seg;
-  unsigned long long* s = np2 <= kShKeys ? sh : k;
-  for (int i = threadIdx.x; i < np2; i += blockDim.x) s[i] = i < n ? k[i] : ~0ull;
-  __syncthreads();
-  bitonic(s, np2);
-  int fmin = kInfp;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const unsigned long long key = s[i];
-    const long long pos = (long long)(key & 0xffffffffull);
-    const int4 v = row_at(cand, carry, n_lanes, pos);
-    if (i < allow_d) {
-      int32_t* w = wire + 3 * (base_d + i);
-      w[0] = v.z;  // the pending list's row: home, sig, packed
-      w[1] = v.w;
-      w[2] = v.y;
-    } else {
-      const long long slot = spill_before + (i - allow_d);
-      if (slot < ccar) {
-        carry_out[slot] = make_int4(d, v.y, v.z, v.w);
-        fmin = min(fmin, v.y);
-      }
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) fmin = min(fmin, __shfl_down_sync(0xffffffffu, fmin, o));
-  if ((threadIdx.x & 31) == 0) s_min[threadIdx.x >> 5] = fmin;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int m = kInfp;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m = min(m, s_min[w]);
-    if (m < kInfp) atomicMin(&out[ndev + 2], m);
-  }
+  const int nt = np2 / kKeys < kThreads ? np2 / kKeys : kThreads;
+  if ((int)threadIdx.x >= nt) return;
+  const WireRingCopy copy{cand, carry, *nsel * M, ccar, ndev, d,
+                          allowance(out, S, ndev, me, cap, d), out, wire, carry_out};
+  u64* k = keys + (long long)d * seg;
+  sort_segment(np2 <= kShKeys ? sh : k, k, n, np2, nt, copy);
 }
 
 int grid_of(long long rows) {
   long long b = (rows + kThreads - 1) / kThreads;
   if (b < 1) b = 1;
   return (int)(b > 1024 ? 1024 : b);
+}
+
+// route_pack's dynamic shared memory, allowed once a card: the attribute
+// belongs to the current card, and one process may hold shards on several
+int allow_shared(int bytes) {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices && done[dev]) return 0;
+  e = cudaFuncSetAttribute(route_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return (int)e;
 }
 
 }  // namespace
@@ -190,14 +380,15 @@ extern "C" int route_count(const void* cand, const void* carry, const void* nsel
   if (e != cudaSuccess) return (int)e;
   route_count_kernel<<<grid_of((long long)lanes_cap + ccar), kThreads, 0, s>>>(
       (const int4*)cand, (const int4*)carry, (const long long*)nsel, M, ccar, ndev, seg,
-      (int32_t*)out, (unsigned long long*)keys);
+      (int32_t*)out, (u64*)keys);
   return (int)cudaGetLastError();
 }
 
 // After route_count on the same buffers.  S: (ndev, ndev) int32 send
 // counts of every shard (ragged), or null (dense: allowance cap); wire:
 // (>= ndev cap, 3) int32 (dense) or (>= lanes_cap + ccar, 3) (ragged);
-// carry_out: (ccar, 4) int32, not the carry read.
+// carry_out: (ccar, 4) int32, not the carry read.  ndev sorting blocks,
+// then the ring's tail's blocks.
 extern "C" int route_pack(const void* cand, const void* carry, const void* nsel, int M,
                           int ccar, int ndev, int me, int cap, const void* S, long long seg,
                           void* out, void* keys, void* wire, void* carry_out, void* stream) {
@@ -206,16 +397,11 @@ extern "C" int route_pack(const void* cand, const void* carry, const void* nsel,
       M < 1 || ccar < 1 || ndev < 1 || ndev > 1024 || me < 0 || me >= ndev || cap < 1 ||
       seg < 1 || seg >= (1ll << 31) || (seg & (seg - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  // every call: the attribute belongs to the current card, and one
-  // process may hold shards on several
-  const int shared = kShKeys * (int)sizeof(unsigned long long);
-  cudaError_t e = cudaFuncSetAttribute(route_pack_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = ndev > grid_of(ccar) ? ndev : grid_of(ccar);
-  route_pack_kernel<<<blocks, kThreads, shared, (cudaStream_t)stream>>>(
+  const int shared = kShKeys * (int)sizeof(u64);
+  const int e = allow_shared(shared);
+  if (e != 0) return e;
+  route_pack_kernel<<<ndev + grid_of(ccar), kThreads, shared, (cudaStream_t)stream>>>(
       (const int4*)cand, (const int4*)carry, (const long long*)nsel, M, ccar, ndev, me, cap,
-      (const int32_t*)S, seg, (int32_t*)out, (unsigned long long*)keys, (int32_t*)wire,
-      (int4*)carry_out);
+      (const int32_t*)S, seg, (int32_t*)out, (u64*)keys, (int32_t*)wire, (int4*)carry_out);
   return (int)cudaGetLastError();
 }

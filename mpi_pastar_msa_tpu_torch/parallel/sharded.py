@@ -146,6 +146,32 @@ def route_plain(cand: torch.Tensor, n_lanes: int, carry: torch.Tensor, ndev: int
     return wire, ring, out
 
 
+#: K11's sort (csrc/route_pack.cu kKeys, kThreads, kShKeys): the keys a
+#: thread holds, a block's most threads, the keys a block sorts in shared
+#: memory
+K11_KEYS, K11_THREADS, K11_SHARED_KEYS = 8, 1024, 16384
+
+
+def k11_sort_shape(n: int, keys: int = K11_KEYS, threads: int = K11_THREADS) -> dict:
+    """The sort of one destination's segment of ``n`` keys in
+    ``route_pack``: the padded size np2 (a power of two, at least a warp's
+    chunk of 32 ``keys``), its chunks, the threads that sort (np2 / keys,
+    at most ``threads``), the barriers (one after the merges inside each
+    chunk when there are several, one a stride of a chunk or more, one
+    after each merge's register stages but the last's) and whether it
+    sorts in shared memory.  An empty segment sorts nothing."""
+    if n == 0:
+        return dict(np2=0, chunks=0, threads=0, barriers=0, shared=True)
+    chunk = 32 * keys
+    np2 = max(chunk, 1 << (n - 1).bit_length())
+    barriers, k = int(np2 > chunk), 2 * chunk
+    while k <= np2:
+        barriers += (k // chunk).bit_length() - 1 + (k < np2)
+        k *= 2
+    return dict(np2=np2, chunks=np2 // chunk, threads=min(threads, np2 // keys),
+                barriers=barriers, shared=np2 <= K11_SHARED_KEYS)
+
+
 def route_sizes(S: np.ndarray, ndev: int, cap: int, ragged: bool) -> np.ndarray:
     """The rows shard i sends shard j, A[i][j], from the send counts S
     (host ints, as the kernel computes its allowance)."""

@@ -3,7 +3,10 @@
 ``--devices 2`` and ``-t 2`` with ``--engine frontier`` run the sharded
 engine on CPU shards and print the golden Final Score, similarity and
 alignment, the placement of the shards, one tid row a shard with its
-``migrated`` column, and the exchange ``--exchange`` asks for."""
+``migrated`` column, and the exchange ``--exchange`` asks for; ``-t 2
+--triples on`` on two sequences keeps the pair heuristic and prints the
+JAX CLI's Final Score and alignment, and ``--triples fractional`` there is
+refused, as in the JAX CLI (mpi_pastar_msa_tpu/cli.py:174-187)."""
 import contextlib
 import io
 import json
@@ -13,6 +16,7 @@ import string
 import pytest
 import torch
 
+from mpi_pastar_msa_tpu import cli as jcli
 from mpi_pastar_msa_tpu_torch import cli as tcli
 
 torch.set_num_threads(1)
@@ -28,11 +32,20 @@ def fasta(tmp_path, name):
     return str(path)
 
 
-def run(argv):
+def run(argv, main=tcli.run, rc=0):
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        assert tcli.run(argv) == 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        assert main(argv) == rc
     return out.getvalue()
+
+
+def surface(text):
+    """The Final Score line and the lines from Similarity to the counters."""
+    lines = text.splitlines()
+    score = next(i for i, l in enumerate(lines) if l.startswith("Final Score:"))
+    sim = next(i for i, l in enumerate(lines) if l.startswith("Similarity:"))
+    end = next(i for i, l in enumerate(lines) if l.startswith("Total nodes counters"))
+    return lines[score], lines[sim:end]
 
 
 @pytest.mark.parametrize("name,flags,shards,exchange", [
@@ -63,3 +76,19 @@ def test_cli_one_shard_stays_single_device(tmp_path):
     got = run([path, "--device", "cpu", "--engine", "frontier", "--devices", "1"])
     assert "shards:" not in got and "g - 24450 " in got
     assert sum(l.startswith("tid ") for l in got.splitlines()) == 1
+
+
+def test_cli_sharded_triples_on_falls_back_as_jax(tmp_path):
+    """Two sequences have no triangle: ``--triples on`` keeps the pair
+    heuristic under the sharded engine and exits 0 with the JAX CLI's
+    Final Score and alignment; ``--triples fractional`` exits 2 in both."""
+    path = tmp_path / "two.fasta"
+    path.write_text(">a\nACDEFGHIK\n>b\nACDFGHIK\n")
+    flags = [str(path), "-t", "2", "--triples", "on"]
+    want = run(flags + ["--engine", "tpu"], main=jcli.run)
+    got = run(flags + ["--device", "cpu", "--engine", "frontier"])
+    assert "shards: 2 on cpu, cpu" in got.splitlines()
+    assert surface(got) == surface(want)
+    frac = [str(path), "-t", "2", "--triples", "fractional"]
+    run(frac + ["--engine", "tpu"], main=jcli.run, rc=2)
+    run(frac + ["--device", "cpu", "--engine", "frontier"], rc=2)

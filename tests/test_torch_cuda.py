@@ -1255,3 +1255,93 @@ def test_k7_hop_mode_equals_plain(cuda):
                 got = S.walk_hops_cuda(sh.st, sh.tab, coord, hops).cpu()
                 assert torch.equal(got, SH.walk_hops_plain(sh.st, sh.tab, coord, hops))
     assert _kernels.launches["path_walk_hops"] == before + 2 * len(path) * len(shards)
+
+
+INFP = 0x7FFFFFFF  # search/engine.py's empty f
+
+
+def _k11_inputs(cuda, counts, me, cap, ccar, f_range, seed, ndev=4, M=1):
+    """Synthetic K11 inputs with ``counts[d]`` remote rows for destination
+    d, split at random between the listed lanes and the carry ring, among
+    lanes that stay (dest ndev) and empty ring rows; lanes past the listed
+    ones hold remote rows that the kernel must not read.  Returns (cand,
+    n_lanes, carry, nsel on the card)."""
+    rng = np.random.default_rng(seed)
+    dest = np.concatenate([np.full(c, d) for d, c in enumerate(counts)]).astype(np.int64)
+    in_ring = rng.random(dest.size) < min(0.3, ccar / max(dest.size, 1))
+    in_ring[np.cumsum(in_ring) > ccar] = False
+    lane_dest = np.concatenate([dest[~in_ring], np.full(dest.size // 3 + 5, ndev)])
+    rng.shuffle(lane_dest)
+    n_lanes = -(-lane_dest.size // M) * M
+    lanes_cap = n_lanes + 3 * M
+    cand = np.zeros((lanes_cap, 4), np.int32)
+    cand[:, 0] = ndev
+    cand[:lane_dest.size, 0] = lane_dest
+    cand[n_lanes:, 0] = 0  # past the listed lanes: never routed
+    carry = np.tile(np.array([ndev, INFP, 0, -1], np.int32), (ccar, 1))
+    ring_at = rng.permutation(ccar)[:int(in_ring.sum())]
+    carry[ring_at, 0] = dest[in_ring]
+    for t, live in ((cand, slice(None)), (carry, ring_at)):
+        k = t[live].shape[0]
+        t[live, 1] = np.where(t[live, 0] < ndev, rng.integers(0, f_range, k), t[live, 1])
+        t[live, 2] = np.where(t[live, 0] < ndev, rng.integers(0, 1 << 20, k), t[live, 2])
+        t[live, 3] = np.where(t[live, 0] < ndev, rng.integers(0, 1 << 30, k), t[live, 3])
+    nsel = torch.tensor(n_lanes // M, dtype=torch.int64, device=cuda)
+    return (torch.from_numpy(cand).to(cuda), n_lanes, torch.from_numpy(carry).to(cuda), nsel)
+
+
+@pytest.mark.parametrize("case,counts,cap,ccar,f_range", [
+    ("empty_and_one", (0, 1, 0, 0), 8, 64, 1000),
+    ("ties", (300, 0, 0, 290), 128, 512, 1),
+    ("warp_edges", (31, 32, 0, 33), 16, 64, 50),
+    ("kinase_sizes", (636, 1024, 0, 257), 512, 2048, 1 << 20),
+    ("shared_limit", (16384, 16385, 0, 5), 7936, 15872, 1 << 16),
+    ("spill_cap_1", (50, 40, 0, 30), 1, 256, 7),
+    ("ring_overflow", (200, 300, 0, 100), 4, 32, 1 << 10),
+])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_k11_equals_plain_synthetic(cuda, case, counts, cap, ccar, f_range, ragged):
+    """K11 (route_count, route_pack) against route_plain bit for bit: out,
+    the new ring and the wire rows sent, twice on the same buffers, under
+    the dense and the ragged allowance; segments on both sides of a warp's
+    keys and of the shared-memory limit, ties broken by position, spills
+    with cap 1 and a ring too small for them."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    ndev, me, M = 4, 2, 1
+    cand, n_lanes, carry, nsel = _k11_inputs(cuda, counts, me, cap, ccar, f_range, len(case))
+    lanes_cap = cand.shape[0]
+    seg = 1 << max(1, (lanes_cap + ccar - 1).bit_length())
+    Smat = None
+    if ragged:
+        rng = np.random.default_rng(7)
+        Sm = rng.integers(0, 3 * cap, (ndev, ndev)).astype(np.int32)
+        Sm[me] = counts
+        Smat = torch.from_numpy(Sm).to(cuda)
+    w_p, r_p, o_p = SH.route_plain(cand, n_lanes, carry, ndev, me, cap, Smat)
+    assert [int(v) for v in o_p[:ndev]] == list(counts)
+    A = SH.route_sizes((Smat.cpu().numpy() if ragged
+                        else np.tile(np.array(counts), (ndev, 1))), ndev, cap, ragged)[me]
+    base = np.cumsum(A) - A if ragged else np.arange(ndev) * cap
+    sent = torch.cat([torch.arange(int(b), int(b) + int(a)) for a, b in zip(A, base)]
+                     ).long().to(cuda)
+    keys = torch.empty(ndev * seg, dtype=torch.int64, device=cuda)
+    out = torch.empty(ndev + 3, dtype=torch.int32, device=cuda)
+    wire = torch.zeros((max(ndev * cap, lanes_cap + ccar), 3), dtype=torch.int32, device=cuda)
+    ring = torch.empty_like(carry)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):
+        _kernels.launch("route_count", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
+                        lanes_cap, ccar, ndev, seg, out.data_ptr(), keys.data_ptr(), stream)
+        _kernels.launch("route_pack", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
+                        ccar, ndev, me, cap, None if Smat is None else Smat.data_ptr(), seg,
+                        out.data_ptr(), keys.data_ptr(), wire.data_ptr(), ring.data_ptr(),
+                        stream)
+        torch.cuda.synchronize()
+        assert torch.equal(out, o_p), (out.tolist(), o_p.tolist())
+        assert torch.equal(ring, r_p)
+        assert torch.equal(wire[sent], w_p[sent])
+    if case == "spill_cap_1":
+        assert int(o_p[ndev + 1]) == 0 and int(o_p[ndev + 2]) < INFP
+    if case == "ring_overflow":
+        assert int(o_p[ndev + 1]) > 0

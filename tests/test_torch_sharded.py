@@ -194,52 +194,146 @@ def test_route_ragged_allowance_equals_numpy(seed, cap):
         assert int((ring[:, 0] < ndev).sum()) == min(spilled, ccar)
 
 
-def emulate_route(cand, n_lanes, carry, ndev, me, cap, Sm, seed):
-    """csrc/route_pack.cu's two passes in NumPy: pass 1 appends each remote
-    row's key (fsort << 32 | position) to its destination's segment in a
-    shuffled order (the kernel's atomics), pass 2's block d computes every
-    destination's allowance and spill offset, sorts its segment, and
-    writes its wire and ring rows; every block fills the ring's tail."""
-    rows = np.concatenate([cand[:n_lanes], carry]).astype(np.int64)
-    ccar = carry.shape[0]
-    order = np.random.default_rng(seed).permutation(len(rows))
+PAD = np.uint64(2**64 - 1)  # route_pack.cu's padding key
+
+
+def emulate_count(rows, n_lanes, ndev, seg_len, rng):
+    """route_count in NumPy: a warp takes 32 consecutive rows, the warps
+    (and a warp's destination groups) in an arbitrary order, the kernel's
+    atomics; the lanes of a warp with one destination (__match_any_sync)
+    take one atomicAdd for the group and rank themselves by lane.  Returns
+    (out, per destination its segment of keys fsort << 32 | position)."""
+    n = len(rows)
     out = np.zeros(ndev + 3, np.int64)
     out[ndev + 2] = INFP
-    seg = [[] for _ in range(ndev)]
-    for r in order:
-        d = rows[r, 0]
-        if 0 <= d < ndev:
-            seg[d].append((int(rows[r, 1]) << 32) | int(r))
-            out[d] += 1
-            out[ndev] += r < n_lanes
+    seg = np.zeros((ndev, seg_len), np.uint64)
+    for w in rng.permutation(-(-n // 32)):
+        r = w * 32 + np.arange(32)
+        d = np.where(r < n, rows[np.minimum(r, n - 1), 0], -1)
+        remote = (d >= 0) & (d < ndev)
+        out[ndev] += int((remote & (r < n_lanes)).sum())  # one atomic a block
+        for dd in rng.permutation(np.unique(d[remote])):
+            peers = r[d == dd]  # lane order
+            at = out[dd]
+            out[dd] += len(peers)  # the leader's atomicAdd
+            f = (rows[peers, 1] & 0xFFFFFFFF).astype(np.uint64)
+            seg[dd, at:at + len(peers)] = f << np.uint64(32) | peers.astype(np.uint64)
+    return out, seg
+
+
+def emulate_warp_stages(v, base, k, jtop, keys):
+    """warp_stages: stages j = jtop .. 1 of merge k on a warp's chunk, v
+    (32, keys) with lane l holding keys base + l keys + r; the partner in
+    another lane by a shuffle, then in the same thread in registers."""
+    lane = np.arange(32)[:, None]
+    i = base + lane * keys + np.arange(keys)[None, :]
+    up = (i & k) == 0
+    j = jtop
+    while j >= keys:
+        m = j // keys
+        o = v[np.arange(32) ^ m]  # __shfl_xor_sync
+        v = np.where(((lane & m) == 0) == up, np.minimum(v, o), np.maximum(v, o))
+        j //= 2
+    j = keys // 2
+    while j > 0:
+        if j <= jtop:
+            for r in range(keys):
+                if r & j:
+                    continue
+                a, b = v[:, r].copy(), v[:, r | j].copy()
+                sw = (a > b) == up[:, r]
+                v[:, r], v[:, r | j] = np.where(sw, b, a), np.where(sw, a, b)
+        j //= 2
+    return v
+
+
+def emulate_sort(seg, n, keys, threads, rng):
+    """sort_segment: the n keys padded to np2, the merges up to a chunk in
+    each warp's chunks, then each merge's strides of a chunk or more over
+    the working keys (a barrier each) and its strides within a chunk in
+    registers (a barrier after, but the last merge's).  Warps take their
+    chunks in an arbitrary order.  Returns (sorted keys, barriers)."""
+    W = 32 * keys
+    np2 = max(W, 1 << max(n - 1, 0).bit_length())
+    chunks = np2 // W
+    s = np.full(np2, PAD, np.uint64)
+    s[:n] = seg[:n]
+    barriers = 0
+    for c in rng.permutation(chunks):
+        v = s[c * W:(c + 1) * W].reshape(32, keys)
+        k = 2
+        while k <= W:
+            v = emulate_warp_stages(v, c * W, k, k // 2, keys)
+            k *= 2
+        s[c * W:(c + 1) * W] = v.ravel()
+    barriers += chunks > 1
+    k = 2 * W
+    while k <= np2:
+        j = k // 2
+        while j >= W:
+            p = np.arange(np2 // 2)
+            i = ((p & ~(j - 1)) << 1) | (p & (j - 1))
+            a, b = s[i].copy(), s[i + j].copy()
+            sw = (a > b) == ((i & k) == 0)
+            s[i], s[i + j] = np.where(sw, b, a), np.where(sw, a, b)
+            barriers += 1
+            j //= 2
+        for c in rng.permutation(chunks):
+            v = s[c * W:(c + 1) * W].reshape(32, keys)
+            s[c * W:(c + 1) * W] = emulate_warp_stages(v, c * W, k, W // 2, keys).ravel()
+        barriers += k < np2
+        k *= 2
+    return s[:n], barriers
+
+
+def emulate_allowance(out, Sm, ndev, me, cap):
+    """allowance(): a warp's lanes over the destinations 32 at a time, with
+    a scan of the spills and allowances: per destination (allow, wire base,
+    spilled before it), and the rows spilled in all."""
+    cnt = out[:ndev].astype(np.int64)
+    if Sm is None:
+        allow = np.full(ndev, cap, np.int64)
+    else:
+        allow = np.clip(ndev * cap - Sm[:me].astype(np.int64).sum(0), 0, cnt)
+    over = np.maximum(cnt - allow, 0)
+    base = np.cumsum(allow) - allow if Sm is not None else np.arange(ndev) * cap
+    return allow, base, np.cumsum(over) - over, int(over.sum())
+
+
+def emulate_route(cand, n_lanes, carry, ndev, me, cap, Sm, seed, keys=S.K11_KEYS,
+                  threads=S.K11_THREADS):
+    """csrc/route_pack.cu's two passes in NumPy (emulate_count, then
+    route_pack): block d sorts its segment (emulate_sort) and copies its
+    rows by position, the first allow to the wire and the rest to the ring
+    from its spill offset, its first spilled row taking the ring's min; the
+    blocks after them fill the ring's tail.  Returns (wire, ring, out, the
+    barriers of each destination's sort)."""
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([cand[:n_lanes], carry]).astype(np.int64)
+    ccar = carry.shape[0]
+    out, seg = emulate_count(rows, n_lanes, ndev, len(rows), rng)
+    allow, base, before, spilled = emulate_allowance(out, Sm, ndev, me, cap)
     wire = np.zeros((max(ndev * cap, len(cand) + ccar), 3), np.int64)
     ring = np.zeros((ccar, 4), np.int64)
-    spilled_all = 0
-    for d in range(ndev + 1):  # block d (one more block: the tail only)
-        spilled = spill_before = base = base_d = allow_d = 0
-        for q in range(ndev):
-            allow = cap
-            if Sm is not None:
-                a = ndev * cap - int(Sm[:me, q].sum())
-                allow = min(max(a, 0), int(out[q]))
-            if q == d:
-                spill_before, allow_d = spilled, allow
-                base_d = base if Sm is not None else q * cap
-            spilled += max(int(out[q]) - allow, 0)
-            base += allow
-        spilled_all = spilled
-        ring[spilled:] = [ndev, INFP, 0, -1]
-        if d == ndev:
+    ring[spilled:] = [ndev, INFP, 0, -1]  # the tail's blocks
+    out[ndev + 1] = max(spilled - ccar, 0)
+    barriers = []
+    for d in rng.permutation(ndev):
+        n = int(out[d])
+        if n == 0:
+            barriers.append((d, 0))
             continue
-        for i, key in enumerate(sorted(seg[d])):
-            v = rows[key & 0xFFFFFFFF]
-            if i < allow_d:
-                wire[base_d + i] = v[[2, 3, 1]]
-            elif spill_before + i - allow_d < ccar:
-                ring[spill_before + i - allow_d] = [d, v[1], v[2], v[3]]
-                out[ndev + 2] = min(out[ndev + 2], v[1])
-    out[ndev + 1] = max(spilled_all - ccar, 0)
-    return wire, ring, out
+        ordered, nb = emulate_sort(seg[d], n, keys, threads, rng)
+        barriers.append((d, nb))
+        for i, key in enumerate(ordered):
+            v = rows[int(key) & 0xFFFFFFFF]
+            if i < allow[d]:
+                wire[base[d] + i] = v[[2, 3, 1]]
+            elif before[d] + i - allow[d] < ccar:
+                ring[before[d] + i - allow[d]] = [d, v[1], v[2], v[3]]
+                if i == allow[d]:
+                    out[ndev + 2] = min(out[ndev + 2], v[1])
+    return wire, ring, out, dict(barriers)
 
 
 @pytest.mark.parametrize("seed,cap,ragged,f_range", [
@@ -257,7 +351,8 @@ def test_k11_emulation_equals_plain(seed, cap, ragged, f_range):
     for me in range(ndev):
         w, r, o = S.route_plain(torch.from_numpy(cand[me]), n_lanes, torch.from_numpy(carry[me]),
                                 ndev, me, cap, None if Sm is None else torch.from_numpy(Sm))
-        ew, er, eo = emulate_route(cand[me], n_lanes, carry[me], ndev, me, cap, Sm, seed + me)
+        ew, er, eo, _ = emulate_route(cand[me], n_lanes, carry[me], ndev, me, cap, Sm,
+                                      seed + me)
         A = S.route_sizes(Sm if ragged else np.tile(o[:ndev].numpy(), (ndev, 1)), ndev, cap,
                           ragged)[me]
         base = np.cumsum(A) - A if ragged else np.arange(ndev) * cap
@@ -265,6 +360,55 @@ def test_k11_emulation_equals_plain(seed, cap, ragged, f_range):
         assert np.array_equal(o.numpy(), eo)
         assert np.array_equal(r.numpy(), er)
         assert np.array_equal(w.numpy()[sent], ew[sent])
+
+
+@pytest.mark.parametrize("keys,threads,L,ndev,ragged", [
+    # about 700 rows a destination: 4 chunks, strides through shared memory
+    (8, 1024, 2000, 2, False), (8, 1024, 2000, 2, True),
+    # 64-key chunks on 2 warps: each warp loops over several chunks
+    (2, 64, 1500, 3, False),
+    # one warp of several chunks (its barriers are __syncwarp)
+    (4, 32, 900, 2, True)])
+def test_k11_schedules_equal_plain(keys, threads, L, ndev, ragged):
+    """The emulation at other schedule constants than the kernel's, so that
+    small inputs reach several chunks a warp: the same route as the plain
+    version, and the barriers k11_sort_shape counts."""
+    ccar, cap = L // 2, 50
+    cand, carry = route_inputs(40 + keys, ndev, L, ccar, 1 << 12)  # ties in f
+    n_lanes = L - 5
+    Sm = None
+    if ragged:
+        Sm = np.stack([S.route_plain(torch.from_numpy(cand[i]), n_lanes,
+                                     torch.from_numpy(carry[i]), ndev, i, cap)[2][:ndev].numpy()
+                       for i in range(ndev)])
+    for me in range(ndev):
+        w, r, o = S.route_plain(torch.from_numpy(cand[me]), n_lanes, torch.from_numpy(carry[me]),
+                                ndev, me, cap, None if Sm is None else torch.from_numpy(Sm))
+        ew, er, eo, bar = emulate_route(cand[me], n_lanes, carry[me], ndev, me, cap, Sm,
+                                        60 + me, keys=keys, threads=threads)
+        assert np.array_equal(o.numpy(), eo) and np.array_equal(r.numpy(), er)
+        A = S.route_sizes(Sm if ragged else np.tile(o[:ndev].numpy(), (ndev, 1)), ndev, cap,
+                          ragged)[me]
+        base = np.cumsum(A) - A if ragged else np.arange(ndev) * cap
+        sent = np.concatenate([np.arange(b, b + a) for a, b in zip(A, base)]).astype(int)
+        assert np.array_equal(w.numpy()[sent], ew[sent])
+        assert max(int(o[d]) for d in range(ndev) if d != me) > 2 * 32 * keys
+        for d, nb in bar.items():
+            assert nb == S.k11_sort_shape(int(o[d]), keys, threads)["barriers"]
+
+
+def test_k11_sort_shape():
+    """route_pack's sort at the kernel's constants: a warp of 256 keys with
+    no barrier, 1,024 keys on 128 threads with 5 barriers (PR 15's block
+    bitonic: 55 stages), shared memory up to 16,384 keys."""
+    shape = S.k11_sort_shape
+    assert shape(0)["threads"] == 0 and shape(0)["barriers"] == 0
+    assert [shape(n)["barriers"] for n in (1, 31, 32, 33, 256)] == [0] * 5
+    assert shape(257) == dict(np2=512, chunks=2, threads=64, barriers=2, shared=True)
+    assert shape(636) == shape(1024) == dict(np2=1024, chunks=4, threads=128, barriers=5,
+                                             shared=True)
+    assert shape(16384)["shared"] and not shape(16385)["shared"]
+    assert shape(31744) == dict(np2=32768, chunks=128, threads=1024, barriers=35, shared=False)
 
 
 # --- K12: the plain tri-partial against JAX's
