@@ -2449,15 +2449,15 @@ def sharded_walk_bytes(st, shards, final) -> dict:
 
 
 def k11_bitonic_stages(n: int) -> int:
-    """The barrier stages of PR 15's block bitonic (route_pack.cu of
-    c408a21) for a segment of n keys: log2(np2)(log2(np2) + 1) / 2, np2
+    """The barrier stages of the block bitonic K11 sorted with up to
+    commit c408a21 (its route_pack.cu) for a segment of n keys: log2(np2)(log2(np2) + 1) / 2, np2
     the power of two at or above n (besides a barrier after its load and
     one before its reduction)."""
     lg = max(n - 1, 0).bit_length()
     return lg * (lg + 1) // 2
 
 
-class k11_runner:
+class K11Run:
     """One build of K11 on fixed inputs (``inp``: cand, carry, n_lanes, M,
     ndev, me, cap, S or None, seg), with outputs of its own: count() and
     pack() each call one C entry, call() both.  ``fns`` is another tree's
@@ -2472,7 +2472,7 @@ class k11_runner:
         lanes_cap, ccar, M = cand.shape[0], carry.shape[0], inp["M"]
         self.nsel = torch.tensor(inp["n_lanes"] // M, dtype=torch.int64, device=dev)
         self.out = torch.empty(ndev + 3, dtype=torch.int32, device=dev)
-        self.keys = torch.empty(ndev * inp["seg"], dtype=torch.int64, device=dev)
+        self.keys = torch.empty(2 * ndev * inp["seg"], dtype=torch.int64, device=dev)
         self.wire = torch.zeros((max(ndev * cap, lanes_cap + ccar), 3), dtype=torch.int32,
                                 device=dev)
         self.ring = torch.empty_like(carry)
@@ -2517,7 +2517,7 @@ def k11_sent_sizes(inp: dict, p_out):
     return SH.route_sizes(S, ndev, inp["cap"], inp["S"] is not None)[inp["me"]]
 
 
-def k11_check(label: str, inp: dict, run: "k11_runner"):
+def k11_check(label: str, inp: dict, run: "K11Run"):
     """One call of ``run`` against route_plain on the same inputs, bit for
     bit: out (counts, migrants, carry overflow, ring min), the new ring and
     the wire rows sent.  Returns the plain version's out."""
@@ -2555,7 +2555,7 @@ def k11_turns(inp: dict, baseline: dict, label: str, reps: int = 20) -> dict:
 
     this = {"src": "this tree", **{n: getattr(_kernels.load(n), n)
                                    for n in ("route_count", "route_pack")}}
-    who = {"old": k11_runner(inp, baseline), "new": k11_runner(inp, this)}
+    who = {"old": K11Run(inp, baseline), "new": K11Run(inp, this)}
     res = {k: {"old": [], "new": []} for k in ("route_count", "route_pack", "call",
                                                 "call_wrapper")}
     for w in ("old", "new", "new", "old"):
@@ -2656,7 +2656,7 @@ def k11_sweep(baseline=None) -> dict:
     """K11 at each segment size of K11_SWEEP (k11_synthetic, ragged):
     checked against route_plain, then the device ms of each pass alone and
     of the call, in turns with another tree's K11 (checked too) when there
-    is one; a destination's sort barriers (k11_sort_shape) and PR 15's
+    is one; a destination's sort barriers (k11_sort_shape) and c408a21's
     bitonic stages."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
@@ -2664,14 +2664,14 @@ def k11_sweep(baseline=None) -> dict:
     print("K11 sweep (kinase's shapes, 4 shards, ragged; n rows a destination):")
     for n in K11_SWEEP:
         inp = k11_synthetic(n)
-        run = k11_runner(inp)
+        run = K11Run(inp)
         k11_check(f"K11 (sweep, n = {n})", inp, run)
         shape = SH.k11_sort_shape(n)
-        row = dict(n=n, rows=inp["n_lanes"] + inp["carry"].shape[0], barriers=shape["barriers"],
-                   threads=shape["threads"], shared=shape["shared"],
-                   stages_pr15=k11_bitonic_stages(n))
+        row = dict(n=n, rows=inp["n_lanes"] + inp["carry"].shape[0], rounds=shape["rounds"],
+                   barriers=shape["barriers"], threads=shape["threads"], shared=shape["shared"],
+                   bitonic_stages=k11_bitonic_stages(n))
         if baseline is not None:
-            old = k11_runner(inp, baseline)
+            old = K11Run(inp, baseline)
             k11_check(f"K11 of {baseline['src']} (sweep, n = {n})", inp, old)
             row["turns"] = k11_turns(inp, baseline, f"n = {n}")
         else:
@@ -2681,9 +2681,10 @@ def k11_sweep(baseline=None) -> dict:
                        call_device_ms=device_ms(run.call, 20))
             print(f"    n = {n}: route_count {row['route_count_device_ms']:.4f}, route_pack "
                   f"{row['route_pack_device_ms']:.4f}, call {row['call_device_ms']:.4f} ms")
-        print(f"  n = {n}: {shape['barriers']} barriers on {shape['threads']} threads "
-              f"({'shared' if shape['shared'] else 'device'} memory); PR 15's bitonic "
-              f"{row['stages_pr15']} stages")
+        print(f"  n = {n}: {shape['rounds']} merge rounds, {shape['barriers']} block barriers "
+              f"on {shape['threads']} threads "
+              f"({'shared' if shape['shared'] else 'device'} memory); c408a21's bitonic "
+              f"{row['bitonic_stages']} stages")
         out[str(n)] = row
         del inp, run
     return out
@@ -2696,7 +2697,7 @@ def sharded_kernel_checks(cap: dict, shards, k11_baseline=None) -> dict:
     rows, t_best after its round-0 match, its pending lanes as a multiset,
     the surviving and pending counts, the goal), K11 under the dense and
     the ragged allowance (counts, migrants, carry overflow, ring min, the
-    new ring, the rows sent; each destination's sort barriers, and PR 15's
+    new ring, the rows sent; each destination's sort barriers, and c408a21's
     bitonic stages beside them; with ``k11_baseline``, another tree's K11
     checked too and timed in turns); then K7's hop mode against its plain
     version on every shard's finished table from every path node.  Wrapper
@@ -2808,7 +2809,7 @@ def sharded_kernel_checks(cap: dict, shards, k11_baseline=None) -> dict:
     for mode, Smat in (("dense", None), ("ragged", S_all)):
         inp = dict(cand=cap["cand_route"], carry=cap["ring"], n_lanes=cap["nsel"] * M, M=M,
                    ndev=ndev, me=me, cap=eng.exchange_cap, S=Smat, seg=sh.seg)
-        run = k11_runner(inp)
+        run = K11Run(inp)
         p_out = k11_check(f"K11 ({mode})", inp, run)
         A = k11_sent_sizes(inp, p_out)
         # inputs read once, outputs written once: every row's dest, the
@@ -2833,14 +2834,15 @@ def sharded_kernel_checks(cap: dict, shards, k11_baseline=None) -> dict:
         out[f"route_{mode}"].update(
             rows=inp["n_lanes"] + ccar, remote=remote, sent=int(A.sum()),
             spilled=remote - int(A.sum()), passes=passes, segments=p_out[:ndev].tolist(),
-            barriers=max(x["barriers"] for x in sorts),
+            barriers=max(x["barriers"] for x in sorts), rounds=max(x["rounds"] for x in sorts),
             sort_threads=[x["threads"] for x in sorts],
-            barriers_pr15=max(k11_bitonic_stages(int(c)) for c in p_out[:ndev]))
-        print(f"    segments {p_out[:ndev].tolist()}: sort barriers {[x['barriers'] for x in sorts]}"
-              f" on {[x['threads'] for x in sorts]} threads (PR 15's bitonic: "
+            bitonic_stages=max(k11_bitonic_stages(int(c)) for c in p_out[:ndev]))
+        print(f"    segments {p_out[:ndev].tolist()}: merge rounds "
+              f"{[x['rounds'] for x in sorts]}, block barriers {[x['barriers'] for x in sorts]} "
+              f"on {[x['threads'] for x in sorts]} threads (c408a21's bitonic: "
               f"{[k11_bitonic_stages(int(c)) for c in p_out[:ndev]]} stages)")
         if k11_baseline is not None:
-            old = k11_runner(inp, k11_baseline)
+            old = K11Run(inp, k11_baseline)
             k11_check(f"K11 of {k11_baseline['src']} ({mode})", inp, old)
             out[f"route_{mode}"]["turns"] = k11_turns(inp, k11_baseline,
                                                       f"step {cap['at']}, {mode}")
@@ -3624,7 +3626,7 @@ def main() -> int:
                     help="also check and time K11 on synthetic inputs at kinase's "
                          "shapes with 64, 636, 4096, 8192, 16384 and 31744 rows a "
                          "destination (in turns with --k11-baseline's), with each "
-                         "sort's barriers and PR 15's bitonic stages")
+                         "sort's barriers and c408a21's bitonic stages")
     ap.add_argument("--k2-baseline", metavar="SRC", default=None,
                     help="also build the plane-per-launch version of "
                          "csrc/triple_wavefront.cu (its C entry with Dmax and "
@@ -4010,7 +4012,8 @@ def main() -> int:
             entry.update(
                 latency_floor_ms=2 * floor["device_ms"] + 6 * chase["l2_ns"] / 1e6,
                 latency_floor_dram_ms=2 * floor["device_ms"] + 6 * chase["dram_ns"] / 1e6,
-                **{k: t[k] for k in ("segments", "barriers", "sort_threads", "barriers_pr15")},
+                **{k: t[k] for k in ("segments", "rounds", "barriers", "sort_threads",
+                                     "bitonic_stages")},
                 **({"turns": {m: sh["checks"][f"route_{m}"]["turns"]
                               for m in ("ragged", "dense")}} if "turns" in t else {}),
                 **({"sweep": sh["k11_sweep"]} if "k11_sweep" in sh else {}))

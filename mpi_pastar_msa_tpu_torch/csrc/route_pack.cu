@@ -37,27 +37,32 @@
 //      block's sum and one atomic a block.  The order of a segment is not
 //      fixed: pass 2 sorts it.
 //   2. route_pack: block d < ndev sorts destination d's segment, then
-//      copies its rows by position into the wire and the ring (the sort and
-//      the copy are apart: a copy of other rows is another Emit); the
-//      blocks after them fill the ring's tail; out[ndev + 1] = carry_ovf,
-//      out[ndev + 2] = the ring's min fsort (set to INFP by pass 1; each
-//      destination's first spilled row, the smallest of its spill, takes an
-//      atomicMin).
+//      copies its rows by position into the wire and the ring, a row a
+//      thread in sorted order (the sort and the copy are apart: a copy of
+//      other rows is another Copy); the blocks after them fill the ring's
+//      tail; out[ndev + 1] = carry_ovf, out[ndev + 2] = the ring's min
+//      fsort (set to INFP by pass 1; each destination's first spilled row,
+//      the smallest of its spill, takes an atomicMin).
 //
-// The sort (a bitonic network over the segment padded to np2 = a power of
-// two, at least a warp's kWarpKeys keys): each thread holds kKeys
-// consecutive keys in registers.  Stages whose partner lies in the same
-// thread run in registers, stages within a warp's span with
-// __shfl_xor_sync, and only strides of a warp's span or more pass through
-// shared memory (the device-memory segment in place when np2 exceeds
-// kShKeys), one barrier each.  Merges up to kWarpKeys keys run in each
-// warp's chunk with no barrier; a segment of one chunk needs none at all.
-// The block is sized to the segment: np2 / kKeys threads, at most kThreads
-// (more chunks than warps loop), and the other warps leave at once; the
-// barrier is a named one over the threads that sort.  At 1,024 keys: 128
-// threads and 5 barriers, where PR 15's block bitonic took 55 (and 57
+// The sort (a merge sort over the segment padded to np2, a power of two
+// of at least kKeys keys): each warp loads its 32 groups of kKeys keys
+// (coalesced, lane by lane), and each thread sorts a group in registers (a
+// bitonic network of compile-time indices); then rounds merge runs of w =
+// kKeys, 2 kKeys, ... np2 / 2 keys pairwise, each thread writing the kKeys
+// outputs of its group: a binary search along the merge path finds where
+// they start in the two runs, then kKeys steps of a serial merge.  The
+// rounds read one buffer and write the other, so one barrier a round
+// suffices: a warp's __syncwarp while the runs merged lie within its 32
+// groups, a named barrier over the threads that sort above, and one more
+// before the copy.  In shared memory (up to kShKeys keys) a group takes
+// kKeys + 1 slots, so that a warp's accesses to its groups hit distinct
+// banks; above, the two buffers are two segments of device memory.  The
+// block is sized to the segment: np2 / kKeys threads, at least a warp and
+// at most kPackThreads (a thread loops over groups beyond), and the other
+// threads leave at once.  At 1,024 keys: 128 threads, 7 rounds, 3 block
+// barriers, where the block bitonic of commit c408a21 took 55 (and 57
 // with its load and its reduction).  parallel/sharded.py::k11_sort_shape
-// gives the threads and barriers of a segment.
+// gives the threads, rounds and barriers of a segment.
 //
 // What bounds it on an H100: launches and the chain of dependent accesses
 // (a row's read and its atomic; the counts, the keys, the row gathered by
@@ -71,10 +76,11 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kThreads = 1024;              // a block of either pass
-constexpr int kKeys = 8;                    // keys a thread holds in registers
-constexpr int kWarpKeys = 32 * kKeys;       // a warp's chunk
-constexpr int kShKeys = 16384;              // keys a block sorts in shared memory (128 KB)
+constexpr int kThreads = 1024;              // route_count's blocks
+constexpr int kPackThreads = 512;           // route_pack's blocks
+constexpr int kKeys = 8;                    // a thread's group of keys
+constexpr int kWarpKeys = 32 * kKeys;       // a warp's groups
+constexpr int kShKeys = 8192;               // keys a block sorts in shared memory (2 x 72 KB)
 constexpr int kMaxDevices = 64;             // cards whose shared-memory attribute is cached
 constexpr int32_t kInfp = 0x7FFFFFFF;
 constexpr u64 kPad = ~0ull;                 // the padding key, after every real one
@@ -190,99 +196,101 @@ __device__ __forceinline__ void sort_sync(int nt) {
     __syncwarp();
 }
 
-// Stages j = jtop .. 1 of the merge of size k on one warp's chunk at index
-// `base` (a multiple of kWarpKeys): lane l holds keys base + l kKeys + r,
-// r < kKeys.  A pair's lower index keeps the smaller key where bit k of
-// the index is clear (an ascending run), the larger where it is set.
-__device__ __forceinline__ void warp_stages(u64 (&v)[kKeys], int base, int k, int jtop) {
-  const int lane = threadIdx.x & 31;
-  const int i0 = base + lane * kKeys;
-  for (int j = jtop; j >= kKeys; j >>= 1) {  // the partner in lane ^ (j / kKeys)
-    const int m = j / kKeys;
-    const bool lower = (lane & m) == 0;
+// Sort a group's kKeys keys ascending in registers.
+__device__ __forceinline__ void sort_group(u64 (&v)[kKeys]) {
 #pragma unroll
-    for (int r = 0; r < kKeys; ++r) {
-      const u64 o = __shfl_xor_sync(0xffffffffu, v[r], m);
-      const bool up = ((i0 + r) & k) == 0;
-      v[r] = (lower == up) ? (v[r] < o ? v[r] : o) : (v[r] > o ? v[r] : o);
-    }
-  }
+  for (int k = 2; k <= kKeys; k <<= 1)
 #pragma unroll
-  for (int j = kKeys / 2; j > 0; j >>= 1) {  // the partner in the same thread
-    if (j > jtop) continue;
+    for (int j = k >> 1; j > 0; j >>= 1)
 #pragma unroll
-    for (int r = 0; r < kKeys; ++r) {
-      if (r & j) continue;
-      const bool up = ((i0 + r) & k) == 0;
-      const u64 a = v[r], b = v[r | j];
-      if ((a > b) == up) {
-        v[r] = b;
-        v[r | j] = a;
+      for (int i = 0; i < kKeys; ++i) {
+        const int l = i ^ j;
+        if (l > i && (v[i] > v[l]) == ((i & k) == 0)) {
+          const u64 t = v[i];
+          v[i] = v[l];
+          v[l] = t;
+        }
       }
-    }
+}
+
+// Slot of key i in a working buffer: in shared memory a group of kKeys
+// keys takes kKeys + 1 slots.
+template <bool kShared>
+__device__ __forceinline__ int slot_of(int i) {
+  return kShared ? i + i / kKeys : i;
+}
+
+// Outputs o .. o + kKeys of the merge of the sorted runs at keys a and b
+// of buffer x, w keys each, into v.  A key of a goes first only when
+// smaller, so the padding keys, all equal, merge too.  No branch on the
+// keys: a lane's steps differ only in what it loads.
+template <bool kShared>
+__device__ __forceinline__ void merge_group(const u64* x, int a, int b, int w, int o,
+                                            u64 (&v)[kKeys]) {
+  // the keys of a among the first o outputs: a lower bound on the merge path
+  int lo = o > w ? o - w : 0, len = (o < w ? o : w) - lo;
+  while (len > 0) {
+    const int half = len >> 1, mid = lo + half;
+    const bool less = x[slot_of<kShared>(a + mid)] < x[slot_of<kShared>(b + o - 1 - mid)];
+    lo = less ? mid + 1 : lo;
+    len = less ? len - half - 1 : half;
+  }
+  int ia = lo, ib = o - lo;
+  u64 ka = x[slot_of<kShared>(a + (ia < w ? ia : w - 1))];
+  u64 kb = x[slot_of<kShared>(b + (ib < w ? ib : w - 1))];
+#pragma unroll
+  for (int r = 0; r < kKeys; ++r) {
+    const bool from_a = ib >= w || (ia < w && ka < kb);
+    v[r] = from_a ? ka : kb;
+    ia += from_a;
+    ib += !from_a;
+    const u64 next = x[slot_of<kShared>(from_a ? a + (ia < w ? ia : w - 1)
+                                               : b + (ib < w ? ib : w - 1))];
+    ka = from_a ? next : ka;
+    kb = from_a ? kb : next;
   }
 }
 
-// Sort the n keys of src ascending and call emit(i, key) for each sorted
-// index i < n, from the registers of the last merge.  s: the working keys,
-// np2 of them (shared memory, or src itself in device memory); nt threads
-// (a multiple of 32) take part, and warp w takes chunks w, w + nt / 32, ...
-template <class Emit>
-__device__ void sort_segment(u64* s, const u64* src, int n, int np2, int nt, const Emit& emit) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = nt >> 5;
-  const int chunks = np2 / kWarpKeys;
+// Sort the n keys of src ascending into one of the two working buffers x
+// and y (np2 keys each, at slot_of; x may be src), and return it.  nt
+// threads (a multiple of 32) take part, thread t the groups t, t + nt, ...
+template <bool kShared>
+__device__ u64* sort_segment(u64* x, u64* y, const u64* src, int n, int np2, int nt) {
+  const int groups = np2 / kKeys, lane = threadIdx.x & 31;
   u64 v[kKeys];
-  // merges up to a chunk: in each warp, no barrier
-  for (int c = warp; c < chunks; c += warps) {
-    const int base = c * kWarpKeys;
+  for (int g0 = threadIdx.x - lane; g0 < groups; g0 += nt) {  // a warp's 32 groups a trip
 #pragma unroll
-    for (int r = 0; r < kKeys; ++r) {
-      const int i = base + lane * kKeys + r;
-      v[r] = i < n ? src[i] : kPad;
+    for (int r = 0; r < kKeys; ++r) {  // lane by lane, then a group a thread
+      const int i = g0 * kKeys + r * 32 + lane;
+      if (i < np2) x[slot_of<kShared>(i)] = i < n ? src[i] : kPad;
     }
-    for (int k = 2; k <= kWarpKeys; k <<= 1) warp_stages(v, base, k, k >> 1);
-    if (chunks == 1) {
+    __syncwarp();
+    const int g = g0 + lane;
+    if (g < groups) {
 #pragma unroll
-      for (int r = 0; r < kKeys; ++r) {
-        const int i = lane * kKeys + r;
-        if (i < n) emit(i, v[r]);
-      }
-      return;
+      for (int r = 0; r < kKeys; ++r) v[r] = x[slot_of<kShared>(g * kKeys + r)];
+      sort_group(v);
+#pragma unroll
+      for (int r = 0; r < kKeys; ++r) x[slot_of<kShared>(g * kKeys + r)] = v[r];
     }
+  }
+  for (int w = kKeys; w < np2; w <<= 1) {
+    if (2 * w <= kWarpKeys)
+      __syncwarp();
+    else
+      sort_sync(nt);
+    for (int g = threadIdx.x; g < groups; g += nt) {
+      const int at = g * kKeys, pair = at & ~(2 * w - 1);
+      merge_group<kShared>(x, pair, pair + w, w, at - pair, v);
 #pragma unroll
-    for (int r = 0; r < kKeys; ++r) s[base + lane * kKeys + r] = v[r];
+      for (int r = 0; r < kKeys; ++r) y[slot_of<kShared>(at + r)] = v[r];
+    }
+    u64* t = x;
+    x = y;
+    y = t;
   }
   sort_sync(nt);
-  for (int k = 2 * kWarpKeys; k <= np2; k <<= 1) {
-    // strides of a chunk or more: pairs of the working keys, a barrier each
-    for (int j = k >> 1; j >= kWarpKeys; j >>= 1) {
-      for (int p = threadIdx.x; p < (np2 >> 1); p += nt) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const u64 a = s[i], b = s[i + j];
-        if ((a > b) == ((i & k) == 0)) {
-          s[i] = b;
-          s[i + j] = a;
-        }
-      }
-      sort_sync(nt);
-    }
-    // the strides within a chunk: in registers and shuffles
-    for (int c = warp; c < chunks; c += warps) {
-      const int base = c * kWarpKeys;
-#pragma unroll
-      for (int r = 0; r < kKeys; ++r) v[r] = s[base + lane * kKeys + r];
-      warp_stages(v, base, k, kWarpKeys >> 1);
-#pragma unroll
-      for (int r = 0; r < kKeys; ++r) {
-        const int i = base + lane * kKeys + r;
-        if (k < np2)
-          s[i] = v[r];
-        else if (i < n)
-          emit(i, v[r]);
-      }
-    }
-    if (k < np2) sort_sync(nt);
-  }
+  return x;
 }
 
 // The copy of destination d's sorted rows: the first allow to the wire
@@ -298,8 +306,11 @@ struct WireRingCopy {
   int32_t* wire;
   int4* carry_out;
 
-  __device__ void operator()(int i, u64 key) const {
-    const int4 v = row_at(cand, carry, n_lanes, (long long)(key & 0xffffffffull));
+  __device__ int4 row(u64 key) const {
+    return row_at(cand, carry, n_lanes, (long long)(key & 0xffffffffull));
+  }
+
+  __device__ void put(int i, int4 v) const {
     if (i < a.allow) {
       int32_t* w = wire + 3 * (a.base + i);
       w[0] = v.z;
@@ -315,7 +326,26 @@ struct WireRingCopy {
   }
 };
 
-__global__ void __launch_bounds__(kThreads) route_pack_kernel(
+// Copy the n sorted keys' rows, a row a thread (consecutive threads on
+// consecutive rows), kKeys rows read before any is written.
+template <bool kShared, class Copy>
+__device__ void copy_sorted(const u64* x, int n, int nt, const Copy& copy) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += nt * kKeys) {
+    int4 v[kKeys];
+#pragma unroll
+    for (int r = 0; r < kKeys; ++r) {
+      const int i = i0 + r * nt;
+      if (i < n) v[r] = copy.row(x[slot_of<kShared>(i)]);
+    }
+#pragma unroll
+    for (int r = 0; r < kKeys; ++r) {
+      const int i = i0 + r * nt;
+      if (i < n) copy.put(i, v[r]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kPackThreads) route_pack_kernel(
     const int4* __restrict__ cand, const int4* __restrict__ carry, const long long* nsel, int M,
     int ccar, int ndev, int me, int cap, const int32_t* __restrict__ S, long long seg,
     int32_t* __restrict__ out, u64* __restrict__ keys, int32_t* __restrict__ wire,
@@ -332,18 +362,24 @@ __global__ void __launch_bounds__(kThreads) route_pack_kernel(
   }
   const int n = out[d];
   if (n == 0) return;
-  int np2 = kWarpKeys;
+  int np2 = kKeys;
   while (np2 < n) np2 <<= 1;
-  const int nt = np2 / kKeys < kThreads ? np2 / kKeys : kThreads;
+  const int nt = np2 <= kWarpKeys ? 32 : (np2 / kKeys < kPackThreads ? np2 / kKeys : kPackThreads);
   if ((int)threadIdx.x >= nt) return;
   const WireRingCopy copy{cand, carry, *nsel * M, ccar, ndev, d,
                           allowance(out, S, ndev, me, cap, d), out, wire, carry_out};
   u64* k = keys + (long long)d * seg;
-  sort_segment(np2 <= kShKeys ? sh : k, k, n, np2, nt, copy);
+  if (np2 <= kShKeys) {
+    copy_sorted<true>(sort_segment<true>(sh, sh + np2 + np2 / kKeys, k, n, np2, nt), n, nt,
+                      copy);
+  } else {
+    copy_sorted<false>(sort_segment<false>(k, keys + (long long)(ndev + d) * seg, k, n, np2, nt),
+                       n, nt, copy);
+  }
 }
 
-int grid_of(long long rows) {
-  long long b = (rows + kThreads - 1) / kThreads;
+int grid_of(long long rows, int threads) {
+  long long b = (rows + threads - 1) / threads;
   if (b < 1) b = 1;
   return (int)(b > 1024 ? 1024 : b);
 }
@@ -366,8 +402,9 @@ int allow_shared(int bytes) {
 // cand: (lanes_cap, 4) int32; carry: (ccar, 4) int32; nsel: the step's
 // selected rows (step_state.cuh kNSel, int64), lanes = nsel x M <=
 // lanes_cap; out: (ndev + 3,) int32 (counts, migrants, carry_ovf, ring
-// min); keys: (ndev, seg) uint64 scratch, seg a power of two >= lanes_cap
-// + ccar (a segment sorts in place when it outgrows shared memory).
+// min); keys: (2, ndev, seg) uint64 scratch, seg a power of two >=
+// lanes_cap + ccar (pass 1 fills the first half; a segment that outgrows
+// shared memory sorts between its two halves).
 extern "C" int route_count(const void* cand, const void* carry, const void* nsel, int M,
                            int lanes_cap, int ccar, int ndev, long long seg, void* out,
                            void* keys, void* stream) {
@@ -378,7 +415,7 @@ extern "C" int route_count(const void* cand, const void* carry, const void* nsel
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(out, 0, sizeof(int32_t) * (ndev + 1), s);
   if (e != cudaSuccess) return (int)e;
-  route_count_kernel<<<grid_of((long long)lanes_cap + ccar), kThreads, 0, s>>>(
+  route_count_kernel<<<grid_of((long long)lanes_cap + ccar, kThreads), kThreads, 0, s>>>(
       (const int4*)cand, (const int4*)carry, (const long long*)nsel, M, ccar, ndev, seg,
       (int32_t*)out, (u64*)keys);
   return (int)cudaGetLastError();
@@ -397,10 +434,11 @@ extern "C" int route_pack(const void* cand, const void* carry, const void* nsel,
       M < 1 || ccar < 1 || ndev < 1 || ndev > 1024 || me < 0 || me >= ndev || cap < 1 ||
       seg < 1 || seg >= (1ll << 31) || (seg & (seg - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  const int shared = kShKeys * (int)sizeof(u64);
+  const int shared = 2 * (kShKeys + kShKeys / kKeys) * (int)sizeof(u64);
   const int e = allow_shared(shared);
   if (e != 0) return e;
-  route_pack_kernel<<<ndev + grid_of(ccar), kThreads, shared, (cudaStream_t)stream>>>(
+  route_pack_kernel<<<ndev + grid_of(ccar, kPackThreads), kPackThreads, shared,
+                      (cudaStream_t)stream>>>(
       (const int4*)cand, (const int4*)carry, (const long long*)nsel, M, ccar, ndev, me, cap,
       (const int32_t*)S, seg, (int32_t*)out, (u64*)keys, (int32_t*)wire, (int4*)carry_out);
   return (int)cudaGetLastError();

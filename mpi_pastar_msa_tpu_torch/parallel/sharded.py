@@ -146,30 +146,29 @@ def route_plain(cand: torch.Tensor, n_lanes: int, carry: torch.Tensor, ndev: int
     return wire, ring, out
 
 
-#: K11's sort (csrc/route_pack.cu kKeys, kThreads, kShKeys): the keys a
-#: thread holds, a block's most threads, the keys a block sorts in shared
-#: memory
-K11_KEYS, K11_THREADS, K11_SHARED_KEYS = 8, 1024, 16384
+#: K11's sort (csrc/route_pack.cu kKeys, kPackThreads, kShKeys): a thread's
+#: group of keys, a sorting block's most threads, the keys a block sorts in
+#: shared memory
+K11_KEYS, K11_THREADS, K11_SHARED_KEYS = 8, 512, 8192
 
 
 def k11_sort_shape(n: int, keys: int = K11_KEYS, threads: int = K11_THREADS) -> dict:
-    """The sort of one destination's segment of ``n`` keys in
-    ``route_pack``: the padded size np2 (a power of two, at least a warp's
-    chunk of 32 ``keys``), its chunks, the threads that sort (np2 / keys,
-    at most ``threads``), the barriers (one after the merges inside each
-    chunk when there are several, one a stride of a chunk or more, one
-    after each merge's register stages but the last's) and whether it
-    sorts in shared memory.  An empty segment sorts nothing."""
+    """The merge sort of one destination's segment of ``n`` keys in
+    ``route_pack``: the padded size np2 (a power of two, at least ``keys``),
+    the threads that sort (np2 / keys, at least a warp and at most
+    ``threads``), its merge rounds (log2(np2 / keys)), its block barriers
+    (one before each round that merges runs wider than a warp's 32 groups,
+    the others syncing the warp alone, and one before the copy; none on a
+    warp) and whether it sorts in shared memory.  An empty segment sorts
+    nothing."""
     if n == 0:
-        return dict(np2=0, chunks=0, threads=0, barriers=0, shared=True)
-    chunk = 32 * keys
-    np2 = max(chunk, 1 << (n - 1).bit_length())
-    barriers, k = int(np2 > chunk), 2 * chunk
-    while k <= np2:
-        barriers += (k // chunk).bit_length() - 1 + (k < np2)
-        k *= 2
-    return dict(np2=np2, chunks=np2 // chunk, threads=min(threads, np2 // keys),
-                barriers=barriers, shared=np2 <= K11_SHARED_KEYS)
+        return dict(np2=0, threads=0, rounds=0, barriers=0, shared=True)
+    np2 = max(keys, 1 << (n - 1).bit_length())
+    rounds = (np2 // keys).bit_length() - 1
+    nt = min(threads, max(32, np2 // keys))
+    # the first 5 rounds merge runs of at most 16 groups: a warp's own
+    return dict(np2=np2, threads=nt, rounds=rounds,
+                barriers=max(0, rounds - 5) + (nt > 32), shared=np2 <= K11_SHARED_KEYS)
 
 
 def route_sizes(S: np.ndarray, ndev: int, cap: int, ragged: bool) -> np.ndarray:
@@ -366,7 +365,7 @@ class _Shard:
             self.S = S
             self.cand = torch.empty((L, 4), **i32)
             self.seg = 1 << max(1, (L + self.ccar - 1).bit_length())
-            self.keys = torch.empty(ndev * self.seg, dtype=torch.int64, device=device)
+            self.keys = torch.empty(2 * ndev * self.seg, dtype=torch.int64, device=device)
             self.route_out = torch.empty(ndev + 3, **i32)
             self.wire = torch.empty((max(self.R, L + self.ccar), 3), **i32)
             bufs = S.StepBuffers.select_only(st, device)

@@ -1295,7 +1295,8 @@ def _k11_inputs(cuda, counts, me, cap, ccar, f_range, seed, ndev=4, M=1):
     ("ties", (300, 0, 0, 290), 128, 512, 1),
     ("warp_edges", (31, 32, 0, 33), 16, 64, 50),
     ("kinase_sizes", (636, 1024, 0, 257), 512, 2048, 1 << 20),
-    ("shared_limit", (16384, 16385, 0, 5), 7936, 15872, 1 << 16),
+    ("shared_limit", (8192, 8193, 0, 5), 7936, 15872, 1 << 16),
+    ("whole_shard", (31744, 0, 0, 1), 7936, 15872, 1 << 20),
     ("spill_cap_1", (50, 40, 0, 30), 1, 256, 7),
     ("ring_overflow", (200, 300, 0, 100), 4, 32, 1 << 10),
 ])
@@ -1325,7 +1326,7 @@ def test_k11_equals_plain_synthetic(cuda, case, counts, cap, ccar, f_range, ragg
     base = np.cumsum(A) - A if ragged else np.arange(ndev) * cap
     sent = torch.cat([torch.arange(int(b), int(b) + int(a)) for a, b in zip(A, base)]
                      ).long().to(cuda)
-    keys = torch.empty(ndev * seg, dtype=torch.int64, device=cuda)
+    keys = torch.empty(2 * ndev * seg, dtype=torch.int64, device=cuda)
     out = torch.empty(ndev + 3, dtype=torch.int32, device=cuda)
     wire = torch.zeros((max(ndev * cap, lanes_cap + ccar), 3), dtype=torch.int32, device=cuda)
     ring = torch.empty_like(carry)

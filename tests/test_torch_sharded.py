@@ -221,69 +221,63 @@ def emulate_count(rows, n_lanes, ndev, seg_len, rng):
     return out, seg
 
 
-def emulate_warp_stages(v, base, k, jtop, keys):
-    """warp_stages: stages j = jtop .. 1 of merge k on a warp's chunk, v
-    (32, keys) with lane l holding keys base + l keys + r; the partner in
-    another lane by a shuffle, then in the same thread in registers."""
-    lane = np.arange(32)[:, None]
-    i = base + lane * keys + np.arange(keys)[None, :]
-    up = (i & k) == 0
-    j = jtop
-    while j >= keys:
-        m = j // keys
-        o = v[np.arange(32) ^ m]  # __shfl_xor_sync
-        v = np.where(((lane & m) == 0) == up, np.minimum(v, o), np.maximum(v, o))
-        j //= 2
-    j = keys // 2
-    while j > 0:
-        if j <= jtop:
-            for r in range(keys):
-                if r & j:
-                    continue
-                a, b = v[:, r].copy(), v[:, r | j].copy()
-                sw = (a > b) == up[:, r]
-                v[:, r], v[:, r | j] = np.where(sw, b, a), np.where(sw, a, b)
-        j //= 2
-    return v
-
-
 def emulate_sort(seg, n, keys, threads, rng):
-    """sort_segment: the n keys padded to np2, the merges up to a chunk in
-    each warp's chunks, then each merge's strides of a chunk or more over
-    the working keys (a barrier each) and its strides within a chunk in
-    registers (a barrier after, but the last merge's).  Warps take their
-    chunks in an arbitrary order.  Returns (sorted keys, barriers)."""
-    W = 32 * keys
-    np2 = max(W, 1 << max(n - 1, 0).bit_length())
-    chunks = np2 // W
-    s = np.full(np2, PAD, np.uint64)
-    s[:n] = seg[:n]
-    barriers = 0
-    for c in rng.permutation(chunks):
-        v = s[c * W:(c + 1) * W].reshape(32, keys)
-        k = 2
-        while k <= W:
-            v = emulate_warp_stages(v, c * W, k, k // 2, keys)
-            k *= 2
-        s[c * W:(c + 1) * W] = v.ravel()
-    barriers += chunks > 1
-    k = 2 * W
-    while k <= np2:
+    """sort_segment: the n keys padded to np2; each group of ``keys`` sorted
+    by the in-register bitonic network; then rounds that merge runs of w =
+    keys, 2 keys, ... pairwise from one buffer into the other, each group's
+    outputs found by a binary search along the merge path and a serial
+    merge (a key of the first run goes first only when smaller); a block
+    barrier before each round whose runs span more than a warp's 32 groups,
+    the warp's own sync before the others, and a block barrier before the
+    copy unless one warp sorts.  Groups run in an arbitrary order.  Returns
+    (sorted keys, block barriers)."""
+    np2 = max(keys, 1 << max(n - 1, 0).bit_length())
+    groups = np2 // keys
+    x = np.full(np2, PAD, np.uint64)
+    x[:n] = seg[:n]
+    v = x.reshape(groups, keys)
+    k = 2
+    while k <= keys:
         j = k // 2
-        while j >= W:
-            p = np.arange(np2 // 2)
-            i = ((p & ~(j - 1)) << 1) | (p & (j - 1))
-            a, b = s[i].copy(), s[i + j].copy()
-            sw = (a > b) == ((i & k) == 0)
-            s[i], s[i + j] = np.where(sw, b, a), np.where(sw, a, b)
-            barriers += 1
+        while j:
+            for i in range(keys):
+                if (i ^ j) > i:
+                    a, b = v[:, i].copy(), v[:, i ^ j].copy()
+                    sw = (a > b) == ((i & k) == 0)
+                    v[:, i], v[:, i ^ j] = np.where(sw, b, a), np.where(sw, a, b)
             j //= 2
-        for c in rng.permutation(chunks):
-            v = s[c * W:(c + 1) * W].reshape(32, keys)
-            s[c * W:(c + 1) * W] = emulate_warp_stages(v, c * W, k, W // 2, keys).ravel()
-        barriers += k < np2
         k *= 2
-    return s[:n], barriers
+    barriers, w = 0, keys
+    while w < np2:
+        barriers += 2 * w > 32 * keys
+        y = np.empty_like(x)
+        for g in rng.permutation(groups):
+            at = g * keys
+            pair = at & ~(2 * w - 1)
+            o = at - pair
+            a, b = x[pair:pair + w], x[pair + w:pair + 2 * w]
+            lo = max(0, o - w)
+            span = min(o, w) - lo
+            while span > 0:  # a lower bound along the merge path
+                half = span // 2
+                if a[lo + half] < b[o - 1 - lo - half]:
+                    lo, span = lo + half + 1, span - half - 1
+                else:
+                    span = half
+            ia, ib = lo, o - lo
+            ka, kb = a[min(ia, w - 1)], b[min(ib, w - 1)]
+            for r in range(keys):  # every step loads the next key of its run
+                from_a = ib >= w or (ia < w and ka < kb)
+                y[at + r] = ka if from_a else kb
+                if from_a:
+                    ia += 1
+                    ka = a[min(ia, w - 1)]
+                else:
+                    ib += 1
+                    kb = b[min(ib, w - 1)]
+        x, w = y, 2 * w
+    nt = min(threads, max(32, groups))
+    return x[:n], barriers + (nt > 32)  # and one before the copy
 
 
 def emulate_allowance(out, Sm, ndev, me, cap):
@@ -363,16 +357,16 @@ def test_k11_emulation_equals_plain(seed, cap, ragged, f_range):
 
 
 @pytest.mark.parametrize("keys,threads,L,ndev,ragged", [
-    # about 700 rows a destination: 4 chunks, strides through shared memory
-    (8, 1024, 2000, 2, False), (8, 1024, 2000, 2, True),
-    # 64-key chunks on 2 warps: each warp loops over several chunks
+    # about 700 rows a destination: 7 rounds, 2 of them past a warp's runs
+    (8, 512, 2000, 2, False), (8, 512, 2000, 2, True),
+    # groups of 2 keys on 64 threads: each thread loops over several groups
     (2, 64, 1500, 3, False),
-    # one warp of several chunks (its barriers are __syncwarp)
+    # groups of 4 keys on one warp
     (4, 32, 900, 2, True)])
 def test_k11_schedules_equal_plain(keys, threads, L, ndev, ragged):
-    """The emulation at other schedule constants than the kernel's, so that
-    small inputs reach several chunks a warp: the same route as the plain
-    version, and the barriers k11_sort_shape counts."""
+    """The emulation at the kernel's group size and at smaller ones, so that
+    small inputs reach many rounds: the same route as the plain version,
+    and the barriers k11_sort_shape counts."""
     ccar, cap = L // 2, 50
     cand, carry = route_inputs(40 + keys, ndev, L, ccar, 1 << 12)  # ties in f
     n_lanes = L - 5
@@ -398,17 +392,19 @@ def test_k11_schedules_equal_plain(keys, threads, L, ndev, ragged):
 
 
 def test_k11_sort_shape():
-    """route_pack's sort at the kernel's constants: a warp of 256 keys with
-    no barrier, 1,024 keys on 128 threads with 5 barriers (PR 15's block
-    bitonic: 55 stages), shared memory up to 16,384 keys."""
+    """route_pack's sort at the kernel's constants: up to a warp's 256 keys
+    on one warp with no block barrier; 1,024 keys on 128 threads in 7
+    rounds with 3 block barriers (the block bitonic before: 55 stages); shared
+    memory up to 8,192 keys."""
     shape = S.k11_sort_shape
     assert shape(0)["threads"] == 0 and shape(0)["barriers"] == 0
-    assert [shape(n)["barriers"] for n in (1, 31, 32, 33, 256)] == [0] * 5
-    assert shape(257) == dict(np2=512, chunks=2, threads=64, barriers=2, shared=True)
-    assert shape(636) == shape(1024) == dict(np2=1024, chunks=4, threads=128, barriers=5,
+    assert [shape(n)["rounds"] for n in (1, 8, 9, 31, 32, 33, 256)] == [0, 0, 1, 2, 2, 3, 5]
+    assert all(shape(n)["barriers"] == 0 and shape(n)["threads"] == 32 for n in (1, 33, 256))
+    assert shape(257) == dict(np2=512, threads=64, rounds=6, barriers=2, shared=True)
+    assert shape(636) == shape(1024) == dict(np2=1024, threads=128, rounds=7, barriers=3,
                                              shared=True)
-    assert shape(16384)["shared"] and not shape(16385)["shared"]
-    assert shape(31744) == dict(np2=32768, chunks=128, threads=1024, barriers=35, shared=False)
+    assert shape(8192)["shared"] and not shape(8193)["shared"]
+    assert shape(31744) == dict(np2=32768, threads=512, rounds=12, barriers=8, shared=False)
 
 
 # --- K12: the plain tri-partial against JAX's
