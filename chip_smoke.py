@@ -6,7 +6,8 @@ Phases, each failing loudly (non-zero exit):
 
 1. device: a CUDA device must exist; prints the card's name and power limit.
 2. build: compiles every kernel from csrc/ (one nvcc per source, in
-   parallel) and, beside them, K3's, K5's and K7's measurement builds.
+   parallel) and, beside them, K3's, K5's, K8's and K11's measurement
+   builds.
    Capture: a chunk of the sig step (K3, K4 and the cooperative K5, on
    each of K5's paths) captured as a CUDA graph, replayed, must equal the
    eager chunk.
@@ -124,7 +125,7 @@ Phases, each failing loudly (non-zero exit):
    into the carry ring (its brute-force optimum); test2 under FZORDER,
    PZORDER, FSUM and PSUM.  On kinase's step 200 each new kernel against
    its plain version bit for bit (K11 under both allowances, with each
-   destination's sort barriers; K7's hop mode on every shard's table from
+   destination's sort barriers as its K11_BARRIERS build counts them; K7's hop mode on every shard's table from
    every path node), their wrapper, device and plain times and byte
    bounds, and sharded_step_bounds at the run's B and cap
    (``--k11-baseline SRC`` builds another tree's K11, checks it on the
@@ -707,12 +708,13 @@ def start_phases_build(name: str, tmp: str):
     """Start nvcc on csrc/<name>.cu with its measurement macro (K3_PHASES
     for select_best: three %globaltimer readings in the partials when a
     launch ends; K5_PHASES for sig_probe: five in lane_word; K8_NO_STORE
-    for gotoh_wavefront: the fill without its scratch stores) into
+    for gotoh_wavefront: the fill without its scratch stores; K11_BARRIERS
+    for route_pack: each destination's sort counts its block barriers) into
     ``tmp``; returns (name, proc, lib)."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
     macro = {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES",
-             "gotoh_wavefront": "K8_NO_STORE"}[name]
+             "gotoh_wavefront": "K8_NO_STORE", "route_pack": "K11_BARRIERS"}[name]
     lib = os.path.join(tmp, f"lib{name}_phases.so")
     proc = subprocess.Popen(
         [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -734,6 +736,27 @@ def load_phases(job):
     fn.argtypes = _kernels.SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def load_k11_barriers(job) -> dict:
+    """The K11_BARRIERS build (start_phases_build("route_pack")) as K11Run's
+    ``fns``: this tree's route_count, the build's route_pack, and
+    ``barriers(ndev)``, each destination's block barriers in the last
+    route_pack."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    pack = load_phases(job)
+    read = ctypes.CDLL(job[2]).route_pack_barriers
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+
+    def barriers(ndev: int) -> list:
+        got = (ctypes.c_int * ndev)()
+        if read(ctypes.cast(got, ctypes.c_void_p), ndev):
+            fail("route_pack_barriers of the K11_BARRIERS build failed")
+        return list(got)
+
+    return {"src": "the K11_BARRIERS build", "route_pack": pack, "barriers": barriers,
+            "route_count": _kernels.load("route_count").route_count}
 
 
 def k3_phases(fn, args, partial, restore, reps: int = 20) -> dict:
@@ -2450,7 +2473,8 @@ def sharded_walk_bytes(st, shards, final) -> dict:
 
 def k11_bitonic_stages(n: int) -> int:
     """The barrier stages of the block bitonic K11 sorted with up to
-    commit c408a21 (its route_pack.cu) for a segment of n keys: log2(np2)(log2(np2) + 1) / 2, np2
+    commit c408a21 (its route_pack.cu) for a segment of n keys, by that
+    source's loop bounds, not measured: log2(np2)(log2(np2) + 1) / 2, np2
     the power of two at or above n (besides a barrier after its load and
     one before its reduction)."""
     lg = max(n - 1, 0).bit_length()
@@ -2544,6 +2568,15 @@ def k11_check(label: str, inp: dict, run: "K11Run"):
     if bad:
         fail(f"{label} differs from its plain version: {bad}")
     return p_out
+
+
+def k11_barriers(count: dict, inp: dict, label: str) -> list:
+    """Each destination's block barriers in route_pack's sort on ``inp``,
+    counted by the K11_BARRIERS build (``count``, load_k11_barriers), whose
+    route is checked against route_plain too."""
+    run = K11Run(inp, count)
+    k11_check(f"K11 ({label}, the K11_BARRIERS build)", inp, run)
+    return count["barriers"](inp["ndev"])
 
 
 def k11_turns(inp: dict, baseline: dict, label: str, reps: int = 20) -> dict:
@@ -2652,23 +2685,20 @@ def k11_synthetic(n: int, ndev: int = 4, cap: int = 7936, ccar: int = 15872, M: 
                 seg=1 << (n_lanes + ccar - 1).bit_length())
 
 
-def k11_sweep(baseline=None) -> dict:
+def k11_sweep(count: dict, baseline=None) -> dict:
     """K11 at each segment size of K11_SWEEP (k11_synthetic, ragged):
     checked against route_plain, then the device ms of each pass alone and
     of the call, in turns with another tree's K11 (checked too) when there
-    is one; a destination's sort barriers (k11_sort_shape) and c408a21's
-    bitonic stages."""
-    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
-
+    is one; a destination's sort barriers, counted by the K11_BARRIERS build
+    (``count``), and c408a21's bitonic stages by its loop bounds."""
     out = {}
     print("K11 sweep (kinase's shapes, 4 shards, ragged; n rows a destination):")
     for n in K11_SWEEP:
         inp = k11_synthetic(n)
         run = K11Run(inp)
         k11_check(f"K11 (sweep, n = {n})", inp, run)
-        shape = SH.k11_sort_shape(n)
-        row = dict(n=n, rows=inp["n_lanes"] + inp["carry"].shape[0], rounds=shape["rounds"],
-                   barriers=shape["barriers"], threads=shape["threads"], shared=shape["shared"],
+        row = dict(n=n, rows=inp["n_lanes"] + inp["carry"].shape[0],
+                   barriers=max(k11_barriers(count, inp, f"sweep, n = {n}")),
                    bitonic_stages=k11_bitonic_stages(n))
         if baseline is not None:
             old = K11Run(inp, baseline)
@@ -2681,24 +2711,23 @@ def k11_sweep(baseline=None) -> dict:
                        call_device_ms=device_ms(run.call, 20))
             print(f"    n = {n}: route_count {row['route_count_device_ms']:.4f}, route_pack "
                   f"{row['route_pack_device_ms']:.4f}, call {row['call_device_ms']:.4f} ms")
-        print(f"  n = {n}: {shape['rounds']} merge rounds, {shape['barriers']} block barriers "
-              f"on {shape['threads']} threads "
-              f"({'shared' if shape['shared'] else 'device'} memory); c408a21's bitonic "
-              f"{row['bitonic_stages']} stages")
+        print(f"  n = {n}: {row['barriers']} block barriers (counted); c408a21's bitonic "
+              f"{row['bitonic_stages']} stages (its loop bounds)")
         out[str(n)] = row
         del inp, run
     return out
 
 
-def sharded_kernel_checks(cap: dict, shards, k11_baseline=None) -> dict:
+def sharded_kernel_checks(cap: dict, shards, k11_count: dict, k11_baseline=None) -> dict:
     """Each new kernel of the sharded step against its plain version on
     the card, bit for bit, on shard ``target``'s inputs of the captured
     step: sig_coords and K12 (tri_partial), K4 sharded (its candidate
     rows, t_best after its round-0 match, its pending lanes as a multiset,
     the surviving and pending counts, the goal), K11 under the dense and
     the ragged allowance (counts, migrants, carry overflow, ring min, the
-    new ring, the rows sent; each destination's sort barriers, and c408a21's
-    bitonic stages beside them; with ``k11_baseline``, another tree's K11
+    new ring, the rows sent; each destination's sort barriers, counted by
+    the K11_BARRIERS build ``k11_count``, and c408a21's bitonic stages by
+    its loop bounds beside them; with ``k11_baseline``, another tree's K11
     checked too and timed in turns); then K7's hop mode against its plain
     version on every shard's finished table from every path node.  Wrapper
     (CUDA events), device (CUPTI) and plain times, and each bound by
@@ -2830,17 +2859,15 @@ def sharded_kernel_checks(cap: dict, shards, k11_baseline=None) -> dict:
         print("    passes alone: " + ", ".join(
             f"{k} wrapper {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms"
             for k, v in passes.items()))
-        sorts = [SH.k11_sort_shape(int(c)) for c in p_out[:ndev]]
+        barriers = k11_barriers(k11_count, inp, mode)
+        bitonic = [k11_bitonic_stages(int(c)) for c in p_out[:ndev]]
         out[f"route_{mode}"].update(
             rows=inp["n_lanes"] + ccar, remote=remote, sent=int(A.sum()),
             spilled=remote - int(A.sum()), passes=passes, segments=p_out[:ndev].tolist(),
-            barriers=max(x["barriers"] for x in sorts), rounds=max(x["rounds"] for x in sorts),
-            sort_threads=[x["threads"] for x in sorts],
-            bitonic_stages=max(k11_bitonic_stages(int(c)) for c in p_out[:ndev]))
-        print(f"    segments {p_out[:ndev].tolist()}: merge rounds "
-              f"{[x['rounds'] for x in sorts]}, block barriers {[x['barriers'] for x in sorts]} "
-              f"on {[x['threads'] for x in sorts]} threads (c408a21's bitonic: "
-              f"{[k11_bitonic_stages(int(c)) for c in p_out[:ndev]]} stages)")
+            barriers=barriers, bitonic_stages=bitonic)
+        print(f"    segments {p_out[:ndev].tolist()}: block barriers {barriers} (counted by "
+              f"the K11_BARRIERS build; c408a21's bitonic: {bitonic} stages by its loop "
+              f"bounds)")
         if k11_baseline is not None:
             old = K11Run(inp, k11_baseline)
             k11_check(f"K11 of {k11_baseline['src']} ({mode})", inp, old)
@@ -2909,14 +2936,15 @@ def process_mesh_run(path: str, gold: dict, ranks: int, timeout: int = 300) -> d
     return dict(ranks=ranks, wall_s=wall, rank0=line)
 
 
-def sharded_phase(paths, gold, k11_baseline=None, sweep=False) -> dict:
+def sharded_phase(paths, gold, k11_count: dict, k11_baseline=None, sweep=False) -> dict:
     """The sharded engine on one card (parallel/sharded.py, a LocalMesh of
     [cuda:0] * 4): kinase --triples auto (sig, sharded cubes) with the
     ragged exchange (auto), the dense one (traced: device time a step),
     one shard against FrontierSearch's golden result, PF08184 with a one-row
     wire (exchange_cap=1), test2 under each owner hash; each new kernel
-    against its plain version on kinase's inputs (``k11_baseline``: another
-    tree's K11 too, timed in turns with K11); the sharded step's bounds at
+    against its plain version on kinase's inputs (``k11_count``: the
+    K11_BARRIERS build; ``k11_baseline``: another tree's K11 too, timed in
+    turns with K11); the sharded step's bounds at
     this run's B and cap; K11 at each size of K11_SWEEP (``sweep``); and
     several cards when there are."""
     card = torch.device("cuda", 0)
@@ -2929,9 +2957,9 @@ def sharded_phase(paths, gold, k11_baseline=None, sweep=False) -> dict:
              f"migrated {out['kinase_ragged']['migrated']}")
     if "cand" not in cap:
         fail("kinase sharded: the search ended before the captured step")
-    out["checks"] = sharded_kernel_checks(cap, cap["shards"], k11_baseline)
+    out["checks"] = sharded_kernel_checks(cap, cap["shards"], k11_count, k11_baseline)
     if sweep:
-        out["k11_sweep"] = k11_sweep(k11_baseline)
+        out["k11_sweep"] = k11_sweep(k11_count, k11_baseline)
     r = out["kinase_ragged"]
     if out["checks"]["walk"]["rounds"] != r["walk_rounds"]:
         fail(f"kinase sharded: the walk took {r['walk_rounds']} rounds, its byte count "
@@ -3626,7 +3654,7 @@ def main() -> int:
                     help="also check and time K11 on synthetic inputs at kinase's "
                          "shapes with 64, 636, 4096, 8192, 16384 and 31744 rows a "
                          "destination (in turns with --k11-baseline's), with each "
-                         "sort's barriers and c408a21's bitonic stages")
+                         "sort's barriers (counted) and c408a21's bitonic stages")
     ap.add_argument("--k2-baseline", metavar="SRC", default=None,
                     help="also build the plane-per-launch version of "
                          "csrc/triple_wavefront.cu (its C entry with Dmax and "
@@ -3697,6 +3725,7 @@ def main() -> int:
     phases_jobs = [start_phases_build(name, phases_tmp.name)
                    for name in ("select_best", "sig_probe")]
     k8_no_store_job = start_phases_build("gotoh_wavefront", phases_tmp.name)
+    k11_count_job = start_phases_build("route_pack", phases_tmp.name)
     keyrow_job = (start_keyrow_baseline(os.path.abspath(args.keyrow_baseline),
                                         phases_tmp.name) if args.keyrow_baseline else None)
     k8_job = (start_k8_baseline(os.path.abspath(args.k8_baseline), phases_tmp.name)
@@ -3708,13 +3737,14 @@ def main() -> int:
     finally:
         phases = tuple(load_phases(job) for job in phases_jobs)
         k8_no_store = load_phases(k8_no_store_job)
+        k11_count = load_k11_barriers(k11_count_job)
         keyrow_baseline = load_keyrow_baseline(keyrow_job) if keyrow_job else None
         k8_baseline = load_k8_baseline(k8_job) if k8_job else None
         k11_baseline = load_k11_baseline(k11_job) if k11_job else None
     if keyrow_baseline:
         K7_VARIANTS["baseline"] = keyrow_baseline["path_walk"]
-    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES and "
-          f"K8_NO_STORE builds "
+    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES, "
+          f"K8_NO_STORE and K11_BARRIERS builds "
           f"in {time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
              for line in log.splitlines()
@@ -3736,7 +3766,7 @@ def main() -> int:
             step_baseline = (args.step_baseline, build_step_baseline(src, tmp))
         report["launch_floor"] = floor = launch_floor()
         if args.sharded_only:
-            report["sharded"] = sharded_phase(paths, gold, k11_baseline, args.k11_sweep)
+            report["sharded"] = sharded_phase(paths, gold, k11_count, k11_baseline, args.k11_sweep)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["capture"] = capture_check(paths)
@@ -3823,7 +3853,7 @@ def main() -> int:
                                          data_gold("globin6", LAYOUT_INPUTS["globin6"]),
                                          "packed", tmp)}
         # 7. the sharded engine (parallel/sharded.py) on [cuda:0] * 4
-        report["sharded"] = sharded_phase(paths, gold, k11_baseline, args.k11_sweep)
+        report["sharded"] = sharded_phase(paths, gold, k11_count, k11_baseline, args.k11_sweep)
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
             # and the plain step on the same windows, the step before K3-K5
@@ -4012,8 +4042,7 @@ def main() -> int:
             entry.update(
                 latency_floor_ms=2 * floor["device_ms"] + 6 * chase["l2_ns"] / 1e6,
                 latency_floor_dram_ms=2 * floor["device_ms"] + 6 * chase["dram_ns"] / 1e6,
-                **{k: t[k] for k in ("segments", "rounds", "barriers", "sort_threads",
-                                     "bitonic_stages")},
+                segments=t["segments"],
                 **({"turns": {m: sh["checks"][f"route_{m}"]["turns"]
                               for m in ("ragged", "dense")}} if "turns" in t else {}),
                 **({"sweep": sh["k11_sweep"]} if "k11_sweep" in sh else {}))

@@ -54,15 +54,28 @@
 // rounds read one buffer and write the other, so one barrier a round
 // suffices: a warp's __syncwarp while the runs merged lie within its 32
 // groups, a named barrier over the threads that sort above, and one more
-// before the copy.  In shared memory (up to kShKeys keys) a group takes
-// kKeys + 1 slots, so that a warp's accesses to its groups hit distinct
-// banks; above, the two buffers are two segments of device memory.  The
-// block is sized to the segment: np2 / kKeys threads, at least a warp and
-// at most kPackThreads (a thread loops over groups beyond), and the other
-// threads leave at once.  At 1,024 keys: 128 threads, 7 rounds, 3 block
-// barriers, where the block bitonic of commit c408a21 took 55 (and 57
-// with its load and its reduction).  parallel/sharded.py::k11_sort_shape
-// gives the threads, rounds and barriers of a segment.
+// before the copy.  In shared memory a group takes kKeys + 1 slots, so that
+// a warp's accesses to its groups hit distinct banks.  Up to kShKeys keys
+// sort between two buffers of shared memory (2 x 72 KB); up to 2 kShKeys
+// each half sorts so, the first waiting in device memory (its own place in
+// `keys`, in L2) while the second sorts, and the last round merges the two
+// from shared memory into `keys`, whence the copy reads (a third shared
+// buffer in place of the wait, 216 KB a block, made the device-memory
+// rounds of larger segments 1.36x slower on the H100); above, the two
+// buffers are two segments of device memory.  The block is sized to the
+// segment: np2 / kKeys threads, at least a warp and at most kPackThreads
+// (a thread loops over groups beyond), and the other threads leave at
+// once.  At 1,024 keys: 128 threads, 7 rounds, 3 block barriers, where the
+// block bitonic of commit c408a21 took 55 (and 57 with its load and its
+// reduction).  Warp 0 computes the block's allowance while the others
+// start to sort.  A bitonic sort in registers and warp shuffles (commit
+// 7a5d08c) took fewer barriers and was no faster on the H100 at kinase's
+// segments (PERF.md, K11's row).
+//
+// Built with -DK11_BARRIERS (a measurement build of chip_smoke.py and of
+// the card tests, never the one the port loads), each sorting block counts
+// the block barriers its sort executes, and route_pack_barriers reads the
+// counts of the last launch.
 //
 // What bounds it on an H100: launches and the chain of dependent accesses
 // (a row's read and its atomic; the counts, the keys, the row gathered by
@@ -80,10 +93,16 @@ constexpr int kThreads = 1024;              // route_count's blocks
 constexpr int kPackThreads = 512;           // route_pack's blocks
 constexpr int kKeys = 8;                    // a thread's group of keys
 constexpr int kWarpKeys = 32 * kKeys;       // a warp's groups
-constexpr int kShKeys = 8192;               // keys a block sorts in shared memory (2 x 72 KB)
+constexpr int kShKeys = 8192;               // keys a block sorts in two shared buffers
+constexpr int kShSlots = kShKeys + kShKeys / kKeys;  // a shared buffer's slots (72 KB)
 constexpr int kMaxDevices = 64;             // cards whose shared-memory attribute is cached
+constexpr int kMaxDest = 1024;              // destinations (ndev) a call takes
 constexpr int32_t kInfp = 0x7FFFFFFF;
 constexpr u64 kPad = ~0ull;                 // the padding key, after every real one
+
+#ifdef K11_BARRIERS
+__device__ int g_barriers[kMaxDest];  // each destination's block barriers, last launch
+#endif
 
 __device__ __forceinline__ int4 row_at(const int4* cand, const int4* carry, long long n_lanes,
                                        long long pos) {
@@ -190,10 +209,14 @@ __device__ Allowance allowance(const int32_t* out, const int32_t* S, int ndev, i
 
 // The barrier of a sorting block's nt threads (the other warps have left).
 __device__ __forceinline__ void sort_sync(int nt) {
-  if (nt > 32)
+  if (nt > 32) {
     asm volatile("bar.sync 1, %0;" ::"r"(nt) : "memory");
-  else
+#ifdef K11_BARRIERS
+    if (threadIdx.x == 0) ++g_barriers[blockIdx.x];
+#endif
+  } else {
     __syncwarp();
+  }
 }
 
 // Sort a group's kKeys keys ascending in registers.
@@ -345,37 +368,81 @@ __device__ void copy_sorted(const u64* x, int n, int nt, const Copy& copy) {
   }
 }
 
+constexpr int log2_of(int x) { return x > 1 ? 1 + log2_of(x >> 1) : 0; }
+
+// A half's sort ends in the buffer it started in (an even number of rounds).
+static_assert(log2_of(kShKeys / kKeys) % 2 == 0, "a half must sort back into its buffer");
+
+// Sort the n keys of k, kShKeys < n <= 2 kShKeys, in place, the halves in
+// the two shared buffers: half 0 sorts and waits in its own place in k
+// while half 1 sorts; half 0 comes back into the second buffer, and the
+// last round merges the two (half 0 the first run) from shared memory into
+// k.
+__device__ void sort_halves(u64* sh, u64* k, int n, int nt) {
+  u64* h0 = sh + kShSlots;
+  sort_segment<true>(sh, h0, k, kShKeys, kShKeys, nt);
+  for (int i = threadIdx.x; i < kShKeys; i += nt) k[i] = sh[slot_of<true>(i)];
+  sort_sync(nt);
+  sort_segment<true>(sh, h0, k + kShKeys, n - kShKeys, kShKeys, nt);
+  for (int i = threadIdx.x; i < kShKeys; i += nt) h0[slot_of<true>(i)] = k[i];
+  sort_sync(nt);
+  u64 v[kKeys];
+  for (int g = threadIdx.x; g < 2 * kShKeys / kKeys; g += nt) {
+    merge_group<true>(sh, kShKeys, 0, kShKeys, g * kKeys, v);
+#pragma unroll
+    for (int r = 0; r < kKeys; ++r) k[g * kKeys + r] = v[r];
+  }
+  sort_sync(nt);
+}
+
 __global__ void __launch_bounds__(kPackThreads) route_pack_kernel(
     const int4* __restrict__ cand, const int4* __restrict__ carry, const long long* nsel, int M,
     int ccar, int ndev, int me, int cap, const int32_t* __restrict__ S, long long seg,
     int32_t* __restrict__ out, u64* __restrict__ keys, int32_t* __restrict__ wire,
     int4* __restrict__ carry_out) {
   extern __shared__ u64 sh[];
+  __shared__ Allowance s_allow;  // the block's, from warp 0
   const int d = blockIdx.x;
   if (d >= ndev) {  // the ring's tail: the empty row
-    const Allowance a = allowance(out, S, ndev, me, cap, -1);
+    if (threadIdx.x < 32) {
+      const Allowance a = allowance(out, S, ndev, me, cap, -1);
+      if (threadIdx.x == 0) s_allow = a;
+    }
+    __syncthreads();
+    const long long spilled = s_allow.spilled;
     const long long t = (long long)(blockIdx.x - ndev) * blockDim.x + threadIdx.x;
-    if (t == 0) out[ndev + 1] = (int32_t)(a.spilled > ccar ? a.spilled - ccar : 0);
-    for (long long s = a.spilled + t; s < ccar; s += (long long)(gridDim.x - ndev) * blockDim.x)
+    if (t == 0) out[ndev + 1] = (int32_t)(spilled > ccar ? spilled - ccar : 0);
+    for (long long s = spilled + t; s < ccar; s += (long long)(gridDim.x - ndev) * blockDim.x)
       carry_out[s] = make_int4(ndev, kInfp, 0, -1);
     return;
   }
   const int n = out[d];
+#ifdef K11_BARRIERS
+  if (threadIdx.x == 0) g_barriers[d] = 0;
+#endif
   if (n == 0) return;
   int np2 = kKeys;
   while (np2 < n) np2 <<= 1;
   const int nt = np2 <= kWarpKeys ? 32 : (np2 / kKeys < kPackThreads ? np2 / kKeys : kPackThreads);
   if ((int)threadIdx.x >= nt) return;
-  const WireRingCopy copy{cand, carry, *nsel * M, ccar, ndev, d,
-                          allowance(out, S, ndev, me, cap, d), out, wire, carry_out};
-  u64* k = keys + (long long)d * seg;
-  if (np2 <= kShKeys) {
-    copy_sorted<true>(sort_segment<true>(sh, sh + np2 + np2 / kKeys, k, n, np2, nt), n, nt,
-                      copy);
-  } else {
-    copy_sorted<false>(sort_segment<false>(k, keys + (long long)(ndev + d) * seg, k, n, np2, nt),
-                       n, nt, copy);
+  if (threadIdx.x < 32) {
+    const Allowance a = allowance(out, S, ndev, me, cap, d);
+    if (threadIdx.x == 0) s_allow = a;
   }
+  u64* k = keys + (long long)d * seg;
+  const u64* x = k;
+  if (np2 <= kShKeys)
+    x = sort_segment<true>(sh, sh + kShSlots, k, n, np2, nt);
+  else if (np2 == 2 * kShKeys)
+    sort_halves(sh, k, n, nt);
+  else
+    x = sort_segment<false>(k, keys + (long long)(ndev + d) * seg, k, n, np2, nt);
+  // the sort's last barrier of the nt threads is passed: s_allow is set
+  const WireRingCopy copy{cand, carry, *nsel * M, ccar, ndev, d, s_allow, out, wire, carry_out};
+  if (np2 <= kShKeys)
+    copy_sorted<true>(x, n, nt, copy);
+  else
+    copy_sorted<false>(x, n, nt, copy);
 }
 
 int grid_of(long long rows, int threads) {
@@ -403,13 +470,13 @@ int allow_shared(int bytes) {
 // selected rows (step_state.cuh kNSel, int64), lanes = nsel x M <=
 // lanes_cap; out: (ndev + 3,) int32 (counts, migrants, carry_ovf, ring
 // min); keys: (2, ndev, seg) uint64 scratch, seg a power of two >=
-// lanes_cap + ccar (pass 1 fills the first half; a segment that outgrows
-// shared memory sorts between its two halves).
+// lanes_cap + ccar (pass 1 fills the first half; a segment of more than
+// 2 kShKeys keys sorts between its two halves).
 extern "C" int route_count(const void* cand, const void* carry, const void* nsel, int M,
                            int lanes_cap, int ccar, int ndev, long long seg, void* out,
                            void* keys, void* stream) {
   if (cand == nullptr || carry == nullptr || nsel == nullptr || out == nullptr ||
-      keys == nullptr || M < 1 || lanes_cap < 0 || ccar < 1 || ndev < 1 || ndev > 1024 ||
+      keys == nullptr || M < 1 || lanes_cap < 0 || ccar < 1 || ndev < 1 || ndev > kMaxDest ||
       seg < (long long)lanes_cap + ccar || seg >= (1ll << 31) || (seg & (seg - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -431,10 +498,10 @@ extern "C" int route_pack(const void* cand, const void* carry, const void* nsel,
                           void* out, void* keys, void* wire, void* carry_out, void* stream) {
   if (cand == nullptr || carry == nullptr || nsel == nullptr || out == nullptr ||
       keys == nullptr || wire == nullptr || carry_out == nullptr || carry_out == carry ||
-      M < 1 || ccar < 1 || ndev < 1 || ndev > 1024 || me < 0 || me >= ndev || cap < 1 ||
+      M < 1 || ccar < 1 || ndev < 1 || ndev > kMaxDest || me < 0 || me >= ndev || cap < 1 ||
       seg < 1 || seg >= (1ll << 31) || (seg & (seg - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  const int shared = 2 * (kShKeys + kShKeys / kKeys) * (int)sizeof(u64);
+  const int shared = 2 * kShSlots * (int)sizeof(u64);
   const int e = allow_shared(shared);
   if (e != 0) return e;
   route_pack_kernel<<<ndev + grid_of(ccar, kPackThreads), kPackThreads, shared,
@@ -443,3 +510,12 @@ extern "C" int route_pack(const void* cand, const void* carry, const void* nsel,
       (const int32_t*)S, seg, (int32_t*)out, (u64*)keys, (int32_t*)wire, (int4*)carry_out);
   return (int)cudaGetLastError();
 }
+
+#ifdef K11_BARRIERS
+// The block barriers of each destination's sort in the last route_pack
+// (ndev ints into host memory; waits for the card).
+extern "C" int route_pack_barriers(int* host, int ndev) {
+  if (host == nullptr || ndev < 1 || ndev > kMaxDest) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(host, g_barriers, sizeof(int) * ndev);
+}
+#endif

@@ -146,31 +146,6 @@ def route_plain(cand: torch.Tensor, n_lanes: int, carry: torch.Tensor, ndev: int
     return wire, ring, out
 
 
-#: K11's sort (csrc/route_pack.cu kKeys, kPackThreads, kShKeys): a thread's
-#: group of keys, a sorting block's most threads, the keys a block sorts in
-#: shared memory
-K11_KEYS, K11_THREADS, K11_SHARED_KEYS = 8, 512, 8192
-
-
-def k11_sort_shape(n: int, keys: int = K11_KEYS, threads: int = K11_THREADS) -> dict:
-    """The merge sort of one destination's segment of ``n`` keys in
-    ``route_pack``: the padded size np2 (a power of two, at least ``keys``),
-    the threads that sort (np2 / keys, at least a warp and at most
-    ``threads``), its merge rounds (log2(np2 / keys)), its block barriers
-    (one before each round that merges runs wider than a warp's 32 groups,
-    the others syncing the warp alone, and one before the copy; none on a
-    warp) and whether it sorts in shared memory.  An empty segment sorts
-    nothing."""
-    if n == 0:
-        return dict(np2=0, threads=0, rounds=0, barriers=0, shared=True)
-    np2 = max(keys, 1 << (n - 1).bit_length())
-    rounds = (np2 // keys).bit_length() - 1
-    nt = min(threads, max(32, np2 // keys))
-    # the first 5 rounds merge runs of at most 16 groups: a warp's own
-    return dict(np2=np2, threads=nt, rounds=rounds,
-                barriers=max(0, rounds - 5) + (nt > 32), shared=np2 <= K11_SHARED_KEYS)
-
-
 def route_sizes(S: np.ndarray, ndev: int, cap: int, ragged: bool) -> np.ndarray:
     """The rows shard i sends shard j, A[i][j], from the send counts S
     (host ints, as the kernel computes its allowance)."""

@@ -9,9 +9,11 @@ They skip on a host without a CUDA device.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import ctypes
 import itertools
 import json
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -1290,23 +1292,34 @@ def _k11_inputs(cuda, counts, me, cap, ccar, f_range, seed, ndev=4, M=1):
     return (torch.from_numpy(cand).to(cuda), n_lanes, torch.from_numpy(carry).to(cuda), nsel)
 
 
-@pytest.mark.parametrize("case,counts,cap,ccar,f_range", [
+K11_CASES = [
     ("empty_and_one", (0, 1, 0, 0), 8, 64, 1000),
     ("ties", (300, 0, 0, 290), 128, 512, 1),
     ("warp_edges", (31, 32, 0, 33), 16, 64, 50),
     ("kinase_sizes", (636, 1024, 0, 257), 512, 2048, 1 << 20),
     ("shared_limit", (8192, 8193, 0, 5), 7936, 15872, 1 << 16),
+    ("halves_limit", (16384, 16385, 0, 300), 7936, 15872, 1 << 16),
     ("whole_shard", (31744, 0, 0, 1), 7936, 15872, 1 << 20),
     ("spill_cap_1", (50, 40, 0, 30), 1, 256, 7),
     ("ring_overflow", (200, 300, 0, 100), 4, 32, 1 << 10),
-])
-@pytest.mark.parametrize("ragged", [False, True])
-def test_k11_equals_plain_synthetic(cuda, case, counts, cap, ccar, f_range, ragged):
-    """K11 (route_count, route_pack) against route_plain bit for bit: out,
-    the new ring and the wire rows sent, twice on the same buffers, under
-    the dense and the ragged allowance; segments on both sides of a warp's
-    keys and of the shared-memory limit, ties broken by position, spills
-    with cap 1 and a ring too small for them."""
+]
+
+# each K11_CASES destination's block barriers in route_pack's sort (the
+# counts tests/test_torch_sharded.py::K11_SHAPES gives the emulation): none
+# on one warp (up to 256 keys), 2 at 257-512, 3 at 513-1,024, 6 at 8,192,
+# 15 for the halves (8,193-16,384), 8 in device memory (16,385-32,768)
+K11_BARRIERS = {"empty_and_one": (0, 0, 0, 0), "ties": (2, 0, 0, 2), "warp_edges": (0, 0, 0, 0),
+                "kinase_sizes": (3, 3, 0, 2), "shared_limit": (6, 15, 0, 0),
+                "halves_limit": (15, 8, 0, 2), "whole_shard": (8, 0, 0, 0),
+                "spill_cap_1": (0, 0, 0, 0), "ring_overflow": (0, 2, 0, 0)}
+
+
+def _k11_run(cuda, case, counts, cap, ccar, f_range, ragged, pack=None):
+    """One synthetic K11 case (_k11_inputs, me = 2 of 4 shards, the ragged
+    send counts random but for this shard's) through route_count and
+    route_pack (``pack``: another build's C entry in place of the port's),
+    twice on the same buffers, each time against route_plain bit for bit:
+    out, the new ring and the wire rows sent.  Returns the plain out."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
     ndev, me, M = 4, 2, 1
@@ -1334,15 +1347,59 @@ def test_k11_equals_plain_synthetic(cuda, case, counts, cap, ccar, f_range, ragg
     for _ in range(2):
         _kernels.launch("route_count", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
                         lanes_cap, ccar, ndev, seg, out.data_ptr(), keys.data_ptr(), stream)
-        _kernels.launch("route_pack", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
-                        ccar, ndev, me, cap, None if Smat is None else Smat.data_ptr(), seg,
-                        out.data_ptr(), keys.data_ptr(), wire.data_ptr(), ring.data_ptr(),
-                        stream)
+        args = (cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M, ccar, ndev, me, cap,
+                None if Smat is None else Smat.data_ptr(), seg, out.data_ptr(),
+                keys.data_ptr(), wire.data_ptr(), ring.data_ptr(), stream)
+        if pack is None:
+            _kernels.launch("route_pack", *args)
+        else:
+            assert pack(*args) == 0
         torch.cuda.synchronize()
         assert torch.equal(out, o_p), (out.tolist(), o_p.tolist())
         assert torch.equal(ring, r_p)
         assert torch.equal(wire[sent], w_p[sent])
+    return o_p
+
+
+@pytest.mark.parametrize("case,counts,cap,ccar,f_range", K11_CASES)
+@pytest.mark.parametrize("ragged", [False, True])
+def test_k11_equals_plain_synthetic(cuda, case, counts, cap, ccar, f_range, ragged):
+    """K11 (route_count, route_pack) against route_plain bit for bit: out,
+    the new ring and the wire rows sent, twice on the same buffers, under
+    the dense and the ragged allowance; segments on both sides of a warp's
+    keys and of each shared-memory limit (two buffers, the halves), ties
+    broken by position, spills with cap 1 and a ring too small for them."""
+    o_p = _k11_run(cuda, case, counts, cap, ccar, f_range, ragged)
+    ndev = 4
     if case == "spill_cap_1":
         assert int(o_p[ndev + 1]) == 0 and int(o_p[ndev + 2]) < INFP
     if case == "ring_overflow":
         assert int(o_p[ndev + 1]) > 0
+
+
+@pytest.fixture(scope="module")
+def k11_barrier_build(tmp_path_factory):
+    """route_pack.cu built with -DK11_BARRIERS: its route_pack and
+    route_pack_barriers (each destination's block barriers, last launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    lib = str(tmp_path_factory.mktemp("k11") / "libroute_pack_barriers.so")
+    subprocess.run([_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-DK11_BARRIERS", "-o", lib,
+                    os.path.join(_kernels.CSRC, "route_pack.cu")], check=True)
+    dll = ctypes.CDLL(lib)
+    pack, barriers = dll.route_pack, dll.route_pack_barriers
+    pack.argtypes, pack.restype = _kernels.SIGNATURES["route_pack"], ctypes.c_int
+    barriers.argtypes, barriers.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    return pack, barriers
+
+
+@pytest.mark.parametrize("case,counts,cap,ccar,f_range", K11_CASES)
+def test_k11_barriers_counted(cuda, k11_barrier_build, case, counts, cap, ccar, f_range):
+    """The K11_BARRIERS build routes as route_plain, and each destination's
+    sort executes the block barriers of K11_BARRIERS."""
+    pack, barriers = k11_barrier_build
+    _k11_run(cuda, case, counts, cap, ccar, f_range, True, pack)
+    got = (ctypes.c_int * 4)()
+    assert barriers(ctypes.cast(got, ctypes.c_void_p), 4) == 0
+    assert tuple(got) == K11_BARRIERS[case]

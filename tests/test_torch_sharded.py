@@ -11,6 +11,7 @@ wire, sharded cubes on and off, one shard against FrontierSearch, the
 fractional cover) and its refusals."""
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ from mpi_pastar_msa_tpu.heuristic.hpair import HPairHeuristic as JHPair
 from mpi_pastar_msa_tpu.heuristic.triples import HTriples as JTriples
 from mpi_pastar_msa_tpu.parallel import sharded as JS
 from mpi_pastar_msa_tpu.search.engine import _Static as JStatic
+from mpi_pastar_msa_tpu_torch import _kernels
 from mpi_pastar_msa_tpu_torch.core.problem import Problem
 from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
 from mpi_pastar_msa_tpu_torch.heuristic.triples import HTriples
@@ -221,63 +223,101 @@ def emulate_count(rows, n_lanes, ndev, seg_len, rng):
     return out, seg
 
 
-def emulate_sort(seg, n, keys, threads, rng):
-    """sort_segment: the n keys padded to np2; each group of ``keys`` sorted
-    by the in-register bitonic network; then rounds that merge runs of w =
-    keys, 2 keys, ... pairwise from one buffer into the other, each group's
-    outputs found by a binary search along the merge path and a serial
-    merge (a key of the first run goes first only when smaller); a block
-    barrier before each round whose runs span more than a warp's 32 groups,
-    the warp's own sync before the others, and a block barrier before the
-    copy unless one warp sorts.  Groups run in an arbitrary order.  Returns
-    (sorted keys, block barriers)."""
+def k11_constants():
+    """route_pack.cu's constants of its sort, read from the source: kKeys
+    (a thread's group of keys), kPackThreads (a sorting block's most
+    threads) and kShKeys (the keys a block sorts between two shared
+    buffers)."""
+    with open(os.path.join(_kernels.CSRC, "route_pack.cu")) as f:
+        src = f.read()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in ("kKeys", "kPackThreads", "kShKeys")}
+
+
+K11 = k11_constants()
+
+
+def emulate_merge(x, a, b, w, o, keys):
+    """merge_group: outputs o .. o + keys of the merge of the sorted runs
+    x[a:a + w] and x[b:b + w] (Python ints): a lower bound along the merge
+    path, then a serial merge in which a key of the first run goes first
+    only when smaller and every step loads the next key of its run."""
+    lo = max(0, o - w)
+    span = min(o, w) - lo
+    while span > 0:
+        half = span // 2
+        if x[a + lo + half] < x[b + o - 1 - lo - half]:
+            lo, span = lo + half + 1, span - half - 1
+        else:
+            span = half
+    ia, ib = lo, o - lo
+    ka, kb = x[a + min(ia, w - 1)], x[b + min(ib, w - 1)]
+    v = []
+    for _ in range(keys):
+        from_a = ib >= w or (ia < w and ka < kb)
+        v.append(ka if from_a else kb)
+        if from_a:
+            ia += 1
+            ka = x[a + min(ia, w - 1)]
+        else:
+            ib += 1
+            kb = x[b + min(ib, w - 1)]
+    return v
+
+
+def emulate_sort(seg, n, keys, threads, shared_keys, rng):
+    """route_pack's sort of a segment of n keys, padded to np2 on nt =
+    np2 / keys threads (at least a warp, at most ``threads``); a block
+    barrier is a named barrier over the nt threads, a warp's own sync when
+    nt is one warp.  sort_segment: each group of ``keys`` sorted by the
+    in-register bitonic network, then rounds that merge runs of w = keys,
+    2 keys, ... pairwise from one buffer into the other (emulate_merge), a
+    block barrier before each round whose runs span more than a warp's 32
+    groups (the warp's own sync before the others) and one at its end.  At
+    np2 = 2 ``shared_keys`` (sort_halves) each half sorts so, the first
+    stored back in place while the second sorts, and the last round merges
+    the halves, with a block barrier after the first half's store, after
+    its reload and after the merge.  Groups run in an arbitrary order.  Returns (sorted
+    keys, block barriers, where: "shared", "halves" or "device")."""
     np2 = max(keys, 1 << max(n - 1, 0).bit_length())
-    groups = np2 // keys
-    x = np.full(np2, PAD, np.uint64)
-    x[:n] = seg[:n]
-    v = x.reshape(groups, keys)
-    k = 2
-    while k <= keys:
-        j = k // 2
-        while j:
-            for i in range(keys):
-                if (i ^ j) > i:
-                    a, b = v[:, i].copy(), v[:, i ^ j].copy()
-                    sw = (a > b) == ((i & k) == 0)
-                    v[:, i], v[:, i ^ j] = np.where(sw, b, a), np.where(sw, a, b)
-            j //= 2
-        k *= 2
-    barriers, w = 0, keys
-    while w < np2:
-        barriers += 2 * w > 32 * keys
-        y = np.empty_like(x)
-        for g in rng.permutation(groups):
-            at = g * keys
-            pair = at & ~(2 * w - 1)
-            o = at - pair
-            a, b = x[pair:pair + w], x[pair + w:pair + 2 * w]
-            lo = max(0, o - w)
-            span = min(o, w) - lo
-            while span > 0:  # a lower bound along the merge path
-                half = span // 2
-                if a[lo + half] < b[o - 1 - lo - half]:
-                    lo, span = lo + half + 1, span - half - 1
-                else:
-                    span = half
-            ia, ib = lo, o - lo
-            ka, kb = a[min(ia, w - 1)], b[min(ib, w - 1)]
-            for r in range(keys):  # every step loads the next key of its run
-                from_a = ib >= w or (ia < w and ka < kb)
-                y[at + r] = ka if from_a else kb
-                if from_a:
-                    ia += 1
-                    ka = a[min(ia, w - 1)]
-                else:
-                    ib += 1
-                    kb = b[min(ib, w - 1)]
-        x, w = y, 2 * w
-    nt = min(threads, max(32, groups))
-    return x[:n], barriers + (nt > 32)  # and one before the copy
+    nt = min(threads, max(32, np2 // keys))
+    block = nt > 32
+
+    def sort_segment(src, m, size):
+        x = [int(k) for k in src[:m]] + [int(PAD)] * (size - m)
+        for g in range(size // keys):
+            v = x[g * keys:(g + 1) * keys]
+            k = 2
+            while k <= keys:
+                j = k // 2
+                while j:
+                    for i in range(keys):
+                        if (i ^ j) > i and (v[i] > v[i ^ j]) == ((i & k) == 0):
+                            v[i], v[i ^ j] = v[i ^ j], v[i]
+                    j //= 2
+                k *= 2
+            x[g * keys:(g + 1) * keys] = v
+        barriers, w = 0, keys
+        while w < size:
+            barriers += block and 2 * w > 32 * keys
+            y = [None] * size
+            for g in rng.permutation(size // keys):
+                at = int(g) * keys
+                pair = at & ~(2 * w - 1)
+                y[at:at + keys] = emulate_merge(x, pair, pair + w, w, at - pair, keys)
+            x, w = y, 2 * w
+        return x, barriers + block
+
+    if np2 != 2 * shared_keys:
+        x, barriers = sort_segment(seg, n, np2)
+        return x[:n], barriers, "shared" if np2 <= shared_keys else "device"
+    x0, b0 = sort_segment(seg, shared_keys, shared_keys)
+    x1, b1 = sort_segment(seg[shared_keys:], n - shared_keys, shared_keys)
+    x, y = x0 + x1, [None] * np2
+    for g in rng.permutation(np2 // keys):
+        at = int(g) * keys
+        y[at:at + keys] = emulate_merge(x, 0, shared_keys, shared_keys, at, keys)
+    return y[:n], b0 + b1 + 3 * block, "halves"
 
 
 def emulate_allowance(out, Sm, ndev, me, cap):
@@ -294,14 +334,14 @@ def emulate_allowance(out, Sm, ndev, me, cap):
     return allow, base, np.cumsum(over) - over, int(over.sum())
 
 
-def emulate_route(cand, n_lanes, carry, ndev, me, cap, Sm, seed, keys=S.K11_KEYS,
-                  threads=S.K11_THREADS):
+def emulate_route(cand, n_lanes, carry, ndev, me, cap, Sm, seed, keys=K11["kKeys"],
+                  threads=K11["kPackThreads"], shared_keys=K11["kShKeys"]):
     """csrc/route_pack.cu's two passes in NumPy (emulate_count, then
     route_pack): block d sorts its segment (emulate_sort) and copies its
     rows by position, the first allow to the wire and the rest to the ring
     from its spill offset, its first spilled row taking the ring's min; the
-    blocks after them fill the ring's tail.  Returns (wire, ring, out, the
-    barriers of each destination's sort)."""
+    blocks after them fill the ring's tail.  Returns (wire, ring, out, per
+    destination its sort's block barriers and where it sorted)."""
     rng = np.random.default_rng(seed)
     rows = np.concatenate([cand[:n_lanes], carry]).astype(np.int64)
     ccar = carry.shape[0]
@@ -311,14 +351,14 @@ def emulate_route(cand, n_lanes, carry, ndev, me, cap, Sm, seed, keys=S.K11_KEYS
     ring = np.zeros((ccar, 4), np.int64)
     ring[spilled:] = [ndev, INFP, 0, -1]  # the tail's blocks
     out[ndev + 1] = max(spilled - ccar, 0)
-    barriers = []
+    sorts = {}
     for d in rng.permutation(ndev):
         n = int(out[d])
         if n == 0:
-            barriers.append((d, 0))
+            sorts[d] = (0, None)
             continue
-        ordered, nb = emulate_sort(seg[d], n, keys, threads, rng)
-        barriers.append((d, nb))
+        ordered, nb, where = emulate_sort(seg[d], n, keys, threads, shared_keys, rng)
+        sorts[d] = (nb, where)
         for i, key in enumerate(ordered):
             v = rows[int(key) & 0xFFFFFFFF]
             if i < allow[d]:
@@ -327,7 +367,7 @@ def emulate_route(cand, n_lanes, carry, ndev, me, cap, Sm, seed, keys=S.K11_KEYS
                 ring[before[d] + i - allow[d]] = [d, v[1], v[2], v[3]]
                 if i == allow[d]:
                     out[ndev + 2] = min(out[ndev + 2], v[1])
-    return wire, ring, out, dict(barriers)
+    return wire, ring, out, sorts
 
 
 @pytest.mark.parametrize("seed,cap,ragged,f_range", [
@@ -356,6 +396,36 @@ def test_k11_emulation_equals_plain(seed, cap, ragged, f_range):
         assert np.array_equal(w.numpy()[sent], ew[sent])
 
 
+def _schedule_route(keys, threads, shared_keys, L, ndev, ragged, seed):
+    """emulate_route at the given group size, threads and shared keys
+    against route_plain on every shard of route_inputs(seed) with ties in
+    f: the same out, ring and wire rows sent.  Returns each shard's
+    segments' (size, block barriers, where sorted)."""
+    ccar, cap = L // 2, 50
+    cand, carry = route_inputs(seed, ndev, L, ccar, 1 << 12)
+    n_lanes = L - 5
+    Sm = None
+    if ragged:
+        Sm = np.stack([S.route_plain(torch.from_numpy(cand[i]), n_lanes,
+                                     torch.from_numpy(carry[i]), ndev, i, cap)[2][:ndev].numpy()
+                       for i in range(ndev)])
+    shapes = []
+    for me in range(ndev):
+        w, r, o = S.route_plain(torch.from_numpy(cand[me]), n_lanes, torch.from_numpy(carry[me]),
+                                ndev, me, cap, None if Sm is None else torch.from_numpy(Sm))
+        ew, er, eo, sorts = emulate_route(cand[me], n_lanes, carry[me], ndev, me, cap, Sm,
+                                          60 + me, keys=keys, threads=threads,
+                                          shared_keys=shared_keys)
+        assert np.array_equal(o.numpy(), eo) and np.array_equal(r.numpy(), er)
+        A = S.route_sizes(Sm if ragged else np.tile(o[:ndev].numpy(), (ndev, 1)), ndev, cap,
+                          ragged)[me]
+        base = np.cumsum(A) - A if ragged else np.arange(ndev) * cap
+        sent = np.concatenate([np.arange(b, b + a) for a, b in zip(A, base)]).astype(int)
+        assert np.array_equal(w.numpy()[sent], ew[sent])
+        shapes += [(int(o[d]), *sorts[d]) for d in range(ndev)]
+    return shapes
+
+
 @pytest.mark.parametrize("keys,threads,L,ndev,ragged", [
     # about 700 rows a destination: 7 rounds, 2 of them past a warp's runs
     (8, 512, 2000, 2, False), (8, 512, 2000, 2, True),
@@ -365,46 +435,59 @@ def test_k11_emulation_equals_plain(seed, cap, ragged, f_range):
     (4, 32, 900, 2, True)])
 def test_k11_schedules_equal_plain(keys, threads, L, ndev, ragged):
     """The emulation at the kernel's group size and at smaller ones, so that
-    small inputs reach many rounds: the same route as the plain version,
-    and the barriers k11_sort_shape counts."""
-    ccar, cap = L // 2, 50
-    cand, carry = route_inputs(40 + keys, ndev, L, ccar, 1 << 12)  # ties in f
-    n_lanes = L - 5
-    Sm = None
-    if ragged:
-        Sm = np.stack([S.route_plain(torch.from_numpy(cand[i]), n_lanes,
-                                     torch.from_numpy(carry[i]), ndev, i, cap)[2][:ndev].numpy()
-                       for i in range(ndev)])
-    for me in range(ndev):
-        w, r, o = S.route_plain(torch.from_numpy(cand[me]), n_lanes, torch.from_numpy(carry[me]),
-                                ndev, me, cap, None if Sm is None else torch.from_numpy(Sm))
-        ew, er, eo, bar = emulate_route(cand[me], n_lanes, carry[me], ndev, me, cap, Sm,
-                                        60 + me, keys=keys, threads=threads)
-        assert np.array_equal(o.numpy(), eo) and np.array_equal(r.numpy(), er)
-        A = S.route_sizes(Sm if ragged else np.tile(o[:ndev].numpy(), (ndev, 1)), ndev, cap,
-                          ragged)[me]
-        base = np.cumsum(A) - A if ragged else np.arange(ndev) * cap
-        sent = np.concatenate([np.arange(b, b + a) for a, b in zip(A, base)]).astype(int)
-        assert np.array_equal(w.numpy()[sent], ew[sent])
-        assert max(int(o[d]) for d in range(ndev) if d != me) > 2 * 32 * keys
-        for d, nb in bar.items():
-            assert nb == S.k11_sort_shape(int(o[d]), keys, threads)["barriers"]
+    small inputs reach many rounds, in two shared buffers: the same route
+    as the plain version; rounds past a warp's runs (a segment above 64
+    groups) take block barriers, unless one warp sorts."""
+    shapes = _schedule_route(keys, threads, 1 << 20, L, ndev, ragged, 40 + keys)
+    big = [(n, nb) for n, nb, where in shapes if n > 2 * 32 * keys]
+    assert big and all(where in ("shared", None) for _, _, where in shapes)
+    assert all((nb > 0) == (threads > 32) for _, nb in big)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_k11_halves_schedule_equals_plain(ragged):
+    """sort_halves, emulated at groups of 2 keys on 64 threads with two
+    shared buffers of 256 keys: segments of 257 to 512 keys sort as two
+    halves and a last merge, and route as the plain version."""
+    shapes = _schedule_route(2, 64, 256, 1500, 3, ragged, 42)
+    assert {where for n, _, where in shapes if 256 < n <= 512} == {"halves"}
+
+
+# (segment size, block barriers, where it sorts) of route_pack's sort at
+# route_pack.cu's constants; tests/test_torch_cuda.py::K11_BARRIERS holds
+# the kernel's K11_BARRIERS build to the same counts on the card
+K11_SHAPES = [(1, 0, "shared"), (256, 0, "shared"), (257, 2, "shared"), (636, 3, "shared"),
+              (1024, 3, "shared"), (8192, 6, "shared"), (8193, 15, "halves"),
+              (16384, 15, "halves"), (16385, 8, "device"), (31744, 8, "device")]
 
 
 def test_k11_sort_shape():
-    """route_pack's sort at the kernel's constants: up to a warp's 256 keys
-    on one warp with no block barrier; 1,024 keys on 128 threads in 7
-    rounds with 3 block barriers (the block bitonic before: 55 stages); shared
-    memory up to 8,192 keys."""
-    shape = S.k11_sort_shape
-    assert shape(0)["threads"] == 0 and shape(0)["barriers"] == 0
-    assert [shape(n)["rounds"] for n in (1, 8, 9, 31, 32, 33, 256)] == [0, 0, 1, 2, 2, 3, 5]
-    assert all(shape(n)["barriers"] == 0 and shape(n)["threads"] == 32 for n in (1, 33, 256))
-    assert shape(257) == dict(np2=512, threads=64, rounds=6, barriers=2, shared=True)
-    assert shape(636) == shape(1024) == dict(np2=1024, threads=128, rounds=7, barriers=3,
-                                             shared=True)
-    assert shape(8192)["shared"] and not shape(8193)["shared"]
-    assert shape(31744) == dict(np2=32768, threads=512, rounds=12, barriers=8, shared=False)
+    """route_pack's sort at route_pack.cu's constants, emulated on random
+    keys: up to a warp's 256 keys on one warp with no block barrier; 1,024
+    keys with 3 (the block bitonic of commit c408a21: 55 stages); two shared
+    buffers up to 8,192 keys, the halves up to 16,384, device memory
+    above; the keys come out sorted.  The card tests' K11_BARRIERS, which
+    the kernel's K11_BARRIERS build must execute, are the emulation's."""
+    from test_torch_cuda import K11_BARRIERS, K11_CASES
+
+    assert K11 == dict(kKeys=8, kPackThreads=512, kShKeys=8192)
+    rng = np.random.default_rng(5)
+    shapes = {}
+
+    def shape(n):
+        if n not in shapes:
+            f = rng.integers(0, 1 << 10, n).astype(np.uint64)  # ties: position breaks them
+            seg = f << np.uint64(32) | rng.permutation(n).astype(np.uint64)
+            ordered, nb, w = emulate_sort(seg, n, K11["kKeys"], K11["kPackThreads"],
+                                          K11["kShKeys"], rng)
+            assert ordered == sorted(int(k) for k in seg), n
+            shapes[n] = nb, w
+        return shapes[n]
+
+    for n, barriers, where in K11_SHAPES:
+        assert shape(n) == (barriers, where), n
+    for case, counts, *_ in K11_CASES:
+        assert tuple(shape(n)[0] if n else 0 for n in counts) == K11_BARRIERS[case], case
 
 
 # --- K12: the plain tri-partial against JAX's
