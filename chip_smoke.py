@@ -115,19 +115,30 @@ Phases, each failing loudly (non-zero exit):
    alignment, one chunk graph the resumed run captured, K7 once; the
    save and load walls and the file's size.
 7. sharded (parallel/sharded.py, a LocalMesh of [cuda:0] * 4 through
-   ShardedFrontierSearch.run): kinase --triples auto (sig, sharded cubes)
-   with the ragged exchange and with the dense one (traced: device time a
-   step) must reach g = 421546 with the golden alignment and migrated rows,
-   launching K3, sig_coords, K12 (tri_partial.cu), K4's sharded
-   instantiation, K11's two passes (route_pack.cu), K5 and K7's hop mode
-   and no plain version; one shard of kinase; PF08184 with
-   exchange_cap=1; a random 4-sequence input whose one-row wire must spill
-   into the carry ring (its brute-force optimum); test2 under FZORDER,
-   PZORDER, FSUM and PSUM.  On kinase's step 200 each new kernel against
-   its plain version bit for bit (K11 under both allowances, with each
-   destination's sort barriers as its K11_BARRIERS build counts them; K7's hop mode on every shard's table from
-   every path node), their wrapper, device and plain times and byte
-   bounds, and sharded_step_bounds at the run's B and cap
+   ShardedFrontierSearch.run): kinase --triples auto, whose automatic
+   layout is packed at JAX's 2^21 slots a shard (sharded cubes), with the
+   ragged exchange and with the dense one (traced: device time a step)
+   must reach g = 421546 with the golden alignment and migrated rows,
+   launching K3, keyrow_coords, K12 (tri_partial.cu), K9's sharded
+   instantiation (keyrow_expand.cu), K11 on key rows (route_pack.cu), K10
+   on the received rows (keyrow_insert.cu) and K7's hop mode, and no
+   plain version; kinase pinned to unpacked (K3's unpacked instantiation,
+   the whole cube stack on every shard) and pinned to sig at 2^23 slots a
+   shard (sig_coords, K4's sharded instantiation, K11 on sig rows, K5);
+   any overflow retry and the capacity reached; one shard of kinase;
+   PF08184 with exchange_cap=1; a random 4-sequence input whose one-row
+   wire must spill into the carry ring (its brute-force optimum), on sig
+   and pinned to unpacked; the degenerate input on 4 shards (unpacked,
+   warned, the single-table unpacked search's g and alignment); test2
+   under FZORDER, PZORDER, FSUM and PSUM.  On step 200 of the packed, the
+   unpacked and the sig kinase runs each kernel of the step against its
+   plain version bit for bit (K11 under both allowances, on sig rows with
+   each destination's sort barriers as its K11_BARRIERS build counts
+   them; K10 over the received rows and the self-owned lanes: every
+   table tensor, the claim words and the 14 counters; K7's hop mode on
+   every shard's table from every path node), their wrapper, device and
+   plain times and byte bounds, and sharded_step_bounds at the run's B
+   and cap
    (``--k11-baseline SRC`` builds another tree's K11, checks it on the
    same inputs and times the two in turns, each pass alone;
    ``--k11-sweep`` checks and times K11 on synthetic kinase-shaped inputs
@@ -145,6 +156,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
+import gc
 import io
 import json
 import os
@@ -2234,32 +2247,41 @@ def sharded_step_bounds(B: int, N: int, T: int, walk: dict, ndev: int = 4,
     return out
 
 
-# the sharded step's kernels (parallel/sharded.py on a card): K3, the
-# coordinates K12 gathers, K12, K4's sharded instantiation, K11's two
-# passes, K5; K7's hop-limited mode for the walk
-SHARDED_KERNELS = ["select_best", "sig_coords", "tri_partial", "sig_expand_sharded",
-                   "route_count", "route_pack", "sig_probe", "path_walk_hops"]
+# the sharded step's kernels (parallel/sharded.py on a card), by layout:
+# K3, the coordinates K12 gathers, K12, the sharded expand, K11's two
+# passes, the insert; K7's hop-limited mode for the walk
+SHARDED_KERNELS = {
+    "sig": ["select_best", "sig_coords", "tri_partial", "sig_expand_sharded", "route_count",
+            "route_pack", "sig_probe", "path_walk_hops"],
+    "packed": ["select_best", "keyrow_coords", "tri_partial", "keyrow_expand_sharded",
+               "route_count_rows", "route_pack_rows", "keyrow_insert_recv", "path_walk_hops"],
+    "unpacked": ["select_best_unpacked", "keyrow_expand_sharded", "route_count_rows",
+                 "route_pack_rows", "keyrow_insert_recv", "path_walk_hops"]}
 # the plain versions a CUDA shard must never call (names in
 # parallel/sharded.py's namespace)
 PLAIN_SHARDED = ("route_plain", "tri_partial_plain", "sig_coords_plain",
                  "expand_sharded_plain", "walk_hops_plain", "_insert_sig",
-                 "_select_best_plain", "_expand")
+                 "_select_best_plain", "_expand", "keyrow_coords_plain",
+                 "expand_keyrow_sharded_plain", "insert_pending_plain", "finish_plain",
+                 "_select_open_plain", "_insert_core", "_insert_core_packed")
 
 
 @contextlib.contextmanager
-def sharded_guard(capture_step: int = 0, target: int = 1):
+def sharded_guard(capture_step: int = 0):
     """Count the calls of the sharded engine's plain functions
     (PLAIN_SHARDED) made inside, keep every shard the run makes, and at
-    step ``capture_step`` (> 0) copy shard ``target``'s inputs and outputs
-    of each kernel of its step (sig_coords, K12, K4 sharded, K11) into
-    ``cap``."""
+    step ``capture_step`` (> 0) copy the inputs and outputs of the shard
+    that selected the most rows there (the lowest index on a tie)
+    of each kernel of its step (sig_coords or keyrow_coords, K12, K4s or
+    K9s, K11, and on key rows K10) into ``cap``."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import step as S
 
     calls = dict.fromkeys(PLAIN_SHARDED, 0)
     saved = {name: getattr(SH, name) for name in PLAIN_SHARDED}
     methods = {name: getattr(SH._Shard, name)
                for name in ("select", "coords", "partial", "expand", "count", "pack")}
-    cap = {"shards": [], "step": 0, "at": capture_step}
+    cap = {"shards": [], "step": 0, "at": capture_step, "nsel_at": {}}
 
     def counted(name, fn):
         def wrapper(*args, **kw):
@@ -2268,20 +2290,29 @@ def sharded_guard(capture_step: int = 0, target: int = 1):
         return wrapper
 
     def on(sh):
-        return capture_step and cap["step"] == capture_step and sh.me == target
+        if not capture_step or cap["step"] != capture_step:
+            return False
+        n = cap["nsel_at"]
+        return sh.me == max(sorted(n), key=lambda me: n[me])
 
     def select(sh):
         if sh.me == 0:
             cap["step"] += 1
+            cap["nsel_at"] = {}
         if not any(x is sh for x in cap["shards"]):
             cap["shards"].append(sh)
-        return methods["select"](sh)
+        out = methods["select"](sh)
+        if capture_step and cap["step"] == capture_step:
+            cap["nsel_at"][sh.me] = int(sh.bufs.state[2])
+        return out
 
     def coords(sh):
         out = methods["coords"](sh)
         if on(sh):
-            cap.update(shard=sh, coords=out.clone(), t_sig=sh.tab.t_sig.clone(),
-                       sel=sh.bufs.sel.clone(), state_sel=sh.bufs.state.clone())
+            keys = sh.tab.t_sig if sh.layout == "sig" else sh.tab.t_key
+            cap.update(shard=sh, coords=out.clone(), sel=sh.bufs.sel.clone(),
+                       state_sel=sh.bufs.state.clone(),
+                       **{"t_sig" if sh.layout == "sig" else "t_key": keys.clone()})
         return out
 
     def partial(sh, coords_g):
@@ -2293,16 +2324,22 @@ def sharded_guard(capture_step: int = 0, target: int = 1):
     def expand(sh, eng, h3):
         if on(sh):
             cap.update(shard=sh, eng=eng, h3=None if h3 is None else h3.clone(),
-                       t_sig=sh.tab.t_sig.clone(), t_best0=sh.tab.t_best.clone(),
                        sel=sh.bufs.sel.clone(), state0=sh.bufs.state.clone(),
                        ctr0=sh.ctr.clone())
+            if sh.layout == "sig":
+                cap.update(t_sig=sh.tab.t_sig.clone(), t_best0=sh.tab.t_best.clone())
+            else:
+                cap.update(tab0=clone_table(sh.tab))
         out = methods["expand"](sh, eng, h3)
         if on(sh):
             torch.cuda.synchronize()
             n_pend = int(sh.bufs.state[6])
-            cap.update(cand=sh.cand.clone(), t_best1=sh.tab.t_best.clone(),
-                       pend=sh.bufs.pend[sh.R:sh.R + n_pend].clone(),
+            cap.update(cand=sh.cand.clone(), pend=sh.bufs.pend[sh.R:sh.R + n_pend].clone(),
                        state1=sh.bufs.state.clone(), ctr1=sh.ctr.clone())
+            if sh.layout == "sig":
+                cap.update(t_best1=sh.tab.t_best.clone())
+            else:
+                cap.update(tab1=clone_table(sh.tab))
         return out
 
     def count(sh, eng):
@@ -2319,11 +2356,27 @@ def sharded_guard(capture_step: int = 0, target: int = 1):
                        ring1=sh.ring.clone(), route_out=sh.route_out.clone())
         return out
 
+    insert = S.insert_pending_cuda
+
+    def insert_pending(st, tab, bufs, ctr, fill, pend_at, n_front, **kw):
+        mine = "shard" in cap and on(cap["shard"]) and tab is cap["shard"].tab
+        if mine:
+            n = int(bufs.state[6])
+            cap.update(k10_tab0=clone_table(tab), k10_ctr0=ctr.clone(),
+                       k10_state0=bufs.state.clone(), k10_rows=bufs.pend[pend_at:pend_at + n].clone(),
+                       k10_pend_at=pend_at, n_front=n_front, fill=fill)
+        insert(st, tab, bufs, ctr, fill, pend_at, n_front, **kw)
+        if mine:
+            torch.cuda.synchronize()
+            cap.update(k10_tab1=clone_table(tab), k10_ctr1=ctr.clone(),
+                       k10_state1=bufs.state.clone())
+
     for name, fn in saved.items():
         setattr(SH, name, counted(name, fn))
     for name, fn in (("select", select), ("coords", coords), ("partial", partial),
                      ("expand", expand), ("count", count), ("pack", pack)):
         setattr(SH._Shard, name, fn)
+    S.insert_pending_cuda = insert_pending
     try:
         yield calls, cap
     finally:
@@ -2331,6 +2384,7 @@ def sharded_guard(capture_step: int = 0, target: int = 1):
             setattr(SH, name, fn)
         for name, fn in methods.items():
             setattr(SH._Shard, name, fn)
+        S.insert_pending_cuda = insert
 
 
 def shard_bytes(sh) -> int:
@@ -2344,12 +2398,12 @@ def shard_bytes(sh) -> int:
             seen.add(t.data_ptr())
             total += t.numel() * t.element_size()
 
-    for t in (sh.tab.t_sig, sh.tab.t_best, sh.tab.t_closed, sh.ctr, *sh.rings, sh.cubes,
-              sh.tri, getattr(sh, "cand", None), getattr(sh, "keys", None),
+    for t in (*(getattr(sh.tab, f) for f in sh.tab.__dataclass_fields__), sh.ctr, *sh.rings,
+              sh.cubes, sh.tri, getattr(sh, "cand", None), getattr(sh, "keys", None),
               getattr(sh, "wire", None), getattr(sh, "route_out", None)):
         add(t)
     for f in ("slots", "vmin", "active", "state", "sel", "partial", "ticket", "run", "pend",
-              "lane_cur", "lane_dest", "lane_word", "params"):
+              "lane_cur", "lane_dest", "lane_word", "tail", "params"):
         add(getattr(sh.bufs, f, None))
     return total
 
@@ -2358,22 +2412,26 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
                 capture_step: int = 0, profile: bool = False, **kw) -> dict:
     """One ShardedFrontierSearch run (the engine entry) on ``devices``: the
     golden g, path cost g (attach_path_g), degapped rows; every sharded
-    step kernel launched (K3, sig_coords and K12 where the cubes are
-    sharded, K4 sharded, K11's passes, K5, K7's hop mode) and no plain
-    version; the step's wall, host reads, wire and migrated rows, peak
-    carry, walk rounds and wall, peak memory per shard and in total."""
+    step kernel of its layout launched (SHARDED_KERNELS: K3, the
+    coordinates and K12 where the cubes are split, the sharded expand,
+    K11's passes, the insert, K7's hop mode) and no plain version; the
+    layout, the capacity it started at and reached and any overflow retry;
+    the step's wall, host reads, wire and migrated rows, peak carry, walk
+    rounds and wall, peak memory per shard and in total."""
     from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
     from mpi_pastar_msa_tpu_torch.parallel.sharded import ShardedFrontierSearch
     from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
 
     problem = problem_from_fasta(path)
+    gc.collect()  # an earlier run's shards and captures, before the peak is reset
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_counts()
     t0 = time.perf_counter()
     with sharded_guard(capture_step) as (plain, cap):
         eng = ShardedFrontierSearch(problem, devices=devices, **kw)
+        capacity0 = eng.st.C
         build_s = time.perf_counter() - t0
         if profile:
             from torch.profiler import ProfilerActivity, profile as prof_ctx
@@ -2395,8 +2453,8 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
         fail(f"{label}: plain versions ran on the card: {plain}")
     st = eng.last_stats
     wire_path = not (eng.ndev == 1 and eng.exchange == "dense")
-    want = (SHARDED_KERNELS if eng.shard_cubes
-            else [k for k in SHARDED_KERNELS if k not in ("sig_coords", "tri_partial")])
+    want = [k for k in SHARDED_KERNELS[eng.layout]
+            if eng.cubes_split or k not in ("sig_coords", "keyrow_coords", "tri_partial")]
     if wire_path:
         for k in want:
             if counts.get(k, 0) <= 0:
@@ -2410,8 +2468,10 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
     cap["path"] = list(res.closed)
     steps = max(st["steps"], 1)
     info = dict(g=res.g, identical=identical, ndev=eng.ndev, devices=[str(d) for d in devices],
-                exchange=eng.exchange, exchange_cap=eng.exchange_cap, hash=eng.hash_type,
-                shard_cubes=eng.shard_cubes, capacity=eng.st.C, batch=eng.st.B,
+                layout=eng.layout, exchange=eng.exchange, exchange_cap=eng.exchange_cap,
+                hash=eng.hash_type, shard_cubes=eng.shard_cubes, cubes_split=eng.cubes_split,
+                capacity=eng.st.C, capacity_start=capacity0, retries=eng.retries,
+                batch=eng.st.B,
                 steps=res.steps, expanded=res.nodes_expanded, reopened=res.nodes_reopened,
                 migrated=res.nodes_migrated, shard_stats=res.shard_stats,
                 host_reads_a_step=st["host_reads"] / steps,
@@ -2427,9 +2487,10 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
         dev_us = sum(e.device_time_total for e in prof.key_averages()
                      if own_event(e.key) and e.count)
         info["step_device_ms"] = dev_us / 1e3 / steps
-    print(f"{label}: {eng.ndev} shard(s) on {info['devices']}, exchange {eng.exchange} (cap "
-          f"{eng.exchange_cap}), hash {eng.hash_type}, shard cubes {eng.shard_cubes}, "
-          f"capacity {eng.st.C} a shard, batch {eng.st.B}; g={res.g} ok, path cost == g, "
+    print(f"{label}: {eng.ndev} shard(s) on {info['devices']}, layout {eng.layout}, exchange "
+          f"{eng.exchange} (cap {eng.exchange_cap}), hash {eng.hash_type}, cubes split "
+          f"{eng.cubes_split}, capacity {eng.st.C} a shard (started at {capacity0}; overflow "
+          f"retries {eng.retries or 'none'}), batch {eng.st.B}; g={res.g} ok, path cost == g, "
           f"alignment byte-identical to golden: {identical}; steps {res.steps}, expanded "
           f"{res.nodes_expanded}, migrated {res.nodes_migrated}; a step: wall "
           f"{info['step_wall_ms']:.3f} ms"
@@ -2440,11 +2501,11 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
           f"peak memory {peak / 2**20:.1f} MiB"
           + (f" (shards {[round(b / 2**20, 1) for b in info['shard_bytes']]} MiB)"
              if info["shard_bytes"] else "")
-          + f"; launches { {k: counts[k] for k in SHARDED_KERNELS + ['path_walk']} }")
+          + f"; launches { {k: counts[k] for k in SHARDED_KERNELS[eng.layout] + ['path_walk']} }")
     return info, eng, cap
 
 
-def sharded_walk_bytes(st, shards, final) -> dict:
+def sharded_walk_bytes(st, shards, final, layout: str = "sig") -> dict:
     """The bytes the sharded walk (_make_batched_walk) must move on this
     run's tables: each round every shard walks at most WALK_HOPS hops from
     the round's coordinate (walk_bytes: the shard that holds it reads its
@@ -2460,9 +2521,9 @@ def sharded_walk_bytes(st, shards, final) -> dict:
         rounds += 1
         moved = None
         for shd in shards:
-            wb = walk_bytes(st, shd.tab, "sig", c, K, K + st.n + 1)
+            wb = walk_bytes(st, shd.tab, layout, c, K, K + st.n + 1)
             nbytes, lookups = nbytes + wb["bytes"], lookups + wb["lookups"]
-            run = SH.walk_hops_plain(st, shd.tab, c, K)
+            run = SH.walk_hops_plain(st, shd.tab, c, K, layout)
             if int(run[-1]):
                 moved = run[K: K + st.n].numpy().astype(np.int64)
         if moved is None:
@@ -2483,10 +2544,11 @@ def k11_bitonic_stages(n: int) -> int:
 
 class K11Run:
     """One build of K11 on fixed inputs (``inp``: cand, carry, n_lanes, M,
-    ndev, me, cap, S or None, seg), with outputs of its own: count() and
-    pack() each call one C entry, call() both.  ``fns`` is another tree's
-    C entries (load_k11_baseline); by default this tree's, through
-    _kernels.launch."""
+    ndev, me, cap, S or None, seg, and for key rows ``fill``, the empty
+    row: then the C entries route_count_rows and route_pack_rows), with
+    outputs of its own: count() and pack() each call one C entry, call()
+    both.  ``fns`` is another tree's C entries (load_k11_baseline, sig
+    rows); by default this tree's, through _kernels.launch."""
 
     def __init__(self, inp: dict, fns=None):
         from mpi_pastar_msa_tpu_torch import _kernels
@@ -2494,22 +2556,29 @@ class K11Run:
         cand, carry, ndev, cap = inp["cand"], inp["carry"], inp["ndev"], inp["cap"]
         dev = cand.device
         lanes_cap, ccar, M = cand.shape[0], carry.shape[0], inp["M"]
+        fill = inp.get("fill")
         self.nsel = torch.tensor(inp["n_lanes"] // M, dtype=torch.int64, device=dev)
         self.out = torch.empty(ndev + 3, dtype=torch.int32, device=dev)
         self.keys = torch.empty(2 * ndev * inp["seg"], dtype=torch.int64, device=dev)
-        self.wire = torch.zeros((max(ndev * cap, lanes_cap + ccar), 3), dtype=torch.int32,
+        self.wire = torch.zeros((max(ndev * cap, lanes_cap + ccar),
+                                 3 if fill is None else cand.shape[1] - 2), dtype=torch.int32,
                                 device=dev)
         self.ring = torch.empty_like(carry)
         stream = torch.cuda.current_stream(dev).cuda_stream
         S = inp["S"]
+        # key rows: the row's words, its key words (the empty row's -1s)
+        # and the empty fsort
+        rows = () if fill is None else (cand.shape[1], fill[2:].count(-1), fill[1])
+        self.names = (("route_count", "route_pack") if fill is None
+                      else ("route_count_rows", "route_pack_rows"))
         self.args = {
-            "route_count": (cand.data_ptr(), carry.data_ptr(), self.nsel.data_ptr(), M,
-                            lanes_cap, ccar, ndev, inp["seg"], self.out.data_ptr(),
+            self.names[0]: (cand.data_ptr(), carry.data_ptr(), self.nsel.data_ptr(), M,
+                            lanes_cap, ccar, ndev, inp["seg"], *rows, self.out.data_ptr(),
                             self.keys.data_ptr(), stream),
-            "route_pack": (cand.data_ptr(), carry.data_ptr(), self.nsel.data_ptr(), M, ccar,
-                           ndev, inp["me"], cap, None if S is None else S.data_ptr(),
-                           inp["seg"], self.out.data_ptr(), self.keys.data_ptr(),
-                           self.wire.data_ptr(), self.ring.data_ptr(), stream)}
+            self.names[1]: (cand.data_ptr(), carry.data_ptr(), self.nsel.data_ptr(), M, ccar,
+                            ndev, inp["me"], cap, None if S is None else S.data_ptr(),
+                            inp["seg"], *rows, self.out.data_ptr(), self.keys.data_ptr(),
+                            self.wire.data_ptr(), self.ring.data_ptr(), stream)}
         self.fns = fns
         self.launch = _kernels.launch
 
@@ -2520,10 +2589,10 @@ class K11Run:
             fail(f"{name} of {self.fns['src']} failed to launch")
 
     def count(self):
-        self._go("route_count")
+        self._go(self.names[0])
 
     def pack(self):
-        self._go("route_pack")
+        self._go(self.names[1])
 
     def call(self):
         self.count()
@@ -2553,7 +2622,7 @@ def k11_check(label: str, inp: dict, run: "K11Run"):
     torch.cuda.synchronize()
     ndev = inp["ndev"]
     p_wire, p_ring, p_out = SH.route_plain(inp["cand"], inp["n_lanes"], inp["carry"], ndev,
-                                           inp["me"], inp["cap"], inp["S"])
+                                           inp["me"], inp["cap"], inp["S"], inp.get("fill"))
     A = k11_sent_sizes(inp, p_out)
     base = np.cumsum(A) - A if inp["S"] is not None else np.arange(ndev) * inp["cap"]
     sent = torch.cat([torch.arange(int(b), int(b) + int(a)) for a, b in zip(A, base)]
@@ -2718,6 +2787,21 @@ def k11_sweep(count: dict, baseline=None) -> dict:
     return out
 
 
+def timed_check(out: dict, name: str, err, fn, plain_fn, nbytes: int, restore=None) -> None:
+    """out[name]: a checked kernel's wrapper (CUDA events, median of 20)
+    and device (CUPTI) times, its plain version's, and its bound by bytes
+    (``nbytes`` over HBM_BYTES_PER_S); with ``restore``, each run after
+    restore() has reset what the kernel changes."""
+    ms = time_restored(fn, restore, 20) if restore else time_ms(fn, 20)
+    dev = device_ms(fn, 20, restore)
+    pms = time_restored(plain_fn, restore, 5) if restore else time_ms(plain_fn, 5, 1)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    out[name] = dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=pms, bytes=nbytes,
+                     bound_ms=bound, bound_by="bytes", library_ms=None)
+    print(f"  {name}: max |err| {err}; wrapper {ms:.4f} ms, device {dev:.4f} ms, plain "
+          f"{pms:.3f} ms, bound {bound:.6f} ms ({nbytes} B)")
+
+
 def sharded_kernel_checks(cap: dict, shards, k11_count: dict, k11_baseline=None) -> dict:
     """Each new kernel of the sharded step against its plain version on
     the card, bit for bit, on shard ``target``'s inputs of the captured
@@ -2744,16 +2828,7 @@ def sharded_kernel_checks(cap: dict, shards, k11_count: dict, k11_baseline=None)
     M, B = st.M, st.B
     out = {}
     n_sel = int(cap["state0"][2])
-
-    def report(name, err, fn, plain_fn, nbytes, restore=None):
-        ms = time_restored(fn, restore, 20) if restore else time_ms(fn, 20)
-        dev = device_ms(fn, 20, restore)
-        pms = time_restored(plain_fn, restore, 5) if restore else time_ms(plain_fn, 5, 1)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        out[name] = dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=pms, bytes=nbytes,
-                         bound_ms=bound, bound_by="bytes", library_ms=None)
-        print(f"  {name}: max |err| {err}; wrapper {ms:.4f} ms, device {dev:.4f} ms, plain "
-              f"{pms:.3f} ms, bound {bound:.6f} ms ({nbytes} B)")
+    report = functools.partial(timed_check, out)
 
     print(f"sharded kernel checks (shard {me} of {ndev}, step {cap['at']}, {n_sel} rows):")
     # sig_coords
@@ -2894,6 +2969,196 @@ def sharded_kernel_checks(cap: dict, shards, k11_count: dict, k11_baseline=None)
     return out
 
 
+def keyrow_kernel_checks(cap: dict, shards) -> dict:
+    """The sharded step's kernels on key rows against their plain versions
+    on the card, bit for bit, on shard ``target``'s inputs of the captured
+    step (sharded_guard) of a packed or unpacked run: keyrow_coords and
+    K12 (packed), K9s (its candidate rows, every table tensor after its
+    round-0 match, its pending entries as a multiset, the surviving and
+    pending counts, the goal), K11 on key rows under the run's ragged and
+    the dense allowance (counts, migrants, carry overflow, ring min, the
+    new ring, the rows sent), K10 over the received rows and the
+    self-owned lanes (every table tensor, the claim words included, the 14
+    counters and its rounds, against insert_pending_plain and
+    finish_plain), then K7's hop mode against its plain version on every
+    shard's finished table from every path node.  Wrapper (CUDA events),
+    device (CUPTI) and plain times, and each bound by bytes."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    sh, eng = cap["shard"], cap["eng"]
+    st, ndev, me, layout = sh.st, eng.ndev, sh.me, sh.layout
+    M, B, W, C = st.M, st.B, st.W, st.C
+    pw = SH.pend_words(st, layout)
+    out = {}
+    report = functools.partial(timed_check, out)
+    n_sel = int(cap["state0"][2])
+    L = n_sel * M
+    fields = list(cap["tab0"].__dataclass_fields__)
+    srt = lambda t: sorted(map(tuple, t.tolist()))
+    print(f"sharded kernel checks on {layout} rows (shard {me} of {ndev}, step {cap['at']}, "
+          f"{n_sel} rows, {cap['n_front']} received):")
+    if "coords" in cap:  # keyrow_coords and K12 (the cubes split: packed)
+        nsel = int(cap["state_sel"][2])
+        want = SH.keyrow_coords_plain(st, cap["t_key"], cap["sel"], nsel, B)
+        err = int((want.long() - cap["coords"].long()).abs().max())
+        if err:
+            fail(f"keyrow_coords differs from its plain version by {err}")
+        co = torch.empty_like(cap["coords"])
+        nsel_t = cap["state_sel"][2:3].clone()
+
+        def run_coords():
+            _kernels.launch("keyrow_coords", cap["t_key"].data_ptr(), cap["t_key"].shape[1],
+                            cap["sel"].data_ptr(), nsel_t.data_ptr(), st.n, B, co.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+
+        report("keyrow_coords", err, run_coords,
+               lambda: SH.keyrow_coords_plain(st, cap["t_key"], cap["sel"], nsel, B),
+               nsel * (8 + W * 4) + B * st.n * 4)
+        want = SH.tri_partial_plain(cap["coords_g"], sh.cubes, sh.tri, M, st.S)
+        if not torch.equal(want, cap["part"]):
+            fail("K12 (tri_partial) on the packed run differs from its plain version")
+    # K9s
+    tab = clone_table(cap["tab0"])
+    goal, cand, pending, n_valid = SH.expand_keyrow_sharded_plain(
+        st, tab, layout, cap["sel"], n_sel, eng.ub, cap["h3"], eng.own, ndev, me, sh.tag_base)
+    bad = []
+    if not torch.equal(cand[:L], cap["cand"][:L]):
+        bad.append("candidate rows")
+    bad += [f for f in fields if not torch.equal(getattr(tab, f)[:C], getattr(cap["tab1"], f)[:C])]
+    if srt(pending) != srt(cap["pend"]):
+        bad.append("pending entries")
+    if n_valid != int(cap["state1"][5]) or pending.shape[0] != int(cap["state1"][6]):
+        bad.append("surviving or pending counts")
+    if min(goal, int(cap["ctr0"][0])) != int(cap["ctr1"][0]):
+        bad.append("goal g")
+    if bad:
+        fail(f"K9s ({layout}) differs from its plain version: {bad}")
+    tab_k, stt, ctr = clone_table(cap["tab0"]), cap["state0"].clone(), cap["ctr0"].clone()
+    bufs = S.StepBuffers.select_only(st, sh.dev)
+    bufs.sel, bufs.state, bufs.run = cap["sel"], stt, torch.ones(1, dtype=torch.int32,
+                                                                    device=sh.dev)
+    bufs.pend = torch.empty_like(sh.bufs.pend)
+    bufs.params = sh.bufs.params
+    cand_k = torch.empty_like(sh.cand)
+
+    def restore9():
+        if layout == "packed":
+            tab_k.t_best.copy_(cap["tab0"].t_best)
+        stt.copy_(cap["state0"])
+        ctr.copy_(cap["ctr0"])
+
+    def plain9():
+        t = cap["tab0"]
+        if layout == "packed":
+            t = type(t)(t.t_key, t.t_best.clone(), t.t_closed, t.claim)
+        SH.expand_keyrow_sharded_plain(st, t, layout, cap["sel"], n_sel, eng.ub, cap["h3"],
+                                       eng.own, ndev, me, sh.tag_base)
+
+    kws = cap["tab0"].t_key.shape[1]
+    row_in = 8 + kws * 4 + (12 if layout == "unpacked" else 0) + st.P * 20 + (
+        (M + 1) * 4 if cap["h3"] is not None else st.T3 * 8 * 4)
+    report("keyrow_expand_sharded", 0,
+           lambda: S.expand_keyrow_sharded_cuda(st, tab_k, bufs, ctr, eng.ub, cap["h3"], cand_k,
+                                                sh.R, eng.hash_params, ndev, me, sh.tag_base),
+           plain9, n_sel * row_in + L * (2 + pw) * 4
+           + (n_valid * W * 4 if layout == "packed" else 0) + pending.shape[0] * pw * 4,
+           restore=restore9)
+    out["keyrow_expand_sharded"].update(rows=n_sel, lanes=L, lanes_valid=n_valid,
+                                        pending=int(pending.shape[0]))
+    # K11 on key rows, both allowances
+    S_all = cap["S"]
+    if S_all is None:
+        S_all = cap["route_out"][:ndev].repeat(ndev, 1).to(torch.int32)
+    for mode, Smat in (("dense", None), ("ragged", S_all)):
+        inp = dict(cand=cap["cand_route"], carry=cap["ring"], n_lanes=cap["nsel"] * M, M=M,
+                   ndev=ndev, me=me, cap=eng.exchange_cap, S=Smat, seg=sh.seg, fill=sh.fill)
+        run = K11Run(inp)
+        p_out = k11_check(f"K11 on {layout} rows ({mode})", inp, run)
+        A = k11_sent_sizes(inp, p_out)
+        remote = int(p_out[:ndev].sum())
+        ccar, width = inp["carry"].shape[0], inp["cand"].shape[1]
+        nbytes = ((inp["n_lanes"] + ccar) * 4 + remote * (width - 1) * 4
+                  + (0 if Smat is None else ndev * ndev * 4) + 8
+                  + int(A.sum()) * (width - 2) * 4 + ccar * width * 4 + (ndev + 3) * 4)
+        report(f"route_rows_{mode}", 0, run.call,
+               lambda inp=inp: SH.route_plain(inp["cand"], inp["n_lanes"], inp["carry"], ndev,
+                                              me, inp["cap"], inp["S"], inp["fill"]), nbytes)
+        run.count()
+        out[f"route_rows_{mode}"].update(
+            rows=inp["n_lanes"] + ccar, remote=remote, sent=int(A.sum()),
+            spilled=remote - int(A.sum()), segments=p_out[:ndev].tolist(), passes={
+                "route_count_rows": dict(ms=time_ms(run.count, 20),
+                                         device_ms=device_ms(run.count, 20)),
+                "route_pack_rows": dict(ms=time_ms(run.pack, 20),
+                                        device_ms=device_ms(run.pack, 20))})
+    # K10 over [received; self-owned]
+    tab = clone_table(cap["k10_tab0"])
+    c = cap["k10_ctr0"].clone()
+    s0 = cap["k10_state0"]
+    n_front, rows = cap["n_front"], cap["k10_rows"]
+    ovf, reopen, rounds, un, tail = SH.insert_pending_plain(st, tab, layout, rows, n_front)
+    state = [0, int(s0[1]), int(s0[2]), int(s0[3]) + reopen, int(s0[4])]
+    SH.finish_plain(c, state, cap["fill"], int(s0[5]), ovf, rounds, un, tail)
+    bad = [f for f in fields if not torch.equal(getattr(tab, f)[:C],
+                                                 getattr(cap["k10_tab1"], f)[:C])]
+    if not torch.equal(c, cap["k10_ctr1"]):
+        bad.append(f"counters {cap['k10_ctr1'].tolist()} vs {c.tolist()}")
+    if int(cap["k10_state1"][7]) != rounds:
+        bad.append(f"rounds {int(cap['k10_state1'][7])} vs {rounds}")
+    if bad:
+        fail(f"K10 on received rows ({layout}) differs from its plain version: {bad}")
+    changed = sum(int((getattr(cap["k10_tab1"], f)[:C] != getattr(cap["k10_tab0"], f)[:C])
+                      .reshape(C, -1).any(1).sum()) * getattr(cap["k10_tab0"], f)[0].numel()
+                  * getattr(cap["k10_tab0"], f).element_size() for f in fields)
+    tab_k = clone_table(cap["k10_tab0"])
+    bufs = S.StepBuffers.select_only(st, sh.dev)
+    bufs.state = cap["k10_state0"].clone()
+    bufs.run = torch.ones(1, dtype=torch.int32, device=sh.dev)
+    bufs.pend = torch.empty_like(sh.bufs.pend)
+    pend_at = cap["k10_pend_at"]
+    bufs.pend[pend_at:pend_at + rows.shape[0]].copy_(rows)
+    bufs.lane_cur, bufs.lane_dest = (torch.empty_like(sh.bufs.lane_cur) for _ in range(2))
+    bufs.tail = torch.empty_like(sh.bufs.tail)
+    ctr = cap["k10_ctr0"].clone()
+
+    def restore10():
+        for f in fields:
+            getattr(tab_k, f).copy_(getattr(cap["k10_tab0"], f))
+        bufs.state.copy_(cap["k10_state0"])
+        ctr.copy_(cap["k10_ctr0"])
+
+    report("keyrow_insert_recv", 0,
+           lambda: S.insert_pending_cuda(st, tab_k, bufs, ctr, cap["fill"], pend_at, n_front),
+           lambda: SH.insert_pending_plain(st, tab_k, layout, rows, n_front),
+           rows.shape[0] * (pw + W) * 4 + changed, restore=restore10)
+    out["keyrow_insert_recv"].update(lanes=int(rows.shape[0]), received=n_front, rounds=rounds,
+                                     overflow=ovf, changed_bytes=changed)
+    # K7's hop mode on every shard's table from every path node
+    checked, err = 0, 0
+    for shd in shards:
+        for coord in cap["path"]:
+            k = S.walk_hops_cuda(st, shd.tab, coord, SH.WALK_HOPS, layout).cpu()
+            p = SH.walk_hops_plain(st, shd.tab, coord, SH.WALK_HOPS, layout)
+            err = max(err, int((k.long() - p.long()).abs().max()))
+            checked += 1
+    if err:
+        fail(f"K7 hop mode on {layout} rows differs from its plain version by {err}")
+    final = [int(v) for v in eng.problem.final_coord]
+    owner = next(x for x in shards if int(SH.walk_hops_plain(st, x.tab, final, 1, layout)[-1]))
+    out["walk"] = sharded_walk_bytes(st, shards, final, layout)
+    wb = walk_bytes(st, owner.tab, layout, final, SH.WALK_HOPS, SH.WALK_HOPS + st.n + 1)
+    report("path_walk_hops", err,
+           lambda: S.walk_hops_cuda(st, owner.tab, final, SH.WALK_HOPS, layout),
+           lambda: SH.walk_hops_plain(st, owner.tab, final, SH.WALK_HOPS, layout), wb["bytes"])
+    out["path_walk_hops"].update(checked_calls=checked, lookups=wb["lookups"],
+                                 probe_rows=wb["probe_rows"])
+    return out
+
+
 def process_mesh_run(path: str, gold: dict, ranks: int, timeout: int = 300) -> dict:
     """The CLI as ``ranks`` processes of one torch.distributed group (NCCL
     for the shards' tensors, gloo for the problem's broadcast), a card
@@ -2938,39 +3203,77 @@ def process_mesh_run(path: str, gold: dict, ranks: int, timeout: int = 300) -> d
 
 def sharded_phase(paths, gold, k11_count: dict, k11_baseline=None, sweep=False) -> dict:
     """The sharded engine on one card (parallel/sharded.py, a LocalMesh of
-    [cuda:0] * 4): kinase --triples auto (sig, sharded cubes) with the
-    ragged exchange (auto), the dense one (traced: device time a step),
-    one shard against FrontierSearch's golden result, PF08184 with a one-row
-    wire (exchange_cap=1), test2 under each owner hash; each new kernel
-    against its plain version on kinase's inputs (``k11_count``: the
-    K11_BARRIERS build; ``k11_baseline``: another tree's K11 too, timed in
-    turns with K11); the sharded step's bounds at
-    this run's B and cap; K11 at each size of K11_SWEEP (``sweep``); and
+    [cuda:0] * 4): kinase --triples auto, whose automatic layout is packed
+    at JAX's 2^21 slots a shard (sharded cubes), with the ragged exchange
+    (auto) and the dense one (traced: device time a step); kinase pinned
+    to unpacked, and pinned to sig at 2^23 slots a shard; on step 200 of
+    each of the three, each kernel of its step against its plain version
+    (keyrow_kernel_checks, sharded_kernel_checks: ``k11_count`` the
+    K11_BARRIERS build, ``k11_baseline`` another tree's K11 too, timed in
+    turns with K11 on sig rows); the sharded step's bounds at the sig
+    run's B and cap; one shard against FrontierSearch's golden result,
+    PF08184 with a one-row wire (exchange_cap=1), a random input whose
+    one-row wire spills (sig, and pinned to unpacked), the degenerate
+    input on 4 shards against the single-table unpacked search, test2
+    under each owner hash; K11 at each size of K11_SWEEP (``sweep``); and
     several cards when there are."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch.core.problem import Problem
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+    from mpi_pastar_msa_tpu_torch.search.bruteforce import optimal_cost
+    from mpi_pastar_msa_tpu_torch.search.engine import FrontierSearch
+
     card = torch.device("cuda", 0)
     out = {}
     k = gold["kinase.fasta"]
+    # the main path: kinase's automatic layout, packed at JAX's capacity
     out["kinase_ragged"], eng, cap = sharded_run("kinase sharded 4, ragged", paths["kinase.fasta"],
                                                  k, [card] * 4, True, capture_step=200)
-    if eng.exchange != "ragged" or not eng.shard_cubes or out["kinase_ragged"]["migrated"] <= 0:
-        fail(f"kinase sharded: exchange {eng.exchange}, shard cubes {eng.shard_cubes}, "
-             f"migrated {out['kinase_ragged']['migrated']}")
-    if "cand" not in cap:
-        fail("kinase sharded: the search ended before the captured step")
-    out["checks"] = sharded_kernel_checks(cap, cap["shards"], k11_count, k11_baseline)
-    if sweep:
-        out["k11_sweep"] = k11_sweep(k11_count, k11_baseline)
     r = out["kinase_ragged"]
-    if out["checks"]["walk"]["rounds"] != r["walk_rounds"]:
+    if (eng.layout != "packed" or r["capacity_start"] != 1 << 21 or eng.exchange != "ragged"
+            or not eng.cubes_split or r["migrated"] <= 0):
+        fail(f"kinase sharded: layout {eng.layout}, capacity {r['capacity_start']} (want packed "
+             f"at 2^21), exchange {eng.exchange}, cubes split {eng.cubes_split}, migrated "
+             f"{r['migrated']}")
+    if "cand" not in cap or "k10_rows" not in cap:
+        fail("kinase sharded: the search ended before the captured step")
+    out["checks_packed"] = keyrow_kernel_checks(cap, cap["shards"])
+    if out["checks_packed"]["walk"]["rounds"] != r["walk_rounds"]:
         fail(f"kinase sharded: the walk took {r['walk_rounds']} rounds, its byte count "
-             f"{out['checks']['walk']['rounds']}")
-    out["bounds"] = sharded_step_bounds(r["batch"], 5, 4, out["checks"]["walk"], 4,
-                                        r["exchange_cap"])
+             f"{out['checks_packed']['walk']['rounds']}")
     del eng, cap
     out["kinase_dense"], eng, _ = sharded_run("kinase sharded 4, dense", paths["kinase.fasta"],
                                               k, [card] * 4, True, profile=True,
                                               exchange="dense")
     del eng
+    # an optimal path, not always the golden one: on unpacked rows a node
+    # keeps the first parent of its least g (decrease-key on a smaller g,
+    # as JAX's), and the shards' order of arrival is not the single table's
+    out["kinase_unpacked"], eng, cap = sharded_run(
+        "kinase sharded 4, pinned unpacked", paths["kinase.fasta"], k, [card] * 4, False,
+        capture_step=200, layout="unpacked")
+    if eng.cubes_split or "k10_rows" not in cap:
+        fail(f"kinase sharded unpacked: cubes split {eng.cubes_split}, or no captured step")
+    out["checks_unpacked"] = keyrow_kernel_checks(cap, cap["shards"])
+    del eng, cap
+    # the sig layout (PR 15's path), pinned at the capacity its word takes
+    out["kinase_sig"], eng, cap = sharded_run(
+        "kinase sharded 4, pinned sig", paths["kinase.fasta"], k, [card] * 4, True,
+        capture_step=200, layout="sig", capacity=1 << 23)
+    if "cand" not in cap:
+        fail("kinase sharded sig: the search ended before the captured step")
+    out["checks"] = sharded_kernel_checks(cap, cap["shards"], k11_count, k11_baseline)
+    if sweep:
+        out["k11_sweep"] = k11_sweep(k11_count, k11_baseline)
+    r = out["kinase_sig"]
+    if out["checks"]["walk"]["rounds"] != r["walk_rounds"]:
+        fail(f"kinase sharded sig: the walk took {r['walk_rounds']} rounds, its byte count "
+             f"{out['checks']['walk']['rounds']}")
+    out["bounds"] = sharded_step_bounds(r["batch"], 5, 4, out["checks"]["walk"], 4,
+                                        r["exchange_cap"])
+    del eng, cap
     out["kinase_one_shard"], eng, _ = sharded_run("kinase sharded 1", paths["kinase.fasta"], k,
                                                   [card], True)
     del eng
@@ -2980,26 +3283,41 @@ def sharded_phase(paths, gold, k11_count: dict, k11_baseline=None, sweep=False) 
                                               exchange="dense")
     # a random input whose frontier is wide (tests/test_torch_sharded.py's
     # spill case): a one-row wire spills into the carry ring, and the
-    # brute-force optimum holds
-    import numpy as np
-
-    from mpi_pastar_msa_tpu_torch.core.problem import Problem
-    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
-    from mpi_pastar_msa_tpu_torch.search.bruteforce import optimal_cost
-
+    # brute-force optimum holds, on sig and on unpacked rows (whose ring
+    # keeps its min f itself in the bound)
     rs = np.random.RandomState(31)
     seqs = tuple("".join(rs.choice(list("ACDEFGHIKLMNPQRSTVWY"), size=rs.randint(12, 17)))
                  for _ in range(4))
     want = optimal_cost(Problem(seqs), HPairHeuristic.build(Problem(seqs), "cpu"))
     with tempfile.NamedTemporaryFile("w", suffix=".fasta", delete=False) as f:
         f.write("".join(f">s{i}\n{q}\n" for i, q in enumerate(seqs)))
-    out["random_spill"], eng, _ = sharded_run(
-        "random 4 x 12-16 sharded 4, exchange_cap 1", f.name,
-        {"optimal_g": want, "seqs": list(seqs), "alignment": None}, [card] * 4, False,
-        exchange_cap=1, exchange="dense", hash_type="FZORDER", hash_shift=0, batch=16)
+    for tag, kw in (("random_spill", {}), ("random_spill_unpacked", {"layout": "unpacked"})):
+        out[tag], eng, _ = sharded_run(
+            f"random 4 x 12-16 sharded 4, exchange_cap 1 {kw}", f.name,
+            {"optimal_g": want, "seqs": list(seqs), "alignment": None}, [card] * 4, False,
+            exchange_cap=1, exchange="dense", hash_type="FZORDER", hash_shift=0, batch=16,
+            **kw)
+        if out[tag]["peak_carry"] <= 0:
+            fail(f"random sharded run with a one-row wire ({kw}): the carry ring never held "
+                 "a row")
     os.unlink(f.name)
-    if out["random_spill"]["peak_carry"] <= 0:
-        fail("random sharded run with a one-row wire: the carry ring never held a row")
+    # the degenerate input: unpacked by itself, against the single-table
+    # unpacked search on the card
+    dseqs = ("WYWY", "WYY", "YWW")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ref = FrontierSearch(Problem(dseqs), device="cuda", layout="unpacked").run()
+        with tempfile.NamedTemporaryFile("w", suffix=".fasta", delete=False) as f:
+            f.write("".join(f">s{i}\n{q}\n" for i, q in enumerate(dseqs)))
+        out["degenerate"], eng, _ = sharded_run(
+            "degenerate sharded 4 (against the single-table unpacked search)", f.name,
+            {"optimal_g": ref.g, "seqs": list(dseqs),
+             "alignment": build_alignment(Problem(dseqs), ref.closed)}, [card] * 4, False)
+        os.unlink(f.name)
+    if not any("optimality is undefined" in str(w.message) for w in caught):
+        fail("degenerate sharded: no warning")
+    if eng.layout != "unpacked":
+        fail(f"degenerate sharded: layout {eng.layout}, want unpacked")
     for ht in ("FZORDER", "PZORDER", "FSUM", "PSUM"):
         out[f"test2_{ht}"], eng, _ = sharded_run(f"test2 sharded 4, {ht}", paths["test2.fasta"],
                                                  gold["test2.fasta"], [card] * 4, True,
@@ -3630,6 +3948,123 @@ def write_report(path, report: dict) -> None:
             json.dump(report, f, indent=1, default=str)
 
 
+def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
+    """The kernels line's entries of the sharded step (``sh``: the sharded
+    phase's report; ``floor``: launch_floor; ``chase``:
+    dependent_load_ns)."""
+    kernels = []
+    # the sharded step's kernels: on sig rows (PR 15's path, kinase pinned
+    # to sig at 2^23 slots a shard), launches from that run, checks and
+    # times on its captured step (K11 under both allowances); on key rows
+    # (the main path: kinase on 4 shards, auto, packed at 2^21, ragged),
+    # launches from that run, checks and times on its step 200, the
+    # unpacked run's beside them
+    sl, sig_l, unp_l = (sh[r]["launches"] for r in ("kinase_ragged", "kinase_sig",
+                                                     "kinase_unpacked"))
+    main_run, sig_run = "kinase sharded 4, ragged (packed)", "kinase sharded 4, pinned sig"
+    cp, cu = sh["checks_packed"], sh["checks_unpacked"]
+
+    def entry_of(name, t, src, replaces, launches, run):
+        return {"name": name, "route": "cuda",
+                "source": f"mpi_pastar_msa_tpu_torch/csrc/{src}.cu", "replaces": replaces,
+                "launches": launches, "launches_run": run, "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
+
+    def sub(t, launches, **extra):
+        return dict({k: t[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_by")}, launches=launches, **extra)
+
+    for name, key, src, replaces in (
+            ("sig_coords", "sig_coords", "tri_partial",
+             "mpi_pastar_msa_tpu/search/engine.py:1620"),
+            ("tri_partial", "tri_partial", "tri_partial",
+             "mpi_pastar_msa_tpu/parallel/sharded.py:250"),
+            ("sig_expand_sharded", "sig_expand_sharded", "sig_expand",
+             "mpi_pastar_msa_tpu/search/engine.py:497"),
+            ("route_pack", "route_ragged", "route_pack",
+             "mpi_pastar_msa_tpu/parallel/sharded.py:169")):
+        t = sh["checks"][key]
+        entry = entry_of(name, t, src, replaces, sig_l[name], sig_run)
+        if name == "tri_partial":  # also on the main path, on the packed batch
+            entry.update(launches=sl[name], launches_run=main_run, times_run=sig_run)
+        if name == "route_pack":
+            # K11 is one call of two passes, a launch each a step: the
+            # entry's times are the call's, each pass's alone beside them
+            entry.update(name="route", launches=sig_l["route_pack"], note=(
+                "K11 on sig rows, one entry: route_count then route_pack; launches a pass, "
+                "and each pass timed alone, in passes"), passes={
+                p: dict(launches=sig_l[p], **t["passes"][p]) for p in ("route_count",
+                                                                       "route_pack")},
+                replaces_dense="mpi_pastar_msa_tpu/parallel/sharded.py:87")
+            entry["dense"] = {k: sh["checks"]["route_dense"][k]
+                              for k in ("ms", "device_ms", "plain_ms", "bound_ms", "passes")}
+            # two launches, then the dependent chain: a row's read and its
+            # atomic; the counts, the keys, the row gathered by position,
+            # the store
+            entry.update(
+                latency_floor_ms=2 * floor["device_ms"] + 6 * chase["l2_ns"] / 1e6,
+                latency_floor_dram_ms=2 * floor["device_ms"] + 6 * chase["dram_ns"] / 1e6,
+                segments=t["segments"],
+                **({"turns": {m: sh["checks"][f"route_{m}"]["turns"]
+                              for m in ("ragged", "dense")}} if "turns" in t else {}),
+                **({"sweep": sh["k11_sweep"]} if "k11_sweep" in sh else {}))
+        if name in ("sig_coords", "tri_partial"):
+            # a launch, then two dependent loads: the listed slot (or the
+            # coordinates), then its sig word (or the cube's corners)
+            entry.update(latency_floor_ms=floor["device_ms"] + 2 * chase["l2_ns"] / 1e6,
+                         latency_floor_dram_ms=floor["device_ms"] + 2 * chase["dram_ns"] / 1e6)
+        kernels.append(entry)
+    # the key-row kernels of the main path, the unpacked run's beside them
+    entry = entry_of("keyrow_coords", cp["keyrow_coords"], "tri_partial",
+                     "mpi_pastar_msa_tpu/parallel/sharded.py:641", sl["keyrow_coords"], main_run)
+    entry.update(latency_floor_ms=floor["device_ms"] + 2 * chase["l2_ns"] / 1e6,
+                 latency_floor_dram_ms=floor["device_ms"] + 2 * chase["dram_ns"] / 1e6)
+    kernels.append(entry)
+    for name, src, replaces, replaces_unpacked in (
+            ("keyrow_expand_sharded", "keyrow_expand",
+             "mpi_pastar_msa_tpu/parallel/sharded.py:645",
+             "mpi_pastar_msa_tpu/parallel/sharded.py:812"),
+            ("keyrow_insert_recv", "keyrow_insert",
+             "mpi_pastar_msa_tpu/parallel/sharded.py:675",
+             "mpi_pastar_msa_tpu/parallel/sharded.py:841")):
+        entry = entry_of(name, cp[name], src, replaces, sl[name], main_run)
+        extra = {k: cp[name][k] for k in cp[name] if k not in entry and k != "bytes"}
+        entry.update(extra, unpacked=sub(cu[name], unp_l[name], replaces=replaces_unpacked,
+                                         **{k: cu[name][k] for k in extra}))
+        kernels.append(entry)
+    t = cp["route_rows_ragged"]
+    entry = entry_of("route_rows", t, "route_pack", "mpi_pastar_msa_tpu/parallel/sharded.py:169",
+                     sl["route_pack_rows"], main_run)
+    entry.update(
+        note=("K11 on key rows, one entry: route_count_rows then route_pack_rows; launches a "
+              "pass, and each pass timed alone, in passes"),
+        passes={p: dict(launches=sl[p], **t["passes"][p])
+                for p in ("route_count_rows", "route_pack_rows")},
+        replaces_dense="mpi_pastar_msa_tpu/parallel/sharded.py:87", segments=t["segments"],
+        dense={k: cp["route_rows_dense"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                      "passes")},
+        latency_floor_ms=2 * floor["device_ms"] + 6 * chase["l2_ns"] / 1e6,
+        latency_floor_dram_ms=2 * floor["device_ms"] + 6 * chase["dram_ns"] / 1e6,
+        unpacked=sub(cu["route_rows_ragged"], unp_l["route_pack_rows"],
+                     segments=cu["route_rows_ragged"]["segments"],
+                     passes=cu["route_rows_ragged"]["passes"]))
+    kernels.append(entry)
+    t = cp["path_walk_hops"]
+    entry = entry_of("path_walk_hops", t, "path_walk",
+                     "mpi_pastar_msa_tpu/parallel/sharded.py:482", sl["path_walk_hops"],
+                     main_run)
+    entry.update(latency_floor_ms=t["lookups"] * chase["l2_ns"] / 1e6,
+                 latency_floor_dram_ms=t["lookups"] * chase["dram_ns"] / 1e6,
+                 lookups=t["lookups"])
+    for lay, run, c in (("sig", sig_l, sh["checks"]), ("unpacked", unp_l, cu)):
+        w = c["path_walk_hops"]
+        entry[lay] = sub(w, run["path_walk_hops"], lookups=w["lookups"],
+                         latency_floor_ms=w["lookups"] * chase["l2_ns"] / 1e6)
+    kernels.append(entry)
+    return kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", metavar="PATH", default=None,
@@ -4004,58 +4439,7 @@ def main() -> int:
                      latency_floor_dram_ms=report[run]["k7"]["path_nodes"]
                      * chase["dram_ns"] / 1e6)
            for run in ("globin6_auto", "kinase_unpacked")}})
-    # the sharded step's kernels: launches from kinase on 4 shards (ragged),
-    # checks and times on its captured step (K11 under both allowances)
-    sh = report["sharded"]
-    sl = sh["kinase_ragged"]["launches"]
-    for name, key, src, replaces in (
-            ("sig_coords", "sig_coords", "tri_partial",
-             "mpi_pastar_msa_tpu/search/engine.py:1620"),
-            ("tri_partial", "tri_partial", "tri_partial",
-             "mpi_pastar_msa_tpu/parallel/sharded.py:250"),
-            ("sig_expand_sharded", "sig_expand_sharded", "sig_expand",
-             "mpi_pastar_msa_tpu/search/engine.py:497"),
-            ("route_pack", "route_ragged", "route_pack",
-             "mpi_pastar_msa_tpu/parallel/sharded.py:169"),
-            ("path_walk_hops", "path_walk_hops", "path_walk",
-             "mpi_pastar_msa_tpu/parallel/sharded.py:482")):
-        t = sh["checks"][key]
-        entry = {"name": name, "route": "cuda",
-                 "source": f"mpi_pastar_msa_tpu_torch/csrc/{src}.cu", "replaces": replaces,
-                 "launches": sl[name], "launches_run": "kinase sharded 4, ragged",
-                 "max_abs_err": t["max_abs_err"], "ms": t["ms"], "device_ms": t["device_ms"],
-                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                 "library_ms": None}
-        if name == "route_pack":
-            # K11 is one call of two passes, a launch each a step: the
-            # entry's times are the call's, each pass's alone beside them
-            entry.update(name="route", launches=sl["route_pack"], note=(
-                "K11, one entry: route_count then route_pack; launches a pass, and each "
-                "pass timed alone, in passes"), passes={
-                p: dict(launches=sl[p], **t["passes"][p]) for p in ("route_count", "route_pack")},
-                replaces_dense="mpi_pastar_msa_tpu/parallel/sharded.py:87")
-            entry["dense"] = {k: sh["checks"]["route_dense"][k]
-                              for k in ("ms", "device_ms", "plain_ms", "bound_ms", "passes")}
-            # two launches, then the dependent chain: a row's read and its
-            # atomic; the counts, the keys, the row gathered by position,
-            # the store
-            entry.update(
-                latency_floor_ms=2 * floor["device_ms"] + 6 * chase["l2_ns"] / 1e6,
-                latency_floor_dram_ms=2 * floor["device_ms"] + 6 * chase["dram_ns"] / 1e6,
-                segments=t["segments"],
-                **({"turns": {m: sh["checks"][f"route_{m}"]["turns"]
-                              for m in ("ragged", "dense")}} if "turns" in t else {}),
-                **({"sweep": sh["k11_sweep"]} if "k11_sweep" in sh else {}))
-        if name in ("sig_coords", "tri_partial"):
-            # a launch, then two dependent loads: the listed slot (or the
-            # coordinates), then its sig word (or the cube's corners)
-            entry.update(latency_floor_ms=floor["device_ms"] + 2 * chase["l2_ns"] / 1e6,
-                         latency_floor_dram_ms=floor["device_ms"] + 2 * chase["dram_ns"] / 1e6)
-        if name == "path_walk_hops":
-            entry.update(latency_floor_ms=t["lookups"] * chase["l2_ns"] / 1e6,
-                         latency_floor_dram_ms=t["lookups"] * chase["dram_ns"] / 1e6,
-                         lookups=t["lookups"])
-        kernels.append(entry)
+    kernels += sharded_kernel_entries(report["sharded"], floor, chase)
     walls = {k: v["engine_walls"]["walk"] for k, v in report.items()
              if isinstance(v, dict) and "engine_walls" in v}
     print("walk walls (s): " + ", ".join(f"{k} {w:.4f}" for k, w in walls.items()))

@@ -90,14 +90,37 @@ SIGNATURES: Dict[str, List] = {
     # widths, N, bbits, B, coords, stream
     "tri_partial": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "sig_coords": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # K7's hop-limited mode: t_sig, t_best, N, C, bbits, probes, params
-    # (start coordinate, key bit widths), hops, out, stream
-    "path_walk_hops": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
+    # K7's hop-limited mode: path_walk's arguments, params the start
+    # coordinate (and the key bit widths), hops in place of tmax
+    "path_walk_hops": [_I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
+    # the sharded step on key rows: K9's sharded instantiation,
+    # keyrow_expand's arguments then h3, cand, a candidate row's words, the
+    # owner hash (kind, size, shift, Z-order bits), ndev, me, the
+    # self-owned lanes' first claim tag, stream
+    "keyrow_expand_sharded": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _L, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _P],
+    # K10 over a pending list whose first n_front rows were received:
+    # keyrow_insert's arguments, then n_front, stream
+    "keyrow_insert_recv": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                           _P, _P, _P, _I, _P, _I, _I, _P],
+    # K11 on rows of any width: route_count's and route_pack's arguments
+    # with the row's words, its key words and the empty fsort before out
+    "route_count_rows": [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P],
+    "route_pack_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _I, _I, _I, _P, _P, _P, _P,
+                        _P],
+    # the coordinates K12 gathers on the packed layout: t_key, its row
+    # stride, compact list, nsel, N, B, coords, stream
+    "keyrow_coords": [_P, _I, _P, _P, _I, _I, _P, _P],
 }
 #: kernel name -> its source file's stem, where that is not its own name
 SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
                            "sig_expand_sharded": "sig_expand", "route_count": "route_pack",
-                           "sig_coords": "tri_partial", "path_walk_hops": "path_walk"}
+                           "sig_coords": "tri_partial", "path_walk_hops": "path_walk",
+                           "keyrow_expand_sharded": "keyrow_expand",
+                           "keyrow_insert_recv": "keyrow_insert",
+                           "route_count_rows": "route_pack", "route_pack_rows": "route_pack",
+                           "keyrow_coords": "tri_partial"}
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -60,8 +60,37 @@
 // pass reserves its pending places with one atomicAdd on kNPend for the
 // block (warp ballots, a count a warp in shared memory, two
 // __syncthreads); kNValid takes one atomicAdd a block.
+//
+// The sharded instantiation (C entry keyrow_expand_sharded, K9s: the
+// multi-device step of parallel/sharded.py on key rows, JAX :645-671 in
+// _make_sharded_run_packed and :812-838 in _make_sharded_run) is the same
+// kernel with four changes, as sig_expand.cu's is of K4:
+//   - with sharded cubes (packed only: the unpacked step reads the whole
+//     stack), h3 (B, M + 1) int32 from tri_partial.cu (K12) after the
+//     mesh's reduce-scatter, row i of the compact list, stands in for the
+//     cube reads: child m adds h3[i][m - 1] (the packed row's g comes from
+//     its stored h, so the row's own column M is not read);
+//   - each surviving lane's owner shard comes from its child coordinate
+//     (owner.cuh, parallel/partition.py); only a self-owned lane is
+//     matched in its home row (packed) or goes to the pending list, given
+//     at the caller's offset (the received rows go in front of it);
+//   - every lane of a listed row writes its candidate row at i M + m - 1
+//     of `cand` for route_pack.cu (K11, route_pack_rows): (dest, fsort,
+//     the pending entry), fsort the packed word (unpacked: f), dest the
+//     owner for a lane owned elsewhere, else the empty row (ndev, INFP or
+//     INF, key words -1, the rest 0);
+//   - a lane's claim tag is tag_base + i M + m - 1, tag_base = ndev x the
+//     exchange cap: the rows a shard receives claim with their places in
+//     the received region, 0 .. tag_base - 1 (keyrow_insert.cu's
+//     keyrow_insert_recv), so every tag of an insert is unique and none
+//     depends on the order in which the lanes arrive.
+// The round-0 match may settle self-owned lanes only; it stays right
+// because round 0 reads the table as it stood before any of its writes and
+// nothing reads t_best during the insert.  The unsharded instantiation
+// compiles none of it.
 
 #include "expand_row.cuh"
+#include "owner.cuh"
 #include "step_state.cuh"
 
 namespace {
@@ -78,6 +107,15 @@ constexpr int kMaxW = 8;  // key words of N <= 16 coordinates
 // 4 a thread at its block size)
 constexpr int kStage = 4;
 constexpr unsigned kFull = 0xffffffffu;
+
+// What the sharded instantiation adds (null h3: the shard reads its cubes).
+struct Sharded {
+  const int32_t* h3;
+  int32_t* cand;
+  int CW;  // a candidate row's words: 2 + the pending entry's
+  owner::Hash hash;
+  int ndev, me, tag_base;
+};
 
 // Shared memory of a block: the term tables (4P longlong2), then the
 // constants (expand_row.cuh const_words), then the cube corners (8T).
@@ -117,7 +155,7 @@ __device__ __forceinline__ int block_place(bool pending, int (*cnt)[kMaxWarps], 
   return at + below;
 }
 
-template <bool kUnpacked>
+template <bool kUnpacked, bool kSharded>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
     const int32_t* __restrict__ t_key, int KWs, const int32_t* __restrict__ t_g,
     const long long* __restrict__ t_fpar, int32_t* __restrict__ t_best, uint32_t Cmask,
@@ -125,7 +163,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
     const int32_t* __restrict__ cubes, const int32_t* __restrict__ params, int N, int P, int T,
     int S, int nb, long long f0, long long ub, int E, int GG, int gap_oe,
     const int32_t* __restrict__ run, long long* __restrict__ counters,
-    long long* __restrict__ state, int32_t* __restrict__ pend) {
+    long long* __restrict__ state, int32_t* __restrict__ pend, Sharded sh) {
   extern __shared__ longlong2 s_term[];
   __shared__ int s_cnt[2][kMaxWarps];
   __shared__ int s_base;
@@ -136,7 +174,9 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
 
   int32_t* sm = reinterpret_cast<int32_t*>(s_term + 4 * P);
   const int n_const = expand::const_words(N, P, T);
-  const expand::Consts k = expand::consts_at(sm, N, P, T, S);
+  expand::Consts k = expand::consts_at(sm, N, P, T, S);
+  if constexpr (kSharded)
+    if (sh.h3 != nullptr) k.T = 0;  // h3 stands in for the cube reads
   int32_t* s_cube = sm + n_const;
   const int tid = threadIdx.x, lane = tid & 31;
   for (int q0 = 0; q0 < n_const; q0 += kStage * blockDim.x) {  // loads first
@@ -203,7 +243,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
     auto coord = [&](int d) {  // from the row in L1, not a dynamically indexed kw
       return min(max((int)(((uint32_t)row[d >> 1] >> (16 * (d & 1))) & 0xFFFFu), 0), S - 2);
     };
-    const int items = 4 * P + 8 * T;
+    const int items = 4 * P + 8 * k.T;
     for (int q0 = 0; q0 < items; q0 += kStage * blockDim.x) {
       int32_t a[kStage] = {}, b[kStage] = {};  // a T8 cell and the residue cost, or a corner
 #pragma unroll
@@ -235,6 +275,9 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
     __syncthreads();
 
     // 3. the masks, a thread a mask, passes of blockDim.x
+    const int32_t* h3_row = nullptr;
+    if constexpr (kSharded)
+      if (sh.h3 != nullptr) h3_row = sh.h3 + i * (M + 1);
     for (int ps = 0; ps < passes; ++ps, ++pass) {
       const int m = 1 + ps * (int)blockDim.x + tid;
       bool valid = m <= M && fits && (m & ~(int)room) == 0;
@@ -242,6 +285,8 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
       if (valid) {
         long long cost;
         expand::child_cost_h_terms(k, m, s_term, s_cube, cost, h);
+        if constexpr (kSharded)
+          if (h3_row != nullptr) h += h3_row[m - 1];
         gc = g + cost;
         fc = gc + h;
         if constexpr (kUnpacked) fc = fc > f_par ? fc : f_par;  // pathmax
@@ -252,6 +297,8 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
       uint32_t words[kMaxW];
       uint32_t h0 = 0;
       bool pending = valid;
+      int dest = 0;  // the owner of a lane owned elsewhere, else ndev
+      if constexpr (kSharded) dest = sh.ndev;
       if (valid) {
         // the child's key words: the row's plus the move bits (a valid
         // child's coordinates are at most final < 2^16: no carry)
@@ -260,7 +307,18 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
           words[w] = kw[w] + ((uint32_t)(m >> (2 * w)) & 1u) +
                      (((uint32_t)(m >> (2 * w + 1)) & 1u) << 16);
         h0 = step::hash_keys(words, W);
-        if constexpr (!kUnpacked) {
+        if constexpr (kSharded) {
+          int32_t child[2 * kMaxW];
+#pragma unroll
+          for (int d = 0; d < 2 * kMaxW; ++d)
+            child[d] = (int32_t)((words[d >> 1] >> (16 * (d & 1))) & 0xFFFFu);
+          const int o = owner::of(sh.hash, child, N);
+          if (o != sh.me) {
+            dest = o;
+            pending = false;  // it rides the route, not this shard's insert
+          }
+        }
+        if (pending && !kUnpacked) {
           // round 0 of the insert: the home row holds the key -> settled
           const uint32_t at = step::probe_slot(h0, 0, Cmask);
           const int32_t* hr = t_key + (size_t)at * KWs;
@@ -277,12 +335,14 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
           }
         }
       }
-      const int at = block_place(pending, s_cnt, &s_base, pass & 1, state);
-      if (pending) {
-        int32_t* out = pend + (size_t)at * PW;
+      // a lane's pending entry: key words, hash, claim tag, then (packed)
+      // h and the packed word, or (unpacked) g and f * 2^n + m
+      auto entry = [&](int32_t* out) {
         for (int w = 0; w < W; ++w) out[w] = (int32_t)words[w];
         out[W] = (int32_t)h0;
-        out[W + 1] = (int32_t)(i * M + m - 1);  // the content tag
+        int tag = (int)(i * M + m - 1);  // the content tag
+        if constexpr (kSharded) tag += sh.tag_base;
+        out[W + 1] = tag;
         if constexpr (kUnpacked) {
           const long long fpar = fc * (1ll << nb) + m;
           out[W + 2] = (int32_t)gc;
@@ -292,7 +352,22 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
           out[W + 2] = (int32_t)h;
           out[W + 3] = (int32_t)(((fc - f0) << nb) | m);
         }
-      }
+      };
+      if constexpr (kSharded)
+        if (m <= M) {
+          int32_t* row = sh.cand + (size_t)(i * M + m - 1) * sh.CW;
+          if (dest < sh.ndev) {
+            row[0] = dest;
+            row[1] = kUnpacked ? (int32_t)fc : (int32_t)(((fc - f0) << nb) | m);
+            entry(row + 2);
+          } else {  // the empty row
+            row[0] = sh.ndev;
+            row[1] = kUnpacked ? (int32_t)step::kInf : (int32_t)step::kInfp;
+            for (int w = 2; w < sh.CW; ++w) row[w] = w < 2 + W ? -1 : 0;
+          }
+        }
+      const int at = block_place(pending, s_cnt, &s_base, pass & 1, state);
+      if (pending) entry(pend + (size_t)at * PW);
     }
   }
   // 4. the surviving lanes: one atomic a block
@@ -308,20 +383,33 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
     atomicAdd((unsigned long long*)&state[step::kNValid], s_valid);
 }
 
-template <bool kUnpacked>
+template <bool kUnpacked, bool kSharded>
 int launch(const void* t_key, int KWs, const void* t_g, const void* t_fpar, void* t_best,
            uint32_t Cmask, const void* sel, const void* tables4, const void* cubes,
            const void* params, int N, int P, int T, int S, int nb, long long f0, long long ub,
            int E, int GG, int gap_oe, int blocks, int threads, const void* run, void* counters,
-           void* state, void* pend, void* stream) {
+           void* state, void* pend, Sharded sh, void* stream) {
   const size_t shared = shared_bytes(N, P, T);
   if (shared > 48 * 1024) return (int)cudaErrorInvalidValue;
-  keyrow_expand_kernel<kUnpacked><<<blocks, threads, shared, (cudaStream_t)stream>>>(
+  keyrow_expand_kernel<kUnpacked, kSharded><<<blocks, threads, shared, (cudaStream_t)stream>>>(
       (const int32_t*)t_key, KWs, (const int32_t*)t_g, (const long long*)t_fpar,
       (int32_t*)t_best, Cmask, (const int32_t*)sel, (const int32_t*)tables4,
       (const int32_t*)cubes, (const int32_t*)params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
-      (const int32_t*)run, (long long*)counters, (long long*)state, (int32_t*)pend);
+      (const int32_t*)run, (long long*)counters, (long long*)state, (int32_t*)pend, sh);
   return (int)cudaGetLastError();
+}
+
+// The checks of both C entries (h3: the sharded entry's, null otherwise).
+bool bad_args(int KWs, const void* t_g, const void* t_fpar, const void* t_best, int C,
+              int unpacked, const void* cubes, const void* h3, int N, int P, int T, int S,
+              int nb, int B, int blocks, int threads) {
+  const int W = (N + 1) / 2;
+  return N < 2 || N > 2 * kMaxW || P != N * (N - 1) / 2 || T < 0 ||
+         (T > 0 && cubes == nullptr && h3 == nullptr) || S < 2 || nb != N || B < 1 ||
+         KWs != W + (unpacked ? 0 : 1) || C < 2 || (C & (C - 1)) != 0 ||
+         (unpacked ? (t_g == nullptr || t_fpar == nullptr) : t_best == nullptr) || blocks < 1 ||
+         threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+         (long long)B * ((1ll << N) - 1) >= (1ll << 31);
 }
 
 }  // namespace
@@ -344,19 +432,51 @@ extern "C" int keyrow_expand(const void* t_key, int KWs, const void* t_g, const 
                              int GG, int gap_oe, int B, int blocks, int threads,
                              const void* run, void* counters, void* state, void* pend,
                              void* stream) {
-  const int W = (N + 1) / 2;
-  if (N < 2 || N > 2 * kMaxW || P != N * (N - 1) / 2 || T < 0 || (T > 0 && cubes == nullptr) ||
-      S < 2 || nb != N || B < 1 || KWs != W + (unpacked ? 0 : 1) || C < 2 ||
-      (C & (C - 1)) != 0 || (unpacked ? (t_g == nullptr || t_fpar == nullptr)
-                                      : t_best == nullptr) ||
-      blocks < 1 || threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-      (long long)B * ((1ll << N) - 1) >= (1ll << 31))
+  if (bad_args(KWs, t_g, t_fpar, t_best, C, unpacked, cubes, nullptr, N, P, T, S, nb, B, blocks,
+               threads))
     return (int)cudaErrorInvalidValue;
   const uint32_t Cmask = (uint32_t)(C - 1);
-  return unpacked ? launch<true>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4, cubes,
-                                 params, N, P, T, S, nb, f0, ub, E, GG, gap_oe, blocks, threads,
-                                 run, counters, state, pend, stream)
-                  : launch<false>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4, cubes,
-                                  params, N, P, T, S, nb, f0, ub, E, GG, gap_oe, blocks,
-                                  threads, run, counters, state, pend, stream);
+  return unpacked ? launch<true, false>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
+                                        cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
+                                        blocks, threads, run, counters, state, pend, Sharded{},
+                                        stream)
+                  : launch<false, false>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
+                                         cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
+                                         blocks, threads, run, counters, state, pend, Sharded{},
+                                         stream);
+}
+
+// The sharded instantiation: keyrow_expand's arguments, then h3 ((B, M + 1)
+// int32, packed only, or null: the shard reads its cubes, non-null when T >
+// 0), cand ((B M, CW) int32), CW (2 + the pending entry's words), the owner
+// hash (kind, size, shift, zbits: parallel/partition.py::owner_params),
+// ndev (= the hash's size), this shard's index me and tag_base (the
+// self-owned lanes' first claim tag, tag_base + B M < 2^31); pend points
+// where the self-owned pending lanes go.
+extern "C" int keyrow_expand_sharded(const void* t_key, int KWs, const void* t_g,
+                                     const void* t_fpar, void* t_best, int C, int unpacked,
+                                     const void* sel, const void* tables4, const void* cubes,
+                                     const void* params, int N, int P, int T, int S, int nb,
+                                     long long f0, long long ub, int E, int GG, int gap_oe, int B,
+                                     int blocks, int threads, const void* run, void* counters,
+                                     void* state, void* pend, const void* h3, void* cand, int CW,
+                                     int hash_kind, int hash_size, int hash_shift, int zbits,
+                                     int ndev, int me, int tag_base, void* stream) {
+  const int W = (N + 1) / 2;
+  if (bad_args(KWs, t_g, t_fpar, t_best, C, unpacked, cubes, h3, N, P, T, S, nb, B, blocks,
+               threads) ||
+      cand == nullptr || CW != 2 + W + (unpacked ? 5 : 4) || (unpacked && h3 != nullptr) ||
+      ndev < 1 || me < 0 || me >= ndev || hash_size != ndev || hash_kind < 0 || hash_kind > 3 ||
+      hash_shift < 0 || hash_shift > 31 || zbits < 1 || zbits > 32 || tag_base < 0 ||
+      (long long)tag_base + (long long)B * ((1ll << N) - 1) >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const Sharded sh{(const int32_t*)h3, (int32_t*)cand, CW,
+                   owner::Hash{hash_kind, hash_size, hash_shift, zbits}, ndev, me, tag_base};
+  const uint32_t Cmask = (uint32_t)(C - 1);
+  return unpacked ? launch<true, true>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
+                                       cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
+                                       blocks, threads, run, counters, state, pend, sh, stream)
+                  : launch<false, true>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
+                                        cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
+                                        blocks, threads, run, counters, state, pend, sh, stream);
 }

@@ -90,6 +90,19 @@
 // lanes_tail after round 2 (0 when fewer ran), as the plain step counts
 // them; reopens come from K3 (packed) or from here (unpacked).
 //
+// The sharded step (parallel/sharded.py, C entry keyrow_insert_recv; JAX
+// _insert_packed / _insert over [received; self-owned], :675-683 and
+// :841-850) runs the same kernel over a pending list whose first n_front
+// entries are the rows this shard received (K11's wire rows are pending
+// entries), followed by K9's self-owned pending lanes (keyrow_expand.cu's
+// sharded instantiation).  A received row claims with its place i <
+// n_front in the list, which the sender could not know; every other lane
+// with the tag it carries, tag_base + i M + m - 1 >= n_front.  So every
+// tag is unique and none depends on the order in which lanes arrive, as
+// the plain step's (parallel/sharded.py::insert_pending_plain).  The
+// round-0 launch condition counts the pending list too: a shard may
+// receive rows and keep no lane of its own.
+//
 // grid_sync_chain (a measurement probe, not part of the engine) times the
 // grid sync itself: an otherwise empty cooperative kernel of the same
 // shape that makes k of them.
@@ -122,7 +135,14 @@ struct Table {
   int32_t* t_g;        // unpacked
   long long* t_fpar;   // unpacked
   int32_t* t_state;    // unpacked
+  long long n_front;   // received rows at the front of the list (sharded)
 };
+
+// The claim tag of lane i (`e`: its pending entry): a received row's place
+// in the list, else the tag it carries.
+__device__ __forceinline__ int32_t tag_of(const Table& t, long long i, const int32_t* e) {
+  return i < t.n_front ? (int32_t)i : e[t.W + 1];
+}
 
 // A probe position as a phase reads it: its key words and, on the
 // unpacked layout, the g and state a lane settling there compares with
@@ -183,7 +203,7 @@ __device__ __forceinline__ int decide(const Table& t, long long i, const Slot& s
       return kSettled;
     }
   } else {
-    atomicMin(&t.claim[s.at], e[t.W + 1]);
+    atomicMin(&t.claim[s.at], tag_of(t, i, e));
     flag = kClaim;
   }
   lane_flag[i] = flag;
@@ -203,7 +223,7 @@ __device__ __forceinline__ bool write_if_won(const Table& t, long long i, int r,
   const int32_t c = __ldcg(&t.claim[s.at]);
   s.g = kUnpacked ? __ldcg(t.t_g + s.at) : 0;
   s.state = kUnpacked ? __ldcg(t.t_state + s.at) : 0;
-  if (c != e[t.W + 1]) return false;
+  if (c != tag_of(t, i, e)) return false;
   int32_t* row = t.t_key + (size_t)s.at * t.KWs;
   for (int w = 0; w < t.W; ++w) row[w] = e[w];
   if constexpr (!kUnpacked) row[t.W] = e[t.W + 2];  // h
@@ -297,7 +317,7 @@ __global__ void __launch_bounds__(kThreads, 1) keyrow_insert_kernel(
   cg::grid_group grid = cg::this_grid();
   int rounds = 0;
   long long undone = 0;
-  if (lanes > 0) {  // round 0 runs, over the list (empty if K9 settled all)
+  if (lanes > 0 || n > 0) {  // round 0 runs, over the list (empty if K9 settled all)
     for (long long i = first; i < n; i += stride) {
       const int32_t* e = pend + i * PW;
       const uint32_t at = step::probe_slot((uint32_t)e[t.W], 0, t.Cmask);
@@ -461,25 +481,38 @@ int launch(const Table& t, const void* pend, int PW, void* lane_slot, void* lane
 // blocks: the cooperative grid, 0 for one block a multiprocessor; a grid
 // larger than can be co-resident is refused.  tail: (>= cap,) int32, the
 // tail list; cap: 0 .. kCap, the most lanes left after round 0 that the
-// block path takes (0: every round on the grid).
+// block path takes (0: every round on the grid).  keyrow_insert_recv:
+// n_front, the rows received at the front of pend, claim with their
+// places; keyrow_insert is keyrow_insert_recv with none.
+extern "C" int keyrow_insert_recv(void* t_key, int KWs, int N, int C, void* claim,
+                                  void* t_best, void* t_g, void* t_fpar, void* t_state,
+                                  int unpacked, const void* pend, void* lane_slot,
+                                  void* lane_flag, int max_probes, int fill, void* run,
+                                  void* counters, void* state, int blocks, void* tail, int cap,
+                                  int n_front, void* stream) {
+  const int W = (N + 1) / 2;
+  if (N < 2 || N > 16 || C < 2 || (C & (C - 1)) != 0 || KWs != W + (unpacked ? 0 : 1) ||
+      max_probes < 1 || max_probes > step::kMaxCalls || fill < 1 || blocks < 0 || cap < 0 ||
+      cap > kCap || (cap > 0 && tail == nullptr) || n_front < 0 ||
+      (unpacked ? (t_g == nullptr || t_fpar == nullptr || t_state == nullptr)
+                : t_best == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Table t{(int32_t*)t_key, KWs, W, (uint32_t)(C - 1), (int32_t*)claim, (int32_t*)t_best,
+                (int32_t*)t_g, (long long*)t_fpar, (int32_t*)t_state, n_front};
+  return unpacked ? launch<true>(t, pend, W + 5, lane_slot, lane_flag, max_probes, fill, run,
+                                 counters, state, blocks, tail, cap, stream)
+                  : launch<false>(t, pend, W + 4, lane_slot, lane_flag, max_probes, fill, run,
+                                  counters, state, blocks, tail, cap, stream);
+}
+
 extern "C" int keyrow_insert(void* t_key, int KWs, int N, int C, void* claim, void* t_best,
                              void* t_g, void* t_fpar, void* t_state, int unpacked,
                              const void* pend, void* lane_slot, void* lane_flag, int max_probes,
                              int fill, void* run, void* counters, void* state, int blocks,
                              void* tail, int cap, void* stream) {
-  const int W = (N + 1) / 2;
-  if (N < 2 || N > 16 || C < 2 || (C & (C - 1)) != 0 || KWs != W + (unpacked ? 0 : 1) ||
-      max_probes < 1 || max_probes > step::kMaxCalls || fill < 1 || blocks < 0 || cap < 0 ||
-      cap > kCap || (cap > 0 && tail == nullptr) ||
-      (unpacked ? (t_g == nullptr || t_fpar == nullptr || t_state == nullptr)
-                : t_best == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const Table t{(int32_t*)t_key, KWs, W, (uint32_t)(C - 1), (int32_t*)claim, (int32_t*)t_best,
-                (int32_t*)t_g, (long long*)t_fpar, (int32_t*)t_state};
-  return unpacked ? launch<true>(t, pend, W + 5, lane_slot, lane_flag, max_probes, fill, run,
-                                 counters, state, blocks, tail, cap, stream)
-                  : launch<false>(t, pend, W + 4, lane_slot, lane_flag, max_probes, fill, run,
-                                  counters, state, blocks, tail, cap, stream);
+  return keyrow_insert_recv(t_key, KWs, N, C, claim, t_best, t_g, t_fpar, t_state, unpacked,
+                            pend, lane_slot, lane_flag, max_probes, fill, run, counters, state,
+                            blocks, tail, cap, 0, stream);
 }
 
 // `syncs` grid syncs in an otherwise empty cooperative kernel of `blocks`

@@ -321,18 +321,20 @@ extern "C" int path_walk(int layout, const void* keys, int KWs, const void* best
 }
 
 // The hop-limited mode (the sharded walk, parallel/sharded.py: JAX
-// _make_batched_walk :482 and _make_sharded_walk_sig :559): the same
-// kernel on one shard's sig table from the coordinate in params (not the
-// goal), at most `hops` (K = 8) iterations.  It stops at the origin or at
-// a node this table does not hold (another shard owns it); out holds the
-// run of masks (hops,), the coordinate it stopped at and the run's length,
-// as path_walk's.  The caller's mesh sums the runs of every shard and
-// moves the coordinate on.
-extern "C" int path_walk_hops(const void* t_sig, const void* best, int N, int C, int bbits,
-                              int probes, const void* params, int hops, void* out,
-                              void* stream) {
+// _make_batched_walk :482 with _make_sharded_walk_sig :559,
+// _make_sharded_walk_packed :733 and _make_sharded_walk :892): the same
+// kernel on one shard's table of any layout, from the coordinate in params
+// (not the goal), at most `hops` (K = 8) iterations; path_walk's
+// arguments, `hops` in place of tmax.  It stops at the origin or at a node
+// this table does not hold (another shard owns it); out holds the run of
+// masks (hops,), the coordinate it stopped at and the run's length, as
+// path_walk's.  The caller's mesh sums the runs of every shard and moves
+// the coordinate on.
+extern "C" int path_walk_hops(int layout, const void* keys, int KWs, const void* best,
+                              const void* fpar, int N, int C, int bbits, int probes,
+                              const void* params, int hops, void* out, void* stream) {
   if (hops < 1 || hops > 64) return (int)cudaErrorInvalidValue;
-  return path_walk(kSig, t_sig, 1, best, nullptr, N, C, bbits, probes, params, hops, out,
+  return path_walk(layout, keys, KWs, best, fpar, N, C, bbits, probes, params, hops, out,
                    stream);
 }
 

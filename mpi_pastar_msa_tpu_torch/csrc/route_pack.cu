@@ -30,8 +30,9 @@
 // counts between them):
 //   1. route_count: the remote rows of each destination (out[d], d <
 //      ndev), the remote rows among the lanes (out[ndev], the step's
-//      migrants), and each remote row's sort key (fsort << 32 | position)
-//      appended to its destination's segment of `keys`.  The lanes of a
+//      migrants), and each remote row's sort key (fsort << 32 | position,
+//      fsort with its sign bit flipped) appended to its destination's
+//      segment of `keys`.  The lanes of a
 //      warp with the same destination (__match_any_sync) take one atomicAdd
 //      for the group and rank themselves by their lane; the migrants are a
 //      block's sum and one atomic a block.  The order of a segment is not
@@ -77,6 +78,20 @@
 // the block barriers its sort executes, and route_pack_barriers reads the
 // counts of the last launch.
 //
+// Key rows (C entries route_count_rows and route_pack_rows; JAX's routes
+// with others = (h, keys...) on packed rows, (g, mask, keys...) on
+// unpacked ones, :670-672 and :836-838): the same two passes over rows of
+// `width` words (dest, fsort, payload), the payload the receiver's pending
+// entry of keyrow_insert.cu (K10), so that the received rows drop into its
+// pending list as they are: packed 2 + W + 4 words (fsort the packed word),
+// unpacked 2 + W + 5 (fsort the f itself).  Only the row's reads and the
+// copy differ: a wire row is the payload, a ring row the whole row, the
+// ring's empty row (ndev, fempty, -1 x nkey, 0...) with fempty INFP
+// (packed) or INF (unpacked), the ring's min fsort fempty when it is empty.
+// A key's fsort has its sign bit flipped, so that the negative f of an
+// unpacked row (degenerate weights) sorts below the others, as the plain
+// version's signed sort does; a packed word is never negative.
+//
 // What bounds it on an H100: launches and the chain of dependent accesses
 // (a row's read and its atomic; the counts, the keys, the row gathered by
 // position, the store), not bytes.  At kinase on 4 shards a step reads
@@ -97,6 +112,7 @@ constexpr int kShKeys = 8192;               // keys a block sorts in two shared 
 constexpr int kShSlots = kShKeys + kShKeys / kKeys;  // a shared buffer's slots (72 KB)
 constexpr int kMaxDevices = 64;             // cards whose shared-memory attribute is cached
 constexpr int kMaxDest = 1024;              // destinations (ndev) a call takes
+constexpr int kMaxRow = 16;                 // a key row's words (2 + W + 5, W <= 8)
 constexpr int32_t kInfp = 0x7FFFFFFF;
 constexpr u64 kPad = ~0ull;                 // the padding key, after every real one
 
@@ -109,14 +125,36 @@ __device__ __forceinline__ int4 row_at(const int4* cand, const int4* carry, long
   return pos < n_lanes ? cand[pos] : carry[pos - n_lanes];
 }
 
+// Row `pos` of [cand; carry], rows of `width` words (key rows).
+__device__ __forceinline__ const int32_t* row_ptr(const int32_t* cand, const int32_t* carry,
+                                                  long long n_lanes, int width, long long pos) {
+  return pos < n_lanes ? cand + pos * width : carry + (pos - n_lanes) * width;
+}
+
+// (dest, fsort) of row `pos`: sig rows are one int4, key rows `width` words.
+template <bool kSig>
+__device__ __forceinline__ int2 head_at(const int32_t* cand, const int32_t* carry,
+                                        long long n_lanes, int width, long long pos) {
+  if constexpr (kSig) {
+    const int4 v = row_at(reinterpret_cast<const int4*>(cand),
+                          reinterpret_cast<const int4*>(carry), n_lanes, pos);
+    return make_int2(v.x, v.y);
+  } else {
+    const int32_t* p = row_ptr(cand, carry, n_lanes, width, pos);
+    return make_int2(p[0], p[1]);
+  }
+}
+
+template <bool kSig>
 __global__ void __launch_bounds__(kThreads) route_count_kernel(
-    const int4* __restrict__ cand, const int4* __restrict__ carry, const long long* nsel, int M,
-    int ccar, int ndev, long long seg, int32_t* __restrict__ out, u64* __restrict__ keys) {
+    const int32_t* __restrict__ cand, const int32_t* __restrict__ carry, const long long* nsel,
+    int M, int ccar, int ndev, long long seg, int width, int fempty, int32_t* __restrict__ out,
+    u64* __restrict__ keys) {
   __shared__ int s_migr[kThreads / 32];
   const long long n_lanes = *nsel * M;
   const long long n = n_lanes + ccar;
   const int lane = threadIdx.x & 31;
-  if (blockIdx.x == 0 && threadIdx.x == 0) out[ndev + 2] = kInfp;
+  if (blockIdx.x == 0 && threadIdx.x == 0) out[ndev + 2] = fempty;
   int migr = 0;
   // a warp takes 32 consecutive rows a trip, all its lanes the same trips,
   // so its votes name every lane
@@ -126,7 +164,7 @@ __global__ void __launch_bounds__(kThreads) route_count_kernel(
     const long long r = r0 + lane;
     int d = -1, f = 0;
     if (r < n) {
-      const int4 v = row_at(cand, carry, n_lanes, r);
+      const int2 v = head_at<kSig>(cand, carry, n_lanes, width, r);
       if (v.x >= 0 && v.x < ndev) {
         d = v.x;
         f = v.y;
@@ -140,7 +178,7 @@ __global__ void __launch_bounds__(kThreads) route_count_kernel(
       int at = 0;
       if (lane == leader) at = atomicAdd(&out[d], __popc(peers));
       at = __shfl_sync(remote, at, leader) + __popc(peers & ((1u << lane) - 1u));
-      keys[(long long)d * seg + at] = ((u64)(uint32_t)f << 32) | (u64)r;
+      keys[(long long)d * seg + at] = ((u64)((uint32_t)f ^ 0x80000000u) << 32) | (u64)r;
     }
   }
   if (lane == 0) s_migr[threadIdx.x >> 5] = migr;
@@ -320,6 +358,7 @@ __device__ u64* sort_segment(u64* x, u64* y, const u64* src, int n, int np2, int
 // (home, sig, fsort), the rest to the ring from its spill offset, the first
 // of them taking the ring's min.
 struct WireRingCopy {
+  typedef int4 Row;
   const int4* cand;
   const int4* carry;
   long long n_lanes;
@@ -349,12 +388,54 @@ struct WireRingCopy {
   }
 };
 
+// The copy of destination d's sorted key rows: the first allow to the wire
+// (the payload: the receiver's pending entry), the rest to the ring from
+// its spill offset, the first of them taking the ring's min.  row() gives
+// the row's position; put() reads its words, all loads first, then
+// stores them.
+struct KeyRowCopy {
+  typedef long long Row;
+  const int32_t* cand;
+  const int32_t* carry;
+  long long n_lanes;
+  int width, ccar, ndev, d;
+  Allowance a;
+  int32_t* out;
+  int32_t* wire;
+  int32_t* carry_out;
+
+  __device__ long long row(u64 key) const { return (long long)(key & 0xffffffffull); }
+
+  __device__ void put(int i, long long pos) const {
+    const int32_t* src = row_ptr(cand, carry, n_lanes, width, pos);
+    int32_t v[kMaxRow];
+#pragma unroll
+    for (int w = 0; w < kMaxRow; ++w) v[w] = w < width ? src[w] : 0;
+    if (i < a.allow) {
+      int32_t* dst = wire + (a.base + i) * (width - 2);
+#pragma unroll
+      for (int w = 2; w < kMaxRow; ++w)
+        if (w < width) dst[w - 2] = v[w];
+      return;
+    }
+    const long long slot = a.spill_before + (i - a.allow);
+    if (slot < ccar) {
+      int32_t* dst = carry_out + slot * width;
+      dst[0] = d;
+#pragma unroll
+      for (int w = 1; w < kMaxRow; ++w)
+        if (w < width) dst[w] = v[w];
+      if (i == a.allow) atomicMin(&out[ndev + 2], v[1]);
+    }
+  }
+};
+
 // Copy the n sorted keys' rows, a row a thread (consecutive threads on
 // consecutive rows), kKeys rows read before any is written.
 template <bool kShared, class Copy>
 __device__ void copy_sorted(const u64* x, int n, int nt, const Copy& copy) {
   for (int i0 = threadIdx.x; i0 < n; i0 += nt * kKeys) {
-    int4 v[kKeys];
+    typename Copy::Row v[kKeys];
 #pragma unroll
     for (int r = 0; r < kKeys; ++r) {
       const int i = i0 + r * nt;
@@ -395,11 +476,12 @@ __device__ void sort_halves(u64* sh, u64* k, int n, int nt) {
   sort_sync(nt);
 }
 
+template <bool kSig>
 __global__ void __launch_bounds__(kPackThreads) route_pack_kernel(
-    const int4* __restrict__ cand, const int4* __restrict__ carry, const long long* nsel, int M,
-    int ccar, int ndev, int me, int cap, const int32_t* __restrict__ S, long long seg,
-    int32_t* __restrict__ out, u64* __restrict__ keys, int32_t* __restrict__ wire,
-    int4* __restrict__ carry_out) {
+    const int32_t* __restrict__ cand, const int32_t* __restrict__ carry, const long long* nsel,
+    int M, int ccar, int ndev, int me, int cap, const int32_t* __restrict__ S, long long seg,
+    int width, int nkey, int fempty, int32_t* __restrict__ out, u64* __restrict__ keys,
+    int32_t* __restrict__ wire, int32_t* __restrict__ carry_out) {
   extern __shared__ u64 sh[];
   __shared__ Allowance s_allow;  // the block's, from warp 0
   const int d = blockIdx.x;
@@ -412,8 +494,16 @@ __global__ void __launch_bounds__(kPackThreads) route_pack_kernel(
     const long long spilled = s_allow.spilled;
     const long long t = (long long)(blockIdx.x - ndev) * blockDim.x + threadIdx.x;
     if (t == 0) out[ndev + 1] = (int32_t)(spilled > ccar ? spilled - ccar : 0);
-    for (long long s = spilled + t; s < ccar; s += (long long)(gridDim.x - ndev) * blockDim.x)
-      carry_out[s] = make_int4(ndev, kInfp, 0, -1);
+    for (long long s = spilled + t; s < ccar; s += (long long)(gridDim.x - ndev) * blockDim.x) {
+      if constexpr (kSig) {
+        reinterpret_cast<int4*>(carry_out)[s] = make_int4(ndev, kInfp, 0, -1);
+      } else {
+        int32_t* dst = carry_out + s * width;
+        dst[0] = ndev;
+        dst[1] = fempty;
+        for (int w = 2; w < width; ++w) dst[w] = w < 2 + nkey ? -1 : 0;
+      }
+    }
     return;
   }
   const int n = out[d];
@@ -438,11 +528,22 @@ __global__ void __launch_bounds__(kPackThreads) route_pack_kernel(
   else
     x = sort_segment<false>(k, keys + (long long)(ndev + d) * seg, k, n, np2, nt);
   // the sort's last barrier of the nt threads is passed: s_allow is set
-  const WireRingCopy copy{cand, carry, *nsel * M, ccar, ndev, d, s_allow, out, wire, carry_out};
-  if (np2 <= kShKeys)
-    copy_sorted<true>(x, n, nt, copy);
-  else
-    copy_sorted<false>(x, n, nt, copy);
+  if constexpr (kSig) {
+    const WireRingCopy copy{reinterpret_cast<const int4*>(cand),
+                            reinterpret_cast<const int4*>(carry), *nsel * M, ccar, ndev, d,
+                            s_allow, out, wire, reinterpret_cast<int4*>(carry_out)};
+    if (np2 <= kShKeys)
+      copy_sorted<true>(x, n, nt, copy);
+    else
+      copy_sorted<false>(x, n, nt, copy);
+  } else {
+    const KeyRowCopy copy{cand, carry, *nsel * M, width, ccar, ndev, d, s_allow, out, wire,
+                          carry_out};
+    if (np2 <= kShKeys)
+      copy_sorted<true>(x, n, nt, copy);
+    else
+      copy_sorted<false>(x, n, nt, copy);
+  }
 }
 
 int grid_of(long long rows, int threads) {
@@ -451,17 +552,56 @@ int grid_of(long long rows, int threads) {
   return (int)(b > 1024 ? 1024 : b);
 }
 
-// route_pack's dynamic shared memory, allowed once a card: the attribute
-// belongs to the current card, and one process may hold shards on several
+// route_pack's dynamic shared memory, allowed once a card and
+// instantiation: the attribute belongs to the current card, and one
+// process may hold shards on several
+template <bool kSig>
 int allow_shared(int bytes) {
   static bool done[kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev < kMaxDevices && done[dev]) return 0;
-  e = cudaFuncSetAttribute(route_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  e = cudaFuncSetAttribute(route_pack_kernel<kSig>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
   if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return (int)e;
+}
+
+template <bool kSig>
+int count(const void* cand, const void* carry, const void* nsel, int M, int lanes_cap, int ccar,
+          int ndev, long long seg, int width, int fempty, void* out, void* keys, void* stream) {
+  if (cand == nullptr || carry == nullptr || nsel == nullptr || out == nullptr ||
+      keys == nullptr || M < 1 || lanes_cap < 0 || ccar < 1 || ndev < 1 || ndev > kMaxDest ||
+      seg < (long long)lanes_cap + ccar || seg >= (1ll << 31) || (seg & (seg - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(out, 0, sizeof(int32_t) * (ndev + 1), s);
+  if (e != cudaSuccess) return (int)e;
+  route_count_kernel<kSig><<<grid_of((long long)lanes_cap + ccar, kThreads), kThreads, 0, s>>>(
+      (const int32_t*)cand, (const int32_t*)carry, (const long long*)nsel, M, ccar, ndev, seg,
+      width, fempty, (int32_t*)out, (u64*)keys);
+  return (int)cudaGetLastError();
+}
+
+template <bool kSig>
+int pack(const void* cand, const void* carry, const void* nsel, int M, int ccar, int ndev, int me,
+         int cap, const void* S, long long seg, int width, int nkey, int fempty, void* out,
+         void* keys, void* wire, void* carry_out, void* stream) {
+  if (cand == nullptr || carry == nullptr || nsel == nullptr || out == nullptr ||
+      keys == nullptr || wire == nullptr || carry_out == nullptr || carry_out == carry ||
+      M < 1 || ccar < 1 || ndev < 1 || ndev > kMaxDest || me < 0 || me >= ndev || cap < 1 ||
+      seg < 1 || seg >= (1ll << 31) || (seg & (seg - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int shared = 2 * kShSlots * (int)sizeof(u64);
+  const int e = allow_shared<kSig>(shared);
+  if (e != 0) return e;
+  route_pack_kernel<kSig><<<ndev + grid_of(ccar, kPackThreads), kPackThreads, shared,
+                            (cudaStream_t)stream>>>(
+      (const int32_t*)cand, (const int32_t*)carry, (const long long*)nsel, M, ccar, ndev, me, cap,
+      (const int32_t*)S, seg, width, nkey, fempty, (int32_t*)out, (u64*)keys, (int32_t*)wire,
+      (int32_t*)carry_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -475,17 +615,8 @@ int allow_shared(int bytes) {
 extern "C" int route_count(const void* cand, const void* carry, const void* nsel, int M,
                            int lanes_cap, int ccar, int ndev, long long seg, void* out,
                            void* keys, void* stream) {
-  if (cand == nullptr || carry == nullptr || nsel == nullptr || out == nullptr ||
-      keys == nullptr || M < 1 || lanes_cap < 0 || ccar < 1 || ndev < 1 || ndev > kMaxDest ||
-      seg < (long long)lanes_cap + ccar || seg >= (1ll << 31) || (seg & (seg - 1)) != 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(out, 0, sizeof(int32_t) * (ndev + 1), s);
-  if (e != cudaSuccess) return (int)e;
-  route_count_kernel<<<grid_of((long long)lanes_cap + ccar, kThreads), kThreads, 0, s>>>(
-      (const int4*)cand, (const int4*)carry, (const long long*)nsel, M, ccar, ndev, seg,
-      (int32_t*)out, (u64*)keys);
-  return (int)cudaGetLastError();
+  return count<true>(cand, carry, nsel, M, lanes_cap, ccar, ndev, seg, 4, kInfp, out, keys,
+                     stream);
 }
 
 // After route_count on the same buffers.  S: (ndev, ndev) int32 send
@@ -496,19 +627,32 @@ extern "C" int route_count(const void* cand, const void* carry, const void* nsel
 extern "C" int route_pack(const void* cand, const void* carry, const void* nsel, int M,
                           int ccar, int ndev, int me, int cap, const void* S, long long seg,
                           void* out, void* keys, void* wire, void* carry_out, void* stream) {
-  if (cand == nullptr || carry == nullptr || nsel == nullptr || out == nullptr ||
-      keys == nullptr || wire == nullptr || carry_out == nullptr || carry_out == carry ||
-      M < 1 || ccar < 1 || ndev < 1 || ndev > kMaxDest || me < 0 || me >= ndev || cap < 1 ||
-      seg < 1 || seg >= (1ll << 31) || (seg & (seg - 1)) != 0)
+  return pack<true>(cand, carry, nsel, M, ccar, ndev, me, cap, S, seg, 4, 0, kInfp, out, keys,
+                    wire, carry_out, stream);
+}
+
+// The passes on key rows: route_count's and route_pack's arguments, with
+// cand (lanes_cap, width) and carry / carry_out (ccar, width) int32 rows,
+// width = 2 + the pending entry's words (3 .. kMaxRow), nkey the key words
+// of the empty row and fempty its fsort (out[ndev + 2] of an empty ring);
+// wire rows have width - 2 words.
+extern "C" int route_count_rows(const void* cand, const void* carry, const void* nsel, int M,
+                                int lanes_cap, int ccar, int ndev, long long seg, int width,
+                                int nkey, int fempty, void* out, void* keys, void* stream) {
+  if (width < 3 || width > kMaxRow || nkey < 0 || nkey > width - 2)
     return (int)cudaErrorInvalidValue;
-  const int shared = 2 * kShSlots * (int)sizeof(u64);
-  const int e = allow_shared(shared);
-  if (e != 0) return e;
-  route_pack_kernel<<<ndev + grid_of(ccar, kPackThreads), kPackThreads, shared,
-                      (cudaStream_t)stream>>>(
-      (const int4*)cand, (const int4*)carry, (const long long*)nsel, M, ccar, ndev, me, cap,
-      (const int32_t*)S, seg, (int32_t*)out, (u64*)keys, (int32_t*)wire, (int4*)carry_out);
-  return (int)cudaGetLastError();
+  return count<false>(cand, carry, nsel, M, lanes_cap, ccar, ndev, seg, width, fempty, out, keys,
+                      stream);
+}
+
+extern "C" int route_pack_rows(const void* cand, const void* carry, const void* nsel, int M,
+                               int ccar, int ndev, int me, int cap, const void* S, long long seg,
+                               int width, int nkey, int fempty, void* out, void* keys, void* wire,
+                               void* carry_out, void* stream) {
+  if (width < 3 || width > kMaxRow || nkey < 0 || nkey > width - 2)
+    return (int)cudaErrorInvalidValue;
+  return pack<false>(cand, carry, nsel, M, ccar, ndev, me, cap, S, seg, width, nkey, fempty, out,
+                     keys, wire, carry_out, stream);
 }
 
 #ifdef K11_BARRIERS

@@ -1,12 +1,14 @@
 // This shard's triangle cubes' h over the gathered batch of every shard:
-// kernel K12, and the coordinates it gathers (sig_coords).
+// kernel K12, and the coordinates it gathers (sig_coords, keyrow_coords).
 //
 // Replaces, in mpi_pastar_msa_tpu/parallel/sharded.py, :250
 // _make_tri_partial (with :302 _sharded_h3 around it, whose all_gather and
 // reduce-scatter the mesh runs, parallel/mesh.py) and the coordinates of
 // :1620 _select_sig that the sharded step gathers (XLA inside the sharded
-// run loop).  The port's plain versions are
-// parallel/sharded.py::tri_partial_plain and sig_coords_plain.  With
+// run loop), and on the packed layout the coordinates of :1668
+// _select_packed that _make_sharded_run_packed gathers (:641-644).  The
+// port's plain versions are parallel/sharded.py::tri_partial_plain,
+// sig_coords_plain and keyrow_coords_plain.  With
 // sharded cubes a shard holds T_loc = ceil(T / ndev) of the T triangles
 // (the last shards fewer, or none); h = sum_t h_t, so each shard adds its
 // own cubes' corners for every gathered row and a reduce-scatter hands
@@ -15,6 +17,9 @@
 //   sig_coords: row i < n_sel of K3's compact list (slot, packed word)
 //     decoded from (slot, t_sig[slot]) (sig_key.cuh), rows n_sel .. B zero:
 //     (B, N) int32, the rows in list order, as sig_expand.cu walks them.
+//   keyrow_coords: the same from the W key words of t_key[slot] (two
+//     16-bit coordinates a word, search/engine.py::_unpack_keys), packed
+//     layout, as keyrow_expand.cu walks them.
 //   tri_partial: for gathered row b and local triangle t = (x, y, z), the
 //     cell c = clip(coords[b][x, y, z], 0, S - 2) and its 8 corners
 //     cube_t[c + (bx, by, bz)]; out[b][m - 1] = sum_t corner(t, m) for move
@@ -89,6 +94,20 @@ __global__ void sig_coords_kernel(const int32_t* __restrict__ t_sig,
   }
 }
 
+__global__ void keyrow_coords_kernel(const int32_t* __restrict__ t_key, int KWs,
+                                     const int32_t* __restrict__ sel, const long long* nsel,
+                                     int N, int B, int32_t* __restrict__ coords) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  int32_t* c = coords + (size_t)i * N;
+  if (i >= *nsel) {
+    for (int d = 0; d < N; ++d) c[d] = 0;
+    return;
+  }
+  const int32_t* row = t_key + (size_t)(uint32_t)sel[2 * i] * KWs;
+  for (int d = 0; d < N; ++d) c[d] = (int32_t)(((uint32_t)row[d >> 1] >> (16 * (d & 1))) & 0xFFFFu);
+}
+
 }  // namespace
 
 // coords: (rows, N) int32; cubes: (Tl, S, S, S) int32 with the unreachable
@@ -119,5 +138,19 @@ extern "C" int sig_coords(const void* t_sig, const void* sel, const void* nsel, 
   sig_coords_kernel<<<(B + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       (const int32_t*)t_sig, (const int32_t*)sel, (const long long*)nsel,
       (const int32_t*)bitw, N, bbits, B, (int32_t*)coords);
+  return (int)cudaGetLastError();
+}
+
+// t_key: (>= C, KWs) int32 key rows (packed: KWs = W + 1); sel: K3's
+// compact list (>= B, 2) int32, its length at nsel (int64); coords: (B, N)
+// int32.
+extern "C" int keyrow_coords(const void* t_key, int KWs, const void* sel, const void* nsel, int N,
+                             int B, void* coords, void* stream) {
+  if (t_key == nullptr || sel == nullptr || nsel == nullptr || coords == nullptr || N < 2 ||
+      N > 16 || KWs < (N + 1) / 2 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  keyrow_coords_kernel<<<(B + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)t_key, KWs, (const int32_t*)sel, (const long long*)nsel, N, B,
+      (int32_t*)coords);
   return (int)cudaGetLastError();
 }

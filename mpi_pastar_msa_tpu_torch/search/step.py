@@ -369,9 +369,10 @@ def _probe_args(st, tab, bufs, counters, fill, blocks, cap, stream) -> tuple:
             counters.data_ptr(), bufs.state.data_ptr(), int(blocks), stream)
 
 
-def _check_keyrow(st: _Static, tab, counters):
+def _check_keyrow(st: _Static, tab, counters, cubes: bool = True):
     """The device and layout of a packed or unpacked step, after checking
-    the table, the statics and the counters."""
+    the table, the statics and the counters (the cubes as
+    ``_check_common``)."""
     if isinstance(tab, PackedTable):
         layout, cols = "packed", st.KW
         tensors = (("t_best", torch.int32), ("t_closed", torch.int32), ("claim", torch.int32))
@@ -393,7 +394,7 @@ def _check_keyrow(st: _Static, tab, counters):
         raise ValueError(f"t_key: shape {tuple(tab.t_key.shape)}, need (>= {st.C}, {cols})")
     for name, dtype in tensors:
         _check(getattr(tab, name), name, dev, dtype, st.C)
-    _check_common(st, dev, counters)
+    _check_common(st, dev, counters, cubes)
     return dev, layout
 
 
@@ -421,28 +422,40 @@ def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _keyrow_expand_args(st, tab, bufs, counters, ub, stream) -> tuple:
+def _keyrow_expand_args(st, tab, bufs, counters, ub, stream, *, entry: str = "keyrow_expand",
+                        cubes: bool = True, pend_at: int = 0, sharded: tuple = ()) -> tuple:
+    """K9's launch: ``entry`` the unsharded or the sharded instantiation,
+    ``cubes`` False where h3 stands in for the cube reads, the pending
+    entries appended from row ``pend_at`` of ``bufs.pend``, and
+    ``sharded`` the sharded instantiation's arguments before the stream."""
     unpacked = isinstance(tab, UnpackedTable)
     blocks, threads, _ = k9_launch_shape(st.B, st.M, _sms(tab.t_key.device))
-    return ("keyrow_expand", tab.t_key.data_ptr(), tab.t_key.shape[1],
+    return (entry, tab.t_key.data_ptr(), tab.t_key.shape[1],
             tab.t_g.data_ptr() if unpacked else None, tab.t_fpar.data_ptr() if unpacked else None,
             None if unpacked else tab.t_best.data_ptr(), st.C, int(unpacked),
             bufs.sel.data_ptr(), st.d_tables4.data_ptr(),
-            st.d_cubes.data_ptr() if st.T3 else None, bufs.params.data_ptr(), st.n, st.P,
-            st.T3, st.S, st.nb, st.f0, int(ub), GAP_EXTENSION, GAP_GAP, st.gap_oe, st.B,
+            st.d_cubes.data_ptr() if cubes and st.T3 else None, bufs.params.data_ptr(), st.n,
+            st.P, st.T3, st.S, st.nb, st.f0, int(ub), GAP_EXTENSION, GAP_GAP, st.gap_oe, st.B,
             blocks, threads, bufs.run.data_ptr(), counters.data_ptr(), bufs.state.data_ptr(),
-            bufs.pend.data_ptr(), stream)
+            bufs.pend.data_ptr() + 4 * bufs.pend.shape[1] * pend_at, *sharded, stream)
 
 
-def _keyrow_insert_args(st, tab, bufs, counters, fill, blocks, cap, stream) -> tuple:
+def _keyrow_insert_args(st, tab, bufs, counters, fill, blocks, cap, stream,
+                        pend_at: Optional[int] = None, n_front: int = 0) -> tuple:
+    """K10's launch; with ``pend_at`` the sharded entry
+    ``keyrow_insert_recv`` over the pending entries from row ``pend_at`` of
+    ``bufs.pend``, whose first ``n_front`` are received rows."""
     unpacked = isinstance(tab, UnpackedTable)
     ptr = lambda name: getattr(tab, name).data_ptr() if hasattr(tab, name) else None
-    return ("keyrow_insert", tab.t_key.data_ptr(), tab.t_key.shape[1], st.n, st.C,
-            tab.claim.data_ptr(), ptr("t_best"), ptr("t_g"), ptr("t_fpar"), ptr("t_state"),
-            int(unpacked), bufs.pend.data_ptr(), bufs.lane_cur.data_ptr(),
-            bufs.lane_dest.data_ptr(), st.max_probes, int(fill), bufs.run.data_ptr(),
-            counters.data_ptr(), bufs.state.data_ptr(), int(blocks), bufs.tail.data_ptr(),
-            int(cap), stream)
+    pend = bufs.pend.data_ptr() + 4 * bufs.pend.shape[1] * (pend_at or 0)
+    args = (tab.t_key.data_ptr(), tab.t_key.shape[1], st.n, st.C, tab.claim.data_ptr(),
+            ptr("t_best"), ptr("t_g"), ptr("t_fpar"), ptr("t_state"), int(unpacked), pend,
+            bufs.lane_cur.data_ptr(), bufs.lane_dest.data_ptr(), st.max_probes, int(fill),
+            bufs.run.data_ptr(), counters.data_ptr(), bufs.state.data_ptr(), int(blocks),
+            bufs.tail.data_ptr(), int(cap))
+    if pend_at is None:
+        return ("keyrow_insert", *args, stream)
+    return ("keyrow_insert_recv", *args, int(n_front), stream)
 
 
 def k10_grid_syncs(rounds: int, tail: int, cap: int, unpacked: bool) -> int:
@@ -621,10 +634,9 @@ def walk_cuda(st: _Static, tab, layout: str):
     return res[:int(res[tmax + n])], res[tmax:tmax + n]
 
 
-def _walk_args(st: _Static, tab, layout: str):
-    """K7's C arguments (kernel name first) on the checked table, and the
-    buffers they point to, (params, out), which the caller keeps until the
-    launch has run (``walk_cuda``'s checks and errors)."""
+def _walk_table(st: _Static, tab, layout: str) -> tuple:
+    """K7's table arguments on the checked table: (device, layout code,
+    keys, row stride, t_best, t_fpar, probes)."""
     want = {"sig": SigTable, "packed": PackedTable, "unpacked": UnpackedTable}.get(layout)
     if want is None or not isinstance(tab, want):
         raise ValueError(f"the walk of layout {layout!r} needs its table, got "
@@ -653,12 +665,20 @@ def _walk_args(st: _Static, tab, layout: str):
             _check(tab.t_fpar, "t_fpar", dev, torch.int64, st.C)
             best, fpar = None, tab.t_fpar
         keys, probes = tab.t_key, st.max_probes
+    return (dev, WALK_LAYOUTS[layout], keys.data_ptr(), stride,
+            None if best is None else best.data_ptr(), None if fpar is None else fpar.data_ptr(),
+            probes)
+
+
+def _walk_args(st: _Static, tab, layout: str):
+    """K7's C arguments (kernel name first) on the checked table, and the
+    buffers they point to, (params, out), which the caller keeps until the
+    launch has run (``walk_cuda``'s checks and errors)."""
+    dev, code, keys, stride, best, fpar, probes = _walk_table(st, tab, layout)
     n, tmax = st.n, int(st.final_np.sum())
     params = torch.tensor(list(st.final_np) + list(st.bitw), dtype=torch.int32).to(dev)
     out = torch.empty(tmax + n + 1, dtype=torch.int32, device=dev)
-    args = ("path_walk", WALK_LAYOUTS[layout], keys.data_ptr(), stride,
-            None if best is None else best.data_ptr(),
-            None if fpar is None else fpar.data_ptr(), n, st.C, st.bbits, probes,
+    args = ("path_walk", code, keys, stride, best, fpar, n, st.C, st.bbits, probes,
             params.data_ptr(), tmax, out.data_ptr(), _stream(dev))
     return args, (params, out)
 
@@ -706,23 +726,74 @@ def probe_pending_cuda(st: _Static, tab: SigTable, bufs: StepBuffers, counters, 
     _kernels.launch(*args)
 
 
-def walk_hops_cuda(st: _Static, tab: SigTable, coord, hops: int) -> torch.Tensor:
+def walk_hops_cuda(st: _Static, tab, coord, hops: int, layout: str = "sig") -> torch.Tensor:
     """K7's hop-limited mode (``path_walk_hops``): at most ``hops`` steps
-    of the walk from ``coord`` on this shard's sig table, stopping at the
-    origin or at a node the table does not hold.  Returns the device
-    buffer (hops + N + 1,) int32: the run of masks (0 past its end), the
-    coordinate it stopped at, the run's length (no host read)."""
-    dev = _cuda_device(tab.t_sig, "t_sig")
-    _check(tab.t_sig, "t_sig", dev, torch.int32, st.C)
-    _check(tab.t_best, "t_best", dev, torch.int32, st.C)
-    if not st.sig_ok or st.n > K4_MAX_N:
-        raise ValueError(f"the sig walk needs a sig-eligible table of at most {K4_MAX_N} "
-                         "sequences")
+    of the walk from ``coord`` on this shard's table of ``layout``,
+    stopping at the origin or at a node the table does not hold.  Returns
+    the device buffer (hops + N + 1,) int32: the run of masks (0 past its
+    end), the coordinate it stopped at, the run's length (no host read).
+    Raises ValueError as ``walk_cuda``."""
+    if not 1 <= hops <= 64:
+        raise ValueError(f"K7 hop mode: hops {hops}, need 1 .. 64")
+    dev, code, keys, stride, best, fpar, probes = _walk_table(st, tab, layout)
     params = torch.tensor([int(v) for v in coord] + list(st.bitw),
                           dtype=torch.int32).to(dev)
     out = torch.empty(hops + st.n + 1, dtype=torch.int32, device=dev)
-    _kernels.launch("path_walk_hops", tab.t_sig.data_ptr(), tab.t_best.data_ptr(), st.n, st.C,
-                    st.bbits, st.max_bprobes, params.data_ptr(), hops, out.data_ptr(),
-                    _stream(dev))
+    _kernels.launch("path_walk_hops", code, keys, stride, best, fpar, st.n, st.C, st.bbits,
+                    probes, params.data_ptr(), hops, out.data_ptr(), _stream(dev))
     out._params = params  # kept alive until the launch has run
     return out
+
+
+# --- the sharded key-row step (parallel/sharded.py): K9's sharded
+# instantiation and K10 on the received rows and the self-owned lanes
+
+
+def expand_keyrow_sharded_cuda(st: _Static, tab, bufs: StepBuffers, counters, ub: int, h3,
+                               cand, pend_at: int, hash_params: tuple, ndev: int, me: int,
+                               tag_base: int) -> None:
+    """K9's sharded instantiation (``keyrow_expand_sharded``) over K3's
+    compact list in ``bufs``: as the unsharded K9, with h3 ((B, M + 1) int32
+    from K12 after the reduce-scatter, packed only; or None: the shard
+    reads the cubes of ``st``) in place of the cube reads, every lane's
+    candidate row written to ``cand`` ((B M, 2 + PW) int32: dest, fsort and
+    the pending entry) and only self-owned lanes matched in their home row
+    (packed) or pending, appended to ``bufs.pend`` from row ``pend_at``,
+    their claim tags from ``tag_base``.  ``hash_params``:
+    partition.owner_params."""
+    dev, layout = _check_keyrow(st, tab, counters, cubes=h3 is None)
+    L = st.B * st.M
+    pw = bufs.pend.shape[1]
+    if pw != st.W + (5 if layout == "unpacked" else 4):
+        raise ValueError(f"pend: {pw} words a row, not the {layout} layout's")
+    _check(cand, "cand", dev, torch.int32, (2 + pw) * L)
+    if cand.dim() != 2 or cand.shape[1] != 2 + pw:
+        raise ValueError(f"cand: shape {tuple(cand.shape)}, need ({L}, {2 + pw})")
+    _check(bufs.pend, "pend", dev, torch.int32, pw * (pend_at + L))
+    if h3 is not None:
+        if layout == "unpacked":
+            raise ValueError("the unpacked step reads its cubes: no h3")
+        _check(h3, "h3", dev, torch.int32, st.B * (st.M + 1))
+    if not 0 <= tag_base or tag_base + L >= 2**31:
+        raise ValueError(f"claim tags from {tag_base}: {L} lanes must stay below 2^31")
+    _kernels.launch(*_keyrow_expand_args(
+        st, tab, bufs, counters, ub, _stream(dev), entry="keyrow_expand_sharded",
+        cubes=h3 is None, pend_at=pend_at,
+        sharded=(None if h3 is None else h3.data_ptr(), cand.data_ptr(), 2 + pw, *hash_params,
+                 ndev, me, int(tag_base))))
+
+
+def insert_pending_cuda(st: _Static, tab, bufs: StepBuffers, counters, fill: int, pend_at: int,
+                        n_front: int, blocks: int = 0, cap: int = K10_CAP) -> None:
+    """K10 (``keyrow_insert_recv``) over the pending entries from row
+    ``pend_at`` of ``bufs.pend``, ``state[STATE_NPEND]`` of them: in the
+    sharded step the ``n_front`` received rows, each claiming with its
+    place in the list, then K9's self-owned pending lanes."""
+    dev, _ = _check_keyrow(st, tab, counters, cubes=False)
+    n_rows = bufs.pend.shape[0]
+    if not 0 <= n_front <= pend_at + n_front <= n_rows or bufs.lane_cur.numel() < n_rows - pend_at:
+        raise ValueError(f"K10: pending rows from {pend_at} of {n_rows}, {n_front} received")
+    if not 0 <= cap <= K10_CAP:
+        raise ValueError(f"K10 cap {cap}: need 0 .. {K10_CAP}")
+    _kernels.launch(*_keyrow_insert_args(st, tab, bufs, counters, fill, blocks, cap, _stream(dev),
+                                         pend_at=pend_at, n_front=n_front))

@@ -2,7 +2,8 @@
 (K1 pair wavefront, K8 Gotoh fill, K2 triple cubes, the sig step kernels K3-K5, the
 packed and unpacked step kernels K3, K9 and K10 on both of K10's paths,
 the path walk K7, and the sharded step's K4 sharded, K11, K12 and K7's hop
-mode) against their plain PyTorch versions, the chunk graph (K6) against
+mode, and on key rows K9s, K11, K10 on received rows, K7's hop mode and
+keyrow_coords) against their plain PyTorch versions, the chunk graph (K6) against
 the eager chunk, and the port's main path, its table layouts and the
 sharded engine on four shards of one card on the GPU.
 They skip on a host without a CUDA device.  On the card:
@@ -1161,15 +1162,20 @@ def _sharded_capture(cuda, name="kinase.fasta", at=60, **kw):
 
 
 def test_sharded_kinase_on_one_card(cuda):
+    """Kinase on [cuda] * 4 under ``auto``: JAX's layout and capacity,
+    packed at 2^21 slots a shard, the golden g and alignment, every kernel
+    of the key-row sharded step launched."""
     from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
 
-    gold, problem, eng, res, cap, shards = _sharded_capture(cuda)
+    gold, problem, eng, res, cap, shards = _keyrow_sharded_capture(cuda, "kinase.fasta", "auto",
+                                                                   60)
     assert res.g == gold["optimal_g"]
     assert build_alignment(problem, res.closed) == gold["alignment"]
-    assert eng.layout == "sig" and eng.exchange == "ragged" and eng.shard_cubes
+    assert eng.layout == "packed" and eng.st.C == 1 << 21 and not eng.retries
+    assert eng.exchange == "ragged" and eng.cubes_split
     assert res.nodes_migrated > 0
-    for k in ("select_best", "sig_coords", "tri_partial", "sig_expand_sharded", "route_count",
-              "route_pack", "sig_probe", "path_walk_hops"):
+    for k in ("select_best", "keyrow_coords", "tri_partial", "keyrow_expand_sharded",
+              "route_count_rows", "route_pack_rows", "keyrow_insert_recv", "path_walk_hops"):
         assert _kernels.launches[k] > 0, k
 
 
@@ -1177,7 +1183,9 @@ def test_k4_sharded_and_k11_equal_plain(cuda):
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
     from mpi_pastar_msa_tpu_torch.search.engine import SigTable
 
-    _, _, eng, _, cap, _ = _sharded_capture(cuda)
+    # kinase pinned to the sig layout at the capacity its word takes
+    _, _, eng, _, cap, _ = _sharded_capture(cuda, layout="sig", capacity=1 << 23)
+    assert eng.layout == "sig"
     sh, st, me, M = cap["sh"], cap["sh"].st, 1, cap["sh"].st.M
     n_sel = int(cap["state0"][2])
     assert n_sel > 0
@@ -1403,3 +1411,280 @@ def test_k11_barriers_counted(cuda, k11_barrier_build, case, counts, cap, ccar, 
     got = (ctypes.c_int * 4)()
     assert barriers(ctypes.cast(got, ctypes.c_void_p), 4) == 0
     assert tuple(got) == K11_BARRIERS[case]
+
+
+# --- the sharded engine on key rows (the packed and unpacked layouts) on
+# one card: K9s, K11 on key rows, K10 on the received rows, K7's hop mode
+# and keyrow_coords against their plain versions
+
+
+def _keyrow_sharded_capture(cuda, name, layout, at, **kw):
+    """A sharded search of ``layout`` on [cuda] * 4 through
+    ShardedFrontierSearch.run, with shard 1's inputs and outputs of K9s,
+    K11 and K10 at step ``at``; ``name`` a golden input or a tuple of
+    sequences (then no golden)."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import step as TS
+
+    if isinstance(name, tuple):
+        gold, problem = None, Problem(name)
+    else:
+        gold = json.load(open(os.path.join(HERE, "goldens.json")))[name]
+        problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+    cap, shards, step = {}, [], [0]
+    methods = {m: getattr(SH._Shard, m) for m in ("select", "expand", "count", "pack")}
+    insert = TS.insert_pending_cuda
+    clone = lambda tab: type(tab)(*(getattr(tab, f).clone() for f in tab.__dataclass_fields__))
+
+    def on(sh):
+        return step[0] == at and sh.me == 1
+
+    def select(sh):
+        step[0] += sh.me == 0
+        if sh not in shards:
+            shards.append(sh)
+        return methods["select"](sh)
+
+    def expand(sh, eng, h3):
+        if on(sh):
+            cap.update(sh=sh, eng=eng, h3=None if h3 is None else h3.clone(), tab0=clone(sh.tab),
+                       sel=sh.bufs.sel.clone(), state0=sh.bufs.state.clone(),
+                       ctr0=sh.ctr.clone())
+        methods["expand"](sh, eng, h3)
+        if on(sh):
+            n_pend = int(sh.bufs.state[6])
+            cap.update(cand=sh.cand.clone(), tab1=clone(sh.tab),
+                       pend=sh.bufs.pend[sh.R:sh.R + n_pend].clone(),
+                       state1=sh.bufs.state.clone(), ctr1=sh.ctr.clone())
+
+    def count(sh, eng):
+        if on(sh):
+            cap.update(ring=sh.ring.clone(), nsel=int(sh.bufs.state[2]))
+        return methods["count"](sh, eng)
+
+    def pack(sh, eng, S_all):
+        methods["pack"](sh, eng, S_all)
+        if on(sh):
+            cap.update(S=None if S_all is None else S_all.clone(), wire=sh.wire.clone(),
+                       ring1=sh.ring.clone(), route_out=sh.route_out.clone())
+
+    def insert_pending(st, tab, bufs, ctr, fill, pend_at, n_front, **kw2):
+        me = "sh" in cap and on(cap["sh"]) and tab is cap["sh"].tab
+        if me:
+            n = int(bufs.state[6])
+            cap.update(k10_tab0=clone(tab), k10_ctr0=ctr.clone(), k10_state0=bufs.state.clone(),
+                       k10_rows=bufs.pend[pend_at:pend_at + n].clone(), n_front=n_front,
+                       fill=fill)
+        insert(st, tab, bufs, ctr, fill, pend_at, n_front, **kw2)
+        if me:
+            cap.update(k10_tab1=clone(tab), k10_ctr1=ctr.clone(), k10_state1=bufs.state.clone())
+
+    try:
+        for m, fn in (("select", select), ("expand", expand), ("count", count), ("pack", pack)):
+            setattr(SH._Shard, m, fn)
+        TS.insert_pending_cuda = insert_pending
+        _kernels.reset_counts()
+        eng = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, layout=layout, **kw)
+        res = eng.run()
+    finally:
+        for m, fn in methods.items():
+            setattr(SH._Shard, m, fn)
+        TS.insert_pending_cuda = insert
+    return gold, problem, eng, res, cap, shards
+
+
+KEYROW_SHARDED = ("select_best", "keyrow_expand_sharded", "route_count_rows", "route_pack_rows",
+                  "keyrow_insert_recv", "path_walk_hops")
+
+
+@pytest.mark.parametrize("exchange", ["ragged", "dense"])
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+@pytest.mark.parametrize("name", ["PF08184.fasta", "test2.fasta"])
+def test_sharded_keyrow_on_one_card(cuda, name, layout, exchange):
+    from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+
+    gold, problem, eng, res, cap, shards = _keyrow_sharded_capture(cuda, name, layout, 3,
+                                                                   exchange=exchange)
+    assert eng.layout == layout and eng.exchange == exchange
+    assert res.g == gold["optimal_g"]
+    assert build_alignment(problem, res.closed) == gold["alignment"]
+    want = list(KEYROW_SHARDED)
+    if layout == "unpacked":
+        want[0] = "select_best_unpacked"
+    elif eng.cubes_split:
+        want += ["keyrow_coords", "tri_partial"]
+    for k in want:
+        assert _kernels.launches[k] > 0, k
+    for k in ("keyrow_expand", "keyrow_insert", "sig_expand_sharded", "sig_probe"):
+        assert _kernels.launches[k] == 0, k
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_k9s_k11_rows_k10_recv_equal_plain(cuda, layout):
+    """On a random input of 4 x 12-16 residues (batch 16, FSUM with no
+    shift: a wide, migrating frontier) pinned to ``layout`` on four shards
+    of one card, shard 1's step 6 (6 rows received from the other
+    shards): K9s against its plain
+    version (candidate rows, t_best after the round-0 match, the pending
+    entries as a multiset, the surviving lanes, the goal); K11 on key rows
+    as the run launched it and under the dense allowance (out, new ring,
+    rows sent); K10 over the received rows and the self-owned lanes against
+    insert_pending_plain and finish_plain: every table tensor, the claim
+    words, the 14 counters and the rounds."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    rs = np.random.RandomState(31)
+    seqs = tuple("".join(rs.choice(list(AMINO), size=rs.randint(12, 17))) for _ in range(4))
+    _, _, eng, _, cap, _ = _keyrow_sharded_capture(cuda, seqs, layout, 6, batch=16,
+                                                   hash_shift=0)
+    sh, st, me, M = cap["sh"], cap["sh"].st, 1, cap["sh"].st.M
+    n_sel = int(cap["state0"][2])
+    assert n_sel > 0 and cap["n_front"] > 0
+    tab = type(cap["tab0"])(*(getattr(cap["tab0"], f).clone()
+                              for f in cap["tab0"].__dataclass_fields__))
+    goal, cand, pending, n_valid = SH.expand_keyrow_sharded_plain(
+        st, tab, layout, cap["sel"], n_sel, eng.ub, cap["h3"], eng.own, 4, me, sh.tag_base)
+    L = n_sel * M
+    assert torch.equal(cand[:L], cap["cand"][:L])
+    for f in tab.__dataclass_fields__:
+        assert torch.equal(getattr(tab, f)[:st.C], getattr(cap["tab1"], f)[:st.C]), f
+    srt = lambda t: sorted(map(tuple, t.tolist()))
+    assert srt(pending) == srt(cap["pend"])
+    assert n_valid == int(cap["state1"][5]) and pending.shape[0] == int(cap["state1"][6])
+    assert min(goal, int(cap["ctr0"][0])) == int(cap["ctr1"][0])
+    # K11 on key rows, as launched (the run's allowance), then dense
+    fill = sh.fill
+    w, r, o = SH.route_plain(cap["cand"], cap["nsel"] * M, cap["ring"], 4, me, eng.exchange_cap,
+                             cap["S"], fill)
+    assert torch.equal(cap["route_out"], o) and torch.equal(cap["ring1"], r)
+    A = SH.route_sizes(cap["S"].cpu().numpy() if cap["S"] is not None else
+                       o[:4].long().repeat(4, 1).cpu().numpy(), 4, eng.exchange_cap,
+                       cap["S"] is not None)[me]
+    if cap["S"] is not None:
+        assert torch.equal(cap["wire"][:int(A.sum())], w[:int(A.sum())])
+    # K10 over [received; self-owned]
+    tab = type(cap["k10_tab0"])(*(getattr(cap["k10_tab0"], f).clone()
+                                  for f in cap["k10_tab0"].__dataclass_fields__))
+    ctr = cap["k10_ctr0"].clone()
+    s0 = cap["k10_state0"]
+    ovf, reopen, rounds, un, tail = SH.insert_pending_plain(st, tab, layout, cap["k10_rows"],
+                                                            cap["n_front"])
+    state = [0, int(s0[1]), int(s0[2]), int(s0[3]) + reopen, int(s0[4])]
+    SH.finish_plain(ctr, state, cap["fill"], int(s0[5]), ovf, rounds, un, tail)
+    for f in tab.__dataclass_fields__:
+        assert torch.equal(getattr(tab, f)[:st.C], getattr(cap["k10_tab1"], f)[:st.C]), f
+    assert torch.equal(ctr, cap["k10_ctr1"]), (ctr.tolist(), cap["k10_ctr1"].tolist())
+    assert int(cap["k10_state1"][7]) == rounds
+
+
+def _k11_rows_inputs(cuda, counts, cap, ccar, f_range, seed, layout, W=3, ndev=4):
+    """_k11_inputs on key rows: rows of 2 + W + 4 (packed) or 2 + W + 5
+    (unpacked) words, random payloads, unpacked f from -f_range / 4 up;
+    the empty rows of the layout (sharded.keyrow_fill's)."""
+    from mpi_pastar_msa_tpu_torch.search.engine import INF
+
+    cand4, n_lanes, carry4, nsel = _k11_inputs(cuda, counts, 2, cap, ccar, f_range, seed)
+    pw = W + (4 if layout == "packed" else 5)
+    empty = INFP if layout == "packed" else INF
+    fill = [ndev, empty] + [-1] * W + [0] * (pw - W)
+    rng = np.random.default_rng(seed + 1)
+
+    def widen(t4):
+        t = t4.cpu().numpy()
+        rows = np.tile(np.array(fill, np.int64), (t.shape[0], 1))
+        rows[:, 0] = t[:, 0]
+        live = t[:, 0] < ndev
+        f = t[:, 1].astype(np.int64)
+        if layout == "unpacked":
+            f = f - f_range // 4
+        rows[live, 1] = f[live]
+        rows[live, 2:] = rng.integers(-2**31, 2**31 - 1, (int(live.sum()), pw))
+        return torch.from_numpy(rows.astype(np.int32)).to(cuda)
+
+    return widen(cand4), n_lanes, widen(carry4), nsel, fill
+
+
+@pytest.mark.parametrize("case,counts,cap,ccar,f_range",
+                         [c for c in K11_CASES if c[0] != "whole_shard"])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_k11_rows_equal_plain_synthetic(cuda, layout, case, counts, cap, ccar, f_range, ragged):
+    """K11 on key rows (route_count_rows, route_pack_rows) against
+    route_plain bit for bit: out, the new ring and the wire rows sent,
+    twice on the same buffers, under both allowances; unpacked rows with
+    negative f; spills with cap 1 and a ring too small for them."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    ndev, me, M = 4, 2, 1
+    cand, n_lanes, carry, nsel, fill = _k11_rows_inputs(cuda, counts, cap, ccar, f_range,
+                                                        len(case), layout)
+    width = cand.shape[1]
+    lanes_cap = cand.shape[0]
+    seg = 1 << max(1, (lanes_cap + ccar - 1).bit_length())
+    Smat = None
+    if ragged:
+        rng = np.random.default_rng(7)
+        Sm = rng.integers(0, 3 * cap, (ndev, ndev)).astype(np.int32)
+        Sm[me] = counts
+        Smat = torch.from_numpy(Sm).to(cuda)
+    w_p, r_p, o_p = SH.route_plain(cand, n_lanes, carry, ndev, me, cap, Smat, fill)
+    A = SH.route_sizes((Smat.cpu().numpy() if ragged
+                        else np.tile(np.array(counts), (ndev, 1))), ndev, cap, ragged)[me]
+    base = np.cumsum(A) - A if ragged else np.arange(ndev) * cap
+    sent = torch.cat([torch.arange(int(b), int(b) + int(a)) for a, b in zip(A, base)]
+                     ).long().to(cuda)
+    keys = torch.empty(2 * ndev * seg, dtype=torch.int64, device=cuda)
+    out = torch.empty(ndev + 3, dtype=torch.int32, device=cuda)
+    wire = torch.zeros((max(ndev * cap, lanes_cap + ccar), width - 2), dtype=torch.int32,
+                       device=cuda)
+    ring = torch.empty_like(carry)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):
+        _kernels.launch("route_count_rows", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
+                        lanes_cap, ccar, ndev, seg, width, 3, fill[1], out.data_ptr(),
+                        keys.data_ptr(), stream)
+        _kernels.launch("route_pack_rows", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
+                        ccar, ndev, me, cap, None if Smat is None else Smat.data_ptr(), seg,
+                        width, 3, fill[1], out.data_ptr(), keys.data_ptr(), wire.data_ptr(),
+                        ring.data_ptr(), stream)
+        torch.cuda.synchronize()
+        assert torch.equal(out, o_p), (out.tolist(), o_p.tolist())
+        assert torch.equal(ring, r_p)
+        assert torch.equal(wire[sent], w_p[sent])
+    if case == "ring_overflow":
+        assert int(o_p[ndev + 1]) > 0
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_k7_hop_mode_keyrow_and_coords_equal_plain(cuda, layout):
+    """K7's hop mode on every shard's finished key-row table from every path
+    node (and nodes no shard holds), against walk_hops_plain; on the packed
+    tables keyrow_coords against keyrow_coords_plain on a list of stored
+    slots."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import step as TS
+
+    _, problem, eng, res, _, shards = _keyrow_sharded_capture(cuda, "PF08184.fasta", layout, 5)
+    path = list(res.closed) + [(0, 0, 0), (1, 1, 0), (999, 0, 0)]
+    before = _kernels.launches["path_walk_hops"]
+    for sh in shards:
+        for coord in path:
+            for hops in (1, 8):
+                got = TS.walk_hops_cuda(sh.st, sh.tab, coord, hops, layout).cpu()
+                assert torch.equal(got, SH.walk_hops_plain(sh.st, sh.tab, coord, hops, layout))
+    assert _kernels.launches["path_walk_hops"] == before + 2 * len(path) * len(shards)
+    if layout != "packed":
+        return
+    for sh in shards:
+        st = sh.st
+        slots = torch.nonzero(sh.tab.t_key[:st.C, 0] != -1)[:, 0][:st.B].to(torch.int32)
+        sel = torch.zeros((st.B, 2), dtype=torch.int32, device=cuda)
+        sel[:slots.numel(), 0] = slots
+        state = torch.zeros(16, dtype=torch.int64, device=cuda)
+        state[2] = slots.numel()
+        out = torch.empty((st.B, st.n), dtype=torch.int32, device=cuda)
+        _kernels.launch("keyrow_coords", sh.tab.t_key.data_ptr(), sh.tab.t_key.shape[1],
+                        sel.data_ptr(), state[2:3].data_ptr(), st.n, st.B, out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+        assert torch.equal(out, SH.keyrow_coords_plain(st, sh.tab.t_key, sel, slots.numel(),
+                                                       st.B))

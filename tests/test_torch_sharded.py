@@ -690,14 +690,31 @@ def test_fractional_cover_descales():
 
 
 @pytest.mark.parametrize("layout", ["packed", "unpacked"])
-def test_packed_and_unpacked_not_ported(layout):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.ShardedFrontierSearch(golden("PF08184.fasta"), devices=["cpu"] * 2, layout=layout)
+def test_packed_and_unpacked_layouts_run(layout):
+    """PF08184 pinned to each key-row layout on 2 shards, at the default
+    capacity: the golden g and alignment, and as many steps as the sig
+    layout's run (the layouts store the same states)."""
+    p = golden("PF08184.fasta")
+    eng, res, al = run_sharded(p, 2, layout=layout)
+    assert eng.layout == layout and eng.exchange == "dense"
+    assert res.g == GOLD["PF08184.fasta"]["optimal_g"]
+    assert al == GOLD["PF08184.fasta"]["alignment"]
+    assert res.steps == run_sharded(p, 2)[1].steps
 
 
-def test_degenerate_auto_layout_not_ported():
-    with pytest.raises(NotImplementedError, match="unpacked"):
-        S.ShardedFrontierSearch(Problem(("WYWY", "WYY", "YWW")), devices=["cpu"] * 2)
+def test_degenerate_auto_layout_equals_single_table():
+    """The degenerate input on 2 shards: the automatic layout is unpacked,
+    the warning is given, and the g and the alignment are the single-table
+    unpacked search's."""
+    p = Problem(("WYWY", "WYY", "YWW"))
+    with pytest.warns(RuntimeWarning, match="non-positive Altschul"):
+        eng, res, al = run_sharded(p, 2)
+    assert eng.layout == "unpacked"
+    with pytest.warns(RuntimeWarning, match="non-positive Altschul"):
+        ref = FrontierSearch(p, device="cpu", layout="unpacked").run()
+    assert res.g == ref.g
+    assert al == build_alignment(p, ref.closed)
+    assert [r.replace("-", "") for r in al] == list(p.seqs)
 
 
 def test_refusals_and_mesh():
