@@ -117,22 +117,30 @@ Phases, each failing loudly (non-zero exit):
 7. sharded (parallel/sharded.py, a LocalMesh of [cuda:0] * 4 through
    ShardedFrontierSearch.run): kinase --triples auto, whose automatic
    layout is packed at JAX's 2^21 slots a shard (sharded cubes), with the
-   ragged exchange and with the dense one (traced: device time a step)
-   must reach g = 421546 with the golden alignment and migrated rows,
-   launching K3, keyrow_coords, K12 (tri_partial.cu), K9's sharded
-   instantiation (keyrow_expand.cu), K11 on key rows (route_pack.cu), K10
-   on the received rows (keyrow_insert.cu) and K7's hop mode, and no
-   plain version; kinase pinned to unpacked (K3's unpacked instantiation,
-   the whole cube stack on every shard) and pinned to sig at 2^23 slots a
-   shard (sig_coords, K4's sharded instantiation, K11 on sig rows, K5);
+   ragged exchange under the chunked driver (a chunk of 256 steps one CUDA
+   graph: at most 0.01 host reads a step, a graph replay a chunk) and with
+   the dense one (traced: device time a step) must reach g = 421546 with
+   the golden alignment and migrated rows, launching K3, keyrow_coords,
+   K12 (tri_partial.cu), K9's sharded instantiation (keyrow_expand.cu),
+   K11 on key rows (route_pack.cu), K10 on the received rows
+   (keyrow_insert.cu), K7's hop mode and the loop's consensus, exchange
+   and walk_advance (shard_loop.cu), and no plain version; the walk's
+   device loop gives the host walk's masks, and walk_advance equals its
+   plain version; kinase packed, pinned to unpacked (K3's unpacked
+   instantiation, the whole cube stack on every shard) and pinned to sig
+   at 2^23 slots a shard (sig_coords, K4's sharded instantiation, K11 on
+   sig rows, K5) each run 256 steps under the chunked and then the host
+   driver with every table, ring, counter and telemetry word equal, then
+   in full under the host driver;
    any overflow retry and the capacity reached; one shard of kinase;
    PF08184 with exchange_cap=1; a random 4-sequence input whose one-row
    wire must spill into the carry ring (its brute-force optimum), on sig
    and pinned to unpacked; the degenerate input on 4 shards (unpacked,
    warned, the single-table unpacked search's g and alignment); test2
    under FZORDER, PZORDER, FSUM and PSUM.  On step 200 of the packed, the
-   unpacked and the sig kinase runs each kernel of the step against its
-   plain version bit for bit (K11 under both allowances, on sig rows with
+   unpacked and the sig kinase runs (host driver) each kernel of the step
+   against its plain version bit for bit (the consensus and the exchange
+   on the packed run; K11 under both allowances, on sig rows with
    each destination's sort barriers as its K11_BARRIERS build counts
    them; K10 over the received rows and the self-owned lanes: every
    table tensor, the claim words and the 14 counters; K7's hop mode on
@@ -827,7 +835,7 @@ def step_baseline_turns(src, fns, st, ub, fill, work, ctr, bufs, restores, news)
                            stream)[1:]
     args4 = S._expand_args(st, work, bufs, ctr, ub, stream)[1:]
     args5 = S._probe_args(st, work, bufs, ctr, fill, 0, S.K5_CAP, stream)[1:]
-    args5 = args5[:10] + args5[11:]  # that entry takes no cap
+    args5 = args5[:10] + args5[11:-2] + args5[-1:]  # that entry takes no cap nor recv
     olds = []
     for k, (fn, args) in enumerate(zip(fns, (args3, args4, args5))):
         def old(fn=fn, args=args, k=k):
@@ -2249,7 +2257,10 @@ def sharded_step_bounds(B: int, N: int, T: int, walk: dict, ndev: int = 4,
 
 # the sharded step's kernels (parallel/sharded.py on a card), by layout:
 # K3, the coordinates K12 gathers, K12, the sharded expand, K11's two
-# passes, the insert; K7's hop-limited mode for the walk
+# passes, the insert; K7's hop-limited mode for the walk; and the loop's
+# (LOOP_KERNELS: the consensus and the exchange every step, walk_advance
+# under the chunked driver)
+LOOP_KERNELS = ["consensus", "exchange", "walk_advance"]
 SHARDED_KERNELS = {
     "sig": ["select_best", "sig_coords", "tri_partial", "sig_expand_sharded", "route_count",
             "route_pack", "sig_probe", "path_walk_hops"],
@@ -2263,7 +2274,8 @@ PLAIN_SHARDED = ("route_plain", "tri_partial_plain", "sig_coords_plain",
                  "expand_sharded_plain", "walk_hops_plain", "_insert_sig",
                  "_select_best_plain", "_expand", "keyrow_coords_plain",
                  "expand_keyrow_sharded_plain", "insert_pending_plain", "finish_plain",
-                 "_select_open_plain", "_insert_core", "_insert_core_packed")
+                 "_select_open_plain", "_insert_core", "_insert_core_packed",
+                 "consensus_plain", "exchange_plain", "walk_advance_plain")
 
 
 @contextlib.contextmanager
@@ -2273,7 +2285,10 @@ def sharded_guard(capture_step: int = 0):
     step ``capture_step`` (> 0) copy the inputs and outputs of the shard
     that selected the most rows there (the lowest index on a tie)
     of each kernel of its step (sig_coords or keyrow_coords, K12, K4s or
-    K9s, K11, and on key rows K10) into ``cap``."""
+    K9s, K11, and on key rows K10) into ``cap``, and the card's consensus
+    and exchange of that step (their inputs and outputs: ``k6s_*``,
+    ``x_*``).  The capture reads the card between kernels: it runs under
+    the host driver."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
     from mpi_pastar_msa_tpu_torch.search import step as S
 
@@ -2281,6 +2296,7 @@ def sharded_guard(capture_step: int = 0):
     saved = {name: getattr(SH, name) for name in PLAIN_SHARDED}
     methods = {name: getattr(SH._Shard, name)
                for name in ("select", "coords", "partial", "expand", "count", "pack")}
+    card_methods = {name: getattr(SH._Card, name) for name in ("consensus", "exchange")}
     cap = {"shards": [], "step": 0, "at": capture_step, "nsel_at": {}}
 
     def counted(name, fn):
@@ -2356,16 +2372,47 @@ def sharded_guard(capture_step: int = 0):
                        ring1=sh.ring.clone(), route_out=sh.route_out.clone())
         return out
 
+    def at_step() -> bool:
+        return bool(capture_step) and cap["step"] == capture_step
+
+    def targets(card):
+        return [tuple(t.clone() for t in x[:5]) + (x[5],) for x in card.targets()]
+
+    def consensus(card, eng, rep):
+        mine = at_step() and "k6s_tg0" not in cap
+        if mine:  # rep None: the reports read where they lie (one card)
+            cap.update(k6s_card=card, k6s_rep=None if rep is None else rep.clone(),
+                       k6s_run0=card.run.clone(), k6s_cons0=card.cons.clone(),
+                       k6s_tg0=targets(card))
+        card_methods["consensus"](card, eng, rep)
+        if mine:
+            torch.cuda.synchronize()
+            cap.update(k6s_run1=card.run.clone(), k6s_cons1=card.cons.clone(),
+                       k6s_tg1=targets(card))
+
+    def exchange(card, eng, shards):
+        mine = at_step() and "x_pend0" not in cap
+        if mine:
+            cap.update(x_cons=card.cons.clone(), x_wires=[sh.wire.clone() for sh in shards],
+                       x_pend0=[sh.pend.clone() for sh in card.shards],
+                       x_flags=[sh.go.clone() for sh in card.shards],
+                       x_me=[sh.me for sh in card.shards], x_R=shards[0].R, x_pw=shards[0].pw)
+        card_methods["exchange"](card, eng, shards)
+        if mine:
+            torch.cuda.synchronize()
+            cap.update(x_pend1=[sh.pend.clone() for sh in card.shards])
+
     insert = S.insert_pending_cuda
 
-    def insert_pending(st, tab, bufs, ctr, fill, pend_at, n_front, **kw):
+    def insert_pending(st, tab, bufs, ctr, fill, pend_at, recv, **kw):
         mine = "shard" in cap and on(cap["shard"]) and tab is cap["shard"].tab
         if mine:
-            n = int(bufs.state[6])
+            n, n_front = int(bufs.state[6]), int(recv[0])
+            at = pend_at - n_front
             cap.update(k10_tab0=clone_table(tab), k10_ctr0=ctr.clone(),
-                       k10_state0=bufs.state.clone(), k10_rows=bufs.pend[pend_at:pend_at + n].clone(),
-                       k10_pend_at=pend_at, n_front=n_front, fill=fill)
-        insert(st, tab, bufs, ctr, fill, pend_at, n_front, **kw)
+                       k10_state0=bufs.state.clone(), k10_rows=bufs.pend[at:at + n].clone(),
+                       k10_pend_at=pend_at, k10_recv=recv.clone(), n_front=n_front, fill=fill)
+        insert(st, tab, bufs, ctr, fill, pend_at, recv, **kw)
         if mine:
             torch.cuda.synchronize()
             cap.update(k10_tab1=clone_table(tab), k10_ctr1=ctr.clone(),
@@ -2376,6 +2423,7 @@ def sharded_guard(capture_step: int = 0):
     for name, fn in (("select", select), ("coords", coords), ("partial", partial),
                      ("expand", expand), ("count", count), ("pack", pack)):
         setattr(SH._Shard, name, fn)
+    SH._Card.consensus, SH._Card.exchange = consensus, exchange
     S.insert_pending_cuda = insert_pending
     try:
         yield calls, cap
@@ -2384,6 +2432,8 @@ def sharded_guard(capture_step: int = 0):
             setattr(SH, name, fn)
         for name, fn in methods.items():
             setattr(SH._Shard, name, fn)
+        for name, fn in card_methods.items():
+            setattr(SH._Card, name, fn)
         S.insert_pending_cuda = insert
 
 
@@ -2400,7 +2450,8 @@ def shard_bytes(sh) -> int:
 
     for t in (*(getattr(sh.tab, f) for f in sh.tab.__dataclass_fields__), sh.ctr, *sh.rings,
               sh.cubes, sh.tri, getattr(sh, "cand", None), getattr(sh, "keys", None),
-              getattr(sh, "wire", None), getattr(sh, "route_out", None)):
+              getattr(sh, "wire", None), getattr(sh, "route_out", None), sh.rep, sh.recv, sh.go,
+              getattr(sh, "coords_out", None), getattr(sh, "part", None)):
         add(t)
     for f in ("slots", "vmin", "active", "state", "sel", "partial", "ticket", "run", "pend",
               "lane_cur", "lane_dest", "lane_word", "tail", "params"):
@@ -2409,15 +2460,19 @@ def shard_bytes(sh) -> int:
 
 
 def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool,
-                capture_step: int = 0, profile: bool = False, **kw) -> dict:
-    """One ShardedFrontierSearch run (the engine entry) on ``devices``: the
-    golden g, path cost g (attach_path_g), degapped rows; every sharded
-    step kernel of its layout launched (SHARDED_KERNELS: K3, the
-    coordinates and K12 where the cubes are split, the sharded expand,
-    K11's passes, the insert, K7's hop mode) and no plain version; the
-    layout, the capacity it started at and reached and any overflow retry;
-    the step's wall, host reads, wire and migrated rows, peak carry, walk
-    rounds and wall, peak memory per shard and in total."""
+                capture_step: int = 0, profile: bool = False, eng=None, **kw) -> dict:
+    """One ShardedFrontierSearch run (the engine entry) on ``devices`` (or
+    of ``eng``, an engine made before): the golden g, path cost g
+    (attach_path_g), degapped rows; every sharded step kernel of its layout
+    launched (SHARDED_KERNELS: K3, the coordinates and K12 where the cubes
+    are split, the sharded expand, K11's passes, the insert, K7's hop
+    mode; LOOP_KERNELS: the consensus, the exchange and, under the chunked
+    driver, walk_advance) and no plain version; under the chunked driver
+    one graph replay and one host read a chunk; the layout, the capacity it
+    started at and reached and any overflow retry; the step's wall (with
+    and without the graph's capture), host reads, wire and migrated rows,
+    peak carry, walk rounds, reads and wall, peak memory per shard and in
+    total."""
     from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
     from mpi_pastar_msa_tpu_torch.parallel.sharded import ShardedFrontierSearch
@@ -2430,7 +2485,8 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
     _kernels.reset_counts()
     t0 = time.perf_counter()
     with sharded_guard(capture_step) as (plain, cap):
-        eng = ShardedFrontierSearch(problem, devices=devices, **kw)
+        if eng is None:
+            eng = ShardedFrontierSearch(problem, devices=devices, **kw)
         capacity0 = eng.st.C
         build_s = time.perf_counter() - t0
         if profile:
@@ -2453,15 +2509,26 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
         fail(f"{label}: plain versions ran on the card: {plain}")
     st = eng.last_stats
     wire_path = not (eng.ndev == 1 and eng.exchange == "dense")
-    want = [k for k in SHARDED_KERNELS[eng.layout]
-            if eng.cubes_split or k not in ("sig_coords", "keyrow_coords", "tri_partial")]
+    chunked = st["driver"] == "chunked"
+    want = [k for k in SHARDED_KERNELS[eng.layout] + LOOP_KERNELS
+            if (eng.cubes_split or k not in ("sig_coords", "keyrow_coords", "tri_partial"))
+            and (chunked or k != "walk_advance")]
     if wire_path:
         for k in want:
             if counts.get(k, 0) <= 0:
                 fail(f"{label}: kernel {k} was not launched on the sharded path")
-        if counts["path_walk_hops"] != st["walk_rounds"] * eng.ndev:
+        # the chunked walk: a warm-up round, then WALK_ROUNDS rounds a replay
+        from mpi_pastar_msa_tpu_torch.parallel.sharded import WALK_ROUNDS
+
+        walk_launches = ((st["walk_reads"] * WALK_ROUNDS + 1) * eng.ndev if chunked
+                         else st["walk_rounds"] * eng.ndev)
+        if counts["path_walk_hops"] != walk_launches:
             fail(f"{label}: K7 hop mode launched {counts['path_walk_hops']} times for "
-                 f"{st['walk_rounds']} rounds on {eng.ndev} shards")
+                 f"{st['walk_rounds']} rounds ({st['walk_reads']} reads) on {eng.ndev} shards")
+        if chunked and not (st["graph_replays"] == st["host_reads"]
+                            == -(-st["steps"] // eng.chunk_steps)):
+            fail(f"{label}: {st['graph_replays']} graph replays and {st['host_reads']} host "
+                 f"reads for {st['steps']} steps in chunks of {eng.chunk_steps}")
     if any(d.type != "cuda" for d in eng.local_devices):
         fail(f"{label}: a shard is not on a card: {eng.local_devices}")
     shards = cap["shards"]
@@ -2474,7 +2541,14 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
                 batch=eng.st.B,
                 steps=res.steps, expanded=res.nodes_expanded, reopened=res.nodes_reopened,
                 migrated=res.nodes_migrated, shard_stats=res.shard_stats,
+                driver=st["driver"], host_reads=st["host_reads"],
                 host_reads_a_step=st["host_reads"] / steps,
+                graph_captures=st.get("graph_captures", 0),
+                graph_replays=st.get("graph_replays", 0), capture_s=st.get("capture_s", 0.0),
+                capture_parts={k: st[k] for k in ("capture_warm_s", "capture_host_s",
+                                                  "capture_instantiate_s") if k in st},
+                step_wall_no_capture_ms=(st["search_s"] - st.get("capture_s", 0.0)) / steps * 1e3,
+                walk_reads=st["walk_reads"],
                 wire_rows_a_step=st["wire_rows"] / steps,
                 migrated_a_step=st["migrated"] / steps, peak_carry=st["peak_carry"],
                 walk_rounds=st["walk_rounds"], walk_s=st["walk_s"],
@@ -2484,24 +2558,35 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
                 shard_bytes=[shard_bytes(sh) for sh in shards] if wire_path else None,
                 path_nodes=len(res.closed))
     if profile:
-        dev_us = sum(e.device_time_total for e in prof.key_averages()
-                     if own_event(e.key) and e.count)
+        events = [e for e in prof.key_averages() if e.count]
+        dev_us = sum(e.device_time_total for e in events if own_event(e.key))
         info["step_device_ms"] = dev_us / 1e3 / steps
+        # with PyTorch's own kernels of the step (the gathers' stack, the
+        # reports' cat, the reduce-scatter's sum), not its host ops
+        all_us = sum(e.device_time_total for e in events
+                     if not e.key.startswith(("aten::", "cuda", "Memcpy")))
+        info["step_device_all_ms"] = all_us / 1e3 / steps
     print(f"{label}: {eng.ndev} shard(s) on {info['devices']}, layout {eng.layout}, exchange "
           f"{eng.exchange} (cap {eng.exchange_cap}), hash {eng.hash_type}, cubes split "
           f"{eng.cubes_split}, capacity {eng.st.C} a shard (started at {capacity0}; overflow "
           f"retries {eng.retries or 'none'}), batch {eng.st.B}; g={res.g} ok, path cost == g, "
           f"alignment byte-identical to golden: {identical}; steps {res.steps}, expanded "
-          f"{res.nodes_expanded}, migrated {res.nodes_migrated}; a step: wall "
-          f"{info['step_wall_ms']:.3f} ms"
-          + (f", device {info['step_device_ms']:.3f} ms" if profile else "")
-          + f", host reads {info['host_reads_a_step']:.2f}, wire rows "
+          f"{res.nodes_expanded}, migrated {res.nodes_migrated}; driver {st['driver']} "
+          f"({info['graph_replays']} graph replays, {info['graph_captures']} captures in "
+          f"{info['capture_s']:.3f} s: {info['capture_parts']}); a step: wall "
+          f"{info['step_wall_ms']:.3f} ms "
+          f"({info['step_wall_no_capture_ms']:.3f} without the capture)"
+          + (f", device {info['step_device_ms']:.3f} ms (with PyTorch's kernels "
+             f"{info['step_device_all_ms']:.3f})" if profile else "")
+          + f", host reads {info['host_reads_a_step']:.4f}, wire rows "
           f"{info['wire_rows_a_step']:.1f}, migrated {info['migrated_a_step']:.1f}; peak carry "
-          f"{st['peak_carry']}; walk {st['walk_rounds']} rounds in {st['walk_s'] * 1e3:.2f} ms; "
+          f"{st['peak_carry']}; walk {st['walk_rounds']} rounds ({st['walk_reads']} host reads) "
+          f"in {st['walk_s'] * 1e3:.2f} ms; "
           f"peak memory {peak / 2**20:.1f} MiB"
           + (f" (shards {[round(b / 2**20, 1) for b in info['shard_bytes']]} MiB)"
              if info["shard_bytes"] else "")
-          + f"; launches { {k: counts[k] for k in SHARDED_KERNELS[eng.layout] + ['path_walk']} }")
+          + "; launches " + str({k: counts[k] for k in SHARDED_KERNELS[eng.layout]
+                                 + LOOP_KERNELS + ["path_walk"]}))
     return info, eng, cap
 
 
@@ -2574,18 +2659,19 @@ class K11Run:
         self.args = {
             self.names[0]: (cand.data_ptr(), carry.data_ptr(), self.nsel.data_ptr(), M,
                             lanes_cap, ccar, ndev, inp["seg"], *rows, self.out.data_ptr(),
-                            self.keys.data_ptr(), stream),
+                            self.keys.data_ptr(), None, stream),
             self.names[1]: (cand.data_ptr(), carry.data_ptr(), self.nsel.data_ptr(), M, ccar,
                             ndev, inp["me"], cap, None if S is None else S.data_ptr(),
                             inp["seg"], *rows, self.out.data_ptr(), self.keys.data_ptr(),
-                            self.wire.data_ptr(), self.ring.data_ptr(), stream)}
+                            self.wire.data_ptr(), self.ring.data_ptr(), None, stream)}
         self.fns = fns
         self.launch = _kernels.launch
 
     def _go(self, name):
+        args = self.args[name]
         if self.fns is None:
-            self.launch(name, *self.args[name])
-        elif self.fns[name](*self.args[name]):
+            self.launch(name, *args)
+        elif self.fns[name](*(args[:-2] + args[-1:] if self.fns.get("no_run") else args)):
             fail(f"{name} of {self.fns['src']} failed to launch")
 
     def count(self):
@@ -2676,7 +2762,8 @@ def k11_turns(inp: dict, baseline: dict, label: str, reps: int = 20) -> dict:
 def start_k11_baseline(src: str, tmp: str):
     """Start nvcc on another tree's K11 (``src``: its route_pack.cu, or a
     checkout's root or csrc/ directory; the C entries route_count and
-    route_pack of this tree's signatures) in its own directory; returns
+    route_pack of this tree's signatures less the run flag) in its own
+    directory; returns
     (src, proc, lib)."""
     import shutil
 
@@ -2707,10 +2794,11 @@ def load_k11_baseline(job) -> dict:
     if proc.returncode != 0:
         fail(f"K11 baseline: nvcc failed for route_pack.cu of {src}:\n{log}")
     dll = ctypes.CDLL(lib)
-    fns = {"src": src}
+    # an earlier tree's entries take no run flag
+    fns = {"src": src, "no_run": True}
     for name in ("route_count", "route_pack"):
         fn = getattr(dll, name)
-        fn.argtypes = _kernels.SIGNATURES[name]
+        fn.argtypes = _kernels.SIGNATURES[name][:-2] + _kernels.SIGNATURES[name][-1:]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -2845,7 +2933,7 @@ def sharded_kernel_checks(cap: dict, shards, k11_count: dict, k11_baseline=None)
         def run_coords():
             _kernels.launch("sig_coords", cap["t_sig"].data_ptr(), cap["sel"].data_ptr(),
                             nsel_t.data_ptr(), bitw.data_ptr(), st.n, st.bbits, B,
-                            co.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                            co.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
 
         report("sig_coords", err, run_coords,
                lambda: SH.sig_coords_plain(st, cap["t_sig"], cap["sel"], int(state[2]), B),
@@ -3013,7 +3101,7 @@ def keyrow_kernel_checks(cap: dict, shards) -> dict:
         def run_coords():
             _kernels.launch("keyrow_coords", cap["t_key"].data_ptr(), cap["t_key"].shape[1],
                             cap["sel"].data_ptr(), nsel_t.data_ptr(), st.n, B, co.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
+                            None, torch.cuda.current_stream().cuda_stream)
 
         report("keyrow_coords", err, run_coords,
                lambda: SH.keyrow_coords_plain(st, cap["t_key"], cap["sel"], nsel, B),
@@ -3119,8 +3207,8 @@ def keyrow_kernel_checks(cap: dict, shards) -> dict:
     bufs.state = cap["k10_state0"].clone()
     bufs.run = torch.ones(1, dtype=torch.int32, device=sh.dev)
     bufs.pend = torch.empty_like(sh.bufs.pend)
-    pend_at = cap["k10_pend_at"]
-    bufs.pend[pend_at:pend_at + rows.shape[0]].copy_(rows)
+    pend_at, recv = cap["k10_pend_at"], cap["k10_recv"]
+    bufs.pend[pend_at - n_front:pend_at - n_front + rows.shape[0]].copy_(rows)
     bufs.lane_cur, bufs.lane_dest = (torch.empty_like(sh.bufs.lane_cur) for _ in range(2))
     bufs.tail = torch.empty_like(sh.bufs.tail)
     ctr = cap["k10_ctr0"].clone()
@@ -3132,7 +3220,7 @@ def keyrow_kernel_checks(cap: dict, shards) -> dict:
         ctr.copy_(cap["k10_ctr0"])
 
     report("keyrow_insert_recv", 0,
-           lambda: S.insert_pending_cuda(st, tab_k, bufs, ctr, cap["fill"], pend_at, n_front),
+           lambda: S.insert_pending_cuda(st, tab_k, bufs, ctr, cap["fill"], pend_at, recv),
            lambda: SH.insert_pending_plain(st, tab_k, layout, rows, n_front),
            rows.shape[0] * (pw + W) * 4 + changed, restore=restore10)
     out["keyrow_insert_recv"].update(lanes=int(rows.shape[0]), received=n_front, rounds=rounds,
@@ -3201,14 +3289,218 @@ def process_mesh_run(path: str, gold: dict, ranks: int, timeout: int = 300) -> d
     return dict(ranks=ranks, wall_s=wall, rank0=line)
 
 
-def sharded_phase(paths, gold, k11_count: dict, k11_baseline=None, sweep=False) -> dict:
+def loop_words(eng) -> list:
+    """Every tensor a sharded run's step leaves that does not depend on the
+    order lanes run in, named: each shard's table, counters, step state,
+    both rings and which is current, received count, insert flag, the
+    route's out, candidate rows and wire; the card's consensus vector (the
+    telemetry)."""
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    out = []
+    for sh in eng.shards:
+        out += [(f"{sh.me}.{f}", getattr(sh.tab, f)) for f in sh.tab.__dataclass_fields__]
+        out += [(f"{sh.me}.{k}", t) for k, t in (
+            ("ctr", sh.ctr), ("state", sh.state[:S.STATE_CNT]), ("ring0", sh.rings[0]),
+            ("ring1", sh.rings[1]), ("cur", torch.tensor(sh.cur)), ("recv", sh.recv),
+            ("go", sh.go), ("route_out", sh.route_out), ("cand", sh.cand), ("wire", sh.wire))]
+    return out + [("cons", eng.cards[0].cons)]
+
+
+def driver_turns(label: str, path: str, steps: int = 256, **kw):
+    """One engine on [cuda:0] * 4 (``kw``: its layout and the rest), run
+    ``steps`` steps (one chunk) under the chunked driver, one CUDA graph,
+    then the same steps under the host driver: every table tensor, ring,
+    counter and telemetry word of the two equal (loop_words), and each
+    driver's wall a step (the chunked one with and without its capture).
+    Returns (report, the engine, ready for a full run: max_steps and
+    chunk_steps the defaults, the host driver)."""
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.parallel.sharded import ShardedFrontierSearch
+
+    card = torch.device("cuda", 0)
+    eng = ShardedFrontierSearch(problem_from_fasta(path), devices=[card] * 4, max_steps=steps,
+                                chunk_steps=steps, **kw)
+    words, stats = {}, {}
+    for driver in ("chunked", "host"):
+        eng.driver = driver
+        try:
+            eng.run()
+        except RuntimeError as e:
+            if "max_steps exceeded" not in str(e):
+                raise
+        torch.cuda.synchronize()
+        words[driver] = [(k, t.clone()) for k, t in loop_words(eng)]
+        stats[driver] = dict(eng.last_stats)
+    diff = [k for (k, a), (_, b) in zip(words["chunked"], words["host"]) if not torch.equal(a, b)]
+    keys = ("steps", "wire_rows", "migrated", "peak_carry")
+    if diff or any(stats["chunked"][k] != stats["host"][k] for k in keys):
+        fail(f"{label}: {steps} steps of the chunked driver differ from the host driver's: "
+             f"{diff[:8]}; {[(k, stats['chunked'][k], stats['host'][k]) for k in keys]}")
+    c, h = stats["chunked"], stats["host"]
+    n = max(c["steps"], 1)
+    out = dict(layout=eng.layout, steps=c["steps"], words=len(words["host"]),
+               word_bytes=sum(t.numel() * t.element_size() for _, t in words["host"]),
+               chunked_step_ms=c["search_s"] / n * 1e3,
+               chunked_step_no_capture_ms=(c["search_s"] - c["capture_s"]) / n * 1e3,
+               capture_s=c["capture_s"], chunked_reads=c["host_reads"],
+               capture_parts={k: c[k] for k in ("capture_warm_s", "capture_host_s",
+                                                 "capture_instantiate_s")},
+               host_step_ms=h["search_s"] / n * 1e3, host_reads=h["host_reads"])
+    print(f"{label} ({eng.layout}), {c['steps']} steps in turns: chunked (one graph) and host "
+          f"drivers equal on {len(words['host'])} tensors ({out['word_bytes'] / 2**20:.1f} MiB: "
+          f"tables, rings, counters, telemetry); a step {out['chunked_step_ms']:.3f} ms "
+          f"({out['chunked_step_no_capture_ms']:.3f} without the capture of "
+          f"{c['capture_s']:.3f} s: {out['capture_parts']}), {c['host_reads']} host read(s), "
+          f"against "
+          f"{out['host_step_ms']:.3f} ms and {h['host_reads']} reads")
+    eng.shards = eng.cards = None  # free the tables before the full run
+    eng.max_steps, eng.chunk_steps, eng.driver = 500_000, 256, "host"
+    return out, eng
+
+
+def loop_kernel_checks(cap: dict, floor: dict) -> dict:
+    """The loop's kernels of the captured step (sharded_guard, host driver)
+    against their plain versions on the card, bit for bit: the consensus
+    (its vector, every shard's counters, state, received count and flag,
+    the run flag) and the exchange (every receiver's pending list); each
+    timed from its inputs restored (wrapper, device, plain) beside its
+    bound by bytes and the launch floor."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    out = {}
+    report = functools.partial(timed_check, out)
+    card, eng = cap["k6s_card"], cap["eng"]
+    ndev, ragged = eng.ndev, eng.exchange == "ragged"
+    args = (ndev, eng.exchange_cap, ragged, eng.layout, eng.st.nb, eng.st.f0,
+            card.shards[0].ccar)
+    rep = cap["k6s_rep"]
+    tg = [tuple(t.clone() for t in x[:5]) + (x[5],) for x in cap["k6s_tg0"]]
+    run, cons = cap["k6s_run0"].clone(), cap["k6s_cons0"].clone()
+
+    def restore_c():
+        for x, x0 in zip(tg, cap["k6s_tg0"]):
+            for t, t0 in zip(x[:5], x0[:5]):
+                t.copy_(t0)
+        run.copy_(cap["k6s_run0"])
+        cons.copy_(cap["k6s_cons0"])
+
+    SH.consensus_plain(rep, *args, run, tg, cons)
+    got = [cons, run] + [t for x in tg for t in x[:5]]
+    want = [cap["k6s_cons1"], cap["k6s_run1"]] + [t for x in cap["k6s_tg1"] for t in x[:5]]
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    if err:
+        fail(f"consensus differs from its plain version by {err}")
+    dev = cons.device
+    tgt = SH.target_table(tg, dev)
+    words = SH.cons_words(ndev)
+    # the reports (each shard's words where they lie) and the telemetry
+    # read, the vector written, each target's counters (goal), state (3
+    # words and the pending count) and two flags, the address table
+    nbytes = (ndev * (SH.R_ROUTE + ndev + 3) * 8 + (SH.C_HEAD + 4 * ndev) * 8 + words * 8
+              + 8 + len(tg) * (8 + 4 * 8 + 4 + 4) + tgt.numel() * 8)
+    report("consensus", err, lambda: SH.consensus_cuda(rep, *args, run, tgt, cons),
+           lambda: SH.consensus_plain(rep, *args, run, tg, cons), nbytes, restore=restore_c)
+    A = SH.cons_sizes(cap["x_cons"], ndev).cpu().numpy()
+    out["consensus"].update(launch_floor_ms=floor["device_ms"], targets=len(tg),
+                            sizes=A.tolist(), stopped=int(cap["k6s_run1"][0]) == 0)
+    # the exchange: the rows received by every shard of the card
+    R, pw, me = cap["x_R"], cap["x_pw"], cap["x_me"]
+    pends = [p.clone() for p in cap["x_pend0"]]
+    SH.exchange_plain(cap["x_cons"], ndev, eng.exchange_cap, ragged, R, cap["x_wires"], pends,
+                      cap["x_flags"], me)
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(pends, cap["x_pend1"]))
+    if err:
+        fail(f"exchange differs from its plain version by {err}")
+    wires, flags = SH._ptrs(cap["x_wires"], dev), SH._ptrs(cap["x_flags"], dev)
+    ptab, mtab = SH._ptrs(pends, dev), torch.tensor(me, dtype=torch.int64, device=dev)
+
+    def restore_x():
+        for p, p0 in zip(pends, cap["x_pend0"]):
+            p.copy_(p0)
+
+    rows = int(sum(A[:, r].sum() for r in me))
+    nbytes = rows * pw * 4 * 2 + ndev * ndev * 8 + (ndev + 3 * len(me)) * 8
+    report("exchange", err,
+           lambda: SH.exchange_cuda(cap["x_cons"], ndev, eng.exchange_cap, ragged, R, pw, wires,
+                                    ptab, flags, mtab),
+           lambda: SH.exchange_plain(cap["x_cons"], ndev, eng.exchange_cap, ragged, R,
+                                     cap["x_wires"], pends, cap["x_flags"], me),
+           nbytes, restore=restore_x)
+    out["exchange"].update(launch_floor_ms=floor["device_ms"], rows=rows, row_words=pw)
+    print(f"  consensus: {len(tg)} targets, A {A.tolist()}; exchange: {rows} rows of {pw} words")
+    return out
+
+
+def walk_loop_check(eng, floor: dict) -> dict:
+    """On the finished tables of a chunked run: the walk's device loop
+    (WALK_ROUNDS rounds a graph replay) against the host walk, the same
+    masks and rounds; walk_advance on the first round's runs against its
+    plain version, timed from its inputs restored (wrapper, device, plain)
+    beside its bound by bytes and the launch floor."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    shards, st = eng.shards, eng.st
+    t0 = time.perf_counter()
+    masks, rounds, reads = eng._walk_loop(eng.cards[0], shards)
+    loop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h_masks, h_rounds = eng._walk(shards)
+    host_s = time.perf_counter() - t0
+    if masks != h_masks or rounds != h_rounds:
+        fail(f"the walk loop's {len(masks)} masks in {rounds} rounds differ from the host "
+             f"walk's {len(h_masks)} in {h_rounds}")
+    n, hops, dev = st.n, SH.WALK_HOPS, shards[0].dev
+    final = [int(v) for v in eng.problem.final_coord]
+    i32 = dict(dtype=torch.int32, device=dev)
+    params0 = torch.tensor(final + list(st.bitw), dtype=torch.int32).to(dev)
+    wout = torch.zeros((eng.ndev, hops + n + 1), **i32)
+    for sh in shards:
+        sh.walk_hops(params0, hops, out=wout[sh.me])
+    state0 = [params0, torch.zeros(sum(final) + hops, **i32), torch.zeros(2, **i32),
+              torch.ones(1, **i32)]
+    kern = [t.clone() for t in state0]
+    plain = [t.clone() for t in state0]
+    SH.walk_advance_cuda(wout, hops, n, *kern)
+    SH.walk_advance_plain(wout, hops, n, *plain)
+    torch.cuda.synchronize()
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(kern, plain))
+    if err:
+        fail(f"walk_advance differs from its plain version by {err}")
+
+    def restore():
+        for t, t0_ in zip(kern, state0):
+            t.copy_(t0_)
+
+    emitted = int(kern[2][0])
+    out = {}
+    # the runs read, the coordinate read and written, the masks emitted,
+    # the counts and the flag
+    timed_check(out, "walk_advance", err, lambda: SH.walk_advance_cuda(wout, hops, n, *kern),
+                lambda: SH.walk_advance_plain(wout, hops, n, *kern),
+                eng.ndev * hops * 4 + 2 * n * 4 + emitted * 4 + 2 * 8 + 2 * 4, restore=restore)
+    out["walk_advance"].update(launch_floor_ms=floor["device_ms"], emitted=emitted)
+    out.update(masks=len(masks), rounds=rounds, loop_reads=reads, loop_s=loop_s, host_s=host_s)
+    print(f"  the walk loop: {len(masks)} masks in {rounds} rounds, {reads} host reads, "
+          f"{loop_s * 1e3:.2f} ms; the host walk the same masks in {host_s * 1e3:.2f} ms, "
+          f"{h_rounds} reads")
+    return out
+
+
+def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
+                  sweep=False) -> dict:
     """The sharded engine on one card (parallel/sharded.py, a LocalMesh of
     [cuda:0] * 4): kinase --triples auto, whose automatic layout is packed
     at JAX's 2^21 slots a shard (sharded cubes), with the ragged exchange
-    (auto) and the dense one (traced: device time a step); kinase pinned
-    to unpacked, and pinned to sig at 2^23 slots a shard; on step 200 of
-    each of the three, each kernel of its step against its plain version
-    (keyrow_kernel_checks, sharded_kernel_checks: ``k11_count`` the
+    (auto) under the chunked driver (the main path: a chunk one CUDA graph;
+    the walk's device loop against the host walk, walk_advance against its
+    plain version) and the dense one (traced: device time a step); kinase
+    packed, pinned to unpacked, and pinned to sig at 2^23 slots a shard,
+    each 256 steps under the chunked and the host driver in turns (every
+    table word equal, driver_turns), then the host driver's full run; on
+    step 200 of each of the three, each kernel of its step against its
+    plain version (loop_kernel_checks: the consensus and the exchange;
+    keyrow_kernel_checks, sharded_kernel_checks: ``k11_count`` the
     K11_BARRIERS build, ``k11_baseline`` another tree's K11 too, timed in
     turns with K11 on sig rows); the sharded step's bounds at the sig
     run's B and cap; one shard against FrontierSearch's golden result,
@@ -3228,18 +3520,33 @@ def sharded_phase(paths, gold, k11_count: dict, k11_baseline=None, sweep=False) 
     card = torch.device("cuda", 0)
     out = {}
     k = gold["kinase.fasta"]
-    # the main path: kinase's automatic layout, packed at JAX's capacity
-    out["kinase_ragged"], eng, cap = sharded_run("kinase sharded 4, ragged", paths["kinase.fasta"],
-                                                 k, [card] * 4, True, capture_step=200)
+    # the main path: kinase's automatic layout, packed at JAX's capacity,
+    # ragged, the chunked driver (auto on one card): a chunk of 256 steps
+    # one CUDA graph and one host read, the walk 32 rounds a replay
+    out["kinase_ragged"], eng, _ = sharded_run("kinase sharded 4, ragged", paths["kinase.fasta"],
+                                               k, [card] * 4, True)
     r = out["kinase_ragged"]
     if (eng.layout != "packed" or r["capacity_start"] != 1 << 21 or eng.exchange != "ragged"
-            or not eng.cubes_split or r["migrated"] <= 0):
+            or not eng.cubes_split or r["migrated"] <= 0 or r["driver"] != "chunked"
+            or r["host_reads_a_step"] > 0.01 or r["graph_replays"] < 1):
         fail(f"kinase sharded: layout {eng.layout}, capacity {r['capacity_start']} (want packed "
              f"at 2^21), exchange {eng.exchange}, cubes split {eng.cubes_split}, migrated "
-             f"{r['migrated']}")
-    if "cand" not in cap or "k10_rows" not in cap:
+             f"{r['migrated']}, driver {r['driver']}, {r['host_reads_a_step']} host reads a "
+             f"step, {r['graph_replays']} graph replays")
+    out["walk_loop"] = walk_loop_check(eng, floor)
+    del eng
+    # each layout in turns (chunked, then host, 256 steps), then the host
+    # driver's full run on the same engine, whose step 200 is captured for
+    # the kernel checks
+    out["turns_packed"], eng = driver_turns("kinase sharded 4, ragged", paths["kinase.fasta"])
+    out["kinase_host"], eng, cap = sharded_run("kinase sharded 4, ragged, host driver",
+                                               paths["kinase.fasta"], k, [card] * 4, True,
+                                               capture_step=200, eng=eng)
+    if "cand" not in cap or "k10_rows" not in cap or "x_pend1" not in cap:
         fail("kinase sharded: the search ended before the captured step")
     out["checks_packed"] = keyrow_kernel_checks(cap, cap["shards"])
+    out["checks_loop"] = loop_kernel_checks(cap, floor)
+    r = out["kinase_host"]
     if out["checks_packed"]["walk"]["rounds"] != r["walk_rounds"]:
         fail(f"kinase sharded: the walk took {r['walk_rounds']} rounds, its byte count "
              f"{out['checks_packed']['walk']['rounds']}")
@@ -3251,17 +3558,21 @@ def sharded_phase(paths, gold, k11_count: dict, k11_baseline=None, sweep=False) 
     # an optimal path, not always the golden one: on unpacked rows a node
     # keeps the first parent of its least g (decrease-key on a smaller g,
     # as JAX's), and the shards' order of arrival is not the single table's
+    out["turns_unpacked"], eng = driver_turns("kinase sharded 4, pinned unpacked",
+                                              paths["kinase.fasta"], layout="unpacked")
     out["kinase_unpacked"], eng, cap = sharded_run(
         "kinase sharded 4, pinned unpacked", paths["kinase.fasta"], k, [card] * 4, False,
-        capture_step=200, layout="unpacked")
+        capture_step=200, eng=eng)
     if eng.cubes_split or "k10_rows" not in cap:
         fail(f"kinase sharded unpacked: cubes split {eng.cubes_split}, or no captured step")
     out["checks_unpacked"] = keyrow_kernel_checks(cap, cap["shards"])
     del eng, cap
     # the sig layout (PR 15's path), pinned at the capacity its word takes
+    out["turns_sig"], eng = driver_turns("kinase sharded 4, pinned sig", paths["kinase.fasta"],
+                                         layout="sig", capacity=1 << 23)
     out["kinase_sig"], eng, cap = sharded_run(
         "kinase sharded 4, pinned sig", paths["kinase.fasta"], k, [card] * 4, True,
-        capture_step=200, layout="sig", capacity=1 << 23)
+        capture_step=200, eng=eng)
     if "cand" not in cap:
         fail("kinase sharded sig: the search ended before the captured step")
     out["checks"] = sharded_kernel_checks(cap, cap["shards"], k11_count, k11_baseline)
@@ -3353,7 +3664,7 @@ def baseline_step(st, tab, ctr, ub, fill, probe):
                                     stream))
     _kernels.launch(*S._expand_args(st, tab, bufs, c, ub, stream))
     args = S._probe_args(st, tab, bufs, c, fill, 0, 0, stream)[1:]
-    if probe(*(args[:10] + args[11:])):  # that entry takes no cap
+    if probe(*(args[:10] + args[11:-2] + args[-1:])):  # that entry takes no cap nor recv
         fail("K5 sweep: the baseline's K5 failed to launch")
     return c.clone()
 
@@ -3961,7 +4272,8 @@ def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
     # unpacked run's beside them
     sl, sig_l, unp_l = (sh[r]["launches"] for r in ("kinase_ragged", "kinase_sig",
                                                      "kinase_unpacked"))
-    main_run, sig_run = "kinase sharded 4, ragged (packed)", "kinase sharded 4, pinned sig"
+    main_run = "kinase sharded 4, ragged (packed, chunked driver)"
+    sig_run = "kinase sharded 4, pinned sig (host driver)"
     cp, cu = sh["checks_packed"], sh["checks_unpacked"]
 
     def entry_of(name, t, src, replaces, launches, run):
@@ -4062,6 +4374,23 @@ def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
         entry[lay] = sub(w, run["path_walk_hops"], lookups=w["lookups"],
                          latency_floor_ms=w["lookups"] * chase["l2_ns"] / 1e6)
     kernels.append(entry)
+    # the sharded loop's kernels (K6s): the consensus and the exchange at
+    # step 200 of the host driver's packed run (the graph's own launches
+    # are the main path's), walk_advance on the main path's finished tables
+    loop = sh["checks_loop"]
+    for name, t, replaces, also in (
+            ("consensus", loop["consensus"], "mpi_pastar_msa_tpu/parallel/sharded.py:312",
+             [f"mpi_pastar_msa_tpu/parallel/sharded.py:{n}" for n in (214, 87, 456, 709, 871)]),
+            ("exchange", loop["exchange"], "mpi_pastar_msa_tpu/parallel/sharded.py:231",
+             ["mpi_pastar_msa_tpu/parallel/sharded.py:148"]),
+            ("walk_advance", sh["walk_loop"]["walk_advance"],
+             "mpi_pastar_msa_tpu/parallel/sharded.py:545", [])):
+        entry = entry_of(name, t, "shard_loop", replaces, sl[name], main_run)
+        entry.update({k: v for k, v in t.items() if k not in entry and k != "bytes"},
+                     also_replaces=also,
+                     times_run="kinase sharded 4, ragged, host driver, step 200"
+                     if name != "walk_advance" else main_run)
+        kernels.append(entry)
     return kernels
 
 
@@ -4201,7 +4530,8 @@ def main() -> int:
             step_baseline = (args.step_baseline, build_step_baseline(src, tmp))
         report["launch_floor"] = floor = launch_floor()
         if args.sharded_only:
-            report["sharded"] = sharded_phase(paths, gold, k11_count, k11_baseline, args.k11_sweep)
+            report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
+                                              args.k11_sweep)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["capture"] = capture_check(paths)
@@ -4288,7 +4618,8 @@ def main() -> int:
                                          data_gold("globin6", LAYOUT_INPUTS["globin6"]),
                                          "packed", tmp)}
         # 7. the sharded engine (parallel/sharded.py) on [cuda:0] * 4
-        report["sharded"] = sharded_phase(paths, gold, k11_count, k11_baseline, args.k11_sweep)
+        report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
+                                              args.k11_sweep)
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
             # and the plain step on the same windows, the step before K3-K5

@@ -58,9 +58,9 @@ SIGNATURES: Dict[str, List] = {
                    _I, _I, _I, _P, _P, _P, _P, _P],
     # t_sig, t_best, pending list, lane_cur, lane_dest, lane_word, bbits,
     # max bucket probes, max calls, fill target, block-path cap, run,
-    # counters, state, blocks, stream
+    # counters, state, blocks, received count (or null), stream
     "sig_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                  _P],
+                  _P, _P],
     # t_key, its row stride, t_g, t_fpar, t_best, C, unpacked, compact
     # list, tables4, cubes, params, N, P, T, S, n, f0, ub, E, GG, O - E, B,
     # blocks, threads, run, counters, state, pending list, stream
@@ -81,18 +81,20 @@ SIGNATURES: Dict[str, List] = {
     "sig_expand_sharded": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I,
                            _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # K11's passes: cand, carry, nsel, M, lanes cap, ring rows, ndev,
-    # segment, out, keys, stream; then cand, carry, nsel, M, ring rows,
-    # ndev, me, cap, S (or null), segment, out, keys, wire, new ring, stream
-    "route_count": [_P, _P, _P, _I, _I, _I, _I, _L, _P, _P, _P],
-    "route_pack": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P],
+    # segment, out, keys, run (or null), stream; then cand, carry, nsel, M,
+    # ring rows, ndev, me, cap, S (or null), segment, out, keys, wire, new
+    # ring, run (or null), stream
+    "route_count": [_P, _P, _P, _I, _I, _I, _I, _L, _P, _P, _P, _P],
+    "route_pack": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P],
     # K12 and the coordinates it gathers: coords, cubes, triangles, N, S,
-    # local cubes, rows, out, stream; t_sig, compact list, nsel, bit
-    # widths, N, bbits, B, coords, stream
-    "tri_partial": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "sig_coords": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # local cubes, rows, out, run (or null), stream; t_sig, compact list,
+    # nsel, bit widths, N, bbits, B, coords, run (or null), stream
+    "tri_partial": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "sig_coords": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # K7's hop-limited mode: path_walk's arguments, params the start
-    # coordinate (and the key bit widths), hops in place of tmax
-    "path_walk_hops": [_I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
+    # coordinate (and the key bit widths), hops in place of tmax, then the
+    # walk loop's run flag (or null) before the stream
+    "path_walk_hops": [_I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     # the sharded step on key rows: K9's sharded instantiation,
     # keyrow_expand's arguments then h3, cand, a candidate row's words, the
     # owner hash (kind, size, shift, Z-order bits), ndev, me, the
@@ -100,18 +102,27 @@ SIGNATURES: Dict[str, List] = {
     "keyrow_expand_sharded": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _L, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _I, _I, _P],
-    # K10 over a pending list whose first n_front rows were received:
-    # keyrow_insert's arguments, then n_front, stream
+    # K10 over a pending list that received rows precede: keyrow_insert's
+    # arguments, then their int32 count on the card, stream
     "keyrow_insert_recv": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                           _P, _P, _P, _I, _P, _I, _I, _P],
+                           _P, _P, _P, _I, _P, _I, _P, _P],
     # K11 on rows of any width: route_count's and route_pack's arguments
     # with the row's words, its key words and the empty fsort before out
-    "route_count_rows": [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P],
+    "route_count_rows": [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P],
     "route_pack_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _I, _I, _I, _P, _P, _P, _P,
-                        _P],
+                        _P, _P],
     # the coordinates K12 gathers on the packed layout: t_key, its row
-    # stride, compact list, nsel, N, B, coords, stream
-    "keyrow_coords": [_P, _I, _P, _P, _I, _I, _P, _P],
+    # stride, compact list, nsel, N, B, coords, run (or null), stream
+    "keyrow_coords": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
+    # the sharded loop on the card (csrc/shard_loop.cu, K6s): the gathered
+    # reports, ndev, cap, ragged, unpacked, n, f0, ring rows, run, targets,
+    # their count, cons, stream; cons, ndev, cap, ragged, R, a row's words,
+    # wires, pending lists, insert flags, receivers, their indices, stream;
+    # the shards' runs, ndev, hops, N, params, masks, their room, walk
+    # state, walk flag, stream
+    "consensus": [_P, _I, _I, _I, _I, _I, _L, _L, _P, _P, _I, _P, _P],
+    "exchange": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    "walk_advance": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
 }
 #: kernel name -> its source file's stem, where that is not its own name
 SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
@@ -120,7 +131,8 @@ SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
                            "keyrow_expand_sharded": "keyrow_expand",
                            "keyrow_insert_recv": "keyrow_insert",
                            "route_count_rows": "route_pack", "route_pack_rows": "route_pack",
-                           "keyrow_coords": "tri_partial"}
+                           "keyrow_coords": "tri_partial", "consensus": "shard_loop",
+                           "exchange": "shard_loop", "walk_advance": "shard_loop"}
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -255,8 +255,9 @@ def execute(args, problem: Optional[Problem] = None) -> Report:
             st = eng.last_stats
             print(f"sharded: layout {eng.layout}, exchange {eng.exchange} (cap "
                   f"{eng.exchange_cap}), shard cubes {eng.shard_cubes}, capacity "
-                  f"{eng.st.C} a shard, batch {eng.st.B} a shard; {st['steps']} steps, "
-                  f"{st['host_reads'] / max(st['steps'], 1):.2f} host reads a step, "
+                  f"{eng.st.C} a shard, batch {eng.st.B} a shard; {st['steps']} steps, driver "
+                  f"{st['driver']}, {st['host_reads'] / max(st['steps'], 1):.2f} host reads a "
+                  f"step, "
                   f"{st['wire_rows']} wire rows, peak carry {st['peak_carry']}, walk "
                   f"{st['walk_rounds']} rounds")
             stats = res.shard_stats

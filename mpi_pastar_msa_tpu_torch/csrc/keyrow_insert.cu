@@ -303,12 +303,18 @@ __global__ void __launch_bounds__(kThreads, 1) keyrow_insert_kernel(
     Table t, const int32_t* __restrict__ pend, int PW, int32_t* __restrict__ lane_slot,
     int32_t* __restrict__ lane_flag, int max_probes, int fill, int32_t* __restrict__ run,
     long long* __restrict__ counters, long long* __restrict__ state,
-    int32_t* __restrict__ tail, int cap) {
+    int32_t* __restrict__ tail, int cap, const int32_t* __restrict__ recv) {
   __shared__ long long red[32];
   // one thread rewrites the flag at the end; with lanes, every block has
   // read it by the first grid sync, and without, a block that reads the
   // new flag has nothing to do
   if (*run == 0) return;
+  // the sharded step: the rows received end where pend starts, and claim
+  // with their places
+  if (recv != nullptr) {
+    t.n_front = *recv;
+    pend -= t.n_front * PW;
+  }
   const long long lanes = state[step::kNValid];  // K9's survivors: the counters' lanes
   const long long n = state[step::kNPend];       // the pending list's length
   const int tid = threadIdx.x, lane = tid & 31;
@@ -450,7 +456,7 @@ cudaLaunchConfig_t cooperative(int blocks, void* stream, cudaLaunchAttribute* at
 template <bool kUnpacked>
 int launch(const Table& t, const void* pend, int PW, void* lane_slot, void* lane_flag,
            int max_probes, int fill, void* run, void* counters, void* state, int blocks,
-           void* tail, int cap, void* stream) {
+           void* tail, int cap, const void* recv, void* stream) {
   static int sms = 0, per_sm = 0;  // one card a process
   if (sms == 0) {
     const int e = grid_limits(keyrow_insert_kernel<kUnpacked>, sms, per_sm);
@@ -463,7 +469,7 @@ int launch(const Table& t, const void* pend, int PW, void* lane_slot, void* lane
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, keyrow_insert_kernel<kUnpacked>, t, (const int32_t*)pend, PW, (int32_t*)lane_slot,
       (int32_t*)lane_flag, max_probes, fill, (int32_t*)run, (long long*)counters,
-      (long long*)state, (int32_t*)tail, cap);
+      (long long*)state, (int32_t*)tail, cap, (const int32_t*)recv);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -482,27 +488,28 @@ int launch(const Table& t, const void* pend, int PW, void* lane_slot, void* lane
 // larger than can be co-resident is refused.  tail: (>= cap,) int32, the
 // tail list; cap: 0 .. kCap, the most lanes left after round 0 that the
 // block path takes (0: every round on the grid).  keyrow_insert_recv:
-// n_front, the rows received at the front of pend, claim with their
-// places; keyrow_insert is keyrow_insert_recv with none.
+// recv, the int32 count of rows received (read on the card), which lie
+// just before pend: the list starts that many rows earlier, and they
+// claim with their places; keyrow_insert is keyrow_insert_recv with none.
 extern "C" int keyrow_insert_recv(void* t_key, int KWs, int N, int C, void* claim,
                                   void* t_best, void* t_g, void* t_fpar, void* t_state,
                                   int unpacked, const void* pend, void* lane_slot,
                                   void* lane_flag, int max_probes, int fill, void* run,
                                   void* counters, void* state, int blocks, void* tail, int cap,
-                                  int n_front, void* stream) {
+                                  const void* recv, void* stream) {
   const int W = (N + 1) / 2;
   if (N < 2 || N > 16 || C < 2 || (C & (C - 1)) != 0 || KWs != W + (unpacked ? 0 : 1) ||
       max_probes < 1 || max_probes > step::kMaxCalls || fill < 1 || blocks < 0 || cap < 0 ||
-      cap > kCap || (cap > 0 && tail == nullptr) || n_front < 0 ||
+      cap > kCap || (cap > 0 && tail == nullptr) ||
       (unpacked ? (t_g == nullptr || t_fpar == nullptr || t_state == nullptr)
                 : t_best == nullptr))
     return (int)cudaErrorInvalidValue;
   const Table t{(int32_t*)t_key, KWs, W, (uint32_t)(C - 1), (int32_t*)claim, (int32_t*)t_best,
-                (int32_t*)t_g, (long long*)t_fpar, (int32_t*)t_state, n_front};
+                (int32_t*)t_g, (long long*)t_fpar, (int32_t*)t_state, 0};
   return unpacked ? launch<true>(t, pend, W + 5, lane_slot, lane_flag, max_probes, fill, run,
-                                 counters, state, blocks, tail, cap, stream)
+                                 counters, state, blocks, tail, cap, recv, stream)
                   : launch<false>(t, pend, W + 4, lane_slot, lane_flag, max_probes, fill, run,
-                                  counters, state, blocks, tail, cap, stream);
+                                  counters, state, blocks, tail, cap, recv, stream);
 }
 
 extern "C" int keyrow_insert(void* t_key, int KWs, int N, int C, void* claim, void* t_best,
@@ -512,7 +519,7 @@ extern "C" int keyrow_insert(void* t_key, int KWs, int N, int C, void* claim, vo
                              void* tail, int cap, void* stream) {
   return keyrow_insert_recv(t_key, KWs, N, C, claim, t_best, t_g, t_fpar, t_state, unpacked,
                             pend, lane_slot, lane_flag, max_probes, fill, run, counters, state,
-                            blocks, tail, cap, 0, stream);
+                            blocks, tail, cap, nullptr, stream);
 }
 
 // `syncs` grid syncs in an otherwise empty cooperative kernel of `blocks`

@@ -245,7 +245,8 @@ __device__ __forceinline__ bool lookup(const Table& t, const int32_t* coord, con
 template <int kLayout>
 __global__ void __launch_bounds__(kThreads, 1)
     path_walk_kernel(Table t, const int32_t* __restrict__ params, int tmax,
-                     int32_t* __restrict__ out) {
+                     int32_t* __restrict__ out, const int32_t* __restrict__ run) {
+  if (run != nullptr && *run == 0) return;
   const int lane = threadIdx.x;
   const int N = t.N, parmask = (1 << N) - 1;
   int32_t coord[kMaxN];
@@ -294,9 +295,9 @@ __global__ void pointer_chase_kernel(const int32_t* __restrict__ next, int hops,
 // 3 (sig); probes: bucket rows (sig, <= 64) or probe rounds (<= 128);
 // params: int32 [final coordinate N, key bit widths N] (the widths are read
 // on sig only); out: (tmax + N + 1,) int32, as above.
-extern "C" int path_walk(int layout, const void* keys, int KWs, const void* best,
-                         const void* fpar, int N, int C, int bbits, int probes,
-                         const void* params, int tmax, void* out, void* stream) {
+static int walk(int layout, const void* keys, int KWs, const void* best, const void* fpar, int N,
+                int C, int bbits, int probes, const void* params, int tmax, void* out,
+                const void* run, void* stream) {
   const int W = (N + 1) / 2;
   const bool sig = layout == kSig;
   if (layout < kSig || layout > kUnpacked || keys == nullptr || params == nullptr ||
@@ -311,13 +312,21 @@ extern "C" int path_walk(int layout, const void* keys, int KWs, const void* best
   const cudaStream_t s = (cudaStream_t)stream;
   const int32_t* p = (const int32_t*)params;
   int32_t* o = (int32_t*)out;
+  const int32_t* r = (const int32_t*)run;
   if (sig)
-    path_walk_kernel<kSig><<<1, kThreads, 0, s>>>(t, p, tmax, o);
+    path_walk_kernel<kSig><<<1, kThreads, 0, s>>>(t, p, tmax, o, r);
   else if (layout == kPacked)
-    path_walk_kernel<kPacked><<<1, kThreads, 0, s>>>(t, p, tmax, o);
+    path_walk_kernel<kPacked><<<1, kThreads, 0, s>>>(t, p, tmax, o, r);
   else
-    path_walk_kernel<kUnpacked><<<1, kThreads, 0, s>>>(t, p, tmax, o);
+    path_walk_kernel<kUnpacked><<<1, kThreads, 0, s>>>(t, p, tmax, o, r);
   return (int)cudaGetLastError();
+}
+
+extern "C" int path_walk(int layout, const void* keys, int KWs, const void* best,
+                         const void* fpar, int N, int C, int bbits, int probes,
+                         const void* params, int tmax, void* out, void* stream) {
+  return walk(layout, keys, KWs, best, fpar, N, C, bbits, probes, params, tmax, out, nullptr,
+              stream);
 }
 
 // The hop-limited mode (the sharded walk, parallel/sharded.py: JAX
@@ -329,13 +338,15 @@ extern "C" int path_walk(int layout, const void* keys, int KWs, const void* best
 // this table does not hold (another shard owns it); out holds the run of
 // masks (hops,), the coordinate it stopped at and the run's length, as
 // path_walk's.  The caller's mesh sums the runs of every shard and moves
-// the coordinate on.
+// the coordinate on (on one card shard_loop.cu's walk_advance, which also
+// moves the coordinate in params).  run: the walk loop's int32 flag, or
+// null; the launch returns at once when it reads 0.
 extern "C" int path_walk_hops(int layout, const void* keys, int KWs, const void* best,
                               const void* fpar, int N, int C, int bbits, int probes,
-                              const void* params, int hops, void* out, void* stream) {
+                              const void* params, int hops, void* out, const void* run,
+                              void* stream) {
   if (hops < 1 || hops > 64) return (int)cudaErrorInvalidValue;
-  return path_walk(layout, keys, KWs, best, fpar, N, C, bbits, probes, params, hops, out,
-                   stream);
+  return walk(layout, keys, KWs, best, fpar, N, C, bbits, probes, params, hops, out, run, stream);
 }
 
 // A measurement probe, not part of the engine: one thread follows `hops`

@@ -149,8 +149,9 @@ template <bool kSig>
 __global__ void __launch_bounds__(kThreads) route_count_kernel(
     const int32_t* __restrict__ cand, const int32_t* __restrict__ carry, const long long* nsel,
     int M, int ccar, int ndev, long long seg, int width, int fempty, int32_t* __restrict__ out,
-    u64* __restrict__ keys) {
+    u64* __restrict__ keys, const int32_t* __restrict__ run) {
   __shared__ int s_migr[kThreads / 32];
+  if (run != nullptr && *run == 0) return;
   const long long n_lanes = *nsel * M;
   const long long n = n_lanes + ccar;
   const int lane = threadIdx.x & 31;
@@ -481,9 +482,10 @@ __global__ void __launch_bounds__(kPackThreads) route_pack_kernel(
     const int32_t* __restrict__ cand, const int32_t* __restrict__ carry, const long long* nsel,
     int M, int ccar, int ndev, int me, int cap, const int32_t* __restrict__ S, long long seg,
     int width, int nkey, int fempty, int32_t* __restrict__ out, u64* __restrict__ keys,
-    int32_t* __restrict__ wire, int32_t* __restrict__ carry_out) {
+    int32_t* __restrict__ wire, int32_t* __restrict__ carry_out, const int32_t* __restrict__ run) {
   extern __shared__ u64 sh[];
   __shared__ Allowance s_allow;  // the block's, from warp 0
+  if (run != nullptr && *run == 0) return;
   const int d = blockIdx.x;
   if (d >= ndev) {  // the ring's tail: the empty row
     if (threadIdx.x < 32) {
@@ -546,6 +548,14 @@ __global__ void __launch_bounds__(kPackThreads) route_pack_kernel(
   }
 }
 
+// route_count's first launch: the counts and the migrants zeroed (a
+// kernel, not a memset, so that it too does nothing once the run stops)
+__global__ void route_zero_kernel(int32_t* __restrict__ out, int n,
+                                  const int32_t* __restrict__ run) {
+  if (run != nullptr && *run == 0) return;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) out[k] = 0;
+}
+
 int grid_of(long long rows, int threads) {
   long long b = (rows + threads - 1) / threads;
   if (b < 1) b = 1;
@@ -570,24 +580,24 @@ int allow_shared(int bytes) {
 
 template <bool kSig>
 int count(const void* cand, const void* carry, const void* nsel, int M, int lanes_cap, int ccar,
-          int ndev, long long seg, int width, int fempty, void* out, void* keys, void* stream) {
+          int ndev, long long seg, int width, int fempty, void* out, void* keys, const void* run,
+          void* stream) {
   if (cand == nullptr || carry == nullptr || nsel == nullptr || out == nullptr ||
       keys == nullptr || M < 1 || lanes_cap < 0 || ccar < 1 || ndev < 1 || ndev > kMaxDest ||
       seg < (long long)lanes_cap + ccar || seg >= (1ll << 31) || (seg & (seg - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(out, 0, sizeof(int32_t) * (ndev + 1), s);
-  if (e != cudaSuccess) return (int)e;
+  route_zero_kernel<<<1, 256, 0, s>>>((int32_t*)out, ndev + 1, (const int32_t*)run);
   route_count_kernel<kSig><<<grid_of((long long)lanes_cap + ccar, kThreads), kThreads, 0, s>>>(
       (const int32_t*)cand, (const int32_t*)carry, (const long long*)nsel, M, ccar, ndev, seg,
-      width, fempty, (int32_t*)out, (u64*)keys);
+      width, fempty, (int32_t*)out, (u64*)keys, (const int32_t*)run);
   return (int)cudaGetLastError();
 }
 
 template <bool kSig>
 int pack(const void* cand, const void* carry, const void* nsel, int M, int ccar, int ndev, int me,
          int cap, const void* S, long long seg, int width, int nkey, int fempty, void* out,
-         void* keys, void* wire, void* carry_out, void* stream) {
+         void* keys, void* wire, void* carry_out, const void* run, void* stream) {
   if (cand == nullptr || carry == nullptr || nsel == nullptr || out == nullptr ||
       keys == nullptr || wire == nullptr || carry_out == nullptr || carry_out == carry ||
       M < 1 || ccar < 1 || ndev < 1 || ndev > kMaxDest || me < 0 || me >= ndev || cap < 1 ||
@@ -600,7 +610,7 @@ int pack(const void* cand, const void* carry, const void* nsel, int M, int ccar,
                             (cudaStream_t)stream>>>(
       (const int32_t*)cand, (const int32_t*)carry, (const long long*)nsel, M, ccar, ndev, me, cap,
       (const int32_t*)S, seg, width, nkey, fempty, (int32_t*)out, (u64*)keys, (int32_t*)wire,
-      (int32_t*)carry_out);
+      (int32_t*)carry_out, (const int32_t*)run);
   return (int)cudaGetLastError();
 }
 
@@ -611,12 +621,13 @@ int pack(const void* cand, const void* carry, const void* nsel, int M, int ccar,
 // lanes_cap; out: (ndev + 3,) int32 (counts, migrants, carry_ovf, ring
 // min); keys: (2, ndev, seg) uint64 scratch, seg a power of two >=
 // lanes_cap + ccar (pass 1 fills the first half; a segment of more than
-// 2 kShKeys keys sorts between its two halves).
+// 2 kShKeys keys sorts between its two halves).  run: the step loop's
+// int32 flag, or null; both passes return at once when it reads 0.
 extern "C" int route_count(const void* cand, const void* carry, const void* nsel, int M,
                            int lanes_cap, int ccar, int ndev, long long seg, void* out,
-                           void* keys, void* stream) {
+                           void* keys, const void* run, void* stream) {
   return count<true>(cand, carry, nsel, M, lanes_cap, ccar, ndev, seg, 4, kInfp, out, keys,
-                     stream);
+                     run, stream);
 }
 
 // After route_count on the same buffers.  S: (ndev, ndev) int32 send
@@ -626,9 +637,10 @@ extern "C" int route_count(const void* cand, const void* carry, const void* nsel
 // then the ring's tail's blocks.
 extern "C" int route_pack(const void* cand, const void* carry, const void* nsel, int M,
                           int ccar, int ndev, int me, int cap, const void* S, long long seg,
-                          void* out, void* keys, void* wire, void* carry_out, void* stream) {
+                          void* out, void* keys, void* wire, void* carry_out, const void* run,
+                          void* stream) {
   return pack<true>(cand, carry, nsel, M, ccar, ndev, me, cap, S, seg, 4, 0, kInfp, out, keys,
-                    wire, carry_out, stream);
+                    wire, carry_out, run, stream);
 }
 
 // The passes on key rows: route_count's and route_pack's arguments, with
@@ -638,21 +650,22 @@ extern "C" int route_pack(const void* cand, const void* carry, const void* nsel,
 // wire rows have width - 2 words.
 extern "C" int route_count_rows(const void* cand, const void* carry, const void* nsel, int M,
                                 int lanes_cap, int ccar, int ndev, long long seg, int width,
-                                int nkey, int fempty, void* out, void* keys, void* stream) {
+                                int nkey, int fempty, void* out, void* keys, const void* run,
+                                void* stream) {
   if (width < 3 || width > kMaxRow || nkey < 0 || nkey > width - 2)
     return (int)cudaErrorInvalidValue;
   return count<false>(cand, carry, nsel, M, lanes_cap, ccar, ndev, seg, width, fempty, out, keys,
-                      stream);
+                      run, stream);
 }
 
 extern "C" int route_pack_rows(const void* cand, const void* carry, const void* nsel, int M,
                                int ccar, int ndev, int me, int cap, const void* S, long long seg,
                                int width, int nkey, int fempty, void* out, void* keys, void* wire,
-                               void* carry_out, void* stream) {
+                               void* carry_out, const void* run, void* stream) {
   if (width < 3 || width > kMaxRow || nkey < 0 || nkey > width - 2)
     return (int)cudaErrorInvalidValue;
   return pack<false>(cand, carry, nsel, M, ccar, ndev, me, cap, S, seg, width, nkey, fempty, out,
-                     keys, wire, carry_out, stream);
+                     keys, wire, carry_out, run, stream);
 }
 
 #ifdef K11_BARRIERS

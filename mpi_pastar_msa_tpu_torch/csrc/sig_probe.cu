@@ -153,12 +153,14 @@ __global__ void __launch_bounds__(kThreads, 1) sig_probe_kernel(
     int32_t* __restrict__ lane_cur, int32_t* __restrict__ lane_dest,
     int32_t* __restrict__ lane_word, int bbits, int max_bprobes, int max_calls, int fill,
     int cap, int32_t* __restrict__ run, long long* __restrict__ counters,
-    long long* __restrict__ state) {
+    long long* __restrict__ state, const int32_t* __restrict__ recv) {
   __shared__ long long red[32];
   // one thread rewrites the flag at the end: on the grid path every block
   // has read it by the first grid sync; on the block path a block that
   // reads the new flag has nothing to do
   if (*run == 0) return;
+  // the sharded step: the rows received end where pend starts
+  if (recv != nullptr) pend -= 3 * (long long)*recv;
   const long long n = state[step::kNPend];
   const uint32_t Bmask = (1u << bbits) - 1u;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -300,11 +302,13 @@ __global__ void __launch_bounds__(kThreads, 1) sig_probe_kernel(
 // counters; state: step_state.cuh.  cap: the largest pending count the
 // block path takes, 0 .. kCap (0: the grid path always).  blocks: the
 // cooperative grid, 0 for one block a multiprocessor; a grid larger than
-// can be co-resident is refused.
+// can be co-resident is refused.  recv: null, or (the sharded step) the
+// int32 count of rows received, which lie just before pend: the list then
+// starts that many rows earlier (its length, state[kNPend], counts them).
 extern "C" int sig_probe(void* t_sig, void* t_best, const void* pend, void* lane_cur,
                          void* lane_dest, void* lane_word, int bbits, int max_bprobes,
                          int max_calls, int fill, int cap, void* run, void* counters,
-                         void* state, int blocks, void* stream) {
+                         void* state, int blocks, const void* recv, void* stream) {
   if (bbits < 1 || bbits > 28 || max_bprobes < 1 || max_bprobes > 64 || max_calls < 1 ||
       max_calls > step::kMaxCalls || fill < 1 || cap < 0 || cap > kCap || blocks < 0)
     return (int)cudaErrorInvalidValue;
@@ -335,7 +339,8 @@ extern "C" int sig_probe(void* t_sig, void* t_best, const void* pend, void* lane
   e = cudaLaunchKernelEx(&cfg, sig_probe_kernel, (int32_t*)t_sig, (int32_t*)t_best,
                          (const int32_t*)pend, (int32_t*)lane_cur, (int32_t*)lane_dest,
                          (int32_t*)lane_word, bbits, max_bprobes, max_calls, fill, cap,
-                         (int32_t*)run, (long long*)counters, (long long*)state);
+                         (int32_t*)run, (long long*)counters, (long long*)state,
+                         (const int32_t*)recv);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

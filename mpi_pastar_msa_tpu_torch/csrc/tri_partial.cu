@@ -46,8 +46,9 @@ constexpr int kMaxN = 24;
 __global__ void __launch_bounds__(32 * kWarps) tri_partial_kernel(
     const int32_t* __restrict__ coords, const int32_t* __restrict__ cubes,
     const int32_t* __restrict__ tri, int N, int M, int S, int Tl, int rows,
-    int32_t* __restrict__ out) {
+    int32_t* __restrict__ out, const int32_t* __restrict__ run) {
   __shared__ int32_t s_c[kWarps][8 * kMaxTl];
+  if (run != nullptr && *run == 0) return;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t SS = (size_t)S * S;
   for (int b = blockIdx.x * kWarps + warp; b < rows; b += gridDim.x * kWarps) {
@@ -77,9 +78,9 @@ __global__ void __launch_bounds__(32 * kWarps) tri_partial_kernel(
 __global__ void sig_coords_kernel(const int32_t* __restrict__ t_sig,
                                   const int32_t* __restrict__ sel, const long long* nsel,
                                   const int32_t* __restrict__ bitw, int N, int bbits, int B,
-                                  int32_t* __restrict__ coords) {
+                                  int32_t* __restrict__ coords, const int32_t* __restrict__ run) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
+  if (i >= B || (run != nullptr && *run == 0)) return;
   int32_t* c = coords + (size_t)i * N;
   if (i >= *nsel) {
     for (int d = 0; d < N; ++d) c[d] = 0;
@@ -96,9 +97,10 @@ __global__ void sig_coords_kernel(const int32_t* __restrict__ t_sig,
 
 __global__ void keyrow_coords_kernel(const int32_t* __restrict__ t_key, int KWs,
                                      const int32_t* __restrict__ sel, const long long* nsel,
-                                     int N, int B, int32_t* __restrict__ coords) {
+                                     int N, int B, int32_t* __restrict__ coords,
+                                     const int32_t* __restrict__ run) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
+  if (i >= B || (run != nullptr && *run == 0)) return;
   int32_t* c = coords + (size_t)i * N;
   if (i >= *nsel) {
     for (int d = 0; d < N; ++d) c[d] = 0;
@@ -112,9 +114,11 @@ __global__ void keyrow_coords_kernel(const int32_t* __restrict__ t_key, int KWs,
 
 // coords: (rows, N) int32; cubes: (Tl, S, S, S) int32 with the unreachable
 // cells zeroed (null when Tl = 0); tri: (Tl, 3) int32 sequence indices of
-// the local triangles; out: (rows, M + 1) int32, M = 2^N - 1.
+// the local triangles; out: (rows, M + 1) int32, M = 2^N - 1.  run: the
+// step loop's int32 flag, or null; each kernel here returns at once when it
+// reads 0.
 extern "C" int tri_partial(const void* coords, const void* cubes, const void* tri, int N, int S,
-                           int Tl, int rows, void* out, void* stream) {
+                           int Tl, int rows, void* out, const void* run, void* stream) {
   if (coords == nullptr || out == nullptr || N < 3 || N > kMaxN || S < 2 || Tl < 0 ||
       Tl > kMaxTl || rows < 0 || (Tl > 0 && (cubes == nullptr || tri == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -123,7 +127,7 @@ extern "C" int tri_partial(const void* coords, const void* cubes, const void* tr
   if (blocks > 4096) blocks = 4096;
   tri_partial_kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
       (const int32_t*)coords, (const int32_t*)cubes, (const int32_t*)tri, N, (1 << N) - 1, S,
-      Tl, rows, (int32_t*)out);
+      Tl, rows, (int32_t*)out, (const int32_t*)run);
   return (int)cudaGetLastError();
 }
 
@@ -131,13 +135,13 @@ extern "C" int tri_partial(const void* coords, const void* cubes, const void* tr
 // at nsel (step_state.cuh kNSel, int64); bitw: (N,) int32 key bit widths;
 // coords: (B, N) int32.
 extern "C" int sig_coords(const void* t_sig, const void* sel, const void* nsel, const void* bitw,
-                          int N, int bbits, int B, void* coords, void* stream) {
+                          int N, int bbits, int B, void* coords, const void* run, void* stream) {
   if (t_sig == nullptr || sel == nullptr || nsel == nullptr || bitw == nullptr ||
       coords == nullptr || N < 2 || N > kMaxN || bbits < 1 || bbits > 28 || B < 1)
     return (int)cudaErrorInvalidValue;
   sig_coords_kernel<<<(B + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       (const int32_t*)t_sig, (const int32_t*)sel, (const long long*)nsel,
-      (const int32_t*)bitw, N, bbits, B, (int32_t*)coords);
+      (const int32_t*)bitw, N, bbits, B, (int32_t*)coords, (const int32_t*)run);
   return (int)cudaGetLastError();
 }
 
@@ -145,12 +149,12 @@ extern "C" int sig_coords(const void* t_sig, const void* sel, const void* nsel, 
 // compact list (>= B, 2) int32, its length at nsel (int64); coords: (B, N)
 // int32.
 extern "C" int keyrow_coords(const void* t_key, int KWs, const void* sel, const void* nsel, int N,
-                             int B, void* coords, void* stream) {
+                             int B, void* coords, const void* run, void* stream) {
   if (t_key == nullptr || sel == nullptr || nsel == nullptr || coords == nullptr || N < 2 ||
       N > 16 || KWs < (N + 1) / 2 || B < 1)
     return (int)cudaErrorInvalidValue;
   keyrow_coords_kernel<<<(B + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       (const int32_t*)t_key, KWs, (const int32_t*)sel, (const long long*)nsel, N, B,
-      (int32_t*)coords);
+      (int32_t*)coords, (const int32_t*)run);
   return (int)cudaGetLastError();
 }

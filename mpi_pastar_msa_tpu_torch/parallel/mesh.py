@@ -28,6 +28,9 @@ Two meshes:
                       tensors, NCCL for CUDA ones); ``init_distributed``
                       (parallel/multihost.py) starts the group.
 Sizes given to the ragged op are host integers: the caller has read them.
+On a LocalMesh whose shards share one device, ``all_gather`` takes
+``out``, one tensor the result lands in (every shard's), so that a CUDA
+graph of the step holds its buffer.
 """
 from __future__ import annotations
 
@@ -65,7 +68,9 @@ class LocalMesh:
                     outs[j][at[j]:at[j] + n].copy_(x[o:o + n], non_blocking=True)
                     at[j] += n
 
-    def all_gather(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def all_gather(self, xs: List[torch.Tensor], out=None) -> List[torch.Tensor]:
+        if out is not None and len(set(self.devices)) == 1:
+            return [torch.stack(xs, out=out)] * self.ndev
         full = {}
         for d in self.devices:
             if d not in full:

@@ -28,29 +28,44 @@ the mesh's collectives between (``mesh.py``):
      bound (JAX ``_route_cap``, ``_route_ragged``; ``carry_bound``: the
      min packed word's f on sig and packed rows, the min f itself on
      unpacked ones);
-  5. the mesh gathers every shard's counts (JAX ``_consensus``: goal g,
-     f-min with the ring's, rows selected, overflow) and the host reads
-     them, once a step: that gives the exchange's sizes and the stop test;
-  6. the mesh exchanges the wire rows (all-to-all, dense or ragged) into
-     the front of each shard's pending list;
-  7. the consensus (goal_g, f-min, the global rows selected) goes into
-     every shard's step state, and the insert (K5 on sig, K10 on key
-     rows) places the received rows and the self-owned pending lanes,
-     then writes the counters and the threshold.  On key rows a received
-     row claims a slot with its place in the received region, a
-     self-owned lane with ndev x the exchange cap + its content tag, so no
-     tag depends on the order in which lanes arrive.
+  5. the mesh gathers every shard's report, and ``consensus``
+     (csrc/shard_loop.cu; JAX ``_consensus`` and the allowance A of
+     ``_route_cap`` / ``_route_ragged``) computes on the device goal g,
+     f-min with the rings', the rows selected, overflow, A, the rows each
+     shard receives and the run's telemetry (``cons``), and writes every
+     shard's step state, its received count and its insert's flag, and
+     the run flag of the next step (the stop test);
+  6. ``exchange`` (csrc/shard_loop.cu) moves the wire rows, A[i][r] from
+     sender i to receiver r, into each receiver's pending list just before
+     its self-owned lanes, every size read on the device (a mesh of
+     several devices reads A on the host and runs the mesh's all-to-all,
+     dense or ragged, as NCCL needs its split sizes there);
+  7. the insert (K5 on sig, K10 on key rows) places the received rows and
+     the self-owned pending lanes, reading where the list starts and how
+     many rows were received on the device, then writes the counters and
+     the threshold.  On key rows a received row claims a slot with its
+     place in the received region, a self-owned lane with ndev x the
+     exchange cap + its content tag, so no tag depends on the order in
+     which lanes arrive.
 
-A CPU shard runs the plain versions of every kernel
-(``_select_best_plain``, ``_select_open_plain``, ``sig_coords_plain``,
-``keyrow_coords_plain``, ``tri_partial_plain``, ``expand_sharded_plain``,
-``expand_keyrow_sharded_plain``, ``route_plain``, ``_insert_sig``,
-``insert_pending_plain``), a CUDA shard the kernels, and never the plain
-versions.  After the search the walk runs in rounds (JAX
-``_make_batched_walk``): every shard walks at most K = 8 hops from the
-current coordinate on its own table (K7's hop-limited mode, any layout),
-stopping where another shard owns the node; the mesh sums the runs (one
-shard's is non-zero) and the coordinate moves on.
+Every kernel of the step returns at once when the run flag of its device
+reads 0 (the insert under its own flag, which the consensus sets), as the
+single-table step's do, so a chunk of steps needs no host read: the
+chunked driver (JAX's, one host read a chunk) replays a chunk of the whole
+mesh as one CUDA graph where the mesh is one card; the host driver reads
+the consensus once a step.  A CPU shard runs the plain versions of every
+kernel (``_select_best_plain``, ``_select_open_plain``,
+``sig_coords_plain``, ``keyrow_coords_plain``, ``tri_partial_plain``,
+``expand_sharded_plain``, ``expand_keyrow_sharded_plain``,
+``route_plain``, ``consensus_plain``, ``exchange_plain``, ``_insert_sig``,
+``insert_pending_plain``, ``walk_advance_plain``), a CUDA shard the
+kernels, and never the plain versions.  After the search the walk runs in
+rounds (JAX ``_make_batched_walk``): every shard walks at most K = 8 hops
+from the current coordinate on its own table (K7's hop-limited mode, any
+layout), stopping where another shard owns the node; the runs are summed
+(one shard's is non-zero) and the coordinate moves on: under the chunked
+driver ``walk_advance`` on the device, WALK_ROUNDS rounds a host read,
+under the host driver the mesh's sum and one host read a round.
 
 One shard with the dense exchange is the single-table search itself
 (JAX's ndev == 1 fast path): the engine's chunk (``_run_chunk``: on a
@@ -82,6 +97,8 @@ from ..search.engine import (_LAYOUT_FNS, INF, INFP, TRASH, _EMPTY_WORD, PackedT
                              _probe_slot, _rebase_origin, _run_chunk, _select_best_plain,
                              _select_open_plain, _sig_decode, _sig_encode, _unpack_keys,
                              fresh_counters, walk)
+from ..search.step import (STATE_FMIN, STATE_NPEND, STATE_NSEL, STATE_NVALID, STATE_WORDS,
+                           _check)
 from .mesh import LocalMesh, ProcessMesh
 from .partition import owner_fn, owner_params
 
@@ -92,6 +109,16 @@ _FILL_TAIL = (INFP, 0, -1)
 #: report slots: goal g, overflow (counters 0, 6), then state slots 0-4
 #: (K3's g max, open, selected, reopened, f-min), then the route's out
 R_GOAL, R_OVF, R_NOPEN, R_NSEL, R_REOPEN, R_FMIN, R_ROUTE = 0, 1, 3, 4, 5, 6, 7
+#: the consensus vector's slots (csrc/shard_loop.cu q*): steps, goal g,
+#: f-min, rows selected, the shards whose table or carry ring overflowed,
+#: wire rows, migrated rows, peak carry, the run flag; then 4 words a shard
+#: (expanded, reopened, open, migrated) from C_HEAD, then A (ndev, ndev)
+(C_STEPS, C_GOAL, C_FMIN, C_NSEL, C_TOVF, C_COVF, C_WIRE, C_MIGR, C_PEAK, C_RUN,
+ C_HEAD) = range(11)
+#: the most shards the sharded loop's kernels take (kMaxDev)
+MAX_SHARDS = 32
+#: the walk's rounds a replay of the chunked driver's walk loop
+WALK_ROUNDS = 32
 
 
 @dataclass
@@ -230,13 +257,21 @@ def tri_partial_plain(coords: torch.Tensor, cubes: torch.Tensor, tri: torch.Tens
     return out.to(torch.int32)
 
 
-def _tri_partial_cuda(coords, cubes, tri, n: int, S: int) -> torch.Tensor:
+def _tri_partial_cuda(coords, cubes, tri, n: int, S: int, out: Optional[torch.Tensor] = None,
+                      run: Optional[torch.Tensor] = None, launch=None) -> torch.Tensor:
+    """K12 into ``out`` (default a new (rows, M + 1) int32), nothing while
+    ``run`` (the step loop's flag) reads 0; ``launch`` takes the C
+    arguments in place of ``_kernels.launch``."""
     rows = coords.shape[0]
-    out = torch.empty((rows, (1 << n) - 1 + 1), dtype=torch.int32, device=coords.device)
+    if out is None:
+        out = torch.empty((rows, (1 << n) - 1 + 1), dtype=torch.int32, device=coords.device)
+    _check(out, "out", coords.device, torch.int32, rows * (1 << n))
     Tl = 0 if tri is None else tri.shape[0]
-    _kernels.launch("tri_partial", coords.data_ptr(), cubes.data_ptr() if Tl else None,
-                    tri.data_ptr() if Tl else None, n, S, Tl, rows, out.data_ptr(),
-                    torch.cuda.current_stream(coords.device).cuda_stream)
+    (launch or _kernels.launch)(
+        "tri_partial", coords.data_ptr(), cubes.data_ptr() if Tl else None,
+        tri.data_ptr() if Tl else None, n, S, Tl, rows, out.data_ptr(),
+        None if run is None else run.data_ptr(),
+        torch.cuda.current_stream(coords.device).cuda_stream)
     return out
 
 
@@ -455,6 +490,236 @@ def walk_hops_plain(st: _Static, tab, coord, hops: int, layout: str = "sig") -> 
                         dtype=torch.int32)
 
 
+# --- the sharded loop (csrc/shard_loop.cu, K6s): consensus, exchange and
+# walk_advance, plain versions and wrappers
+
+
+def cons_words(ndev: int) -> int:
+    """Words of the consensus vector: its head, 4 a shard, then A."""
+    return C_HEAD + 4 * ndev + ndev * ndev
+
+
+def fresh_cons(ndev: int, device) -> torch.Tensor:
+    """A run's consensus vector before its first step: no goal, running."""
+    cons = torch.zeros(cons_words(ndev), dtype=torch.int64, device=device)
+    cons[C_GOAL] = INF
+    cons[C_RUN] = 1
+    return cons
+
+
+def cons_sizes(cons, ndev: int):
+    """A (ndev, ndev) of a consensus vector (a view, or a NumPy array)."""
+    return cons[C_HEAD + 4 * ndev:].reshape(ndev, ndev)
+
+
+def report_row(ctr: torch.Tensor, state: torch.Tensor, route_out: torch.Tensor,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A shard's report (R_* slots): goal, overflow (counters 0, 6), the
+    step state's first five slots (K3's), K11's out; int64."""
+    return torch.cat([ctr[0:1], ctr[6:7], state[0:5], route_out.to(torch.int64)], out=out)
+
+
+def gather_reports(targets: Sequence[tuple]) -> torch.Tensor:
+    """Every shard's report, row ``me`` shard me's, from targets that are
+    every shard: (counters, state, route out, received count, insert flag,
+    shard index)."""
+    rows = sorted(targets, key=lambda t: t[5])
+    return torch.stack([report_row(c, s, o) for c, s, o, *_ in rows])
+
+
+def consensus_plain(rep: Optional[torch.Tensor], ndev: int, cap: int, ragged: bool, layout: str,
+                    nb: int, f0: int, ccar: int, run: torch.Tensor, targets: Sequence[tuple],
+                    cons: torch.Tensor) -> None:
+    """The plain version of ``consensus`` (csrc/shard_loop.cu; JAX
+    ``_consensus`` :312 with the allowance of ``_route_cap`` :87 and
+    ``_route_ragged`` :214-:231), in place, nothing when ``run`` reads 0.
+    From the gathered reports rep (ndev, R_ROUTE + ndev + 3) of every shard
+    (None where the targets are every shard: ``gather_reports``): goal_g,
+    fmin_g (each shard's f-min with its ring's ``carry_bound``), the rows
+    selected, the shards whose table or carry ring overflowed, A
+    (``route_sizes``), and the telemetry into ``cons`` (int64, C_*: steps,
+    wire and migrated rows and peak carry added up; per shard expanded,
+    reopened and migrated added up, open set); then into each target
+    (counters, step state, int32 route out, int32 received count, int32
+    insert flag, shard index): on overflow the insert's flag 0 and nothing
+    else (the step stops before the exchange); else ctr[0] = goal_g,
+    state[STATE_FMIN] = fmin_g, state[STATE_NSEL] = rows selected,
+    state[STATE_NPEND] += rows received, the received count, the flag 1.
+    ``run`` becomes the next step's: no overflow and fmin_g < goal_g."""
+    if not int(run[0]):
+        return
+    if rep is None:
+        rep = gather_reports(targets)
+    r = rep.cpu().numpy().astype(np.int64)
+    route = r[:, R_ROUTE:]
+    S = route[:, :ndev]
+    carry_f = np.asarray(carry_bound(layout, route[:, ndev + 2], nb, f0), dtype=np.int64)
+    goal_g = int(r[:, R_GOAL].min())
+    fmin_g = int(np.minimum(r[:, R_FMIN], carry_f).min())
+    n_sel_g = int(r[:, R_NSEL].sum())
+    A = route_sizes(S, ndev, cap, ragged)
+    c = cons.cpu().numpy().astype(np.int64)
+    per = c[C_HEAD:C_HEAD + 4 * ndev].reshape(ndev, 4)
+    per[:, 0] += r[:, R_NSEL]
+    per[:, 1] += r[:, R_REOPEN]
+    per[:, 2] = r[:, R_NOPEN]
+    per[:, 3] += route[:, ndev]
+    spill = np.minimum(np.maximum(S.sum(1) - A.sum(1), 0), ccar)
+    tovf, covf = int((r[:, R_OVF] > 0).sum()), int((route[:, ndev + 1] > 0).sum())
+    stop = tovf > 0 or covf > 0
+    c[C_STEPS] += 1
+    c[C_GOAL], c[C_FMIN], c[C_NSEL], c[C_TOVF], c[C_COVF] = goal_g, fmin_g, n_sel_g, tovf, covf
+    c[C_WIRE] += int(A.sum())
+    c[C_MIGR] += int(route[:, ndev].sum())
+    c[C_PEAK] = max(int(c[C_PEAK]), int(spill.max()))
+    c[C_RUN] = int(not stop and fmin_g < goal_g)
+    cons_sizes(c, ndev)[:] = A
+    cons.copy_(torch.from_numpy(c))
+    n_recv = A.sum(0)
+    for ctr, state, _, recv, go, me in targets:
+        if stop:
+            go.fill_(0)
+            continue
+        ctr[0] = goal_g
+        state[STATE_FMIN] = fmin_g
+        state[STATE_NSEL] = n_sel_g
+        state[STATE_NPEND] += int(n_recv[me])
+        recv.fill_(int(n_recv[me]))
+        go.fill_(1)
+    run.fill_(int(c[C_RUN]))
+
+
+def exchange_plain(cons: torch.Tensor, ndev: int, cap: int, ragged: bool, R: int,
+                   wires: Sequence[torch.Tensor], pends: Sequence[torch.Tensor],
+                   flags: Sequence[torch.Tensor], recv_me: Sequence[int]) -> None:
+    """The plain version of ``exchange`` (csrc/shard_loop.cu; the
+    all_to_all of ``_route_cap`` :148 and ``_route_ragged`` :231 with the
+    sizes read from A on the device): for each receiver b (shard
+    recv_me[b]) whose insert flag flags[b] is set, A[i][r] rows of sender
+    i's wire (ragged: from row sum_{j<r} A[i][j]; dense: from r cap) into
+    pends[b], in sender order, ending at row R, in place."""
+    A = cons_sizes(cons, ndev).cpu().numpy()
+    for pend, flag, r in zip(pends, flags, recv_me):
+        if not int(flag[0]):
+            continue
+        at = R - int(A[:, r].sum())
+        for i in range(ndev):
+            n = int(A[i][r])
+            off = int(A[i][:r].sum()) if ragged else r * cap
+            pend[at:at + n] = wires[i][off:off + n]
+            at += n
+
+
+def walk_advance_plain(wout: torch.Tensor, hops: int, n: int, params: torch.Tensor,
+                       masks: torch.Tensor, wst: torch.Tensor, wrun: torch.Tensor) -> None:
+    """The plain version of ``walk_advance`` (csrc/shard_loop.cu; a round
+    of JAX ``_make_batched_walk``'s while_loop, :545): nothing when
+    ``wrun`` reads 0; else the sum of the shards' runs wout[:, :hops], its
+    positive masks appended to ``masks`` at wst[0], the coordinate
+    params[:n] stepped back by their bits, wst[1] += 1 (rounds), and wrun
+    cleared at the origin, when the round emitted nothing, or when
+    ``masks`` has no room for another round, in place."""
+    if not int(wrun[0]):
+        return
+    tot = wout[:, :hops].long().sum(0).tolist()
+    run = [m for m in tot if m > 0]
+    at = int(wst[0])
+    for k, m in enumerate(run):
+        if at + k < masks.numel():
+            masks[at + k] = m
+    coord = params[:n].tolist()
+    for m in run:
+        coord = [coord[d] - ((m >> d) & 1) for d in range(n)]
+    params[:n] = torch.tensor(coord, dtype=params.dtype)
+    wst[0] = at + len(run)
+    wst[1] += 1
+    if not run or not any(coord) or at + len(run) + hops > masks.numel():
+        wrun.fill_(0)
+
+
+def _ptrs(tensors, dev) -> torch.Tensor:
+    """An int64 table of the tensors' device addresses, on ``dev``."""
+    return torch.tensor([t.data_ptr() for t in tensors], dtype=torch.int64).to(dev)
+
+
+def consensus_cuda(rep: Optional[torch.Tensor], ndev: int, cap: int, ragged: bool, layout: str,
+                   nb: int, f0: int, ccar: int, run: torch.Tensor, tgt: torch.Tensor,
+                   cons: torch.Tensor, launch=None) -> None:
+    """``consensus`` (csrc/shard_loop.cu) on the card: ``consensus_plain``
+    with the targets as ``tgt``, an int64 table on the card of (counters,
+    state, route out, received count, insert flag) addresses and the shard
+    index, a row a target (``target_table``); rep None reads every
+    shard's report where it lies (the targets must be every shard);
+    ``launch`` as ``_tri_partial_cuda``'s."""
+    dev = cons.device
+    _check(run, "run", dev, torch.int32, 1)
+    _check(tgt, "tgt", dev, torch.int64, 6)
+    _check(cons, "cons", dev, torch.int64, cons_words(ndev))
+    if rep is not None:
+        _check(rep, "rep", dev, torch.int64, ndev * (R_ROUTE + ndev + 3))
+    if (not 1 <= ndev <= MAX_SHARDS or tgt.dim() != 2 or tgt.shape[1] != 6
+            or (rep is None and tgt.shape[0] != ndev)):
+        raise ValueError(f"consensus: {ndev} shards (at most {MAX_SHARDS}), targets "
+                         f"{tuple(tgt.shape)}, reports {'given' if rep is not None else 'none'}")
+    (launch or _kernels.launch)(
+        "consensus", None if rep is None else rep.data_ptr(), ndev, int(cap), int(ragged),
+        int(layout == "unpacked"), nb,
+        f0, ccar, run.data_ptr(), tgt.data_ptr(), tgt.shape[0], cons.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+
+
+def target_table(targets: Sequence[tuple], dev) -> torch.Tensor:
+    """``consensus_cuda``'s targets: (counters, state, route out, received
+    count, insert flag, shard index) a row, the tensors as addresses."""
+    dev = targets[0][0].device if torch.device(dev).index is None else dev
+    for ctr, state, out, recv, go, _ in targets:
+        _check(ctr, "counters", dev, torch.int64, 7)
+        _check(state, "state", dev, torch.int64, 7)
+        _check(out, "route_out", dev, torch.int32, out.numel())
+        _check(recv, "recv", dev, torch.int32, 1)
+        _check(go, "go", dev, torch.int32, 1)
+    return torch.tensor([[c.data_ptr(), s.data_ptr(), o.data_ptr(), r.data_ptr(), g.data_ptr(),
+                          me] for c, s, o, r, g, me in targets], dtype=torch.int64).to(dev)
+
+
+def exchange_cuda(cons: torch.Tensor, ndev: int, cap: int, ragged: bool, R: int, pw: int,
+                  wires: torch.Tensor, pends: torch.Tensor, flags: torch.Tensor,
+                  recv_me: torch.Tensor, launch=None) -> None:
+    """``exchange`` (csrc/shard_loop.cu) on the card: ``exchange_plain``
+    with the buffers as int64 address tables on the card (``_ptrs``):
+    ``wires`` every sender's, ``pends`` and ``flags`` each receiver's, and
+    ``recv_me`` the receivers' indices.  Every buffer must lie on this
+    card; ``launch`` as ``_tri_partial_cuda``'s."""
+    dev = cons.device
+    _check(cons, "cons", dev, torch.int64, cons_words(ndev))
+    _check(wires, "wires", dev, torch.int64, ndev)
+    n = recv_me.numel()
+    for t, name in ((pends, "pends"), (flags, "flags"), (recv_me, "recv_me")):
+        _check(t, name, dev, torch.int64, n)
+    if not 1 <= n <= ndev <= MAX_SHARDS or R < 0 or pw < 1:
+        raise ValueError(f"exchange: {n} receivers of {ndev} shards, R {R}, {pw} words a row")
+    (launch or _kernels.launch)(
+        "exchange", cons.data_ptr(), ndev, int(cap), int(ragged), int(R), int(pw),
+        wires.data_ptr(), pends.data_ptr(), flags.data_ptr(), n, recv_me.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+
+
+def walk_advance_cuda(wout: torch.Tensor, hops: int, n: int, params: torch.Tensor,
+                      masks: torch.Tensor, wst: torch.Tensor, wrun: torch.Tensor) -> None:
+    """``walk_advance`` (csrc/shard_loop.cu) on the card: the same
+    arguments and updates as ``walk_advance_plain``."""
+    dev = wout.device
+    _check(wout, "wout", dev, torch.int32, hops + n + 1)
+    for t, name, numel in ((params, "params", 2 * n), (masks, "masks", hops),
+                           (wst, "wst", 2), (wrun, "wrun", 1)):
+        _check(t, name, dev, torch.int32, numel)
+    if wout.dim() != 2 or wout.shape[1] != hops + n + 1 or not 1 <= hops <= 32:
+        raise ValueError(f"walk_advance: runs {tuple(wout.shape)}, {hops} hops, N = {n}")
+    _kernels.launch("walk_advance", wout.data_ptr(), wout.shape[0], hops, n, params.data_ptr(),
+                    masks.data_ptr(), masks.numel(), wst.data_ptr(), wrun.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+
+
 # --- one shard
 
 
@@ -520,6 +785,39 @@ def _open_closed(st: _Static, tab) -> Tuple[int, int]:
     return (int((best < closed).sum()), int(((closed < INFP) & (best >= closed)).sum()))
 
 
+class _Launcher:
+    """Launches of a shard's (or a card's) kernels: ``go(key, call)`` runs
+    ``call(launch)``, the kernel's wrapper (its checks and C arguments),
+    with ``launch`` in place of ``_kernels.launch``.  Under the chunked
+    driver (a mesh of one device, where every buffer a step passes is the
+    run's) the C arguments are bound once (``_kernels.bind``) for each
+    ``key`` (the caller's, with the ring parity and any per-call buffer's
+    address) and stream, and later calls launch the bound entry alone,
+    with no check and no conversion: the capture of a chunk's graph runs
+    the step's host code once a step.  Under the host driver every call
+    runs the wrapper."""
+
+    def __init__(self, dev: torch.device, once: bool):
+        self.dev, self.once = dev, once
+        self.bound: Dict[tuple, object] = {}
+
+    def go(self, key, call) -> None:
+        if not self.once:
+            call(_kernels.launch)
+            return
+        k = (key, torch.cuda.current_stream(self.dev).cuda_stream)
+        bound = self.bound.get(k)
+        if bound is not None:
+            bound()
+            return
+
+        def first(*args):
+            self.bound[k] = _kernels.bind(*args)
+            self.bound[k]()
+
+        call(first)
+
+
 def _on_device(phase):
     """Run a shard's phase with the shard's card current: a kernel launches
     on the current device, and a mesh may hold shards on several cards."""
@@ -536,11 +834,14 @@ class _Shard:
     """One shard's table, counters, carry ring and step buffers, and its
     phases of the step: on a CUDA device the kernels, on the CPU their
     plain versions.  The table is the engine's layout: sig, packed or
-    unpacked."""
+    unpacked.  ``run`` is the flag of the shards of its device: every
+    phase but the insert does nothing while it reads 0 (the kernels return
+    at once, the plain versions are not called); the insert runs under the
+    shard's own flag ``go``, which the consensus sets."""
 
     def __init__(self, eng: "ShardedFrontierSearch", me: int, device: torch.device,
-                 st: _Static):
-        self.me, self.dev, self.st = me, device, st
+                 st: _Static, card: "_Card"):
+        self.me, self.dev, self.st, self.run = me, device, st, card.run
         self.layout = layout = eng.layout
         self.cuda = device.type == "cuda"
         ndev, B, M = eng.ndev, st.B, st.M
@@ -557,28 +858,37 @@ class _Shard:
         row = torch.tensor([self.fill], **i32)
         self.rings = [row.repeat(self.ccar, 1), row.repeat(self.ccar, 1)]
         self.cur = 0
+        self.go = torch.zeros(1, **i32)    # the insert's flag (the consensus sets it)
+        self.recv = torch.zeros(1, **i32)  # rows received this step (the consensus)
+        self.rep = torch.zeros(R_ROUTE + ndev + 3, dtype=torch.int64, device=device)
+        self.route_out = torch.zeros(ndev + 3, **i32)
+        self.wire = torch.zeros((max(self.R, L + self.ccar), self.pw), **i32)
         self.cubes = self.tri = None
         if eng.cubes_split:
             T_loc = -(-st.T3 // ndev)
             lo, hi = min(me * T_loc, st.T3), min((me + 1) * T_loc, st.T3)
             self.tri = st.d_tri_xyz[lo:hi].to(device, torch.int32).contiguous()
             self.cubes = eng.cube_stack[lo:hi].to(device, copy=True)
+            if eng.one_device:  # rows of the card's buffers
+                self.coords_out, self.part = card.coords[me], card.parts[me]
+            else:
+                self.coords_out = torch.zeros((B, st.n), **i32)
+                self.part = torch.zeros((ndev * B, M + 1), **i32)
         if self.cuda:
             from ..search import step as S
 
             self.S = S
-            self.cand = torch.empty((L, len(self.fill)), **i32)
+            # the empty row where no lane writes (as the plain expand leaves it)
+            self.cand = row.repeat(L, 1)
             self.seg = 1 << max(1, (L + self.ccar - 1).bit_length())
             self.keys = torch.empty(2 * ndev * self.seg, dtype=torch.int64, device=device)
-            self.route_out = torch.empty(ndev + 3, **i32)
-            self.wire = torch.empty((max(self.R, L + self.ccar), self.pw), **i32)
             bufs = S.StepBuffers.select_only(st, device)
             # the select's scratch is the shard's own (select_only shares it
             # between the tables of one statics)
             bufs.sel = torch.empty((B, 2), **i32)
             bufs.partial = torch.empty((S.K3_MAX_BLOCKS, 2), dtype=torch.int64, device=device)
             bufs.ticket = torch.zeros(1, **i32)
-            bufs.run = torch.ones(1, **i32)
+            bufs.run = self.run
             bufs.pend = torch.empty((self.R + L, self.pw), **i32)
             bufs.lane_cur, bufs.lane_dest = (torch.empty(self.R + L, **i32) for _ in range(2))
             if layout == "sig":
@@ -589,10 +899,19 @@ class _Shard:
             bufs.layout = layout
             self.bufs = bufs
             self.bitw = torch.tensor(st.bitw, **i32)
+            self.state, self.pend = bufs.state, bufs.pend
+            self._go = _Launcher(device, eng.driver == "chunked").go
+        else:
+            self.state = torch.zeros(STATE_WORDS, dtype=torch.int64)
+            self.pend = torch.zeros((self.R + L, self.pw), **i32)
 
     @property
     def ring(self) -> torch.Tensor:
         return self.rings[self.cur]
+
+    def _live(self) -> bool:
+        """A CPU shard's run flag (a card's is read on the card)."""
+        return bool(int(self.run[0]))
 
     # 1. select
     @_on_device
@@ -600,11 +919,15 @@ class _Shard:
         st, tab = self.st, self.tab
         if self.cuda:
             if self.layout == "unpacked":
-                self.S.select_open_cuda(st, tab.t_state, tab.t_fpar, self.ctr[0], self.ctr[7],
-                                        run=self.bufs.run, bufs=self.bufs)
+                self._go("select", lambda launch: self.S.select_open_cuda(
+                    st, tab.t_state, tab.t_fpar, self.ctr[0], self.ctr[7], run=self.run,
+                    bufs=self.bufs, launch=launch))
             else:
-                self.S.select_best_cuda(st, tab.t_best, tab.t_closed, self.ctr[0], self.ctr[7],
-                                        run=self.bufs.run, bufs=self.bufs)
+                self._go("select", lambda launch: self.S.select_best_cuda(
+                    st, tab.t_best, tab.t_closed, self.ctr[0], self.ctr[7], run=self.run,
+                    bufs=self.bufs, launch=launch))
+            return
+        if not self._live():
             return
         if self.layout == "unpacked":
             out = _select_open_plain(st, tab.t_state, tab.t_fpar, self.ctr[0], self.ctr[7])
@@ -613,57 +936,78 @@ class _Shard:
         slots, vmin, active, fmin, n_open, n_sel, reopen = out
         self.sel = torch.stack([slots[active], vmin[active]], dim=1).to(torch.int32)
         self.n_sel = int(n_sel)
-        self.state = [0, int(n_open), self.n_sel, int(reopen), int(fmin)]
+        # K3 writes its five slots and zeroes the rest
+        self.state.zero_()
+        self.state[:5] = torch.tensor([0, int(n_open), self.n_sel, int(reopen), int(fmin)])
 
     # 2. the coordinates K12 gathers (sig and packed), and K12
     @_on_device
     def coords(self) -> torch.Tensor:
-        st = self.st
+        st, out = self.st, self.coords_out
         if self.cuda:
-            out = torch.empty((st.B, st.n), dtype=torch.int32, device=self.dev)
-            nsel = self.bufs.state[self.S.STATE_NSEL].data_ptr()
-            stream = torch.cuda.current_stream(self.dev).cuda_stream
+            self._go("coords", self._coords_args)
+        elif self._live():
             if self.layout == "sig":
-                _kernels.launch("sig_coords", self.tab.t_sig.data_ptr(), self.bufs.sel.data_ptr(),
-                                nsel, self.bitw.data_ptr(), st.n, st.bbits, st.B,
-                                out.data_ptr(), stream)
+                out.copy_(sig_coords_plain(st, self.tab.t_sig, self.sel, self.n_sel, st.B))
             else:
-                _kernels.launch("keyrow_coords", self.tab.t_key.data_ptr(),
-                                self.tab.t_key.shape[1], self.bufs.sel.data_ptr(), nsel, st.n,
-                                st.B, out.data_ptr(), stream)
-            return out
+                out.copy_(keyrow_coords_plain(st, self.tab.t_key, self.sel, self.n_sel, st.B))
+        return out
+
+    def _coords_args(self, launch) -> None:
+        st = self.st
+        nsel = self.bufs.state[self.S.STATE_NSEL].data_ptr()
+        stream = torch.cuda.current_stream(self.dev).cuda_stream
         if self.layout == "sig":
-            return sig_coords_plain(st, self.tab.t_sig, self.sel, self.n_sel, st.B)
-        return keyrow_coords_plain(st, self.tab.t_key, self.sel, self.n_sel, st.B)
+            launch("sig_coords", self.tab.t_sig.data_ptr(), self.bufs.sel.data_ptr(), nsel,
+                   self.bitw.data_ptr(), st.n, st.bbits, st.B, self.coords_out.data_ptr(),
+                   self.run.data_ptr(), stream)
+        else:
+            launch("keyrow_coords", self.tab.t_key.data_ptr(), self.tab.t_key.shape[1],
+                   self.bufs.sel.data_ptr(), nsel, st.n, st.B, self.coords_out.data_ptr(),
+                   self.run.data_ptr(), stream)
 
     @_on_device
     def partial(self, coords_g: torch.Tensor) -> torch.Tensor:
         st = self.st
         if self.cuda:
-            return _tri_partial_cuda(coords_g, self.cubes, self.tri if self.tri.numel() else None,
-                                     st.n, st.S)
-        return tri_partial_plain(coords_g, self.cubes, self.tri, st.M, st.S)
+            tri = self.tri if self.tri.numel() else None
+            self._go(("partial", coords_g.data_ptr()), lambda launch: _tri_partial_cuda(
+                coords_g, self.cubes, tri, st.n, st.S, out=self.part, run=self.run,
+                launch=launch))
+            return self.part
+        if self._live():
+            self.part.copy_(tri_partial_plain(coords_g, self.cubes, self.tri, st.M, st.S))
+        return self.part
 
     # 3. expand
     @_on_device
     def expand(self, eng: "ShardedFrontierSearch", h3: Optional[torch.Tensor]) -> None:
         st = self.st
         if self.cuda:
+            key = ("expand", None if h3 is None else h3.data_ptr())
             if self.layout == "sig":
-                self.S.expand_sharded_cuda(st, self.tab, self.bufs, self.ctr, eng.ub, h3,
-                                           self.cand, self.R, eng.hash_params, eng.ndev, self.me)
+                self._go(key, lambda launch: self.S.expand_sharded_cuda(
+                    st, self.tab, self.bufs, self.ctr, eng.ub, h3, self.cand, self.R,
+                    eng.hash_params, eng.ndev, self.me, launch=launch))
             else:
-                self.S.expand_keyrow_sharded_cuda(st, self.tab, self.bufs, self.ctr, eng.ub, h3,
-                                                  self.cand, self.R, eng.hash_params, eng.ndev,
-                                                  self.me, self.tag_base)
+                self._go(key, lambda launch: self.S.expand_keyrow_sharded_cuda(
+                    st, self.tab, self.bufs, self.ctr, eng.ub, h3, self.cand, self.R,
+                    eng.hash_params, eng.ndev, self.me, self.tag_base, launch=launch))
+            return
+        if not self._live():
             return
         if self.layout == "sig":
-            goal, self.cand, self.pending, self.lanes = expand_sharded_plain(
+            goal, self.cand, pending, lanes = expand_sharded_plain(
                 st, self.tab, self.sel, self.n_sel, eng.ub, h3, eng.own, eng.ndev, self.me)
         else:
-            goal, self.cand, self.pending, self.lanes = expand_keyrow_sharded_plain(
+            goal, self.cand, pending, lanes = expand_keyrow_sharded_plain(
                 st, self.tab, self.layout, self.sel, self.n_sel, eng.ub, h3, eng.own, eng.ndev,
                 self.me, self.tag_base)
+        # the self-owned pending lanes after the received region, as K4 and
+        # K9 append them
+        n = pending.shape[0]
+        self.pend[self.R:self.R + n] = pending
+        self.state[STATE_NVALID], self.state[STATE_NPEND] = lanes, n
         self.ctr[0] = min(int(self.ctr[0]), goal)
 
     # 4. the route's two passes
@@ -674,97 +1018,183 @@ class _Shard:
     @_on_device
     def count(self, eng) -> torch.Tensor:
         if self.cuda:
-            nsel = self.bufs.state[self.S.STATE_NSEL]
-            stream = torch.cuda.current_stream(self.dev).cuda_stream
-            if self.layout == "sig":
-                _kernels.launch("route_count", self.cand.data_ptr(), self.ring.data_ptr(),
-                                nsel.data_ptr(), self.st.M, self.cand.shape[0], self.ccar,
-                                eng.ndev, self.seg, self.route_out.data_ptr(),
-                                self.keys.data_ptr(), stream)
-            else:
-                _kernels.launch("route_count_rows", self.cand.data_ptr(), self.ring.data_ptr(),
-                                nsel.data_ptr(), self.st.M, self.cand.shape[0], self.ccar,
-                                eng.ndev, self.seg, *self._route_args(),
-                                self.route_out.data_ptr(), self.keys.data_ptr(), stream)
-            return self.route_out[: eng.ndev]
-        self._route = route_plain(self.cand, self.n_sel * self.st.M, self.ring, eng.ndev,
-                                  self.me, eng.exchange_cap, fill=self.fill)
-        return self._route[2][: eng.ndev]
+            self._go(("count", self.cur), lambda launch: self._count_args(eng, launch))
+        elif self._live():
+            self._route = route_plain(self.cand, self.n_sel * self.st.M, self.ring, eng.ndev,
+                                      self.me, eng.exchange_cap, fill=self.fill)
+            self.route_out.copy_(self._route[2])
+        return self.route_out[: eng.ndev]
+
+    def _count_args(self, eng, launch) -> None:
+        nsel = self.bufs.state[self.S.STATE_NSEL].data_ptr()
+        stream = torch.cuda.current_stream(self.dev).cuda_stream
+        head = (self.cand.data_ptr(), self.ring.data_ptr(), nsel, self.st.M, self.cand.shape[0],
+                self.ccar, eng.ndev, self.seg)
+        tail = (self.route_out.data_ptr(), self.keys.data_ptr(), self.run.data_ptr(), stream)
+        if self.layout == "sig":
+            launch("route_count", *head, *tail)
+        else:
+            launch("route_count_rows", *head, *self._route_args(), *tail)
 
     @_on_device
     def pack(self, eng, S_all: Optional[torch.Tensor]) -> None:
+        """The second pass into the other ring, ``cur`` flipped.  A card's
+        shard flips it on the host at every call (the caller of a chunk
+        graph sets it after the replay, from the steps that ran)."""
         nxt = 1 - self.cur
         if self.cuda:
-            nsel = self.bufs.state[self.S.STATE_NSEL]
-            args = (self.cand.data_ptr(), self.ring.data_ptr(), nsel.data_ptr(), self.st.M,
-                    self.ccar, eng.ndev, self.me, eng.exchange_cap,
-                    None if S_all is None else S_all.data_ptr(), self.seg)
-            outs = (self.route_out.data_ptr(), self.keys.data_ptr(), self.wire.data_ptr(),
-                    self.rings[nxt].data_ptr(), torch.cuda.current_stream(self.dev).cuda_stream)
-            if self.layout == "sig":
-                _kernels.launch("route_pack", *args, *outs)
-            else:
-                _kernels.launch("route_pack_rows", *args, *self._route_args(), *outs)
+            S_ptr = None if S_all is None else S_all.data_ptr()
+
+            def args(launch):
+                nsel = self.bufs.state[self.S.STATE_NSEL]
+                head = (self.cand.data_ptr(), self.ring.data_ptr(), nsel.data_ptr(), self.st.M,
+                        self.ccar, eng.ndev, self.me, eng.exchange_cap, S_ptr, self.seg)
+                outs = (self.route_out.data_ptr(), self.keys.data_ptr(), self.wire.data_ptr(),
+                        self.rings[nxt].data_ptr(), self.run.data_ptr(),
+                        torch.cuda.current_stream(self.dev).cuda_stream)
+                if self.layout == "sig":
+                    launch("route_pack", *head, *outs)
+                else:
+                    launch("route_pack_rows", *head, *self._route_args(), *outs)
+
+            self._go(("pack", self.cur, S_ptr), args)
         else:
+            if not self._live():
+                return
             if S_all is not None:  # the ragged allowance
                 self._route = route_plain(self.cand, self.n_sel * self.st.M, self.ring,
                                           eng.ndev, self.me, eng.exchange_cap, S_all, self.fill)
-            self.wire, self.rings[nxt], self.route_out = self._route
+            self.wire, self.rings[nxt], out = self._route
+            self.route_out.copy_(out)
         self.cur = nxt
 
-    # 5. what the host reads
+    # 5. the report the consensus reads: goal, overflow, K3's five, K11's out
     @_on_device
     def report(self) -> torch.Tensor:
-        if self.cuda:
-            return torch.cat([self.ctr[0:1], self.ctr[6:7], self.bufs.state[0:5],
-                              self.route_out.long()])
-        return torch.cat([self.ctr[0:1], self.ctr[6:7], torch.tensor(self.state),
-                          self.route_out.long()])
+        return report_row(self.ctr, self.state, self.route_out, out=self.rep)
 
-    # 6. the rows received go to the front of the pending list
-    def recv_region(self, n_recv: int) -> torch.Tensor:
-        if self.cuda:
-            return self.bufs.pend[self.R - n_recv: self.R]
-        self._recv = torch.empty((n_recv, self.pw), dtype=torch.int32)
-        return self._recv
-
-    # 7. insert, with the consensus in the step state
+    # 6. the insert of the received rows (the exchange put them before row
+    # R of the pending list) and the self-owned lanes, under the flag the
+    # consensus set, with its goal, f-min and rows selected in the state
     @_on_device
-    def insert(self, eng, goal_g: int, fmin_g: int, n_sel_g: int, n_recv: int) -> None:
+    def insert(self, eng) -> None:
         st = self.st
         if self.cuda:
-            S = self.S
-            state = self.bufs.state
-            self.ctr[0].fill_(goal_g)
-            state[S.STATE_FMIN].fill_(fmin_g)
-            state[S.STATE_NSEL].fill_(n_sel_g)
-            if n_recv:
-                state[S.STATE_NPEND].add_(n_recv)
-            if self.layout == "sig":
-                S.probe_pending_cuda(st, self.tab, self.bufs, self.ctr, eng.fill, self.R - n_recv)
-            else:
-                S.insert_pending_cuda(st, self.tab, self.bufs, self.ctr, eng.fill,
-                                      self.R - n_recv, n_recv)
+            insert = (self.S.probe_pending_cuda if self.layout == "sig"
+                      else self.S.insert_pending_cuda)
+            self._go("insert", lambda launch: insert(st, self.tab, self.bufs, self.ctr, eng.fill,
+                                                     self.R, self.recv, run=self.go,
+                                                     launch=launch))
             return
-        c = self.ctr
+        if not int(self.go[0]):
+            return
+        c, s = self.ctr, self.state
+        n_recv = int(self.recv[0])
+        rows = self.pend[self.R - n_recv: self.R - n_recv + int(s[STATE_NPEND])]
         if self.layout == "sig":
-            rows = torch.cat([self._recv, self.pending]).long()
+            rows = rows.long()
             ovf, _, _ = _insert_sig(st, self.tab, rows[:, 0], rows[:, 1], rows[:, 2])
-            c[0], c[1], c[2] = goal_g, fmin_g, c[2] + 1
+            c[1], c[2] = s[STATE_FMIN], c[2] + 1
             c[6] += int(ovf)
-            c[7] = _adapt_thr(c[7], torch.tensor(n_sel_g), eng.fill)
-            return
-        ovf, reopen, rounds, un, tail = insert_pending_plain(
-            st, self.tab, self.layout, torch.cat([self._recv, self.pending]), n_recv)
-        c[0] = goal_g
-        state = [0, self.state[1], n_sel_g, self.state[3] + reopen, fmin_g]
-        finish_plain(c, state, eng.fill, self.lanes, ovf, rounds, un, tail)
+            c[7] = _adapt_thr(c[7], s[STATE_NSEL], eng.fill)
+        else:
+            ovf, reopen, rounds, un, tail = insert_pending_plain(st, self.tab, self.layout, rows,
+                                                                 n_recv)
+            state = [0, int(s[1]), int(s[STATE_NSEL]), int(s[3]) + reopen, int(s[STATE_FMIN])]
+            finish_plain(c, state, eng.fill, int(s[STATE_NVALID]), ovf, rounds, un, tail)
+        # the flag the kernels' finish writes (csrc/step_state.cuh)
+        self.go.fill_(int(int(c[1]) < int(c[0]) and int(c[6]) == 0))
 
     @_on_device
-    def walk_hops(self, coord, hops: int) -> torch.Tensor:
+    def walk_hops(self, coord, hops: int, out: Optional[torch.Tensor] = None,
+                  run: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """K7's hop mode from ``coord`` (N ints, or the walk loop's params
+        on this device) into ``out``, nothing while ``run`` reads 0."""
         if self.cuda:
-            return self.S.walk_hops_cuda(self.st, self.tab, coord, hops, self.layout)
-        return walk_hops_plain(self.st, self.tab, coord, hops, self.layout)
+            return self.S.walk_hops_cuda(self.st, self.tab, coord, hops, self.layout, out=out,
+                                         run=run)
+        if run is not None and not int(run[0]):
+            return out
+        if isinstance(coord, torch.Tensor):
+            coord = coord[: self.st.n].tolist()
+        res = walk_hops_plain(self.st, self.tab, coord, hops, self.layout)
+        if out is None:
+            return res
+        return out.copy_(res)
+
+
+class _Card:
+    """This process's shards on one device and what their step shares
+    there: the run flag, the consensus vector, on a mesh of one device the
+    buffers every shard writes its row of (the batch's coordinates, K12's
+    partials; the sum of those is each shard's h3) and the send counts'
+    gather, the address tables of the consensus and of the exchange (on a
+    card), and the chunk's graphs (one a starting parity of the rings)."""
+
+    def __init__(self, eng: "ShardedFrontierSearch", dev: torch.device, first: int):
+        self.dev, self.first = dev, first
+        self.cuda = dev.type == "cuda"
+        self.shards: List[_Shard] = []
+        self.run = torch.ones(1, dtype=torch.int32, device=dev)
+        ndev, st = eng.ndev, eng.statics[dev]
+        self.cons = fresh_cons(ndev, dev)
+        if eng.one_device:
+            i32 = dict(dtype=torch.int32, device=dev)
+            self.counts = torch.zeros((ndev, ndev), **i32)
+            if eng.cubes_split:
+                self.coords = torch.zeros((ndev, st.B, st.n), **i32)
+                self.parts = torch.zeros((ndev, ndev * st.B, st.M + 1), **i32)
+                self.h3 = torch.zeros((ndev, st.B, st.M + 1), **i32)
+        self.graphs: Dict[int, object] = {}
+        self.warm = False
+        self._go = _Launcher(dev, eng.driver == "chunked").go
+
+    def bind(self, eng: "ShardedFrontierSearch", shards: List[_Shard]) -> None:
+        """The address tables of this card's kernels (the buffers are the
+        run's, so a graph may hold them)."""
+        if not self.cuda:
+            return
+        with torch.cuda.device(self.dev):
+            self.tgt = target_table(self.targets(), self.dev)
+            if eng.one_device:
+                self.x_wires = _ptrs([sh.wire for sh in shards], self.dev)
+                self.x_pends = _ptrs([sh.pend for sh in self.shards], self.dev)
+                self.x_flags = _ptrs([sh.go for sh in self.shards], self.dev)
+                self.x_me = torch.tensor([sh.me for sh in self.shards],
+                                         dtype=torch.int64).to(self.dev)
+
+    def targets(self) -> List[tuple]:
+        """The consensus's targets: this card's shards' counters, state,
+        route out, received count, insert flag and index."""
+        return [(sh.ctr, sh.state, sh.route_out, sh.recv, sh.go, sh.me) for sh in self.shards]
+
+    def consensus(self, eng: "ShardedFrontierSearch", rep: Optional[torch.Tensor]) -> None:
+        """The consensus of the gathered reports ``rep``, or (None, a mesh
+        of one device) of every shard's report where it lies."""
+        args = (eng.ndev, eng.exchange_cap, eng.exchange == "ragged", eng.layout, eng.st.nb,
+                eng.st.f0, self.shards[0].ccar, self.run)
+        if self.cuda:
+            key = ("consensus", None if rep is None else rep.data_ptr())
+            with torch.cuda.device(self.dev):
+                self._go(key, lambda launch: consensus_cuda(rep, *args, self.tgt, self.cons,
+                                                            launch=launch))
+        else:
+            consensus_plain(rep, *args, self.targets(), self.cons)
+
+    def exchange(self, eng: "ShardedFrontierSearch", shards: List[_Shard]) -> None:
+        """The wire rows of every shard into this card's receivers, sized on
+        the device (a mesh on one device)."""
+        sh0 = shards[0]
+        args = (eng.ndev, eng.exchange_cap, eng.exchange == "ragged", sh0.R)
+        if self.cuda:
+            with torch.cuda.device(self.dev):
+                self._go("exchange", lambda launch: exchange_cuda(
+                    self.cons, *args, sh0.pw, self.x_wires, self.x_pends, self.x_flags,
+                    self.x_me, launch=launch))
+        else:
+            exchange_plain(self.cons, *args, [sh.wire for sh in shards],
+                           [sh.pend for sh in self.shards], [sh.go for sh in self.shards],
+                           [sh.me for sh in self.shards])
 
 
 def _devices_of(devices) -> list:
@@ -794,7 +1224,17 @@ class ShardedFrontierSearch:
     triangle cubes over the shards on the sig and packed layouts; an
     unpacked shard reads the whole stack whatever it says, as JAX's
     unpacked step does.  A multi-process mesh refuses the unpacked layout
-    when it runs, as JAX does."""
+    when it runs, as JAX does.
+
+    ``driver`` (as ``FrontierSearch``'s): "chunked" runs ``chunk_steps``
+    steps of the whole mesh a host read, as JAX's sharded chunk (on a card
+    one CUDA graph a chunk, replayed; CPU shards the same steps with the
+    plain versions), and the walk as rounds replayed WALK_ROUNDS at a time;
+    "host" one step a host read, launched eagerly, and one host read a
+    walk round; "auto" is chunked where the mesh is one device (a
+    ``LocalMesh`` whose shards share a card, or the CPU), else host.
+    chunked on a mesh of several devices raises ValueError: it never falls
+    back to the host driver."""
 
     def __init__(self, problem: Problem, heuristic: Optional[HPairHeuristic] = None,
                  devices=None, hash_type: str = "FSUM", hash_shift: int = 4,
@@ -802,13 +1242,17 @@ class ShardedFrontierSearch:
                  max_steps: int = 500_000, chunk_steps: int = 256,
                  layout: str = "auto", exchange_cap: Optional[int] = None,
                  shard_cubes="auto", exchange: str = "auto",
-                 fill_target: Optional[int] = None):
+                 fill_target: Optional[int] = None, driver: str = "auto"):
         if fill_target is not None and fill_target < 1:
             raise ValueError("fill_target must be >= 1")
         if exchange not in ("auto", "ragged", "dense"):
             raise ValueError(f"unknown exchange mode {exchange!r}")
         if layout not in ("auto", "sig", "packed", "unpacked"):
             raise ValueError(f"layout={layout!r}: choose auto, sig, packed or unpacked")
+        if driver not in ("auto", "chunked", "host"):
+            raise ValueError(f"driver={driver!r}: choose auto, chunked or host")
+        if chunk_steps < 1:
+            raise ValueError("chunk_steps must be >= 1")
         self.fill_target = fill_target
         self.layout_pref = layout
         self.problem = problem
@@ -817,9 +1261,21 @@ class ShardedFrontierSearch:
         else:
             self.mesh = LocalMesh(_devices_of(devices))
         self.ndev = self.mesh.ndev
+        if self.ndev > MAX_SHARDS:
+            raise ValueError(f"{self.ndev} shards: the sharded loop takes at most {MAX_SHARDS}")
         self.multiprocess = self.mesh.multiprocess
         self.local_devices = [self.mesh.devices[i if isinstance(self.mesh, LocalMesh) else 0]
                               for i in self.mesh.local]
+        # every shard in this process on one device: the step's sizes stay
+        # on it, and a chunk can be one graph
+        self.one_device = (isinstance(self.mesh, LocalMesh)
+                           and len(set(self.local_devices)) == 1)
+        if driver == "chunked" and not self.one_device:
+            raise ValueError("driver='chunked' needs every shard on one device (a LocalMesh of "
+                             "one card, or the CPU): a graph across cards and NCCL inside a "
+                             "capture are not ported; use driver='host'")
+        self.driver = driver if driver != "auto" else (
+            "chunked" if self.one_device else "host")
         dev0 = self.local_devices[0]
         self.heuristic = (heuristic if heuristic is not None
                           else HPairHeuristic.build(problem, dev0))
@@ -959,17 +1415,30 @@ class ShardedFrontierSearch:
                       f"overflow; retry {attempts} with capacity {self.st.C} a shard and "
                       f"exchange cap {self.exchange_cap}")
 
+
     def _shards(self) -> List[_Shard]:
+        """This process's shards, each holding its device's run flag
+        (``_Card``), and their cards in ``self.cards``."""
         self.cube_stack = None
         if self.cubes_split:
             st = self.st
             self.cube_stack = st.d_cubes.view(st.T3, st.S, st.S, st.S)
-        shards = [_Shard(self, me, d, self.statics[d])
-                  for me, d in zip(self.mesh.local, self.local_devices)]
+        cards: Dict[torch.device, _Card] = {}
+        shards = []
+        for k, (me, d) in enumerate(zip(self.mesh.local, self.local_devices)):
+            card = cards.get(d)
+            if card is None:
+                card = cards[d] = _Card(self, d, k)
+            shards.append(_Shard(self, me, d, self.statics[d], card))
+            card.shards.append(shards[-1])
         if self.cubes_split:  # each shard holds its own cubes now
             for st in self.statics.values():
                 st.d_cubes = torch.zeros(0, dtype=torch.int32, device=st.device)
             self.cube_stack = None
+        self.cards = list(cards.values())
+        for card in self.cards:
+            card.bind(self, shards)
+        self.shards = shards  # kept after the run: its tables, rings and counters
         return shards
 
     def _run_once(self) -> ShardedSearchResult:
@@ -991,97 +1460,49 @@ class ShardedFrontierSearch:
             st = self.st
         shards = self._shards()
         mesh, ndev = self.mesh, self.ndev
-        cap, ragged = self.exchange_cap, self.exchange == "ragged"
-        nb, f0, pw = st.nb, st.f0, shards[0].pw
-        per = np.zeros((ndev, 5), dtype=np.int64)  # expanded, reopened, -, open, migrated
-        stats = dict(steps=0, host_reads=0, wire_rows=0, migrated=0, peak_carry=0,
-                     exchange=self.exchange, cap=cap)
-        goal_g, steps = INF, 0
+        stats = dict(driver=self.driver, exchange=self.exchange, cap=self.exchange_cap,
+                     graph_captures=0, graph_replays=0, capture_s=0.0)
         t0 = time.perf_counter()
-        while True:
-            for sh in shards:
-                sh.select()
-            h3s = [None] * len(shards)
-            if self.cubes_split:
-                gathered = mesh.all_gather([sh.coords() for sh in shards])
-                parts = [sh.partial(g.reshape(ndev * st.B, st.n))
-                         for sh, g in zip(shards, gathered)]
-                h3s = mesh.reduce_scatter(parts)
-            for sh, h3 in zip(shards, h3s):
-                sh.expand(self, h3)
-            counts = [sh.count(self) for sh in shards]
-            S_all = mesh.all_gather(counts) if ragged else [None] * len(shards)
-            for sh, S in zip(shards, S_all):
-                sh.pack(self, S)
-            rep = mesh.all_gather([sh.report() for sh in shards])[0].cpu().numpy()
-            stats["host_reads"] += 1
-            steps += 1
-            # the consensus (JAX _consensus): goal g, f-min with the carried
-            # rows' (a spilled node keeps its f in the bound), rows
-            # selected, overflow
-            route = rep[:, R_ROUTE:]
-            carry_f = carry_bound(self.layout, route[:, ndev + 2], nb, f0)
-            goal_g = int(rep[:, R_GOAL].min())
-            fmin_g = int(np.minimum(rep[:, R_FMIN], carry_f).min())
-            n_sel_g = int(rep[:, R_NSEL].sum())
-            carry_ovf = int((route[:, ndev + 1] > 0).sum())
-            table_ovf = int((rep[:, R_OVF] > 0).sum())
-            A = route_sizes(route[:, :ndev], ndev, cap, ragged)
-            per[:, 0] += rep[:, R_NSEL]
-            per[:, 1] += rep[:, R_REOPEN]
-            per[:, 3] = rep[:, R_NOPEN]
-            per[:, 4] += route[:, ndev]
-            stats["wire_rows"] += int(A.sum())
-            stats["migrated"] += int(route[:, ndev].sum())
-            stats["peak_carry"] = max(stats["peak_carry"],
-                                      int(np.minimum(np.maximum(route[:, :ndev].sum(1)
-                                                                - A.sum(1), 0),
-                                                     shards[0].ccar).max()))
-            if table_ovf or carry_ovf:
-                break
-            # the exchange: each shard's received rows, in sender order, in
-            # front of its self-owned pending lanes
-            n_recv = A.sum(0)
-            regions = [sh.recv_region(int(n_recv[sh.me])) for sh in shards]
-            if ragged:
-                off = np.cumsum(A, axis=1) - A
-                mesh.all_to_all_ragged([sh.wire for sh in shards], off, A, regions)
-            else:
-                blocks = mesh.all_to_all([sh.wire[: ndev * cap].view(ndev, cap, pw)
-                                          for sh in shards])
-                for sh, blk, region in zip(shards, blocks, regions):
-                    at = 0
-                    for i in range(ndev):
-                        k = int(A[i][sh.me])
-                        region[at:at + k].copy_(blk[i, :k])
-                        at += k
-            for sh in shards:
-                sh.insert(self, goal_g, fmin_g, n_sel_g, int(n_recv[sh.me]))
-            if fmin_g >= goal_g:
-                break
-            if steps % self.chunk_steps == 0 and steps >= self.max_steps:
-                break
+        if self.driver == "chunked":
+            c, ovf, reads = self._search_chunked(shards, stats)
+        else:
+            c, ovf, reads = self._search_host(shards)
+        if ovf is None:  # a mesh of several devices: one more read
+            ovf = [int(sh.ctr[6]) for sh in shards]
+            reads += 1
         # the last step's insert may have overflowed a table
-        table_ovf = table_ovf or int(sum(int(sh.ctr[6]) > 0 for sh in shards))
+        table_ovf = int(c[C_TOVF]) or int(sum(int(v) > 0 for v in ovf))
+        carry_ovf = int(c[C_COVF])
         if self.multiprocess:
             t = torch.tensor([table_ovf], dtype=torch.int64, device=shards[0].dev)
             table_ovf = int(mesh.all_sum([t])[0])
-        stats.update(steps=steps, search_s=time.perf_counter() - t0)
+        steps, goal_g, fmin_g = int(c[C_STEPS]), int(c[C_GOAL]), int(c[C_FMIN])
+        stats.update(steps=steps, host_reads=reads, wire_rows=int(c[C_WIRE]),
+                     migrated=int(c[C_MIGR]), peak_carry=int(c[C_PEAK]),
+                     search_s=time.perf_counter() - t0)
         self.last_stats = stats
         if table_ovf:
             raise RuntimeError(f"shard hash table overflow (per-shard capacity {st.C}"
-                               + (f"; also exchange-carry overflow, cap {cap}"
+                               + (f"; also exchange-carry overflow, cap {self.exchange_cap}"
                                   if carry_ovf else "") + "); increase capacity")
         if carry_ovf:
-            raise RuntimeError(f"exchange-carry overflow (exchange cap {cap}); increase "
-                               "exchange_cap")
+            raise RuntimeError(f"exchange-carry overflow (exchange cap {self.exchange_cap}); "
+                               "increase exchange_cap")
         if steps >= self.max_steps and fmin_g < goal_g:
             raise RuntimeError("max_steps exceeded")
         if goal_g >= INF:
             raise RuntimeError("open set exhausted without reaching the goal")
         t0 = time.perf_counter()
-        masks, rounds = self._walk(shards)
-        stats.update(walk_rounds=rounds, walk_s=time.perf_counter() - t0)
+        if self.driver == "chunked":
+            masks, rounds, walk_reads = self._walk_loop(self.cards[0], shards)
+        else:
+            masks, rounds = self._walk(shards)
+            walk_reads = rounds
+        stats.update(walk_rounds=rounds, walk_reads=walk_reads,
+                     walk_s=time.perf_counter() - t0)
+        # expanded, reopened, closed, open, migrated of each shard
+        per = np.zeros((ndev, 5), dtype=np.int64)
+        per[:, [0, 1, 3, 4]] = np.asarray(c[C_HEAD:C_HEAD + 4 * ndev]).reshape(ndev, 4)
         table = np.zeros((ndev, 2), dtype=np.int64)  # closed, open of each shard
         for sh in shards:
             n_open, n_closed = _open_closed(st, sh.tab)
@@ -1092,11 +1513,184 @@ class ShardedFrontierSearch:
         per[:, 2:4] = table
         return self._result(goal_g, steps, masks, per)
 
+    def _step(self, shards: List[_Shard]) -> Optional[np.ndarray]:
+        """One step of every local shard, with the mesh's collectives
+        between, and no host read on a mesh of one device: the sizes of the
+        exchange and the stop test stay on it (the consensus and the
+        exchange kernels), so a graph can hold the step.  A mesh of several
+        devices reads the consensus vector once, for the collectives' split
+        sizes, and returns it (else None)."""
+        st, mesh, ndev = self.st, self.mesh, self.ndev
+        one = self.one_device
+        card0 = self.cards[0]
+        for sh in shards:
+            sh.select()
+        h3s = [None] * len(shards)
+        if self.cubes_split and one:
+            # the all-gather and the reduce-scatter in place: each shard
+            # writes its row of the card's buffers
+            for sh in shards:
+                sh.coords()
+            coords_g = card0.coords.view(ndev * st.B, st.n)
+            for sh in shards:
+                sh.partial(coords_g)
+            h3s = list(torch.sum(card0.parts.view(ndev, ndev, st.B, st.M + 1), 0,
+                                 out=card0.h3))
+        elif self.cubes_split:
+            gathered = mesh.all_gather([sh.coords() for sh in shards])
+            parts = [sh.partial(g.reshape(ndev * st.B, st.n)) for sh, g in zip(shards, gathered)]
+            h3s = mesh.reduce_scatter(parts)
+        for sh, h3 in zip(shards, h3s):
+            sh.expand(self, h3)
+        counts = [sh.count(self) for sh in shards]
+        S_all = [None] * len(shards)
+        if self.exchange == "ragged":
+            S_all = mesh.all_gather(counts, out=card0.counts) if one else mesh.all_gather(counts)
+        for sh, S in zip(shards, S_all):
+            sh.pack(self, S)
+        c = None
+        if one:  # the consensus reads each shard's report where it lies
+            card0.consensus(self, None)
+            card0.exchange(self, shards)
+        else:
+            reps = mesh.all_gather([sh.report() for sh in shards])
+            for card in self.cards:
+                card.consensus(self, reps[card.first])
+            c = card0.cons.cpu().numpy()
+            if not (c[C_TOVF] or c[C_COVF]):
+                self._exchange_host(shards, cons_sizes(c, ndev))
+        for sh in shards:
+            sh.insert(self)
+        return c
+
+    def _exchange_host(self, shards: List[_Shard], A: np.ndarray) -> None:
+        """The exchange of a mesh of several devices, sized by the host's
+        copy of A (NCCL's and the peer copies' split sizes): each shard's
+        received rows, in sender order, just before row R of its pending
+        list, where the insert reads them (the consensus wrote their
+        count)."""
+        ndev, cap = self.ndev, self.exchange_cap
+        n_recv = A.sum(0)
+        regions = [sh.pend[sh.R - int(n_recv[sh.me]): sh.R] for sh in shards]
+        if self.exchange == "ragged":
+            off = np.cumsum(A, axis=1) - A
+            self.mesh.all_to_all_ragged([sh.wire for sh in shards], off, A, regions)
+            return
+        pw = shards[0].pw
+        blocks = self.mesh.all_to_all([sh.wire[: ndev * cap].view(ndev, cap, pw)
+                                       for sh in shards])
+        for sh, blk, region in zip(shards, blocks, regions):
+            at = 0
+            for i in range(ndev):
+                k = int(A[i][sh.me])
+                region[at:at + k].copy_(blk[i, :k])
+                at += k
+
+    def _read(self, shards: List[_Shard]) -> Tuple[np.ndarray, np.ndarray]:
+        """One host read on a mesh of one device: the consensus vector and
+        every shard's overflow counter (its last insert's overflow shows in
+        the consensus only a step later)."""
+        v = torch.cat([self.cards[0].cons, torch.stack([sh.ctr[6] for sh in shards])])
+        v = v.cpu().numpy()
+        return v[:-len(shards)], v[-len(shards):]
+
+    def _search_host(self, shards: List[_Shard]):
+        """The host driver: one step a host read of the consensus vector
+        (the stop test on the host; max_steps checked at the end of every
+        chunk_steps steps).  Returns (the last consensus vector, the
+        shards' overflow counters or None, reads)."""
+        reads = 0
+        while True:
+            c, ovf = self._step(shards), None
+            if c is None:
+                c, ovf = self._read(shards)
+            reads += 1
+            steps = int(c[C_STEPS])
+            if not c[C_RUN] or (steps % self.chunk_steps == 0 and steps >= self.max_steps):
+                return c, ovf, reads
+
+    def _search_chunked(self, shards: List[_Shard], stats: dict):
+        """The chunked driver on a mesh of one device: ``chunk_steps``
+        steps a host read (``_read``; JAX reads its counters once a chunk,
+        :1410), max_steps checked once a chunk (:1430).  On a card a chunk
+        is one CUDA graph, replayed (``_chunk_graph``); the steps after the
+        stop do nothing.  Returns as ``_search_host``."""
+        card = self.cards[0]
+        reads, steps = 0, 0
+        while True:
+            if card.cuda:
+                parity = shards[0].cur
+                with torch.cuda.device(card.dev):
+                    g = self._chunk_graph(card, shards, parity, stats)
+                    g.graph.replay()
+                _kernels.replayed(g.tally)
+                stats["graph_replays"] += 1
+            else:
+                for _ in range(self.chunk_steps):
+                    self._step(shards)
+            c, ovf = self._read(shards)
+            reads += 1
+            if card.cuda:
+                # each step that ran packed into the other ring
+                for sh in shards:
+                    sh.cur = (parity + int(c[C_STEPS]) - steps) % 2
+            steps = int(c[C_STEPS])
+            if not c[C_RUN] or steps >= self.max_steps:
+                return c, ovf, reads
+
+    def _chunk_graph(self, card: _Card, shards: List[_Shard], parity: int, stats: dict):
+        """The chunk's CUDA graph for rings starting at ``parity``:
+        captured at the first chunk that needs it and replayed after (every
+        buffer it holds is the run's).  Before the first capture every C
+        entry of the step is launched once with the run flag at 0 (each
+        returns at once; a C entry's first call queries the card, which a
+        capture must not do).  A failed capture raises."""
+        from ..search import step as S
+
+        if parity in card.graphs:
+            return card.graphs[parity]
+        t0 = time.perf_counter()
+        curs = [sh.cur for sh in shards]
+        if not card.warm:
+            run = card.run.clone()
+            card.run.zero_()
+            self._step(shards)
+            card.run.copy_(run)
+            card.warm = True
+            torch.cuda.synchronize(card.dev)
+        t1 = time.perf_counter()
+        for sh in shards:
+            sh.cur = parity
+        tally: Dict[str, int] = {}
+        host = [0.0]
+
+        def chunk():
+            t = time.perf_counter()
+            for _ in range(self.chunk_steps):
+                self._step(shards)
+            host[0] += time.perf_counter() - t
+
+        with _kernels.capturing(tally):
+            graph = S._capture(chunk)
+        for sh, cur in zip(shards, curs):
+            sh.cur = cur
+        card.graphs[parity] = S.ChunkGraph(parity, graph, tally)
+        t2 = time.perf_counter()
+        # the capture's host seconds: the warm-up step, the steps' host code
+        # while captured, and the rest (instantiation and capture's ends)
+        stats["graph_captures"] += 1
+        stats["capture_s"] += t2 - t0
+        stats["capture_warm_s"] = stats.get("capture_warm_s", 0.0) + t1 - t0
+        stats["capture_host_s"] = stats.get("capture_host_s", 0.0) + host[0]
+        stats["capture_instantiate_s"] = (stats.get("capture_instantiate_s", 0.0)
+                                          + t2 - t1 - host[0])
+        return card.graphs[parity]
+
     def _walk(self, shards: List[_Shard]) -> Tuple[List[int], int]:
-        """The batched distributed walk (JAX ``_make_batched_walk``): rounds
-        of at most WALK_HOPS hops on every shard's table, summed by the
-        mesh, one host read a round; it stops at the origin or when a round
-        makes no progress."""
+        """The batched distributed walk (JAX ``_make_batched_walk``) of the
+        host driver: rounds of at most WALK_HOPS hops on every shard's
+        table, summed by the mesh, one host read a round; it stops at the
+        origin or when a round makes no progress."""
         n = self.st.n
         coord = [int(v) for v in self.problem.final_coord]
         masks, rounds = [], 0
@@ -1114,16 +1708,74 @@ class ShardedFrontierSearch:
             raise RuntimeError("distributed backtrace did not reach the origin")
         return masks, rounds
 
+    def _walk_loop(self, card: _Card, shards: List[_Shard]) -> Tuple[List[int], int, int]:
+        """The batched distributed walk of the chunked driver on a mesh of
+        one device, as a device loop (JAX ``_make_batched_walk``'s
+        while_loop, :545): a round is every shard's K7 hop mode from the
+        coordinate on the device, then ``walk_advance``, which sums the
+        runs, appends the masks and moves the coordinate on; WALK_ROUNDS
+        rounds a replay (on a card one CUDA graph) and one host read a
+        replay, until the walk's flag reads 0.  Returns (masks, rounds,
+        host reads); raises as ``_walk``."""
+        from ..search import step as S
+
+        st, n, hops, dev = self.st, self.st.n, WALK_HOPS, card.dev
+        final = [int(v) for v in self.problem.final_coord]
+        i32 = dict(dtype=torch.int32)
+        params = torch.tensor(final + list(st.bitw), **i32).to(dev)
+        masks = torch.zeros(sum(final) + hops, **i32).to(dev)
+        wst = torch.zeros(2, **i32).to(dev)  # masks emitted, rounds
+        wrun = torch.tensor([int(any(final))], **i32).to(dev)
+        wout = torch.zeros((self.ndev, hops + n + 1), **i32).to(dev)
+        advance = walk_advance_cuda if card.cuda else walk_advance_plain
+
+        def rounds(k: int) -> None:
+            for _ in range(k):
+                for sh in shards:
+                    sh.walk_hops(params, hops, out=wout[sh.me], run=wrun)
+                advance(wout, hops, n, params, masks, wst, wrun)
+
+        graph = None
+        if card.cuda:
+            with torch.cuda.device(dev):
+                go = wrun.clone()
+                wrun.zero_()
+                rounds(1)  # each C entry once, returning at once, before the capture
+                wrun.copy_(go)
+                tally: Dict[str, int] = {}
+                with _kernels.capturing(tally):
+                    graph = S._capture(lambda: rounds(WALK_ROUNDS))
+        reads = 0
+        while True:
+            if graph is not None:
+                with torch.cuda.device(dev):
+                    graph.replay()
+                _kernels.replayed(tally)
+            else:
+                rounds(WALK_ROUNDS)
+            # the replay's one read: its flag, counts, coordinate and masks
+            v = torch.cat([wrun, wst, params[:n], masks]).cpu().tolist()
+            reads += 1
+            if not v[0]:
+                break
+        n_masks, n_rounds, coord = v[1], v[2], v[3:3 + n]
+        if any(coord):
+            raise RuntimeError("distributed backtrace did not reach the origin")
+        return v[3 + n:3 + n + n_masks], n_rounds, reads
+
     def _run_single(self) -> ShardedSearchResult:
         """One shard, dense: the single-table search (JAX's ndev == 1 fast
-        path), the engine's own chunk and walk."""
+        path), the engine's own chunk (one step a chunk under the host
+        driver, as FrontierSearch's) and walk."""
         st = self.st
         tab = _shard_table(st, self.layout, self.h_root, True)
         ctr = torch.as_tensor(fresh_counters(), device=st.device)
+        host = self.driver == "host"
         t0 = time.perf_counter()
         chunks = 0
         while True:
-            ctr = _run_chunk(st, tab, ctr, self.chunk_steps, self.ub, self.fill, self.layout)
+            ctr = _run_chunk(st, tab, ctr, 1 if host else self.chunk_steps, self.ub, self.fill,
+                             self.layout, graph=not host)
             chunks += 1
             c = ctr.tolist()
             goal_v, fmin_v, steps, expanded, reopened, _, overflow = c[:7]
@@ -1131,7 +1783,7 @@ class ShardedFrontierSearch:
                 break
         self.last_stats = dict(steps=steps, host_reads=chunks, wire_rows=0, migrated=0,
                                peak_carry=0, exchange="none", cap=self.exchange_cap,
-                               search_s=time.perf_counter() - t0)
+                               driver=self.driver, search_s=time.perf_counter() - t0)
         if overflow > 0:
             raise RuntimeError(f"shard hash table overflow (per-shard capacity {st.C}); "
                                "increase capacity")
@@ -1143,7 +1795,7 @@ class ShardedFrontierSearch:
         masks, coord = walk(st, tab, self.layout)
         if np.any(coord != 0):
             raise RuntimeError("distributed backtrace did not reach the origin")
-        self.last_stats.update(walk_rounds=1, walk_s=time.perf_counter() - t0)
+        self.last_stats.update(walk_rounds=1, walk_reads=1, walk_s=time.perf_counter() - t0)
         n_open, n_closed = _open_closed(st, tab)
         per = np.array([[expanded, reopened, n_closed, n_open, 0]], dtype=np.int64)
         return self._result(goal_v, steps, [int(m) for m in masks], per)

@@ -156,31 +156,34 @@ def _scalar(x, name: str, dev) -> torch.Tensor:
 
 
 def select_best_cuda(st: _Static, t_best, t_closed, goal_g, thr, run=None,
-                     bufs: "StepBuffers" = None):
+                     bufs: "StepBuffers" = None, launch=None):
     """K3 (``csrc/select_best.cu``): ``engine._select_best_plain`` on the
     card, the same outputs: (slots, vmin, active, fmin, n_open, n_selected,
     reopen_ct) with t_closed updated in place.  The four counts are 0-d
     views of the step's state vector.  ``run`` is the step loop's flag (the
     kernels return at once when it reads 0); ``bufs`` the loop's buffers
-    (default: new outputs)."""
+    (default: new outputs); ``launch`` takes the checked C arguments in
+    place of ``_kernels.launch`` (a caller that binds them once)."""
     dev = _cuda_device(t_best, "t_best")
     _check(t_best, "t_best", dev, torch.int32, st.C)
     _check(t_closed, "t_closed", dev, torch.int32, st.C)
-    return _launch_select(st, dev, _select_args, t_best, t_closed, goal_g, thr, run, bufs)
+    return _launch_select(st, dev, _select_args, t_best, t_closed, goal_g, thr, run, bufs,
+                          launch)
 
 
 def select_open_cuda(st: _Static, t_state, t_fpar, goal_g, thr, run=None,
-                     bufs: "StepBuffers" = None):
+                     bufs: "StepBuffers" = None, launch=None):
     """K3's unpacked instantiation (``select_best_unpacked``):
     ``engine._select_open_plain`` on the card, the same outputs, t_state
     updated in place; the rest as ``select_best_cuda``."""
     dev = _cuda_device(t_state, "t_state")
     _check(t_state, "t_state", dev, torch.int32, st.C)
     _check(t_fpar, "t_fpar", dev, torch.int64, st.C)
-    return _launch_select(st, dev, _select_open_args, t_state, t_fpar, goal_g, thr, run, bufs)
+    return _launch_select(st, dev, _select_open_args, t_state, t_fpar, goal_g, thr, run, bufs,
+                          launch)
 
 
-def _launch_select(st, dev, args, a, b, goal_g, thr, run, bufs):
+def _launch_select(st, dev, args, a, b, goal_g, thr, run, bufs, launch=None):
     """One select launch on checked tables ``a``, ``b`` (``args`` gives
     the C arguments); the outputs as ``select_best_cuda``."""
     goal = _scalar(goal_g, "goal_g", dev)
@@ -189,7 +192,7 @@ def _launch_select(st, dev, args, a, b, goal_g, thr, run, bufs):
         _check(run, "run", dev, torch.int32)
     if bufs is None:
         bufs = StepBuffers.select_only(st, dev)
-    _kernels.launch(*args(st, a, b, goal, thr, run, bufs, _stream(dev)))
+    (launch or _kernels.launch)(*args(st, a, b, goal, thr, run, bufs, _stream(dev)))
     s = bufs.state
     return (bufs.slots, bufs.vmin, bufs.active, s[STATE_FMIN], s[STATE_NOPEN],
             s[STATE_NSEL], s[STATE_REOPEN])
@@ -362,11 +365,19 @@ def _expand_args(st, tab, bufs, counters, ub, stream, *, entry: str = "sig_expan
             bufs.pend.data_ptr() + 4 * 3 * pend_at, *sharded, stream)
 
 
-def _probe_args(st, tab, bufs, counters, fill, blocks, cap, stream) -> tuple:
-    return ("sig_probe", tab.t_sig.data_ptr(), tab.t_best.data_ptr(), bufs.pend.data_ptr(),
-            bufs.lane_cur.data_ptr(), bufs.lane_dest.data_ptr(), bufs.lane_word.data_ptr(),
-            st.bbits, st.max_bprobes, st.max_probes, int(fill), int(cap), bufs.run.data_ptr(),
-            counters.data_ptr(), bufs.state.data_ptr(), int(blocks), stream)
+def _probe_args(st, tab, bufs, counters, fill, blocks, cap, stream, pend_at: int = 0,
+                recv=None, run=None) -> tuple:
+    """K5's launch over the pending lanes from row ``pend_at`` of
+    ``bufs.pend``; with ``recv`` (the sharded step) the int32 count of
+    rows received just before that row, read on the card, and ``run`` the
+    insert's own flag (default ``bufs.run``)."""
+    run = bufs.run if run is None else run
+    return ("sig_probe", tab.t_sig.data_ptr(), tab.t_best.data_ptr(),
+            bufs.pend.data_ptr() + 4 * 3 * pend_at, bufs.lane_cur.data_ptr(),
+            bufs.lane_dest.data_ptr(), bufs.lane_word.data_ptr(), st.bbits, st.max_bprobes,
+            st.max_probes, int(fill), int(cap), run.data_ptr(), counters.data_ptr(),
+            bufs.state.data_ptr(), int(blocks), None if recv is None else recv.data_ptr(),
+            stream)
 
 
 def _check_keyrow(st: _Static, tab, counters, cubes: bool = True):
@@ -441,21 +452,24 @@ def _keyrow_expand_args(st, tab, bufs, counters, ub, stream, *, entry: str = "ke
 
 
 def _keyrow_insert_args(st, tab, bufs, counters, fill, blocks, cap, stream,
-                        pend_at: Optional[int] = None, n_front: int = 0) -> tuple:
+                        pend_at: Optional[int] = None, recv=None, run=None) -> tuple:
     """K10's launch; with ``pend_at`` the sharded entry
     ``keyrow_insert_recv`` over the pending entries from row ``pend_at`` of
-    ``bufs.pend``, whose first ``n_front`` are received rows."""
+    ``bufs.pend``, preceded by the received rows, whose int32 count
+    ``recv`` holds on the card, and ``run`` the insert's own flag (default
+    ``bufs.run``)."""
     unpacked = isinstance(tab, UnpackedTable)
     ptr = lambda name: getattr(tab, name).data_ptr() if hasattr(tab, name) else None
     pend = bufs.pend.data_ptr() + 4 * bufs.pend.shape[1] * (pend_at or 0)
+    run = bufs.run if run is None else run
     args = (tab.t_key.data_ptr(), tab.t_key.shape[1], st.n, st.C, tab.claim.data_ptr(),
             ptr("t_best"), ptr("t_g"), ptr("t_fpar"), ptr("t_state"), int(unpacked), pend,
             bufs.lane_cur.data_ptr(), bufs.lane_dest.data_ptr(), st.max_probes, int(fill),
-            bufs.run.data_ptr(), counters.data_ptr(), bufs.state.data_ptr(), int(blocks),
+            run.data_ptr(), counters.data_ptr(), bufs.state.data_ptr(), int(blocks),
             bufs.tail.data_ptr(), int(cap))
     if pend_at is None:
         return ("keyrow_insert", *args, stream)
-    return ("keyrow_insert_recv", *args, int(n_front), stream)
+    return ("keyrow_insert_recv", *args, recv.data_ptr(), stream)
 
 
 def k10_grid_syncs(rounds: int, tail: int, cap: int, unpacked: bool) -> int:
@@ -689,14 +703,16 @@ def _walk_args(st: _Static, tab, layout: str):
 
 
 def expand_sharded_cuda(st: _Static, tab: SigTable, bufs: StepBuffers, counters, ub: int,
-                        h3, cand, pend_at: int, hash_params: tuple, ndev: int, me: int) -> None:
+                        h3, cand, pend_at: int, hash_params: tuple, ndev: int, me: int,
+                        launch=None) -> None:
     """K4's sharded instantiation (``sig_expand_sharded``) over K3's compact
     list in ``bufs``: as the unsharded K4, with h3 ((B, M + 1) int32 from
     K12 after the reduce-scatter, or None: the shard reads its own cubes)
     in place of the cube reads, every lane's candidate row written to
     ``cand`` ((B M, 4) int32) and only self-owned lanes matched in their
     home row, the unmatched appended to ``bufs.pend`` from row
-    ``pend_at``.  ``hash_params``: partition.owner_params."""
+    ``pend_at``.  ``hash_params``: partition.owner_params; ``launch`` as
+    ``select_best_cuda``'s."""
     dev = _check_step(st, tab, counters, cubes=False)
     L = st.B * st.M
     _check(cand, "cand", dev, torch.int32, 4 * L)
@@ -705,43 +721,71 @@ def expand_sharded_cuda(st: _Static, tab: SigTable, bufs: StepBuffers, counters,
         _check(h3, "h3", dev, torch.int32, st.B * (st.M + 1))
     elif st.T3:
         _check(st.d_cubes, "cubes", dev, torch.int32, st.T3 * st.S ** 3)
-    _kernels.launch(*_expand_args(
+    (launch or _kernels.launch)(*_expand_args(
         st, tab, bufs, counters, ub, _stream(dev), entry="sig_expand_sharded",
         cubes=h3 is None, pend_at=pend_at,
         sharded=(None if h3 is None else h3.data_ptr(), cand.data_ptr(), *hash_params, ndev,
                  me)))
 
 
+def _check_recv(recv, run, dev, pend_at: int, n_rows: int, lanes: int, name: str) -> None:
+    """The sharded insert's received count and flag: int32 words on the
+    card; at most ``pend_at`` rows (the received region ends there) and
+    room for the lanes of the whole list."""
+    _check(recv, "recv", dev, torch.int32)
+    if run is not None:
+        _check(run, "run", dev, torch.int32)
+    if not 0 <= pend_at <= n_rows or lanes < n_rows:
+        raise ValueError(f"{name}: received rows end at {pend_at} of {n_rows} pending rows, "
+                         f"{lanes} lanes")
+
+
 def probe_pending_cuda(st: _Static, tab: SigTable, bufs: StepBuffers, counters, fill: int,
-                       pend_at: int, blocks: int = 0, cap: int = K5_CAP) -> None:
-    """K5 (``sig_probe``) over the pending lanes from row ``pend_at`` of
-    ``bufs.pend``, ``state[STATE_NPEND]`` of them: in the sharded step the
-    received rows followed by K4's self-owned unmatched lanes."""
+                       pend_at: int, recv: torch.Tensor, run: Optional[torch.Tensor] = None,
+                       blocks: int = 0, cap: int = K5_CAP, launch=None) -> None:
+    """K5 (``sig_probe``) over the pending lanes of the sharded step:
+    ``recv[0]`` received rows (a count on the card, which the consensus
+    wrote) ending at row ``pend_at`` of ``bufs.pend``, then K4's self-owned
+    unmatched lanes from it, ``state[STATE_NPEND]`` lanes in all.  ``run``
+    is the insert's flag (default ``bufs.run``); ``launch`` as
+    ``select_best_cuda``'s."""
     dev = _check_step(st, tab, counters, cubes=False)
-    n_rows = bufs.pend.shape[0]
-    if not 0 <= pend_at <= n_rows or bufs.lane_cur.numel() < n_rows - pend_at:
-        raise ValueError(f"K5: pending rows from {pend_at} of {n_rows}")
-    args = list(_probe_args(st, tab, bufs, counters, fill, blocks, cap, _stream(dev)))
-    args[3] = bufs.pend.data_ptr() + 4 * 3 * pend_at
-    _kernels.launch(*args)
+    _check_recv(recv, run, dev, pend_at, bufs.pend.shape[0], bufs.lane_cur.numel(), "K5")
+    (launch or _kernels.launch)(*_probe_args(st, tab, bufs, counters, fill, blocks, cap,
+                                             _stream(dev), pend_at, recv, run))
 
 
-def walk_hops_cuda(st: _Static, tab, coord, hops: int, layout: str = "sig") -> torch.Tensor:
+def walk_hops_cuda(st: _Static, tab, coord, hops: int, layout: str = "sig",
+                   out: Optional[torch.Tensor] = None, run: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """K7's hop-limited mode (``path_walk_hops``): at most ``hops`` steps
     of the walk from ``coord`` on this shard's table of ``layout``,
     stopping at the origin or at a node the table does not hold.  Returns
-    the device buffer (hops + N + 1,) int32: the run of masks (0 past its
-    end), the coordinate it stopped at, the run's length (no host read).
-    Raises ValueError as ``walk_cuda``."""
+    the device buffer (hops + N + 1,) int32 (``out``, or a new one): the
+    run of masks (0 past its end), the coordinate it stopped at, the run's
+    length (no host read).  ``coord``: N ints, or the walk loop's int32
+    params on the card ([coordinate, key bit widths], which walk_advance
+    moves on); ``run``: the walk loop's flag (the launch returns at once
+    when it reads 0).  Raises ValueError as ``walk_cuda``."""
     if not 1 <= hops <= 64:
         raise ValueError(f"K7 hop mode: hops {hops}, need 1 .. 64")
     dev, code, keys, stride, best, fpar, probes = _walk_table(st, tab, layout)
-    params = torch.tensor([int(v) for v in coord] + list(st.bitw),
-                          dtype=torch.int32).to(dev)
-    out = torch.empty(hops + st.n + 1, dtype=torch.int32, device=dev)
+    if isinstance(coord, torch.Tensor):
+        _check(coord, "params", dev, torch.int32, 2 * st.n)
+        params = coord
+    else:
+        params = torch.tensor([int(v) for v in coord] + list(st.bitw),
+                              dtype=torch.int32).to(dev)
+    if out is None:
+        out = torch.empty(hops + st.n + 1, dtype=torch.int32, device=dev)
+    _check(out, "out", dev, torch.int32, hops + st.n + 1)
+    if run is not None:
+        _check(run, "run", dev, torch.int32)
     _kernels.launch("path_walk_hops", code, keys, stride, best, fpar, st.n, st.C, st.bbits,
-                    probes, params.data_ptr(), hops, out.data_ptr(), _stream(dev))
-    out._params = params  # kept alive until the launch has run
+                    probes, params.data_ptr(), hops, out.data_ptr(),
+                    None if run is None else run.data_ptr(), _stream(dev))
+    if params is not coord:
+        out._params = params  # kept alive until the launch has run
     return out
 
 
@@ -751,7 +795,7 @@ def walk_hops_cuda(st: _Static, tab, coord, hops: int, layout: str = "sig") -> t
 
 def expand_keyrow_sharded_cuda(st: _Static, tab, bufs: StepBuffers, counters, ub: int, h3,
                                cand, pend_at: int, hash_params: tuple, ndev: int, me: int,
-                               tag_base: int) -> None:
+                               tag_base: int, launch=None) -> None:
     """K9's sharded instantiation (``keyrow_expand_sharded``) over K3's
     compact list in ``bufs``: as the unsharded K9, with h3 ((B, M + 1) int32
     from K12 after the reduce-scatter, packed only; or None: the shard
@@ -760,7 +804,7 @@ def expand_keyrow_sharded_cuda(st: _Static, tab, bufs: StepBuffers, counters, ub
     the pending entry) and only self-owned lanes matched in their home row
     (packed) or pending, appended to ``bufs.pend`` from row ``pend_at``,
     their claim tags from ``tag_base``.  ``hash_params``:
-    partition.owner_params."""
+    partition.owner_params; ``launch`` as ``select_best_cuda``'s."""
     dev, layout = _check_keyrow(st, tab, counters, cubes=h3 is None)
     L = st.B * st.M
     pw = bufs.pend.shape[1]
@@ -776,7 +820,7 @@ def expand_keyrow_sharded_cuda(st: _Static, tab, bufs: StepBuffers, counters, ub
         _check(h3, "h3", dev, torch.int32, st.B * (st.M + 1))
     if not 0 <= tag_base or tag_base + L >= 2**31:
         raise ValueError(f"claim tags from {tag_base}: {L} lanes must stay below 2^31")
-    _kernels.launch(*_keyrow_expand_args(
+    (launch or _kernels.launch)(*_keyrow_expand_args(
         st, tab, bufs, counters, ub, _stream(dev), entry="keyrow_expand_sharded",
         cubes=h3 is None, pend_at=pend_at,
         sharded=(None if h3 is None else h3.data_ptr(), cand.data_ptr(), 2 + pw, *hash_params,
@@ -784,16 +828,19 @@ def expand_keyrow_sharded_cuda(st: _Static, tab, bufs: StepBuffers, counters, ub
 
 
 def insert_pending_cuda(st: _Static, tab, bufs: StepBuffers, counters, fill: int, pend_at: int,
-                        n_front: int, blocks: int = 0, cap: int = K10_CAP) -> None:
-    """K10 (``keyrow_insert_recv``) over the pending entries from row
-    ``pend_at`` of ``bufs.pend``, ``state[STATE_NPEND]`` of them: in the
-    sharded step the ``n_front`` received rows, each claiming with its
-    place in the list, then K9's self-owned pending lanes."""
+                        recv: torch.Tensor, run: Optional[torch.Tensor] = None, blocks: int = 0,
+                        cap: int = K10_CAP, launch=None) -> None:
+    """K10 (``keyrow_insert_recv``) over the pending entries of the
+    sharded step: ``recv[0]`` received rows (a count on the card, which the
+    consensus wrote) ending at row ``pend_at`` of ``bufs.pend``, each
+    claiming with its place in the list, then K9's self-owned pending lanes
+    from it, ``state[STATE_NPEND]`` entries in all.  ``run`` is the
+    insert's flag (default ``bufs.run``); ``launch`` as
+    ``select_best_cuda``'s."""
     dev, _ = _check_keyrow(st, tab, counters, cubes=False)
-    n_rows = bufs.pend.shape[0]
-    if not 0 <= n_front <= pend_at + n_front <= n_rows or bufs.lane_cur.numel() < n_rows - pend_at:
-        raise ValueError(f"K10: pending rows from {pend_at} of {n_rows}, {n_front} received")
+    _check_recv(recv, run, dev, pend_at, bufs.pend.shape[0], bufs.lane_cur.numel(), "K10")
     if not 0 <= cap <= K10_CAP:
         raise ValueError(f"K10 cap {cap}: need 0 .. {K10_CAP}")
-    _kernels.launch(*_keyrow_insert_args(st, tab, bufs, counters, fill, blocks, cap, _stream(dev),
-                                         pend_at=pend_at, n_front=n_front))
+    (launch or _kernels.launch)(*_keyrow_insert_args(
+        st, tab, bufs, counters, fill, blocks, cap, _stream(dev), pend_at=pend_at, recv=recv,
+        run=run))

@@ -3,9 +3,11 @@
 packed and unpacked step kernels K3, K9 and K10 on both of K10's paths,
 the path walk K7, and the sharded step's K4 sharded, K11, K12 and K7's hop
 mode, and on key rows K9s, K11, K10 on received rows, K7's hop mode and
-keyrow_coords) against their plain PyTorch versions, the chunk graph (K6) against
-the eager chunk, and the port's main path, its table layouts and the
-sharded engine on four shards of one card on the GPU.
+keyrow_coords, and the sharded loop's consensus, exchange and walk_advance)
+against their plain PyTorch versions, the chunk graph (K6) against the
+eager chunk, the sharded chunk graph (K6s) against the host driver, and the
+port's main path, its table layouts and the sharded engine on four shards
+of one card on the GPU.
 They skip on a host without a CUDA device.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1107,7 +1109,8 @@ def test_host_driver_and_checkpoint_on_card(cuda, tmp_path, layout):
 
 
 def _sharded_capture(cuda, name="kinase.fasta", at=60, **kw):
-    """A sharded search on [cuda] * 4 through ShardedFrontierSearch.run,
+    """A sharded search on [cuda] * 4 through ShardedFrontierSearch.run
+    under the host driver (the capture reads the card between kernels),
     with shard 1's inputs and outputs of each kernel at step ``at``."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
@@ -1153,7 +1156,7 @@ def _sharded_capture(cuda, name="kinase.fasta", at=60, **kw):
         for m, fn in (("select", select), ("expand", expand), ("count", count), ("pack", pack)):
             setattr(SH._Shard, m, fn)
         _kernels.reset_counts()
-        eng = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, **kw)
+        eng = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, driver="host", **kw)
         res = eng.run()
     finally:
         for m, fn in methods.items():
@@ -1211,10 +1214,11 @@ def test_k4_sharded_and_k11_equal_plain(cuda):
     stream = torch.cuda.current_stream().cuda_stream
     _kernels.launch("route_count", cap["cand_route"].data_ptr(), cap["ring"].data_ptr(),
                     nsel.data_ptr(), M, cap["cand_route"].shape[0], sh.ccar, 4, sh.seg,
-                    out.data_ptr(), keys.data_ptr(), stream)
+                    out.data_ptr(), keys.data_ptr(), None, stream)
     _kernels.launch("route_pack", cap["cand_route"].data_ptr(), cap["ring"].data_ptr(),
                     nsel.data_ptr(), M, sh.ccar, 4, me, eng.exchange_cap, None, sh.seg,
-                    out.data_ptr(), keys.data_ptr(), wire.data_ptr(), ring.data_ptr(), stream)
+                    out.data_ptr(), keys.data_ptr(), wire.data_ptr(), ring.data_ptr(), None,
+                    stream)
     w, r, o = SH.route_plain(cap["cand_route"], cap["nsel"] * M, cap["ring"], 4, me,
                              eng.exchange_cap)
     assert torch.equal(out, o) and torch.equal(ring, r)
@@ -1248,7 +1252,7 @@ def test_k12_and_coords_equal_plain(cuda):
         bitw = torch.tensor(st.bitw, dtype=torch.int32, device=cuda)
         _kernels.launch("sig_coords", sh.tab.t_sig.data_ptr(), sel.data_ptr(),
                         state[2:3].data_ptr(), bitw.data_ptr(), st.n, st.bbits, st.B,
-                        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                        out.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
         assert torch.equal(out, SH.sig_coords_plain(st, sh.tab.t_sig, sel, slots.numel(), st.B))
 
 
@@ -1354,10 +1358,11 @@ def _k11_run(cuda, case, counts, cap, ccar, f_range, ragged, pack=None):
     stream = torch.cuda.current_stream().cuda_stream
     for _ in range(2):
         _kernels.launch("route_count", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
-                        lanes_cap, ccar, ndev, seg, out.data_ptr(), keys.data_ptr(), stream)
+                        lanes_cap, ccar, ndev, seg, out.data_ptr(), keys.data_ptr(), None,
+                        stream)
         args = (cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M, ccar, ndev, me, cap,
                 None if Smat is None else Smat.data_ptr(), seg, out.data_ptr(),
-                keys.data_ptr(), wire.data_ptr(), ring.data_ptr(), stream)
+                keys.data_ptr(), wire.data_ptr(), ring.data_ptr(), None, stream)
         if pack is None:
             _kernels.launch("route_pack", *args)
         else:
@@ -1420,9 +1425,9 @@ def test_k11_barriers_counted(cuda, k11_barrier_build, case, counts, cap, ccar, 
 
 def _keyrow_sharded_capture(cuda, name, layout, at, **kw):
     """A sharded search of ``layout`` on [cuda] * 4 through
-    ShardedFrontierSearch.run, with shard 1's inputs and outputs of K9s,
-    K11 and K10 at step ``at``; ``name`` a golden input or a tuple of
-    sequences (then no golden)."""
+    ShardedFrontierSearch.run under the host driver, with shard 1's inputs
+    and outputs of K9s, K11 and K10 at step ``at``; ``name`` a golden input
+    or a tuple of sequences (then no golden)."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
     from mpi_pastar_msa_tpu_torch.search import step as TS
 
@@ -1468,14 +1473,14 @@ def _keyrow_sharded_capture(cuda, name, layout, at, **kw):
             cap.update(S=None if S_all is None else S_all.clone(), wire=sh.wire.clone(),
                        ring1=sh.ring.clone(), route_out=sh.route_out.clone())
 
-    def insert_pending(st, tab, bufs, ctr, fill, pend_at, n_front, **kw2):
+    def insert_pending(st, tab, bufs, ctr, fill, pend_at, recv, **kw2):
         me = "sh" in cap and on(cap["sh"]) and tab is cap["sh"].tab
         if me:
-            n = int(bufs.state[6])
+            n, n_front = int(bufs.state[6]), int(recv[0])
+            at = pend_at - n_front
             cap.update(k10_tab0=clone(tab), k10_ctr0=ctr.clone(), k10_state0=bufs.state.clone(),
-                       k10_rows=bufs.pend[pend_at:pend_at + n].clone(), n_front=n_front,
-                       fill=fill)
-        insert(st, tab, bufs, ctr, fill, pend_at, n_front, **kw2)
+                       k10_rows=bufs.pend[at:at + n].clone(), n_front=n_front, fill=fill)
+        insert(st, tab, bufs, ctr, fill, pend_at, recv, **kw2)
         if me:
             cap.update(k10_tab1=clone(tab), k10_ctr1=ctr.clone(), k10_state1=bufs.state.clone())
 
@@ -1484,7 +1489,8 @@ def _keyrow_sharded_capture(cuda, name, layout, at, **kw):
             setattr(SH._Shard, m, fn)
         TS.insert_pending_cuda = insert_pending
         _kernels.reset_counts()
-        eng = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, layout=layout, **kw)
+        eng = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, layout=layout,
+                                       driver="host", **kw)
         res = eng.run()
     finally:
         for m, fn in methods.items():
@@ -1642,11 +1648,11 @@ def test_k11_rows_equal_plain_synthetic(cuda, layout, case, counts, cap, ccar, f
     for _ in range(2):
         _kernels.launch("route_count_rows", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
                         lanes_cap, ccar, ndev, seg, width, 3, fill[1], out.data_ptr(),
-                        keys.data_ptr(), stream)
+                        keys.data_ptr(), None, stream)
         _kernels.launch("route_pack_rows", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
                         ccar, ndev, me, cap, None if Smat is None else Smat.data_ptr(), seg,
                         width, 3, fill[1], out.data_ptr(), keys.data_ptr(), wire.data_ptr(),
-                        ring.data_ptr(), stream)
+                        ring.data_ptr(), None, stream)
         torch.cuda.synchronize()
         assert torch.equal(out, o_p), (out.tolist(), o_p.tolist())
         assert torch.equal(ring, r_p)
@@ -1685,6 +1691,248 @@ def test_k7_hop_mode_keyrow_and_coords_equal_plain(cuda, layout):
         out = torch.empty((st.B, st.n), dtype=torch.int32, device=cuda)
         _kernels.launch("keyrow_coords", sh.tab.t_key.data_ptr(), sh.tab.t_key.shape[1],
                         sel.data_ptr(), state[2:3].data_ptr(), st.n, st.B, out.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
+                        None, torch.cuda.current_stream().cuda_stream)
         assert torch.equal(out, SH.keyrow_coords_plain(st, sh.tab.t_key, sel, slots.numel(),
                                                        st.B))
+
+
+# --- the sharded loop on the card (csrc/shard_loop.cu, K6s): consensus,
+# exchange and walk_advance against their plain versions, and a chunk
+# graph of the whole mesh against the host driver
+
+
+def _loop_reports(rng, ndev, cap, unpacked, case, nb=5, f0=1000):
+    """Random reports (ndev, 7 + ndev + 3) int64 as _Shard.report gives
+    them; ``case`` as tests/test_torch_sharded_loop.py's."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search.engine import INF
+
+    rep = np.zeros((ndev, SH.R_ROUTE + ndev + 3), np.int64)
+    rep[:, SH.R_GOAL] = np.where(rng.random(ndev) < 0.5, INF, rng.integers(f0, f0 + 400, ndev))
+    rep[:, SH.R_NOPEN] = rng.integers(0, 5000, ndev)
+    rep[:, SH.R_NSEL] = rng.integers(0, 64, ndev)
+    rep[:, SH.R_REOPEN] = rng.integers(0, 5, ndev)
+    rep[:, SH.R_FMIN] = np.where(rng.random(ndev) < 0.2, INF, rng.integers(f0, f0 + 300, ndev))
+    route = rep[:, SH.R_ROUTE:]
+    route[:, :ndev] = rng.integers(0, 3 * cap, (ndev, ndev))
+    route[:, ndev] = rng.integers(0, 5 * cap, ndev)
+    ring = (rng.integers(f0 - 50, f0 + 300, ndev) if unpacked
+            else (rng.integers(0, 300, ndev) << nb) | rng.integers(1, 1 << nb, ndev))
+    empty = INF if unpacked else INFP
+    route[:, ndev + 2] = np.where(rng.random(ndev) < 0.3, empty, ring)
+    if case == "empty_ring":
+        route[:, ndev + 2] = empty
+    if case == "table_ovf":
+        rep[rng.integers(ndev), SH.R_OVF] = 3
+    if case == "carry_ovf":
+        route[rng.integers(ndev), ndev + 1] = 2
+    return rep
+
+
+@pytest.mark.parametrize("case", ["plain", "table_ovf", "carry_ovf", "empty_ring", "stopped"])
+@pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_consensus_kernel_equals_plain(cuda, layout, ragged, case):
+    """consensus on 1, 2, 4 and 32 shards (every shard a target, and on 4
+    shards two targets only) against consensus_plain on the same card
+    tensors, bit for bit: the consensus vector, every target's counters,
+    state, received count and flag, and the run flag; twice in a row (the
+    telemetry adds up); with every shard a target also with no report
+    gathered (each read where it lies)."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import step as TS
+
+    rng = np.random.default_rng(7)
+    for ndev, local, gathered in ((1, [0], True), (2, [0, 1], True), (4, [0, 1, 2, 3], True),
+                                  (4, [1, 3], True), (32, list(range(32)), True),
+                                  (4, [2, 0, 3, 1], False), (32, list(range(32)), False)):
+        cap, nb, f0 = 40, 5, 1000
+        outs = []
+        reps = [_loop_reports(rng, ndev, cap, layout == "unpacked", case) for _ in range(2)]
+        state0 = rng.integers(0, 500, (len(local), TS.STATE_WORDS))
+        ctr0 = rng.integers(0, 100, (len(local), 14))
+        for use_kernel in (True, False):
+            tg = [(torch.as_tensor(c, device=cuda), torch.as_tensor(s, device=cuda),
+                   torch.zeros(ndev + 3, dtype=torch.int32, device=cuda),
+                   torch.zeros(1, dtype=torch.int32, device=cuda),
+                   torch.zeros(1, dtype=torch.int32, device=cuda), me)
+                  for c, s, me in zip(ctr0, state0, local)]
+            cons = SH.fresh_cons(ndev, cuda)
+            run = torch.full((1,), int(case != "stopped"), dtype=torch.int32, device=cuda)
+            tgt = SH.target_table(tg, cuda)
+            for rep in reps:
+                rep_t = torch.as_tensor(rep, device=cuda)
+                if not gathered:  # each report's words where they lie
+                    for ctr, state, out, _, _, me in tg:
+                        ctr[0], ctr[6] = rep_t[me, SH.R_GOAL], rep_t[me, SH.R_OVF]
+                        state[:5] = rep_t[me, 2:SH.R_ROUTE]
+                        out.copy_(rep_t[me, SH.R_ROUTE:])
+                    rep_t = None
+                args = (rep_t, ndev, cap, ragged, layout, nb, f0, 777, run)
+                if use_kernel:
+                    SH.consensus_cuda(*args, tgt, cons)
+                else:
+                    SH.consensus_plain(*args, tg, cons)
+            torch.cuda.synchronize()
+            outs.append([cons, run] + [t for x in tg for t in x[:5]])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), (ndev, local, gathered, a.tolist(), b.tolist())
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
+def test_exchange_kernel_equals_plain(cuda, ragged):
+    """exchange against exchange_plain on random sizes and wires of 3 and 13
+    words a row (sig, kinase packed), a receiver's flag 0 among them, and
+    on two of four receivers."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    rng = np.random.default_rng(3)
+    for ndev, pw, cap, recv_me in ((4, 3, 50, [0, 1, 2, 3]), (4, 13, 200, [3, 1]),
+                                   (2, 9, 7, [0, 1]), (32, 3, 5, list(range(32)))):
+        counts = rng.integers(0, 3 * cap, (ndev, ndev))
+        A = SH.route_sizes(counts, ndev, cap, ragged)
+        R = ndev * cap
+        cons = SH.fresh_cons(ndev, cuda)
+        SH.cons_sizes(cons, ndev)[:] = torch.as_tensor(A, device=cuda)
+        wires = [torch.as_tensor(rng.integers(-2**31, 2**31 - 1, (max(R, 3 * cap * ndev), pw)),
+                                 dtype=torch.int32, device=cuda) for _ in range(ndev)]
+        outs = []
+        for use_kernel in (True, False):
+            pends = [torch.full((R + 64, pw), -5, dtype=torch.int32, device=cuda)
+                     for _ in recv_me]
+            flags = [torch.ones(1, dtype=torch.int32, device=cuda) for _ in recv_me]
+            flags[0].zero_()
+            if use_kernel:
+                SH.exchange_cuda(cons, ndev, cap, ragged, R, pw, SH._ptrs(wires, cuda),
+                                 SH._ptrs(pends, cuda), SH._ptrs(flags, cuda),
+                                 torch.tensor(recv_me, dtype=torch.int64, device=cuda))
+            else:
+                SH.exchange_plain(cons, ndev, cap, ragged, R, wires, pends, flags, recv_me)
+            torch.cuda.synchronize()
+            outs.append(pends)
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+        assert (outs[0][0] == -5).all()
+
+
+def test_walk_advance_kernel_equals_plain(cuda):
+    """walk_advance against walk_advance_plain over rounds of random runs
+    (one shard's non-zero a round, masks of up to 5 bits), until the walk's
+    flag clears: masks, coordinate, counts and flag bit for bit."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    rng = np.random.default_rng(11)
+    n, hops, ndev = 5, 8, 4
+    final = [40, 38, 41, 39, 42]
+    states = []
+    for use_kernel in (True, False):
+        params = torch.tensor(final + [9] * n, dtype=torch.int32, device=cuda)
+        masks = torch.zeros(sum(final) + hops, dtype=torch.int32, device=cuda)
+        wst = torch.zeros(2, dtype=torch.int32, device=cuda)
+        wrun = torch.ones(1, dtype=torch.int32, device=cuda)
+        r = np.random.default_rng(11)
+        for _ in range(200):
+            coord = params[:n].tolist()
+            wout = torch.zeros((ndev, hops + n + 1), dtype=torch.int32)
+            k = int(r.integers(0, hops + 1))
+            owner = int(r.integers(ndev))
+            for h in range(k):
+                m = sum(1 << d for d in range(n) if coord[d] > 0 and r.random() < 0.7)
+                if m == 0:
+                    break
+                wout[owner, h] = m
+                coord = [coord[d] - ((m >> d) & 1) for d in range(n)]
+            wout = wout.to(cuda)
+            if use_kernel:
+                SH.walk_advance_cuda(wout, hops, n, params, masks, wst, wrun)
+            else:
+                SH.walk_advance_plain(wout, hops, n, params, masks, wst, wrun)
+        torch.cuda.synchronize()
+        states.append([params, masks, wst, wrun])
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+    assert int(states[0][3][0]) == 0
+
+
+def _loop_words(eng):
+    """Every tensor a shard's step leaves that does not depend on the order
+    lanes run in (tests/test_torch_sharded_loop.py's shard_words)."""
+    from mpi_pastar_msa_tpu_torch.search import step as TS
+
+    out = []
+    for sh in eng.shards:
+        out += [(f"{sh.me}.{f}", getattr(sh.tab, f)) for f in sh.tab.__dataclass_fields__]
+        out += [(f"{sh.me}.{k}", t) for k, t in (
+            ("ctr", sh.ctr), ("state", sh.state[:TS.STATE_CNT]), ("ring0", sh.rings[0]),
+            ("ring1", sh.rings[1]), ("cur", torch.tensor(sh.cur)), ("recv", sh.recv),
+            ("go", sh.go), ("route_out", sh.route_out), ("cand", sh.cand), ("wire", sh.wire))]
+    return out + [("cons", eng.cards[0].cons)]
+
+
+def _drivers(cuda, problem, **kw):
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    runs = []
+    for driver in ("chunked", "host"):
+        eng = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, driver=driver, **kw)
+        try:
+            res = eng.run()
+        except RuntimeError as e:
+            assert "max_steps exceeded" in str(e)
+            res = None
+        torch.cuda.synchronize()
+        runs.append((eng, res))
+    return runs
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+@pytest.mark.parametrize("name", ["PF08184.fasta", "test2.fasta"])
+def test_sharded_graph_chunks_equal_host_driver(cuda, name, layout):
+    """PF08184 and test2 on [cuda] * 4 in chunks of 16 steps, each one CUDA
+    graph (the run stops inside one), against the host driver: the golden
+    g, the same result, stats and every table tensor bit for bit; the
+    walk's device loop gives the host walk's masks."""
+    gold = json.load(open(os.path.join(HERE, "goldens.json")))[name]
+    problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+    _kernels.reset_counts()
+    (ce, cr), (he, hr) = _drivers(cuda, problem, layout=layout, chunk_steps=16)
+    assert cr.g == hr.g == gold["optimal_g"]
+    assert (cr.closed, cr.steps, cr.shard_stats) == (hr.closed, hr.steps, hr.shard_stats)
+    for (k, a), (_, b) in zip(_loop_words(ce), _loop_words(he)):
+        assert torch.equal(a, b), k
+    cs = ce.last_stats
+    assert cs["driver"] == "chunked" and cs["graph_replays"] == cs["host_reads"]
+    assert cs["host_reads"] == -(-cr.steps // 16) and cs["graph_captures"] == 1
+    for k in ("consensus", "exchange", "walk_advance"):
+        assert _kernels.launches[k] > 0, k
+
+
+def test_sharded_kinase_graph_chunk_equals_host_driver(cuda):
+    """Kinase on [cuda] * 4 (JAX's packed at 2^21, ragged): one 64-step
+    chunk as one CUDA graph against 64 steps of the host driver, every
+    table tensor, ring, counter and telemetry word bit for bit."""
+    gold = json.load(open(os.path.join(HERE, "goldens.json")))["kinase.fasta"]
+    problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+    (ce, _), (he, _) = _drivers(cuda, problem, chunk_steps=64, max_steps=64)
+    assert ce.layout == "packed" and ce.exchange == "ragged"
+    assert ce.last_stats["steps"] == he.last_stats["steps"] == 64
+    assert ce.last_stats["graph_replays"] == 1 and he.last_stats["host_reads"] == 64
+    for (k, a), (_, b) in zip(_loop_words(ce), _loop_words(he)):
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+def test_sharded_graph_overflow_retries_equal_host_driver(cuda, layout):
+    """A table of 16 slots a shard on [cuda] * 4 overflows inside a chunk
+    graph: the run reads the kind from the consensus vector and retries at
+    twice the capacity with a new graph, as the host driver does; the
+    retries, the result and the last run's tables equal."""
+    rs = np.random.RandomState(31)
+    problem = Problem(tuple("".join(rs.choice(list(AMINO), size=rs.randint(12, 17)))
+                            for _ in range(4)))
+    (ce, cr), (he, hr) = _drivers(cuda, problem, layout=layout, capacity=16, batch=16,
+                                  hash_shift=0, chunk_steps=8)
+    assert ce.retries == he.retries and ce.retries and ce.retries[0][0] == "table"
+    assert cr.g == hr.g and (cr.steps, cr.shard_stats) == (hr.steps, hr.shard_stats)
+    for (k, a), (_, b) in zip(_loop_words(ce), _loop_words(he)):
+        assert torch.equal(a, b), k

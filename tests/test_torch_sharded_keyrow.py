@@ -88,7 +88,9 @@ def test_keyrow_layouts_reach_golden(name, layout, ndev, kw):
     assert res.g == GOLD[name]["optimal_g"]
     assert build_alignment(p, res.closed) == GOLD[name]["alignment"]
     assert res.nodes_migrated == sum(r[4] for r in res.shard_stats) > 0
-    assert eng.last_stats["host_reads"] == res.steps
+    # CPU shards run the chunked driver: one host read a chunk
+    assert eng.last_stats["driver"] == "chunked"
+    assert eng.last_stats["host_reads"] == -(-res.steps // eng.chunk_steps)
 
 
 @pytest.mark.parametrize("layout", ["packed", "unpacked"])
@@ -384,15 +386,18 @@ def test_keyrow_sharded_launch_arguments_match_signatures():
         assert shd[10] is None and (base[10] is not None) == bool(st.T3)
         assert shd[28] == bufs.pend.data_ptr() + 4 * pw * 5
         assert shd[29:-1] == extra and shd[1:10] == base[1:10] and shd[11:28] == base[11:28]
+        recv = torch.zeros(1, dtype=torch.int32)
         ins = TS._keyrow_insert_args(st, tab, bufs, bufs.counters, 64, 0, TS.K10_CAP, "s",
-                                     pend_at=3, n_front=2)
+                                     pend_at=3, recv=recv)
         assert ins[0] == "keyrow_insert_recv"
         assert len(ins) - 1 == len(_kernels.SIGNATURES["keyrow_insert_recv"])
-        assert ins[11] == bufs.pend.data_ptr() + 4 * pw * 3 and ins[-2] == 2
+        # the received count is read on the card, at the list's start
+        assert ins[11] == bufs.pend.data_ptr() + 4 * pw * 3 and ins[-2] == recv.data_ptr()
         plain = TS._keyrow_insert_args(st, tab, bufs, bufs.counters, 64, 0, TS.K10_CAP, "s")
         assert plain[0] == "keyrow_insert" and plain[11] == bufs.pend.data_ptr()
         assert ins[1:11] == plain[1:11] and ins[12:-2] == plain[12:-1]
-    assert len(_kernels.SIGNATURES["path_walk_hops"]) == len(_kernels.SIGNATURES["path_walk"])
+    # the hop mode takes the walk loop's run flag beside path_walk's arguments
+    assert len(_kernels.SIGNATURES["path_walk_hops"]) == len(_kernels.SIGNATURES["path_walk"]) + 1
     assert len(_kernels.SIGNATURES["route_count_rows"]) == len(
         _kernels.SIGNATURES["route_count"]) + 3
     assert len(_kernels.SIGNATURES["route_pack_rows"]) == len(

@@ -1,0 +1,453 @@
+"""The sharded loop of the port (parallel/sharded.py, kernels
+csrc/shard_loop.cu) on the CPU: ``consensus_plain`` against JAX's
+``_consensus`` run under ``jax.shard_map`` on 4 of conftest's 8 CPU
+devices and against ``_route_ragged``'s allowance written in
+``jax.numpy``, on seeded random reports (both exchanges, an overflow of
+each kind, an empty ring, a stopped run); ``exchange_plain`` against
+``LocalMesh.all_to_all_ragged`` and the dense copy loop on the wires of
+the plain route; ``walk_advance_plain`` against the host walk; the chunked
+driver against the host driver on CPU shards (sig, packed, unpacked;
+test2 and PF08184 on 2 and 4 shards; a one-row wire that spills): the
+results, the per-shard stats and every table tensor equal, also across
+table-overflow retries; and the driver's refusals."""
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh, PartitionSpec as P
+
+from mpi_pastar_msa_tpu.parallel import sharded as JS
+from mpi_pastar_msa_tpu_torch.core.problem import Problem
+from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+from mpi_pastar_msa_tpu_torch.parallel import sharded as S
+from mpi_pastar_msa_tpu_torch.parallel.mesh import LocalMesh
+from mpi_pastar_msa_tpu_torch.search import step as TS
+from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+from mpi_pastar_msa_tpu_torch.search.bruteforce import optimal_cost
+from mpi_pastar_msa_tpu_torch.search.engine import INF, INFP
+
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLD = json.load(open(os.path.join(HERE, "goldens.json")))
+AMINO = "ACDEFGHIKLMNPQRSTVWY"
+
+
+def golden(name):
+    return Problem(tuple(r.replace("-", "") for r in GOLD[name]["alignment"]))
+
+
+# --- the consensus
+
+
+def random_reports(seed, ndev, cap, layout, case, nb=5, f0=1000):
+    """Seeded reports (ndev, R_ROUTE + ndev + 3) int64 as ``_Shard.report``
+    gives them: goal (some INF), overflow, K3's five (g max, open,
+    selected, reopened, f-min), K11's out (send counts, migrants, carry
+    overflow, ring min: a packed word or INFP on sig and packed rows, an f
+    or INF on unpacked ones).  ``case``: "plain", "table_ovf" (a shard's
+    table overflowed), "carry_ovf" (a shard's ring), "empty_ring" (no ring
+    holds a row)."""
+    rng = np.random.default_rng(seed)
+    rep = np.zeros((ndev, S.R_ROUTE + ndev + 3), np.int64)
+    rep[:, S.R_GOAL] = np.where(rng.random(ndev) < 0.5, INF, rng.integers(f0, f0 + 400, ndev))
+    rep[:, S.R_NOPEN] = rng.integers(0, 5000, ndev)
+    rep[:, S.R_NSEL] = rng.integers(0, 64, ndev)
+    rep[:, S.R_REOPEN] = rng.integers(0, 5, ndev)
+    rep[:, S.R_FMIN] = np.where(rng.random(ndev) < 0.2, INF, rng.integers(f0, f0 + 300, ndev))
+    route = rep[:, S.R_ROUTE:]
+    route[:, :ndev] = rng.integers(0, 3 * cap, (ndev, ndev))
+    route[np.arange(ndev), np.arange(ndev)] = 0  # nobody routes to itself
+    route[:, ndev] = route[:, :ndev].sum(1) - rng.integers(0, cap, ndev).clip(0)
+    route[:, ndev] = route[:, ndev].clip(0)
+    if layout == "unpacked":
+        ring = rng.integers(f0 - 50, f0 + 300, ndev)
+        empty = INF
+    else:
+        ring = ((rng.integers(0, 300, ndev) << nb) | rng.integers(1, 1 << nb, ndev))
+        empty = INFP
+    route[:, ndev + 2] = np.where(rng.random(ndev) < 0.3, empty, ring)
+    if case == "empty_ring":
+        route[:, ndev + 2] = empty
+    if case == "table_ovf":
+        rep[rng.integers(ndev), S.R_OVF] = rng.integers(1, 9)
+    if case == "carry_ovf":
+        route[rng.integers(ndev), ndev + 1] = rng.integers(1, 9)
+    return rep
+
+
+def jax_consensus(rep, layout, nb, f0):
+    """JAX ``_consensus`` on 4 CPU devices, each shard's inputs as its
+    step passes them (:439, :692, :854): goal, f-min with the ring's
+    carried f, rows selected, and the overflow kind (table in the high
+    half, carry in the low).  Returns (goal_g, fmin_g, n_sel_g, table
+    overflow shards, carry overflow shards)."""
+    ndev = rep.shape[0]
+    mesh = Mesh(np.array(jax.devices("cpu")[:ndev]), (JS.AXIS,))
+    route = rep[:, S.R_ROUTE:]
+    ring = route[:, ndev + 2]
+    if layout == "unpacked":
+        carry_f = ring
+    else:
+        carry_f = np.where(ring < INFP, (ring >> nb) + f0, INF)
+    fmin_l = np.minimum(rep[:, S.R_FMIN], carry_f).astype(np.int32)
+    ovf = (np.minimum(rep[:, S.R_OVF], 1) * (1 << 16) + np.minimum(route[:, ndev + 1], 1))
+
+    def body(goal_l, f_l, nsel, o):
+        out = JS._consensus(jnp.int32(INF), goal_l[0], f_l[0], nsel[0], o[0])
+        return jnp.stack(out)[None]
+
+    fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(P(JS.AXIS),) * 4,
+                               out_specs=P(JS.AXIS), check_vma=False))
+    out = np.asarray(fn(*(jnp.asarray(x.astype(np.int32)) for x in (
+        rep[:, S.R_GOAL], fmin_l, rep[:, S.R_NSEL], ovf))))
+    assert (out == out[0]).all()  # every shard agrees
+    goal, fmin, nsel, ovf_g = (int(v) for v in out[0])
+    return goal, fmin, nsel, ovf_g >> 16, ovf_g & 0xFFFF
+
+
+def jax_allowance(counts, ndev, cap, ragged):
+    """A[i][j], the rows shard i sends shard j: ``_route_ragged``'s
+    receiver-capacity truncation (:214-:231) in jax.numpy, or the dense
+    wire's cap a destination (``_route_cap``)."""
+    Sm = jnp.asarray(counts.astype(np.int32))
+    if not ragged:
+        return np.asarray(jnp.minimum(Sm, cap))
+    before = jnp.cumsum(Sm, axis=0) - Sm
+    return np.asarray(jnp.clip(ndev * cap - before, 0, Sm))
+
+
+def targets_of(ndev, rng, rep=None):
+    """Every shard's counters, step state (some pending lanes already),
+    route out, received count and insert flag; with ``rep``, the words of
+    its report where the consensus reads them when no report is gathered."""
+    out = []
+    for me in range(ndev):
+        ctr = torch.as_tensor(rng.integers(0, 100, 14), dtype=torch.int64)
+        state = torch.zeros(TS.STATE_WORDS, dtype=torch.int64)
+        state[TS.STATE_NPEND] = int(rng.integers(0, 500))
+        route_out = torch.zeros(ndev + 3, dtype=torch.int32)
+        if rep is not None:
+            ctr[0], ctr[6] = int(rep[me, S.R_GOAL]), int(rep[me, S.R_OVF])
+            state[:5] = torch.from_numpy(rep[me, 2:S.R_ROUTE])
+            route_out[:] = torch.from_numpy(rep[me, S.R_ROUTE:].astype(np.int32))
+        out.append((ctr, state, route_out, torch.zeros(1, dtype=torch.int32),
+                    torch.zeros(1, dtype=torch.int32), me))
+    return out
+
+
+@pytest.mark.parametrize("case", ["plain", "table_ovf", "carry_ovf", "empty_ring"])
+@pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_consensus_plain_equals_jax(seed, layout, ragged, case):
+    ndev, cap, nb, f0, ccar = 4, 40, 5, 1000, 100
+    rep = random_reports(seed, ndev, cap, layout, case, nb, f0)
+    rng = np.random.default_rng(seed + 10)
+    targets = targets_of(ndev, rng)
+    before = [(c.clone(), s.clone()) for c, s, *_ in targets]
+    cons = S.fresh_cons(ndev, "cpu")
+    cons[S.C_STEPS], cons[S.C_WIRE], cons[S.C_MIGR], cons[S.C_PEAK] = 7, 100, 90, 5
+    cons[S.C_HEAD:S.C_HEAD + 4 * ndev] = torch.as_tensor(rng.integers(0, 50, 4 * ndev))
+    cons0 = cons.clone()
+    run = torch.ones(1, dtype=torch.int32)
+    S.consensus_plain(torch.from_numpy(rep), ndev, cap, ragged, layout, nb, f0, ccar, run,
+                      targets, cons)
+    goal, fmin, nsel, tovf, covf = jax_consensus(rep, layout, nb, f0)
+    c = cons.numpy()
+    assert (c[S.C_GOAL], c[S.C_FMIN], c[S.C_NSEL], c[S.C_TOVF], c[S.C_COVF]) == (
+        goal, fmin, nsel, tovf, covf)
+    counts = rep[:, S.R_ROUTE:S.R_ROUTE + ndev]
+    A = jax_allowance(counts, ndev, cap, ragged)
+    assert np.array_equal(A, S.route_sizes(counts, ndev, cap, ragged))
+    assert np.array_equal(S.cons_sizes(c, ndev), A)
+    # the telemetry: the host loop's sums, on the same report
+    per0 = cons0.numpy()[S.C_HEAD:S.C_HEAD + 4 * ndev].reshape(ndev, 4)
+    per = c[S.C_HEAD:S.C_HEAD + 4 * ndev].reshape(ndev, 4)
+    route = rep[:, S.R_ROUTE:]
+    assert np.array_equal(per[:, 0], per0[:, 0] + rep[:, S.R_NSEL])
+    assert np.array_equal(per[:, 1], per0[:, 1] + rep[:, S.R_REOPEN])
+    assert np.array_equal(per[:, 2], rep[:, S.R_NOPEN])
+    assert np.array_equal(per[:, 3], per0[:, 3] + route[:, ndev])
+    assert c[S.C_STEPS] == 8 and c[S.C_WIRE] == 100 + A.sum()
+    assert c[S.C_MIGR] == 90 + route[:, ndev].sum()
+    spill = np.minimum(np.maximum(counts.sum(1) - A.sum(1), 0), ccar)
+    assert c[S.C_PEAK] == max(5, spill.max())
+    stop = tovf > 0 or covf > 0
+    assert stop == (case in ("table_ovf", "carry_ovf"))
+    assert int(run[0]) == c[S.C_RUN] == int(not stop and fmin < goal)
+    for (ctr, state, _, recv, go, me), (c0, s0) in zip(targets, before):
+        if stop:  # the step stops before the exchange and the insert
+            assert int(go[0]) == 0 and torch.equal(ctr, c0) and torch.equal(state, s0)
+            continue
+        assert int(go[0]) == 1 and int(recv[0]) == A[:, me].sum()
+        assert int(ctr[0]) == goal and torch.equal(ctr[1:], c0[1:])
+        assert int(state[TS.STATE_FMIN]) == fmin and int(state[TS.STATE_NSEL]) == nsel
+        assert int(state[TS.STATE_NPEND]) == int(s0[TS.STATE_NPEND]) + A[:, me].sum()
+    # a stopped run: nothing changes
+    run.zero_()
+    snap = [t.clone() for tg in targets for t in tg[:5]] + [cons.clone()]
+    S.consensus_plain(torch.from_numpy(rep), ndev, cap, ragged, layout, nb, f0, ccar, run,
+                      targets, cons)
+    assert all(torch.equal(a, b) for a, b in
+               zip(snap, [t for tg in targets for t in tg[:5]] + [cons]))
+    # no report gathered: the targets' own words give the same consensus
+    tg2 = targets_of(ndev, np.random.default_rng(seed + 10), rep)
+    assert torch.equal(S.gather_reports(tg2), torch.from_numpy(rep))
+    cons2, run2 = cons0.clone(), torch.ones(1, dtype=torch.int32)
+    S.consensus_plain(None, ndev, cap, ragged, layout, nb, f0, ccar, run2, tg2, cons2)
+    assert torch.equal(cons2, cons) and torch.equal(run2, run.fill_(int(c[S.C_RUN])))
+
+
+def test_consensus_sig_ring_and_goal_stop():
+    """The sig layout's ring min is a packed word, as packed's; fmin_g >=
+    goal_g clears the run flag but not the insert's flags (the insert
+    still runs, the next step does not)."""
+    ndev, cap, nb, f0 = 2, 8, 4, 500
+    rep = np.zeros((ndev, S.R_ROUTE + ndev + 3), np.int64)
+    rep[:, S.R_GOAL] = [600, INF]
+    rep[:, S.R_FMIN] = [650, 700]
+    rep[:, S.R_ROUTE + ndev + 2] = [INFP, (90 << nb) | 3]  # carried f 590
+    targets = targets_of(ndev, np.random.default_rng(0))
+    cons, run = S.fresh_cons(ndev, "cpu"), torch.ones(1, dtype=torch.int32)
+    S.consensus_plain(torch.from_numpy(rep), ndev, cap, False, "sig", nb, f0, 10, run, targets,
+                      cons)
+    assert (int(cons[S.C_GOAL]), int(cons[S.C_FMIN])) == (600, 590) == jax_consensus(
+        rep, "sig", nb, f0)[:2]
+    assert int(run[0]) == 1 and all(int(t[4][0]) == 1 for t in targets)
+    rep[1, S.R_ROUTE + ndev + 2] = INFP
+    S.consensus_plain(torch.from_numpy(rep), ndev, cap, False, "sig", nb, f0, 10, run, targets,
+                      cons)
+    assert int(cons[S.C_FMIN]) == 650 >= int(cons[S.C_GOAL])
+    assert int(run[0]) == 0 and int(cons[S.C_RUN]) == 0
+    assert all(int(t[4][0]) == 1 for t in targets)
+
+
+# --- the exchange
+
+
+def route_wires(seed, ndev, L, ccar, cap, ragged):
+    """Every shard's wire from the plain route on random rows, and A."""
+    rng = np.random.default_rng(seed)
+    cand = np.zeros((ndev, L, 4), np.int32)
+    for me in range(ndev):
+        dest = rng.integers(0, ndev, L)
+        dest[(dest == me) | (rng.random(L) > 0.6)] = ndev
+        cand[me] = np.stack([dest, rng.integers(0, 1 << 20, L), rng.integers(0, 1 << 20, L),
+                             rng.integers(0, 1 << 30, L)], 1)
+    carry = torch.tensor([[ndev, INFP, 0, -1]], dtype=torch.int32).repeat(ccar, 1)
+    outs = [S.route_plain(torch.from_numpy(cand[i]), L, carry, ndev, i, cap)
+            for i in range(ndev)]
+    counts = np.stack([o[2][:ndev].numpy() for o in outs])
+    if ragged:
+        Sm = torch.from_numpy(counts.astype(np.int32))
+        outs = [S.route_plain(torch.from_numpy(cand[i]), L, carry, ndev, i, cap, Sm)
+                for i in range(ndev)]
+    return [o[0] for o in outs], S.route_sizes(counts, ndev, cap, ragged)
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
+@pytest.mark.parametrize("seed,cap", [(1, 3), (2, 50), (3, 1000)])
+def test_exchange_plain_equals_mesh(seed, cap, ragged):
+    """Each receiver's rows, before row R of its pending list, as the
+    host-sized exchange moves them (``all_to_all_ragged``; dense: the
+    all_to_all of cap-row blocks and the copy loop); rows outside the
+    received region and a receiver whose insert flag is 0 untouched."""
+    ndev, L, ccar, pw = 4, 120, 120, 3
+    wires, A = route_wires(seed, ndev, L, ccar, cap, ragged)
+    R = ndev * cap
+    cons = S.fresh_cons(ndev, "cpu")
+    S.cons_sizes(cons, ndev)[:] = torch.from_numpy(A)
+    n_recv = A.sum(0)
+    pends = [torch.full((R + 10, pw), -7, dtype=torch.int32) for _ in range(ndev)]
+    flags = [torch.ones(1, dtype=torch.int32) for _ in range(ndev)]
+    flags[2].zero_()
+    S.exchange_plain(cons, ndev, cap, ragged, R, wires, pends, flags, list(range(ndev)))
+    mesh = LocalMesh(["cpu"] * ndev)
+    want = [torch.full((int(n),), 0, dtype=torch.int32).new_empty((int(n), pw))
+            for n in n_recv]
+    if ragged:
+        off = np.cumsum(A, axis=1) - A
+        mesh.all_to_all_ragged(wires, off, A, want)
+    else:
+        blocks = mesh.all_to_all([w[:ndev * cap].view(ndev, cap, pw) for w in wires])
+        for j, blk in enumerate(blocks):
+            at = 0
+            for i in range(ndev):
+                want[j][at:at + A[i][j]] = blk[i, :A[i][j]]
+                at += A[i][j]
+    for j in range(ndev):
+        lo = R - int(n_recv[j])
+        if j == 2:
+            assert (pends[j] == -7).all()
+            continue
+        assert torch.equal(pends[j][lo:R], want[j])
+        assert (pends[j][:lo] == -7).all() and (pends[j][R:] == -7).all()
+
+
+# --- the walk
+
+
+def test_walk_advance_plain_rounds():
+    """Three rounds by hand: a run of masks in one shard, the coordinate
+    stepped back, the walk's flag cleared when a round emits nothing."""
+    n, hops = 3, 4
+    params = torch.tensor([3, 2, 2, 8, 8, 8], dtype=torch.int32)
+    masks = torch.zeros(6 + hops, dtype=torch.int32)
+    wst, wrun = torch.zeros(2, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
+    wout = torch.zeros((2, hops + n + 1), dtype=torch.int32)
+    wout[1, :3] = torch.tensor([7, 1, 3])
+    S.walk_advance_plain(wout, hops, n, params, masks, wst, wrun)
+    assert params[:n].tolist() == [0, 0, 1] and wst.tolist() == [3, 1] and int(wrun[0]) == 1
+    wout.zero_()
+    wout[0, 0] = 4
+    S.walk_advance_plain(wout, hops, n, params, masks, wst, wrun)
+    assert params[:n].tolist() == [0, 0, 0] and int(wrun[0]) == 0
+    assert masks[:4].tolist() == [7, 1, 3, 4] and wst.tolist() == [4, 2]
+    S.walk_advance_plain(wout, hops, n, params, masks, wst, wrun)  # stopped: nothing
+    assert wst.tolist() == [4, 2]
+    wrun.fill_(1)
+    params[:n] = torch.tensor([1, 0, 0])
+    wout.zero_()
+    S.walk_advance_plain(wout, hops, n, params, masks, wst, wrun)  # no progress
+    assert int(wrun[0]) == 0 and wst.tolist() == [4, 3]
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+def test_walk_loop_equals_host_walk(layout):
+    """The device loop's walk (WALK_ROUNDS rounds a read, walk_advance_plain)
+    on every shard's finished table against the host walk (``_walk``): the
+    same masks and rounds; a coordinate no shard holds raises in both."""
+    eng = S.ShardedFrontierSearch(golden("PF08184.fasta"), devices=["cpu"] * 4, layout=layout,
+                                  capacity=1 << 14, driver="host")
+    res = eng.run()
+    masks, rounds = eng._walk(eng.shards)
+    got, got_rounds, reads = eng._walk_loop(eng.cards[0], eng.shards)
+    assert got == masks and got_rounds == rounds == eng.last_stats["walk_rounds"]
+    assert reads == -(-rounds // S.WALK_ROUNDS)
+    assert len(res.closed) == len(masks)
+    eng.problem = Problem(tuple(s + "W" for s in eng.problem.seqs))
+    with pytest.raises(RuntimeError, match="did not reach the origin"):
+        eng._walk(eng.shards)
+    with pytest.raises(RuntimeError, match="did not reach the origin"):
+        eng._walk_loop(eng.cards[0], eng.shards)
+
+
+# --- the chunked driver against the host driver
+
+
+def shard_words(eng):
+    """Every tensor a shard's step leaves that does not depend on the order
+    lanes run in: the table, counters, step state, both rings and which is
+    current, the received count, the insert flag, the route's out, the
+    candidate rows and the wire; then the consensus vector."""
+    out = []
+    for sh in eng.shards:
+        out += [getattr(sh.tab, f) for f in sh.tab.__dataclass_fields__]
+        out += [sh.ctr, sh.state[:TS.STATE_CNT], *sh.rings, torch.tensor(sh.cur), sh.recv, sh.go,
+                sh.route_out, sh.cand, sh.wire]
+    return out + [eng.cards[0].cons]
+
+
+def both_drivers(problem, ndev, **kw):
+    runs = []
+    for driver in ("chunked", "host"):
+        eng = S.ShardedFrontierSearch(problem, devices=["cpu"] * ndev, driver=driver, **kw)
+        runs.append((eng, eng.run()))
+    return runs
+
+
+@pytest.mark.parametrize("ndev", [2, 4])
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+@pytest.mark.parametrize("name", ["PF08184.fasta", "test2.fasta"])
+def test_chunked_equals_host_driver(name, layout, ndev):
+    """Chunks of 16 steps (the run stops inside one) against one step a
+    read: the result, the per-shard stats and every table tensor equal,
+    with no tolerance (all int32 and int64); one read a chunk."""
+    (ce, cr), (he, hr) = both_drivers(golden(name), ndev, layout=layout, capacity=1 << 14,
+                                      chunk_steps=16,
+                                      exchange="ragged" if ndev == 4 else "dense")
+    assert cr.g == hr.g == GOLD[name]["optimal_g"]
+    assert build_alignment(ce.problem, cr.closed) == GOLD[name]["alignment"]
+    assert (cr.closed, cr.steps, cr.shard_stats, cr.nodes_migrated) == (
+        hr.closed, hr.steps, hr.shard_stats, hr.nodes_migrated)
+    for a, b in zip(shard_words(ce), shard_words(he)):
+        assert torch.equal(a, b)
+    cs, hs = ce.last_stats, he.last_stats
+    assert (cs["driver"], hs["driver"]) == ("chunked", "host")
+    assert cs["host_reads"] == -(-cr.steps // 16) and hs["host_reads"] == hr.steps
+    for k in ("steps", "wire_rows", "migrated", "peak_carry", "walk_rounds"):
+        assert cs[k] == hs[k], k
+
+
+@pytest.mark.parametrize("layout", ["sig", "unpacked"])
+def test_chunked_equals_host_driver_spilling(layout):
+    """A one-row wire on a random input whose frontier is wide: rows wait in
+    the carry rings, under both drivers alike, and the optimum holds."""
+    rs = np.random.RandomState(31)
+    p = Problem(tuple("".join(rs.choice(list(AMINO), size=rs.randint(12, 17)))
+                      for _ in range(4)))
+    (ce, cr), (he, hr) = both_drivers(p, 4, layout=layout, exchange_cap=1,
+                                      hash_type="FZORDER", hash_shift=0, batch=16,
+                                      chunk_steps=8)
+    assert cr.g == hr.g == optimal_cost(p, HPairHeuristic.build(p, "cpu"))
+    assert ce.last_stats["peak_carry"] == he.last_stats["peak_carry"] > 0
+    assert (cr.steps, cr.shard_stats) == (hr.steps, hr.shard_stats)
+    for a, b in zip(shard_words(ce), shard_words(he)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+def test_chunked_overflow_retries_equal_host_driver(layout):
+    """A table of 16 slots a shard overflows twice: the chunk stops there,
+    the run reads the overflow's kind from the consensus vector and
+    retries at twice the capacity, as under the host driver; the retries,
+    the result and the last run's tables equal."""
+    rs = np.random.RandomState(31)
+    p = Problem(tuple("".join(rs.choice(list(AMINO), size=rs.randint(12, 17)))
+                      for _ in range(4)))
+    (ce, cr), (he, hr) = both_drivers(p, 2, layout=layout, capacity=16, batch=16,
+                                      hash_shift=0, chunk_steps=8)
+    assert ce.retries == he.retries == [("table", 32, 240), ("table", 64, 240)]
+    assert cr.g == hr.g == optimal_cost(p, HPairHeuristic.build(p, "cpu"))
+    assert (cr.steps, cr.shard_stats) == (hr.steps, hr.shard_stats)
+    for a, b in zip(shard_words(ce), shard_words(he)):
+        assert torch.equal(a, b)
+
+
+def test_chunked_max_steps_once_a_chunk():
+    """max_steps is read once a chunk, as JAX's: a run stopped there raises
+    after the same whole chunks under both drivers, with equal tables."""
+    p = golden("test2.fasta")
+    out = []
+    for driver in ("chunked", "host"):
+        eng = S.ShardedFrontierSearch(p, devices=["cpu"] * 2, capacity=1 << 14, chunk_steps=8,
+                                      max_steps=10, driver=driver)
+        with pytest.raises(RuntimeError, match="max_steps exceeded"):
+            eng.run()
+        out.append(eng)
+    assert out[0].last_stats["steps"] == out[1].last_stats["steps"] == 16
+    for a, b in zip(shard_words(out[0]), shard_words(out[1])):
+        assert torch.equal(a, b)
+
+
+def test_driver_choice_and_refusals():
+    p = golden("PF08184.fasta")
+    assert S.ShardedFrontierSearch(p, devices=["cpu"] * 2).driver == "chunked"
+    with pytest.raises(ValueError, match="driver"):
+        S.ShardedFrontierSearch(p, devices=["cpu"] * 2, driver="graph")
+    # a mesh across cards has no chunk graph: chunked raises, never falls back
+    with pytest.raises(ValueError, match="one device"):
+        S.ShardedFrontierSearch(p, devices=LocalMesh(["cuda:0", "cuda:1"]), driver="chunked")
+    # one shard, dense: the single-table search under either driver
+    for driver in ("chunked", "host"):
+        eng = S.ShardedFrontierSearch(p, devices=["cpu"], driver=driver)
+        res = eng.run()
+        assert res.g == GOLD["PF08184.fasta"]["optimal_g"]
+        assert eng.last_stats["driver"] == driver
+        assert eng.last_stats["host_reads"] == (res.steps if driver == "host"
+                                                else -(-res.steps // eng.chunk_steps))
