@@ -117,8 +117,9 @@ Phases, each failing loudly (non-zero exit):
 7. sharded (parallel/sharded.py, a LocalMesh of [cuda:0] * 4 through
    ShardedFrontierSearch.run): kinase --triples auto, whose automatic
    layout is packed at JAX's 2^21 slots a shard (sharded cubes), with the
-   ragged exchange under the chunked driver (a chunk of 256 steps one CUDA
-   graph: at most 0.01 host reads a step, a graph replay a chunk) and with
+   ragged exchange under the chunked driver (a step one CUDA graph for
+   each ring parity, two captures, a chunk 256 replays of them: at most
+   0.01 host reads a step) and with
    the dense one (traced: device time a step) must reach g = 421546 with
    the golden alignment and migrated rows, launching K3, keyrow_coords,
    K12 (tri_partial.cu), K9's sharded instantiation (keyrow_expand.cu),
@@ -149,6 +150,8 @@ Phases, each failing loudly (non-zero exit):
    and cap
    (``--k11-baseline SRC`` builds another tree's K11, checks it on the
    same inputs and times the two in turns, each pass alone;
+   ``--k6s-baseline SRC`` another tree's consensus, in turns with this
+   one;
    ``--k11-sweep`` checks and times K11 on synthetic kinase-shaped inputs
    of 64 to 31,744 rows a destination).  Several cards, when there are,
    run kinase across them; else it says so (``--sharded-only`` runs this
@@ -2468,7 +2471,8 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
     are split, the sharded expand, K11's passes, the insert, K7's hop
     mode; LOOP_KERNELS: the consensus, the exchange and, under the chunked
     driver, walk_advance) and no plain version; under the chunked driver
-    one graph replay and one host read a chunk; the layout, the capacity it
+    two step graphs captured (one a ring parity), ``chunk_steps`` replays
+    and one host read a chunk; the layout, the capacity it
     started at and reached and any overflow retry; the step's wall (with
     and without the graph's capture), host reads, wire and migrated rows,
     peak carry, walk rounds, reads and wall, peak memory per shard and in
@@ -2517,7 +2521,8 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
         for k in want:
             if counts.get(k, 0) <= 0:
                 fail(f"{label}: kernel {k} was not launched on the sharded path")
-        # the chunked walk: a warm-up round, then WALK_ROUNDS rounds a replay
+        # the chunked walk: a warm-up round, then WALK_ROUNDS replays of the
+        # one-round graph a host read
         from mpi_pastar_msa_tpu_torch.parallel.sharded import WALK_ROUNDS
 
         walk_launches = ((st["walk_reads"] * WALK_ROUNDS + 1) * eng.ndev if chunked
@@ -2525,10 +2530,12 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
         if counts["path_walk_hops"] != walk_launches:
             fail(f"{label}: K7 hop mode launched {counts['path_walk_hops']} times for "
                  f"{st['walk_rounds']} rounds ({st['walk_reads']} reads) on {eng.ndev} shards")
-        if chunked and not (st["graph_replays"] == st["host_reads"]
-                            == -(-st["steps"] // eng.chunk_steps)):
-            fail(f"{label}: {st['graph_replays']} graph replays and {st['host_reads']} host "
-                 f"reads for {st['steps']} steps in chunks of {eng.chunk_steps}")
+        if chunked and not (st["graph_captures"] == 2
+                            and st["graph_replays"] == st["host_reads"] * eng.chunk_steps
+                            and st["host_reads"] == -(-st["steps"] // eng.chunk_steps)):
+            fail(f"{label}: {st['graph_captures']} step graphs captured, "
+                 f"{st['graph_replays']} graph replays and {st['host_reads']} host reads for "
+                 f"{st['steps']} steps in chunks of {eng.chunk_steps}")
     if any(d.type != "cuda" for d in eng.local_devices):
         fail(f"{label}: a shard is not on a card: {eng.local_devices}")
     shards = cap["shards"]
@@ -2552,6 +2559,7 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
                 wire_rows_a_step=st["wire_rows"] / steps,
                 migrated_a_step=st["migrated"] / steps, peak_carry=st["peak_carry"],
                 walk_rounds=st["walk_rounds"], walk_s=st["walk_s"],
+                walk_parts={k: st[k] for k in ("walk_warm_s", "walk_capture_s") if k in st},
                 search_s=st["search_s"], step_wall_ms=st["search_s"] / steps * 1e3,
                 engine_build_s=build_s, wall_s=wall, launches=counts,
                 peak_device_bytes=peak,
@@ -2572,7 +2580,7 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
           f"retries {eng.retries or 'none'}), batch {eng.st.B}; g={res.g} ok, path cost == g, "
           f"alignment byte-identical to golden: {identical}; steps {res.steps}, expanded "
           f"{res.nodes_expanded}, migrated {res.nodes_migrated}; driver {st['driver']} "
-          f"({info['graph_replays']} graph replays, {info['graph_captures']} captures in "
+          f"({info['graph_replays']} graph launches, {info['graph_captures']} captures in "
           f"{info['capture_s']:.3f} s: {info['capture_parts']}); a step: wall "
           f"{info['step_wall_ms']:.3f} ms "
           f"({info['step_wall_no_capture_ms']:.3f} without the capture)"
@@ -2581,7 +2589,9 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
           + f", host reads {info['host_reads_a_step']:.4f}, wire rows "
           f"{info['wire_rows_a_step']:.1f}, migrated {info['migrated_a_step']:.1f}; peak carry "
           f"{st['peak_carry']}; walk {st['walk_rounds']} rounds ({st['walk_reads']} host reads) "
-          f"in {st['walk_s'] * 1e3:.2f} ms; "
+          f"in {st['walk_s'] * 1e3:.2f} ms"
+          + (f" (warm-up round {st['walk_warm_s'] * 1e3:.2f}, capture "
+             f"{st['walk_capture_s'] * 1e3:.2f})" if "walk_warm_s" in st else "") + "; "
           f"peak memory {peak / 2**20:.1f} MiB"
           + (f" (shards {[round(b / 2**20, 1) for b in info['shard_bytes']]} MiB)"
              if info["shard_bytes"] else "")
@@ -3309,8 +3319,9 @@ def loop_words(eng) -> list:
 
 def driver_turns(label: str, path: str, steps: int = 256, **kw):
     """One engine on [cuda:0] * 4 (``kw``: its layout and the rest), run
-    ``steps`` steps (one chunk) under the chunked driver, one CUDA graph,
-    then the same steps under the host driver: every table tensor, ring,
+    ``steps`` steps (one chunk) under the chunked driver, ``steps``
+    replays of the two step graphs, then the same steps under the host
+    driver: every table tensor, ring,
     counter and telemetry word of the two equal (loop_words), and each
     driver's wall a step (the chunked one with and without its capture).
     Returns (report, the engine, ready for a full run: max_steps and
@@ -3347,7 +3358,7 @@ def driver_turns(label: str, path: str, steps: int = 256, **kw):
                capture_parts={k: c[k] for k in ("capture_warm_s", "capture_host_s",
                                                  "capture_instantiate_s")},
                host_step_ms=h["search_s"] / n * 1e3, host_reads=h["host_reads"])
-    print(f"{label} ({eng.layout}), {c['steps']} steps in turns: chunked (one graph) and host "
+    print(f"{label} ({eng.layout}), {c['steps']} steps in turns: chunked (step graphs) and host "
           f"drivers equal on {len(words['host'])} tensors ({out['word_bytes'] / 2**20:.1f} MiB: "
           f"tables, rings, counters, telemetry); a step {out['chunked_step_ms']:.3f} ms "
           f"({out['chunked_step_no_capture_ms']:.3f} without the capture of "
@@ -3359,13 +3370,15 @@ def driver_turns(label: str, path: str, steps: int = 256, **kw):
     return out, eng
 
 
-def loop_kernel_checks(cap: dict, floor: dict) -> dict:
+def loop_kernel_checks(cap: dict, floor: dict, k6s_baseline=None) -> dict:
     """The loop's kernels of the captured step (sharded_guard, host driver)
     against their plain versions on the card, bit for bit: the consensus
     (its vector, every shard's counters, state, received count and flag,
     the run flag) and the exchange (every receiver's pending list); each
     timed from its inputs restored (wrapper, device, plain) beside its
-    bound by bytes and the launch floor."""
+    bound by bytes and the launch floor; with ``k6s_baseline``, another
+    tree's consensus checked the same way and timed in turns with this
+    one (consensus_turns)."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
     out = {}
@@ -3396,11 +3409,15 @@ def loop_kernel_checks(cap: dict, floor: dict) -> dict:
     words = SH.cons_words(ndev)
     # the reports (each shard's words where they lie) and the telemetry
     # read, the vector written, each target's counters (goal), state (3
-    # words and the pending count) and two flags, the address table
+    # words and the pending count) and two flags (the targets' addresses
+    # ride in the launch's parameters)
     nbytes = (ndev * (SH.R_ROUTE + ndev + 3) * 8 + (SH.C_HEAD + 4 * ndev) * 8 + words * 8
-              + 8 + len(tg) * (8 + 4 * 8 + 4 + 4) + tgt.numel() * 8)
+              + 8 + len(tg) * (8 + 4 * 8 + 4 + 4))
     report("consensus", err, lambda: SH.consensus_cuda(rep, *args, run, tgt, cons),
            lambda: SH.consensus_plain(rep, *args, run, tg, cons), nbytes, restore=restore_c)
+    if k6s_baseline is not None:
+        out["consensus"]["turns"] = consensus_turns(rep, args, run, tg, tgt, cons, restore_c,
+                                                    want, k6s_baseline)
     A = SH.cons_sizes(cap["x_cons"], ndev).cpu().numpy()
     out["consensus"].update(launch_floor_ms=floor["device_ms"], targets=len(tg),
                             sizes=A.tolist(), stopped=int(cap["k6s_run1"][0]) == 0)
@@ -3430,6 +3447,87 @@ def loop_kernel_checks(cap: dict, floor: dict) -> dict:
     out["exchange"].update(launch_floor_ms=floor["device_ms"], rows=rows, row_words=pw)
     print(f"  consensus: {len(tg)} targets, A {A.tolist()}; exchange: {rows} rows of {pw} words")
     return out
+
+
+def start_k6s_baseline(src: str, tmp: str):
+    """Start nvcc on another tree's K6s (``src``: its shard_loop.cu, or a
+    checkout's root or csrc/ directory; built with the headers beside it;
+    its C entry consensus of this tree's signature, whose target table
+    lay on the card) in its own directory; returns (src, proc, lib)."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    cu = src if os.path.isfile(src) else next(
+        p for p in (os.path.join(src, "shard_loop.cu"),
+                    os.path.join(src, "mpi_pastar_msa_tpu_torch", "csrc", "shard_loop.cu"))
+        if os.path.isfile(p))
+    out = os.path.join(tmp, "k6s_baseline")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "libshard_loop.so")
+    proc = subprocess.Popen(
+        [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-I", os.path.dirname(os.path.abspath(cu)), "-o",
+         lib, cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return src, proc, lib
+
+
+def load_k6s_baseline(job) -> dict:
+    """The other tree's consensus (start_k6s_baseline), with this tree's
+    argtypes, and its source's name under ``src``."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    src, proc, lib = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"K6s baseline: nvcc failed for shard_loop.cu of {src}:\n{log}")
+    fn = ctypes.CDLL(lib).consensus
+    fn.argtypes = _kernels.SIGNATURES["consensus"]
+    fn.restype = ctypes.c_int
+    return {"src": src, "consensus": fn}
+
+
+def consensus_turns(rep, args, run, tg, tgt, cons, restore, want, baseline: dict,
+                    reps: int = 20) -> dict:
+    """Another tree's consensus (``baseline``: 40505e8's, one block, its
+    target table on the card) checked against this tree's plain result
+    ``want`` on the same inputs, bit for bit, then the two timed in turns
+    from the inputs restored (old, new, new, old): device ms (CUPTI) and
+    ms a call (CUDA events), both through a plain ctypes call of their C
+    entries (this tree's reads the target table in host memory)."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.search.step import _stream
+
+    ndev, cap, ragged, layout, nb, f0, ccar = args
+    tgt_dev = tgt.to(cons.device)
+    head = (None if rep is None else rep.data_ptr(), ndev, cap, int(ragged),
+            int(layout == "unpacked"), nb, f0, ccar, run.data_ptr())
+    sig = _kernels.SIGNATURES["consensus"]
+
+    def bound(fn, table):
+        cargs = tuple(t(a) for t, a in zip(sig, head + (table.data_ptr(), len(tg),
+                                                         cons.data_ptr(), _stream(cons.device))))
+
+        def go():
+            if fn(*cargs):
+                fail(f"consensus of {baseline['src']} failed to launch")
+        return go
+
+    who = {"old": bound(baseline["consensus"], tgt_dev),
+           "new": bound(getattr(_kernels.load("consensus"), "consensus"), tgt)}
+    restore()
+    who["old"]()
+    torch.cuda.synchronize()
+    got = [cons, run] + [t for x in tg for t in x[:5]]
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    if err:
+        fail(f"consensus of {baseline['src']} differs from the plain version by {err}")
+    res = {"device_ms": {"old": [], "new": []}, "ms": {"old": [], "new": []}}
+    for w in ("old", "new", "new", "old"):
+        res["device_ms"][w].append(device_ms(who[w], reps, restore))
+        res["ms"][w].append(time_restored(who[w], restore, reps))
+    print(f"  consensus in turns with {baseline['src']} (old, new, new, old): " + "; ".join(
+        f"{k} {res[k]['old'][0]:.4f} / {res[k]['new'][0]:.4f} / {res[k]['new'][1]:.4f} / "
+        f"{res[k]['old'][1]:.4f} ms" for k in res))
+    return res
 
 
 def walk_loop_check(eng, floor: dict) -> dict:
@@ -3488,13 +3586,13 @@ def walk_loop_check(eng, floor: dict) -> dict:
 
 
 def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
-                  sweep=False) -> dict:
+                  sweep=False, k6s_baseline=None) -> dict:
     """The sharded engine on one card (parallel/sharded.py, a LocalMesh of
     [cuda:0] * 4): kinase --triples auto, whose automatic layout is packed
     at JAX's 2^21 slots a shard (sharded cubes), with the ragged exchange
-    (auto) under the chunked driver (the main path: a chunk one CUDA graph;
-    the walk's device loop against the host walk, walk_advance against its
-    plain version) and the dense one (traced: device time a step); kinase
+    (auto) under the chunked driver (the main path: a chunk 256 replays
+    of the two step graphs; the walk's device loop against the host walk,
+    walk_advance against its plain version) and the dense one (traced: device time a step); kinase
     packed, pinned to unpacked, and pinned to sig at 2^23 slots a shard,
     each 256 steps under the chunked and the host driver in turns (every
     table word equal, driver_turns), then the host driver's full run; on
@@ -3502,7 +3600,8 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
     plain version (loop_kernel_checks: the consensus and the exchange;
     keyrow_kernel_checks, sharded_kernel_checks: ``k11_count`` the
     K11_BARRIERS build, ``k11_baseline`` another tree's K11 too, timed in
-    turns with K11 on sig rows); the sharded step's bounds at the sig
+    turns with K11 on sig rows; ``k6s_baseline`` another tree's consensus,
+    in turns with this one); the sharded step's bounds at the sig
     run's B and cap; one shard against FrontierSearch's golden result,
     PF08184 with a one-row wire (exchange_cap=1), a random input whose
     one-row wire spills (sig, and pinned to unpacked), the degenerate
@@ -3521,18 +3620,19 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
     out = {}
     k = gold["kinase.fasta"]
     # the main path: kinase's automatic layout, packed at JAX's capacity,
-    # ragged, the chunked driver (auto on one card): a chunk of 256 steps
-    # one CUDA graph and one host read, the walk 32 rounds a replay
+    # ragged, the chunked driver (auto on one card): a step one CUDA graph
+    # for each ring parity, a chunk 256 replays of them and one host read,
+    # the walk 32 replays of a one-round graph a read
     out["kinase_ragged"], eng, _ = sharded_run("kinase sharded 4, ragged", paths["kinase.fasta"],
                                                k, [card] * 4, True)
     r = out["kinase_ragged"]
     if (eng.layout != "packed" or r["capacity_start"] != 1 << 21 or eng.exchange != "ragged"
             or not eng.cubes_split or r["migrated"] <= 0 or r["driver"] != "chunked"
-            or r["host_reads_a_step"] > 0.01 or r["graph_replays"] < 1):
+            or r["host_reads_a_step"] > 0.01 or r["graph_captures"] != 2):
         fail(f"kinase sharded: layout {eng.layout}, capacity {r['capacity_start']} (want packed "
              f"at 2^21), exchange {eng.exchange}, cubes split {eng.cubes_split}, migrated "
              f"{r['migrated']}, driver {r['driver']}, {r['host_reads_a_step']} host reads a "
-             f"step, {r['graph_replays']} graph replays")
+             f"step, {r['graph_captures']} step graphs captured")
     out["walk_loop"] = walk_loop_check(eng, floor)
     del eng
     # each layout in turns (chunked, then host, 256 steps), then the host
@@ -3545,7 +3645,7 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
     if "cand" not in cap or "k10_rows" not in cap or "x_pend1" not in cap:
         fail("kinase sharded: the search ended before the captured step")
     out["checks_packed"] = keyrow_kernel_checks(cap, cap["shards"])
-    out["checks_loop"] = loop_kernel_checks(cap, floor)
+    out["checks_loop"] = loop_kernel_checks(cap, floor, k6s_baseline)
     r = out["kinase_host"]
     if out["checks_packed"]["walk"]["rounds"] != r["walk_rounds"]:
         fail(f"kinase sharded: the walk took {r['walk_rounds']} rounds, its byte count "
@@ -4414,6 +4514,12 @@ def main() -> int:
                          "route_count and route_pack of this tree's signatures), "
                          "check it against route_plain on K11's inputs and time "
                          "the two K11s in turns (device, each pass alone)")
+    ap.add_argument("--k6s-baseline", metavar="SRC", default=None,
+                    help="also build another tree's csrc/shard_loop.cu (SRC: the "
+                         "file, or a checkout's root or csrc/; its C entry "
+                         "consensus, whose target table lay on the card), check "
+                         "it on the sharded step 200's consensus and time the two "
+                         "in turns")
     ap.add_argument("--k11-sweep", action="store_true",
                     help="also check and time K11 on synthetic inputs at kinase's "
                          "shapes with 64, 636, 4096, 8192, 16384 and 31744 rows a "
@@ -4496,6 +4602,8 @@ def main() -> int:
               if args.k8_baseline else None)
     k11_job = (start_k11_baseline(os.path.abspath(args.k11_baseline), phases_tmp.name)
                if args.k11_baseline else None)
+    k6s_job = (start_k6s_baseline(os.path.abspath(args.k6s_baseline), phases_tmp.name)
+               if args.k6s_baseline else None)
     try:
         logs = _kernels.build_all()
     finally:
@@ -4505,6 +4613,7 @@ def main() -> int:
         keyrow_baseline = load_keyrow_baseline(keyrow_job) if keyrow_job else None
         k8_baseline = load_k8_baseline(k8_job) if k8_job else None
         k11_baseline = load_k11_baseline(k11_job) if k11_job else None
+        k6s_baseline = load_k6s_baseline(k6s_job) if k6s_job else None
     if keyrow_baseline:
         K7_VARIANTS["baseline"] = keyrow_baseline["path_walk"]
     print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES, "
@@ -4531,7 +4640,7 @@ def main() -> int:
         report["launch_floor"] = floor = launch_floor()
         if args.sharded_only:
             report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
-                                              args.k11_sweep)
+                                              args.k11_sweep, k6s_baseline)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["capture"] = capture_check(paths)
@@ -4619,7 +4728,7 @@ def main() -> int:
                                          "packed", tmp)}
         # 7. the sharded engine (parallel/sharded.py) on [cuda:0] * 4
         report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
-                                              args.k11_sweep)
+                                              args.k11_sweep, k6s_baseline)
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
             # and the plain step on the same windows, the step before K3-K5

@@ -135,7 +135,8 @@ SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
                            "exchange": "shard_loop", "walk_advance": "shard_loop"}
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}  # kernel name -> its library, argtypes set
+_sources: Dict[str, ctypes.CDLL] = {}  # source -> its loaded library
 _tally: Optional[Dict[str, int]] = None  # set while a graph is captured
 
 
@@ -156,10 +157,10 @@ def capturing(tally: Dict[str, int]):
         _tally = prev
 
 
-def replayed(tally: Dict[str, int]) -> None:
-    """Count one replay of a graph whose capture counted ``tally``."""
+def replayed(tally: Dict[str, int], times: int = 1) -> None:
+    """Count ``times`` replays of a graph whose capture counted ``tally``."""
     for name, k in tally.items():
-        launches[name] += k
+        launches[name] += k * times
 
 
 def _nvcc() -> str:
@@ -219,11 +220,15 @@ def build_all(names=None) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built at first use."""
+    """The loaded library of one kernel, built at first use.  A source is
+    hashed and loaded once a process: its other kernels reuse the library."""
     lib = _libs.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(_lib_path(SOURCES.get(name, name)))
+        src = SOURCES.get(name, name)
+        lib = _sources.get(src)
+        if lib is None:
+            build_all([name])
+            lib = _sources[src] = ctypes.CDLL(_lib_path(src))
         fn = getattr(lib, name)
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int

@@ -45,14 +45,14 @@
 // received (kinase: 2,000 to 8,000 rows of 9 words a step, 0.01-0.04 us);
 // walk_advance reads ndev x 8 words.  Each is one dependent chain of a few
 // loads and stores, so the design is one launch each with every load of a
-// launch issued together: the consensus is one block whose threads bring
-// the reports and the telemetry into shared memory in one round trip,
-// thread 0 computes the consensus there (O(ndev^2) integer operations),
-// and all threads write it back; the exchange is a row of kExchangeBlocks
-// blocks a receiver, a word a thread (coalesced rows); walk_advance one
-// warp, a mask a lane.
-// Each returns at once when its flag reads 0, so a CUDA graph of a whole
-// chunk (or of a batch of walk rounds) does nothing after the stop.
+// launch issued together: the consensus is one warp, a shard a lane, whose
+// loads are one round (its targets' addresses ride in the launch's
+// parameters), then shuffles and stores, with no barrier; the exchange is
+// a row of kExchangeBlocks blocks a receiver, a word a thread (coalesced
+// rows); walk_advance one warp, a mask a lane.
+// Each returns at once when its flag reads 0, so a CUDA graph of a step
+// (or of a walk round) replayed past the stop does nothing.
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,140 +61,184 @@
 namespace {
 
 constexpr int kMaxDev = 32;  // shards a mesh may hold
-constexpr int kThreads = 128;
 // the report's slots (parallel/sharded.py R_*)
 constexpr int rGoal = 0, rOvf = 1, rNOpen = 3, rNSel = 4, rReopen = 5, rFmin = 6, rRoute = 7;
 // cons's slots (parallel/sharded.py C_*): the head, then 4 words a shard
 // (expanded, reopened, open, migrated), then A
 constexpr int qSteps = 0, qGoal = 1, qFmin = 2, qNSel = 3, qTOvf = 4, qCOvf = 5, qWire = 6,
               qMigr = 7, qPeak = 8, qRun = 9, qHead = 10;
-constexpr int kRepWords = rRoute + kMaxDev + 3;
 constexpr int kTgt = 6;  // a target's words: ctr, state, route out, received, flag, shard
 constexpr int kExchangeBlocks = 16;  // blocks a receiver
 
-__global__ void __launch_bounds__(kThreads) consensus_kernel(
+// A card's shards, by shard index, as the consensus writes them: each
+// local shard's counters, step state, route out (K11's), received count and
+// insert flag, null where the shard lies on another card.  Passed by value
+// in the launch's parameters (__grid_constant__: read in place, never
+// copied), so a lane reaches its shard's words with one load each and no
+// table in device memory.
+struct Targets {
+  long long* ctr[kMaxDev];
+  long long* state[kMaxDev];
+  const int32_t* out[kMaxDev];
+  int32_t* recv[kMaxDev];
+  int32_t* go[kMaxDev];
+};
+
+constexpr long long kLMax = 0x7FFFFFFFFFFFFFFFLL;  // the identity of a min
+
+// One warp, lane i shard i (ndev <= 32).  Every load of the launch is
+// issued first: the run flag, lane i's report (its shard's words where they
+// lie, or its row of the gathered copy) and telemetry, on lane 0 the head's
+// running words.  The sums, mins and counts are warp reductions (xor
+// butterflies over the ndev lanes, int64 as two 32-bit shuffles; ballots
+// for the counts); A[i][j] is lane i's, column j's `before` an exclusive
+// scan over the senders (shuffles up) and its column sum one redux.  Lane i
+// writes its telemetry, row i of A and shard i's step state, lane 0 the
+// head and the run flag: no shared memory and no barrier.
+__global__ void __launch_bounds__(32) consensus_kernel(
     const long long* __restrict__ rep, int ndev, int cap, int ragged, int unpacked, int nb,
-    long long f0, long long ccar, int32_t* __restrict__ run, const long long* __restrict__ tgt,
-    int n_tgt, long long* __restrict__ cons) {
-  __shared__ long long s_rep[kMaxDev * kRepWords];
-  __shared__ long long s_cons[qHead + 4 * kMaxDev + kMaxDev * kMaxDev];
-  __shared__ long long s_recv[kMaxDev];
-  __shared__ long long s_goal, s_fmin, s_nsel;
-  __shared__ int s_go, s_stop;
-  const int tid = threadIdx.x;
-  const int RW = rRoute + ndev + 3;
-  const int nc = qHead + 4 * ndev + ndev * ndev;
-  if (tid == 0) s_go = *run;
-  if (rep != nullptr) {
-    for (int k = tid; k < ndev * RW; k += blockDim.x) s_rep[k] = rep[k];
-  } else {
-    // every shard a target: its report's words where they lie (goal,
-    // overflow, K3's five, K11's out)
-    for (int k = tid; k < n_tgt * RW; k += blockDim.x) {
-      const long long* t = tgt + kTgt * (k / RW);
-      const int w = k % RW;
-      const long long* ctr = (const long long*)t[0];
-      const long long* state = (const long long*)t[1];
-      const int32_t* out = (const int32_t*)t[2];
-      s_rep[(int)t[5] * RW + w] = w == rGoal  ? ctr[step::cGoal]
-                                  : w == rOvf ? ctr[step::cOverflow]
-                                  : w < rRoute ? state[w - 2]
-                                               : (long long)out[w - rRoute];
-    }
-  }
-  for (int k = tid; k < qHead + 4 * ndev; k += blockDim.x) s_cons[k] = cons[k];
-  __syncthreads();
-  if (s_go == 0) return;
-  if (tid == 0) {
-    long long* per = s_cons + qHead;
-    long long* A = s_cons + qHead + 4 * ndev;
-    long long goal = step::kInf, fmin = 0, nsel = 0, tovf = 0, covf = 0, wire = 0, migr = 0;
-    long long peak = s_cons[qPeak];
-    for (int i = 0; i < ndev; ++i) {
-      const long long* r = s_rep + i * RW;
-      const long long* route = r + rRoute;
-      const long long ring_min = route[ndev + 2];
-      // the carry ring's f keeps its rows in the bound (parallel/sharded.py
-      // carry_bound): unpacked rows sort by f itself, packed words by f
-      // above their mask bits
-      const long long carry_f =
-          unpacked ? ring_min : (ring_min < step::kInfp ? (ring_min >> nb) + f0 : step::kInf);
-      const long long f = r[rFmin] < carry_f ? r[rFmin] : carry_f;
-      goal = i == 0 || r[rGoal] < goal ? r[rGoal] : goal;
-      fmin = i == 0 || f < fmin ? f : fmin;
-      nsel += r[rNSel];
-      tovf += r[rOvf] > 0;
-      covf += route[ndev + 1] > 0;
-      migr += route[ndev];
-      per[4 * i] += r[rNSel];
-      per[4 * i + 1] += r[rReopen];
-      per[4 * i + 2] = r[rNOpen];
-      per[4 * i + 3] += route[ndev];
-    }
-    for (int j = 0; j < ndev; ++j) s_recv[j] = 0;
-    for (int i = 0; i < ndev; ++i) {
-      const long long* S = s_rep + i * RW + rRoute;
-      long long sent = 0, want = 0;
-      for (int j = 0; j < ndev; ++j) {
-        long long a;
-        if (ragged) {
-          // receiver j takes ndev cap rows, senders in order
-          long long before = 0;
-          for (int k = 0; k < i; ++k) before += s_rep[k * RW + rRoute + j];
-          a = (long long)ndev * cap - before;
-          a = a < 0 ? 0 : (a > S[j] ? S[j] : a);
-        } else {
-          a = S[j] < cap ? S[j] : cap;
-        }
-        A[i * ndev + j] = a;
-        s_recv[j] += a;
-        sent += a;
-        want += S[j];
-      }
-      wire += sent;
-      long long spill = want - sent;
-      spill = spill < 0 ? 0 : (spill > ccar ? ccar : spill);
-      peak = spill > peak ? spill : peak;
-    }
-    const int stop = tovf > 0 || covf > 0;
-    s_cons[qSteps] += 1;
-    s_cons[qGoal] = goal;
-    s_cons[qFmin] = fmin;
-    s_cons[qNSel] = nsel;
-    s_cons[qTOvf] = tovf;
-    s_cons[qCOvf] = covf;
-    s_cons[qWire] += wire;
-    s_cons[qMigr] += migr;
-    s_cons[qPeak] = peak;
-    s_cons[qRun] = !stop && fmin < goal;
-    s_goal = goal;
-    s_fmin = fmin;
-    s_nsel = nsel;
-    s_stop = stop;
-  }
-  __syncthreads();
-  for (int k = tid; k < nc; k += blockDim.x) cons[k] = s_cons[k];
-  if (tid < n_tgt) {
-    // target: counters, state, the route's out, received count, the
-    // insert's flag, shard
-    const long long* t = tgt + kTgt * tid;
-    long long* ctr = (long long*)t[0];
-    long long* state = (long long*)t[1];
-    int32_t* recv = (int32_t*)t[3];
-    int32_t* go = (int32_t*)t[4];
-    const int me = (int)t[5];
-    if (s_stop) {
-      *go = 0;
+    long long f0, long long ccar, int32_t* __restrict__ run, const __grid_constant__ Targets tg,
+    long long* __restrict__ cons) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x;
+  const bool mine = lane < ndev;
+  const int go = *run;
+  long long goal = kLMax, ovf = 0, nopen = 0, nsel = 0, reopen = 0, fmin = kLMax;
+  long long migr = 0, covf = 0, ring = 0;
+  long long S[kMaxDev];  // row i of the send counts
+  long long per[4] = {0, 0, 0, 0};
+  if (mine) {
+    if (rep != nullptr) {
+      const long long* r = rep + (size_t)lane * (rRoute + ndev + 3);
+      goal = r[rGoal];
+      ovf = r[rOvf];
+      nopen = r[rNOpen];
+      nsel = r[rNSel];
+      reopen = r[rReopen];
+      fmin = r[rFmin];
+#pragma unroll
+      for (int j = 0; j < kMaxDev; ++j) S[j] = j < ndev ? r[rRoute + j] : 0;
+      migr = r[rRoute + ndev];
+      covf = r[rRoute + ndev + 1];
+      ring = r[rRoute + ndev + 2];
     } else {
-      ctr[step::cGoal] = s_goal;
-      state[step::kFmin] = s_fmin;
-      state[step::kNSel] = s_nsel;
-      atomicAdd((unsigned long long*)&state[step::kNPend], (unsigned long long)s_recv[me]);
-      *recv = (int32_t)s_recv[me];
-      *go = 1;
+      const long long* ctr = tg.ctr[lane];
+      const long long* state = tg.state[lane];
+      const int32_t* out = tg.out[lane];
+      goal = ctr[step::cGoal];
+      ovf = ctr[step::cOverflow];
+      nopen = state[step::kNOpen];
+      nsel = state[step::kNSel];
+      reopen = state[step::kReopen];
+      fmin = state[step::kFmin];
+#pragma unroll
+      for (int j = 0; j < kMaxDev; ++j) S[j] = j < ndev ? out[j] : 0;
+      migr = out[ndev];
+      covf = out[ndev + 1];
+      ring = out[ndev + 2];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) per[k] = cons[qHead + 4 * lane + k];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kMaxDev; ++j) S[j] = 0;
+  }
+  long long steps = 0, wire = 0, migr_all = 0, peak = 0;
+  if (lane == 0) {
+    steps = cons[qSteps];
+    wire = cons[qWire];
+    migr_all = cons[qMigr];
+    peak = cons[qPeak];
+  }
+  if (go == 0) return;
+  // the allowance: A[i][j] of sender i (this lane) to receiver j, and
+  // receiver j's rows on lane j; a sender's counts are >= 0 and each column
+  // of A sums to at most ndev cap <= INT_MAX (the C entry checks it)
+  const long long ncap = (long long)ndev * cap;
+  long long* A = cons + qHead + 4 * ndev + (size_t)lane * ndev;
+  long long sent = 0, want = 0, recv = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxDev; ++j) {
+    if (j >= ndev) break;
+    const long long s = S[j];
+    long long a;
+    if (ragged) {
+      // receiver j takes ndev cap rows, senders in order
+      long long incl = s;
+      for (int o = 1; o < ndev; o <<= 1) {
+        const long long y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      a = ncap - (incl - s);
+      a = a < 0 ? 0 : (a > s ? s : a);
+    } else {
+      a = s < cap ? s : cap;
+    }
+    const long long col = __reduce_add_sync(kFull, (unsigned)a);
+    if (lane == j) recv = col;
+    if (mine) A[j] = a;
+    sent += a;
+    want += s;
+  }
+  // the carry ring's f keeps its rows in the bound (parallel/sharded.py
+  // carry_bound): unpacked rows sort by f itself, packed words by f above
+  // their mask bits
+  if (mine) {
+    const long long carry_f =
+        unpacked ? ring : (ring < step::kInfp ? (ring >> nb) + f0 : step::kInf);
+    fmin = fmin < carry_f ? fmin : carry_f;
+  }
+  long long spill = want - sent;
+  spill = spill < 0 ? 0 : (spill > ccar ? ccar : spill);
+  const int tovf = __popc(__ballot_sync(kFull, mine && ovf > 0));
+  const int covf_n = __popc(__ballot_sync(kFull, mine && covf > 0));
+  long long g = goal, f = fmin, ns = nsel, mg = migr, wr = sent, pk = spill;
+  for (int o = 1; o < ndev; o <<= 1) {
+    const long long g2 = __shfl_xor_sync(kFull, g, o), f2 = __shfl_xor_sync(kFull, f, o);
+    const long long pk2 = __shfl_xor_sync(kFull, pk, o);
+    g = g2 < g ? g2 : g;
+    f = f2 < f ? f2 : f;
+    pk = pk2 > pk ? pk2 : pk;
+    ns += __shfl_xor_sync(kFull, ns, o);
+    mg += __shfl_xor_sync(kFull, mg, o);
+    wr += __shfl_xor_sync(kFull, wr, o);
+  }
+  const bool stop = tovf > 0 || covf_n > 0;
+  const int run_next = !stop && f < g;
+  if (mine) {
+    long long* p = cons + qHead + 4 * lane;
+    p[0] = per[0] + nsel;
+    p[1] = per[1] + reopen;
+    p[2] = nopen;
+    p[3] = per[3] + migr;
+    int32_t* go_me = tg.go[lane];
+    if (go_me != nullptr) {
+      if (stop) {
+        *go_me = 0;
+      } else {
+        long long* state = tg.state[lane];
+        tg.ctr[lane][step::cGoal] = g;
+        state[step::kFmin] = f;
+        state[step::kNSel] = ns;
+        atomicAdd((unsigned long long*)&state[step::kNPend], (unsigned long long)recv);
+        *tg.recv[lane] = (int32_t)recv;
+        *go_me = 1;
+      }
     }
   }
-  if (tid == 0) *run = (int32_t)s_cons[qRun];
+  if (lane == 0) {
+    cons[qSteps] = steps + 1;
+    cons[qGoal] = g;
+    cons[qFmin] = f;
+    cons[qNSel] = ns;
+    cons[qTOvf] = tovf;
+    cons[qCOvf] = covf_n;
+    cons[qWire] = wire + wr;
+    cons[qMigr] = migr_all + mg;
+    cons[qPeak] = pk > peak ? pk : peak;
+    cons[qRun] = run_next;
+    *run = run_next;
+  }
 }
 
 __global__ void __launch_bounds__(256) exchange_kernel(
@@ -261,23 +305,39 @@ __global__ void walk_advance_kernel(const int32_t* __restrict__ wout, int ndev, 
 // rep: (ndev, 7 + ndev + 3) int64, the gathered reports (the rows of
 // parallel/sharded.py::_Shard.report), or null when every shard is a
 // target (a mesh of one card): each report is then read where its words
-// lie; cap: the exchange cap; ragged: the ragged allowance (else dense);
-// unpacked: the ring's min is an f (else a packed word, f = (word >> nb)
-// + f0); ccar: the ring's rows; run: the card's int32 run flag (read,
-// then written: the next step's); tgt: (n_tgt, 6) int64, each local
-// shard's counters, step state, int32 route out (K11's), int32 received
-// count, int32 insert flag (pointers) and its index; cons: the int64
-// consensus vector (qHead + 4 ndev + ndev^2 words).  One block.
+// lie; cap: the exchange cap (ndev cap <= INT_MAX); ragged: the ragged
+// allowance (else dense); unpacked: the ring's min is an f (else a packed
+// word, f = (word >> nb) + f0); ccar: the ring's rows; run: the card's
+// int32 run flag (read, then written: the next step's); tgt: in host memory,
+// (n_tgt, 6) int64, each local shard's counters, step state, int32 route
+// out (K11's), int32 received count, int32 insert flag (addresses) and its
+// index, copied into the launch's parameters (a graph keeps the copy);
+// cons: the int64 consensus vector (qHead + 4 ndev + ndev^2 words).  One
+// warp.
 extern "C" int consensus(const void* rep, int ndev, int cap, int ragged, int unpacked, int nb,
                          long long f0, long long ccar, void* run, const void* tgt, int n_tgt,
                          void* cons, void* stream) {
   if (run == nullptr || cons == nullptr || ndev < 1 || ndev > kMaxDev ||
-      cap < 1 || nb < 1 || nb > 30 || ccar < 1 || n_tgt < 0 || n_tgt > ndev ||
-      (n_tgt > 0 && tgt == nullptr) || (rep == nullptr && n_tgt != ndev))
+      cap < 1 || (long long)ndev * cap > INT_MAX || nb < 1 || nb > 30 || ccar < 1 ||
+      n_tgt < 0 || n_tgt > ndev || (n_tgt > 0 && tgt == nullptr) ||
+      (rep == nullptr && n_tgt != ndev))
     return (int)cudaErrorInvalidValue;
-  consensus_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)rep, ndev, cap, ragged, unpacked, nb, f0, ccar, (int32_t*)run,
-      (const long long*)tgt, n_tgt, (long long*)cons);
+  Targets tg = {};
+  const long long* t = (const long long*)tgt;
+  for (int k = 0; k < n_tgt; ++k, t += kTgt) {
+    const long long me = t[5];
+    if (me < 0 || me >= ndev || tg.go[me] != nullptr || !t[0] || !t[1] || !t[2] || !t[3] ||
+        !t[4])
+      return (int)cudaErrorInvalidValue;
+    tg.ctr[me] = (long long*)t[0];
+    tg.state[me] = (long long*)t[1];
+    tg.out[me] = (const int32_t*)t[2];
+    tg.recv[me] = (int32_t*)t[3];
+    tg.go[me] = (int32_t*)t[4];
+  }
+  consensus_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (const long long*)rep, ndev, cap, ragged, unpacked, nb, f0, ccar, (int32_t*)run, tg,
+      (long long*)cons);
   return (int)cudaGetLastError();
 }
 

@@ -11,6 +11,7 @@ CLI calls them unconditionally.
 """
 from __future__ import annotations
 
+import atexit
 import os
 from typing import Optional
 
@@ -50,7 +51,19 @@ def init_distributed(coordinator: Optional[str] = None,
     backend = "cpu:gloo,cuda:nccl" if torch.cuda.is_available() else "gloo"
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=rank)
+    atexit.register(_shutdown)
     return rank
+
+
+def _shutdown() -> None:
+    """Leave the group before the interpreter exits.  A process that exits
+    with the group still up tears its store and gloo threads down during
+    static destruction, which can abort it (SIGABRT, "terminate called
+    without an active exception") after its work is done."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _broadcast(x: np.ndarray) -> np.ndarray:

@@ -51,10 +51,11 @@ the mesh's collectives between (``mesh.py``):
 Every kernel of the step returns at once when the run flag of its device
 reads 0 (the insert under its own flag, which the consensus sets), as the
 single-table step's do, so a chunk of steps needs no host read: the
-chunked driver (JAX's, one host read a chunk) replays a chunk of the whole
-mesh as one CUDA graph where the mesh is one card; the host driver reads
-the consensus once a step.  A CPU shard runs the plain versions of every
-kernel (``_select_best_plain``, ``_select_open_plain``,
+chunked driver (JAX's, one host read a chunk) captures one step of the
+whole mesh as a CUDA graph for each parity of the carry rings where the
+mesh is one card, and runs a chunk as that many replays of the two in
+turn; the host driver reads the consensus once a step.  A CPU shard
+runs the plain versions of every kernel (``_select_best_plain``, ``_select_open_plain``,
 ``sig_coords_plain``, ``keyrow_coords_plain``, ``tri_partial_plain``,
 ``expand_sharded_plain``, ``expand_keyrow_sharded_plain``,
 ``route_plain``, ``consensus_plain``, ``exchange_plain``, ``_insert_sig``,
@@ -117,8 +118,23 @@ R_GOAL, R_OVF, R_NOPEN, R_NSEL, R_REOPEN, R_FMIN, R_ROUTE = 0, 1, 3, 4, 5, 6, 7
  C_HEAD) = range(11)
 #: the most shards the sharded loop's kernels take (kMaxDev)
 MAX_SHARDS = 32
-#: the walk's rounds a replay of the chunked driver's walk loop
+#: the walk's rounds a host read of the chunked driver's walk loop (on a
+#: card that many replays of a one-round graph)
 WALK_ROUNDS = 32
+
+
+def replay_parities(parity: int, steps: int) -> List[int]:
+    """The ring parity of each step graph a chunk of ``steps`` replays
+    starting from rings at ``parity``: every step packs into the other
+    ring, so the two graphs alternate."""
+    return [(parity + k) % 2 for k in range(steps)]
+
+
+def parity_after(parity: int, steps_run: int) -> int:
+    """The ring parity after a chunk that started at ``parity`` and ran
+    ``steps_run`` steps (the consensus counts them; the replays after the
+    stop pack nothing)."""
+    return (parity + steps_run) % 2
 
 
 @dataclass
@@ -646,21 +662,23 @@ def consensus_cuda(rep: Optional[torch.Tensor], ndev: int, cap: int, ragged: boo
                    nb: int, f0: int, ccar: int, run: torch.Tensor, tgt: torch.Tensor,
                    cons: torch.Tensor, launch=None) -> None:
     """``consensus`` (csrc/shard_loop.cu) on the card: ``consensus_plain``
-    with the targets as ``tgt``, an int64 table on the card of (counters,
-    state, route out, received count, insert flag) addresses and the shard
-    index, a row a target (``target_table``); rep None reads every
-    shard's report where it lies (the targets must be every shard);
-    ``launch`` as ``_tri_partial_cuda``'s."""
+    with the targets as ``tgt``, an int64 table in host memory of (counters,
+    state, route out, received count, insert flag) addresses on the card
+    and the shard index, a row a target (``target_table``; the C entry
+    copies it into the launch's parameters); rep None reads every shard's
+    report where it lies (the targets must be every shard); ``launch`` as
+    ``_tri_partial_cuda``'s."""
     dev = cons.device
     _check(run, "run", dev, torch.int32, 1)
-    _check(tgt, "tgt", dev, torch.int64, 6)
+    _check(tgt, "tgt", torch.device("cpu"), torch.int64, 6)
     _check(cons, "cons", dev, torch.int64, cons_words(ndev))
     if rep is not None:
         _check(rep, "rep", dev, torch.int64, ndev * (R_ROUTE + ndev + 3))
     if (not 1 <= ndev <= MAX_SHARDS or tgt.dim() != 2 or tgt.shape[1] != 6
-            or (rep is None and tgt.shape[0] != ndev)):
-        raise ValueError(f"consensus: {ndev} shards (at most {MAX_SHARDS}), targets "
-                         f"{tuple(tgt.shape)}, reports {'given' if rep is not None else 'none'}")
+            or (rep is None and tgt.shape[0] != ndev) or ndev * cap > 2**31 - 1):
+        raise ValueError(f"consensus: {ndev} shards (at most {MAX_SHARDS}), exchange cap {cap}, "
+                         f"targets {tuple(tgt.shape)}, reports "
+                         f"{'given' if rep is not None else 'none'}")
     (launch or _kernels.launch)(
         "consensus", None if rep is None else rep.data_ptr(), ndev, int(cap), int(ragged),
         int(layout == "unpacked"), nb,
@@ -669,8 +687,10 @@ def consensus_cuda(rep: Optional[torch.Tensor], ndev: int, cap: int, ragged: boo
 
 
 def target_table(targets: Sequence[tuple], dev) -> torch.Tensor:
-    """``consensus_cuda``'s targets: (counters, state, route out, received
-    count, insert flag, shard index) a row, the tensors as addresses."""
+    """``consensus_cuda``'s targets, whose tensors lie on ``dev``: (counters,
+    state, route out, received count, insert flag, shard index) a row, the
+    tensors as addresses, in host memory (the launch's parameters carry
+    them)."""
     dev = targets[0][0].device if torch.device(dev).index is None else dev
     for ctr, state, out, recv, go, _ in targets:
         _check(ctr, "counters", dev, torch.int64, 7)
@@ -679,7 +699,7 @@ def target_table(targets: Sequence[tuple], dev) -> torch.Tensor:
         _check(recv, "recv", dev, torch.int32, 1)
         _check(go, "go", dev, torch.int32, 1)
     return torch.tensor([[c.data_ptr(), s.data_ptr(), o.data_ptr(), r.data_ptr(), g.data_ptr(),
-                          me] for c, s, o, r, g, me in targets], dtype=torch.int64).to(dev)
+                          me] for c, s, o, r, g, me in targets], dtype=torch.int64)
 
 
 def exchange_cuda(cons: torch.Tensor, ndev: int, cap: int, ragged: bool, R: int, pw: int,
@@ -793,8 +813,8 @@ class _Launcher:
     run's) the C arguments are bound once (``_kernels.bind``) for each
     ``key`` (the caller's, with the ring parity and any per-call buffer's
     address) and stream, and later calls launch the bound entry alone,
-    with no check and no conversion: the capture of a chunk's graph runs
-    the step's host code once a step.  Under the host driver every call
+    with no check and no conversion: the captures of the step's graphs
+    run the step's host code once each.  Under the host driver every call
     runs the wrapper."""
 
     def __init__(self, dev: torch.device, once: bool):
@@ -1039,8 +1059,8 @@ class _Shard:
     @_on_device
     def pack(self, eng, S_all: Optional[torch.Tensor]) -> None:
         """The second pass into the other ring, ``cur`` flipped.  A card's
-        shard flips it on the host at every call (the caller of a chunk
-        graph sets it after the replay, from the steps that ran)."""
+        shard flips it on the host at every call (the chunked driver sets
+        it after a chunk's replays, from the steps that ran)."""
         nxt = 1 - self.cur
         if self.cuda:
             S_ptr = None if S_all is None else S_all.data_ptr()
@@ -1128,8 +1148,9 @@ class _Card:
     there: the run flag, the consensus vector, on a mesh of one device the
     buffers every shard writes its row of (the batch's coordinates, K12's
     partials; the sum of those is each shard's h3) and the send counts'
-    gather, the address tables of the consensus and of the exchange (on a
-    card), and the chunk's graphs (one a starting parity of the rings)."""
+    gather, the targets of the consensus and the address tables of the
+    exchange (on a card), and the step's graphs (one a starting parity of
+    the rings)."""
 
     def __init__(self, eng: "ShardedFrontierSearch", dev: torch.device, first: int):
         self.dev, self.first = dev, first
@@ -1228,8 +1249,9 @@ class ShardedFrontierSearch:
 
     ``driver`` (as ``FrontierSearch``'s): "chunked" runs ``chunk_steps``
     steps of the whole mesh a host read, as JAX's sharded chunk (on a card
-    one CUDA graph a chunk, replayed; CPU shards the same steps with the
-    plain versions), and the walk as rounds replayed WALK_ROUNDS at a time;
+    ``chunk_steps`` replays of a one-step CUDA graph, one graph for each
+    ring parity; CPU shards the same steps with the plain versions), and
+    the walk WALK_ROUNDS rounds a host read;
     "host" one step a host read, launched eagerly, and one host read a
     walk round; "auto" is chunked where the mesh is one device (a
     ``LocalMesh`` whose shards share a card, or the CPU), else host.
@@ -1494,7 +1516,7 @@ class ShardedFrontierSearch:
             raise RuntimeError("open set exhausted without reaching the goal")
         t0 = time.perf_counter()
         if self.driver == "chunked":
-            masks, rounds, walk_reads = self._walk_loop(self.cards[0], shards)
+            masks, rounds, walk_reads = self._walk_loop(self.cards[0], shards, stats)
         else:
             masks, rounds = self._walk(shards)
             walk_reads = rounds
@@ -1612,19 +1634,24 @@ class ShardedFrontierSearch:
     def _search_chunked(self, shards: List[_Shard], stats: dict):
         """The chunked driver on a mesh of one device: ``chunk_steps``
         steps a host read (``_read``; JAX reads its counters once a chunk,
-        :1410), max_steps checked once a chunk (:1430).  On a card a chunk
-        is one CUDA graph, replayed (``_chunk_graph``); the steps after the
-        stop do nothing.  Returns as ``_search_host``."""
+        :1410), max_steps checked once a chunk (:1430).  On a card a step
+        is a CUDA graph, one for each ring parity (``_step_graphs``), and a
+        chunk is ``chunk_steps`` replays of them in turn
+        (``replay_parities``) with no host read between; the replays after
+        the stop do nothing.  Returns as ``_search_host``."""
         card = self.cards[0]
         reads, steps = 0, 0
         while True:
             if card.cuda:
                 parity = shards[0].cur
+                order = replay_parities(parity, self.chunk_steps)
                 with torch.cuda.device(card.dev):
-                    g = self._chunk_graph(card, shards, parity, stats)
-                    g.graph.replay()
-                _kernels.replayed(g.tally)
-                stats["graph_replays"] += 1
+                    graphs = self._step_graphs(card, shards, stats)
+                    for p in order:
+                        graphs[p].graph.replay()
+                for p in (0, 1):
+                    _kernels.replayed(graphs[p].tally, order.count(p))
+                stats["graph_replays"] += len(order)
             else:
                 for _ in range(self.chunk_steps):
                     self._step(shards)
@@ -1633,22 +1660,23 @@ class ShardedFrontierSearch:
             if card.cuda:
                 # each step that ran packed into the other ring
                 for sh in shards:
-                    sh.cur = (parity + int(c[C_STEPS]) - steps) % 2
+                    sh.cur = parity_after(parity, int(c[C_STEPS]) - steps)
             steps = int(c[C_STEPS])
             if not c[C_RUN] or steps >= self.max_steps:
                 return c, ovf, reads
 
-    def _chunk_graph(self, card: _Card, shards: List[_Shard], parity: int, stats: dict):
-        """The chunk's CUDA graph for rings starting at ``parity``:
-        captured at the first chunk that needs it and replayed after (every
-        buffer it holds is the run's).  Before the first capture every C
+    def _step_graphs(self, card: _Card, shards: List[_Shard], stats: dict):
+        """The step's CUDA graphs, one for each parity of the rings a step
+        starts from (``card.graphs[p]``: it reads ring p and packs into
+        ring 1 - p): captured at the first chunk and replayed after (every
+        buffer a step passes is the run's).  Before the captures every C
         entry of the step is launched once with the run flag at 0 (each
         returns at once; a C entry's first call queries the card, which a
         capture must not do).  A failed capture raises."""
         from ..search import step as S
 
-        if parity in card.graphs:
-            return card.graphs[parity]
+        if len(card.graphs) == 2:
+            return card.graphs
         t0 = time.perf_counter()
         curs = [sh.cur for sh in shards]
         if not card.warm:
@@ -1659,32 +1687,32 @@ class ShardedFrontierSearch:
             card.warm = True
             torch.cuda.synchronize(card.dev)
         t1 = time.perf_counter()
-        for sh in shards:
-            sh.cur = parity
-        tally: Dict[str, int] = {}
         host = [0.0]
 
-        def chunk():
+        def step():
             t = time.perf_counter()
-            for _ in range(self.chunk_steps):
-                self._step(shards)
+            self._step(shards)
             host[0] += time.perf_counter() - t
 
-        with _kernels.capturing(tally):
-            graph = S._capture(chunk)
+        for parity in (0, 1):
+            for sh in shards:
+                sh.cur = parity
+            tally: Dict[str, int] = {}
+            with _kernels.capturing(tally):
+                graph = S._capture(step)
+            card.graphs[parity] = S.ChunkGraph(parity, graph, tally)
         for sh, cur in zip(shards, curs):
             sh.cur = cur
-        card.graphs[parity] = S.ChunkGraph(parity, graph, tally)
         t2 = time.perf_counter()
-        # the capture's host seconds: the warm-up step, the steps' host code
+        # the captures' host seconds: the warm-up step, the step's host code
         # while captured, and the rest (instantiation and capture's ends)
-        stats["graph_captures"] += 1
+        stats["graph_captures"] += 2
         stats["capture_s"] += t2 - t0
         stats["capture_warm_s"] = stats.get("capture_warm_s", 0.0) + t1 - t0
         stats["capture_host_s"] = stats.get("capture_host_s", 0.0) + host[0]
         stats["capture_instantiate_s"] = (stats.get("capture_instantiate_s", 0.0)
                                           + t2 - t1 - host[0])
-        return card.graphs[parity]
+        return card.graphs
 
     def _walk(self, shards: List[_Shard]) -> Tuple[List[int], int]:
         """The batched distributed walk (JAX ``_make_batched_walk``) of the
@@ -1708,15 +1736,18 @@ class ShardedFrontierSearch:
             raise RuntimeError("distributed backtrace did not reach the origin")
         return masks, rounds
 
-    def _walk_loop(self, card: _Card, shards: List[_Shard]) -> Tuple[List[int], int, int]:
+    def _walk_loop(self, card: _Card, shards: List[_Shard],
+                   stats: Optional[dict] = None) -> Tuple[List[int], int, int]:
         """The batched distributed walk of the chunked driver on a mesh of
         one device, as a device loop (JAX ``_make_batched_walk``'s
         while_loop, :545): a round is every shard's K7 hop mode from the
         coordinate on the device, then ``walk_advance``, which sums the
         runs, appends the masks and moves the coordinate on; WALK_ROUNDS
-        rounds a replay (on a card one CUDA graph) and one host read a
-        replay, until the walk's flag reads 0.  Returns (masks, rounds,
-        host reads); raises as ``_walk``."""
+        rounds a host read (on a card a CUDA graph of one round, replayed
+        WALK_ROUNDS times), until the walk's flag reads 0.  Returns (masks,
+        rounds, host reads); raises as ``_walk``.  ``stats`` gets the host
+        seconds of the warm-up round (a C entry's first calls) and of the
+        capture (``walk_warm_s``, ``walk_capture_s``)."""
         from ..search import step as S
 
         st, n, hops, dev = self.st, self.st.n, WALK_HOPS, card.dev
@@ -1729,30 +1760,35 @@ class ShardedFrontierSearch:
         wout = torch.zeros((self.ndev, hops + n + 1), **i32).to(dev)
         advance = walk_advance_cuda if card.cuda else walk_advance_plain
 
-        def rounds(k: int) -> None:
-            for _ in range(k):
-                for sh in shards:
-                    sh.walk_hops(params, hops, out=wout[sh.me], run=wrun)
-                advance(wout, hops, n, params, masks, wst, wrun)
+        def round_() -> None:
+            for sh in shards:
+                sh.walk_hops(params, hops, out=wout[sh.me], run=wrun)
+            advance(wout, hops, n, params, masks, wst, wrun)
 
         graph = None
         if card.cuda:
+            t0 = time.perf_counter()
             with torch.cuda.device(dev):
                 go = wrun.clone()
                 wrun.zero_()
-                rounds(1)  # each C entry once, returning at once, before the capture
+                round_()  # each C entry once, returning at once, before the capture
                 wrun.copy_(go)
+                t1 = time.perf_counter()
                 tally: Dict[str, int] = {}
                 with _kernels.capturing(tally):
-                    graph = S._capture(lambda: rounds(WALK_ROUNDS))
+                    graph = S._capture(round_)
+            if stats is not None:
+                stats.update(walk_warm_s=t1 - t0, walk_capture_s=time.perf_counter() - t1)
         reads = 0
         while True:
             if graph is not None:
                 with torch.cuda.device(dev):
-                    graph.replay()
-                _kernels.replayed(tally)
+                    for _ in range(WALK_ROUNDS):
+                        graph.replay()
+                _kernels.replayed(tally, WALK_ROUNDS)
             else:
-                rounds(WALK_ROUNDS)
+                for _ in range(WALK_ROUNDS):
+                    round_()
             # the replay's one read: its flag, counts, coordinate and masks
             v = torch.cat([wrun, wst, params[:n], masks]).cpu().tolist()
             reads += 1

@@ -1733,19 +1733,24 @@ def _loop_reports(rng, ndev, cap, unpacked, case, nb=5, f0=1000):
 @pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
 @pytest.mark.parametrize("layout", ["packed", "unpacked"])
 def test_consensus_kernel_equals_plain(cuda, layout, ragged, case):
-    """consensus on 1, 2, 4 and 32 shards (every shard a target, and on 4
-    shards two targets only) against consensus_plain on the same card
-    tensors, bit for bit: the consensus vector, every target's counters,
-    state, received count and flag, and the run flag; twice in a row (the
-    telemetry adds up); with every shard a target also with no report
-    gathered (each read where it lies)."""
+    """consensus on 1, 2, 4, 8, 31 and 32 shards (every shard a target, and
+    on 4 and 8 shards some targets only) against consensus_plain on the
+    same card tensors, bit for bit: the consensus vector, every target's
+    counters, state, received count and flag, and the run flag; twice in a
+    row (the telemetry adds up); with every shard a target also with no
+    report gathered (each read where it lies)."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
     from mpi_pastar_msa_tpu_torch.search import step as TS
 
     rng = np.random.default_rng(7)
     for ndev, local, gathered in ((1, [0], True), (2, [0, 1], True), (4, [0, 1, 2, 3], True),
                                   (4, [1, 3], True), (32, list(range(32)), True),
-                                  (4, [2, 0, 3, 1], False), (32, list(range(32)), False)):
+                                  (4, [2, 0, 3, 1], False), (32, list(range(32)), False),
+                                  (8, list(range(8)), True), (8, [6, 1, 4], True),
+                                  (8, [7, 0, 5, 2, 3, 6, 1, 4], False),
+                                  (31, list(range(31)), True),
+                                  (31, list(range(30, -1, -1)), False), (1, [0], False),
+                                  (2, [1, 0], False)):
         cap, nb, f0 = 40, 5, 1000
         outs = []
         reps = [_loop_reports(rng, ndev, cap, layout == "unpacked", case) for _ in range(2)]
@@ -1901,10 +1906,32 @@ def test_sharded_graph_chunks_equal_host_driver(cuda, name, layout):
     for (k, a), (_, b) in zip(_loop_words(ce), _loop_words(he)):
         assert torch.equal(a, b), k
     cs = ce.last_stats
-    assert cs["driver"] == "chunked" and cs["graph_replays"] == cs["host_reads"]
-    assert cs["host_reads"] == -(-cr.steps // 16) and cs["graph_captures"] == 1
+    assert cs["driver"] == "chunked" and cs["graph_replays"] == 16 * cs["host_reads"]
+    assert cs["host_reads"] == -(-cr.steps // 16) and cs["graph_captures"] == 2
     for k in ("consensus", "exchange", "walk_advance"):
         assert _kernels.launches[k] > 0, k
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+def test_sharded_graph_chunks_of_7_equal_host_driver(cuda, layout):
+    """A random input whose one-row wire spills into the carry rings, 43
+    steps on [cuda] * 4, ragged, in chunks of 7 replays of the two step
+    graphs (the run stops in mid-chunk, at an odd step), against the host
+    driver: the optimum, the same result and every table tensor and ring
+    bit for bit; two captures, 7 replays a host read."""
+    rs = np.random.RandomState(31)
+    problem = Problem(tuple("".join(rs.choice(list(AMINO), size=rs.randint(12, 17)))
+                            for _ in range(4)))
+    (ce, cr), (he, hr) = _drivers(cuda, problem, layout=layout, exchange_cap=1,
+                                  hash_type="FZORDER", hash_shift=0, batch=16, chunk_steps=7,
+                                  exchange="ragged")
+    assert cr.steps == hr.steps == 43 and (cr.g, cr.shard_stats) == (hr.g, hr.shard_stats)
+    assert ce.last_stats["peak_carry"] == he.last_stats["peak_carry"] > 0
+    for (k, a), (_, b) in zip(_loop_words(ce), _loop_words(he)):
+        assert torch.equal(a, b), k
+    cs = ce.last_stats
+    assert cs["graph_captures"] == 2 and cs["host_reads"] == -(-43 // 7)
+    assert cs["graph_replays"] == 7 * cs["host_reads"]
 
 
 def test_sharded_kinase_graph_chunk_equals_host_driver(cuda):
@@ -1916,7 +1943,8 @@ def test_sharded_kinase_graph_chunk_equals_host_driver(cuda):
     (ce, _), (he, _) = _drivers(cuda, problem, chunk_steps=64, max_steps=64)
     assert ce.layout == "packed" and ce.exchange == "ragged"
     assert ce.last_stats["steps"] == he.last_stats["steps"] == 64
-    assert ce.last_stats["graph_replays"] == 1 and he.last_stats["host_reads"] == 64
+    assert ce.last_stats["graph_replays"] == 64 and ce.last_stats["graph_captures"] == 2
+    assert ce.last_stats["host_reads"] == 1 and he.last_stats["host_reads"] == 64
     for (k, a), (_, b) in zip(_loop_words(ce), _loop_words(he)):
         assert torch.equal(a, b), k
 
@@ -1926,7 +1954,8 @@ def test_sharded_graph_overflow_retries_equal_host_driver(cuda, layout):
     """A table of 16 slots a shard on [cuda] * 4 overflows inside a chunk
     graph: the run reads the kind from the consensus vector and retries at
     twice the capacity with a new graph, as the host driver does; the
-    retries, the result and the last run's tables equal."""
+    retries, the result and the last run's tables equal; the last run
+    captures its two step graphs and replays 8 a host read."""
     rs = np.random.RandomState(31)
     problem = Problem(tuple("".join(rs.choice(list(AMINO), size=rs.randint(12, 17)))
                             for _ in range(4)))
@@ -1936,3 +1965,5 @@ def test_sharded_graph_overflow_retries_equal_host_driver(cuda, layout):
     assert cr.g == hr.g and (cr.steps, cr.shard_stats) == (hr.steps, hr.shard_stats)
     for (k, a), (_, b) in zip(_loop_words(ce), _loop_words(he)):
         assert torch.equal(a, b), k
+    cs = ce.last_stats
+    assert cs["graph_captures"] == 2 and cs["graph_replays"] == 8 * cs["host_reads"]

@@ -451,3 +451,114 @@ def test_driver_choice_and_refusals():
         assert eng.last_stats["driver"] == driver
         assert eng.last_stats["host_reads"] == (res.steps if driver == "host"
                                                 else -(-res.steps // eng.chunk_steps))
+
+
+# --- a chunk as replays of one-step graphs, one a ring parity
+
+
+def test_replay_schedule():
+    """The parity of each step graph a chunk replays alternates from the
+    rings' parity at its start, and the parity after a chunk follows the
+    steps that ran: over whole runs of T steps in chunks of C (a stop in
+    mid-chunk included), the replays that run a step take the host
+    driver's parities, step by step."""
+    assert S.replay_parities(0, 5) == [0, 1, 0, 1, 0]
+    assert S.replay_parities(1, 4) == [1, 0, 1, 0]
+    assert S.replay_parities(1, 1) == [1]
+    assert [S.parity_after(p, r) for p, r in ((0, 0), (0, 7), (1, 7), (1, 16))] == [0, 1, 0, 1]
+    for C in (1, 2, 7, 16):
+        for T in range(41):
+            parity, steps, ran = 0, 0, []
+            while True:
+                order = S.replay_parities(parity, C)
+                r = min(C, T - steps)
+                ran += order[:r]
+                parity = S.parity_after(parity, r)
+                steps += r
+                if steps >= T:
+                    break
+            assert ran == [k % 2 for k in range(T)], (C, T)
+            assert parity == T % 2
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+@pytest.mark.parametrize("chunk", [1, 7])
+def test_chunked_odd_chunks_equal_host_driver(layout, chunk):
+    """Chunks of 1 and 7 steps on PF08184 (59 steps: an odd stop, inside a
+    chunk of 7) on 4 shards, ragged, against one step a read: the result,
+    every stat and every table word equal."""
+    (ce, cr), (he, hr) = both_drivers(golden("PF08184.fasta"), 4, layout=layout,
+                                      capacity=1 << 14, chunk_steps=chunk, exchange="ragged")
+    assert cr.steps == hr.steps == 59
+    assert cr.g == hr.g == GOLD["PF08184.fasta"]["optimal_g"]
+    assert (cr.closed, cr.shard_stats, cr.nodes_migrated) == (
+        hr.closed, hr.shard_stats, hr.nodes_migrated)
+    for a, b in zip(shard_words(ce), shard_words(he)):
+        assert torch.equal(a, b)
+    cs, hs = ce.last_stats, he.last_stats
+    assert cs["host_reads"] == -(-59 // chunk) and hs["host_reads"] == 59
+    for k in ("steps", "wire_rows", "migrated", "peak_carry", "walk_rounds"):
+        assert cs[k] == hs[k], k
+    assert cs["walk_reads"] == -(-cs["walk_rounds"] // S.WALK_ROUNDS)
+
+
+class _StepReplay:
+    """A stand-in for a step's CUDA graph on CPU shards: a replay is one
+    plain step from the rings at its parity (as the graph captured there
+    reads them)."""
+
+    def __init__(self, eng, parity):
+        self.eng, self.parity = eng, parity
+
+    def replay(self):
+        card = self.eng.cards[0]
+        card.cuda = False
+        for sh in self.eng.shards:
+            sh.cur = self.parity
+        self.eng._step(self.eng.shards)
+        card.cuda = True
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+@pytest.mark.parametrize("chunk", [1, 7])
+def test_chunk_replays_equal_host_driver(monkeypatch, chunk, layout):
+    """The chunked driver's card branch, with a stand-in for each ring
+    parity's step graph (a replay runs one plain step from its parity) on
+    CPU shards: a random input whose one-row wire spills into the carry
+    rings (so a replay from the wrong ring would differ), 43 steps on 4
+    shards, ragged, in chunks of 1 and 7 (a stop in mid-chunk at an odd
+    step), equals the host driver on every table word and ring; two
+    graphs, ``chunk`` replays a host read."""
+    import contextlib
+
+    def step_graphs(self, card, shards, stats):
+        if not card.graphs:
+            card.graphs = {p: TS.ChunkGraph(p, _StepReplay(self, p), {}) for p in (0, 1)}
+            stats["graph_captures"] += 2
+        return card.graphs
+
+    search = S.ShardedFrontierSearch._search_chunked
+
+    def on_card(self, shards, stats):
+        self.cards[0].cuda = True
+        try:
+            return search(self, shards, stats)
+        finally:
+            self.cards[0].cuda = False
+
+    monkeypatch.setattr(S.ShardedFrontierSearch, "_step_graphs", step_graphs)
+    monkeypatch.setattr(S.ShardedFrontierSearch, "_search_chunked", on_card)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    rs = np.random.RandomState(31)
+    p = Problem(tuple("".join(rs.choice(list(AMINO), size=rs.randint(12, 17)))
+                      for _ in range(4)))
+    (ce, cr), (he, hr) = both_drivers(p, 4, layout=layout, exchange_cap=1, hash_type="FZORDER",
+                                      hash_shift=0, batch=16, chunk_steps=chunk,
+                                      exchange="ragged")
+    assert cr.steps == hr.steps == 43 and (cr.g, cr.shard_stats) == (hr.g, hr.shard_stats)
+    assert ce.last_stats["peak_carry"] == he.last_stats["peak_carry"] > 0
+    for a, b in zip(shard_words(ce), shard_words(he)):
+        assert torch.equal(a, b)
+    cs = ce.last_stats
+    assert cs["graph_captures"] == 2 and cs["host_reads"] == -(-43 // chunk)
+    assert cs["graph_replays"] == chunk * cs["host_reads"]
