@@ -9,8 +9,9 @@ Phases, each failing loudly (non-zero exit):
    parallel) and, beside them, K3's, K5's, K8's and K11's measurement
    builds.
    Capture: a chunk of the sig step (K3, K4 and the cooperative K5, on
-   each of K5's paths) captured as a CUDA graph, replayed, must equal the
-   eager chunk.
+   each of K5's paths) as the engine's chunk graph (K6: the set-up
+   kernel loop_setup, then a WHILE node over one captured step) must
+   equal the eager chunk; loop_setup alone against its plain version.
 3. kernel check: each kernel against its plain PyTorch version on the card,
    exact int32 equality.  K8 (the Gotoh fill of Phase 1's weights,
    csrc/gotoh_wavefront.cu) at kinase, globin6, synth4_long, synth10 and
@@ -39,8 +40,12 @@ Phases, each failing loudly (non-zero exit):
    step functions run the same steps on copies: t_sig, t_best, t_closed
    and the 14 counters must be identical (also with K5 on 1 and on 132
    blocks, at its cap and on its grid path); the chunk graph against the
-   eager chunk (K6); K3 alone against the plain select on globin6's packed
-   table.  The packed and unpacked step kernels K3 (select_best.cu, both
+   eager chunk (K6), and the chunk graph in turns with the 32-step graph
+   it replaced and with itself without its programmatic edges (loop
+   turns, 32 steps at kinase `auto` step 150, `off` step 400, globin6 step
+   60 and kinase unpacked step 150: span between events, wall, the gap a
+   step, the capture by part); K3 alone against the plain select on
+   globin6's packed table.  The packed and unpacked step kernels K3 (select_best.cu, both
    instantiations), K9 (keyrow_expand.cu) and K10 (keyrow_insert.cu) run 1
    and 32 steps from globin6's table (packed, step 60) and from kinase's
    pinned to unpacked (step 150) as a chunk graph and as the eager chunk
@@ -72,8 +77,11 @@ Phases, each failing loudly (non-zero exit):
    other defaults (--triples auto, --device cuda) must build 4 cubes and reach g = 421546 with a path
    whose recomputed cost equals g, degapped rows equal to the inputs, and
    K1, K2 and the step kernels K3-K5 launched (one chunk graph, each step
-   kernel launched once a step of every chunk and once before the
-   capture); then the same with --triples off (K1 and K3-K5 launched);
+   kernel launched once a step that ran and once before the capture,
+   loop_setup once a chunk and once before it); then the same with
+   --triples off (K1 and K3-K5 launched); every run prints the engine's
+   named walls (the statics' build, the chunk loop, the capture by part,
+   _finish);
    then synth6 (tests/data, N = 6, 63 masks a row) with the CLI's defaults
    on the sig layout: g = 272848.
 5. main path, test / test2 / PF08184, under auto and under off: golden g and
@@ -150,8 +158,8 @@ Phases, each failing loudly (non-zero exit):
    and cap
    (``--k11-baseline SRC`` builds another tree's K11, checks it on the
    same inputs and times the two in turns, each pass alone;
-   ``--k6s-baseline SRC`` another tree's consensus, in turns with this
-   one;
+   ``--k6s-baseline SRC`` another tree's consensus and exchange, each
+   in turns with this tree's;
    ``--k11-sweep`` checks and times K11 on synthetic kinase-shaped inputs
    of 64 to 31,744 rows a destination).  Several cards, when there are,
    run kinase across them; else it says so (``--sharded-only`` runs this
@@ -276,14 +284,15 @@ def profiler_preamble() -> None:
     time.sleep(0.05)
 
 
-def device_ms(fn, reps: int, restore=None, keep=own_event) -> float:
+def device_ms(fn, reps: int, restore=None, keep=own_event, required: bool = True):
     """Device milliseconds of one call of fn(): from torch.profiler's CUPTI
     durations of the device events that ``keep`` takes, over ``reps``
     calls (each after ``restore()``, whose copies and fills are left out),
     the sum over event names of the mean duration times the launches a
     call makes (the count over ``reps``, rounded), so that an event missed
     or added at the session's edge does not move it.  A session that
-    recorded none is run again, at most twice."""
+    recorded none is run again, at most twice; then the run fails, or
+    (``required`` False) the result is None: not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(3):
@@ -300,6 +309,8 @@ def device_ms(fn, reps: int, restore=None, keep=own_event) -> float:
             return per_call / 1e3
         print(f"  (torch.profiler session {attempt + 1} recorded no device time for the "
               f"call under test; run again)")
+    if not required:
+        return None
     fail("torch.profiler recorded no device time for the call under test")
 
 
@@ -687,6 +698,17 @@ def warm_engine(path: str, triples: str, warm_steps: int, layout: str = "auto", 
 # run, counters, state, blocks, stream
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K5_GRID_ONLY_SIGNATURE = [_P] * 6 + [_I] * 4 + [_P] * 3 + [_I, _P]
+# the chunk loop's arguments that this tree's step entries take before the
+# stream and another tree's (a baseline) did not: K4's and K9's
+# programmatic edge; K5's and K10's loop count, condition handle and edge
+LOOP_ARGS = {"sig_expand": 1, "keyrow_expand": 1, "sig_probe": 3, "keyrow_insert": 3}
+
+
+def without_loop_args(name: str, seq):
+    """A launch's arguments or argtypes of this tree's C entry ``name``
+    without its chunk-loop arguments (LOOP_ARGS), as an earlier tree's
+    entry of the same name takes them."""
+    return list(seq[:-1 - LOOP_ARGS[name]]) + list(seq[-1:])
 
 
 def build_step_baseline(src: str, tmp: str):
@@ -714,7 +736,7 @@ def build_step_baseline(src: str, tmp: str):
              os.path.join(out, f"{name}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     argtypes = {"select_best": _kernels.SIGNATURES["select_best"],
-                "sig_expand": _kernels.SIGNATURES["sig_expand"],
+                "sig_expand": without_loop_args("sig_expand", _kernels.SIGNATURES["sig_expand"]),
                 "sig_probe": K5_GRID_ONLY_SIGNATURE}
     fns = []
     for name, (lib, proc) in jobs.items():
@@ -836,8 +858,9 @@ def step_baseline_turns(src, fns, st, ub, fill, work, ctr, bufs, restores, news)
     stream = torch.cuda.current_stream().cuda_stream
     args3 = S._select_args(st, work.t_best, work.t_closed, ctr[0], ctr[7], bufs.run, bufs,
                            stream)[1:]
-    args4 = S._expand_args(st, work, bufs, ctr, ub, stream)[1:]
-    args5 = S._probe_args(st, work, bufs, ctr, fill, 0, S.K5_CAP, stream)[1:]
+    args4 = without_loop_args("sig_expand", S._expand_args(st, work, bufs, ctr, ub, stream)[1:])
+    args5 = without_loop_args("sig_probe",
+                              S._probe_args(st, work, bufs, ctr, fill, 0, S.K5_CAP, stream)[1:])
     args5 = args5[:10] + args5[11:-2] + args5[-1:]  # that entry takes no cap nor recv
     olds = []
     for k, (fn, args) in enumerate(zip(fns, (args3, args4, args5))):
@@ -945,6 +968,171 @@ def graph_vs_eager(st, tab0, ctr0, ub, fill, same, steps: int = 32) -> dict:
     return out
 
 
+def loop_turns(label: str, st, tab0, ctr0, ub, fill, steps: int = 32, reps: int = 10) -> dict:
+    """The chunk graph (K6: the set-up, then a WHILE node over one captured
+    step, the expand and the insert over programmatic edges) in turns with
+    the design it replaced, from one mid-search table: ``steps`` steps
+    captured one after another in one graph ("old": S._capture of the
+    eager chunk S._chunk), and with the same loop graph without its
+    programmatic edges ("bare"); both built here for measurement only,
+    never on the engine's path.  All three chunks must equal each other,
+    tables and counters.  The span of a chunk between CUDA events (the
+    graph's launch alone) in turns old, new, bare, bare, new, old, median
+    of ``reps`` each, and the host wall of a chunk (the wrapper call, or
+    the copy-in, launch and copy-out, with a synchronize); the steps'
+    kernels' device time (CUPTI, over the eager chunk: a conditional
+    node's body is not traced) and each design's gap a step beside it;
+    the new capture's host seconds by part and its body's kernel nodes,
+    edges and programmatic edges."""
+    import dataclasses
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    sig = isinstance(tab0, E.SigTable)
+    run = S.run_chunk_sig_cuda if sig else S.run_chunk_keyrow_cuda
+    cap = S.K5_CAP if sig else S.K10_CAP
+    dev = ctr0.device
+    stream = S._stream(dev)
+    work = clone_table(tab0)
+    names = [f.name for f in dataclasses.fields(work)]
+
+    def restore():
+        for name in names:
+            getattr(work, name).copy_(getattr(tab0, name))
+
+    restore()
+    # a capture of its own: the allocator may hand this copy the addresses
+    # of a freed one, whose graph would serve it
+    st._step_buffers.graph = None
+    n0 = S.capture_stats(st)[0]
+    parts0 = S.capture_parts(st)
+    new_ctr = run(st, work, ctr0, steps, ub, fill)  # the capture, then one chunk
+    torch.cuda.synchronize()
+    if S.capture_stats(st)[0] != n0 + 1:
+        fail(f"{label} loop turns: no capture for a new table")
+    parts = {k: v - parts0[k] for k, v in S.capture_parts(st).items()}
+    new_tab = clone_table(work)
+    bufs = st._step_buffers
+    g_new = bufs.graph.graph
+    body = g_new.info()
+    if body != {"nodes": 3, "edges": 2, "programmatic_edges": 2}:
+        fail(f"{label} loop turns: the loop body holds {body}, want 3 kernel nodes and 2 "
+             f"programmatic edges")
+
+    def bare_step(s, cond):  # the engine's step with its edges plain
+        args = S._step_args(st, work, bufs, bufs.counters, ub, fill, 0, cap, s, cond=cond)
+        for a in args:
+            a = list(a)
+            if a[0] != args[0][0]:
+                a[-2] = 0
+            _kernels.launch(*a)
+
+    restore()
+    t0 = time.perf_counter()
+    with _kernels.capturing({}):
+        g_old = S._capture(lambda: S._chunk(st, work, bufs, steps, ub, fill, 0, cap,
+                                            S._stream(dev)))
+        old_capture_s = time.perf_counter() - t0
+        g_bare = S.LoopGraph(lambda s, cond: _kernels.launch(*S._setup_args(
+            bufs, steps, cond, s)), bare_step, dev)
+    launch = {"old": g_old.replay, "new": lambda: g_new.launch(stream),
+              "bare": lambda: g_bare.launch(stream)}
+
+    def restore_ctr():
+        restore()
+        bufs.counters.copy_(ctr0)
+
+    for w in ("old", "bare"):
+        restore_ctr()
+        launch[w]()
+        torch.cuda.synchronize()
+        if not torch.equal(bufs.counters, new_ctr) or any(
+                not torch.equal(getattr(work, k)[:st.C], getattr(new_tab, k)[:st.C])
+                for k in names):
+            fail(f"{label} loop turns: the {w} graph and the loop graph differ: "
+                 f"{new_ctr.tolist()} vs {bufs.counters.tolist()}")
+    del new_tab
+
+    def old_wall():
+        bufs.counters.copy_(ctr0)
+        g_old.replay()
+        return bufs.counters.clone()
+
+    event = {w: [] for w in launch}
+    for w in ("old", "new", "bare", "bare", "new", "old"):
+        event[w].append(time_restored(launch[w], restore_ctr, reps))
+    wall = {"old": [], "new": []}
+    for w, fn in (("old", old_wall), ("new", lambda: run(st, work, ctr0, steps, ub, fill)),
+                  ("new", lambda: run(st, work, ctr0, steps, ub, fill)), ("old", old_wall)):
+        wall[w].append(wall_restored(fn, restore, reps))
+    kernels_ms = device_ms(lambda: S._chunk(st, work, bufs, steps, ub, fill, 0, cap, stream),
+                           5, restore_ctr)
+    ran = int(new_ctr[2]) - int(ctr0[2])
+    out = dict(steps=steps, from_step=int(ctr0[2]), ran=ran, kernels_device_ms=kernels_ms,
+               capture_ms=sum(parts.values()) * 1e3,
+               capture_parts_ms={k: v * 1e3 for k, v in parts.items()},
+               old_capture_ms=old_capture_s * 1e3, body=body)
+    for w in launch:
+        out[f"{w}_event_ms"] = statistics.median(event[w])
+        out[f"{w}_event_turns"] = event[w]
+        out[f"{w}_gap_us_a_step"] = (out[f"{w}_event_ms"] - kernels_ms) / ran * 1e3
+    for w in wall:
+        out[f"{w}_wall_ms"] = statistics.median(wall[w])
+        out[f"{w}_wall_turns"] = wall[w]
+    print(f"  loop turns, {label} from step {out['from_step']} ({ran} steps; old, new, bare, "
+          f"bare, new, old, median of {reps}) between CUDA events: the WHILE-node graph "
+          f"{out['new_event_ms']:.4f} ms (gap {out['new_gap_us_a_step']:.2f} us a step), "
+          f"without its programmatic edges {out['bare_event_ms']:.4f} ms (gap "
+          f"{out['bare_gap_us_a_step']:.2f}), the {steps}-step graph {out['old_event_ms']:.4f} "
+          f"ms (gap {out['old_gap_us_a_step']:.2f}), the steps' kernels {kernels_ms:.4f} ms "
+          f"(CUPTI, eager); host wall new {out['new_wall_ms']:.4f} / old "
+          f"{out['old_wall_ms']:.4f} ms; capture {out['capture_ms']:.3f} ms (warm-up "
+          f"{parts['warm_s'] * 1e3:.3f}, host {parts['host_s'] * 1e3:.3f}, instantiation "
+          f"{parts['instantiate_s'] * 1e3:.3f}) against {out['old_capture_ms']:.3f} ms for "
+          f"the {steps}-step graph's capture and instantiation; body {body}")
+    del g_old, g_bare, work
+    return out
+
+
+def loop_setup_check() -> dict:
+    """loop_setup (csrc/step_loop.cu, the chunk graph's set-up node) run
+    alone (no condition handle) against loop_setup_plain on the same
+    counters, run flag and loop count: searching, goal 0, an overflow, a
+    chunk of 0 steps; its wrapper call (CUDA events), device (CUPTI) and
+    plain times, and its bound: 36 bytes (two counters read, f-min, the
+    flag and the count written)."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    err = 0
+    for goal, ovf, steps in ((421546, 0, 64), (0, 0, 64), (421546, 3, 64), (421546, 0, 0)):
+        ctr = torch.as_tensor(E.fresh_counters(), device="cuda")
+        ctr[0], ctr[1], ctr[6] = goal, 77, ovf
+        bufs = [ctr.clone(), torch.full((1,), 5, dtype=torch.int32, device="cuda"),
+                torch.full((2,), 9, dtype=torch.int32, device="cuda")]
+        want = [t.clone() for t in bufs]
+        _kernels.launch("loop_setup", bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(),
+                        steps, 0, 0, torch.cuda.current_stream().cuda_stream)
+        S.loop_setup_plain(*want, steps)
+        torch.cuda.synchronize()
+        err = max([err] + [int((a.long() - b.long()).abs().max()) for a, b in zip(bufs, want)])
+    if err:
+        fail(f"loop_setup differs from loop_setup_plain (max |err| {err})")
+    args = ("loop_setup", bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(), 64, 0, 0,
+            torch.cuda.current_stream().cuda_stream)
+    go = _kernels.bind(*args)
+    out = dict(max_abs_err=err, ms=time_ms(go, reps=20), device_ms=device_ms(go, 20),
+               plain_ms=time_ms(lambda: S.loop_setup_plain(*want, 64), reps=20),
+               bound_ms=36 / HBM_BYTES_PER_S * 1e3)
+    print(f"loop_setup: equal to loop_setup_plain (searching, goal 0, overflow, 0 steps); "
+          f"{out['ms']:.4f} ms wrapper / {out['device_ms']:.4f} ms device, plain "
+          f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.2e} ms (bytes)")
+    return out
+
+
 def capture_check(paths) -> dict:
     """The chunk graph's capture on its own, before the rest: PF08184's sig
     table, 8 steps in, then 8 steps as a chunk graph and as the eager chunk
@@ -1049,6 +1237,7 @@ def step_kernels(paths, baseline=None, floor=None, phases=None, keyrow_baseline=
               f"to the plain step after 1 step (K5 grid auto, 1 and 132 blocks; cap "
               f"{S.K5_CAP} and 0) and after 32 steps (cap {S.K5_CAP} and 0)")
         row["graph"] = graph_vs_eager(st, tab0, ctr0, ub, fill, same)
+        row["loop"] = loop_turns(f"kinase {triples}", st, tab0, ctr0, ub, fill)
         # one step's pieces, timed from the same table (each run restores
         # what the piece changes)
         bufs = S._step_buffers(st, torch.device("cuda"))
@@ -1248,6 +1437,7 @@ def step_kernels(paths, baseline=None, floor=None, phases=None, keyrow_baseline=
     out["grid_sync"] = grid_sync_cost()
     out["globin6_keyrow"] = g6 = keyrow_step("globin6", eng, tab, ctr,
                                              baseline=keyrow_baseline)
+    out["globin6_loop"] = loop_turns("globin6", st, tab, ctr, eng.ub, eng.fill_target)
     if not 0 < g6["k9"]["pending"] < g6["k9"]["lanes"]:
         fail(f"globin6 step {int(ctr[2])}: K9 left {g6['k9']['pending']} of "
              f"{g6['k9']['lanes']} lanes pending: it settles no home-row match")
@@ -1257,6 +1447,8 @@ def step_kernels(paths, baseline=None, floor=None, phases=None, keyrow_baseline=
     eng, tab, ctr = warm_engine(paths["kinase.fasta"], "auto", 150, layout="unpacked")
     out["kinase_unpacked_keyrow"] = keyrow_step("kinase unpacked", eng, tab, ctr,
                                                 baseline=keyrow_baseline)
+    out["kinase_unpacked_loop"] = loop_turns("kinase unpacked", eng.st, tab, ctr, eng.ub,
+                                             eng.fill_target)
     del tab, ctr
     out["kinase_unpacked_tail"] = k10_tail_sweep("kinase unpacked", eng, k10_sweep)
     return out
@@ -1287,12 +1479,14 @@ def plain_step_guard():
 
 
 def check_path_kernels(label: str, eng, res, counts: dict, plain: dict) -> None:
-    """The step kernels of the engine's layout ran on this path, K7 walked
-    it once, and no plain step function nor the plain walk ran; without a
-    regrow, one chunk graph a run, replayed once a chunk: each step kernel
-    once as the capture's warm-up and chunk_steps times a replay."""
+    """The step kernels of the engine's layout and the loop's set-up ran on
+    this path, K7 walked it once, and no plain step function nor the plain
+    walk ran; without a regrow, one chunk graph a run, launched once a
+    chunk: each step kernel once as the capture's warm-up and once a step
+    that ran (the WHILE node runs no step after the stop), the set-up once
+    as its warm-up and once a chunk."""
     kernels = LAYOUT_KERNELS[eng.layout]
-    for k in kernels:
+    for k in kernels + ["loop_setup"]:
         if counts[k] <= 0:
             fail(f"{label}: kernel {k} was not launched on the main path")
     if counts["path_walk"] != 1:
@@ -1300,11 +1494,24 @@ def check_path_kernels(label: str, eng, res, counts: dict, plain: dict) -> None:
     if any(plain.values()):
         fail(f"{label}: plain step functions or the plain walk ran on the card: {plain}")
     if not eng.regrown:
-        replays = -(-res.steps // eng.chunk_steps)
-        want = eng.graph_captures + eng.chunk_steps * replays
-        if eng.graph_captures != 1 or any(counts[k] != want for k in kernels):
+        chunks = -(-res.steps // eng.chunk_steps)
+        want = 1 + res.steps
+        if (eng.graph_captures != 1 or any(counts[k] != want for k in kernels)
+                or counts["loop_setup"] != 1 + chunks):
             fail(f"{label}: {eng.graph_captures} chunk graph captures and launches "
-                 f"{counts} for {res.steps} steps in {replays} chunks (want {want} each)")
+                 f"{counts} for {res.steps} steps in {chunks} chunks (want {want} of each "
+                 f"step kernel, {1 + chunks} of loop_setup)")
+
+
+def loop_walls(eng) -> str:
+    """The single-table search's named walls (ms): the statics' build, the
+    chunk loop, the chunk graph's capture by part, _finish (the walk in
+    it)."""
+    w = eng.last_phase_walls
+    return (f"statics {w['statics'] * 1e3:.2f}, chunk loop {w['chunk_loop'] * 1e3:.2f} (capture "
+            f"{w['graph_capture'] * 1e3:.3f}: warm-up {w['capture_warm_s'] * 1e3:.3f}, host "
+            f"{w['capture_host_s'] * 1e3:.3f}, instantiation {w['capture_instantiate_s'] * 1e3:.3f}"
+            f"), _finish {w['finish'] * 1e3:.2f} (walk {w['walk'] * 1e3:.2f}) ms")
 
 
 def start_keyrow_baseline(src: str, tmp: str):
@@ -1348,7 +1555,8 @@ def load_keyrow_baseline(job) -> dict:
         if proc.returncode != 0:
             fail(f"keyrow baseline: nvcc failed for {name}.cu of {src}:\n{log}")
         fn = getattr(ctypes.CDLL(lib), name)
-        fn.argtypes = (K9_WARP_ROW_SIGNATURE if name == "keyrow_expand"
+        fn.argtypes = (K9_WARP_ROW_SIGNATURE if name == "keyrow_expand" else
+                       without_loop_args(name, _kernels.SIGNATURES[name]) if name in LOOP_ARGS
                        else _kernels.SIGNATURES[name])
         fn.restype = ctypes.c_int
         out[name] = fn
@@ -1871,9 +2079,11 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
         # surviving lane pending, K10 over all of them) from K3's state, as
         # a pair: the same table, counters and claim rounds as this pair
         src = baseline["source"]
-        a9 = S._keyrow_expand_args(st, work, bufs, ctr, ub, stream)[1:]
+        a9 = without_loop_args("keyrow_expand",
+                               S._keyrow_expand_args(st, work, bufs, ctr, ub, stream)[1:])
         a9 = a9[:4] + a9[6:22] + a9[24:]  # no t_best, C, blocks, threads
-        a10 = S._keyrow_insert_args(st, work, bufs, ctr, fill, 0, S.K10_CAP, stream)[1:]
+        a10 = without_loop_args("keyrow_insert", S._keyrow_insert_args(
+            st, work, bufs, ctr, fill, 0, S.K10_CAP, stream)[1:])
 
         def old9():
             if baseline["keyrow_expand"](*a9):
@@ -2115,9 +2325,8 @@ def main_path(name: str, path: str, gold: dict, want_identical: bool,
           f"{info['nodes_per_s']:.0f} nodes/s, capacity {eng.st.C} "
           f"(regrown: {eng.regrown}), batch {eng.st.B}, fill target "
           f"{eng.fill_target}; peak device memory {peak / 2**20:.1f} MiB; "
-          f"launches {counts}; chunk graphs captured {eng.graph_captures} in "
-          f"{eng.last_phase_walls.get('graph_capture', 0.0) * 1e3:.2f} ms; open size "
-          f"{res.open_size}")
+          f"launches {counts}; chunk graphs captured {eng.graph_captures}; walls: "
+          f"{loop_walls(eng)}; open size {res.open_size}")
     info["k7"] = check_k7(f"{name} --triples {triples}", seen, k7_timing)
     return info
 
@@ -2168,7 +2377,7 @@ def pinned_layout(name: str, path: str, gold: dict, layout: str,
           f"{eng.last_phase_walls['walk']:.3f} s); expanded {res.nodes_expanded}, "
           f"reopened {res.nodes_reopened}, steps {res.steps}, capacity {eng.st.C} "
           f"(regrown: {eng.regrown}), batch {eng.st.B}; peak device memory "
-          f"{peak / 2**20:.1f} MiB; launches {counts}")
+          f"{peak / 2**20:.1f} MiB; launches {counts}; walls: {loop_walls(eng)}")
     info["k7"] = check_k7(f"{name} layout {layout}", seen, k7_timing)
     return info
 
@@ -3429,22 +3638,26 @@ def loop_kernel_checks(cap: dict, floor: dict, k6s_baseline=None) -> dict:
     err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(pends, cap["x_pend1"]))
     if err:
         fail(f"exchange differs from its plain version by {err}")
-    wires, flags = SH._ptrs(cap["x_wires"], dev), SH._ptrs(cap["x_flags"], dev)
-    ptab, mtab = SH._ptrs(pends, dev), torch.tensor(me, dtype=torch.int64, device=dev)
+    xtab = SH.exchange_table(cap["x_wires"], pends, cap["x_flags"], me)
 
     def restore_x():
         for p, p0 in zip(pends, cap["x_pend0"]):
             p.copy_(p0)
 
+    # the rows moved, read and written once, each receiver's flag and A's
+    # words it reads (its column, ragged the rows before it)
     rows = int(sum(A[:, r].sum() for r in me))
-    nbytes = rows * pw * 4 * 2 + ndev * ndev * 8 + (ndev + 3 * len(me)) * 8
-    report("exchange", err,
-           lambda: SH.exchange_cuda(cap["x_cons"], ndev, eng.exchange_cap, ragged, R, pw, wires,
-                                    ptab, flags, mtab),
+    nbytes = rows * pw * 4 * 2 + len(me) * 4 + sum(
+        ndev * (r + 1 if ragged else 1) for r in me) * 8
+    new_x = lambda: SH.exchange_cuda(cap["x_cons"], ndev, eng.exchange_cap, ragged, R, pw, xtab)
+    report("exchange", err, new_x,
            lambda: SH.exchange_plain(cap["x_cons"], ndev, eng.exchange_cap, ragged, R,
                                      cap["x_wires"], pends, cap["x_flags"], me),
            nbytes, restore=restore_x)
     out["exchange"].update(launch_floor_ms=floor["device_ms"], rows=rows, row_words=pw)
+    if k6s_baseline is not None:
+        out["exchange"]["turns"] = exchange_turns(
+            cap, ndev, eng.exchange_cap, ragged, pends, new_x, restore_x, k6s_baseline)
     print(f"  consensus: {len(tg)} targets, A {A.tolist()}; exchange: {rows} rows of {pw} words")
     return out
 
@@ -3470,19 +3683,72 @@ def start_k6s_baseline(src: str, tmp: str):
     return src, proc, lib
 
 
+# the C entry of the exchange before its address table rode in the
+# launch's parameters: cons, ndev, cap, ragged, R, a row's words, then
+# int64 tables on the card of the wires, pending lists, insert flags, the
+# receivers' count and their indices, stream
+EXCHANGE_DEVICE_TABLES_SIGNATURE = [_P] + [_I] * 5 + [_P] * 3 + [_I, _P, _P]
+
+
 def load_k6s_baseline(job) -> dict:
     """The other tree's consensus (start_k6s_baseline), with this tree's
-    argtypes, and its source's name under ``src``."""
+    argtypes, its exchange (EXCHANGE_DEVICE_TABLES_SIGNATURE), and its
+    source's name under ``src``."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
     src, proc, lib = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         fail(f"K6s baseline: nvcc failed for shard_loop.cu of {src}:\n{log}")
-    fn = ctypes.CDLL(lib).consensus
+    so = ctypes.CDLL(lib)
+    fn = so.consensus
     fn.argtypes = _kernels.SIGNATURES["consensus"]
     fn.restype = ctypes.c_int
-    return {"src": src, "consensus": fn}
+    x = so.exchange
+    x.argtypes = EXCHANGE_DEVICE_TABLES_SIGNATURE
+    x.restype = ctypes.c_int
+    return {"src": src, "consensus": fn, "exchange": x}
+
+
+def exchange_turns(cap: dict, ndev: int, xcap: int, ragged: bool, pends, new, restore,
+                   baseline: dict, reps: int = 20) -> dict:
+    """Another tree's exchange (``baseline``: da6a26a's, its address tables
+    on the card, each receiver's loads one after another) on the sharded
+    step's inputs, its pending lists checked against this tree's result bit
+    for bit, then the two timed in turns from the inputs restored (old,
+    new, new, old): device ms (CUPTI) and ms a call (CUDA events)."""
+    from mpi_pastar_msa_tpu_torch.search.step import _stream
+
+    dev = pends[0].device
+    ptrs = lambda ts: torch.tensor([t.data_ptr() for t in ts], dtype=torch.int64).to(dev)
+    tables = (ptrs(cap["x_wires"]), ptrs(pends), ptrs(cap["x_flags"]),
+              torch.tensor(cap["x_me"], dtype=torch.int64).to(dev))
+    cargs = (cap["x_cons"].data_ptr(), ndev, xcap, int(ragged), cap["x_R"], cap["x_pw"],
+             tables[0].data_ptr(), tables[1].data_ptr(), tables[2].data_ptr(), len(pends),
+             tables[3].data_ptr(), _stream(dev))
+
+    def old():
+        if baseline["exchange"](*cargs):
+            fail(f"exchange of {baseline['src']} failed to launch")
+
+    restore()
+    new()
+    torch.cuda.synchronize()
+    want = [p.clone() for p in pends]
+    restore()
+    old()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(pends, want)):
+        fail(f"exchange of {baseline['src']} differs from this one")
+    who = {"old": old, "new": new}
+    res = {"device_ms": {"old": [], "new": []}, "ms": {"old": [], "new": []}}
+    for w in ("old", "new", "new", "old"):
+        res["device_ms"][w].append(device_ms(who[w], reps, restore))
+        res["ms"][w].append(time_restored(who[w], restore, reps))
+    print(f"  exchange in turns with {baseline['src']} (old, new, new, old): " + "; ".join(
+        f"{k} {res[k]['old'][0]:.4f} / {res[k]['new'][0]:.4f} / {res[k]['new'][1]:.4f} / "
+        f"{res[k]['old'][1]:.4f} ms" for k in res))
+    return res
 
 
 def consensus_turns(rep, args, run, tg, tgt, cons, restore, want, baseline: dict,
@@ -3763,7 +4029,7 @@ def baseline_step(st, tab, ctr, ub, fill, probe):
     _kernels.launch(*S._select_args(st, tab.t_best, tab.t_closed, c[0], c[7], bufs.run, bufs,
                                     stream))
     _kernels.launch(*S._expand_args(st, tab, bufs, c, ub, stream))
-    args = S._probe_args(st, tab, bufs, c, fill, 0, 0, stream)[1:]
+    args = without_loop_args("sig_probe", S._probe_args(st, tab, bufs, c, fill, 0, 0, stream)[1:])
     if probe(*(args[:10] + args[11:-2] + args[-1:])):  # that entry takes no cap nor recv
         fail("K5 sweep: the baseline's K5 failed to launch")
     return c.clone()
@@ -4333,8 +4599,9 @@ def checkpoint_resume(name: str, path: str, gold: dict, layout: str, tmp: str,
              f"{(res.nodes_expanded, res.nodes_reopened, res.steps)}, want {want}")
     identical = check_alignment(label, build_alignment(p, res.closed), gold,
                                 gold["alignment"] is not None)
-    replays = -(-(res.steps - eng.resumed_steps) // eng.chunk_steps)
-    per = 1 + eng.chunk_steps * replays
+    # each step kernel once as the capture's warm-up and once a step the
+    # resumed run ran
+    per = 1 + res.steps - eng.resumed_steps
     if (eng.graph_captures != 1 or counts["path_walk"] != 1 or any(plain.values())
             or any(counts[k] != per for k in LAYOUT_KERNELS[layout])):
         fail(f"{label}: {eng.graph_captures} graph captures, launches {counts} "
@@ -4516,10 +4783,12 @@ def main() -> int:
                          "the two K11s in turns (device, each pass alone)")
     ap.add_argument("--k6s-baseline", metavar="SRC", default=None,
                     help="also build another tree's csrc/shard_loop.cu (SRC: the "
-                         "file, or a checkout's root or csrc/; its C entry "
-                         "consensus, whose target table lay on the card), check "
-                         "it on the sharded step 200's consensus and time the two "
-                         "in turns")
+                         "file, or a checkout's root or csrc/; its C entries "
+                         "consensus and exchange, whose target and address tables "
+                         "lay on the card: 40505e8's, whose exchange da6a26a "
+                         "ships unchanged), check them on the sharded step 200's "
+                         "consensus and exchange and time each in turns with "
+                         "this tree's")
     ap.add_argument("--k11-sweep", action="store_true",
                     help="also check and time K11 on synthetic inputs at kinase's "
                          "shapes with 64, 636, 4096, 8192, 16384 and 31744 rows a "
@@ -4644,6 +4913,7 @@ def main() -> int:
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["capture"] = capture_check(paths)
+        report["loop_setup"] = loop_setup_check()
         if args.k5_sweep:
             report["k5_sweep"] = k5_sweep(paths, step_baseline and step_baseline[1])
         report["dependent_load"] = chase = dependent_load_ns()
@@ -4850,6 +5120,25 @@ def main() -> int:
         grid_path_device_ms=t["grid_device_ms"], grid_path_syncs=t["grid_path_syncs"])
         for w, t in (("globin6", g6["k10"]), ("kinase_unpacked", ku["k10"]),
                      ("synth10", step["synth10_keyrow"]["k10"]))})
+    # the chunk graph's set-up node (K6): checked alone against its plain
+    # version, launched once a chunk and once as the capture's warm-up
+    ls = report["loop_setup"]
+    kernels.append({
+        "name": "loop_setup", "route": "cuda",
+        "source": "mpi_pastar_msa_tpu_torch/csrc/step_loop.cu",
+        "replaces": "mpi_pastar_msa_tpu/search/engine.py:1882",
+        "launches": launches["loop_setup"], "max_abs_err": ls["max_abs_err"], "ms": ls["ms"],
+        "device_ms": ls["device_ms"], "launch_floor_ms": floor["ms"],
+        "plain_ms": ls["plain_ms"], "bound_ms": ls["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "loop_turns": {w: {k: step_row[k] for k in (
+            "from_step", "ran", "new_event_ms", "bare_event_ms", "old_event_ms", "new_wall_ms",
+            "old_wall_ms", "kernels_device_ms", "new_gap_us_a_step", "bare_gap_us_a_step",
+            "old_gap_us_a_step", "capture_ms", "capture_parts_ms", "old_capture_ms", "body")}
+            for w, step_row in (("kinase_auto", step["auto"]["loop"]),
+                                ("kinase_off", step["off"]["loop"]),
+                                ("globin6", step["globin6_loop"]),
+                                ("kinase_unpacked", step["kinase_unpacked_loop"]))}})
     # K7, the walk: timed on the main path's kinase table (sig), checked on
     # every run's; the latency floor is path nodes x one dependent load
     # from L2 (and, beside it, from device memory)

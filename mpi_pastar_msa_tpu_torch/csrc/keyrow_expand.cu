@@ -168,6 +168,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
   __shared__ int s_cnt[2][kMaxWarps];
   __shared__ int s_base;
   __shared__ unsigned long long s_valid;
+  step::wait_predecessor();  // a programmatic edge from K3 in a chunk graph
   if (*run == 0) return;
   const long long n_rows = state[step::kNSel];
   if ((long long)blockIdx.x >= n_rows) return;  // the whole block: no row
@@ -388,14 +389,24 @@ int launch(const void* t_key, int KWs, const void* t_g, const void* t_fpar, void
            uint32_t Cmask, const void* sel, const void* tables4, const void* cubes,
            const void* params, int N, int P, int T, int S, int nb, long long f0, long long ub,
            int E, int GG, int gap_oe, int blocks, int threads, const void* run, void* counters,
-           void* state, void* pend, Sharded sh, void* stream) {
+           void* state, void* pend, Sharded sh, int pdl, void* stream) {
   const size_t shared = shared_bytes(N, P, T);
-  if (shared > 48 * 1024) return (int)cudaErrorInvalidValue;
-  keyrow_expand_kernel<kUnpacked, kSharded><<<blocks, threads, shared, (cudaStream_t)stream>>>(
-      (const int32_t*)t_key, KWs, (const int32_t*)t_g, (const long long*)t_fpar,
-      (int32_t*)t_best, Cmask, (const int32_t*)sel, (const int32_t*)tables4,
-      (const int32_t*)cubes, (const int32_t*)params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
-      (const int32_t*)run, (long long*)counters, (long long*)state, (int32_t*)pend, sh);
+  if (shared > 48 * 1024 || pdl < 0 || pdl > 1) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = shared;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1] = {step::programmatic_edge()};
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, keyrow_expand_kernel<kUnpacked, kSharded>, (const int32_t*)t_key, KWs,
+      (const int32_t*)t_g, (const long long*)t_fpar, (int32_t*)t_best, Cmask,
+      (const int32_t*)sel, (const int32_t*)tables4, (const int32_t*)cubes,
+      (const int32_t*)params, N, P, T, S, nb, f0, ub, E, GG, gap_oe, (const int32_t*)run,
+      (long long*)counters, (long long*)state, (int32_t*)pend, sh);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -424,13 +435,15 @@ bool bad_args(int KWs, const void* t_g, const void* t_fpar, const void* t_best, 
 // at most kMaxThreads); run: int32 device flag; counters: the 14 int64
 // counters; state: step_state.cuh (kNValid counts the surviving lanes,
 // kNPend the pending ones); pend: (B * (2^N - 1), W + 4 or W + 5) int32
-// pending list.  B bounds the list: at most B rows are active.
+// pending list.  B bounds the list: at most B rows are active.  pdl: 1
+// launches over a programmatic edge from the kernel before it (K3 in a
+// chunk graph, search/step.py).
 extern "C" int keyrow_expand(const void* t_key, int KWs, const void* t_g, const void* t_fpar,
                              void* t_best, int C, int unpacked, const void* sel,
                              const void* tables4, const void* cubes, const void* params, int N,
                              int P, int T, int S, int nb, long long f0, long long ub, int E,
                              int GG, int gap_oe, int B, int blocks, int threads,
-                             const void* run, void* counters, void* state, void* pend,
+                             const void* run, void* counters, void* state, void* pend, int pdl,
                              void* stream) {
   if (bad_args(KWs, t_g, t_fpar, t_best, C, unpacked, cubes, nullptr, N, P, T, S, nb, B, blocks,
                threads))
@@ -439,11 +452,11 @@ extern "C" int keyrow_expand(const void* t_key, int KWs, const void* t_g, const 
   return unpacked ? launch<true, false>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
                                         cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
                                         blocks, threads, run, counters, state, pend, Sharded{},
-                                        stream)
+                                        pdl, stream)
                   : launch<false, false>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
                                          cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
                                          blocks, threads, run, counters, state, pend, Sharded{},
-                                         stream);
+                                         pdl, stream);
 }
 
 // The sharded instantiation: keyrow_expand's arguments, then h3 ((B, M + 1)
@@ -475,8 +488,9 @@ extern "C" int keyrow_expand_sharded(const void* t_key, int KWs, const void* t_g
   const uint32_t Cmask = (uint32_t)(C - 1);
   return unpacked ? launch<true, true>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
                                        cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
-                                       blocks, threads, run, counters, state, pend, sh, stream)
+                                       blocks, threads, run, counters, state, pend, sh, 0, stream)
                   : launch<false, true>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
                                         cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
-                                        blocks, threads, run, counters, state, pend, sh, stream);
+                                        blocks, threads, run, counters, state, pend, sh, 0,
+                                        stream);
 }

@@ -47,9 +47,17 @@
 // loads and stores, so the design is one launch each with every load of a
 // launch issued together: the consensus is one warp, a shard a lane, whose
 // loads are one round (its targets' addresses ride in the launch's
-// parameters), then shuffles and stores, with no barrier; the exchange is
-// a row of kExchangeBlocks blocks a receiver, a word a thread (coalesced
-// rows); walk_advance one warp, a mask a lane.
+// parameters), then shuffles and stores, with no barrier; walk_advance
+// one warp, a mask a lane.  The exchange is a row of
+// kExchangeBlocks blocks a receiver whose every address rides in the
+// launch's parameters (XTable: the senders' wires, the receivers' pending
+// lists, flags and indices), so a block's loads before the copy are its
+// flag and A, in one round: warp 0 loads the receiver's column of A and,
+// ragged, each sender's row up to it (a sender a lane) beside the flag,
+// forms the receiver's ranges with shuffles into shared memory, one
+// barrier; then the rows from every sender are one flat range, a row a
+// thread, each thread issuing its kExchangeRows rows' loads before its
+// stores.
 // Each returns at once when its flag reads 0, so a CUDA graph of a step
 // (or of a walk round) replayed past the stop does nothing.
 #include <climits>
@@ -69,6 +77,9 @@ constexpr int qSteps = 0, qGoal = 1, qFmin = 2, qNSel = 3, qTOvf = 4, qCOvf = 5,
               qMigr = 7, qPeak = 8, qRun = 9, qHead = 10;
 constexpr int kTgt = 6;  // a target's words: ctr, state, route out, received, flag, shard
 constexpr int kExchangeBlocks = 16;  // blocks a receiver
+constexpr int kExchangeThreads = 256;
+constexpr int kExchangeRows = 2;   // a thread's rows whose loads precede its stores
+constexpr int kMaxRowWords = 16;   // a wire row: a pending entry, at most W + 5 = 13 words
 
 // A card's shards, by shard index, as the consensus writes them: each
 // local shard's counters, step state, route out (K11's), received count and
@@ -241,31 +252,86 @@ __global__ void __launch_bounds__(32) consensus_kernel(
   }
 }
 
-__global__ void __launch_bounds__(256) exchange_kernel(
+// A card's exchange, by value in the launch's parameters
+// (__grid_constant__: read in place): every sender's wire rows, and for
+// each receiver b on this card its pending list, insert flag and shard
+// index.
+struct XTable {
+  const int32_t* wire[kMaxDev];
+  int32_t* pend[kMaxDev];
+  const int32_t* flag[kMaxDev];
+  int me[kMaxDev];
+};
+
+__global__ void __launch_bounds__(kExchangeThreads) exchange_kernel(
     const long long* __restrict__ cons, int ndev, int cap, int ragged, int R, int pw,
-    const long long* __restrict__ wires, const long long* __restrict__ pends,
-    const long long* __restrict__ flags, int n_recv_shards, const long long* __restrict__ recv_me) {
+    const __grid_constant__ XTable x) {
+  // s_at[i]: the receiver's rows before sender i's (s_at[ndev]: all of
+  // them); s_src[i]: sender i's first row for it in its wire
+  __shared__ long long s_at[kMaxDev + 1], s_src[kMaxDev];
   const int b = blockIdx.x;
-  if (b >= n_recv_shards) return;
-  if (*(const int32_t*)flags[b] == 0) return;
-  const int r = (int)recv_me[b];
-  const long long* A = cons + qHead + 4 * ndev;
-  long long n_recv = 0;
-  for (int i = 0; i < ndev; ++i) n_recv += A[i * ndev + r];
-  int32_t* dst = (int32_t*)pends[b] + ((long long)R - n_recv) * pw;
-  // the receiver's words split over the gridDim.y blocks of its row
+  const int r = x.me[b];
+  // the flag and A in one round: warp 0 issues its A loads before the
+  // flag's test
+  long long n = 0, off = 0;
+  const int i = threadIdx.x;  // warp 0: a sender a lane
+  if (i < ndev) {
+    // A[i][r] and, ragged, A[i][0 .. r): independent loads
+    const long long* row = cons + qHead + 4 * ndev + (long long)i * ndev;
+    long long v[kMaxDev];
+#pragma unroll
+    for (int j = 0; j < kMaxDev; ++j) v[j] = j == r || (ragged && j < r) ? row[j] : 0;
+#pragma unroll
+    for (int j = 0; j < kMaxDev; ++j) {
+      off += j < r ? v[j] : 0;
+      n += j == r ? v[j] : 0;
+    }
+    if (!ragged) off = (long long)r * cap;
+  }
+  if (*x.flag[b] == 0) return;  // the whole block
+  if (i < 32) {
+    long long at = n;  // inclusive prefix over the senders
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long t = __shfl_up_sync(0xffffffffu, at, o);
+      if (i >= o) at += t;
+    }
+    if (i < ndev) {
+      s_at[i + 1] = at;
+      s_src[i] = off;
+    }
+    if (i == 0) s_at[0] = 0;
+  }
+  __syncthreads();
+  // the rows from every sender as one flat range ending at row R: a row a
+  // thread, kExchangeRows rows' words loaded before any is stored
+  const long long rows = s_at[ndev];
+  int32_t* dst = x.pend[b] + ((long long)R - rows) * pw;
   const long long first = (long long)blockIdx.y * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.y * blockDim.x;
-  for (int i = 0; i < ndev; ++i) {
-    const long long n = A[i * ndev + r];
-    long long off = (long long)r * cap;
-    if (ragged) {
-      off = 0;
-      for (int j = 0; j < r; ++j) off += A[i * ndev + j];
+  for (long long q0 = first; q0 < rows; q0 += kExchangeRows * stride) {
+    int32_t v[kExchangeRows][kMaxRowWords];
+#pragma unroll
+    for (int u = 0; u < kExchangeRows; ++u) {
+      const long long q = q0 + u * stride;
+      if (q < rows) {
+        int s = 0;  // the sender whose range holds row q
+        while (s_at[s + 1] <= q) ++s;
+        const int32_t* src = x.wire[s] + (s_src[s] + q - s_at[s]) * pw;
+#pragma unroll
+        for (int w = 0; w < kMaxRowWords; ++w)
+          if (w < pw) v[u][w] = src[w];
+      }
     }
-    const int32_t* src = (const int32_t*)wires[i] + off * pw;
-    for (long long k = first; k < n * pw; k += stride) dst[k] = src[k];
-    dst += n * pw;
+#pragma unroll
+    for (int u = 0; u < kExchangeRows; ++u) {
+      const long long q = q0 + u * stride;
+      if (q < rows) {
+#pragma unroll
+        for (int w = 0; w < kMaxRowWords; ++w)
+          if (w < pw) dst[q * pw + w] = v[u][w];
+      }
+    }
   }
 }
 
@@ -341,22 +407,33 @@ extern "C" int consensus(const void* rep, int ndev, int cap, int ragged, int unp
   return (int)cudaGetLastError();
 }
 
-// cons: the consensus vector (its A); wires: (ndev,) int64 pointers to each
-// sender's wire rows, (rows, pw) int32; pends, flags, recv_me: for each of
-// the n_recv_shards receivers on this card, its pending list (int32 rows
-// of pw words), its insert flag (int32) and its index; R: the received
-// region's end, ndev cap.  kExchangeBlocks blocks a receiver.
+// cons: the consensus vector (its A); xtab: in host memory, int64, the
+// ndev senders' wire rows ((rows, pw) int32 on the card), then for each of
+// the n_recv receivers on this card its pending list (int32 rows of pw
+// words), its insert flag (int32) and its shard index (addresses, copied
+// into the launch's parameters: a graph keeps the copy); R: the received
+// region's end, ndev cap; pw at most kMaxRowWords.  kExchangeBlocks
+// blocks a receiver.
 extern "C" int exchange(const void* cons, int ndev, int cap, int ragged, int R, int pw,
-                        const void* wires, const void* pends, const void* flags,
-                        int n_recv_shards, const void* recv_me, void* stream) {
-  if (cons == nullptr || wires == nullptr || pends == nullptr || flags == nullptr ||
-      recv_me == nullptr || ndev < 1 || ndev > kMaxDev || cap < 1 || R < 0 || pw < 1 ||
-      n_recv_shards < 1 || n_recv_shards > ndev)
+                        const void* xtab, int n_recv, void* stream) {
+  if (cons == nullptr || xtab == nullptr || ndev < 1 || ndev > kMaxDev || cap < 1 || R < 0 ||
+      pw < 1 || pw > kMaxRowWords || n_recv < 1 || n_recv > ndev)
     return (int)cudaErrorInvalidValue;
-  exchange_kernel<<<dim3(n_recv_shards, kExchangeBlocks), 256, 0, (cudaStream_t)stream>>>(
-      (const long long*)cons, ndev, cap, ragged, R, pw, (const long long*)wires,
-      (const long long*)pends, (const long long*)flags, n_recv_shards,
-      (const long long*)recv_me);
+  XTable x = {};
+  const long long* t = (const long long*)xtab;
+  for (int i = 0; i < ndev; ++i) {
+    if (!t[i]) return (int)cudaErrorInvalidValue;
+    x.wire[i] = (const int32_t*)t[i];
+  }
+  for (int b = 0; b < n_recv; ++b) {
+    const long long* e = t + ndev + 3 * b;
+    if (!e[0] || !e[1] || e[2] < 0 || e[2] >= ndev) return (int)cudaErrorInvalidValue;
+    x.pend[b] = (int32_t*)e[0];
+    x.flag[b] = (const int32_t*)e[1];
+    x.me[b] = (int)e[2];
+  }
+  exchange_kernel<<<dim3(n_recv, kExchangeBlocks), kExchangeThreads, 0, (cudaStream_t)stream>>>(
+      (const long long*)cons, ndev, cap, ragged, R, pw, x);
   return (int)cudaGetLastError();
 }
 

@@ -653,11 +653,6 @@ def walk_advance_plain(wout: torch.Tensor, hops: int, n: int, params: torch.Tens
         wrun.fill_(0)
 
 
-def _ptrs(tensors, dev) -> torch.Tensor:
-    """An int64 table of the tensors' device addresses, on ``dev``."""
-    return torch.tensor([t.data_ptr() for t in tensors], dtype=torch.int64).to(dev)
-
-
 def consensus_cuda(rep: Optional[torch.Tensor], ndev: int, cap: int, ragged: bool, layout: str,
                    nb: int, f0: int, ccar: int, run: torch.Tensor, tgt: torch.Tensor,
                    cons: torch.Tensor, launch=None) -> None:
@@ -702,26 +697,52 @@ def target_table(targets: Sequence[tuple], dev) -> torch.Tensor:
                           me] for c, s, o, r, g, me in targets], dtype=torch.int64)
 
 
+# the widest wire row the exchange kernel copies (kMaxRowWords of
+# csrc/shard_loop.cu): a wire row is a pending entry, at most W + 5 = 13 words
+EXCHANGE_ROW_WORDS = 16
+
+
+def exchange_table(wires: Sequence[torch.Tensor], pends: Sequence[torch.Tensor],
+                   flags: Sequence[torch.Tensor], recv_me: Sequence[int]) -> torch.Tensor:
+    """``exchange_cuda``'s address table, in host memory (the launch's
+    parameters carry it): every sender's wire, then each receiver's pending
+    list, insert flag and shard index, three words a receiver, as
+    ``exchange_plain`` takes them.  Every buffer must lie on the card of
+    the first wire, as int32 rows of one width."""
+    dev = wires[0].device
+    pw = wires[0].shape[1]
+    for t, name in [(w, "wire") for w in wires] + [(p, "pend") for p in pends]:
+        _check(t, name, dev, torch.int32, pw)
+        if t.dim() != 2 or t.shape[1] != pw:
+            raise ValueError(f"exchange: {name} of shape {tuple(t.shape)}, need (rows, {pw})")
+    for flag in flags:
+        _check(flag, "flag", dev, torch.int32, 1)
+    if not len(pends) == len(flags) == len(recv_me) or not all(
+            0 <= me < len(wires) for me in recv_me):
+        raise ValueError(f"exchange: receivers {list(recv_me)} of {len(wires)} shards")
+    return torch.tensor([w.data_ptr() for w in wires]
+                        + [v for p, f, me in zip(pends, flags, recv_me)
+                           for v in (p.data_ptr(), f.data_ptr(), int(me))], dtype=torch.int64)
+
+
 def exchange_cuda(cons: torch.Tensor, ndev: int, cap: int, ragged: bool, R: int, pw: int,
-                  wires: torch.Tensor, pends: torch.Tensor, flags: torch.Tensor,
-                  recv_me: torch.Tensor, launch=None) -> None:
+                  xtab: torch.Tensor, launch=None) -> None:
     """``exchange`` (csrc/shard_loop.cu) on the card: ``exchange_plain``
-    with the buffers as int64 address tables on the card (``_ptrs``):
-    ``wires`` every sender's, ``pends`` and ``flags`` each receiver's, and
-    ``recv_me`` the receivers' indices.  Every buffer must lie on this
-    card; ``launch`` as ``_tri_partial_cuda``'s."""
+    with the senders' wires and the receivers' pending lists, flags and
+    indices as ``xtab`` (``exchange_table``, in host memory: the C entry
+    copies it into the launch's parameters); ``launch`` as
+    ``_tri_partial_cuda``'s."""
     dev = cons.device
     _check(cons, "cons", dev, torch.int64, cons_words(ndev))
-    _check(wires, "wires", dev, torch.int64, ndev)
-    n = recv_me.numel()
-    for t, name in ((pends, "pends"), (flags, "flags"), (recv_me, "recv_me")):
-        _check(t, name, dev, torch.int64, n)
-    if not 1 <= n <= ndev <= MAX_SHARDS or R < 0 or pw < 1:
-        raise ValueError(f"exchange: {n} receivers of {ndev} shards, R {R}, {pw} words a row")
+    _check(xtab, "xtab", torch.device("cpu"), torch.int64, ndev)
+    n = (xtab.numel() - ndev) // 3
+    if (not 1 <= n <= ndev <= MAX_SHARDS or xtab.numel() != ndev + 3 * n or R < 0
+            or not 1 <= pw <= EXCHANGE_ROW_WORDS):
+        raise ValueError(f"exchange: {n} receivers of {ndev} shards ({xtab.numel()} table "
+                         f"words), R {R}, {pw} words a row")
     (launch or _kernels.launch)(
         "exchange", cons.data_ptr(), ndev, int(cap), int(ragged), int(R), int(pw),
-        wires.data_ptr(), pends.data_ptr(), flags.data_ptr(), n, recv_me.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        xtab.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
 
 
 def walk_advance_cuda(wout: torch.Tensor, hops: int, n: int, params: torch.Tensor,
@@ -1178,11 +1199,10 @@ class _Card:
         with torch.cuda.device(self.dev):
             self.tgt = target_table(self.targets(), self.dev)
             if eng.one_device:
-                self.x_wires = _ptrs([sh.wire for sh in shards], self.dev)
-                self.x_pends = _ptrs([sh.pend for sh in self.shards], self.dev)
-                self.x_flags = _ptrs([sh.go for sh in self.shards], self.dev)
-                self.x_me = torch.tensor([sh.me for sh in self.shards],
-                                         dtype=torch.int64).to(self.dev)
+                self.xtab = exchange_table([sh.wire for sh in shards],
+                                           [sh.pend for sh in self.shards],
+                                           [sh.go for sh in self.shards],
+                                           [sh.me for sh in self.shards])
 
     def targets(self) -> List[tuple]:
         """The consensus's targets: this card's shards' counters, state,
@@ -1210,8 +1230,7 @@ class _Card:
         if self.cuda:
             with torch.cuda.device(self.dev):
                 self._go("exchange", lambda launch: exchange_cuda(
-                    self.cons, *args, sh0.pw, self.x_wires, self.x_pends, self.x_flags,
-                    self.x_me, launch=launch))
+                    self.cons, *args, sh0.pw, self.xtab, launch=launch))
         else:
             exchange_plain(self.cons, *args, [sh.wire for sh in shards],
                            [sh.pend for sh in self.shards], [sh.go for sh in self.shards],

@@ -1137,8 +1137,10 @@ class FrontierSearch:
         if self.ub < INF and not (self.ub - f0 + 64) < budget and has_cubes:
             f0 = int(self.heuristic.calculate_h(np.zeros(n, dtype=np.int32)))
         self.packed = self.ub < INF and (self.ub - f0 + 64) < budget
+        t0 = time.perf_counter()
         self.st = _Static(problem, self.heuristic, batch, capacity,
                           self.device, f0=f0)
+        self.statics_wall = time.perf_counter() - t0  # the statics' build, seconds
         self._check_layout()
         self.regrown = False
         self.graph_captures = 0  # chunk graphs the last run captured
@@ -1244,8 +1246,10 @@ class FrontierSearch:
                     raise
                 attempts += 1
                 self.regrown = True
+                t0 = time.perf_counter()
                 self.st = _Static(self.problem, self.heuristic, self.st.B,
                                   self.st.C * 2, self.device, f0=self.st.f0)
+                self.statics_wall += time.perf_counter() - t0
                 self._check_layout()
 
     def _run_once(self) -> FrontierResult:
@@ -1256,7 +1260,7 @@ class FrontierSearch:
                 "can be negative, so A* optimality is undefined for this "
                 "input (the reference has the same limitation)",
                 RuntimeWarning, stacklevel=3)
-        self.last_phase_walls = {"cubes": self.cubes_wall}
+        self.last_phase_walls = {"cubes": self.cubes_wall, "statics": self.statics_wall}
         layout = self.layout
         tab, counters = self._load_checkpoint()
         t0 = time.perf_counter()
@@ -1265,10 +1269,12 @@ class FrontierSearch:
             tab = self._init_table()
             counters = torch.as_tensor(fresh_counters(), device=st.device)
         self.last_phase_walls["init_table"] = time.perf_counter() - t0
-        from .step import capture_stats
+        from .step import capture_parts, capture_stats
         captures0, capture_s0 = capture_stats(st)
+        parts0 = capture_parts(st)
         host = self.driver == "host"
         chunks = 0
+        t_loop = time.perf_counter()
         while True:
             if (self.checkpoint_path and chunks
                     and chunks % self.checkpoint_every == 0):
@@ -1284,10 +1290,15 @@ class FrontierSearch:
                  "lanes_unmatched", "lanes_tail"), c[8:14]))
             if fmin_v >= goal_v or overflow > 0 or steps >= self.max_steps:
                 break
-        # the chunk graphs this run captured (on the card: one a table)
+        walls = self.last_phase_walls
+        walls["chunk_loop"] = time.perf_counter() - t_loop  # captures included
+        # the chunk graphs this run captured (on the card: one a table),
+        # and their seconds by part
         captures, capture_s = capture_stats(st)
         self.graph_captures = captures - captures0
-        self.last_phase_walls["graph_capture"] = capture_s - capture_s0
+        walls["graph_capture"] = capture_s - capture_s0
+        for k, v in capture_parts(st).items():
+            walls[f"capture_{k}"] = v - parts0[k]
         if overflow > 0:
             raise RuntimeError(f"hash table overflow after {steps} steps "
                                f"(capacity {st.C}); increase capacity")
@@ -1297,7 +1308,10 @@ class FrontierSearch:
             raise RuntimeError("max_steps exceeded")
         if goal_v >= INF:
             raise RuntimeError("open set exhausted without reaching the goal")
-        return self._finish(tab, goal_v, steps, total_expanded, total_reopen)
+        t0 = time.perf_counter()
+        res = self._finish(tab, goal_v, steps, total_expanded, total_reopen)
+        walls["finish"] = time.perf_counter() - t0  # the walk included
+        return res
 
     def _ckpt_meta(self) -> str:
         """What a checkpoint must match to be resumed (JAX ``_ckpt_meta``):

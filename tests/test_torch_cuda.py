@@ -198,14 +198,14 @@ def test_main_path_auto_on_card(cuda):
     assert len(eng.heuristic.triangles) == 1
     assert _kernels.launches["pair_wavefront"] == 1
     assert _kernels.launches["triple_wavefront"] == 1
-    # the sig step: K3, K4 and K5 once a step (steps enqueued after the
-    # stop included): one chunk graph, each kernel launched once as its
-    # warm-up, then chunk_steps times a replay, one replay a chunk
+    # the sig step: K3, K4 and K5 once a step that ran (none after the
+    # stop): one chunk graph, each kernel launched once as its warm-up,
+    # then once a run of the graph's loop body, one step each
     n = _kernels.launches["select_best"]
-    assert n >= res.steps
     assert _kernels.launches["sig_expand"] == _kernels.launches["sig_probe"] == n
     chunks = -(-res.steps // eng.chunk_steps)
-    assert eng.graph_captures == 1 and n == 1 + eng.chunk_steps * chunks
+    assert eng.graph_captures == 1 and n == 1 + res.steps
+    assert _kernels.launches["loop_setup"] == 1 + chunks
     assert res.g == gold["optimal_g"]
     assert build_alignment(p, res.closed) == gold["alignment"]
 
@@ -536,29 +536,52 @@ def test_k5_both_paths_equal_plain_insert(cuda, name, triples, warm):
             assert_same_step(st, ka, kc, pa, pc)
 
 
+def graph_vs_eager(run_chunk, st, tab, ctr, ub, fill, kernels, clone):
+    """The chunk graph against the eager chunk from one mid-search table,
+    bit for bit (every table tensor and the 14 counters), after 1 chunk and
+    after 3 of 1, 7, 16 and 64 steps; one capture a table; each step
+    kernel launched once as the capture's warm-up and once a step that ran
+    (none after the stop), the eager chunk chunk_steps times a chunk.
+    Returns whether a search stopped in the middle of a chunk."""
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    mid_chunk = False
+    for steps in (1, 7, 16, 64):
+        for chunks in (1, 3):
+            ga, ea = clone(tab), clone(tab)
+            gc = ec = ctr
+            n0 = S.capture_stats(st)[0]
+            before = dict(_kernels.launches)
+            for _ in range(chunks):
+                gc = run_chunk(st, ga, gc, steps, ub, fill)
+            ran = int(gc[2]) - int(ctr[2])
+            graph = {k: _kernels.launches[k] - before[k] for k in kernels}
+            for _ in range(chunks):
+                ec = run_chunk(st, ea, ec, steps, ub, fill, graph=False)
+            assert_same_tables(st, ga, gc, ea, ec)
+            assert S.capture_stats(st)[0] == n0 + 1
+            assert 0 < ran <= steps * chunks
+            for k in kernels:
+                assert graph[k] == 1 + ran, (k, steps, chunks)
+                assert _kernels.launches[k] - before[k] - graph[k] == steps * chunks
+            mid_chunk |= int(gc[1]) >= int(gc[0]) and ran % steps != 0
+    return mid_chunk
+
+
 @pytest.mark.parametrize("name,triples,warm", [
     ("kinase.fasta", "auto", 150), ("kinase.fasta", "off", 400), ("synth6", "auto", 40)])
 def test_graph_chunk_equals_eager_chunk(cuda, name, triples, warm):
     # the chunk graph against the eager chunk, bit for bit, after 1 chunk
-    # and after 3, from one mid-search table; one capture a table
+    # and after 3 of 1, 7, 16 and 64 steps, from one mid-search table; one
+    # capture a table; kinase `auto` reaches its goal (step 299) in the
+    # middle of a chunk of 64 (150 + 3 x 64 steps), and no kernel runs
+    # after it
     from mpi_pastar_msa_tpu_torch.search import step as S
 
     eng, tab, ctr = warm_sig(name, cuda, triples, warm)
-    st, ub, fill = eng.st, eng.ub, eng.fill_target
-    for chunks in (1, 3):
-        ga, ea = clone_sig(tab), clone_sig(tab)
-        gc = ec = ctr
-        n0 = S.capture_stats(st)[0]
-        before = dict(_kernels.launches)
-        for _ in range(chunks):
-            gc = S.run_chunk_sig_cuda(st, ga, gc, 16, ub, fill)
-            ec = S.run_chunk_sig_cuda(st, ea, ec, 16, ub, fill, graph=False)
-        assert_same_step(st, ga, gc, ea, ec)
-        assert S.capture_stats(st)[0] == n0 + 1
-        # each kernel: a warm-up, then 16 a chunk from each loop
-        for k in ("select_best", "sig_expand", "sig_probe"):
-            assert _kernels.launches[k] - before[k] == 1 + 2 * 16 * chunks
-        assert int(gc[2]) > int(ctr[2])
+    mid = graph_vs_eager(S.run_chunk_sig_cuda, eng.st, tab, ctr, eng.ub, eng.fill_target,
+                         ("select_best", "sig_expand", "sig_probe"), clone_sig)
+    assert mid or (name, triples) != ("kinase.fasta", "auto")
 
 
 def test_regrow_recaptures_and_reaches_the_optimum(cuda):
@@ -782,23 +805,14 @@ def test_keyrow_n16_packed_and_degenerate_equal_plain(cuda, monkeypatch):
 def test_keyrow_graph_chunk_equals_eager_chunk(cuda, name, layout, warm):
     from mpi_pastar_msa_tpu_torch.search import step as S
 
+    # as test_graph_chunk_equals_eager_chunk, on the key-row layouts:
+    # PF08184 (packed) reaches its goal in the middle of a chunk
     eng = keyrow_engine(name, cuda, layout)
-    st, ub, fill = eng.st, eng.ub, eng.fill_target
     tab, ctr = warm_keyrow(eng, warm)
     select = "select_best" if layout == "packed" else "select_best_unpacked"
-    for chunks in (1, 3):
-        ga, ea = clone_tab(tab), clone_tab(tab)
-        gc = ec = ctr
-        n0 = S.capture_stats(st)[0]
-        before = dict(_kernels.launches)
-        for _ in range(chunks):
-            gc = S.run_chunk_keyrow_cuda(st, ga, gc, 16, ub, fill)
-            ec = S.run_chunk_keyrow_cuda(st, ea, ec, 16, ub, fill, graph=False)
-        assert_same_tables(st, ga, gc, ea, ec)
-        assert S.capture_stats(st)[0] == n0 + 1
-        for k in (select, "keyrow_expand", "keyrow_insert"):
-            assert _kernels.launches[k] - before[k] == 1 + 2 * 16 * chunks
-        assert int(gc[2]) > int(ctr[2])
+    mid = graph_vs_eager(S.run_chunk_keyrow_cuda, eng.st, tab, ctr, eng.ub, eng.fill_target,
+                         (select, "keyrow_expand", "keyrow_insert"), clone_tab)
+    assert mid or name != "PF08184.fasta"
 
 
 def test_keyrow_wrappers_reject_bad_input(cuda):
@@ -1786,15 +1800,19 @@ def test_consensus_kernel_equals_plain(cuda, layout, ragged, case):
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
 def test_exchange_kernel_equals_plain(cuda, ragged):
-    """exchange against exchange_plain on random sizes and wires of 3 and 13
-    words a row (sig, kinase packed), a receiver's flag 0 among them, and
-    on two of four receivers."""
+    """exchange against exchange_plain on random sizes and wires of 3, 7
+    (kinase's packed wire), 9 and 13 words a row, on 2, 4, 8, 31 and 32
+    shards, a receiver's flag 0 among them, a receiver that gets 0 rows
+    from every sender, and on some of the receivers."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
     rng = np.random.default_rng(3)
     for ndev, pw, cap, recv_me in ((4, 3, 50, [0, 1, 2, 3]), (4, 13, 200, [3, 1]),
-                                   (2, 9, 7, [0, 1]), (32, 3, 5, list(range(32)))):
+                                   (2, 9, 7, [0, 1]), (32, 3, 5, list(range(32))),
+                                   (4, 7, 600, [0, 1, 2, 3]), (8, 7, 40, list(range(8))),
+                                   (31, 7, 9, list(range(0, 31, 2)))):
         counts = rng.integers(0, 3 * cap, (ndev, ndev))
+        counts[:, recv_me[-1]] = 0  # nothing for the last receiver
         A = SH.route_sizes(counts, ndev, cap, ragged)
         R = ndev * cap
         cons = SH.fresh_cons(ndev, cuda)
@@ -1808,16 +1826,15 @@ def test_exchange_kernel_equals_plain(cuda, ragged):
             flags = [torch.ones(1, dtype=torch.int32, device=cuda) for _ in recv_me]
             flags[0].zero_()
             if use_kernel:
-                SH.exchange_cuda(cons, ndev, cap, ragged, R, pw, SH._ptrs(wires, cuda),
-                                 SH._ptrs(pends, cuda), SH._ptrs(flags, cuda),
-                                 torch.tensor(recv_me, dtype=torch.int64, device=cuda))
+                SH.exchange_cuda(cons, ndev, cap, ragged, R, pw,
+                                 SH.exchange_table(wires, pends, flags, recv_me))
             else:
                 SH.exchange_plain(cons, ndev, cap, ragged, R, wires, pends, flags, recv_me)
             torch.cuda.synchronize()
             outs.append(pends)
         for a, b in zip(*outs):
-            assert torch.equal(a, b)
-        assert (outs[0][0] == -5).all()
+            assert torch.equal(a, b), (ndev, pw, recv_me)
+        assert (outs[0][0] == -5).all() and (outs[0][-1] == -5).all()
 
 
 def test_walk_advance_kernel_equals_plain(cuda):

@@ -5,11 +5,13 @@ devices and against ``_route_ragged``'s allowance written in
 ``jax.numpy``, on seeded random reports (both exchanges, an overflow of
 each kind, an empty ring, a stopped run); ``exchange_plain`` against
 ``LocalMesh.all_to_all_ragged`` and the dense copy loop on the wires of
-the plain route; ``walk_advance_plain`` against the host walk; the chunked
+the plain route, and the exchange kernel's schedule (its one round of A
+loads, its flat word range) against ``exchange_plain``; ``walk_advance_plain`` against the host walk; the chunked
 driver against the host driver on CPU shards (sig, packed, unpacked;
 test2 and PF08184 on 2 and 4 shards; a one-row wire that spills): the
 results, the per-shard stats and every table tensor equal, also across
 table-overflow retries; and the driver's refusals."""
+import ctypes
 import json
 import os
 
@@ -248,6 +250,94 @@ def route_wires(seed, ndev, L, ccar, cap, ragged):
         outs = [S.route_plain(torch.from_numpy(cand[i]), L, carry, ndev, i, cap, Sm)
                 for i in range(ndev)]
     return [o[0] for o in outs], S.route_sizes(counts, ndev, cap, ragged)
+
+
+def emu_exchange(cons, ndev, cap, ragged, R, xtab, wires, pends, rng, blocks=16, threads=256,
+                 per=2):
+    """csrc/shard_loop.cu's exchange with its schedule emulated, from the
+    address table ``exchange_table`` built (the host memory the C entry
+    reads; ``wires`` and ``pends`` stand behind its addresses): per
+    receiver block, warp 0's one round of A loads (A[i][r], ragged A[i][:r])
+    and its prefix sums, then a row a thread over the flat range of rows,
+    each thread's ``per`` rows loaded before any is stored, the threads of
+    a receiver's row of blocks in a random order."""
+    A = S.cons_sizes(cons, ndev).numpy()
+    tab = xtab.tolist()
+    by_ptr = {t.data_ptr(): t for t in list(wires) + list(pends)}
+    assert tab[:ndev] == [w.data_ptr() for w in wires]
+    pw = wires[0].shape[1]
+    for b in range(len(pends)):
+        pend_ptr, flag_ptr, r = tab[ndev + 3 * b: ndev + 3 * b + 3]
+        if not ctypes.c_int32.from_address(flag_ptr).value:
+            continue
+        n = [int(A[i][r]) for i in range(ndev)]
+        src = [int(A[i][:r].sum()) if ragged else r * cap for i in range(ndev)]
+        at = [0] + list(np.cumsum(n))  # the shuffles' inclusive scan, shifted
+        rows = at[ndev]
+        dst = by_ptr[pend_ptr]
+        base = R - rows
+        stride = blocks * threads
+        for t in rng.permutation(stride):
+            for q0 in range(int(t), rows, per * stride):
+                qs = [q for q in (q0 + u * stride for u in range(per)) if q < rows]
+                vals = []
+                for q in qs:
+                    s = 0
+                    while at[s + 1] <= q:
+                        s += 1
+                    vals.append(wires[s][src[s] + q - at[s]].clone())
+                for q, v in zip(qs, vals):
+                    dst[base + q] = v
+
+
+@pytest.mark.parametrize("ndev,pw,cap,recv_me,ragged", [
+    (4, 7, 50, [0, 1, 2, 3], True), (4, 7, 50, [3, 1], False), (8, 3, 20, list(range(8)), True),
+    (31, 7, 6, list(range(0, 31, 3)), True), (31, 9, 4, list(range(31)), False)])
+def test_exchange_schedule_equals_plain(ndev, pw, cap, recv_me, ragged):
+    """The exchange kernel's schedule (emu_exchange) against exchange_plain
+    on random allowances of the route's shape, a receiver's flag 0, and a
+    receiver that gets 0 rows from every sender."""
+    rng = np.random.default_rng(ndev * 100 + pw)
+    counts = rng.integers(0, 3 * cap, (ndev, ndev))
+    counts[:, recv_me[-1]] = 0  # nothing for the last receiver
+    A = S.route_sizes(counts, ndev, cap, ragged)
+    assert A[:, recv_me[-1]].sum() == 0 and A.sum() > 0
+    R = ndev * cap
+    cons = S.fresh_cons(ndev, "cpu")
+    S.cons_sizes(cons, ndev)[:] = torch.from_numpy(A)
+    wires = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (max(R, 3 * cap * ndev), pw))
+                              .astype(np.int32)) for _ in range(ndev)]
+    outs = []
+    for emulated in (True, False):
+        pends = [torch.full((R + 16, pw), -5, dtype=torch.int32) for _ in recv_me]
+        flags = [torch.ones(1, dtype=torch.int32) for _ in recv_me]
+        flags[0].zero_()
+        if emulated:
+            xtab = S.exchange_table(wires, pends, flags, recv_me)
+            assert xtab.dtype == torch.int64 and xtab.numel() == ndev + 3 * len(recv_me)
+            emu_exchange(cons, ndev, cap, ragged, R, xtab, wires, pends, rng)
+        else:
+            S.exchange_plain(cons, ndev, cap, ragged, R, wires, pends, flags, recv_me)
+        outs.append(pends)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert (outs[0][0] == -5).all() and (outs[0][-1] == -5).all()
+
+
+def test_exchange_table_refuses():
+    w = [torch.zeros((8, 3), dtype=torch.int32) for _ in range(2)]
+    flag = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError):  # rows of another width
+        S.exchange_table(w, [torch.zeros((8, 4), dtype=torch.int32)], [flag], [0])
+    with pytest.raises(ValueError):  # a receiver that is no shard
+        S.exchange_table(w, [w[0]], [flag], [2])
+    with pytest.raises(ValueError):  # an int64 flag
+        S.exchange_table(w, [w[0]], [flag.long()], [0])
+    with pytest.raises(ValueError):  # the table on the card, not in host memory
+        S.exchange_cuda(S.fresh_cons(2, "cpu"), 2, 4, True, 8, 3, torch.zeros(3))
+    xtab = S.exchange_table(w, [w[0]], [flag], [0])
+    with pytest.raises(ValueError):  # a row wider than the kernel copies
+        S.exchange_cuda(S.fresh_cons(2, "cpu"), 2, 4, True, 8, S.EXCHANGE_ROW_WORDS + 1, xtab)
 
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
