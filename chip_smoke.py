@@ -9,9 +9,8 @@ Phases, each failing loudly (non-zero exit):
    parallel) and, beside them, K3's, K5's, K8's and K11's measurement
    builds.
    Capture: a chunk of the sig step (K3, K4 and the cooperative K5, on
-   each of K5's paths) as the engine's chunk graph (K6: the set-up
-   kernel loop_setup, then a WHILE node over one captured step) must
-   equal the eager chunk; loop_setup alone against its plain version.
+   each of K5's paths) as the engine runs it (K6: the set-up, then a
+   graph of one captured step replayed) must equal the eager chunk.
 3. kernel check: each kernel against its plain PyTorch version on the card,
    exact int32 equality.  K8 (the Gotoh fill of Phase 1's weights,
    csrc/gotoh_wavefront.cu) at kinase, globin6, synth4_long, synth10 and
@@ -40,12 +39,12 @@ Phases, each failing loudly (non-zero exit):
    step functions run the same steps on copies: t_sig, t_best, t_closed
    and the 14 counters must be identical (also with K5 on 1 and on 132
    blocks, at its cap and on its grid path); the chunk graph against the
-   eager chunk (K6), and the chunk graph in turns with the 32-step graph
-   it replaced and with itself without its programmatic edges (loop
-   turns, 32 steps at kinase `auto` step 150, `off` step 400, globin6 step
-   60 and kinase unpacked step 150: span between events, wall, the gap a
-   step, the capture by part); K3 alone against the plain select on
-   globin6's packed table.  The packed and unpacked step kernels K3 (select_best.cu, both
+   eager chunk (K6), and the chunk loop (a one-step graph replayed) in
+   turns with the 32-step graph it replaced (loop turns, 32 steps at
+   kinase `auto` step 150, `off` step 400, globin6 step 60 and kinase
+   unpacked step 150: span between events, wall, the gap a step, the
+   capture by part); K3 alone against the plain select on globin6's
+   packed table.  The packed and unpacked step kernels K3 (select_best.cu, both
    instantiations), K9 (keyrow_expand.cu) and K10 (keyrow_insert.cu) run 1
    and 32 steps from globin6's table (packed, step 60) and from kinase's
    pinned to unpacked (step 150) as a chunk graph and as the eager chunk
@@ -76,9 +75,9 @@ Phases, each failing loudly (non-zero exit):
 4. main path, kinase: the port's CLI entry with --engine frontier and its
    other defaults (--triples auto, --device cuda) must build 4 cubes and reach g = 421546 with a path
    whose recomputed cost equals g, degapped rows equal to the inputs, and
-   K1, K2 and the step kernels K3-K5 launched (one chunk graph, each step
-   kernel launched once a step that ran and once before the capture,
-   loop_setup once a chunk and once before it); then the same with
+   K1, K2 and the step kernels K3-K5 launched (one step graph, each step
+   kernel launched once before the capture and once a replay,
+   chunk_steps replays a chunk); then the same with
    --triples off (K1 and K3-K5 launched); every run prints the engine's
    named walls (the statics' build, the chunk loop, the capture by part,
    _finish);
@@ -284,15 +283,14 @@ def profiler_preamble() -> None:
     time.sleep(0.05)
 
 
-def device_ms(fn, reps: int, restore=None, keep=own_event, required: bool = True):
+def device_ms(fn, reps: int, restore=None, keep=own_event) -> float:
     """Device milliseconds of one call of fn(): from torch.profiler's CUPTI
     durations of the device events that ``keep`` takes, over ``reps``
     calls (each after ``restore()``, whose copies and fills are left out),
     the sum over event names of the mean duration times the launches a
     call makes (the count over ``reps``, rounded), so that an event missed
     or added at the session's edge does not move it.  A session that
-    recorded none is run again, at most twice; then the run fails, or
-    (``required`` False) the result is None: not measured."""
+    recorded none is run again, at most twice."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(3):
@@ -309,8 +307,6 @@ def device_ms(fn, reps: int, restore=None, keep=own_event, required: bool = True
             return per_call / 1e3
         print(f"  (torch.profiler session {attempt + 1} recorded no device time for the "
               f"call under test; run again)")
-    if not required:
-        return None
     fail("torch.profiler recorded no device time for the call under test")
 
 
@@ -698,17 +694,6 @@ def warm_engine(path: str, triples: str, warm_steps: int, layout: str = "auto", 
 # run, counters, state, blocks, stream
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K5_GRID_ONLY_SIGNATURE = [_P] * 6 + [_I] * 4 + [_P] * 3 + [_I, _P]
-# the chunk loop's arguments that this tree's step entries take before the
-# stream and another tree's (a baseline) did not: K4's and K9's
-# programmatic edge; K5's and K10's loop count, condition handle and edge
-LOOP_ARGS = {"sig_expand": 1, "keyrow_expand": 1, "sig_probe": 3, "keyrow_insert": 3}
-
-
-def without_loop_args(name: str, seq):
-    """A launch's arguments or argtypes of this tree's C entry ``name``
-    without its chunk-loop arguments (LOOP_ARGS), as an earlier tree's
-    entry of the same name takes them."""
-    return list(seq[:-1 - LOOP_ARGS[name]]) + list(seq[-1:])
 
 
 def build_step_baseline(src: str, tmp: str):
@@ -736,7 +721,7 @@ def build_step_baseline(src: str, tmp: str):
              os.path.join(out, f"{name}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     argtypes = {"select_best": _kernels.SIGNATURES["select_best"],
-                "sig_expand": without_loop_args("sig_expand", _kernels.SIGNATURES["sig_expand"]),
+                "sig_expand": _kernels.SIGNATURES["sig_expand"],
                 "sig_probe": K5_GRID_ONLY_SIGNATURE}
     fns = []
     for name, (lib, proc) in jobs.items():
@@ -858,9 +843,8 @@ def step_baseline_turns(src, fns, st, ub, fill, work, ctr, bufs, restores, news)
     stream = torch.cuda.current_stream().cuda_stream
     args3 = S._select_args(st, work.t_best, work.t_closed, ctr[0], ctr[7], bufs.run, bufs,
                            stream)[1:]
-    args4 = without_loop_args("sig_expand", S._expand_args(st, work, bufs, ctr, ub, stream)[1:])
-    args5 = without_loop_args("sig_probe",
-                              S._probe_args(st, work, bufs, ctr, fill, 0, S.K5_CAP, stream)[1:])
+    args4 = S._expand_args(st, work, bufs, ctr, ub, stream)[1:]
+    args5 = S._probe_args(st, work, bufs, ctr, fill, 0, S.K5_CAP, stream)[1:]
     args5 = args5[:10] + args5[11:-2] + args5[-1:]  # that entry takes no cap nor recv
     olds = []
     for k, (fn, args) in enumerate(zip(fns, (args3, args4, args5))):
@@ -946,6 +930,9 @@ def graph_vs_eager(st, tab0, ctr0, ub, fill, same, steps: int = 32) -> dict:
 
     n0, s0 = S.capture_stats(st)
     restore()
+    # a capture of its own: the allocator may hand this copy the addresses
+    # of a freed one, whose graph would serve it
+    st._step_buffers.graph = None
     S.run_chunk_sig_cuda(st, work, ctr0, steps, ub, fill)  # captures
     torch.cuda.synchronize()
     n1, s1 = S.capture_stats(st)
@@ -969,21 +956,19 @@ def graph_vs_eager(st, tab0, ctr0, ub, fill, same, steps: int = 32) -> dict:
 
 
 def loop_turns(label: str, st, tab0, ctr0, ub, fill, steps: int = 32, reps: int = 10) -> dict:
-    """The chunk graph (K6: the set-up, then a WHILE node over one captured
-    step, the expand and the insert over programmatic edges) in turns with
-    the design it replaced, from one mid-search table: ``steps`` steps
-    captured one after another in one graph ("old": S._capture of the
-    eager chunk S._chunk), and with the same loop graph without its
-    programmatic edges ("bare"); both built here for measurement only,
-    never on the engine's path.  All three chunks must equal each other,
-    tables and counters.  The span of a chunk between CUDA events (the
-    graph's launch alone) in turns old, new, bare, bare, new, old, median
-    of ``reps`` each, and the host wall of a chunk (the wrapper call, or
-    the copy-in, launch and copy-out, with a synchronize); the steps'
-    kernels' device time (CUPTI, over the eager chunk: a conditional
-    node's body is not traced) and each design's gap a step beside it;
-    the new capture's host seconds by part and its body's kernel nodes,
-    edges and programmatic edges."""
+    """The chunk loop (K6: the set-up, then a graph of one step replayed
+    ``steps`` times) in turns with the design it replaced, from one
+    mid-search table: ``steps`` steps captured one after another in one
+    graph ("old": S._capture of the eager chunk S._chunk, built here for
+    measurement only, never on the engine's path; its expand and insert
+    launched over the same programmatic edges).  Both chunks must equal
+    each other, tables and counters.  The span of a chunk between CUDA
+    events (the launches alone) in turns old, new, new, old, median of
+    ``reps`` each, and the host wall of a chunk (the wrapper call, or the
+    copy-in, replay and copy-out, with a synchronize); the steps' kernels'
+    device time (CUPTI, over the eager chunk) and each design's gap a step
+    beside it; the new capture's host seconds by part against the old
+    graph's capture and instantiation."""
     import dataclasses
 
     from mpi_pastar_msa_tpu_torch import _kernels
@@ -1015,44 +1000,36 @@ def loop_turns(label: str, st, tab0, ctr0, ub, fill, steps: int = 32, reps: int 
     parts = {k: v - parts0[k] for k, v in S.capture_parts(st).items()}
     new_tab = clone_table(work)
     bufs = st._step_buffers
-    g_new = bufs.graph.graph
-    body = g_new.info()
-    if body != {"nodes": 3, "edges": 2, "programmatic_edges": 2}:
-        fail(f"{label} loop turns: the loop body holds {body}, want 3 kernel nodes and 2 "
-             f"programmatic edges")
-
-    def bare_step(s, cond):  # the engine's step with its edges plain
-        args = S._step_args(st, work, bufs, bufs.counters, ub, fill, 0, cap, s, cond=cond)
-        for a in args:
-            a = list(a)
-            if a[0] != args[0][0]:
-                a[-2] = 0
-            _kernels.launch(*a)
+    g_new = bufs.graph
+    if sorted(g_new.tally.values()) != [1, 1, 1]:
+        fail(f"{label} loop turns: the step graph holds {g_new.tally}, want one step")
 
     restore()
     t0 = time.perf_counter()
     with _kernels.capturing({}):
         g_old = S._capture(lambda: S._chunk(st, work, bufs, steps, ub, fill, 0, cap,
                                             S._stream(dev)))
-        old_capture_s = time.perf_counter() - t0
-        g_bare = S.LoopGraph(lambda s, cond: _kernels.launch(*S._setup_args(
-            bufs, steps, cond, s)), bare_step, dev)
-    launch = {"old": g_old.replay, "new": lambda: g_new.launch(stream),
-              "bare": lambda: g_bare.launch(stream)}
+    old_capture_s = time.perf_counter() - t0
+
+    def new():
+        S._setup(bufs, stream)
+        for _ in range(steps):
+            g_new.graph.replay()
+
+    launch = {"old": g_old.replay, "new": new}
 
     def restore_ctr():
         restore()
         bufs.counters.copy_(ctr0)
 
-    for w in ("old", "bare"):
-        restore_ctr()
-        launch[w]()
-        torch.cuda.synchronize()
-        if not torch.equal(bufs.counters, new_ctr) or any(
-                not torch.equal(getattr(work, k)[:st.C], getattr(new_tab, k)[:st.C])
-                for k in names):
-            fail(f"{label} loop turns: the {w} graph and the loop graph differ: "
-                 f"{new_ctr.tolist()} vs {bufs.counters.tolist()}")
+    restore_ctr()
+    g_old.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(bufs.counters, new_ctr) or any(
+            not torch.equal(getattr(work, k)[:st.C], getattr(new_tab, k)[:st.C])
+            for k in names):
+        fail(f"{label} loop turns: the old graph and the step graph's replays differ: "
+             f"{new_ctr.tolist()} vs {bufs.counters.tolist()}")
     del new_tab
 
     def old_wall():
@@ -1061,7 +1038,7 @@ def loop_turns(label: str, st, tab0, ctr0, ub, fill, steps: int = 32, reps: int 
         return bufs.counters.clone()
 
     event = {w: [] for w in launch}
-    for w in ("old", "new", "bare", "bare", "new", "old"):
+    for w in ("old", "new", "new", "old"):
         event[w].append(time_restored(launch[w], restore_ctr, reps))
     wall = {"old": [], "new": []}
     for w, fn in (("old", old_wall), ("new", lambda: run(st, work, ctr0, steps, ub, fill)),
@@ -1073,7 +1050,7 @@ def loop_turns(label: str, st, tab0, ctr0, ub, fill, steps: int = 32, reps: int 
     out = dict(steps=steps, from_step=int(ctr0[2]), ran=ran, kernels_device_ms=kernels_ms,
                capture_ms=sum(parts.values()) * 1e3,
                capture_parts_ms={k: v * 1e3 for k, v in parts.items()},
-               old_capture_ms=old_capture_s * 1e3, body=body)
+               old_capture_ms=old_capture_s * 1e3)
     for w in launch:
         out[f"{w}_event_ms"] = statistics.median(event[w])
         out[f"{w}_event_turns"] = event[w]
@@ -1081,53 +1058,48 @@ def loop_turns(label: str, st, tab0, ctr0, ub, fill, steps: int = 32, reps: int 
     for w in wall:
         out[f"{w}_wall_ms"] = statistics.median(wall[w])
         out[f"{w}_wall_turns"] = wall[w]
-    print(f"  loop turns, {label} from step {out['from_step']} ({ran} steps; old, new, bare, "
-          f"bare, new, old, median of {reps}) between CUDA events: the WHILE-node graph "
-          f"{out['new_event_ms']:.4f} ms (gap {out['new_gap_us_a_step']:.2f} us a step), "
-          f"without its programmatic edges {out['bare_event_ms']:.4f} ms (gap "
-          f"{out['bare_gap_us_a_step']:.2f}), the {steps}-step graph {out['old_event_ms']:.4f} "
-          f"ms (gap {out['old_gap_us_a_step']:.2f}), the steps' kernels {kernels_ms:.4f} ms "
-          f"(CUPTI, eager); host wall new {out['new_wall_ms']:.4f} / old "
-          f"{out['old_wall_ms']:.4f} ms; capture {out['capture_ms']:.3f} ms (warm-up "
-          f"{parts['warm_s'] * 1e3:.3f}, host {parts['host_s'] * 1e3:.3f}, instantiation "
-          f"{parts['instantiate_s'] * 1e3:.3f}) against {out['old_capture_ms']:.3f} ms for "
-          f"the {steps}-step graph's capture and instantiation; body {body}")
-    del g_old, g_bare, work
+    print(f"  loop turns, {label} from step {out['from_step']} ({ran} steps; old, new, new, "
+          f"old, median of {reps}) between CUDA events: the one-step graph replayed "
+          f"{out['new_event_ms']:.4f} ms (gap {out['new_gap_us_a_step']:.2f} us a step), the "
+          f"{steps}-step graph {out['old_event_ms']:.4f} ms (gap "
+          f"{out['old_gap_us_a_step']:.2f}), the steps' kernels {kernels_ms:.4f} ms (CUPTI, "
+          f"eager); host wall new {out['new_wall_ms']:.4f} / old {out['old_wall_ms']:.4f} ms; "
+          f"capture {out['capture_ms']:.3f} ms (warm-up {parts['warm_s'] * 1e3:.3f}, host "
+          f"{parts['host_s'] * 1e3:.3f}, instantiation {parts['instantiate_s'] * 1e3:.3f}) "
+          f"against {out['old_capture_ms']:.3f} ms for the {steps}-step graph's capture and "
+          f"instantiation")
+    del g_old, work
     return out
 
 
-def loop_setup_check() -> dict:
-    """loop_setup (csrc/step_loop.cu, the chunk graph's set-up node) run
-    alone (no condition handle) against loop_setup_plain on the same
-    counters, run flag and loop count: searching, goal 0, an overflow, a
-    chunk of 0 steps; its wrapper call (CUDA events), device (CUPTI) and
-    plain times, and its bound: 36 bytes (two counters read, f-min, the
-    flag and the count written)."""
+def chunk_setup_check() -> dict:
+    """chunk_setup (csrc/chunk_setup.cu, a chunk's set-up) against
+    chunk_setup_plain on the same counters and run flag: searching, goal 0,
+    an overflow; its wrapper call (CUDA events), device (CUPTI) and plain
+    times, and its bound: 28 bytes (two counters read, f-min and the flag
+    written)."""
     from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch.search import engine as E
     from mpi_pastar_msa_tpu_torch.search import step as S
 
     err = 0
-    for goal, ovf, steps in ((421546, 0, 64), (0, 0, 64), (421546, 3, 64), (421546, 0, 0)):
+    stream = torch.cuda.current_stream().cuda_stream
+    for goal, ovf in ((421546, 0), (0, 0), (421546, 3)):
         ctr = torch.as_tensor(E.fresh_counters(), device="cuda")
         ctr[0], ctr[1], ctr[6] = goal, 77, ovf
-        bufs = [ctr.clone(), torch.full((1,), 5, dtype=torch.int32, device="cuda"),
-                torch.full((2,), 9, dtype=torch.int32, device="cuda")]
+        bufs = [ctr.clone(), torch.full((1,), 5, dtype=torch.int32, device="cuda")]
         want = [t.clone() for t in bufs]
-        _kernels.launch("loop_setup", bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(),
-                        steps, 0, 0, torch.cuda.current_stream().cuda_stream)
-        S.loop_setup_plain(*want, steps)
+        _kernels.launch("chunk_setup", bufs[0].data_ptr(), bufs[1].data_ptr(), stream)
+        S.chunk_setup_plain(*want)
         torch.cuda.synchronize()
         err = max([err] + [int((a.long() - b.long()).abs().max()) for a, b in zip(bufs, want)])
     if err:
-        fail(f"loop_setup differs from loop_setup_plain (max |err| {err})")
-    args = ("loop_setup", bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(), 64, 0, 0,
-            torch.cuda.current_stream().cuda_stream)
-    go = _kernels.bind(*args)
+        fail(f"chunk_setup differs from chunk_setup_plain (max |err| {err})")
+    go = _kernels.bind("chunk_setup", bufs[0].data_ptr(), bufs[1].data_ptr(), stream)
     out = dict(max_abs_err=err, ms=time_ms(go, reps=20), device_ms=device_ms(go, 20),
-               plain_ms=time_ms(lambda: S.loop_setup_plain(*want, 64), reps=20),
-               bound_ms=36 / HBM_BYTES_PER_S * 1e3)
-    print(f"loop_setup: equal to loop_setup_plain (searching, goal 0, overflow, 0 steps); "
+               plain_ms=time_ms(lambda: S.chunk_setup_plain(*want), reps=20),
+               bound_ms=28 / HBM_BYTES_PER_S * 1e3)
+    print(f"chunk_setup: equal to chunk_setup_plain (searching, goal 0, overflow); "
           f"{out['ms']:.4f} ms wrapper / {out['device_ms']:.4f} ms device, plain "
           f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.2e} ms (bytes)")
     return out
@@ -1479,14 +1451,13 @@ def plain_step_guard():
 
 
 def check_path_kernels(label: str, eng, res, counts: dict, plain: dict) -> None:
-    """The step kernels of the engine's layout and the loop's set-up ran on
-    this path, K7 walked it once, and no plain step function nor the plain
-    walk ran; without a regrow, one chunk graph a run, launched once a
-    chunk: each step kernel once as the capture's warm-up and once a step
-    that ran (the WHILE node runs no step after the stop), the set-up once
-    as its warm-up and once a chunk."""
+    """The step kernels of the engine's layout and the chunk's set-up ran
+    on this path, K7 walked it once, and no plain step function nor the
+    plain walk ran; without a regrow, one step graph a run, replayed
+    chunk_steps times a chunk: each step kernel once as the capture's
+    warm-up and once a replay, the set-up once a chunk."""
     kernels = LAYOUT_KERNELS[eng.layout]
-    for k in kernels + ["loop_setup"]:
+    for k in kernels + ["chunk_setup"]:
         if counts[k] <= 0:
             fail(f"{label}: kernel {k} was not launched on the main path")
     if counts["path_walk"] != 1:
@@ -1495,12 +1466,12 @@ def check_path_kernels(label: str, eng, res, counts: dict, plain: dict) -> None:
         fail(f"{label}: plain step functions or the plain walk ran on the card: {plain}")
     if not eng.regrown:
         chunks = -(-res.steps // eng.chunk_steps)
-        want = 1 + res.steps
+        want = 1 + eng.chunk_steps * chunks
         if (eng.graph_captures != 1 or any(counts[k] != want for k in kernels)
-                or counts["loop_setup"] != 1 + chunks):
-            fail(f"{label}: {eng.graph_captures} chunk graph captures and launches "
+                or counts["chunk_setup"] != chunks):
+            fail(f"{label}: {eng.graph_captures} step graph captures and launches "
                  f"{counts} for {res.steps} steps in {chunks} chunks (want {want} of each "
-                 f"step kernel, {1 + chunks} of loop_setup)")
+                 f"step kernel, {chunks} of chunk_setup)")
 
 
 def loop_walls(eng) -> str:
@@ -1555,8 +1526,7 @@ def load_keyrow_baseline(job) -> dict:
         if proc.returncode != 0:
             fail(f"keyrow baseline: nvcc failed for {name}.cu of {src}:\n{log}")
         fn = getattr(ctypes.CDLL(lib), name)
-        fn.argtypes = (K9_WARP_ROW_SIGNATURE if name == "keyrow_expand" else
-                       without_loop_args(name, _kernels.SIGNATURES[name]) if name in LOOP_ARGS
+        fn.argtypes = (K9_WARP_ROW_SIGNATURE if name == "keyrow_expand"
                        else _kernels.SIGNATURES[name])
         fn.restype = ctypes.c_int
         out[name] = fn
@@ -2079,11 +2049,9 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
         # surviving lane pending, K10 over all of them) from K3's state, as
         # a pair: the same table, counters and claim rounds as this pair
         src = baseline["source"]
-        a9 = without_loop_args("keyrow_expand",
-                               S._keyrow_expand_args(st, work, bufs, ctr, ub, stream)[1:])
+        a9 = S._keyrow_expand_args(st, work, bufs, ctr, ub, stream)[1:]
         a9 = a9[:4] + a9[6:22] + a9[24:]  # no t_best, C, blocks, threads
-        a10 = without_loop_args("keyrow_insert", S._keyrow_insert_args(
-            st, work, bufs, ctr, fill, 0, S.K10_CAP, stream)[1:])
+        a10 = S._keyrow_insert_args(st, work, bufs, ctr, fill, 0, S.K10_CAP, stream)[1:]
 
         def old9():
             if baseline["keyrow_expand"](*a9):
@@ -4029,7 +3997,7 @@ def baseline_step(st, tab, ctr, ub, fill, probe):
     _kernels.launch(*S._select_args(st, tab.t_best, tab.t_closed, c[0], c[7], bufs.run, bufs,
                                     stream))
     _kernels.launch(*S._expand_args(st, tab, bufs, c, ub, stream))
-    args = without_loop_args("sig_probe", S._probe_args(st, tab, bufs, c, fill, 0, 0, stream)[1:])
+    args = S._probe_args(st, tab, bufs, c, fill, 0, 0, stream)[1:]
     if probe(*(args[:10] + args[11:-2] + args[-1:])):  # that entry takes no cap nor recv
         fail("K5 sweep: the baseline's K5 failed to launch")
     return c.clone()
@@ -4599,9 +4567,8 @@ def checkpoint_resume(name: str, path: str, gold: dict, layout: str, tmp: str,
              f"{(res.nodes_expanded, res.nodes_reopened, res.steps)}, want {want}")
     identical = check_alignment(label, build_alignment(p, res.closed), gold,
                                 gold["alignment"] is not None)
-    # each step kernel once as the capture's warm-up and once a step the
-    # resumed run ran
-    per = 1 + res.steps - eng.resumed_steps
+    replays = -(-(res.steps - eng.resumed_steps) // eng.chunk_steps)
+    per = 1 + eng.chunk_steps * replays
     if (eng.graph_captures != 1 or counts["path_walk"] != 1 or any(plain.values())
             or any(counts[k] != per for k in LAYOUT_KERNELS[layout])):
         fail(f"{label}: {eng.graph_captures} graph captures, launches {counts} "
@@ -4913,7 +4880,7 @@ def main() -> int:
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["capture"] = capture_check(paths)
-        report["loop_setup"] = loop_setup_check()
+        report["chunk_setup"] = chunk_setup_check()
         if args.k5_sweep:
             report["k5_sweep"] = k5_sweep(paths, step_baseline and step_baseline[1])
         report["dependent_load"] = chase = dependent_load_ns()
@@ -5120,25 +5087,17 @@ def main() -> int:
         grid_path_device_ms=t["grid_device_ms"], grid_path_syncs=t["grid_path_syncs"])
         for w, t in (("globin6", g6["k10"]), ("kinase_unpacked", ku["k10"]),
                      ("synth10", step["synth10_keyrow"]["k10"]))})
-    # the chunk graph's set-up node (K6): checked alone against its plain
-    # version, launched once a chunk and once as the capture's warm-up
-    ls = report["loop_setup"]
+    # a chunk's set-up (K6): checked alone against its plain version,
+    # launched once a chunk
+    cs = report["chunk_setup"]
     kernels.append({
-        "name": "loop_setup", "route": "cuda",
-        "source": "mpi_pastar_msa_tpu_torch/csrc/step_loop.cu",
+        "name": "chunk_setup", "route": "cuda",
+        "source": "mpi_pastar_msa_tpu_torch/csrc/chunk_setup.cu",
         "replaces": "mpi_pastar_msa_tpu/search/engine.py:1882",
-        "launches": launches["loop_setup"], "max_abs_err": ls["max_abs_err"], "ms": ls["ms"],
-        "device_ms": ls["device_ms"], "launch_floor_ms": floor["ms"],
-        "plain_ms": ls["plain_ms"], "bound_ms": ls["bound_ms"], "bound_by": "bytes",
-        "library_ms": None,
-        "loop_turns": {w: {k: step_row[k] for k in (
-            "from_step", "ran", "new_event_ms", "bare_event_ms", "old_event_ms", "new_wall_ms",
-            "old_wall_ms", "kernels_device_ms", "new_gap_us_a_step", "bare_gap_us_a_step",
-            "old_gap_us_a_step", "capture_ms", "capture_parts_ms", "old_capture_ms", "body")}
-            for w, step_row in (("kinase_auto", step["auto"]["loop"]),
-                                ("kinase_off", step["off"]["loop"]),
-                                ("globin6", step["globin6_loop"]),
-                                ("kinase_unpacked", step["kinase_unpacked_loop"]))}})
+        "launches": launches["chunk_setup"], "max_abs_err": cs["max_abs_err"], "ms": cs["ms"],
+        "device_ms": cs["device_ms"], "launch_floor_ms": floor["ms"],
+        "plain_ms": cs["plain_ms"], "bound_ms": cs["bound_ms"], "bound_by": "bytes",
+        "library_ms": None})
     # K7, the walk: timed on the main path's kinase table (sig), checked on
     # every run's; the latency floor is path nodes x one dependent load
     # from L2 (and, beside it, from device memory)

@@ -12,15 +12,8 @@ with ``ctypes``.  A failed build raises: there is no fallback.
 the counts with ``reset_counts()`` and reads them after, which shows that a
 path really went through the kernels.  A launch made while a CUDA graph is
 captured runs nothing: under ``capturing(tally)`` it counts into ``tally``,
-and each replay of the graph adds ``tally`` to ``launches``, once a replay
-or as many times as a loop in the graph ran its body (``replayed``), so
-the counts are the kernels that really ran.  A loop's count lies on the
-card: ``replayed`` keeps it there and ``launches`` adds it when it is next
-read (one host read then, none in the loop that launched the graph).
-
-A source may also hold host functions (``HOST_SIGNATURES``: the chunk
-graph's construction in ``csrc/step_loop.cu``), called with ``host``: they
-launch nothing and count nothing.
+and each replay of the graph adds ``tally`` to ``launches``
+(``replayed``), so the counts are the kernels that really ran.
 """
 from __future__ import annotations
 
@@ -40,7 +33,6 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_U = ctypes.c_ulonglong
 SIGNATURES: Dict[str, List] = {
     # enc, enc_stride, xs, ys, lens, cost, diag scratch, out, P, L1, lmax,
     # O, E, threads, rows per thread, shared bytes, stream
@@ -61,33 +53,26 @@ SIGNATURES: Dict[str, List] = {
     "select_best_unpacked": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _P, _P, _P],
     # t_sig, t_best, compact list, tables4, cubes, params, N, P, T, S, n, f0,
-    # ub, E, GG, O - E, bbits, B, run, counters, state, pending list,
-    # programmatic edge (0/1), stream
+    # ub, E, GG, O - E, bbits, B, run, counters, state, pending list, stream
     "sig_expand": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I,
-                   _I, _I, _I, _P, _P, _P, _P, _I, _P],
+                   _I, _I, _I, _P, _P, _P, _P, _P],
     # t_sig, t_best, pending list, lane_cur, lane_dest, lane_word, bbits,
     # max bucket probes, max calls, fill target, block-path cap, run,
-    # counters, state, blocks, received count (or null), the chunk loop's
-    # step count (or null) and condition handle, programmatic edge, stream
+    # counters, state, blocks, received count (or null), stream
     "sig_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                  _P, _P, _U, _I, _P],
+                  _P, _P],
+    # a chunk's set-up (K6): counters, run flag, stream
+    "chunk_setup": [_P, _P, _P],
     # t_key, its row stride, t_g, t_fpar, t_best, C, unpacked, compact
     # list, tables4, cubes, params, N, P, T, S, n, f0, ub, E, GG, O - E, B,
-    # blocks, threads, run, counters, state, pending list, programmatic
-    # edge, stream
+    # blocks, threads, run, counters, state, pending list, stream
     "keyrow_expand": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _L, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+                      _L, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # t_key, its row stride, N, C, claim, t_best, t_g, t_fpar, t_state,
     # unpacked, pending list, lane_slot, lane_flag, max probe rounds, fill
-    # target, run, counters, state, blocks, tail list, block-path cap, the
-    # chunk loop's step count (or null) and condition handle, programmatic
-    # edge, stream
+    # target, run, counters, state, blocks, tail list, block-path cap, stream
     "keyrow_insert": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                      _P, _P, _P, _I, _P, _I, _P, _U, _I, _P],
-    # the chunk graph's set-up node (csrc/step_loop.cu, K6): counters, run
-    # flag, the loop's step count, chunk_steps, condition handle, whether
-    # to set it, stream
-    "loop_setup": [_P, _P, _P, _I, _U, _I, _P],
+                      _P, _P, _P, _I, _P, _I, _P],
     # layout (0 sig, 1 packed, 2 unpacked), t_sig or t_key, its row
     # stride, t_best, t_fpar, N, C, bbits, probes, params (final
     # coordinate, key bit widths), tmax, out, stream
@@ -142,17 +127,6 @@ SIGNATURES: Dict[str, List] = {
     "exchange": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
     "walk_advance": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
 }
-#: host function -> ctypes argtypes (csrc/step_loop.cu: the chunk graph)
-HOST_SIGNATURES: Dict[str, List] = {
-    "loop_graph_begin": [_P, ctypes.POINTER(_P), ctypes.POINTER(_U)],
-    "loop_graph_body": [_P, _P],
-    "loop_graph_end": [_P, _P],
-    "loop_graph_instantiate": [_P, _P],
-    "loop_graph_launch": [_P, _P],
-    "loop_graph_info": [_P, _P],
-    "loop_graph_abort": [_P],
-    "loop_graph_destroy": [_P],
-}
 #: kernel name -> its source file's stem, where that is not its own name
 SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
                            "sig_expand_sharded": "sig_expand", "route_count": "route_pack",
@@ -161,35 +135,17 @@ SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
                            "keyrow_insert_recv": "keyrow_insert",
                            "route_count_rows": "route_pack", "route_pack_rows": "route_pack",
                            "keyrow_coords": "tri_partial", "consensus": "shard_loop",
-                           "exchange": "shard_loop", "walk_advance": "shard_loop",
-                           "loop_setup": "step_loop",
-                           **{name: "step_loop" for name in HOST_SIGNATURES}}
+                           "exchange": "shard_loop", "walk_advance": "shard_loop"}
 
-_launches: Dict[str, int] = {name: 0 for name in SIGNATURES}  # read as ``launches``
-_pending: List[tuple] = []  # (tally, times as a tensor on the card) not yet counted
+launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _libs: Dict[str, ctypes.CDLL] = {}  # kernel name -> its library, argtypes set
 _sources: Dict[str, ctypes.CDLL] = {}  # source -> its loaded library
 _tally: Optional[Dict[str, int]] = None  # set while a graph is captured
 
 
-def __getattr__(name: str):
-    """``launches``: the counts, with the pending replays added first."""
-    if name == "launches":
-        _settle()
-        return _launches
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def _settle() -> None:
-    while _pending:
-        tally, times = _pending.pop(0)
-        replayed(tally, int(times.reshape(-1)[0]))
-
-
 def reset_counts() -> None:
-    _pending.clear()
-    for name in _launches:
-        _launches[name] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 @contextlib.contextmanager
@@ -204,15 +160,10 @@ def capturing(tally: Dict[str, int]):
         _tally = prev
 
 
-def replayed(tally: Dict[str, int], times=1) -> None:
-    """Count ``times`` replays of a graph whose capture counted ``tally``;
-    ``times`` an int, or a one-element tensor on the card (a loop's count:
-    counted when ``launches`` is next read)."""
-    if not isinstance(times, int):
-        _pending.append((tally, times))
-        return
+def replayed(tally: Dict[str, int], times: int = 1) -> None:
+    """Count ``times`` replays of a graph whose capture counted ``tally``."""
     for name, k in tally.items():
-        _launches[name] += k * times
+        launches[name] += k * times
 
 
 def _nvcc() -> str:
@@ -282,7 +233,7 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
             lib = _sources[src] = ctypes.CDLL(_lib_path(src))
         fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES.get(name) or HOST_SIGNATURES[name]
+        fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
@@ -300,18 +251,10 @@ def bind(name: str, *args):
         status = fn(*cargs)
         if status != 0:
             raise RuntimeError(f"CUDA kernel {name} failed to launch: error {status}")
-        counts = _launches if _tally is None else _tally
+        counts = launches if _tally is None else _tally
         counts[name] = counts.get(name, 0) + 1
 
     return go
-
-
-def host(name: str, *args) -> None:
-    """Call a host function of a source (``HOST_SIGNATURES``); raises on a
-    non-zero CUDA status.  Counts nothing."""
-    status = getattr(load(name), name)(*args)
-    if status != 0:
-        raise RuntimeError(f"CUDA host call {name} failed: error {status}")
 
 
 def launch(name: str, *args) -> None:

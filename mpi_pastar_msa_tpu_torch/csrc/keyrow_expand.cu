@@ -168,7 +168,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) keyrow_expand_kernel(
   __shared__ int s_cnt[2][kMaxWarps];
   __shared__ int s_base;
   __shared__ unsigned long long s_valid;
-  step::wait_predecessor();  // a programmatic edge from K3 in a chunk graph
+  step::wait_predecessor();  // the programmatic edge from K3
   if (*run == 0) return;
   const long long n_rows = state[step::kNSel];
   if ((long long)blockIdx.x >= n_rows) return;  // the whole block: no row
@@ -389,9 +389,9 @@ int launch(const void* t_key, int KWs, const void* t_g, const void* t_fpar, void
            uint32_t Cmask, const void* sel, const void* tables4, const void* cubes,
            const void* params, int N, int P, int T, int S, int nb, long long f0, long long ub,
            int E, int GG, int gap_oe, int blocks, int threads, const void* run, void* counters,
-           void* state, void* pend, Sharded sh, int pdl, void* stream) {
+           void* state, void* pend, Sharded sh, void* stream) {
   const size_t shared = shared_bytes(N, P, T);
-  if (shared > 48 * 1024 || pdl < 0 || pdl > 1) return (int)cudaErrorInvalidValue;
+  if (shared > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);
   cfg.blockDim = dim3((unsigned)threads);
@@ -399,7 +399,7 @@ int launch(const void* t_key, int KWs, const void* t_g, const void* t_fpar, void
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1] = {step::programmatic_edge()};
   cfg.attrs = attr;
-  cfg.numAttrs = pdl;
+  cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, keyrow_expand_kernel<kUnpacked, kSharded>, (const int32_t*)t_key, KWs,
       (const int32_t*)t_g, (const long long*)t_fpar, (int32_t*)t_best, Cmask,
@@ -435,15 +435,15 @@ bool bad_args(int KWs, const void* t_g, const void* t_fpar, const void* t_best, 
 // at most kMaxThreads); run: int32 device flag; counters: the 14 int64
 // counters; state: step_state.cuh (kNValid counts the surviving lanes,
 // kNPend the pending ones); pend: (B * (2^N - 1), W + 4 or W + 5) int32
-// pending list.  B bounds the list: at most B rows are active.  pdl: 1
-// launches over a programmatic edge from the kernel before it (K3 in a
-// chunk graph, search/step.py).
+// pending list.  B bounds the list: at most B rows are active.  Every
+// launch carries a programmatic edge from the kernel before it (K3 in a
+// chunk step, search/step.py): the kernel waits for it first thing.
 extern "C" int keyrow_expand(const void* t_key, int KWs, const void* t_g, const void* t_fpar,
                              void* t_best, int C, int unpacked, const void* sel,
                              const void* tables4, const void* cubes, const void* params, int N,
                              int P, int T, int S, int nb, long long f0, long long ub, int E,
                              int GG, int gap_oe, int B, int blocks, int threads,
-                             const void* run, void* counters, void* state, void* pend, int pdl,
+                             const void* run, void* counters, void* state, void* pend,
                              void* stream) {
   if (bad_args(KWs, t_g, t_fpar, t_best, C, unpacked, cubes, nullptr, N, P, T, S, nb, B, blocks,
                threads))
@@ -452,11 +452,11 @@ extern "C" int keyrow_expand(const void* t_key, int KWs, const void* t_g, const 
   return unpacked ? launch<true, false>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
                                         cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
                                         blocks, threads, run, counters, state, pend, Sharded{},
-                                        pdl, stream)
+                                        stream)
                   : launch<false, false>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
                                          cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
                                          blocks, threads, run, counters, state, pend, Sharded{},
-                                         pdl, stream);
+                                         stream);
 }
 
 // The sharded instantiation: keyrow_expand's arguments, then h3 ((B, M + 1)
@@ -488,9 +488,8 @@ extern "C" int keyrow_expand_sharded(const void* t_key, int KWs, const void* t_g
   const uint32_t Cmask = (uint32_t)(C - 1);
   return unpacked ? launch<true, true>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
                                        cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
-                                       blocks, threads, run, counters, state, pend, sh, 0, stream)
+                                       blocks, threads, run, counters, state, pend, sh, stream)
                   : launch<false, true>(t_key, KWs, t_g, t_fpar, t_best, Cmask, sel, tables4,
                                         cubes, params, N, P, T, S, nb, f0, ub, E, GG, gap_oe,
-                                        blocks, threads, run, counters, state, pend, sh, 0,
-                                        stream);
+                                        blocks, threads, run, counters, state, pend, sh, stream);
 }

@@ -88,11 +88,9 @@
 // writes this step's counters (step::finish_step): lanes_probe is (rounds
 // - 1) x lanes, lanes_unmatched the lanes unsettled after round 1,
 // lanes_tail after round 2 (0 when fewer ran), as the plain step counts
-// them; reopens come from K3 (packed) or from here (unpacked).  In a
-// chunk graph (search/step.py) K10 follows K9 over a programmatic edge
-// (step::wait_predecessor before the first read) and, as the step's last kernel,
-// sets the chunk loop's condition (step::loop_next; loop_stop when it finds
-// the run flag at 0).
+// them; reopens come from K3 (packed) or from here (unpacked).  K10 is
+// launched over a programmatic edge from the kernel before it (K9) and
+// waits for it first thing (step::wait_predecessor).
 //
 // The sharded step (parallel/sharded.py, C entry keyrow_insert_recv; JAX
 // _insert_packed / _insert over [received; self-owned], :675-683 and
@@ -307,16 +305,13 @@ __global__ void __launch_bounds__(kThreads, 1) keyrow_insert_kernel(
     Table t, const int32_t* __restrict__ pend, int PW, int32_t* __restrict__ lane_slot,
     int32_t* __restrict__ lane_flag, int max_probes, int fill, int32_t* __restrict__ run,
     long long* __restrict__ counters, long long* __restrict__ state,
-    int32_t* __restrict__ tail, int cap, const int32_t* __restrict__ recv, step::Loop loop) {
+    int32_t* __restrict__ tail, int cap, const int32_t* __restrict__ recv) {
   __shared__ long long red[32];
-  step::wait_predecessor();
+  step::wait_predecessor();  // the programmatic edge from K9
   // one thread rewrites the flag at the end; with lanes, every block has
   // read it by the first grid sync, and without, a block that reads the
-  // new flag has nothing to do (block 0 read it before)
-  if (*run == 0) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) step::loop_stop(loop);
-    return;
-  }
+  // new flag has nothing to do
+  if (*run == 0) return;
   // the sharded step: the rows received end where pend starts, and claim
   // with their places
   if (recv != nullptr) {
@@ -426,7 +421,7 @@ __global__ void __launch_bounds__(kThreads, 1) keyrow_insert_kernel(
     const long long un = rounds >= 1 ? *(volatile long long*)&state[step::kCnt] : 0;
     const long long tail_n = rounds >= 2 ? *(volatile long long*)&state[step::kCnt + 1] : 0;
     step::finish_step(counters, state, run, fill, lanes, undone,
-                      (long long)(rounds > 1 ? rounds - 1 : 0) * lanes, un, tail_n, loop);
+                      (long long)(rounds > 1 ? rounds - 1 : 0) * lanes, un, tail_n);
     state[step::kCalls] = rounds;
   }
 }
@@ -449,26 +444,22 @@ int grid_limits(Kernel kernel, int& sms, int& per_sm) {
   return (int)e;
 }
 
-// A cooperative launch of `blocks` x kThreads on `stream`; pdl 1 adds a
-// programmatic edge from the kernel before it (attr holds two).
-cudaLaunchConfig_t cooperative(int blocks, void* stream, cudaLaunchAttribute* attr,
-                               int pdl = 0) {
+cudaLaunchConfig_t cooperative(int blocks, void* stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(kThreads);
   cfg.stream = (cudaStream_t)stream;
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
-  attr[1] = step::programmatic_edge();
   cfg.attrs = attr;
-  cfg.numAttrs = 1 + pdl;
+  cfg.numAttrs = 1;
   return cfg;
 }
 
 template <bool kUnpacked>
 int launch(const Table& t, const void* pend, int PW, void* lane_slot, void* lane_flag,
            int max_probes, int fill, void* run, void* counters, void* state, int blocks,
-           void* tail, int cap, const void* recv, step::Loop loop, int pdl, void* stream) {
+           void* tail, int cap, const void* recv, void* stream) {
   static int sms = 0, per_sm = 0;  // one card a process
   if (sms == 0) {
     const int e = grid_limits(keyrow_insert_kernel<kUnpacked>, sms, per_sm);
@@ -477,34 +468,15 @@ int launch(const Table& t, const void* pend, int PW, void* lane_slot, void* lane
   if (blocks == 0) blocks = sms;
   if (blocks < 1 || blocks > sms * per_sm) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[2];
-  const cudaLaunchConfig_t cfg = cooperative(blocks, stream, attr, pdl);
+  cudaLaunchConfig_t cfg = cooperative(blocks, stream, attr);
+  attr[1] = step::programmatic_edge();  // from K9 (or whatever ran before)
+  cfg.numAttrs = 2;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, keyrow_insert_kernel<kUnpacked>, t, (const int32_t*)pend, PW, (int32_t*)lane_slot,
       (int32_t*)lane_flag, max_probes, fill, (int32_t*)run, (long long*)counters,
-      (long long*)state, (int32_t*)tail, cap, (const int32_t*)recv, loop);
+      (long long*)state, (int32_t*)tail, cap, (const int32_t*)recv);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
-}
-
-// The checked arguments of both C entries, then the launch.
-int insert(void* t_key, int KWs, int N, int C, void* claim, void* t_best, void* t_g,
-           void* t_fpar, void* t_state, int unpacked, const void* pend, void* lane_slot,
-           void* lane_flag, int max_probes, int fill, void* run, void* counters, void* state,
-           int blocks, void* tail, int cap, const void* recv, step::Loop loop, int pdl,
-           void* stream) {
-  const int W = (N + 1) / 2;
-  if (N < 2 || N > 16 || C < 2 || (C & (C - 1)) != 0 || KWs != W + (unpacked ? 0 : 1) ||
-      max_probes < 1 || max_probes > step::kMaxCalls || fill < 1 || blocks < 0 || cap < 0 ||
-      cap > kCap || (cap > 0 && tail == nullptr) || pdl < 0 || pdl > 1 ||
-      (unpacked ? (t_g == nullptr || t_fpar == nullptr || t_state == nullptr)
-                : t_best == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const Table t{(int32_t*)t_key, KWs, W, (uint32_t)(C - 1), (int32_t*)claim, (int32_t*)t_best,
-                (int32_t*)t_g, (long long*)t_fpar, (int32_t*)t_state, 0};
-  return unpacked ? launch<true>(t, pend, W + 5, lane_slot, lane_flag, max_probes, fill, run,
-                                 counters, state, blocks, tail, cap, recv, loop, pdl, stream)
-                  : launch<false>(t, pend, W + 4, lane_slot, lane_flag, max_probes, fill, run,
-                                  counters, state, blocks, tail, cap, recv, loop, pdl, stream);
 }
 
 }  // namespace
@@ -523,31 +495,36 @@ int insert(void* t_key, int KWs, int N, int C, void* claim, void* t_best, void* 
 // block path takes (0: every round on the grid).  keyrow_insert_recv:
 // recv, the int32 count of rows received (read on the card), which lie
 // just before pend: the list starts that many rows earlier, and they
-// claim with their places.  keyrow_insert is keyrow_insert_recv with none,
-// and with loop: null, or in a chunk graph the int32 [steps run,
-// chunk_steps] of the WHILE node whose handle is cond
-// (step_state.cuh::Loop); pdl: 1 launches over a programmatic edge from
-// the kernel before it.
+// claim with their places; keyrow_insert is keyrow_insert_recv with none.
 extern "C" int keyrow_insert_recv(void* t_key, int KWs, int N, int C, void* claim,
                                   void* t_best, void* t_g, void* t_fpar, void* t_state,
                                   int unpacked, const void* pend, void* lane_slot,
                                   void* lane_flag, int max_probes, int fill, void* run,
                                   void* counters, void* state, int blocks, void* tail, int cap,
                                   const void* recv, void* stream) {
-  return insert(t_key, KWs, N, C, claim, t_best, t_g, t_fpar, t_state, unpacked, pend,
-                lane_slot, lane_flag, max_probes, fill, run, counters, state, blocks, tail, cap,
-                recv, step::Loop{nullptr, 0}, 0, stream);
+  const int W = (N + 1) / 2;
+  if (N < 2 || N > 16 || C < 2 || (C & (C - 1)) != 0 || KWs != W + (unpacked ? 0 : 1) ||
+      max_probes < 1 || max_probes > step::kMaxCalls || fill < 1 || blocks < 0 || cap < 0 ||
+      cap > kCap || (cap > 0 && tail == nullptr) ||
+      (unpacked ? (t_g == nullptr || t_fpar == nullptr || t_state == nullptr)
+                : t_best == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Table t{(int32_t*)t_key, KWs, W, (uint32_t)(C - 1), (int32_t*)claim, (int32_t*)t_best,
+                (int32_t*)t_g, (long long*)t_fpar, (int32_t*)t_state, 0};
+  return unpacked ? launch<true>(t, pend, W + 5, lane_slot, lane_flag, max_probes, fill, run,
+                                 counters, state, blocks, tail, cap, recv, stream)
+                  : launch<false>(t, pend, W + 4, lane_slot, lane_flag, max_probes, fill, run,
+                                  counters, state, blocks, tail, cap, recv, stream);
 }
 
 extern "C" int keyrow_insert(void* t_key, int KWs, int N, int C, void* claim, void* t_best,
                              void* t_g, void* t_fpar, void* t_state, int unpacked,
                              const void* pend, void* lane_slot, void* lane_flag, int max_probes,
                              int fill, void* run, void* counters, void* state, int blocks,
-                             void* tail, int cap, void* loop, unsigned long long cond, int pdl,
-                             void* stream) {
-  return insert(t_key, KWs, N, C, claim, t_best, t_g, t_fpar, t_state, unpacked, pend,
-                lane_slot, lane_flag, max_probes, fill, run, counters, state, blocks, tail, cap,
-                nullptr, step::Loop{(int32_t*)loop, cond}, pdl, stream);
+                             void* tail, int cap, void* stream) {
+  return keyrow_insert_recv(t_key, KWs, N, C, claim, t_best, t_g, t_fpar, t_state, unpacked,
+                            pend, lane_slot, lane_flag, max_probes, fill, run, counters, state,
+                            blocks, tail, cap, nullptr, stream);
 }
 
 // `syncs` grid syncs in an otherwise empty cooperative kernel of `blocks`
@@ -560,7 +537,7 @@ extern "C" int grid_sync_chain(int syncs, int blocks, void* stream) {
   }
   if (blocks == 0) blocks = sms;
   if (syncs < 0 || blocks < 1 || blocks > sms * per_sm) return (int)cudaErrorInvalidValue;
-  cudaLaunchAttribute attr[2];
+  cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cooperative(blocks, stream, attr);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, sync_chain_kernel, syncs);
   if (e != cudaSuccess) return (int)e;

@@ -92,7 +92,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kerne
     long long* __restrict__ state, int32_t* __restrict__ pend, Sharded sh) {
   extern __shared__ int32_t sm[];
   __shared__ unsigned long long s_valid;
-  step::wait_predecessor();  // a programmatic edge from K3 in a chunk graph
+  step::wait_predecessor();  // the programmatic edge from K3
   if (*run == 0) return;
   const int n_const = expand::const_words(N, P, T) + N;  // and the bit widths
   expand::Consts k = expand::consts_at(sm, N, P, T, S);
@@ -229,17 +229,16 @@ __global__ void __launch_bounds__(32 * kMaxWarps, kBlocksPerSm) sig_expand_kerne
 // N] (search/step.py::_kernel_params); run: int32 device flag; counters:
 // the 14 int64 counters; state: step_state.cuh; pend: (B * (2^N - 1), 3)
 // int32 pending list.  B sizes the grid (at most B rows are active).
-// pdl: 1 launches over a programmatic edge from the kernel before it (K3
-// in a chunk graph, search/step.py).
+// Every launch carries a programmatic edge from the kernel before it (K3
+// in a chunk step, search/step.py): the kernel waits for it first thing.
 template <bool kSharded>
 int launch(const void* t_sig, void* t_best, const void* sel, const void* tables4,
            const void* cubes, const void* params, int N, int P, int T, int S, int nb,
            long long f0, long long ub, int E, int GG, int gap_oe, int bbits, int B,
-           const void* run, void* counters, void* state, void* pend, Sharded sh, int pdl,
-           void* stream) {
+           const void* run, void* counters, void* state, void* pend, Sharded sh, void* stream) {
   const bool h3 = kSharded && sh.h3 != nullptr;
   if (N < 2 || N > kMaxN || P != N * (N - 1) / 2 || T < 0 || (T > 0 && cubes == nullptr && !h3) ||
-      S < 2 || nb != N || bbits < 1 || bbits > 28 || B < 1 || pdl < 0 || pdl > 1)
+      S < 2 || nb != N || bbits < 1 || bbits > 28 || B < 1)
     return (int)cudaErrorInvalidValue;
   // shared words: the constants, then each warp's staging; as many warps
   // (up to kMaxWarps) as 48 KB hold
@@ -269,7 +268,7 @@ int launch(const void* t_sig, void* t_best, const void* sel, const void* tables4
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1] = {step::programmatic_edge()};
   cfg.attrs = attr;
-  cfg.numAttrs = pdl;
+  cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, sig_expand_kernel<kSharded>, (const int32_t*)t_sig, (int32_t*)t_best,
       (const int32_t*)sel, (const int32_t*)tables4, (const int32_t*)cubes,
@@ -285,9 +284,9 @@ extern "C" int sig_expand(const void* t_sig, void* t_best, const void* sel, cons
                           const void* cubes, const void* params, int N, int P, int T, int S,
                           int nb, long long f0, long long ub, int E, int GG, int gap_oe,
                           int bbits, int B, const void* run, void* counters, void* state,
-                          void* pend, int pdl, void* stream) {
+                          void* pend, void* stream) {
   return launch<false>(t_sig, t_best, sel, tables4, cubes, params, N, P, T, S, nb, f0, ub, E,
-                       GG, gap_oe, bbits, B, run, counters, state, pend, Sharded{}, pdl, stream);
+                       GG, gap_oe, bbits, B, run, counters, state, pend, Sharded{}, stream);
 }
 
 // The sharded instantiation: sig_expand's arguments, then h3 ((B, M + 1)
@@ -309,5 +308,5 @@ extern "C" int sig_expand_sharded(const void* t_sig, void* t_best, const void* s
   const Sharded sh{(const int32_t*)h3, (int32_t*)cand,
                    owner::Hash{hash_kind, hash_size, hash_shift, zbits}, ndev, me};
   return launch<true>(t_sig, t_best, sel, tables4, cubes, params, N, P, T, S, nb, f0, ub, E,
-                      GG, gap_oe, bbits, B, run, counters, state, pend, sh, 0, stream);
+                      GG, gap_oe, bbits, B, run, counters, state, pend, sh, stream);
 }

@@ -57,10 +57,8 @@
 //     pending list (no separate pass).  The unsettled count of call k goes
 //     to state[kCnt + k] (one atomic a block) and every thread reads it
 //     after the sync, so all leave the loop together.
-// In a chunk graph (search/step.py) K5 follows K4 over a programmatic
-// edge (step::wait_predecessor before the first read) and, as the step's last
-// kernel, sets the chunk loop's condition (step::loop_next; loop_stop
-// when it finds the run flag at 0).
+// K5 is launched over a programmatic edge from the kernel before it (K4)
+// and waits for it first thing (step::wait_predecessor).
 // After the loop one thread writes this step's counters
 // (search/engine.py::N_COUNTERS): steps, expanded, reopened, n_open,
 // overflow, f-min, the threshold of _adapt_thr, lanes_true and lanes_r0
@@ -145,10 +143,10 @@ __device__ __forceinline__ int settle_or_place(const int4 a, const int4 c, int32
 // lane-rounds are calls x lanes, the unmatched lanes the pending ones, the
 // tail the lanes unsettled after call 2 (0 when fewer ran).
 __device__ void finish(long long* c, long long* state, int32_t* run, long long n, int calls,
-                       long long undone, int fill, const step::Loop& loop) {
+                       long long undone, int fill) {
   const long long lanes = state[step::kNValid];
   step::finish_step(c, state, run, fill, lanes, undone, (long long)calls * lanes, n,
-                    calls >= 2 ? state[step::kCnt + 1] : 0, loop);
+                    calls >= 2 ? state[step::kCnt + 1] : 0);
   state[step::kCalls] = calls;
 }
 
@@ -157,16 +155,13 @@ __global__ void __launch_bounds__(kThreads, 1) sig_probe_kernel(
     int32_t* __restrict__ lane_cur, int32_t* __restrict__ lane_dest,
     int32_t* __restrict__ lane_word, int bbits, int max_bprobes, int max_calls, int fill,
     int cap, int32_t* __restrict__ run, long long* __restrict__ counters,
-    long long* __restrict__ state, const int32_t* __restrict__ recv, step::Loop loop) {
+    long long* __restrict__ state, const int32_t* __restrict__ recv) {
   __shared__ long long red[32];
-  step::wait_predecessor();
+  step::wait_predecessor();  // the programmatic edge from K4
   // one thread rewrites the flag at the end: on the grid path every block
   // has read it by the first grid sync; on the block path a block that
-  // reads the new flag has nothing to do (block 0 read it before)
-  if (*run == 0) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) step::loop_stop(loop);
-    return;
-  }
+  // reads the new flag has nothing to do
+  if (*run == 0) return;
   // the sharded step: the rows received end where pend starts
   if (recv != nullptr) pend -= 3 * (long long)*recv;
   const long long n = state[step::kNPend];
@@ -289,7 +284,7 @@ __global__ void __launch_bounds__(kThreads, 1) sig_probe_kernel(
 #ifdef K5_PHASES
     const long long t_loop = globaltimer();
 #endif
-    finish(counters, state, run, n, calls, undone, fill, loop);
+    finish(counters, state, run, n, calls, undone, fill);
 #ifdef K5_PHASES
     long long* out = reinterpret_cast<long long*>(lane_word);
     out[0] = t_start;
@@ -313,17 +308,12 @@ __global__ void __launch_bounds__(kThreads, 1) sig_probe_kernel(
 // can be co-resident is refused.  recv: null, or (the sharded step) the
 // int32 count of rows received, which lie just before pend: the list then
 // starts that many rows earlier (its length, state[kNPend], counts them).
-// loop: null, or in a chunk graph the int32 [steps run, chunk_steps] of
-// the WHILE node whose handle is cond (step_state.cuh::Loop); pdl: 1
-// launches over a programmatic edge from the kernel before it.
 extern "C" int sig_probe(void* t_sig, void* t_best, const void* pend, void* lane_cur,
                          void* lane_dest, void* lane_word, int bbits, int max_bprobes,
                          int max_calls, int fill, int cap, void* run, void* counters,
-                         void* state, int blocks, const void* recv, void* loop,
-                         unsigned long long cond, int pdl, void* stream) {
+                         void* state, int blocks, const void* recv, void* stream) {
   if (bbits < 1 || bbits > 28 || max_bprobes < 1 || max_bprobes > 64 || max_calls < 1 ||
-      max_calls > step::kMaxCalls || fill < 1 || cap < 0 || cap > kCap || blocks < 0 ||
-      pdl < 0 || pdl > 1)
+      max_calls > step::kMaxCalls || fill < 1 || cap < 0 || cap > kCap || blocks < 0)
     return (int)cudaErrorInvalidValue;
   static int sms = 0, per_sm = 0;  // one card a process
   cudaError_t e;
@@ -349,12 +339,12 @@ extern "C" int sig_probe(void* t_sig, void* t_best, const void* pend, void* lane
   attr[0].val.cooperative = 1;
   attr[1] = step::programmatic_edge();
   cfg.attrs = attr;
-  cfg.numAttrs = 1 + pdl;
+  cfg.numAttrs = 2;
   e = cudaLaunchKernelEx(&cfg, sig_probe_kernel, (int32_t*)t_sig, (int32_t*)t_best,
                          (const int32_t*)pend, (int32_t*)lane_cur, (int32_t*)lane_dest,
                          (int32_t*)lane_word, bbits, max_bprobes, max_calls, fill, cap,
                          (int32_t*)run, (long long*)counters, (long long*)state,
-                         (const int32_t*)recv, step::Loop{(int32_t*)loop, cond});
+                         (const int32_t*)recv);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -9,9 +9,9 @@
 // the insert then accumulate.  So every slot below is a count or a min of
 // this step.
 //
-// Also here: the chunk loop's control (Loop, step_loop.cu's WHILE node)
-// and the two halves of a programmatic edge between a step's kernels
-// (wait_predecessor, programmatic_edge).
+// Also here: the two halves of the programmatic edge that the expand (K4,
+// K9) and the insert (K5, K10) are launched over (wait_predecessor,
+// programmatic_edge).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -86,33 +86,6 @@ __device__ __forceinline__ long long block_sum(long long v, long long* red) {
   return s;
 }
 
-// The chunk loop (step_loop.cu): the insert's view of the WHILE node that
-// loops the captured step.  steps points to [steps run in this chunk,
-// chunk_steps] (search/step.py StepBuffers.loop), cond is the node's
-// handle; steps null: no loop (the eager chunk, the host driver, the
-// sharded step and every launch outside a chunk graph), and then the
-// handle is never touched.
-struct Loop {
-  int32_t* steps;
-  cudaGraphConditionalHandle cond;
-};
-
-// After a step that ran (run: the flag it just wrote), by the thread that
-// wrote it: one more step in this chunk, and the loop goes on while the
-// search does and the chunk has steps left (search/step.py::loop_next).
-__device__ __forceinline__ void loop_next(const Loop& loop, int32_t run) {
-  if (loop.steps == nullptr) return;
-  const int32_t k = loop.steps[0] + 1;
-  loop.steps[0] = k;
-  cudaGraphSetConditional(loop.cond, run != 0 && k < loop.steps[1]);
-}
-
-// An insert that found the run flag at 0 ran no step: the loop ends (the
-// node would otherwise run its body again, forever).
-__device__ __forceinline__ void loop_stop(const Loop& loop) {
-  if (loop.steps != nullptr) cudaGraphSetConditional(loop.cond, 0);
-}
-
 // The kernel's end of a programmatic edge (sm_90): it waits until the
 // previous kernel on the stream has finished and its writes are visible
 // (griddepcontrol.wait), before its first read of them.  A no-op unless
@@ -121,15 +94,14 @@ __device__ __forceinline__ void loop_stop(const Loop& loop) {
 // so is every kernel after it (it ends only after its predecessor has).
 // No kernel of the step triggers its successor early
 // (griddepcontrol.launch_dependents): the successor's blocks would wait
-// beside the running grid, which made the key-row steps slower on the H100
-// (tools/loop_edges.py).
+// beside the running grid.
 __device__ __forceinline__ void wait_predecessor() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 // The launch attribute of a programmatic edge from the previous kernel on
-// the stream: the runtime may start this grid while that one drains (a
-// CUDA graph captures it as a programmatic edge).  Host side.
+// the stream: the runtime may start this grid's launch while that one
+// drains (a CUDA graph captures it as a programmatic edge).  Host side.
 inline cudaLaunchAttribute programmatic_edge() {
   cudaLaunchAttribute a = {};
   a.id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -143,13 +115,12 @@ inline cudaLaunchAttribute programmatic_edge() {
 // left), f-min, the threshold of _adapt_thr, lanes_true and lanes_r0 (the
 // `lanes` that survived the prune), and counter slots 11-13 as the insert
 // counts them; then the run flag for the next step: the search goes on
-// while f-min < goal_g and nothing overflowed; and the chunk loop's
-// condition (loop_next).  The state slots are read through L2 (__ldcg):
-// other blocks of the insert may have added to them.
+// while f-min < goal_g and nothing overflowed.  The state slots are read
+// through L2 (__ldcg): other blocks of the insert may have added to them.
 __device__ __forceinline__ void finish_step(long long* c, const long long* state, int32_t* run,
                                             int fill, long long lanes, long long undone,
                                             long long probe_lanes, long long unmatched,
-                                            long long tail, const Loop& loop) {
+                                            long long tail) {
   const long long n_sel = __ldcg(&state[kNSel]);
   c[cFmin] = __ldcg(&state[kFmin]);
   c[cSteps] += 1;
@@ -167,9 +138,7 @@ __device__ __forceinline__ void finish_step(long long* c, const long long* state
   c[cLanesProbe] += probe_lanes;
   c[cLanesUnmatched] += unmatched;
   c[cLanesTail] += tail;
-  const int32_t go = c[cFmin] < c[cGoal] && c[cOverflow] == 0;
-  *run = go;
-  loop_next(loop, go);
+  *run = c[cFmin] < c[cGoal] && c[cOverflow] == 0;
 }
 
 }  // namespace step

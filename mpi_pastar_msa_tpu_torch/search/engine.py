@@ -870,11 +870,11 @@ def _run_chunk(st: _Static, tab, counters: torch.Tensor, chunk_steps: int,
     on the sig layout (``search/step.py::run_chunk_sig_cuda``), K3 -> K9 ->
     K10 on the packed and unpacked ones (``run_chunk_keyrow_cuda``); a CPU
     table the plain loop, ``_run_chunk_plain``.  The caller reads the whole
-    counters vector once per chunk; on a CUDA table a chunk is one CUDA
-    graph, captured at the first chunk of a table (so again after a
-    regrow, whose new table and statics have new buffers, or a table
-    loaded from a checkpoint) and replayed for the others; ``graph=False``
-    enqueues the chunk kernel by kernel instead."""
+    counters vector once per chunk; on a CUDA table a chunk is its set-up
+    and ``chunk_steps`` replays of a CUDA graph of one step, captured at
+    the first chunk of a table (so again after a regrow, whose new table
+    and statics have new buffers, or a table loaded from a checkpoint);
+    ``graph=False`` enqueues the chunk kernel by kernel instead."""
     if counters.device.type == "cuda":
         from .step import run_chunk_keyrow_cuda, run_chunk_sig_cuda
         run = run_chunk_sig_cuda if layout == "sig" else run_chunk_keyrow_cuda
@@ -1043,7 +1043,7 @@ class FrontierSearch:
     package ignores the other's file.
 
     ``driver``: "chunked" runs ``chunk_steps`` steps a dispatch (on the
-    card one CUDA graph a chunk), "host" one step a dispatch through the
+    card a step graph replayed), "host" one step a dispatch through the
     same kernels, enqueued one by one, with one host read a step (JAX
     ``_run_host_driver``)."""
 
@@ -1292,7 +1292,7 @@ class FrontierSearch:
                 break
         walls = self.last_phase_walls
         walls["chunk_loop"] = time.perf_counter() - t_loop  # captures included
-        # the chunk graphs this run captured (on the card: one a table),
+        # the step graphs this run captured (on the card: one a table),
         # and their seconds by part
         captures, capture_s = capture_stats(st)
         self.graph_captures = captures - captures0
@@ -1353,7 +1353,7 @@ class FrontierSearch:
         """(table, counters) on the engine's device from checkpoint_path,
         or (None, None) when there is none or it was written for another
         problem, configuration or format (then the run starts afresh).  The
-        tensors are new, so a chunk graph captured before is never
+        tensors are new, so a step graph captured before is never
         replayed on them."""
         if not self.checkpoint_path or not os.path.exists(self.checkpoint_path):
             return None, None

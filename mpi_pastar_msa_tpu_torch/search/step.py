@@ -1,6 +1,6 @@
 """The search step on the card: kernels K3, K4 and K5 (the sig layout), K3,
 K9 and K10 (the packed and unpacked layouts), a chunk of steps as one
-CUDA graph that loops one step (K6), and the path walk that follows the
+CUDA graph of one step replayed (K6), and the path walk that follows the
 search (K7).
 
 The JAX engine runs its whole search loop as one compiled program
@@ -55,40 +55,36 @@ the JAX loop) keeps the 14 counters in a device int64 vector, as the JAX
 ``while_loop`` does, and the stop test on the device: the insert ends
 each step by writing a run flag (f-min < goal_g and no overflow), and
 every kernel of the next step returns at once when it reads 0.  A chunk
-is its set-up (``counters[1] = 0`` and the run flag) and up to
-``chunk_steps`` steps, with no host read; the host reads the counters
-once a chunk (``FrontierSearch``).  By default a chunk is one CUDA graph
-(``LoopGraph``, csrc/step_loop.cu): the set-up kernel ``loop_setup``, then
-a WHILE node whose body is ONE captured step, K3 -> K4 -> K5 or K3 -> K9
--> K10, with a programmatic edge into the expand and into the insert.
-The insert sets the node's condition (run flag and ``loop_next``), so the
-body runs once a step that runs and no kernel runs after the stop.  The
-graph is captured once a table, chunk length, bound, fill, insert grid
-and cap (again after a regrow, or for a table loaded from a checkpoint: a
-new table, whose tensors are not those a graph holds) and launched every
-chunk: the host makes one graph launch a chunk (the loop's step count
-stays on the card until the launch counts are read), and the capture
-records one step, not ``chunk_steps``.
-Every pointer the graph holds is a buffer of the table or of
-``StepBuffers``, the counters included: a chunk copies the caller's
-counters into ``StepBuffers.counters``, launches, and returns a copy.
-``graph=False`` enqueues ``chunk_steps`` steps kernel by kernel (the
-eager chunk, the reference the graph is held to; its steps after the
-stop return at once).  The plain step (``engine._run_chunk_plain``)
-gives the same tables and counters bit for bit: ``chip_smoke.py`` holds
-them to each other on the card.
+is its set-up (``chunk_setup``, csrc/chunk_setup.cu: ``counters[1] = 0``
+and the run flag) and ``chunk_steps`` steps, with no host read; the host
+reads the counters once a chunk (``FrontierSearch``).  Steps after the
+stop do nothing.  By default a step is one replay of a CUDA graph of ONE step, K3 -> K4 -> K5 or K3 ->
+K9 -> K10, as the sharded engine replays its step graphs: captured once a
+table, bound, fill, insert grid and cap (again after a regrow, or for a
+table loaded from a checkpoint: a new table, whose tensors are not those
+a graph holds) and replayed ``chunk_steps`` times a chunk after the
+set-up, so the host makes one graph launch a step, not three kernel
+launches, and a capture records one step.  The expand and the insert are
+always launched over a programmatic edge from the kernel before them and
+wait for it first thing (``step_state.cuh::wait_predecessor``).  Every
+pointer the graph holds is a buffer of the table or of ``StepBuffers``,
+the counters included: a chunk copies the caller's counters into
+``StepBuffers.counters``, replays, and returns a copy.  ``graph=False``
+enqueues the same chunk kernel by kernel (the eager chunk, the reference
+the graph is held to).  The plain step
+(``engine._run_chunk_plain``) gives the same tables and counters bit for
+bit: ``chip_smoke.py`` holds them to each other on the card.
 
 The wrappers (``select_best_cuda``, ``select_open_cuda``,
 ``run_chunk_sig_cuda``, ``run_chunk_keyrow_cuda``, ``walk_cuda``) check devices, dtypes
 and sizes and raise ValueError on anything the kernels do not take;
 nothing falls back to the plain code, and a failed launch or capture
 raises.  The ``_*_args`` functions give one kernel's C arguments on
-checked buffers; the eager chunk binds them once (``_kernels.bind``) and
-launches each kernel ``chunk_steps`` times.
+checked buffers; a chunk binds them once (``_kernels.bind``) and launches
+each kernel ``chunk_steps`` times.
 """
 from __future__ import annotations
 
-import ctypes
 import time
 from dataclasses import dataclass, field, fields
 from typing import Dict, Optional, Tuple
@@ -249,13 +245,12 @@ class StepBuffers:
     layout: "sig", "packed" or "unpacked", the layout these serve
     counters (N_COUNTERS,) int64: the chunk's counters, the same buffer
         every chunk (the graph holds its pointer)
-    graph: the chunk's ``ChunkGraph`` (None before the first capture);
-    loop (2,) int32: the chunk loop's [steps run in this chunk,
-        chunk_steps] (csrc/step_state.cuh::Loop)
+    graph: the step's ``ChunkGraph`` (None before the first capture);
     captures, capture_s: graphs captured on these buffers, and the host
         seconds they took; capture_parts: those seconds by part (warm_s:
-        the kernels' warm-up launches, host_s: the capture's host code,
-        instantiate_s: instantiation and upload)"""
+        the kernels' warm-up launches, host_s: the step's launches while
+        captured, instantiate_s: the rest, the capture's ends and the
+        instantiation)"""
     slots: torch.Tensor
     vmin: torch.Tensor
     active: torch.Tensor
@@ -271,7 +266,6 @@ class StepBuffers:
     tail: torch.Tensor = None
     params: torch.Tensor = None
     counters: torch.Tensor = None
-    loop: torch.Tensor = None
     layout: str = "sig"
     graph: Optional["ChunkGraph"] = None
     captures: int = 0
@@ -311,7 +305,6 @@ class StepBuffers:
             bufs.tail = torch.empty(K10_CAP, dtype=torch.int32, device=dev)
         bufs.params = _kernel_params(st, dev)
         bufs.counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
-        bufs.loop = torch.zeros(2, dtype=torch.int32, device=dev)
         return bufs
 
 
@@ -369,45 +362,32 @@ def _check_step(st: _Static, tab, counters, cubes: bool = True):
 
 
 def _expand_args(st, tab, bufs, counters, ub, stream, *, entry: str = "sig_expand",
-                 cubes: bool = True, pend_at: int = 0, sharded: tuple = (),
-                 edge: bool = False) -> tuple:
+                 cubes: bool = True, pend_at: int = 0, sharded: tuple = ()) -> tuple:
     """K4's launch: ``entry`` the unsharded or the sharded instantiation,
     ``cubes`` False where h3 stands in for the cube reads, the pending
     lanes appended from row ``pend_at`` of ``bufs.pend``, and ``sharded``
-    the sharded instantiation's arguments before the stream, where the
-    unsharded one takes ``edge``: a programmatic edge from K3 (the chunk
-    graph's step)."""
+    the sharded instantiation's arguments before the stream."""
     return (entry, tab.t_sig.data_ptr(), tab.t_best.data_ptr(), bufs.sel.data_ptr(),
             st.d_tables4.data_ptr(), st.d_cubes.data_ptr() if cubes and st.T3 else None,
             bufs.params.data_ptr(), st.n, st.P, st.T3, st.S, st.nb, st.f0, int(ub),
             GAP_EXTENSION, GAP_GAP, st.gap_oe, st.bbits, st.B, bufs.run.data_ptr(),
             counters.data_ptr(), bufs.state.data_ptr(),
-            bufs.pend.data_ptr() + 4 * 3 * pend_at, *(sharded or (int(edge),)), stream)
-
-
-def _loop_args(bufs, cond) -> tuple:
-    """The insert's chunk-loop arguments: in a chunk graph (``cond`` the
-    WHILE node's handle) the loop's step count, the handle and a
-    programmatic edge from the expand; else none of them."""
-    if cond is None:
-        return None, 0, 0
-    return bufs.loop.data_ptr(), int(cond), 1
+            bufs.pend.data_ptr() + 4 * 3 * pend_at, *sharded, stream)
 
 
 def _probe_args(st, tab, bufs, counters, fill, blocks, cap, stream, pend_at: int = 0,
-                recv=None, run=None, cond=None) -> tuple:
+                recv=None, run=None) -> tuple:
     """K5's launch over the pending lanes from row ``pend_at`` of
     ``bufs.pend``; with ``recv`` (the sharded step) the int32 count of
     rows received just before that row, read on the card, and ``run`` the
-    insert's own flag (default ``bufs.run``); ``cond`` the chunk graph's
-    WHILE node (``_loop_args``)."""
+    insert's own flag (default ``bufs.run``)."""
     run = bufs.run if run is None else run
     return ("sig_probe", tab.t_sig.data_ptr(), tab.t_best.data_ptr(),
             bufs.pend.data_ptr() + 4 * 3 * pend_at, bufs.lane_cur.data_ptr(),
             bufs.lane_dest.data_ptr(), bufs.lane_word.data_ptr(), st.bbits, st.max_bprobes,
             st.max_probes, int(fill), int(cap), run.data_ptr(), counters.data_ptr(),
             bufs.state.data_ptr(), int(blocks), None if recv is None else recv.data_ptr(),
-            *_loop_args(bufs, cond), stream)
+            stream)
 
 
 def _check_keyrow(st: _Static, tab, counters, cubes: bool = True):
@@ -464,13 +444,11 @@ def _sms(dev) -> int:
 
 
 def _keyrow_expand_args(st, tab, bufs, counters, ub, stream, *, entry: str = "keyrow_expand",
-                        cubes: bool = True, pend_at: int = 0, sharded: tuple = (),
-                        edge: bool = False) -> tuple:
+                        cubes: bool = True, pend_at: int = 0, sharded: tuple = ()) -> tuple:
     """K9's launch: ``entry`` the unsharded or the sharded instantiation,
     ``cubes`` False where h3 stands in for the cube reads, the pending
     entries appended from row ``pend_at`` of ``bufs.pend``, and
-    ``sharded`` the sharded instantiation's arguments before the stream,
-    where the unsharded one takes ``edge`` (as ``_expand_args``)."""
+    ``sharded`` the sharded instantiation's arguments before the stream."""
     unpacked = isinstance(tab, UnpackedTable)
     blocks, threads, _ = k9_launch_shape(st.B, st.M, _sms(tab.t_key.device))
     return (entry, tab.t_key.data_ptr(), tab.t_key.shape[1],
@@ -480,19 +458,16 @@ def _keyrow_expand_args(st, tab, bufs, counters, ub, stream, *, entry: str = "ke
             st.d_cubes.data_ptr() if cubes and st.T3 else None, bufs.params.data_ptr(), st.n,
             st.P, st.T3, st.S, st.nb, st.f0, int(ub), GAP_EXTENSION, GAP_GAP, st.gap_oe, st.B,
             blocks, threads, bufs.run.data_ptr(), counters.data_ptr(), bufs.state.data_ptr(),
-            bufs.pend.data_ptr() + 4 * bufs.pend.shape[1] * pend_at, *(sharded or (int(edge),)),
-            stream)
+            bufs.pend.data_ptr() + 4 * bufs.pend.shape[1] * pend_at, *sharded, stream)
 
 
 def _keyrow_insert_args(st, tab, bufs, counters, fill, blocks, cap, stream,
-                        pend_at: Optional[int] = None, recv=None, run=None,
-                        cond=None) -> tuple:
+                        pend_at: Optional[int] = None, recv=None, run=None) -> tuple:
     """K10's launch; with ``pend_at`` the sharded entry
     ``keyrow_insert_recv`` over the pending entries from row ``pend_at`` of
     ``bufs.pend``, preceded by the received rows, whose int32 count
     ``recv`` holds on the card, and ``run`` the insert's own flag (default
-    ``bufs.run``); else ``keyrow_insert``, with ``cond`` the chunk graph's
-    WHILE node (``_loop_args``)."""
+    ``bufs.run``)."""
     unpacked = isinstance(tab, UnpackedTable)
     ptr = lambda name: getattr(tab, name).data_ptr() if hasattr(tab, name) else None
     pend = bufs.pend.data_ptr() + 4 * bufs.pend.shape[1] * (pend_at or 0)
@@ -503,7 +478,7 @@ def _keyrow_insert_args(st, tab, bufs, counters, fill, blocks, cap, stream,
             run.data_ptr(), counters.data_ptr(), bufs.state.data_ptr(), int(blocks),
             bufs.tail.data_ptr(), int(cap))
     if pend_at is None:
-        return ("keyrow_insert", *args, *_loop_args(bufs, cond), stream)
+        return ("keyrow_insert", *args, stream)
     return ("keyrow_insert_recv", *args, recv.data_ptr(), stream)
 
 
@@ -522,116 +497,34 @@ def k10_grid_syncs(rounds: int, tail: int, cap: int, unpacked: bool) -> int:
     return syncs + (2 if block else 1) if unpacked else syncs
 
 
-def _step_args(st, tab, bufs, ctr, ub, fill, blocks, cap, stream, cond=None) -> list:
+def _step_args(st, tab, bufs, ctr, ub, fill, blocks, cap, stream) -> list:
     """The C arguments of one step's three kernels on ``tab``'s layout:
     K3, K4, K5 (sig) or K3, K9, K10 (packed, unpacked); ``ctr`` the
     counters buffer (K3's goal and threshold are views of it); ``cap`` is
-    K5's or K10's block-path cap; ``cond`` the chunk graph's WHILE node
-    (then the expand and the insert each take a programmatic edge from
-    the kernel before, and the insert sets the node's condition)."""
-    edge = cond is not None
+    K5's or K10's block-path cap."""
     if isinstance(tab, SigTable):
         return [_select_args(st, tab.t_best, tab.t_closed, ctr[0], ctr[7], bufs.run, bufs,
                              stream),
-                _expand_args(st, tab, bufs, ctr, ub, stream, edge=edge),
-                _probe_args(st, tab, bufs, ctr, fill, blocks, cap, stream, cond=cond)]
+                _expand_args(st, tab, bufs, ctr, ub, stream),
+                _probe_args(st, tab, bufs, ctr, fill, blocks, cap, stream)]
     if isinstance(tab, PackedTable):
         select = _select_args(st, tab.t_best, tab.t_closed, ctr[0], ctr[7], bufs.run, bufs,
                               stream)
     else:
         select = _select_open_args(st, tab.t_state, tab.t_fpar, ctr[0], ctr[7], bufs.run, bufs,
                                    stream)
-    return [select, _keyrow_expand_args(st, tab, bufs, ctr, ub, stream, edge=edge),
-            _keyrow_insert_args(st, tab, bufs, ctr, fill, blocks, cap, stream, cond=cond)]
+    return [select, _keyrow_expand_args(st, tab, bufs, ctr, ub, stream),
+            _keyrow_insert_args(st, tab, bufs, ctr, fill, blocks, cap, stream)]
 
 
 @dataclass
 class ChunkGraph:
-    """A captured graph: what it was captured for (``key``: the table's
-    pointers, chunk length, bound, fill, the insert's grid and K5's cap),
-    the graph, the launches of each kernel that one run of its loop body
-    (or one replay) runs, and those of the set-up that runs once a
-    launch."""
+    """A captured step: what it was captured for (``key``: the table's
+    pointers, bound, fill, the insert's grid and K5's cap), the graph, and
+    the launches of each kernel that one replay runs."""
     key: tuple
     graph: object
     tally: Dict[str, int] = field(default_factory=dict)
-    setup_tally: Dict[str, int] = field(default_factory=dict)
-
-
-def loop_setup_plain(counters: torch.Tensor, run: torch.Tensor, loop: torch.Tensor,
-                     chunk_steps: int) -> bool:
-    """The plain version of ``loop_setup`` (csrc/step_loop.cu), in place:
-    f-min = 0, the run flag = goal_g > 0 and no overflow, the loop's step
-    count [0, chunk_steps]; returns the WHILE node's first condition."""
-    counters[1] = 0
-    go = bool(counters[0] > 0) and bool(counters[6] == 0)
-    run.fill_(int(go))
-    loop[0], loop[1] = 0, chunk_steps
-    return go and chunk_steps > 0
-
-
-def loop_next(run: int, steps: int, chunk_steps: int) -> Tuple[int, bool]:
-    """The chunk loop after a step that ran (csrc/step_state.cuh
-    ``loop_next``): the steps run in the chunk with it, and the WHILE
-    node's condition, which runs the body again while the search goes on
-    (``run``, the flag the step wrote) and the chunk has steps left.  An
-    insert that finds the run flag at 0 ran no step and ends the loop
-    (``loop_stop``): (steps, False)."""
-    steps += 1
-    return steps, bool(run) and steps < chunk_steps
-
-
-def _setup_args(bufs, chunk_steps: int, cond, stream) -> tuple:
-    """``loop_setup``'s launch on ``bufs``: with ``cond`` the WHILE node's
-    condition handle (the chunk graph's set-up node), else (a warm-up, or
-    the smoke's check) it leaves the handle alone."""
-    return ("loop_setup", bufs.counters.data_ptr(), bufs.run.data_ptr(), bufs.loop.data_ptr(),
-            int(chunk_steps), int(cond or 0), int(cond is not None), stream)
-
-
-class LoopGraph:
-    """A chunk graph (csrc/step_loop.cu): ``setup(stream, cond)`` enqueues
-    the set-up launch and ``step(stream, cond)`` one step's launches on
-    the capturing ``stream``, ``cond`` the WHILE node's handle; the first
-    is captured into the graph, the second into the node's body.  A failed
-    capture or instantiation raises.  ``host_s`` and ``instantiate_s`` are
-    the host seconds of the capture and of the instantiation (with its
-    upload); ``launch(stream)`` runs a chunk.  ``dev``: the card."""
-
-    def __init__(self, setup, step, dev):
-        self.handle = None
-        self._destroy = _kernels.load("loop_graph_destroy").loop_graph_destroy
-        side = torch.cuda.Stream(dev)  # a graph is not captured on the default stream
-        stream = side.cuda_stream
-        handle, cond = ctypes.c_void_p(), ctypes.c_ulonglong()
-        t0 = time.perf_counter()
-        _kernels.host("loop_graph_begin", stream, ctypes.byref(handle), ctypes.byref(cond))
-        self.handle, self.cond = handle.value, cond.value
-        try:
-            setup(stream, self.cond)
-            _kernels.host("loop_graph_body", self.handle, stream)
-            step(stream, self.cond)
-            _kernels.host("loop_graph_end", self.handle, stream)
-        except BaseException:
-            _kernels.load("loop_graph_abort").loop_graph_abort(stream)
-            raise
-        t1 = time.perf_counter()
-        _kernels.host("loop_graph_instantiate", self.handle, _stream(dev))
-        self.host_s, self.instantiate_s = t1 - t0, time.perf_counter() - t1
-
-    def launch(self, stream) -> None:
-        _kernels.host("loop_graph_launch", self.handle, stream)
-
-    def info(self) -> Dict[str, int]:
-        """The body's kernel nodes, edges and programmatic edges."""
-        out = (ctypes.c_longlong * 3)()
-        _kernels.host("loop_graph_info", self.handle, out)
-        return dict(zip(("nodes", "edges", "programmatic_edges"), out))
-
-    def __del__(self):
-        if self.handle is not None:
-            self._destroy(self.handle)
-            self.handle = None
 
 
 def run_chunk_sig_cuda(st: _Static, tab: SigTable, counters: torch.Tensor,
@@ -643,10 +536,11 @@ def run_chunk_sig_cuda(st: _Static, tab: SigTable, counters: torch.Tensor,
     f-min 0, so its first step runs unless goal_g <= 0 or the table
     overflowed.  ``blocks`` sizes K5's grid (0: one block a
     multiprocessor), ``cap`` is the largest pending count K5's block path
-    takes (0 .. K5_CAP; 0: the grid path every step); ``graph`` replays the
-    chunk as one CUDA graph (captured at the first chunk of this table and
-    these arguments), else enqueues it kernel by kernel.  Returns new
-    counters; the table is updated in place."""
+    takes (0 .. K5_CAP; 0: the grid path every step); ``graph`` replays a
+    CUDA graph of one step ``chunk_steps`` times (captured at the first
+    chunk of this table and these arguments), else enqueues the chunk
+    kernel by kernel.  Returns new counters; the table is updated in
+    place."""
     dev = _check_step(st, tab, counters)
     if not 0 <= cap <= K5_CAP:
         raise ValueError(f"K5 cap {cap}: need 0 .. {K5_CAP}")
@@ -674,29 +568,43 @@ def run_chunk_keyrow_cuda(st: _Static, tab, counters: torch.Tensor, chunk_steps:
 def _drive_chunk(st, tab, bufs, counters, chunk_steps, ub, fill, blocks, cap, graph):
     """A chunk on checked arguments (``run_chunk_sig_cuda``,
     ``run_chunk_keyrow_cuda``): the caller's counters in and out of
-    ``bufs.counters``, the chunk graph launched or the chunk enqueued.  The
-    graph's launches count once for its set-up and once a step for the
-    step kernels: the steps its loop ran, a count on the card that
-    ``_kernels.launches`` reads when it is next read."""
+    ``bufs.counters``, the chunk's set-up, then the step graph replayed
+    ``chunk_steps`` times, or the chunk enqueued."""
     bufs.counters.copy_(counters)
     if graph:
-        g = _chunk_graph(st, tab, bufs, chunk_steps, ub, fill, blocks, cap)
-        g.graph.launch(_stream(bufs.counters.device))
-        _kernels.replayed(g.setup_tally)
-        _kernels.replayed(g.tally, bufs.loop[:1].clone())
+        g = _step_graph(st, tab, bufs, ub, fill, blocks, cap)
+        _setup(bufs, _stream(bufs.counters.device))
+        for _ in range(chunk_steps):
+            g.graph.replay()
+        _kernels.replayed(g.tally, chunk_steps)
     else:
         _chunk(st, tab, bufs, chunk_steps, ub, fill, blocks, cap, _stream(bufs.counters.device))
     return bufs.counters.clone()
 
 
+def chunk_setup_plain(counters: torch.Tensor, run: torch.Tensor) -> None:
+    """The plain version of ``chunk_setup`` (csrc/chunk_setup.cu), in
+    place: f-min 0 and the run flag = goal_g > 0 and no overflow, so that
+    a chunk's first step runs as the plain loop's does."""
+    counters[1].fill_(0)
+    run.copy_(((counters[0] > 0) & (counters[6] == 0)).view(1))
+
+
+def _setup(bufs, stream) -> None:
+    """A chunk's set-up on ``bufs``: ``chunk_setup`` on the card, one
+    launch on ``stream``; its plain version on CPU buffers."""
+    if bufs.counters.device.type == "cuda":
+        _kernels.launch("chunk_setup", bufs.counters.data_ptr(), bufs.run.data_ptr(), stream)
+    else:
+        chunk_setup_plain(bufs.counters, bufs.run)
+
+
 def _chunk(st, tab, bufs, chunk_steps, ub, fill, blocks, cap, stream) -> None:
     """One chunk on ``bufs.counters``: its set-up, then ``chunk_steps`` x
     (select, expand, insert), every kernel's arguments bound once."""
-    ctr = bufs.counters
-    ctr[1].fill_(0)  # a kernel: a graph captures no copy from the host
-    bufs.run.copy_(((ctr[0] > 0) & (ctr[6] == 0)).view(1))
-    kernels = [_kernels.bind(*args)
-               for args in _step_args(st, tab, bufs, ctr, ub, fill, blocks, cap, stream)]
+    _setup(bufs, stream)
+    kernels = [_kernels.bind(*args) for args in _step_args(st, tab, bufs, bufs.counters, ub,
+                                                           fill, blocks, cap, stream)]
     for _ in range(chunk_steps):
         for k in kernels:
             k()
@@ -722,47 +630,44 @@ def _capture(fn):
     return g
 
 
-def _chunk_graph(st, tab, bufs, chunk_steps, ub, fill, blocks, cap) -> ChunkGraph:
-    """The chunk's graph for this table and these arguments: the one
-    captured last on ``bufs`` if it was captured for them, else a new
-    ``LoopGraph``: the set-up, then a WHILE node over one captured step.
-    Before a capture every kernel is launched once, the step kernels with
-    the run flag at 0 (they return at once), then the set-up (which the
-    graph's own set-up redoes): each C entry's first call queries the card
-    and loads its kernel, which a capture must not do."""
+def _step_graph(st, tab, bufs, ub, fill, blocks, cap) -> ChunkGraph:
+    """The step's graph for this table and these arguments: the one
+    captured last on ``bufs`` if it was captured for them, else a new one
+    of one step.  Before a capture every kernel is launched once with the
+    run flag at 0 (it returns at once): each C entry's first call queries
+    the card and loads its kernel, which a capture must not do."""
     key = tuple(getattr(tab, f.name).data_ptr() for f in fields(tab)) + (
-        int(chunk_steps), int(ub), int(fill), int(blocks), int(cap))
+        int(ub), int(fill), int(blocks), int(cap))
     if bufs.graph is not None and bufs.graph.key == key:
         return bufs.graph
     bufs.graph = None  # release the old graph first
     t0 = time.perf_counter()
+    dev = bufs.counters.device
     bufs.run.zero_()
-    stream = _stream(bufs.counters.device)
+    stream = _stream(dev)
     for args in _step_args(st, tab, bufs, bufs.counters, ub, fill, blocks, cap, stream):
         _kernels.launch(*args)
-    _kernels.launch(*_setup_args(bufs, chunk_steps, None, stream))
-    warm_s = time.perf_counter() - t0
-    setup_tally: Dict[str, int] = {}
+    t1 = time.perf_counter()
+    host = [0.0]
+
+    def step():
+        t = time.perf_counter()
+        for args in _step_args(st, tab, bufs, bufs.counters, ub, fill, blocks, cap,
+                               _stream(dev)):
+            _kernels.launch(*args)
+        host[0] += time.perf_counter() - t
+
     tally: Dict[str, int] = {}
-
-    def setup(s, cond):
-        with _kernels.capturing(setup_tally):
-            _kernels.launch(*_setup_args(bufs, chunk_steps, cond, s))
-
-    def step(s, cond):
-        with _kernels.capturing(tally):
-            for args in _step_args(st, tab, bufs, bufs.counters, ub, fill, blocks, cap, s,
-                                   cond=cond):
-                _kernels.launch(*args)
-
-    graph = LoopGraph(setup, step, bufs.counters.device)
-    bufs.graph = ChunkGraph(key, graph, tally, setup_tally)
+    with _kernels.capturing(tally):
+        graph = _capture(step)
+    bufs.graph = ChunkGraph(key, graph, tally)
     bufs.captures += 1
+    t2 = time.perf_counter()
     parts = bufs.capture_parts
-    parts["warm_s"] += warm_s
-    parts["host_s"] += graph.host_s
-    parts["instantiate_s"] += graph.instantiate_s
-    bufs.capture_s += warm_s + graph.host_s + graph.instantiate_s
+    parts["warm_s"] += t1 - t0
+    parts["host_s"] += host[0]
+    parts["instantiate_s"] += t2 - t1 - host[0]
+    bufs.capture_s += t2 - t0
     return bufs.graph
 
 

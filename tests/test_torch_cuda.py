@@ -198,14 +198,14 @@ def test_main_path_auto_on_card(cuda):
     assert len(eng.heuristic.triangles) == 1
     assert _kernels.launches["pair_wavefront"] == 1
     assert _kernels.launches["triple_wavefront"] == 1
-    # the sig step: K3, K4 and K5 once a step that ran (none after the
-    # stop): one chunk graph, each kernel launched once as its warm-up,
-    # then once a run of the graph's loop body, one step each
+    # the sig step: K3, K4 and K5 once a step (steps enqueued after the
+    # stop included): one step graph, each kernel launched once as its
+    # warm-up, then once a replay, chunk_steps replays a chunk
     n = _kernels.launches["select_best"]
+    assert n >= res.steps
     assert _kernels.launches["sig_expand"] == _kernels.launches["sig_probe"] == n
     chunks = -(-res.steps // eng.chunk_steps)
-    assert eng.graph_captures == 1 and n == 1 + res.steps
-    assert _kernels.launches["loop_setup"] == 1 + chunks
+    assert eng.graph_captures == 1 and n == 1 + eng.chunk_steps * chunks
     assert res.g == gold["optimal_g"]
     assert build_alignment(p, res.closed) == gold["alignment"]
 
@@ -537,12 +537,13 @@ def test_k5_both_paths_equal_plain_insert(cuda, name, triples, warm):
 
 
 def graph_vs_eager(run_chunk, st, tab, ctr, ub, fill, kernels, clone):
-    """The chunk graph against the eager chunk from one mid-search table,
-    bit for bit (every table tensor and the 14 counters), after 1 chunk and
-    after 3 of 1, 7, 16 and 64 steps; one capture a table; each step
-    kernel launched once as the capture's warm-up and once a step that ran
-    (none after the stop), the eager chunk chunk_steps times a chunk.
-    Returns whether a search stopped in the middle of a chunk."""
+    """The step graph replayed against the eager chunk from one mid-search
+    table, bit for bit (every table tensor and the 14 counters), after 1
+    chunk and after 3 of 1, 7, 16 and 64 steps; one capture a table, for
+    every chunk length; each step kernel launched once as the capture's
+    warm-up and once a replay, the eager chunk's chunk_steps times a chunk.
+    Returns whether a search stopped in the middle of a chunk (its replays
+    after the stop then change nothing)."""
     from mpi_pastar_msa_tpu_torch.search import step as S
 
     mid_chunk = False
@@ -562,7 +563,7 @@ def graph_vs_eager(run_chunk, st, tab, ctr, ub, fill, kernels, clone):
             assert S.capture_stats(st)[0] == n0 + 1
             assert 0 < ran <= steps * chunks
             for k in kernels:
-                assert graph[k] == 1 + ran, (k, steps, chunks)
+                assert graph[k] == 1 + steps * chunks, (k, steps, chunks)
                 assert _kernels.launches[k] - before[k] - graph[k] == steps * chunks
             mid_chunk |= int(gc[1]) >= int(gc[0]) and ran % steps != 0
     return mid_chunk
@@ -574,8 +575,8 @@ def test_graph_chunk_equals_eager_chunk(cuda, name, triples, warm):
     # the chunk graph against the eager chunk, bit for bit, after 1 chunk
     # and after 3 of 1, 7, 16 and 64 steps, from one mid-search table; one
     # capture a table; kinase `auto` reaches its goal (step 299) in the
-    # middle of a chunk of 64 (150 + 3 x 64 steps), and no kernel runs
-    # after it
+    # middle of a chunk of 64 (150 + 3 x 64 steps), and the replays after
+    # it change nothing
     from mpi_pastar_msa_tpu_torch.search import step as S
 
     eng, tab, ctr = warm_sig(name, cuda, triples, warm)
@@ -1801,19 +1802,24 @@ def test_consensus_kernel_equals_plain(cuda, layout, ragged, case):
 @pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
 def test_exchange_kernel_equals_plain(cuda, ragged):
     """exchange against exchange_plain on random sizes and wires of 3, 7
-    (kinase's packed wire), 9 and 13 words a row, on 2, 4, 8, 31 and 32
-    shards, a receiver's flag 0 among them, a receiver that gets 0 rows
-    from every sender, and on some of the receivers."""
+    (kinase's packed wire), 9, 13 and 16 (EXCHANGE_ROW_WORDS) words a row,
+    on 2, 3, 4, 8, 31 and 32 shards, on some of the receivers: a receiver's
+    flag 0, a second receiver with its flag at 1 that gets rows at every
+    row width, and in the cases of three receivers or more a last one that
+    gets 0 rows from every sender."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
     rng = np.random.default_rng(3)
     for ndev, pw, cap, recv_me in ((4, 3, 50, [0, 1, 2, 3]), (4, 13, 200, [3, 1]),
                                    (2, 9, 7, [0, 1]), (32, 3, 5, list(range(32))),
                                    (4, 7, 600, [0, 1, 2, 3]), (8, 7, 40, list(range(8))),
-                                   (31, 7, 9, list(range(0, 31, 2)))):
+                                   (31, 7, 9, list(range(0, 31, 2))), (3, 13, 30, [0, 1, 2]),
+                                   (4, 16, 100, [2, 0, 3]), (2, 16, 9, [1, 0])):
         counts = rng.integers(0, 3 * cap, (ndev, ndev))
-        counts[:, recv_me[-1]] = 0  # nothing for the last receiver
+        if len(recv_me) >= 3:
+            counts[:, recv_me[-1]] = 0  # nothing for the last receiver
         A = SH.route_sizes(counts, ndev, cap, ragged)
+        assert A[:, recv_me[1]].sum() > 0, (ndev, pw)  # flag 1 and rows to copy
         R = ndev * cap
         cons = SH.fresh_cons(ndev, cuda)
         SH.cons_sizes(cons, ndev)[:] = torch.as_tensor(A, device=cuda)
@@ -1834,7 +1840,8 @@ def test_exchange_kernel_equals_plain(cuda, ragged):
             outs.append(pends)
         for a, b in zip(*outs):
             assert torch.equal(a, b), (ndev, pw, recv_me)
-        assert (outs[0][0] == -5).all() and (outs[0][-1] == -5).all()
+        assert (outs[0][0] == -5).all() and (outs[0][1] != -5).any()
+        assert len(recv_me) < 3 or (outs[0][-1] == -5).all()
 
 
 def test_walk_advance_kernel_equals_plain(cuda):

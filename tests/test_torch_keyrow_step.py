@@ -1148,25 +1148,22 @@ def test_keyrow_wrappers_refuse():
 
 
 KEYROW_KERNELS = ("select_best", "select_best_unpacked", "keyrow_expand", "keyrow_insert")
-HANDLE = 0x5EED  # the fake WHILE node's condition handle
 
 
 class StubKernels:
-    """The step kernels' and the loop set-up's C entries as Python functions
-    on CPU memory (the pointers of CPU tensors are host addresses), as in
+    """The step kernels' C entries as Python functions on CPU memory (the
+    pointers of CPU tensors are host addresses), as in
     tests/test_torch_step.py.  Each records its arguments; while
-    ``run_kernels`` is False (a capture) that is all, else ``loop_setup``
-    does what csrc/step_loop.cu's does and K10 runs ``step`` (default: a
-    search whose f-min is 10 a step, steps += 1, f-min = 10 x steps) when
-    the run flag reads 1, then writes the flag and the loop's condition
-    (search/step.py::loop_next); at 0 it ends the loop.  ``dead`` counts
-    the inserts that found the flag at 0."""
+    ``run_kernels`` is False (a capture) that is all, else K10 runs
+    ``step`` (default: a search whose f-min is 10 a step, steps += 1,
+    f-min = 10 x steps) when the run flag reads 1, then writes the flag.
+    ``dead`` counts the inserts that found the flag at 0."""
 
     def __init__(self):
-        self.calls = {name: [] for name in KEYROW_KERNELS + ("loop_setup",)}
+        self.calls = {name: [] for name in KEYROW_KERNELS}
         self.run_kernels = True
         self.step = self.ten_a_step
-        self.cond, self.dead = {}, 0
+        self.dead = 0
 
     @staticmethod
     def ten_a_step(ctr):
@@ -1181,73 +1178,50 @@ class StubKernels:
 
     def run(self, name, vals):
         self.calls[name].append(vals)
-        if not self.run_kernels:
+        if not self.run_kernels or name != "keyrow_insert":
             return
-        if name == "loop_setup":
-            ctr = (ctypes.c_longlong * TE.N_COUNTERS).from_address(vals[0])
-            run = ctypes.c_int32.from_address(vals[1])
-            loop = (ctypes.c_int32 * 2).from_address(vals[2])
-            ctr[1] = 0
-            run.value = int(ctr[0] > 0 and ctr[6] == 0)
-            loop[0], loop[1] = 0, vals[3]
-            if vals[5]:
-                self.cond[vals[4]] = bool(run.value) and vals[3] > 0
-        elif name == "keyrow_insert":
-            run = ctypes.c_int32.from_address(vals[15])
-            loop = vals[21] and (ctypes.c_int32 * 2).from_address(vals[21])
-            if not run.value:
-                self.dead += 1
-                if loop:
-                    self.cond[vals[22]] = False
-                return
-            ctr = (ctypes.c_longlong * TE.N_COUNTERS).from_address(vals[16])
-            self.step(ctr)
-            run.value = int(ctr[1] < ctr[0] and ctr[6] == 0)
-            if loop:
-                loop[0], self.cond[vals[22]] = TS.loop_next(run.value, loop[0], loop[1])
+        run = ctypes.c_int32.from_address(vals[15])
+        if not run.value:
+            self.dead += 1
+            return
+        ctr = (ctypes.c_longlong * TE.N_COUNTERS).from_address(vals[16])
+        self.step(ctr)
+        run.value = int(ctr[1] < ctr[0] and ctr[6] == 0)
 
 
-class FakeLoopGraph:
-    """search/step.py::LoopGraph on the CPU (as in tests/test_torch_step.py):
-    the capture records the set-up's and one step's launches; a launch runs
-    the set-up, then the step while the stubs' condition holds."""
+class FakeGraph:
+    """torch.cuda.CUDAGraph on the CPU (as in tests/test_torch_step.py):
+    the capture records one step's launches with the stubs running none; a
+    replay runs the recorded launches, counted nowhere."""
 
-    def __init__(self, setup, step, dev, stubs):
+    def __init__(self, fn, stubs):
         self.stubs = stubs
+        n0 = {k: len(v) for k, v in stubs.calls.items()}
         stubs.run_kernels = False
         try:
-            self.setup = self.recorded(lambda: setup(0, HANDLE))
-            self.step = self.recorded(lambda: step(0, HANDLE))
+            fn()
         finally:
             stubs.run_kernels = True
-        self.host_s, self.instantiate_s = 0.001, 0.002
-        self.iterations = 0
+        self.recorded = [(k, c) for k, v in stubs.calls.items() for c in v[n0[k]:]]
+        self.replays = 0
 
-    def recorded(self, fn):
-        n0 = {k: len(v) for k, v in self.stubs.calls.items()}
-        fn()
-        return [(k, c) for k, v in self.stubs.calls.items() for c in v[n0[k]:]]
-
-    def launch(self, stream):
-        for name, vals in self.setup:
+    def replay(self):
+        self.replays += 1
+        for name, vals in self.recorded:
             self.stubs.run(name, vals)
-        while self.stubs.cond[HANDLE]:
-            self.iterations += 1
-            for name, vals in self.step:
-                self.stubs.run(name, vals)
 
 
 @pytest.fixture
 def stubbed(monkeypatch):
     stubs, graphs = StubKernels(), []
 
-    def capture(setup, step, dev):
-        graphs.append(FakeLoopGraph(setup, step, dev, stubs))
+    def capture(fn):
+        graphs.append(FakeGraph(fn, stubs))
         return graphs[-1]
 
     monkeypatch.setattr(_kernels, "load", stubs.lib)
     monkeypatch.setattr(TS, "_stream", lambda dev: 0)
-    monkeypatch.setattr(TS, "LoopGraph", capture)
+    monkeypatch.setattr(TS, "_capture", capture)
     saved = dict(_kernels.launches)
     _kernels.reset_counts()
     yield stubs, graphs
@@ -1266,11 +1240,11 @@ def test_keyrow_chunk_graph_binds_static_buffers(stubbed, layout):
     for _ in range(4):
         ctr = TS._drive_chunk(st, tab, bufs, ctr, 4, 10**6, 32, 0, 0, True)
         outs.append(ctr.tolist())
-    assert len(graphs) == 1 and bufs.captures == 1
+    assert len(graphs) == 1 and bufs.captures == 1 and graphs[0].replays == 16
     assert [o[2] for o in outs] == [4, 8, 10, 11] and outs[-1][0] == 95
-    # a body a step that ran; no insert after the stop (the warm-up's alone
-    # found the flag at 0)
-    assert graphs[0].iterations == 11 and stubs.dead == 1
+    # the replays after the stop (2, then 3) and the warm-up found the
+    # flag at 0
+    assert stubs.dead == 1 + 2 + 3
     select = "select_best" if layout == "packed" else "select_best_unpacked"
     names = (select, "keyrow_expand", "keyrow_insert")
     ptr = bufs.counters.data_ptr()
@@ -1285,15 +1259,9 @@ def test_keyrow_chunk_graph_binds_static_buffers(stubbed, layout):
     assert {(c[goal_at], c[goal_at + 1]) for c in stubs.calls[select]} == {(ptr, ptr + 56)}
     assert all(c[0] == tab.t_key.data_ptr() and c[4] == tab.claim.data_ptr() for c in k10)
     assert {c[9] for c in k10} == {int(layout == "unpacked")}
-    # the warm-up without the loop, the captured step with its count,
-    # handle and programmatic edges into K9 and K10
-    assert k10[0][21:24] == (None, 0, 0) and k9[0][28] == 0
-    assert {c[21:24] for c in k10[1:]} == {(bufs.loop.data_ptr(), HANDLE, 1)}
-    assert {c[28] for c in k9[1:]} == {1}
     assert bufs.graph.tally == {name: 1 for name in names}
     for name in KEYROW_KERNELS:
-        assert _kernels.launches[name] == (1 + 11 if name in names else 0)
-    assert _kernels.launches["loop_setup"] == 1 + 4
+        assert _kernels.launches[name] == (1 + 4 * 4 if name in names else 0)
     # a new table of the layout: a new capture; the eager chunk captures
     # nothing and counts each launch
     other = clone(tab)
@@ -1306,10 +1274,10 @@ def test_keyrow_chunk_graph_binds_static_buffers(stubbed, layout):
 
 @pytest.mark.parametrize("layout,chunk", [("packed", 1), ("packed", 7), ("unpacked", 7)])
 def test_keyrow_chunk_loop_stops_mid_chunk_as_the_plain_loop(stubbed, layout, chunk):
-    # the chunk loop (set-up, WHILE node, the insert's condition) over a
-    # real search, K10's stand-in one plain step on the table: chunk by
-    # chunk to the goal, every table tensor (claim included) and the 14
-    # counters equal the plain loop's, and no step runs after the stop
+    # the chunk loop (set-up, then the step graph replayed) over a real
+    # search, K10's stand-in one plain step on the table: chunk by chunk to
+    # the goal, every table tensor (claim included) and the 14 counters
+    # equal the plain loop's, and the replays after the stop change nothing
     stubs, graphs = stubbed
     seqs = golden_seqs("test2.fasta")
     eng = TE.FrontierSearch(Problem(seqs), both_hpair(seqs)[1], device="cpu", batch=32,
@@ -1336,8 +1304,8 @@ def test_keyrow_chunk_loop_stops_mid_chunk_as_the_plain_loop(stubbed, layout, ch
             break
     assert int(ca[0]) == GOLD["test2.fasta"]["optimal_g"]
     steps = int(ca[2])
-    assert graphs[0].iterations == steps and stubs.dead == 1  # the warm-up's
+    assert graphs[0].replays == chunk * chunks
+    assert stubs.dead == 1 + chunk * chunks - steps  # the warm-up's and the stop's
     if chunk == 7:
         assert steps % chunk != 0  # the goal in the middle of a chunk
-    assert _kernels.launches["keyrow_insert"] == 1 + steps
-    assert _kernels.launches["loop_setup"] == 1 + chunks
+    assert _kernels.launches["keyrow_insert"] == 1 + chunk * chunks

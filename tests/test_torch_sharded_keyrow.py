@@ -395,11 +395,7 @@ def test_keyrow_sharded_launch_arguments_match_signatures():
         assert ins[11] == bufs.pend.data_ptr() + 4 * pw * 3 and ins[-2] == recv.data_ptr()
         plain = TS._keyrow_insert_args(st, tab, bufs, bufs.counters, 64, 0, TS.K10_CAP, "s")
         assert plain[0] == "keyrow_insert" and plain[11] == bufs.pend.data_ptr()
-        # the unsharded entry takes the chunk loop's count, handle and edge
-        # before the stream (none outside a chunk graph)
-        assert ins[1:11] == plain[1:11] and ins[12:-2] == plain[12:-4]
-        assert plain[-4:-1] == (None, 0, 0)
-        assert len(plain) - 1 == len(_kernels.SIGNATURES["keyrow_insert"])
+        assert ins[1:11] == plain[1:11] and ins[12:-2] == plain[12:-1]
     # the hop mode takes the walk loop's run flag beside path_walk's arguments
     assert len(_kernels.SIGNATURES["path_walk_hops"]) == len(_kernels.SIGNATURES["path_walk"]) + 1
     assert len(_kernels.SIGNATURES["route_count_rows"]) == len(

@@ -292,16 +292,21 @@ def emu_exchange(cons, ndev, cap, ragged, R, xtab, wires, pends, rng, blocks=16,
 
 @pytest.mark.parametrize("ndev,pw,cap,recv_me,ragged", [
     (4, 7, 50, [0, 1, 2, 3], True), (4, 7, 50, [3, 1], False), (8, 3, 20, list(range(8)), True),
-    (31, 7, 6, list(range(0, 31, 3)), True), (31, 9, 4, list(range(31)), False)])
+    (31, 7, 6, list(range(0, 31, 3)), True), (31, 9, 4, list(range(31)), False),
+    (4, 16, 30, [2, 0, 3], False)])
 def test_exchange_schedule_equals_plain(ndev, pw, cap, recv_me, ragged):
     """The exchange kernel's schedule (emu_exchange) against exchange_plain
-    on random allowances of the route's shape, a receiver's flag 0, and a
-    receiver that gets 0 rows from every sender."""
+    on random allowances of the route's shape, a receiver's flag 0, a
+    receiver with its flag at 1 that gets rows at every row width, and
+    (with three receivers or more) one that gets 0 rows from every
+    sender."""
     rng = np.random.default_rng(ndev * 100 + pw)
     counts = rng.integers(0, 3 * cap, (ndev, ndev))
-    counts[:, recv_me[-1]] = 0  # nothing for the last receiver
+    if len(recv_me) >= 3:
+        counts[:, recv_me[-1]] = 0  # nothing for the last receiver
     A = S.route_sizes(counts, ndev, cap, ragged)
-    assert A[:, recv_me[-1]].sum() == 0 and A.sum() > 0
+    assert A[:, recv_me[1]].sum() > 0  # the second receiver: flag 1 and rows
+    assert len(recv_me) < 3 or A[:, recv_me[-1]].sum() == 0
     R = ndev * cap
     cons = S.fresh_cons(ndev, "cpu")
     S.cons_sizes(cons, ndev)[:] = torch.from_numpy(A)
@@ -321,7 +326,8 @@ def test_exchange_schedule_equals_plain(ndev, pw, cap, recv_me, ragged):
         outs.append(pends)
     for a, b in zip(*outs):
         assert torch.equal(a, b)
-    assert (outs[0][0] == -5).all() and (outs[0][-1] == -5).all()
+    assert (outs[0][0] == -5).all() and (outs[0][1] != -5).any()
+    assert len(recv_me) < 3 or (outs[0][-1] == -5).all()
 
 
 def test_exchange_table_refuses():

@@ -22,9 +22,9 @@ against the plain step (all values exact integers: zero tolerance).
   _select_best_plain and JAX _select_sig, at G = 1 to 1024 slots a group;
 - the step loop with its run flag on the device (K6) against
   _run_chunk_plain, chunk by chunk to the goal; the chunk graph's host
-  logic with stub C entries and a fake WHILE node (one captured step, a
-  body a step that ran, the stop in the middle of a chunk against the
-  plain loop) and the loop's condition (``loop_next``, ``loop_setup_plain``);
+  logic with stub C entries and a fake CUDA graph (one captured step
+  replayed chunk_steps times, the stop in the middle of a chunk against
+  the plain loop) and the chunk's set-up;
 - every word _sig_encode can store at kinase's and PF08184's widths is
   below 2^31;
 - the wrappers refuse CPU tensors and non-sig tables.
@@ -897,26 +897,23 @@ def test_k6_chunks_with_k5_grid_path_equal_plain_loop(blocks):
 # ------------------------------- the chunk graph's host logic (K6), stubbed
 
 STEP_KERNELS = ("select_best", "sig_expand", "sig_probe")
-HANDLE = 0x5EED  # the fake WHILE node's condition handle
 
 
 class StubKernels:
-    """The step kernels' and the loop set-up's C entries as Python functions
-    on CPU memory (the pointers of CPU tensors are host addresses).  Each
-    records its arguments; while ``run_kernels`` is False (a capture) that
-    is all.  Else ``loop_setup`` does what csrc/step_loop.cu's does (the
-    condition into ``cond``), and K5 runs ``step`` (default: a search whose
-    f-min is 10 a step: steps += 1, f-min = 10 x steps) when the run flag
-    reads 1, then writes the flag and, with a loop, its condition
-    (search/step.py::loop_next); at 0 it ends the loop (loop_stop).
-    ``dead`` counts the inserts that found the flag at 0."""
+    """The step kernels' C entries as Python functions on CPU memory (the
+    pointers of CPU tensors are host addresses).  Each records its
+    arguments; while ``run_kernels`` is False (a capture) that is all, else
+    K5 runs ``step`` (default: a search whose f-min is 10 a step: steps +=
+    1, f-min = 10 x steps) when the run flag reads 1, then writes the flag
+    (f-min < goal and no overflow).  ``dead`` counts the inserts that found
+    the flag at 0."""
 
-    def __init__(self, step=None, insert="sig_probe", run_at=11, ctr_at=12, loop_at=16):
-        self.calls = {name: [] for name in STEP_KERNELS + (insert, "loop_setup")}
-        self.insert, self.at = insert, (run_at, ctr_at, loop_at)
+    def __init__(self, step=None, insert="sig_probe", run_at=11, ctr_at=12):
+        self.calls = {name: [] for name in STEP_KERNELS + (insert,)}
+        self.insert, self.at = insert, (run_at, ctr_at)
         self.step = step or self.ten_a_step
         self.run_kernels = True
-        self.cond, self.dead = {}, 0
+        self.dead = 0
 
     @staticmethod
     def ten_a_step(ctr):
@@ -931,80 +928,55 @@ class StubKernels:
 
     def run(self, name, vals):
         self.calls[name].append(vals)
-        if not self.run_kernels:
+        if not self.run_kernels or name != self.insert:
             return
-        if name == "loop_setup":
-            ctr = (ctypes.c_longlong * TE.N_COUNTERS).from_address(vals[0])
-            run = ctypes.c_int32.from_address(vals[1])
-            loop = (ctypes.c_int32 * 2).from_address(vals[2])
-            ctr[1] = 0
-            run.value = int(ctr[0] > 0 and ctr[6] == 0)
-            loop[0], loop[1] = 0, vals[3]
-            if vals[5]:
-                self.cond[vals[4]] = bool(run.value) and vals[3] > 0
-        elif name == self.insert:
-            run_at, ctr_at, loop_at = self.at
-            run = ctypes.c_int32.from_address(vals[run_at])
-            loop = vals[loop_at] and (ctypes.c_int32 * 2).from_address(vals[loop_at])
-            if not run.value:
-                self.dead += 1
-                if loop:
-                    self.cond[vals[loop_at + 1]] = False
-                return
-            ctr = (ctypes.c_longlong * TE.N_COUNTERS).from_address(vals[ctr_at])
-            self.step(ctr)
-            run.value = int(ctr[1] < ctr[0] and ctr[6] == 0)
-            if loop:
-                loop[0], self.cond[vals[loop_at + 1]] = TS.loop_next(run.value, loop[0],
-                                                                    loop[1])
+        run_at, ctr_at = self.at
+        run = ctypes.c_int32.from_address(vals[run_at])
+        if not run.value:
+            self.dead += 1
+            return
+        ctr = (ctypes.c_longlong * TE.N_COUNTERS).from_address(vals[ctr_at])
+        self.step(ctr)
+        run.value = int(ctr[1] < ctr[0] and ctr[6] == 0)
 
 
-class FakeLoopGraph:
-    """search/step.py::LoopGraph on the CPU.  The capture runs ``setup``
-    and ``step`` once with the stubs recording only; a launch runs the
-    recorded set-up, then the recorded step while the condition that the
-    stubs set holds (a WHILE node): the arguments of the capture, counted
-    nowhere (the chunk loop counts them)."""
+class FakeGraph:
+    """torch.cuda.CUDAGraph on the CPU.  The capture runs the step's host
+    code once, the stubs recording its launches and running none.  A
+    replay runs the recorded launches (the stubs run them), counted
+    nowhere (the chunk loop counts the replays): a real graph replays the
+    arguments of its capture."""
 
-    def __init__(self, setup, step, dev, stubs):
-        self.stubs, self.cond = stubs, HANDLE
+    def __init__(self, fn, stubs):
+        self.stubs = stubs
+        n0 = {k: len(v) for k, v in stubs.calls.items()}
         stubs.run_kernels = False
         try:
-            self.setup = self.recorded(lambda: setup(0, HANDLE))
-            self.step = self.recorded(lambda: step(0, HANDLE))
+            fn()
         finally:
             stubs.run_kernels = True
-        self.host_s, self.instantiate_s = 0.001, 0.002
-        self.launches = self.iterations = 0
+        self.recorded = [(k, c) for k, v in stubs.calls.items() for c in v[n0[k]:]]
+        self.replays = 0
 
-    def recorded(self, fn):
-        n0 = {k: len(v) for k, v in self.stubs.calls.items()}
-        fn()
-        return [(k, c) for k, v in self.stubs.calls.items() for c in v[n0[k]:]]
-
-    def launch(self, stream):
-        self.launches += 1
-        for name, vals in self.setup:
+    def replay(self):
+        self.replays += 1
+        for name, vals in self.recorded:
             self.stubs.run(name, vals)
-        while self.stubs.cond[HANDLE]:
-            self.iterations += 1
-            for name, vals in self.step:
-                self.stubs.run(name, vals)
 
 
 @pytest.fixture
 def stubbed(monkeypatch):
-    """The chunk loop on the CPU: stub C entries, fake loop graphs, stream
-    0.  Yields (stubs, graphs); ``stubs.step`` may be replaced."""
+    """The chunk loop on the CPU: stub C entries, fake graphs, stream 0.
+    Yields (stubs, graphs); ``stubs.step`` may be replaced."""
     stubs, graphs = StubKernels(), []
 
-    def capture(setup, step, dev):
-        graphs.append(FakeLoopGraph(setup, step, dev, stubs))
+    def capture(fn):
+        graphs.append(FakeGraph(fn, stubs))
         return graphs[-1]
 
     monkeypatch.setattr(_kernels, "load", stubs.lib)
     monkeypatch.setattr(TS, "_stream", lambda dev: 0)
-    monkeypatch.setattr(TS, "LoopGraph", capture)
+    monkeypatch.setattr(TS, "_capture", capture)
     saved = dict(_kernels.launches)
     _kernels.reset_counts()
     yield stubs, graphs
@@ -1022,40 +994,32 @@ def test_k6_chunk_graph_binds_static_buffers_and_counts_replays(stubbed):
     for _ in range(4):
         ctr = TS._drive_chunk(st, tab, bufs, ctr, 4, 10**6, 32, 0, TS.K5_CAP, True)
         outs.append(ctr.tolist())
-    # one capture, four launches; the counters went through the static
-    # buffer: 4, 8, then 10 steps (the stop at f-min 100, two steps into
-    # the chunk); a chunk starts from f-min 0, so the fourth runs one step
-    # more, as the plain loop's would
-    assert len(graphs) == 1 and bufs.captures == 1 and graphs[0].launches == 4
+    # one capture of one step, four replays a chunk; the counters went
+    # through the static buffer: 4, 8, then 10 steps (the stop at f-min
+    # 100; the chunk's last two replays no-ops); a chunk starts from f-min
+    # 0, so the fourth runs one step more, as the plain loop's would
+    assert len(graphs) == 1 and bufs.captures == 1 and graphs[0].replays == 16
     assert [o[2] for o in outs] == [4, 8, 10, 11] and [o[1] for o in outs] == [40, 80, 100, 110]
     assert outs[-1][0] == 95
-    # the loop ran its body once a step that ran, and no insert after the
-    # stop found the flag at 0 (only the warm-up's)
-    assert graphs[0].iterations == 11 and stubs.dead == 1
-    assert bufs.loop.tolist() == [1, 4]
+    # the replays after the stop found the flag at 0 (and the warm-up's
+    # insert): 2 in the third chunk, 3 in the fourth
+    assert stubs.dead == 1 + 2 + 3
     # every pointer the kernels got is a static buffer: the counters of K4
     # and K5 (and K3's goal and threshold, views of them) are
-    # bufs.counters, never the caller's tensor; the insert holds the loop's
-    # count and handle, the expand and insert a programmatic edge
+    # bufs.counters, never the caller's tensor
     ptr = bufs.counters.data_ptr()
     k5 = stubs.calls["sig_probe"]
     assert {c[12] for c in k5} == {ptr}
     assert {c[19] for c in stubs.calls["sig_expand"]} == {ptr}
     assert {(c[6], c[7]) for c in stubs.calls["select_best"]} == {(ptr, ptr + 8 * 7)}
     assert all(c[0] == tab.t_sig.data_ptr() for c in k5)
-    assert k5[0][16:19] == (None, 0, 0) and stubs.calls["sig_expand"][0][22] == 0
-    assert {c[16:19] for c in k5[1:]} == {(bufs.loop.data_ptr(), HANDLE, 1)}
-    assert {c[22] for c in stubs.calls["sig_expand"][1:]} == {1}
-    # launches: the warm-up (each kernel once, run flag 0) and each step
-    # kernel once a step that ran; the set-up once a chunk after its own
-    # warm-up; the capture itself ran nothing
-    assert len(k5) == 1 + 1 + 11 and graphs[0].step == [
+    # launches: the warm-up (each kernel once, run flag 0) and the one
+    # captured step times the replays; the capture itself ran nothing
+    assert len(k5) == 1 + 1 + 4 * 4 and graphs[0].recorded == [
         (name, stubs.calls[name][1]) for name in STEP_KERNELS]
     assert bufs.graph.tally == {name: 1 for name in STEP_KERNELS}
-    assert bufs.graph.setup_tally == {"loop_setup": 1}
     for name in STEP_KERNELS:
-        assert _kernels.launches[name] == 1 + 11
-    assert _kernels.launches["loop_setup"] == 1 + 4
+        assert _kernels.launches[name] == 1 + 4 * 4
     assert set(bufs.capture_parts) == {"warm_s", "host_s", "instantiate_s"}
     assert bufs.capture_s == pytest.approx(sum(bufs.capture_parts.values()))
 
@@ -1070,21 +1034,21 @@ def test_k6_chunk_graph_recaptures_for_a_new_table_or_statics(stubbed):
     TS._drive_chunk(st, a, bufs, ctr, 2, 10**6, 32, 0, TS.K5_CAP, True)
     TS._drive_chunk(st, a, bufs, ctr, 2, 10**6, 32, 0, TS.K5_CAP, True)
     assert bufs.captures == 1
-    # another table (new pointers), another chunk length, K5 grid or cap:
-    # each a new capture, the old graph released
+    # another table (new pointers), K5 grid or cap: each a new capture, the
+    # old graph released; another chunk length replays the same step
     TS._drive_chunk(st, b, bufs, ctr, 2, 10**6, 32, 0, TS.K5_CAP, True)
     TS._drive_chunk(st, b, bufs, ctr, 3, 10**6, 32, 0, TS.K5_CAP, True)
+    assert bufs.captures == 2
     TS._drive_chunk(st, b, bufs, ctr, 3, 10**6, 32, 1, TS.K5_CAP, True)
     TS._drive_chunk(st, b, bufs, ctr, 3, 10**6, 32, 1, 0, True)
-    assert bufs.captures == 5 and len(graphs) == 5 and bufs.graph.graph is graphs[-1]
+    assert bufs.captures == 4 and len(graphs) == 4 and bufs.graph.graph is graphs[-1]
     # a regrow: new statics at twice the capacity, so new buffers and a new
     # table, and a capture on them
     _, st2 = statics(seqs, 64, 1 << 13)
     bufs2 = TS.StepBuffers.for_step(st2, torch.device("cpu"))
     TS._drive_chunk(st2, empty_table(st2), bufs2, ctr, 3, 10**6, 32, 0, TS.K5_CAP, True)
-    assert bufs2.captures == 1 and len(graphs) == 6
-    # the eager chunk captures nothing and counts each launch, the steps
-    # after the stop included
+    assert bufs2.captures == 1 and len(graphs) == 5
+    # the eager chunk captures nothing and counts each launch
     n = _kernels.launches["sig_probe"]
     TS._drive_chunk(st2, empty_table(st2), bufs2, ctr, 3, 10**6, 32, 0, TS.K5_CAP, False)
     assert bufs2.captures == 1 and _kernels.launches["sig_probe"] == n + 3
@@ -1092,11 +1056,11 @@ def test_k6_chunk_graph_recaptures_for_a_new_table_or_statics(stubbed):
 
 @pytest.mark.parametrize("chunk", [1, 7])
 def test_k6_chunk_loop_stops_mid_chunk_as_the_plain_loop(stubbed, chunk):
-    # the chunk loop (set-up, WHILE node, the insert's condition) over a
-    # real search: K5's stand-in runs one plain step on the table.  Chunk
-    # by chunk to the goal, every table tensor and the 14 counters equal
-    # the plain loop's; the last chunk stops in its middle (chunk 7) and
-    # no step runs after the stop
+    # the chunk loop (set-up, then the step graph replayed) over a real
+    # search: K5's stand-in runs one plain step on the table.  Chunk by
+    # chunk to the goal, every table tensor and the 14 counters equal the
+    # plain loop's; the last chunk stops in its middle (chunk 7) and its
+    # replays after the stop change nothing
     stubs, graphs = stubbed
     seqs = golden_seqs("PF08184.fasta")
     eng = TE.FrontierSearch(Problem(seqs), both_cubes(seqs)[1], device="cpu", batch=64,
@@ -1123,68 +1087,47 @@ def test_k6_chunk_loop_stops_mid_chunk_as_the_plain_loop(stubbed, chunk):
             break
     assert int(ca[0]) == GOLD["PF08184.fasta"]["optimal_g"]
     steps = int(ca[2])
-    assert graphs[0].iterations == steps and stubs.dead == 1  # the warm-up's
+    assert graphs[0].replays == chunk * chunks
+    assert stubs.dead == 1 + chunk * chunks - steps  # the warm-up's and the stop's
     if chunk == 7:
         assert steps % chunk != 0  # the goal in the middle of a chunk
-    assert _kernels.launches["sig_probe"] == 1 + steps
-    assert _kernels.launches["loop_setup"] == 1 + chunks
+    assert _kernels.launches["sig_probe"] == 1 + chunk * chunks
 
 
 def test_k6_launch_arguments_match_signatures():
-    # every launch of the step, the loop's set-up and K5 over the received
-    # rows has its C entry's arity; in a chunk graph the expand and the
-    # insert take a programmatic edge and the insert the loop's count and
-    # handle, outside one none of them
+    # every launch of the step and K5 over the received rows has its C
+    # entry's arity, the stream last
     seqs = golden_seqs("PF08184.fasta")
     _, st = statics(seqs, 64, 1 << 12)
     tab = empty_table(st)
     bufs = TS.StepBuffers.for_step(st, torch.device("cpu"))
     ctr = bufs.counters
-    for cond in (None, HANDLE):
-        args = TS._step_args(st, tab, bufs, ctr, 10**6, 32, 0, TS.K5_CAP, "s", cond=cond)
-        for a in args + [TS._setup_args(bufs, 7, cond, "s")]:
-            assert len(a) - 1 == len(_kernels.SIGNATURES[a[0]]) and a[-1] == "s", a[0]
-        k3, k4, k5 = args
-        edge = int(cond is not None)
-        assert k4[-2] == edge
-        assert k5[-4:-1] == ((bufs.loop.data_ptr(), HANDLE, 1) if cond else (None, 0, 0))
-    setup = TS._setup_args(bufs, 7, HANDLE, "s")
-    assert setup[1:-1] == (ctr.data_ptr(), bufs.run.data_ptr(), bufs.loop.data_ptr(), 7,
-                           HANDLE, 1)
+    for a in TS._step_args(st, tab, bufs, ctr, 10**6, 32, 0, TS.K5_CAP, "s"):
+        assert len(a) - 1 == len(_kernels.SIGNATURES[a[0]]) and a[-1] == "s", a[0]
     recv = torch.zeros(1, dtype=torch.int32)
     k5r = TS._probe_args(st, tab, bufs, ctr, 32, 0, TS.K5_CAP, "s", pend_at=3, recv=recv)
     assert len(k5r) - 1 == len(_kernels.SIGNATURES["sig_probe"])
-    assert k5r[-5] == recv.data_ptr() and k5r[-4:-1] == (None, 0, 0)
-    assert _kernels.SOURCES["loop_setup"] == "step_loop"
-    assert all(_kernels.SOURCES[h] == "step_loop" for h in _kernels.HOST_SIGNATURES)
+    assert k5r[-2] == recv.data_ptr()
 
 
-def test_k6_loop_condition():
-    # loop_next: the body runs again while the step left the run flag set
-    # and the chunk has steps left; steps counts every step that ran
-    for chunk in (1, 2, 7, 64):
-        for steps in range(chunk):
-            for run in (0, 1):
-                after, again = TS.loop_next(run, steps, chunk)
-                assert after == steps + 1
-                assert again == (run == 1 and steps + 1 < chunk)
-    # a chunk of n steps of a search that never stops runs n bodies
-    for chunk in (1, 7):
-        steps, again = 0, True
-        while again:
-            steps, again = TS.loop_next(1, steps, chunk)
-        assert steps == chunk
-    # the set-up: f-min 0, the flag from goal and overflow, the count 0
-    ctr = torch.as_tensor(TE.fresh_counters())
-    run, loop = torch.zeros(1, dtype=torch.int32), torch.full((2,), 9, dtype=torch.int32)
+def test_k6_chunk_setup():
+    # a chunk's set-up (chunk_setup_plain, and _setup on CPU buffers): f-min
+    # 0 and the run flag from goal and overflow, so its first step runs as
+    # the plain loop's does; chunk_setup's C entry takes counters, flag and
+    # stream
+    _, st = statics(golden_seqs("PF08184.fasta"), 64, 1 << 12)
+    bufs = TS.StepBuffers.for_step(st, torch.device("cpu"))
+    ctr = bufs.counters
+    ctr.copy_(torch.as_tensor(TE.fresh_counters()))
     ctr[1] = 77
-    assert TS.loop_setup_plain(ctr, run, loop, 7) and int(ctr[1]) == 0
-    assert run.tolist() == [1] and loop.tolist() == [0, 7]
-    assert not TS.loop_setup_plain(ctr, run, loop, 0) and run.tolist() == [1]
-    ctr[6] = 1
-    assert not TS.loop_setup_plain(ctr, run, loop, 7) and run.tolist() == [0]
-    ctr[6], ctr[0] = 0, 0
-    assert not TS.loop_setup_plain(ctr, run, loop, 7) and run.tolist() == [0]
+    bufs.run.fill_(5)
+    TS._setup(bufs, 0)
+    assert int(ctr[1]) == 0 and bufs.run.tolist() == [1]
+    for goal, ovf in ((0, 0), (10, 1), (-3, 0)):
+        ctr[0], ctr[1], ctr[6] = goal, 9, ovf
+        TS.chunk_setup_plain(ctr, bufs.run)
+        assert bufs.run.tolist() == [0] and int(ctr[1]) == 0, (goal, ovf)
+    assert len(_kernels.SIGNATURES["chunk_setup"]) == 3
 
 
 @pytest.mark.parametrize("name,capacity", [("kinase.fasta", 1 << 23),
