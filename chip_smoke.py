@@ -160,9 +160,17 @@ Phases, each failing loudly (non-zero exit):
    ``--k6s-baseline SRC`` another tree's consensus and exchange, each
    in turns with this tree's;
    ``--k11-sweep`` checks and times K11 on synthetic kinase-shaped inputs
-   of 64 to 31,744 rows a destination).  Several cards, when there are,
-   run kinase across them; else it says so (``--sharded-only`` runs this
-   phase alone).
+   of 64 to 31,744 rows a destination).  The several-card step on this
+   one card: kinase's four shards grouped into two cards (``split_cards``),
+   chunked (a stream a card, one graph a ring parity, the gathers as
+   copies, every card's consensus over every shard's snapshot), held to
+   the host driver's mesh form on the same two cards table word for table
+   word and to the golden, and the first card's consensus over the
+   snapshots against its plain version.  Several cards, when there are:
+   kinase one shard a card, chunked and host in turns, equal and golden,
+   a traced chunked run, and a ProcessMesh of NCCL ranks; else it says so
+   (``--sharded-only`` runs this phase alone, ``--multi-card-only`` its
+   several-card part).
 8. the kernels JSON line, then the result line.
 
 Inputs are rebuilt from tests/goldens.json (the degapped golden rows) and
@@ -692,7 +700,7 @@ def warm_engine(path: str, triples: str, warm_steps: int, layout: str = "auto", 
 # path and no cap argument): t_sig, t_best, pending list, lane_cur,
 # lane_dest, lane_word, bbits, max bucket probes, max calls, fill target,
 # run, counters, state, blocks, stream
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 K5_GRID_ONLY_SIGNATURE = [_P] * 6 + [_I] * 4 + [_P] * 3 + [_I, _P]
 
 
@@ -2556,12 +2564,13 @@ def sharded_guard(capture_step: int = 0):
         return bool(capture_step) and cap["step"] == capture_step
 
     def targets(card):
-        return [tuple(t.clone() for t in x[:5]) + (x[5],) for x in card.targets()]
+        return [tuple(t.clone() for t in x[:4]) + (x[4],) for x in card.targets()]
 
     def consensus(card, eng, rep):
         mine = at_step() and "k6s_tg0" not in cap
-        if mine:  # rep None: the reports read where they lie (one card)
-            cap.update(k6s_card=card, k6s_rep=None if rep is None else rep.clone(),
+        if mine:  # rep None: the reports read where they lie (the card form)
+            cap.update(k6s_card=card, k6s_rep=rep.clone() if rep is not None else [
+                tuple(t.clone() for t in r) for r in card.reports],
                        k6s_run0=card.run.clone(), k6s_cons0=card.cons.clone(),
                        k6s_tg0=targets(card))
         card_methods["consensus"](card, eng, rep)
@@ -2661,8 +2670,10 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
 
     problem = problem_from_fasta(path)
     gc.collect()  # an earlier run's shards and captures, before the peak is reset
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    n_cards = torch.cuda.device_count()
+    for i in range(n_cards):
+        torch.cuda.synchronize(i)
+        torch.cuda.reset_peak_memory_stats(i)
     _kernels.reset_counts()
     t0 = time.perf_counter()
     with sharded_guard(capture_step) as (plain, cap):
@@ -2679,9 +2690,12 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
         else:
             res = eng.run()
         torch.cuda.synchronize()
+        for i in range(n_cards):
+            torch.cuda.synchronize(i)
     wall = time.perf_counter() - t0
     counts = dict(_kernels.launches)
     peak = torch.cuda.max_memory_allocated()
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(n_cards)]
     if res.g != gold["optimal_g"]:
         fail(f"{label}: g={res.g}, want {gold['optimal_g']}")
     alignment = build_alignment(problem, res.closed)
@@ -2691,9 +2705,11 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
     st = eng.last_stats
     wire_path = not (eng.ndev == 1 and eng.exchange == "dense")
     chunked = st["driver"] == "chunked"
+    # the mesh form (the host driver on several cards) sizes the exchange
+    # on the host
     want = [k for k in SHARDED_KERNELS[eng.layout] + LOOP_KERNELS
             if (eng.cubes_split or k not in ("sig_coords", "keyrow_coords", "tri_partial"))
-            and (chunked or k != "walk_advance")]
+            and (chunked or k != "walk_advance") and (st.get("card_form") or k != "exchange")]
     if wire_path:
         for k in want:
             if counts.get(k, 0) <= 0:
@@ -2732,6 +2748,8 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
                 capture_parts={k: st[k] for k in ("capture_warm_s", "capture_host_s",
                                                   "capture_instantiate_s") if k in st},
                 step_wall_no_capture_ms=(st["search_s"] - st.get("capture_s", 0.0)) / steps * 1e3,
+                replay_ms_a_step=st.get("replay_s", 0.0) / steps * 1e3,
+                read_ms_a_step=st.get("read_s", 0.0) / steps * 1e3,
                 walk_reads=st["walk_reads"],
                 wire_rows_a_step=st["wire_rows"] / steps,
                 migrated_a_step=st["migrated"] / steps, peak_carry=st["peak_carry"],
@@ -2739,7 +2757,8 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
                 walk_parts={k: st[k] for k in ("walk_warm_s", "walk_capture_s") if k in st},
                 search_s=st["search_s"], step_wall_ms=st["search_s"] / steps * 1e3,
                 engine_build_s=build_s, wall_s=wall, launches=counts,
-                peak_device_bytes=peak,
+                peak_device_bytes=peak, peak_bytes_a_card=peaks, cards=st.get("cards", 1),
+                card_form=st.get("card_form", False),
                 shard_bytes=[shard_bytes(sh) for sh in shards] if wire_path else None,
                 path_nodes=len(res.closed))
     if profile:
@@ -2751,7 +2770,8 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
         all_us = sum(e.device_time_total for e in events
                      if not e.key.startswith(("aten::", "cuda", "Memcpy")))
         info["step_device_all_ms"] = all_us / 1e3 / steps
-    print(f"{label}: {eng.ndev} shard(s) on {info['devices']}, layout {eng.layout}, exchange "
+    print(f"{label}: {eng.ndev} shard(s) on {info['devices']} ({info['cards']} card(s), "
+          f"{'card' if info['card_form'] else 'mesh'} form), layout {eng.layout}, exchange "
           f"{eng.exchange} (cap {eng.exchange_cap}), hash {eng.hash_type}, cubes split "
           f"{eng.cubes_split}, capacity {eng.st.C} a shard (started at {capacity0}; overflow "
           f"retries {eng.retries or 'none'}), batch {eng.st.B}; g={res.g} ok, path cost == g, "
@@ -2760,7 +2780,9 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
           f"({info['graph_replays']} graph launches, {info['graph_captures']} captures in "
           f"{info['capture_s']:.3f} s: {info['capture_parts']}); a step: wall "
           f"{info['step_wall_ms']:.3f} ms "
-          f"({info['step_wall_no_capture_ms']:.3f} without the capture)"
+          f"({info['step_wall_no_capture_ms']:.3f} without the capture"
+          + (f"; the replays' launches {info['replay_ms_a_step']:.3f}, the reads "
+             f"{info['read_ms_a_step']:.3f} on the host" if chunked else "") + ")"
           + (f", device {info['step_device_ms']:.3f} ms (with PyTorch's kernels "
              f"{info['step_device_all_ms']:.3f})" if profile else "")
           + f", host reads {info['host_reads_a_step']:.4f}, wire rows "
@@ -2770,6 +2792,7 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
           + (f" (warm-up round {st['walk_warm_s'] * 1e3:.2f}, capture "
              f"{st['walk_capture_s'] * 1e3:.2f})" if "walk_warm_s" in st else "") + "; "
           f"peak memory {peak / 2**20:.1f} MiB"
+          + (f" (cards {[round(b / 2**20, 1) for b in peaks]} MiB)" if n_cards > 1 else "")
           + (f" (shards {[round(b / 2**20, 1) for b in info['shard_bytes']]} MiB)"
              if info["shard_bytes"] else "")
           + "; launches " + str({k: counts[k] for k in SHARDED_KERNELS[eng.layout]
@@ -3494,6 +3517,84 @@ def loop_words(eng) -> list:
     return out + [("cons", eng.cards[0].cons)]
 
 
+@contextlib.contextmanager
+def split_cards(groups):
+    """The sharded engine's shards grouped into the cards ``groups``
+    (positions of the local shards) in place of one card a device: the
+    several-card step on one card."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    saved = SH._card_groups
+    SH._card_groups = lambda devices: groups
+    try:
+        yield
+    finally:
+        SH._card_groups = saved
+
+
+def words_equal(label: str, a, b) -> int:
+    """Two finished runs' loop_words bit for bit (and every card's
+    consensus vector of ``a`` the same): the number of tensors."""
+    wa, wb = loop_words(a), loop_words(b)
+    diff = [k for (k, x), (_, y) in zip(wa, wb) if not torch.equal(x, y)]
+    diff += [f"card {i} cons" for i, c in enumerate(a.cards)
+             if not torch.equal(c.cons.cpu(), a.cards[0].cons.cpu())]
+    if diff or len(wa) != len(wb):
+        fail(f"{label}: the chunked run differs from the host driver's: {diff[:8]}")
+    return len(wa)
+
+
+def split_consensus_check(eng, floor: dict) -> dict:
+    """On a finished several-card run (split_cards): the first card's
+    consensus over every shard's snapshot (report_table's three addresses
+    a shard), its own shards the targets, against consensus_plain on the
+    same card tensors with the run flag at 1, bit for bit; timed as
+    timed_check from its inputs restored."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    card = eng.cards[0]
+    dev = card.dev
+    args = (eng.ndev, eng.exchange_cap, eng.exchange == "ragged", eng.layout, eng.st.nb,
+            eng.st.f0, card.shards[0].ccar)
+    tg0 = [tuple(t.clone() for t in x[:4]) + (x[4],) for x in card.targets()]
+    cons0, run0 = card.cons.clone(), torch.ones(1, dtype=torch.int32, device=dev)
+    outs = []
+    for kernel in (True, False):
+        tg = [tuple(t.clone() for t in x[:4]) + (x[4],) for x in tg0]
+        cons, run = cons0.clone(), run0.clone()
+        if kernel:
+            SH.consensus_cuda(SH.report_table(card.reports), *args, run,
+                              SH.target_table(tg, dev), cons)
+        else:
+            SH.consensus_plain(card.reports, *args, run, tg, cons)
+        torch.cuda.synchronize()
+        outs.append([cons, run] + [t for x in tg for t in x[:4]])
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(*outs))
+    if err:
+        fail(f"consensus over the snapshots of two cards differs from its plain version by {err}")
+    tg = [tuple(t.clone() for t in x[:4]) + (x[4],) for x in tg0]
+    cons, run = cons0.clone(), run0.clone()
+    rtab, tgt = SH.report_table(card.reports), SH.target_table(tg, dev)
+
+    def restore():
+        for x, x0 in zip(tg, tg0):
+            for t, t0 in zip(x[:4], x0[:4]):
+                t.copy_(t0)
+        cons.copy_(cons0)
+        run.copy_(run0)
+
+    out = {}
+    ndev = eng.ndev
+    nbytes = (ndev * (SH.R_ROUTE + ndev + 3) * 8 + (SH.C_HEAD + 4 * ndev) * 8
+              + SH.cons_words(ndev) * 8 + 8 + len(tg) * (8 + 4 * 8 + 4 + 4))
+    timed_check(out, "consensus", err, lambda: SH.consensus_cuda(rtab, *args, run, tgt, cons),
+                lambda: SH.consensus_plain(card.reports, *args, run, tg, cons), nbytes,
+                restore=restore)
+    out["consensus"].update(launch_floor_ms=floor["device_ms"], targets=len(tg), reports=ndev,
+                            cards=len(eng.cards))
+    return out["consensus"]
+
+
 def driver_turns(label: str, path: str, steps: int = 256, **kw):
     """One engine on [cuda:0] * 4 (``kw``: its layout and the rest), run
     ``steps`` steps (one chunk) under the chunked driver, ``steps``
@@ -3564,37 +3665,46 @@ def loop_kernel_checks(cap: dict, floor: dict, k6s_baseline=None) -> dict:
     ndev, ragged = eng.ndev, eng.exchange == "ragged"
     args = (ndev, eng.exchange_cap, ragged, eng.layout, eng.st.nb, eng.st.f0,
             card.shards[0].ccar)
+    # the reports: gathered rows (the mesh form), or each shard's words
+    # where they lie (the card form), as captured before the consensus
     rep = cap["k6s_rep"]
-    tg = [tuple(t.clone() for t in x[:5]) + (x[5],) for x in cap["k6s_tg0"]]
+    tg = [tuple(t.clone() for t in x[:4]) + (x[4],) for x in cap["k6s_tg0"]]
+    if not isinstance(rep, torch.Tensor):
+        # a target's report words are its own counters and state (the live
+        # words of one card): the copies stand in for both
+        own = {x[4]: x for x in tg}
+        rep = [(own[me][0], own[me][1], r[2]) if me in own else r for me, r in enumerate(rep)]
     run, cons = cap["k6s_run0"].clone(), cap["k6s_cons0"].clone()
 
     def restore_c():
         for x, x0 in zip(tg, cap["k6s_tg0"]):
-            for t, t0 in zip(x[:5], x0[:5]):
+            for t, t0 in zip(x[:4], x0[:4]):
                 t.copy_(t0)
         run.copy_(cap["k6s_run0"])
         cons.copy_(cap["k6s_cons0"])
 
     SH.consensus_plain(rep, *args, run, tg, cons)
-    got = [cons, run] + [t for x in tg for t in x[:5]]
-    want = [cap["k6s_cons1"], cap["k6s_run1"]] + [t for x in cap["k6s_tg1"] for t in x[:5]]
+    got = [cons, run] + [t for x in tg for t in x[:4]]
+    want = [cap["k6s_cons1"], cap["k6s_run1"]] + [t for x in cap["k6s_tg1"] for t in x[:4]]
     err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
     if err:
         fail(f"consensus differs from its plain version by {err}")
     dev = cons.device
     tgt = SH.target_table(tg, dev)
+    rtab = SH.report_table(rep)
     words = SH.cons_words(ndev)
     # the reports (each shard's words where they lie) and the telemetry
     # read, the vector written, each target's counters (goal), state (3
-    # words and the pending count) and two flags (the targets' addresses
+    # words and the pending count) and two flags (the tables' addresses
     # ride in the launch's parameters)
     nbytes = (ndev * (SH.R_ROUTE + ndev + 3) * 8 + (SH.C_HEAD + 4 * ndev) * 8 + words * 8
               + 8 + len(tg) * (8 + 4 * 8 + 4 + 4))
-    report("consensus", err, lambda: SH.consensus_cuda(rep, *args, run, tgt, cons),
+    restore_c()
+    report("consensus", err, lambda: SH.consensus_cuda(rtab, *args, run, tgt, cons),
            lambda: SH.consensus_plain(rep, *args, run, tg, cons), nbytes, restore=restore_c)
     if k6s_baseline is not None:
-        out["consensus"]["turns"] = consensus_turns(rep, args, run, tg, tgt, cons, restore_c,
-                                                    want, k6s_baseline)
+        out["consensus"]["turns"] = consensus_turns(rep, args, run, tg, cons, restore_c, want,
+                                                    k6s_baseline)
     A = SH.cons_sizes(cap["x_cons"], ndev).cpu().numpy()
     out["consensus"].update(launch_floor_ms=floor["device_ms"], targets=len(tg),
                             sizes=A.tolist(), stopped=int(cap["k6s_run1"][0]) == 0)
@@ -3633,8 +3743,9 @@ def loop_kernel_checks(cap: dict, floor: dict, k6s_baseline=None) -> dict:
 def start_k6s_baseline(src: str, tmp: str):
     """Start nvcc on another tree's K6s (``src``: its shard_loop.cu, or a
     checkout's root or csrc/ directory; built with the headers beside it;
-    its C entry consensus of this tree's signature, whose target table
-    lay on the card) in its own directory; returns (src, proc, lib)."""
+    its C entry consensus of CONSENSUS_TARGETS_SIGNATURE, whose target
+    table lay on the card) in its own directory; returns (src, proc,
+    lib)."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
     cu = src if os.path.isfile(src) else next(
@@ -3659,9 +3770,10 @@ EXCHANGE_DEVICE_TABLES_SIGNATURE = [_P] + [_I] * 5 + [_P] * 3 + [_I, _P, _P]
 
 
 def load_k6s_baseline(job) -> dict:
-    """The other tree's consensus (start_k6s_baseline), with this tree's
-    argtypes, its exchange (EXCHANGE_DEVICE_TABLES_SIGNATURE), and its
-    source's name under ``src``."""
+    """The other tree's consensus (start_k6s_baseline), with
+    CONSENSUS_TARGETS_SIGNATURE, its exchange
+    (EXCHANGE_DEVICE_TABLES_SIGNATURE), and its source's name under
+    ``src``."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
     src, proc, lib = job
@@ -3670,7 +3782,7 @@ def load_k6s_baseline(job) -> dict:
         fail(f"K6s baseline: nvcc failed for shard_loop.cu of {src}:\n{log}")
     so = ctypes.CDLL(lib)
     fn = so.consensus
-    fn.argtypes = _kernels.SIGNATURES["consensus"]
+    fn.argtypes = CONSENSUS_TARGETS_SIGNATURE
     fn.restype = ctypes.c_int
     x = so.exchange
     x.argtypes = EXCHANGE_DEVICE_TABLES_SIGNATURE
@@ -3719,38 +3831,53 @@ def exchange_turns(cap: dict, ndev: int, xcap: int, ragged: bool, pends, new, re
     return res
 
 
-def consensus_turns(rep, args, run, tg, tgt, cons, restore, want, baseline: dict,
+# the C entry of the consensus before its reports and targets were two
+# tables (40505e8 to e0246c6): the gathered reports (or null: the targets' own words),
+# ndev, cap, ragged, unpacked, n, f0, ring rows, run, a table of (counters,
+# state, route out, received count, insert flag, index) a target, their
+# count, cons, stream
+CONSENSUS_TARGETS_SIGNATURE = [_P, _I, _I, _I, _I, _I, _L, _L, _P, _P, _I, _P, _P]
+
+
+def consensus_turns(rep, args, run, tg, cons, restore, want, baseline: dict,
                     reps: int = 20) -> dict:
     """Another tree's consensus (``baseline``: 40505e8's, one block, its
-    target table on the card) checked against this tree's plain result
-    ``want`` on the same inputs, bit for bit, then the two timed in turns
-    from the inputs restored (old, new, new, old): device ms (CUPTI) and
-    ms a call (CUDA events), both through a plain ctypes call of their C
-    entries (this tree's reads the target table in host memory)."""
+    target table on the card, the reports its targets' own words) checked
+    against this tree's plain result ``want`` on the same inputs, bit for
+    bit, then the two timed in turns from the inputs restored (old, new,
+    new, old): device ms (CUPTI) and ms a call (CUDA events), both through
+    a plain ctypes call of their C entries (this tree's reads its two
+    tables in host memory)."""
     from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
     from mpi_pastar_msa_tpu_torch.search.step import _stream
 
     ndev, cap, ragged, layout, nb, f0, ccar = args
-    tgt_dev = tgt.to(cons.device)
-    head = (None if rep is None else rep.data_ptr(), ndev, cap, int(ragged),
-            int(layout == "unpacked"), nb, f0, ccar, run.data_ptr())
-    sig = _kernels.SIGNATURES["consensus"]
+    if isinstance(rep, torch.Tensor) or len(tg) != ndev:
+        fail("consensus turns: the old C entry reads every shard's words as its targets")
+    old_tab = torch.tensor([[c.data_ptr(), s_.data_ptr(), rep[me][2].data_ptr(), r.data_ptr(),
+                             g.data_ptr(), me] for c, s_, r, g, me in tg],
+                           dtype=torch.int64).to(cons.device)
+    head = (ndev, cap, int(ragged), int(layout == "unpacked"), nb, f0, ccar, run.data_ptr())
+    old_args = tuple(t(a) for t, a in zip(CONSENSUS_TARGETS_SIGNATURE, (None,) + head + (
+        old_tab.data_ptr(), len(tg), cons.data_ptr(), _stream(cons.device))))
+    rtab, tgt = SH.report_table(rep), SH.target_table(tg, cons.device)
+    new_args = tuple(t(a) for t, a in zip(_kernels.SIGNATURES["consensus"], (
+        rtab.data_ptr(), rtab.shape[1]) + head + (tgt.data_ptr(), len(tg), cons.data_ptr(),
+                                                  _stream(cons.device))))
 
-    def bound(fn, table):
-        cargs = tuple(t(a) for t, a in zip(sig, head + (table.data_ptr(), len(tg),
-                                                         cons.data_ptr(), _stream(cons.device))))
-
+    def bound(fn, cargs):
         def go():
             if fn(*cargs):
                 fail(f"consensus of {baseline['src']} failed to launch")
         return go
 
-    who = {"old": bound(baseline["consensus"], tgt_dev),
-           "new": bound(getattr(_kernels.load("consensus"), "consensus"), tgt)}
+    who = {"old": bound(baseline["consensus"], old_args),
+           "new": bound(getattr(_kernels.load("consensus"), "consensus"), new_args)}
     restore()
     who["old"]()
     torch.cuda.synchronize()
-    got = [cons, run] + [t for x in tg for t in x[:5]]
+    got = [cons, run] + [t for x in tg for t in x[:4]]
     err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
     if err:
         fail(f"consensus of {baseline['src']} differs from the plain version by {err}")
@@ -3774,7 +3901,7 @@ def walk_loop_check(eng, floor: dict) -> dict:
 
     shards, st = eng.shards, eng.st
     t0 = time.perf_counter()
-    masks, rounds, reads = eng._walk_loop(eng.cards[0], shards)
+    masks, rounds, reads = eng._walk_loop(shards)
     loop_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     h_masks, h_rounds = eng._walk(shards)
@@ -3786,14 +3913,16 @@ def walk_loop_check(eng, floor: dict) -> dict:
     final = [int(v) for v in eng.problem.final_coord]
     i32 = dict(dtype=torch.int32, device=dev)
     params0 = torch.tensor(final + list(st.bitw), dtype=torch.int32).to(dev)
-    wout = torch.zeros((eng.ndev, hops + n + 1), **i32)
+    # each shard's run a tensor of its own, read by its address
+    wout = [torch.zeros(hops + n + 1, **i32) for _ in shards]
     for sh in shards:
         sh.walk_hops(params0, hops, out=wout[sh.me])
+    wtab = SH.run_table(wout, hops, n)
     state0 = [params0, torch.zeros(sum(final) + hops, **i32), torch.zeros(2, **i32),
               torch.ones(1, **i32)]
     kern = [t.clone() for t in state0]
     plain = [t.clone() for t in state0]
-    SH.walk_advance_cuda(wout, hops, n, *kern)
+    SH.walk_advance_cuda(wtab, hops, n, *kern)
     SH.walk_advance_plain(wout, hops, n, *plain)
     torch.cuda.synchronize()
     err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(kern, plain))
@@ -3808,7 +3937,7 @@ def walk_loop_check(eng, floor: dict) -> dict:
     out = {}
     # the runs read, the coordinate read and written, the masks emitted,
     # the counts and the flag
-    timed_check(out, "walk_advance", err, lambda: SH.walk_advance_cuda(wout, hops, n, *kern),
+    timed_check(out, "walk_advance", err, lambda: SH.walk_advance_cuda(wtab, hops, n, *kern),
                 lambda: SH.walk_advance_plain(wout, hops, n, *kern),
                 eng.ndev * hops * 4 + 2 * n * 4 + emitted * 4 + 2 * 8 + 2 * 4, restore=restore)
     out["walk_advance"].update(launch_floor_ms=floor["device_ms"], emitted=emitted)
@@ -3869,6 +3998,28 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
              f"step, {r['graph_captures']} step graphs captured")
     out["walk_loop"] = walk_loop_check(eng, floor)
     del eng
+    # the several-card step on one card: the four shards grouped into two
+    # cards (0, 1 | 2, 3), each with its stream, joined by events in one
+    # graph a ring parity, the gathers as copies, a consensus and an
+    # exchange a card; then the host driver's mesh form on the same two
+    # cards; every table word equal, the golden alignment
+    with split_cards([[0, 1], [2, 3]]):
+        out["kinase_split"], ce, _ = sharded_run(
+            "kinase sharded 4, two cards of one", paths["kinase.fasta"], k, [card] * 4, True)
+        out["kinase_split_host"], he, _ = sharded_run(
+            "kinase sharded 4, two cards of one, host driver", paths["kinase.fasta"], k,
+            [card] * 4, True, driver="host")
+    r = out["kinase_split"]
+    if (r["cards"] != 2 or not r["card_form"] or r["driver"] != "chunked"
+            or r["host_reads_a_step"] > 0.01 or out["kinase_split_host"]["card_form"]):
+        fail(f"kinase on two cards of one: {r['cards']} cards, card form {r['card_form']}, "
+             f"driver {r['driver']}, {r['host_reads_a_step']} host reads a step")
+    r["words_equal"] = words_equal("kinase on two cards of one", ce, he)
+    out["split_consensus"] = split_consensus_check(ce, floor)
+    print(f"  kinase on two cards of one: chunked and host drivers equal on {r['words_equal']} "
+          f"tensors; consensus over the snapshots {out['split_consensus']['device_ms']:.4f} ms "
+          f"device")
+    del ce, he
     # each layout in turns (chunked, then host, 256 steps), then the host
     # driver's full run on the same engine, whose step 200 is captured for
     # the kernel checks
@@ -3969,15 +4120,55 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
                                                  hash_type=ht)
     del eng
     if torch.cuda.device_count() >= 2:
-        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        out["multi_card"], eng, _ = sharded_run(
-            f"kinase sharded on {len(cards)} cards", paths["kinase.fasta"], k, cards, True)
-        del eng
-        out["multi_process"] = process_mesh_run(paths["kinase.fasta"], k, len(cards))
+        out["multi_card"] = multi_card_phase(paths["kinase.fasta"], k)
+        n = torch.cuda.device_count()
+        out["multi_process"] = process_mesh_run(paths["kinase.fasta"], k, n)
     else:
         print("sharded multi-card: not run (1 card); ProcessMesh on NCCL not run either "
               "(NCCL takes one rank a card)")
         out["multi_card"] = "not run (1 card)"
+    return out
+
+
+def multi_card_phase(path: str, gold: dict) -> dict:
+    """Kinase on every card of the machine, one shard a card (``-t N`` on
+    N cards): the chunked driver (one graph a ring parity spanning the
+    cards, peer reads; auto there) and the host driver (the mesh form) in
+    turns (chunked, host, host, chunked), each against the golden; the
+    first two held equal table word for table word; then a chunked run
+    traced (device time a step, every card's kernels summed)."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.parallel.mesh import LocalMesh
+
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n)]
+    out, kept = {"cards": n, "runs": []}, {}
+    for turn, driver in enumerate(("chunked", "host", "host", "chunked")):
+        label = f"kinase sharded on {n} cards, {driver} driver, turn {turn}"
+        info, eng, _ = sharded_run(label, path, gold, cards, True, driver=driver)
+        if driver == "chunked" and (info["host_reads_a_step"] > 0.01 or not info["card_form"]
+                                     or info["cards"] != n):
+            fail(f"{label}: {info['host_reads_a_step']} host reads a step, card form "
+                 f"{info['card_form']}, {info['cards']} cards")
+        out["runs"].append(info)
+        kept.setdefault(driver, eng)
+        del eng
+        if len(kept) == 2 and "words_equal" not in out:  # the first of each, then free them
+            out["words_equal"] = words_equal(f"kinase on {n} cards", kept["chunked"],
+                                             kept["host"])
+            kept = {"chunked": None, "host": None}
+    auto = SH.choose_driver(LocalMesh(cards), "auto")
+    if auto != "chunked":
+        fail(f"kinase on {n} cards: driver auto chose {auto}, want chunked")
+    info, eng, _ = sharded_run(f"kinase sharded on {n} cards, chunked driver, traced", path,
+                               gold, cards, True, profile=True, driver="chunked")
+    out["traced"] = info
+    del eng
+    print(f"  kinase on {n} cards: chunked and host drivers equal on {out['words_equal']} "
+          f"tensors; a step {[round(r['step_wall_ms'], 3) for r in out['runs']]} ms "
+          f"(chunked, host, host, chunked), host reads a step "
+          f"{[round(r['host_reads_a_step'], 4) for r in out['runs']]}; traced device "
+          f"{info['step_device_ms']:.3f} ms a step (every card's kernels summed)")
     return out
 
 
@@ -4724,6 +4915,17 @@ def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
                      also_replaces=also,
                      times_run="kinase sharded 4, ragged, host driver, step 200"
                      if name != "walk_advance" else main_run)
+        # the several-card step: its launches on two cards of one (and on
+        # every card, where the machine has several), the consensus over
+        # the snapshots checked and timed on the split run's last step
+        split = dict(launches=sh["kinase_split"]["launches"][name],
+                     run="kinase sharded 4, two cards of one (chunked driver)")
+        if name == "consensus":
+            split.update({k: v for k, v in sh["split_consensus"].items() if k != "bytes"})
+        if isinstance(sh.get("multi_card"), dict):
+            split["multi_card_launches"] = [r["launches"][name]
+                                            for r in sh["multi_card"]["runs"]]
+        entry["split_cards"] = split
         kernels.append(entry)
     return kernels
 
@@ -4801,6 +5003,10 @@ def main() -> int:
                     help="run the device, build and sharded-engine phases only "
                          "(a quick check of the multi-device step; prints no "
                          "result line)")
+    ap.add_argument("--multi-card-only", action="store_true",
+                    help="run the device, build and the sharded engine's multi-card "
+                         "phase only (kinase on every card, chunked and host in turns; "
+                         "two cards or more; prints no result line)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace 32 mid-search steps with torch.profiler "
                          "(device time by kernel, launches and host reads a "
@@ -4874,6 +5080,12 @@ def main() -> int:
             src = os.path.abspath(args.step_baseline)
             step_baseline = (args.step_baseline, build_step_baseline(src, tmp))
         report["launch_floor"] = floor = launch_floor()
+        if args.multi_card_only:
+            if torch.cuda.device_count() < 2:
+                fail("--multi-card-only needs two cards or more")
+            report["multi_card"] = multi_card_phase(paths["kinase.fasta"], gold["kinase.fasta"])
+            write_report(args.report, report)
+            return 0  # a partial run: no kernels line and no result line
         if args.sharded_only:
             report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
                                               args.k11_sweep, k6s_baseline)

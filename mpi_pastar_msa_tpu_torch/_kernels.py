@@ -116,16 +116,23 @@ SIGNATURES: Dict[str, List] = {
     # the coordinates K12 gathers on the packed layout: t_key, its row
     # stride, compact list, nsel, N, B, coords, run (or null), stream
     "keyrow_coords": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
-    # the sharded loop on the card (csrc/shard_loop.cu, K6s): the gathered
-    # reports, ndev, cap, ragged, unpacked, n, f0, ring rows, run, targets,
-    # their count, cons, stream; cons, ndev, cap, ragged, R, a row's words,
-    # the address table (wires, then each receiver's pending list, insert
-    # flag and index), receivers, stream;
-    # the shards' runs, ndev, hops, N, params, masks, their room, walk
-    # state, walk flag, stream
-    "consensus": [_P, _I, _I, _I, _I, _I, _L, _L, _P, _P, _I, _P, _P],
+    # the sharded loop on the card (csrc/shard_loop.cu, K6s): the report
+    # table, its words a shard, ndev, cap, ragged, unpacked, n, f0, ring
+    # rows, run, targets, their count, cons, stream; cons, ndev, cap,
+    # ragged, R, a row's words, the address table (wires, then each
+    # receiver's pending list, insert flag and index), receivers, stream;
+    # the table of the shards' runs, ndev, hops, N, params, masks, their
+    # room, walk state, walk flag, stream
+    "consensus": [_P, _I, _I, _I, _I, _I, _I, _L, _L, _P, _P, _I, _P, _P],
     "exchange": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
     "walk_advance": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
+}
+#: host entries that launch no kernel (``call``, not counted): peer access
+#: from a card to a peer; a table of device-to-device copies (destination,
+#: source, bytes a row), their count, stream
+HOST_SIGNATURES: Dict[str, List] = {
+    "peer_access": [_I, _I],
+    "copy_table": [_P, _I, _P],
 }
 #: kernel name -> its source file's stem, where that is not its own name
 SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
@@ -135,12 +142,14 @@ SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
                            "keyrow_insert_recv": "keyrow_insert",
                            "route_count_rows": "route_pack", "route_pack_rows": "route_pack",
                            "keyrow_coords": "tri_partial", "consensus": "shard_loop",
-                           "exchange": "shard_loop", "walk_advance": "shard_loop"}
+                           "exchange": "shard_loop", "walk_advance": "shard_loop",
+                           "peer_access": "shard_loop", "copy_table": "shard_loop"}
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _libs: Dict[str, ctypes.CDLL] = {}  # kernel name -> its library, argtypes set
 _sources: Dict[str, ctypes.CDLL] = {}  # source -> its loaded library
 _tally: Optional[Dict[str, int]] = None  # set while a graph is captured
+_peers: set = set()  # (card, peer) pairs whose peer access is enabled
 
 
 def reset_counts() -> None:
@@ -203,9 +212,9 @@ def _start_build(src: str):
 
 
 def build_all(names=None) -> Dict[str, str]:
-    """Compile the sources of every kernel (or of ``names``) not yet
-    built, one nvcc per source, all started together.  Returns source ->
-    nvcc output (empty when already built)."""
+    """Compile the sources of every kernel and host entry (or of
+    ``names``) not yet built, one nvcc per source, all started together.
+    Returns source -> nvcc output (empty when already built)."""
     srcs = dict.fromkeys(SOURCES.get(n, n) for n in (names or SIGNATURES))
     started = {n: _start_build(n) for n in srcs}
     logs = {}
@@ -233,7 +242,7 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
             lib = _sources[src] = ctypes.CDLL(_lib_path(src))
         fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
+        fn.argtypes = SIGNATURES[name] if name in SIGNATURES else HOST_SIGNATURES[name]
         fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
@@ -255,6 +264,33 @@ def bind(name: str, *args):
         counts[name] = counts.get(name, 0) + 1
 
     return go
+
+
+def call(name: str, *args) -> None:
+    """Call a host entry (``HOST_SIGNATURES``): no kernel, no count; raises
+    on a non-zero CUDA status."""
+    status = getattr(load(name), name)(*args)
+    if status != 0:
+        raise RuntimeError(f"CUDA host entry {name} failed: error {status}")
+
+
+def enable_peer_access(devices) -> None:
+    """Peer access between every ordered pair of distinct cards among
+    ``devices`` (torch devices or indices), once a process and pair, so
+    that a kernel on one reads and writes the others' buffers through
+    their device addresses.  A card pair without peer access, or any
+    error but "already enabled", raises."""
+    import torch
+
+    idx = sorted({torch.device(d).index if not isinstance(d, int) else d for d in devices})
+    for a in idx:
+        for b in idx:
+            if a == b or (a, b) in _peers:
+                continue
+            if not torch.cuda.can_device_access_peer(a, b):
+                raise RuntimeError(f"cuda:{a} cannot access cuda:{b} as a peer")
+            call("peer_access", a, b)
+            _peers.add((a, b))
 
 
 def launch(name: str, *args) -> None:

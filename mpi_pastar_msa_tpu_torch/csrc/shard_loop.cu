@@ -19,25 +19,36 @@
 //   consensus: from the reports of every shard, (7 + ndev + 3) int64 a
 //     shard (goal g, table overflow, K3's g max, open, selected, reopened
 //     and f-min, then K11's out: send counts, migrants, carry overflow,
-//     ring min; gathered, or read where they lie when every shard is on
-//     the card), the step's consensus into cons (int64: steps,
+//     ring min; gathered, or read where they lie, on this card or a peer),
+//     the step's consensus into cons (int64: steps,
 //     goal_g, fmin_g, rows selected, table and carry overflow shards, wire
 //     rows, migrated rows, peak carry, the run flag; per shard expanded,
 //     reopened, open and migrated; A (ndev, ndev)), and into each local
 //     shard's step state: ctr[0] = goal_g, state[kFmin] = fmin_g,
 //     state[kNSel] = rows selected, state[kNPend] += rows received, the
-//     received count and the insert's flag.  On overflow the step stops
+//     received count and the insert's flag.  Every card of a mesh runs it
+//     on every shard's report (JAX: _consensus runs on every device) and
+//     gets the same vector, A and run flag; it writes its own shards'
+//     targets.  On overflow the step stops
 //     before the exchange and the insert (their flags 0, no state
 //     written); on fmin_g >= goal_g the insert still runs and the next step
 //     does not (run = 0).
 //   exchange: for every receiver r on this card, A[i][r] rows of sender
-//     i's wire (ragged: from row sum_{j<r} A[i][j]; dense: from r cap)
+//     i's wire (on this card or a peer) (ragged: from row sum_{j<r} A[i][j]; dense: from r cap)
 //     into the receiver's pending list, in sender order, ending at row R
 //     where its self-owned lanes begin.
 //   walk_advance: after every shard's hop-limited walk (path_walk.cu) of a
-//     round, the sum of the runs (one shard's is non-zero), its masks
-//     appended, the coordinate stepped back, and the walk's flag cleared at
+//     round, the sum of the runs (one shard's is non-zero; each read where
+//     it lies, on this card or a peer), its masks appended, the card's own
+//     copy of the coordinate stepped back, and the walk's flag cleared at
 //     the origin or when a round emits nothing.
+//
+// Across the cards of one process the kernels read their peers' buffers
+// through device addresses (peer access enabled, UVA over NVLink): no
+// collective and no host read sizes the exchange, so one graph of the
+// whole mesh's step holds it (parallel/sharded.py).  Two host entries
+// serve that mesh: peer_access, and copy_table, the step's gathers as
+// copies.
 //
 // What bounds them on an H100: latency, not bytes or operations.  The
 // consensus reads ndev x 14 words and writes a few dozen (kinase on 4
@@ -75,22 +86,32 @@ constexpr int rGoal = 0, rOvf = 1, rNOpen = 3, rNSel = 4, rReopen = 5, rFmin = 6
 // (expanded, reopened, open, migrated), then A
 constexpr int qSteps = 0, qGoal = 1, qFmin = 2, qNSel = 3, qTOvf = 4, qCOvf = 5, qWire = 6,
               qMigr = 7, qPeak = 8, qRun = 9, qHead = 10;
-constexpr int kTgt = 6;  // a target's words: ctr, state, route out, received, flag, shard
+constexpr int kTgt = 5;  // a target's words: ctr, state, received, flag, shard
 constexpr int kExchangeBlocks = 16;  // blocks a receiver
 constexpr int kExchangeThreads = 256;
 constexpr int kExchangeRows = 2;   // a thread's rows whose loads precede its stores
 constexpr int kMaxRowWords = 16;   // a wire row: a pending entry, at most W + 5 = 13 words
 
-// A card's shards, by shard index, as the consensus writes them: each
-// local shard's counters, step state, route out (K11's), received count and
-// insert flag, null where the shard lies on another card.  Passed by value
-// in the launch's parameters (__grid_constant__: read in place, never
-// copied), so a lane reaches its shard's words with one load each and no
-// table in device memory.
+// Every shard's report, by shard index, where the consensus reads it: a
+// row of the gathered reports (int64, rRoute + ndev + 3 words), or its
+// counters, step state and route out (K11's) where they lie, on this card
+// or on a peer (a copy of them, the several-card mesh's snapshot, or the
+// live words on a mesh of one card).  And the targets, this card's shards,
+// as the consensus writes them: counters, step state, received count and
+// insert flag, null where the shard lies on another card.  Both passed by
+// value in the launch's parameters (__grid_constant__: read in place,
+// never copied), so a lane reaches its shard's words with one load each
+// and no table in device memory.
+struct Reports {
+  const long long* row[kMaxDev];
+  const long long* ctr[kMaxDev];
+  const long long* state[kMaxDev];
+  const int32_t* out[kMaxDev];
+};
+
 struct Targets {
   long long* ctr[kMaxDev];
   long long* state[kMaxDev];
-  const int32_t* out[kMaxDev];
   int32_t* recv[kMaxDev];
   int32_t* go[kMaxDev];
 };
@@ -98,8 +119,8 @@ struct Targets {
 constexpr long long kLMax = 0x7FFFFFFFFFFFFFFFLL;  // the identity of a min
 
 // One warp, lane i shard i (ndev <= 32).  Every load of the launch is
-// issued first: the run flag, lane i's report (its shard's words where they
-// lie, or its row of the gathered copy) and telemetry, on lane 0 the head's
+// issued first: the run flag, lane i's report (its row, or its shard's
+// words, on whichever card they lie) and telemetry, on lane 0 the head's
 // running words.  The sums, mins and counts are warp reductions (xor
 // butterflies over the ndev lanes, int64 as two 32-bit shuffles; ballots
 // for the counts); A[i][j] is lane i's, column j's `before` an exclusive
@@ -107,7 +128,7 @@ constexpr long long kLMax = 0x7FFFFFFFFFFFFFFFLL;  // the identity of a min
 // writes its telemetry, row i of A and shard i's step state, lane 0 the
 // head and the run flag: no shared memory and no barrier.
 __global__ void __launch_bounds__(32) consensus_kernel(
-    const long long* __restrict__ rep, int ndev, int cap, int ragged, int unpacked, int nb,
+    const __grid_constant__ Reports rp, int ndev, int cap, int ragged, int unpacked, int nb,
     long long f0, long long ccar, int32_t* __restrict__ run, const __grid_constant__ Targets tg,
     long long* __restrict__ cons) {
   constexpr unsigned kFull = 0xffffffffu;
@@ -119,8 +140,8 @@ __global__ void __launch_bounds__(32) consensus_kernel(
   long long S[kMaxDev];  // row i of the send counts
   long long per[4] = {0, 0, 0, 0};
   if (mine) {
-    if (rep != nullptr) {
-      const long long* r = rep + (size_t)lane * (rRoute + ndev + 3);
+    const long long* r = rp.row[lane];
+    if (r != nullptr) {
       goal = r[rGoal];
       ovf = r[rOvf];
       nopen = r[rNOpen];
@@ -133,9 +154,9 @@ __global__ void __launch_bounds__(32) consensus_kernel(
       covf = r[rRoute + ndev + 1];
       ring = r[rRoute + ndev + 2];
     } else {
-      const long long* ctr = tg.ctr[lane];
-      const long long* state = tg.state[lane];
-      const int32_t* out = tg.out[lane];
+      const long long* ctr = rp.ctr[lane];
+      const long long* state = rp.state[lane];
+      const int32_t* out = rp.out[lane];
       goal = ctr[step::cGoal];
       ovf = ctr[step::cOverflow];
       nopen = state[step::kNOpen];
@@ -335,16 +356,26 @@ __global__ void __launch_bounds__(kExchangeThreads) exchange_kernel(
   }
 }
 
-__global__ void walk_advance_kernel(const int32_t* __restrict__ wout, int ndev, int hops, int N,
+// Every shard's run of a walk round, by shard index, where it lies (this
+// card or a peer): hops masks, the coordinate it stopped at and the run's
+// length (path_walk_hops' output).  By value in the launch's parameters.
+struct Runs {
+  const int32_t* run[kMaxDev];
+};
+
+__global__ void walk_advance_kernel(const __grid_constant__ Runs w, int ndev, int hops, int N,
                                     int32_t* __restrict__ params, int32_t* __restrict__ masks,
                                     int mcap, int32_t* __restrict__ wst,
                                     int32_t* __restrict__ wrun) {
   const int lane = threadIdx.x;
   if (*wrun == 0) return;
-  const int width = hops + N + 1;  // a shard's run, stop coordinate and length
+  // lane h's mask of every shard's run, the loads issued together
+  int v[kMaxDev];
+#pragma unroll
+  for (int s = 0; s < kMaxDev; ++s) v[s] = s < ndev && lane < hops ? w.run[s][lane] : 0;
   int m = 0;
-  if (lane < hops)
-    for (int s = 0; s < ndev; ++s) m += wout[(size_t)s * width + lane];
+#pragma unroll
+  for (int s = 0; s < kMaxDev; ++s) m += v[s];
   const bool pos = m > 0;
   const unsigned ballot = __ballot_sync(0xffffffffu, pos);
   const int n = wst[0];
@@ -368,42 +399,53 @@ __global__ void walk_advance_kernel(const int32_t* __restrict__ wout, int ndev, 
 
 }  // namespace
 
-// rep: (ndev, 7 + ndev + 3) int64, the gathered reports (the rows of
-// parallel/sharded.py::_Shard.report), or null when every shard is a
-// target (a mesh of one card): each report is then read where its words
-// lie; cap: the exchange cap (ndev cap <= INT_MAX); ragged: the ragged
-// allowance (else dense); unpacked: the ring's min is an f (else a packed
-// word, f = (word >> nb) + f0); ccar: the ring's rows; run: the card's
-// int32 run flag (read, then written: the next step's); tgt: in host memory,
-// (n_tgt, 6) int64, each local shard's counters, step state, int32 route
-// out (K11's), int32 received count, int32 insert flag (addresses) and its
-// index, copied into the launch's parameters (a graph keeps the copy);
+// rtab: in host memory, ndev rows of rwords int64 addresses, shard i's
+// report: rwords 1, its row of 7 + ndev + 3 int64 (the rows of
+// parallel/sharded.py::_Shard.report, gathered); rwords 3, its counters,
+// step state and int32 route out (K11's), on this card or a peer; cap: the
+// exchange cap (ndev cap <= INT_MAX); ragged: the ragged allowance (else
+// dense); unpacked: the ring's min is an f (else a packed word, f = (word
+// >> nb) + f0); ccar: the ring's rows; run: the card's int32 run flag
+// (read, then written: the next step's); tgt: in host memory, (n_tgt, 5)
+// int64, each shard of this card's counters, step state, int32 received
+// count, int32 insert flag (addresses on this card) and its index; both
+// tables copied into the launch's parameters (a graph keeps the copy);
 // cons: the int64 consensus vector (qHead + 4 ndev + ndev^2 words).  One
 // warp.
-extern "C" int consensus(const void* rep, int ndev, int cap, int ragged, int unpacked, int nb,
-                         long long f0, long long ccar, void* run, const void* tgt, int n_tgt,
-                         void* cons, void* stream) {
-  if (run == nullptr || cons == nullptr || ndev < 1 || ndev > kMaxDev ||
-      cap < 1 || (long long)ndev * cap > INT_MAX || nb < 1 || nb > 30 || ccar < 1 ||
-      n_tgt < 0 || n_tgt > ndev || (n_tgt > 0 && tgt == nullptr) ||
-      (rep == nullptr && n_tgt != ndev))
+extern "C" int consensus(const void* rtab, int rwords, int ndev, int cap, int ragged,
+                         int unpacked, int nb, long long f0, long long ccar, void* run,
+                         const void* tgt, int n_tgt, void* cons, void* stream) {
+  if (run == nullptr || cons == nullptr || rtab == nullptr || (rwords != 1 && rwords != 3) ||
+      ndev < 1 || ndev > kMaxDev || cap < 1 || (long long)ndev * cap > INT_MAX || nb < 1 ||
+      nb > 30 || ccar < 1 || n_tgt < 0 || n_tgt > ndev || (n_tgt > 0 && tgt == nullptr))
     return (int)cudaErrorInvalidValue;
+  Reports rp = {};
+  const long long* r = (const long long*)rtab;
+  for (int i = 0; i < ndev; ++i, r += rwords) {
+    for (int w = 0; w < rwords; ++w)
+      if (!r[w]) return (int)cudaErrorInvalidValue;
+    if (rwords == 1) {
+      rp.row[i] = (const long long*)r[0];
+    } else {
+      rp.ctr[i] = (const long long*)r[0];
+      rp.state[i] = (const long long*)r[1];
+      rp.out[i] = (const int32_t*)r[2];
+    }
+  }
   Targets tg = {};
   const long long* t = (const long long*)tgt;
   for (int k = 0; k < n_tgt; ++k, t += kTgt) {
-    const long long me = t[5];
-    if (me < 0 || me >= ndev || tg.go[me] != nullptr || !t[0] || !t[1] || !t[2] || !t[3] ||
-        !t[4])
+    const long long me = t[4];
+    if (me < 0 || me >= ndev || tg.go[me] != nullptr || !t[0] || !t[1] || !t[2] || !t[3])
       return (int)cudaErrorInvalidValue;
     tg.ctr[me] = (long long*)t[0];
     tg.state[me] = (long long*)t[1];
-    tg.out[me] = (const int32_t*)t[2];
-    tg.recv[me] = (int32_t*)t[3];
-    tg.go[me] = (int32_t*)t[4];
+    tg.recv[me] = (int32_t*)t[2];
+    tg.go[me] = (int32_t*)t[3];
   }
-  consensus_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-      (const long long*)rep, ndev, cap, ragged, unpacked, nb, f0, ccar, (int32_t*)run, tg,
-      (long long*)cons);
+  consensus_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(rp, ndev, cap, ragged, unpacked, nb, f0,
+                                                       ccar, (int32_t*)run, tg,
+                                                       (long long*)cons);
   return (int)cudaGetLastError();
 }
 
@@ -437,17 +479,61 @@ extern "C" int exchange(const void* cons, int ndev, int cap, int ragged, int R, 
   return (int)cudaGetLastError();
 }
 
-// wout: (ndev, hops + N + 1) int32, each shard's path_walk_hops output;
-// params: int32 [coordinate N, key bit widths N] (the coordinate moved on
-// in place); masks: (mcap,) int32; wst: int32 [masks emitted, rounds];
-// wrun: the walk's int32 flag.  One warp; hops <= 32.
-extern "C" int walk_advance(const void* wout, int ndev, int hops, int N, void* params,
+// wtab: in host memory, ndev int64 addresses of each shard's run, hops + N
+// + 1 int32 (path_walk_hops' output; on this card or a peer), copied into
+// the launch's parameters; params: int32 [coordinate N, key bit widths N]
+// (the coordinate moved on in place); masks: (mcap,) int32; wst: int32
+// [masks emitted, rounds]; wrun: the walk's int32 flag; all four this
+// card's own.  One warp; hops <= 32.
+extern "C" int walk_advance(const void* wtab, int ndev, int hops, int N, void* params,
                             void* masks, int mcap, void* wst, void* wrun, void* stream) {
-  if (wout == nullptr || params == nullptr || masks == nullptr || wst == nullptr ||
-      wrun == nullptr || ndev < 1 || hops < 1 || hops > 32 || N < 2 || N > 24 || mcap < hops)
+  if (wtab == nullptr || params == nullptr || masks == nullptr || wst == nullptr ||
+      wrun == nullptr || ndev < 1 || ndev > kMaxDev || hops < 1 || hops > 32 || N < 2 ||
+      N > 24 || mcap < hops)
     return (int)cudaErrorInvalidValue;
-  walk_advance_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)wout, ndev, hops, N, (int32_t*)params, (int32_t*)masks, mcap,
-      (int32_t*)wst, (int32_t*)wrun);
+  Runs w = {};
+  const long long* t = (const long long*)wtab;
+  for (int s = 0; s < ndev; ++s) {
+    if (!t[s]) return (int)cudaErrorInvalidValue;
+    w.run[s] = (const int32_t*)t[s];
+  }
+  walk_advance_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(w, ndev, hops, N, (int32_t*)params,
+                                                         (int32_t*)masks, mcap, (int32_t*)wst,
+                                                         (int32_t*)wrun);
   return (int)cudaGetLastError();
+}
+
+// Host entries of a mesh across the cards of one process (no kernel).
+//
+// peer_access: card dev may read and write card peer's memory (UVA over
+// NVLink): cudaDeviceEnablePeerAccess from dev; access already enabled is
+// no error (and leaves none behind).  The current card is restored.
+extern "C" int peer_access(int dev, int peer) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  if ((e = cudaSetDevice(dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    e = cudaSuccess;
+  }
+  const cudaError_t r = cudaSetDevice(prev);
+  return (int)(e != cudaSuccess ? e : r);
+}
+
+// copy_table: n device-to-device copies on stream, in order: tab in host
+// memory, n rows of int64 (destination, source, bytes), any card of the
+// process (a peer copy where they differ); the gathers of the several-card
+// step (parallel/sharded.py::_Card), captured into its graph as copy nodes.
+extern "C" int copy_table(const void* tab, int n, void* stream) {
+  if (tab == nullptr || n < 0) return (int)cudaErrorInvalidValue;
+  const long long* t = (const long long*)tab;
+  for (int k = 0; k < n; ++k, t += 3) {
+    if (!t[0] || !t[1] || t[2] < 0) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = cudaMemcpyAsync((void*)t[0], (const void*)t[1], (size_t)t[2],
+                                          cudaMemcpyDefault, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }

@@ -28,9 +28,9 @@ Two meshes:
                       tensors, NCCL for CUDA ones); ``init_distributed``
                       (parallel/multihost.py) starts the group.
 Sizes given to the ragged op are host integers: the caller has read them.
-On a LocalMesh whose shards share one device, ``all_gather`` takes
-``out``, one tensor the result lands in (every shard's), so that a CUDA
-graph of the step holds its buffer.
+The mesh serves the host driver's mesh form of the sharded step; the
+chunked driver's card form reads its peers' buffers by address instead
+(parallel/sharded.py).
 """
 from __future__ import annotations
 
@@ -68,9 +68,7 @@ class LocalMesh:
                     outs[j][at[j]:at[j] + n].copy_(x[o:o + n], non_blocking=True)
                     at[j] += n
 
-    def all_gather(self, xs: List[torch.Tensor], out=None) -> List[torch.Tensor]:
-        if out is not None and len(set(self.devices)) == 1:
-            return [torch.stack(xs, out=out)] * self.ndev
+    def all_gather(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         full = {}
         for d in self.devices:
             if d not in full:

@@ -28,18 +28,18 @@ the mesh's collectives between (``mesh.py``):
      bound (JAX ``_route_cap``, ``_route_ragged``; ``carry_bound``: the
      min packed word's f on sig and packed rows, the min f itself on
      unpacked ones);
-  5. the mesh gathers every shard's report, and ``consensus``
-     (csrc/shard_loop.cu; JAX ``_consensus`` and the allowance A of
-     ``_route_cap`` / ``_route_ragged``) computes on the device goal g,
-     f-min with the rings', the rows selected, overflow, A, the rows each
-     shard receives and the run's telemetry (``cons``), and writes every
-     shard's step state, its received count and its insert's flag, and
-     the run flag of the next step (the stop test);
+  5. ``consensus`` (csrc/shard_loop.cu; JAX ``_consensus`` and the
+     allowance A of ``_route_cap`` / ``_route_ragged``), on every card
+     over every shard's report, computes on the device goal g, f-min with
+     the rings', the rows selected, overflow, A, the rows each shard
+     receives and the run's telemetry (``cons``), and writes its own
+     shards' step state, received count and insert's flag, and the run
+     flag of the next step (the stop test);
   6. ``exchange`` (csrc/shard_loop.cu) moves the wire rows, A[i][r] from
      sender i to receiver r, into each receiver's pending list just before
-     its self-owned lanes, every size read on the device (a mesh of
-     several devices reads A on the host and runs the mesh's all-to-all,
-     dense or ragged, as NCCL needs its split sizes there);
+     its self-owned lanes, every size read on the device (the mesh form,
+     below, reads A on the host and runs the mesh's all-to-all, dense or
+     ragged, as NCCL needs its split sizes there);
   7. the insert (K5 on sig, K10 on key rows) places the received rows and
      the self-owned pending lanes, reading where the list starts and how
      many rows were received on the device, then writes the counters and
@@ -50,11 +50,20 @@ the mesh's collectives between (``mesh.py``):
 
 Every kernel of the step returns at once when the run flag of its device
 reads 0 (the insert under its own flag, which the consensus sets), as the
-single-table step's do, so a chunk of steps needs no host read: the
-chunked driver (JAX's, one host read a chunk) captures one step of the
-whole mesh as a CUDA graph for each parity of the carry rings where the
-mesh is one card, and runs a chunk as that many replays of the two in
-turn; the host driver reads the consensus once a step.  A CPU shard
+single-table step's do, so a chunk of steps needs no host read.  The
+step has two forms.  The card form (every shard of the mesh in this
+process: a ``LocalMesh``) keeps every size on the cards: on one card the
+shards write their rows of the card's gathers in place and the consensus
+reads each report where it lies; across cards (peer access enabled) each
+card runs its shards on its own stream, pulls the other cards' rows of
+each gather by copies, snapshots its shards' reports, and reads its
+peers' snapshots, wires and walk runs by address, the phases joined by
+events between the cards' streams.  The chunked driver (JAX's, one host
+read a chunk) captures one step of the whole mesh, every card in it, as
+a CUDA graph for each parity of the carry rings, and runs a chunk as that
+many replays of the two in turn.  The mesh form (the host driver on
+several cards, a ``ProcessMesh``) runs the mesh's collectives and reads
+the consensus once a step to size the exchange.  A CPU shard
 runs the plain versions of every kernel (``_select_best_plain``, ``_select_open_plain``,
 ``sig_coords_plain``, ``keyrow_coords_plain``, ``tri_partial_plain``,
 ``expand_sharded_plain``, ``expand_keyrow_sharded_plain``,
@@ -76,6 +85,7 @@ runs, as JAX's does.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 import warnings
@@ -97,7 +107,7 @@ from ..search.engine import (_LAYOUT_FNS, INF, INFP, TRASH, _EMPTY_WORD, PackedT
                              _insert_core, _insert_core_packed, _insert_sig, _pack_keys,
                              _probe_slot, _rebase_origin, _run_chunk, _select_best_plain,
                              _select_open_plain, _sig_decode, _sig_encode, _unpack_keys,
-                             fresh_counters, walk)
+                             N_COUNTERS, fresh_counters, walk)
 from ..search.step import (STATE_FMIN, STATE_NPEND, STATE_NSEL, STATE_NVALID, STATE_WORDS,
                            _check)
 from .mesh import LocalMesh, ProcessMesh
@@ -535,37 +545,41 @@ def report_row(ctr: torch.Tensor, state: torch.Tensor, route_out: torch.Tensor,
     return torch.cat([ctr[0:1], ctr[6:7], state[0:5], route_out.to(torch.int64)], out=out)
 
 
-def gather_reports(targets: Sequence[tuple]) -> torch.Tensor:
-    """Every shard's report, row ``me`` shard me's, from targets that are
-    every shard: (counters, state, route out, received count, insert flag,
-    shard index)."""
-    rows = sorted(targets, key=lambda t: t[5])
-    return torch.stack([report_row(c, s, o) for c, s, o, *_ in rows])
+def gather_reports(reports) -> torch.Tensor:
+    """Every shard's report, row i shard i's, (ndev, R_ROUTE + ndev + 3)
+    int64: ``reports`` is that tensor, or a sequence of ndev entries, shard
+    i's report row (int64) or its (counters, state, route out) where they
+    lie."""
+    if isinstance(reports, torch.Tensor):
+        return reports
+    dev = torch.device("cpu")
+    return torch.stack([(r if isinstance(r, torch.Tensor) else report_row(*r)).to(dev)
+                        for r in reports])
 
 
-def consensus_plain(rep: Optional[torch.Tensor], ndev: int, cap: int, ragged: bool, layout: str,
-                    nb: int, f0: int, ccar: int, run: torch.Tensor, targets: Sequence[tuple],
+def consensus_plain(reports, ndev: int, cap: int, ragged: bool, layout: str, nb: int, f0: int,
+                    ccar: int, run: torch.Tensor, targets: Sequence[tuple],
                     cons: torch.Tensor) -> None:
     """The plain version of ``consensus`` (csrc/shard_loop.cu; JAX
     ``_consensus`` :312 with the allowance of ``_route_cap`` :87 and
     ``_route_ragged`` :214-:231), in place, nothing when ``run`` reads 0.
-    From the gathered reports rep (ndev, R_ROUTE + ndev + 3) of every shard
-    (None where the targets are every shard: ``gather_reports``): goal_g,
-    fmin_g (each shard's f-min with its ring's ``carry_bound``), the rows
-    selected, the shards whose table or carry ring overflowed, A
-    (``route_sizes``), and the telemetry into ``cons`` (int64, C_*: steps,
-    wire and migrated rows and peak carry added up; per shard expanded,
-    reopened and migrated added up, open set); then into each target
-    (counters, step state, int32 route out, int32 received count, int32
-    insert flag, shard index): on overflow the insert's flag 0 and nothing
-    else (the step stops before the exchange); else ctr[0] = goal_g,
-    state[STATE_FMIN] = fmin_g, state[STATE_NSEL] = rows selected,
-    state[STATE_NPEND] += rows received, the received count, the flag 1.
-    ``run`` becomes the next step's: no overflow and fmin_g < goal_g."""
+    From the reports of every shard (``gather_reports``: gathered rows, or
+    each shard's words where they lie, on any card): goal_g, fmin_g (each
+    shard's f-min with its ring's ``carry_bound``), the rows selected, the
+    shards whose table or carry ring overflowed, A (``route_sizes``), and
+    the telemetry into ``cons`` (int64, C_*: steps, wire and migrated rows
+    and peak carry added up; per shard expanded, reopened and migrated
+    added up, open set); then into each target, a shard of this card
+    (counters, step state, int32 received count, int32 insert flag, shard
+    index): on overflow the insert's flag 0 and nothing else (the step
+    stops before the exchange); else ctr[0] = goal_g, state[STATE_FMIN] =
+    fmin_g, state[STATE_NSEL] = rows selected, state[STATE_NPEND] += rows
+    received, the received count, the flag 1.  ``run`` becomes the next
+    step's: no overflow and fmin_g < goal_g.  Every card of a mesh runs it
+    on every report, with its own targets, and gets the same vector."""
     if not int(run[0]):
         return
-    if rep is None:
-        rep = gather_reports(targets)
+    rep = gather_reports(reports)
     r = rep.cpu().numpy().astype(np.int64)
     route = r[:, R_ROUTE:]
     S = route[:, :ndev]
@@ -592,7 +606,7 @@ def consensus_plain(rep: Optional[torch.Tensor], ndev: int, cap: int, ragged: bo
     cons_sizes(c, ndev)[:] = A
     cons.copy_(torch.from_numpy(c))
     n_recv = A.sum(0)
-    for ctr, state, _, recv, go, me in targets:
+    for ctr, state, recv, go, me in targets:
         if stop:
             go.fill_(0)
             continue
@@ -626,18 +640,22 @@ def exchange_plain(cons: torch.Tensor, ndev: int, cap: int, ragged: bool, R: int
             at += n
 
 
-def walk_advance_plain(wout: torch.Tensor, hops: int, n: int, params: torch.Tensor,
-                       masks: torch.Tensor, wst: torch.Tensor, wrun: torch.Tensor) -> None:
+def walk_advance_plain(wout, hops: int, n: int, params: torch.Tensor, masks: torch.Tensor,
+                       wst: torch.Tensor, wrun: torch.Tensor) -> None:
     """The plain version of ``walk_advance`` (csrc/shard_loop.cu; a round
     of JAX ``_make_batched_walk``'s while_loop, :545): nothing when
-    ``wrun`` reads 0; else the sum of the shards' runs wout[:, :hops], its
-    positive masks appended to ``masks`` at wst[0], the coordinate
-    params[:n] stepped back by their bits, wst[1] += 1 (rounds), and wrun
-    cleared at the origin, when the round emitted nothing, or when
-    ``masks`` has no room for another round, in place."""
+    ``wrun`` reads 0; else the sum of the shards' runs (``wout``: one
+    (ndev, hops + N + 1) buffer, or a sequence of each shard's run where it
+    lies, on any card), its positive masks appended to ``masks`` at
+    wst[0], the coordinate params[:n] stepped back by their bits, wst[1]
+    += 1 (rounds), and wrun cleared at the origin, when the round emitted
+    nothing, or when ``masks`` has no room for another round, in place;
+    ``params``, ``masks``, ``wst`` and ``wrun`` are one card's."""
     if not int(wrun[0]):
         return
-    tot = wout[:, :hops].long().sum(0).tolist()
+    tot = [0] * hops
+    for row in wout:
+        tot = [t + v for t, v in zip(tot, row[:hops].tolist())]
     run = [m for m in tot if m > 0]
     at = int(wst[0])
     for k, m in enumerate(run):
@@ -653,48 +671,60 @@ def walk_advance_plain(wout: torch.Tensor, hops: int, n: int, params: torch.Tens
         wrun.fill_(0)
 
 
-def consensus_cuda(rep: Optional[torch.Tensor], ndev: int, cap: int, ragged: bool, layout: str,
-                   nb: int, f0: int, ccar: int, run: torch.Tensor, tgt: torch.Tensor,
-                   cons: torch.Tensor, launch=None) -> None:
-    """``consensus`` (csrc/shard_loop.cu) on the card: ``consensus_plain``
-    with the targets as ``tgt``, an int64 table in host memory of (counters,
-    state, route out, received count, insert flag) addresses on the card
-    and the shard index, a row a target (``target_table``; the C entry
-    copies it into the launch's parameters); rep None reads every shard's
-    report where it lies (the targets must be every shard); ``launch`` as
-    ``_tri_partial_cuda``'s."""
+def consensus_cuda(rtab: torch.Tensor, ndev: int, cap: int, ragged: bool, layout: str, nb: int,
+                   f0: int, ccar: int, run: torch.Tensor, tgt: torch.Tensor, cons: torch.Tensor,
+                   launch=None) -> None:
+    """``consensus`` (csrc/shard_loop.cu) on the card of ``cons``:
+    ``consensus_plain`` with the reports as ``rtab`` (``report_table``) and
+    the targets as ``tgt`` (``target_table``), int64 tables in host memory
+    of addresses (the C entry copies them into the launch's parameters);
+    ``launch`` as ``_tri_partial_cuda``'s."""
     dev = cons.device
     _check(run, "run", dev, torch.int32, 1)
-    _check(tgt, "tgt", torch.device("cpu"), torch.int64, 6)
+    _check(rtab, "rtab", torch.device("cpu"), torch.int64, ndev)
+    _check(tgt, "tgt", torch.device("cpu"), torch.int64, 5)
     _check(cons, "cons", dev, torch.int64, cons_words(ndev))
-    if rep is not None:
-        _check(rep, "rep", dev, torch.int64, ndev * (R_ROUTE + ndev + 3))
-    if (not 1 <= ndev <= MAX_SHARDS or tgt.dim() != 2 or tgt.shape[1] != 6
-            or (rep is None and tgt.shape[0] != ndev) or ndev * cap > 2**31 - 1):
+    if (not 1 <= ndev <= MAX_SHARDS or rtab.dim() != 2 or rtab.shape[0] != ndev
+            or rtab.shape[1] not in (1, 3) or tgt.dim() != 2 or tgt.shape[1] != 5
+            or tgt.shape[0] > ndev or ndev * cap > 2**31 - 1):
         raise ValueError(f"consensus: {ndev} shards (at most {MAX_SHARDS}), exchange cap {cap}, "
-                         f"targets {tuple(tgt.shape)}, reports "
-                         f"{'given' if rep is not None else 'none'}")
+                         f"reports {tuple(rtab.shape)}, targets {tuple(tgt.shape)}")
     (launch or _kernels.launch)(
-        "consensus", None if rep is None else rep.data_ptr(), ndev, int(cap), int(ragged),
-        int(layout == "unpacked"), nb,
-        f0, ccar, run.data_ptr(), tgt.data_ptr(), tgt.shape[0], cons.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        "consensus", rtab.data_ptr(), rtab.shape[1], ndev, int(cap), int(ragged),
+        int(layout == "unpacked"), nb, f0, ccar, run.data_ptr(), tgt.data_ptr(), tgt.shape[0],
+        cons.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+
+
+def report_table(reports) -> torch.Tensor:
+    """``consensus_cuda``'s reports, in host memory: the rows of gathered
+    reports (``gather_reports``'s tensor, or a sequence of report rows), one
+    address a shard, or (counters, state, route out) where they lie, three
+    addresses a shard; on any card of the process (peers)."""
+    rows = list(reports) if not isinstance(reports, torch.Tensor) else list(reports.unbind(0))
+    if all(isinstance(r, torch.Tensor) for r in rows):
+        for r in rows:
+            _check(r, "report", r.device, torch.int64, R_ROUTE + len(rows) + 3)
+        return torch.tensor([[r.data_ptr()] for r in rows], dtype=torch.int64)
+    for ctr, state, out in rows:
+        _check(ctr, "counters", ctr.device, torch.int64, 7)
+        _check(state, "state", ctr.device, torch.int64, 7)
+        _check(out, "route_out", ctr.device, torch.int32, len(rows) + 3)
+    return torch.tensor([[c.data_ptr(), s.data_ptr(), o.data_ptr()] for c, s, o in rows],
+                        dtype=torch.int64)
 
 
 def target_table(targets: Sequence[tuple], dev) -> torch.Tensor:
     """``consensus_cuda``'s targets, whose tensors lie on ``dev``: (counters,
-    state, route out, received count, insert flag, shard index) a row, the
-    tensors as addresses, in host memory (the launch's parameters carry
-    them)."""
+    state, received count, insert flag, shard index) a row, the tensors as
+    addresses, in host memory (the launch's parameters carry them)."""
     dev = targets[0][0].device if torch.device(dev).index is None else dev
-    for ctr, state, out, recv, go, _ in targets:
+    for ctr, state, recv, go, _ in targets:
         _check(ctr, "counters", dev, torch.int64, 7)
         _check(state, "state", dev, torch.int64, 7)
-        _check(out, "route_out", dev, torch.int32, out.numel())
         _check(recv, "recv", dev, torch.int32, 1)
         _check(go, "go", dev, torch.int32, 1)
-    return torch.tensor([[c.data_ptr(), s.data_ptr(), o.data_ptr(), r.data_ptr(), g.data_ptr(),
-                          me] for c, s, o, r, g, me in targets], dtype=torch.int64)
+    return torch.tensor([[c.data_ptr(), s.data_ptr(), r.data_ptr(), g.data_ptr(), me]
+                         for c, s, r, g, me in targets], dtype=torch.int64)
 
 
 # the widest wire row the exchange kernel copies (kMaxRowWords of
@@ -707,12 +737,13 @@ def exchange_table(wires: Sequence[torch.Tensor], pends: Sequence[torch.Tensor],
     """``exchange_cuda``'s address table, in host memory (the launch's
     parameters carry it): every sender's wire, then each receiver's pending
     list, insert flag and shard index, three words a receiver, as
-    ``exchange_plain`` takes them.  Every buffer must lie on the card of
-    the first wire, as int32 rows of one width."""
-    dev = wires[0].device
+    ``exchange_plain`` takes them.  The receivers' buffers lie on one card,
+    the wires on it or on its peers; all int32 rows of one width."""
+    dev = pends[0].device if pends else wires[0].device
     pw = wires[0].shape[1]
-    for t, name in [(w, "wire") for w in wires] + [(p, "pend") for p in pends]:
-        _check(t, name, dev, torch.int32, pw)
+    for t, name, where in ([(w, "wire", w.device if w.is_cuda else dev) for w in wires]
+                           + [(p, "pend", dev) for p in pends]):
+        _check(t, name, where, torch.int32, pw)
         if t.dim() != 2 or t.shape[1] != pw:
             raise ValueError(f"exchange: {name} of shape {tuple(t.shape)}, need (rows, {pw})")
     for flag in flags:
@@ -745,20 +776,62 @@ def exchange_cuda(cons: torch.Tensor, ndev: int, cap: int, ragged: bool, R: int,
         xtab.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
 
 
-def walk_advance_cuda(wout: torch.Tensor, hops: int, n: int, params: torch.Tensor,
+def walk_advance_cuda(wtab: torch.Tensor, hops: int, n: int, params: torch.Tensor,
                       masks: torch.Tensor, wst: torch.Tensor, wrun: torch.Tensor) -> None:
-    """``walk_advance`` (csrc/shard_loop.cu) on the card: the same
-    arguments and updates as ``walk_advance_plain``."""
-    dev = wout.device
-    _check(wout, "wout", dev, torch.int32, hops + n + 1)
+    """``walk_advance`` (csrc/shard_loop.cu) on the card of ``params``:
+    ``walk_advance_plain`` with the shards' runs as ``wtab``
+    (``run_table``, in host memory: the C entry copies it into the
+    launch's parameters)."""
+    dev = params.device
+    _check(wtab, "wtab", torch.device("cpu"), torch.int64, 1)
     for t, name, numel in ((params, "params", 2 * n), (masks, "masks", hops),
                            (wst, "wst", 2), (wrun, "wrun", 1)):
         _check(t, name, dev, torch.int32, numel)
-    if wout.dim() != 2 or wout.shape[1] != hops + n + 1 or not 1 <= hops <= 32:
-        raise ValueError(f"walk_advance: runs {tuple(wout.shape)}, {hops} hops, N = {n}")
-    _kernels.launch("walk_advance", wout.data_ptr(), wout.shape[0], hops, n, params.data_ptr(),
+    if wtab.dim() != 1 or not 1 <= wtab.numel() <= MAX_SHARDS or not 1 <= hops <= 32:
+        raise ValueError(f"walk_advance: {wtab.numel()} runs, {hops} hops, N = {n}")
+    _kernels.launch("walk_advance", wtab.data_ptr(), wtab.numel(), hops, n, params.data_ptr(),
                     masks.data_ptr(), masks.numel(), wst.data_ptr(), wrun.data_ptr(),
                     torch.cuda.current_stream(dev).cuda_stream)
+
+
+def run_table(wout, hops: int, n: int) -> torch.Tensor:
+    """``walk_advance_cuda``'s runs: one address a shard, in host memory,
+    of its run (hops + N + 1 int32, a row of one buffer or a tensor of its
+    own, on any card of the process)."""
+    rows = list(wout) if not isinstance(wout, torch.Tensor) else list(wout.unbind(0))
+    for r in rows:
+        _check(r, "run", r.device, torch.int32, hops + n + 1)
+    return torch.tensor([r.data_ptr() for r in rows], dtype=torch.int64)
+
+
+def copy_table(rows: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+    """The host table of ``copies``' device-to-device copies: (destination,
+    source, bytes) a row, contiguous tensors of equal bytes on any cards of
+    the process."""
+    for dst, src in rows:
+        nbytes = dst.numel() * dst.element_size()
+        if (not dst.is_contiguous() or not src.is_contiguous()
+                or nbytes != src.numel() * src.element_size()):
+            raise ValueError(f"copy: {tuple(src.shape)} {src.dtype} into {tuple(dst.shape)} "
+                             f"{dst.dtype}")
+    return torch.tensor([[d.data_ptr(), s.data_ptr(), d.numel() * d.element_size()]
+                         for d, s in rows], dtype=torch.int64).reshape(-1, 3)
+
+
+def copies(rows: Sequence[Tuple[torch.Tensor, torch.Tensor]], tab: Optional[torch.Tensor],
+           stream=None) -> None:
+    """The copies (destination, source) of a gather of the several-card
+    step: on the card one ``copy_table`` call (``tab``, its table) on
+    ``stream`` (default: the current one of the first destination's card),
+    captured into a graph as copy nodes; CPU tensors by ``copy_``."""
+    if not rows:
+        return
+    if rows[0][0].is_cuda:
+        stream = stream or torch.cuda.current_stream(rows[0][0].device)
+        _kernels.call("copy_table", tab.data_ptr(), len(rows), stream.cuda_stream)
+        return
+    for dst, src in rows:
+        dst.copy_(src)
 
 
 # --- one shard
@@ -824,6 +897,14 @@ def _open_closed(st: _Static, tab) -> Tuple[int, int]:
         return int((state == 1).sum()), int((state == 2).sum())
     best, closed = tab.t_best[: st.C], tab.t_closed[: st.C]
     return (int((best < closed).sum()), int(((closed < INFP) & (best >= closed)).sum()))
+
+
+def _report_views(blk: torch.Tensor, ndev: int):
+    """(counters, step state, int32 route out) of a shard's block."""
+    ctr = blk[:N_COUNTERS]
+    state = blk[N_COUNTERS:N_COUNTERS + STATE_WORDS]
+    out = blk[N_COUNTERS + STATE_WORDS:].view(torch.int32)[:ndev + 3]
+    return ctr, state, out
 
 
 class _Launcher:
@@ -893,7 +974,15 @@ class _Shard:
         self.ccar = L
         i32 = dict(dtype=torch.int32, device=device)
         self.tab = _shard_table(st, layout, eng.h_root, eng.root_owner == me)
-        self.ctr = torch.as_tensor(fresh_counters(), device=device)
+        # the counters, step state and route out in one block (the report's
+        # words), and its snapshot, the report that the consensus of every
+        # card of a several-card mesh reads (the shard's own card rewrites
+        # the live words meanwhile)
+        self.blk = torch.zeros(N_COUNTERS + STATE_WORDS + (ndev + 4) // 2, dtype=torch.int64,
+                               device=device)
+        self.ctr, self.state, self.route_out = _report_views(self.blk, ndev)
+        self.ctr.copy_(torch.as_tensor(fresh_counters()))
+        self.snap = torch.zeros_like(self.blk)
         self.fill = [ndev, *_FILL_TAIL] if layout == "sig" else keyrow_fill(st, layout, ndev)
         self.pw = 3 if layout == "sig" else pend_words(st, layout)  # a wire row's words
         row = torch.tensor([self.fill], **i32)
@@ -902,7 +991,6 @@ class _Shard:
         self.go = torch.zeros(1, **i32)    # the insert's flag (the consensus sets it)
         self.recv = torch.zeros(1, **i32)  # rows received this step (the consensus)
         self.rep = torch.zeros(R_ROUTE + ndev + 3, dtype=torch.int64, device=device)
-        self.route_out = torch.zeros(ndev + 3, **i32)
         self.wire = torch.zeros((max(self.R, L + self.ccar), self.pw), **i32)
         self.cubes = self.tri = None
         if eng.cubes_split:
@@ -910,7 +998,7 @@ class _Shard:
             lo, hi = min(me * T_loc, st.T3), min((me + 1) * T_loc, st.T3)
             self.tri = st.d_tri_xyz[lo:hi].to(device, torch.int32).contiguous()
             self.cubes = eng.cube_stack[lo:hi].to(device, copy=True)
-            if eng.one_device:  # rows of the card's buffers
+            if eng.card_form:  # rows of the card's buffers
                 self.coords_out, self.part = card.coords[me], card.parts[me]
             else:
                 self.coords_out = torch.zeros((B, st.n), **i32)
@@ -924,6 +1012,7 @@ class _Shard:
             self.seg = 1 << max(1, (L + self.ccar - 1).bit_length())
             self.keys = torch.empty(2 * ndev * self.seg, dtype=torch.int64, device=device)
             bufs = S.StepBuffers.select_only(st, device)
+            bufs.state = self.state
             # the select's scratch is the shard's own (select_only shares it
             # between the tables of one statics)
             bufs.sel = torch.empty((B, 2), **i32)
@@ -940,15 +1029,19 @@ class _Shard:
             bufs.layout = layout
             self.bufs = bufs
             self.bitw = torch.tensor(st.bitw, **i32)
-            self.state, self.pend = bufs.state, bufs.pend
+            self.pend = bufs.pend
             self._go = _Launcher(device, eng.driver == "chunked").go
         else:
-            self.state = torch.zeros(STATE_WORDS, dtype=torch.int64)
             self.pend = torch.zeros((self.R + L, self.pw), **i32)
 
     @property
     def ring(self) -> torch.Tensor:
         return self.rings[self.cur]
+
+    def snapshot(self) -> tuple:
+        """The snapshot's (counters, state, route out), as the consensus
+        reads a report."""
+        return _report_views(self.snap, len(self.route_out) - 3)
 
     def _live(self) -> bool:
         """A CPU shard's run flag (a card's is read on the card)."""
@@ -1166,65 +1259,136 @@ class _Shard:
 
 class _Card:
     """This process's shards on one device and what their step shares
-    there: the run flag, the consensus vector, on a mesh of one device the
-    buffers every shard writes its row of (the batch's coordinates, K12's
-    partials; the sum of those is each shard's h3) and the send counts'
-    gather, the targets of the consensus and the address tables of the
-    exchange (on a card), and the step's graphs (one a starting parity of
-    the rings)."""
+    there: the run flag, the consensus vector, in the card form of the
+    step (every shard of the mesh in this process, ``_card_form``) the
+    buffers every shard of the mesh has its row of (the batch's
+    coordinates, K12's partials, whose sums are each shard's h3, and the
+    send counts), the targets of the consensus and the address tables of
+    the consensus, the exchange and the walk (on a card), and the step's
+    graphs (one a starting parity of the rings; kept on the first card).
 
-    def __init__(self, eng: "ShardedFrontierSearch", dev: torch.device, first: int):
-        self.dev, self.first = dev, first
+    On a mesh of several cards (``multi``) each card runs its shards'
+    phases on a stream of its own; the phases join through events between
+    the cards' streams (``signal``, ``wait``): a card's rows of a gather
+    are written before any card copies them in (``pulls``), and every card
+    has packed and taken its shards' snapshots before any consensus reads
+    them."""
+
+    #: the events a card records, one a phase of the step and of the walk
+    PHASES = ("coords", "parts", "counts", "packs", "runs", "join")
+
+    def __init__(self, eng: "ShardedFrontierSearch", dev: torch.device, first: int,
+                 multi: bool):
+        self.dev, self.first, self.multi = dev, first, multi
         self.cuda = dev.type == "cuda"
         self.shards: List[_Shard] = []
         self.run = torch.ones(1, dtype=torch.int32, device=dev)
         ndev, st = eng.ndev, eng.statics[dev]
         self.cons = fresh_cons(ndev, dev)
-        if eng.one_device:
+        if eng.card_form:
             i32 = dict(dtype=torch.int32, device=dev)
             self.counts = torch.zeros((ndev, ndev), **i32)
             if eng.cubes_split:
                 self.coords = torch.zeros((ndev, st.B, st.n), **i32)
                 self.parts = torch.zeros((ndev, ndev * st.B, st.M + 1), **i32)
                 self.h3 = torch.zeros((ndev, st.B, st.M + 1), **i32)
+        self.stream = self.events = None
+        if multi and self.cuda:
+            self.stream = torch.cuda.Stream(dev)
+            self.events = {p: torch.cuda.Event() for p in self.PHASES}
+        self.pulls: Dict[str, list] = {}
+        self.tabs: Dict[str, torch.Tensor] = {}
         self.graphs: Dict[int, object] = {}
         self.warm = False
         self._go = _Launcher(dev, eng.driver == "chunked").go
 
     def bind(self, eng: "ShardedFrontierSearch", shards: List[_Shard]) -> None:
-        """The address tables of this card's kernels (the buffers are the
-        run's, so a graph may hold them)."""
+        """The gathers' copies and the address tables of this card's
+        kernels (the buffers are the run's, so a graph may hold them).
+        The other cards' events, not the cards: no reference cycle, so a
+        finished run's graphs go with its engine, never in a collection
+        during a later capture (which a graph's destruction would break)."""
+        self.others = [c.events for c in eng.cards if c is not self]
+        if not eng.card_form:  # a gathered report a step: the table then
+            if self.cuda:
+                with torch.cuda.device(self.dev):
+                    self.tgt = target_table(self.targets(), self.dev)
+            return
+        st, ndev, B = eng.st, eng.ndev, eng.st.B
+        mine = {sh.me for sh in self.shards}
+        others = [sh for sh in shards if sh.me not in mine]
+        pulls = self.pulls
+        if eng.cubes_split:
+            # the coordinates of every other shard, and the rows of each
+            # other shard's partials that belong to this card's shards
+            pulls["coords"] = [(self.coords[sh.me], sh.coords_out) for sh in others]
+            pulls["parts"] = [(self.parts[sh.me, j * B:(j + 1) * B], sh.part[j * B:(j + 1) * B])
+                              for sh in others for j in sorted(mine)]
+        if self.multi:
+            pulls["counts"] = [(self.counts[sh.me], sh.route_out[:ndev]) for sh in shards]
+            pulls["snaps"] = [(sh.snap, sh.blk) for sh in self.shards]
+            # every shard's snapshot, where it lies
+            self.reports = [sh.snapshot() for sh in shards]
+        else:  # one card: every report where it lies, read after every pack
+            self.reports = [(sh.ctr, sh.state, sh.route_out) for sh in shards]
         if not self.cuda:
             return
         with torch.cuda.device(self.dev):
+            self.tabs = {k: copy_table(v) for k, v in pulls.items()}
+            self.rtab = report_table(self.reports)
             self.tgt = target_table(self.targets(), self.dev)
-            if eng.one_device:
-                self.xtab = exchange_table([sh.wire for sh in shards],
-                                           [sh.pend for sh in self.shards],
-                                           [sh.go for sh in self.shards],
-                                           [sh.me for sh in self.shards])
+            self.xtab = exchange_table([sh.wire for sh in shards], [sh.pend for sh in self.shards],
+                                       [sh.go for sh in self.shards],
+                                       [sh.me for sh in self.shards])
+
+    def on(self):
+        """The context of this card's phases: its device and, on a mesh
+        of several cards, its stream."""
+        ctx = contextlib.ExitStack()
+        if self.cuda:
+            ctx.enter_context(torch.cuda.device(self.dev))
+            if self.stream is not None:
+                ctx.enter_context(torch.cuda.stream(self.stream))
+        return ctx
+
+    def pull(self, name: str) -> None:
+        """The copies of one gather into this card's buffers."""
+        copies(self.pulls.get(name, ()), self.tabs.get(name))
+
+    def signal(self, phase: str) -> None:
+        """This card's phase is done (an event on its stream)."""
+        if self.events is not None:
+            self.events[phase].record(self.stream)
+
+    def wait(self, phase: str) -> None:
+        """This card's stream waits for every other card's ``phase``."""
+        if self.events is not None:
+            for events in self.others:
+                self.stream.wait_event(events[phase])
 
     def targets(self) -> List[tuple]:
         """The consensus's targets: this card's shards' counters, state,
-        route out, received count, insert flag and index."""
-        return [(sh.ctr, sh.state, sh.route_out, sh.recv, sh.go, sh.me) for sh in self.shards]
+        received count, insert flag and index."""
+        return [(sh.ctr, sh.state, sh.recv, sh.go, sh.me) for sh in self.shards]
 
     def consensus(self, eng: "ShardedFrontierSearch", rep: Optional[torch.Tensor]) -> None:
-        """The consensus of the gathered reports ``rep``, or (None, a mesh
-        of one device) of every shard's report where it lies."""
+        """The consensus of every shard's report: the gathered reports
+        ``rep``, or (None, the card form) each where it lies."""
         args = (eng.ndev, eng.exchange_cap, eng.exchange == "ragged", eng.layout, eng.st.nb,
                 eng.st.f0, self.shards[0].ccar, self.run)
         if self.cuda:
+            rtab = self.rtab if rep is None else report_table(rep)
             key = ("consensus", None if rep is None else rep.data_ptr())
             with torch.cuda.device(self.dev):
-                self._go(key, lambda launch: consensus_cuda(rep, *args, self.tgt, self.cons,
+                self._go(key, lambda launch: consensus_cuda(rtab, *args, self.tgt, self.cons,
                                                             launch=launch))
         else:
-            consensus_plain(rep, *args, self.targets(), self.cons)
+            consensus_plain(self.reports if rep is None else rep, *args, self.targets(),
+                            self.cons)
 
     def exchange(self, eng: "ShardedFrontierSearch", shards: List[_Shard]) -> None:
         """The wire rows of every shard into this card's receivers, sized on
-        the device (a mesh on one device)."""
+        the device (the card form)."""
         sh0 = shards[0]
         args = (eng.ndev, eng.exchange_cap, eng.exchange == "ragged", sh0.R)
         if self.cuda:
@@ -1233,8 +1397,52 @@ class _Card:
                     self.cons, *args, sh0.pw, self.xtab, launch=launch))
         else:
             exchange_plain(self.cons, *args, [sh.wire for sh in shards],
-                           [sh.pend for sh in self.shards], [sh.go for sh in self.shards],
-                           [sh.me for sh in self.shards])
+                           [sh.pend for sh in self.shards],
+                           [sh.go for sh in self.shards], [sh.me for sh in self.shards])
+
+
+def _card_groups(devices: Sequence[torch.device]) -> List[List[int]]:
+    """The local shards grouped into ``_Card``s: the positions in
+    ``devices`` (a local shard's device each) of the shards of each device,
+    the devices in order of first appearance.  Tests and ``chip_smoke.py``
+    replace it to split the shards of one device into several cards, and
+    so run the several-card step on the CPU and on one card."""
+    groups: Dict[torch.device, List[int]] = {}
+    for k, d in enumerate(devices):
+        groups.setdefault(d, []).append(k)
+    return list(groups.values())
+
+
+def peer_mesh(devices: Sequence[torch.device]) -> bool:
+    """Whether the several-card step can run on ``devices``: one device
+    (or the CPU), or cards that all reach each other as peers."""
+    distinct = sorted(set(devices), key=str)
+    if len(distinct) == 1:
+        return True
+    if any(d.type != "cuda" for d in distinct):
+        return False
+    idx = [d.index for d in distinct]
+    return all(torch.cuda.can_device_access_peer(a, b) for a in idx for b in idx if a != b)
+
+
+def choose_driver(mesh, driver: str) -> str:
+    """The step loop's driver on ``mesh`` for ``driver``: "chunked" (one
+    step of the whole mesh a graph, one host read a chunk) on a LocalMesh
+    of one device or of cards that are each other's peers; "host" (one
+    host read a step) on a ProcessMesh or a LocalMesh over cards without
+    peer access; "auto" picks chunked where it runs.  An explicit chunked
+    where it cannot run raises ValueError: it never falls back."""
+    if driver not in ("auto", "chunked", "host"):
+        raise ValueError(f"driver={driver!r}: choose auto, chunked or host")
+    if not isinstance(mesh, LocalMesh):
+        ok, why = False, ("a ProcessMesh runs the host driver: peer addresses across processes "
+                          "(CUDA IPC) and NCCL inside a capture are not ported")
+    else:
+        ok, why = peer_mesh(mesh.devices), "its cards have no peer access to each other"
+    if driver == "chunked" and not ok:
+        raise ValueError(f"driver='chunked' needs a LocalMesh of one device or of cards with "
+                         f"peer access; {why}; use driver='host'")
+    return driver if driver != "auto" else ("chunked" if ok else "host")
 
 
 def _devices_of(devices) -> list:
@@ -1267,15 +1475,15 @@ class ShardedFrontierSearch:
     when it runs, as JAX does.
 
     ``driver`` (as ``FrontierSearch``'s): "chunked" runs ``chunk_steps``
-    steps of the whole mesh a host read, as JAX's sharded chunk (on a card
-    ``chunk_steps`` replays of a one-step CUDA graph, one graph for each
-    ring parity; CPU shards the same steps with the plain versions), and
-    the walk WALK_ROUNDS rounds a host read;
+    steps of the whole mesh a host read, as JAX's sharded chunk (on cards
+    ``chunk_steps`` replays of a one-step CUDA graph of every card, one
+    graph for each ring parity; CPU shards the same steps with the plain
+    versions), and the walk WALK_ROUNDS rounds a host read;
     "host" one step a host read, launched eagerly, and one host read a
-    walk round; "auto" is chunked where the mesh is one device (a
-    ``LocalMesh`` whose shards share a card, or the CPU), else host.
-    chunked on a mesh of several devices raises ValueError: it never falls
-    back to the host driver."""
+    walk round; "auto" is chunked on a ``LocalMesh`` of one device (or
+    the CPU) or of cards that are each other's peers, else host
+    (``choose_driver``).  chunked where it cannot run raises ValueError: it
+    never falls back to the host driver."""
 
     def __init__(self, problem: Problem, heuristic: Optional[HPairHeuristic] = None,
                  devices=None, hash_type: str = "FSUM", hash_shift: int = 4,
@@ -1290,8 +1498,6 @@ class ShardedFrontierSearch:
             raise ValueError(f"unknown exchange mode {exchange!r}")
         if layout not in ("auto", "sig", "packed", "unpacked"):
             raise ValueError(f"layout={layout!r}: choose auto, sig, packed or unpacked")
-        if driver not in ("auto", "chunked", "host"):
-            raise ValueError(f"driver={driver!r}: choose auto, chunked or host")
         if chunk_steps < 1:
             raise ValueError("chunk_steps must be >= 1")
         self.fill_target = fill_target
@@ -1307,16 +1513,10 @@ class ShardedFrontierSearch:
         self.multiprocess = self.mesh.multiprocess
         self.local_devices = [self.mesh.devices[i if isinstance(self.mesh, LocalMesh) else 0]
                               for i in self.mesh.local]
-        # every shard in this process on one device: the step's sizes stay
-        # on it, and a chunk can be one graph
-        self.one_device = (isinstance(self.mesh, LocalMesh)
-                           and len(set(self.local_devices)) == 1)
-        if driver == "chunked" and not self.one_device:
-            raise ValueError("driver='chunked' needs every shard on one device (a LocalMesh of "
-                             "one card, or the CPU): a graph across cards and NCCL inside a "
-                             "capture are not ported; use driver='host'")
-        self.driver = driver if driver != "auto" else (
-            "chunked" if self.one_device else "host")
+        self.driver = choose_driver(self.mesh, driver)
+        # set by each run's _shards: the step's card form (every shard of
+        # the mesh in this process, read and written through addresses)
+        self.card_form = False
         dev0 = self.local_devices[0]
         self.heuristic = (heuristic if heuristic is not None
                           else HPairHeuristic.build(problem, dev0))
@@ -1458,27 +1658,48 @@ class ShardedFrontierSearch:
 
 
     def _shards(self) -> List[_Shard]:
-        """This process's shards, each holding its device's run flag
-        (``_Card``), and their cards in ``self.cards``."""
+        """This process's shards, grouped into ``_Card``s (``_card_groups``),
+        each holding its card's run flag, and their cards in ``self.cards``.
+        The step takes its card form (``card_form``) under the chunked
+        driver and on one card: every shard of the mesh in this process,
+        each card reading its peers' buffers by address (peer access
+        enabled first); else the mesh form of the host driver (the mesh's
+        collectives, the exchange sized on the host)."""
         self.cube_stack = None
         if self.cubes_split:
             st = self.st
             self.cube_stack = st.d_cubes.view(st.T3, st.S, st.S, st.S)
-        cards: Dict[torch.device, _Card] = {}
-        shards = []
-        for k, (me, d) in enumerate(zip(self.mesh.local, self.local_devices)):
-            card = cards.get(d)
-            if card is None:
-                card = cards[d] = _Card(self, d, k)
-            shards.append(_Shard(self, me, d, self.statics[d], card))
-            card.shards.append(shards[-1])
+        groups = _card_groups(self.local_devices)
+        devs = [self.local_devices[g[0]] for g in groups]
+        if any(self.local_devices[k] != d for g, d in zip(groups, devs) for k in g):
+            raise ValueError(f"a card's shards on several devices: {groups}")
+        self.card_form = isinstance(self.mesh, LocalMesh) and (
+            self.driver == "chunked" or len(groups) == 1)
+        multi = self.card_form and len(groups) > 1
+        if multi and devs[0].type == "cuda" and len(set(devs)) > 1:
+            _kernels.enable_peer_access(devs)
+        self.cards = [_Card(self, d, g[0], multi) for g, d in zip(groups, devs)]
+        shards: List[Optional[_Shard]] = [None] * len(self.local_devices)
+        for card, g in zip(self.cards, groups):
+            for k in g:
+                shards[k] = _Shard(self, self.mesh.local[k], card.dev, self.statics[card.dev],
+                                   card)
+                card.shards.append(shards[k])
         if self.cubes_split:  # each shard holds its own cubes now
             for st in self.statics.values():
                 st.d_cubes = torch.zeros(0, dtype=torch.int32, device=st.device)
             self.cube_stack = None
-        self.cards = list(cards.values())
+        self._ev_fork = torch.cuda.Event() if multi and devs[0].type == "cuda" else None
         for card in self.cards:
             card.bind(self, shards)
+        if self.card_form:  # the chunk's one read: the vector and each shard's overflow
+            c0 = self.cards[0]
+            cw = cons_words(self.ndev)
+            c0.readout = torch.zeros(cw + self.ndev, dtype=torch.int64, device=c0.dev)
+            c0.pulls["read"] = [(c0.readout[:cw], c0.cons)] + [
+                (c0.readout[cw + sh.me:cw + sh.me + 1], sh.ctr[6:7]) for sh in shards]
+            if c0.cuda:
+                c0.tabs["read"] = copy_table(c0.pulls["read"])
         self.shards = shards  # kept after the run: its tables, rings and counters
         return shards
 
@@ -1502,13 +1723,14 @@ class ShardedFrontierSearch:
         shards = self._shards()
         mesh, ndev = self.mesh, self.ndev
         stats = dict(driver=self.driver, exchange=self.exchange, cap=self.exchange_cap,
-                     graph_captures=0, graph_replays=0, capture_s=0.0)
+                     cards=len(self.cards), card_form=self.card_form, graph_captures=0,
+                     graph_replays=0, capture_s=0.0)
         t0 = time.perf_counter()
         if self.driver == "chunked":
             c, ovf, reads = self._search_chunked(shards, stats)
         else:
             c, ovf, reads = self._search_host(shards)
-        if ovf is None:  # a mesh of several devices: one more read
+        if ovf is None:  # the mesh form: one more read
             ovf = [int(sh.ctr[6]) for sh in shards]
             reads += 1
         # the last step's insert may have overflowed a table
@@ -1535,7 +1757,7 @@ class ShardedFrontierSearch:
             raise RuntimeError("open set exhausted without reaching the goal")
         t0 = time.perf_counter()
         if self.driver == "chunked":
-            masks, rounds, walk_reads = self._walk_loop(self.cards[0], shards, stats)
+            masks, rounds, walk_reads = self._walk_loop(shards, stats)
         else:
             masks, rounds = self._walk(shards)
             walk_reads = rounds
@@ -1555,54 +1777,121 @@ class ShardedFrontierSearch:
         return self._result(goal_g, steps, masks, per)
 
     def _step(self, shards: List[_Shard]) -> Optional[np.ndarray]:
-        """One step of every local shard, with the mesh's collectives
-        between, and no host read on a mesh of one device: the sizes of the
-        exchange and the stop test stay on it (the consensus and the
-        exchange kernels), so a graph can hold the step.  A mesh of several
-        devices reads the consensus vector once, for the collectives' split
-        sizes, and returns it (else None)."""
+        """One step of every local shard.  The card form (``card_form``)
+        reads no host value: the sizes of the exchange and the stop test
+        stay on the cards (the consensus and the exchange kernels), so a
+        graph can hold the step; returns None.  The mesh form reads the
+        consensus vector once, for the collectives' split sizes, and
+        returns it."""
+        if self.card_form:
+            self._step_cards(shards)
+            return None
         st, mesh, ndev = self.st, self.mesh, self.ndev
-        one = self.one_device
-        card0 = self.cards[0]
         for sh in shards:
             sh.select()
         h3s = [None] * len(shards)
-        if self.cubes_split and one:
-            # the all-gather and the reduce-scatter in place: each shard
-            # writes its row of the card's buffers
-            for sh in shards:
-                sh.coords()
-            coords_g = card0.coords.view(ndev * st.B, st.n)
-            for sh in shards:
-                sh.partial(coords_g)
-            h3s = list(torch.sum(card0.parts.view(ndev, ndev, st.B, st.M + 1), 0,
-                                 out=card0.h3))
-        elif self.cubes_split:
+        if self.cubes_split:
             gathered = mesh.all_gather([sh.coords() for sh in shards])
             parts = [sh.partial(g.reshape(ndev * st.B, st.n)) for sh, g in zip(shards, gathered)]
             h3s = mesh.reduce_scatter(parts)
         for sh, h3 in zip(shards, h3s):
             sh.expand(self, h3)
         counts = [sh.count(self) for sh in shards]
-        S_all = [None] * len(shards)
-        if self.exchange == "ragged":
-            S_all = mesh.all_gather(counts, out=card0.counts) if one else mesh.all_gather(counts)
+        S_all = mesh.all_gather(counts) if self.exchange == "ragged" else [None] * len(shards)
         for sh, S in zip(shards, S_all):
             sh.pack(self, S)
-        c = None
-        if one:  # the consensus reads each shard's report where it lies
-            card0.consensus(self, None)
-            card0.exchange(self, shards)
-        else:
-            reps = mesh.all_gather([sh.report() for sh in shards])
-            for card in self.cards:
-                card.consensus(self, reps[card.first])
-            c = card0.cons.cpu().numpy()
-            if not (c[C_TOVF] or c[C_COVF]):
-                self._exchange_host(shards, cons_sizes(c, ndev))
+        reps = mesh.all_gather([sh.report() for sh in shards])
+        for card in self.cards:
+            card.consensus(self, reps[card.first])
+        c = self.cards[0].cons.cpu().numpy()
+        if not (c[C_TOVF] or c[C_COVF]):
+            self._exchange_host(shards, cons_sizes(c, ndev))
         for sh in shards:
             sh.insert(self)
         return c
+
+    @contextlib.contextmanager
+    def _fork(self):
+        """The several-card step's fork and join: every card's stream
+        waits for the current stream of the first card, which waits for
+        every card's at the end (a graph captured on it holds all of
+        them)."""
+        if self._ev_fork is None:
+            yield
+            return
+        dev0 = self.cards[0].dev
+        with torch.cuda.device(dev0):
+            origin = torch.cuda.current_stream(dev0)
+            self._ev_fork.record(origin)
+            for card in self.cards:
+                card.stream.wait_event(self._ev_fork)
+            yield
+            for card in self.cards:
+                card.signal("join")
+                origin.wait_event(card.events["join"])
+
+    def _step_cards(self, shards: List[_Shard]) -> None:
+        """The step's card form, card by card in each phase.  On one card
+        the gathers are in place (each shard writes its row of the card's
+        buffers; the send counts stacked) and the consensus reads every
+        shard's report where it lies.  On several cards each card runs on
+        its stream and pulls the other cards' rows in by copies once they
+        are written (``_Card.wait``): the coordinates before any partial,
+        the partials before the h3 sums, the send counts before any pack;
+        each card snapshots its shards' reports after their packs, and
+        every snapshot and wire is written before any consensus and
+        exchange reads them.  No host read, no allocation."""
+        st, ndev, cards = self.st, self.ndev, self.cards
+        with self._fork():
+            for card in cards:
+                with card.on():
+                    for sh in card.shards:
+                        sh.select()
+                    if self.cubes_split:
+                        for sh in card.shards:
+                            sh.coords()
+                    card.signal("coords")
+            if self.cubes_split:
+                for card in cards:
+                    with card.on():
+                        card.wait("coords")
+                        card.pull("coords")
+                        coords_g = card.coords.view(ndev * st.B, st.n)
+                        for sh in card.shards:
+                            sh.partial(coords_g)
+                        card.signal("parts")
+                for card in cards:
+                    with card.on():
+                        card.wait("parts")
+                        card.pull("parts")
+                        torch.sum(card.parts.view(ndev, ndev, st.B, st.M + 1), 0, out=card.h3)
+            for card in cards:
+                with card.on():
+                    for sh in card.shards:
+                        sh.expand(self, card.h3[sh.me] if self.cubes_split else None)
+                    counts = [sh.count(self) for sh in card.shards]
+                    card.signal("counts")
+            for card in cards:
+                with card.on():
+                    S_all = None
+                    if self.exchange == "ragged":
+                        S_all = card.counts
+                        if card.multi:
+                            card.wait("counts")
+                            card.pull("counts")
+                        else:
+                            torch.stack(counts, out=S_all)
+                    for sh in card.shards:
+                        sh.pack(self, S_all)
+                    card.pull("snaps")
+                    card.signal("packs")
+            for card in cards:
+                with card.on():
+                    card.wait("packs")
+                    card.consensus(self, None)
+                    card.exchange(self, shards)
+                    for sh in card.shards:
+                        sh.insert(self)
 
     def _exchange_host(self, shards: List[_Shard], A: np.ndarray) -> None:
         """The exchange of a mesh of several devices, sized by the host's
@@ -1628,12 +1917,16 @@ class ShardedFrontierSearch:
                 at += k
 
     def _read(self, shards: List[_Shard]) -> Tuple[np.ndarray, np.ndarray]:
-        """One host read on a mesh of one device: the consensus vector and
-        every shard's overflow counter (its last insert's overflow shows in
-        the consensus only a step later)."""
-        v = torch.cat([self.cards[0].cons, torch.stack([sh.ctr[6] for sh in shards])])
-        v = v.cpu().numpy()
-        return v[:-len(shards)], v[-len(shards):]
+        """One host read in the card form: the consensus vector (every
+        card's is the same) and every shard's overflow counter (its last
+        insert's overflow shows in the consensus only a step later),
+        copied into the first card's read buffer on its current stream."""
+        c0 = self.cards[0]
+        with torch.cuda.device(c0.dev) if c0.cuda else contextlib.nullcontext():
+            c0.pull("read")
+            v = c0.readout.cpu().numpy()
+        cw = cons_words(self.ndev)
+        return v[:cw], v[cw:]
 
     def _search_host(self, shards: List[_Shard]):
         """The host driver: one step a host read of the consensus vector
@@ -1651,30 +1944,37 @@ class ShardedFrontierSearch:
                 return c, ovf, reads
 
     def _search_chunked(self, shards: List[_Shard], stats: dict):
-        """The chunked driver on a mesh of one device: ``chunk_steps``
-        steps a host read (``_read``; JAX reads its counters once a chunk,
-        :1410), max_steps checked once a chunk (:1430).  On a card a step
-        is a CUDA graph, one for each ring parity (``_step_graphs``), and a
-        chunk is ``chunk_steps`` replays of them in turn
-        (``replay_parities``) with no host read between; the replays after
-        the stop do nothing.  Returns as ``_search_host``."""
+        """The chunked driver (the card form): ``chunk_steps`` steps a host
+        read (``_read``; JAX reads its counters once a chunk, :1410),
+        max_steps checked once a chunk (:1430).  On cards a step of the
+        whole mesh is a CUDA graph, one for each ring parity
+        (``_step_graphs``), and a chunk is ``chunk_steps`` replays of them
+        in turn (``replay_parities``) with no host read between; the
+        replays after the stop do nothing.  ``stats`` gets the host seconds
+        of the replays' launches and of the reads (which wait for the
+        cards): ``replay_s``, ``read_s``.  Returns as ``_search_host``."""
         card = self.cards[0]
         reads, steps = 0, 0
+        stats.update(replay_s=0.0, read_s=0.0)
         while True:
             if card.cuda:
                 parity = shards[0].cur
                 order = replay_parities(parity, self.chunk_steps)
                 with torch.cuda.device(card.dev):
                     graphs = self._step_graphs(card, shards, stats)
+                    t0 = time.perf_counter()
                     for p in order:
                         graphs[p].graph.replay()
+                    stats["replay_s"] += time.perf_counter() - t0
                 for p in (0, 1):
                     _kernels.replayed(graphs[p].tally, order.count(p))
                 stats["graph_replays"] += len(order)
             else:
                 for _ in range(self.chunk_steps):
                     self._step(shards)
+            t0 = time.perf_counter()
             c, ovf = self._read(shards)
+            stats["read_s"] += time.perf_counter() - t0
             reads += 1
             if card.cuda:
                 # each step that ran packed into the other ring
@@ -1684,14 +1984,29 @@ class ShardedFrontierSearch:
             if not c[C_RUN] or steps >= self.max_steps:
                 return c, ovf, reads
 
+    def _warm(self, flags: Sequence[torch.Tensor], fn) -> None:
+        """``fn`` once with every flag of ``flags`` at 0, restored after, on
+        every card: each C entry's first call queries the card (and builds
+        and loads its library), which a capture must not do; each kernel
+        returns at once."""
+        saved = [f.clone() for f in flags]
+        for f in flags:
+            f.zero_()
+        fn()
+        for f, v in zip(flags, saved):
+            f.copy_(v)
+        for card in self.cards:
+            torch.cuda.synchronize(card.dev)
+
     def _step_graphs(self, card: _Card, shards: List[_Shard], stats: dict):
         """The step's CUDA graphs, one for each parity of the rings a step
         starts from (``card.graphs[p]``: it reads ring p and packs into
-        ring 1 - p): captured at the first chunk and replayed after (every
-        buffer a step passes is the run's).  Before the captures every C
-        entry of the step is launched once with the run flag at 0 (each
-        returns at once; a C entry's first call queries the card, which a
-        capture must not do).  A failed capture raises."""
+        ring 1 - p), each holding every card's kernels and copies (on
+        several cards captured from the first card's stream, the other
+        cards' streams joined by events): captured at the first chunk and
+        replayed after (every buffer a step passes is the run's).  Before
+        the captures the step runs once with every run flag at 0
+        (``_warm``).  A failed capture raises."""
         from ..search import step as S
 
         if len(card.graphs) == 2:
@@ -1699,12 +2014,8 @@ class ShardedFrontierSearch:
         t0 = time.perf_counter()
         curs = [sh.cur for sh in shards]
         if not card.warm:
-            run = card.run.clone()
-            card.run.zero_()
-            self._step(shards)
-            card.run.copy_(run)
+            self._warm([c.run for c in self.cards], lambda: self._step(shards))
             card.warm = True
-            torch.cuda.synchronize(card.dev)
         t1 = time.perf_counter()
         host = [0.0]
 
@@ -1755,43 +2066,66 @@ class ShardedFrontierSearch:
             raise RuntimeError("distributed backtrace did not reach the origin")
         return masks, rounds
 
-    def _walk_loop(self, card: _Card, shards: List[_Shard],
+    def _walk_loop(self, shards: List[_Shard],
                    stats: Optional[dict] = None) -> Tuple[List[int], int, int]:
-        """The batched distributed walk of the chunked driver on a mesh of
-        one device, as a device loop (JAX ``_make_batched_walk``'s
-        while_loop, :545): a round is every shard's K7 hop mode from the
-        coordinate on the device, then ``walk_advance``, which sums the
-        runs, appends the masks and moves the coordinate on; WALK_ROUNDS
-        rounds a host read (on a card a CUDA graph of one round, replayed
-        WALK_ROUNDS times), until the walk's flag reads 0.  Returns (masks,
-        rounds, host reads); raises as ``_walk``.  ``stats`` gets the host
-        seconds of the warm-up round (a C entry's first calls) and of the
-        capture (``walk_warm_s``, ``walk_capture_s``)."""
+        """The batched distributed walk of the chunked driver, as a device
+        loop (JAX ``_make_batched_walk``'s while_loop, :545): a round is
+        every shard's K7 hop mode from its card's copy of the coordinate,
+        each run written where the shard lies, then on every card
+        ``walk_advance``, which sums the runs (read by address, on that
+        card or its peers), appends the masks and moves the card's
+        coordinate on (on several cards after every card's runs are
+        written: ``_Card.wait``); WALK_ROUNDS rounds a host read of the
+        first card (on cards a CUDA graph of one round over every card,
+        replayed WALK_ROUNDS times), until the walk's flag reads 0.
+        Returns (masks, rounds, host reads); raises as ``_walk``.
+        ``stats`` gets the host seconds of the warm-up round (a C entry's
+        first calls) and of the capture (``walk_warm_s``,
+        ``walk_capture_s``)."""
         from ..search import step as S
 
-        st, n, hops, dev = self.st, self.st.n, WALK_HOPS, card.dev
+        if not self.card_form:
+            raise ValueError("the walk loop runs in the card form of the step (the chunked "
+                             "driver, or one card)")
+        st, n, hops, cards = self.st, self.st.n, WALK_HOPS, self.cards
         final = [int(v) for v in self.problem.final_coord]
         i32 = dict(dtype=torch.int32)
-        params = torch.tensor(final + list(st.bitw), **i32).to(dev)
-        masks = torch.zeros(sum(final) + hops, **i32).to(dev)
-        wst = torch.zeros(2, **i32).to(dev)  # masks emitted, rounds
-        wrun = torch.tensor([int(any(final))], **i32).to(dev)
-        wout = torch.zeros((self.ndev, hops + n + 1), **i32).to(dev)
-        advance = walk_advance_cuda if card.cuda else walk_advance_plain
+        for card in cards:  # each card's walk state, and its shards' runs
+            dev = card.dev
+            card.wparams = torch.tensor(final + list(st.bitw), **i32).to(dev)
+            card.masks = torch.zeros(sum(final) + hops, **i32).to(dev)
+            card.wst = torch.zeros(2, **i32).to(dev)  # masks emitted, rounds
+            card.wrun = torch.tensor([int(any(final))], **i32).to(dev)
+            for sh in card.shards:
+                sh.wout = torch.zeros(hops + n + 1, **i32).to(dev)
+        runs = sorted(shards, key=lambda sh: sh.me)
+        for card in cards:
+            card.runs = [sh.wout for sh in runs]
+            if card.cuda:
+                card.wtab = run_table(card.runs, hops, n)
 
         def round_() -> None:
-            for sh in shards:
-                sh.walk_hops(params, hops, out=wout[sh.me], run=wrun)
-            advance(wout, hops, n, params, masks, wst, wrun)
+            with self._fork():
+                for card in cards:
+                    with card.on():
+                        for sh in card.shards:
+                            sh.walk_hops(card.wparams, hops, out=sh.wout, run=card.wrun)
+                        card.signal("runs")
+                for card in cards:
+                    with card.on():
+                        card.wait("runs")
+                        args = (hops, n, card.wparams, card.masks, card.wst, card.wrun)
+                        if card.cuda:
+                            walk_advance_cuda(card.wtab, *args)
+                        else:
+                            walk_advance_plain(card.runs, *args)
 
+        c0 = cards[0]
         graph = None
-        if card.cuda:
+        if c0.cuda:
             t0 = time.perf_counter()
-            with torch.cuda.device(dev):
-                go = wrun.clone()
-                wrun.zero_()
-                round_()  # each C entry once, returning at once, before the capture
-                wrun.copy_(go)
+            with torch.cuda.device(c0.dev):
+                self._warm([c.wrun for c in cards], round_)
                 t1 = time.perf_counter()
                 tally: Dict[str, int] = {}
                 with _kernels.capturing(tally):
@@ -1801,15 +2135,16 @@ class ShardedFrontierSearch:
         reads = 0
         while True:
             if graph is not None:
-                with torch.cuda.device(dev):
+                with torch.cuda.device(c0.dev):
                     for _ in range(WALK_ROUNDS):
                         graph.replay()
                 _kernels.replayed(tally, WALK_ROUNDS)
             else:
                 for _ in range(WALK_ROUNDS):
                     round_()
-            # the replay's one read: its flag, counts, coordinate and masks
-            v = torch.cat([wrun, wst, params[:n], masks]).cpu().tolist()
+            # the replay's one read: the first card's flag, counts,
+            # coordinate and masks (every card's are the same)
+            v = torch.cat([c0.wrun, c0.wst, c0.wparams[:n], c0.masks]).cpu().tolist()
             reads += 1
             if not v[0]:
                 break

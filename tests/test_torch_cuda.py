@@ -5,9 +5,10 @@ the path walk K7, and the sharded step's K4 sharded, K11, K12 and K7's hop
 mode, and on key rows K9s, K11, K10 on received rows, K7's hop mode and
 keyrow_coords, and the sharded loop's consensus, exchange and walk_advance)
 against their plain PyTorch versions, the chunk graph (K6) against the
-eager chunk, the sharded chunk graph (K6s) against the host driver, and the
-port's main path, its table layouts and the sharded engine on four shards
-of one card on the GPU.
+eager chunk, the sharded chunk graph (K6s) against the host driver (on one
+card, on two cards of one, and across every card when there are two or
+more), and the port's main path, its table layouts and the sharded engine
+on four shards of one card on the GPU.
 They skip on a host without a CUDA device.  On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1749,11 +1750,12 @@ def _loop_reports(rng, ndev, cap, unpacked, case, nb=5, f0=1000):
 @pytest.mark.parametrize("layout", ["packed", "unpacked"])
 def test_consensus_kernel_equals_plain(cuda, layout, ragged, case):
     """consensus on 1, 2, 4, 8, 31 and 32 shards (every shard a target, and
-    on 4 and 8 shards some targets only) against consensus_plain on the
-    same card tensors, bit for bit: the consensus vector, every target's
-    counters, state, received count and flag, and the run flag; twice in a
-    row (the telemetry adds up); with every shard a target also with no
-    report gathered (each read where it lies)."""
+    on 4 and 8 shards some targets only: one card's shards of several)
+    against consensus_plain on the same card tensors, bit for bit: the
+    consensus vector, every target's counters, state, received count and
+    flag, and the run flag; twice in a row (the telemetry adds up); the
+    reports gathered (one row a shard) or read where they lie (each
+    shard's counters, state and route out, three addresses a shard)."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
     from mpi_pastar_msa_tpu_torch.search import step as TS
 
@@ -1762,39 +1764,41 @@ def test_consensus_kernel_equals_plain(cuda, layout, ragged, case):
                                   (4, [1, 3], True), (32, list(range(32)), True),
                                   (4, [2, 0, 3, 1], False), (32, list(range(32)), False),
                                   (8, list(range(8)), True), (8, [6, 1, 4], True),
-                                  (8, [7, 0, 5, 2, 3, 6, 1, 4], False),
-                                  (31, list(range(31)), True),
+                                  (8, [7, 0, 5, 2, 3, 6, 1, 4], False), (8, [6, 1, 4], False),
+                                  (4, [3], False), (31, list(range(31)), True),
                                   (31, list(range(30, -1, -1)), False), (1, [0], False),
                                   (2, [1, 0], False)):
         cap, nb, f0 = 40, 5, 1000
         outs = []
         reps = [_loop_reports(rng, ndev, cap, layout == "unpacked", case) for _ in range(2)]
-        state0 = rng.integers(0, 500, (len(local), TS.STATE_WORDS))
-        ctr0 = rng.integers(0, 100, (len(local), 14))
+        state0 = rng.integers(0, 500, (ndev, TS.STATE_WORDS))
+        ctr0 = rng.integers(0, 100, (ndev, 14))
         for use_kernel in (True, False):
-            tg = [(torch.as_tensor(c, device=cuda), torch.as_tensor(s, device=cuda),
-                   torch.zeros(ndev + 3, dtype=torch.int32, device=cuda),
-                   torch.zeros(1, dtype=torch.int32, device=cuda),
-                   torch.zeros(1, dtype=torch.int32, device=cuda), me)
-                  for c, s, me in zip(ctr0, state0, local)]
+            words = [(torch.as_tensor(ctr0[me], device=cuda),
+                      torch.as_tensor(state0[me], device=cuda),
+                      torch.zeros(ndev + 3, dtype=torch.int32, device=cuda),
+                      torch.zeros(1, dtype=torch.int32, device=cuda),
+                      torch.zeros(1, dtype=torch.int32, device=cuda)) for me in range(ndev)]
+            tg = [(c, s, r, g, me) for me, (c, s, _, r, g) in enumerate(words) if me in local]
+            tg.sort(key=lambda t: local.index(t[4]))
             cons = SH.fresh_cons(ndev, cuda)
             run = torch.full((1,), int(case != "stopped"), dtype=torch.int32, device=cuda)
             tgt = SH.target_table(tg, cuda)
             for rep in reps:
-                rep_t = torch.as_tensor(rep, device=cuda)
+                reports = torch.as_tensor(rep, device=cuda)
                 if not gathered:  # each report's words where they lie
-                    for ctr, state, out, _, _, me in tg:
-                        ctr[0], ctr[6] = rep_t[me, SH.R_GOAL], rep_t[me, SH.R_OVF]
-                        state[:5] = rep_t[me, 2:SH.R_ROUTE]
-                        out.copy_(rep_t[me, SH.R_ROUTE:])
-                    rep_t = None
-                args = (rep_t, ndev, cap, ragged, layout, nb, f0, 777, run)
+                    for me, (ctr, state, out, _, _) in enumerate(words):
+                        ctr[0], ctr[6] = reports[me, SH.R_GOAL], reports[me, SH.R_OVF]
+                        state[:5] = reports[me, 2:SH.R_ROUTE]
+                        out.copy_(reports[me, SH.R_ROUTE:])
+                    reports = [w[:3] for w in words]
+                args = (ndev, cap, ragged, layout, nb, f0, 777, run)
                 if use_kernel:
-                    SH.consensus_cuda(*args, tgt, cons)
+                    SH.consensus_cuda(SH.report_table(reports), *args, tgt, cons)
                 else:
-                    SH.consensus_plain(*args, tg, cons)
+                    SH.consensus_plain(reports, *args, tg, cons)
             torch.cuda.synchronize()
-            outs.append([cons, run] + [t for x in tg for t in x[:5]])
+            outs.append([cons, run] + [t for x in tg for t in x[:4]])
         for a, b in zip(*outs):
             assert torch.equal(a, b), (ndev, local, gathered, a.tolist(), b.tolist())
 
@@ -1844,13 +1848,15 @@ def test_exchange_kernel_equals_plain(cuda, ragged):
         assert len(recv_me) < 3 or (outs[0][-1] == -5).all()
 
 
-def test_walk_advance_kernel_equals_plain(cuda):
+@pytest.mark.parametrize("form", ["buffer", "by_address"])
+def test_walk_advance_kernel_equals_plain(cuda, form):
     """walk_advance against walk_advance_plain over rounds of random runs
     (one shard's non-zero a round, masks of up to 5 bits), until the walk's
-    flag clears: masks, coordinate, counts and flag bit for bit."""
+    flag clears: masks, coordinate, counts and flag bit for bit; the runs
+    the rows of one buffer, or each shard's own tensor (the several-card
+    walk's form: the kernel reads each by its address)."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
-    rng = np.random.default_rng(11)
     n, hops, ndev = 5, 8, 4
     final = [40, 38, 41, 39, 42]
     states = []
@@ -1859,6 +1865,10 @@ def test_walk_advance_kernel_equals_plain(cuda):
         masks = torch.zeros(sum(final) + hops, dtype=torch.int32, device=cuda)
         wst = torch.zeros(2, dtype=torch.int32, device=cuda)
         wrun = torch.ones(1, dtype=torch.int32, device=cuda)
+        runs = ([torch.zeros(hops + n + 1, dtype=torch.int32, device=cuda) for _ in range(ndev)]
+                if form == "by_address" else
+                torch.zeros((ndev, hops + n + 1), dtype=torch.int32, device=cuda))
+        wtab = SH.run_table(runs, hops, n)
         r = np.random.default_rng(11)
         for _ in range(200):
             coord = params[:n].tolist()
@@ -1871,11 +1881,12 @@ def test_walk_advance_kernel_equals_plain(cuda):
                     break
                 wout[owner, h] = m
                 coord = [coord[d] - ((m >> d) & 1) for d in range(n)]
-            wout = wout.to(cuda)
+            for i in range(ndev):
+                runs[i].copy_(wout[i])
             if use_kernel:
-                SH.walk_advance_cuda(wout, hops, n, params, masks, wst, wrun)
+                SH.walk_advance_cuda(wtab, hops, n, params, masks, wst, wrun)
             else:
-                SH.walk_advance_plain(wout, hops, n, params, masks, wst, wrun)
+                SH.walk_advance_plain(runs, hops, n, params, masks, wst, wrun)
         torch.cuda.synchronize()
         states.append([params, masks, wst, wrun])
     for a, b in zip(*states):
@@ -1898,12 +1909,13 @@ def _loop_words(eng):
     return out + [("cons", eng.cards[0].cons)]
 
 
-def _drivers(cuda, problem, **kw):
+def _drivers(cuda, problem, devices=None, **kw):
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
     runs = []
     for driver in ("chunked", "host"):
-        eng = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, driver=driver, **kw)
+        eng = SH.ShardedFrontierSearch(problem, devices=devices or [cuda] * 4, driver=driver,
+                                       **kw)
         try:
             res = eng.run()
         except RuntimeError as e:
@@ -1991,3 +2003,87 @@ def test_sharded_graph_overflow_retries_equal_host_driver(cuda, layout):
         assert torch.equal(a, b), k
     cs = ce.last_stats
     assert cs["graph_captures"] == 2 and cs["graph_replays"] == 8 * cs["host_reads"]
+
+
+# --- the several-card step: two cards of one card (the grouping replaced),
+# and every card of the machine
+
+
+def _split(monkeypatch, groups):
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    monkeypatch.setattr(SH, "_card_groups", lambda devices: groups)
+
+
+def _equal_drivers(ce, cr, he, hr, gold=None, chunk=None):
+    """The chunked run against the host run: the result, stats and every
+    table word; both cards' vectors equal; with ``gold`` its g and
+    alignment; with ``chunk`` one host read a chunk."""
+    from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
+
+    if gold is not None:
+        assert cr.g == gold["optimal_g"]
+        assert build_alignment(ce.problem, cr.closed) == gold["alignment"]
+    if cr is not None:
+        assert (cr.g, cr.closed, cr.steps, cr.shard_stats) == (
+            hr.g, hr.closed, hr.steps, hr.shard_stats)
+    for (k, a), (_, b) in zip(_loop_words(ce), _loop_words(he)):
+        assert torch.equal(a, b), k
+    assert all(torch.equal(c.cons.cpu(), ce.cards[0].cons.cpu()) for c in ce.cards)
+    cs = ce.last_stats
+    assert cs["driver"] == "chunked" and cs["card_form"] and cs["graph_captures"] == 2
+    if chunk is not None:
+        assert cs["host_reads"] == -(-cs["steps"] // chunk)
+        assert cs["graph_replays"] == chunk * cs["host_reads"]
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+@pytest.mark.parametrize("name", ["PF08184.fasta", "test2.fasta"])
+def test_sharded_split_cards_equal_host_driver(cuda, monkeypatch, name, layout):
+    """[cuda] * 4 grouped into two cards (0, 1 | 2, 3): the chunked
+    driver's several-card step (a stream a card joined by events, the
+    gathers as copies, a snapshot of the reports, a consensus and an
+    exchange a card, all in one graph a ring parity) in chunks of 16
+    against the host driver's mesh form on the same two cards: the golden
+    g and alignment, the same result and every table word bit for bit; the
+    loop kernels launched."""
+    gold = json.load(open(os.path.join(HERE, "goldens.json")))[name]
+    problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+    _split(monkeypatch, [[0, 1], [2, 3]])
+    _kernels.reset_counts()
+    (ce, cr), (he, hr) = _drivers(cuda, problem, layout=layout, chunk_steps=16)
+    assert len(ce.cards) == 2 and not he.card_form
+    _equal_drivers(ce, cr, he, hr, gold, 16)
+    for k in ("consensus", "exchange", "walk_advance"):
+        assert _kernels.launches[k] > 0, k
+
+
+def test_sharded_kinase_split_cards_chunk_equals_host_driver(cuda, monkeypatch):
+    """Kinase on [cuda] * 4 grouped into three cards (0 | 1, 2 | 3),
+    packed at 2^21, ragged: one 64-step chunk of the several-card step
+    against 64 steps of the host driver's mesh form, every table word."""
+    gold = json.load(open(os.path.join(HERE, "goldens.json")))["kinase.fasta"]
+    problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+    _split(monkeypatch, [[0], [1, 2], [3]])
+    (ce, _), (he, _) = _drivers(cuda, problem, chunk_steps=64, max_steps=64)
+    assert ce.layout == "packed" and ce.exchange == "ragged" and len(ce.cards) == 3
+    assert ce.last_stats["steps"] == he.last_stats["steps"] == 64
+    _equal_drivers(ce, None, he, None, chunk=64)
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+def test_sharded_across_cards_equal_host_driver(cuda, layout):
+    """Four shards round-robin over every card of the machine (two or
+    more; skipped below): PF08184 chunked (one graph a parity spanning the
+    cards, peer reads) in chunks of 16 against the host driver on the same
+    cards: the golden g and alignment, every table word."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more")
+    gold = json.load(open(os.path.join(HERE, "goldens.json")))["PF08184.fasta"]
+    problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+    devices = [torch.device("cuda", i % n) for i in range(4)]
+    (ce, cr), (he, hr) = _drivers(cuda, problem, devices=devices, layout=layout,
+                                  chunk_steps=16)
+    assert len(ce.cards) == min(n, 4) and not he.card_form
+    _equal_drivers(ce, cr, he, hr, gold, 16)

@@ -6,11 +6,16 @@ devices and against ``_route_ragged``'s allowance written in
 each kind, an empty ring, a stopped run); ``exchange_plain`` against
 ``LocalMesh.all_to_all_ragged`` and the dense copy loop on the wires of
 the plain route, and the exchange kernel's schedule (its one round of A
-loads, its flat word range) against ``exchange_plain``; ``walk_advance_plain`` against the host walk; the chunked
+loads, its flat word range) against ``exchange_plain``; ``walk_advance_plain`` against the host walk, and over
+each shard's run by address against the one-buffer form; the chunked
 driver against the host driver on CPU shards (sig, packed, unpacked;
 test2 and PF08184 on 2 and 4 shards; a one-row wire that spills): the
 results, the per-shard stats and every table tensor equal, also across
-table-overflow retries; and the driver's refusals."""
+table-overflow retries; the several-card step, four shards grouped into
+two or three cards (``_card_groups`` replaced), against the host
+driver's mesh form on the same cards; the consensus of one card's
+targets over every shard's report; an engine freed without the cyclic
+collector; and the driver's choice and refusals."""
 import ctypes
 import json
 import os
@@ -26,7 +31,7 @@ from mpi_pastar_msa_tpu.parallel import sharded as JS
 from mpi_pastar_msa_tpu_torch.core.problem import Problem
 from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
 from mpi_pastar_msa_tpu_torch.parallel import sharded as S
-from mpi_pastar_msa_tpu_torch.parallel.mesh import LocalMesh
+from mpi_pastar_msa_tpu_torch.parallel.mesh import LocalMesh, ProcessMesh
 from mpi_pastar_msa_tpu_torch.search import step as TS
 from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
 from mpi_pastar_msa_tpu_torch.search.bruteforce import optimal_cost
@@ -124,10 +129,11 @@ def jax_allowance(counts, ndev, cap, ragged):
 
 
 def targets_of(ndev, rng, rep=None):
-    """Every shard's counters, step state (some pending lanes already),
-    route out, received count and insert flag; with ``rep``, the words of
-    its report where the consensus reads them when no report is gathered."""
-    out = []
+    """Every shard's (counters, step state (some pending lanes already),
+    received count, insert flag, index) as the consensus writes them, and
+    its report's (counters, state, route out) where it lies; with ``rep``,
+    those words as the report says (the consensus then reads them)."""
+    targets, reports = [], []
     for me in range(ndev):
         ctr = torch.as_tensor(rng.integers(0, 100, 14), dtype=torch.int64)
         state = torch.zeros(TS.STATE_WORDS, dtype=torch.int64)
@@ -137,28 +143,44 @@ def targets_of(ndev, rng, rep=None):
             ctr[0], ctr[6] = int(rep[me, S.R_GOAL]), int(rep[me, S.R_OVF])
             state[:5] = torch.from_numpy(rep[me, 2:S.R_ROUTE])
             route_out[:] = torch.from_numpy(rep[me, S.R_ROUTE:].astype(np.int32))
-        out.append((ctr, state, route_out, torch.zeros(1, dtype=torch.int32),
-                    torch.zeros(1, dtype=torch.int32), me))
-    return out
+        targets.append((ctr, state, torch.zeros(1, dtype=torch.int32),
+                        torch.zeros(1, dtype=torch.int32), me))
+        reports.append((ctr, state, route_out))
+    return targets, reports
 
 
+@pytest.mark.parametrize("cards", [1, 2, 3], ids=["one_card", "two_cards", "three_cards"])
 @pytest.mark.parametrize("case", ["plain", "table_ovf", "carry_ovf", "empty_ring"])
 @pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
 @pytest.mark.parametrize("layout", ["packed", "unpacked"])
 @pytest.mark.parametrize("seed", [1, 2])
-def test_consensus_plain_equals_jax(seed, layout, ragged, case):
+def test_consensus_plain_equals_jax(seed, layout, ragged, case, cards):
+    """consensus_plain against JAX's _consensus and _route_ragged's
+    allowance; its telemetry, targets and run flag; with the shards' words
+    read where they lie (no report gathered) the same.  ``cards``: the
+    targets split over that many cards (shards 0, 1 | 2, 3; 0 | 1, 2 | 3),
+    each card's consensus over every shard's report with its own vector,
+    run flag and targets: every card's vector and flag equal the one card's,
+    and each target the same words."""
     ndev, cap, nb, f0, ccar = 4, 40, 5, 1000, 100
     rep = random_reports(seed, ndev, cap, layout, case, nb, f0)
     rng = np.random.default_rng(seed + 10)
-    targets = targets_of(ndev, rng)
+    targets, _ = targets_of(ndev, rng)
     before = [(c.clone(), s.clone()) for c, s, *_ in targets]
     cons = S.fresh_cons(ndev, "cpu")
     cons[S.C_STEPS], cons[S.C_WIRE], cons[S.C_MIGR], cons[S.C_PEAK] = 7, 100, 90, 5
     cons[S.C_HEAD:S.C_HEAD + 4 * ndev] = torch.as_tensor(rng.integers(0, 50, 4 * ndev))
     cons0 = cons.clone()
-    run = torch.ones(1, dtype=torch.int32)
-    S.consensus_plain(torch.from_numpy(rep), ndev, cap, ragged, layout, nb, f0, ccar, run,
-                      targets, cons)
+    groups = {1: [[0, 1, 2, 3]], 2: [[0, 1], [2, 3]], 3: [[0], [1, 2], [3]]}[cards]
+    runs = []
+    for g in groups:
+        mine, run = cons0.clone(), torch.ones(1, dtype=torch.int32)
+        S.consensus_plain(torch.from_numpy(rep), ndev, cap, ragged, layout, nb, f0, ccar, run,
+                          [targets[me] for me in g], mine)
+        runs.append((mine, run))
+    for mine, run in runs[1:]:
+        assert torch.equal(mine, runs[0][0]) and torch.equal(run, runs[0][1])
+    cons, run = runs[0]
     goal, fmin, nsel, tovf, covf = jax_consensus(rep, layout, nb, f0)
     c = cons.numpy()
     assert (c[S.C_GOAL], c[S.C_FMIN], c[S.C_NSEL], c[S.C_TOVF], c[S.C_COVF]) == (
@@ -182,7 +204,7 @@ def test_consensus_plain_equals_jax(seed, layout, ragged, case):
     stop = tovf > 0 or covf > 0
     assert stop == (case in ("table_ovf", "carry_ovf"))
     assert int(run[0]) == c[S.C_RUN] == int(not stop and fmin < goal)
-    for (ctr, state, _, recv, go, me), (c0, s0) in zip(targets, before):
+    for (ctr, state, recv, go, me), (c0, s0) in zip(targets, before):
         if stop:  # the step stops before the exchange and the insert
             assert int(go[0]) == 0 and torch.equal(ctr, c0) and torch.equal(state, s0)
             continue
@@ -192,17 +214,21 @@ def test_consensus_plain_equals_jax(seed, layout, ragged, case):
         assert int(state[TS.STATE_NPEND]) == int(s0[TS.STATE_NPEND]) + A[:, me].sum()
     # a stopped run: nothing changes
     run.zero_()
-    snap = [t.clone() for tg in targets for t in tg[:5]] + [cons.clone()]
+    snap = [t.clone() for tg in targets for t in tg[:4]] + [cons.clone()]
     S.consensus_plain(torch.from_numpy(rep), ndev, cap, ragged, layout, nb, f0, ccar, run,
                       targets, cons)
     assert all(torch.equal(a, b) for a, b in
-               zip(snap, [t for tg in targets for t in tg[:5]] + [cons]))
-    # no report gathered: the targets' own words give the same consensus
-    tg2 = targets_of(ndev, np.random.default_rng(seed + 10), rep)
-    assert torch.equal(S.gather_reports(tg2), torch.from_numpy(rep))
-    cons2, run2 = cons0.clone(), torch.ones(1, dtype=torch.int32)
-    S.consensus_plain(None, ndev, cap, ragged, layout, nb, f0, ccar, run2, tg2, cons2)
-    assert torch.equal(cons2, cons) and torch.equal(run2, run.fill_(int(c[S.C_RUN])))
+                zip(snap, [t for tg in targets for t in tg[:4]] + [cons]))
+    # no report gathered: each shard's words where they lie (as rows, or
+    # as its counters, state and route out) give the same consensus
+    tg2, reports = targets_of(ndev, np.random.default_rng(seed + 10), rep)
+    assert torch.equal(S.gather_reports(reports), torch.from_numpy(rep))
+    rows = [S.report_row(*r) for r in reports]
+    for form in (reports, rows):
+        cons2, run2 = cons0.clone(), torch.ones(1, dtype=torch.int32)
+        S.consensus_plain(form, ndev, cap, ragged, layout, nb, f0, ccar, run2,
+                          [tg2[me] for me in groups[-1]], cons2)
+        assert torch.equal(cons2, cons) and torch.equal(run2, run.fill_(int(c[S.C_RUN])))
 
 
 def test_consensus_sig_ring_and_goal_stop():
@@ -214,19 +240,19 @@ def test_consensus_sig_ring_and_goal_stop():
     rep[:, S.R_GOAL] = [600, INF]
     rep[:, S.R_FMIN] = [650, 700]
     rep[:, S.R_ROUTE + ndev + 2] = [INFP, (90 << nb) | 3]  # carried f 590
-    targets = targets_of(ndev, np.random.default_rng(0))
+    targets, _ = targets_of(ndev, np.random.default_rng(0))
     cons, run = S.fresh_cons(ndev, "cpu"), torch.ones(1, dtype=torch.int32)
     S.consensus_plain(torch.from_numpy(rep), ndev, cap, False, "sig", nb, f0, 10, run, targets,
                       cons)
     assert (int(cons[S.C_GOAL]), int(cons[S.C_FMIN])) == (600, 590) == jax_consensus(
         rep, "sig", nb, f0)[:2]
-    assert int(run[0]) == 1 and all(int(t[4][0]) == 1 for t in targets)
+    assert int(run[0]) == 1 and all(int(t[3][0]) == 1 for t in targets)
     rep[1, S.R_ROUTE + ndev + 2] = INFP
     S.consensus_plain(torch.from_numpy(rep), ndev, cap, False, "sig", nb, f0, 10, run, targets,
                       cons)
     assert int(cons[S.C_FMIN]) == 650 >= int(cons[S.C_GOAL])
     assert int(run[0]) == 0 and int(cons[S.C_RUN]) == 0
-    assert all(int(t[4][0]) == 1 for t in targets)
+    assert all(int(t[3][0]) == 1 for t in targets)
 
 
 # --- the exchange
@@ -413,6 +439,42 @@ def test_walk_advance_plain_rounds():
     assert int(wrun[0]) == 0 and wst.tolist() == [4, 3]
 
 
+@pytest.mark.parametrize("seed", [3, 4])
+def test_walk_advance_plain_rows_by_address(seed):
+    """walk_advance_plain over each shard's run where it lies (a sequence
+    of tensors, as the several-card walk reads them) against the same runs
+    as rows of one buffer, and two cards' copies of the walk state advanced
+    from the same runs against each other: the same masks, coordinate,
+    counts and flag, round after round until the flag clears."""
+    rng = np.random.default_rng(seed)
+    n, hops, ndev = 4, 8, 3
+    final = [30, 28, 31, 29]
+    states = [[torch.tensor(final + [9] * n, dtype=torch.int32),
+               torch.zeros(sum(final) + hops, dtype=torch.int32),
+               torch.zeros(2, dtype=torch.int32), torch.ones(1, dtype=torch.int32)]
+              for _ in range(3)]
+    for _ in range(100):
+        coord = states[0][0][:n].tolist()
+        wout = torch.zeros((ndev, hops + n + 1), dtype=torch.int32)
+        owner = int(rng.integers(ndev))
+        for h in range(int(rng.integers(1, hops + 1))):
+            live = [d for d in range(n) if coord[d] > 0]
+            if not live:
+                break
+            pick = rng.random(len(live)) < 0.7
+            pick[int(rng.integers(len(live)))] = True
+            m = sum(1 << d for d, p in zip(live, pick) if p)
+            wout[owner, h] = m
+            coord = [coord[d] - ((m >> d) & 1) for d in range(n)]
+        rows = [wout[i].clone() for i in range(ndev)]
+        S.walk_advance_plain(wout, hops, n, *states[0])
+        S.walk_advance_plain(rows, hops, n, *states[1])
+        S.walk_advance_plain(list(reversed(rows))[::-1], hops, n, *states[2])
+        for other in states[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(states[0], other))
+    assert int(states[0][3][0]) == 0 and int(states[0][2][0]) > 0
+
+
 @pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
 def test_walk_loop_equals_host_walk(layout):
     """The device loop's walk (WALK_ROUNDS rounds a read, walk_advance_plain)
@@ -422,7 +484,7 @@ def test_walk_loop_equals_host_walk(layout):
                                   capacity=1 << 14, driver="host")
     res = eng.run()
     masks, rounds = eng._walk(eng.shards)
-    got, got_rounds, reads = eng._walk_loop(eng.cards[0], eng.shards)
+    got, got_rounds, reads = eng._walk_loop(eng.shards)
     assert got == masks and got_rounds == rounds == eng.last_stats["walk_rounds"]
     assert reads == -(-rounds // S.WALK_ROUNDS)
     assert len(res.closed) == len(masks)
@@ -430,7 +492,7 @@ def test_walk_loop_equals_host_walk(layout):
     with pytest.raises(RuntimeError, match="did not reach the origin"):
         eng._walk(eng.shards)
     with pytest.raises(RuntimeError, match="did not reach the origin"):
-        eng._walk_loop(eng.cards[0], eng.shards)
+        eng._walk_loop(eng.shards)
 
 
 # --- the chunked driver against the host driver
@@ -480,16 +542,59 @@ def test_chunked_equals_host_driver(name, layout, ndev):
         assert cs[k] == hs[k], k
 
 
+#: four shards of one device split into two cards, and into three
+SPLITS = {"two_cards": [[0, 1], [2, 3]], "three_cards": [[0], [1, 2], [3]]}
+
+
+@pytest.mark.parametrize("exchange", ["ragged", "dense"])
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+@pytest.mark.parametrize("name", ["PF08184.fasta", "test2.fasta"])
+def test_split_cards_chunked_equals_host_driver(monkeypatch, name, layout, exchange):
+    """Four CPU shards grouped into two cards (``_card_groups`` replaced):
+    the chunked driver runs the several-card step (each card pulls the
+    other's coordinates, partials and send counts into its own buffers,
+    snapshots its shards' reports, runs the consensus over every shard's
+    report and the exchange for its own receivers) in chunks of 16, the
+    host driver the mesh form on the same two cards (the mesh's
+    collectives, the exchange sized on the host).  The result, the
+    per-shard stats and every table word equal, with no tolerance; the
+    alignment is the golden one (JAX's); one host read a chunk; both
+    cards' consensus vectors equal."""
+    monkeypatch.setattr(S, "_card_groups", lambda devices: SPLITS["two_cards"])
+    (ce, cr), (he, hr) = both_drivers(golden(name), 4, layout=layout, capacity=1 << 14,
+                                      chunk_steps=16, exchange=exchange)
+    assert [len(c.shards) for c in ce.cards] == [len(c.shards) for c in he.cards] == [2, 2]
+    assert ce.card_form and not he.card_form
+    assert cr.g == hr.g == GOLD[name]["optimal_g"]
+    assert build_alignment(ce.problem, cr.closed) == GOLD[name]["alignment"]
+    assert (cr.closed, cr.steps, cr.shard_stats, cr.nodes_migrated) == (
+        hr.closed, hr.steps, hr.shard_stats, hr.nodes_migrated)
+    for a, b in zip(shard_words(ce), shard_words(he)):
+        assert torch.equal(a, b)
+    assert torch.equal(ce.cards[0].cons, ce.cards[1].cons)
+    cs, hs = ce.last_stats, he.last_stats
+    # the mesh form reads the vector each step, and the overflow once more
+    assert cs["host_reads"] == -(-cr.steps // 16) and hs["host_reads"] == hr.steps + 1
+    assert cs["walk_reads"] == -(-cs["walk_rounds"] // S.WALK_ROUNDS)
+    for k in ("steps", "wire_rows", "migrated", "peak_carry", "walk_rounds"):
+        assert cs[k] == hs[k], k
+
+
+@pytest.mark.parametrize("split", [None, "three_cards"], ids=["one_card", "three_cards"])
 @pytest.mark.parametrize("layout", ["sig", "unpacked"])
-def test_chunked_equals_host_driver_spilling(layout):
+def test_chunked_equals_host_driver_spilling(monkeypatch, layout, split):
     """A one-row wire on a random input whose frontier is wide: rows wait in
-    the carry rings, under both drivers alike, and the optimum holds."""
+    the carry rings, under both drivers alike, and the optimum holds; on
+    one card, and on three cards (two shards on the middle one)."""
+    if split:
+        monkeypatch.setattr(S, "_card_groups", lambda devices: SPLITS[split])
     rs = np.random.RandomState(31)
     p = Problem(tuple("".join(rs.choice(list(AMINO), size=rs.randint(12, 17)))
                       for _ in range(4)))
     (ce, cr), (he, hr) = both_drivers(p, 4, layout=layout, exchange_cap=1,
                                       hash_type="FZORDER", hash_shift=0, batch=16,
                                       chunk_steps=8)
+    assert len(ce.cards) == len(he.cards) == (3 if split else 1)
     assert cr.g == hr.g == optimal_cost(p, HPairHeuristic.build(p, "cpu"))
     assert ce.last_stats["peak_carry"] == he.last_stats["peak_carry"] > 0
     assert (cr.steps, cr.shard_stats) == (hr.steps, hr.shard_stats)
@@ -531,14 +636,60 @@ def test_chunked_max_steps_once_a_chunk():
         assert torch.equal(a, b)
 
 
-def test_driver_choice_and_refusals():
+@pytest.mark.parametrize("split", [None, "two_cards"], ids=["one_card", "two_cards"])
+@pytest.mark.parametrize("driver", ["chunked", "host"])
+def test_finished_run_frees_without_the_collector(monkeypatch, driver, split):
+    """A finished engine, its cards and its shards go by reference count
+    alone (no cycle): on the card a graph destroyed by a collection that
+    runs during a later capture would break that capture."""
+    import gc
+    import weakref
+
+    if split:
+        monkeypatch.setattr(S, "_card_groups", lambda devices: SPLITS[split])
+    eng = S.ShardedFrontierSearch(golden("PF08184.fasta"), devices=["cpu"] * 4,
+                                  capacity=1 << 14, driver=driver)
+    eng.run()
+    refs = [weakref.ref(o) for o in [eng, *eng.cards, *eng.shards]]
+    gc.disable()
+    try:
+        del eng
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
+def test_driver_choice_and_refusals(monkeypatch):
     p = golden("PF08184.fasta")
     assert S.ShardedFrontierSearch(p, devices=["cpu"] * 2).driver == "chunked"
     with pytest.raises(ValueError, match="driver"):
         S.ShardedFrontierSearch(p, devices=["cpu"] * 2, driver="graph")
-    # a mesh across cards has no chunk graph: chunked raises, never falls back
-    with pytest.raises(ValueError, match="one device"):
-        S.ShardedFrontierSearch(p, devices=LocalMesh(["cuda:0", "cuda:1"]), driver="chunked")
+    # one card: chunked, whatever the peers
+    assert S.choose_driver(LocalMesh(["cuda:0"] * 4), "auto") == "chunked"
+    # cards that are each other's peers take the chunked driver under auto;
+    # without peer access the host driver, and chunked raises there: it
+    # never falls back
+    cards = LocalMesh(["cuda:0", "cuda:1", "cuda:1", "cuda:2"])
+    for peer in (True, False):
+        monkeypatch.setattr(torch.cuda, "can_device_access_peer", lambda a, b: peer)
+        assert S.choose_driver(cards, "auto") == ("chunked" if peer else "host")
+        assert S.choose_driver(cards, "host") == "host"
+    with pytest.raises(ValueError, match="peer access"):
+        S.ShardedFrontierSearch(p, devices=cards, driver="chunked")
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: {a, b} != {0, 2})  # one pair without
+    assert S.choose_driver(cards, "auto") == "host"
+    with pytest.raises(ValueError, match="peer access"):
+        S.choose_driver(cards, "chunked")
+    # a card and the CPU have no peer access
+    assert S.choose_driver(LocalMesh(["cpu", "cuda:0"]), "auto") == "host"
+    # a several-rank ProcessMesh: the host driver; chunked raises
+    pm = ProcessMesh.__new__(ProcessMesh)
+    pm.ndev, pm.rank, pm.local, pm.multiprocess = 2, 0, [0], True
+    pm.devices = [torch.device("cpu")]
+    assert S.choose_driver(pm, "auto") == S.choose_driver(pm, "host") == "host"
+    with pytest.raises(ValueError, match="ProcessMesh"):
+        S.ShardedFrontierSearch(p, devices=pm, driver="chunked")
     # one shard, dense: the single-table search under either driver
     for driver in ("chunked", "host"):
         eng = S.ShardedFrontierSearch(p, devices=["cpu"], driver=driver)
@@ -615,16 +766,18 @@ class _StepReplay:
         card.cuda = True
 
 
+@pytest.mark.parametrize("split", [None, "two_cards"], ids=["one_card", "two_cards"])
 @pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
 @pytest.mark.parametrize("chunk", [1, 7])
-def test_chunk_replays_equal_host_driver(monkeypatch, chunk, layout):
+def test_chunk_replays_equal_host_driver(monkeypatch, chunk, layout, split):
     """The chunked driver's card branch, with a stand-in for each ring
     parity's step graph (a replay runs one plain step from its parity) on
     CPU shards: a random input whose one-row wire spills into the carry
     rings (so a replay from the wrong ring would differ), 43 steps on 4
     shards, ragged, in chunks of 1 and 7 (a stop in mid-chunk at an odd
     step), equals the host driver on every table word and ring; two
-    graphs, ``chunk`` replays a host read."""
+    graphs, ``chunk`` replays a host read; on one card, and on two (the
+    host driver then the mesh form)."""
     import contextlib
 
     def step_graphs(self, card, shards, stats):
@@ -645,6 +798,8 @@ def test_chunk_replays_equal_host_driver(monkeypatch, chunk, layout):
     monkeypatch.setattr(S.ShardedFrontierSearch, "_step_graphs", step_graphs)
     monkeypatch.setattr(S.ShardedFrontierSearch, "_search_chunked", on_card)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    if split:
+        monkeypatch.setattr(S, "_card_groups", lambda devices: SPLITS[split])
     rs = np.random.RandomState(31)
     p = Problem(tuple("".join(rs.choice(list(AMINO), size=rs.randint(12, 17)))
                       for _ in range(4)))
