@@ -164,13 +164,20 @@ Phases, each failing loudly (non-zero exit):
    one card: kinase's four shards grouped into two cards (``split_cards``),
    chunked (a stream a card, one graph a ring parity, the gathers as
    copies, every card's consensus over every shard's snapshot), held to
-   the host driver's mesh form on the same two cards table word for table
+   the host driver's rank form on the same mesh table word for table
    word and to the golden, and the first card's consensus over the
-   snapshots against its plain version.  Several cards, when there are:
-   kinase one shard a card, chunked and host in turns, equal and golden,
-   a traced chunked run, and a ProcessMesh of NCCL ranks; else it says so
-   (``--sharded-only`` runs this phase alone, ``--multi-card-only`` its
-   several-card part).
+   snapshots against its plain version.  A ProcessMesh's step on this one
+   card: kinase in the rank form (``rank_form``: a card a shard, the
+   mesh's collectives as copies in NCCL's places), chunked and dense, the
+   golden g and alignment, every table word equal to the host driver's,
+   one host read a chunk in the search and in the walk, its wall a step
+   with and without the captures, and the exchange over each rank's
+   received blocks against its plain version.  Several cards, when there
+   are: kinase one shard a card, chunked and host in turns, equal and
+   golden, a traced chunked run, and a ProcessMesh of NCCL ranks, the CLI
+   and then the engine chunked and host in turns, each rank's table words
+   equal under both; else it says so (``--sharded-only`` runs this phase
+   alone, ``--multi-card-only`` its several-card part).
 8. the kernels JSON line, then the result line.
 
 Inputs are rebuilt from tests/goldens.json (the degapped golden rows) and
@@ -2566,20 +2573,26 @@ def sharded_guard(capture_step: int = 0):
     def targets(card):
         return [tuple(t.clone() for t in x[:4]) + (x[4],) for x in card.targets()]
 
-    def consensus(card, eng, rep):
+    def consensus(card, eng):
         mine = at_step() and "k6s_tg0" not in cap
-        if mine:  # rep None: the reports read where they lie (the card form)
-            cap.update(k6s_card=card, k6s_rep=rep.clone() if rep is not None else [
-                tuple(t.clone() for t in r) for r in card.reports],
+        if mine:  # the reports as the consensus reads them, where they lie
+            cap.update(k6s_card=card, k6s_rep=[tuple(t.clone() for t in r)
+                                               for r in card.reports],
                        k6s_run0=card.run.clone(), k6s_cons0=card.cons.clone(),
                        k6s_tg0=targets(card))
-        card_methods["consensus"](card, eng, rep)
+        card_methods["consensus"](card, eng)
         if mine:
             torch.cuda.synchronize()
             cap.update(k6s_run1=card.run.clone(), k6s_cons1=card.cons.clone(),
                        k6s_tg1=targets(card))
 
     def exchange(card, eng, shards):
+        rank = at_step() and card.recv is not None  # the rank form: every rank's
+        if rank:
+            (sh,) = card.shards
+            cap.setdefault("xr", []).append(dict(
+                cons=card.cons.clone(), recv=card.recv.clone(), pend0=sh.pend.clone(),
+                go=sh.go.clone(), me=sh.me, R=sh.R, pw=sh.pw))
         mine = at_step() and "x_pend0" not in cap
         if mine:
             cap.update(x_cons=card.cons.clone(), x_wires=[sh.wire.clone() for sh in shards],
@@ -2587,6 +2600,9 @@ def sharded_guard(capture_step: int = 0):
                        x_flags=[sh.go.clone() for sh in card.shards],
                        x_me=[sh.me for sh in card.shards], x_R=shards[0].R, x_pw=shards[0].pw)
         card_methods["exchange"](card, eng, shards)
+        if rank:
+            torch.cuda.synchronize()
+            cap["xr"][-1]["pend1"] = card.shards[0].pend.clone()
         if mine:
             torch.cuda.synchronize()
             cap.update(x_pend1=[sh.pend.clone() for sh in card.shards])
@@ -2639,7 +2655,7 @@ def shard_bytes(sh) -> int:
 
     for t in (*(getattr(sh.tab, f) for f in sh.tab.__dataclass_fields__), sh.ctr, *sh.rings,
               sh.cubes, sh.tri, getattr(sh, "cand", None), getattr(sh, "keys", None),
-              getattr(sh, "wire", None), getattr(sh, "route_out", None), sh.rep, sh.recv, sh.go,
+              getattr(sh, "wire", None), getattr(sh, "route_out", None), sh.recv, sh.go,
               getattr(sh, "coords_out", None), getattr(sh, "part", None)):
         add(t)
     for f in ("slots", "vmin", "active", "state", "sel", "partial", "ticket", "run", "pend",
@@ -2705,11 +2721,12 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
     st = eng.last_stats
     wire_path = not (eng.ndev == 1 and eng.exchange == "dense")
     chunked = st["driver"] == "chunked"
-    # the mesh form (the host driver on several cards) sizes the exchange
-    # on the host
+    # the rank form's ragged exchange (the host driver on several cards) is
+    # sized on the host
     want = [k for k in SHARDED_KERNELS[eng.layout] + LOOP_KERNELS
             if (eng.cubes_split or k not in ("sig_coords", "keyrow_coords", "tri_partial"))
-            and (chunked or k != "walk_advance") and (st.get("card_form") or k != "exchange")]
+            and (chunked or k != "walk_advance")
+            and (st.get("card_form") or eng.exchange == "dense" or k != "exchange")]
     if wire_path:
         for k in want:
             if counts.get(k, 0) <= 0:
@@ -2771,7 +2788,7 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
                      if not e.key.startswith(("aten::", "cuda", "Memcpy")))
         info["step_device_all_ms"] = all_us / 1e3 / steps
     print(f"{label}: {eng.ndev} shard(s) on {info['devices']} ({info['cards']} card(s), "
-          f"{'card' if info['card_form'] else 'mesh'} form), layout {eng.layout}, exchange "
+          f"{'card' if info['card_form'] else 'rank'} form), layout {eng.layout}, exchange "
           f"{eng.exchange} (cap {eng.exchange_cap}), hash {eng.hash_type}, cubes split "
           f"{eng.cubes_split}, capacity {eng.st.C} a shard (started at {capacity0}; overflow "
           f"retries {eng.retries or 'none'}), batch {eng.st.B}; g={res.g} ok, path cost == g, "
@@ -3457,11 +3474,11 @@ def keyrow_kernel_checks(cap: dict, shards) -> dict:
     return out
 
 
-def process_mesh_run(path: str, gold: dict, ranks: int, timeout: int = 300) -> dict:
-    """The CLI as ``ranks`` processes of one torch.distributed group (NCCL
-    for the shards' tensors, gloo for the problem's broadcast), a card
-    each: every rank must print the golden Final Score.  Every process is
-    stopped at ``timeout`` seconds."""
+def run_ranks(argv, ranks: int, timeout: int, label: str):
+    """``argv`` as ``ranks`` processes of one torch.distributed group
+    (NCCL for the shards' tensors, gloo for the problem's broadcast), a
+    card each; every process is stopped at ``timeout`` seconds.  Returns
+    each rank's output and the wall."""
     import socket
 
     sock = socket.socket()
@@ -3473,30 +3490,77 @@ def process_mesh_run(path: str, gold: dict, ranks: int, timeout: int = 300) -> d
     for rank in range(ranks):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(ranks), MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(port))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "mpi_pastar_msa_tpu_torch", "--engine", "frontier",
-             "--devices", str(ranks), path], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+        procs.append(subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
     outs = []
     try:
         for p in procs:
             outs.append(p.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0])
     except subprocess.TimeoutExpired:
-        fail(f"ProcessMesh run of {ranks} ranks exceeded {timeout} s")
+        fail(f"{label} of {ranks} ranks exceeded {timeout} s")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    wall = time.perf_counter() - t0
-    want = f"g - {gold['optimal_g']} "
     for rank, (p, text) in enumerate(zip(procs, outs)):
-        if p.returncode != 0 or want not in text:
-            fail(f"ProcessMesh rank {rank}: exit {p.returncode}\n{text[-3000:]}")
+        if p.returncode != 0:
+            fail(f"{label}, rank {rank}: exit {p.returncode}\n{text[-3000:]}")
+    return outs, time.perf_counter() - t0
+
+
+def process_mesh_run(path: str, gold: dict, ranks: int, timeout: int = 400) -> dict:
+    """Kinase on a ProcessMesh of ``ranks`` NCCL ranks, a card each: the
+    CLI (``--exchange auto``: dense, the chunked driver, each rank
+    replaying its own step graphs with the mesh's collectives captured in
+    them), every rank the golden Final Score; then
+    tools/process_mesh_turns.py, the engine under the chunked and the host
+    driver in turns (chunked, host, host, chunked; dense, chunks of 256),
+    every rank each time the golden g and alignment, the chunked driver
+    one host read a chunk, and the same table words under both drivers
+    (a hash a rank); each rank's driver, host reads a step and wall a step
+    printed."""
+    outs, wall = run_ranks([sys.executable, "-m", "mpi_pastar_msa_tpu_torch", "--engine",
+                            "frontier", "--devices", str(ranks), path], ranks, timeout,
+                           "ProcessMesh CLI run")
+    want = f"g - {gold['optimal_g']} "
+    for rank, text in enumerate(outs):
+        if want not in text or "driver chunked," not in text:
+            fail(f"ProcessMesh rank {rank}: no {want.strip()} under the chunked "
+                 f"driver\n{text[-3000:]}")
     line = next((l for l in outs[0].splitlines() if l.startswith("sharded:")), "")
-    print(f"kinase on a ProcessMesh of {ranks} ranks (NCCL, a card each): every rank "
+    print(f"kinase on a ProcessMesh of {ranks} ranks (NCCL, a card each), the CLI: every rank "
           f"{want.strip()} in {wall:.1f} s; rank 0: {line}")
-    return dict(ranks=ranks, wall_s=wall, rank0=line)
+    order = ["chunked", "host", "host", "chunked"]
+    touts, twall = run_ranks([sys.executable, os.path.join("tools", "process_mesh_turns.py"),
+                              path, "--drivers", ",".join(order)], ranks, timeout,
+                             "ProcessMesh turns")
+    runs = []
+    for rank, text in enumerate(touts):
+        mine = [json.loads(l.split(" ", 1)[1]) for l in text.splitlines()
+                if l.startswith("RANK_RUN ")]
+        if [r["driver"] for r in mine] != order:
+            fail(f"ProcessMesh turns, rank {rank}: drivers {[r['driver'] for r in mine]}\n"
+                 f"{text[-3000:]}")
+        for r in mine:
+            steps = max(r["steps"], 1)
+            if (r["g"] != gold["optimal_g"] or r["alignment"] != gold["alignment"]
+                    or r["exchange"] != "dense"
+                    or (r["driver"] == "chunked" and r["host_reads"] != -(-steps // 256))):
+                fail(f"ProcessMesh turns, rank {rank}, {r['driver']}: g {r['g']}, exchange "
+                     f"{r['exchange']}, {r['host_reads']} host reads for {steps} steps, "
+                     f"alignment golden {r['alignment'] == gold['alignment']}")
+            r.pop("alignment")
+        if len({r["hash"] for r in mine}) != 1:
+            fail(f"ProcessMesh turns, rank {rank}: the drivers' table words differ")
+        runs.append(mine)
+        print(f"  rank {rank}: " + "; ".join(
+            f"{r['driver']} g {r['g']}, {r['host_reads_a_step']:.4f} host reads a step, "
+            f"{r['step_ms']:.3f} ms a step ({r['step_ms_no_capture']:.3f} without the "
+            f"captures: {r['capture_parts']}), walk {r['walk_reads']} reads; launches "
+            f"{ {k: r['launches'].get(k, 0) for k in LOOP_KERNELS} }" for r in mine))
+    return dict(ranks=ranks, wall_s=wall, rank0=line, turns=runs, turns_wall_s=twall,
+                order=order)
 
 
 def loop_words(eng) -> list:
@@ -3530,6 +3594,23 @@ def split_cards(groups):
         yield
     finally:
         SH._card_groups = saved
+
+
+@contextlib.contextmanager
+def rank_form():
+    """The sharded engine's LocalMesh in the step's rank form (a card a
+    shard, the mesh's collectives as copies into each rank's buffers, the
+    dense exchange from each rank's received blocks): the step graph a
+    ProcessMesh rank captures, with copies in NCCL's places, on one card
+    (NCCL takes one rank a card)."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    saved = SH._rank_form
+    SH._rank_form = lambda mesh: True
+    try:
+        yield
+    finally:
+        SH._rank_form = saved
 
 
 def words_equal(label: str, a, b) -> int:
@@ -3593,6 +3674,111 @@ def split_consensus_check(eng, floor: dict) -> dict:
     out["consensus"].update(launch_floor_ms=floor["device_ms"], targets=len(tg), reports=ndev,
                             cards=len(eng.cards))
     return out["consensus"]
+
+
+def rank_exchange_check(cap: dict, eng, floor: dict) -> dict:
+    """The rank form's exchange at the captured step (sharded_guard's
+    ``xr``: every rank's consensus vector, received blocks, pending list
+    and insert flag before its exchange, and its pending list after): on
+    each rank the kernel with ``received`` (sender i's rows at row i cap of
+    the rank's blocks) from the captured inputs, exchange_plain on the
+    same, the run's own output, and exchange_plain over the senders' own
+    wires at that step (the card form's reading), bit for bit; timed on
+    the rank that receives the most rows as timed_check (the rows read and
+    written, the flag, A's column)."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    ndev, xcap = eng.ndev, eng.exchange_cap
+    ranks = cap.get("xr", [])
+    if len(ranks) != ndev:
+        fail(f"rank form: {len(ranks)} ranks' exchanges captured, want {ndev}")
+    err, best = 0, None
+    for x in ranks:
+        R, pw, me = x["R"], x["pw"], x["me"]
+        wires = [x["recv"]] * ndev
+        outs = []
+        for way in ("kernel", "plain", "senders"):
+            pend = x["pend0"].clone()
+            if way == "kernel":
+                SH.exchange_cuda(x["cons"], ndev, xcap, False, R, pw,
+                                 SH.exchange_table(wires, [pend], [x["go"]], [me]),
+                                 received=True)
+            elif way == "plain":
+                SH.exchange_plain(x["cons"], ndev, xcap, False, R, wires, [pend], [x["go"]],
+                                  [me], received=True)
+            else:
+                SH.exchange_plain(x["cons"], ndev, xcap, False, R, cap["x_wires"], [pend],
+                                  [x["go"]], [me])
+            torch.cuda.synchronize()
+            outs.append(pend)
+        outs.append(x["pend1"])
+        err = max(err, *(int((outs[0].long() - o.long()).abs().max()) for o in outs[1:]))
+        rows = int(SH.cons_sizes(x["cons"], ndev)[:, me].sum()) if int(x["go"][0]) else 0
+        if best is None or rows > best[0]:
+            best = (rows, x)
+    if err:
+        fail(f"exchange over the received blocks differs from its plain version by {err}")
+    rows, x = best
+    R, pw, me = x["R"], x["pw"], x["me"]
+    pend = x["pend0"].clone()
+    xtab = SH.exchange_table([x["recv"]] * ndev, [pend], [x["go"]], [me])
+    out = {}
+    timed_check(out, "exchange_received", err,
+                lambda: SH.exchange_cuda(x["cons"], ndev, xcap, False, R, pw, xtab,
+                                         received=True),
+                lambda: SH.exchange_plain(x["cons"], ndev, xcap, False, R, [x["recv"]] * ndev,
+                                          [pend], [x["go"]], [me], received=True),
+                rows * pw * 4 * 2 + 4 + ndev * 8, restore=lambda: pend.copy_(x["pend0"]))
+    out = out["exchange_received"]
+    sizes = SH.cons_sizes(x["cons"], ndev).cpu().tolist()
+    out.update(launch_floor_ms=floor["device_ms"], rows=rows, row_words=pw, ranks=ndev,
+               rank=me, sizes=sizes, step=cap["at"])
+    if rows <= 0:
+        fail(f"rank form: no rank received a row at step {cap['at']}: A {sizes}")
+    print(f"  rank form, step {cap['at']}: every rank's exchange over its received blocks "
+          f"equal to its plain version, to the run's and to the senders' wires; rank {me} "
+          f"{rows} rows of {pw} words (A {sizes})")
+    return out
+
+
+def rank_form_phase(path: str, gold: dict, floor: dict) -> dict:
+    """Kinase on [cuda:0] * 4 in the rank form (``rank_form``; dense): the
+    chunked driver (a ProcessMesh's step graph on one card, each rank's
+    collectives captured as copies; a chunk 256 replays of the two parity
+    graphs, the four ranks in one graph a parity here), then the host
+    driver on the same form with step 200 captured: g = 421546 and the
+    golden alignment both, every table word equal, the chunked run one
+    host read a chunk in the search and in the walk (kinase: 3 for 525
+    steps, 3 for its rounds); its wall a step with and without the
+    captures; the exchange over each rank's received blocks at step 200
+    against its plain version (rank_exchange_check)."""
+    from mpi_pastar_msa_tpu_torch.parallel.sharded import WALK_ROUNDS
+
+    card = torch.device("cuda", 0)
+    with rank_form():
+        out, re, _ = sharded_run("kinase sharded 4, rank form (copies in NCCL's places)", path,
+                                 gold, [card] * 4, True, exchange="dense", driver="chunked")
+        host, he, cap = sharded_run("kinase sharded 4, rank form, host driver", path, gold,
+                                    [card] * 4, True, capture_step=200, exchange="dense",
+                                    driver="host")
+    steps = max(out["steps"], 1)
+    if (out["card_form"] or host["card_form"] or out["cards"] != 4 or out["driver"] != "chunked"
+            or out["host_reads"] != -(-steps // 256) or out["graph_captures"] != 2
+            or out["walk_reads"] != -(-out["walk_rounds"] // WALK_ROUNDS)):
+        fail(f"kinase rank form: card form {out['card_form']}, {out['cards']} cards, driver "
+             f"{out['driver']}, {out['host_reads']} host reads for {steps} steps, "
+             f"{out['graph_captures']} captures, {out['walk_reads']} walk reads for "
+             f"{out['walk_rounds']} rounds")
+    out["words_equal"] = words_equal("kinase rank form against the host driver", re, he)
+    out["host_driver"] = {k: host[k] for k in ("step_wall_ms", "host_reads", "walk_reads",
+                                                "steps")}
+    out["exchange_received"] = rank_exchange_check(cap, he, floor)
+    print(f"  kinase rank form: {out['host_reads']} host reads for {out['steps']} steps "
+          f"({out['host_reads_a_step']:.4f} a step), walk {out['walk_reads']} reads for "
+          f"{out['walk_rounds']} rounds; a step {out['step_wall_ms']:.3f} ms, "
+          f"{out['step_wall_no_capture_ms']:.3f} without the captures; equal to the host "
+          f"driver ({host['step_wall_ms']:.3f} ms a step) on {out['words_equal']} tensors")
+    return out
 
 
 def driver_turns(label: str, path: str, steps: int = 256, **kw):
@@ -3665,15 +3851,14 @@ def loop_kernel_checks(cap: dict, floor: dict, k6s_baseline=None) -> dict:
     ndev, ragged = eng.ndev, eng.exchange == "ragged"
     args = (ndev, eng.exchange_cap, ragged, eng.layout, eng.st.nb, eng.st.f0,
             card.shards[0].ccar)
-    # the reports: gathered rows (the mesh form), or each shard's words
-    # where they lie (the card form), as captured before the consensus
+    # the reports: each shard's words where they lie (the card form), as
+    # captured before the consensus
     rep = cap["k6s_rep"]
     tg = [tuple(t.clone() for t in x[:4]) + (x[4],) for x in cap["k6s_tg0"]]
-    if not isinstance(rep, torch.Tensor):
-        # a target's report words are its own counters and state (the live
-        # words of one card): the copies stand in for both
-        own = {x[4]: x for x in tg}
-        rep = [(own[me][0], own[me][1], r[2]) if me in own else r for me, r in enumerate(rep)]
+    # a target's report words are its own counters and state (the live
+    # words of one card): the copies stand in for both
+    own = {x[4]: x for x in tg}
+    rep = [(own[me][0], own[me][1], r[2]) if me in own else r for me, r in enumerate(rep)]
     run, cons = cap["k6s_run0"].clone(), cap["k6s_cons0"].clone()
 
     def restore_c():
@@ -4001,7 +4186,7 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
     # the several-card step on one card: the four shards grouped into two
     # cards (0, 1 | 2, 3), each with its stream, joined by events in one
     # graph a ring parity, the gathers as copies, a consensus and an
-    # exchange a card; then the host driver's mesh form on the same two
+    # exchange a card; then the host driver's rank form on the same
     # cards; every table word equal, the golden alignment
     with split_cards([[0, 1], [2, 3]]):
         out["kinase_split"], ce, _ = sharded_run(
@@ -4020,6 +4205,9 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
           f"tensors; consensus over the snapshots {out['split_consensus']['device_ms']:.4f} ms "
           f"device")
     del ce, he
+    # a ProcessMesh's step on this one card: the rank form, a card a shard,
+    # the mesh's collectives as copies in each rank's step graph
+    out["rank_form"] = rank_form_phase(paths["kinase.fasta"], k, floor)
     # each layout in turns (chunked, then host, 256 steps), then the host
     # driver's full run on the same engine, whose step 200 is captured for
     # the kernel checks
@@ -4133,7 +4321,7 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
 def multi_card_phase(path: str, gold: dict) -> dict:
     """Kinase on every card of the machine, one shard a card (``-t N`` on
     N cards): the chunked driver (one graph a ring parity spanning the
-    cards, peer reads; auto there) and the host driver (the mesh form) in
+    cards, peer reads; auto there) and the host driver (the rank form) in
     turns (chunked, host, host, chunked), each against the golden; the
     first two held equal table word for table word; then a chunked run
     traced (device time a step, every card's kernels summed)."""
@@ -4926,6 +5114,21 @@ def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
             split["multi_card_launches"] = [r["launches"][name]
                                             for r in sh["multi_card"]["runs"]]
         entry["split_cards"] = split
+        # a ProcessMesh's step graph on one card (the rank form): its
+        # launches there, and the exchange over each rank's received blocks
+        # checked and timed on its last step
+        rank = dict(launches=sh["rank_form"]["launches"][name],
+                    run="kinase sharded 4, rank form on one card (chunked driver, dense)")
+        if name == "exchange":
+            rank.update({k: v for k, v in sh["rank_form"]["exchange_received"].items()
+                         if k != "bytes"})
+        if isinstance(sh.get("multi_process"), dict):
+            # each rank's launches in each turn, where the machine has cards
+            # for a ProcessMesh
+            mp = sh["multi_process"]
+            rank["process_mesh"] = dict(order=mp["order"], launches=[
+                [r["launches"].get(name, 0) for r in runs] for runs in mp["turns"]])
+        entry["rank_form"] = rank
         kernels.append(entry)
     return kernels
 
@@ -5005,8 +5208,9 @@ def main() -> int:
                          "result line)")
     ap.add_argument("--multi-card-only", action="store_true",
                     help="run the device, build and the sharded engine's multi-card "
-                         "phase only (kinase on every card, chunked and host in turns; "
-                         "two cards or more; prints no result line)")
+                         "phase only (kinase on every card, chunked and host in turns, "
+                         "then on a ProcessMesh of one NCCL rank a card, chunked and "
+                         "host in turns; two cards or more; prints no result line)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace 32 mid-search steps with torch.profiler "
                          "(device time by kernel, launches and host reads a "
@@ -5084,6 +5288,9 @@ def main() -> int:
             if torch.cuda.device_count() < 2:
                 fail("--multi-card-only needs two cards or more")
             report["multi_card"] = multi_card_phase(paths["kinase.fasta"], gold["kinase.fasta"])
+            report["multi_process"] = process_mesh_run(paths["kinase.fasta"],
+                                                       gold["kinase.fasta"],
+                                                       torch.cuda.device_count())
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         if args.sharded_only:

@@ -124,7 +124,7 @@ SIGNATURES: Dict[str, List] = {
     # the table of the shards' runs, ndev, hops, N, params, masks, their
     # room, walk state, walk flag, stream
     "consensus": [_P, _I, _I, _I, _I, _I, _I, _L, _L, _P, _P, _I, _P, _P],
-    "exchange": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "exchange": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "walk_advance": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
 }
 #: host entries that launch no kernel (``call``, not counted): peer access

@@ -36,7 +36,10 @@
 //   exchange: for every receiver r on this card, A[i][r] rows of sender
 //     i's wire (on this card or a peer) (ragged: from row sum_{j<r} A[i][j]; dense: from r cap)
 //     into the receiver's pending list, in sender order, ending at row R
-//     where its self-owned lanes begin.
+//     where its self-owned lanes begin.  With `received` the dense rows
+//     come from the receiver's own buffer after a fixed-shape all-to-all
+//     of the wires (a rank of a ProcessMesh, NCCL's all_to_all_single):
+//     sender i's block for it at row i cap.
 //   walk_advance: after every shard's hop-limited walk (path_walk.cu) of a
 //     round, the sum of the runs (one shard's is non-zero; each read where
 //     it lies, on this card or a peer), its masks appended, the card's own
@@ -48,7 +51,11 @@
 // collective and no host read sizes the exchange, so one graph of the
 // whole mesh's step holds it (parallel/sharded.py).  Two host entries
 // serve that mesh: peer_access, and copy_table, the step's gathers as
-// copies.
+// copies.  Across processes (a ProcessMesh, one shard a rank) each rank's
+// step graph holds the mesh's fixed-shape NCCL collectives instead: the
+// gathered reports' rows are read in this rank's buffer, and the exchange
+// copies from the rank's received wire blocks (`received`), every size
+// still read on the device.
 //
 // What bounds them on an H100: latency, not bytes or operations.  The
 // consensus reads ndev x 14 words and writes a few dozen (kinase on 4
@@ -285,8 +292,8 @@ struct XTable {
 };
 
 __global__ void __launch_bounds__(kExchangeThreads) exchange_kernel(
-    const long long* __restrict__ cons, int ndev, int cap, int ragged, int R, int pw,
-    const __grid_constant__ XTable x) {
+    const long long* __restrict__ cons, int ndev, int cap, int ragged, int received, int R,
+    int pw, const __grid_constant__ XTable x) {
   // s_at[i]: the receiver's rows before sender i's (s_at[ndev]: all of
   // them); s_src[i]: sender i's first row for it in its wire
   __shared__ long long s_at[kMaxDev + 1], s_src[kMaxDev];
@@ -307,7 +314,7 @@ __global__ void __launch_bounds__(kExchangeThreads) exchange_kernel(
       off += j < r ? v[j] : 0;
       n += j == r ? v[j] : 0;
     }
-    if (!ragged) off = (long long)r * cap;
+    if (!ragged) off = (long long)(received ? i : r) * cap;
   }
   if (*x.flag[b] == 0) return;  // the whole block
   if (i < 32) {
@@ -454,12 +461,14 @@ extern "C" int consensus(const void* rtab, int rwords, int ndev, int cap, int ra
 // the n_recv receivers on this card its pending list (int32 rows of pw
 // words), its insert flag (int32) and its shard index (addresses, copied
 // into the launch's parameters: a graph keeps the copy); R: the received
-// region's end, ndev cap; pw at most kMaxRowWords.  kExchangeBlocks
-// blocks a receiver.
-extern "C" int exchange(const void* cons, int ndev, int cap, int ragged, int R, int pw,
-                        const void* xtab, int n_recv, void* stream) {
+// region's end, ndev cap; pw at most kMaxRowWords; received (dense only):
+// sender i's rows at row i cap of the wire its entry names (a receiver's
+// buffer after the all-to-all), else at row r cap of sender i's own wire.
+// kExchangeBlocks blocks a receiver.
+extern "C" int exchange(const void* cons, int ndev, int cap, int ragged, int received, int R,
+                        int pw, const void* xtab, int n_recv, void* stream) {
   if (cons == nullptr || xtab == nullptr || ndev < 1 || ndev > kMaxDev || cap < 1 || R < 0 ||
-      pw < 1 || pw > kMaxRowWords || n_recv < 1 || n_recv > ndev)
+      pw < 1 || pw > kMaxRowWords || n_recv < 1 || n_recv > ndev || (ragged && received))
     return (int)cudaErrorInvalidValue;
   XTable x = {};
   const long long* t = (const long long*)xtab;
@@ -475,7 +484,7 @@ extern "C" int exchange(const void* cons, int ndev, int cap, int ragged, int R, 
     x.me[b] = (int)e[2];
   }
   exchange_kernel<<<dim3(n_recv, kExchangeBlocks), kExchangeThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)cons, ndev, cap, ragged, R, pw, x);
+      (const long long*)cons, ndev, cap, ragged, received, R, pw, x);
   return (int)cudaGetLastError();
 }
 

@@ -28,9 +28,13 @@ Two meshes:
                       tensors, NCCL for CUDA ones); ``init_distributed``
                       (parallel/multihost.py) starts the group.
 Sizes given to the ragged op are host integers: the caller has read them.
-The mesh serves the host driver's mesh form of the sharded step; the
-chunked driver's card form reads its peers' buffers by address instead
-(parallel/sharded.py).
+Every other op writes into ``outs`` (one preallocated tensor a local
+shard) when it is given, allocates nothing and reads no value on the
+host, so a CUDA graph may hold it: on a ProcessMesh the NCCL call itself
+(captured into each rank's step graph), on a LocalMesh copies and in-place
+sums.  Without ``outs`` it allocates its outputs.  The meshes serve the
+sharded step's rank form (one shard a rank); the card form of a LocalMesh
+reads its peers' buffers by address instead (parallel/sharded.py).
 """
 from __future__ import annotations
 
@@ -50,12 +54,17 @@ class LocalMesh:
         self.local = list(range(self.ndev))
         self.multiprocess = False
 
-    def all_to_all(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        out = [torch.empty_like(x, device=self.devices[j]) for j, x in enumerate(xs)]
+    def _outs(self, outs, shape, like: torch.Tensor) -> List[torch.Tensor]:
+        if outs is not None:
+            return list(outs)
+        return [torch.empty(shape, dtype=like.dtype, device=d) for d in self.devices]
+
+    def all_to_all(self, xs: List[torch.Tensor], outs=None) -> List[torch.Tensor]:
+        outs = self._outs(outs, xs[0].shape, xs[0])
         for i, x in enumerate(xs):
             for j in range(self.ndev):
-                out[j][i].copy_(x[j], non_blocking=True)
-        return out
+                outs[j][i].copy_(x[j], non_blocking=True)
+        return outs
 
     def all_to_all_ragged(self, xs, send_off, sizes, outs) -> None:
         """Into ``outs`` (one a shard, rows from 0 in sender order)."""
@@ -68,34 +77,41 @@ class LocalMesh:
                     outs[j][at[j]:at[j] + n].copy_(x[o:o + n], non_blocking=True)
                     at[j] += n
 
-    def all_gather(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        full = {}
-        for d in self.devices:
-            if d not in full:
-                full[d] = torch.stack([x.to(d, non_blocking=True) for x in xs])
-        return [full[d] for d in self.devices]
+    def all_gather(self, xs: List[torch.Tensor], outs=None) -> List[torch.Tensor]:
+        outs = self._outs(outs, (self.ndev,) + tuple(xs[0].shape), xs[0])
+        for out in outs:
+            for i, x in enumerate(xs):
+                out[i].copy_(x, non_blocking=True)
+        return outs
 
-    def reduce_scatter(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def reduce_scatter(self, xs: List[torch.Tensor], outs=None) -> List[torch.Tensor]:
         B = xs[0].shape[0] // self.ndev
-        out = []
-        for j, d in enumerate(self.devices):
-            acc = xs[0][j * B:(j + 1) * B].to(d, copy=True)
+        outs = self._outs(outs, (B,) + tuple(xs[0].shape[1:]), xs[0])
+        for j, out in enumerate(outs):
+            out.copy_(xs[0][j * B:(j + 1) * B], non_blocking=True)
             for x in xs[1:]:
-                acc += x[j * B:(j + 1) * B].to(d, non_blocking=True)
-            out.append(acc)
-        return out
+                out.add_(x[j * B:(j + 1) * B].to(out.device, non_blocking=True))
+        return outs
 
-    def all_sum(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        full = {}
-        for d in self.devices:
-            if d not in full:
-                full[d] = sum(x.to(d) for x in xs[1:]) + xs[0].to(d)
-        return [full[d] for d in self.devices]
+    def all_sum(self, xs: List[torch.Tensor], outs=None) -> List[torch.Tensor]:
+        """The sum into ``outs[0]``, then copied into the others: ``outs``
+        may be ``xs`` (in place)."""
+        outs = self._outs(outs, xs[0].shape, xs[0])
+        total = outs[0]
+        if total is not xs[0]:
+            total.copy_(xs[0], non_blocking=True)
+        for x in xs[1:]:
+            total.add_(x.to(total.device, non_blocking=True))
+        for out in outs[1:]:
+            out.copy_(total, non_blocking=True)
+        return outs
 
 
 class ProcessMesh:
     """One shard a rank of the default torch.distributed group, on
-    ``device`` (the rank's card, or the CPU)."""
+    ``device`` (the rank's card, or the CPU).  Each op is one collective
+    of the group on contiguous tensors; with ``outs`` it is NCCL's (or
+    gloo's) call alone, on fixed shapes."""
 
     def __init__(self, device):
         import torch.distributed as dist
@@ -112,10 +128,10 @@ class ProcessMesh:
         if self.devices[0].type == "cuda":
             torch.cuda.set_device(self.devices[0])  # NCCL's and the kernels' card
 
-    def all_to_all(self, xs):
+    def all_to_all(self, xs, outs=None):
         (x,) = xs
-        out = torch.empty_like(x)
-        self._dist.all_to_all_single(out, x.contiguous())
+        out = torch.empty_like(x) if outs is None else outs[0]
+        self._dist.all_to_all_single(out, x)
         return [out]
 
     def all_to_all_ragged(self, xs, send_off, sizes, outs) -> None:
@@ -131,22 +147,26 @@ class ProcessMesh:
                                      input_split_sizes=send)
         out[:sum(recv)].copy_(dst)
 
-    def all_gather(self, xs):
+    def all_gather(self, xs, outs=None):
         (x,) = xs
-        out = torch.empty((self.ndev * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
-                          device=x.device)
-        self._dist.all_gather_into_tensor(out, x.contiguous())
-        return [out.view((self.ndev,) + tuple(x.shape))]
-
-    def reduce_scatter(self, xs):
-        (x,) = xs
-        out = torch.empty((x.shape[0] // self.ndev,) + tuple(x.shape[1:]), dtype=x.dtype,
-                          device=x.device)
-        self._dist.reduce_scatter_tensor(out, x.contiguous())
+        shape = (self.ndev,) + tuple(x.shape)
+        out = torch.empty(shape, dtype=x.dtype, device=x.device) if outs is None else outs[0]
+        # the concatenated form of the (ndev, ...) stack, as gloo takes it too
+        self._dist.all_gather_into_tensor(
+            out.view((self.ndev * x.shape[0],) + tuple(x.shape[1:])), x)
         return [out]
 
-    def all_sum(self, xs):
+    def reduce_scatter(self, xs, outs=None):
         (x,) = xs
-        x = x.clone()
-        self._dist.all_reduce(x)
-        return [x]
+        out = (torch.empty((x.shape[0] // self.ndev,) + tuple(x.shape[1:]), dtype=x.dtype,
+                           device=x.device) if outs is None else outs[0])
+        self._dist.reduce_scatter_tensor(out, x)
+        return [out]
+
+    def all_sum(self, xs, outs=None):
+        (x,) = xs
+        out = torch.empty_like(x) if outs is None else outs[0]
+        if out is not x:
+            out.copy_(x)
+        self._dist.all_reduce(out)
+        return [out]

@@ -37,9 +37,10 @@ the mesh's collectives between (``mesh.py``):
      flag of the next step (the stop test);
   6. ``exchange`` (csrc/shard_loop.cu) moves the wire rows, A[i][r] from
      sender i to receiver r, into each receiver's pending list just before
-     its self-owned lanes, every size read on the device (the mesh form,
-     below, reads A on the host and runs the mesh's all-to-all, dense or
-     ragged, as NCCL needs its split sizes there);
+     its self-owned lanes, every size read on the device (the rank form,
+     below, first moves the wires with the mesh's fixed-shape all-to-all;
+     its ragged exchange reads A on the host, as NCCL needs its split
+     sizes there);
   7. the insert (K5 on sig, K10 on key rows) places the received rows and
      the self-owned pending lanes, reading where the list starts and how
      many rows were received on the device, then writes the counters and
@@ -61,9 +62,13 @@ peers' snapshots, wires and walk runs by address, the phases joined by
 events between the cards' streams.  The chunked driver (JAX's, one host
 read a chunk) captures one step of the whole mesh, every card in it, as
 a CUDA graph for each parity of the carry rings, and runs a chunk as that
-many replays of the two in turn.  The mesh form (the host driver on
-several cards, a ``ProcessMesh``) runs the mesh's collectives and reads
-the consensus once a step to size the exchange.  A CPU shard
+many replays of the two in turn.  The rank form (a ``ProcessMesh``, one
+shard a rank; the host driver on a LocalMesh of several cards) runs the
+mesh's collectives between the phases, each into a preallocated buffer
+and with no host value, so each rank captures its own step graph with
+NCCL's calls in it, and the chunked driver replays it as the card form's;
+only its ragged exchange reads the consensus on the host, once a step.
+A CPU shard
 runs the plain versions of every kernel (``_select_best_plain``, ``_select_open_plain``,
 ``sig_coords_plain``, ``keyrow_coords_plain``, ``tri_partial_plain``,
 ``expand_sharded_plain``, ``expand_keyrow_sharded_plain``,
@@ -74,8 +79,9 @@ rounds (JAX ``_make_batched_walk``): every shard walks at most K = 8 hops
 from the current coordinate on its own table (K7's hop-limited mode, any
 layout), stopping where another shard owns the node; the runs are summed
 (one shard's is non-zero) and the coordinate moves on: under the chunked
-driver ``walk_advance`` on the device, WALK_ROUNDS rounds a host read,
-under the host driver the mesh's sum and one host read a round.
+driver ``walk_advance`` on the device, WALK_ROUNDS rounds a host read
+(in the rank form after the mesh's sum of the runs), under the host
+driver the mesh's sum and one host read a round.
 
 One shard with the dense exchange is the single-table search itself
 (JAX's ndev == 1 fast path): the engine's chunk (``_run_chunk``: on a
@@ -621,13 +627,18 @@ def consensus_plain(reports, ndev: int, cap: int, ragged: bool, layout: str, nb:
 
 def exchange_plain(cons: torch.Tensor, ndev: int, cap: int, ragged: bool, R: int,
                    wires: Sequence[torch.Tensor], pends: Sequence[torch.Tensor],
-                   flags: Sequence[torch.Tensor], recv_me: Sequence[int]) -> None:
+                   flags: Sequence[torch.Tensor], recv_me: Sequence[int],
+                   received: bool = False) -> None:
     """The plain version of ``exchange`` (csrc/shard_loop.cu; the
     all_to_all of ``_route_cap`` :148 and ``_route_ragged`` :231 with the
     sizes read from A on the device): for each receiver b (shard
-    recv_me[b]) whose insert flag flags[b] is set, A[i][r] rows of sender
-    i's wire (ragged: from row sum_{j<r} A[i][j]; dense: from r cap) into
-    pends[b], in sender order, ending at row R, in place."""
+    recv_me[b]) whose insert flag flags[b] is set, A[i][r] rows of
+    ``wires[i]`` (ragged: from row sum_{j<r} A[i][j]; dense: from r cap of
+    sender i's wire, or with ``received`` from i cap of the receiver's
+    buffer after the dense all-to-all) into pends[b], in sender order,
+    ending at row R, in place."""
+    if ragged and received:
+        raise ValueError("exchange: the received blocks of a dense all-to-all, not ragged")
     A = cons_sizes(cons, ndev).cpu().numpy()
     for pend, flag, r in zip(pends, flags, recv_me):
         if not int(flag[0]):
@@ -635,7 +646,7 @@ def exchange_plain(cons: torch.Tensor, ndev: int, cap: int, ragged: bool, R: int
         at = R - int(A[:, r].sum())
         for i in range(ndev):
             n = int(A[i][r])
-            off = int(A[i][:r].sum()) if ragged else r * cap
+            off = int(A[i][:r].sum()) if ragged else (i if received else r) * cap
             pend[at:at + n] = wires[i][off:off + n]
             at += n
 
@@ -757,23 +768,25 @@ def exchange_table(wires: Sequence[torch.Tensor], pends: Sequence[torch.Tensor],
 
 
 def exchange_cuda(cons: torch.Tensor, ndev: int, cap: int, ragged: bool, R: int, pw: int,
-                  xtab: torch.Tensor, launch=None) -> None:
+                  xtab: torch.Tensor, launch=None, received: bool = False) -> None:
     """``exchange`` (csrc/shard_loop.cu) on the card: ``exchange_plain``
-    with the senders' wires and the receivers' pending lists, flags and
-    indices as ``xtab`` (``exchange_table``, in host memory: the C entry
-    copies it into the launch's parameters); ``launch`` as
-    ``_tri_partial_cuda``'s."""
+    with the senders' wires (with ``received``, the receiver's buffer of
+    received blocks, named once a sender) and the receivers' pending
+    lists, flags and indices as ``xtab`` (``exchange_table``, in host
+    memory: the C entry copies it into the launch's parameters);
+    ``launch`` as ``_tri_partial_cuda``'s."""
     dev = cons.device
     _check(cons, "cons", dev, torch.int64, cons_words(ndev))
     _check(xtab, "xtab", torch.device("cpu"), torch.int64, ndev)
     n = (xtab.numel() - ndev) // 3
     if (not 1 <= n <= ndev <= MAX_SHARDS or xtab.numel() != ndev + 3 * n or R < 0
-            or not 1 <= pw <= EXCHANGE_ROW_WORDS):
+            or not 1 <= pw <= EXCHANGE_ROW_WORDS or (ragged and received)):
         raise ValueError(f"exchange: {n} receivers of {ndev} shards ({xtab.numel()} table "
-                         f"words), R {R}, {pw} words a row")
+                         f"words), R {R}, {pw} words a row, ragged {ragged}, received "
+                         f"{received}")
     (launch or _kernels.launch)(
-        "exchange", cons.data_ptr(), ndev, int(cap), int(ragged), int(R), int(pw),
-        xtab.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+        "exchange", cons.data_ptr(), ndev, int(cap), int(ragged), int(received), int(R),
+        int(pw), xtab.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
 
 
 def walk_advance_cuda(wtab: torch.Tensor, hops: int, n: int, params: torch.Tensor,
@@ -990,7 +1003,6 @@ class _Shard:
         self.cur = 0
         self.go = torch.zeros(1, **i32)    # the insert's flag (the consensus sets it)
         self.recv = torch.zeros(1, **i32)  # rows received this step (the consensus)
-        self.rep = torch.zeros(R_ROUTE + ndev + 3, dtype=torch.int64, device=device)
         self.wire = torch.zeros((max(self.R, L + self.ccar), self.pw), **i32)
         self.cubes = self.tri = None
         if eng.cubes_split:
@@ -1202,12 +1214,7 @@ class _Shard:
             self.route_out.copy_(out)
         self.cur = nxt
 
-    # 5. the report the consensus reads: goal, overflow, K3's five, K11's out
-    @_on_device
-    def report(self) -> torch.Tensor:
-        return report_row(self.ctr, self.state, self.route_out, out=self.rep)
-
-    # 6. the insert of the received rows (the exchange put them before row
+    # 5. the insert of the received rows (the exchange put them before row
     # R of the pending list) and the self-owned lanes, under the flag the
     # consensus set, with its goal, f-min and rows selected in the state
     @_on_device
@@ -1260,10 +1267,13 @@ class _Shard:
 class _Card:
     """This process's shards on one device and what their step shares
     there: the run flag, the consensus vector, in the card form of the
-    step (every shard of the mesh in this process, ``_card_form``) the
+    step (every shard of the mesh in this process, ``card_form``) the
     buffers every shard of the mesh has its row of (the batch's
     coordinates, K12's partials, whose sums are each shard's h3, and the
-    send counts), the targets of the consensus and the address tables of
+    send counts), in the rank form (one shard a card, as a ProcessMesh's
+    rank) the outputs of the mesh's collectives (the gathered coordinates,
+    the shard's h3, the gathered send counts and reports, the received
+    wire blocks), the targets of the consensus and the address tables of
     the consensus, the exchange and the walk (on a card), and the step's
     graphs (one a starting parity of the rings; kept on the first card).
 
@@ -1285,13 +1295,16 @@ class _Card:
         self.run = torch.ones(1, dtype=torch.int32, device=dev)
         ndev, st = eng.ndev, eng.statics[dev]
         self.cons = fresh_cons(ndev, dev)
-        if eng.card_form:
-            i32 = dict(dtype=torch.int32, device=dev)
-            self.counts = torch.zeros((ndev, ndev), **i32)
-            if eng.cubes_split:
-                self.coords = torch.zeros((ndev, st.B, st.n), **i32)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.counts = torch.zeros((ndev, ndev), **i32)
+        if eng.cubes_split:
+            self.coords = torch.zeros((ndev, st.B, st.n), **i32)
+            if eng.card_form:
                 self.parts = torch.zeros((ndev, ndev * st.B, st.M + 1), **i32)
                 self.h3 = torch.zeros((ndev, st.B, st.M + 1), **i32)
+            else:
+                self.h3 = torch.zeros((st.B, st.M + 1), **i32)
+        self.recv = None  # the rank form's received wire blocks (dense)
         self.stream = self.events = None
         if multi and self.cuda:
             self.stream = torch.cuda.Stream(dev)
@@ -1309,10 +1322,8 @@ class _Card:
         finished run's graphs go with its engine, never in a collection
         during a later capture (which a graph's destruction would break)."""
         self.others = [c.events for c in eng.cards if c is not self]
-        if not eng.card_form:  # a gathered report a step: the table then
-            if self.cuda:
-                with torch.cuda.device(self.dev):
-                    self.tgt = target_table(self.targets(), self.dev)
+        if not eng.card_form:
+            self._bind_rank(eng)
             return
         st, ndev, B = eng.st, eng.ndev, eng.st.B
         mine = {sh.me for sh in self.shards}
@@ -1340,6 +1351,27 @@ class _Card:
             self.xtab = exchange_table([sh.wire for sh in shards], [sh.pend for sh in self.shards],
                                        [sh.go for sh in self.shards],
                                        [sh.me for sh in self.shards])
+
+    def _bind_rank(self, eng: "ShardedFrontierSearch") -> None:
+        """The rank form's buffers and tables: the gathered report blocks
+        (each shard's counters, step state and route out, as its ``blk``
+        holds them), read row by row by address, and under the dense
+        exchange the received wire blocks, sender i's at row i cap, named
+        once a sender for the exchange kernel."""
+        (sh,) = self.shards
+        ndev = eng.ndev
+        self.reps = torch.zeros((ndev, sh.blk.numel()), dtype=torch.int64, device=self.dev)
+        self.reports = [_report_views(r, ndev) for r in self.reps]
+        if eng.exchange == "dense":
+            self.recv = torch.zeros((ndev * eng.exchange_cap, sh.pw), dtype=torch.int32,
+                                    device=self.dev)
+        if not self.cuda:
+            return
+        with torch.cuda.device(self.dev):
+            self.rtab = report_table(self.reports)
+            self.tgt = target_table(self.targets(), self.dev)
+            if self.recv is not None:
+                self.xtab = exchange_table([self.recv] * ndev, [sh.pend], [sh.go], [sh.me])
 
     def on(self):
         """The context of this card's phases: its device and, on a mesh
@@ -1371,34 +1403,35 @@ class _Card:
         received count, insert flag and index."""
         return [(sh.ctr, sh.state, sh.recv, sh.go, sh.me) for sh in self.shards]
 
-    def consensus(self, eng: "ShardedFrontierSearch", rep: Optional[torch.Tensor]) -> None:
-        """The consensus of every shard's report: the gathered reports
-        ``rep``, or (None, the card form) each where it lies."""
+    def consensus(self, eng: "ShardedFrontierSearch") -> None:
+        """The consensus of every shard's report (``reports``: each where
+        it lies, its snapshot, or its row of this rank's gathered
+        reports)."""
         args = (eng.ndev, eng.exchange_cap, eng.exchange == "ragged", eng.layout, eng.st.nb,
                 eng.st.f0, self.shards[0].ccar, self.run)
         if self.cuda:
-            rtab = self.rtab if rep is None else report_table(rep)
-            key = ("consensus", None if rep is None else rep.data_ptr())
             with torch.cuda.device(self.dev):
-                self._go(key, lambda launch: consensus_cuda(rtab, *args, self.tgt, self.cons,
-                                                            launch=launch))
+                self._go("consensus", lambda launch: consensus_cuda(
+                    self.rtab, *args, self.tgt, self.cons, launch=launch))
         else:
-            consensus_plain(self.reports if rep is None else rep, *args, self.targets(),
-                            self.cons)
+            consensus_plain(self.reports, *args, self.targets(), self.cons)
 
     def exchange(self, eng: "ShardedFrontierSearch", shards: List[_Shard]) -> None:
         """The wire rows of every shard into this card's receivers, sized on
-        the device (the card form)."""
+        the device: read from the senders' wires (the card form), or from
+        this rank's received blocks (``recv``, the rank form)."""
         sh0 = shards[0]
         args = (eng.ndev, eng.exchange_cap, eng.exchange == "ragged", sh0.R)
+        received = self.recv is not None
         if self.cuda:
             with torch.cuda.device(self.dev):
                 self._go("exchange", lambda launch: exchange_cuda(
-                    self.cons, *args, sh0.pw, self.xtab, launch=launch))
+                    self.cons, *args, sh0.pw, self.xtab, launch=launch, received=received))
         else:
-            exchange_plain(self.cons, *args, [sh.wire for sh in shards],
-                           [sh.pend for sh in self.shards],
-                           [sh.go for sh in self.shards], [sh.me for sh in self.shards])
+            wires = [self.recv] * eng.ndev if received else [sh.wire for sh in shards]
+            exchange_plain(self.cons, *args, wires, [sh.pend for sh in self.shards],
+                           [sh.go for sh in self.shards], [sh.me for sh in self.shards],
+                           received=received)
 
 
 def _card_groups(devices: Sequence[torch.device]) -> List[List[int]]:
@@ -1425,23 +1458,37 @@ def peer_mesh(devices: Sequence[torch.device]) -> bool:
     return all(torch.cuda.can_device_access_peer(a, b) for a in idx for b in idx if a != b)
 
 
-def choose_driver(mesh, driver: str) -> str:
+def _rank_form(mesh) -> bool:
+    """Whether ``mesh`` runs the step's rank form under either driver: one
+    shard a rank, the mesh's fixed-shape collectives between the phases
+    (the form of a ProcessMesh, where NCCL's calls are captured into each
+    rank's step graph).  Tests and ``chip_smoke.py`` replace it to run a
+    LocalMesh so (its collectives are copies), the very step graph a
+    ProcessMesh runs, on the CPU and on one card."""
+    return isinstance(mesh, ProcessMesh)
+
+
+def choose_driver(mesh, driver: str, exchange: str = "auto") -> str:
     """The step loop's driver on ``mesh`` for ``driver``: "chunked" (one
     step of the whole mesh a graph, one host read a chunk) on a LocalMesh
-    of one device or of cards that are each other's peers; "host" (one
-    host read a step) on a ProcessMesh or a LocalMesh over cards without
-    peer access; "auto" picks chunked where it runs.  An explicit chunked
-    where it cannot run raises ValueError: it never falls back."""
+    of one device or of cards that are each other's peers, and on a
+    ProcessMesh (``_rank_form``) whose exchange is dense (``exchange``
+    "auto" resolves to dense there); "host" (one host read a step) on a
+    LocalMesh over cards without peer access and on a ProcessMesh with the
+    ragged exchange; "auto" picks chunked where it runs.  An explicit
+    chunked where it cannot run raises ValueError: it never falls back."""
     if driver not in ("auto", "chunked", "host"):
         raise ValueError(f"driver={driver!r}: choose auto, chunked or host")
-    if not isinstance(mesh, LocalMesh):
-        ok, why = False, ("a ProcessMesh runs the host driver: peer addresses across processes "
-                          "(CUDA IPC) and NCCL inside a capture are not ported")
+    if _rank_form(mesh):
+        ok, why = exchange != "ragged", ("a ProcessMesh's chunked step needs the dense "
+                                         "exchange: NCCL's ragged all-to-all takes its split "
+                                         "sizes from the host")
     else:
-        ok, why = peer_mesh(mesh.devices), "its cards have no peer access to each other"
+        ok, why = peer_mesh(mesh.devices), ("it needs a LocalMesh of one device or of cards "
+                                            "with peer access, and these cards have no peer "
+                                            "access to each other")
     if driver == "chunked" and not ok:
-        raise ValueError(f"driver='chunked' needs a LocalMesh of one device or of cards with "
-                         f"peer access; {why}; use driver='host'")
+        raise ValueError(f"driver='chunked' cannot run here: {why}; use driver='host'")
     return driver if driver != "auto" else ("chunked" if ok else "host")
 
 
@@ -1477,13 +1524,16 @@ class ShardedFrontierSearch:
     ``driver`` (as ``FrontierSearch``'s): "chunked" runs ``chunk_steps``
     steps of the whole mesh a host read, as JAX's sharded chunk (on cards
     ``chunk_steps`` replays of a one-step CUDA graph of every card, one
-    graph for each ring parity; CPU shards the same steps with the plain
-    versions), and the walk WALK_ROUNDS rounds a host read;
+    graph for each ring parity; on a ProcessMesh each rank replays its own,
+    the mesh's NCCL collectives captured in it; CPU shards the same steps
+    with the plain versions), and the walk WALK_ROUNDS rounds a host read;
     "host" one step a host read, launched eagerly, and one host read a
     walk round; "auto" is chunked on a ``LocalMesh`` of one device (or
     the CPU) or of cards that are each other's peers, else host
-    (``choose_driver``).  chunked where it cannot run raises ValueError: it
-    never falls back to the host driver."""
+    (``choose_driver``); on a ProcessMesh chunked needs the dense exchange,
+    which ``exchange="auto"`` then takes, and auto with ragged is host.
+    chunked where it cannot run raises ValueError: it never falls back to
+    the host driver."""
 
     def __init__(self, problem: Problem, heuristic: Optional[HPairHeuristic] = None,
                  devices=None, hash_type: str = "FSUM", hash_shift: int = 4,
@@ -1513,7 +1563,7 @@ class ShardedFrontierSearch:
         self.multiprocess = self.mesh.multiprocess
         self.local_devices = [self.mesh.devices[i if isinstance(self.mesh, LocalMesh) else 0]
                               for i in self.mesh.local]
-        self.driver = choose_driver(self.mesh, driver)
+        self.driver = choose_driver(self.mesh, driver, exchange)
         # set by each run's _shards: the step's card form (every shard of
         # the mesh in this process, read and written through addresses)
         self.card_form = False
@@ -1580,7 +1630,10 @@ class ShardedFrontierSearch:
                 "carry ring until it overflows")
         self.exchange_cap = int(exchange_cap)
         if exchange == "auto":
-            exchange = ("ragged" if all(d.type == "cuda" for d in self.local_devices)
+            # the rank form's step graph moves the wires with a fixed-shape
+            # all-to-all
+            exchange = ("dense" if self.driver == "chunked" and _rank_form(self.mesh)
+                        else "ragged" if all(d.type == "cuda" for d in self.local_devices)
                         else "dense")
         self.exchange = exchange
         if self.layout_pref != "auto":
@@ -1660,21 +1713,27 @@ class ShardedFrontierSearch:
     def _shards(self) -> List[_Shard]:
         """This process's shards, grouped into ``_Card``s (``_card_groups``),
         each holding its card's run flag, and their cards in ``self.cards``.
-        The step takes its card form (``card_form``) under the chunked
-        driver and on one card: every shard of the mesh in this process,
-        each card reading its peers' buffers by address (peer access
-        enabled first); else the mesh form of the host driver (the mesh's
-        collectives, the exchange sized on the host)."""
+        The step takes its card form (``card_form``) on a LocalMesh under
+        the chunked driver and on one card: every shard of the mesh in this
+        process, each card reading its peers' buffers by address (peer
+        access enabled first); else its rank form (``_step_ranks``), one
+        shard a card: on a ProcessMesh, and on a LocalMesh under the host
+        driver over several cards (or where ``_rank_form`` says so)."""
         self.cube_stack = None
         if self.cubes_split:
             st = self.st
             self.cube_stack = st.d_cubes.view(st.T3, st.S, st.S, st.S)
         groups = _card_groups(self.local_devices)
+        self.card_form = not _rank_form(self.mesh) and (
+            self.driver == "chunked" or len(groups) == 1)
+        if not self.card_form:
+            groups = [[k] for k in range(len(self.local_devices))]
+            if self.driver == "chunked" and len(set(self.local_devices)) > 1:
+                raise ValueError("the chunked rank form of a LocalMesh captures its step on "
+                                 "one device")
         devs = [self.local_devices[g[0]] for g in groups]
         if any(self.local_devices[k] != d for g, d in zip(groups, devs) for k in g):
             raise ValueError(f"a card's shards on several devices: {groups}")
-        self.card_form = isinstance(self.mesh, LocalMesh) and (
-            self.driver == "chunked" or len(groups) == 1)
         multi = self.card_form and len(groups) > 1
         if multi and devs[0].type == "cuda" and len(set(devs)) > 1:
             _kernels.enable_peer_access(devs)
@@ -1692,14 +1751,14 @@ class ShardedFrontierSearch:
         self._ev_fork = torch.cuda.Event() if multi and devs[0].type == "cuda" else None
         for card in self.cards:
             card.bind(self, shards)
-        if self.card_form:  # the chunk's one read: the vector and each shard's overflow
-            c0 = self.cards[0]
-            cw = cons_words(self.ndev)
-            c0.readout = torch.zeros(cw + self.ndev, dtype=torch.int64, device=c0.dev)
-            c0.pulls["read"] = [(c0.readout[:cw], c0.cons)] + [
-                (c0.readout[cw + sh.me:cw + sh.me + 1], sh.ctr[6:7]) for sh in shards]
-            if c0.cuda:
-                c0.tabs["read"] = copy_table(c0.pulls["read"])
+        # the chunk's one read: the vector and each local shard's overflow
+        c0 = self.cards[0]
+        cw = cons_words(self.ndev)
+        c0.readout = torch.zeros(cw + self.ndev, dtype=torch.int64, device=c0.dev)
+        c0.pulls["read"] = [(c0.readout[:cw], c0.cons)] + [
+            (c0.readout[cw + sh.me:cw + sh.me + 1], sh.ctr[6:7]) for sh in shards]
+        if c0.cuda:
+            c0.tabs["read"] = copy_table(c0.pulls["read"])
         self.shards = shards  # kept after the run: its tables, rings and counters
         return shards
 
@@ -1730,9 +1789,11 @@ class ShardedFrontierSearch:
             c, ovf, reads = self._search_chunked(shards, stats)
         else:
             c, ovf, reads = self._search_host(shards)
-        if ovf is None:  # the mesh form: one more read
+        if ovf is None:  # the ragged rank form: one more read
             ovf = [int(sh.ctr[6]) for sh in shards]
             reads += 1
+        if not self.card_form:
+            self._check_agreement()
         # the last step's insert may have overflowed a table
         table_ovf = int(c[C_TOVF]) or int(sum(int(v) > 0 for v in ovf))
         carry_ovf = int(c[C_COVF])
@@ -1777,38 +1838,74 @@ class ShardedFrontierSearch:
         return self._result(goal_g, steps, masks, per)
 
     def _step(self, shards: List[_Shard]) -> Optional[np.ndarray]:
-        """One step of every local shard.  The card form (``card_form``)
-        reads no host value: the sizes of the exchange and the stop test
-        stay on the cards (the consensus and the exchange kernels), so a
-        graph can hold the step; returns None.  The mesh form reads the
-        consensus vector once, for the collectives' split sizes, and
-        returns it."""
+        """One step of every local shard: its card form (``_step_cards``)
+        or its rank form (``_step_ranks``).  Neither reads a host value
+        but the ragged rank form, which reads the consensus vector once,
+        for NCCL's split sizes, and returns it; the others return None,
+        their exchange sized and their stop test made on the devices, so
+        a graph can hold the step."""
         if self.card_form:
             self._step_cards(shards)
             return None
-        st, mesh, ndev = self.st, self.mesh, self.ndev
+        return self._step_ranks(shards)
+
+    def _step_ranks(self, shards: List[_Shard]) -> Optional[np.ndarray]:
+        """The step's rank form, each local shard a rank with its own card
+        (``_Card``): the phases of ``_step_cards`` with the mesh's
+        collectives between them, each into the card's preallocated
+        outputs (JAX's collectives of the sharded step): the batch's
+        coordinates gathered and K12's partials reduce-scattered into h3
+        (``_sharded_h3`` :305-307), the send counts gathered (ragged:
+        ``_route_ragged`` :214), each shard's report block gathered after
+        its pack, the consensus of every rank over every row of its gathered
+        block by address (``_consensus`` :319), then the dense exchange:
+        the wires' fixed-shape all-to-all (``_route_cap`` :148) and the
+        exchange kernel on the received blocks, A read on the card.  The
+        same collectives in the same order on every rank, whatever the
+        data: no host value is read but the ragged exchange's sizes
+        (``_exchange_host``)."""
+        st, mesh, ndev, cards = self.st, self.mesh, self.ndev, self.cards
+        cap, pw = self.exchange_cap, shards[0].pw
+        ragged = self.exchange == "ragged"
         for sh in shards:
             sh.select()
-        h3s = [None] * len(shards)
         if self.cubes_split:
-            gathered = mesh.all_gather([sh.coords() for sh in shards])
-            parts = [sh.partial(g.reshape(ndev * st.B, st.n)) for sh, g in zip(shards, gathered)]
-            h3s = mesh.reduce_scatter(parts)
-        for sh, h3 in zip(shards, h3s):
-            sh.expand(self, h3)
+            mesh.all_gather([sh.coords() for sh in shards], [c.coords for c in cards])
+            mesh.reduce_scatter([sh.partial(c.coords.view(ndev * st.B, st.n))
+                                 for sh, c in zip(shards, cards)], [c.h3 for c in cards])
+        for sh, c in zip(shards, cards):
+            sh.expand(self, c.h3 if self.cubes_split else None)
         counts = [sh.count(self) for sh in shards]
-        S_all = mesh.all_gather(counts) if self.exchange == "ragged" else [None] * len(shards)
-        for sh, S in zip(shards, S_all):
-            sh.pack(self, S)
-        reps = mesh.all_gather([sh.report() for sh in shards])
-        for card in self.cards:
-            card.consensus(self, reps[card.first])
-        c = self.cards[0].cons.cpu().numpy()
-        if not (c[C_TOVF] or c[C_COVF]):
-            self._exchange_host(shards, cons_sizes(c, ndev))
+        if ragged:
+            mesh.all_gather(counts, [c.counts for c in cards])
+        for sh, c in zip(shards, cards):
+            sh.pack(self, c.counts if ragged else None)
+        mesh.all_gather([sh.blk for sh in shards], [c.reps for c in cards])
+        for c in cards:
+            c.consensus(self)
+        v = None
+        if ragged:
+            v = cards[0].cons.cpu().numpy()
+            if not (v[C_TOVF] or v[C_COVF]):
+                self._exchange_host(shards, cons_sizes(v, ndev))
+        else:
+            mesh.all_to_all([sh.wire[:ndev * cap].view(ndev, cap, pw) for sh in shards],
+                            [c.recv.view(ndev, cap, pw) for c in cards])
+            for c in cards:
+                c.exchange(self, shards)
         for sh in shards:
             sh.insert(self)
-        return c
+        return v
+
+    def _check_agreement(self) -> None:
+        """The rank form's end: one gather of every rank's consensus vector,
+        which must be the same (the ranks ran the same collectives, so
+        every one stopped at the same step)."""
+        full = self.mesh.all_gather([c.cons for c in self.cards])
+        for f in full:
+            if not bool((f == f[0]).all()):
+                raise RuntimeError(f"the ranks' consensus vectors differ at the end of the "
+                                   f"search: {f.cpu().tolist()}")
 
     @contextlib.contextmanager
     def _fork(self):
@@ -1888,40 +1985,33 @@ class ShardedFrontierSearch:
             for card in cards:
                 with card.on():
                     card.wait("packs")
-                    card.consensus(self, None)
+                    card.consensus(self)
                     card.exchange(self, shards)
                     for sh in card.shards:
                         sh.insert(self)
 
     def _exchange_host(self, shards: List[_Shard], A: np.ndarray) -> None:
-        """The exchange of a mesh of several devices, sized by the host's
-        copy of A (NCCL's and the peer copies' split sizes): each shard's
-        received rows, in sender order, just before row R of its pending
-        list, where the insert reads them (the consensus wrote their
-        count)."""
-        ndev, cap = self.ndev, self.exchange_cap
+        """The ragged exchange of the rank form, sized by the host's copy of
+        A (NCCL's split sizes): each shard's received rows, in sender
+        order, just before row R of its pending list, where the insert
+        reads them (the consensus wrote their count)."""
         n_recv = A.sum(0)
         regions = [sh.pend[sh.R - int(n_recv[sh.me]): sh.R] for sh in shards]
-        if self.exchange == "ragged":
-            off = np.cumsum(A, axis=1) - A
-            self.mesh.all_to_all_ragged([sh.wire for sh in shards], off, A, regions)
-            return
-        pw = shards[0].pw
-        blocks = self.mesh.all_to_all([sh.wire[: ndev * cap].view(ndev, cap, pw)
-                                       for sh in shards])
-        for sh, blk, region in zip(shards, blocks, regions):
-            at = 0
-            for i in range(ndev):
-                k = int(A[i][sh.me])
-                region[at:at + k].copy_(blk[i, :k])
-                at += k
+        off = np.cumsum(A, axis=1) - A
+        self.mesh.all_to_all_ragged([sh.wire for sh in shards], off, A, regions)
 
     def _read(self, shards: List[_Shard]) -> Tuple[np.ndarray, np.ndarray]:
-        """One host read in the card form: the consensus vector (every
-        card's is the same) and every shard's overflow counter (its last
-        insert's overflow shows in the consensus only a step later),
-        copied into the first card's read buffer on its current stream."""
+        """One host read: the consensus vector (every card's is the same)
+        and every local shard's overflow counter (its last insert's
+        overflow shows in the consensus only a step later; another
+        rank's reads 0), copied into the first card's read buffer on its
+        current stream (the rank form's other cards synchronised first:
+        their streams join no event of the first's)."""
         c0 = self.cards[0]
+        if not self.card_form:
+            for card in self.cards[1:]:
+                if card.cuda:
+                    torch.cuda.synchronize(card.dev)
         with torch.cuda.device(c0.dev) if c0.cuda else contextlib.nullcontext():
             c0.pull("read")
             v = c0.readout.cpu().numpy()
@@ -1998,6 +2088,13 @@ class ShardedFrontierSearch:
         for card in self.cards:
             torch.cuda.synchronize(card.dev)
 
+    def _capture_mode(self) -> str:
+        """The captures' error mode: on a ProcessMesh "thread_local", so
+        that the NCCL process group's watchdog thread, which queries its
+        collectives' events, may do so during a capture (under "global"
+        such a query breaks the capture); else "global"."""
+        return "thread_local" if isinstance(self.mesh, ProcessMesh) else "global"
+
     def _step_graphs(self, card: _Card, shards: List[_Shard], stats: dict):
         """The step's CUDA graphs, one for each parity of the rings a step
         starts from (``card.graphs[p]``: it reads ring p and packs into
@@ -2029,7 +2126,7 @@ class ShardedFrontierSearch:
                 sh.cur = parity
             tally: Dict[str, int] = {}
             with _kernels.capturing(tally):
-                graph = S._capture(step)
+                graph = S._capture(step, self._capture_mode())
             card.graphs[parity] = S.ChunkGraph(parity, graph, tally)
         for sh, cur in zip(shards, curs):
             sh.cur = cur
@@ -2073,7 +2170,9 @@ class ShardedFrontierSearch:
         every shard's K7 hop mode from its card's copy of the coordinate,
         each run written where the shard lies, then on every card
         ``walk_advance``, which sums the runs (read by address, on that
-        card or its peers), appends the masks and moves the card's
+        card or its peers; in the rank form the one run the mesh's sum of
+        every rank's wrote into the card's ``wsum``, JAX's psum :521, a
+        non-owner's run all zeros), appends the masks and moves the card's
         coordinate on (on several cards after every card's runs are
         written: ``_Card.wait``); WALK_ROUNDS rounds a host read of the
         first card (on cards a CUDA graph of one round over every card,
@@ -2084,10 +2183,8 @@ class ShardedFrontierSearch:
         ``walk_capture_s``)."""
         from ..search import step as S
 
-        if not self.card_form:
-            raise ValueError("the walk loop runs in the card form of the step (the chunked "
-                             "driver, or one card)")
         st, n, hops, cards = self.st, self.st.n, WALK_HOPS, self.cards
+        ranks = not self.card_form
         final = [int(v) for v in self.problem.final_coord]
         i32 = dict(dtype=torch.int32)
         for card in cards:  # each card's walk state, and its shards' runs
@@ -2098,9 +2195,11 @@ class ShardedFrontierSearch:
             card.wrun = torch.tensor([int(any(final))], **i32).to(dev)
             for sh in card.shards:
                 sh.wout = torch.zeros(hops + n + 1, **i32).to(dev)
+            if ranks:
+                card.wsum = torch.zeros(hops + n + 1, **i32).to(dev)
         runs = sorted(shards, key=lambda sh: sh.me)
         for card in cards:
-            card.runs = [sh.wout for sh in runs]
+            card.runs = [card.wsum] if ranks else [sh.wout for sh in runs]
             if card.cuda:
                 card.wtab = run_table(card.runs, hops, n)
 
@@ -2111,6 +2210,8 @@ class ShardedFrontierSearch:
                         for sh in card.shards:
                             sh.walk_hops(card.wparams, hops, out=sh.wout, run=card.wrun)
                         card.signal("runs")
+                if ranks:
+                    self.mesh.all_sum([sh.wout for sh in shards], [c.wsum for c in cards])
                 for card in cards:
                     with card.on():
                         card.wait("runs")
@@ -2129,7 +2230,7 @@ class ShardedFrontierSearch:
                 t1 = time.perf_counter()
                 tally: Dict[str, int] = {}
                 with _kernels.capturing(tally):
-                    graph = S._capture(round_)
+                    graph = S._capture(round_, self._capture_mode())
             if stats is not None:
                 stats.update(walk_warm_s=t1 - t0, walk_capture_s=time.perf_counter() - t1)
         reads = 0

@@ -610,10 +610,11 @@ def _chunk(st, tab, bufs, chunk_steps, ub, fill, blocks, cap, stream) -> None:
             k()
 
 
-def _capture(fn):
+def _capture(fn, mode: str = "global"):
     """A CUDA graph of what ``fn`` enqueues on the current stream, which
     is a side stream during the capture (a graph is not captured on the
-    default stream), so ``fn`` reads the stream inside.  A failed capture
+    default stream), so ``fn`` reads the stream inside; ``mode`` the
+    capture's error mode (``CUDAGraph.capture_begin``).  A failed capture
     or instantiation raises.  (``torch.cuda.graph`` would also collect
     garbage and empty the allocator's cache first, up to 0.2 s a capture
     on the card; the capture needs neither.)"""
@@ -621,7 +622,7 @@ def _capture(fn):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        g.capture_begin()
+        g.capture_begin(capture_error_mode=mode)
         try:
             fn()
         finally:

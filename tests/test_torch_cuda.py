@@ -1848,6 +1848,53 @@ def test_exchange_kernel_equals_plain(cuda, ragged):
         assert len(recv_me) < 3 or (outs[0][-1] == -5).all()
 
 
+@pytest.mark.parametrize("ndev", [2, 4])
+@pytest.mark.parametrize("pw", [7, 13])
+def test_exchange_kernel_received_equals_plain(cuda, ndev, pw):
+    """exchange with ``received`` (a rank of a ProcessMesh: sender i's rows
+    at row i cap of the rank's buffer after the dense all-to-all) against
+    exchange_plain on the same buffer and against exchange_plain over the
+    senders' own wires, every rank a receiver (one launch a rank, as each
+    rank's graph holds it), random dense sizes and wires, bit for bit; a
+    ragged launch with ``received`` is refused."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.parallel.mesh import LocalMesh
+
+    rng = np.random.default_rng(ndev * 10 + pw)
+    cap = 300
+    counts = rng.integers(0, 2 * cap, (ndev, ndev))
+    A = SH.route_sizes(counts, ndev, cap, False)
+    R = ndev * cap
+    cons = SH.fresh_cons(ndev, cuda)
+    SH.cons_sizes(cons, ndev)[:] = torch.as_tensor(A, device=cuda)
+    wires = [torch.as_tensor(rng.integers(-2**31, 2**31 - 1, (R + 5 * cap, pw)),
+                             dtype=torch.int32, device=cuda) for _ in range(ndev)]
+    recv = LocalMesh([cuda] * ndev).all_to_all([w[:R].view(ndev, cap, pw) for w in wires])
+    recv = [r.view(R, pw) for r in recv]
+    for r in range(ndev):
+        flag = torch.ones(1, dtype=torch.int32, device=cuda)
+        outs = []
+        for way in ("kernel", "plain", "senders"):
+            pend = torch.full((R + 64, pw), -5, dtype=torch.int32, device=cuda)
+            if way == "kernel":
+                SH.exchange_cuda(cons, ndev, cap, False, R, pw,
+                                 SH.exchange_table([recv[r]] * ndev, [pend], [flag], [r]),
+                                 received=True)
+            elif way == "plain":
+                SH.exchange_plain(cons, ndev, cap, False, R, [recv[r]] * ndev, [pend], [flag],
+                                  [r], received=True)
+            else:
+                SH.exchange_plain(cons, ndev, cap, False, R, wires, [pend], [flag], [r])
+            torch.cuda.synchronize()
+            outs.append(pend)
+        assert A[:, r].sum() > 0 and (outs[0] != -5).any()
+        for o in outs[1:]:
+            assert torch.equal(outs[0], o), (ndev, pw, r)
+    xtab = SH.exchange_table([recv[0]] * ndev, [pend], [flag], [0])
+    with pytest.raises(ValueError):
+        SH.exchange_cuda(cons, ndev, cap, True, R, pw, xtab, received=True)
+
+
 @pytest.mark.parametrize("form", ["buffer", "by_address"])
 def test_walk_advance_kernel_equals_plain(cuda, form):
     """walk_advance against walk_advance_plain over rounds of random runs
@@ -1985,6 +2032,44 @@ def test_sharded_kinase_graph_chunk_equals_host_driver(cuda):
         assert torch.equal(a, b), k
 
 
+def test_sharded_rank_form_kinase_chunk_equals_host_driver(cuda, monkeypatch):
+    """Kinase on [cuda] * 4 in the rank form (``_rank_form`` replaced: a
+    card a shard, the mesh's collectives as copies, the step graph a
+    ProcessMesh rank captures), packed at 2^21, dense: one 256-step chunk,
+    256 replays of each rank's two parity graphs (all four ranks in one
+    graph a parity on this card), against 256 steps of the host driver's
+    card form, every table tensor, ring, counter and telemetry word bit
+    for bit; every rank's consensus vector the same; one host read; the
+    loop kernels launched, the exchange from the received blocks."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    gold = json.load(open(os.path.join(HERE, "goldens.json")))["kinase.fasta"]
+    problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+    kw = dict(chunk_steps=256, max_steps=256, exchange="dense")
+    with monkeypatch.context() as m:
+        m.setattr(SH, "_rank_form", lambda mesh: True)
+        _kernels.reset_counts()
+        ce = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, driver="chunked", **kw)
+        with pytest.raises(RuntimeError, match="max_steps exceeded"):
+            ce.run()
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+    he = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, driver="host", **kw)
+    with pytest.raises(RuntimeError, match="max_steps exceeded"):
+        he.run()
+    torch.cuda.synchronize()
+    assert ce.layout == "packed" and not ce.card_form and he.card_form
+    assert len(ce.cards) == 4 and ce.cards[0].recv is not None
+    cs = ce.last_stats
+    assert cs["steps"] == he.last_stats["steps"] == 256
+    assert cs["graph_captures"] == 2 and cs["graph_replays"] == 256 and cs["host_reads"] == 1
+    for (k, a), (_, b) in zip(_loop_words(ce), _loop_words(he)):
+        assert torch.equal(a, b), k
+    assert all(torch.equal(c.cons, ce.cards[0].cons) for c in ce.cards)
+    for k in ("consensus", "exchange"):
+        assert counts[k] > 0, k
+
+
 @pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
 def test_sharded_graph_overflow_retries_equal_host_driver(cuda, layout):
     """A table of 16 slots a shard on [cuda] * 4 overflows inside a chunk
@@ -2044,7 +2129,7 @@ def test_sharded_split_cards_equal_host_driver(cuda, monkeypatch, name, layout):
     driver's several-card step (a stream a card joined by events, the
     gathers as copies, a snapshot of the reports, a consensus and an
     exchange a card, all in one graph a ring parity) in chunks of 16
-    against the host driver's mesh form on the same two cards: the golden
+    against the host driver's rank form on the same mesh: the golden
     g and alignment, the same result and every table word bit for bit; the
     loop kernels launched."""
     gold = json.load(open(os.path.join(HERE, "goldens.json")))[name]
@@ -2061,7 +2146,7 @@ def test_sharded_split_cards_equal_host_driver(cuda, monkeypatch, name, layout):
 def test_sharded_kinase_split_cards_chunk_equals_host_driver(cuda, monkeypatch):
     """Kinase on [cuda] * 4 grouped into three cards (0 | 1, 2 | 3),
     packed at 2^21, ragged: one 64-step chunk of the several-card step
-    against 64 steps of the host driver's mesh form, every table word."""
+    against 64 steps of the host driver's rank form, every table word."""
     gold = json.load(open(os.path.join(HERE, "goldens.json")))["kinase.fasta"]
     problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
     _split(monkeypatch, [[0], [1, 2], [3]])

@@ -1,10 +1,16 @@
-"""The port's multi-process path on the CPU: two processes of one
+"""The port's multi-process path on the CPU: processes of one
 torch.distributed group over gloo (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``, as torchrun sets them).  Rank 0 reads the FASTA and
 broadcasts the sequences (parallel/multihost.py); the CLI runs one shard a
 rank on a ProcessMesh (parallel/mesh.py) and both ranks print the golden
-Final Score of PF08184.  ``broadcast_problem`` alone round-trips the
-sequences to a rank that read nothing."""
+Final Score of PF08184, under the chunked driver with the dense exchange
+(and auto, which resolves to it) and under the host driver with the
+ragged one.  ``tools/process_mesh_turns.py`` on 2 and 4 ranks runs the
+chunked driver (the step's rank form, the mesh's collectives between its
+phases) and the host driver, dense, on PF08184 and test2: the golden g
+and alignment, every shard's table words equal (a hash a rank), one host
+read a chunk.  ``broadcast_problem`` alone round-trips the sequences to a
+rank that read nothing."""
 import json
 import os
 import socket
@@ -57,17 +63,56 @@ def fasta(tmp_path, name):
     return str(path)
 
 
-@pytest.mark.parametrize("exchange", ["dense", "ragged"])
+@pytest.mark.parametrize("exchange", ["dense", "ragged", "auto"])
 def test_two_process_cli_reaches_golden(tmp_path, exchange):
+    """auto resolves to dense on a ProcessMesh, whose chunked driver needs
+    it; ragged takes the host driver there."""
     path = fasta(tmp_path, "PF08184.fasta")
     outs = run_ranks([sys.executable, "-m", "mpi_pastar_msa_tpu_torch", "--device", "cpu",
                       "--engine", "frontier", "--devices", "2", "--exchange", exchange, path])
     want = f"g - {GOLD['PF08184.fasta']['optimal_g']}"
+    ragged = exchange == "ragged"
     for rank, (rc, out) in enumerate(outs):
         assert rc == 0, f"rank {rank}:\n{out[-3000:]}"
         assert want in out, out[-3000:]
         assert f"shards: 2, one a process; rank {rank} on cpu" in out
-        assert f"exchange {exchange} " in out and "migrated" in out
+        assert f"exchange {'ragged' if ragged else 'dense'} " in out and "migrated" in out
+        assert f"driver {'host' if ragged else 'chunked'}," in out, out[-3000:]
+
+
+def rank_runs(out: str) -> dict:
+    """A rank's RANK_RUN lines of tools/process_mesh_turns.py, by driver."""
+    runs = [json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+            if line.startswith("RANK_RUN ")]
+    return {r["driver"]: r for r in runs}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", ["PF08184.fasta", "test2.fasta"])
+def test_process_mesh_chunked_equals_host_driver(tmp_path, name, world):
+    """A ProcessMesh of ``world`` gloo ranks, one shard each, dense: the
+    chunked driver (chunks of 16 steps) and then the host driver on each
+    rank.  Both reach the golden g and the golden alignment, every rank's
+    shard leaves the same words under both (its hash), and the chunked run
+    reads the host once a chunk (ceil(steps / 16)) and its walk once every
+    WALK_ROUNDS rounds, the host run once a step and once a round."""
+    chunk = 16
+    outs = run_ranks([sys.executable, os.path.join("tools", "process_mesh_turns.py"),
+                      fasta(tmp_path, name), "--device", "cpu", "--chunk", str(chunk),
+                      "--drivers", "chunked,host"], world)
+    for rank, (rc, out) in enumerate(outs):
+        assert rc == 0, f"rank {rank}:\n{out[-3000:]}"
+        runs = rank_runs(out)
+        c, h = runs["chunked"], runs["host"]
+        assert c["rank"] == h["rank"] == rank and c["world"] == world
+        assert c["exchange"] == h["exchange"] == "dense"
+        assert c["g"] == h["g"] == GOLD[name]["optimal_g"]
+        assert c["alignment"] == h["alignment"] == GOLD[name]["alignment"]
+        assert c["hash"] == h["hash"], f"rank {rank}: the drivers' words differ"
+        assert c["steps"] == h["steps"] > chunk
+        assert c["host_reads"] == -(-c["steps"] // chunk) and h["host_reads"] == h["steps"]
+        assert c["walk_rounds"] == h["walk_rounds"] == h["walk_reads"]
+        assert c["walk_reads"] == -(-c["walk_rounds"] // 32)
 
 
 def test_broadcast_problem_round_trips():

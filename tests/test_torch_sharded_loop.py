@@ -13,9 +13,11 @@ test2 and PF08184 on 2 and 4 shards; a one-row wire that spills): the
 results, the per-shard stats and every table tensor equal, also across
 table-overflow retries; the several-card step, four shards grouped into
 two or three cards (``_card_groups`` replaced), against the host
-driver's mesh form on the same cards; the consensus of one card's
-targets over every shard's report; an engine freed without the cyclic
-collector; and the driver's choice and refusals."""
+driver's rank form on the same mesh; the rank form (``_rank_form``
+replaced: a ProcessMesh's step, a card a shard) against the card form;
+the consensus of one card's targets over every shard's report; an engine
+freed without the cyclic collector; and the driver's choice and
+refusals."""
 import ctypes
 import json
 import os
@@ -279,14 +281,15 @@ def route_wires(seed, ndev, L, ccar, cap, ragged):
 
 
 def emu_exchange(cons, ndev, cap, ragged, R, xtab, wires, pends, rng, blocks=16, threads=256,
-                 per=2):
+                 per=2, received=False):
     """csrc/shard_loop.cu's exchange with its schedule emulated, from the
     address table ``exchange_table`` built (the host memory the C entry
     reads; ``wires`` and ``pends`` stand behind its addresses): per
     receiver block, warp 0's one round of A loads (A[i][r], ragged A[i][:r])
     and its prefix sums, then a row a thread over the flat range of rows,
     each thread's ``per`` rows loaded before any is stored, the threads of
-    a receiver's row of blocks in a random order."""
+    a receiver's row of blocks in a random order; ``received``: sender i's
+    dense rows from row i cap of its entry (a rank's received blocks)."""
     A = S.cons_sizes(cons, ndev).numpy()
     tab = xtab.tolist()
     by_ptr = {t.data_ptr(): t for t in list(wires) + list(pends)}
@@ -297,7 +300,8 @@ def emu_exchange(cons, ndev, cap, ragged, R, xtab, wires, pends, rng, blocks=16,
         if not ctypes.c_int32.from_address(flag_ptr).value:
             continue
         n = [int(A[i][r]) for i in range(ndev)]
-        src = [int(A[i][:r].sum()) if ragged else r * cap for i in range(ndev)]
+        src = [int(A[i][:r].sum()) if ragged else (i if received else r) * cap
+               for i in range(ndev)]
         at = [0] + list(np.cumsum(n))  # the shuffles' inclusive scan, shifted
         rows = at[ndev]
         dst = by_ptr[pend_ptr]
@@ -354,6 +358,47 @@ def test_exchange_schedule_equals_plain(ndev, pw, cap, recv_me, ragged):
         assert torch.equal(a, b)
     assert (outs[0][0] == -5).all() and (outs[0][1] != -5).any()
     assert len(recv_me) < 3 or (outs[0][-1] == -5).all()
+
+
+@pytest.mark.parametrize("ndev,pw", [(2, 7), (2, 13), (4, 7), (4, 13)])
+def test_exchange_received_schedule_equals_plain(ndev, pw):
+    """The exchange of the rank form: each rank r's received blocks (the
+    dense all-to-all of every sender's wire, ``LocalMesh.all_to_all``),
+    named once a sender, with ``received`` (sender i's rows at row i cap):
+    the kernel's schedule (emu_exchange) and exchange_plain equal, and
+    equal to exchange_plain over the senders' own wires (the card form's
+    reading); ragged with ``received`` is refused."""
+    rng = np.random.default_rng(ndev * 100 + pw)
+    cap = 40
+    A = S.route_sizes(rng.integers(0, 2 * cap, (ndev, ndev)), ndev, cap, False)
+    R = ndev * cap
+    cons = S.fresh_cons(ndev, "cpu")
+    S.cons_sizes(cons, ndev)[:] = torch.from_numpy(A)
+    wires = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (R + 3 * cap, pw))
+                              .astype(np.int32)) for _ in range(ndev)]
+    recv = LocalMesh(["cpu"] * ndev).all_to_all([w[:R].view(ndev, cap, pw) for w in wires])
+    for r in range(ndev):
+        got = recv[r].view(R, pw)
+        outs = []
+        for way in ("emulated", "plain", "senders"):
+            pend = torch.full((R + 8, pw), -5, dtype=torch.int32)
+            flag = torch.ones(1, dtype=torch.int32)
+            if way == "emulated":
+                xtab = S.exchange_table([got] * ndev, [pend], [flag], [r])
+                emu_exchange(cons, ndev, cap, False, R, xtab, [got] * ndev, [pend], rng,
+                             received=True)
+            elif way == "plain":
+                S.exchange_plain(cons, ndev, cap, False, R, [got] * ndev, [pend], [flag], [r],
+                                 received=True)
+            else:
+                S.exchange_plain(cons, ndev, cap, False, R, wires, [pend], [flag], [r])
+            outs.append(pend)
+        assert A[:, r].sum() > 0 and (outs[0][R - int(A[:, r].sum()):R] != -5).all()
+        assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    with pytest.raises(ValueError):
+        S.exchange_plain(cons, ndev, cap, True, R, wires, [pend], [flag], [0], received=True)
+    with pytest.raises(ValueError):
+        S.exchange_cuda(cons, ndev, cap, True, R, pw, xtab, received=True)
 
 
 def test_exchange_table_refuses():
@@ -555,15 +600,16 @@ def test_split_cards_chunked_equals_host_driver(monkeypatch, name, layout, excha
     other's coordinates, partials and send counts into its own buffers,
     snapshots its shards' reports, runs the consensus over every shard's
     report and the exchange for its own receivers) in chunks of 16, the
-    host driver the mesh form on the same two cards (the mesh's
-    collectives, the exchange sized on the host).  The result, the
-    per-shard stats and every table word equal, with no tolerance; the
-    alignment is the golden one (JAX's); one host read a chunk; both
-    cards' consensus vectors equal."""
+    host driver the rank form on the same mesh (a card a shard: the
+    mesh's collectives, the exchange sized on the card when dense, on the
+    host when ragged).  The result, the per-shard stats and every table
+    word equal, with no tolerance; the alignment is the golden one
+    (JAX's); one host read a chunk; both cards' consensus vectors equal."""
     monkeypatch.setattr(S, "_card_groups", lambda devices: SPLITS["two_cards"])
     (ce, cr), (he, hr) = both_drivers(golden(name), 4, layout=layout, capacity=1 << 14,
                                       chunk_steps=16, exchange=exchange)
-    assert [len(c.shards) for c in ce.cards] == [len(c.shards) for c in he.cards] == [2, 2]
+    assert [len(c.shards) for c in ce.cards] == [2, 2]
+    assert [len(c.shards) for c in he.cards] == [1, 1, 1, 1]
     assert ce.card_form and not he.card_form
     assert cr.g == hr.g == GOLD[name]["optimal_g"]
     assert build_alignment(ce.problem, cr.closed) == GOLD[name]["alignment"]
@@ -573,11 +619,74 @@ def test_split_cards_chunked_equals_host_driver(monkeypatch, name, layout, excha
         assert torch.equal(a, b)
     assert torch.equal(ce.cards[0].cons, ce.cards[1].cons)
     cs, hs = ce.last_stats, he.last_stats
-    # the mesh form reads the vector each step, and the overflow once more
-    assert cs["host_reads"] == -(-cr.steps // 16) and hs["host_reads"] == hr.steps + 1
+    # the rank form reads the vector each step (ragged: inside the step,
+    # and the overflow once more)
+    assert cs["host_reads"] == -(-cr.steps // 16)
+    assert hs["host_reads"] == hr.steps + (exchange == "ragged")
     assert cs["walk_reads"] == -(-cs["walk_rounds"] // S.WALK_ROUNDS)
     for k in ("steps", "wire_rows", "migrated", "peak_carry", "walk_rounds"):
         assert cs[k] == hs[k], k
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+@pytest.mark.parametrize("name", ["PF08184.fasta", "test2.fasta"])
+def test_rank_form_equals_card_form(monkeypatch, name, layout):
+    """Four CPU shards of a LocalMesh in the rank form (``_rank_form``
+    replaced: a card a shard, the mesh's collectives as copies into each
+    rank's buffers, the consensus over each rank's gathered reports, the
+    dense exchange from each rank's received wire blocks, the walk's runs
+    summed by the mesh), the chunked driver in chunks of 16, against the
+    card form's chunked run of the same engine arguments: the result, the
+    per-shard stats, every table word and every rank's consensus vector
+    equal, with no tolerance; the golden alignment; one host read a
+    chunk and a walk read every WALK_ROUNDS rounds."""
+    p = golden(name)
+    kw = dict(layout=layout, capacity=1 << 14, chunk_steps=16, exchange="dense",
+              driver="chunked")
+    card = S.ShardedFrontierSearch(p, devices=["cpu"] * 4, **kw)
+    cr = card.run()
+    monkeypatch.setattr(S, "_rank_form", lambda mesh: True)
+    rank = S.ShardedFrontierSearch(p, devices=["cpu"] * 4, **kw)
+    rr = rank.run()
+    assert card.card_form and not rank.card_form
+    assert [len(c.shards) for c in rank.cards] == [1, 1, 1, 1]
+    assert rr.g == cr.g == GOLD[name]["optimal_g"]
+    assert build_alignment(rank.problem, rr.closed) == GOLD[name]["alignment"]
+    assert (rr.closed, rr.steps, rr.shard_stats, rr.nodes_migrated) == (
+        cr.closed, cr.steps, cr.shard_stats, cr.nodes_migrated)
+    for a, b in zip(shard_words(rank), shard_words(card)):
+        assert torch.equal(a, b)
+    assert all(torch.equal(c.cons, rank.cards[0].cons) for c in rank.cards)
+    rs, cs = rank.last_stats, card.last_stats
+    assert rs["host_reads"] == cs["host_reads"] == -(-rr.steps // 16)
+    assert rs["walk_reads"] == -(-rs["walk_rounds"] // S.WALK_ROUNDS)
+    for k in ("steps", "wire_rows", "migrated", "peak_carry", "walk_rounds"):
+        assert rs[k] == cs[k], k
+
+
+def test_rank_form_refusals_and_choice(monkeypatch):
+    """The rank form's driver rules on a LocalMesh (``_rank_form``
+    replaced), as on a ProcessMesh: chunked with the dense exchange, which
+    auto takes; with ragged the host driver under auto, and chunked raises;
+    a chunked rank form over two devices raises when it runs; ranks that
+    end with different consensus vectors raise."""
+    monkeypatch.setattr(S, "_rank_form", lambda mesh: True)
+    p = golden("PF08184.fasta")
+    eng = S.ShardedFrontierSearch(p, devices=["cpu"] * 2)
+    assert (eng.driver, eng.exchange) == ("chunked", "dense")
+    eng = S.ShardedFrontierSearch(p, devices=["cpu"] * 2, exchange="ragged")
+    assert (eng.driver, eng.exchange) == ("host", "ragged")
+    with pytest.raises(ValueError, match="dense"):
+        S.ShardedFrontierSearch(p, devices=["cpu"] * 2, driver="chunked", exchange="ragged")
+    eng = S.ShardedFrontierSearch(p, devices=["cpu", "cpu"], capacity=1 << 14)
+    eng.local_devices = [torch.device("cpu"), torch.device("meta")]
+    with pytest.raises(ValueError, match="one device"):
+        eng._shards()
+    eng = S.ShardedFrontierSearch(p, devices=["cpu"] * 2, capacity=1 << 14)
+    eng.run()
+    eng.cards[1].cons[S.C_STEPS] += 1
+    with pytest.raises(RuntimeError, match="consensus vectors differ"):
+        eng._check_agreement()
 
 
 @pytest.mark.parametrize("split", [None, "three_cards"], ids=["one_card", "three_cards"])
@@ -585,7 +694,8 @@ def test_split_cards_chunked_equals_host_driver(monkeypatch, name, layout, excha
 def test_chunked_equals_host_driver_spilling(monkeypatch, layout, split):
     """A one-row wire on a random input whose frontier is wide: rows wait in
     the carry rings, under both drivers alike, and the optimum holds; on
-    one card, and on three cards (two shards on the middle one)."""
+    one card, and on three cards (two shards on the middle one; the host
+    driver's rank form there: a card a shard)."""
     if split:
         monkeypatch.setattr(S, "_card_groups", lambda devices: SPLITS[split])
     rs = np.random.RandomState(31)
@@ -594,7 +704,7 @@ def test_chunked_equals_host_driver_spilling(monkeypatch, layout, split):
     (ce, cr), (he, hr) = both_drivers(p, 4, layout=layout, exchange_cap=1,
                                       hash_type="FZORDER", hash_shift=0, batch=16,
                                       chunk_steps=8)
-    assert len(ce.cards) == len(he.cards) == (3 if split else 1)
+    assert len(ce.cards) == (3 if split else 1) and len(he.cards) == (4 if split else 1)
     assert cr.g == hr.g == optimal_cost(p, HPairHeuristic.build(p, "cpu"))
     assert ce.last_stats["peak_carry"] == he.last_stats["peak_carry"] > 0
     assert (cr.steps, cr.shard_stats) == (hr.steps, hr.shard_stats)
@@ -683,13 +793,21 @@ def test_driver_choice_and_refusals(monkeypatch):
         S.choose_driver(cards, "chunked")
     # a card and the CPU have no peer access
     assert S.choose_driver(LocalMesh(["cpu", "cuda:0"]), "auto") == "host"
-    # a several-rank ProcessMesh: the host driver; chunked raises
+    # a several-rank ProcessMesh: the chunked driver with the dense
+    # exchange, which auto resolves to; with ragged the host driver under
+    # auto, and chunked raises: NCCL's ragged all-to-all takes host sizes
     pm = ProcessMesh.__new__(ProcessMesh)
     pm.ndev, pm.rank, pm.local, pm.multiprocess = 2, 0, [0], True
     pm.devices = [torch.device("cpu")]
-    assert S.choose_driver(pm, "auto") == S.choose_driver(pm, "host") == "host"
+    assert S.choose_driver(pm, "auto") == S.choose_driver(pm, "chunked", "dense") == "chunked"
+    assert S.choose_driver(pm, "auto", "ragged") == S.choose_driver(pm, "host") == "host"
+    eng = S.ShardedFrontierSearch(p, devices=pm)
+    assert (eng.driver, eng.exchange) == ("chunked", "dense")
+    eng = S.ShardedFrontierSearch(p, devices=pm, exchange="ragged")
+    assert (eng.driver, eng.exchange) == ("host", "ragged")
+    assert S.ShardedFrontierSearch(p, devices=pm, driver="host").exchange == "dense"
     with pytest.raises(ValueError, match="ProcessMesh"):
-        S.ShardedFrontierSearch(p, devices=pm, driver="chunked")
+        S.ShardedFrontierSearch(p, devices=pm, driver="chunked", exchange="ragged")
     # one shard, dense: the single-table search under either driver
     for driver in ("chunked", "host"):
         eng = S.ShardedFrontierSearch(p, devices=["cpu"], driver=driver)
@@ -766,7 +884,8 @@ class _StepReplay:
         card.cuda = True
 
 
-@pytest.mark.parametrize("split", [None, "two_cards"], ids=["one_card", "two_cards"])
+@pytest.mark.parametrize("split", [None, "two_cards", "ranks"],
+                         ids=["one_card", "two_cards", "ranks"])
 @pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
 @pytest.mark.parametrize("chunk", [1, 7])
 def test_chunk_replays_equal_host_driver(monkeypatch, chunk, layout, split):
@@ -776,8 +895,9 @@ def test_chunk_replays_equal_host_driver(monkeypatch, chunk, layout, split):
     rings (so a replay from the wrong ring would differ), 43 steps on 4
     shards, ragged, in chunks of 1 and 7 (a stop in mid-chunk at an odd
     step), equals the host driver on every table word and ring; two
-    graphs, ``chunk`` replays a host read; on one card, and on two (the
-    host driver then the mesh form)."""
+    graphs, ``chunk`` replays a host read; on one card, on two (the host
+    driver then the rank form), and in the rank form (``_rank_form``
+    replaced; dense, as its chunked step needs)."""
     import contextlib
 
     def step_graphs(self, card, shards, stats):
@@ -798,18 +918,22 @@ def test_chunk_replays_equal_host_driver(monkeypatch, chunk, layout, split):
     monkeypatch.setattr(S.ShardedFrontierSearch, "_step_graphs", step_graphs)
     monkeypatch.setattr(S.ShardedFrontierSearch, "_search_chunked", on_card)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
-    if split:
+    if split == "ranks":
+        monkeypatch.setattr(S, "_rank_form", lambda mesh: True)
+    elif split:
         monkeypatch.setattr(S, "_card_groups", lambda devices: SPLITS[split])
     rs = np.random.RandomState(31)
     p = Problem(tuple("".join(rs.choice(list(AMINO), size=rs.randint(12, 17)))
                       for _ in range(4)))
     (ce, cr), (he, hr) = both_drivers(p, 4, layout=layout, exchange_cap=1, hash_type="FZORDER",
                                       hash_shift=0, batch=16, chunk_steps=chunk,
-                                      exchange="ragged")
-    assert cr.steps == hr.steps == 43 and (cr.g, cr.shard_stats) == (hr.g, hr.shard_stats)
+                                      exchange="dense" if split == "ranks" else "ragged")
+    assert ce.card_form == (split != "ranks")
+    assert cr.steps == hr.steps and (cr.g, cr.shard_stats) == (hr.g, hr.shard_stats)
+    assert cr.steps == 43 or split == "ranks"
     assert ce.last_stats["peak_carry"] == he.last_stats["peak_carry"] > 0
     for a, b in zip(shard_words(ce), shard_words(he)):
         assert torch.equal(a, b)
     cs = ce.last_stats
-    assert cs["graph_captures"] == 2 and cs["host_reads"] == -(-43 // chunk)
+    assert cs["graph_captures"] == 2 and cs["host_reads"] == -(-cr.steps // chunk)
     assert cs["graph_replays"] == chunk * cs["host_reads"]

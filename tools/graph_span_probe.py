@@ -69,7 +69,7 @@ def ordering(c0, c1) -> dict:
         e0.record(s0)
         s1.wait_event(e0)
         with torch.cuda.device(c1), torch.cuda.stream(s1):
-            _kernels.launch("exchange", cons.data_ptr(), 1, cap, 0, cap, pw, xtab.data_ptr(), 1,
+            _kernels.launch("exchange", cons.data_ptr(), 1, cap, 0, 0, cap, pw, xtab.data_ptr(), 1,
                             s1.cuda_stream)
             copies([(peer, wire)], s1)
         e1.record(s1)
@@ -173,7 +173,7 @@ def chain_us(kind: str, c0, c1, n: int = 16, reps: int = 100) -> float:
         elif kind == "kernel":
             a.add_(1)
         elif kind == "peer_kernel":
-            _kernels.launch("exchange", cons.data_ptr(), 1, rows, 0, rows, pw, xtab.data_ptr(),
+            _kernels.launch("exchange", cons.data_ptr(), 1, rows, 0, 0, rows, pw, xtab.data_ptr(),
                             1, s0.cuda_stream)
         else:  # a round trip to card 1 and back
             e0.record(s0)
