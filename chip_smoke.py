@@ -133,8 +133,11 @@ Phases, each failing loudly (non-zero exit):
    K11 on key rows (route_pack.cu), K10 on the received rows
    (keyrow_insert.cu), K7's hop mode and the loop's consensus, exchange
    and walk_advance (shard_loop.cu), and no plain version; the walk's
-   device loop gives the host walk's masks, and walk_advance equals its
-   plain version; kinase packed, pinned to unpacked (K3's unpacked
+   device loop gives the host walk's masks, each round's device span
+   traced, walk_advance is captured over a programmatic edge from the
+   round's last walk (every run prints its edges; where the runs lie on
+   several cards, one full edge from an empty node after them) and
+   equals its plain version; kinase packed, pinned to unpacked (K3's unpacked
    instantiation, the whole cube stack on every shard) and pinned to sig
    at 2^23 slots a shard (sig_coords, K4's sharded instantiation, K11 on
    sig rows, K5) each run 256 steps under the chunked and then the host
@@ -157,8 +160,9 @@ Phases, each failing loudly (non-zero exit):
    and cap
    (``--k11-baseline SRC`` builds another tree's K11, checks it on the
    same inputs and times the two in turns, each pass alone;
-   ``--k6s-baseline SRC`` another tree's consensus and exchange, each
-   in turns with this tree's;
+   ``--k6s-baseline SRC`` another tree's consensus, exchange or
+   walk_advance, whichever of its forms the source has, each in turns
+   with this tree's, walk_advance also inside the walk loop;
    ``--k11-sweep`` checks and times K11 on synthetic kinase-shaped inputs
    of 64 to 31,744 rows a destination).  The several-card step on this
    one card: kinase's four shards grouped into two cards (``split_cards``),
@@ -1573,6 +1577,18 @@ def grid_sync_cost() -> dict:
     return dict(by_syncs={str(k): v for k, v in out.items()}, per_sync_us=per_sync_us)
 
 
+def pointer_chase():
+    """csrc/path_walk.cu's pointer_chase C entry (one thread follows
+    ``hops`` links of an int32 cycle from 0 and stores where it ended:
+    next, hops, out, stream), bound."""
+    from mpi_pastar_msa_tpu_torch._kernels import load
+
+    fn = load("path_walk").pointer_chase
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def dependent_load_ns(mib: int = 256, hops: int = 20000) -> dict:
     """One dependent load: a pointer chase (one thread, ``hops`` links of a
     random cyclic permutation of int32 over ``mib`` MiB, five times the
@@ -1580,11 +1596,7 @@ def dependent_load_ns(mib: int = 256, hops: int = 20000) -> dict:
     nanoseconds a hop: from L2 (the same chain again: its hops' sectors,
     about 0.6 MB, stay in L2) and from device memory (each run after
     writing 256 MiB elsewhere, which evicts them)."""
-    from mpi_pastar_msa_tpu_torch._kernels import load
-
-    fn = load("path_walk").pointer_chase
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = pointer_chase()
     n = mib << 18
     gen = torch.Generator(device="cuda").manual_seed(0)
     perm = torch.randperm(n, device="cuda", generator=gen)
@@ -2642,6 +2654,36 @@ def sharded_guard(capture_step: int = 0):
         S.insert_pending_cuda = insert
 
 
+@contextlib.contextmanager
+def walk_edges():
+    """Count, for each walk_advance launch captured into a graph inside,
+    the node's incoming edges (utils/graph.py::last_node_edges: the
+    predecessor's node type and whether the edge is programmatic), keyed
+    "type:kind" joined by "+" over its edges; yields (the Counter, [the
+    host seconds of the reads]: they run inside the walk's capture, whose
+    wall includes them)."""
+    from collections import Counter
+
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.utils.graph import last_node_edges
+
+    seen, spent, cuda_fn = Counter(), [0.0], SH.walk_advance_cuda
+
+    def recorded(*args, **kw):
+        cuda_fn(*args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            t0 = time.perf_counter()
+            edges = last_node_edges(torch.cuda.current_stream())
+            seen["+".join(sorted(f"{t}:{k}" for t, k, _ in edges))] += 1
+            spent[0] += time.perf_counter() - t0
+
+    SH.walk_advance_cuda = recorded
+    try:
+        yield seen, spent
+    finally:
+        SH.walk_advance_cuda = cuda_fn
+
+
 def shard_bytes(sh) -> int:
     """Device bytes a shard holds: its table, counters, rings, cubes and
     step buffers."""
@@ -2692,7 +2734,7 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
         torch.cuda.reset_peak_memory_stats(i)
     _kernels.reset_counts()
     t0 = time.perf_counter()
-    with sharded_guard(capture_step) as (plain, cap):
+    with sharded_guard(capture_step) as (plain, cap), walk_edges() as (edges, edges_s):
         if eng is None:
             eng = ShardedFrontierSearch(problem, devices=devices, **kw)
         capacity0 = eng.st.C
@@ -2775,9 +2817,13 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
                 search_s=st["search_s"], step_wall_ms=st["search_s"] / steps * 1e3,
                 engine_build_s=build_s, wall_s=wall, launches=counts,
                 peak_device_bytes=peak, peak_bytes_a_card=peaks, cards=st.get("cards", 1),
-                card_form=st.get("card_form", False),
+                card_form=st.get("card_form", False), walk_edges=dict(edges),
+                walk_edges_s=edges_s[0],
                 shard_bytes=[shard_bytes(sh) for sh in shards] if wire_path else None,
                 path_nodes=len(res.closed))
+    if edges and len({c.dev for c in eng.cards}) > 1 and set(edges) != {"empty:full"}:
+        fail(f"{label}: walk_advance's edges in the captured round {dict(edges)}, want one "
+             f"full edge from the join after the runs of several cards")
     if profile:
         events = [e for e in prof.key_averages() if e.count]
         dev_us = sum(e.device_time_total for e in events if own_event(e.key))
@@ -2807,7 +2853,10 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
           f"{st['peak_carry']}; walk {st['walk_rounds']} rounds ({st['walk_reads']} host reads) "
           f"in {st['walk_s'] * 1e3:.2f} ms"
           + (f" (warm-up round {st['walk_warm_s'] * 1e3:.2f}, capture "
-             f"{st['walk_capture_s'] * 1e3:.2f})" if "walk_warm_s" in st else "") + "; "
+             f"{st['walk_capture_s'] * 1e3:.2f})" if "walk_warm_s" in st else "")
+          + (f", walk_advance's edges in the captured round {dict(edges)} (read in "
+             f"{edges_s[0] * 1e3:.2f} ms of the capture)" if edges else "")
+          + "; "
           f"peak memory {peak / 2**20:.1f} MiB"
           + (f" (cards {[round(b / 2**20, 1) for b in peaks]} MiB)" if n_cards > 1 else "")
           + (f" (shards {[round(b / 2**20, 1) for b in info['shard_bytes']]} MiB)"
@@ -3887,7 +3936,7 @@ def loop_kernel_checks(cap: dict, floor: dict, k6s_baseline=None) -> dict:
     restore_c()
     report("consensus", err, lambda: SH.consensus_cuda(rtab, *args, run, tgt, cons),
            lambda: SH.consensus_plain(rep, *args, run, tg, cons), nbytes, restore=restore_c)
-    if k6s_baseline is not None:
+    if k6s_baseline is not None and "consensus" in k6s_baseline:
         out["consensus"]["turns"] = consensus_turns(rep, args, run, tg, cons, restore_c, want,
                                                     k6s_baseline)
     A = SH.cons_sizes(cap["x_cons"], ndev).cpu().numpy()
@@ -3918,7 +3967,7 @@ def loop_kernel_checks(cap: dict, floor: dict, k6s_baseline=None) -> dict:
                                      cap["x_wires"], pends, cap["x_flags"], me),
            nbytes, restore=restore_x)
     out["exchange"].update(launch_floor_ms=floor["device_ms"], rows=rows, row_words=pw)
-    if k6s_baseline is not None:
+    if k6s_baseline is not None and "exchange" in k6s_baseline:
         out["exchange"]["turns"] = exchange_turns(
             cap, ndev, eng.exchange_cap, ragged, pends, new_x, restore_x, k6s_baseline)
     print(f"  consensus: {len(tg)} targets, A {A.tolist()}; exchange: {rows} rows of {pw} words")
@@ -3927,10 +3976,8 @@ def loop_kernel_checks(cap: dict, floor: dict, k6s_baseline=None) -> dict:
 
 def start_k6s_baseline(src: str, tmp: str):
     """Start nvcc on another tree's K6s (``src``: its shard_loop.cu, or a
-    checkout's root or csrc/ directory; built with the headers beside it;
-    its C entry consensus of CONSENSUS_TARGETS_SIGNATURE, whose target
-    table lay on the card) in its own directory; returns (src, proc,
-    lib)."""
+    checkout's root or csrc/ directory; built with the headers beside it)
+    in its own directory; returns (src, the source file, proc, lib)."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
     cu = src if os.path.isfile(src) else next(
@@ -3944,7 +3991,7 @@ def start_k6s_baseline(src: str, tmp: str):
         [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-I", os.path.dirname(os.path.abspath(cu)), "-o",
          lib, cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return src, proc, lib
+    return src, cu, proc, lib
 
 
 # the C entry of the exchange before its address table rode in the
@@ -3955,24 +4002,32 @@ EXCHANGE_DEVICE_TABLES_SIGNATURE = [_P] + [_I] * 5 + [_P] * 3 + [_I, _P, _P]
 
 
 def load_k6s_baseline(job) -> dict:
-    """The other tree's consensus (start_k6s_baseline), with
-    CONSENSUS_TARGETS_SIGNATURE, its exchange
-    (EXCHANGE_DEVICE_TABLES_SIGNATURE), and its source's name under
-    ``src``."""
+    """The other tree's K6s (start_k6s_baseline): each C entry of
+    K6S_BASELINE_FORMS whose form its source has (40505e8's consensus, its
+    target table on the card; da6a26a's exchange, its address tables on
+    the card; walk_advance of this tree's signature, its runs in a host
+    table), bound with its argument types, and its source's name under
+    ``src``; the turns of an entry it lacks are not run, and a source with
+    none of the forms fails."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    src, proc, lib = job
+    src, cu, proc, lib = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         fail(f"K6s baseline: nvcc failed for shard_loop.cu of {src}:\n{log}")
-    so = ctypes.CDLL(lib)
-    fn = so.consensus
-    fn.argtypes = CONSENSUS_TARGETS_SIGNATURE
-    fn.restype = ctypes.c_int
-    x = so.exchange
-    x.argtypes = EXCHANGE_DEVICE_TABLES_SIGNATURE
-    x.restype = ctypes.c_int
-    return {"src": src, "consensus": fn, "exchange": x}
+    so, text = ctypes.CDLL(lib), open(cu).read()
+    out = {"src": src}
+    for name, mark, sig in K6S_BASELINE_FORMS:
+        if mark in text:
+            fn = getattr(so, name)
+            fn.argtypes = sig or _kernels.SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            out[name] = fn
+    if len(out) == 1:
+        fail(f"K6s baseline {src}: none of {[f[0] for f in K6S_BASELINE_FORMS]} in a form "
+             f"its turns call")
+    print(f"  K6s baseline {src}: {[k for k in out if k != 'src']} in turns with this tree's")
+    return out
 
 
 def exchange_turns(cap: dict, ndev: int, xcap: int, ragged: bool, pends, new, restore,
@@ -4022,6 +4077,14 @@ def exchange_turns(cap: dict, ndev: int, xcap: int, ragged: bool, pends, new, re
 # state, route out, received count, insert flag, index) a target, their
 # count, cons, stream
 CONSENSUS_TARGETS_SIGNATURE = [_P, _I, _I, _I, _I, _I, _L, _L, _P, _P, _I, _P, _P]
+
+# the other tree's C entries that load_k6s_baseline binds, each where its
+# source has the form its turns time: (name, a mark of that form in the
+# source, argument types; None: this tree's)
+K6S_BASELINE_FORMS = (
+    ("consensus", "consensus(const void* rep, int ndev", CONSENSUS_TARGETS_SIGNATURE),
+    ("exchange", "const void* wires, const void* pends", EXCHANGE_DEVICE_TABLES_SIGNATURE),
+    ("walk_advance", "walk_advance(const void* wtab,", None))
 
 
 def consensus_turns(rep, args, run, tg, cons, restore, want, baseline: dict,
@@ -4076,12 +4139,142 @@ def consensus_turns(rep, args, run, tg, cons, restore, want, baseline: dict,
     return res
 
 
-def walk_loop_check(eng, floor: dict) -> dict:
+def walk_round_spans(eng, shards, rounds: int) -> dict:
+    """The walk loop (``eng._walk_loop``) traced with torch.profiler
+    (CUPTI): for each of its first ``rounds`` rounds after the warm-up (the
+    rounds whose flag is 1), the device span from the round's first
+    path_walk_hops start to walk_advance's end, walk_advance's start after
+    the round's last path_walk_hops' end (negative where its launch
+    overlapped that kernel's drain) and walk_advance's own time; the
+    median and the range of each, in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_preamble()
+        eng._walk_loop(shards)
+        torch.cuda.synchronize()
+    ks = sorted((e.time_range.start, e.time_range.end, "walk_advance_kernel" in e.name)
+                for e in prof.events() if e.device_type == DeviceType.CUDA
+                and ("walk_advance_kernel" in e.name or "path_walk_kernel" in e.name))
+    spans, gaps, own = [], [], []
+    first = last = None
+    for a, b, advance in ks:
+        if not advance:
+            first = a if first is None else first
+            last = b
+        elif first is not None:
+            spans.append(b - first)
+            gaps.append(a - last)
+            own.append(b - a)
+            first = None
+    if len(spans) < rounds + 1:
+        fail(f"the walk loop's trace holds {len(spans)} rounds, want at least {rounds + 1}")
+    stat = lambda us: dict(median_ms=statistics.median(us) / 1e3, min_ms=min(us) / 1e3,
+                           max_ms=max(us) / 1e3)
+    keep = slice(1, rounds + 1)  # the warm-up round (flags 0) comes first
+    return dict(rounds=rounds, span=stat(spans[keep]), start_after_walk=stat(gaps[keep]),
+                walk_advance=stat(own[keep]))
+
+
+def walk_turns(eng, host, wtab, hops: int, n: int, kern, restore, baseline: dict,
+               reps: int = 20) -> dict:
+    """Another tree's walk_advance (``baseline``: 2dd56fa's, one warp, the
+    coordinate's words one round trip each) on the first round's runs, its
+    walk state checked against this tree's result bit for bit, then the two
+    timed in turns from the state restored (old, new, new, old): device ms
+    (CUPTI) and ms a call (CUDA events), both a plain ctypes call of their
+    C entries.  Then the walk loop in turns with each kernel in it (old,
+    new, new, old; the old one launched on a full edge, this one on a
+    programmatic edge): each loop's masks and rounds against the host
+    walk's (``host``), its wall split into the warm-up round, the capture
+    and the replays with their reads, and a round's device span and
+    walk_advance's start after the round's last walk (walk_round_spans,
+    medians)."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search.step import _stream
+
+    def entry(fn, what):
+        def go(wtab, hops, n, params, masks, wst, wrun):
+            if fn(wtab.data_ptr(), wtab.numel(), hops, n, params.data_ptr(), masks.data_ptr(),
+                  masks.numel(), wst.data_ptr(), wrun.data_ptr(), _stream(params.device)):
+                fail(f"walk_advance of {what} failed to launch")
+        return go
+
+    who = {"old": entry(baseline["walk_advance"], baseline["src"]),
+           "new": entry(getattr(_kernels.load("walk_advance"), "walk_advance"), "this tree")}
+    restore()
+    who["new"](wtab, hops, n, *kern)
+    torch.cuda.synchronize()
+    want = [t.clone() for t in kern]
+    restore()
+    who["old"](wtab, hops, n, *kern)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(kern, want)):
+        fail("walk_advance of the baseline differs from this one")
+    res = {"device_ms": {"old": [], "new": []}, "ms": {"old": [], "new": []}}
+    for w in ("old", "new", "new", "old"):
+        call = functools.partial(who[w], wtab, hops, n, *kern)
+        res["device_ms"][w].append(device_ms(call, reps, restore))
+        res["ms"][w].append(time_restored(call, restore, reps))
+    loop = {k: {w: [] for w in who} for k in (
+        "wall_ms", "warm_ms", "capture_ms", "replays_ms", "span_ms", "start_after_walk_ms")}
+    cuda_fn = SH.walk_advance_cuda
+    for w in ("old", "new", "new", "old"):
+        SH.walk_advance_cuda = who[w]
+        try:
+            stats = {}
+            t0 = time.perf_counter()
+            masks, rounds, _ = eng._walk_loop(eng.shards, stats)
+            wall = (time.perf_counter() - t0) * 1e3
+            if (masks, rounds) != host:
+                fail(f"the walk loop with walk_advance {w} differs from the host walk")
+            spans = walk_round_spans(eng, eng.shards, rounds)
+        finally:
+            SH.walk_advance_cuda = cuda_fn
+        warm, capture = stats["walk_warm_s"] * 1e3, stats["walk_capture_s"] * 1e3
+        for k, v in (("wall_ms", wall), ("warm_ms", warm), ("capture_ms", capture),
+                     ("replays_ms", wall - warm - capture),
+                     ("span_ms", spans["span"]["median_ms"]),
+                     ("start_after_walk_ms", spans["start_after_walk"]["median_ms"])):
+            loop[k][w].append(v)
+    res["loop"] = loop
+    print(f"  walk_advance in turns with {baseline['src']} (old, new, new, old): " + "; ".join(
+        f"{k} {res[k]['old'][0]:.4f} / {res[k]['new'][0]:.4f} / {res[k]['new'][1]:.4f} / "
+        f"{res[k]['old'][1]:.4f} ms" for k in ("device_ms", "ms")))
+    print("  the walk loop in turns (old, new, new, old): " + "; ".join(
+        f"{k} {v['old'][0]:.4f} / {v['new'][0]:.4f} / {v['new'][1]:.4f} / {v['old'][1]:.4f}"
+        for k, v in loop.items()))
+    return res
+
+
+def one_warp_floor(reps: int = 20) -> dict:
+    """The device time (CUPTI) under a one-warp kernel of one launch:
+    pointer_chase (csrc/path_walk.cu, one thread) with 0 hops (a launch
+    and one store), 1 hop and 2 hops (one and two dependent loads before
+    the store, over a 4 KiB cycle that stays in L2), in ms."""
+    fn = pointer_chase()
+    nxt = ((torch.arange(1024, dtype=torch.int32) * 97 + 1) % 1024).cuda()
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def chase(hops):
+        def go():
+            if fn(nxt.data_ptr(), hops, out.data_ptr(), torch.cuda.current_stream().cuda_stream):
+                fail("pointer_chase failed to launch")
+        return go
+
+    return {f"{h}_hops": device_ms(chase(h), reps) for h in (0, 1, 2)}
+
+
+def walk_loop_check(eng, floor: dict, baseline=None) -> dict:
     """On the finished tables of a chunked run: the walk's device loop
     (WALK_ROUNDS rounds a graph replay) against the host walk, the same
-    masks and rounds; walk_advance on the first round's runs against its
+    masks and rounds, its wall and each round's device span
+    (walk_round_spans); walk_advance on the first round's runs against its
     plain version, timed from its inputs restored (wrapper, device, plain)
-    beside its bound by bytes and the launch floor."""
+    beside its bound by bytes and the launch floor; with ``baseline``,
+    another tree's walk_advance in turns with this one (walk_turns)."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
     shards, st = eng.shards, eng.st
@@ -4094,6 +4287,7 @@ def walk_loop_check(eng, floor: dict) -> dict:
     if masks != h_masks or rounds != h_rounds:
         fail(f"the walk loop's {len(masks)} masks in {rounds} rounds differ from the host "
              f"walk's {len(h_masks)} in {h_rounds}")
+    spans = walk_round_spans(eng, shards, rounds)
     n, hops, dev = st.n, SH.WALK_HOPS, shards[0].dev
     final = [int(v) for v in eng.problem.final_coord]
     i32 = dict(dtype=torch.int32, device=dev)
@@ -4125,11 +4319,21 @@ def walk_loop_check(eng, floor: dict) -> dict:
     timed_check(out, "walk_advance", err, lambda: SH.walk_advance_cuda(wtab, hops, n, *kern),
                 lambda: SH.walk_advance_plain(wout, hops, n, *kern),
                 eng.ndev * hops * 4 + 2 * n * 4 + emitted * 4 + 2 * 8 + 2 * 4, restore=restore)
-    out["walk_advance"].update(launch_floor_ms=floor["device_ms"], emitted=emitted)
+    warp = one_warp_floor()
+    out["walk_advance"].update(launch_floor_ms=floor["device_ms"], emitted=emitted,
+                               round_span=spans, one_warp_floor_ms=warp)
+    print("  a one-warp launch's floor (pointer_chase, device): " + ", ".join(
+        f"{k.replace('_', ' ')} {v:.5f} ms" for k, v in warp.items()))
+    if baseline is not None and "walk_advance" in baseline:
+        out["walk_advance"]["turns"] = walk_turns(eng, (h_masks, h_rounds), wtab, hops, n,
+                                                  kern, restore, baseline)
     out.update(masks=len(masks), rounds=rounds, loop_reads=reads, loop_s=loop_s, host_s=host_s)
     print(f"  the walk loop: {len(masks)} masks in {rounds} rounds, {reads} host reads, "
           f"{loop_s * 1e3:.2f} ms; the host walk the same masks in {host_s * 1e3:.2f} ms, "
-          f"{h_rounds} reads")
+          f"{h_rounds} reads; a round's device span {spans['span']['median_ms']:.4f} ms "
+          f"(median of {rounds}; {spans['span']['min_ms']:.4f}-{spans['span']['max_ms']:.4f}), "
+          f"walk_advance {spans['walk_advance']['median_ms']:.4f} ms starting "
+          f"{spans['start_after_walk']['median_ms'] * 1e3:.2f} us after the round's last walk")
     return out
 
 
@@ -4181,7 +4385,12 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
              f"at 2^21), exchange {eng.exchange}, cubes split {eng.cubes_split}, migrated "
              f"{r['migrated']}, driver {r['driver']}, {r['host_reads_a_step']} host reads a "
              f"step, {r['graph_captures']} step graphs captured")
-    out["walk_loop"] = walk_loop_check(eng, floor)
+    # walk_advance over a programmatic edge from the round's last walk
+    edges = r["walk_edges"]
+    if not edges or set(edges) != {"kernel:programmatic"}:
+        fail(f"kinase sharded: walk_advance's edges in the captured round {edges}, want one "
+             f"programmatic edge from a kernel")
+    out["walk_loop"] = walk_loop_check(eng, floor, k6s_baseline)
     del eng
     # the several-card step on one card: the four shards grouped into two
     # cards (0, 1 | 2, 3), each with its stream, joined by events in one
@@ -5155,12 +5364,14 @@ def main() -> int:
                          "the two K11s in turns (device, each pass alone)")
     ap.add_argument("--k6s-baseline", metavar="SRC", default=None,
                     help="also build another tree's csrc/shard_loop.cu (SRC: the "
-                         "file, or a checkout's root or csrc/; its C entries "
-                         "consensus and exchange, whose target and address tables "
-                         "lay on the card: 40505e8's, whose exchange da6a26a "
-                         "ships unchanged), check them on the sharded step 200's "
-                         "consensus and exchange and time each in turns with "
-                         "this tree's")
+                         "file, or a checkout's root or csrc/), check each of its "
+                         "C entries that has the form its turns call (consensus "
+                         "and exchange with their tables on the card, 40505e8's "
+                         "and da6a26a's; walk_advance with its runs in a host "
+                         "table, 2dd56fa's) on the sharded step 200's consensus "
+                         "and exchange and on the walk's first round, and time "
+                         "each in turns with this tree's (walk_advance also in "
+                         "the walk loop: its wall and a round's device span)")
     ap.add_argument("--k11-sweep", action="store_true",
                     help="also check and time K11 on synthetic inputs at kinase's "
                          "shapes with 64, 636, 4096, 8192, 16384 and 31744 rows a "

@@ -43,8 +43,9 @@
 //   walk_advance: after every shard's hop-limited walk (path_walk.cu) of a
 //     round, the sum of the runs (one shard's is non-zero; each read where
 //     it lies, on this card or a peer), its masks appended, the card's own
-//     copy of the coordinate stepped back, and the walk's flag cleared at
-//     the origin or when a round emits nothing.
+//     copy of the coordinate stepped back, a round counted, and the walk's
+//     flag cleared at the origin, when a round emits nothing, or when the
+//     masks have no room for another round.
 //
 // Across the cards of one process the kernels read their peers' buffers
 // through device addresses (peer access enabled, UVA over NVLink): no
@@ -66,7 +67,10 @@
 // launch issued together: the consensus is one warp, a shard a lane, whose
 // loads are one round (its targets' addresses ride in the launch's
 // parameters), then shuffles and stores, with no barrier; walk_advance
-// one warp, a mask a lane.  The exchange is a row of
+// one warp, a hop and a dimension a lane, whose loads (flag, counts,
+// coordinate, runs) are one round after the wait for the round's last
+// walk, over whose drain it is launched (a programmatic edge, on one
+// card), then ballots and one store an address.  The exchange is a row of
 // kExchangeBlocks blocks a receiver whose every address rides in the
 // launch's parameters (XTable: the senders' wires, the receivers' pending
 // lists, flags and indices), so a block's loads before the copy are its
@@ -365,43 +369,92 @@ __global__ void __launch_bounds__(kExchangeThreads) exchange_kernel(
 
 // Every shard's run of a walk round, by shard index, where it lies (this
 // card or a peer): hops masks, the coordinate it stopped at and the run's
-// length (path_walk_hops' output).  By value in the launch's parameters.
+// length (path_walk_hops' output).  By value in the launch's parameters,
+// kRuns >= ndev addresses: 4 up to 4 shards, else kMaxDev, so a mesh of
+// few shards pays neither the larger parameter block nor the predicated
+// loads of the rest (on an H100, kinase on 4 shards: 0.0016 ms a launch
+// with 32 addresses, 0.0013 with 4; PERF.md K6s).
+template <int kRuns>
 struct Runs {
-  const int32_t* run[kMaxDev];
+  const int32_t* run[kRuns];
 };
 
-__global__ void walk_advance_kernel(const __grid_constant__ Runs w, int ndev, int hops, int N,
-                                    int32_t* __restrict__ params, int32_t* __restrict__ masks,
-                                    int mcap, int32_t* __restrict__ wst,
-                                    int32_t* __restrict__ wrun) {
+constexpr int kMaxWalkN = 24;  // a walk's coordinates: a lane each
+
+// One warp; lane h a hop of every run, lane d dimension d of the
+// coordinate (N <= kMaxWalkN < 32).  Every load of the launch is issued
+// in one round, after the wait for the kernel before it: the flag, the
+// counts, lane d's coordinate and lane h's word of every run (the runs'
+// addresses ride in the launch's parameters).  A read of the walk's own
+// state before the wait would race the kernel before it wherever that
+// one writes the state (a fill, a restore), and issued beside the runs'
+// loads it adds no dependent trip.  The masks' places are one ballot and
+// a prefix popcount; dimension d's decrement is the popcount of one ballot
+// over the positive masks, kept by lane d; each address is stored once.
+// With the flag at 0 (a replay after the stop) nothing is stored.
+template <int kRuns>
+__global__ void __launch_bounds__(32) walk_advance_kernel(
+    const __grid_constant__ Runs<kRuns> w, int ndev, int hops, int N,
+    int32_t* __restrict__ params, int32_t* __restrict__ masks, int mcap,
+    int32_t* __restrict__ wst, int32_t* __restrict__ wrun) {
+  constexpr unsigned kFull = 0xffffffffu;
   const int lane = threadIdx.x;
-  if (*wrun == 0) return;
-  // lane h's mask of every shard's run, the loads issued together
-  int v[kMaxDev];
+  step::wait_predecessor();  // the programmatic edge from the round's last walk
+  const int go = *wrun;
+  const int n = wst[0];
+  const int rounds = lane == 0 ? wst[1] : 0;
+  const int p = lane < N ? params[lane] : 0;
+  int v[kRuns];
 #pragma unroll
-  for (int s = 0; s < kMaxDev; ++s) v[s] = s < ndev && lane < hops ? w.run[s][lane] : 0;
+  for (int s = 0; s < kRuns; ++s) v[s] = s < ndev && lane < hops ? w.run[s][lane] : 0;
   int m = 0;
 #pragma unroll
-  for (int s = 0; s < kMaxDev; ++s) m += v[s];
+  for (int s = 0; s < kRuns; ++s) m += v[s];
   const bool pos = m > 0;
-  const unsigned ballot = __ballot_sync(0xffffffffu, pos);
-  const int n = wst[0];
+  const unsigned ballot = __ballot_sync(kFull, pos);
+  const int emitted = __popc(ballot);
   const int at = n + __popc(ballot & ((1u << lane) - 1u));
-  if (pos && at < mcap) masks[at] = m;
-  int any = 0;
-  for (int d = 0; d < N; ++d) {
-    const int dec = __reduce_add_sync(0xffffffffu, pos ? (m >> d) & 1 : 0);
-    const int c = params[d] - dec;
-    any |= c != 0;
-    __syncwarp();  // every lane has read params[d]
-    if (lane == 0) params[d] = c;
+  int dec = 0;
+#pragma unroll
+  for (int d = 0; d < kMaxWalkN; ++d) {
+    if (d >= N) break;  // N is the warp's: every lane leaves together
+    const int c = __popc(__ballot_sync(kFull, pos && ((m >> d) & 1)));
+    if (lane == d) dec = c;
   }
+  const int c = p - dec;
+  const bool any = __any_sync(kFull, lane < N && c != 0);
+  if (go == 0) return;
+  if (pos && at < mcap) masks[at] = m;
+  if (lane < N) params[lane] = c;
   if (lane == 0) {
-    const int emitted = __popc(ballot);
     wst[0] = n + emitted;
-    wst[1] += 1;
+    wst[1] = rounds + 1;
     if (emitted == 0 || !any || n + emitted + hops > mcap) *wrun = 0;
   }
+}
+
+// walk_advance's launch with its runs' table of kRuns addresses (the
+// first ndev of t, each checked), over a programmatic edge.
+template <int kRuns>
+int launch_walk_advance(const long long* t, int ndev, int hops, int N, int32_t* params,
+                        int32_t* masks, int mcap, int32_t* wst, int32_t* wrun,
+                        cudaStream_t stream) {
+  Runs<kRuns> w = {};
+  for (int s = 0; s < ndev; ++s) {
+    if (!t[s]) return (int)cudaErrorInvalidValue;
+    w.run[s] = (const int32_t*)t[s];
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(32);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1] = {step::programmatic_edge()};
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, walk_advance_kernel<kRuns>, w, ndev, hops, N,
+                                           params, masks, mcap, wst, wrun);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -493,23 +546,29 @@ extern "C" int exchange(const void* cons, int ndev, int cap, int ragged, int rec
 // the launch's parameters; params: int32 [coordinate N, key bit widths N]
 // (the coordinate moved on in place); masks: (mcap,) int32; wst: int32
 // [masks emitted, rounds]; wrun: the walk's int32 flag; all four this
-// card's own.  One warp; hops <= 32.
+// card's own.  One warp; hops <= 32, N <= kMaxWalkN.  Launched over a
+// programmatic edge from the kernel before it on the stream (the round's
+// last path_walk_hops, which triggers nothing early): the launch overlaps
+// that kernel's drain, and the kernel waits for it before its first load
+// (step::wait_predecessor), so it is correct under any predecessor on
+// this card.  A graph captures the edge from each kernel it follows; a
+// copy before it (the rank form's sum into wsum) keeps a full edge.  No
+// CUDA document says that griddepcontrol.wait orders another card's
+// grid, so where the runs of the round come from other cards the caller
+// makes the capture's dependency an empty node after them
+// (utils/graph.py::join_full): a full edge.
 extern "C" int walk_advance(const void* wtab, int ndev, int hops, int N, void* params,
                             void* masks, int mcap, void* wst, void* wrun, void* stream) {
   if (wtab == nullptr || params == nullptr || masks == nullptr || wst == nullptr ||
       wrun == nullptr || ndev < 1 || ndev > kMaxDev || hops < 1 || hops > 32 || N < 2 ||
-      N > 24 || mcap < hops)
+      N > kMaxWalkN || mcap < hops)
     return (int)cudaErrorInvalidValue;
-  Runs w = {};
   const long long* t = (const long long*)wtab;
-  for (int s = 0; s < ndev; ++s) {
-    if (!t[s]) return (int)cudaErrorInvalidValue;
-    w.run[s] = (const int32_t*)t[s];
-  }
-  walk_advance_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(w, ndev, hops, N, (int32_t*)params,
-                                                         (int32_t*)masks, mcap, (int32_t*)wst,
-                                                         (int32_t*)wrun);
-  return (int)cudaGetLastError();
+  auto go = [&](auto launch) {
+    return launch(t, ndev, hops, N, (int32_t*)params, (int32_t*)masks, mcap, (int32_t*)wst,
+                  (int32_t*)wrun, (cudaStream_t)stream);
+  };
+  return ndev <= 4 ? go(launch_walk_advance<4>) : go(launch_walk_advance<kMaxDev>);
 }
 
 // Host entries of a mesh across the cards of one process (no kernel).

@@ -116,6 +116,7 @@ from ..search.engine import (_LAYOUT_FNS, INF, INFP, TRASH, _EMPTY_WORD, PackedT
                              N_COUNTERS, fresh_counters, walk)
 from ..search.step import (STATE_FMIN, STATE_NPEND, STATE_NSEL, STATE_NVALID, STATE_WORDS,
                            _check)
+from ..utils.graph import join_full
 from .mesh import LocalMesh, ProcessMesh
 from .partition import owner_fn, owner_params
 
@@ -2174,7 +2175,8 @@ class ShardedFrontierSearch:
         every rank's wrote into the card's ``wsum``, JAX's psum :521, a
         non-owner's run all zeros), appends the masks and moves the card's
         coordinate on (on several cards after every card's runs are
-        written: ``_Card.wait``); WALK_ROUNDS rounds a host read of the
+        written: ``_Card.wait``; where they lie on several devices over a
+        full edge, ``join_full``); WALK_ROUNDS rounds a host read of the
         first card (on cards a CUDA graph of one round over every card,
         replayed WALK_ROUNDS times), until the walk's flag reads 0.
         Returns (masks, rounds, host reads); raises as ``_walk``.
@@ -2202,6 +2204,8 @@ class ShardedFrontierSearch:
             card.runs = [card.wsum] if ranks else [sh.wout for sh in runs]
             if card.cuda:
                 card.wtab = run_table(card.runs, hops, n)
+        # runs written on other devices: walk_advance on a full edge
+        spread = len({c.dev for c in cards}) > 1
 
         def round_() -> None:
             with self._fork():
@@ -2217,6 +2221,8 @@ class ShardedFrontierSearch:
                         card.wait("runs")
                         args = (hops, n, card.wparams, card.masks, card.wst, card.wrun)
                         if card.cuda:
+                            if spread:
+                                join_full()
                             walk_advance_cuda(card.wtab, *args)
                         else:
                             walk_advance_plain(card.runs, *args)

@@ -30,6 +30,7 @@ from mpi_pastar_msa_tpu_torch.heuristic.triples import (
 from mpi_pastar_msa_tpu_torch.heuristic.wavefront import (
     pair_inputs, wavefront_tables, wavefront_tables_plain)
 from mpi_pastar_msa_tpu_torch.heuristic.weights import altschul_rationale2
+from walk_cases import WALK_SHAPES, WALK_STOPS, walk_case
 
 pytestmark = pytest.mark.cuda
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1895,50 +1896,74 @@ def test_exchange_kernel_received_equals_plain(cuda, ndev, pw):
         SH.exchange_cuda(cons, ndev, cap, True, R, pw, xtab, received=True)
 
 
-@pytest.mark.parametrize("form", ["buffer", "by_address"])
-def test_walk_advance_kernel_equals_plain(cuda, form):
-    """walk_advance against walk_advance_plain over rounds of random runs
-    (one shard's non-zero a round, masks of up to 5 bits), until the walk's
-    flag clears: masks, coordinate, counts and flag bit for bit; the runs
-    the rows of one buffer, or each shard's own tensor (the several-card
-    walk's form: the kernel reads each by its address)."""
+@pytest.mark.parametrize("form", ["buffer", "by_address", "graph"])
+@pytest.mark.parametrize("stop", WALK_STOPS)
+@pytest.mark.parametrize("n,hops,ndev", WALK_SHAPES)
+def test_walk_advance_kernel_equals_plain(cuda, n, hops, ndev, stop, form):
+    """walk_advance against walk_advance_plain over the rounds of a seeded
+    walk until its flag clears, and two rounds more: masks, coordinate,
+    counts and flag bit for bit after every round, at three shapes and
+    every stop.  The runs are the rows of one buffer, or each shard's own
+    tensor (the several-card walk's form: the kernel reads each by its
+    address), or (``graph``) the rows of one buffer that a kernel ahead of
+    walk_advance writes from the staged rounds, every round captured into
+    one CUDA graph with a copy of the walk state after it, replayed once:
+    each walk_advance node's one incoming edge is then a programmatic edge
+    from that kernel."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search.step import _capture
+    from mpi_pastar_msa_tpu_torch.utils.graph import last_node_edges
 
-    n, hops, ndev = 5, 8, 4
-    final = [40, 38, 41, 39, 42]
-    states = []
-    for use_kernel in (True, False):
-        params = torch.tensor(final + [9] * n, dtype=torch.int32, device=cuda)
-        masks = torch.zeros(sum(final) + hops, dtype=torch.int32, device=cuda)
-        wst = torch.zeros(2, dtype=torch.int32, device=cuda)
-        wrun = torch.ones(1, dtype=torch.int32, device=cuda)
-        runs = ([torch.zeros(hops + n + 1, dtype=torch.int32, device=cuda) for _ in range(ndev)]
-                if form == "by_address" else
-                torch.zeros((ndev, hops + n + 1), dtype=torch.int32, device=cuda))
-        wtab = SH.run_table(runs, hops, n)
-        r = np.random.default_rng(11)
-        for _ in range(200):
-            coord = params[:n].tolist()
-            wout = torch.zeros((ndev, hops + n + 1), dtype=torch.int32)
-            k = int(r.integers(0, hops + 1))
-            owner = int(r.integers(ndev))
-            for h in range(k):
-                m = sum(1 << d for d in range(n) if coord[d] > 0 and r.random() < 0.7)
-                if m == 0:
-                    break
-                wout[owner, h] = m
-                coord = [coord[d] - ((m >> d) & 1) for d in range(n)]
-            for i in range(ndev):
-                runs[i].copy_(wout[i])
-            if use_kernel:
-                SH.walk_advance_cuda(wtab, hops, n, params, masks, wst, wrun)
-            else:
-                SH.walk_advance_plain(runs, hops, n, params, masks, wst, wrun)
+    state, runs = walk_case(7 * n + hops + ndev, n, hops, ndev, stop)
+    rounds = runs + [np.zeros_like(runs[0])] * 2
+    plain = [torch.from_numpy(a.copy()) for a in state]
+    want = []
+    for out in rounds:
+        SH.walk_advance_plain(torch.from_numpy(out), hops, n, *plain)
+        want.append(torch.cat([t.clone() for t in plain]))
+    kern = [torch.from_numpy(a.copy()).to(cuda) for a in state]
+    got = torch.zeros((len(rounds), want[0].numel()), dtype=torch.int32, device=cuda)
+    words = np.cumsum([0] + [t.numel() for t in kern])
+
+    def snapshot(k):
+        for t, lo, hi in zip(kern, words[:-1], words[1:]):
+            got[k, lo:hi].copy_(t)
+
+    if form == "graph":
+        staged = torch.from_numpy(np.stack(rounds)).to(cuda)
+        buf = torch.zeros((ndev, hops + n + 1), dtype=torch.int32, device=cuda)
+        wtab = SH.run_table(buf, hops, n)
+        zero = torch.zeros((), dtype=torch.int32, device=cuda)
+        # the C entry's first call loads its library: not in the capture
+        SH.walk_advance_cuda(wtab, hops, n, *[t.clone() for t in kern])
         torch.cuda.synchronize()
-        states.append([params, masks, wst, wrun])
-    for a, b in zip(*states):
-        assert torch.equal(a, b)
-    assert int(states[0][3][0]) == 0
+        edges = []
+
+        def fn():
+            for k in range(len(rounds)):
+                torch.add(staged[k], zero, out=buf)
+                SH.walk_advance_cuda(wtab, hops, n, *kern)
+                edges.append(last_node_edges(torch.cuda.current_stream()))
+                snapshot(k)
+
+        graph = _capture(fn)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(e == [("kernel", "programmatic", e[0][2])] for e in edges), edges
+    else:
+        bufs = ([torch.zeros(hops + n + 1, dtype=torch.int32, device=cuda)
+                 for _ in range(ndev)] if form == "by_address" else
+                torch.zeros((ndev, hops + n + 1), dtype=torch.int32, device=cuda))
+        wtab = SH.run_table(bufs, hops, n)
+        for k, out in enumerate(rounds):
+            for i in range(ndev):
+                bufs[i].copy_(torch.from_numpy(out[i]))
+            SH.walk_advance_cuda(wtab, hops, n, *kern)
+            snapshot(k)
+        torch.cuda.synchronize()
+    for k, w in enumerate(want):
+        assert torch.equal(got[k].cpu(), w), (k, len(runs))
+    assert int(want[-1][-1]) == 0
 
 
 def _loop_words(eng):
@@ -2172,3 +2197,52 @@ def test_sharded_across_cards_equal_host_driver(cuda, layout):
                                   chunk_steps=16)
     assert len(ce.cards) == min(n, 4) and not he.card_form
     _equal_drivers(ce, cr, he, hr, gold, 16)
+
+
+@pytest.mark.parametrize("cycles", [0, 200_000])
+def test_walk_loop_across_cards_with_late_peers(cuda, cycles, monkeypatch):
+    """The walk's device loop on four shards round-robin over every card
+    (two or more; skipped below), kinase searched to its end (85 rounds
+    of the walk), with every
+    shard off the first card starting its walk of a round ``cycles`` clock
+    cycles late (torch.cuda._sleep ahead of path_walk_hops, captured into
+    the round's graph with it, about 0.1 ms at 200,000): the host walk's
+    masks and rounds over every round, and each walk_advance node's one
+    incoming edge a full edge from the empty node after every card's runs
+    (utils/graph.py::join_full), no programmatic edge across the cards."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.utils.graph import last_node_edges
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more")
+    gold, problem = golden_problem("kinase.fasta")
+    eng = SH.ShardedFrontierSearch(problem, devices=[torch.device("cuda", i % n)
+                                                     for i in range(4)], driver="chunked")
+    assert eng.run().g == gold["optimal_g"] and len(eng.cards) == min(n, 4)
+    masks, rounds = eng._walk(eng.shards)
+    first = eng.cards[0].dev
+
+    def late(walk):
+        def go(*args, **kw):
+            torch.cuda._sleep(cycles)
+            return walk(*args, **kw)
+        return go
+
+    if cycles:
+        for sh in eng.shards:
+            if sh.dev != first:
+                monkeypatch.setattr(sh, "walk_hops", late(sh.walk_hops))
+    edges, advance = [], SH.walk_advance_cuda
+
+    def recorded(*args):
+        advance(*args)
+        if torch.cuda.is_current_stream_capturing():
+            edges.append(last_node_edges(torch.cuda.current_stream()))
+
+    monkeypatch.setattr(SH, "walk_advance_cuda", recorded)
+    got, got_rounds, reads = eng._walk_loop(eng.shards)
+    assert (got, got_rounds) == (masks, rounds) and rounds > 2 * SH.WALK_ROUNDS
+    assert reads == -(-rounds // SH.WALK_ROUNDS)
+    assert len(edges) == len(eng.cards)
+    assert all(e == [("empty", "full", 0)] for e in edges), edges

@@ -7,7 +7,9 @@ each kind, an empty ring, a stopped run); ``exchange_plain`` against
 ``LocalMesh.all_to_all_ragged`` and the dense copy loop on the wires of
 the plain route, and the exchange kernel's schedule (its one round of A
 loads, its flat word range) against ``exchange_plain``; ``walk_advance_plain`` against the host walk, and over
-each shard's run by address against the one-buffer form; the chunked
+each shard's run by address against the one-buffer form, and the
+walk_advance kernel's warp schedule (one load round, ballots, one store
+an address) against it at three shapes and every stop; the chunked
 driver against the host driver on CPU shards (sig, packed, unpacked;
 test2 and PF08184 on 2 and 4 shards; a one-row wire that spills): the
 results, the per-shard stats and every table tensor equal, also across
@@ -38,6 +40,7 @@ from mpi_pastar_msa_tpu_torch.search import step as TS
 from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
 from mpi_pastar_msa_tpu_torch.search.bruteforce import optimal_cost
 from mpi_pastar_msa_tpu_torch.search.engine import INF, INFP
+from walk_cases import WALK_SHAPES, WALK_STOPS, walk_case
 
 torch.set_num_threads(1)
 
@@ -518,6 +521,95 @@ def test_walk_advance_plain_rows_by_address(seed):
         for other in states[1:]:
             assert all(torch.equal(a, b) for a, b in zip(states[0], other))
     assert int(states[0][3][0]) == 0 and int(states[0][2][0]) > 0
+
+
+def emu_walk_advance(wtab, ndev, hops, n, params, masks, wst, wrun):
+    """csrc/shard_loop.cu's walk_advance with its warp's schedule emulated,
+    from the address table ``run_table`` built (the host memory the C entry
+    copies into the launch's parameters; each run read through it): one
+    round of loads over the 32 lanes (the flag and the counts on every
+    lane, lane d's coordinate word for d < N, lane h's word of every run
+    for h < hops), then ballots as 32-bit words and their popcounts (the
+    masks' places a prefix popcount, dimension d's decrement one ballot
+    kept by lane d, ``any`` a vote), then the stores, each address at most
+    once; the arrays in place."""
+    lanes = np.arange(32)
+    popc = lambda w: bin(int(w)).count("1")
+    ballot = lambda pred: sum(1 << int(l) for l in lanes[pred])
+    # the load round
+    go = [int(wrun[0])] * 32
+    nn = [int(wst[0])] * 32
+    rounds = int(wst[1])  # lane 0's
+    p = np.array([int(params[l]) if l < n else 0 for l in lanes], np.int64)
+    v = np.zeros((32, ndev), np.int64)
+    for s_, addr in enumerate(wtab.tolist()[:ndev]):
+        for h in range(hops):
+            v[h, s_] = ctypes.c_int32.from_address(addr + 4 * h).value
+    m = v.sum(axis=1)
+    pos = m > 0
+    b = ballot(pos)
+    emitted = popc(b)
+    at = np.array([nn[l] + popc(b & ((1 << l) - 1)) for l in lanes])
+    dec = np.zeros(32, np.int64)
+    for d in range(n):
+        dec[d] = popc(ballot(pos & (((m >> d) & 1) == 1)))
+    c = p - dec
+    anyv = ballot((lanes < n) & (c != 0)) != 0
+    if go[0] == 0:
+        return
+    stores = []
+    for l in lanes:
+        if pos[l] and at[l] < masks.size:
+            stores.append(("masks", int(at[l]), int(m[l])))
+        if l < n:
+            stores.append(("params", int(l), int(c[l])))
+    stores += [("wst", 0, nn[0] + emitted), ("wst", 1, rounds + 1)]
+    if emitted == 0 or not anyv or nn[0] + emitted + hops > masks.size:
+        stores.append(("wrun", 0, 0))
+    places = [(a, i) for a, i, _ in stores]
+    assert len(places) == len(set(places)), "an address stored twice"
+    arrays = dict(masks=masks, params=params, wst=wst, wrun=wrun)
+    for a, i, val in stores:
+        arrays[a][i] = val
+
+
+@pytest.mark.parametrize("stop", WALK_STOPS)
+@pytest.mark.parametrize("n,hops,ndev", WALK_SHAPES)
+def test_walk_advance_schedule_equals_plain(n, hops, ndev, stop):
+    """The walk_advance kernel's schedule (emu_walk_advance, its runs read
+    by address from run_table) against walk_advance_plain, round after
+    round from seeded runs until the walk's flag clears, and two rounds
+    more (nothing changes): masks, coordinate, counts and flag equal after
+    every round; each case ends at the stop it is built for."""
+    state, runs = walk_case(7 * n + hops + ndev, n, hops, ndev, stop)
+    emu = [a.copy() for a in state]
+    plain = [torch.from_numpy(a.copy()) for a in state]
+    bufs = [torch.zeros(hops + n + 1, dtype=torch.int32) for _ in range(ndev)]
+    wtab = S.run_table(bufs, hops, n)
+    rounds = 0
+    for out in runs + [np.zeros_like(runs[0])] * 2:
+        for buf, row in zip(bufs, out):
+            buf.copy_(torch.from_numpy(row))
+        live = int(plain[3][0])
+        emu_walk_advance(wtab, ndev, hops, n, *emu)
+        S.walk_advance_plain(bufs, hops, n, *plain)
+        rounds += live
+        for a, b in zip(emu, plain):
+            assert np.array_equal(a, b.numpy())
+    params, masks, wst, wrun = plain
+    coord = params[:n].tolist()
+    assert int(wrun[0]) == 0 and int(wst[1]) == rounds
+    if stop == "off":
+        assert rounds == 0 and all(np.array_equal(a, b.numpy()) for a, b in zip(state, plain))
+    elif stop == "origin":
+        assert not any(coord) and int(wst[0]) == int((masks > 0).sum()) > 0
+    elif stop == "empty":
+        assert any(coord) and rounds == 3
+    elif stop == "room":
+        assert any(coord) and rounds == 2 and int(wst[0]) == 2 * hops
+    else:
+        assert any(coord) and rounds == 1 and int(wst[0]) == 2 * hops - hops // 2 + hops
+        assert int((masks[state[2][0]:] > 0).sum()) == hops // 2
 
 
 @pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
