@@ -172,16 +172,22 @@ Phases, each failing loudly (non-zero exit):
    word and to the golden, and the first card's consensus over the
    snapshots against its plain version.  A ProcessMesh's step on this one
    card: kinase in the rank form (``rank_form``: a card a shard, the
-   mesh's collectives as copies in NCCL's places), chunked and dense, the
-   golden g and alignment, every table word equal to the host driver's,
-   one host read a chunk in the search and in the walk, its wall a step
-   with and without the captures, and the exchange over each rank's
-   received blocks against its plain version.  Several cards, when there
-   are: kinase one shard a card, chunked and host in turns, equal and
-   golden, a traced chunked run, and a ProcessMesh of NCCL ranks, the CLI
-   and then the engine chunked and host in turns, each rank's table words
-   equal under both; else it says so (``--sharded-only`` runs this phase
-   alone, ``--multi-card-only`` its several-card part).
+   mesh's collectives as copies in NCCL's places), chunked under the
+   ragged exchange (every rank's exchange reading the senders' wires by
+   address) and the dense one, the golden g and alignment, every table
+   word equal to the host driver's in the same form, one host read a
+   chunk in the search and in the walk, its wall a step with and without
+   the captures, and every rank's exchange (from the wires, from its
+   received blocks) against its plain version; then two processes on the
+   card, each running the exchange from the other's wire mapped through
+   CUDA IPC, against its plain version (``ipc_check``).  Several cards,
+   when there are: kinase one shard a card, chunked and host in turns,
+   equal and golden, a traced chunked run, and a ProcessMesh of NCCL
+   ranks, the CLI (auto: ragged, chunked) and then the engine in turns
+   (ragged chunked, ragged host, dense chunked, ragged chunked), each
+   rank's table words equal under both drivers of an exchange; else it
+   says so (``--sharded-only`` runs this phase alone,
+   ``--multi-card-only`` its several-card part).
 8. the kernels JSON line, then the result line.
 
 Inputs are rebuilt from tests/goldens.json (the degapped golden rows) and
@@ -2599,12 +2605,16 @@ def sharded_guard(capture_step: int = 0):
                        k6s_tg1=targets(card))
 
     def exchange(card, eng, shards):
-        rank = at_step() and card.recv is not None  # the rank form: every rank's
+        rank = at_step() and not eng.card_form  # the rank form: every rank's
         if rank:
             (sh,) = card.shards
+            # the dense exchange's received blocks, or every rank's wire
+            # where the ragged one reads it
+            src = (dict(recv=card.recv.clone()) if card.recv is not None
+                   else dict(wires=[w.clone() for w in card.wires]))
             cap.setdefault("xr", []).append(dict(
-                cons=card.cons.clone(), recv=card.recv.clone(), pend0=sh.pend.clone(),
-                go=sh.go.clone(), me=sh.me, R=sh.R, pw=sh.pw))
+                cons=card.cons.clone(), pend0=sh.pend.clone(), go=sh.go.clone(), me=sh.me,
+                R=sh.R, pw=sh.pw, **src))
         mine = at_step() and "x_pend0" not in cap
         if mine:
             cap.update(x_cons=card.cons.clone(), x_wires=[sh.wire.clone() for sh in shards],
@@ -2763,12 +2773,13 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
     st = eng.last_stats
     wire_path = not (eng.ndev == 1 and eng.exchange == "dense")
     chunked = st["driver"] == "chunked"
-    # the rank form's ragged exchange (the host driver on several cards) is
-    # sized on the host
+    # the rank form's ragged exchange is sized on the host where the mesh
+    # maps no peer's wire (cards without peer access)
     want = [k for k in SHARDED_KERNELS[eng.layout] + LOOP_KERNELS
             if (eng.cubes_split or k not in ("sig_coords", "keyrow_coords", "tri_partial"))
             and (chunked or k != "walk_advance")
-            and (st.get("card_form") or eng.exchange == "dense" or k != "exchange")]
+            and (st.get("card_form") or eng.exchange == "dense" or eng.wires is not None
+                 or k != "exchange")]
     if wire_path:
         for k in want:
             if counts.get(k, 0) <= 0:
@@ -3560,53 +3571,60 @@ def run_ranks(argv, ranks: int, timeout: int, label: str):
 
 def process_mesh_run(path: str, gold: dict, ranks: int, timeout: int = 400) -> dict:
     """Kinase on a ProcessMesh of ``ranks`` NCCL ranks, a card each: the
-    CLI (``--exchange auto``: dense, the chunked driver, each rank
-    replaying its own step graphs with the mesh's collectives captured in
-    them), every rank the golden Final Score; then
-    tools/process_mesh_turns.py, the engine under the chunked and the host
-    driver in turns (chunked, host, host, chunked; dense, chunks of 256),
-    every rank each time the golden g and alignment, the chunked driver
-    one host read a chunk, and the same table words under both drivers
-    (a hash a rank); each rank's driver, host reads a step and wall a step
+    CLI (``--exchange auto``: ragged, as JAX's on cards, under the chunked
+    driver, each rank replaying its own step graphs with the mesh's
+    collectives captured in them and its exchange reading the other ranks'
+    wires through CUDA IPC), every rank the golden Final Score; then
+    tools/process_mesh_turns.py, the engine in turns (ragged chunked,
+    ragged host, dense chunked, ragged chunked; chunks of 256), every rank
+    each time the golden g and alignment, the chunked driver one host read
+    a chunk and the host driver one a step, and the same table words
+    under both drivers of one exchange (a hash a rank); each rank's
+    driver, host reads, wire rows and wall a step and peak memory
     printed."""
     outs, wall = run_ranks([sys.executable, "-m", "mpi_pastar_msa_tpu_torch", "--engine",
                             "frontier", "--devices", str(ranks), path], ranks, timeout,
                            "ProcessMesh CLI run")
     want = f"g - {gold['optimal_g']} "
     for rank, text in enumerate(outs):
-        if want not in text or "driver chunked," not in text:
-            fail(f"ProcessMesh rank {rank}: no {want.strip()} under the chunked "
-                 f"driver\n{text[-3000:]}")
+        if want not in text or "driver chunked," not in text or "exchange ragged " not in text:
+            fail(f"ProcessMesh rank {rank}: no {want.strip()} under the chunked driver and "
+                 f"the ragged exchange\n{text[-3000:]}")
     line = next((l for l in outs[0].splitlines() if l.startswith("sharded:")), "")
     print(f"kinase on a ProcessMesh of {ranks} ranks (NCCL, a card each), the CLI: every rank "
           f"{want.strip()} in {wall:.1f} s; rank 0: {line}")
-    order = ["chunked", "host", "host", "chunked"]
+    order = [("chunked", "ragged"), ("host", "ragged"), ("chunked", "dense"),
+             ("chunked", "ragged")]
     touts, twall = run_ranks([sys.executable, os.path.join("tools", "process_mesh_turns.py"),
-                              path, "--drivers", ",".join(order)], ranks, timeout,
+                              path, "--drivers", ",".join(d for d, _ in order),
+                              "--exchange", ",".join(x for _, x in order)], ranks, timeout,
                              "ProcessMesh turns")
     runs = []
     for rank, text in enumerate(touts):
         mine = [json.loads(l.split(" ", 1)[1]) for l in text.splitlines()
                 if l.startswith("RANK_RUN ")]
-        if [r["driver"] for r in mine] != order:
-            fail(f"ProcessMesh turns, rank {rank}: drivers {[r['driver'] for r in mine]}\n"
-                 f"{text[-3000:]}")
+        if [(r["driver"], r["exchange"]) for r in mine] != order:
+            fail(f"ProcessMesh turns, rank {rank}: runs "
+                 f"{[(r['driver'], r['exchange']) for r in mine]}\n{text[-3000:]}")
         for r in mine:
             steps = max(r["steps"], 1)
+            reads = -(-steps // 256) if r["driver"] == "chunked" else steps
             if (r["g"] != gold["optimal_g"] or r["alignment"] != gold["alignment"]
-                    or r["exchange"] != "dense"
-                    or (r["driver"] == "chunked" and r["host_reads"] != -(-steps // 256))):
-                fail(f"ProcessMesh turns, rank {rank}, {r['driver']}: g {r['g']}, exchange "
-                     f"{r['exchange']}, {r['host_reads']} host reads for {steps} steps, "
-                     f"alignment golden {r['alignment'] == gold['alignment']}")
+                    or r["host_reads"] != reads):
+                fail(f"ProcessMesh turns, rank {rank}, {r['driver']} {r['exchange']}: g "
+                     f"{r['g']}, {r['host_reads']} host reads for {steps} steps, alignment "
+                     f"golden {r['alignment'] == gold['alignment']}")
             r.pop("alignment")
-        if len({r["hash"] for r in mine}) != 1:
-            fail(f"ProcessMesh turns, rank {rank}: the drivers' table words differ")
+        for x in ("ragged", "dense"):
+            if len({r["hash"] for r in mine if r["exchange"] == x}) != 1:
+                fail(f"ProcessMesh turns, rank {rank}: the drivers' table words differ "
+                     f"under the {x} exchange")
         runs.append(mine)
         print(f"  rank {rank}: " + "; ".join(
-            f"{r['driver']} g {r['g']}, {r['host_reads_a_step']:.4f} host reads a step, "
-            f"{r['step_ms']:.3f} ms a step ({r['step_ms_no_capture']:.3f} without the "
-            f"captures: {r['capture_parts']}), walk {r['walk_reads']} reads; launches "
+            f"{r['driver']} {r['exchange']} g {r['g']}, {r['host_reads_a_step']:.4f} host reads "
+            f"a step, {r['wire_rows_a_step']:.1f} wire rows a step, {r['step_ms']:.3f} ms a "
+            f"step ({r['step_ms_no_capture']:.3f} without the captures: {r['capture_parts']}), "
+            f"peak {r['peak_bytes'] / 2**20:.1f} MiB, walk {r['walk_reads']} reads; launches "
             f"{ {k: r['launches'].get(k, 0) for k in LOOP_KERNELS} }" for r in mine))
     return dict(ranks=ranks, wall_s=wall, rank0=line, turns=runs, turns_wall_s=twall,
                 order=order)
@@ -3727,37 +3745,42 @@ def split_consensus_check(eng, floor: dict) -> dict:
 
 def rank_exchange_check(cap: dict, eng, floor: dict) -> dict:
     """The rank form's exchange at the captured step (sharded_guard's
-    ``xr``: every rank's consensus vector, received blocks, pending list
-    and insert flag before its exchange, and its pending list after): on
-    each rank the kernel with ``received`` (sender i's rows at row i cap of
-    the rank's blocks) from the captured inputs, exchange_plain on the
-    same, the run's own output, and exchange_plain over the senders' own
-    wires at that step (the card form's reading), bit for bit; timed on
-    the rank that receives the most rows as timed_check (the rows read and
-    written, the flag, A's column)."""
+    ``xr``: every rank's consensus vector, its exchange's source, pending
+    list and insert flag before its exchange, and its pending list after):
+    on each rank the kernel from the captured inputs, exchange_plain on the
+    same, and the run's own output, bit for bit; the source is the rank's
+    received blocks under the dense exchange (``received``: sender i's rows
+    at row i cap), checked also against exchange_plain over the senders'
+    own wires at that step (the card form's reading), or every rank's wire
+    by address under the ragged one.  Timed on the rank that receives the
+    most rows as timed_check (the rows read and written, the flag, A's
+    column)."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
     ndev, xcap = eng.ndev, eng.exchange_cap
     ranks = cap.get("xr", [])
     if len(ranks) != ndev:
         fail(f"rank form: {len(ranks)} ranks' exchanges captured, want {ndev}")
+    ragged = eng.exchange == "ragged"
+
+    def args_of(x):
+        wires = x["wires"] if ragged else [x["recv"]] * ndev
+        return wires, (x["cons"], ndev, xcap, ragged, x["R"])
+
     err, best = 0, None
     for x in ranks:
-        R, pw, me = x["R"], x["pw"], x["me"]
-        wires = [x["recv"]] * ndev
+        pw, me = x["pw"], x["me"]
         outs = []
-        for way in ("kernel", "plain", "senders"):
+        for way in ("kernel", "plain") + (() if ragged else ("senders",)):
             pend = x["pend0"].clone()
+            wires, head = args_of(x)
             if way == "kernel":
-                SH.exchange_cuda(x["cons"], ndev, xcap, False, R, pw,
-                                 SH.exchange_table(wires, [pend], [x["go"]], [me]),
-                                 received=True)
+                SH.exchange_cuda(*head, pw, SH.exchange_table(wires, [pend], [x["go"]], [me]),
+                                 received=not ragged)
             elif way == "plain":
-                SH.exchange_plain(x["cons"], ndev, xcap, False, R, wires, [pend], [x["go"]],
-                                  [me], received=True)
+                SH.exchange_plain(*head, wires, [pend], [x["go"]], [me], received=not ragged)
             else:
-                SH.exchange_plain(x["cons"], ndev, xcap, False, R, cap["x_wires"], [pend],
-                                  [x["go"]], [me])
+                SH.exchange_plain(*head, cap["x_wires"], [pend], [x["go"]], [me])
             torch.cuda.synchronize()
             outs.append(pend)
         outs.append(x["pend1"])
@@ -3765,68 +3788,121 @@ def rank_exchange_check(cap: dict, eng, floor: dict) -> dict:
         rows = int(SH.cons_sizes(x["cons"], ndev)[:, me].sum()) if int(x["go"][0]) else 0
         if best is None or rows > best[0]:
             best = (rows, x)
+    what = "every rank's wire by address" if ragged else "the received blocks"
     if err:
-        fail(f"exchange over the received blocks differs from its plain version by {err}")
+        fail(f"exchange over {what} differs from its plain version by {err}")
     rows, x = best
-    R, pw, me = x["R"], x["pw"], x["me"]
+    pw, me = x["pw"], x["me"]
     pend = x["pend0"].clone()
-    xtab = SH.exchange_table([x["recv"]] * ndev, [pend], [x["go"]], [me])
-    out = {}
-    timed_check(out, "exchange_received", err,
-                lambda: SH.exchange_cuda(x["cons"], ndev, xcap, False, R, pw, xtab,
-                                         received=True),
-                lambda: SH.exchange_plain(x["cons"], ndev, xcap, False, R, [x["recv"]] * ndev,
-                                          [pend], [x["go"]], [me], received=True),
+    wires, head = args_of(x)
+    xtab = SH.exchange_table(wires, [pend], [x["go"]], [me])
+    out, name = {}, "exchange_mapped" if ragged else "exchange_received"
+    timed_check(out, name, err,
+                lambda: SH.exchange_cuda(*head, pw, xtab, received=not ragged),
+                lambda: SH.exchange_plain(*head, wires, [pend], [x["go"]], [me],
+                                          received=not ragged),
                 rows * pw * 4 * 2 + 4 + ndev * 8, restore=lambda: pend.copy_(x["pend0"]))
-    out = out["exchange_received"]
+    out = out[name]
     sizes = SH.cons_sizes(x["cons"], ndev).cpu().tolist()
     out.update(launch_floor_ms=floor["device_ms"], rows=rows, row_words=pw, ranks=ndev,
-               rank=me, sizes=sizes, step=cap["at"])
+               rank=me, sizes=sizes, step=cap["at"], exchange=eng.exchange)
     if rows <= 0:
         fail(f"rank form: no rank received a row at step {cap['at']}: A {sizes}")
-    print(f"  rank form, step {cap['at']}: every rank's exchange over its received blocks "
-          f"equal to its plain version, to the run's and to the senders' wires; rank {me} "
-          f"{rows} rows of {pw} words (A {sizes})")
+    print(f"  rank form, step {cap['at']}, {eng.exchange}: every rank's exchange over {what} "
+          f"equal to its plain version and to the run's"
+          + ("" if ragged else " and to the senders' wires")
+          + f"; rank {me} {rows} rows of {pw} words (A {sizes})")
     return out
 
 
 def rank_form_phase(path: str, gold: dict, floor: dict) -> dict:
-    """Kinase on [cuda:0] * 4 in the rank form (``rank_form``; dense): the
-    chunked driver (a ProcessMesh's step graph on one card, each rank's
-    collectives captured as copies; a chunk 256 replays of the two parity
-    graphs, the four ranks in one graph a parity here), then the host
-    driver on the same form with step 200 captured: g = 421546 and the
-    golden alignment both, every table word equal, the chunked run one
-    host read a chunk in the search and in the walk (kinase: 3 for 525
-    steps, 3 for its rounds); its wall a step with and without the
-    captures; the exchange over each rank's received blocks at step 200
-    against its plain version (rank_exchange_check)."""
+    """Kinase on [cuda:0] * 4 in the rank form (``rank_form``) under each
+    exchange, ragged (auto on cards: every rank's exchange reading the
+    senders' wires by address, the mesh's ``map_peers``, as a ProcessMesh
+    rank reads them mapped through CUDA IPC) and dense (each rank's
+    received blocks): the chunked driver (a ProcessMesh's step graph on
+    one card, each rank's collectives captured as copies; a chunk 256
+    replays of the two parity graphs, the four ranks in one graph a parity
+    here), then the host driver on the same form with step 200 captured:
+    g = 421546 and the golden alignment each, every table word equal
+    between the drivers, the chunked run one host read a chunk in the
+    search and in the walk (kinase: 3 for 525 steps, 3 for its rounds),
+    the host driver's one a step; each wall a step with and without the
+    captures; every rank's exchange at step 200 against its plain version
+    (rank_exchange_check).  Returns the ragged run's record, the dense
+    one's under "dense"."""
     from mpi_pastar_msa_tpu_torch.parallel.sharded import WALK_ROUNDS
 
     card = torch.device("cuda", 0)
-    with rank_form():
-        out, re, _ = sharded_run("kinase sharded 4, rank form (copies in NCCL's places)", path,
-                                 gold, [card] * 4, True, exchange="dense", driver="chunked")
-        host, he, cap = sharded_run("kinase sharded 4, rank form, host driver", path, gold,
-                                    [card] * 4, True, capture_step=200, exchange="dense",
-                                    driver="host")
-    steps = max(out["steps"], 1)
-    if (out["card_form"] or host["card_form"] or out["cards"] != 4 or out["driver"] != "chunked"
-            or out["host_reads"] != -(-steps // 256) or out["graph_captures"] != 2
-            or out["walk_reads"] != -(-out["walk_rounds"] // WALK_ROUNDS)):
-        fail(f"kinase rank form: card form {out['card_form']}, {out['cards']} cards, driver "
-             f"{out['driver']}, {out['host_reads']} host reads for {steps} steps, "
-             f"{out['graph_captures']} captures, {out['walk_reads']} walk reads for "
-             f"{out['walk_rounds']} rounds")
-    out["words_equal"] = words_equal("kinase rank form against the host driver", re, he)
-    out["host_driver"] = {k: host[k] for k in ("step_wall_ms", "host_reads", "walk_reads",
-                                                "steps")}
-    out["exchange_received"] = rank_exchange_check(cap, he, floor)
-    print(f"  kinase rank form: {out['host_reads']} host reads for {out['steps']} steps "
-          f"({out['host_reads_a_step']:.4f} a step), walk {out['walk_reads']} reads for "
-          f"{out['walk_rounds']} rounds; a step {out['step_wall_ms']:.3f} ms, "
-          f"{out['step_wall_no_capture_ms']:.3f} without the captures; equal to the host "
-          f"driver ({host['step_wall_ms']:.3f} ms a step) on {out['words_equal']} tensors")
+    res = {}
+    for exchange in ("ragged", "dense"):
+        label = f"kinase sharded 4, rank form (copies in NCCL's places), {exchange}"
+        with rank_form():
+            out, re, _ = sharded_run(label, path, gold, [card] * 4, True, exchange=exchange,
+                                     driver="chunked")
+            host, he, cap = sharded_run(f"{label}, host driver", path, gold, [card] * 4, True,
+                                        capture_step=200, exchange=exchange, driver="host")
+        steps = max(out["steps"], 1)
+        if (out["card_form"] or host["card_form"] or out["cards"] != 4
+                or out["driver"] != "chunked" or out["exchange"] != exchange
+                or out["host_reads"] != -(-steps // 256) or out["graph_captures"] != 2
+                or host["host_reads"] != host["steps"]
+                or out["walk_reads"] != -(-out["walk_rounds"] // WALK_ROUNDS)):
+            fail(f"{label}: card form {out['card_form']}, {out['cards']} cards, driver "
+                 f"{out['driver']}, exchange {out['exchange']}, {out['host_reads']} host "
+                 f"reads for {steps} steps (host driver {host['host_reads']} for "
+                 f"{host['steps']}), {out['graph_captures']} captures, {out['walk_reads']} "
+                 f"walk reads for {out['walk_rounds']} rounds")
+        out["words_equal"] = words_equal(f"{label} against the host driver", re, he)
+        out["host_driver"] = {k: host[k] for k in ("step_wall_ms", "host_reads", "walk_reads",
+                                                    "steps", "launches")}
+        out["exchange_check"] = rank_exchange_check(cap, he, floor)
+        del re, he, cap
+        print(f"  {label}: {out['host_reads']} host reads for {out['steps']} steps "
+              f"({out['host_reads_a_step']:.4f} a step), walk {out['walk_reads']} reads for "
+              f"{out['walk_rounds']} rounds; a step {out['step_wall_ms']:.3f} ms, "
+              f"{out['step_wall_no_capture_ms']:.3f} without the captures; equal to the host "
+              f"driver ({host['step_wall_ms']:.3f} ms a step, {host['host_reads']} reads) on "
+              f"{out['words_equal']} tensors")
+        res[exchange] = out
+    out = res["ragged"]
+    out["dense"] = res["dense"]
+    return out
+
+
+def ipc_check(floor: dict) -> dict:
+    """The ragged exchange of a ProcessMesh of cards from another process's
+    wire, on this one card: two processes (tools/ipc_exchange_check.py
+    --one-card; gloo carries the handles), each mapping the other's wire
+    through CUDA IPC and running ``exchange`` from it, bit for bit with
+    exchange_plain in every case; the kernel's and the plain version's
+    times on kinase's sizes, its bound by bytes (both wires on this card:
+    its memory's rate)."""
+    outs, wall = run_ranks([sys.executable, os.path.join("tools", "ipc_exchange_check.py"),
+                            "--one-card"], 2, 300, "IPC exchange check")
+    ranks = []
+    for rank, text in enumerate(outs):
+        line = next((l for l in text.splitlines() if l.startswith("IPC_CHECK ")), None)
+        if line is None:
+            fail(f"IPC exchange check, rank {rank}: no result\n{text[-3000:]}")
+        r = json.loads(line.split(" ", 1)[1])
+        if r["max_abs_err"] or r["device"] != "cuda:0" or any(
+                c["max_abs_err"] or c["rows"] <= 0 for c in r["cases"]):
+            fail(f"IPC exchange check, rank {rank}: {r}")
+        ranks.append(r)
+    timed = [r["cases"][0] for r in ranks]
+    best = max(timed, key=lambda c: c["rows"])
+    out = dict(ranks=ranks, wall_s=wall, ms=best["ms"], device_ms=best["device_ms"],
+               plain_ms=best["plain_ms"], rows=best["rows"], row_words=best["row_words"],
+               bytes=best["bytes"], remote_bytes=best["remote_bytes"],
+               bound_ms=best["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               launch_floor_ms=floor["device_ms"], max_abs_err=0)
+    print(f"IPC exchange check: 2 processes on one card, each exchange from the other's "
+          f"mapped wire equal to exchange_plain in {len(ranks[0]['cases'])} cases; at kinase's "
+          f"sizes {best['rows']} rows of {best['row_words']} words: wrapper {best['ms']:.4f} ms "
+          f"(CUDA events), device {best['device_ms']:.4f} ms, plain {best['plain_ms']:.4f} ms, "
+          f"bound {out['bound_ms']:.6f} ms "
+          f"(bytes); {wall:.1f} s with the processes' start")
     return out
 
 
@@ -4417,6 +4493,9 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
     # a ProcessMesh's step on this one card: the rank form, a card a shard,
     # the mesh's collectives as copies in each rank's step graph
     out["rank_form"] = rank_form_phase(paths["kinase.fasta"], k, floor)
+    # a ProcessMesh's ragged exchange across processes: two processes on
+    # this card, each reading the other's wire through CUDA IPC
+    out["ipc"] = ipc_check(floor)
     # each layout in turns (chunked, then host, 256 steps), then the host
     # driver's full run on the same engine, whose step 200 is captured for
     # the kernel checks
@@ -5324,13 +5403,20 @@ def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
                                             for r in sh["multi_card"]["runs"]]
         entry["split_cards"] = split
         # a ProcessMesh's step graph on one card (the rank form): its
-        # launches there, and the exchange over each rank's received blocks
-        # checked and timed on its last step
-        rank = dict(launches=sh["rank_form"]["launches"][name],
-                    run="kinase sharded 4, rank form on one card (chunked driver, dense)")
+        # launches there under each exchange, and each rank's exchange at
+        # step 200 checked and timed: from every rank's wire by address
+        # (ragged), from its received blocks (dense); and from another
+        # process's wire mapped through CUDA IPC (ipc_check)
+        rf = sh["rank_form"]
+        rank = dict(launches=rf["launches"][name], dense_launches=rf["dense"]["launches"][name],
+                    run="kinase sharded 4, rank form on one card (chunked driver, ragged; "
+                        "dense_launches: dense)")
         if name == "exchange":
-            rank.update({k: v for k, v in sh["rank_form"]["exchange_received"].items()
-                         if k != "bytes"})
+            rank["mapped"] = {k: v for k, v in rf["exchange_check"].items() if k != "bytes"}
+            rank["received"] = {k: v for k, v in rf["dense"]["exchange_check"].items()
+                                if k != "bytes"}
+            rank["ipc_two_processes"] = {k: v for k, v in sh["ipc"].items()
+                                         if k not in ("ranks", "bytes")}
         if isinstance(sh.get("multi_process"), dict):
             # each rank's launches in each turn, where the machine has cards
             # for a ProcessMesh

@@ -129,10 +129,16 @@ SIGNATURES: Dict[str, List] = {
 }
 #: host entries that launch no kernel (``call``, not counted): peer access
 #: from a card to a peer; a table of device-to-device copies (destination,
-#: source, bytes a row), their count, stream
+#: source, bytes a row), their count, stream; a buffer's CUDA IPC handle
+#: (the buffer, 64 bytes out, its int64 offset in the handle's allocation
+#: out), a handle's mapping into this process (the handle, the base out),
+#: and its unmapping (the base)
 HOST_SIGNATURES: Dict[str, List] = {
     "peer_access": [_I, _I],
     "copy_table": [_P, _I, _P],
+    "ipc_export": [_P, _P, _P],
+    "ipc_open": [_P, _P],
+    "ipc_close": [_P],
 }
 #: kernel name -> its source file's stem, where that is not its own name
 SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
@@ -143,7 +149,9 @@ SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
                            "route_count_rows": "route_pack", "route_pack_rows": "route_pack",
                            "keyrow_coords": "tri_partial", "consensus": "shard_loop",
                            "exchange": "shard_loop", "walk_advance": "shard_loop",
-                           "peer_access": "shard_loop", "copy_table": "shard_loop"}
+                           "peer_access": "shard_loop", "copy_table": "shard_loop",
+                           "ipc_export": "shard_loop", "ipc_open": "shard_loop",
+                           "ipc_close": "shard_loop"}
 
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
 _libs: Dict[str, ctypes.CDLL] = {}  # kernel name -> its library, argtypes set

@@ -34,7 +34,8 @@
 //     written); on fmin_g >= goal_g the insert still runs and the next step
 //     does not (run = 0).
 //   exchange: for every receiver r on this card, A[i][r] rows of sender
-//     i's wire (on this card or a peer) (ragged: from row sum_{j<r} A[i][j]; dense: from r cap)
+//     i's wire (on this card, a peer, or another process's card mapped
+//     into this one) (ragged: from row sum_{j<r} A[i][j]; dense: from r cap)
 //     into the receiver's pending list, in sender order, ending at row R
 //     where its self-owned lanes begin.  With `received` the dense rows
 //     come from the receiver's own buffer after a fixed-shape all-to-all
@@ -54,9 +55,12 @@
 // serve that mesh: peer_access, and copy_table, the step's gathers as
 // copies.  Across processes (a ProcessMesh, one shard a rank) each rank's
 // step graph holds the mesh's fixed-shape NCCL collectives instead: the
-// gathered reports' rows are read in this rank's buffer, and the exchange
-// copies from the rank's received wire blocks (`received`), every size
-// still read on the device.
+// gathered reports' rows are read in this rank's buffer; the ragged
+// exchange reads every peer's wire where it lies, through a CUDA IPC
+// mapping of it into this rank's process (host entries ipc_export,
+// ipc_open, ipc_close: plain device addresses to the kernel), the dense
+// one copies from the rank's received wire blocks (`received`), every
+// size still read on the device.
 //
 // What bounds them on an H100: latency, not bytes or operations.  The
 // consensus reads ndev x 14 words and writes a few dozen (kinase on 4
@@ -83,6 +87,7 @@
 // Each returns at once when its flag reads 0, so a CUDA graph of a step
 // (or of a walk round) replayed past the stop does nothing.
 #include <climits>
+#include <cstring>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -588,6 +593,64 @@ extern "C" int peer_access(int dev, int peer) {
   }
   const cudaError_t r = cudaSetDevice(prev);
   return (int)(e != cudaSuccess ? e : r);
+}
+
+// Host entries of a mesh across processes (no kernel): a buffer's CUDA IPC
+// handle, and its mapping into another process.
+//
+// ipc_export: the IPC handle (kIpcHandleBytes, into handle) of the device
+// allocation that holds ptr, and ptr's byte offset in it: the caching
+// allocator hands out blocks inside larger allocations, and a handle
+// names a whole allocation.  The allocation's base comes from the
+// driver's cuMemGetAddressRange, reached through the runtime (no link to
+// the driver library).  Memory the handles cannot name (PyTorch's
+// expandable segments, cuMemCreate's mappings) fails in
+// cudaIpcGetMemHandle and returns its error.
+constexpr int kIpcHandleBytes = 64;
+static_assert(sizeof(cudaIpcMemHandle_t) == kIpcHandleBytes, "CUDA IPC handle size");
+typedef int (*AddressRange)(unsigned long long* base, size_t* size, unsigned long long ptr);
+
+extern "C" int ipc_export(const void* ptr, void* handle, long long* offset) {
+  if (ptr == nullptr || handle == nullptr || offset == nullptr)
+    return (int)cudaErrorInvalidValue;
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t e = cudaGetDriverEntryPointByVersion("cuMemGetAddressRange", &fn, 12000,
+                                                   cudaEnableDefault, &found);
+#else
+  cudaError_t e = cudaGetDriverEntryPoint("cuMemGetAddressRange", &fn, cudaEnableDefault,
+                                          &found);
+#endif
+  if (e != cudaSuccess) return (int)e;
+  if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+    return (int)cudaErrorSymbolNotFound;
+  unsigned long long base = 0;
+  size_t size = 0;
+  if (((AddressRange)fn)(&base, &size, (unsigned long long)ptr) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaIpcMemHandle_t h;
+  if ((e = cudaIpcGetMemHandle(&h, (void*)base)) != cudaSuccess) return (int)e;
+  memcpy(handle, &h, sizeof h);
+  *offset = (long long)((unsigned long long)ptr - base);
+  return 0;
+}
+
+// ipc_open: another process's allocation (its handle, from ipc_export)
+// mapped into this one on the current card, its base into *base; the
+// current card reaches a peer card's memory with peer access enabled
+// lazily.  A handle of this process's own memory fails.
+extern "C" int ipc_open(const void* handle, void** base) {
+  if (handle == nullptr || base == nullptr) return (int)cudaErrorInvalidValue;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof h);
+  return (int)cudaIpcOpenMemHandle(base, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+// ipc_close: unmaps a base that ipc_open returned.
+extern "C" int ipc_close(void* base) {
+  if (base == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cudaIpcCloseMemHandle(base);
 }
 
 // copy_table: n device-to-device copies on stream, in order: tab in host

@@ -35,9 +35,18 @@ host, so a CUDA graph may hold it: on a ProcessMesh the NCCL call itself
 sums.  Without ``outs`` it allocates its outputs.  The meshes serve the
 sharded step's rank form (one shard a rank); the card form of a LocalMesh
 reads its peers' buffers by address instead (parallel/sharded.py).
+
+``map_peers`` gives every shard's buffer of one kind (the wires) where
+this process's kernels read it, so that the rank form's ragged exchange
+reads its senders' wires by address, as the card form does: on a
+LocalMesh the tensors themselves, on a ProcessMesh of cards this rank's
+own and each other rank's as a CUDA IPC mapping into this process, which
+``unmap_peers`` closes at the run's end.
 """
 from __future__ import annotations
 
+import ctypes
+import os
 from typing import List, Sequence
 
 import torch
@@ -93,6 +102,14 @@ class LocalMesh:
                 out.add_(x[j * B:(j + 1) * B].to(out.device, non_blocking=True))
         return outs
 
+    def map_peers(self, xs: List[torch.Tensor]) -> list:
+        """Every shard's tensor of ``xs`` (one a shard): the tensors
+        themselves, every shard being in this process."""
+        return list(xs)
+
+    def unmap_peers(self) -> None:
+        """Nothing to close: ``map_peers`` maps nothing."""
+
     def all_sum(self, xs: List[torch.Tensor], outs=None) -> List[torch.Tensor]:
         """The sum into ``outs[0]``, then copied into the others: ``outs``
         may be ``xs`` (in place)."""
@@ -125,6 +142,7 @@ class ProcessMesh:
         self.local = [self.rank]
         self.devices = [torch.device(device)]
         self.multiprocess = self.ndev > 1
+        self._mapped: List[int] = []  # bases of the peers' mapped buffers
         if self.devices[0].type == "cuda":
             torch.cuda.set_device(self.devices[0])  # NCCL's and the kernels' card
 
@@ -170,3 +188,91 @@ class ProcessMesh:
             out.copy_(x)
         self._dist.all_reduce(out)
         return [out]
+
+    def _agree(self, failure: str) -> None:
+        """Every rank's ``failure`` ("" for none), gathered: raises on every
+        rank if any rank failed, so that no rank goes on into a collective
+        that a failed one never joins."""
+        fails = [None] * self.ndev
+        self._dist.all_gather_object(fails, failure)
+        bad = [f"rank {r}: {f}" for r, f in enumerate(fails) if f]
+        if bad:
+            raise RuntimeError("mapping the peers' buffers failed: " + "; ".join(bad))
+
+    def map_peers(self, xs) -> list:
+        """Every rank's tensor of ``xs`` (this rank's one: a contiguous
+        tensor on this rank's card, of one shape and type on every rank)
+        where this rank's kernels read it: its own at ``rank``, each other
+        rank's as the int device address of a CUDA IPC mapping of it into
+        this process, opened on this rank's card (whatever card index the
+        sender's process gives it).  The handles travel in one
+        all_gather_object of the group; ``unmap_peers`` closes the
+        mappings.  A mapping that cannot be made raises on every rank, with
+        no fallback: a CPU mesh, memory that IPC handles cannot name
+        (PyTorch's expandable segments), a failed open."""
+        from .. import _kernels
+
+        (x,) = xs
+        dev = self.devices[0]
+        if (dev.type != "cuda" or x.device.type != "cuda" or not x.is_contiguous()
+                or dev.index not in (None, x.device.index)):
+            raise ValueError(f"map_peers: a contiguous tensor on this rank's card {dev}, "
+                             f"not {x.device}: a ProcessMesh on the CPU maps nothing")
+        conf = ",".join(os.environ.get(k, "") for k in ("PYTORCH_CUDA_ALLOC_CONF",
+                                                         "PYTORCH_ALLOC_CONF"))
+        failure = ""
+        if "expandable_segments:true" in conf.replace(" ", "").lower():
+            failure = ("PyTorch's allocator runs with expandable segments, whose memory CUDA "
+                       "IPC handles cannot name: unset expandable_segments")
+        handle, offset = ctypes.create_string_buffer(64), ctypes.c_longlong()
+        if not failure:
+            try:
+                with torch.cuda.device(dev):
+                    _kernels.call("ipc_export", x.data_ptr(), ctypes.addressof(handle),
+                                  ctypes.addressof(offset))
+            except RuntimeError as e:
+                failure = f"the IPC handle of the buffer: {e}"
+        infos = [None] * self.ndev
+        self._dist.all_gather_object(infos, (failure, handle.raw, offset.value,
+                                             tuple(x.shape), str(x.dtype)))
+        failure = next((f"rank {r}: {i[0]}" for r, i in enumerate(infos) if i[0]), "")
+        if not failure and len({i[3:] for i in infos}) != 1:
+            failure = f"buffers of several shapes or types: {[i[3:] for i in infos]}"
+        if failure:
+            raise RuntimeError(f"mapping the peers' buffers failed: {failure}")
+        out: list = []
+        for r, (_, h, off, _, _) in enumerate(infos):
+            if r == self.rank:
+                out.append(x)
+                continue
+            base, theirs = ctypes.c_void_p(), ctypes.create_string_buffer(h, len(h))
+            try:
+                with torch.cuda.device(dev):
+                    _kernels.call("ipc_open", ctypes.addressof(theirs), ctypes.addressof(base))
+            except RuntimeError as e:
+                failure = f"opening rank {r}'s handle: {e}"
+                break
+            self._mapped.append(base.value)
+            out.append(base.value + off)
+        try:
+            self._agree(failure)
+        except RuntimeError:
+            self._close()
+            raise
+        return out
+
+    def unmap_peers(self) -> None:
+        """Close this rank's mappings (``map_peers``) behind one barrier of
+        the group, once this rank's card has finished its work: no rank
+        frees or reuses a buffer while a peer's kernel may still read it."""
+        torch.cuda.synchronize(self.devices[0])
+        self._dist.barrier()
+        self._close()
+
+    def _close(self) -> None:
+        from .. import _kernels
+
+        bases, self._mapped = self._mapped, []
+        with torch.cuda.device(self.devices[0]):
+            for base in bases:
+                _kernels.call("ipc_close", base)

@@ -38,9 +38,10 @@ the mesh's collectives between (``mesh.py``):
   6. ``exchange`` (csrc/shard_loop.cu) moves the wire rows, A[i][r] from
      sender i to receiver r, into each receiver's pending list just before
      its self-owned lanes, every size read on the device (the rank form,
-     below, first moves the wires with the mesh's fixed-shape all-to-all;
-     its ragged exchange reads A on the host, as NCCL needs its split
-     sizes there);
+     below, reads its senders' wires by address under the ragged
+     exchange, another process's mapped into this one through CUDA IPC,
+     and first moves the wires with the mesh's fixed-shape all-to-all
+     under the dense one);
   7. the insert (K5 on sig, K10 on key rows) places the received rows and
      the self-owned pending lanes, reading where the list starts and how
      many rows were received on the device, then writes the counters and
@@ -67,7 +68,10 @@ shard a rank; the host driver on a LocalMesh of several cards) runs the
 mesh's collectives between the phases, each into a preallocated buffer
 and with no host value, so each rank captures its own step graph with
 NCCL's calls in it, and the chunked driver replays it as the card form's;
-only its ragged exchange reads the consensus on the host, once a step.
+its ragged exchange reads every rank's wire by address (``map_peers``:
+CUDA IPC on a ProcessMesh of cards), and only on a mesh that maps no wire
+(gloo ranks on the CPU, cards without peer access) is it sized on the
+host, once a step.
 A CPU shard
 runs the plain versions of every kernel (``_select_best_plain``, ``_select_open_plain``,
 ``sig_coords_plain``, ``keyrow_coords_plain``, ``tri_partial_plain``,
@@ -744,16 +748,20 @@ def target_table(targets: Sequence[tuple], dev) -> torch.Tensor:
 EXCHANGE_ROW_WORDS = 16
 
 
-def exchange_table(wires: Sequence[torch.Tensor], pends: Sequence[torch.Tensor],
+def exchange_table(wires: Sequence, pends: Sequence[torch.Tensor],
                    flags: Sequence[torch.Tensor], recv_me: Sequence[int]) -> torch.Tensor:
     """``exchange_cuda``'s address table, in host memory (the launch's
     parameters carry it): every sender's wire, then each receiver's pending
     list, insert flag and shard index, three words a receiver, as
     ``exchange_plain`` takes them.  The receivers' buffers lie on one card,
-    the wires on it or on its peers; all int32 rows of one width."""
+    the wires on it or on its peers, all int32 rows of one width; a wire
+    of another process is the int address of its mapping into this one
+    (``ProcessMesh.map_peers``, which checked that every rank's wire has
+    this rank's shape and type)."""
     dev = pends[0].device if pends else wires[0].device
-    pw = wires[0].shape[1]
-    for t, name, where in ([(w, "wire", w.device if w.is_cuda else dev) for w in wires]
+    local = [w for w in wires if isinstance(w, torch.Tensor)]
+    pw = local[0].shape[1]
+    for t, name, where in ([(w, "wire", w.device if w.is_cuda else dev) for w in local]
                            + [(p, "pend", dev) for p in pends]):
         _check(t, name, where, torch.int32, pw)
         if t.dim() != 2 or t.shape[1] != pw:
@@ -761,9 +769,11 @@ def exchange_table(wires: Sequence[torch.Tensor], pends: Sequence[torch.Tensor],
     for flag in flags:
         _check(flag, "flag", dev, torch.int32, 1)
     if not len(pends) == len(flags) == len(recv_me) or not all(
-            0 <= me < len(wires) for me in recv_me):
-        raise ValueError(f"exchange: receivers {list(recv_me)} of {len(wires)} shards")
-    return torch.tensor([w.data_ptr() for w in wires]
+            0 <= me < len(wires) for me in recv_me) or not all(
+            isinstance(w, torch.Tensor) or int(w) > 0 for w in wires):
+        raise ValueError(f"exchange: receivers {list(recv_me)} of {len(wires)} shards, wires "
+                         f"{[w if isinstance(w, int) else 'tensor' for w in wires]}")
+    return torch.tensor([w.data_ptr() if isinstance(w, torch.Tensor) else int(w) for w in wires]
                         + [v for p, f, me in zip(pends, flags, recv_me)
                            for v in (p.data_ptr(), f.data_ptr(), int(me))], dtype=torch.int64)
 
@@ -1211,7 +1221,11 @@ class _Shard:
             if S_all is not None:  # the ragged allowance
                 self._route = route_plain(self.cand, self.n_sel * self.st.M, self.ring,
                                           eng.ndev, self.me, eng.exchange_cap, S_all, self.fill)
-            self.wire, self.rings[nxt], out = self._route
+            wire, self.rings[nxt], out = self._route
+            # into the shard's own wire, which the exchange reads by its
+            # binding (``_Card.wires``), as a card's
+            self.wire[:wire.shape[0]] = wire
+            self.wire[wire.shape[0]:] = 0
             self.route_out.copy_(out)
         self.cur = nxt
 
@@ -1343,36 +1357,42 @@ class _Card:
             self.reports = [sh.snapshot() for sh in shards]
         else:  # one card: every report where it lies, read after every pack
             self.reports = [(sh.ctr, sh.state, sh.route_out) for sh in shards]
+        self.wires = [sh.wire for sh in shards]
         if not self.cuda:
             return
         with torch.cuda.device(self.dev):
             self.tabs = {k: copy_table(v) for k, v in pulls.items()}
             self.rtab = report_table(self.reports)
             self.tgt = target_table(self.targets(), self.dev)
-            self.xtab = exchange_table([sh.wire for sh in shards], [sh.pend for sh in self.shards],
+            self.xtab = exchange_table(self.wires, [sh.pend for sh in self.shards],
                                        [sh.go for sh in self.shards],
                                        [sh.me for sh in self.shards])
 
     def _bind_rank(self, eng: "ShardedFrontierSearch") -> None:
         """The rank form's buffers and tables: the gathered report blocks
         (each shard's counters, step state and route out, as its ``blk``
-        holds them), read row by row by address, and under the dense
-        exchange the received wire blocks, sender i's at row i cap, named
-        once a sender for the exchange kernel."""
+        holds them), read row by row by address; under the dense exchange
+        the received wire blocks, sender i's at row i cap, named once a
+        sender for the exchange kernel; under the ragged one every rank's
+        wire where this process reads it (``eng.wires``: the mesh's
+        ``map_peers``), none on a mesh that maps nothing (a ProcessMesh on
+        the CPU: ``_exchange_host``)."""
         (sh,) = self.shards
         ndev = eng.ndev
         self.reps = torch.zeros((ndev, sh.blk.numel()), dtype=torch.int64, device=self.dev)
         self.reports = [_report_views(r, ndev) for r in self.reps]
+        self.wires = eng.wires
         if eng.exchange == "dense":
             self.recv = torch.zeros((ndev * eng.exchange_cap, sh.pw), dtype=torch.int32,
                                     device=self.dev)
+            self.wires = [self.recv] * ndev
         if not self.cuda:
             return
         with torch.cuda.device(self.dev):
             self.rtab = report_table(self.reports)
             self.tgt = target_table(self.targets(), self.dev)
-            if self.recv is not None:
-                self.xtab = exchange_table([self.recv] * ndev, [sh.pend], [sh.go], [sh.me])
+            if self.wires is not None:
+                self.xtab = exchange_table(self.wires, [sh.pend], [sh.go], [sh.me])
 
     def on(self):
         """The context of this card's phases: its device and, on a mesh
@@ -1419,8 +1439,10 @@ class _Card:
 
     def exchange(self, eng: "ShardedFrontierSearch", shards: List[_Shard]) -> None:
         """The wire rows of every shard into this card's receivers, sized on
-        the device: read from the senders' wires (the card form), or from
-        this rank's received blocks (``recv``, the rank form)."""
+        the device: read from the senders' wires (``wires``: the card form,
+        and the rank form's ragged exchange, where they lie or mapped into
+        this process), or from this rank's received blocks (``recv``, the
+        rank form's dense exchange)."""
         sh0 = shards[0]
         args = (eng.ndev, eng.exchange_cap, eng.exchange == "ragged", sh0.R)
         received = self.recv is not None
@@ -1429,8 +1451,7 @@ class _Card:
                 self._go("exchange", lambda launch: exchange_cuda(
                     self.cons, *args, sh0.pw, self.xtab, launch=launch, received=received))
         else:
-            wires = [self.recv] * eng.ndev if received else [sh.wire for sh in shards]
-            exchange_plain(self.cons, *args, wires, [sh.pend for sh in self.shards],
+            exchange_plain(self.cons, *args, self.wires, [sh.pend for sh in self.shards],
                            [sh.go for sh in self.shards], [sh.me for sh in self.shards],
                            received=received)
 
@@ -1469,21 +1490,44 @@ def _rank_form(mesh) -> bool:
     return isinstance(mesh, ProcessMesh)
 
 
+def auto_exchange(devices: Sequence[torch.device]) -> str:
+    """``exchange="auto"`` on shards on ``devices`` (JAX's rule,
+    ``ShardedFrontierSearch.__init__`` :1072-1082): ragged when every shard
+    lies on a card, else dense."""
+    return "ragged" if all(torch.device(d).type == "cuda" for d in devices) else "dense"
+
+
+def maps_peers(mesh) -> bool:
+    """Whether each rank of ``mesh``'s rank form can read every sender's
+    wire by address (``map_peers``), as its ragged exchange does: a
+    ProcessMesh of cards (CUDA IPC), a LocalMesh whose devices are one
+    device or cards that are each other's peers (``peer_mesh``).  A
+    ProcessMesh on the CPU maps nothing."""
+    if isinstance(mesh, ProcessMesh):
+        return mesh.devices[0].type == "cuda"
+    return peer_mesh(mesh.devices)
+
+
 def choose_driver(mesh, driver: str, exchange: str = "auto") -> str:
     """The step loop's driver on ``mesh`` for ``driver``: "chunked" (one
     step of the whole mesh a graph, one host read a chunk) on a LocalMesh
-    of one device or of cards that are each other's peers, and on a
-    ProcessMesh (``_rank_form``) whose exchange is dense (``exchange``
-    "auto" resolves to dense there); "host" (one host read a step) on a
-    LocalMesh over cards without peer access and on a ProcessMesh with the
-    ragged exchange; "auto" picks chunked where it runs.  An explicit
-    chunked where it cannot run raises ValueError: it never falls back."""
+    of one device or of cards that are each other's peers, and in the
+    rank form (``_rank_form``: a ProcessMesh) under the dense exchange or
+    where the ranks map their peers' wires for the ragged one
+    (``maps_peers``); "host" (one host read a step) on a LocalMesh over
+    cards without peer access and on a ProcessMesh on the CPU with the
+    ragged exchange, sized there on the host; "auto" picks chunked where it
+    runs.  ``exchange`` "auto" is ``auto_exchange``'s.  An explicit chunked
+    where it cannot run raises ValueError: it never falls back."""
     if driver not in ("auto", "chunked", "host"):
         raise ValueError(f"driver={driver!r}: choose auto, chunked or host")
+    if exchange == "auto":
+        exchange = auto_exchange(mesh.devices)
     if _rank_form(mesh):
-        ok, why = exchange != "ragged", ("a ProcessMesh's chunked step needs the dense "
-                                         "exchange: NCCL's ragged all-to-all takes its split "
-                                         "sizes from the host")
+        ok, why = exchange != "ragged" or maps_peers(mesh), (
+            "the ragged exchange of a ProcessMesh's chunked step reads every rank's wire by "
+            "address, and a ProcessMesh on the CPU maps no peer's wire: its ragged exchange "
+            "takes its split sizes from the host")
     else:
         ok, why = peer_mesh(mesh.devices), ("it needs a LocalMesh of one device or of cards "
                                             "with peer access, and these cards have no peer "
@@ -1526,15 +1570,17 @@ class ShardedFrontierSearch:
     steps of the whole mesh a host read, as JAX's sharded chunk (on cards
     ``chunk_steps`` replays of a one-step CUDA graph of every card, one
     graph for each ring parity; on a ProcessMesh each rank replays its own,
-    the mesh's NCCL collectives captured in it; CPU shards the same steps
-    with the plain versions), and the walk WALK_ROUNDS rounds a host read;
-    "host" one step a host read, launched eagerly, and one host read a
-    walk round; "auto" is chunked on a ``LocalMesh`` of one device (or
-    the CPU) or of cards that are each other's peers, else host
-    (``choose_driver``); on a ProcessMesh chunked needs the dense exchange,
-    which ``exchange="auto"`` then takes, and auto with ragged is host.
-    chunked where it cannot run raises ValueError: it never falls back to
-    the host driver."""
+    the mesh's NCCL collectives captured in it, its ragged exchange
+    reading the other ranks' wires through CUDA IPC mappings; CPU shards
+    the same steps with the plain versions), and the walk WALK_ROUNDS
+    rounds a host read; "host" one step a host read, launched eagerly, and
+    one host read a walk round; "auto" is chunked on a ``LocalMesh`` of
+    one device (or the CPU) or of cards that are each other's peers and on
+    a ProcessMesh, but host on a ProcessMesh on the CPU with the ragged
+    exchange (``choose_driver``).  ``exchange="auto"`` is ragged when
+    every shard lies on a card, else dense, as JAX's.  chunked where it
+    cannot run raises ValueError: it never falls back to the host
+    driver."""
 
     def __init__(self, problem: Problem, heuristic: Optional[HPairHeuristic] = None,
                  devices=None, hash_type: str = "FSUM", hash_shift: int = 4,
@@ -1564,10 +1610,16 @@ class ShardedFrontierSearch:
         self.multiprocess = self.mesh.multiprocess
         self.local_devices = [self.mesh.devices[i if isinstance(self.mesh, LocalMesh) else 0]
                               for i in self.mesh.local]
+        if exchange == "auto":
+            exchange = auto_exchange(self.local_devices)
+        self.exchange = exchange
         self.driver = choose_driver(self.mesh, driver, exchange)
         # set by each run's _shards: the step's card form (every shard of
-        # the mesh in this process, read and written through addresses)
+        # the mesh in this process, read and written through addresses),
+        # and in the rank form under the ragged exchange every rank's wire
+        # where this process reads it (None where the mesh maps nothing)
         self.card_form = False
+        self.wires: Optional[list] = None
         dev0 = self.local_devices[0]
         self.heuristic = (heuristic if heuristic is not None
                           else HPairHeuristic.build(problem, dev0))
@@ -1630,13 +1682,6 @@ class ShardedFrontierSearch:
                 "delivers no migrants, so every remote candidate would cycle the "
                 "carry ring until it overflows")
         self.exchange_cap = int(exchange_cap)
-        if exchange == "auto":
-            # the rank form's step graph moves the wires with a fixed-shape
-            # all-to-all
-            exchange = ("dense" if self.driver == "chunked" and _rank_form(self.mesh)
-                        else "ragged" if all(d.type == "cuda" for d in self.local_devices)
-                        else "dense")
-        self.exchange = exchange
         if self.layout_pref != "auto":
             self.layout = self.layout_pref
             if self.layout == "sig" and not (self.packed and self.st.sig_ok):
@@ -1719,7 +1764,10 @@ class ShardedFrontierSearch:
         process, each card reading its peers' buffers by address (peer
         access enabled first); else its rank form (``_step_ranks``), one
         shard a card: on a ProcessMesh, and on a LocalMesh under the host
-        driver over several cards (or where ``_rank_form`` says so)."""
+        driver over several cards (or where ``_rank_form`` says so).  The
+        rank form's ragged exchange reads every rank's wire where this
+        process reads it (``wires``, the mesh's ``map_peers``, before the
+        cards bind their tables; ``_run_once`` closes the mappings)."""
         self.cube_stack = None
         if self.cubes_split:
             st = self.st
@@ -1736,7 +1784,9 @@ class ShardedFrontierSearch:
         if any(self.local_devices[k] != d for g, d in zip(groups, devs) for k in g):
             raise ValueError(f"a card's shards on several devices: {groups}")
         multi = self.card_form and len(groups) > 1
-        if multi and devs[0].type == "cuda" and len(set(devs)) > 1:
+        mapped = (not self.card_form and self.exchange == "ragged"
+                  and maps_peers(self.mesh))
+        if (multi or mapped) and devs[0].type == "cuda" and len(set(devs)) > 1:
             _kernels.enable_peer_access(devs)
         self.cards = [_Card(self, d, g[0], multi) for g, d in zip(groups, devs)]
         shards: List[Optional[_Shard]] = [None] * len(self.local_devices)
@@ -1750,6 +1800,7 @@ class ShardedFrontierSearch:
                 st.d_cubes = torch.zeros(0, dtype=torch.int32, device=st.device)
             self.cube_stack = None
         self._ev_fork = torch.cuda.Event() if multi and devs[0].type == "cuda" else None
+        self.wires = self.mesh.map_peers([sh.wire for sh in shards]) if mapped else None
         for card in self.cards:
             card.bind(self, shards)
         # the chunk's one read: the vector and each local shard's overflow
@@ -1781,7 +1832,15 @@ class ShardedFrontierSearch:
             self._make_statics(st.C)
             st = self.st
         shards = self._shards()
-        mesh, ndev = self.mesh, self.ndev
+        try:
+            return self._search_and_walk(shards)
+        finally:
+            if self.wires is not None:
+                self.mesh.unmap_peers()
+
+    def _search_and_walk(self, shards: List[_Shard]) -> ShardedSearchResult:
+        """The search and the walk on this run's shards, and the result."""
+        st, mesh, ndev = self.st, self.mesh, self.ndev
         stats = dict(driver=self.driver, exchange=self.exchange, cap=self.exchange_cap,
                      cards=len(self.cards), card_form=self.card_form, graph_captures=0,
                      graph_replays=0, capture_s=0.0)
@@ -1790,9 +1849,6 @@ class ShardedFrontierSearch:
             c, ovf, reads = self._search_chunked(shards, stats)
         else:
             c, ovf, reads = self._search_host(shards)
-        if ovf is None:  # the ragged rank form: one more read
-            ovf = [int(sh.ctr[6]) for sh in shards]
-            reads += 1
         if not self.card_form:
             self._check_agreement()
         # the last step's insert may have overflowed a table
@@ -1838,19 +1894,19 @@ class ShardedFrontierSearch:
         per[:, 2:4] = table
         return self._result(goal_g, steps, masks, per)
 
-    def _step(self, shards: List[_Shard]) -> Optional[np.ndarray]:
+    def _step(self, shards: List[_Shard]) -> None:
         """One step of every local shard: its card form (``_step_cards``)
         or its rank form (``_step_ranks``).  Neither reads a host value
-        but the ragged rank form, which reads the consensus vector once,
-        for NCCL's split sizes, and returns it; the others return None,
-        their exchange sized and their stop test made on the devices, so
-        a graph can hold the step."""
+        (but a ProcessMesh on the CPU under the ragged exchange, whose
+        split sizes its host reads from its own CPU tensors): the exchange
+        is sized and the stop test made on the devices, so a graph can
+        hold the step."""
         if self.card_form:
             self._step_cards(shards)
-            return None
-        return self._step_ranks(shards)
+        else:
+            self._step_ranks(shards)
 
-    def _step_ranks(self, shards: List[_Shard]) -> Optional[np.ndarray]:
+    def _step_ranks(self, shards: List[_Shard]) -> None:
         """The step's rank form, each local shard a rank with its own card
         (``_Card``): the phases of ``_step_cards`` with the mesh's
         collectives between them, each into the card's preallocated
@@ -1859,12 +1915,24 @@ class ShardedFrontierSearch:
         (``_sharded_h3`` :305-307), the send counts gathered (ragged:
         ``_route_ragged`` :214), each shard's report block gathered after
         its pack, the consensus of every rank over every row of its gathered
-        block by address (``_consensus`` :319), then the dense exchange:
-        the wires' fixed-shape all-to-all (``_route_cap`` :148) and the
-        exchange kernel on the received blocks, A read on the card.  The
-        same collectives in the same order on every rank, whatever the
-        data: no host value is read but the ragged exchange's sizes
-        (``_exchange_host``)."""
+        block by address (``_consensus`` :319), then the exchange kernel, A
+        read on the card: ragged, over every rank's wire by address (this
+        rank's own, the others' mapped into this process: ``wires``), as
+        ``_route_ragged``'s all-to-all :231 delivers them; dense, over the
+        received blocks of the wires' fixed-shape all-to-all (``_route_cap``
+        :148).  The same collectives in the same order on every rank,
+        whatever the data, and no host value read (but the ragged sizes of
+        a mesh that maps nothing, ``_exchange_host``).
+
+        The ragged exchange reads a peer's wire with no collective of its
+        own; the step's collectives order it.  Rank i's pack of step t
+        writes its wire before rank i joins the gather of the report
+        blocks, which completes on rank r only after every rank has joined
+        it: so rank r's exchange, after that gather, reads every wire of
+        step t written.  Rank i's pack of step t + 1 comes after the gather
+        of step t + 1's send counts, which completes on rank i only after
+        rank r has joined it, after its exchange of step t: so no wire is
+        rewritten while a peer still reads it."""
         st, mesh, ndev, cards = self.st, self.mesh, self.ndev, self.cards
         cap, pw = self.exchange_cap, shards[0].pw
         ragged = self.exchange == "ragged"
@@ -1884,19 +1952,16 @@ class ShardedFrontierSearch:
         mesh.all_gather([sh.blk for sh in shards], [c.reps for c in cards])
         for c in cards:
             c.consensus(self)
-        v = None
-        if ragged:
-            v = cards[0].cons.cpu().numpy()
-            if not (v[C_TOVF] or v[C_COVF]):
-                self._exchange_host(shards, cons_sizes(v, ndev))
+        if ragged and self.wires is None:
+            self._exchange_host(shards)
         else:
-            mesh.all_to_all([sh.wire[:ndev * cap].view(ndev, cap, pw) for sh in shards],
-                            [c.recv.view(ndev, cap, pw) for c in cards])
+            if not ragged:
+                mesh.all_to_all([sh.wire[:ndev * cap].view(ndev, cap, pw) for sh in shards],
+                                [c.recv.view(ndev, cap, pw) for c in cards])
             for c in cards:
                 c.exchange(self, shards)
         for sh in shards:
             sh.insert(self)
-        return v
 
     def _check_agreement(self) -> None:
         """The rank form's end: one gather of every rank's consensus vector,
@@ -1991,11 +2056,18 @@ class ShardedFrontierSearch:
                     for sh in card.shards:
                         sh.insert(self)
 
-    def _exchange_host(self, shards: List[_Shard], A: np.ndarray) -> None:
-        """The ragged exchange of the rank form, sized by the host's copy of
-        A (NCCL's split sizes): each shard's received rows, in sender
+    def _exchange_host(self, shards: List[_Shard]) -> None:
+        """The ragged exchange of the rank form on a mesh that maps no
+        peer's wire (a ProcessMesh on the CPU, a LocalMesh over cards
+        without peer access), sized by the host's copy of A (the
+        all-to-all's split sizes): each shard's received rows, in sender
         order, just before row R of its pending list, where the insert
-        reads them (the consensus wrote their count)."""
+        reads them (the consensus wrote their count); nothing on overflow,
+        where the step stops before the exchange."""
+        v = self.cards[0].cons.cpu().numpy()
+        if v[C_TOVF] or v[C_COVF]:
+            return
+        A = cons_sizes(v, self.ndev)
         n_recv = A.sum(0)
         regions = [sh.pend[sh.R - int(n_recv[sh.me]): sh.R] for sh in shards]
         off = np.cumsum(A, axis=1) - A
@@ -2023,12 +2095,11 @@ class ShardedFrontierSearch:
         """The host driver: one step a host read of the consensus vector
         (the stop test on the host; max_steps checked at the end of every
         chunk_steps steps).  Returns (the last consensus vector, the
-        shards' overflow counters or None, reads)."""
+        shards' overflow counters, reads)."""
         reads = 0
         while True:
-            c, ovf = self._step(shards), None
-            if c is None:
-                c, ovf = self._read(shards)
+            self._step(shards)
+            c, ovf = self._read(shards)
             reads += 1
             steps = int(c[C_STEPS])
             if not c[C_RUN] or (steps % self.chunk_steps == 0 and steps >= self.max_steps):

@@ -18,6 +18,7 @@ import itertools
 import json
 import os
 import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from mpi_pastar_msa_tpu_torch.heuristic.triples import (
 from mpi_pastar_msa_tpu_torch.heuristic.wavefront import (
     pair_inputs, wavefront_tables, wavefront_tables_plain)
 from mpi_pastar_msa_tpu_torch.heuristic.weights import altschul_rationale2
+from test_torch_multihost import run_ranks
 from walk_cases import WALK_SHAPES, WALK_STOPS, walk_case
 
 pytestmark = pytest.mark.cuda
@@ -2093,6 +2095,92 @@ def test_sharded_rank_form_kinase_chunk_equals_host_driver(cuda, monkeypatch):
     assert all(torch.equal(c.cons, ce.cards[0].cons) for c in ce.cards)
     for k in ("consensus", "exchange"):
         assert counts[k] > 0, k
+
+
+def test_sharded_rank_form_kinase_ragged_chunk_equals_host_driver(cuda, monkeypatch):
+    """Kinase on [cuda] * 4 in the rank form (``_rank_form`` replaced: the
+    step graph a ProcessMesh rank captures), packed at 2^21, ragged (auto
+    on cards): one 256-step chunk, every rank's exchange reading the
+    senders' wires by address (the mesh's ``map_peers``; no received
+    blocks), against 256 steps of the host driver in the same form and of
+    the host driver's card form, every table tensor, ring, counter and
+    telemetry word bit for bit; one host read for the chunk, none inside
+    the host driver's steps (one a step)."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    gold = json.load(open(os.path.join(HERE, "goldens.json")))["kinase.fasta"]
+    problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+    kw = dict(chunk_steps=256, max_steps=256)
+    runs = {}
+    with monkeypatch.context() as m:
+        m.setattr(SH, "_rank_form", lambda mesh: True)
+        for driver in ("chunked", "host"):
+            _kernels.reset_counts()
+            eng = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, driver=driver, **kw)
+            with pytest.raises(RuntimeError, match="max_steps exceeded"):
+                eng.run()
+            torch.cuda.synchronize()
+            runs[driver] = (eng, dict(_kernels.launches))
+    card = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, driver="host", **kw)
+    with pytest.raises(RuntimeError, match="max_steps exceeded"):
+        card.run()
+    torch.cuda.synchronize()
+    (ce, counts), (he, _) = runs["chunked"], runs["host"]
+    assert ce.layout == "packed" and ce.exchange == he.exchange == "ragged"
+    assert not ce.card_form and not he.card_form and card.card_form
+    assert len(ce.cards) == 4 and ce.cards[0].recv is None and len(ce.wires) == 4
+    cs = ce.last_stats
+    assert cs["steps"] == he.last_stats["steps"] == card.last_stats["steps"] == 256
+    assert cs["graph_captures"] == 2 and cs["graph_replays"] == 256 and cs["host_reads"] == 1
+    assert he.last_stats["host_reads"] == 256
+    for other in (he, card):
+        for (k, a), (_, b) in zip(_loop_words(ce), _loop_words(other)):
+            assert torch.equal(a, b), k
+    assert all(torch.equal(c.cons, ce.cards[0].cons) for c in ce.cards)
+    for k in ("consensus", "exchange"):
+        assert counts[k] > 0, k
+
+
+def test_ipc_exchange_two_processes_one_card(cuda):
+    """Two processes on one card (tools/ipc_exchange_check.py --one-card,
+    gloo for the handles): each exports its wire, maps the other's through
+    CUDA IPC (``ProcessMesh.map_peers``) and runs ``exchange`` from the
+    mapped wire, ragged, bit for bit with ``exchange_plain`` on the rows
+    rebuilt from the seeds, in every case; the mappings closed behind a
+    barrier."""
+    outs = run_ranks([sys.executable, os.path.join("tools", "ipc_exchange_check.py"),
+                      "--one-card"])
+    for rank, (rc, out) in enumerate(outs):
+        assert rc == 0, f"rank {rank}:\n{out[-3000:]}"
+        line = next(l for l in out.splitlines() if l.startswith("IPC_CHECK "))
+        r = json.loads(line.split(" ", 1)[1])
+        assert r["rank"] == rank and r["device"] == "cuda:0" and r["max_abs_err"] == 0
+        assert all(c["max_abs_err"] == 0 and c["rows"] > 0 for c in r["cases"])
+        assert r["launches"] > 0
+
+
+def test_process_mesh_ragged_late_rank(cuda):
+    """A ProcessMesh of NCCL ranks, a card each (two or more; skipped
+    below), kinase's first 256 steps with the ragged exchange
+    (tests/process_mesh_late.py): rank 1 late by 200,000 clock cycles
+    before its pack and before its exchange, captured into its step
+    graphs, leaves every rank's words equal to the run without the delay
+    and to the host driver's (a hash a rank); the step's collectives alone
+    order the reads of the peers' mapped wires."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more (NCCL takes one rank a card)")
+    world = min(n, 4)
+    outs = run_ranks([sys.executable, os.path.join("tests", "process_mesh_late.py")], world)
+    for rank, (rc, out) in enumerate(outs):
+        assert rc == 0, f"rank {rank}:\n{out[-3000:]}"
+        runs = [json.loads(l.split(" ", 1)[1]) for l in out.splitlines()
+                if l.startswith("LATE_RUN ")]
+        assert [(r["driver"], r["cycles"] > 0) for r in runs] == [
+            ("host", False), ("chunked", False), ("chunked", True)]
+        assert all(r["exchange"] == "ragged" and r["steps"] == 256 for r in runs)
+        assert runs[1]["host_reads"] == runs[2]["host_reads"] == 1
+        assert len({r["hash"] for r in runs}) == 1, f"rank {rank}: {runs}"
 
 
 @pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])

@@ -9,8 +9,10 @@ ragged one.  ``tools/process_mesh_turns.py`` on 2 and 4 ranks runs the
 chunked driver (the step's rank form, the mesh's collectives between its
 phases) and the host driver, dense, on PF08184 and test2: the golden g
 and alignment, every shard's table words equal (a hash a rank), one host
-read a chunk.  ``broadcast_problem`` alone round-trips the sequences to a
-rank that read nothing."""
+read a chunk; with the ragged exchange, which a CPU rank sizes on its
+host, the host driver reaches the golden and the chunked one raises.
+``broadcast_problem`` alone round-trips the sequences to a rank that read
+nothing."""
 import json
 import os
 import socket
@@ -113,6 +115,28 @@ def test_process_mesh_chunked_equals_host_driver(tmp_path, name, world):
         assert c["host_reads"] == -(-c["steps"] // chunk) and h["host_reads"] == h["steps"]
         assert c["walk_rounds"] == h["walk_rounds"] == h["walk_reads"]
         assert c["walk_reads"] == -(-c["walk_rounds"] // 32)
+
+
+@pytest.mark.parametrize("driver", ["host", "chunked"])
+def test_process_mesh_cpu_ragged(tmp_path, driver):
+    """A ProcessMesh of 2 gloo ranks with the ragged exchange: a CPU rank
+    maps no peer's wire, so the host driver sizes the exchange on its
+    host (``ProcessMesh.all_to_all_ragged``) and reaches the golden g and
+    alignment, one host read a step; the chunked driver raises ValueError
+    there, with no fallback."""
+    name = "PF08184.fasta"
+    outs = run_ranks([sys.executable, os.path.join("tools", "process_mesh_turns.py"),
+                      fasta(tmp_path, name), "--device", "cpu", "--chunk", "16",
+                      "--drivers", driver, "--exchange", "ragged"])
+    for rank, (rc, out) in enumerate(outs):
+        if driver == "chunked":
+            assert rc != 0 and "ValueError" in out and "maps no peer" in out, out[-3000:]
+            continue
+        assert rc == 0, f"rank {rank}:\n{out[-3000:]}"
+        r = rank_runs(out)["host"]
+        assert (r["rank"], r["exchange"], r["g"]) == (rank, "ragged", GOLD[name]["optimal_g"])
+        assert r["alignment"] == GOLD[name]["alignment"]
+        assert r["host_reads"] == r["steps"] > 16 and r["wire_rows_a_step"] > 0
 
 
 def test_broadcast_problem_round_trips():

@@ -693,10 +693,11 @@ def test_split_cards_chunked_equals_host_driver(monkeypatch, name, layout, excha
     snapshots its shards' reports, runs the consensus over every shard's
     report and the exchange for its own receivers) in chunks of 16, the
     host driver the rank form on the same mesh (a card a shard: the
-    mesh's collectives, the exchange sized on the card when dense, on the
-    host when ragged).  The result, the per-shard stats and every table
-    word equal, with no tolerance; the alignment is the golden one
-    (JAX's); one host read a chunk; both cards' consensus vectors equal."""
+    mesh's collectives, the exchange sized on the card, ragged over every
+    rank's wire by address).  The result, the per-shard stats and every
+    table word equal, with no tolerance; the alignment is the golden one
+    (JAX's); one host read a chunk, and one a step under the host driver;
+    both cards' consensus vectors equal."""
     monkeypatch.setattr(S, "_card_groups", lambda devices: SPLITS["two_cards"])
     (ce, cr), (he, hr) = both_drivers(golden(name), 4, layout=layout, capacity=1 << 14,
                                       chunk_steps=16, exchange=exchange)
@@ -711,10 +712,8 @@ def test_split_cards_chunked_equals_host_driver(monkeypatch, name, layout, excha
         assert torch.equal(a, b)
     assert torch.equal(ce.cards[0].cons, ce.cards[1].cons)
     cs, hs = ce.last_stats, he.last_stats
-    # the rank form reads the vector each step (ragged: inside the step,
-    # and the overflow once more)
     assert cs["host_reads"] == -(-cr.steps // 16)
-    assert hs["host_reads"] == hr.steps + (exchange == "ragged")
+    assert hs["host_reads"] == hr.steps
     assert cs["walk_reads"] == -(-cs["walk_rounds"] // S.WALK_ROUNDS)
     for k in ("steps", "wire_rows", "migrated", "peak_carry", "walk_rounds"):
         assert cs[k] == hs[k], k
@@ -756,20 +755,95 @@ def test_rank_form_equals_card_form(monkeypatch, name, layout):
         assert rs[k] == cs[k], k
 
 
+def spilling_input():
+    """A random input whose frontier is wide, and the engine arguments
+    under which its one-row wire spills into the carry rings."""
+    rs = np.random.RandomState(31)
+    p = Problem(tuple("".join(rs.choice(list(AMINO), size=rs.randint(12, 17)))
+                      for _ in range(4)))
+    return p, dict(exchange_cap=1, hash_type="FZORDER", hash_shift=0, batch=16, chunk_steps=8)
+
+
+@pytest.mark.parametrize("ndev", [2, 4])
+@pytest.mark.parametrize("layout", ["sig", "packed"])
+@pytest.mark.parametrize("name", ["PF08184.fasta", "test2.fasta", "spilling"])
+def test_rank_form_ragged_equals_host_driver_and_card_form(monkeypatch, name, layout, ndev):
+    """The ragged exchange in the rank form (``_rank_form`` replaced: a
+    card a shard, every rank's exchange reading the senders' wires by
+    address, the mesh's ``map_peers``, as a ProcessMesh of cards reads
+    them through CUDA IPC) on ``ndev`` CPU shards: the chunked driver
+    against the host driver in the same form and against the card form's
+    chunked run, on PF08184, test2 (chunks of 16) and a one-row wire that
+    spills into the carry rings (chunks of 8): the golden g and alignment
+    (the brute-force optimum on the random input), the result, the
+    per-shard stats and every table word equal, with no tolerance; every
+    rank's consensus vector the same; the chunked runs one host read a
+    chunk, the host driver one a step, and no step reads the host."""
+    if name == "spilling":
+        p, kw = spilling_input()
+        want = optimal_cost(p, HPairHeuristic.build(p, "cpu"))
+    else:
+        p, kw, want = golden(name), dict(capacity=1 << 14, chunk_steps=16), None
+    kw.update(layout=layout, exchange="ragged")
+    card = S.ShardedFrontierSearch(p, devices=["cpu"] * ndev, driver="chunked", **kw)
+    cr = card.run()
+    monkeypatch.setattr(S, "_rank_form", lambda mesh: True)
+
+    def host_sized(self, shards):
+        raise AssertionError("the ragged exchange was sized on the host")
+
+    monkeypatch.setattr(S.ShardedFrontierSearch, "_exchange_host", host_sized)
+    runs = []
+    for driver in ("chunked", "host"):
+        eng = S.ShardedFrontierSearch(p, devices=["cpu"] * ndev, driver=driver, **kw)
+        runs.append((eng, eng.run()))
+    (ce, rr), (he, hr) = runs
+    assert card.card_form and not ce.card_form and not he.card_form
+    assert ce.exchange == he.exchange == "ragged" and ce.cards[0].recv is None
+    assert [len(c.shards) for c in ce.cards] == [1] * ndev
+    assert all(len(c.wires) == ndev for c in ce.cards)
+    if want is None:
+        assert rr.g == GOLD[name]["optimal_g"]
+        assert build_alignment(ce.problem, rr.closed) == GOLD[name]["alignment"]
+    else:
+        assert rr.g == want and ce.last_stats["peak_carry"] > 0
+    for eng, res in ((he, hr), (card, cr)):
+        assert (res.g, res.closed, res.steps, res.shard_stats, res.nodes_migrated) == (
+            rr.g, rr.closed, rr.steps, rr.shard_stats, rr.nodes_migrated)
+        for a, b in zip(shard_words(ce), shard_words(eng)):
+            assert torch.equal(a, b)
+    assert all(torch.equal(c.cons, ce.cards[0].cons) for c in ce.cards + he.cards)
+    cs, hs = ce.last_stats, he.last_stats
+    chunk = kw["chunk_steps"]
+    assert cs["host_reads"] == card.last_stats["host_reads"] == -(-rr.steps // chunk)
+    assert hs["host_reads"] == hr.steps
+    for k in ("steps", "wire_rows", "migrated", "peak_carry", "walk_rounds"):
+        assert cs[k] == hs[k] == card.last_stats[k], k
+
+
 def test_rank_form_refusals_and_choice(monkeypatch):
     """The rank form's driver rules on a LocalMesh (``_rank_form``
-    replaced), as on a ProcessMesh: chunked with the dense exchange, which
-    auto takes; with ragged the host driver under auto, and chunked raises;
-    a chunked rank form over two devices raises when it runs; ranks that
-    end with different consensus vectors raise."""
+    replaced), as on a ProcessMesh of cards: the chunked driver under
+    either exchange (auto: dense on the CPU, ragged on cards, as JAX's),
+    the ragged one reading every rank's wire by address; over cards
+    without peer access the ragged exchange maps nothing, so auto takes
+    the host driver and chunked raises; a chunked rank form over two
+    devices raises when it runs; ranks that end with different consensus
+    vectors raise."""
     monkeypatch.setattr(S, "_rank_form", lambda mesh: True)
     p = golden("PF08184.fasta")
     eng = S.ShardedFrontierSearch(p, devices=["cpu"] * 2)
     assert (eng.driver, eng.exchange) == ("chunked", "dense")
     eng = S.ShardedFrontierSearch(p, devices=["cpu"] * 2, exchange="ragged")
-    assert (eng.driver, eng.exchange) == ("host", "ragged")
-    with pytest.raises(ValueError, match="dense"):
-        S.ShardedFrontierSearch(p, devices=["cpu"] * 2, driver="chunked", exchange="ragged")
+    assert (eng.driver, eng.exchange) == ("chunked", "ragged")
+    assert S.choose_driver(LocalMesh(["cuda:0"] * 4), "auto") == "chunked"
+    assert S.auto_exchange(LocalMesh(["cuda:0"] * 4).devices) == "ragged"
+    cards = LocalMesh(["cuda:0", "cuda:1"])
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", lambda a, b: False)
+    assert S.choose_driver(cards, "auto") == "host"
+    assert S.choose_driver(cards, "auto", "dense") == "chunked"
+    with pytest.raises(ValueError, match="maps no peer"):
+        S.choose_driver(cards, "chunked", "ragged")
     eng = S.ShardedFrontierSearch(p, devices=["cpu", "cpu"], capacity=1 << 14)
     eng.local_devices = [torch.device("cpu"), torch.device("meta")]
     with pytest.raises(ValueError, match="one device"):
@@ -885,9 +959,10 @@ def test_driver_choice_and_refusals(monkeypatch):
         S.choose_driver(cards, "chunked")
     # a card and the CPU have no peer access
     assert S.choose_driver(LocalMesh(["cpu", "cuda:0"]), "auto") == "host"
-    # a several-rank ProcessMesh: the chunked driver with the dense
-    # exchange, which auto resolves to; with ragged the host driver under
-    # auto, and chunked raises: NCCL's ragged all-to-all takes host sizes
+    # a several-rank ProcessMesh on the CPU: the chunked driver with the
+    # dense exchange, which auto resolves to there (JAX's rule); with
+    # ragged the host driver under auto, and chunked raises: a CPU rank
+    # maps no peer's wire, so its ragged all-to-all takes host sizes
     pm = ProcessMesh.__new__(ProcessMesh)
     pm.ndev, pm.rank, pm.local, pm.multiprocess = 2, 0, [0], True
     pm.devices = [torch.device("cpu")]
@@ -900,6 +975,15 @@ def test_driver_choice_and_refusals(monkeypatch):
     assert S.ShardedFrontierSearch(p, devices=pm, driver="host").exchange == "dense"
     with pytest.raises(ValueError, match="ProcessMesh"):
         S.ShardedFrontierSearch(p, devices=pm, driver="chunked", exchange="ragged")
+    with pytest.raises(ValueError, match="CPU maps nothing"):
+        pm.map_peers([torch.zeros((4, 3), dtype=torch.int32)])
+    # a ProcessMesh of cards: auto is ragged (every shard on a card) and
+    # chunked, each rank's exchange reading the others' wires through
+    # CUDA IPC mappings
+    pm.devices = [torch.device("cuda", 0)]
+    assert S.auto_exchange(pm.devices) == "ragged" and S.maps_peers(pm)
+    assert S.choose_driver(pm, "auto") == S.choose_driver(pm, "chunked", "ragged") == "chunked"
+    assert S.choose_driver(pm, "auto", "dense") == "chunked"
     # one shard, dense: the single-table search under either driver
     for driver in ("chunked", "host"):
         eng = S.ShardedFrontierSearch(p, devices=["cpu"], driver=driver)

@@ -6,13 +6,15 @@ Started once a rank, as ``torchrun`` starts a program (``MASTER_ADDR``,
 broadcasts the sequences (``parallel/multihost.py``), every rank holds one
 shard of a ``ProcessMesh`` (gloo for CPU tensors, NCCL for CUDA ones) and
 runs ``ShardedFrontierSearch`` under each driver of ``--drivers`` in that
-order, a new engine each time, with the dense exchange (the one both
-drivers take there).  After each run a rank prints one JSON line
-``RANK_RUN {...}``: its rank, the driver, g, steps, host reads and walk
-reads, each kernel's launches, the wall a step (the chunked driver's
-also without its graph captures, whose parts it gives: the warm-up step,
-which also makes the NCCL communicator, the host code while captured,
-the rest), the alignment, and a SHA-256 of every word its shard's step
+order, a new engine each time, with the exchange of ``--exchange``
+(auto: ragged on cards, each rank's exchange reading the other ranks'
+wires through CUDA IPC mappings; dense on the CPU).  After each run a rank
+prints one JSON line ``RANK_RUN {...}``: its rank, the driver, the
+exchange, g, steps, host reads and walk reads, wire rows a step, each
+kernel's launches, the wall a step (the chunked driver's also without its
+graph captures, whose parts it gives: the warm-up step, which also makes
+the NCCL communicator, the host code while captured, the rest), the peak
+device memory, the alignment, and a SHA-256 of every word its shard's step
 leaves that does not depend on the order lanes run in (the table, the
 counters, the step state, both rings and which is current, the received
 count, the insert flag, the route's out, the candidate rows, the wire,
@@ -21,9 +23,11 @@ same hash on every rank.
 
     WORLD_SIZE=4 RANK=r MASTER_ADDR=127.0.0.1 MASTER_PORT=29500 \\
         python3 tools/process_mesh_turns.py kinase.fasta --drivers chunked,host
-    torchrun --nproc-per-node 4 tools/process_mesh_turns.py kinase.fasta
+    torchrun --nproc-per-node 4 tools/process_mesh_turns.py kinase.fasta \\
+        --drivers chunked,host,chunked --exchange ragged,ragged,dense
 
-``--device cpu`` runs the shards' plain versions over gloo.
+``--exchange`` takes one exchange for every run or one a run.  ``--device
+cpu`` runs the shards' plain versions over gloo.
 """
 import argparse
 import hashlib
@@ -65,8 +69,17 @@ def main() -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--drivers", default="chunked,host",
                     help="drivers to run in turn, comma-separated (auto, chunked, host)")
+    ap.add_argument("--exchange", default="auto",
+                    help="the exchange of every run, or one a run, comma-separated (auto, "
+                         "ragged, dense)")
     ap.add_argument("--chunk", type=int, default=256, help="chunk_steps")
     args = ap.parse_args()
+    drivers = args.drivers.split(",")
+    exchanges = args.exchange.split(",")
+    if len(exchanges) == 1:
+        exchanges *= len(drivers)
+    if len(exchanges) != len(drivers):
+        ap.error(f"{len(exchanges)} exchanges for {len(drivers)} drivers")
     rank = init_distributed()
     world = torch.distributed.get_world_size()
     if args.device == "cuda":
@@ -78,10 +91,12 @@ def main() -> int:
         dev = torch.device("cpu")
     problem = broadcast_problem(problem_from_fasta(args.fasta) if rank == 0 else None)
     mesh = ProcessMesh(dev)
-    for driver in args.drivers.split(","):
-        eng = ShardedFrontierSearch(problem, devices=mesh, driver=driver, exchange="dense",
+    for driver, exchange in zip(drivers, exchanges):
+        eng = ShardedFrontierSearch(problem, devices=mesh, driver=driver, exchange=exchange,
                                     chunk_steps=args.chunk)
         _kernels.reset_counts()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         res = eng.run()
         if dev.type == "cuda":
@@ -94,7 +109,8 @@ def main() -> int:
                    driver=st["driver"], exchange=eng.exchange, layout=eng.layout, g=res.g,
                    steps=st["steps"], host_reads=st["host_reads"],
                    host_reads_a_step=st["host_reads"] / steps, walk_rounds=st["walk_rounds"],
-                   walk_reads=st["walk_reads"], graph_captures=st.get("graph_captures", 0),
+                   walk_reads=st["walk_reads"], wire_rows_a_step=st["wire_rows"] / steps,
+                   graph_captures=st.get("graph_captures", 0),
                    step_ms=st["search_s"] / steps * 1e3,
                    step_ms_no_capture=(st["search_s"] - st.get("capture_s", 0.0)) / steps * 1e3,
                    capture_s=st.get("capture_s", 0.0),
@@ -102,6 +118,7 @@ def main() -> int:
                                                      "capture_instantiate_s", "walk_warm_s",
                                                      "walk_capture_s") if k in st},
                    walk_s=st["walk_s"], run_s=wall,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
                    launches={k: v for k, v in _kernels.launches.items() if v},
                    hash=words_hash(eng), alignment=build_alignment(problem, res.closed))
         print("RANK_RUN " + json.dumps(out), flush=True)
