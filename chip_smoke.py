@@ -48,21 +48,24 @@ Phases, each failing loudly (non-zero exit):
    instantiations), K9 (keyrow_expand.cu) and K10 (keyrow_insert.cu) run 1
    and 32 steps from globin6's table (packed, step 60) and from kinase's
    pinned to unpacked (step 150) as a chunk graph and as the eager chunk
-   (1 step also with K10 on one block), each with K10's block path for the
-   lanes left after round 0 (cap K10_CAP) and with every round on the grid
-   (cap 0), against the plain step on copies: every table tensor (claim
-   included) and the 14 counters identical; their kernel, plain and bound
-   times, K9's launch shape (a block a row), its surviving lanes and the
-   ones it leaves pending after its round-0 match (globin6: fewer, or the
-   run fails), its bounds by bytes and by operations, K10 on both paths
-   with its grid syncs a step, and K3's torch.min yardstick
-   (``--keyrow-baseline SRC`` builds another tree's K9, K10 and K7, those
-   of cedea92 with K9 a warp a row, checks its K9 -> K10 pair against this
-   one on the same tables and times the pairs in turns, and its K7 on the
-   timed walks).  The cost of one grid sync (an empty
+   (1 step also with K10 on one block), each with K10 at its cap K10_CAP
+   (a list that long in one block, else round 0 on the grid and a tail
+   that long in one block) and with every round on the grid (cap 0),
+   against the plain step on copies: every table tensor (claim included)
+   and the 14 counters identical; their kernel, plain and bound times,
+   K9's launch shape (a block a row), its surviving lanes and the ones it
+   leaves pending after its round-0 match (globin6: fewer, or the run
+   fails), its bounds by bytes and by operations, K10 on both paths with
+   its grid syncs a step and its K10_PHASES split, and K3's torch.min
+   yardstick (``--keyrow-baseline SRC`` builds another tree's K10 and K7,
+   checks its K10 against this one on the same tables and times the two
+   in turns, and its K7 on the timed walks; ``--k10-sweep`` times K10
+   against its list length, 64 to 4,096 entries on a synthetic kinase
+   table: one block, round 0 on the grid, every round on the grid, the
+   other tree's).  The cost of one grid sync (an empty
    cooperative kernel of 132 x 512 threads with 1, 4 and 16), and K10's
    tail (lanes left after round 0) and improving lanes a step over the
-   globin6, kinase-unpacked and synth10 searches.  Kernel,
+   globin6, kinase-unpacked and synth10 searches, by path.  Kernel,
    plain and bound times of K3, K4, K5 and the whole step,
    each kernel's device time (CUPTI, torch.profiler) beside its
    event-timed wrapper call, K3's and K5's phase splits, the chunk's time
@@ -154,7 +157,9 @@ Phases, each failing loudly (non-zero exit):
    on the packed run; K11 under both allowances, on sig rows with
    each destination's sort barriers as its K11_BARRIERS build counts
    them; K10 over the received rows and the self-owned lanes: every
-   table tensor, the claim words and the 14 counters; K7's hop mode on
+   table tensor, the claim words and the 14 counters, as the run made it
+   and run again, its path, list and K10_PHASES split, and with
+   ``--keyrow-baseline`` the other tree's K10 in turns; K7's hop mode on
    every shard's table from every path node), their wrapper, device and
    plain times and byte bounds, and sharded_step_bounds at the run's B
    and cap
@@ -211,6 +216,7 @@ import tempfile
 import time
 import warnings
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -243,13 +249,6 @@ LAYOUT_KERNELS = {"sig": STEP_KERNELS,
 # the plain functions that no run on the card may call (the plain loop,
 # the expand and insert it alone calls, and the plain walk)
 PLAIN_STEP = ("_run_chunk_plain", "_expand_insert", "_expand", "_probe_claim", "_walk")
-# the C entry of K9 before its block a row and its round-0 match (the
-# keyrow_expand.cu of cedea92): this one's arguments without t_best, C,
-# blocks and threads
-K9_WARP_ROW_SIGNATURE = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                         + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
-                         + [ctypes.c_void_p] * 5)
 # another tree's K7 ("baseline", --keyrow-baseline; the same C entry), set
 # in main() and timed in turns with K7 by check_k7 and engine_walk
 K7_VARIANTS = {}
@@ -763,14 +762,16 @@ def build_step_baseline(src: str, tmp: str):
 def start_phases_build(name: str, tmp: str):
     """Start nvcc on csrc/<name>.cu with its measurement macro (K3_PHASES
     for select_best: three %globaltimer readings in the partials when a
-    launch ends; K5_PHASES for sig_probe: five in lane_word; K8_NO_STORE
+    launch ends; K5_PHASES for sig_probe: five in lane_word; K10_PHASES for
+    keyrow_insert: eight in the tail list; K8_NO_STORE
     for gotoh_wavefront: the fill without its scratch stores; K11_BARRIERS
     for route_pack: each destination's sort counts its block barriers) into
     ``tmp``; returns (name, proc, lib)."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
     macro = {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES",
-             "gotoh_wavefront": "K8_NO_STORE", "route_pack": "K11_BARRIERS"}[name]
+             "keyrow_insert": "K10_PHASES", "gotoh_wavefront": "K8_NO_STORE",
+             "route_pack": "K11_BARRIERS"}[name]
     lib = os.path.join(tmp, f"lib{name}_phases.so")
     proc = subprocess.Popen(
         [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -792,6 +793,55 @@ def load_phases(job):
     fn.argtypes = _kernels.SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def load_k10_phases(job) -> dict:
+    """The K10_PHASES build's two C entries (start_phases_build
+    ("keyrow_insert")): {"keyrow_insert": fn, "keyrow_insert_recv": fn}."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    out = {"keyrow_insert": load_phases(job)}
+    fn = ctypes.CDLL(job[2]).keyrow_insert_recv
+    fn.argtypes, fn.restype = _kernels.SIGNATURES["keyrow_insert_recv"], ctypes.c_int
+    out["keyrow_insert_recv"] = fn
+    return out
+
+
+# K10_PHASES: what ends at each %globaltimer reading after the first
+K10_MARKS = ("wait_us", "round0_reads_us", "round0_writes_us", "round0_rereads_us",
+             "to_block_path_us", "rounds_us", "finish_us")
+
+
+def k10_phases(fns: dict, args: tuple, tail, restore, reps: int = 20) -> dict:
+    """K10's phases on this card: the K10_PHASES build's ``args[0]`` entry
+    (``args``: _keyrow_insert_args, the stream last) run ``reps`` times
+    after ``restore()``; medians, in microseconds of block 0's thread 0's
+    %globaltimer, of each span between two readings it passed (K10_MARKS:
+    wait_predecessor, round 0's reads, writes and re-reads each up to its
+    grid sync, on to the block path, the claim rounds, the placement and
+    counters) and of the whole kernel from its start; the spans a path
+    skips are absent."""
+    fn = fns[args[0]]
+    got = {}
+    words = tail[:16].view(torch.int64)
+    for _ in range(reps):
+        restore()
+        words.zero_()
+        if fn(*args[1:]):
+            fail("the K10_PHASES build failed to launch")
+        torch.cuda.synchronize()
+        marks = words.tolist()
+        prev = marks[0]
+        for name, t in zip(K10_MARKS, marks[1:]):
+            if t:
+                got.setdefault(name, []).append((t - prev) / 1e3)
+                prev = t
+        got.setdefault("total_us", []).append((marks[7] - marks[0]) / 1e3)
+    return {k: statistics.median(v) for k, v in got.items()}
+
+
+def k10_phase_line(ph: dict) -> str:
+    return ", ".join(f"{k[:-3].replace('_', ' ')} {v:.3f}" for k, v in ph.items()) + " us"
 
 
 def load_k11_barriers(job) -> dict:
@@ -1187,9 +1237,9 @@ def step_kernels(paths, baseline=None, floor=None, phases=None, keyrow_baseline=
     ``floor`` the empty-kernel launch floor, printed beside the kernels;
     ``phases`` the C entries of the measurement builds (load_phases) of K3
     (its read pass and its last block's finish) and of K5 (its read and
-    write phases and its finish); ``keyrow_baseline`` another tree's K9
-    and K10 (load_keyrow_baseline), timed in turns with these in
-    keyrow_step.
+    write phases and its finish) and K10 (load_k10_phases);
+    ``keyrow_baseline`` another tree's K10 (load_keyrow_baseline), timed
+    in turns with this one in keyrow_step.
     Then the grid sync's cost and K10's tail a step over the globin6 and
     kinase-unpacked searches (k10_tail_sweep; ``k10_sweep`` also times
     K10 on both its paths at every step)."""
@@ -1305,7 +1355,7 @@ def step_kernels(paths, baseline=None, floor=None, phases=None, keyrow_baseline=
         step_ms = time_restored(lambda: (k3(), k4(), k5()), restore_tab, 20)
         # the device's own time of each (CUPTI), the same calls
         if phases is not None:
-            k3_build, k5_build = phases
+            k3_build, k5_build, _ = phases
             row["k3_phases"] = k3_phases(k3_build, S._select_args(
                 st, work.t_best, work.t_closed, goal, thr, bufs.run, bufs, stream)[1:],
                 bufs.partial, restore_tab)
@@ -1412,6 +1462,7 @@ def step_kernels(paths, baseline=None, floor=None, phases=None, keyrow_baseline=
         out[triples] = row
         del tab0, work, snap, eng
 
+    k10_ph = phases[2] if phases is not None else None
     # K3 alone on the packed layout: globin6 at step 60
     eng, tab, ctr = warm_engine(data_path("globin6"), "auto", 60)
     if eng.layout != "packed":
@@ -1433,7 +1484,7 @@ def step_kernels(paths, baseline=None, floor=None, phases=None, keyrow_baseline=
     # same table, kinase pinned to unpacked from step 150
     out["grid_sync"] = grid_sync_cost()
     out["globin6_keyrow"] = g6 = keyrow_step("globin6", eng, tab, ctr,
-                                             baseline=keyrow_baseline)
+                                             baseline=keyrow_baseline, k10_phase_fns=k10_ph)
     out["globin6_loop"] = loop_turns("globin6", st, tab, ctr, eng.ub, eng.fill_target)
     if not 0 < g6["k9"]["pending"] < g6["k9"]["lanes"]:
         fail(f"globin6 step {int(ctr[2])}: K9 left {g6['k9']['pending']} of "
@@ -1443,7 +1494,7 @@ def step_kernels(paths, baseline=None, floor=None, phases=None, keyrow_baseline=
     del eng
     eng, tab, ctr = warm_engine(paths["kinase.fasta"], "auto", 150, layout="unpacked")
     out["kinase_unpacked_keyrow"] = keyrow_step("kinase unpacked", eng, tab, ctr,
-                                                baseline=keyrow_baseline)
+                                                baseline=keyrow_baseline, k10_phase_fns=k10_ph)
     out["kinase_unpacked_loop"] = loop_turns("kinase unpacked", eng.st, tab, ctr, eng.ub,
                                              eng.fill_target)
     del tab, ctr
@@ -1511,21 +1562,20 @@ def loop_walls(eng) -> str:
 
 
 def start_keyrow_baseline(src: str, tmp: str):
-    """Start nvcc on another tree's K9, K10 and K7 (``src``: a checkout's
-    root or its csrc/ directory; keyrow_expand.cu with the C entry of
-    K9_WARP_ROW_SIGNATURE, keyrow_insert.cu and path_walk.cu with this
-    tree's, and the headers beside them) in their own directory, the three
-    nvcc at once; returns (src, {name: (proc, lib)})."""
+    """Start nvcc on another tree's K10 and K7 (``src``: a checkout's root
+    or its csrc/ directory; keyrow_insert.cu and path_walk.cu with this
+    tree's C entries, and the headers beside them) in their own directory,
+    both at once; returns (src, {name: (proc, lib)})."""
     import glob
     import shutil
 
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    csrc = src if os.path.isfile(os.path.join(src, "keyrow_expand.cu")) else os.path.join(
+    csrc = src if os.path.isfile(os.path.join(src, "keyrow_insert.cu")) else os.path.join(
         src, "mpi_pastar_msa_tpu_torch", "csrc")
     out = os.path.join(tmp, "keyrow_baseline")
     os.makedirs(out, exist_ok=True)
-    names = ("keyrow_expand", "keyrow_insert", "path_walk")
+    names = ("keyrow_insert", "path_walk")
     for f in [os.path.join(csrc, f"{n}.cu") for n in names] + glob.glob(
             os.path.join(csrc, "*.cuh")):
         shutil.copy(f, out)
@@ -1540,8 +1590,9 @@ def start_keyrow_baseline(src: str, tmp: str):
 
 
 def load_keyrow_baseline(job) -> dict:
-    """The other tree's K9, K10 and K7 C entries (start_keyrow_baseline):
-    {"source": src, "keyrow_expand": fn, "keyrow_insert": fn, "path_walk": fn}."""
+    """The other tree's K10 and K7 C entries (start_keyrow_baseline):
+    {"source": src, "keyrow_insert": fn, "keyrow_insert_recv": fn (where
+    the tree has the sharded entry), "path_walk": fn}."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
     src, jobs = job
@@ -1550,12 +1601,43 @@ def load_keyrow_baseline(job) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             fail(f"keyrow baseline: nvcc failed for {name}.cu of {src}:\n{log}")
-        fn = getattr(ctypes.CDLL(lib), name)
-        fn.argtypes = (K9_WARP_ROW_SIGNATURE if name == "keyrow_expand"
-                       else _kernels.SIGNATURES[name])
-        fn.restype = ctypes.c_int
-        out[name] = fn
+        for entry in (name, "keyrow_insert_recv") if name == "keyrow_insert" else (name,):
+            fn = getattr(ctypes.CDLL(lib), entry, None)
+            if fn is not None:
+                fn.argtypes, fn.restype = _kernels.SIGNATURES[entry], ctypes.c_int
+                out[entry] = fn
     return out
+
+
+def k10_turns(label: str, base: dict, args: tuple, restore, outputs) -> dict:
+    """Another tree's K10 (``base``: load_keyrow_baseline) against this
+    one on the same inputs: ``args`` the launch (_keyrow_insert_args, the
+    entry first), each run after ``restore()``; ``outputs()`` what the
+    two must leave alike (table words, counters, state).  Checked, then
+    the device times (CUPTI) in turns, old, new, new, old."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    old_fn, src = base[args[0]], base["source"]
+
+    def old():
+        if old_fn(*args[1:]):
+            fail(f"K10 of {src} failed to launch")
+
+    new = _kernels.bind(*args)
+    restore()
+    new()
+    torch.cuda.synchronize()
+    want = outputs()
+    restore()
+    old()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(want, outputs())):
+        fail(f"{label}: the K10 of {src} differs from this one")
+    turns = [device_ms(f, 20, restore) for f in (old, new, new, old)]
+    print(f"  {label}: K10 of {src} in turns (old, new, new, old), device "
+          + " / ".join(f"{t:.4f}" for t in turns) + " ms; the same table words, counters and "
+          "state")
+    return dict(source=src, turns_device_ms=turns)
 
 
 def grid_sync_cost() -> dict:
@@ -1860,9 +1942,13 @@ def k10_tail_sweep(label: str, eng, timed: bool = False) -> dict:
                 n, rounds = s_[S.STATE_NVALID], s_[S.STATE_CALLS]
                 tail = s_[S.STATE_CNT] if rounds else 0
                 n_list = s_[S.STATE_NPEND]  # K10's list (unpacked: every lane)
+                path = S.k10_path(n_list, rounds, tail, cap)
+                # the lanes' flags (lane_dest) are written on the grid's
+                # paths only: the whole-list block path keeps them in
+                # registers
                 improve = (int(((bufs.lane_dest[:n_list] & 2) != 0).sum())
-                           if layout == "unpacked" and n_list and cap else 0)
-                rows.append((n, rounds, tail, improve))
+                           if layout == "unpacked" and path in ("tail", "grid") else None)
+                rows.append((n, rounds, tail, improve, n_list, path))
                 c = ctr.tolist()
                 if c[1] >= c[0] or c[6] > 0:
                     break
@@ -1880,20 +1966,23 @@ def k10_tail_sweep(label: str, eng, timed: bool = False) -> dict:
     rows = runs[S.K10_CAP][0]
     if timed and [r[:3] for r in runs[0][0]] != [r[:3] for r in rows]:
         fail(f"K10 sweep {label}: the two paths gave different searches")
-    col = lambda k: [r[k] for r in rows]
+    col = lambda k: [r[k] for r in rows if r[k] is not None]
     med = lambda v: statistics.median(v) if v else 0
-    block = sum(1 for n, rounds, tail, _ in rows if rounds >= 2 and tail <= S.K10_CAP)
+    paths = {k: sum(1 for r in rows if r[5] == k) for k in ("block", "tail", "grid")}
     out = dict(steps=len(rows), lanes_median=med(col(0)), lanes_max=max(col(0)),
+               list_median=med(col(4)), list_max=max(col(4)),
                rounds_max=max(col(1)), tail_median=med(col(2)), tail_max=max(col(2)),
-               improve_median=med(col(3)), improve_max=max(col(3)), block_path_steps=block,
-               multi_round_steps=sum(1 for r in rows if r[1] >= 2))
+               improve_median=med(col(3)), improve_max=max(col(3), default=0),
+               path_steps=paths, multi_round_steps=sum(1 for r in rows if r[1] >= 2))
     print(f"K10 tail {label} ({layout}, {len(rows)} steps): lanes a step median "
-          f"{out['lanes_median']} max {out['lanes_max']}; left after round 0 (the tail) "
+          f"{out['lanes_median']} max {out['lanes_max']}; K10's list median "
+          f"{out['list_median']} max {out['list_max']}; left after round 0 (the tail) "
           f"median {out['tail_median']} max {out['tail_max']}; claim rounds max "
-          f"{out['rounds_max']}; {out['multi_round_steps']} steps with a round after round 0, "
-          f"{block} of them on the block path (tail <= {S.K10_CAP})"
-          + (f"; improving lanes a step median {out['improve_median']} max "
-             f"{out['improve_max']}" if layout == "unpacked" else ""))
+          f"{out['rounds_max']}; {out['multi_round_steps']} steps with a round after round 0; "
+          f"steps by path at cap {S.K10_CAP}: {paths}"
+          + (f"; improving lanes a step (grid and tail paths) median "
+             f"{out['improve_median']} max {out['improve_max']}" if layout == "unpacked"
+             else ""))
     if timed:
         edges = [0, 1, 65, 129, 257, 513, 1025, 2049, 1 << 40]
         bins = []
@@ -1913,8 +2002,236 @@ def k10_tail_sweep(label: str, eng, timed: bool = False) -> dict:
     return out
 
 
+# K10's list-length sweep (--k10-sweep): the lengths, and the lanes a
+# thread of the wider builds that take the whole list above K10_CAP
+K10_SWEEP_LENGTHS = (64, 128, 256, 512, 768, 1024, 1536, 2048, 3072, 4096)
+K10_WIDE_LANES = (4, 8)
+
+
+def start_k10_wide_builds(tmp: str) -> dict:
+    """Start nvcc on copies of csrc/keyrow_insert.cu with kLanes set to each
+    of K10_WIDE_LANES (the whole-list block path up to 512 x kLanes
+    entries), into ``tmp``; returns {lanes: (proc, lib)}."""
+    import re
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    text = open(os.path.join(_kernels.CSRC, "keyrow_insert.cu")).read()
+    jobs = {}
+    for lanes in K10_WIDE_LANES:
+        src = os.path.join(tmp, f"keyrow_insert_lanes{lanes}.cu")
+        edited, k = re.subn(r"constexpr int kLanes = \d+;", f"constexpr int kLanes = {lanes};",
+                            text)
+        if k != 1:
+            fail("keyrow_insert.cu: no kLanes constant to widen")
+        open(src, "w").write(edited)
+        lib = os.path.join(tmp, f"libkeyrow_insert_lanes{lanes}.so")
+        jobs[lanes] = (subprocess.Popen(
+            [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", _kernels.CSRC, "-o", lib,
+             src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return jobs
+
+
+def load_k10_wide(jobs: dict) -> dict:
+    """The wider builds' C entries (start_k10_wide_builds): {cap:
+    {"keyrow_insert": fn, "keyrow_insert_recv": fn, "ptxas": [lines]}}."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    out = {}
+    for lanes, (proc, lib) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed for keyrow_insert.cu with kLanes = {lanes}:\n{log}")
+        entry = {"ptxas": [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln]}
+        for name in ("keyrow_insert", "keyrow_insert_recv"):
+            fn = getattr(ctypes.CDLL(lib), name)
+            fn.argtypes, fn.restype = _kernels.SIGNATURES[name], ctypes.c_int
+            entry[name] = fn
+        out[512 * lanes] = entry
+    return out
+
+
+def k10_sweep_rows(st, layout: str, pool, home, stored: int, n: int, n_front: int, rng):
+    """A pending list of ``n`` entries over the keys of ``pool`` (the first
+    ``stored`` of them in the table; ``home`` their home slots): stored
+    keys, keys sharing a home slot, new keys, each 1-3 times, in random
+    order; the first ``n_front`` received rows (tags: places), the others'
+    tags from n_front up; packed h and word, unpacked g and f * 2^n + mask.
+    (n, PW) int32 on the card."""
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    # keys beyond the fresh ones that share a home slot with another
+    far = home[stored + n:]
+    _, first, cnt = np.unique(far, return_index=True, return_counts=True)
+    shared = stored + n + np.flatnonzero(np.isin(far, far[first[cnt >= 2]]))[:n // 8]
+    distinct = np.concatenate([rng.choice(stored, n // 4, replace=False), shared,
+                               np.arange(stored, stored + n)])
+    coords = pool[rng.permutation(np.repeat(distinct, rng.integers(1, 4, len(distinct))))][:n]
+    ck = E._pack_keys(torch.from_numpy(coords), st.W)
+    tag = torch.from_numpy(n_front + rng.permutation(4 * n)[:n])
+    if layout == "packed":
+        tail = [torch.from_numpy(coords.sum(1) * 7),
+                torch.from_numpy((rng.integers(0, 4000, n) << st.nb) | rng.integers(1, 32, n))]
+    else:
+        g = torch.from_numpy(rng.integers(1000, 1100, n))
+        fpar = (g + 1000) * (1 << st.nb) + torch.from_numpy(rng.integers(1, st.M + 1, n))
+        tail = [g, E._as_i32(fpar & 0xFFFFFFFF).long(), fpar >> 32]
+    rows = torch.cat([E._as_i32(ck).long(), E._as_i32(E._hash_keys(ck)).long()[:, None],
+                      tag[:, None]] + [t[:, None] for t in tail], 1)
+    return rows.to(torch.int32).cuda()
+
+
+def k10_list_sweep(path: str, wide: dict, baseline=None) -> dict:
+    """K10 against its list length n (K10_SWEEP_LENGTHS), packed and
+    unpacked, without and with received rows (n // 8, keyrow_insert_recv):
+    a kinase table of 2^20 slots an eighth full, synthetic lists
+    (k10_sweep_rows), each launch from the same table (the slots a run
+    changed restored).  Device times (CUPTI, 20 launches) of the whole list
+    in one block ("block": this tree at K10_CAP, above it the narrowest
+    build of ``wide`` that takes n), of PR 24's schedule ("tail": round 0
+    on the grid, the rest in block 0 when at most K10_CAP are left; this
+    tree at cap min(n - 1, K10_CAP)), of every round on the grid ("grid":
+    cap 0) and, given ``baseline``, of the other tree's K10 at K10_CAP;
+    every one's table words, counters and rounds equal to the block's, and
+    the block's to insert_pending_plain."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.core.problem import problem_from_fasta
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    cuda = torch.device("cuda")
+    p = problem_from_fasta(path)
+    h = HPairHeuristic.build(p, cuda)
+    out = {"lengths": list(K10_SWEEP_LENGTHS), "wide_ptxas": {
+        str(c): w["ptxas"] for c, w in wide.items()}}
+    print(f"K10 list sweep (kinase table of 2^20 slots, an eighth full; device us, CUPTI, 20 "
+          f"launches; wider builds: " + "; ".join(
+              f"cap {c}: " + ", ".join(w["ptxas"]) for c, w in wide.items()) + ")")
+    for layout in ("packed", "unpacked"):
+        eng = E.FrontierSearch(p, h, device=cuda, layout=layout, batch=256, capacity=1 << 20,
+                               triples="off")
+        st = eng.st
+        rng = np.random.default_rng(7)
+        pool = np.unique(np.stack([rng.integers(0, int(v) + 1, 400000) for v in st.final_np], 1),
+                         axis=0)
+        rng.shuffle(pool)
+        stored = 1 << 17
+        keys = E._pack_keys(torch.from_numpy(pool), st.W)
+        home = (E._hash_keys(keys) & (st.C - 1)).numpy()
+        tab0 = eng._init_table()
+        sk = keys[:stored].cuda()
+        if layout == "packed":
+            E._insert_core_packed(st, tab0, sk, torch.full((stored,), 7, device=cuda),
+                                  torch.full((stored,), 3000 << st.nb, device=cuda) | 1)
+        else:
+            g = torch.from_numpy(rng.integers(1000, 1100, stored)).cuda()
+            E._insert_core(st, tab0, sk, g, g + 500,
+                           torch.ones(stored, dtype=torch.int64, device=cuda))
+            tab0.t_state[:st.C][(tab0.t_state[:st.C] == 1)
+                                & (torch.rand(st.C, device=cuda) < 0.33)] = 2
+        tab0.claim.fill_(E.INFP)
+        bufs = S.StepBuffers.for_step(st, cuda, layout)
+        bufs.tail = torch.empty(max(wide) if wide else S.K10_CAP, dtype=torch.int32,
+                                device=cuda)
+        tab, fields = clone_table(tab0), list(vars(tab0))
+        ctr0 = torch.as_tensor(E.fresh_counters(), device=cuda)
+        ctr0[0] = 5000
+        ctr, state0 = ctr0.clone(), torch.zeros_like(bufs.state)
+        stream = torch.cuda.current_stream().cuda_stream
+        out[layout] = rows_out = []
+        for received in (False, True):
+            for n in K10_SWEEP_LENGTHS:
+                n_front = n // 8 if received else 0
+                bufs.pend[:n].copy_(k10_sweep_rows(st, layout, pool, home, stored, n, n_front,
+                                                   rng))
+                state0.zero_()
+                state0[S.STATE_NOPEN], state0[S.STATE_NSEL] = stored, 256
+                state0[S.STATE_NVALID], state0[S.STATE_NPEND] = n - n_front, n
+                recv = torch.tensor([n_front], dtype=torch.int32, device=cuda)
+                changed = [torch.arange(st.C, device=cuda)]
+
+                def restore():
+                    idx = changed[0]
+                    for f in fields:
+                        getattr(tab, f)[idx] = getattr(tab0, f)[idx]
+                    ctr.copy_(ctr0)
+                    bufs.state.copy_(state0)
+                    bufs.run.fill_(1)
+
+                def launcher(fns, cap):
+                    args = S._keyrow_insert_args(st, tab, bufs, ctr, 64, 0, cap, stream,
+                                                 pend_at=n_front, recv=recv)
+                    if fns is None:
+                        return _kernels.bind(*args)
+                    fn = fns[args[0]]
+
+                    def go():
+                        if fn(*args[1:]):
+                            fail(f"K10 sweep: a build's {args[0]} failed to launch")
+                    return go
+
+                outputs = lambda: ([getattr(tab, f)[:st.C].clone() for f in fields]
+                                   + [ctr.clone(), bufs.state[S.STATE_CALLS:].clone()])
+                block_cap = S.K10_CAP if n <= S.K10_CAP else min(c for c in wide if c >= n)
+                kinds = {"block": launcher(None if n <= S.K10_CAP else wide[block_cap],
+                                           block_cap),
+                         "tail": launcher(None, min(n - 1, S.K10_CAP)),
+                         "grid": launcher(None, 0)}
+                if baseline is not None and "keyrow_insert_recv" in baseline:
+                    kinds["baseline"] = launcher(baseline, S.K10_CAP)
+                restore()
+                kinds["block"]()
+                torch.cuda.synchronize()
+                want = outputs()
+                s_ = bufs.state.tolist()
+                rounds = s_[S.STATE_CALLS]
+                counts = s_[S.STATE_CNT:S.STATE_CNT + rounds]
+                changed[0] = torch.nonzero(torch.stack(
+                    [(getattr(tab, f)[:st.C] != getattr(tab0, f)[:st.C]).reshape(st.C, -1).any(1)
+                     for f in fields]).any(0))[:, 0]
+                plain = clone_table(tab0)
+                ovf, _, p_rounds, _, _ = SH.insert_pending_plain(st, plain, layout,
+                                                                 bufs.pend[:n], n_front)
+                if p_rounds != rounds or any(not torch.equal(getattr(plain, f)[:st.C],
+                                                             getattr(tab, f)[:st.C])
+                                             for f in fields):
+                    fail(f"K10 sweep {layout} n {n}: the block path differs from "
+                         f"insert_pending_plain")
+                for k, fn in kinds.items():
+                    restore()
+                    fn()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(want, outputs())):
+                        fail(f"K10 sweep {layout} n {n}: {k} differs from the block path")
+                us = {k: device_ms(fn, 20, restore) * 1e3 for k, fn in kinds.items()}
+                paths = {k: S.k10_path(n, rounds, counts[0], c) for k, c in (
+                    ("block", block_cap), ("tail", min(n - 1, S.K10_CAP)), ("grid", 0))}
+                row = dict(n=n, received=n_front, rounds=rounds, unsettled=counts,
+                           block_cap=block_cap, paths=paths, us=us)
+                rows_out.append(row)
+                print(f"  {layout} n {n} ({n_front} received; {rounds} rounds, unsettled "
+                      f"{counts}): " + ", ".join(f"{k} {v:.2f}" for k, v in us.items())
+                      + f" us (block at cap {block_cap}: {paths['block']}; the tail's "
+                      f"schedule: {paths['tail']})")
+        del eng, tab0, tab, bufs
+    # the crossover: the longest list up to which one block beats PR 24's
+    # schedule at every length, each layout and received count
+    win = [r["n"] for lay in ("packed", "unpacked") for r in out[lay]
+           if r["us"]["block"] < r["us"]["tail"]]
+    lose = [r["n"] for lay in ("packed", "unpacked") for r in out[lay]
+            if r["us"]["block"] >= r["us"]["tail"]]
+    out["block_wins_up_to"] = max([n for n in win if not lose or n < min(lose)], default=0)
+    print(f"  one block ahead of the tail's schedule at every length up to "
+          f"{out['block_wins_up_to']} (behind at {sorted(set(lose)) or 'none'})")
+    return out
+
+
 def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
-                baseline=None) -> dict:
+                baseline=None, k10_phase_fns=None) -> dict:
     """The packed or unpacked step kernels K3 -> K9 -> K10 against the
     plain step on the card, from one mid-search table of ``eng``: 1 and 32
     steps through run_chunk_keyrow_cuda as a chunk graph and as the eager
@@ -1929,10 +2246,11 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
     insert with its content tags) and their bounds by bytes, and K3's
     library yardstick (torch.min over the same (B, G) view); K9's launch
     shape, its surviving and pending lanes and its bounds by bytes and by
-    operations; ``baseline`` (load_keyrow_baseline) is another tree's K9
-    and K10, run as a pair from K3's state, checked against this pair
+    operations; ``baseline`` (load_keyrow_baseline) is another tree's K10,
+    run from K9's state at K10_CAP and at cap 0, checked against this one
     (tables, counters, state) and timed in turns with it (old, new, new,
-    old), and its K9 alone."""
+    old); ``k10_phase_fns`` the K10_PHASES build, K10's split on both
+    paths."""
     import dataclasses
 
     from mpi_pastar_msa_tpu_torch import _kernels
@@ -2066,8 +2384,8 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
     n_sel, rounds = s10[S.STATE_NSEL], s10[S.STATE_CALLS]
     counts = [s10[S.STATE_CNT + k] for k in range(rounds)]
     tail = counts[0] if rounds else 0
-    syncs = S.k10_grid_syncs(rounds, tail, S.K10_CAP, unpacked)
-    syncs_grid = S.k10_grid_syncs(rounds, tail, 0, unpacked)
+    syncs = S.k10_grid_syncs(rounds, n_pend, tail, S.K10_CAP, unpacked)
+    syncs_grid = S.k10_grid_syncs(rounds, n_pend, tail, 0, unpacked)
     new_keys = int((work.t_key[:C, 0] != -1).sum() - (after3.t_key[:C, 0] != -1).sum())
     improved = int((work.t_g[:C] != after3.t_g[:C]).sum()) if unpacked else 0
     step_ms = time_restored(lambda: (k3(), k9(), k10()), restore_tab, 20)
@@ -2075,47 +2393,21 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
     k9_dev = device_ms(k9, 20, restore3)
     k10_dev = device_ms(k10, 20, restore9)
     k10_grid_dev = device_ms(k10_grid, 20, restore9)
+    ph = {}
+    if k10_phase_fns is not None:
+        for key, c in (("phases", S.K10_CAP), ("grid_phases", 0)):
+            ph[key] = k10_phases(k10_phase_fns, S._keyrow_insert_args(
+                st, work, bufs, ctr, fill, 0, c, stream), bufs.tail, restore9)
+            print(f"  K10 phases at cap {c} ({n_pend} lanes, K10_PHASES build, block 0's "
+                  f"%globaltimer, median of 20): {k10_phase_line(ph[key])}")
     step_dev = device_ms(lambda: (k3(), k9(), k10()), 20, restore_tab)
     base = None
     if baseline is not None:
-        # the other tree's K9 -> K10 (cedea92's: a warp a row, every
-        # surviving lane pending, K10 over all of them) from K3's state, as
-        # a pair: the same table, counters and claim rounds as this pair
-        src = baseline["source"]
-        a9 = S._keyrow_expand_args(st, work, bufs, ctr, ub, stream)[1:]
-        a9 = a9[:4] + a9[6:22] + a9[24:]  # no t_best, C, blocks, threads
-        a10 = S._keyrow_insert_args(st, work, bufs, ctr, fill, 0, S.K10_CAP, stream)[1:]
-
-        def old9():
-            if baseline["keyrow_expand"](*a9):
-                fail(f"K9 baseline of {src} failed to launch")
-
-        def old_pair():
-            old9()
-            if baseline["keyrow_insert"](*a10):
-                fail(f"K10 baseline of {src} failed to launch")
-
-        pair = lambda: (k9(), k10())
-        pair_outputs = lambda: ([getattr(work, k)[:C].clone() for k in fields]
-                                + [ctr.clone(), bufs.state[:S.STATE_NPEND].clone(),
-                                   bufs.state[S.STATE_CALLS:].clone()])
-        restore3()
-        pair()
-        torch.cuda.synchronize()
-        want_pair = pair_outputs()
-        restore3()
-        old_pair()
-        torch.cuda.synchronize()
-        old_lanes = int(bufs.state[S.STATE_NVALID])
-        if not all(torch.equal(a, b) for a, b in zip(want_pair, pair_outputs())):
-            fail(f"key-row step {label}: the K9 -> K10 of {src} differs from this one")
-        base = dict(source=src, old_pending=old_lanes,
-                    pair_turns_ms=[time_restored(f, restore3, 20)
-                                   for f in (old_pair, pair, pair, old_pair)],
-                    pair_turns_device_ms=[device_ms(f, 20, restore3)
-                                          for f in (old_pair, pair, pair, old_pair)],
-                    k9_turns_device_ms=[device_ms(f, 20, restore3)
-                                        for f in (old9, k9, k9, old9)])
+        # the other tree's K10 on K9's state, at this cap and at cap 0
+        base = {f"cap_{c}": k10_turns(
+            f"{label} step {int(ctr0[2])}, K10 cap {c}", baseline,
+            S._keyrow_insert_args(st, work, bufs, ctr, fill, 0, c, stream), restore9,
+            k10_outputs) for c in (S.K10_CAP, 0)}
     # the plain pieces on the same table: the plain select (not timed),
     # then _expand -> prune -> candidates for K9 and the insert for K10
     restore_tab()
@@ -2182,11 +2474,12 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
                 int32_bound_ms=ops9 / INT32_OPS_PER_S * 1e3, shared_bound_ms=k9_shared_ms,
                 masks=masks9,
                 blocks=blocks9, threads=threads9, passes=passes9, rows=n_sel, lanes=n_lanes,
-                pending=n_pend, settled_in_k9=matched, baseline=base),
+                pending=n_pend, settled_in_k9=matched),
         k10=dict(ms=k10_ms, device_ms=k10_dev, plain_ms=k10_plain_ms, bound_ms=ms(bytes10),
                  bytes=bytes10, tail=tail, grid_syncs=syncs,
-                 path="block" if rounds >= 2 and tail <= S.K10_CAP else "grid",
-                 grid_ms=k10_grid_ms, grid_device_ms=k10_grid_dev, grid_path_syncs=syncs_grid),
+                 path=S.k10_path(n_pend, rounds, tail, S.K10_CAP),
+                 grid_ms=k10_grid_ms, grid_device_ms=k10_grid_dev, grid_path_syncs=syncs_grid,
+                 list=n_pend, baseline=base, **ph),
         step=dict(ms=step_ms, device_ms=step_dev, plain_ms=step_plain_ms,
                   bound_ms=ms(bytes3 + bytes9 + bytes10), bytes=bytes3 + bytes9 + bytes10))
     k3_name = "K3 (unpacked)" if unpacked else "K3"
@@ -2206,20 +2499,12 @@ def keyrow_step(label: str, eng, tab0, ctr0, timing: bool = True,
           f"{k9_ms:.4f} / {k9_dev:.4f} ms (plain _expand -> prune -> candidates "
           f"{k9_plain_ms:.4f}, bound {row['k9']['bound_ms']:.5f} by "
           f"{row['k9']['bound_by']}); K10 {k10_ms:.4f} / {k10_dev:.4f} ms "
-          f"({row['k10']['path']} path after round 0, tail {tail} lanes, {syncs} grid syncs; "
+          f"({row['k10']['path']} path: list {n_pend}, tail {tail} lanes, {syncs} grid syncs; "
           f"at cap 0 every round on the grid {k10_grid_ms:.4f} / {k10_grid_dev:.4f} ms, "
           f"{syncs_grid} grid syncs; plain insert {k10_plain_ms:.4f}, bound "
           f"{ms(bytes10):.5f}); step {step_ms:.4f} / "
           f"{step_dev:.4f} ms (plain {step_plain_ms:.4f}, bound "
           f"{ms(bytes3 + bytes9 + bytes10):.5f} by bytes)")
-    if base is not None:
-        print(f"  K9 -> K10 baseline {base['source']} ({base['old_pending']} lanes pending in "
-              f"its K10, {n_pend} in this one): the same tables, counters and state; the pair "
-              f"in turns (old, new, new, old) "
-              + " / ".join(f"{t:.4f}" for t in base["pair_turns_ms"]) + " ms, device "
-              + " / ".join(f"{t:.4f}" for t in base["pair_turns_device_ms"])
-              + " ms; K9 alone, device " + " / ".join(f"{t:.4f}" for t in
-                                                      base["k9_turns_device_ms"]) + " ms")
     del work, snap, after3, after9, selected
     return row
 
@@ -3344,7 +3629,7 @@ def sharded_kernel_checks(cap: dict, shards, k11_count: dict, k11_baseline=None)
     return out
 
 
-def keyrow_kernel_checks(cap: dict, shards) -> dict:
+def keyrow_kernel_checks(cap: dict, shards, k10_phase_fns=None, baseline=None) -> dict:
     """The sharded step's kernels on key rows against their plain versions
     on the card, bit for bit, on shard ``target``'s inputs of the captured
     step (sharded_guard) of a packed or unpacked run: keyrow_coords and
@@ -3355,9 +3640,13 @@ def keyrow_kernel_checks(cap: dict, shards) -> dict:
     new ring, the rows sent), K10 over the received rows and the
     self-owned lanes (every table tensor, the claim words included, the 14
     counters and its rounds, against insert_pending_plain and
-    finish_plain), then K7's hop mode against its plain version on every
-    shard's finished table from every path node.  Wrapper (CUDA events),
-    device (CUPTI) and plain times, and each bound by bytes."""
+    finish_plain; the kernel run on them again against the same, its path
+    (block or grid) and list length; with ``k10_phase_fns``, the
+    K10_PHASES build's split of it; with ``baseline``, another tree's K10
+    checked and timed in turns with it), then K7's hop mode against its
+    plain version on every shard's finished table from every path node.
+    Wrapper (CUDA events), device (CUPTI) and plain times, and each bound
+    by bytes."""
     import numpy as np
 
     from mpi_pastar_msa_tpu_torch import _kernels
@@ -3506,12 +3795,37 @@ def keyrow_kernel_checks(cap: dict, shards) -> dict:
         bufs.state.copy_(cap["k10_state0"])
         ctr.copy_(cap["k10_ctr0"])
 
+    # the kernel on the captured inputs again, against the plain version
+    restore10()
+    S.insert_pending_cuda(st, tab_k, bufs, ctr, cap["fill"], pend_at, recv)
+    torch.cuda.synchronize()
+    bad = [f for f in fields if not torch.equal(getattr(tab_k, f)[:C], getattr(tab, f)[:C])]
+    if not torch.equal(ctr, c) or int(bufs.state[S.STATE_CALLS]) != rounds:
+        bad.append(f"counters {ctr.tolist()} vs {c.tolist()}, or rounds")
+    if bad:
+        fail(f"K10 on received rows ({layout}), run again, differs from its plain version: {bad}")
+    n_list = int(rows.shape[0])
+    unsettled = [int(v) for v in bufs.state[S.STATE_CNT:S.STATE_CNT + rounds].tolist()]
+    path = S.k10_path(n_list, rounds, unsettled[0] if rounds else 0, S.K10_CAP)
     report("keyrow_insert_recv", 0,
            lambda: S.insert_pending_cuda(st, tab_k, bufs, ctr, cap["fill"], pend_at, recv),
            lambda: SH.insert_pending_plain(st, tab_k, layout, rows, n_front),
            rows.shape[0] * (pw + W) * 4 + changed, restore=restore10)
-    out["keyrow_insert_recv"].update(lanes=int(rows.shape[0]), received=n_front, rounds=rounds,
-                                     overflow=ovf, changed_bytes=changed)
+    k10 = out["keyrow_insert_recv"]
+    k10.update(lanes=n_list, received=n_front, rounds=rounds, overflow=ovf,
+               changed_bytes=changed, path=path, list=n_list, unsettled=unsettled)
+    args = S._keyrow_insert_args(st, tab_k, bufs, ctr, cap["fill"], 0, S.K10_CAP,
+                                 torch.cuda.current_stream().cuda_stream, pend_at=pend_at,
+                                 recv=recv)
+    if k10_phase_fns is not None:
+        k10["phases"] = k10_phases(k10_phase_fns, args, bufs.tail, restore10)
+        print(f"    K10 phases ({path} path, {n_list} lanes, K10_PHASES build, block 0's "
+              f"%globaltimer, median of 20): {k10_phase_line(k10['phases'])}")
+    if baseline is not None and "keyrow_insert_recv" in baseline:
+        k10["baseline"] = k10_turns(
+            f"K10 on received rows ({layout}, step {cap['at']})", baseline, args, restore10,
+            lambda: [getattr(tab_k, f)[:C].clone() for f in fields]
+            + [ctr.clone(), bufs.state[S.STATE_CALLS:].clone()])
     # K7's hop mode on every shard's table from every path node
     checked, err = 0, 0
     for shd in shards:
@@ -4414,7 +4728,8 @@ def walk_loop_check(eng, floor: dict, baseline=None) -> dict:
 
 
 def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
-                  sweep=False, k6s_baseline=None) -> dict:
+                  sweep=False, k6s_baseline=None, k10_phase_fns=None,
+                  keyrow_baseline=None) -> dict:
     """The sharded engine on one card (parallel/sharded.py, a LocalMesh of
     [cuda:0] * 4): kinase --triples auto, whose automatic layout is packed
     at JAX's 2^21 slots a shard (sharded cubes), with the ragged exchange
@@ -4429,7 +4744,9 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
     keyrow_kernel_checks, sharded_kernel_checks: ``k11_count`` the
     K11_BARRIERS build, ``k11_baseline`` another tree's K11 too, timed in
     turns with K11 on sig rows; ``k6s_baseline`` another tree's consensus,
-    in turns with this one); the sharded step's bounds at the sig
+    in turns with this one; ``k10_phase_fns`` the K10_PHASES build and
+    ``keyrow_baseline`` another tree's K10, for K10 on received rows); the
+    sharded step's bounds at the sig
     run's B and cap; one shard against FrontierSearch's golden result,
     PF08184 with a one-row wire (exchange_cap=1), a random input whose
     one-row wire spills (sig, and pinned to unpacked), the degenerate
@@ -4505,7 +4822,8 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
                                                capture_step=200, eng=eng)
     if "cand" not in cap or "k10_rows" not in cap or "x_pend1" not in cap:
         fail("kinase sharded: the search ended before the captured step")
-    out["checks_packed"] = keyrow_kernel_checks(cap, cap["shards"])
+    out["checks_packed"] = keyrow_kernel_checks(cap, cap["shards"], k10_phase_fns,
+                                                keyrow_baseline)
     out["checks_loop"] = loop_kernel_checks(cap, floor, k6s_baseline)
     r = out["kinase_host"]
     if out["checks_packed"]["walk"]["rounds"] != r["walk_rounds"]:
@@ -4526,7 +4844,8 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
         capture_step=200, eng=eng)
     if eng.cubes_split or "k10_rows" not in cap:
         fail(f"kinase sharded unpacked: cubes split {eng.cubes_split}, or no captured step")
-    out["checks_unpacked"] = keyrow_kernel_checks(cap, cap["shards"])
+    out["checks_unpacked"] = keyrow_kernel_checks(cap, cap["shards"], k10_phase_fns,
+                                                  keyrow_baseline)
     del eng, cap
     # the sig layout (PR 15's path), pinned at the capacity its word takes
     out["turns_sig"], eng = driver_turns("kinase sharded 4, pinned sig", paths["kinase.fasta"],
@@ -5260,6 +5579,16 @@ def write_report(path, report: dict) -> None:
             json.dump(report, f, indent=1, default=str)
 
 
+def k10_latency_floor(floor: dict, chase: dict, rounds: int) -> float:
+    """K10's latency floor (ms) on the whole-list block path, from its
+    code: a launch (``floor``: launch_floor's device time), then the
+    dependent loads from L2 (``chase``: dependent_load_ns) its block makes
+    one after another: the run flag, the list's length, round 0's pending
+    entries and their home rows, and each round's claim words and re-reads
+    (two a round)."""
+    return floor["device_ms"] + (4 + 2 * rounds) * chase["l2_ns"] / 1e6
+
+
 def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
     """The kernels line's entries of the sharded step (``sh``: the sharded
     phase's report; ``floor``: launch_floor; ``chase``:
@@ -5345,6 +5674,9 @@ def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
         extra = {k: cp[name][k] for k in cp[name] if k not in entry and k != "bytes"}
         entry.update(extra, unpacked=sub(cu[name], unp_l[name], replaces=replaces_unpacked,
                                          **{k: cu[name][k] for k in extra}))
+        if name == "keyrow_insert_recv":
+            for e, t in ((entry, cp[name]), (entry["unpacked"], cu[name])):
+                e["latency_floor_ms"] = k10_latency_floor(floor, chase, t["rounds"])
         kernels.append(entry)
     t = cp["route_rows_ragged"]
     entry = entry_of("route_rows", t, "route_pack", "mpi_pastar_msa_tpu/parallel/sharded.py:169",
@@ -5481,17 +5813,22 @@ def main() -> int:
                          "them against these on the kinase step tables and "
                          "time them in turns with these")
     ap.add_argument("--keyrow-baseline", metavar="SRC", default=None,
-                    help="also build the K9, K10 and K7 sources (keyrow_expand.cu "
-                         "with the C entry of a warp a row, keyrow_insert.cu, "
-                         "path_walk.cu and their headers) of the tree SRC (a "
-                         "checkout's root or its csrc/), check its K9 -> K10 "
-                         "pair against this one on the globin6, kinase-unpacked "
-                         "and synth10 step tables and its K7 on the timed walks, "
-                         "and time them in turns")
+                    help="also build the K10 and K7 sources (keyrow_insert.cu, "
+                         "path_walk.cu and their headers, this tree's C entries) "
+                         "of the tree SRC (a checkout's root or its csrc/), check "
+                         "its K10 against this one on the globin6, kinase-unpacked "
+                         "and synth10 step tables and on the sharded step 200's "
+                         "received rows, and its K7 on the timed walks, and time "
+                         "them in turns")
     ap.add_argument("--k10-sweep", action="store_true",
-                    help="also time K10 on its block path and on its grid path at "
-                         "every step of the globin6, kinase-unpacked and synth10 "
-                         "searches, by the lanes left after round 0")
+                    help="also time K10 against its list length (64 to 4096, packed "
+                         "and unpacked, without and with received rows): the whole "
+                         "list in one block (builds with 4 and 8 lanes a thread "
+                         "above K10_CAP) against round 0 on the grid and against "
+                         "every round on the grid (and --keyrow-baseline's K10); and "
+                         "on each of its paths at every step of the globin6, "
+                         "kinase-unpacked and synth10 searches, by the lanes left "
+                         "after round 0")
     ap.add_argument("--k5-sweep", action="store_true",
                     help="also time K5 on its block path and on its grid path at "
                          "every step of kinase (auto, off) and synth6 searches, by "
@@ -5531,12 +5868,14 @@ def main() -> int:
 
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    # 2. build: the kernels and, beside them, K3's and K5's measurement
-    # builds (and another tree's K9, K10 and K7)
+    # 2. build: the kernels and, beside them, the measurement builds (and
+    # another tree's K10 and K7, and K10 with more lanes a thread)
     t0 = time.perf_counter()
     phases_tmp = tempfile.TemporaryDirectory()
     phases_jobs = [start_phases_build(name, phases_tmp.name)
                    for name in ("select_best", "sig_probe")]
+    k10_phases_job = start_phases_build("keyrow_insert", phases_tmp.name)
+    k10_wide_jobs = start_k10_wide_builds(phases_tmp.name) if args.k10_sweep else {}
     k8_no_store_job = start_phases_build("gotoh_wavefront", phases_tmp.name)
     k11_count_job = start_phases_build("route_pack", phases_tmp.name)
     keyrow_job = (start_keyrow_baseline(os.path.abspath(args.keyrow_baseline),
@@ -5550,8 +5889,10 @@ def main() -> int:
     try:
         logs = _kernels.build_all()
     finally:
-        phases = tuple(load_phases(job) for job in phases_jobs)
+        phases = tuple(load_phases(job) for job in phases_jobs) + (
+            load_k10_phases(k10_phases_job),)
         k8_no_store = load_phases(k8_no_store_job)
+        k10_wide = load_k10_wide(k10_wide_jobs)
         k11_count = load_k11_barriers(k11_count_job)
         keyrow_baseline = load_keyrow_baseline(keyrow_job) if keyrow_job else None
         k8_baseline = load_k8_baseline(k8_job) if k8_job else None
@@ -5559,7 +5900,7 @@ def main() -> int:
         k6s_baseline = load_k6s_baseline(k6s_job) if k6s_job else None
     if keyrow_baseline:
         K7_VARIANTS["baseline"] = keyrow_baseline["path_walk"]
-    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES, "
+    print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES, K10_PHASES, "
           f"K8_NO_STORE and K11_BARRIERS builds "
           f"in {time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
@@ -5592,7 +5933,8 @@ def main() -> int:
             return 0  # a partial run: no kernels line and no result line
         if args.sharded_only:
             report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
-                                              args.k11_sweep, k6s_baseline)
+                                              args.k11_sweep, k6s_baseline, phases[2],
+                                              keyrow_baseline)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["capture"] = capture_check(paths)
@@ -5600,6 +5942,9 @@ def main() -> int:
         if args.k5_sweep:
             report["k5_sweep"] = k5_sweep(paths, step_baseline and step_baseline[1])
         report["dependent_load"] = chase = dependent_load_ns()
+        if args.k10_sweep:
+            report["k10_list_sweep"] = k10_list_sweep(paths["kinase.fasta"], k10_wide,
+                                                      keyrow_baseline)
         if args.step_only:
             report["step"] = step_kernels(paths, step_baseline, floor, phases, keyrow_baseline,
                                           args.k10_sweep)
@@ -5681,7 +6026,8 @@ def main() -> int:
                                          "packed", tmp)}
         # 7. the sharded engine (parallel/sharded.py) on [cuda:0] * 4
         report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
-                                              args.k11_sweep, k6s_baseline)
+                                          args.k11_sweep, k6s_baseline, phases[2],
+                                          keyrow_baseline)
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
             # and the plain step on the same windows, the step before K3-K5
@@ -5789,18 +6135,21 @@ def main() -> int:
                                                           bound_ms=v["bound_ms"],
                                                           bound_by=v.get("bound_by", "bytes"))
                                                    for k, v in extra.items()}})
-    # K9 at each window: its launch shape, lanes, bounds and the other
-    # tree's K9 -> K10 in turns
+    # K9 at each window: its launch shape, lanes and bounds
     kernels[-2].update({f"{w}_k9": {k: t[k] for k in (
         "device_ms", "blocks", "threads", "passes", "rows", "lanes", "pending",
         "settled_in_k9", "masks", "bytes_bound_ms", "ops_bound_ms", "int32_bound_ms",
-        "shared_bound_ms", "bound_by", "baseline")}
+        "shared_bound_ms", "bound_by")}
         for w, t in (("globin6", g6["k9"]), ("kinase_unpacked", ku["k9"]),
                      ("synth10", step["synth10_keyrow"]["k9"]))})
-    # K10 on both paths and the other tree's, at each window
+    # K10's latency floor, and at each window its paths, phases and the
+    # other tree's K10 in turns
+    kernels[-1]["latency_floor_ms"] = k10_latency_floor(floor, chase, g6["rounds"])
+    kernels[-1]["unpacked"]["latency_floor_ms"] = k10_latency_floor(floor, chase, ku["rounds"])
     kernels[-1].update({f"{w}_k10_paths": dict(
         path=t["path"], tail=t["tail"], grid_syncs=t["grid_syncs"], device_ms=t["device_ms"],
-        grid_path_device_ms=t["grid_device_ms"], grid_path_syncs=t["grid_path_syncs"])
+        grid_path_device_ms=t["grid_device_ms"], grid_path_syncs=t["grid_path_syncs"],
+        **{k: t[k] for k in ("list", "phases", "grid_phases", "baseline") if k in t})
         for w, t in (("globin6", g6["k10"]), ("kinase_unpacked", ku["k10"]),
                      ("synth10", step["synth10_keyrow"]["k10"]))})
     # a chunk's set-up (K6): checked alone against its plain version,

@@ -37,13 +37,14 @@ back on the current stream with no host read between them:
                                the other surviving lanes go to the
                                pending list (``_keyrow_expand_args``)
   K10 ``csrc/keyrow_insert.cu`` packed and unpacked: the claim rounds of
-                               the pending lanes, round 0 on the
-                               cooperative grid and the rest in one block
-                               when at most ``K10_CAP`` lanes are left
-                               (else on the grid), the placement (t_best,
-                               or decrease-key on t_g and t_fpar), then
-                               the counters and the run flag
-                               (``_keyrow_insert_args``)
+                               the pending lanes, all in one block when
+                               the list is at most ``K10_CAP`` long, else
+                               round 0 on the cooperative grid and the
+                               rest in one block when at most ``K10_CAP``
+                               lanes are left (else on the grid), the
+                               placement (t_best, or decrease-key on t_g
+                               and t_fpar), then the counters and the run
+                               flag (``_keyrow_insert_args``)
 
 After the search, ``walk_cuda`` walks the path back on the finished table
 of any layout: K7 ``csrc/path_walk.cu``, one launch and one host read a
@@ -114,12 +115,20 @@ K9_MAX_N = 16
 # sectors (chip_smoke.py --k5-sweep); the main path's steps are on both
 # sides (kinase `auto`: median 5,984, `off`: 1,402)
 K5_CAP = 2048
-# K10's block path takes the claim rounds after round 0 when at most
-# kThreads x kLanes = 1024 lanes are left (its lanes live in registers),
-# as K5's does: on the H100 one block is faster than the grid's two syncs
-# a round up to about 1,024 lanes left and no faster above
-# (chip_smoke.py --k10-sweep, kinase pinned to unpacked: its tail median
-# is 604 lanes, globin6's 67, synth10's 0)
+# K10's block 0 takes the whole list, every claim round, when the list is
+# at most K10_CAP long, and else, after round 0 on the grid, the rounds of
+# a tail at most that long (its lanes live in registers, kThreads x kLanes
+# = 1024 of them).  On an H100 (chip_smoke.py --k10-sweep: lists of 64 to
+# 4,096 entries on a kinase table of 2^20 slots an eighth full, device
+# time) one block beats round 0 on the grid at every length up to 1,024:
+# packed 8.2 against 14.5 us at 64 entries, 12.7 against 15.9 at 1,024;
+# unpacked 7.7 against 15.5 at 64, 21.4 against 21.6 at 1,024 (20.3
+# against 20.9 with 128 received rows).  Above, one multiprocessor issuing
+# every lane's scattered loads and atomics loses: at 1,536 packed 26.9
+# against 16.5, unpacked 37.0 against 21.7 (a build with 4 lanes a
+# thread).  The sharded step's lists are below (kinase on 4 shards, step
+# 200: 609 entries), the single table's main-path lists above (globin6
+# step 60: 7,754; kinase pinned unpacked, step 150: 8,342)
 K10_CAP = 1024
 # K9's block: a row's masks over at most this many threads (kMaxThreads
 # of csrc/keyrow_expand.cu)
@@ -482,19 +491,32 @@ def _keyrow_insert_args(st, tab, bufs, counters, fill, blocks, cap, stream,
     return ("keyrow_insert_recv", *args, recv.data_ptr(), stream)
 
 
-def k10_grid_syncs(rounds: int, tail: int, cap: int, unpacked: bool) -> int:
-    """The grid barriers of one K10 launch, as csrc/keyrow_insert.cu
-    places them, from its claim rounds, the lanes round 0 left (``tail``,
-    state[kCnt]) and its cap: one after round 0's reads, two a round on
-    the grid (after the winners' writes, after the re-reads), none for the
-    rounds of the block path (tail <= cap: rounds 1, 2, ... in block 0
-    alone), then on the unpacked layout one inside the decrease-key and,
-    after the block path, one before it.  No lane: none."""
+def k10_path(n: int, rounds: int, tail: int, cap: int) -> str:
+    """Which of csrc/keyrow_insert.cu's schedules one K10 launch takes, from
+    its list length ``n`` (state[kNPend]), claim rounds, the lanes round 0
+    left (``tail``, state[kCnt]) and its cap: "block" (the whole list in
+    block 0, every round), "tail" (round 0 on the grid, the rounds after it
+    in block 0), "grid" (every round on the grid), or "none" (no lane)."""
     if rounds == 0:
+        return "none"
+    if 0 < cap and n <= cap:
+        return "block"
+    return "tail" if rounds >= 2 and tail <= cap else "grid"
+
+
+def k10_grid_syncs(rounds: int, n: int, tail: int, cap: int, unpacked: bool) -> int:
+    """The grid barriers of one K10 launch, as csrc/keyrow_insert.cu
+    places them, on its path (``k10_path``: the same arguments): none on
+    the whole-list block path; else one after round 0's reads, two a round
+    on the grid (after the winners' writes, after the re-reads), none for
+    the rounds of the tail's block path, then on the unpacked layout one
+    inside the decrease-key and, after the tail's block path, one before
+    it.  No lane: none."""
+    path = k10_path(n, rounds, tail, cap)
+    if path in ("none", "block"):
         return 0
-    block = rounds >= 2 and tail <= cap
-    syncs = 1 + 2 * (1 if block else rounds)
-    return syncs + (2 if block else 1) if unpacked else syncs
+    syncs = 1 + 2 * (1 if path == "tail" else rounds)
+    return syncs + (2 if path == "tail" else 1) if unpacked else syncs
 
 
 def _step_args(st, tab, bufs, ctr, ub, fill, blocks, cap, stream) -> list:
@@ -554,10 +576,10 @@ def run_chunk_keyrow_cuda(st: _Static, tab, counters: torch.Tensor, chunk_steps:
     """Up to ``chunk_steps`` steps of a CUDA packed or unpacked table
     (``engine._run_chunk`` on the card), each K3 -> K9 -> K10 with no host
     read, as ``run_chunk_sig_cuda``; ``blocks`` sizes K10's cooperative
-    grid (0: one block a multiprocessor), ``cap`` is the largest count of
-    lanes left after round 0 that K10's block path takes (0 .. K10_CAP;
-    0: every round on the grid).  Returns new counters; the table is
-    updated in place."""
+    grid (0: one block a multiprocessor), ``cap`` is the longest list that
+    K10's block 0 takes whole, and the most lanes left after round 0 on
+    the grid that it takes then (0 .. K10_CAP; 0: every round on the
+    grid).  Returns new counters; the table is updated in place."""
     dev, layout = _check_keyrow(st, tab, counters)
     if not 0 <= cap <= K10_CAP:
         raise ValueError(f"K10 cap {cap}: need 0 .. {K10_CAP}")

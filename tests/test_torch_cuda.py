@@ -14,6 +14,7 @@ They skip on a host without a CUDA device.  On the card:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import ctypes
+import functools
 import itertools
 import json
 import os
@@ -765,6 +766,160 @@ def test_k9_settles_home_matches_and_k10_equals_plain(cuda, name, layout, warm, 
             assert 0 < n_pend < n_valid
         else:
             assert n_pend <= n_valid
+
+
+_K10_ENGINES = {}
+
+
+def k10_list(cuda, layout, n, n_front, seed, seqs="kinase.fasta"):
+    """A key-row table of 2^12 slots (batch 128) of ``seqs`` (a golden
+    input or a tuple of sequences) with about 900 stored keys, and a
+    pending list of ``n`` entries over them whose first ``n_front`` are
+    received rows (their tags: places; the others' from n_front up, in
+    random order): repeated keys, keys sharing a home slot, stored keys;
+    packed h and word, or unpacked g and f * 2^n + mask.  Returns
+    (statics, table, rows on the card)."""
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    eng = _K10_ENGINES.get((seqs, layout))
+    if eng is None:
+        eng = _K10_ENGINES[seqs, layout] = keyrow_engine(seqs, cuda, layout, batch=128,
+                                                         capacity=1 << 12, triples="off")
+    st = eng.st
+    rng = np.random.default_rng(seed)
+    final = st.final_np
+    pool = np.unique(np.stack([rng.integers(0, int(v) + 1, 4000) for v in final], 1), axis=0)
+    rng.shuffle(pool)
+    keys = E._pack_keys(torch.from_numpy(pool), st.W)
+    home = (E._hash_keys(keys) & (st.C - 1)).numpy()
+    tab = eng._init_table()
+    stored = pool[:900]
+    sk = E._pack_keys(torch.from_numpy(stored), st.W).to(cuda)
+    if layout == "packed":
+        E._insert_core_packed(st, tab, sk, torch.full((900,), 7, device=cuda),
+                              torch.full((900,), 3000 << st.nb, device=cuda) | 1)
+    else:
+        g = torch.from_numpy(rng.integers(1000, 1100, 900)).to(cuda)
+        E._insert_core(st, tab, sk, g, g + 500, torch.ones(900, dtype=torch.int64, device=cuda))
+        tab.t_state[:st.C][(tab.t_state[:st.C] == 1)
+                          & (torch.rand(st.C, device=cuda) < 0.33)] = 2
+    # distinct keys: stored ones, groups sharing a home slot, fresh ones
+    _, first, cnt = np.unique(home, return_index=True, return_counts=True)
+    shared = np.flatnonzero(np.isin(home, home[first[cnt >= 2]]))[:60]
+    distinct = np.concatenate([np.arange(150), shared, np.arange(1000, 4000)])
+    coords = pool[rng.permutation(np.repeat(distinct, rng.integers(1, 4, len(distinct))))][:n]
+    ck = E._pack_keys(torch.from_numpy(coords), st.W)
+    tag = torch.from_numpy(n_front + rng.permutation(4 * max(n, 1))[:n])
+    if layout == "packed":
+        tail = [torch.from_numpy(coords.sum(1) * 7),
+                torch.from_numpy((rng.integers(0, 4000, n) << st.nb) | rng.integers(1, 32, n))]
+    else:
+        g = torch.from_numpy(rng.integers(1000, 1100, n))
+        fpar = (g + 1000) * (1 << st.nb) + torch.from_numpy(rng.integers(1, st.M + 1, n))
+        tail = [g, E._as_i32(fpar & 0xFFFFFFFF).long(), fpar >> 32]
+    rows = torch.cat([E._as_i32(ck).long(), E._as_i32(E._hash_keys(ck)).long()[:, None],
+                      tag[:, None]] + [t[:, None] for t in tail], 1).to(torch.int32)
+    return st, tab, rows.to(cuda)
+
+
+@pytest.mark.parametrize("received", ["none", "some", "only"])
+@pytest.mark.parametrize("n", [64, "cap-1", "cap", "cap+1"])
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_k10_list_lengths_equal_plain(cuda, layout, n, received):
+    # K10 (keyrow_insert: no received rows) and K10s (keyrow_insert_recv)
+    # over lists of 64 entries and around K10_CAP, eager and in a CUDA
+    # graph, at K10_CAP (the whole list in block 0 up to the cap, round 0
+    # on the grid above) and at cap 0 (every round on the grid): every
+    # table word, the claim words, the 14 counters and the rounds those of
+    # insert_pending_plain and finish_plain, bit for bit
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    n = n if isinstance(n, int) else S.K10_CAP + {"cap-1": -1, "cap": 0, "cap+1": 1}[n]
+    n_front = {"none": 0, "some": n // 3, "only": n}[received]
+    st, tab0, rows = k10_list(cuda, layout, n, n_front, n + len(received))
+    lanes, fill = n - n_front, 64
+    want = clone_tab(tab0)
+    ovf, reopen, rounds, un, tail = SH.insert_pending_plain(st, want, layout, rows, n_front)
+    c0 = torch.as_tensor(E.fresh_counters(), device=cuda)
+    c0[0] = 5000
+    want_c = c0.clone()
+    SH.finish_plain(want_c, [0, 900, 40, 3 + reopen, 1200], fill, lanes, ovf, rounds, un, tail)
+    assert rounds >= (2 if n < 1000 else 4) and ovf == 0
+    bufs = S.StepBuffers.for_step(st, cuda, layout)
+    bufs.pend[:n].copy_(rows)
+    state0 = torch.zeros_like(bufs.state)
+    state0[S.STATE_NOPEN], state0[S.STATE_NSEL], state0[S.STATE_REOPEN] = 900, 40, 3
+    state0[S.STATE_FMIN], state0[S.STATE_NVALID], state0[S.STATE_NPEND] = 1200, lanes, n
+    recv = torch.tensor([n_front], dtype=torch.int32, device=cuda)
+    tab, ctr = clone_tab(tab0), c0.clone()
+
+    def restore():
+        for name, x in vars(tab).items():
+            x.copy_(getattr(tab0, name))
+        ctr.copy_(c0)
+        bufs.state.copy_(state0)
+        bufs.run.fill_(1)
+
+    for cap, graph in itertools.product((S.K10_CAP, 0), (False, True)):
+        if received == "none":  # the single table's entry, on the current stream
+            go = lambda: _kernels.launch(*S._keyrow_insert_args(
+                st, tab, bufs, ctr, fill, 0, cap, torch.cuda.current_stream().cuda_stream))
+        else:
+            go = functools.partial(S.insert_pending_cuda, st, tab, bufs, ctr, fill, n_front,
+                                   recv, cap=cap)
+        restore()
+        if graph:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                go()
+            restore()
+            g.replay()
+        else:
+            go()
+        torch.cuda.synchronize()
+        assert_same_tables(st, tab, ctr, want, want_c)
+        assert int(bufs.state[S.STATE_CALLS]) == rounds
+        path = S.k10_path(n, rounds, un, cap)
+        assert path == ("block" if cap and n <= cap else "tail" if cap and un <= cap
+                        else "grid"), (cap, n, un, path)
+
+
+def test_k10_packed_int4_rows_of_two_equal_plain(cuda):
+    # N = 13 (W = 7: packed rows of 8 words, two int4 each) over a list of
+    # 300 entries, some received: K10 at K10_CAP (one block) and at cap 0
+    # (the grid) against insert_pending_plain and finish_plain
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    seqs = family(13, 13, 24, 0.05)  # close: the packed word's f spread fits 18 bits
+    n, n_front = 300, 40
+    st, tab0, rows = k10_list(cuda, "packed", n, n_front, 5, seqs)
+    assert st.W == 7 and tab0.t_key.shape[1] == 8
+    want = clone_tab(tab0)
+    ovf, reopen, rounds, un, tail = SH.insert_pending_plain(st, want, "packed", rows, n_front)
+    c0 = torch.as_tensor(E.fresh_counters(), device=cuda)
+    c0[0] = 5000
+    want_c = c0.clone()
+    SH.finish_plain(want_c, [0, 900, 40, 3 + reopen, 1200], 64, n - n_front, ovf, rounds, un,
+                    tail)
+    assert rounds >= 2 and ovf == 0
+    bufs = S.StepBuffers.for_step(st, cuda, "packed")
+    bufs.pend[:n].copy_(rows)
+    recv = torch.tensor([n_front], dtype=torch.int32, device=cuda)
+    for cap in (S.K10_CAP, 0):
+        tab, ctr = clone_tab(tab0), c0.clone()
+        bufs.state.zero_()
+        bufs.state[S.STATE_NOPEN], bufs.state[S.STATE_NSEL] = 900, 40
+        bufs.state[S.STATE_REOPEN], bufs.state[S.STATE_FMIN] = 3, 1200
+        bufs.state[S.STATE_NVALID], bufs.state[S.STATE_NPEND] = n - n_front, n
+        bufs.run.fill_(1)
+        S.insert_pending_cuda(st, tab, bufs, ctr, 64, n_front, recv, cap=cap)
+        torch.cuda.synchronize()
+        assert_same_tables(st, tab, ctr, want, want_c)
+        assert int(bufs.state[S.STATE_CALLS]) == rounds
 
 
 def test_keyrow_n16_packed_and_degenerate_equal_plain(cuda, monkeypatch):

@@ -48,6 +48,7 @@ from mpi_pastar_msa_tpu_torch.core.cost import GAP_EXTENSION, GAP_GAP
 from mpi_pastar_msa_tpu_torch.core.problem import Problem
 from mpi_pastar_msa_tpu_torch.heuristic import triples as TT
 from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+from mpi_pastar_msa_tpu_torch.parallel import sharded as TSH
 from mpi_pastar_msa_tpu_torch.search import engine as TE
 from mpi_pastar_msa_tpu_torch.search import step as TS
 
@@ -656,21 +657,27 @@ def test_n10_steps_equal_plain_step(layout):
 
 # ----------------------------------------------------------------------- K10
 
-def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP, lanes=None):
+def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP, lanes=None, n_front=0,
+            claims=None):
     """csrc/keyrow_insert.cu on the pending list ``pend`` (K9's entries; of
     ``lanes`` surviving lanes, default all of them: round 0 runs when there
-    is one, over the list), in place: ``blocks`` blocks whose threads
-    stride over the list; round
-    0's reads (grid sync), its claim winners' writes (grid sync), its
-    losers' re-reads merged with round 1's reads, each lane left appending
-    itself to the tail list (grid sync); then, when the tail holds at most
-    ``cap`` lanes, block 0 alone runs rounds 1, 2, ... over it, a thread
-    holding lanes tid + k x 512 of the list (each phase visits the threads
-    in a random order), else every round on the grid as round 0, two grid
-    syncs a round; then (unpacked; after the block path a grid sync first)
-    the g min, the (f, parent) reset and state, (grid sync) the (f, parent)
-    min of the winners.  Each grid phase visits the threads of every block
-    in a random order.  Returns (rounds, unsettled after each round,
+    is one, over the list; the first ``n_front`` entries are received rows,
+    which claim with their places), in place.  A list of at most ``cap``
+    (> 0) entries takes the whole-list block path: block 0 alone, thread t
+    holding the lanes t + k x 512, runs every round from round 0 (each
+    phase visits the threads in a random order), no grid sync, and then
+    (unpacked) the decrease-key in the block.  A longer list: ``blocks``
+    blocks whose threads stride over the list; round 0's reads (grid sync),
+    its claim winners' writes (grid sync), its losers' re-reads merged with
+    round 1's reads, each lane left appending itself to the tail list (grid
+    sync); then, when the tail holds at most ``cap`` lanes, block 0 alone
+    runs rounds 1, 2, ... over it, a thread holding the tail's places
+    tid + k x 512, else every round on the grid as round 0, two grid syncs
+    a round; then (unpacked; after the tail's block path a grid sync
+    first) the g min, the (f, parent) reset and state, (grid sync) the
+    (f, parent) min of the winners.  Each grid phase visits the threads of
+    every block in a random order.  ``claims``, a dict, counts the claims
+    of each (round, slot).  Returns (rounds, unsettled after each round,
     reopens, grid syncs)."""
     C, W = st.C, st.W
     unpacked = isinstance(tab, TE.UnpackedTable)
@@ -678,6 +685,9 @@ def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP, lanes=None):
     n = len(pend)
     stride = blocks * K10_THREADS
     lane_slot, lane_flag = [0] * n, [0] * n
+
+    def tag_of(i):
+        return i if i < n_front else pend[i][W + 1]
 
     def phase(fn):
         for t in rng.permutation(min(n, stride)).tolist():
@@ -709,8 +719,10 @@ def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP, lanes=None):
                 return settle(i, slot)
             lane_flag[i] = 0
         else:
-            claim[slot] = min(int(claim[slot]), e[W + 1])
+            claim[slot] = min(int(claim[slot]), tag_of(i))
             lane_flag[i] = 1
+            if claims is not None:
+                claims[r, slot] = claims.get((r, slot), 0) + 1
         lane_slot[i] = -1
 
     def write(i, r):
@@ -718,7 +730,7 @@ def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP, lanes=None):
         if lane_flag[i] != 1:
             return
         slot = slot_of(e, r)
-        if claim[slot] == e[W + 1]:
+        if claim[slot] == tag_of(i):
             key[slot, :W] = e[:W]
             if not unpacked:
                 key[slot, W] = e[W + 2]
@@ -736,8 +748,32 @@ def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP, lanes=None):
         if r + 1 < st.max_probes:
             probe(i, r + 1)
 
+    def block_phase(held, fn):
+        for t in rng.permutation(K10_THREADS).tolist():
+            for i in held[t]:
+                fn(i)
+
+    def block_rounds(held, r):
+        counts = []
+        while True:
+            block_phase(held, lambda i: write(i, r))
+            left = [0]
+            block_phase(held, lambda i: reread(i, r, left, None))
+            counts.append(left[0])
+            if left[0] == 0 or r + 1 >= st.max_probes:
+                return r + 1, counts
+            r += 1
+
     rounds, counts, syncs, block = 0, [], 0, False
-    if n if lanes is None else lanes:
+    whole = bool(cap) and n <= cap
+    active = n > 0 or bool(lanes)  # round 0 runs, over the list
+    if active and whole:
+        # block 0: thread t holds list places t + k * 512, k < kLanes
+        assert n <= K10_THREADS * K10_LANES
+        held = [list(range(t, n, K10_THREADS)) for t in range(K10_THREADS)]
+        block_phase(held, lambda i: probe(i, 0))
+        rounds, counts = block_rounds(held, 0)
+    elif active:
         phase(lambda i: probe(i, 0))
         syncs += 1
         tail, r = [], 0
@@ -755,25 +791,10 @@ def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP, lanes=None):
                 break
             r += 1
         if block:
-            # block 0: thread t holds list places t + k * 512, k < kLanes
+            # block 0: thread t holds tail places t + k * 512, k < kLanes
             assert len(tail) <= K10_THREADS * K10_LANES
-            held = [[i for i in tail[t::K10_THREADS]] for t in range(K10_THREADS)]
-
-            def block_phase(fn):
-                for t in rng.permutation(K10_THREADS).tolist():
-                    for i in held[t]:
-                        fn(i)
-
-            r = 1
-            while True:
-                block_phase(lambda i: write(i, r))
-                left = [0]
-                block_phase(lambda i: reread(i, r, left, None))
-                counts.append(left[0])
-                rounds = r + 1
-                if left[0] == 0 or rounds >= st.max_probes:
-                    break
-                r += 1
+            rounds, more = block_rounds([tail[t::K10_THREADS] for t in range(K10_THREADS)], 1)
+            counts += more
             syncs += unpacked  # the decrease-key waits for block 0
     reopen = 0
     if unpacked and rounds:
@@ -784,7 +805,7 @@ def emu_k10(st, tab, pend, rng, blocks=132, cap=TS.K10_CAP, lanes=None):
             tab.t_fpar[s_] = 2**63 - 1
             tab.t_state[s_] = 1
             reopen += bool(lane_flag[i] & 4)
-        syncs += 1
+        syncs += not whole  # in the block: its barrier
         for i in rng.permutation(improved).tolist():
             s_, e = lane_slot[i], pend[i]
             if int(tab.t_g[s_]) == e[W + 2]:
@@ -797,6 +818,26 @@ def k10_acct(n, rounds, counts):
     """Counter slots 9-13 of an insert as K10's finish forms them."""
     return [n, n, max(rounds - 1, 0) * n, counts[0] if rounds >= 1 else 0,
             counts[1] if rounds >= 2 else 0]
+
+
+def k10_finish(c, fmin, n_open, n_sel, reopen, fill, lanes, rounds, counts):
+    """The 14 counters ``c`` (a list, in place) after K10, as its last
+    thread writes them (step::finish_step): the step's f-min, open and
+    selected rows and reopens, ``lanes`` K9's survivors, then the insert's
+    rounds and unsettled counts.  Returns the run flag."""
+    c[1] = fmin
+    c[2] += 1
+    c[3] += n_sel
+    c[4] += reopen
+    c[5] = n_open
+    c[6] += counts[-1] if rounds else 0
+    thr = c[7]
+    nt = thr * 2 + 32 if n_sel < fill // 2 else (thr // 2 if n_sel >= fill - fill // 8 else thr)
+    c[7] = min(nt, 1 << 20)
+    c[8] += n_sel
+    for k, v in zip(range(9, 14), k10_acct(lanes, rounds, counts)):
+        c[k] += v
+    return c[1] < c[0] and c[6] == 0
 
 
 def key_lanes(st, rs, stored, n_new, layout):
@@ -907,9 +948,13 @@ def test_k10_rounds_equal_plain_insert(layout, case, cap):
         assert k10_acct(len(pend), rounds, counts) == acct.tolist()
         assert ereopen == int(reopen)
         unpacked = layout == "unpacked"
-        assert syncs == TS.k10_grid_syncs(rounds, counts[0] if rounds else 0, cap, unpacked)
-        if cap and rounds >= 2:  # the block path: 3 grid syncs (unpacked 5)
-            assert syncs == (5 if unpacked else 3)
+        path = TS.k10_path(len(left), rounds, counts[0] if rounds else 0, cap)
+        assert syncs == TS.k10_grid_syncs(rounds, len(left), counts[0] if rounds else 0, cap,
+                                          unpacked)
+        if cap and rounds and len(left) <= cap:  # the whole list in block 0: no grid sync
+            assert path == "block" and syncs == 0
+        elif not cap and rounds:  # every round on the grid
+            assert path == "grid" and syncs == (2 * rounds + 2 if unpacked else 2 * rounds + 1)
     if case == "no-lanes":
         assert acct.tolist() == [0] * 5 and same_table(want, tab, st.C)
     elif case == "overflow":
@@ -932,7 +977,20 @@ def test_plain_insert_with_content_tags_matches_jax(layout):
     tab, stored = keyrow_table(jst, st, rs, layout, 410)
     args, tag = key_lanes(st, rs, stored[rs.choice(len(stored), 150, replace=False)], 100,
                           layout)
-    L = len(tag)
+    want, jovf = jax_key_map(jst, st, tab, args, layout)
+    insert = TE._insert_core_packed if layout == "packed" else TE._insert_core
+    ovf, _, _ = insert(st, tab, *args, tag)
+    assert int(ovf) == int(jovf) == 0
+    assert key_map(st, tab, layout) == want
+
+
+def jax_key_map(jst, st, tab, args, layout):
+    """JAX's insert (_insert_packed / _insert) of the lanes ``args`` into
+    ``tab``'s key map, and its overflow: keys -> (h, t_best) packed, (g,
+    state) unpacked.  XLA keeps an unspecified racing writer, so only the
+    map is compared, not the slots."""
+    C, W, nb = st.C, st.W, st.nb
+    L = len(args[0])
     key = tab.t_key[:C].numpy().view(np.uint32)
     jkeys = jnp.asarray(args[0].numpy().astype(np.uint32))
     if layout == "packed":
@@ -957,16 +1015,81 @@ def test_plain_insert_with_content_tags_matches_jax(layout):
         want = {tuple(r): (g, s) for r, g, s in zip(
             np.asarray(jtab[0]).view(np.int32).tolist(), np.asarray(jtab[1]).tolist(),
             np.asarray(jtab[4]).tolist()) if r[0] != -1}
-    insert = TE._insert_core_packed if layout == "packed" else TE._insert_core
-    ovf, _, _ = insert(st, tab, *args, tag)
-    assert int(ovf) == int(jovf) == 0
+    return want, int(jovf)
+
+
+def key_map(st, tab, layout):
+    """The port's table as jax_key_map gives JAX's."""
+    C, W = st.C, st.W
     k = tab.t_key[:C].numpy()
     occ = np.nonzero(k[:, 0] != -1)[0]
     if layout == "packed":
-        got = {tuple(k[s, :W].tolist()): (int(k[s, W]), int(tab.t_best[s])) for s in occ}
-    else:
-        got = {tuple(k[s].tolist()): (int(tab.t_g[s]), int(tab.t_state[s])) for s in occ}
-    assert got == want
+        return {tuple(k[s, :W].tolist()): (int(k[s, W]), int(tab.t_best[s])) for s in occ}
+    return {tuple(k[s].tolist()): (int(tab.t_g[s]), int(tab.t_state[s])) for s in occ}
+
+
+# the list lengths around K10_CAP, where the insert changes schedule
+K10_LIST_LENGTHS = [0, 1, TS.K10_CAP - 1, TS.K10_CAP, TS.K10_CAP + 1]
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+@pytest.mark.parametrize("received", ["none", "some", "only"])
+@pytest.mark.parametrize("n", K10_LIST_LENGTHS)
+def test_k10_list_length_paths_equal_plain(n, received, layout):
+    # K10 over a list of n entries whose first n_front are rows received
+    # from other shards (they claim with their places; the sharded step's
+    # keyrow_insert_recv), on a table of 2^11 slots about a third full:
+    # the whole list in block 0 up to K10_CAP entries (no grid sync),
+    # round 0 on the grid above.  Every table word (claim included), the
+    # rounds and the 14 counters those of insert_pending_plain and
+    # finish_plain, whatever the threads' order; lanes race for one slot
+    # and reach round 3; the key map JAX's insert over the same list
+    jst, st = statics(golden_seqs("kinase.fasta"), 64, 1 << 11)
+    rs = np.random.RandomState(100 + n)
+    torch.manual_seed(n)
+    tab, stored = keyrow_table(jst, st, rs, layout, 700)
+    args, tag = key_lanes(st, rs, stored[rs.choice(len(stored), 300, replace=False)], 700,
+                          layout)
+    assert len(tag) >= n
+    args, tag = tuple(a[:n] for a in args), tag[:n]
+    n_front = {"none": 0, "some": n // 3, "only": n}[received]
+    tag = tag + n_front  # the self-owned tags lie above the received rows' places
+    pend = entries(st, args, tag, layout)
+    rows = torch.tensor(pend, dtype=torch.int32).reshape(n, st.W + (4 if layout == "packed"
+                                                                     else 5))
+    lanes = n - n_front  # the shard's own survivors (kNValid)
+    want = clone(tab)
+    ovf, reopen, rounds, un, tail = TSH.insert_pending_plain(st, want, layout, rows, n_front)
+    fill, k3 = 64, dict(fmin=1200, n_open=900, n_sel=40, reopen=3)
+    c0 = TE.fresh_counters()
+    c0[0] = 5000
+    want_c = torch.tensor(c0, dtype=torch.int64)
+    TSH.finish_plain(want_c, [0, k3["n_open"], k3["n_sel"], k3["reopen"] + reopen, k3["fmin"]],
+                     fill, lanes, ovf, rounds, un, tail)
+    for seed, blocks in ((0, 132), (1, 3)):
+        rng = np.random.default_rng(seed)
+        got, claims = clone(tab), {}
+        e_rounds, counts, e_reopen, syncs = emu_k10(st, got, pend, rng, blocks, lanes=lanes,
+                                                    n_front=n_front, claims=claims)
+        assert same_table(got, want, st.C)  # claim included
+        c = list(c0)
+        k10_finish(c, k3["fmin"], k3["n_open"], k3["n_sel"], k3["reopen"] + e_reopen, fill,
+                   lanes, e_rounds, counts)
+        assert c == want_c.tolist() and e_rounds == rounds
+        path = TS.k10_path(n, rounds, counts[0] if rounds else 0, TS.K10_CAP)
+        assert syncs == TS.k10_grid_syncs(rounds, n, counts[0] if rounds else 0, TS.K10_CAP,
+                                          layout == "unpacked")
+        if n == 0:
+            assert path == "none" and rounds == 0
+        elif n <= TS.K10_CAP:
+            assert path == "block" and syncs == 0
+        else:
+            assert path in ("tail", "grid") and syncs >= 3
+        if n >= TS.K10_CAP - 1:
+            assert max(claims.values()) >= 2 and rounds >= 4 and ovf == 0
+    if n:
+        want_map, jovf = jax_key_map(jst, st, tab, args, layout)
+        assert jovf == ovf == 0 and key_map(st, want, layout) == want_map
 
 
 # ---------------------------------------------------------------- the step loop
@@ -986,21 +1109,8 @@ def emu_chunk(st, tab, counters, chunk_steps, ub, fill, rng):
         _, _, _, fmin, n_open, n_sel, reopen, sel = emu_k3(st, tab, c[0], c[7], rng=rng)
         c[0], pend, n_valid, _ = emu_k9(ks, tab, sel, c[0], ub, rng)
         rounds, counts, ins_reopen, _ = emu_k10(st, tab, pend, rng, lanes=n_valid)
-        n = n_valid
-        c[1] = fmin
-        c[2] += 1
-        c[3] += n_sel
-        c[4] += reopen + ins_reopen
-        c[5] = n_open
-        c[6] += counts[-1] if rounds else 0
-        thr = c[7]
-        nt = thr * 2 + 32 if n_sel < fill // 2 else (thr // 2 if n_sel >= fill - fill // 8
-                                                     else thr)
-        c[7] = min(nt, 1 << 20)
-        c[8] += n_sel
-        for k, v in zip(range(9, 14), k10_acct(n, rounds, counts)):
-            c[k] += v
-        run = c[1] < c[0] and c[6] == 0
+        run = k10_finish(c, fmin, n_open, n_sel, reopen + ins_reopen, fill, n_valid, rounds,
+                         counts)
     return torch.tensor(c, dtype=torch.int64)
 
 
@@ -1089,7 +1199,9 @@ def test_keyrow_constants_match_source():
     assert f"constexpr int kLanes = {K10_LANES};" in k10
     assert "constexpr int kCap = kThreads * kLanes;" in k10
     assert TS.K10_CAP == K10_THREADS * K10_LANES
-    assert "launch<true>(t, pend, W + 5," in k10 and "launch<false>(t, pend, W + 4," in k10
+    assert "launch<true, 1>(t, pend, W + 5," in k10
+    for vec in (1, 4):  # packed key rows a word at a time, or in int4 where aligned
+        assert f"launch<false, {vec}>(t, pend, W + 4," in k10
     st = statics(golden_seqs("PF08184.fasta"), 64, 1 << 12)[1]
     for layout, words in (("packed", st.W + 4), ("unpacked", st.W + 5)):
         bufs = TS.StepBuffers.for_step(st, torch.device("cpu"), layout)

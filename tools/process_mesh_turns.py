@@ -27,9 +27,14 @@ same hash on every rank.
         --drivers chunked,host,chunked --exchange ragged,ragged,dense
 
 ``--exchange`` takes one exchange for every run or one a run.  ``--device
-cpu`` runs the shards' plain versions over gloo.
+cpu`` runs the shards' plain versions over gloo.  ``--kernel-times``
+traces each run with torch.profiler (CUPTI: the kernels inside the step
+graphs too) and adds each kernel's launches and mean device time in
+microseconds (``kernel_us``; cards only), so one kernel's time inside a
+rank's step reads from the run; the trace slows the run's walls.
 """
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -63,6 +68,14 @@ def words_hash(eng) -> str:
     return h.hexdigest()
 
 
+def kernel_name(key: str) -> str:
+    """A traced kernel's name without its return type, namespaces and
+    arguments (its template arguments kept)."""
+    key = key.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+    base, lt, args = key.partition("<")
+    return base.rsplit("::", 1)[-1] + lt + args
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("fasta")
@@ -73,6 +86,9 @@ def main() -> int:
                     help="the exchange of every run, or one a run, comma-separated (auto, "
                          "ragged, dense)")
     ap.add_argument("--chunk", type=int, default=256, help="chunk_steps")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="trace each run and print each kernel's launches and mean device "
+                         "time (us)")
     args = ap.parse_args()
     drivers = args.drivers.split(",")
     exchanges = args.exchange.split(",")
@@ -97,10 +113,14 @@ def main() -> int:
         _kernels.reset_counts()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
+        timed = args.kernel_times and dev.type == "cuda"
+        trace = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                 if timed else contextlib.nullcontext())
         t0 = time.perf_counter()
-        res = eng.run()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with trace as prof:
+            res = eng.run()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         st = eng.last_stats
         steps = max(st["steps"], 1)
@@ -121,6 +141,10 @@ def main() -> int:
                    peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
                    launches={k: v for k, v in _kernels.launches.items() if v},
                    hash=words_hash(eng), alignment=build_alignment(problem, res.closed))
+        if timed:
+            out["kernel_us"] = {kernel_name(e.key): dict(
+                launches=e.count, mean_us=e.device_time_total / e.count)
+                for e in prof.key_averages() if e.count and e.device_time_total > 0}
         print("RANK_RUN " + json.dumps(out), flush=True)
         del eng
     return 0
