@@ -759,23 +759,25 @@ def build_step_baseline(src: str, tmp: str):
     return tuple(fns)
 
 
-def start_phases_build(name: str, tmp: str):
+def start_phases_build(name: str, tmp: str, macro: str = None):
     """Start nvcc on csrc/<name>.cu with its measurement macro (K3_PHASES
     for select_best: three %globaltimer readings in the partials when a
     launch ends; K5_PHASES for sig_probe: five in lane_word; K10_PHASES for
     keyrow_insert: eight in the tail list; K8_NO_STORE
     for gotoh_wavefront: the fill without its scratch stores; K11_BARRIERS
-    for route_pack: each destination's sort counts its block barriers) into
-    ``tmp``; returns (name, proc, lib)."""
+    for route_pack: each destination's sort counts its block barriers; or
+    ``macro``, as K11_PHASES for route_pack: its passes' %globaltimer
+    readings) into ``tmp``; returns (name, proc, lib)."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    macro = {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES",
-             "keyrow_insert": "K10_PHASES", "gotoh_wavefront": "K8_NO_STORE",
-             "route_pack": "K11_BARRIERS"}[name]
-    lib = os.path.join(tmp, f"lib{name}_phases.so")
+    macro = macro or {"select_best": "K3_PHASES", "sig_probe": "K5_PHASES",
+                      "keyrow_insert": "K10_PHASES", "gotoh_wavefront": "K8_NO_STORE",
+                      "route_pack": "K11_BARRIERS"}[name]
+    macros = macro.split("+")  # several macros: "A+B"
+    lib = os.path.join(tmp, f"lib{name}_{'_'.join(macros)}.so")
     proc = subprocess.Popen(
         [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", f"-D{macro}", "-o", lib,
+         "-shared", "-Xcompiler", "-fPIC", *(f"-D{m}" for m in macros), "-o", lib,
          os.path.join(_kernels.CSRC, f"{name}.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     return name, proc, lib
@@ -861,8 +863,51 @@ def load_k11_barriers(job) -> dict:
             fail("route_pack_barriers of the K11_BARRIERS build failed")
         return list(got)
 
-    return {"src": "the K11_BARRIERS build", "route_pack": pack, "barriers": barriers,
-            "route_count": _kernels.load("route_count").route_count}
+    dll = ctypes.CDLL(job[2])
+    fns = {"src": "the K11_BARRIERS build", "api": K11_API, "route_pack": pack,
+           "barriers": barriers}
+    for name in ("route_count", "route_count_rows", "route_pack_rows"):
+        fn = getattr(dll, name)
+        fn.argtypes, fn.restype = _kernels.SIGNATURES[name], ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+# route_pack.cu's K11_PHASES readings: kStamps of them, sorting block d's
+# six from K11_STAMP_SORT + 6 d (d < 8), the ring tail's three from
+# K11_STAMP_TAIL
+K11_STAMPS, K11_STAMP_SORT, K11_STAMP_TAIL = 57, 6, 54
+
+
+def load_k11_phases(job, label: str = "the K11_PHASES build") -> dict:
+    """The K11_PHASES build (start_phases_build("route_pack", macro=
+    "K11_PHASES"), or one with more macros) as K11Run's ``fns``: its four C
+    entries (this tree's signatures) and ``phases()``, the readings of the
+    calls since the last read (0 where no block wrote one), which it
+    resets; ``label`` names it."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    name, proc, lib = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc failed for the K11_PHASES build of route_pack.cu:\n{log}")
+    dll = ctypes.CDLL(lib)
+    fns = {"src": label, "api": K11_API}
+    for n in ("route_count", "route_pack", "route_count_rows", "route_pack_rows"):
+        fn = getattr(dll, n)
+        fn.argtypes, fn.restype = _kernels.SIGNATURES[n], ctypes.c_int
+        fns[n] = fn
+    read = dll.route_pack_phases
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+
+    def phases() -> list:
+        got = (ctypes.c_ulonglong * K11_STAMPS)()
+        if read(ctypes.cast(got, ctypes.c_void_p), K11_STAMPS):
+            fail("route_pack_phases of the K11_PHASES build failed")
+        return list(got)
+
+    fns["phases"] = phases
+    return fns
 
 
 def k3_phases(fn, args, partial, restore, reps: int = 20) -> dict:
@@ -2859,7 +2904,7 @@ def sharded_guard(capture_step: int = 0):
     def count(sh, eng):
         if on(sh):
             cap.update(ring=sh.ring.clone(), cand_route=sh.cand.clone(),
-                       nsel=int(sh.bufs.state[2]))
+                       nsel=int(sh.bufs.state[2]), ring_len=int(sh.ring_len[sh.cur]))
         return methods["count"](sh, eng)
 
     def pack(sh, eng, S_all):
@@ -2867,7 +2912,8 @@ def sharded_guard(capture_step: int = 0):
         if on(sh):
             torch.cuda.synchronize()
             cap.update(S=None if S_all is None else S_all.clone(), wire=sh.wire.clone(),
-                       ring1=sh.ring.clone(), route_out=sh.route_out.clone())
+                       ring1=sh.ring.clone(), route_out=sh.route_out.clone(),
+                       ring_len1=int(sh.ring_len[sh.cur]))
         return out
 
     def at_step() -> bool:
@@ -3124,6 +3170,9 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
         events = [e for e in prof.key_averages() if e.count]
         dev_us = sum(e.device_time_total for e in events if own_event(e.key))
         info["step_device_ms"] = dev_us / 1e3 / steps
+        # each kernel's device us a step (its name as CUPTI gives it)
+        info["step_kernels_us"] = {e.key: e.device_time_total / steps for e in events
+                                   if own_event(e.key) and e.device_time_total > 0}
         # with PyTorch's own kernels of the step (the gathers' stack, the
         # reports' cat, the reduce-scatter's sum), not its host ops
         all_us = sum(e.device_time_total for e in events
@@ -3199,13 +3248,26 @@ def k11_bitonic_stages(n: int) -> int:
     return lg * (lg + 1) // 2
 
 
+# the C entries' form of K11 in this tree: "v2" (each ring's live length
+# beside it, the counts in two buffers that alternate, no zero launch);
+# "v1" (from 91dece6 to b8321dc: route_count zeroes out in a launch of its
+# own, route_pack writes the whole ring); "v0" (c408a21's: v1 without the
+# run flag)
+K11_API = "v2"
+
+
 class K11Run:
     """One build of K11 on fixed inputs (``inp``: cand, carry, n_lanes, M,
     ndev, me, cap, S or None, seg, and for key rows ``fill``, the empty
-    row: then the C entries route_count_rows and route_pack_rows), with
-    outputs of its own: count() and pack() each call one C entry, call()
-    both.  ``fns`` is another tree's C entries (load_k11_baseline, sig
-    rows); by default this tree's, through _kernels.launch."""
+    row: then the C entries route_count_rows and route_pack_rows; on the
+    form "v2" ``carry_len``, the carry's live length, by default all its
+    rows), with outputs of its own (a new ring of unknown contents: its
+    word Ccar): count() and pack() each call one C entry, call() both; on
+    "v2" each count() takes the other of the two count buffers, which the
+    last count zeroed, and pack() the last count's.  ``fns`` is another
+    build's C entries (load_k11_baseline, load_k11_barriers,
+    load_k11_phases) and their form under "api"; by default this tree's,
+    through _kernels.launch."""
 
     def __init__(self, inp: dict, fns=None):
         from mpi_pastar_msa_tpu_torch import _kernels
@@ -3214,39 +3276,55 @@ class K11Run:
         dev = cand.device
         lanes_cap, ccar, M = cand.shape[0], carry.shape[0], inp["M"]
         fill = inp.get("fill")
+        self.api = K11_API if fns is None else fns.get("api", K11_API)
+        i32 = dict(dtype=torch.int32, device=dev)
         self.nsel = torch.tensor(inp["n_lanes"] // M, dtype=torch.int64, device=dev)
-        self.out = torch.empty(ndev + 3, dtype=torch.int32, device=dev)
+        self.out = torch.empty(ndev + 3, **i32)
         self.keys = torch.empty(2 * ndev * inp["seg"], dtype=torch.int64, device=dev)
         self.wire = torch.zeros((max(ndev * cap, lanes_cap + ccar),
-                                 3 if fill is None else cand.shape[1] - 2), dtype=torch.int32,
-                                device=dev)
+                                 3 if fill is None else cand.shape[1] - 2), **i32)
         self.ring = torch.empty_like(carry)
+        self.counts = torch.zeros((2, ndev + 1), **i32)
+        self.carry_len = torch.tensor([inp.get("carry_len", ccar)], **i32)
+        self.ring_len = torch.tensor([ccar], **i32)
+        self.parity = 1  # the first count takes buffer 0
         stream = torch.cuda.current_stream(dev).cuda_stream
-        S = inp["S"]
+        S = None if inp["S"] is None else inp["S"].data_ptr()
         # key rows: the row's words, its key words (the empty row's -1s)
         # and the empty fsort
         rows = () if fill is None else (cand.shape[1], fill[2:].count(-1), fill[1])
         self.names = (("route_count", "route_pack") if fill is None
                       else ("route_count_rows", "route_pack_rows"))
-        self.args = {
-            self.names[0]: (cand.data_ptr(), carry.data_ptr(), self.nsel.data_ptr(), M,
-                            lanes_cap, ccar, ndev, inp["seg"], *rows, self.out.data_ptr(),
-                            self.keys.data_ptr(), None, stream),
-            self.names[1]: (cand.data_ptr(), carry.data_ptr(), self.nsel.data_ptr(), M, ccar,
-                            ndev, inp["me"], cap, None if S is None else S.data_ptr(),
-                            inp["seg"], *rows, self.out.data_ptr(), self.keys.data_ptr(),
-                            self.wire.data_ptr(), self.ring.data_ptr(), None, stream)}
+        c, r, nsel = cand.data_ptr(), carry.data_ptr(), self.nsel.data_ptr()
+        o, k, w, ring = (t.data_ptr() for t in (self.out, self.keys, self.wire, self.ring))
+        seg, me = inp["seg"], inp["me"]
+        if self.api == "v2":
+            cnt = [self.counts[p].data_ptr() for p in (0, 1)]
+            self.args = [{
+                self.names[0]: (c, r, self.carry_len.data_ptr(), nsel, M, lanes_cap, ccar, ndev,
+                                seg, *rows, cnt[p], cnt[1 - p], o, k, None, stream),
+                self.names[1]: (c, r, nsel, M, ccar, ndev, me, cap, S, seg, *rows, cnt[p], o, k,
+                                w, ring, self.ring_len.data_ptr(), None, stream)}
+                for p in (0, 1)]
+        else:
+            run = () if self.api == "v0" else (None,)
+            self.args = [{
+                self.names[0]: (c, r, nsel, M, lanes_cap, ccar, ndev, seg, *rows, o, k, *run,
+                                stream),
+                self.names[1]: (c, r, nsel, M, ccar, ndev, me, cap, S, seg, *rows, o, k, w, ring,
+                                *run, stream)}] * 2
         self.fns = fns
         self.launch = _kernels.launch
 
     def _go(self, name):
-        args = self.args[name]
+        args = self.args[self.parity][name]
         if self.fns is None:
             self.launch(name, *args)
-        elif self.fns[name](*(args[:-2] + args[-1:] if self.fns.get("no_run") else args)):
+        elif self.fns[name](*args):
             fail(f"{name} of {self.fns['src']} failed to launch")
 
     def count(self):
+        self.parity = 1 - self.parity
         self._go(self.names[0])
 
     def pack(self):
@@ -3292,6 +3370,8 @@ def k11_check(label: str, inp: dict, run: "K11Run"):
         bad.append("new ring")
     if not torch.equal(run.wire[sent], p_wire[sent]):
         bad.append("wire rows")
+    if run.api == "v2" and int(run.ring_len) != int((p_ring[:, 0] < ndev).sum()):
+        bad.append(f"the new ring's word {int(run.ring_len)}")
     if bad:
         fail(f"{label} differs from its plain version: {bad}")
     return p_out
@@ -3313,22 +3393,116 @@ def k11_turns(inp: dict, baseline: dict, label: str, reps: int = 20) -> dict:
     ctypes call of their C entries."""
     from mpi_pastar_msa_tpu_torch import _kernels
 
-    this = {"src": "this tree", **{n: getattr(_kernels.load(n), n)
-                                   for n in ("route_count", "route_pack")}}
+    names = (("route_count", "route_pack") if inp.get("fill") is None
+             else ("route_count_rows", "route_pack_rows"))
+    this = {"src": "this tree", "api": K11_API,
+            **{n: getattr(_kernels.load(n), n) for n in names}}
     who = {"old": K11Run(inp, baseline), "new": K11Run(inp, this)}
-    res = {k: {"old": [], "new": []} for k in ("route_count", "route_pack", "call",
-                                                "call_wrapper")}
+    res = {k: {"old": [], "new": []} for k in (*names, "call", "call_wrapper")}
     for w in ("old", "new", "new", "old"):
         r = who[w]
-        res["route_count"][w].append(device_ms(r.count, reps))
+        res[names[0]][w].append(device_ms(r.count, reps))
         r.count()  # pass 2 alone reads pass 1's counts and keys
-        res["route_pack"][w].append(device_ms(r.pack, reps))
+        res[names[1]][w].append(device_ms(r.pack, reps))
         res["call"][w].append(device_ms(r.call, reps))
         res["call_wrapper"][w].append(time_ms(r.call, reps))
     print(f"    K11 in turns with {baseline['src']} ({label}; old, new, new, old): " + "; ".join(
         f"{k} {res[k]['old'][0]:.4f} / {res[k]['new'][0]:.4f} / {res[k]['new'][1]:.4f} / "
         f"{res[k]['old'][1]:.4f} ms" for k in res))
     return res
+
+
+def k11_split(inp: dict, fns: dict, reps: int = 20) -> dict:
+    """K11's split on ``inp``: the K11_PHASES build (``fns``,
+    load_k11_phases) called once, then its call captured in a CUDA graph
+    for each of its two count buffers, as the step graphs hold it, the two
+    replayed in turns ``reps`` times in all, each replay's %globaltimer
+    readings read.  Medians in microseconds: the zero launch
+    (its start to count block 0's start; absent where there is none), the
+    count (block 0's start to the last block's end) and block 0's span, on
+    to the pack's first block, the sorting block of the destination with
+    the most keys (its allowance; its sort from its start, and of it the
+    keys' load by warp 0, every warp's network, the merge rounds; its
+    copy), the
+    ring tail's first block (its allowance, its fill), the pack (first
+    block's start to last block's end) and the whole call; ``dest`` names
+    that destination and ``keys`` its keys."""
+    p_out = k11_plain_out(inp)
+    ndev = inp["ndev"]
+    d = max(range(min(ndev, 8)), key=lambda q: int(p_out[q]))
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        run = K11Run(inp, fns)
+        run.call()
+    torch.cuda.synchronize()
+    graphs = [torch.cuda.CUDAGraph() for _ in range(2)]
+    for graph in graphs:
+        with torch.cuda.graph(graph, stream=s):
+            run.call()
+    torch.cuda.synchronize()
+    fns["phases"]()
+    spans = {}
+    b, t0 = K11_STAMP_SORT + 6 * d, K11_STAMP_TAIL
+    for rep in range(reps):
+        graphs[rep % 2].replay()
+        torch.cuda.synchronize()
+        t = fns["phases"]()
+        got = {"count_us": t[3] - t[1], "count_block0_us": t[2] - t[1],
+               "to_pack_us": t[4] - t[3], "pack_us": t[5] - t[4],
+               "call_us": t[5] - (t[0] or t[1]),
+               "tail_allowance_us": t[t0 + 1] - t[t0], "tail_fill_us": t[t0 + 2] - t[t0 + 1]}
+        if t[0]:
+            got["zero_us"] = t[1] - t[0]
+        if t[b + 5]:
+            got.update(to_block_us=t[b] - t[4], allowance_us=t[b + 1] - t[b],
+                       sort_us=t[b + 4] - t[b], load_us=t[b + 2] - t[b],
+                       copy_us=t[b + 5] - t[b + 4])
+            if t[b + 3]:  # a segment of more than a warp's run: merge rounds
+                got.update(networks_us=t[b + 3] - t[b + 2], merges_us=t[b + 4] - t[b + 3])
+        for k, v in got.items():
+            spans.setdefault(k, []).append(v / 1e3)
+    del graphs
+    out = {k: statistics.median(v) for k, v in spans.items()}
+    # whether its keys sort as 32 bits: their fsorts' spread within the
+    # segment's position bits (route_pack.cu's sort_small)
+    rows = torch.cat([inp["cand"][:inp["n_lanes"]],
+                      inp["carry"][:inp.get("carry_len", inp["carry"].shape[0])]])
+    f = rows[rows[:, 0] == d, 1].long()
+    spread = int(f.max() - f.min())
+    pb = inp["seg"].bit_length() - 1
+    out.update(dest=d, keys=int(p_out[d]), spread=spread,
+               narrow=(spread << pb) + inp["seg"] <= 0xFFFFFFFF)
+    print(f"    K11 split ({reps} graph replays, median us; destination {d}, {int(p_out[d])} "
+          f"keys, fsort spread {spread}, 32-bit keys {out['narrow']}): " + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in out.items()
+                                 if k.endswith("_us")))
+    return out
+
+
+def k11_plain_out(inp: dict):
+    """route_plain's out on ``inp``."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    return SH.route_plain(inp["cand"], inp["n_lanes"], inp["carry"], inp["ndev"], inp["me"],
+                          inp["cap"], inp["S"], inp.get("fill"))[2]
+
+
+def k11_sort_yardstick(inp: dict, run: "K11Run") -> dict:
+    """torch.sort of the largest segment's int64 keys as route_count left
+    them in ``run`` (a yardstick of the sort phase; the port never calls
+    it): wrapper ms (CUDA events) and device ms (CUPTI, PyTorch's kernels)."""
+    p_out = k11_plain_out(inp)
+    d = max(range(inp["ndev"]), key=lambda q: int(p_out[q]))
+    n = int(p_out[d])
+    run.count()
+    seg = run.keys[d * inp["seg"]:d * inp["seg"] + n].clone()
+    ms = time_ms(lambda: torch.sort(seg), 20)
+    dev = device_ms(lambda: torch.sort(seg), 20,
+                    keep=lambda k: (not k.startswith(("aten::", "cuda", "Memcpy"))
+                                    and "spin_kernel" not in k))
+    print(f"    torch.sort of destination {d}'s {n} int64 keys: wrapper {ms:.4f} ms, device "
+          f"{dev:.4f} ms")
+    return dict(keys=n, ms=ms, device_ms=dev)
 
 
 def start_k11_baseline(src: str, tmp: str):
@@ -3356,21 +3530,39 @@ def start_k11_baseline(src: str, tmp: str):
     return src, proc, lib
 
 
+# the C entries of K11's form "v1" (up to b8321dc; "v0", c408a21's, the
+# sig entries without the run flag)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+K11_V1_SIGNATURES = {
+    "route_count": [_P, _P, _P, _I, _I, _I, _I, _L, _P, _P, _P, _P],
+    "route_pack": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P],
+    "route_count_rows": [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P],
+    "route_pack_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _I, _I, _I, _P, _P, _P, _P,
+                        _P, _P]}
+
+
 def load_k11_baseline(job) -> dict:
-    """The other tree's K11 (start_k11_baseline): its two C entries, with
-    this tree's argtypes, and its source's name under ``src``."""
-    from mpi_pastar_msa_tpu_torch import _kernels
+    """The other tree's K11 (start_k11_baseline): its C entries (the key
+    rows' too where its source has them) and their form under ``api``,
+    told from its source ("v1" when route_count takes the run flag, "v0"
+    before), and its source's name under ``src``."""
+    import re
 
     src, proc, lib = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         fail(f"K11 baseline: nvcc failed for route_pack.cu of {src}:\n{log}")
+    with open(os.path.join(os.path.dirname(lib), "route_pack.cu")) as f:
+        text = f.read()
+    head = re.search(r'extern "C" int route_count\((.*?)\)', text, re.S).group(1)
+    api = "v1" if "run" in head else "v0"
     dll = ctypes.CDLL(lib)
-    # an earlier tree's entries take no run flag
-    fns = {"src": src, "no_run": True}
-    for name in ("route_count", "route_pack"):
+    fns = {"src": src, "api": api}
+    for name, sig in K11_V1_SIGNATURES.items():
+        if f'extern "C" int {name}(' not in text:
+            continue
         fn = getattr(dll, name)
-        fn.argtypes = _kernels.SIGNATURES[name][:-2] + _kernels.SIGNATURES[name][-1:]
+        fn.argtypes = sig if api == "v1" else sig[:-2] + sig[-1:]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -3381,16 +3573,61 @@ def load_k11_baseline(job) -> dict:
 K11_SWEEP = (64, 636, 4096, 8192, 16384, 31744)
 
 
+# kinase's key words (W) and each key-row layout's empty fsort
+K11_W = 3
+K11_LAYOUTS = ("sig", "packed", "unpacked")
+
+
+def k11_fill(layout: str, ndev: int):
+    """The empty ring row of ``layout`` at W = K11_W (None on sig rows:
+    route_plain's default), as sharded.keyrow_fill gives it."""
+    from mpi_pastar_msa_tpu_torch.search.engine import INF
+
+    if layout == "sig":
+        return None
+    pw = K11_W + (4 if layout == "packed" else 5)
+    return [ndev, 0x7FFFFFFF if layout == "packed" else INF] + [-1] * K11_W + [0] * (pw - K11_W)
+
+
+# the spread of the synthetic rows' fsort: about kinase's (its median
+# spread of a destination's fsorts a step, packed, is about 41,000)
+K11_F_RANGE = 1 << 15
+
+
+def k11_rows(dest, fill, g, ndev: int):
+    """Rows (dest, fsort, payload) on the card for the int32 ``dest``s: a
+    remote row's fsort below K11_F_RANGE and its payload random from ``g``
+    (sig: home, sig; key rows: random words), every other row the empty
+    one (``fill``, or sig's)."""
+    dev = dest.device
+    empty = [ndev, 0x7FFFFFFF, 0, -1] if fill is None else fill
+    rows = torch.tensor(empty, dtype=torch.int32, device=dev).repeat(dest.numel(), 1)
+    live = dest < ndev
+    k = int(live.sum())
+    rows[:, 0] = dest
+    rows[live, 1] = torch.randint(0, K11_F_RANGE, (k,), generator=g, device=dev).int()
+    if fill is None:
+        rows[live, 2] = torch.randint(0, 1 << 20, (k,), generator=g, device=dev).int()
+        rows[live, 3] = torch.randint(0, 1 << 30, (k,), generator=g, device=dev).int()
+    else:
+        rows[live, 2:] = torch.randint(-2**31, 2**31 - 1, (k, rows.shape[1] - 2), generator=g,
+                                       device=dev).int()
+    return rows
+
+
 def k11_synthetic(n: int, ndev: int = 4, cap: int = 7936, ccar: int = 15872, M: int = 31,
-                  seed: int = 0) -> dict:
+                  seed: int = 0, layout: str = "sig") -> dict:
     """K11's inputs at kinase's shapes on 4 shards (shard 0, cap 7,936, a
     ring of 15,872 rows, M = 31) with n rows for each other destination:
-    a quarter of them (at most half the ring) live in the carry ring, the
-    rest among the lanes with n / 2 lanes that stay; f, home and sig
-    random from ``seed`` on the card; the ragged send counts as if every
-    shard sent alike."""
+    a quarter of them (at most half the ring) live in the carry ring (its
+    first rows: ``carry_len``), the rest among the lanes with n / 2 lanes
+    that stay; rows of ``layout`` (sig: 4 words; packed and unpacked key
+    rows of 2 + W + 4 and 2 + W + 5 words at kinase's W = 3, ``fill``
+    their empty row), f and payload random from ``seed`` on the card; the
+    ragged send counts as if every shard sent alike."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
+    fill = k11_fill(layout, ndev)
     dest = torch.arange(1, ndev, device=dev).repeat_interleave(n).int()
     dest = dest[torch.randperm(dest.numel(), generator=g, device=dev)]
     in_ring = min(ccar // 2, dest.numel() // 4)
@@ -3398,53 +3635,125 @@ def k11_synthetic(n: int, ndev: int = 4, cap: int = 7936, ccar: int = 15872, M: 
                                                   device=dev)])
     lanes = lanes[torch.randperm(lanes.numel(), generator=g, device=dev)]
     n_lanes = -(-lanes.numel() // M) * M
-    cand = torch.empty((n_lanes, 4), dtype=torch.int32, device=dev)
-    cand[:, 0] = ndev
-    cand[:lanes.numel(), 0] = lanes
-    carry = torch.tensor([ndev, 0x7FFFFFFF, 0, -1], dtype=torch.int32,
-                         device=dev).repeat(ccar, 1)
-    carry[:in_ring, 0] = dest[:in_ring]
-    for t, rows in ((cand, n_lanes), (carry, in_ring)):
-        t[:rows, 1] = torch.randint(0, 1 << 20, (rows,), generator=g, device=dev).int()
-        t[:rows, 2] = torch.randint(0, 1 << 20, (rows,), generator=g, device=dev).int()
-        t[:rows, 3] = torch.randint(0, 1 << 30, (rows,), generator=g, device=dev).int()
+    cand_dest = torch.full((n_lanes,), ndev, dtype=torch.int32, device=dev)
+    cand_dest[:lanes.numel()] = lanes
+    ring_dest = torch.full((ccar,), ndev, dtype=torch.int32, device=dev)
+    ring_dest[:in_ring] = dest[:in_ring]
     counts = torch.bincount(dest.long(), minlength=ndev)[:ndev].int()
-    return dict(cand=cand, carry=carry, n_lanes=n_lanes, M=M, ndev=ndev, me=0, cap=cap,
+    return dict(cand=k11_rows(cand_dest, fill, g, ndev), carry=k11_rows(ring_dest, fill, g, ndev),
+                n_lanes=n_lanes, M=M, ndev=ndev, me=0, cap=cap,
                 S=counts.repeat(ndev, 1).contiguous(),
-                seg=1 << (n_lanes + ccar - 1).bit_length())
+                seg=1 << (n_lanes + ccar - 1).bit_length(), fill=fill, carry_len=in_ring)
 
 
 def k11_sweep(count: dict, baseline=None) -> dict:
-    """K11 at each segment size of K11_SWEEP (k11_synthetic, ragged):
-    checked against route_plain, then the device ms of each pass alone and
-    of the call, in turns with another tree's K11 (checked too) when there
-    is one; a destination's sort barriers, counted by the K11_BARRIERS build
-    (``count``), and c408a21's bitonic stages by its loop bounds."""
+    """K11 at each segment size of K11_SWEEP (k11_synthetic, ragged) on sig
+    rows and on packed and unpacked key rows: checked against route_plain,
+    then the device ms of each pass alone and of the call, in turns with
+    another tree's K11 (checked too) when there is one; a destination's
+    sort barriers, counted by the K11_BARRIERS build (``count``), and
+    c408a21's bitonic stages by its loop bounds; then the rings shrinking
+    and growing on two buffers (k11_ping_pong)."""
     out = {}
-    print("K11 sweep (kinase's shapes, 4 shards, ragged; n rows a destination):")
-    for n in K11_SWEEP:
-        inp = k11_synthetic(n)
-        run = K11Run(inp)
-        k11_check(f"K11 (sweep, n = {n})", inp, run)
-        row = dict(n=n, rows=inp["n_lanes"] + inp["carry"].shape[0],
-                   barriers=max(k11_barriers(count, inp, f"sweep, n = {n}")),
-                   bitonic_stages=k11_bitonic_stages(n))
-        if baseline is not None:
-            old = K11Run(inp, baseline)
-            k11_check(f"K11 of {baseline['src']} (sweep, n = {n})", inp, old)
-            row["turns"] = k11_turns(inp, baseline, f"n = {n}")
-        else:
-            run.count()
-            row.update(route_count_device_ms=device_ms(run.count, 20),
-                       route_pack_device_ms=device_ms(run.pack, 20),
-                       call_device_ms=device_ms(run.call, 20))
-            print(f"    n = {n}: route_count {row['route_count_device_ms']:.4f}, route_pack "
-                  f"{row['route_pack_device_ms']:.4f}, call {row['call_device_ms']:.4f} ms")
-        print(f"  n = {n}: {row['barriers']} block barriers (counted); c408a21's bitonic "
-              f"{row['bitonic_stages']} stages (its loop bounds)")
-        out[str(n)] = row
-        del inp, run
+    for layout in K11_LAYOUTS:
+        print(f"K11 sweep (kinase's shapes, 4 shards, ragged, {layout} rows; n rows a "
+              f"destination):")
+        for n in K11_SWEEP:
+            inp = k11_synthetic(n, layout=layout)
+            run = K11Run(inp)
+            k11_check(f"K11 (sweep, {layout}, n = {n})", inp, run)
+            row = dict(n=n, rows=inp["n_lanes"] + inp["carry"].shape[0],
+                       width=inp["cand"].shape[1],
+                       barriers=max(k11_barriers(count, inp, f"sweep, {layout}, n = {n}")),
+                       bitonic_stages=k11_bitonic_stages(n))
+            if baseline is not None and run.names[0] in baseline:
+                old = K11Run(inp, baseline)
+                k11_check(f"K11 of {baseline['src']} (sweep, {layout}, n = {n})", inp, old)
+                row["turns"] = k11_turns(inp, baseline, f"{layout}, n = {n}")
+            else:
+                run.count()
+                row.update(count_device_ms=device_ms(run.count, 20),
+                           pack_device_ms=device_ms(run.pack, 20),
+                           call_device_ms=device_ms(run.call, 20))
+                print(f"    n = {n}: count {row['count_device_ms']:.4f}, pack "
+                      f"{row['pack_device_ms']:.4f}, call {row['call_device_ms']:.4f} ms")
+            print(f"  n = {n}: {row['barriers']} block barriers (counted); c408a21's bitonic "
+                  f"{row['bitonic_stages']} stages (its loop bounds)")
+            out[f"{layout}_{n}"] = row
+            del inp, run
+        out[f"{layout}_ping_pong"] = k11_ping_pong(layout)
     return out
+
+
+# the steps of k11_ping_pong: the dense allowance's cap at 600 rows a
+# destination, so that the ring holds 0, 1,650, 150, 0, 1,650 rows
+K11_PING_PONG_CAPS = (7936, 50, 1100, 7936, 50)
+
+
+def k11_ping_pong(layout: str, n: int = 600, ndev: int = 4, ccar: int = 15872,
+                  M: int = 31) -> dict:
+    """K11 (this tree's C entries) over successive steps on one shard's two
+    ring buffers and their live-length words, as the engine alternates
+    them: each step new lanes with n rows for each other destination, the
+    ring the last step wrote, the dense allowance at the step's cap
+    (K11_PING_PONG_CAPS: the ring grows, shrinks, empties, grows); after
+    each, out, the whole new ring, the rows sent and the new ring's word
+    against route_plain on the step's lanes and whole ring, bit for bit.
+    Returns each step's spilled rows."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    fill = k11_fill(layout, ndev)
+    empty = [ndev, 0x7FFFFFFF, 0, -1] if fill is None else fill
+    width = len(empty)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rings = [torch.tensor(empty, **i32).repeat(ccar, 1) for _ in range(2)]
+    ring_len = torch.zeros(2, **i32)
+    counts = torch.zeros((2, ndev + 1), **i32)
+    lanes_cap = -(-(3 * n + n // 2) // M) * M
+    seg = 1 << (lanes_cap + ccar - 1).bit_length()
+    keys = torch.empty(2 * ndev * seg, dtype=torch.int64, device=dev)
+    out = torch.empty(ndev + 3, **i32)
+    wire = torch.zeros((max(ndev * max(K11_PING_PONG_CAPS), lanes_cap + ccar),
+                        3 if fill is None else width - 2), **i32)
+    nsel = torch.tensor(lanes_cap // M, dtype=torch.int64, device=dev)
+    rows = () if fill is None else (width, K11_W, fill[1])
+    names = ("route_count", "route_pack") if fill is None else ("route_count_rows",
+                                                                "route_pack_rows")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    spills = []
+    for step, cap in enumerate(K11_PING_PONG_CAPS):
+        p = step % 2
+        dest = torch.cat([torch.arange(1, ndev, device=dev).repeat_interleave(n).int(),
+                          torch.full((lanes_cap - 3 * n,), ndev, **i32)])
+        cand = k11_rows(dest[torch.randperm(lanes_cap, generator=g, device=dev)], fill, g, ndev)
+        carry, nxt = rings[p], rings[1 - p]
+        w_p, r_p, o_p = SH.route_plain(cand, lanes_cap, carry, ndev, 0, cap, None, fill)
+        _kernels.launch(names[0], cand.data_ptr(), carry.data_ptr(), ring_len[p].data_ptr(),
+                        nsel.data_ptr(), M, lanes_cap, ccar, ndev, seg, *rows,
+                        counts[p].data_ptr(), counts[1 - p].data_ptr(), out.data_ptr(),
+                        keys.data_ptr(), None, stream)
+        _kernels.launch(names[1], cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M, ccar,
+                        ndev, 0, cap, None, seg, *rows, counts[p].data_ptr(), out.data_ptr(),
+                        keys.data_ptr(), wire.data_ptr(), nxt.data_ptr(),
+                        ring_len[1 - p].data_ptr(), None, stream)
+        torch.cuda.synchronize()
+        live = int((r_p[:, 0] < ndev).sum())
+        sent = torch.cat([torch.arange(d * cap, d * cap + min(int(o_p[d]), cap))
+                          for d in range(ndev)]).long().to(dev)
+        bad = [what for what, ok in (
+            ("out", torch.equal(out, o_p)), ("new ring", torch.equal(nxt, r_p)),
+            ("wire rows", torch.equal(wire[sent], w_p[sent])),
+            ("its word", int(ring_len[1 - p]) == live)) if not ok]
+        if bad:
+            fail(f"K11 ({layout} rows) differs from route_plain at step {step} of the ring "
+                 f"turns (cap {cap}, {live} rows kept): {bad}")
+        spills.append(live)
+    print(f"  K11 over two rings ({layout} rows): rows kept {spills}, each step equal to "
+          f"route_plain")
+    return dict(caps=list(K11_PING_PONG_CAPS), kept=spills)
 
 
 def timed_check(out: dict, name: str, err, fn, plain_fn, nbytes: int, restore=None) -> None:
@@ -3462,7 +3771,65 @@ def timed_check(out: dict, name: str, err, fn, plain_fn, nbytes: int, restore=No
           f"{pms:.3f} ms, bound {bound:.6f} ms ({nbytes} B)")
 
 
-def sharded_kernel_checks(cap: dict, shards, k11_count: dict, k11_baseline=None) -> dict:
+def k11_sig_checks(cap: dict, k11_count: dict, k11_baseline=None, k11_phases=None) -> dict:
+    """K11 on sig rows on shard ``target``'s inputs of a captured step,
+    under the dense and the run's ragged allowance (or the ragged one as if
+    every shard sent alike): against route_plain bit for bit, wrapper,
+    device, plain times and bound by bytes, each pass alone, each
+    destination's sort barriers as the K11_BARRIERS build (``k11_count``)
+    counts them beside c408a21's bitonic stages, with ``k11_phases`` the
+    K11_PHASES build's split, and another tree's K11 checked and timed in
+    turns (``k11_baseline``)."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    sh, eng = cap["shard"], cap["eng"]
+    ndev, me, M = eng.ndev, sh.me, sh.st.M
+    out = {}
+    report = functools.partial(timed_check, out)
+    S_all = cap["S"]
+    if S_all is None:
+        S_all = cap["route_out"][:ndev].repeat(ndev, 1).to(torch.int32)
+    live = k11_live_rows(cap, ndev)
+    for mode, Smat in (("dense", None), ("ragged", S_all)):
+        inp = dict(cand=cap["cand_route"], carry=cap["ring"], n_lanes=cap["nsel"] * M, M=M,
+                   ndev=ndev, me=me, cap=eng.exchange_cap, S=Smat, seg=sh.seg, carry_len=live)
+        run = K11Run(inp)
+        p_out = k11_check(f"K11 ({mode})", inp, run)
+        A = k11_sent_sizes(inp, p_out)
+        remote = int(p_out[:ndev].sum())
+        ccar = inp["carry"].shape[0]
+        nbytes = k11_bytes(inp, p_out, A)
+        report(f"route_{mode}", 0, run.call,
+               lambda inp=inp: SH.route_plain(inp["cand"], inp["n_lanes"], inp["carry"], ndev,
+                                              me, inp["cap"], inp["S"]), nbytes)
+        run.count()
+        passes = {"route_count": dict(ms=time_ms(run.count, 20),
+                                      device_ms=device_ms(run.count, 20)),
+                  "route_pack": dict(ms=time_ms(run.pack, 20), device_ms=device_ms(run.pack, 20))}
+        print("    passes alone: " + ", ".join(
+            f"{k} wrapper {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms"
+            for k, v in passes.items()))
+        barriers = k11_barriers(k11_count, inp, mode)
+        bitonic = [k11_bitonic_stages(int(c)) for c in p_out[:ndev]]
+        out[f"route_{mode}"].update(
+            rows=inp["n_lanes"] + ccar, remote=remote, sent=int(A.sum()),
+            spilled=remote - int(A.sum()), passes=passes, segments=p_out[:ndev].tolist(),
+            barriers=barriers, bitonic_stages=bitonic)
+        print(f"    segments {p_out[:ndev].tolist()}: block barriers {barriers} (counted by "
+              f"the K11_BARRIERS build; c408a21's bitonic: {bitonic} stages by its loop "
+              f"bounds)")
+        if k11_phases:
+            out[f"route_{mode}"]["split"] = k11_split(inp, k11_phases)
+        if k11_baseline is not None:
+            old = K11Run(inp, k11_baseline)
+            k11_check(f"K11 of {k11_baseline['src']} ({mode})", inp, old)
+            out[f"route_{mode}"]["turns"] = k11_turns(inp, k11_baseline,
+                                                      f"step {cap['at']}, {mode}")
+    return out
+
+
+def sharded_kernel_checks(cap: dict, shards, k11_count: dict, k11_baseline=None,
+                          k11_phases=None) -> dict:
     """Each new kernel of the sharded step against its plain version on
     the card, bit for bit, on shard ``target``'s inputs of the captured
     step: sig_coords and K12 (tri_partial), K4 sharded (its candidate
@@ -3565,49 +3932,8 @@ def sharded_kernel_checks(cap: dict, shards, k11_count: dict, k11_baseline=None)
            + int(cap["state1"][5]) * 32 + pending.shape[0] * 12, restore=restore4)
     out["sig_expand_sharded"].update(rows=n_sel, lanes_valid=n_valid,
                                      pending=int(pending.shape[0]))
-    # K11, both allowances (the ragged one from the run's send counts, or
-    # as if every shard sent alike)
-    S_all = cap["S"]
-    if S_all is None:
-        S_all = cap["route_out"][:ndev].repeat(ndev, 1).to(torch.int32)
-    for mode, Smat in (("dense", None), ("ragged", S_all)):
-        inp = dict(cand=cap["cand_route"], carry=cap["ring"], n_lanes=cap["nsel"] * M, M=M,
-                   ndev=ndev, me=me, cap=eng.exchange_cap, S=Smat, seg=sh.seg)
-        run = K11Run(inp)
-        p_out = k11_check(f"K11 ({mode})", inp, run)
-        A = k11_sent_sizes(inp, p_out)
-        # inputs read once, outputs written once: every row's dest, the
-        # remote rows' other three words, the send counts (ragged) and the
-        # row count; the wire rows sent, the new ring and out
-        remote = int(p_out[:ndev].sum())
-        ccar = inp["carry"].shape[0]
-        nbytes = ((inp["n_lanes"] + ccar) * 4 + remote * 12
-                  + (0 if Smat is None else ndev * ndev * 4) + 8
-                  + int(A.sum()) * 12 + ccar * 16 + (ndev + 3) * 4)
-        report(f"route_{mode}", 0, run.call,
-               lambda inp=inp: SH.route_plain(inp["cand"], inp["n_lanes"], inp["carry"], ndev,
-                                              me, inp["cap"], inp["S"]), nbytes)
-        run.count()
-        passes = {"route_count": dict(ms=time_ms(run.count, 20),
-                                      device_ms=device_ms(run.count, 20)),
-                  "route_pack": dict(ms=time_ms(run.pack, 20), device_ms=device_ms(run.pack, 20))}
-        print("    passes alone: " + ", ".join(
-            f"{k} wrapper {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms"
-            for k, v in passes.items()))
-        barriers = k11_barriers(k11_count, inp, mode)
-        bitonic = [k11_bitonic_stages(int(c)) for c in p_out[:ndev]]
-        out[f"route_{mode}"].update(
-            rows=inp["n_lanes"] + ccar, remote=remote, sent=int(A.sum()),
-            spilled=remote - int(A.sum()), passes=passes, segments=p_out[:ndev].tolist(),
-            barriers=barriers, bitonic_stages=bitonic)
-        print(f"    segments {p_out[:ndev].tolist()}: block barriers {barriers} (counted by "
-              f"the K11_BARRIERS build; c408a21's bitonic: {bitonic} stages by its loop "
-              f"bounds)")
-        if k11_baseline is not None:
-            old = K11Run(inp, k11_baseline)
-            k11_check(f"K11 of {k11_baseline['src']} ({mode})", inp, old)
-            out[f"route_{mode}"]["turns"] = k11_turns(inp, k11_baseline,
-                                                      f"step {cap['at']}, {mode}")
+    # K11, both allowances
+    out.update(k11_sig_checks(cap, k11_count, k11_baseline, k11_phases))
     # K7's hop mode on every shard's table from every path node
     checked, err = 0, 0
     for shd in shards:
@@ -3629,7 +3955,102 @@ def sharded_kernel_checks(cap: dict, shards, k11_count: dict, k11_baseline=None)
     return out
 
 
-def keyrow_kernel_checks(cap: dict, shards, k10_phase_fns=None, baseline=None) -> dict:
+def k11_live_rows(cap: dict, ndev: int) -> int:
+    """The live rows of the captured step's ring (its first rows, the rest
+    the empty row), which the shard's word beside the ring must give, as
+    its word beside the new ring the new ring's."""
+    got = []
+    for ring, word in ((cap["ring"], cap["ring_len"]), (cap["ring1"], cap["ring_len1"])):
+        live = int((ring[:, 0] < ndev).sum())
+        if not bool((ring[:live, 0] < ndev).all()) or word != live:
+            fail(f"K11: a ring's live rows are not its first {live} rows, or its word reads "
+                 f"{word}")
+        got.append(live)
+    return got[0]
+
+
+def k11_bytes(inp: dict, p_out, A) -> int:
+    """K11's bytes on ``inp`` (inputs read once, outputs written once):
+    the dest word of every lane and live ring row, the remote rows' other
+    words, the send counts (ragged), the row count and the ring's word; the
+    wire rows sent, the spilled rows kept, out and the new ring's word (the
+    empty row over rows the old buffer held live beyond them: none in the
+    steady state timed)."""
+    ndev, ccar = inp["ndev"], inp["carry"].shape[0]
+    width = inp["cand"].shape[1]
+    remote, sent = int(p_out[:ndev].sum()), int(A.sum())
+    kept = min(remote - sent, ccar)
+    return ((inp["n_lanes"] + inp.get("carry_len", ccar)) * 4 + remote * (width - 1) * 4
+            + (0 if inp["S"] is None else ndev * ndev * 4) + 8 + 4
+            + sent * (width - 2) * 4 + kept * width * 4 + (ndev + 3) * 4 + 4)
+
+
+def k11_rows_checks(cap: dict, k11: dict = None) -> dict:
+    """K11 on key rows on shard ``target``'s inputs of a captured step
+    (sharded_guard), under the dense and the run's ragged allowance (or
+    the ragged one as if every shard sent alike): against route_plain bit
+    for bit (k11_check), its wrapper, device, plain times and bound by
+    bytes, each pass alone, and with ``k11`` (a dict of builds) the
+    K11_PHASES build's split (``phases``) with torch.sort of the segment
+    beside it, each destination's sort barriers (``count``, the
+    K11_BARRIERS build) and another tree's K11 checked and timed in turns
+    (``baseline``)."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    k11 = k11 or {}
+    sh, eng = cap["shard"], cap["eng"]
+    ndev, me, M = eng.ndev, sh.me, sh.st.M
+    out = {}
+    report = functools.partial(timed_check, out)
+    S_all = cap["S"]
+    if S_all is None:
+        S_all = cap["route_out"][:ndev].repeat(ndev, 1).to(torch.int32)
+    live = k11_live_rows(cap, ndev)
+    for mode, Smat in (("dense", None), ("ragged", S_all)):
+        inp = dict(cand=cap["cand_route"], carry=cap["ring"], n_lanes=cap["nsel"] * M, M=M,
+                   ndev=ndev, me=me, cap=eng.exchange_cap, S=Smat, seg=sh.seg, fill=sh.fill,
+                   carry_len=live)
+        run = K11Run(inp)
+        p_out = k11_check(f"K11 on {sh.layout} rows ({mode})", inp, run)
+        A = k11_sent_sizes(inp, p_out)
+        remote = int(p_out[:ndev].sum())
+        ccar, width = inp["carry"].shape[0], inp["cand"].shape[1]
+        nbytes = k11_bytes(inp, p_out, A)
+        report(f"route_rows_{mode}", 0, run.call,
+               lambda inp=inp: SH.route_plain(inp["cand"], inp["n_lanes"], inp["carry"], ndev,
+                                              me, inp["cap"], inp["S"], inp["fill"]), nbytes)
+        run.count()
+        row = out[f"route_rows_{mode}"]
+        row.update(
+            rows=inp["n_lanes"] + ccar, remote=remote, sent=int(A.sum()), width=width,
+            spilled=remote - int(A.sum()), segments=p_out[:ndev].tolist(), passes={
+                "route_count_rows": dict(ms=time_ms(run.count, 20),
+                                         device_ms=device_ms(run.count, 20)),
+                "route_pack_rows": dict(ms=time_ms(run.pack, 20),
+                                        device_ms=device_ms(run.pack, 20))})
+        print("    passes alone: " + ", ".join(
+            f"{k} wrapper {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms"
+            for k, v in row["passes"].items()))
+        if k11.get("phases"):
+            row["split"] = k11_split(inp, k11["phases"])
+            row["torch_sort"] = k11_sort_yardstick(inp, run)
+        for name, fns in k11.get("copy_variants", {}).items():
+            print(f"    {fns['src']}:")
+            row[f"split_{name}"] = k11_split(inp, fns)
+        if k11.get("count"):
+            row["barriers"] = k11_barriers(k11["count"], inp, f"{sh.layout} rows, {mode}")
+            print(f"    segments {row['segments']}: block barriers {row['barriers']} (counted "
+                  f"by the K11_BARRIERS build)")
+        if k11.get("baseline") and "route_count_rows" in k11["baseline"]:
+            old = K11Run(inp, k11["baseline"])
+            k11_check(f"K11 of {k11['baseline']['src']} on {sh.layout} rows ({mode})", inp, old)
+            row["turns"] = k11_turns(inp, k11["baseline"],
+                                     f"{sh.layout} rows, step {cap['at']}, {mode}")
+    return out
+
+
+def keyrow_kernel_checks(cap: dict, shards, k10_phase_fns=None, baseline=None,
+                         k11=None) -> dict:
     """The sharded step's kernels on key rows against their plain versions
     on the card, bit for bit, on shard ``target``'s inputs of the captured
     step (sharded_guard) of a packed or unpacked run: keyrow_coords and
@@ -3734,31 +4155,7 @@ def keyrow_kernel_checks(cap: dict, shards, k10_phase_fns=None, baseline=None) -
     out["keyrow_expand_sharded"].update(rows=n_sel, lanes=L, lanes_valid=n_valid,
                                         pending=int(pending.shape[0]))
     # K11 on key rows, both allowances
-    S_all = cap["S"]
-    if S_all is None:
-        S_all = cap["route_out"][:ndev].repeat(ndev, 1).to(torch.int32)
-    for mode, Smat in (("dense", None), ("ragged", S_all)):
-        inp = dict(cand=cap["cand_route"], carry=cap["ring"], n_lanes=cap["nsel"] * M, M=M,
-                   ndev=ndev, me=me, cap=eng.exchange_cap, S=Smat, seg=sh.seg, fill=sh.fill)
-        run = K11Run(inp)
-        p_out = k11_check(f"K11 on {layout} rows ({mode})", inp, run)
-        A = k11_sent_sizes(inp, p_out)
-        remote = int(p_out[:ndev].sum())
-        ccar, width = inp["carry"].shape[0], inp["cand"].shape[1]
-        nbytes = ((inp["n_lanes"] + ccar) * 4 + remote * (width - 1) * 4
-                  + (0 if Smat is None else ndev * ndev * 4) + 8
-                  + int(A.sum()) * (width - 2) * 4 + ccar * width * 4 + (ndev + 3) * 4)
-        report(f"route_rows_{mode}", 0, run.call,
-               lambda inp=inp: SH.route_plain(inp["cand"], inp["n_lanes"], inp["carry"], ndev,
-                                              me, inp["cap"], inp["S"], inp["fill"]), nbytes)
-        run.count()
-        out[f"route_rows_{mode}"].update(
-            rows=inp["n_lanes"] + ccar, remote=remote, sent=int(A.sum()),
-            spilled=remote - int(A.sum()), segments=p_out[:ndev].tolist(), passes={
-                "route_count_rows": dict(ms=time_ms(run.count, 20),
-                                         device_ms=device_ms(run.count, 20)),
-                "route_pack_rows": dict(ms=time_ms(run.pack, 20),
-                                        device_ms=device_ms(run.pack, 20))})
+    out.update(k11_rows_checks(cap, k11))
     # K10 over [received; self-owned]
     tab = clone_table(cap["k10_tab0"])
     c = cap["k10_ctr0"].clone()
@@ -3958,7 +4355,8 @@ def loop_words(eng) -> list:
         out += [(f"{sh.me}.{k}", t) for k, t in (
             ("ctr", sh.ctr), ("state", sh.state[:S.STATE_CNT]), ("ring0", sh.rings[0]),
             ("ring1", sh.rings[1]), ("cur", torch.tensor(sh.cur)), ("recv", sh.recv),
-            ("go", sh.go), ("route_out", sh.route_out), ("cand", sh.cand), ("wire", sh.wire))]
+            ("go", sh.go), ("route_out", sh.route_out), ("cand", sh.cand), ("wire", sh.wire),
+            ("ring_len", sh.ring_len), ("tally", sh.tally))]
     return out + [("cons", eng.cards[0].cons)]
 
 
@@ -4727,9 +5125,76 @@ def walk_loop_check(eng, floor: dict, baseline=None) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def fsort_spread():
+    """Each route_count call inside on a card's live shard: per
+    destination with remote rows, the spread (max - min) of their fsorts
+    over the lanes and the ring's live rows, read on the host (the host
+    driver's steps); yields the list of (spread, position bits: log2 of the
+    shard's key segment)."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    seen, count = [], SH._Shard.count
+
+    def counted(sh, eng):
+        if sh.cuda and int(sh.run[0]):
+            n = int(sh.bufs.state[2]) * sh.st.M
+            rows = torch.cat([sh.cand[:n], sh.ring[:int(sh.ring_len[sh.cur])]])[:, :2].long()
+            for d in range(eng.ndev):
+                f = rows[rows[:, 0] == d, 1]
+                if f.numel():
+                    seen.append((int(f.max() - f.min()), sh.seg.bit_length() - 1))
+        return count(sh, eng)
+
+    SH._Shard.count = counted
+    try:
+        yield seen
+    finally:
+        SH._Shard.count = count
+
+
+def k11_phase(paths, gold, k11: dict, sweep: bool = False) -> dict:
+    """K11 alone (``--k11-only``): kinase on 4 shards of one card under the
+    host driver, packed (auto), pinned to unpacked and pinned to sig at
+    2^23 slots a shard, each to the golden g and alignment with step 200
+    captured; K11 on its rows there (k11_rows_checks, k11_sig_checks, with
+    ``k11``'s builds: count, phases, baseline), the sweep with ``sweep``,
+    and a traced dense chunked run (its device time a step, by kernel)."""
+    card = torch.device("cuda", 0)
+    k = gold["kinase.fasta"]
+    out = {}
+    for layout, kw in (("packed", {}), ("unpacked", {"layout": "unpacked"}),
+                       ("sig", {"layout": "sig", "capacity": 1 << 23})):
+        with fsort_spread() as spread:
+            out[f"kinase_{layout}"], eng, cap = sharded_run(
+                f"kinase sharded 4, {layout}, host driver", paths["kinase.fasta"], k,
+                [card] * 4, layout != "unpacked", capture_step=200, driver="host", **kw)
+        fits = sum(w < 1 << (32 - b) for w, b in spread)
+        out[f"spread_{layout}"] = dict(segments=len(spread), fit_32_bits=fits,
+                                       max=max(w for w, _ in spread),
+                                       median=statistics.median(w for w, _ in spread))
+        print(f"  fsort spread of a destination's rows a step ({layout}): "
+              f"{out[f'spread_{layout}']}; position bits {spread[0][1]}")
+        if "cand_route" not in cap:
+            fail(f"kinase sharded {layout}: the search ended before the captured step")
+        print(f"K11 on shard {cap['shard'].me}'s step 200 ({layout}):")
+        out[f"checks_{layout}"] = (
+            k11_sig_checks(cap, k11["count"], k11.get("baseline"), k11.get("phases"))
+            if layout == "sig" else k11_rows_checks(cap, k11))
+        del eng, cap
+    if sweep:
+        out["k11_sweep"] = k11_sweep(k11["count"], k11.get("baseline"))
+    out["kinase_dense"], eng, _ = sharded_run("kinase sharded 4, dense", paths["kinase.fasta"],
+                                              k, [card] * 4, True, profile=True,
+                                              exchange="dense")
+    print("  the dense step's device us by kernel: " + ", ".join(
+        f"{name} {us:.2f}" for name, us in out["kinase_dense"]["step_kernels_us"].items()))
+    return out
+
+
 def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
                   sweep=False, k6s_baseline=None, k10_phase_fns=None,
-                  keyrow_baseline=None) -> dict:
+                  keyrow_baseline=None, k11_phases=None) -> dict:
     """The sharded engine on one card (parallel/sharded.py, a LocalMesh of
     [cuda:0] * 4): kinase --triples auto, whose automatic layout is packed
     at JAX's 2^21 slots a shard (sharded cubes), with the ragged exchange
@@ -4742,8 +5207,9 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
     step 200 of each of the three, each kernel of its step against its
     plain version (loop_kernel_checks: the consensus and the exchange;
     keyrow_kernel_checks, sharded_kernel_checks: ``k11_count`` the
-    K11_BARRIERS build, ``k11_baseline`` another tree's K11 too, timed in
-    turns with K11 on sig rows; ``k6s_baseline`` another tree's consensus,
+    K11_BARRIERS build, ``k11_phases`` the K11_PHASES build's split,
+    ``k11_baseline`` another tree's K11 too, timed in turns with K11 on
+    key rows and on sig rows; ``k6s_baseline`` another tree's consensus,
     in turns with this one; ``k10_phase_fns`` the K10_PHASES build and
     ``keyrow_baseline`` another tree's K10, for K10 on received rows); the
     sharded step's bounds at the sig
@@ -4822,8 +5288,9 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
                                                capture_step=200, eng=eng)
     if "cand" not in cap or "k10_rows" not in cap or "x_pend1" not in cap:
         fail("kinase sharded: the search ended before the captured step")
+    k11 = dict(count=k11_count, baseline=k11_baseline, phases=k11_phases)
     out["checks_packed"] = keyrow_kernel_checks(cap, cap["shards"], k10_phase_fns,
-                                                keyrow_baseline)
+                                                keyrow_baseline, k11)
     out["checks_loop"] = loop_kernel_checks(cap, floor, k6s_baseline)
     r = out["kinase_host"]
     if out["checks_packed"]["walk"]["rounds"] != r["walk_rounds"]:
@@ -4845,7 +5312,7 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
     if eng.cubes_split or "k10_rows" not in cap:
         fail(f"kinase sharded unpacked: cubes split {eng.cubes_split}, or no captured step")
     out["checks_unpacked"] = keyrow_kernel_checks(cap, cap["shards"], k10_phase_fns,
-                                                  keyrow_baseline)
+                                                  keyrow_baseline, k11)
     del eng, cap
     # the sig layout (PR 15's path), pinned at the capacity its word takes
     out["turns_sig"], eng = driver_turns("kinase sharded 4, pinned sig", paths["kinase.fasta"],
@@ -4855,7 +5322,8 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
         capture_step=200, eng=eng)
     if "cand" not in cap:
         fail("kinase sharded sig: the search ended before the captured step")
-    out["checks"] = sharded_kernel_checks(cap, cap["shards"], k11_count, k11_baseline)
+    out["checks"] = sharded_kernel_checks(cap, cap["shards"], k11_count, k11_baseline,
+                                          k11_phases)
     if sweep:
         out["k11_sweep"] = k11_sweep(k11_count, k11_baseline)
     r = out["kinase_sig"]
@@ -5840,6 +6308,11 @@ def main() -> int:
                     help="run the device, build and sharded-engine phases only "
                          "(a quick check of the multi-device step; prints no "
                          "result line)")
+    ap.add_argument("--k11-only", action="store_true",
+                    help="run the device, build and K11 checks only: kinase on 4 shards "
+                         "(packed, unpacked, sig) to the golden, K11 on each run's step "
+                         "200 with its K11_PHASES split (and --k11-baseline's in turns, "
+                         "--k11-sweep), and a traced dense run (prints no result line)")
     ap.add_argument("--multi-card-only", action="store_true",
                     help="run the device, build and the sharded engine's multi-card "
                          "phase only (kinase on every card, chunked and host in turns, "
@@ -5878,6 +6351,13 @@ def main() -> int:
     k10_wide_jobs = start_k10_wide_builds(phases_tmp.name) if args.k10_sweep else {}
     k8_no_store_job = start_phases_build("gotoh_wavefront", phases_tmp.name)
     k11_count_job = start_phases_build("route_pack", phases_tmp.name)
+    k11_phases_job = start_phases_build("route_pack", phases_tmp.name, "K11_PHASES")
+    # the key-row copy without its loads, and without its stores to device
+    # memory
+    k11_copy_jobs = {v: start_phases_build("route_pack", phases_tmp.name,
+                                           f"K11_PHASES+K11_COPY_{m}")
+                     for v, m in (("no_loads", "NO_LOAD"), ("no_stores", "NO_STORE"))
+                     } if args.k11_only else {}
     keyrow_job = (start_keyrow_baseline(os.path.abspath(args.keyrow_baseline),
                                         phases_tmp.name) if args.keyrow_baseline else None)
     k8_job = (start_k8_baseline(os.path.abspath(args.k8_baseline), phases_tmp.name)
@@ -5894,6 +6374,10 @@ def main() -> int:
         k8_no_store = load_phases(k8_no_store_job)
         k10_wide = load_k10_wide(k10_wide_jobs)
         k11_count = load_k11_barriers(k11_count_job)
+        k11_phases = load_k11_phases(k11_phases_job)
+        k11_copy = {v: load_k11_phases(j, f"the K11_PHASES build, the key-row copy "
+                                          f"{v.replace('_', ' ')}")
+                    for v, j in k11_copy_jobs.items()}
         keyrow_baseline = load_keyrow_baseline(keyrow_job) if keyrow_job else None
         k8_baseline = load_k8_baseline(k8_job) if k8_job else None
         k11_baseline = load_k11_baseline(k11_job) if k11_job else None
@@ -5901,7 +6385,7 @@ def main() -> int:
     if keyrow_baseline:
         K7_VARIANTS["baseline"] = keyrow_baseline["path_walk"]
     print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES, K10_PHASES, "
-          f"K8_NO_STORE and K11_BARRIERS builds "
+          f"K8_NO_STORE, K11_BARRIERS and K11_PHASES builds "
           f"in {time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
              for line in log.splitlines()
@@ -5931,10 +6415,17 @@ def main() -> int:
                                                        torch.cuda.device_count())
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
+        if args.k11_only:
+            report["k11"] = k11_phase(paths, gold, dict(count=k11_count, phases=k11_phases,
+                                                        baseline=k11_baseline,
+                                                        copy_variants=k11_copy),
+                                      args.k11_sweep)
+            write_report(args.report, report)
+            return 0  # a partial run: no kernels line and no result line
         if args.sharded_only:
             report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
                                               args.k11_sweep, k6s_baseline, phases[2],
-                                              keyrow_baseline)
+                                              keyrow_baseline, k11_phases)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["capture"] = capture_check(paths)
@@ -6027,7 +6518,7 @@ def main() -> int:
         # 7. the sharded engine (parallel/sharded.py) on [cuda:0] * 4
         report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
                                           args.k11_sweep, k6s_baseline, phases[2],
-                                          keyrow_baseline)
+                                          keyrow_baseline, k11_phases)
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
             # and the plain step on the same windows, the step before K3-K5

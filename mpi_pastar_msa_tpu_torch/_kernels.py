@@ -82,12 +82,13 @@ SIGNATURES: Dict[str, List] = {
     # shift, Z-order bits), ndev, me, stream
     "sig_expand_sharded": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I,
                            _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # K11's passes: cand, carry, nsel, M, lanes cap, ring rows, ndev,
-    # segment, out, keys, run (or null), stream; then cand, carry, nsel, M,
-    # ring rows, ndev, me, cap, S (or null), segment, out, keys, wire, new
-    # ring, run (or null), stream
-    "route_count": [_P, _P, _P, _I, _I, _I, _I, _L, _P, _P, _P, _P],
-    "route_pack": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P],
+    # K11's passes: cand, carry, its live length, nsel, M, lanes cap, ring
+    # rows, ndev, segment, this step's counts, the next step's (zeroed),
+    # out, keys, run (or null), stream; then cand, carry, nsel, M, ring
+    # rows, ndev, me, cap, S (or null), segment, counts, out, keys, wire,
+    # new ring, its live length, run (or null), stream
+    "route_count": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P],
+    "route_pack": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P],
     # K12 and the coordinates it gathers: coords, cubes, triangles, N, S,
     # local cubes, rows, out, run (or null), stream; t_sig, compact list,
     # nsel, bit widths, N, bbits, B, coords, run (or null), stream
@@ -109,10 +110,12 @@ SIGNATURES: Dict[str, List] = {
     "keyrow_insert_recv": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                            _P, _P, _P, _I, _P, _I, _P, _P],
     # K11 on rows of any width: route_count's and route_pack's arguments
-    # with the row's words, its key words and the empty fsort before out
-    "route_count_rows": [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P],
+    # with the row's words, its key words and the empty fsort before the
+    # counts
+    "route_count_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P,
+                         _P],
     "route_pack_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L, _I, _I, _I, _P, _P, _P, _P,
-                        _P, _P],
+                        _P, _P, _P, _P],
     # the coordinates K12 gathers on the packed layout: t_key, its row
     # stride, compact list, nsel, N, B, coords, run (or null), stream
     "keyrow_coords": [_P, _I, _P, _P, _I, _I, _P, _P, _P],

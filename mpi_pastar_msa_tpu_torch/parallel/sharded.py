@@ -1012,6 +1012,11 @@ class _Shard:
         row = torch.tensor([self.fill], **i32)
         self.rings = [row.repeat(self.ccar, 1), row.repeat(self.ccar, 1)]
         self.cur = 0
+        # each ring's live length (its rows from it on are the empty row),
+        # and the route's counts and migrants of a step from each ring, the
+        # other zeroed by the step's count (csrc/route_pack.cu)
+        self.ring_len = torch.zeros(2, **i32)
+        self.tally = torch.zeros((2, ndev + 1), **i32)
         self.go = torch.zeros(1, **i32)    # the insert's flag (the consensus sets it)
         self.recv = torch.zeros(1, **i32)  # rows received this step (the consensus)
         self.wire = torch.zeros((max(self.R, L + self.ccar), self.pw), **i32)
@@ -1174,20 +1179,27 @@ class _Shard:
 
     @_on_device
     def count(self, eng) -> torch.Tensor:
+        """The first pass: this step's send counts (the view the gathers
+        read) and migrants into ``tally[cur]``, the other zeroed."""
+        ndev, cur = eng.ndev, self.cur
         if self.cuda:
-            self._go(("count", self.cur), lambda launch: self._count_args(eng, launch))
+            self._go(("count", cur), lambda launch: self._count_args(eng, launch))
         elif self._live():
-            self._route = route_plain(self.cand, self.n_sel * self.st.M, self.ring, eng.ndev,
+            self._route = route_plain(self.cand, self.n_sel * self.st.M, self.ring, ndev,
                                       self.me, eng.exchange_cap, fill=self.fill)
             self.route_out.copy_(self._route[2])
-        return self.route_out[: eng.ndev]
+            self.tally[1 - cur] = 0
+            self.tally[cur] = self._route[2][:ndev + 1]
+        return self.tally[cur, :ndev]
 
     def _count_args(self, eng, launch) -> None:
         nsel = self.bufs.state[self.S.STATE_NSEL].data_ptr()
         stream = torch.cuda.current_stream(self.dev).cuda_stream
-        head = (self.cand.data_ptr(), self.ring.data_ptr(), nsel, self.st.M, self.cand.shape[0],
-                self.ccar, eng.ndev, self.seg)
-        tail = (self.route_out.data_ptr(), self.keys.data_ptr(), self.run.data_ptr(), stream)
+        cur = self.cur
+        head = (self.cand.data_ptr(), self.ring.data_ptr(), self.ring_len[cur].data_ptr(), nsel,
+                self.st.M, self.cand.shape[0], self.ccar, eng.ndev, self.seg)
+        tail = (self.tally[cur].data_ptr(), self.tally[1 - cur].data_ptr(),
+                self.route_out.data_ptr(), self.keys.data_ptr(), self.run.data_ptr(), stream)
         if self.layout == "sig":
             launch("route_count", *head, *tail)
         else:
@@ -1195,9 +1207,10 @@ class _Shard:
 
     @_on_device
     def pack(self, eng, S_all: Optional[torch.Tensor]) -> None:
-        """The second pass into the other ring, ``cur`` flipped.  A card's
-        shard flips it on the host at every call (the chunked driver sets
-        it after a chunk's replays, from the steps that ran)."""
+        """The second pass into the other ring and its live length,
+        ``cur`` flipped.  A card's shard flips it on the host at every call
+        (the chunked driver sets it after a chunk's replays, from the steps
+        that ran)."""
         nxt = 1 - self.cur
         if self.cuda:
             S_ptr = None if S_all is None else S_all.data_ptr()
@@ -1206,8 +1219,9 @@ class _Shard:
                 nsel = self.bufs.state[self.S.STATE_NSEL]
                 head = (self.cand.data_ptr(), self.ring.data_ptr(), nsel.data_ptr(), self.st.M,
                         self.ccar, eng.ndev, self.me, eng.exchange_cap, S_ptr, self.seg)
-                outs = (self.route_out.data_ptr(), self.keys.data_ptr(), self.wire.data_ptr(),
-                        self.rings[nxt].data_ptr(), self.run.data_ptr(),
+                outs = (self.tally[self.cur].data_ptr(), self.route_out.data_ptr(),
+                        self.keys.data_ptr(), self.wire.data_ptr(), self.rings[nxt].data_ptr(),
+                        self.ring_len[nxt].data_ptr(), self.run.data_ptr(),
                         torch.cuda.current_stream(self.dev).cuda_stream)
                 if self.layout == "sig":
                     launch("route_pack", *head, *outs)
@@ -1227,6 +1241,7 @@ class _Shard:
             self.wire[:wire.shape[0]] = wire
             self.wire[wire.shape[0]:] = 0
             self.route_out.copy_(out)
+            self.ring_len[nxt] = int((self.rings[nxt][:, 0] < eng.ndev).sum())
         self.cur = nxt
 
     # 5. the insert of the received rows (the exchange put them before row
@@ -1324,7 +1339,7 @@ class _Card:
         if multi and self.cuda:
             self.stream = torch.cuda.Stream(dev)
             self.events = {p: torch.cuda.Event() for p in self.PHASES}
-        self.pulls: Dict[str, list] = {}
+        self.pulls: Dict[object, list] = {}
         self.tabs: Dict[str, torch.Tensor] = {}
         self.graphs: Dict[int, object] = {}
         self.warm = False
@@ -1351,7 +1366,8 @@ class _Card:
             pulls["parts"] = [(self.parts[sh.me, j * B:(j + 1) * B], sh.part[j * B:(j + 1) * B])
                               for sh in others for j in sorted(mine)]
         if self.multi:
-            pulls["counts"] = [(self.counts[sh.me], sh.route_out[:ndev]) for sh in shards]
+            for p in (0, 1):  # the send counts of a step from ring p
+                pulls["counts", p] = [(self.counts[sh.me], sh.tally[p, :ndev]) for sh in shards]
             pulls["snaps"] = [(sh.snap, sh.blk) for sh in self.shards]
             # every shard's snapshot, where it lies
             self.reports = [sh.snapshot() for sh in shards]
@@ -1404,8 +1420,9 @@ class _Card:
                 ctx.enter_context(torch.cuda.stream(self.stream))
         return ctx
 
-    def pull(self, name: str) -> None:
-        """The copies of one gather into this card's buffers."""
+    def pull(self, name) -> None:
+        """The copies of one gather (``pulls[name]``) into this card's
+        buffers."""
         copies(self.pulls.get(name, ()), self.tabs.get(name))
 
     def signal(self, phase: str) -> None:
@@ -2041,7 +2058,7 @@ class ShardedFrontierSearch:
                         S_all = card.counts
                         if card.multi:
                             card.wait("counts")
-                            card.pull("counts")
+                            card.pull(("counts", card.shards[0].cur))
                         else:
                             torch.stack(counts, out=S_all)
                     for sh in card.shards:

@@ -1317,7 +1317,7 @@ def _sharded_capture(cuda, name="kinase.fasta", at=60, **kw):
     def count(sh, eng):
         if step[0] == at and sh.me == 1:
             cap.update(ring=sh.ring.clone(), cand_route=sh.cand.clone(),
-                       nsel=int(sh.bufs.state[2]))
+                       nsel=int(sh.bufs.state[2]), ring_len=int(sh.ring_len[sh.cur]))
         return methods["count"](sh, eng)
 
     def pack(sh, eng, S_all):
@@ -1385,17 +1385,25 @@ def test_k4_sharded_and_k11_equal_plain(cuda):
     ring, wire, out = (torch.empty_like(sh.rings[0]), torch.zeros_like(sh.wire),
                        torch.empty_like(sh.route_out))
     keys = torch.empty_like(sh.keys)
+    # the ring's word (its live rows, as the run's own word gives them), and
+    # the new ring's: unknown contents
+    live = int((cap["ring"][:, 0] < 4).sum())
+    assert cap["ring_len"] == live and bool((cap["ring"][:live, 0] < 4).all())
+    lens = torch.tensor([live, sh.ccar], dtype=torch.int32, device=cuda)
+    counts = torch.zeros((2, 5), dtype=torch.int32, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
     _kernels.launch("route_count", cap["cand_route"].data_ptr(), cap["ring"].data_ptr(),
-                    nsel.data_ptr(), M, cap["cand_route"].shape[0], sh.ccar, 4, sh.seg,
-                    out.data_ptr(), keys.data_ptr(), None, stream)
+                    lens[0].data_ptr(), nsel.data_ptr(), M, cap["cand_route"].shape[0], sh.ccar,
+                    4, sh.seg, counts[0].data_ptr(), counts[1].data_ptr(), out.data_ptr(),
+                    keys.data_ptr(), None, stream)
     _kernels.launch("route_pack", cap["cand_route"].data_ptr(), cap["ring"].data_ptr(),
                     nsel.data_ptr(), M, sh.ccar, 4, me, eng.exchange_cap, None, sh.seg,
-                    out.data_ptr(), keys.data_ptr(), wire.data_ptr(), ring.data_ptr(), None,
-                    stream)
+                    counts[0].data_ptr(), out.data_ptr(), keys.data_ptr(), wire.data_ptr(),
+                    ring.data_ptr(), lens[1].data_ptr(), None, stream)
     w, r, o = SH.route_plain(cap["cand_route"], cap["nsel"] * M, cap["ring"], 4, me,
                              eng.exchange_cap)
     assert torch.equal(out, o) and torch.equal(ring, r)
+    assert int(lens[1]) == int((r[:, 0] < 4).sum())
     for d in range(4):
         n = min(int(o[d]), eng.exchange_cap)
         lo = d * eng.exchange_cap
@@ -1492,20 +1500,24 @@ K11_CASES = [
 
 # each K11_CASES destination's block barriers in route_pack's sort (the
 # counts tests/test_torch_sharded.py::K11_SHAPES gives the emulation): none
-# on one warp (up to 256 keys), 2 at 257-512, 3 at 513-1,024, 6 at 8,192,
-# 15 for the halves (8,193-16,384), 8 in device memory (16,385-32,768)
-K11_BARRIERS = {"empty_and_one": (0, 0, 0, 0), "ties": (2, 0, 0, 2), "warp_edges": (0, 0, 0, 0),
-                "kinase_sizes": (3, 3, 0, 2), "shared_limit": (6, 15, 0, 0),
-                "halves_limit": (15, 8, 0, 2), "whole_shard": (8, 0, 0, 0),
-                "spill_cap_1": (0, 0, 0, 0), "ring_overflow": (0, 2, 0, 0)}
+# on one warp (up to 256 keys), 3 at 257-512, 4 at 513-1,024 (the fsort
+# range's, the merge rounds', the end's), 6 at 8,192, 15 for the halves
+# (8,193-16,384), 8 in device memory (16,385-32,768)
+K11_BARRIERS = {"empty_and_one": (0, 0, 0, 0), "ties": (3, 0, 0, 3), "warp_edges": (0, 0, 0, 0),
+                "kinase_sizes": (4, 4, 0, 3), "shared_limit": (6, 15, 0, 0),
+                "halves_limit": (15, 8, 0, 3), "whole_shard": (8, 0, 0, 0),
+                "spill_cap_1": (0, 0, 0, 0), "ring_overflow": (0, 3, 0, 0)}
 
 
 def _k11_run(cuda, case, counts, cap, ccar, f_range, ragged, pack=None):
     """One synthetic K11 case (_k11_inputs, me = 2 of 4 shards, the ragged
     send counts random but for this shard's) through route_count and
     route_pack (``pack``: another build's C entry in place of the port's),
-    twice on the same buffers, each time against route_plain bit for bit:
-    out, the new ring and the wire rows sent.  Returns the plain out."""
+    twice on the same buffers (the count buffers in turns, the carry's
+    word all its rows: its live rows lie anywhere; the new ring's word
+    first its whole length, a buffer of unknown contents), each time
+    against route_plain bit for bit: out, the new ring, its word and the
+    wire rows sent.  Returns the plain out."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
     ndev, me, M = 4, 2, 1
@@ -1529,14 +1541,17 @@ def _k11_run(cuda, case, counts, cap, ccar, f_range, ragged, pack=None):
     out = torch.empty(ndev + 3, dtype=torch.int32, device=cuda)
     wire = torch.zeros((max(ndev * cap, lanes_cap + ccar), 3), dtype=torch.int32, device=cuda)
     ring = torch.empty_like(carry)
+    lens = torch.tensor([ccar, ccar], dtype=torch.int32, device=cuda)  # carry's, ring's
+    tally = torch.zeros((2, ndev + 1), dtype=torch.int32, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
-    for _ in range(2):
-        _kernels.launch("route_count", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
-                        lanes_cap, ccar, ndev, seg, out.data_ptr(), keys.data_ptr(), None,
-                        stream)
+    for p in range(2):
+        _kernels.launch("route_count", cand.data_ptr(), carry.data_ptr(), lens[0].data_ptr(),
+                        nsel.data_ptr(), M, lanes_cap, ccar, ndev, seg, tally[p].data_ptr(),
+                        tally[1 - p].data_ptr(), out.data_ptr(), keys.data_ptr(), None, stream)
         args = (cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M, ccar, ndev, me, cap,
-                None if Smat is None else Smat.data_ptr(), seg, out.data_ptr(),
-                keys.data_ptr(), wire.data_ptr(), ring.data_ptr(), None, stream)
+                None if Smat is None else Smat.data_ptr(), seg, tally[p].data_ptr(),
+                out.data_ptr(), keys.data_ptr(), wire.data_ptr(), ring.data_ptr(),
+                lens[1].data_ptr(), None, stream)
         if pack is None:
             _kernels.launch("route_pack", *args)
         else:
@@ -1544,6 +1559,7 @@ def _k11_run(cuda, case, counts, cap, ccar, f_range, ragged, pack=None):
         torch.cuda.synchronize()
         assert torch.equal(out, o_p), (out.tolist(), o_p.tolist())
         assert torch.equal(ring, r_p)
+        assert int(lens[1]) == int((r_p[:, 0] < ndev).sum())
         assert torch.equal(wire[sent], w_p[sent])
     return o_p
 
@@ -1790,9 +1806,14 @@ def _k11_rows_inputs(cuda, counts, cap, ccar, f_range, seed, layout, W=3, ndev=4
 @pytest.mark.parametrize("layout", ["packed", "unpacked"])
 def test_k11_rows_equal_plain_synthetic(cuda, layout, case, counts, cap, ccar, f_range, ragged):
     """K11 on key rows (route_count_rows, route_pack_rows) against
-    route_plain bit for bit: out, the new ring and the wire rows sent,
-    twice on the same buffers, under both allowances; unpacked rows with
-    negative f; spills with cap 1 and a ring too small for them."""
+    route_plain bit for bit: out, the new ring, its word and the wire rows
+    sent, twice on the same buffers, under both allowances; unpacked rows
+    with negative f; spills with cap 1 and a ring too small for them.
+    Then steps on two ring buffers in turns, as a shard's, each step's
+    carry the ring the last wrote, with its word, under the dense
+    allowance at caps that make the ring grow, empty and grow again (the
+    empty row refilled over only the rows the buffer held live): every
+    word of each new ring, its word, out and the rows sent."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
     ndev, me, M = 4, 2, 1
@@ -1819,20 +1840,51 @@ def test_k11_rows_equal_plain_synthetic(cuda, layout, case, counts, cap, ccar, f
                        device=cuda)
     ring = torch.empty_like(carry)
     stream = torch.cuda.current_stream().cuda_stream
-    for _ in range(2):
-        _kernels.launch("route_count_rows", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
-                        lanes_cap, ccar, ndev, seg, width, 3, fill[1], out.data_ptr(),
-                        keys.data_ptr(), None, stream)
+    tally = torch.zeros((2, ndev + 1), dtype=torch.int32, device=cuda)
+
+    def step(p, cap, carry, carry_len, ring, ring_len, S=None):
+        _kernels.launch("route_count_rows", cand.data_ptr(), carry.data_ptr(),
+                        carry_len.data_ptr(), nsel.data_ptr(), M, lanes_cap, ccar, ndev, seg,
+                        width, 3, fill[1], tally[p].data_ptr(), tally[1 - p].data_ptr(),
+                        out.data_ptr(), keys.data_ptr(), None, stream)
         _kernels.launch("route_pack_rows", cand.data_ptr(), carry.data_ptr(), nsel.data_ptr(), M,
-                        ccar, ndev, me, cap, None if Smat is None else Smat.data_ptr(), seg,
-                        width, 3, fill[1], out.data_ptr(), keys.data_ptr(), wire.data_ptr(),
-                        ring.data_ptr(), None, stream)
+                        ccar, ndev, me, cap, None if S is None else S.data_ptr(), seg, width, 3,
+                        fill[1], tally[p].data_ptr(), out.data_ptr(), keys.data_ptr(),
+                        wire.data_ptr(), ring.data_ptr(), ring_len.data_ptr(), None, stream)
         torch.cuda.synchronize()
+
+    # the carry's live rows lie anywhere (its word: every row), the new ring
+    # is of unknown contents (its word: its whole length)
+    lens = torch.tensor([ccar, ccar], dtype=torch.int32, device=cuda)
+    for p in range(2):
+        step(p, cap, carry, lens[0], ring, lens[1], Smat)
         assert torch.equal(out, o_p), (out.tolist(), o_p.tolist())
         assert torch.equal(ring, r_p)
+        assert int(lens[1]) == int((r_p[:, 0] < ndev).sum())
         assert torch.equal(wire[sent], w_p[sent])
     if case == "ring_overflow":
         assert int(o_p[ndev + 1]) > 0
+    # two rings in turns; a cap that drains the ring, and cap 1 that fills it
+    drain = max(counts) + ccar
+    wire = torch.zeros((ndev * drain, width - 2), dtype=torch.int32, device=cuda)
+    rings = [ring, torch.empty_like(carry)]
+    words = torch.tensor([int(lens[1]), ccar], dtype=torch.int32, device=cuda)
+    kept = []
+    for t, c in enumerate((1, drain, cap, 1, drain, 1)):
+        a, b = t % 2, 1 - t % 2
+        w_p, r_p, o_p = SH.route_plain(cand, n_lanes, rings[a], ndev, me, c, None, fill)
+        step(t % 2, c, rings[a], words[a], rings[b], words[b])
+        live = int((r_p[:, 0] < ndev).sum())
+        assert torch.equal(out, o_p), (t, out.tolist(), o_p.tolist())
+        assert torch.equal(rings[b], r_p), t
+        assert int(words[b]) == live, (t, int(words[b]), live)
+        for d in range(ndev):
+            n = min(int(o_p[d]), c)
+            assert torch.equal(wire[d * c:d * c + n], w_p[d * c:d * c + n]), (t, d)
+        kept.append(live)
+    assert kept[1] == 0 and kept[4] == 0, kept
+    if sum(max(c - 1, 0) for c in counts):  # cap 1 spills: the ring grows again
+        assert min(kept[0], kept[3], kept[5]) > 0, kept
 
 
 @pytest.mark.parametrize("layout", ["packed", "unpacked"])
@@ -2134,7 +2186,8 @@ def _loop_words(eng):
         out += [(f"{sh.me}.{k}", t) for k, t in (
             ("ctr", sh.ctr), ("state", sh.state[:TS.STATE_CNT]), ("ring0", sh.rings[0]),
             ("ring1", sh.rings[1]), ("cur", torch.tensor(sh.cur)), ("recv", sh.recv),
-            ("go", sh.go), ("route_out", sh.route_out), ("cand", sh.cand), ("wire", sh.wire))]
+            ("go", sh.go), ("route_out", sh.route_out), ("cand", sh.cand), ("wire", sh.wire),
+            ("ring_len", sh.ring_len), ("tally", sh.tally))]
     return out + [("cons", eng.cards[0].cons)]
 
 

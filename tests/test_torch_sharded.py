@@ -33,7 +33,7 @@ from mpi_pastar_msa_tpu_torch.parallel import sharded as S
 from mpi_pastar_msa_tpu_torch.parallel.mesh import LocalMesh
 from mpi_pastar_msa_tpu_torch.search.backtrace import build_alignment
 from mpi_pastar_msa_tpu_torch.search.bruteforce import optimal_cost
-from mpi_pastar_msa_tpu_torch.search.engine import INFP, FrontierSearch, _sig_encode
+from mpi_pastar_msa_tpu_torch.search.engine import INF, INFP, FrontierSearch, _sig_encode
 
 # one intra-op thread: the test lane runs several workers on a few cores
 torch.set_num_threads(1)
@@ -199,15 +199,22 @@ def test_route_ragged_allowance_equals_numpy(seed, cap):
 PAD = np.uint64(2**64 - 1)  # route_pack.cu's padding key
 
 
-def emulate_count(rows, n_lanes, ndev, seg_len, rng):
-    """route_count in NumPy: a warp takes 32 consecutive rows, the warps
-    (and a warp's destination groups) in an arbitrary order, the kernel's
+def emulate_count(rows, n_lanes, ndev, seg_len, rng, tally=None, p=0):
+    """route_count in NumPy over ``rows`` (the lanes, then the carry ring's
+    live rows only): a warp takes 32 consecutive rows, the warps (and a
+    warp's destination groups) in an arbitrary order, the kernel's
     atomics; the lanes of a warp with one destination (__match_any_sync)
-    take one atomicAdd for the group and rank themselves by lane.  Returns
-    (out, per destination its segment of keys fsort << 32 | position)."""
+    take one atomicAdd for the group and rank themselves by lane.  The
+    counts and migrants go into ``tally[p]`` (ndev + 1 words, zero before;
+    a new pair when None), whose other row block 0 zeroes.  Returns
+    (tally[p], per destination its segment of keys fsort << 32 |
+    position)."""
     n = len(rows)
-    out = np.zeros(ndev + 3, np.int64)
-    out[ndev + 2] = INFP
+    if tally is None:
+        tally = np.zeros((2, ndev + 1), np.int64)
+    assert not tally[p].any()
+    tally[1 - p] = 0
+    out = tally[p]
     seg = np.zeros((ndev, seg_len), np.uint64)
     for w in rng.permutation(-(-n // 32)):
         r = w * 32 + np.arange(32)
@@ -218,7 +225,7 @@ def emulate_count(rows, n_lanes, ndev, seg_len, rng):
             peers = r[d == dd]  # lane order
             at = out[dd]
             out[dd] += len(peers)  # the leader's atomicAdd
-            f = (rows[peers, 1] & 0xFFFFFFFF).astype(np.uint64)
+            f = ((rows[peers, 1] & 0xFFFFFFFF) ^ 0x80000000).astype(np.uint64)
             seg[dd, at:at + len(peers)] = f << np.uint64(32) | peers.astype(np.uint64)
     return out, seg
 
@@ -265,41 +272,78 @@ def emulate_merge(x, a, b, w, o, keys):
     return v
 
 
-def emulate_sort(seg, n, keys, threads, shared_keys, rng):
+def emulate_warp_sort(run, keys):
+    """sort_warp: a warp's 32 groups of ``keys`` keys (lane l holds keys l
+    keys .. l keys + keys - 1 of ``run``) sorted by its bitonic network as
+    the kernel indexes it: every merge of runs of k / 2 keys first pairs
+    key i of lane l with key keys - 1 - i of lane l ^ (k / keys - 1) (its
+    mirror; within the lane while k <= keys), then with the key j apart
+    (a register while j < keys, lane l ^ (j / keys) beyond), the lower
+    lane or register taking the smaller key."""
+    v = np.array([int(k) for k in run], dtype=np.uint64).reshape(32, keys)
+    lane = np.arange(32)[:, None]
+    k = 2
+    while k <= 32 * keys:
+        if k <= keys:
+            for i in range(keys):
+                l = i ^ (k - 1)
+                if l > i:
+                    lo, hi = np.minimum(v[:, i], v[:, l]), np.maximum(v[:, i], v[:, l])
+                    v[:, i], v[:, l] = lo, hi
+        else:
+            p = v[np.arange(32) ^ (k // keys - 1)][:, ::-1]  # key keys - 1 - i of the partner
+            lower = (lane & (k // (2 * keys))) == 0
+            v = np.where(lower, np.minimum(v, p), np.maximum(v, p))
+        j = k // 4
+        while j > 0:
+            if j < keys:
+                for i in range(keys):
+                    if i & j == 0:
+                        lo = np.minimum(v[:, i], v[:, i | j])
+                        v[:, i | j] = np.maximum(v[:, i], v[:, i | j])
+                        v[:, i] = lo
+            else:
+                p = v[np.arange(32) ^ (j // keys)]
+                lower = (lane & (j // keys)) == 0
+                v = np.where(lower, np.minimum(v, p), np.maximum(v, p))
+            j //= 2
+        k *= 2
+    return [int(x) for x in v.reshape(-1)]
+
+
+def emulate_sort(seg, n, keys, threads, shared_keys, rng, pbits=None):
     """route_pack's sort of a segment of n keys, padded to np2 on nt =
     np2 / keys threads (at least a warp, at most ``threads``); a block
     barrier is a named barrier over the nt threads, a warp's own sync when
-    nt is one warp.  sort_segment: each group of ``keys`` sorted by the
-    in-register bitonic network, then rounds that merge runs of w = keys,
-    2 keys, ... pairwise from one buffer into the other (emulate_merge), a
-    block barrier before each round whose runs span more than a warp's 32
-    groups (the warp's own sync before the others) and one at its end.  At
-    np2 = 2 ``shared_keys`` (sort_halves) each half sorts so, the first
-    stored back in place while the second sorts, and the last round merges
-    the halves, with a block barrier after the first half's store, after
-    its reload and after the merge.  Groups run in an arbitrary order.  Returns (sorted
-    keys, block barriers, where: "shared", "halves" or "device")."""
+    nt is one warp.  sort_segment: each warp's 32 groups of ``keys`` (a
+    run of 32 keys keys, a segment of fewer groups padded) sorted by its
+    network (emulate_warp_sort), then rounds that merge runs of w = 32
+    keys, 64 keys, ... pairwise from one buffer into the other
+    (emulate_merge), a block barrier before each round and one at the
+    end.  Up to ``threads`` groups (sort_small, a group a thread) a block
+    barrier first joins the least and the largest fsort, and with
+    ``pbits`` (log2 of the key segment) the keys sort as ((fsort - least)
+    << pbits) | position when those fit 32 bits below the padding
+    0xFFFFFFFF ("narrow").  At np2 = 2 ``shared_keys`` (sort_halves) each
+    half sorts so, the first stored back in place while the second sorts,
+    and the last round merges the halves, with a block barrier after the
+    first half's store, after its reload and after the merge.  Groups run
+    in an arbitrary order.  Returns (sorted keys, block barriers, where:
+    "narrow", "shared", "halves" or "device")."""
     np2 = max(keys, 1 << max(n - 1, 0).bit_length())
     nt = min(threads, max(32, np2 // keys))
     block = nt > 32
+    run = 32 * keys
 
-    def sort_segment(src, m, size):
-        x = [int(k) for k in src[:m]] + [int(PAD)] * (size - m)
-        for g in range(size // keys):
-            v = x[g * keys:(g + 1) * keys]
-            k = 2
-            while k <= keys:
-                j = k // 2
-                while j:
-                    for i in range(keys):
-                        if (i ^ j) > i and (v[i] > v[i ^ j]) == ((i & k) == 0):
-                            v[i], v[i ^ j] = v[i ^ j], v[i]
-                    j //= 2
-                k *= 2
-            x[g * keys:(g + 1) * keys] = v
-        barriers, w = 0, keys
+    def sort_segment(src, m, size, pad=int(PAD)):
+        x = [int(k) for k in src[:m]] + [pad] * (size - m)
+        for g0 in rng.permutation(-(-size // run)) * run:
+            part = x[g0:g0 + run]
+            x[g0:g0 + run] = emulate_warp_sort(part + [pad] * (run - len(part)),
+                                               keys)[:len(part)]
+        barriers, w = 0, run
         while w < size:
-            barriers += block and 2 * w > 32 * keys
+            barriers += block
             y = [None] * size
             for g in rng.permutation(size // keys):
                 at = int(g) * keys
@@ -308,6 +352,16 @@ def emulate_sort(seg, n, keys, threads, shared_keys, rng):
             x, w = y, 2 * w
         return x, barriers + block
 
+    if np2 <= threads * keys:  # sort_small: the fsort range's barrier first
+        real = [int(k) for k in seg[:n]]
+        least, most = min(k >> 32 for k in real), max(k >> 32 for k in real)
+        if pbits is not None and ((most - least) << pbits) + (1 << pbits) <= 0xFFFFFFFF:
+            narrow = [((k >> 32) - least) << pbits | (k & ((1 << pbits) - 1)) for k in real]
+            back = dict(zip(narrow, real))
+            x, barriers = sort_segment(narrow, n, np2, 0xFFFFFFFF)
+            return [back[k] for k in x[:n]], barriers + block, "narrow"
+        x, barriers = sort_segment(seg, n, np2)
+        return x[:n], barriers + block, "shared"
     if np2 != 2 * shared_keys:
         x, barriers = sort_segment(seg, n, np2)
         return x[:n], barriers, "shared" if np2 <= shared_keys else "device"
@@ -335,39 +389,53 @@ def emulate_allowance(out, Sm, ndev, me, cap):
 
 
 def emulate_route(cand, n_lanes, carry, ndev, me, cap, Sm, seed, keys=K11["kKeys"],
-                  threads=K11["kPackThreads"], shared_keys=K11["kShKeys"]):
-    """csrc/route_pack.cu's two passes in NumPy (emulate_count, then
-    route_pack): block d sorts its segment (emulate_sort) and copies its
-    rows by position, the first allow to the wire and the rest to the ring
-    from its spill offset, its first spilled row taking the ring's min; the
-    blocks after them fill the ring's tail.  Returns (wire, ring, out, per
-    destination its sort's block barriers and where it sorted)."""
+                  threads=K11["kPackThreads"], shared_keys=K11["kShKeys"], carry_len=None,
+                  ring=None, ring_len=None, fill=None, tally=None, p=0):
+    """csrc/route_pack.cu's two passes in NumPy on sig rows or (``fill``,
+    the empty row) key rows: emulate_count over the lanes and the carry's
+    first ``carry_len`` rows (default all), into ``tally[p]``; then block
+    d sorts its segment (emulate_sort) and copies its rows by position,
+    the first allow to the wire and the rest to the ring from its spill
+    offset, its first spilled row taking the ring's min; block ndev copies
+    the counts into out, sets the overflow, and writes the empty row over
+    [len_new, len_old) of the ring buffer (``ring``, its word
+    ``ring_len``; by default a buffer of unknown contents, its word its
+    length) and then len_new there.  Returns (wire, ring, out, len_new,
+    per destination its sort's block barriers and where it sorted)."""
     rng = np.random.default_rng(seed)
-    rows = np.concatenate([cand[:n_lanes], carry]).astype(np.int64)
-    ccar = carry.shape[0]
-    out, seg = emulate_count(rows, n_lanes, ndev, len(rows), rng)
-    allow, base, before, spilled = emulate_allowance(out, Sm, ndev, me, cap)
-    wire = np.zeros((max(ndev * cap, len(cand) + ccar), 3), np.int64)
-    ring = np.zeros((ccar, 4), np.int64)
-    ring[spilled:] = [ndev, INFP, 0, -1]  # the tail's blocks
-    out[ndev + 1] = max(spilled - ccar, 0)
+    ccar, width = carry.shape
+    live = ccar if carry_len is None else carry_len
+    rows = np.concatenate([cand[:n_lanes], carry[:live]]).astype(np.int64)
+    empty = [ndev, INFP, 0, -1] if fill is None else list(fill)
+    counts, seg = emulate_count(rows, n_lanes, ndev, len(rows), rng, tally, p)
+    pbits = max(1, (len(cand) + ccar - 1).bit_length())  # the kernel's key segment's
+    allow, base, before, spilled = emulate_allowance(counts, Sm, ndev, me, cap)
+    cols = [2, 3, 1] if fill is None else list(range(2, width))
+    wire = np.zeros((max(ndev * cap, len(cand) + ccar), len(cols)), np.int64)
+    if ring is None:  # unknown contents
+        ring = np.full((ccar, width), -7, np.int64)
+        ring_len = ccar
+    ring = ring.astype(np.int64).copy()
+    kept = min(spilled, ccar)
+    out = np.concatenate([counts, [max(spilled - ccar, 0), empty[1]]]).astype(np.int64)
+    ring[kept:max(kept, ring_len)] = empty  # the tail's block
     sorts = {}
     for d in rng.permutation(ndev):
-        n = int(out[d])
+        n = int(counts[d])
         if n == 0:
             sorts[d] = (0, None)
             continue
-        ordered, nb, where = emulate_sort(seg[d], n, keys, threads, shared_keys, rng)
+        ordered, nb, where = emulate_sort(seg[d], n, keys, threads, shared_keys, rng, pbits)
         sorts[d] = (nb, where)
         for i, key in enumerate(ordered):
             v = rows[int(key) & 0xFFFFFFFF]
             if i < allow[d]:
-                wire[base[d] + i] = v[[2, 3, 1]]
+                wire[base[d] + i] = v[cols]
             elif before[d] + i - allow[d] < ccar:
-                ring[before[d] + i - allow[d]] = [d, v[1], v[2], v[3]]
+                ring[before[d] + i - allow[d]] = [d, *v[1:]]
                 if i == allow[d]:
                     out[ndev + 2] = min(out[ndev + 2], v[1])
-    return wire, ring, out, sorts
+    return wire, ring, out, kept, sorts
 
 
 @pytest.mark.parametrize("seed,cap,ragged,f_range", [
@@ -385,8 +453,8 @@ def test_k11_emulation_equals_plain(seed, cap, ragged, f_range):
     for me in range(ndev):
         w, r, o = S.route_plain(torch.from_numpy(cand[me]), n_lanes, torch.from_numpy(carry[me]),
                                 ndev, me, cap, None if Sm is None else torch.from_numpy(Sm))
-        ew, er, eo, _ = emulate_route(cand[me], n_lanes, carry[me], ndev, me, cap, Sm,
-                                      seed + me)
+        ew, er, eo, _, _ = emulate_route(cand[me], n_lanes, carry[me], ndev, me, cap, Sm,
+                                         seed + me)
         A = S.route_sizes(Sm if ragged else np.tile(o[:ndev].numpy(), (ndev, 1)), ndev, cap,
                           ragged)[me]
         base = np.cumsum(A) - A if ragged else np.arange(ndev) * cap
@@ -413,9 +481,9 @@ def _schedule_route(keys, threads, shared_keys, L, ndev, ragged, seed):
     for me in range(ndev):
         w, r, o = S.route_plain(torch.from_numpy(cand[me]), n_lanes, torch.from_numpy(carry[me]),
                                 ndev, me, cap, None if Sm is None else torch.from_numpy(Sm))
-        ew, er, eo, sorts = emulate_route(cand[me], n_lanes, carry[me], ndev, me, cap, Sm,
-                                          60 + me, keys=keys, threads=threads,
-                                          shared_keys=shared_keys)
+        ew, er, eo, _, sorts = emulate_route(cand[me], n_lanes, carry[me], ndev, me, cap, Sm,
+                                             60 + me, keys=keys, threads=threads,
+                                             shared_keys=shared_keys)
         assert np.array_equal(o.numpy(), eo) and np.array_equal(r.numpy(), er)
         A = S.route_sizes(Sm if ragged else np.tile(o[:ndev].numpy(), (ndev, 1)), ndev, cap,
                           ragged)[me]
@@ -440,7 +508,7 @@ def test_k11_schedules_equal_plain(keys, threads, L, ndev, ragged):
     groups) take block barriers, unless one warp sorts."""
     shapes = _schedule_route(keys, threads, 1 << 20, L, ndev, ragged, 40 + keys)
     big = [(n, nb) for n, nb, where in shapes if n > 2 * 32 * keys]
-    assert big and all(where in ("shared", None) for _, _, where in shapes)
+    assert big and all(where in ("narrow", "shared", None) for _, _, where in shapes)
     assert all((nb > 0) == (threads > 32) for _, nb in big)
 
 
@@ -453,21 +521,112 @@ def test_k11_halves_schedule_equals_plain(ragged):
     assert {where for n, _, where in shapes if 256 < n <= 512} == {"halves"}
 
 
+def live_ring_rows(rng, dest, ndev, fill, f_lo):
+    """Rows (dest, fsort, payload) for ``dest``: a remote row's fsort from
+    f_lo up with ties, random payload words (sig: home, sig); every other
+    row the empty one (``fill``, or sig's)."""
+    empty = [ndev, INFP, 0, -1] if fill is None else list(fill)
+    rows = np.tile(np.array(empty, np.int64), (len(dest), 1))
+    live = dest < ndev
+    k = int(live.sum())
+    rows[:, 0] = dest
+    rows[live, 1] = rng.integers(f_lo, f_lo + 400, k)
+    if fill is None:
+        rows[live, 2] = rng.integers(0, 1 << 20, k)
+        rows[live, 3] = rng.integers(0, 1 << 30, k)
+    else:
+        rows[live, 2:] = rng.integers(-2**31, 2**31 - 1, (k, len(empty) - 2))
+    return rows.astype(np.int32)
+
+
+# the rows each step of test_k11_live_rings_equal_plain spills: none, many
+# (cap 1), a few (a cap two rows short of the largest destination's), none,
+# many
+LIVE_RING_SPILLS = ("none", "many", "few", "none", "many")
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+def test_k11_live_rings_equal_plain(layout, ragged):
+    """Steps of one shard on its two ring buffers in turns, as the engine
+    runs them: each step new lanes and the ring the last step wrote (the
+    carry), spilling none, many, a few, none and many rows
+    (LIVE_RING_SPILLS).  The emulated route (emulate_route: the count over
+    the lanes and only the carry's live rows, by its word; the counts in
+    the two count buffers in turns; the pack writing the spilled rows and
+    the empty row over only [len_new, len_old) of the buffer, whose word
+    was left by the step two before, then len_new) against route_plain on
+    the lanes and the whole carry ring: out, every word of the new ring,
+    the new word (the plain ring's live rows) and the rows sent.  Sig rows
+    and key rows of kinase's packed and unpacked widths (W = 3; unpacked f
+    negative too)."""
+    ndev, me, L, ccar, W = 3, 1, 400, 300, 3
+    fill = None
+    if layout != "sig":
+        pw = W + (4 if layout == "packed" else 5)
+        fill = [ndev, INFP if layout == "packed" else INF] + [-1] * W + [0] * (pw - W)
+    empty = [ndev, INFP, 0, -1] if fill is None else fill
+    rng = np.random.default_rng(len(layout) + ragged)
+    rings = [np.tile(np.array(empty, np.int32), (ccar, 1)) for _ in range(2)]
+    words = [0, 0]
+    tally = np.zeros((2, ndev + 1), np.int64)
+    f_lo = -100 if layout == "unpacked" else 0
+    kept = []
+    for t, spill in enumerate(LIVE_RING_SPILLS):
+        a, b = t % 2, 1 - t % 2
+        dest = rng.integers(0, ndev, L)
+        dest[(dest == me) | (rng.random(L) < 0.2)] = ndev
+        cand = live_ring_rows(rng, dest, ndev, fill, f_lo)
+        n_lanes = L - 7
+        tc, ta = torch.from_numpy(cand), torch.from_numpy(rings[a])
+        # the remote rows to each destination, then the cap that spills so
+        n_d = S.route_plain(tc, n_lanes, ta, ndev, me, 1, fill=fill)[2][:ndev].numpy()
+        Sm = None
+        if ragged:  # the other shards send as this one: allow = ndev cap - me n_d
+            Sm = np.tile(n_d, (ndev, 1)).astype(np.int32)
+            cap = {"none": L + ccar, "many": 1,
+                   "few": max(1, ((me + 1) * int(n_d.max()) - 2) // ndev)}[spill]
+        else:
+            cap = {"none": L + ccar, "many": 1, "few": max(1, int(n_d.max()) - 2)}[spill]
+        w_p, r_p, o_p = S.route_plain(tc, n_lanes, ta, ndev, me, cap,
+                                      None if Sm is None else torch.from_numpy(Sm), fill)
+        ew, er, eo, new_len, _ = emulate_route(
+            cand, n_lanes, rings[a], ndev, me, cap, Sm, 100 + t, carry_len=words[a],
+            ring=rings[b], ring_len=words[b], fill=fill, tally=tally, p=t % 2)
+        live = int((r_p[:, 0] < ndev).sum())
+        assert np.array_equal(eo, o_p.numpy()), (t, eo, o_p)
+        assert np.array_equal(er, r_p.numpy()), t
+        assert new_len == live, (t, new_len, live)
+        A = S.route_sizes(Sm if ragged else np.tile(o_p[:ndev].numpy(), (ndev, 1)), ndev, cap,
+                          ragged)[me]
+        base = np.cumsum(A) - A if ragged else np.arange(ndev) * cap
+        sent = np.concatenate([np.arange(x, x + y) for y, x in zip(A, base)]).astype(int)
+        assert np.array_equal(ew[sent], w_p.numpy()[sent]), t
+        assert np.array_equal(tally[t % 2], o_p.numpy()[:ndev + 1]) and not tally[1 - t % 2].any()
+        rings[b], words[b] = er.astype(np.int32), new_len
+        kept.append(live)
+    # the ring grew, shrank to a few rows, emptied and grew again
+    assert kept[0] == kept[3] == 0 and kept[1] > kept[2] > 0 and kept[4] > 0, kept
+
+
 # (segment size, block barriers, where it sorts) of route_pack's sort at
 # route_pack.cu's constants; tests/test_torch_cuda.py::K11_BARRIERS holds
 # the kernel's K11_BARRIERS build to the same counts on the card
-K11_SHAPES = [(1, 0, "shared"), (256, 0, "shared"), (257, 2, "shared"), (636, 3, "shared"),
-              (1024, 3, "shared"), (8192, 6, "shared"), (8193, 15, "halves"),
+K11_SHAPES = [(1, 0, "shared"), (256, 0, "shared"), (257, 3, "shared"), (636, 4, "shared"),
+              (1024, 4, "shared"), (1456, 5, "shared"), (4096, 6, "shared"),
+              (4097, 6, "shared"), (8192, 6, "shared"), (8193, 15, "halves"),
               (16384, 15, "halves"), (16385, 8, "device"), (31744, 8, "device")]
 
 
 def test_k11_sort_shape():
     """route_pack's sort at route_pack.cu's constants, emulated on random
     keys: up to a warp's 256 keys on one warp with no block barrier; 1,024
-    keys with 3 (the block bitonic of commit c408a21: 55 stages); two shared
-    buffers up to 8,192 keys, the halves up to 16,384, device memory
-    above; the keys come out sorted.  The card tests' K11_BARRIERS, which
-    the kernel's K11_BARRIERS build must execute, are the emulation's."""
+    keys with 4 (the fsort range's, two merge rounds', the end's; the block
+    bitonic of commit c408a21: 55 stages); a group a thread up to 4,096
+    keys, two shared buffers up to 8,192, the halves up to 16,384, device
+    memory above; the keys come out sorted, and so they do on 32-bit keys
+    where the range fits.  The card tests' K11_BARRIERS, which the
+    kernel's K11_BARRIERS build must execute, are the emulation's."""
     from test_torch_cuda import K11_BARRIERS, K11_CASES
 
     assert K11 == dict(kKeys=8, kPackThreads=512, kShKeys=8192)
@@ -486,6 +645,13 @@ def test_k11_sort_shape():
 
     for n, barriers, where in K11_SHAPES:
         assert shape(n) == (barriers, where), n
+    for n, barriers, where in K11_SHAPES:  # 32-bit keys where the range fits
+        f = rng.integers(0, 1 << 10, n).astype(np.uint64)
+        seg = (f + np.uint64(1 << 31)) << np.uint64(32) | rng.permutation(n).astype(np.uint64)
+        ordered, nb, w = emulate_sort(seg, n, K11["kKeys"], K11["kPackThreads"],
+                                      K11["kShKeys"], rng, pbits=15)
+        assert ordered == sorted(int(k) for k in seg) and nb == barriers, n
+        assert w == ("narrow" if n <= K11["kPackThreads"] * K11["kKeys"] else where), n
     for case, counts, *_ in K11_CASES:
         assert tuple(shape(n)[0] if n else 0 for n in counts) == K11_BARRIERS[case], case
 

@@ -639,12 +639,13 @@ def shard_words(eng):
     """Every tensor a shard's step leaves that does not depend on the order
     lanes run in: the table, counters, step state, both rings and which is
     current, the received count, the insert flag, the route's out, the
-    candidate rows and the wire; then the consensus vector."""
+    candidate rows, the wire, the rings' live lengths and the route's
+    count buffers; then the consensus vector."""
     out = []
     for sh in eng.shards:
         out += [getattr(sh.tab, f) for f in sh.tab.__dataclass_fields__]
         out += [sh.ctr, sh.state[:TS.STATE_CNT], *sh.rings, torch.tensor(sh.cur), sh.recv, sh.go,
-                sh.route_out, sh.cand, sh.wire]
+                sh.route_out, sh.cand, sh.wire, sh.ring_len, sh.tally]
     return out + [eng.cards[0].cons]
 
 
