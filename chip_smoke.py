@@ -6,8 +6,8 @@ Phases, each failing loudly (non-zero exit):
 
 1. device: a CUDA device must exist; prints the card's name and power limit.
 2. build: compiles every kernel from csrc/ (one nvcc per source, in
-   parallel) and, beside them, K3's, K5's, K8's and K11's measurement
-   builds.
+   parallel) and, beside them, K3's, K5's, K8's, K9s's and K11's
+   measurement builds.
    Capture: a chunk of the sig step (K3, K4 and the cooperative K5, on
    each of K5's paths) as the engine runs it (K6: the set-up, then a
    graph of one captured step replayed) must equal the eager chunk.
@@ -169,7 +169,15 @@ Phases, each failing loudly (non-zero exit):
    walk_advance, whichever of its forms the source has, each in turns
    with this tree's, walk_advance also inside the walk loop;
    ``--k11-sweep`` checks and times K11 on synthetic kinase-shaped inputs
-   of 64 to 31,744 rows a destination).  The several-card step on this
+   of 64 to 31,744 rows a destination); K9s on step 200's packed and
+   unpacked rows at each rows a block of its sweep (0, the block form, a
+   block a row; 1, 2, 4, 8 warps a block of the rows form): bit for bit,
+   device and wrapper times and its K9S_PHASES split (``--k9s-baseline
+   SRC`` builds another tree's K9s, checks it and times it in turns with
+   this one; ``--k9s-only`` runs K9s's checks alone, on kinase and on the
+   random 4 x 12-16 input, packed and unpacked, with the unsharded K9
+   against the other tree's at globin6 and synth10 and a traced dense
+   run with each form of K9s).  The several-card step on this
    one card: kinase's four shards grouped into two cards (``split_cards``),
    chunked (a stream a card, one graph a ring parity, the gathers as
    copies, every card's consensus over every shard's snapshot), held to
@@ -4049,8 +4057,392 @@ def k11_rows_checks(cap: dict, k11: dict = None) -> dict:
     return out
 
 
+# --- K9s (keyrow_expand_sharded): its rows form against its block form,
+# the K9S_PHASES split, the rows sweep and another tree's K9s in turns
+
+# the rows a block of the sweep (0: the block form, a block a row)
+K9S_SWEEP = (0, 1, 2, 4, 8)
+# keyrow_expand.cu's K9S_PHASES readings (kK9sStamps), and what ends at
+# each of block 0's readings 3 .. 13
+K9S_STAMPS = 14
+K9S_MARKS = ("edge_us", "prologue_us", "key_row_us", "t8_us", "masks_us", "home_probe_us",
+             "stage_us", "cand_stores_us", "place_us", "pend_stores_us", "tail_us")
+
+
+def start_k9s_baseline(src: str, tmp: str):
+    """Start nvcc on another tree's K9 (``src``: a checkout's root or its
+    csrc/ directory; keyrow_expand.cu and the headers it includes) in its
+    own directory; returns (src, proc, lib)."""
+    import shutil
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    csrc = src if os.path.isfile(os.path.join(src, "keyrow_expand.cu")) else os.path.join(
+        src, "mpi_pastar_msa_tpu_torch", "csrc")
+    out = os.path.join(tmp, "k9s_baseline")
+    os.makedirs(out, exist_ok=True)
+    for f in ("keyrow_expand.cu", "expand_row.cuh", "owner.cuh", "step_state.cuh"):
+        shutil.copy(os.path.join(csrc, f), out)
+    lib = os.path.join(out, "libkeyrow_expand.so")
+    proc = subprocess.Popen(
+        [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-o", lib, os.path.join(out, "keyrow_expand.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return src, proc, lib
+
+
+def load_k9s_baseline(job) -> dict:
+    """The other tree's K9 (start_k9s_baseline): its two C entries, the
+    sharded one with or without this tree's last argument before the
+    stream (rows a block: ``rows`` says whether it takes it), and its
+    source under ``src``."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    src, proc, lib = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"K9s baseline: nvcc failed for keyrow_expand.cu of {src}:\n{log}")
+    with open(os.path.join(os.path.dirname(lib), "keyrow_expand.cu")) as f:
+        rows = "int tag_base, int rows, void* stream" in f.read()
+    dll = ctypes.CDLL(lib)
+    sig = _kernels.SIGNATURES["keyrow_expand_sharded"]
+    fns = {"src": src, "rows": rows}
+    for name, argtypes in (("keyrow_expand", _kernels.SIGNATURES["keyrow_expand"]),
+                           ("keyrow_expand_sharded", sig if rows else sig[:-2] + sig[-1:])):
+        fn = getattr(dll, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def load_k9s_phases(job) -> dict:
+    """The K9S_PHASES build (start_phases_build("keyrow_expand", macro=
+    "K9S_PHASES")): its sharded C entry (this tree's signature, the form of
+    a load_k9s_baseline dict) and ``phases()``, the readings of the
+    launches since the last read, which it resets."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    name, proc, lib = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc failed for the K9S_PHASES build of keyrow_expand.cu:\n{log}")
+    dll = ctypes.CDLL(lib)
+    fn = dll.keyrow_expand_sharded
+    fn.argtypes, fn.restype = _kernels.SIGNATURES["keyrow_expand_sharded"], ctypes.c_int
+    read = dll.keyrow_expand_phases
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+
+    def phases() -> list:
+        got = (ctypes.c_ulonglong * K9S_STAMPS)()
+        if read(ctypes.cast(got, ctypes.c_void_p), K9S_STAMPS):
+            fail("keyrow_expand_phases of the K9S_PHASES build failed")
+        return list(got)
+
+    return {"src": "the K9S_PHASES build", "rows": True, "keyrow_expand_sharded": fn,
+            "phases": phases}
+
+
+class K9sRun:
+    """K9s on a captured step's inputs (``cap``: sharded_guard's, key rows)
+    with buffers of its own: ``go()`` launches it once with ``rows`` rows a
+    block (0: the block form) through this tree's wrapper, its C entry or
+    another build's (``fns``: load_k9s_baseline, load_k9s_phases; a build
+    without the rows argument runs its block form); ``restore()`` puts
+    back what a launch changes (t_best on the packed layout, the state
+    vector, the counters)."""
+
+    def __init__(self, cap: dict, rows: int, fns=None):
+        from mpi_pastar_msa_tpu_torch import _kernels
+        from mpi_pastar_msa_tpu_torch.search import step as S
+
+        sh, eng = cap["shard"], cap["eng"]
+        self.cap, self.layout, self.rows = cap, sh.layout, rows
+        self.tab = clone_table(cap["tab0"])
+        bufs = S.StepBuffers.select_only(sh.st, sh.dev)
+        bufs.sel, bufs.state = cap["sel"], cap["state0"].clone()
+        bufs.run = torch.ones(1, dtype=torch.int32, device=sh.dev)
+        bufs.pend = torch.empty_like(sh.bufs.pend)
+        bufs.params = sh.bufs.params
+        self.bufs, self.ctr = bufs, cap["ctr0"].clone()
+        self.cand = torch.empty_like(sh.cand)
+        self.fns = fns
+        if fns is not None and not fns["rows"] and rows:
+            fail(f"K9s of {fns['src']}: no rows form (rows {rows})")
+        fn = None if fns is None else fns["keyrow_expand_sharded"]
+
+        def launch(name, *args):
+            if fn is None:
+                return _kernels.launch(name, *args)
+            if fn(*(args if fns["rows"] else args[:-2] + args[-1:])):
+                fail(f"K9s of {fns['src']} failed to launch")
+
+        self.go = lambda: S.expand_keyrow_sharded_cuda(
+            sh.st, self.tab, bufs, self.ctr, eng.ub, cap["h3"], self.cand, sh.R,
+            eng.hash_params, eng.ndev, sh.me, sh.tag_base, launch=launch, rows=rows)
+
+    def restore(self):
+        if self.layout == "packed":
+            self.tab.t_best.copy_(self.cap["tab0"].t_best)
+        self.bufs.state.copy_(self.cap["state0"])
+        self.ctr.copy_(self.cap["ctr0"])
+
+
+def k9s_plain(cap: dict):
+    """expand_keyrow_sharded_plain on a captured step: (goal, cand,
+    pending, surviving lanes, the table after its round-0 match)."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    sh, eng = cap["shard"], cap["eng"]
+    tab = clone_table(cap["tab0"])
+    goal, cand, pending, n_valid = SH.expand_keyrow_sharded_plain(
+        sh.st, tab, sh.layout, cap["sel"], int(cap["state0"][2]), eng.ub, cap["h3"], eng.own,
+        eng.ndev, sh.me, sh.tag_base)
+    return goal, cand, pending, n_valid, tab
+
+
+def k9s_check(label: str, run: K9sRun, want) -> None:
+    """One launch of ``run`` against the plain version (``want``:
+    k9s_plain), bit for bit: the candidate rows, every table tensor after
+    its round-0 match, the pending entries as a multiset, the surviving and
+    pending counts, the goal."""
+    cap = run.cap
+    sh = cap["shard"]
+    st = sh.st
+    goal, cand, pending, n_valid, tab = want
+    L = int(cap["state0"][2]) * st.M
+    run.restore()
+    run.go()
+    torch.cuda.synchronize()
+    n_pend = int(run.bufs.state[6])
+    got = run.bufs.pend[sh.R:sh.R + n_pend]
+    srt = lambda t: sorted(map(tuple, t.tolist()))
+    bad = []
+    if not torch.equal(run.cand[:L], cand[:L]):
+        bad.append("candidate rows")
+    bad += [f for f in tab.__dataclass_fields__
+            if not torch.equal(getattr(run.tab, f)[:st.C], getattr(tab, f)[:st.C])]
+    if srt(got) != srt(pending):
+        bad.append("pending entries")
+    if int(run.bufs.state[5]) != n_valid or n_pend != pending.shape[0]:
+        bad.append(f"surviving or pending counts {int(run.bufs.state[5])}, {n_pend} against "
+                   f"{n_valid}, {pending.shape[0]}")
+    if int(run.ctr[0]) != min(goal, int(cap["ctr0"][0])):
+        bad.append("goal g")
+    if bad:
+        fail(f"K9s {label} differs from its plain version: {bad}")
+
+
+def k9s_split(run: K9sRun, reps: int = 20) -> dict:
+    """K9s's split on ``run`` (a K9sRun of the K9S_PHASES build): the
+    state's restore and the launch captured in a CUDA graph, replayed
+    ``reps`` times, each replay's %globaltimer readings read.  Medians in
+    microseconds: block 0's spans between its readings (K9S_MARKS), its
+    whole span, and the call (the first block's start to the last block's
+    end)."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        run.restore()
+        run.go()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        run.restore()
+        run.go()
+    torch.cuda.synchronize()
+    run.fns["phases"]()
+    spans = {}
+    for _ in range(reps):
+        graph.replay()
+        torch.cuda.synchronize()
+        t = run.fns["phases"]()
+        got = {"call_us": t[1] - t[0], "block0_us": t[13] - t[2],
+               "to_block0_us": t[2] - t[0]}
+        got.update({name: t[k + 3] - t[k + 2] for k, name in enumerate(K9S_MARKS)})
+        for k, v in got.items():
+            spans.setdefault(k, []).append(v / 1e3)
+    del graph
+    return {k: statistics.median(v) for k, v in spans.items()}
+
+
+def k9s_latency_floor(floor: dict, chase: dict) -> dict:
+    """K9s's (and K4s's) latency floor: a launch and four dependent L2
+    accesses (the list entry, the row, its T8 rows with its children's
+    home rows, the place atomic), and beside it from device memory."""
+    return dict(latency_floor_ms=floor["device_ms"] + 4 * chase["l2_ns"] / 1e6,
+                latency_floor_dram_ms=floor["device_ms"] + 4 * chase["dram_ns"] / 1e6)
+
+
+def k9s_checks(cap: dict, k9s: dict) -> dict:
+    """K9s on a captured step (``cap``, key rows): for each rows a block of
+    ``k9s["rows"]`` (K9S_SWEEP by default; 0 the block form), a launch
+    against the plain version bit for bit (k9s_check), its device (CUPTI)
+    and wrapper (CUDA events) times, and with ``k9s["phases"]`` the
+    K9S_PHASES build's split; with ``k9s["baseline"]``, another tree's K9s
+    checked the same way and timed in turns with this tree's at K9S_ROWS
+    (old, new, new, old)."""
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    sh = cap["shard"]
+    want = k9s_plain(cap)
+    out = {"layout": sh.layout, "rows_listed": int(cap["state0"][2]), "M": sh.st.M,
+           "sweep": {}}
+    for rows in k9s.get("rows") or K9S_SWEEP:
+        run = K9sRun(cap, rows)
+        k9s_check(f"({sh.layout}, {rows} rows a block)", run, want)
+        row = dict(device_ms=device_ms(run.go, 20, run.restore),
+                   ms=time_restored(run.go, run.restore, 20),
+                   shape=S.k9s_launch_shape(sh.st.B, sh.st.M, S._sms(sh.dev), rows))
+        if k9s.get("phases"):
+            prun = K9sRun(cap, rows, k9s["phases"])
+            k9s_check(f"({sh.layout}, {rows} rows a block, the K9S_PHASES build)", prun, want)
+            row["split"] = k9s_split(prun)
+        out["sweep"][rows] = row
+        print(f"  K9s {sh.layout}, {rows} rows a block {row['shape']}: device "
+              f"{row['device_ms']:.4f} ms, wrapper {row['ms']:.4f} ms" + (
+                  "; split (us): " + ", ".join(f"{k[:-3]} {v:.3f}"
+                                               for k, v in row["split"].items())
+                  if "split" in row else ""))
+    base = k9s.get("baseline")
+    if base is not None:
+        old, new = K9sRun(cap, 0, base), K9sRun(cap, S.K9S_ROWS)
+        k9s_check(f"of {base['src']} ({sh.layout})", old, want)
+        res = {"device": {"old": [], "new": []}, "wrapper": {"old": [], "new": []}}
+        for w in ("old", "new", "new", "old"):
+            r = old if w == "old" else new
+            res["device"][w].append(device_ms(r.go, 20, r.restore))
+            res["wrapper"][w].append(time_restored(r.go, r.restore, 20))
+        out["turns"] = res
+        print(f"  K9s in turns with {base['src']} ({sh.layout}; old, new, new, old): " + "; ".join(
+            f"{k} {v['old'][0]:.4f} / {v['new'][0]:.4f} / {v['new'][1]:.4f} / "
+            f"{v['old'][1]:.4f} ms" for k, v in res.items()))
+    return out
+
+
+def k9_unsharded_turns(label: str, path: str, warm: int, baseline: dict) -> dict:
+    """The unsharded K9 (``keyrow_expand``) of this tree and of another
+    (``baseline``, load_k9s_baseline) on one step of ``path``'s search
+    (``warm`` steps in, after K3): the two launches' table, state, counters
+    and pending entries (as a multiset) equal; device ms (CUPTI) in turns
+    (old, new, new, old)."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    eng, tab0, ctr0 = warm_engine(path, "auto", warm)
+    st, layout = eng.st, eng.layout
+    bufs = S._step_buffers(st, tab0.t_key.device, layout)
+    stream = torch.cuda.current_stream().cuda_stream
+    work, ctr = clone_table(tab0), ctr0.clone()
+    ctr[1] = 0
+    bufs.run.fill_(1)
+    k3, k9, _ = S._step_args(st, work, bufs, ctr, eng.ub, eng.fill_target, 0, S.K10_CAP, stream)
+    _kernels.launch(*k3)
+    torch.cuda.synchronize()
+    after3, state3, ctr3 = clone_table(work), bufs.state.clone(), ctr.clone()
+
+    def old():
+        if baseline["keyrow_expand"](*k9[1:]):
+            fail(f"K9 of {baseline['src']} failed to launch")
+
+    fns = {"new": lambda: _kernels.launch(*k9), "old": old}
+
+    def restore():
+        for f in after3.__dataclass_fields__:
+            getattr(work, f).copy_(getattr(after3, f))
+        bufs.state.copy_(state3)
+        ctr.copy_(ctr3)
+
+    outs = {}
+    for w in ("new", "old"):
+        restore()
+        fns[w]()
+        torch.cuda.synchronize()
+        n = int(bufs.state[6])
+        outs[w] = ([getattr(work, f)[:st.C].clone() for f in after3.__dataclass_fields__]
+                   + [bufs.state.clone(), ctr.clone(),
+                      sorted(map(tuple, bufs.pend[:n].tolist()))])
+    if not all((a == b) if isinstance(a, list) else torch.equal(a, b)
+               for a, b in zip(outs["new"], outs["old"])):
+        fail(f"K9 {label}: this tree's and {baseline['src']}'s differ")
+    res = {"old": [], "new": []}
+    for w in ("old", "new", "new", "old"):
+        res[w].append(device_ms(fns[w], 20, restore))
+    print(f"  K9 {label} ({layout}, M = {st.M}) equal to {baseline['src']}'s; device in turns "
+          f"(old, new, new, old): {res['old'][0]:.4f} / {res['new'][0]:.4f} / "
+          f"{res['new'][1]:.4f} / {res['old'][1]:.4f} ms")
+    return res
+
+
+def k9s_phase(paths, gold, k9s: dict) -> dict:
+    """K9s alone (``--k9s-only``): kinase on 4 shards of one card under the
+    host driver, packed (auto) and pinned to unpacked, each to the golden g
+    with step 200 captured, and the random 4 x 12-16 input (M = 15) on 4
+    shards, packed and unpacked, step 6 captured: k9s_checks on each
+    (``k9s``: rows, phases, baseline); with a baseline, the unsharded K9 at
+    globin6 step 60 and synth10 step 20 in turns with the other tree's;
+    then traced dense chunked runs of kinase (their device time a step, by
+    kernel), K9s's block form, then its rows form."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch.core.problem import Problem
+    from mpi_pastar_msa_tpu_torch.heuristic.hpair import HPairHeuristic
+    from mpi_pastar_msa_tpu_torch.search.bruteforce import optimal_cost
+
+    card = torch.device("cuda", 0)
+    k = gold["kinase.fasta"]
+    out = {}
+    for layout, kw in (("packed", {}), ("unpacked", {"layout": "unpacked"})):
+        out[f"kinase_{layout}"], eng, cap = sharded_run(
+            f"kinase sharded 4, {layout}, host driver", paths["kinase.fasta"], k, [card] * 4,
+            layout == "packed", capture_step=200, driver="host", **kw)
+        if "cand" not in cap:
+            fail(f"kinase sharded {layout}: the search ended before the captured step")
+        print(f"K9s on shard {cap['shard'].me}'s step 200 (kinase, {layout}):")
+        out[f"checks_{layout}"] = k9s_checks(cap, k9s)
+        del eng, cap
+    rs = np.random.RandomState(31)
+    seqs = tuple("".join(rs.choice(list("ACDEFGHIKLMNPQRSTVWY"), size=rs.randint(12, 17)))
+                 for _ in range(4))
+    want = optimal_cost(Problem(seqs), HPairHeuristic.build(Problem(seqs), "cpu"))
+    with tempfile.NamedTemporaryFile("w", suffix=".fasta", delete=False) as f:
+        f.write("".join(f">s{i}\n{q}\n" for i, q in enumerate(seqs)))
+    for layout in ("packed", "unpacked"):
+        out[f"random_{layout}"], eng, cap = sharded_run(
+            f"random 4 x 12-16 sharded 4, {layout}, host driver", f.name,
+            {"optimal_g": want, "seqs": list(seqs), "alignment": None}, [card] * 4, False,
+            capture_step=6, driver="host", hash_type="FSUM", hash_shift=0, batch=16,
+            layout=layout)
+        if "cand" not in cap:
+            fail(f"random sharded {layout}: the search ended before the captured step")
+        print(f"K9s on shard {cap['shard'].me}'s step 6 (random 4 x 12-16, {layout}):")
+        out[f"random_checks_{layout}"] = k9s_checks(cap, k9s)
+        del eng, cap
+    os.unlink(f.name)
+    if k9s.get("baseline"):
+        for name, steps in (("globin6", 60), ("synth10", 20)):
+            out[f"k9_{name}"] = k9_unsharded_turns(f"{name} step {steps}", data_path(name),
+                                                   steps, k9s["baseline"])
+    # the traced dense step with K9s's block form (K9S_ROWS 0 for the run),
+    # then with its rows form
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    rows = S.K9S_ROWS
+    for key, r in (("kinase_dense_block_form", 0), ("kinase_dense", rows)):
+        S.K9S_ROWS = r
+        try:
+            out[key], eng, _ = sharded_run(f"kinase sharded 4, dense, K9s rows {r}",
+                                           paths["kinase.fasta"], k, [card] * 4, True,
+                                           profile=True, exchange="dense")
+        finally:
+            S.K9S_ROWS = rows
+        del eng
+        print(f"  the dense step's device us by kernel (K9s rows {r}): " + ", ".join(
+            f"{name} {us:.2f}" for name, us in out[key]["step_kernels_us"].items()))
+    return out
+
+
 def keyrow_kernel_checks(cap: dict, shards, k10_phase_fns=None, baseline=None,
-                         k11=None) -> dict:
+                         k11=None, k9s=None) -> dict:
     """The sharded step's kernels on key rows against their plain versions
     on the card, bit for bit, on shard ``target``'s inputs of the captured
     step (sharded_guard) of a packed or unpacked run: keyrow_coords and
@@ -4067,7 +4459,8 @@ def keyrow_kernel_checks(cap: dict, shards, k10_phase_fns=None, baseline=None,
     checked and timed in turns with it), then K7's hop mode against its
     plain version on every shard's finished table from every path node.
     Wrapper (CUDA events), device (CUPTI) and plain times, and each bound
-    by bytes."""
+    by bytes; with ``k9s`` (a dict of builds), k9s_checks: K9s's rows
+    sweep, split and another tree's K9s in turns."""
     import numpy as np
 
     from mpi_pastar_msa_tpu_torch import _kernels
@@ -4154,6 +4547,8 @@ def keyrow_kernel_checks(cap: dict, shards, k10_phase_fns=None, baseline=None,
            restore=restore9)
     out["keyrow_expand_sharded"].update(rows=n_sel, lanes=L, lanes_valid=n_valid,
                                         pending=int(pending.shape[0]))
+    if k9s is not None:
+        out["keyrow_expand_sharded"]["k9s"] = k9s_checks(cap, k9s)
     # K11 on key rows, both allowances
     out.update(k11_rows_checks(cap, k11))
     # K10 over [received; self-owned]
@@ -5194,7 +5589,7 @@ def k11_phase(paths, gold, k11: dict, sweep: bool = False) -> dict:
 
 def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
                   sweep=False, k6s_baseline=None, k10_phase_fns=None,
-                  keyrow_baseline=None, k11_phases=None) -> dict:
+                  keyrow_baseline=None, k11_phases=None, k9s=None) -> dict:
     """The sharded engine on one card (parallel/sharded.py, a LocalMesh of
     [cuda:0] * 4): kinase --triples auto, whose automatic layout is packed
     at JAX's 2^21 slots a shard (sharded cubes), with the ragged exchange
@@ -5211,7 +5606,8 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
     ``k11_baseline`` another tree's K11 too, timed in turns with K11 on
     key rows and on sig rows; ``k6s_baseline`` another tree's consensus,
     in turns with this one; ``k10_phase_fns`` the K10_PHASES build and
-    ``keyrow_baseline`` another tree's K10, for K10 on received rows); the
+    ``keyrow_baseline`` another tree's K10, for K10 on received rows;
+    ``k9s`` the K9S_PHASES build and another tree's K9s, k9s_checks); the
     sharded step's bounds at the sig
     run's B and cap; one shard against FrontierSearch's golden result,
     PF08184 with a one-row wire (exchange_cap=1), a random input whose
@@ -5290,7 +5686,7 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
         fail("kinase sharded: the search ended before the captured step")
     k11 = dict(count=k11_count, baseline=k11_baseline, phases=k11_phases)
     out["checks_packed"] = keyrow_kernel_checks(cap, cap["shards"], k10_phase_fns,
-                                                keyrow_baseline, k11)
+                                                keyrow_baseline, k11, k9s)
     out["checks_loop"] = loop_kernel_checks(cap, floor, k6s_baseline)
     r = out["kinase_host"]
     if out["checks_packed"]["walk"]["rounds"] != r["walk_rounds"]:
@@ -5312,7 +5708,7 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
     if eng.cubes_split or "k10_rows" not in cap:
         fail(f"kinase sharded unpacked: cubes split {eng.cubes_split}, or no captured step")
     out["checks_unpacked"] = keyrow_kernel_checks(cap, cap["shards"], k10_phase_fns,
-                                                  keyrow_baseline, k11)
+                                                  keyrow_baseline, k11, k9s)
     del eng, cap
     # the sig layout (PR 15's path), pinned at the capacity its word takes
     out["turns_sig"], eng = driver_turns("kinase sharded 4, pinned sig", paths["kinase.fasta"],
@@ -6119,6 +6515,8 @@ def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
                 **({"turns": {m: sh["checks"][f"route_{m}"]["turns"]
                               for m in ("ragged", "dense")}} if "turns" in t else {}),
                 **({"sweep": sh["k11_sweep"]} if "k11_sweep" in sh else {}))
+        if name == "sig_expand_sharded":
+            entry.update(k9s_latency_floor(floor, chase))
         if name in ("sig_coords", "tri_partial"):
             # a launch, then two dependent loads: the listed slot (or the
             # coordinates), then its sig word (or the cube's corners)
@@ -6145,6 +6543,9 @@ def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
         if name == "keyrow_insert_recv":
             for e, t in ((entry, cp[name]), (entry["unpacked"], cu[name])):
                 e["latency_floor_ms"] = k10_latency_floor(floor, chase, t["rounds"])
+        else:
+            entry.update(k9s_latency_floor(floor, chase))
+            entry["unpacked"].update(k9s_latency_floor(floor, chase))
         kernels.append(entry)
     t = cp["route_rows_ragged"]
     entry = entry_of("route_rows", t, "route_pack", "mpi_pastar_msa_tpu/parallel/sharded.py:169",
@@ -6313,6 +6714,23 @@ def main() -> int:
                          "(packed, unpacked, sig) to the golden, K11 on each run's step "
                          "200 with its K11_PHASES split (and --k11-baseline's in turns, "
                          "--k11-sweep), and a traced dense run (prints no result line)")
+    ap.add_argument("--k9s-only", action="store_true",
+                    help="run the device, build and K9s checks only: kinase on 4 shards "
+                         "(packed, unpacked) to the golden with step 200 captured, and "
+                         "the random 4 x 12-16 input on 4 shards (packed, unpacked) with "
+                         "step 6 captured; K9s on each, every rows a block of --k9s-rows "
+                         "checked against its plain version, timed and split by its "
+                         "K9S_PHASES build (and --k9s-baseline's in turns); a traced dense "
+                         "run (prints no result line)")
+    ap.add_argument("--k9s-baseline", metavar="SRC", default=None,
+                    help="also build another tree's csrc/keyrow_expand.cu (SRC: a "
+                         "checkout's root or csrc/), check its K9s against the plain "
+                         "version on K9s's inputs and time it in turns with this tree's; "
+                         "with --k9s-only also its unsharded K9 at globin6 step 60 and "
+                         "synth10 step 20 (bit for bit with this tree's, in turns)")
+    ap.add_argument("--k9s-rows", metavar="R,R,...", default=None,
+                    help="the rows a block of K9s's sweep (default 0,1,2,4,8; 0 the block "
+                         "form, a block a row)")
     ap.add_argument("--multi-card-only", action="store_true",
                     help="run the device, build and the sharded engine's multi-card "
                          "phase only (kinase on every card, chunked and host in turns, "
@@ -6366,6 +6784,9 @@ def main() -> int:
                if args.k11_baseline else None)
     k6s_job = (start_k6s_baseline(os.path.abspath(args.k6s_baseline), phases_tmp.name)
                if args.k6s_baseline else None)
+    k9s_phases_job = start_phases_build("keyrow_expand", phases_tmp.name, "K9S_PHASES")
+    k9s_job = (start_k9s_baseline(os.path.abspath(args.k9s_baseline), phases_tmp.name)
+               if args.k9s_baseline else None)
     try:
         logs = _kernels.build_all()
     finally:
@@ -6382,10 +6803,14 @@ def main() -> int:
         k8_baseline = load_k8_baseline(k8_job) if k8_job else None
         k11_baseline = load_k11_baseline(k11_job) if k11_job else None
         k6s_baseline = load_k6s_baseline(k6s_job) if k6s_job else None
+        k9s = dict(phases=load_k9s_phases(k9s_phases_job),
+                   baseline=load_k9s_baseline(k9s_job) if k9s_job else None,
+                   rows=tuple(int(r) for r in args.k9s_rows.split(",")) if args.k9s_rows
+                   else None)
     if keyrow_baseline:
         K7_VARIANTS["baseline"] = keyrow_baseline["path_walk"]
     print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES, K10_PHASES, "
-          f"K8_NO_STORE, K11_BARRIERS and K11_PHASES builds "
+          f"K8_NO_STORE, K11_BARRIERS, K11_PHASES and K9S_PHASES builds "
           f"in {time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
              for line in log.splitlines()
@@ -6422,10 +6847,14 @@ def main() -> int:
                                       args.k11_sweep)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
+        if args.k9s_only:
+            report["k9s"] = k9s_phase(paths, gold, k9s)
+            write_report(args.report, report)
+            return 0  # a partial run: no kernels line and no result line
         if args.sharded_only:
             report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
                                               args.k11_sweep, k6s_baseline, phases[2],
-                                              keyrow_baseline, k11_phases)
+                                              keyrow_baseline, k11_phases, k9s)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["capture"] = capture_check(paths)
@@ -6518,7 +6947,7 @@ def main() -> int:
         # 7. the sharded engine (parallel/sharded.py) on [cuda:0] * 4
         report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
                                           args.k11_sweep, k6s_baseline, phases[2],
-                                          keyrow_baseline, k11_phases)
+                                          keyrow_baseline, k11_phases, k9s)
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
             # and the plain step on the same windows, the step before K3-K5

@@ -101,10 +101,11 @@ SIGNATURES: Dict[str, List] = {
     # the sharded step on key rows: K9's sharded instantiation,
     # keyrow_expand's arguments then h3, cand, a candidate row's words, the
     # owner hash (kind, size, shift, Z-order bits), ndev, me, the
-    # self-owned lanes' first claim tag, stream
+    # self-owned lanes' first claim tag, rows a block (0: a block a row),
+    # stream
     "keyrow_expand_sharded": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _L, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _I, _P],
     # K10 over a pending list that received rows precede: keyrow_insert's
     # arguments, then their int32 count on the card, stream
     "keyrow_insert_recv": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,

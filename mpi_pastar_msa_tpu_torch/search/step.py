@@ -137,6 +137,15 @@ K9_MAX_THREADS = 256
 # (the kernel's 64 registers a thread of the H100's 65,536 a
 # multiprocessor), so that the grid is resident at once
 K9_BLOCKS_AN_SM = 16
+# K9s's rows form (the sharded step at M <= 31): rows a block, a warp a
+# row (kRowsMaxN of csrc/keyrow_expand.cu: N <= 5).  On an H100
+# (chip_smoke.py --k9s-only: kinase on 4 shards, step 200, 508 rows; the
+# sweep of 1, 2, 4 and 8) two rows a block are best or within 0.0001 ms
+# of it: one returning atomic on kNPend for every two rows, and a block
+# barrier that waits for one other warp; at 4 and 8 the barrier waits for
+# the block's slowest row
+K9S_ROWS = 2
+K9S_ROWS_MAX_M = 31
 # K7's C entry: the layout codes
 WALK_LAYOUTS = {"sig": 0, "packed": 1, "unpacked": 2}
 
@@ -320,15 +329,36 @@ class StepBuffers:
 def _kernel_params(st: _Static, dev) -> torch.Tensor:
     """K4's and K9's constants as one int32 vector: xs, ys, w, w_h (P
     each), the triangles (3T), the final coordinate and the key bit widths
-    (N each; K9 reads no bit width)."""
+    (N each; K9 reads no bit width); then, at M <= K9S_ROWS_MAX_M, two
+    words a mask for K9s's rows form (``k9s_mask_codes``)."""
     parts = [st.d_xs, st.d_ys, st.d_w, st.d_w_h]
     if st.T3:
         parts.append(st.d_tri_xyz.reshape(-1))
     parts += [st.d_final, torch.tensor(st.bitw, device=st.device)]
+    if st.M <= K9S_ROWS_MAX_M:
+        parts.append(k9s_mask_codes(st))
     v = torch.cat([p.to(st.device, torch.int64) for p in parts])
     if int(v.abs().max()) >= 2**31:
         raise ValueError("K4/K9: a pair weight does not fit 32 bits")
     return v.to(dev, torch.int32)
+
+
+def k9s_mask_codes(st: _Static) -> torch.Tensor:
+    """For each mask m = 1 .. M, K9s's rows form's two code words: bits 2p,
+    2p + 1 pair p's move bits (2 bx + by: its entry in the row's term
+    tables), bits 3t .. 3t + 2 cube t's corner (4 bx + 2 by + bz), as
+    (pair, mask) and (cube, mask) lookups that are the same for every row;
+    int64, 2M values (mask-major)."""
+    m = torch.arange(1, st.M + 1, dtype=torch.int64)
+    bit = lambda d: (m >> torch.as_tensor(d, dtype=torch.int64).reshape(-1, 1)) & 1
+    xs, ys = st.d_xs.cpu().long(), st.d_ys.cpu().long()
+    pair = (2 * bit(xs) + bit(ys)) << (2 * torch.arange(st.P).reshape(-1, 1))
+    codes = torch.stack([pair.sum(0), torch.zeros_like(m)], 1)
+    if st.T3:
+        tri = st.d_tri_xyz.cpu().long().reshape(-1, 3)
+        corner = 4 * bit(tri[:, 0]) + 2 * bit(tri[:, 1]) + bit(tri[:, 2])
+        codes[:, 1] = (corner << (3 * torch.arange(st.T3).reshape(-1, 1))).sum(0)
+    return codes.reshape(-1)
 
 
 def _step_buffers(st: _Static, dev, layout: str = "sig") -> StepBuffers:
@@ -444,6 +474,20 @@ def k9_launch_shape(B: int, M: int, sms: int = 132) -> Tuple[int, int, int]:
     return min(B, sms * per_sm), threads, -(-M // threads)
 
 
+def k9s_launch_shape(B: int, M: int, sms: int = 132,
+                     rows: int = K9S_ROWS) -> Tuple[int, int, int]:
+    """(blocks, threads a block, rows a block) of K9s, the sharded
+    instantiation of K9: at M <= ``K9S_ROWS_MAX_M`` its rows form, a warp a
+    row and ``rows`` rows a block, a block for each ``rows`` of the ``B``
+    rows the list may hold (no stride: a block's warps meet at its one
+    place atomic); else, or with ``rows`` 0, the block form of
+    ``k9_launch_shape`` (a block a row), rows 0."""
+    if rows > 0 and M <= K9S_ROWS_MAX_M:
+        return -(-B // rows), 32 * rows, rows
+    blocks, threads, _ = k9_launch_shape(B, M, sms)
+    return blocks, threads, 0
+
+
 def _sms(dev) -> int:
     """The multiprocessors of ``dev``: the card's, or the H100's 132 for a
     CPU device (the stub tests' tables)."""
@@ -453,13 +497,21 @@ def _sms(dev) -> int:
 
 
 def _keyrow_expand_args(st, tab, bufs, counters, ub, stream, *, entry: str = "keyrow_expand",
-                        cubes: bool = True, pend_at: int = 0, sharded: tuple = ()) -> tuple:
+                        cubes: bool = True, pend_at: int = 0, sharded: tuple = (),
+                        rows: Optional[int] = None) -> tuple:
     """K9's launch: ``entry`` the unsharded or the sharded instantiation,
     ``cubes`` False where h3 stands in for the cube reads, the pending
     entries appended from row ``pend_at`` of ``bufs.pend``, and
-    ``sharded`` the sharded instantiation's arguments before the stream."""
+    ``sharded`` the sharded instantiation's arguments before its rows a
+    block (``k9s_launch_shape`` with ``rows``, by default K9S_ROWS) and the
+    stream."""
     unpacked = isinstance(tab, UnpackedTable)
-    blocks, threads, _ = k9_launch_shape(st.B, st.M, _sms(tab.t_key.device))
+    if sharded:
+        blocks, threads, rows = k9s_launch_shape(st.B, st.M, _sms(tab.t_key.device),
+                                                 K9S_ROWS if rows is None else rows)
+        sharded = (*sharded, rows)
+    else:
+        blocks, threads, _ = k9_launch_shape(st.B, st.M, _sms(tab.t_key.device))
     return (entry, tab.t_key.data_ptr(), tab.t_key.shape[1],
             tab.t_g.data_ptr() if unpacked else None, tab.t_fpar.data_ptr() if unpacked else None,
             None if unpacked else tab.t_best.data_ptr(), st.C, int(unpacked),
@@ -869,7 +921,7 @@ def walk_hops_cuda(st: _Static, tab, coord, hops: int, layout: str = "sig",
 
 def expand_keyrow_sharded_cuda(st: _Static, tab, bufs: StepBuffers, counters, ub: int, h3,
                                cand, pend_at: int, hash_params: tuple, ndev: int, me: int,
-                               tag_base: int, launch=None) -> None:
+                               tag_base: int, launch=None, rows: Optional[int] = None) -> None:
     """K9's sharded instantiation (``keyrow_expand_sharded``) over K3's
     compact list in ``bufs``: as the unsharded K9, with h3 ((B, M + 1) int32
     from K12 after the reduce-scatter, packed only; or None: the shard
@@ -878,7 +930,9 @@ def expand_keyrow_sharded_cuda(st: _Static, tab, bufs: StepBuffers, counters, ub
     the pending entry) and only self-owned lanes matched in their home row
     (packed) or pending, appended to ``bufs.pend`` from row ``pend_at``,
     their claim tags from ``tag_base``.  ``hash_params``:
-    partition.owner_params; ``launch`` as ``select_best_cuda``'s."""
+    partition.owner_params; ``launch`` as ``select_best_cuda``'s; ``rows``
+    the rows form's rows a block (``k9s_launch_shape``; by default
+    K9S_ROWS, 0 the block form)."""
     dev, layout = _check_keyrow(st, tab, counters, cubes=h3 is None)
     L = st.B * st.M
     pw = bufs.pend.shape[1]
@@ -896,7 +950,7 @@ def expand_keyrow_sharded_cuda(st: _Static, tab, bufs: StepBuffers, counters, ub
         raise ValueError(f"claim tags from {tag_base}: {L} lanes must stay below 2^31")
     (launch or _kernels.launch)(*_keyrow_expand_args(
         st, tab, bufs, counters, ub, _stream(dev), entry="keyrow_expand_sharded",
-        cubes=h3 is None, pend_at=pend_at,
+        cubes=h3 is None, pend_at=pend_at, rows=rows,
         sharded=(None if h3 is None else h3.data_ptr(), cand.data_ptr(), 2 + pw, *hash_params,
                  ndev, me, int(tag_base))))
 

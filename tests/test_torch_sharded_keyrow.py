@@ -366,8 +366,9 @@ def test_insert_received_tags_by_place(layout):
 def test_keyrow_sharded_launch_arguments_match_signatures():
     """The sharded key-row wrappers' C arguments (K9s, K10 on received rows,
     K7h, keyrow_coords) have their entries' arity, and K9s differs from K9
-    only in the entry, the cubes (none where h3 stands in), the pending
-    rows' offset and its own arguments before the stream."""
+    only in the entry, the cubes (none where h3 stands in), its launch
+    shape (k9s_launch_shape), the pending rows' offset and its own
+    arguments, its rows a block last, before the stream."""
     for layout in ("packed", "unpacked"):
         eng = S.ShardedFrontierSearch(golden("test2.fasta"), devices=["cpu"] * 2,
                                       layout=layout, capacity=1 << 12)
@@ -385,7 +386,10 @@ def test_keyrow_sharded_launch_arguments_match_signatures():
         assert shd[0] == "keyrow_expand_sharded" and shd[-1] == base[-1] == "stream"
         assert shd[10] is None and (base[10] is not None) == bool(st.T3)
         assert shd[28] == bufs.pend.data_ptr() + 4 * pw * 5
-        assert shd[29:-1] == extra and shd[1:10] == base[1:10] and shd[11:28] == base[11:28]
+        blocks, threads, rows = TS.k9s_launch_shape(st.B, st.M)
+        assert shd[23:25] == (blocks, threads) and rows == (TS.K9S_ROWS if st.M <= 31 else 0)
+        assert shd[29:-1] == (*extra, rows) and shd[1:10] == base[1:10]
+        assert shd[11:23] == base[11:23] and shd[25:28] == base[25:28]
         recv = torch.zeros(1, dtype=torch.int32)
         ins = TS._keyrow_insert_args(st, tab, bufs, bufs.counters, 64, 0, TS.K10_CAP, "s",
                                      pend_at=3, recv=recv)
