@@ -134,13 +134,17 @@ Phases, each failing loudly (non-zero exit):
    the golden alignment and migrated rows, launching K3, keyrow_coords,
    K12 (tri_partial.cu), K9's sharded instantiation (keyrow_expand.cu),
    K11 on key rows (route_pack.cu), K10 on the received rows
-   (keyrow_insert.cu), K7's hop mode and the loop's consensus, exchange
-   and walk_advance (shard_loop.cu), and no plain version; the walk's
-   device loop gives the host walk's masks, each round's device span
-   traced, walk_advance is captured over a programmatic edge from the
-   round's last walk (every run prints its edges; where the runs lie on
-   several cards, one full edge from an empty node after them) and
-   equals its plain version; kinase packed, pinned to unpacked (K3's unpacked
+   (keyrow_insert.cu), the loop's consensus and exchange (shard_loop.cu)
+   and the walk in one launch (path_walk_shards, path_walk.cu: one card),
+   and no plain version; on the finished tables the one-launch walk and
+   the walk's round form (K7's hop mode and walk_advance, which several
+   cards run) give the host walk's masks and rounds, timed in turns,
+   path_walk_shards timed with its call split on the host's clock (also
+   on the sig and unpacked runs' tables), each round's device span traced,
+   walk_advance is captured over a programmatic edge from the round's
+   last walk (where the runs lie on several cards, one full edge from an
+   empty node after them) and equals its plain version; kinase packed,
+   pinned to unpacked (K3's unpacked
    instantiation, the whole cube stack on every shard) and pinned to sig
    at 2^23 slots a shard (sig_coords, K4's sharded instantiation, K11 on
    sig rows, K5) each run 256 steps under the chunked and then the host
@@ -171,13 +175,20 @@ Phases, each failing loudly (non-zero exit):
    ``--k11-sweep`` checks and times K11 on synthetic kinase-shaped inputs
    of 64 to 31,744 rows a destination); K9s on step 200's packed and
    unpacked rows at each rows a block of its sweep (0, the block form, a
-   block a row; 1, 2, 4, 8 warps a block of the rows form): bit for bit,
+   block a row; 1, 2, 4, 8 warps a block of the rows form) and K4s on the
+   sig run's step 200 at each of its own (0 the warp-strided form; the
+   rows form from sig_coords' coordinates, and decoding the sig words),
+   then synth5 (auto: sig at 2^21 a shard) chunked to g = 266713 and its
+   step 150 under the host driver (its run ends at step 186), synth6 (N = 6: the warp-strided form)
+   at step 40, and the dense sig step traced with each of K4s's forms:
+   bit for bit,
    device and wrapper times and its K9S_PHASES split (``--k9s-baseline
    SRC`` builds another tree's K9s, checks it and times it in turns with
    this one; ``--k9s-only`` runs K9s's checks alone, on kinase and on the
    random 4 x 12-16 input, packed and unpacked, with the unsharded K9
    against the other tree's at globin6 and synth10 and a traced dense
-   run with each form of K9s).  The several-card step on this
+   run with each form of K9s; K4s the same with its K4S_PHASES split,
+   ``--k4s-baseline SRC``, ``--k4s-rows`` and ``--k4s-only``).  The several-card step on this
    one card: kinase's four shards grouped into two cards (``split_cards``),
    chunked (a stream a card, one graph a ring parity, the gathers as
    copies, every card's consensus over every shard's snapshot), held to
@@ -2808,17 +2819,18 @@ def sharded_step_bounds(B: int, N: int, T: int, walk: dict, ndev: int = 4,
 
 # the sharded step's kernels (parallel/sharded.py on a card), by layout:
 # K3, the coordinates K12 gathers, K12, the sharded expand, K11's two
-# passes, the insert; K7's hop-limited mode for the walk; and the loop's
-# (LOOP_KERNELS: the consensus and the exchange every step, walk_advance
-# under the chunked driver)
+# passes, the insert; and the loop's (LOOP_KERNELS: the consensus and the
+# exchange every step, walk_advance under the chunked driver's walk of
+# rounds).  The walk: path_walk_shards once where the chunked driver's
+# card form has one card, else K7's hop-limited mode a round a shard
 LOOP_KERNELS = ["consensus", "exchange", "walk_advance"]
 SHARDED_KERNELS = {
     "sig": ["select_best", "sig_coords", "tri_partial", "sig_expand_sharded", "route_count",
-            "route_pack", "sig_probe", "path_walk_hops"],
+            "route_pack", "sig_probe"],
     "packed": ["select_best", "keyrow_coords", "tri_partial", "keyrow_expand_sharded",
-               "route_count_rows", "route_pack_rows", "keyrow_insert_recv", "path_walk_hops"],
+               "route_count_rows", "route_pack_rows", "keyrow_insert_recv"],
     "unpacked": ["select_best_unpacked", "keyrow_expand_sharded", "route_count_rows",
-                 "route_pack_rows", "keyrow_insert_recv", "path_walk_hops"]}
+                 "route_pack_rows", "keyrow_insert_recv"]}
 # the plain versions a CUDA shard must never call (names in
 # parallel/sharded.py's namespace)
 PLAIN_SHARDED = ("route_plain", "tri_partial_plain", "sig_coords_plain",
@@ -3061,9 +3073,12 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
     of ``eng``, an engine made before): the golden g, path cost g
     (attach_path_g), degapped rows; every sharded step kernel of its layout
     launched (SHARDED_KERNELS: K3, the coordinates and K12 where the cubes
-    are split, the sharded expand, K11's passes, the insert, K7's hop
-    mode; LOOP_KERNELS: the consensus, the exchange and, under the chunked
-    driver, walk_advance) and no plain version; under the chunked driver
+    are split, the sharded expand, K11's passes, the insert; LOOP_KERNELS:
+    the consensus and the exchange; the walk: where the chunked driver's
+    card form has one card path_walk_shards once and one read, its masks
+    and rounds the host walk's on the finished tables, else K7's hop mode
+    a round a shard and, under the chunked driver, walk_advance) and no
+    plain version; under the chunked driver
     two step graphs captured (one a ring parity), ``chunk_steps`` replays
     and one host read a chunk; the layout, the capacity it
     started at and reached and any overflow retry; the step's wall (with
@@ -3114,24 +3129,45 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
     chunked = st["driver"] == "chunked"
     # the rank form's ragged exchange is sized on the host where the mesh
     # maps no peer's wire (cards without peer access)
-    want = [k for k in SHARDED_KERNELS[eng.layout] + LOOP_KERNELS
+    # the chunked driver's walk on one card is one launch of
+    # path_walk_shards and one read; elsewhere rounds of K7's hop mode (and
+    # walk_advance under the chunked driver)
+    one_launch = wire_path and st.get("walk_form") == "launch"
+    if chunked and wire_path and one_launch != (st.get("card_form") and st.get("cards") == 1):
+        fail(f"{label}: the walk's form {st.get('walk_form')} on {st.get('cards')} card(s)")
+    walk_kernels = ["path_walk_shards"] if one_launch else ["path_walk_hops"] + (
+        ["walk_advance"] if chunked else [])
+    want = [k for k in SHARDED_KERNELS[eng.layout] + LOOP_KERNELS[:2] + walk_kernels
             if (eng.cubes_split or k not in ("sig_coords", "keyrow_coords", "tri_partial"))
-            and (chunked or k != "walk_advance")
             and (st.get("card_form") or eng.exchange == "dense" or eng.wires is not None
                  or k != "exchange")]
     if wire_path:
         for k in want:
             if counts.get(k, 0) <= 0:
                 fail(f"{label}: kernel {k} was not launched on the sharded path")
-        # the chunked walk: a warm-up round, then WALK_ROUNDS replays of the
-        # one-round graph a host read
+        # the chunked walk of rounds: a warm-up round, then WALK_ROUNDS
+        # replays of the one-round graph a host read
         from mpi_pastar_msa_tpu_torch.parallel.sharded import WALK_ROUNDS
 
         walk_launches = ((st["walk_reads"] * WALK_ROUNDS + 1) * eng.ndev if chunked
                          else st["walk_rounds"] * eng.ndev)
-        if counts["path_walk_hops"] != walk_launches:
+        if one_launch and (counts["path_walk_shards"], counts["path_walk_hops"],
+                           counts["walk_advance"], st["walk_reads"]) != (1, 0, 0, 1):
+            fail(f"{label}: the one-launch walk launched path_walk_shards "
+                 f"{counts['path_walk_shards']} times, K7 hop mode {counts['path_walk_hops']}, "
+                 f"walk_advance {counts['walk_advance']}, in {st['walk_reads']} reads")
+        if not one_launch and counts["path_walk_hops"] != walk_launches:
             fail(f"{label}: K7 hop mode launched {counts['path_walk_hops']} times for "
                  f"{st['walk_rounds']} rounds ({st['walk_reads']} reads) on {eng.ndev} shards")
+        if one_launch:
+            # the one launch's masks and rounds again on the finished
+            # tables, against the host walk in rounds
+            host_walk = eng._walk(eng.shards)
+            got = eng._walk_loop(eng.shards, form="launch")
+            if got[:2] != host_walk or got[1] != st["walk_rounds"]:
+                fail(f"{label}: the one-launch walk's {len(got[0])} masks in {got[1]} rounds "
+                     f"(the run's {st['walk_rounds']}) differ from the host walk's "
+                     f"{len(host_walk[0])} in {host_walk[1]}")
         if chunked and not (st["graph_captures"] == 2
                             and st["graph_replays"] == st["host_reads"] * eng.chunk_steps
                             and st["host_reads"] == -(-st["steps"] // eng.chunk_steps)):
@@ -3163,6 +3199,7 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
                 wire_rows_a_step=st["wire_rows"] / steps,
                 migrated_a_step=st["migrated"] / steps, peak_carry=st["peak_carry"],
                 walk_rounds=st["walk_rounds"], walk_s=st["walk_s"],
+                walk_form=st.get("walk_form"),
                 walk_parts={k: st[k] for k in ("walk_warm_s", "walk_capture_s") if k in st},
                 search_s=st["search_s"], step_wall_ms=st["search_s"] / steps * 1e3,
                 engine_build_s=build_s, wall_s=wall, launches=counts,
@@ -3203,8 +3240,8 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
              f"{info['step_device_all_ms']:.3f})" if profile else "")
           + f", host reads {info['host_reads_a_step']:.4f}, wire rows "
           f"{info['wire_rows_a_step']:.1f}, migrated {info['migrated_a_step']:.1f}; peak carry "
-          f"{st['peak_carry']}; walk {st['walk_rounds']} rounds ({st['walk_reads']} host reads) "
-          f"in {st['walk_s'] * 1e3:.2f} ms"
+          f"{st['peak_carry']}; walk ({st.get('walk_form')}) {st['walk_rounds']} rounds "
+          f"({st['walk_reads']} host reads) in {st['walk_s'] * 1e3:.2f} ms"
           + (f" (warm-up round {st['walk_warm_s'] * 1e3:.2f}, capture "
              f"{st['walk_capture_s'] * 1e3:.2f})" if "walk_warm_s" in st else "")
           + (f", walk_advance's edges in the captured round {dict(edges)} (read in "
@@ -3215,7 +3252,8 @@ def sharded_run(label: str, path: str, gold: dict, devices, want_identical: bool
           + (f" (shards {[round(b / 2**20, 1) for b in info['shard_bytes']]} MiB)"
              if info["shard_bytes"] else "")
           + "; launches " + str({k: counts[k] for k in SHARDED_KERNELS[eng.layout]
-                                 + LOOP_KERNELS + ["path_walk"]}))
+                                 + LOOP_KERNELS + ["path_walk_hops", "path_walk_shards",
+                                                   "path_walk"]}))
     return info, eng, cap
 
 
@@ -3933,9 +3971,10 @@ def sharded_kernel_checks(cap: dict, shards, k11_count: dict, k11_baseline=None,
         t = SigTable(cap["t_sig"], cap["t_best0"].clone(), cap["t_sig"])
         SH.expand_sharded_plain(st, t, cap["sel"], n_sel, eng.ub, cap["h3"], eng.own, ndev, me)
 
+    # as the step launches it: the rows form from sig_coords' coordinates
     report("sig_expand_sharded", 0,
            lambda: S.expand_sharded_cuda(st, tab_k, bufs, ctr, eng.ub, cap["h3"], cand_k, sh.R,
-                                         eng.hash_params, ndev, me),
+                                         eng.hash_params, ndev, me, coords=cap.get("coords")),
            plain4, n_sel * (8 + 4 + st.P * 20 + (M + 1) * 4 + M * 16)
            + int(cap["state1"][5]) * 32 + pending.shape[0] * 12, restore=restore4)
     out["sig_expand_sharded"].update(rows=n_sel, lanes_valid=n_valid,
@@ -4438,6 +4477,356 @@ def k9s_phase(paths, gold, k9s: dict) -> dict:
         del eng
         print(f"  the dense step's device us by kernel (K9s rows {r}): " + ", ".join(
             f"{name} {us:.2f}" for name, us in out[key]["step_kernels_us"].items()))
+    return out
+
+
+# --- K4s (sig_expand_sharded): its rows form against the warp-strided
+# form, the K4S_PHASES split, the rows sweep and another tree's K4s in turns
+
+# the rows a block of the sweep (0: the warp-strided form)
+K4S_SWEEP = (0, 1, 2, 4, 8)
+# sig_expand.cu's K4S_PHASES readings (kK4sStamps), and what ends at each
+# of block 0's readings 3 .. 12
+K4S_STAMPS = 13
+K4S_MARKS = ("edge_us", "round1_us", "decode_us", "round2_us", "masks_us", "match_us",
+             "cand_stores_us", "place_us", "pend_stores_us", "tail_us")
+# synth5's certified optimum (tests/test_export_cache.py), and the sharded
+# steps whose K4s the smoke checks: kinase pinned to sig at step 200,
+# synth5 under auto at step 150 (its run on 4 shards ends at step 186),
+# synth6 (N = 6: the warp-strided form) at step 40
+SYNTH5_G = 266713
+K4S_STEP, K4S_STEP_N5, K4S_STEP_N6 = 200, 150, 40
+
+
+def start_k4s_baseline(src: str, tmp: str):
+    """Start nvcc on another tree's K4 (``src``: a checkout's root or its
+    csrc/ directory; sig_expand.cu and the headers it includes) in its own
+    directory; returns (src, proc, lib)."""
+    import shutil
+
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    csrc = src if os.path.isfile(os.path.join(src, "sig_expand.cu")) else os.path.join(
+        src, "mpi_pastar_msa_tpu_torch", "csrc")
+    out = os.path.join(tmp, "k4s_baseline")
+    os.makedirs(out, exist_ok=True)
+    for f in ("sig_expand.cu", "expand_row.cuh", "owner.cuh", "sig_key.cuh", "step_state.cuh"):
+        shutil.copy(os.path.join(csrc, f), out)
+    lib = os.path.join(out, "libsig_expand.so")
+    proc = subprocess.Popen(
+        [_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-o", lib, os.path.join(out, "sig_expand.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return src, proc, lib
+
+
+def load_k4s_baseline(job) -> dict:
+    """The other tree's K4s (start_k4s_baseline): its sharded C entry, with
+    or without this tree's last two arguments before the stream (the
+    coordinates and the rows a block: ``rows`` says whether it takes them),
+    and its source under ``src``."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    src, proc, lib = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"K4s baseline: nvcc failed for sig_expand.cu of {src}:\n{log}")
+    with open(os.path.join(os.path.dirname(lib), "sig_expand.cu")) as f:
+        rows = "const void* coords, int rows, void* stream" in f.read()
+    sig = _kernels.SIGNATURES["sig_expand_sharded"]
+    fn = ctypes.CDLL(lib).sig_expand_sharded
+    fn.argtypes, fn.restype = (sig if rows else sig[:-3] + sig[-1:]), ctypes.c_int
+    return {"src": src, "rows": rows, "sig_expand_sharded": fn}
+
+
+def load_k4s_phases(job) -> dict:
+    """The K4S_PHASES build (start_phases_build("sig_expand", macro=
+    "K4S_PHASES")): its sharded C entry (this tree's signature, the form of
+    a load_k4s_baseline dict) and ``phases()``, the readings of the
+    launches since the last read, which it resets."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+
+    name, proc, lib = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc failed for the K4S_PHASES build of sig_expand.cu:\n{log}")
+    dll = ctypes.CDLL(lib)
+    fn = dll.sig_expand_sharded
+    fn.argtypes, fn.restype = _kernels.SIGNATURES["sig_expand_sharded"], ctypes.c_int
+    read = dll.sig_expand_phases
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+
+    def phases() -> list:
+        got = (ctypes.c_ulonglong * K4S_STAMPS)()
+        if read(ctypes.cast(got, ctypes.c_void_p), K4S_STAMPS):
+            fail("sig_expand_phases of the K4S_PHASES build failed")
+        return list(got)
+
+    return {"src": "the K4S_PHASES build", "rows": True, "sig_expand_sharded": fn,
+            "phases": phases}
+
+
+class K4sRun:
+    """K4s on a captured sig step's inputs (``cap``: sharded_guard's) with
+    buffers of its own: ``go()`` launches it once with ``rows`` rows a
+    block (0: the warp-strided form; k4s_rows keeps it at N >= 6) through
+    this tree's wrapper, its C entry or another build's (``fns``:
+    load_k4s_baseline, load_k4s_phases; a build without the last two
+    arguments runs its warp-strided form), from the step's sig_coords
+    output (``coords``, where the step ran it) or decoding the sig words;
+    ``restore()`` puts back what a launch changes (t_best, the state
+    vector, the counters)."""
+
+    def __init__(self, cap: dict, rows: int, fns=None, coords: bool = True):
+        from mpi_pastar_msa_tpu_torch import _kernels
+        from mpi_pastar_msa_tpu_torch.search import step as S
+        from mpi_pastar_msa_tpu_torch.search.engine import SigTable
+
+        sh, eng = cap["shard"], cap["eng"]
+        self.cap, self.rows = cap, rows
+        self.tab = SigTable(cap["t_sig"], cap["t_best0"].clone(), cap["t_sig"])
+        bufs = S.StepBuffers.select_only(sh.st, sh.dev)
+        bufs.sel, bufs.state = cap["sel"], cap["state0"].clone()
+        bufs.run = torch.ones(1, dtype=torch.int32, device=sh.dev)
+        bufs.pend = torch.empty_like(sh.bufs.pend)
+        bufs.params = sh.bufs.params
+        self.bufs, self.ctr = bufs, cap["ctr0"].clone()
+        self.cand = torch.empty_like(sh.cand)
+        self.fns = fns
+        if fns is not None and not fns["rows"] and rows:
+            fail(f"K4s of {fns['src']}: no rows form (rows {rows})")
+        fn = None if fns is None else fns["sig_expand_sharded"]
+        co = cap.get("coords") if coords else None
+
+        def launch(name, *args):
+            if fn is None:
+                return _kernels.launch(name, *args)
+            if fn(*(args if fns["rows"] else args[:-3] + args[-1:])):
+                fail(f"K4s of {fns['src']} failed to launch")
+
+        self.go = lambda: S.expand_sharded_cuda(
+            sh.st, self.tab, bufs, self.ctr, eng.ub, cap["h3"], self.cand, sh.R,
+            eng.hash_params, eng.ndev, sh.me, launch=launch, coords=co, rows=rows)
+
+    def restore(self):
+        self.tab.t_best.copy_(self.cap["t_best0"])
+        self.bufs.state.copy_(self.cap["state0"])
+        self.ctr.copy_(self.cap["ctr0"])
+
+
+def k4s_plain(cap: dict):
+    """expand_sharded_plain on a captured sig step: (goal, cand, pending,
+    surviving lanes, t_best after its round-0 match)."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search.engine import SigTable
+
+    sh, eng = cap["shard"], cap["eng"]
+    tab = SigTable(cap["t_sig"], cap["t_best0"].clone(), cap["t_sig"])
+    goal, cand, pending, n_valid = SH.expand_sharded_plain(
+        sh.st, tab, cap["sel"], int(cap["state0"][2]), eng.ub, cap["h3"], eng.own, eng.ndev,
+        sh.me)
+    return goal, cand, pending, n_valid, tab.t_best
+
+
+def k4s_check(label: str, run: K4sRun, want) -> None:
+    """One launch of ``run`` against the plain version (``want``:
+    k4s_plain), bit for bit: the candidate rows, t_best after its round-0
+    match, the pending lanes as a multiset, the surviving and pending
+    counts, the goal."""
+    cap = run.cap
+    sh = cap["shard"]
+    st = sh.st
+    goal, cand, pending, n_valid, t_best = want
+    L = int(cap["state0"][2]) * st.M
+    run.restore()
+    run.go()
+    torch.cuda.synchronize()
+    n_pend = int(run.bufs.state[6])
+    got = run.bufs.pend[sh.R:sh.R + n_pend]
+    srt = lambda t: sorted(map(tuple, t.tolist()))
+    bad = []
+    if not torch.equal(run.cand[:L], cand[:L]):
+        bad.append("candidate rows")
+    if not torch.equal(run.tab.t_best[:st.C], t_best[:st.C]):  # the plain one writes trash
+        bad.append("t_best after round 0")
+    if srt(got) != srt(pending):
+        bad.append("pending lanes")
+    if int(run.bufs.state[5]) != n_valid or n_pend != pending.shape[0]:
+        bad.append(f"surviving or pending counts {int(run.bufs.state[5])}, {n_pend} against "
+                   f"{n_valid}, {pending.shape[0]}")
+    if int(run.ctr[0]) != min(goal, int(cap["ctr0"][0])):
+        bad.append("goal g")
+    if bad:
+        fail(f"K4s {label} differs from its plain version: {bad}")
+
+
+def k4s_split(run: K4sRun, reps: int = 20) -> dict:
+    """K4s's split on ``run`` (a K4sRun of the K4S_PHASES build, rows form):
+    the state's restore and the launch captured in a CUDA graph, replayed
+    ``reps`` times, each replay's %globaltimer readings read.  Medians in
+    microseconds: block 0's spans between its readings (K4S_MARKS), its
+    whole span, and the call (the first block's start to the last block's
+    end)."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        run.restore()
+        run.go()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        run.restore()
+        run.go()
+    torch.cuda.synchronize()
+    run.fns["phases"]()
+    spans = {}
+    for _ in range(reps):
+        graph.replay()
+        torch.cuda.synchronize()
+        t = run.fns["phases"]()
+        got = {"call_us": t[1] - t[0], "block0_us": t[12] - t[2],
+               "to_block0_us": t[2] - t[0]}
+        got.update({name: t[k + 3] - t[k + 2] for k, name in enumerate(K4S_MARKS)})
+        for k, v in got.items():
+            spans.setdefault(k, []).append(v / 1e3)
+    del graph
+    return {k: statistics.median(v) for k, v in spans.items()}
+
+
+def k4s_checks(cap: dict, k4s: dict) -> dict:
+    """K4s on a captured sig step (``cap``): for each rows a block of
+    ``k4s["rows"]`` (K4S_SWEEP by default; 0 the warp-strided form; at N
+    >= 6 every one runs that form), a launch against the plain version bit
+    for bit (k4s_check), its device (CUPTI) and wrapper (CUDA events)
+    times, and with ``k4s["phases"]`` the K4S_PHASES build's split; the
+    rows form at K4S_ROWS decoding the sig words (as with no sharded
+    cubes) checked and timed too; with ``k4s["baseline"]``, another tree's
+    K4s checked the same way and timed in turns with this tree's at
+    K4S_ROWS (old, new, new, old)."""
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    sh = cap["shard"]
+    st = sh.st
+    want = k4s_plain(cap)
+    out = {"rows_listed": int(cap["state0"][2]), "M": st.M, "coords": "coords" in cap,
+           "lanes_valid": want[3], "pending": int(want[2].shape[0]), "sweep": {}}
+    sweep = k4s.get("rows") or K4S_SWEEP
+    if st.M > S.K9S_ROWS_MAX_M:
+        sweep = (0,)  # N >= 6: the warp-strided form whatever rows says
+    for rows in sweep:
+        run = K4sRun(cap, rows)
+        k4s_check(f"({rows} rows a block)", run, want)
+        row = dict(device_ms=device_ms(run.go, 20, run.restore),
+                   ms=time_restored(run.go, run.restore, 20), form_rows=S.k4s_rows(st.M, rows))
+        if k4s.get("phases") and row["form_rows"]:
+            prun = K4sRun(cap, rows, k4s["phases"])
+            k4s_check(f"({rows} rows a block, the K4S_PHASES build)", prun, want)
+            row["split"] = k4s_split(prun)
+        out["sweep"][rows] = row
+        print(f"  K4s, {rows} rows a block (form {row['form_rows']}): device "
+              f"{row['device_ms']:.4f} ms, wrapper {row['ms']:.4f} ms" + (
+                  "; split (us): " + ", ".join(f"{k[:-3]} {v:.3f}"
+                                               for k, v in row["split"].items())
+                  if "split" in row else ""))
+    if st.M <= S.K9S_ROWS_MAX_M and "coords" in cap:
+        run = K4sRun(cap, S.K4S_ROWS, coords=False)
+        k4s_check(f"({S.K4S_ROWS} rows a block, decoding the sig words)", run, want)
+        out["decode"] = dict(device_ms=device_ms(run.go, 20, run.restore),
+                             ms=time_restored(run.go, run.restore, 20))
+        print(f"  K4s, {S.K4S_ROWS} rows a block decoding the sig words: device "
+              f"{out['decode']['device_ms']:.4f} ms, wrapper {out['decode']['ms']:.4f} ms")
+    base = k4s.get("baseline")
+    if base is not None:
+        old, new = K4sRun(cap, 0, base), K4sRun(cap, S.K4S_ROWS)
+        k4s_check(f"of {base['src']}", old, want)
+        res = {"device": {"old": [], "new": []}, "wrapper": {"old": [], "new": []}}
+        for w in ("old", "new", "new", "old"):
+            r = old if w == "old" else new
+            res["device"][w].append(device_ms(r.go, 20, r.restore))
+            res["wrapper"][w].append(time_restored(r.go, r.restore, 20))
+        out["turns"] = res
+        print(f"  K4s in turns with {base['src']} (old, new, new, old): " + "; ".join(
+            f"{k} {v['old'][0]:.4f} / {v['new'][0]:.4f} / {v['new'][1]:.4f} / "
+            f"{v['old'][1]:.4f} ms" for k, v in res.items()))
+    return out
+
+
+def k4s_runs(paths, gold, k4s: dict, kinase: bool = True) -> dict:
+    """K4s's inputs and checks, 4 shards of one card: synth5 under auto
+    (sig at 2^21 slots a shard: 40 key bits) to its optimum under the
+    chunked driver (the main path's driver: its K4s launches counted),
+    then under the host driver with step K4S_STEP_N5 captured; with
+    ``kinase``, kinase pinned to sig at 2^23 slots a shard, the same step
+    captured; synth5 with its cubes not split (shard_cubes False: no h3 and
+    no sig_coords, each shard reads its own cubes and K4s decodes the sig
+    words), the same step captured; k4s_checks on each (``k4s``: rows,
+    phases, baseline); synth6 (N = 6, sig under auto) with step
+    K4S_STEP_N6 captured, its warp-strided form checked."""
+    card = torch.device("cuda", 0)
+    out = {}
+    s5 = data_gold("synth5", SYNTH5_G)
+    out["synth5_chunked"], eng, _ = sharded_run("synth5 sharded 4, auto (chunked driver)",
+                                                data_path("synth5"), s5, [card] * 4, False)
+    if eng.layout != "sig" or out["synth5_chunked"]["driver"] != "chunked":
+        fail(f"synth5 sharded: layout {eng.layout}, driver {out['synth5_chunked']['driver']}; "
+             f"want sig, chunked")
+    eng.driver = "host"
+    runs = ((("kinase_sig", "kinase sharded 4, pinned sig", paths["kinase.fasta"],
+              gold["kinase.fasta"], True, dict(layout="sig", capacity=1 << 23), K4S_STEP,
+              None),) if kinase else ()) + (
+            ("synth5", "synth5 sharded 4, auto", data_path("synth5"), s5, False, {},
+             K4S_STEP_N5, eng),
+            ("synth5_own_cubes", "synth5 sharded 4, auto, cubes not split",
+             data_path("synth5"), s5, False, dict(shard_cubes=False), K4S_STEP_N5, None),
+            ("synth6", "synth6 sharded 4, auto", data_path("synth6"),
+             data_gold("synth6", SYNTH6_G), False, {}, K4S_STEP_N6, None))
+    del eng
+    for key, label, path, g, ident, kw, at, e in runs:
+        out[key], e, cap = sharded_run(f"{label}, host driver", path, g, [card] * 4, ident,
+                                       capture_step=at, eng=e,
+                                       **({} if e is not None else dict(kw, driver="host")))
+        if e.layout != "sig" or "cand" not in cap:
+            fail(f"{label}: layout {e.layout}, or the search ended before step {at}")
+        if e.cubes_split != (cap["h3"] is not None) or e.cubes_split != ("coords" in cap):
+            fail(f"{label}: cubes split {e.cubes_split}, but h3 and sig_coords "
+                 f"{cap['h3'] is not None}, {'coords' in cap}")
+        print(f"K4s on shard {cap['shard'].me}'s step {at} ({label}, N = {e.st.n}, "
+              f"{int(cap['state0'][2])} rows):")
+        out[f"checks_{key}"] = k4s_checks(cap, k4s)
+        del e, cap
+    return out
+
+
+def k4s_dense_forms(paths, gold) -> dict:
+    """Traced dense chunked runs of kinase pinned to sig (2^23 a shard),
+    one engine: K4s's warp-strided form (K4S_ROWS 0 for the run), then its
+    rows form; each run's device time a step, by kernel."""
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    card = torch.device("cuda", 0)
+    out, eng, rows = {}, None, S.K4S_ROWS
+    for key, r in (("sig_dense_strided_form", 0), ("sig_dense", rows)):
+        S.K4S_ROWS = r
+        try:
+            out[key], eng, _ = sharded_run(f"kinase sharded 4, pinned sig, dense, K4s rows {r}",
+                                           paths["kinase.fasta"], gold["kinase.fasta"],
+                                           [card] * 4, True, profile=True, eng=eng,
+                                           **({} if eng else dict(exchange="dense",
+                                                                  layout="sig",
+                                                                  capacity=1 << 23)))
+        finally:
+            S.K4S_ROWS = rows
+        print(f"  the dense sig step's device us by kernel (K4s rows {r}): " + ", ".join(
+            f"{name} {us:.2f}" for name, us in out[key]["step_kernels_us"].items()))
+    return out
+
+
+def k4s_phase(paths, gold, k4s: dict) -> dict:
+    """K4s alone (``--k4s-only``): k4s_runs (kinase pinned to sig, synth5
+    chunked then host, synth6), then the traced dense sig step with each
+    form (k4s_dense_forms)."""
+    out = k4s_runs(paths, gold, k4s)
+    out.update(k4s_dense_forms(paths, gold))
     return out
 
 
@@ -5323,7 +5712,7 @@ def consensus_turns(rep, args, run, tg, cons, restore, want, baseline: dict,
 
 
 def walk_round_spans(eng, shards, rounds: int) -> dict:
-    """The walk loop (``eng._walk_loop``) traced with torch.profiler
+    """The walk loop's round form (``eng._walk_loop``) traced with torch.profiler
     (CUPTI): for each of its first ``rounds`` rounds after the warm-up (the
     rounds whose flag is 1), the device span from the round's first
     path_walk_hops start to walk_advance's end, walk_advance's start after
@@ -5335,7 +5724,7 @@ def walk_round_spans(eng, shards, rounds: int) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiler_preamble()
-        eng._walk_loop(shards)
+        eng._walk_loop(shards, form="rounds")
         torch.cuda.synchronize()
     ks = sorted((e.time_range.start, e.time_range.end, "walk_advance_kernel" in e.name)
                 for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -5409,7 +5798,7 @@ def walk_turns(eng, host, wtab, hops: int, n: int, kern, restore, baseline: dict
         try:
             stats = {}
             t0 = time.perf_counter()
-            masks, rounds, _ = eng._walk_loop(eng.shards, stats)
+            masks, rounds, _ = eng._walk_loop(eng.shards, stats, form="rounds")
             wall = (time.perf_counter() - t0) * 1e3
             if (masks, rounds) != host:
                 fail(f"the walk loop with walk_advance {w} differs from the host walk")
@@ -5450,27 +5839,48 @@ def one_warp_floor(reps: int = 20) -> dict:
     return {f"{h}_hops": device_ms(chase(h), reps) for h in (0, 1, 2)}
 
 
-def walk_loop_check(eng, floor: dict, baseline=None) -> dict:
-    """On the finished tables of a chunked run: the walk's device loop
-    (WALK_ROUNDS rounds a graph replay) against the host walk, the same
-    masks and rounds, its wall and each round's device span
-    (walk_round_spans); walk_advance on the first round's runs against its
-    plain version, timed from its inputs restored (wrapper, device, plain)
-    beside its bound by bytes and the launch floor; with ``baseline``,
-    another tree's walk_advance in turns with this one (walk_turns)."""
+def walk_loop_check(eng, floor: dict, chase: dict, baseline=None) -> dict:
+    """On the finished tables of a chunked run on one card: the walk's two
+    forms, its one launch (path_walk_shards, one read) and its device loop
+    of rounds (WALK_ROUNDS rounds a graph replay, walk_advance over a
+    programmatic edge from the round's last walk), against the host walk,
+    the same masks and rounds, each form's wall in turns (launch, rounds,
+    rounds, launch), the one launch's device time (walk_shards_check) and
+    each round's device span (walk_round_spans); walk_advance on the first
+    round's runs against its plain version, timed from its inputs restored
+    (wrapper, device, plain) beside its bound by bytes and the launch
+    floor; with ``baseline``, another tree's walk_advance in turns with
+    this one (walk_turns)."""
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
     shards, st = eng.shards, eng.st
-    t0 = time.perf_counter()
-    masks, rounds, reads = eng._walk_loop(shards)
-    loop_s = time.perf_counter() - t0
+    with walk_edges() as (edges, _):
+        t0 = time.perf_counter()
+        masks, rounds, reads = eng._walk_loop(shards, form="rounds")
+        loop_s = time.perf_counter() - t0
+    # walk_advance captured over a programmatic edge from the round's last walk
+    if set(edges) != {"kernel:programmatic"}:
+        fail(f"the walk's round form: walk_advance's edges in the captured round "
+             f"{dict(edges)}, want one programmatic edge from a kernel")
     t0 = time.perf_counter()
     h_masks, h_rounds = eng._walk(shards)
     host_s = time.perf_counter() - t0
     if masks != h_masks or rounds != h_rounds:
         fail(f"the walk loop's {len(masks)} masks in {rounds} rounds differ from the host "
              f"walk's {len(h_masks)} in {h_rounds}")
+    forms = {"launch": [], "rounds": []}
+    for form in ("launch", "rounds", "rounds", "launch"):
+        t0 = time.perf_counter()
+        got = eng._walk_loop(shards, form=form)
+        forms[form].append((time.perf_counter() - t0) * 1e3)
+        if got[:2] != (h_masks, h_rounds) or got[2] != (1 if form == "launch" else reads):
+            fail(f"the walk's {form} form: {len(got[0])} masks in {got[1]} rounds and {got[2]} "
+                 f"reads, the host walk's {len(h_masks)} in {h_rounds}")
+    print("  the walk's forms in turns (launch, rounds, rounds, launch), wall ms: "
+          f"{forms['launch'][0]:.3f} / {forms['rounds'][0]:.3f} / {forms['rounds'][1]:.3f} / "
+          f"{forms['launch'][1]:.3f}")
     spans = walk_round_spans(eng, shards, rounds)
+    one = walk_shards_check(eng, chase, (h_masks, h_rounds))
     n, hops, dev = st.n, SH.WALK_HOPS, shards[0].dev
     final = [int(v) for v in eng.problem.final_coord]
     i32 = dict(dtype=torch.int32, device=dev)
@@ -5510,13 +5920,126 @@ def walk_loop_check(eng, floor: dict, baseline=None) -> dict:
     if baseline is not None and "walk_advance" in baseline:
         out["walk_advance"]["turns"] = walk_turns(eng, (h_masks, h_rounds), wtab, hops, n,
                                                   kern, restore, baseline)
-    out.update(masks=len(masks), rounds=rounds, loop_reads=reads, loop_s=loop_s, host_s=host_s)
-    print(f"  the walk loop: {len(masks)} masks in {rounds} rounds, {reads} host reads, "
-          f"{loop_s * 1e3:.2f} ms; the host walk the same masks in {host_s * 1e3:.2f} ms, "
+    out.update(masks=len(masks), rounds=rounds, loop_reads=reads, loop_s=loop_s, host_s=host_s,
+               forms_wall_ms=forms, path_walk_shards=one, edges=dict(edges),
+               rounds_device_ms=rounds * spans["span"]["median_ms"])
+    print(f"  the walk loop's round form: {len(masks)} masks in {rounds} rounds, {reads} host "
+          f"reads, {loop_s * 1e3:.2f} ms; the host walk the same masks in {host_s * 1e3:.2f} ms, "
           f"{h_rounds} reads; a round's device span {spans['span']['median_ms']:.4f} ms "
-          f"(median of {rounds}; {spans['span']['min_ms']:.4f}-{spans['span']['max_ms']:.4f}), "
-          f"walk_advance {spans['walk_advance']['median_ms']:.4f} ms starting "
+          f"(median of {rounds}; {spans['span']['min_ms']:.4f}-{spans['span']['max_ms']:.4f}; "
+          f"{out['rounds_device_ms']:.4f} ms for the rounds), walk_advance "
+          f"{spans['walk_advance']['median_ms']:.4f} ms starting "
           f"{spans['start_after_walk']['median_ms'] * 1e3:.2f} us after the round's last walk")
+    return out
+
+
+def shards_walk_bytes(st, tabs, final, layout: str, own) -> dict:
+    """The bytes the one-launch walk must move on this run's tables: each
+    path node's lookup in its owner's table reads the key words of its
+    probe rows up to its first hit and the hit's parent word (walk_bytes's
+    count, a lookup each), the coordinate read and the output written
+    once.  Returns bytes and lookups."""
+    import numpy as np
+
+    from mpi_pastar_msa_tpu_torch.search import engine as E
+
+    c = np.asarray(final, dtype=np.int64)
+    nbytes, lookups = st.n * 4 * 2 + (int(sum(final)) + st.n + 2) * 4, 0
+    while c.any():
+        o = int(own(c[None, :].astype(np.int32))[0])
+        wb = walk_bytes(st, tabs[o], layout, c, 1, 0)
+        nbytes, lookups = nbytes + wb["bytes"] - st.n * 4, lookups + 1
+        par = E._LAYOUT_FNS[layout].lookup(st, tabs[o], torch.as_tensor(c))
+        if par is None:
+            break
+        c = c - np.array([(par >> i) & 1 for i in range(st.n)])
+    return dict(bytes=nbytes, lookups=lookups)
+
+
+def walk_shards_host_split(st, tabs, final, layout: str, hash_params, reps: int = 20) -> dict:
+    """walk_shards_cuda's call split on the host's clock (median ms of
+    ``reps`` calls after one to warm up, each after a synchronize): its
+    steps as it makes them, the shards' table checks and the host table of
+    their addresses (step._walk_table), the params' copy to the card,
+    out's allocation with the launch, and the one read (which waits for
+    the kernel); every call's result equal to walk_shards_cuda's."""
+    from mpi_pastar_msa_tpu_torch import _kernels
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import step as S
+
+    want = SH.walk_shards_cuda(st, tabs, final, layout, hash_params)
+    n, tmax = st.n, int(st.final_np.sum())
+    names = ("tables", "params", "launch", "read")
+    split = {k: [] for k in names + ("call",)}
+    for k in range(reps + 1):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        rows = [S._walk_table(st, tab, layout) for tab in tabs]
+        dev, code, _, stride, _, _, probes = rows[0]
+        table = torch.tensor([[r[2], r[4] or 0, r[5] or 0] for r in rows], dtype=torch.int64)
+        t.append(time.perf_counter())
+        params = torch.tensor(list(final) + list(st.bitw), dtype=torch.int32).to(dev)
+        t.append(time.perf_counter())
+        out = torch.empty(tmax + n + 2, dtype=torch.int32, device=dev)
+        _kernels.launch("path_walk_shards", code, table.data_ptr(), len(tabs), stride, n, st.C,
+                        st.bbits, probes, *hash_params, SH.WALK_HOPS, params.data_ptr(),
+                        tmax, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        t.append(time.perf_counter())
+        v = out.cpu().tolist()
+        t.append(time.perf_counter())
+        if (v[:v[tmax + n]], v[tmax:tmax + n], v[tmax + n + 1]) != want:
+            fail(f"path_walk_shards ({layout}) in the host split differs from walk_shards_cuda")
+        if k:
+            for name, t0, t1 in zip(names, t, t[1:]):
+                split[name].append((t1 - t0) * 1e3)
+            split["call"].append((t[-1] - t[0]) * 1e3)
+    return {name: statistics.median(v) for name, v in split.items()}
+
+
+def walk_shards_check(eng, chase: dict, host=None, reps: int = 10) -> dict:
+    """path_walk_shards on a finished run's tables (every shard's on one
+    card): against walk_shards_plain and the host walk (``host``: its
+    masks and rounds, or None to walk); its device time (CUPTI) and the
+    wrapper's call with its one read (CUDA events), and the call split on
+    the host's clock (walk_shards_host_split); the plain version's time;
+    its bound by bytes (shards_walk_bytes) and its latency floor (its
+    lookups x one dependent load from L2, pointer_chase, and beside it
+    from device memory); its device time cold, after writing 256 MiB
+    elsewhere."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    st, layout = eng.st, eng.layout
+    tabs = [sh.tab for sh in sorted(eng.shards, key=lambda sh: sh.me)]
+    final = [int(v) for v in eng.problem.final_coord]
+    host = host or eng._walk(eng.shards)
+    want = SH.walk_shards_plain(st, tabs, final, layout, eng.own)
+    if (want[0], want[2]) != tuple(host) or any(want[1]):
+        fail(f"walk_shards_plain ({layout}) differs from the host walk")
+    call = functools.partial(SH.walk_shards_cuda, st, tabs, final, layout, eng.hash_params)
+    if call() != want:
+        fail(f"path_walk_shards ({layout}) differs from walk_shards_plain")
+    dev_ms, ms = device_ms(call, reps), time_ms(call, reps)
+    split = walk_shards_host_split(st, tabs, final, layout, eng.hash_params)
+    evict = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MiB
+    cold = device_ms(call, reps, evict.zero_)
+    del evict
+    wb = shards_walk_bytes(st, tabs, final, layout, eng.own)
+    out = dict(layout=layout, max_abs_err=0, masks=len(want[0]), rounds=want[2],
+               lookups=wb["lookups"], bytes=wb["bytes"],
+               bound_ms=wb["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               latency_floor_ms=wb["lookups"] * chase["l2_ns"] / 1e6,
+               latency_floor_dram_ms=wb["lookups"] * chase["dram_ns"] / 1e6,
+               device_ms=dev_ms, cold_device_ms=cold, ms=ms, host_split_ms=split,
+               plain_ms=time_ms(lambda: SH.walk_shards_plain(st, tabs, final, layout, eng.own),
+                                reps=3, warmup=1),
+               library_ms=None)
+    print(f"  path_walk_shards ({layout}): {out['masks']} masks, {out['rounds']} rounds, equal "
+          f"to the host walk and walk_shards_plain; device {dev_ms:.4f} ms, call {ms:.4f} ms; "
+          f"cold (after writing 256 MiB) {cold:.4f} ms device; the call on the host's clock "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f" ms; plain {out['plain_ms']:.2f} ms; bound {out['bound_ms']:.7f} ms "
+          f"({wb['bytes']} B), latency floor {out['latency_floor_ms']:.4f} ms ({wb['lookups']} "
+          f"lookups from L2; {out['latency_floor_dram_ms']:.4f} from device memory)")
     return out
 
 
@@ -5587,9 +6110,9 @@ def k11_phase(paths, gold, k11: dict, sweep: bool = False) -> dict:
     return out
 
 
-def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
+def sharded_phase(paths, gold, floor: dict, chase: dict, k11_count: dict, k11_baseline=None,
                   sweep=False, k6s_baseline=None, k10_phase_fns=None,
-                  keyrow_baseline=None, k11_phases=None, k9s=None) -> dict:
+                  keyrow_baseline=None, k11_phases=None, k9s=None, k4s=None) -> dict:
     """The sharded engine on one card (parallel/sharded.py, a LocalMesh of
     [cuda:0] * 4): kinase --triples auto, whose automatic layout is packed
     at JAX's 2^21 slots a shard (sharded cubes), with the ragged exchange
@@ -5640,12 +6163,11 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
              f"at 2^21), exchange {eng.exchange}, cubes split {eng.cubes_split}, migrated "
              f"{r['migrated']}, driver {r['driver']}, {r['host_reads_a_step']} host reads a "
              f"step, {r['graph_captures']} step graphs captured")
-    # walk_advance over a programmatic edge from the round's last walk
-    edges = r["walk_edges"]
-    if not edges or set(edges) != {"kernel:programmatic"}:
-        fail(f"kinase sharded: walk_advance's edges in the captured round {edges}, want one "
-             f"programmatic edge from a kernel")
-    out["walk_loop"] = walk_loop_check(eng, floor, k6s_baseline)
+    # one card: the walk in one launch of path_walk_shards and one read
+    if r["walk_form"] != "launch" or r["walk_reads"] != 1:
+        fail(f"kinase sharded: the walk's form {r['walk_form']} in {r['walk_reads']} reads, "
+             f"want one launch and one read on one card")
+    out["walk_loop"] = walk_loop_check(eng, floor, chase, k6s_baseline)
     del eng
     # the several-card step on one card: the four shards grouped into two
     # cards (0, 1 | 2, 3), each with its stream, joined by events in one
@@ -5709,6 +6231,7 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
         fail(f"kinase sharded unpacked: cubes split {eng.cubes_split}, or no captured step")
     out["checks_unpacked"] = keyrow_kernel_checks(cap, cap["shards"], k10_phase_fns,
                                                   keyrow_baseline, k11, k9s)
+    out["walk_unpacked"] = walk_shards_check(eng, chase)
     del eng, cap
     # the sig layout (PR 15's path), pinned at the capacity its word takes
     out["turns_sig"], eng = driver_turns("kinase sharded 4, pinned sig", paths["kinase.fasta"],
@@ -5720,6 +6243,9 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
         fail("kinase sharded sig: the search ended before the captured step")
     out["checks"] = sharded_kernel_checks(cap, cap["shards"], k11_count, k11_baseline,
                                           k11_phases)
+    print(f"K4s on shard {cap['shard'].me}'s step 200 (kinase, pinned sig):")
+    out["checks_k4s"] = k4s_checks(cap, k4s or {})
+    out["walk_sig"] = walk_shards_check(eng, chase)
     if sweep:
         out["k11_sweep"] = k11_sweep(k11_count, k11_baseline)
     r = out["kinase_sig"]
@@ -5729,6 +6255,11 @@ def sharded_phase(paths, gold, floor: dict, k11_count: dict, k11_baseline=None,
     out["bounds"] = sharded_step_bounds(r["batch"], 5, 4, out["checks"]["walk"], 4,
                                         r["exchange_cap"])
     del eng, cap
+    # K4s at synth5 (auto: sig; chunked, then step 150 checked) and synth6
+    # (N = 6: the warp-strided form), and the dense sig step traced with
+    # each form
+    out["k4s"] = k4s_runs(paths, gold, k4s or {}, kinase=False)
+    out["k4s"].update(k4s_dense_forms(paths, gold))
     out["kinase_one_shard"], eng, _ = sharded_run("kinase sharded 1", paths["kinase.fasta"], k,
                                                   [card], True)
     del eng
@@ -6516,7 +7047,18 @@ def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
                               for m in ("ragged", "dense")}} if "turns" in t else {}),
                 **({"sweep": sh["k11_sweep"]} if "k11_sweep" in sh else {}))
         if name == "sig_expand_sharded":
-            entry.update(k9s_latency_floor(floor, chase))
+            # K4s's rows form: its sweep, split and turns on the timed step,
+            # synth5's (auto: sig) and synth6's checks (N = 6: the
+            # warp-strided form), and the launches of synth5's chunked run
+            k4 = sh["k4s"]
+            entry.update(k9s_latency_floor(floor, chase), host_driver_launches=sig_l[name],
+                         launches=k4["synth5_chunked"]["launches"][name],
+                         launches_run="synth5 sharded 4, auto (sig; chunked driver)",
+                         times_run=sig_run, rows=sh["checks_k4s"],
+                         synth5=k4["checks_synth5"], synth6=k4["checks_synth6"],
+                         dense_step_kernels_us={
+                             f: k4[f"sig_dense{x}"]["step_kernels_us"]
+                             for f, x in (("strided_form", "_strided_form"), ("rows_form", ""))})
         if name in ("sig_coords", "tri_partial"):
             # a launch, then two dependent loads: the listed slot (or the
             # coordinates), then its sig word (or the cube's corners)
@@ -6564,10 +7106,28 @@ def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
                      segments=cu["route_rows_ragged"]["segments"],
                      passes=cu["route_rows_ragged"]["passes"]))
     kernels.append(entry)
+    # the walk: on one card the whole walk in one launch (the main path's);
+    # K7's hop mode and walk_advance in rounds where the shards lie on
+    # several cards (on this card: kinase's shards split into two cards)
+    split_run = "kinase sharded 4, two cards of one (chunked driver)"
+    split_l = sh["kinase_split"]["launches"]
+    wl = sh["walk_loop"]
+    t = wl["path_walk_shards"]
+    entry = entry_of("path_walk_shards", t, "path_walk",
+                     "mpi_pastar_msa_tpu/parallel/sharded.py:482", sl["path_walk_shards"],
+                     main_run)
+    entry.update({k: t[k] for k in ("latency_floor_ms", "latency_floor_dram_ms", "lookups",
+                                    "masks", "rounds", "host_split_ms", "cold_device_ms")},
+                 also_replaces=["mpi_pastar_msa_tpu/parallel/sharded.py:545"],
+                 forms_wall_ms=wl["forms_wall_ms"], rounds_device_ms=wl["rounds_device_ms"],
+                 **{lay: sub(sh[f"walk_{lay}"], 1, **{k: sh[f"walk_{lay}"][k] for k in (
+                     "latency_floor_ms", "lookups", "host_split_ms")})
+                    for lay in ("sig", "unpacked")})
+    kernels.append(entry)
     t = cp["path_walk_hops"]
     entry = entry_of("path_walk_hops", t, "path_walk",
-                     "mpi_pastar_msa_tpu/parallel/sharded.py:482", sl["path_walk_hops"],
-                     main_run)
+                     "mpi_pastar_msa_tpu/parallel/sharded.py:482", split_l["path_walk_hops"],
+                     split_run)
     entry.update(latency_floor_ms=t["lookups"] * chase["l2_ns"] / 1e6,
                  latency_floor_dram_ms=t["lookups"] * chase["dram_ns"] / 1e6,
                  lookups=t["lookups"])
@@ -6587,11 +7147,13 @@ def sharded_kernel_entries(sh: dict, floor: dict, chase: dict) -> list:
              ["mpi_pastar_msa_tpu/parallel/sharded.py:148"]),
             ("walk_advance", sh["walk_loop"]["walk_advance"],
              "mpi_pastar_msa_tpu/parallel/sharded.py:545", [])):
-        entry = entry_of(name, t, "shard_loop", replaces, sl[name], main_run)
+        walk = name == "walk_advance"  # the round form's: not on one card's main path
+        entry = entry_of(name, t, "shard_loop", replaces,
+                         split_l[name] if walk else sl[name], split_run if walk else main_run)
         entry.update({k: v for k, v in t.items() if k not in entry and k != "bytes"},
                      also_replaces=also,
                      times_run="kinase sharded 4, ragged, host driver, step 200"
-                     if name != "walk_advance" else main_run)
+                     if not walk else main_run + ", its walk's round form")
         # the several-card step: its launches on two cards of one (and on
         # every card, where the machine has several), the consensus over
         # the snapshots checked and timed on the split run's last step
@@ -6731,6 +7293,21 @@ def main() -> int:
     ap.add_argument("--k9s-rows", metavar="R,R,...", default=None,
                     help="the rows a block of K9s's sweep (default 0,1,2,4,8; 0 the block "
                          "form, a block a row)")
+    ap.add_argument("--k4s-only", action="store_true",
+                    help="run the device, build and K4s checks only: synth5 on 4 shards "
+                         "(auto: sig) chunked to its optimum, then kinase pinned to sig and "
+                         "synth5 under the host driver with steps 200 and 150 captured and "
+                         "synth6 (N = 6) with step 40; K4s on each, every rows a block of "
+                         "--k4s-rows checked against its plain version, timed and split by "
+                         "its K4S_PHASES build (and --k4s-baseline's in turns); traced "
+                         "dense sig runs with each form (prints no result line)")
+    ap.add_argument("--k4s-baseline", metavar="SRC", default=None,
+                    help="also build another tree's csrc/sig_expand.cu (SRC: a checkout's "
+                         "root or csrc/), check its K4s against the plain version on K4s's "
+                         "inputs and time it in turns with this tree's")
+    ap.add_argument("--k4s-rows", metavar="R,R,...", default=None,
+                    help="the rows a block of K4s's sweep (default 0,1,2,4,8; 0 the "
+                         "warp-strided form)")
     ap.add_argument("--multi-card-only", action="store_true",
                     help="run the device, build and the sharded engine's multi-card "
                          "phase only (kinase on every card, chunked and host in turns, "
@@ -6787,6 +7364,9 @@ def main() -> int:
     k9s_phases_job = start_phases_build("keyrow_expand", phases_tmp.name, "K9S_PHASES")
     k9s_job = (start_k9s_baseline(os.path.abspath(args.k9s_baseline), phases_tmp.name)
                if args.k9s_baseline else None)
+    k4s_phases_job = start_phases_build("sig_expand", phases_tmp.name, "K4S_PHASES")
+    k4s_job = (start_k4s_baseline(os.path.abspath(args.k4s_baseline), phases_tmp.name)
+               if args.k4s_baseline else None)
     try:
         logs = _kernels.build_all()
     finally:
@@ -6807,10 +7387,14 @@ def main() -> int:
                    baseline=load_k9s_baseline(k9s_job) if k9s_job else None,
                    rows=tuple(int(r) for r in args.k9s_rows.split(",")) if args.k9s_rows
                    else None)
+        k4s = dict(phases=load_k4s_phases(k4s_phases_job),
+                   baseline=load_k4s_baseline(k4s_job) if k4s_job else None,
+                   rows=tuple(int(r) for r in args.k4s_rows.split(",")) if args.k4s_rows
+                   else None)
     if keyrow_baseline:
         K7_VARIANTS["baseline"] = keyrow_baseline["path_walk"]
     print(f"build: {len(logs)} kernel source(s) and the K3_PHASES, K5_PHASES, K10_PHASES, "
-          f"K8_NO_STORE, K11_BARRIERS, K11_PHASES and K9S_PHASES builds "
+          f"K8_NO_STORE, K11_BARRIERS, K11_PHASES, K9S_PHASES and K4S_PHASES builds "
           f"in {time.perf_counter() - t0:.1f} s")
     ptxas = [f"{name}: {line.strip()}" for name, log in logs.items()
              for line in log.splitlines()
@@ -6831,6 +7415,7 @@ def main() -> int:
             src = os.path.abspath(args.step_baseline)
             step_baseline = (args.step_baseline, build_step_baseline(src, tmp))
         report["launch_floor"] = floor = launch_floor()
+        report["dependent_load"] = chase = dependent_load_ns()
         if args.multi_card_only:
             if torch.cuda.device_count() < 2:
                 fail("--multi-card-only needs two cards or more")
@@ -6851,17 +7436,20 @@ def main() -> int:
             report["k9s"] = k9s_phase(paths, gold, k9s)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
+        if args.k4s_only:
+            report["k4s"] = k4s_phase(paths, gold, k4s)
+            write_report(args.report, report)
+            return 0  # a partial run: no kernels line and no result line
         if args.sharded_only:
-            report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
+            report["sharded"] = sharded_phase(paths, gold, floor, chase, k11_count, k11_baseline,
                                               args.k11_sweep, k6s_baseline, phases[2],
-                                              keyrow_baseline, k11_phases, k9s)
+                                              keyrow_baseline, k11_phases, k9s, k4s)
             write_report(args.report, report)
             return 0  # a partial run: no kernels line and no result line
         report["capture"] = capture_check(paths)
         report["chunk_setup"] = chunk_setup_check()
         if args.k5_sweep:
             report["k5_sweep"] = k5_sweep(paths, step_baseline and step_baseline[1])
-        report["dependent_load"] = chase = dependent_load_ns()
         if args.k10_sweep:
             report["k10_list_sweep"] = k10_list_sweep(paths["kinase.fasta"], k10_wide,
                                                       keyrow_baseline)
@@ -6945,9 +7533,9 @@ def main() -> int:
                                          data_gold("globin6", LAYOUT_INPUTS["globin6"]),
                                          "packed", tmp)}
         # 7. the sharded engine (parallel/sharded.py) on [cuda:0] * 4
-        report["sharded"] = sharded_phase(paths, gold, floor, k11_count, k11_baseline,
+        report["sharded"] = sharded_phase(paths, gold, floor, chase, k11_count, k11_baseline,
                                           args.k11_sweep, k6s_baseline, phases[2],
-                                          keyrow_baseline, k11_phases, k9s)
+                                          keyrow_baseline, k11_phases, k9s, k4s)
         if args.profile:
             # mid-search windows: auto takes about 300 steps, off about 970
             # and the plain step on the same windows, the step before K3-K5

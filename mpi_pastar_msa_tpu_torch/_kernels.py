@@ -79,9 +79,11 @@ SIGNATURES: Dict[str, List] = {
     "path_walk": [_I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
     # the sharded step (parallel/sharded.py): K4's sharded instantiation,
     # sig_expand's arguments then h3, cand, the owner hash (kind, size,
-    # shift, Z-order bits), ndev, me, stream
+    # shift, Z-order bits), ndev, me, the list's coordinates (or null),
+    # rows a block (0: the warp-strided form), stream
     "sig_expand_sharded": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I,
-                           _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                           _I, _P],
     # K11's passes: cand, carry, its live length, nsel, M, lanes cap, ring
     # rows, ndev, segment, this step's counts, the next step's (zeroed),
     # out, keys, run (or null), stream; then cand, carry, nsel, M, ring
@@ -98,6 +100,12 @@ SIGNATURES: Dict[str, List] = {
     # coordinate (and the key bit widths), hops in place of tmax, then the
     # walk loop's run flag (or null) before the stream
     "path_walk_hops": [_I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    # the sharded walk on one card in one launch: layout, the shards'
+    # tables (a host int64 table of keys, t_best and t_fpar a shard), ndev,
+    # row stride, N, C, bbits, probes, the owner hash (kind, size, shift,
+    # Z-order bits), hops a round, params (final coordinate, key bit
+    # widths), tmax, out, stream
+    "path_walk_shards": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     # the sharded step on key rows: K9's sharded instantiation,
     # keyrow_expand's arguments then h3, cand, a candidate row's words, the
     # owner hash (kind, size, shift, Z-order bits), ndev, me, the
@@ -148,6 +156,7 @@ HOST_SIGNATURES: Dict[str, List] = {
 SOURCES: Dict[str, str] = {"select_best_unpacked": "select_best",
                            "sig_expand_sharded": "sig_expand", "route_count": "route_pack",
                            "sig_coords": "tri_partial", "path_walk_hops": "path_walk",
+                           "path_walk_shards": "path_walk",
                            "keyrow_expand_sharded": "keyrow_expand",
                            "keyrow_insert_recv": "keyrow_insert",
                            "route_count_rows": "route_pack", "route_pack_rows": "route_pack",

@@ -527,29 +527,6 @@ __device__ __forceinline__ uint32_t rows_hash(const uint32_t (&w)[kRowsMaxW], in
   return step::mix32(h);
 }
 
-// owner::of on a coordinate of at most kRowsMaxN values, in registers (the
-// same arithmetic).
-__device__ __forceinline__ int rows_owner(const owner::Hash& hs, const uint32_t (&kw)[kRowsMaxW],
-                                          int N) {
-  uint32_t v = 0;
-  if (hs.kind >= 2) {  // FSUM, PSUM
-    const int nd = hs.kind == 2 ? N : 2;
-#pragma unroll
-    for (int d = 0; d < kRowsMaxN; ++d)
-      if (d < nd) v += (uint32_t)row_coord(kw, d);
-    v >>= hs.shift;
-  } else {  // FZORDER, PZORDER
-    const int nd = hs.kind == 0 ? N : 2;
-    const int read0 = hs.shift / nd;
-    for (int w = 0; w < hs.zbits; ++w) {
-      const int br = read0 + w / nd;
-      if (br < 32) v |= (((uint32_t)row_coord(kw, w % nd) >> br) & 1u) << w;
-    }
-    v >>= hs.shift % nd;
-  }
-  return (int)(v % (uint32_t)hs.size);
-}
-
 // A warp's store of n (>= 8) words staged at s[g0 .. g0 + n) (s 16-byte
 // aligned, g0 the destination's word phase, (dst address / 4) mod 4): the
 // chunks the span covers as 16-byte stores across the warp, a lane's
@@ -743,7 +720,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) keyrow_expand_rows_kernel(
   const bool can = live && m <= M && fits && (m & ~(int)room) == 0;
   int dest = sh.ndev;
   if (can) {
-    const int o = rows_owner(sh.hash, words, N);
+    const int o =
+        owner::of_at<kRowsMaxN>(sh.hash, [&](int d) { return row_coord(words, d); }, N);
     if (o != sh.me) dest = o;
   }
   const bool self = can && dest == sh.ndev;

@@ -59,7 +59,24 @@
 // 80GB HBM3 at 700 W) it took the sig walk from 0.25 to 0.19 ms; the same
 // prefetch of the home probe row lost 4% on the packed walk and changed
 // nothing on the unpacked one, so the key-row layouts do not prefetch.
+//
+// The sharded walk (parallel/sharded.py) runs in two forms.  Where the
+// shards lie on several devices, rounds: each shard's hop mode
+// (path_walk_hops, below: at most K = 8 hops while its own table holds
+// the node), summed by the mesh (shard_loop.cu's walk_advance on a card).
+// Where every shard's table lies on one card, the rounds save no
+// collective (JAX walks in rounds only for its psum), so path_walk_shards
+// walks the whole path in one launch: one warp, each node looked up as
+// above in its owner's table (owner.cuh; the tables' addresses in the
+// launch's parameters, up to 32), the round form's rounds counted on the
+// way (a new round at the goal, wherever the owner changes and after K
+// nodes of one owner).  It prefetches nothing: on an H100 a prefetch of
+// the candidate parents' home rows in their owners' tables lost on every
+// layout (0.18 against 0.26-0.29 ms at kinase on 4 shards), the owner's
+// hash and the encode sitting between a node's load and its ballot.
+// Bound as K7: one dependent round trip a node.
 
+#include "owner.cuh"
 #include "sig_key.cuh"
 #include "step_state.cuh"
 
@@ -128,8 +145,9 @@ __device__ __forceinline__ void prefetch_parent(const Table& t, const int32_t* c
 
 // The first hit of the node at `coord` over the warp, in JAX's argmax
 // order, and its parent mask (every lane gets both): false if the node is
-// not stored.
-template <int kLayout>
+// not stored.  kPrefetch (sig): prefetch_parent while the home row's
+// loads are in flight.
+template <int kLayout, bool kPrefetch>
 __device__ __forceinline__ bool lookup(const Table& t, const int32_t* coord, const int* shift,
                                        int parmask, int& par) {
   const int lane = threadIdx.x;
@@ -140,7 +158,7 @@ __device__ __forceinline__ bool lookup(const Table& t, const int32_t* coord, con
     {  // 1. the home row: lane l < 8 its way l (lanes 8-31 repeat them)
       const size_t at = ((size_t)(home & bmask) << 3) | (size_t)(lane & 7);
       const int32_t s0 = t.keys[at], b0 = t.best[at];
-      prefetch_parent(t, coord, shift);
+      if constexpr (kPrefetch) prefetch_parent(t, coord, shift);
       const unsigned ballot = __ballot_sync(kFull, lane < 8 && s0 == (int32_t)sigb);
       if (ballot) {
         par = __shfl_sync(kFull, b0, __ffs(ballot) - 1) & parmask;
@@ -265,7 +283,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int d = 0; d < kMaxN; ++d) origin &= coord[d] == 0;
     if (origin) break;
     int mask = 0;
-    if (!lookup<kLayout>(t, coord, shift, parmask, mask)) break;  // not stored: the walk ends
+    if (!lookup<kLayout, true>(t, coord, shift, parmask, mask))
+      break;  // not stored: the walk ends
     if (lane == 0) out[it] = mask;
 #pragma unroll
     for (int d = 0; d < kMaxN; ++d) coord[d] -= (mask >> d) & 1;
@@ -276,6 +295,78 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int d = 0; d < kMaxN; ++d)
       if (d < N) out[tmax + d] = coord[d];
     out[tmax + N] = it;  // every iteration before the last emitted
+  }
+}
+
+// ---- the sharded walk on one card in one launch (path_walk_shards)
+
+constexpr int kMaxShards = 32;  // parallel/sharded.py MAX_SHARDS
+
+// Every shard's table on the card, in the launch's parameters (shard i's
+// at [i]; the parent words t_best, or t_fpar on the unpacked layout).
+struct Shards {
+  const int32_t* keys[kMaxShards];
+  const int32_t* best[kMaxShards];
+  const long long* fpar[kMaxShards];
+};
+
+// The whole sharded walk, goal -> origin, in one warp: each node looked up
+// in its owner's table (owner::of; a node lives in its owner's table
+// only), the rounds of the round form counted as it would run them: a
+// round starts at the goal and wherever the owner changes or `hops` nodes
+// of one owner were walked; a node its owner does not hold ends the walk
+// (mid-round, the round form's next round finds nothing: one more).  out:
+// masks (tmax), the coordinate it stopped at (N), the masks' count, the
+// rounds.
+template <int kLayout>
+__global__ void __launch_bounds__(kThreads, 1)
+    path_walk_shards_kernel(Table t, Shards sh, owner::Hash hash, int hops,
+                            const int32_t* __restrict__ params, int tmax,
+                            int32_t* __restrict__ out) {
+  const int lane = threadIdx.x;
+  const int N = t.N, parmask = (1 << N) - 1;
+  int32_t coord[kMaxN];
+  int shift[kMaxN];  // the sig key's field offsets
+  int sh_bits = 0;
+#pragma unroll
+  for (int d = 0; d < kMaxN; ++d) {
+    coord[d] = d < N ? params[d] : 0;
+    shift[d] = sh_bits;
+    if (d < N) sh_bits += params[N + d];
+  }
+  int it = 0, rounds = 0, owner_of_run = -1, run = 0;
+  for (; it < tmax; ++it) {
+    bool origin = true;
+#pragma unroll
+    for (int d = 0; d < kMaxN; ++d) origin &= coord[d] == 0;
+    if (origin) break;
+    const int o = owner::of<kMaxN>(hash, coord, N);
+    if (o != owner_of_run || run == hops) {  // the round form's next round
+      ++rounds;
+      owner_of_run = o;
+      run = 0;
+    }
+    Table own = t;
+    own.keys = sh.keys[o];
+    own.best = sh.best[o];
+    own.fpar = sh.fpar[o];
+    int mask = 0;
+    if (!lookup<kLayout, false>(own, coord, shift, parmask, mask)) {
+      rounds += run > 0;
+      break;  // not stored: the walk ends
+    }
+    ++run;
+    if (lane == 0) out[it] = mask;
+#pragma unroll
+    for (int d = 0; d < kMaxN; ++d) coord[d] -= (mask >> d) & 1;
+  }
+  for (int k = it + lane; k < tmax; k += kThreads) out[k] = 0;
+  if (lane == 0) {
+#pragma unroll
+    for (int d = 0; d < kMaxN; ++d)
+      if (d < N) out[tmax + d] = coord[d];
+    out[tmax + N] = it;  // every iteration before the last emitted
+    out[tmax + N + 1] = rounds;
   }
 }
 
@@ -347,6 +438,58 @@ extern "C" int path_walk_hops(int layout, const void* keys, int KWs, const void*
                               void* stream) {
   if (hops < 1 || hops > 64) return (int)cudaErrorInvalidValue;
   return walk(layout, keys, KWs, best, fpar, N, C, bbits, probes, params, hops, out, run, stream);
+}
+
+// The sharded walk of one card in one launch (parallel/sharded.py
+// _walk_loop where every shard's table lies on one card: JAX
+// _make_batched_walk :482, its rounds of K hops a shard summed by psum,
+// with no collective to save).  layout as path_walk's; tables: a host
+// int64 table of ndev rows (keys, t_best, t_fpar) of device addresses,
+// the shards' tables of one statics (C, bbits, probes, row stride KWs;
+// t_best null on the unpacked layout, t_fpar null on the others), copied
+// into the launch's parameters (ndev <= 32); the owner hash (kind, size =
+// ndev, shift, zbits: parallel/partition.py::owner_params); hops: the
+// round form's hops a round (WALK_HOPS), which only the round count
+// reads; params: int32 [final
+// coordinate N, key bit widths N]; out: (tmax + N + 2,) int32, the masks,
+// the coordinate it stopped at, their count and the rounds.
+extern "C" int path_walk_shards(int layout, const void* tables, int ndev, int KWs, int N,
+                                int C, int bbits, int probes, int hash_kind, int hash_size,
+                                int hash_shift, int zbits, int hops, const void* params,
+                                int tmax, void* out, void* stream) {
+  const int W = (N + 1) / 2;
+  const bool sig = layout == kSig;
+  if (layout < kSig || layout > kUnpacked || tables == nullptr || ndev < 1 ||
+      ndev > kMaxShards || params == nullptr || out == nullptr || N < 2 ||
+      N > (sig ? kMaxN : 2 * kMaxW) || C < 8 || (C & (C - 1)) != 0 || probes < 1 ||
+      probes > 32 * (sig ? kSigRows : kKeyRows) || tmax < 0 || hops < 1 ||
+      hash_size != ndev || hash_kind < 0 || hash_kind > 3 || hash_shift < 0 ||
+      hash_shift > 31 || zbits < 1 || zbits > 32)
+    return (int)cudaErrorInvalidValue;
+  if (sig ? (1 << (bbits + 3)) != C : KWs != W + (layout == kPacked ? 1 : 0))
+    return (int)cudaErrorInvalidValue;
+  const long long* tab = (const long long*)tables;
+  Shards sh = {};
+  for (int i = 0; i < ndev; ++i) {
+    sh.keys[i] = (const int32_t*)tab[3 * i];
+    sh.best[i] = (const int32_t*)tab[3 * i + 1];
+    sh.fpar[i] = (const long long*)tab[3 * i + 2];
+    if (sh.keys[i] == nullptr || (layout == kUnpacked ? sh.fpar[i] == nullptr
+                                                      : sh.best[i] == nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
+  const Table t{nullptr, KWs, nullptr, nullptr, N, W, bbits, probes, (uint32_t)(C - 1)};
+  const owner::Hash hash{hash_kind, hash_size, hash_shift, zbits};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* p = (const int32_t*)params;
+  int32_t* o = (int32_t*)out;
+  if (sig)
+    path_walk_shards_kernel<kSig><<<1, kThreads, 0, s>>>(t, sh, hash, hops, p, tmax, o);
+  else if (layout == kPacked)
+    path_walk_shards_kernel<kPacked><<<1, kThreads, 0, s>>>(t, sh, hash, hops, p, tmax, o);
+  else
+    path_walk_shards_kernel<kUnpacked><<<1, kThreads, 0, s>>>(t, sh, hash, hops, p, tmax, o);
+  return (int)cudaGetLastError();
 }
 
 // A measurement probe, not part of the engine: one thread follows `hops`

@@ -139,8 +139,8 @@ R_GOAL, R_OVF, R_NOPEN, R_NSEL, R_REOPEN, R_FMIN, R_ROUTE = 0, 1, 3, 4, 5, 6, 7
  C_HEAD) = range(11)
 #: the most shards the sharded loop's kernels take (kMaxDev)
 MAX_SHARDS = 32
-#: the walk's rounds a host read of the chunked driver's walk loop (on a
-#: card that many replays of a one-round graph)
+#: the walk's rounds a host read of the chunked driver's walk loop in its
+#: round form (on a card that many replays of a one-round graph)
 WALK_ROUNDS = 32
 
 
@@ -525,6 +525,61 @@ def walk_hops_plain(st: _Static, tab, coord, hops: int, layout: str = "sig") -> 
         c = c - torch.tensor([(par >> i) & 1 for i in range(st.n)])
     return torch.tensor(masks + [0] * (hops - len(masks)) + c.tolist() + [len(masks)],
                         dtype=torch.int32)
+
+
+def walk_shards_plain(st: _Static, tabs: Sequence, final, layout: str, own,
+                      hops: int = WALK_HOPS) -> Tuple[List[int], List[int], int]:
+    """The plain version of ``path_walk_shards`` (csrc/path_walk.cu): the
+    sharded walk of ``_walk`` from ``final`` in one pass, each node looked
+    up in its owner's table (``own``, the engine's owner hash; ``tabs[i]``
+    shard i's table of ``layout``), and the rounds the round form takes:
+    one at the start and wherever the owner changes or ``hops`` nodes of
+    one owner were walked; a node its owner does not hold ends the walk
+    (mid-round, the round form's next round finds nothing: one more).
+    Returns (masks, the coordinate it stopped at, rounds)."""
+    lookup = _LAYOUT_FNS[layout].lookup
+    c = np.asarray(final, dtype=np.int64).copy()
+    masks: List[int] = []
+    rounds, owner, run = 0, -1, 0
+    while c.any():
+        o = int(own(c[None, :].astype(np.int32))[0])
+        if o != owner or run == hops:
+            rounds, owner, run = rounds + 1, o, 0
+        par = lookup(st, tabs[o], torch.as_tensor(c))
+        if par is None:
+            rounds += run > 0
+            break
+        run += 1
+        masks.append(int(par))
+        c = c - np.array([(par >> i) & 1 for i in range(st.n)])
+    return masks, [int(v) for v in c], rounds
+
+
+def walk_shards_cuda(st: _Static, tabs: Sequence, final, layout: str, hash_params: tuple,
+                     hops: int = WALK_HOPS) -> Tuple[List[int], List[int], int]:
+    """``path_walk_shards`` (csrc/path_walk.cu): ``walk_shards_plain`` on
+    the card of the shards' tables (every one on it), one launch and one
+    host read; ``hash_params``: partition.owner_params.  Raises ValueError
+    as ``walk_cuda`` and RuntimeError when the launch fails."""
+    from ..search import step as S
+
+    if not 1 <= len(tabs) <= MAX_SHARDS:
+        raise ValueError(f"the one-launch walk takes 1 .. {MAX_SHARDS} shards, got {len(tabs)}")
+    rows = [S._walk_table(st, tab, layout) for tab in tabs]
+    dev = rows[0][0]
+    if any(r[0] != dev for r in rows):
+        raise ValueError(f"the one-launch walk needs every table on one card: "
+                         f"{[str(r[0]) for r in rows]}")
+    _, code, _, stride, _, _, probes = rows[0]
+    table = torch.tensor([[r[2], r[4] or 0, r[5] or 0] for r in rows], dtype=torch.int64)
+    n, tmax = st.n, int(st.final_np.sum())
+    params = torch.tensor([int(v) for v in final] + list(st.bitw), dtype=torch.int32).to(dev)
+    out = torch.empty(tmax + n + 2, dtype=torch.int32, device=dev)
+    _kernels.launch("path_walk_shards", code, table.data_ptr(), len(tabs), stride, n, st.C,
+                    st.bbits, probes, *hash_params, hops, params.data_ptr(),
+                    tmax, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    v = out.cpu().tolist()  # the walk's one read
+    return v[:v[tmax + n]], v[tmax:tmax + n], v[tmax + n + 1]
 
 
 # --- the sharded loop (csrc/shard_loop.cu, K6s): consensus, exchange and
@@ -1148,9 +1203,11 @@ class _Shard:
         if self.cuda:
             key = ("expand", None if h3 is None else h3.data_ptr())
             if self.layout == "sig":
+                # the coordinates sig_coords wrote this step, where it runs
+                coords = self.coords_out if eng.cubes_split else None
                 self._go(key, lambda launch: self.S.expand_sharded_cuda(
                     st, self.tab, self.bufs, self.ctr, eng.ub, h3, self.cand, self.R,
-                    eng.hash_params, eng.ndev, self.me, launch=launch))
+                    eng.hash_params, eng.ndev, self.me, launch=launch, coords=coords))
             else:
                 self._go(key, lambda launch: self.S.expand_keyrow_sharded_cuda(
                     st, self.tab, self.bufs, self.ctr, eng.ub, h3, self.cand, self.R,
@@ -1897,6 +1954,7 @@ class ShardedFrontierSearch:
             masks, rounds = self._walk(shards)
             walk_reads = rounds
         stats.update(walk_rounds=rounds, walk_reads=walk_reads,
+                     walk_form=self.walk_form() if self.driver == "chunked" else "host",
                      walk_s=time.perf_counter() - t0)
         # expanded, reopened, closed, open, migrated of each shard
         per = np.zeros((ndev, 5), dtype=np.int64)
@@ -2252,10 +2310,21 @@ class ShardedFrontierSearch:
             raise RuntimeError("distributed backtrace did not reach the origin")
         return masks, rounds
 
-    def _walk_loop(self, shards: List[_Shard],
-                   stats: Optional[dict] = None) -> Tuple[List[int], int, int]:
-        """The batched distributed walk of the chunked driver, as a device
-        loop (JAX ``_make_batched_walk``'s while_loop, :545): a round is
+    def walk_form(self) -> str:
+        """The chunked driver's walk: "launch" where the card form has one
+        card (every shard's table on one device, or the CPU): the whole
+        walk in one launch of ``path_walk_shards`` (a CPU card
+        ``walk_shards_plain``) and one host read; else "rounds", the device
+        loop of rounds (``_walk_loop``)."""
+        return "launch" if self.card_form and len(self.cards) == 1 else "rounds"
+
+    def _walk_loop(self, shards: List[_Shard], stats: Optional[dict] = None,
+                   form: Optional[str] = None) -> Tuple[List[int], int, int]:
+        """The batched distributed walk of the chunked driver: ``form``
+        (default ``walk_form()``) "launch", the walk in one launch, each
+        node looked up in its owner's table, the rounds the round form
+        would take counted on the way (``_walk_launch``); or "rounds", a
+        device loop (JAX ``_make_batched_walk``'s while_loop, :545): a round is
         every shard's K7 hop mode from its card's copy of the coordinate,
         each run written where the shard lies, then on every card
         ``walk_advance``, which sums the runs (read by address, on that
@@ -2268,11 +2337,18 @@ class ShardedFrontierSearch:
         first card (on cards a CUDA graph of one round over every card,
         replayed WALK_ROUNDS times), until the walk's flag reads 0.
         Returns (masks, rounds, host reads); raises as ``_walk``.
-        ``stats`` gets the host seconds of the warm-up round (a C entry's
-        first calls) and of the capture (``walk_warm_s``,
+        ``stats`` gets the host seconds of the round form's warm-up round
+        (a C entry's first calls) and of its capture (``walk_warm_s``,
         ``walk_capture_s``)."""
         from ..search import step as S
 
+        form = form or self.walk_form()
+        if form == "launch":
+            if not self.card_form or len(self.cards) != 1:
+                raise ValueError("the one-launch walk needs the card form on one card")
+            return self._walk_launch(shards)
+        if form != "rounds":
+            raise ValueError(f"unknown walk form {form!r}")
         st, n, hops, cards = self.st, self.st.n, WALK_HOPS, self.cards
         ranks = not self.card_form
         final = [int(v) for v in self.problem.final_coord]
@@ -2347,6 +2423,22 @@ class ShardedFrontierSearch:
         if any(coord):
             raise RuntimeError("distributed backtrace did not reach the origin")
         return v[3 + n:3 + n + n_masks], n_rounds, reads
+
+    def _walk_launch(self, shards: List[_Shard]) -> Tuple[List[int], int, int]:
+        """The walk of one card in one launch (``walk_shards_cuda``; CPU
+        shards ``walk_shards_plain``): (masks, rounds, 1 host read);
+        raises as ``_walk``."""
+        final = [int(v) for v in self.problem.final_coord]
+        tabs = [sh.tab for sh in sorted(shards, key=lambda sh: sh.me)]
+        if self.cards[0].cuda:
+            masks, coord, rounds = walk_shards_cuda(self.st, tabs, final, self.layout,
+                                                    self.hash_params)
+        else:
+            masks, coord, rounds = walk_shards_plain(self.st, tabs, final, self.layout,
+                                                     self.own)
+        if any(coord):
+            raise RuntimeError("distributed backtrace did not reach the origin")
+        return masks, rounds, 1
 
     def _run_single(self) -> ShardedSearchResult:
         """One shard, dense: the single-table search (JAX's ndev == 1 fast

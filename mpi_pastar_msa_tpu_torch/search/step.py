@@ -146,6 +146,11 @@ K9_BLOCKS_AN_SM = 16
 # the block's slowest row
 K9S_ROWS = 2
 K9S_ROWS_MAX_M = 31
+# K4s's rows form (the sharded sig step at M <= K9S_ROWS_MAX_M, the same
+# rows of 31 masks as K9s's): rows a block, a warp a row
+# (csrc/sig_expand.cu kRowsMaxWarps: at most 8); 0 keeps the warp-strided
+# form, which N >= 6 runs whatever this says
+K4S_ROWS = 2
 # K7's C entry: the layout codes
 WALK_LAYOUTS = {"sig": 0, "packed": 1, "unpacked": 2}
 
@@ -828,9 +833,19 @@ def _walk_args(st: _Static, tab, layout: str):
 # hop-limited mode
 
 
+def k4s_rows(M: int, rows: Optional[int] = None) -> int:
+    """K4s's rows a block for rows of ``M`` masks: ``rows`` (by default
+    K4S_ROWS) at M <= K9S_ROWS_MAX_M, else 0, the warp-strided form (N >=
+    6)."""
+    rows = K4S_ROWS if rows is None else rows
+    if not 0 <= rows <= 8:
+        raise ValueError(f"K4s: {rows} rows a block, need 0 .. 8")
+    return rows if M <= K9S_ROWS_MAX_M else 0
+
+
 def expand_sharded_cuda(st: _Static, tab: SigTable, bufs: StepBuffers, counters, ub: int,
                         h3, cand, pend_at: int, hash_params: tuple, ndev: int, me: int,
-                        launch=None) -> None:
+                        launch=None, coords=None, rows: Optional[int] = None) -> None:
     """K4's sharded instantiation (``sig_expand_sharded``) over K3's compact
     list in ``bufs``: as the unsharded K4, with h3 ((B, M + 1) int32 from
     K12 after the reduce-scatter, or None: the shard reads its own cubes)
@@ -838,7 +853,10 @@ def expand_sharded_cuda(st: _Static, tab: SigTable, bufs: StepBuffers, counters,
     ``cand`` ((B M, 4) int32) and only self-owned lanes matched in their
     home row, the unmatched appended to ``bufs.pend`` from row
     ``pend_at``.  ``hash_params``: partition.owner_params; ``launch`` as
-    ``select_best_cuda``'s."""
+    ``select_best_cuda``'s; ``coords`` the list's (B, N) int32 coordinates
+    that ``sig_coords`` wrote this step (None: the kernel decodes each
+    row's sig word); ``rows`` the rows form's rows a block (``k4s_rows``;
+    0 the warp-strided form)."""
     dev = _check_step(st, tab, counters, cubes=False)
     L = st.B * st.M
     _check(cand, "cand", dev, torch.int32, 4 * L)
@@ -847,11 +865,13 @@ def expand_sharded_cuda(st: _Static, tab: SigTable, bufs: StepBuffers, counters,
         _check(h3, "h3", dev, torch.int32, st.B * (st.M + 1))
     elif st.T3:
         _check(st.d_cubes, "cubes", dev, torch.int32, st.T3 * st.S ** 3)
+    if coords is not None:
+        _check(coords, "coords", dev, torch.int32, st.B * st.n)
     (launch or _kernels.launch)(*_expand_args(
         st, tab, bufs, counters, ub, _stream(dev), entry="sig_expand_sharded",
         cubes=h3 is None, pend_at=pend_at,
         sharded=(None if h3 is None else h3.data_ptr(), cand.data_ptr(), *hash_params, ndev,
-                 me)))
+                 me, None if coords is None else coords.data_ptr(), k4s_rows(st.M, rows))))
 
 
 def _check_recv(recv, run, dev, pend_at: int, n_rows: int, lanes: int, name: str) -> None:

@@ -1410,6 +1410,64 @@ def test_k4_sharded_and_k11_equal_plain(cuda):
         assert torch.equal(wire[lo:lo + n], w[lo:lo + n])
 
 
+def _k4s_forms_equal_plain(cuda, cases, **kw):
+    """K4s on kinase pinned to sig (step 60, shard 1's inputs; ``kw`` to
+    the engine) in each form of ``cases`` (rows a block, from sig_coords'
+    coordinates or decoding the sig words), bit for bit against
+    expand_sharded_plain: every candidate word, t_best, the pending
+    multiset, the surviving and pending counts and the goal."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+    from mpi_pastar_msa_tpu_torch.search import step as S
+    from mpi_pastar_msa_tpu_torch.search.engine import SigTable
+
+    _, _, eng, _, cap, _ = _sharded_capture(cuda, layout="sig", capacity=1 << 23, **kw)
+    sh, st, me, M = cap["sh"], cap["sh"].st, 1, cap["sh"].st.M
+    n_sel = int(cap["state0"][2])
+    assert n_sel > 0 and M == 31
+    assert (cap["h3"] is None) == (not eng.cubes_split)
+    tab = SigTable(cap["t_sig"].clone(), cap["t_best0"].clone(), cap["t_sig"].clone())
+    goal, cand, pending, n_valid = SH.expand_sharded_plain(st, tab, cap["sel"], n_sel, eng.ub,
+                                                           cap["h3"], eng.own, 4, me)
+    coords = SH.sig_coords_plain(st, cap["t_sig"], cap["sel"], n_sel, st.B).to(cuda)
+    for rows, with_coords in cases:
+        co = coords if with_coords else None
+        bufs = S.StepBuffers.select_only(st, cuda)
+        bufs.sel, bufs.state = cap["sel"], cap["state0"].clone()
+        bufs.run = torch.ones(1, dtype=torch.int32, device=cuda)
+        bufs.pend = torch.empty_like(sh.bufs.pend)
+        bufs.params = sh.bufs.params
+        t = SigTable(cap["t_sig"], cap["t_best0"].clone(), cap["t_sig"])
+        ctr, got = cap["ctr0"].clone(), torch.empty_like(sh.cand)
+        S.expand_sharded_cuda(st, t, bufs, ctr, eng.ub, cap["h3"], got, sh.R, eng.hash_params,
+                              4, me, coords=co, rows=rows)
+        torch.cuda.synchronize()
+        n_pend = int(bufs.state[6])
+        assert torch.equal(got[:n_sel * M], cand[:n_sel * M]), rows
+        assert torch.equal(t.t_best[:st.C], tab.t_best[:st.C]), rows
+        assert sorted(map(tuple, bufs.pend[sh.R:sh.R + n_pend].tolist())) == sorted(
+            map(tuple, pending.tolist())), rows
+        assert (int(bufs.state[5]), n_pend) == (n_valid, pending.shape[0]), rows
+        assert int(ctr[0]) == min(goal, int(cap["ctr0"][0])), rows
+
+
+def test_k4s_forms_equal_plain(cuda):
+    """K4s with the cubes split (h3 from K12): the warp-strided form (rows
+    0) and the rows form at 1, 2, 4 and 8 rows a block, from sig_coords'
+    coordinates and decoding the sig words, bit for bit against
+    expand_sharded_plain."""
+    _k4s_forms_equal_plain(cuda, ((0, False), (1, True), (2, True), (2, False), (4, True),
+                                  (8, False)))
+
+
+def test_k4s_own_cubes_equal_plain(cuda):
+    """K4s with the cubes not split (shard_cubes False: no h3, each shard
+    reads its own cubes' triangles and corners, no sig_coords): the
+    warp-strided form and the rows form at 1, 2, 4 and 8 rows a block,
+    decoding the sig words, bit for bit against expand_sharded_plain."""
+    _k4s_forms_equal_plain(cuda, ((0, False), (1, False), (2, False), (4, False), (8, False)),
+                           shard_cubes=False)
+
+
 def test_k12_and_coords_equal_plain(cuda):
     from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
 
@@ -1451,6 +1509,36 @@ def test_k7_hop_mode_equals_plain(cuda):
                 got = S.walk_hops_cuda(sh.st, sh.tab, coord, hops).cpu()
                 assert torch.equal(got, SH.walk_hops_plain(sh.st, sh.tab, coord, hops))
     assert _kernels.launches["path_walk_hops"] == before + 2 * len(path) * len(shards)
+
+
+@pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
+def test_walk_shards_equals_plain(cuda, layout):
+    """path_walk_shards on the finished tables of test2 on 4 shards of one
+    card (each owner hash) against walk_shards_plain and the host driver's
+    walk in rounds: the same masks, coordinate and rounds, from the goal
+    and from nodes of the path, and at one hop a round; one launch a
+    walk."""
+    from mpi_pastar_msa_tpu_torch.parallel import sharded as SH
+
+    gold = json.load(open(os.path.join(HERE, "goldens.json")))["test2.fasta"]
+    problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
+    for ht in ("FZORDER", "PZORDER", "FSUM", "PSUM"):
+        eng = SH.ShardedFrontierSearch(problem, devices=[cuda] * 4, layout=layout,
+                                       hash_type=ht, driver="host")
+        res = eng.run()
+        assert res.g == gold["optimal_g"]
+        tabs = [sh.tab for sh in sorted(eng.shards, key=lambda sh: sh.me)]
+        masks, rounds = eng._walk(eng.shards)
+        starts = [tuple(int(v) for v in problem.final_coord)] + list(res.closed)[5::7]
+        for start in starts:
+            for hops in (SH.WALK_HOPS, 1):
+                want = SH.walk_shards_plain(eng.st, tabs, start, layout, eng.own, hops)
+                before = _kernels.launches["path_walk_shards"]
+                got = SH.walk_shards_cuda(eng.st, tabs, start, layout, eng.hash_params, hops)
+                assert _kernels.launches["path_walk_shards"] == before + 1
+                assert got == want, (ht, start, hops)
+        assert SH.walk_shards_plain(eng.st, tabs, starts[0], layout, eng.own)[::2] == (
+            masks, rounds)
 
 
 INFP = 0x7FFFFFFF  # search/engine.py's empty f
@@ -2214,7 +2302,8 @@ def test_sharded_graph_chunks_equal_host_driver(cuda, name, layout):
     """PF08184 and test2 on [cuda] * 4 in chunks of 16 steps, each one CUDA
     graph (the run stops inside one), against the host driver: the golden
     g, the same result, stats and every table tensor bit for bit; the
-    walk's device loop gives the host walk's masks."""
+    walk, one launch of path_walk_shards on one card, gives the host
+    walk's masks and rounds in one read."""
     gold = json.load(open(os.path.join(HERE, "goldens.json")))[name]
     problem = Problem(tuple(r.replace("-", "") for r in gold["alignment"]))
     _kernels.reset_counts()
@@ -2226,8 +2315,11 @@ def test_sharded_graph_chunks_equal_host_driver(cuda, name, layout):
     cs = ce.last_stats
     assert cs["driver"] == "chunked" and cs["graph_replays"] == 16 * cs["host_reads"]
     assert cs["host_reads"] == -(-cr.steps // 16) and cs["graph_captures"] == 2
-    for k in ("consensus", "exchange", "walk_advance"):
+    assert cs["walk_form"] == "launch" and cs["walk_reads"] == 1
+    assert cs["walk_rounds"] == he.last_stats["walk_rounds"]
+    for k in ("consensus", "exchange", "path_walk_shards"):
         assert _kernels.launches[k] > 0, k
+    assert _kernels.launches["walk_advance"] == 0
 
 
 @pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])

@@ -743,7 +743,8 @@ def test_k4_launch_arguments_match_both_signatures():
     """K4's two instantiations share ``_expand_args``: each launch has its
     entry's arity, and the sharded one differs from the unsharded only in
     the entry, the cubes (none where h3 stands in), the pending rows'
-    offset and its own arguments before the stream."""
+    offset and its own arguments before the stream (the coordinates and the
+    rows a block last)."""
     from mpi_pastar_msa_tpu_torch import _kernels
     from mpi_pastar_msa_tpu_torch.search import step
 
@@ -753,7 +754,7 @@ def test_k4_launch_arguments_match_both_signatures():
     tab = S._sig_table(st, eng.h_root, True)
     bufs = step.StepBuffers.for_step(st, torch.device("cpu"))
     base = step._expand_args(st, tab, bufs, bufs.counters, eng.ub, "stream")
-    extra = (11, 12, *eng.hash_params, eng.ndev, 1)
+    extra = (11, 12, *eng.hash_params, eng.ndev, 1, 13, step.K4S_ROWS)
     shd = step._expand_args(st, tab, bufs, bufs.counters, eng.ub, "stream",
                             entry="sig_expand_sharded", cubes=False, pend_at=5, sharded=extra)
     assert len(base) - 1 == len(_kernels.SIGNATURES["sig_expand"])

@@ -612,24 +612,29 @@ def test_walk_advance_schedule_equals_plain(n, hops, ndev, stop):
         assert int((masks[state[2][0]:] > 0).sum()) == hops // 2
 
 
+@pytest.mark.parametrize("form", ["launch", "rounds"])
 @pytest.mark.parametrize("layout", ["sig", "packed", "unpacked"])
-def test_walk_loop_equals_host_walk(layout):
-    """The device loop's walk (WALK_ROUNDS rounds a read, walk_advance_plain)
-    on every shard's finished table against the host walk (``_walk``): the
-    same masks and rounds; a coordinate no shard holds raises in both."""
+def test_walk_loop_equals_host_walk(layout, form):
+    """The chunked driver's walk on every shard's finished table of one
+    card against the host walk (``_walk``): the same masks and rounds; a
+    coordinate no shard holds raises in both.  Its one-launch form (one
+    card's default: ``walk_shards_plain``, one read) and its round form
+    (WALK_ROUNDS rounds a read, walk_advance_plain), which several cards
+    take, both on the same one card."""
     eng = S.ShardedFrontierSearch(golden("PF08184.fasta"), devices=["cpu"] * 4, layout=layout,
                                   capacity=1 << 14, driver="host")
     res = eng.run()
+    assert eng.walk_form() == "launch"
     masks, rounds = eng._walk(eng.shards)
-    got, got_rounds, reads = eng._walk_loop(eng.shards)
+    got, got_rounds, reads = eng._walk_loop(eng.shards, form=form)
     assert got == masks and got_rounds == rounds == eng.last_stats["walk_rounds"]
-    assert reads == -(-rounds // S.WALK_ROUNDS)
+    assert reads == (1 if form == "launch" else -(-rounds // S.WALK_ROUNDS))
     assert len(res.closed) == len(masks)
     eng.problem = Problem(tuple(s + "W" for s in eng.problem.seqs))
     with pytest.raises(RuntimeError, match="did not reach the origin"):
         eng._walk(eng.shards)
     with pytest.raises(RuntimeError, match="did not reach the origin"):
-        eng._walk_loop(eng.shards)
+        eng._walk_loop(eng.shards, form=form)
 
 
 # --- the chunked driver against the host driver
@@ -715,6 +720,7 @@ def test_split_cards_chunked_equals_host_driver(monkeypatch, name, layout, excha
     cs, hs = ce.last_stats, he.last_stats
     assert cs["host_reads"] == -(-cr.steps // 16)
     assert hs["host_reads"] == hr.steps
+    assert cs["walk_form"] == "rounds"  # two cards: the device loop of rounds
     assert cs["walk_reads"] == -(-cs["walk_rounds"] // S.WALK_ROUNDS)
     for k in ("steps", "wire_rows", "migrated", "peak_carry", "walk_rounds"):
         assert cs[k] == hs[k], k
@@ -751,7 +757,8 @@ def test_rank_form_equals_card_form(monkeypatch, name, layout):
     assert all(torch.equal(c.cons, rank.cards[0].cons) for c in rank.cards)
     rs, cs = rank.last_stats, card.last_stats
     assert rs["host_reads"] == cs["host_reads"] == -(-rr.steps // 16)
-    assert rs["walk_reads"] == -(-rs["walk_rounds"] // S.WALK_ROUNDS)
+    assert rs["walk_form"] == "rounds" and cs["walk_form"] == "launch"
+    assert rs["walk_reads"] == -(-rs["walk_rounds"] // S.WALK_ROUNDS) and cs["walk_reads"] == 1
     for k in ("steps", "wire_rows", "migrated", "peak_carry", "walk_rounds"):
         assert rs[k] == cs[k], k
 
@@ -1041,7 +1048,8 @@ def test_chunked_odd_chunks_equal_host_driver(layout, chunk):
     assert cs["host_reads"] == -(-59 // chunk) and hs["host_reads"] == 59
     for k in ("steps", "wire_rows", "migrated", "peak_carry", "walk_rounds"):
         assert cs[k] == hs[k], k
-    assert cs["walk_reads"] == -(-cs["walk_rounds"] // S.WALK_ROUNDS)
+    # one card: the walk in one launch, one read
+    assert cs["walk_form"] == "launch" and cs["walk_reads"] == 1
 
 
 class _StepReplay:
